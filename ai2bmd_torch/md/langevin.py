@@ -1,0 +1,95 @@
+"""Langevin dynamics with ASE-compatible semantics.
+
+Port of ``ai2bmd_tpu/md/langevin.py:25-138``: the Vanden-Eijnden / Ciccotti
+integrator exactly as ASE's ``Langevin``, and the Maxwell-Boltzmann velocity
+draw.  The noise of a step comes from an explicit ``torch.Generator`` unless
+the caller passes it in (``xi``, ``eta``), which is how the tests feed both
+packages the same numbers: torch's and JAX's generators differ.
+
+Units: ASE internal (A, eV, amu, time = A*sqrt(amu/eV)).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ai2bmd_torch.host import units
+
+
+@dataclasses.dataclass
+class MDState:
+    positions: torch.Tensor    # [N,3] A
+    velocities: torch.Tensor   # [N,3] A / internal time
+    forces: torch.Tensor       # [N,3] eV/A at `positions`
+    energy: torch.Tensor       # scalar eV
+    step: int = 0
+    aux: Any = None            # potential-side carry (cap offsets)
+
+
+@dataclasses.dataclass(frozen=True)
+class LangevinCoeffs:
+    dt: float
+    c1: float
+    c2: float
+    c3: torch.Tensor   # [N,1]
+    c4: torch.Tensor   # [N,1]
+    c5: torch.Tensor   # [N,1]
+
+    @classmethod
+    def build(cls, masses, timestep_fs: float, temp_K: float, friction_per_fs: float,
+              device="cpu", dtype=torch.float32) -> "LangevinCoeffs":
+        dt = timestep_fs * units.fs
+        fr = friction_per_fs / units.fs
+        T = temp_K * units.kB
+        sigma = np.sqrt(2.0 * T * fr / np.asarray(masses, np.float64))[:, None]
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        return cls(
+            dt=dt,
+            c1=dt / 2.0 - dt * dt * fr / 8.0,
+            c2=dt * fr / 2.0 - dt * dt * fr * fr / 8.0,
+            c3=t(math.sqrt(dt) * sigma / 2.0 - dt ** 1.5 * fr * sigma / 8.0),
+            c4=t(fr / 2.0 * (dt ** 1.5 * sigma / (2.0 * math.sqrt(3.0)))),
+            c5=t(dt ** 1.5 * sigma / (2.0 * math.sqrt(3.0))),
+        )
+
+
+def maxwell_boltzmann_velocities(generator: torch.Generator, masses, temp_K: float,
+                                 dtype=torch.float32) -> torch.Tensor:
+    """Velocities [N,3] on the generator's device."""
+    m = torch.as_tensor(np.asarray(masses), dtype=dtype, device=generator.device)[:, None]
+    std = torch.sqrt(temp_K * units.kB / m)
+    return std * torch.randn((len(masses), 3), generator=generator, dtype=dtype,
+                             device=generator.device)
+
+
+def langevin_step(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Tensor,
+                  state: MDState, fixcm: bool = True, xi: torch.Tensor | None = None,
+                  eta: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None) -> MDState:
+    """One Langevin step (two half-kicks around the position update).
+
+    ``potential`` has the stateful protocol (P, aux) -> (E, F, aux);
+    ``masses`` is [N] on the positions' device.  Without ``xi``/``eta`` the
+    two standard normals are drawn from ``generator``, xi first."""
+    shape = state.positions.shape
+    if xi is None or eta is None:
+        if generator is None:
+            raise ValueError("langevin_step needs either xi and eta or a generator")
+        draw = lambda: torch.randn(shape, generator=generator, dtype=state.positions.dtype,
+                                   device=state.positions.device)
+        xi, eta = draw(), draw()
+    m = masses[:, None]
+    v = state.velocities
+    v = v + (coeffs.c1 * state.forces / m - coeffs.c2 * v + coeffs.c3 * xi - coeffs.c4 * eta)
+    x = state.positions + coeffs.dt * v + coeffs.c5 * eta
+    if fixcm:
+        x = x - ((x - state.positions) * m).sum(0) / m.sum()
+    energy, f_new, aux = potential(x, state.aux)
+    v = v + (coeffs.c1 * f_new / m - coeffs.c2 * v + coeffs.c3 * xi - coeffs.c4 * eta)
+    return MDState(positions=x, velocities=v, forces=f_new, energy=energy,
+                   step=state.step + 1, aux=aux)

@@ -1,0 +1,285 @@
+"""ViSNet equivariant GNN potential in PyTorch.
+
+Port of ``ai2bmd_tpu/models/visnet.py`` with the same dense formulation:
+fragments padded to [B, A] with a validity mask, the graph a dense
+[B, A, A] adjacency within the cutoff (self loops included), the vector
+message and the vector-rejection edge update contracted to [B, A, A, H]
+intermediates, and forces from autograd of the summed energy.  The layer
+math is the jnp branch of ``vis_mp_layer`` (visnet.py:416-474); its edge
+core goes through ``ops.vismp.edge_core``, which is the plain version on CPU
+tensors and kernels K1-K3 on CUDA tensors (the kernel branch, :391-414).
+
+Not ported (options of the JAX config that no production path sets):
+``exact_rejection``, ``remat``, ``edge_dtype`` and the Pallas switches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ai2bmd_torch.models import params as PM
+from ai2bmd_torch.ops.vismp import _ACTS, cosine_cutoff, edge_core
+
+__all__ = [
+    "ViSNet", "ViSNetConfig", "atomwise_energy", "cosine_cutoff", "dense_graph",
+    "energy", "energy_and_forces", "expnorm_rbf", "gated_equivariant_block",
+    "layer_norm", "representation", "spherical_harmonics", "vec_layer_norm",
+    "vis_mp_layer",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ViSNetConfig:
+    lmax: int = 2
+    hidden_channels: int = 256
+    num_heads: int = 8
+    num_layers: int = 9
+    num_rbf: int = 32
+    cutoff: float = 5.0
+    max_z: int = 100
+    vecnorm_type: str = "none"        # none | rms | max_min
+    activation: str = "silu"
+    attn_activation: str = "silu"
+
+    @property
+    def n_sphere(self) -> int:
+        return (self.lmax + 1) ** 2 - 1
+
+
+def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    return y + p["b"] if "b" in p else y
+
+
+def _safe_inv_norm(vec, eps=1e-12):
+    """1/|vec| over the last axis (kept), zero value and gradient at 0."""
+    d2 = (vec * vec).sum(-1, keepdim=True)
+    nonzero = d2 > eps
+    inv = torch.where(nonzero, torch.rsqrt(torch.where(nonzero, d2, torch.ones_like(d2))),
+                      torch.zeros_like(d2))
+    return inv, nonzero
+
+
+def _safe_norm(vec, dim=-1, keepdim=False, eps=1e-12):
+    d2 = (vec * vec).sum(dim, keepdim=keepdim)
+    nonzero = d2 > eps
+    return torch.where(nonzero, torch.sqrt(torch.where(nonzero, d2, torch.ones_like(d2))),
+                       torch.zeros_like(d2))
+
+
+def expnorm_rbf(p: dict, dist: torch.Tensor, cfg: ViSNetConfig) -> torch.Tensor:
+    alpha = 5.0 / cfg.cutoff
+    d = dist[..., None]
+    return cosine_cutoff(d, cfg.cutoff) * torch.exp(
+        -p["betas"] * (torch.exp(-alpha * d) - p["means"]) ** 2
+    )
+
+
+def spherical_harmonics(unit_vec: torch.Tensor, lmax: int) -> torch.Tensor:
+    """Real SH of a unit vector: l=1 (x, y, z) and, for lmax 2, the l=2 block."""
+    x, y, z = unit_vec.unbind(-1)
+    comps = [x, y, z]
+    if lmax >= 2:
+        s3 = math.sqrt(3.0)
+        comps += [
+            s3 * x * z,
+            s3 * x * y,
+            y * y - 0.5 * (x * x + z * z),
+            s3 * y * z,
+            (s3 / 2.0) * (z * z - x * x),
+        ]
+    return torch.stack(comps, dim=-1)
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
+def vec_layer_norm(p: dict, vec: torch.Tensor, norm_type: str, lmax: int) -> torch.Tensor:
+    """VecLayerNorm over vec [..., S, H] (reference utils.py:165-249)."""
+    if norm_type == "none":
+        return vec * p["weight"]
+
+    def norm_block(v):
+        dist = _safe_norm(v, dim=-2, keepdim=True)               # [..., 1, H]
+        if norm_type == "rms":
+            ms = (dist ** 2).mean(-1, keepdim=True)
+            pos = ms > 1e-24
+            rms = torch.where(pos, torch.sqrt(torch.where(pos, ms, torch.ones_like(ms))),
+                              torch.zeros_like(ms))
+            inv = torch.where(rms > 1e-12, 1.0 / torch.clamp(rms, min=1e-12),
+                              torch.zeros_like(rms))
+            return v * inv
+        if norm_type != "max_min":
+            raise ValueError(f"unknown vecnorm_type {norm_type!r}")
+        direct = v / torch.clamp(dist, min=1e-12)
+        mx = dist.amax(-1, keepdim=True)
+        mn = dist.amin(-1, keepdim=True)
+        delta = torch.where(mx - mn == 0, torch.ones_like(mx), mx - mn)
+        return F.relu((dist - mn) / delta) * direct
+
+    if lmax >= 2:
+        vec = torch.cat([norm_block(vec[..., :3, :]), norm_block(vec[..., 3:8, :])], dim=-2)
+    else:
+        vec = norm_block(vec)
+    return vec * p["weight"]
+
+
+def dense_graph(pos: torch.Tensor, mask: torch.Tensor, cfg: ViSNetConfig):
+    """All-pairs graph within one padded fragment.
+
+    Returns adj [B,A,A] (edges incl. self loops: both endpoints valid and
+    r < cutoff), adj_ns (without self loops), dist [B,A,A] (0 on self loops)
+    and d_sh [B,A,A,S], the spherical features of the unit edge vector."""
+    A = pos.shape[1]
+    vec = pos[:, None, :, :] - pos[:, :, None, :]       # j - i (source - centre)
+    inv, nonzero = _safe_inv_norm(vec)
+    dist = _safe_norm(vec)
+    eye = torch.eye(A, dtype=torch.bool, device=pos.device)
+    pair_valid = mask[:, :, None] & mask[:, None, :]
+    adj = pair_valid & ((dist < cfg.cutoff) | eye)
+    adj_ns = adj & ~eye & nonzero[..., 0]
+    return adj, adj_ns, dist, spherical_harmonics(vec * inv, cfg.lmax)
+
+
+def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConfig,
+                 last: bool):
+    """One ViS_MP update (reference visnet_block.py:237-312).
+
+    x [B,A,H]; vec [B,A,S,H]; adj_f [B,A,A] float (self loops included);
+    dist [B,A,A]; edge_attr [B,A,A,H]; d_sh [B,A,A,S].
+    Returns (dx, dvec, df or None)."""
+    H, nh = cfg.hidden_channels, cfg.num_heads
+    x = layer_norm(lp["layernorm"], x)
+    vec = vec_layer_norm(lp["vec_layernorm"], vec, cfg.vecnorm_type, cfg.lmax)
+
+    w_qkv = torch.cat([lp["q_proj"]["w"], lp["k_proj"]["w"], lp["v_proj"]["w"]], dim=1)
+    b_qkv = torch.cat([lp["q_proj"]["b"], lp["k_proj"]["b"], lp["v_proj"]["b"]])
+    q, k, v = (x @ w_qkv + b_qkv).split(H, dim=-1)
+    w_dkv = torch.cat([lp["dk_proj"]["w"], lp["dv_proj"]["w"]], dim=1)
+    b_dkv = torch.cat([lp["dk_proj"]["b"], lp["dv_proj"]["b"]])
+
+    vec1, vec2, vec3 = _linear(lp["vec_proj"], vec).split(H, dim=-1)
+    vec_dot = (vec1 * vec2).sum(-2)                        # [B,A,H]
+
+    upd = {}
+    if not last:
+        # edge update: silu(f_proj(edge)) * <W_trg vec_i, W_src vec_j>_c * adj
+        # (the vector rejections' |d_sh|^2 - 2 correction vanishes)
+        upd = dict(wt=_linear(lp["w_trg_proj"], vec), wsrc=_linear(lp["w_src_proj"], vec),
+                   w_f=lp["f_proj"]["w"], b_f=lp["f_proj"]["b"])
+    x_agg, vec_agg, df = edge_core(
+        q, k, v, vec, edge_attr, d_sh, dist, adj_f, w_dkv, b_dkv,
+        lp["s_proj"]["w"], lp["s_proj"]["b"], cfg.cutoff, nh,
+        act=cfg.activation, attn_act=cfg.attn_activation, **upd,
+    )
+    o1, o2, o3 = _linear(lp["o_proj"], x_agg).split(H, dim=-1)
+    dx = vec_dot * o2 + o3
+    dvec = vec3 * o1[:, :, None, :] + vec_agg
+    return dx, dvec, df
+
+
+def representation(params: dict, z, pos, mask, cfg: ViSNetConfig):
+    """ViSNetBlock forward (visnet_block.py:103-142): embeddings + MP stack."""
+    B, A = z.shape
+    dtype = pos.dtype
+    adj, adj_ns, dist, d_sh = dense_graph(pos, mask, cfg)
+    adj_f = adj.to(dtype)
+    maskf = mask[..., None].to(dtype)
+
+    x = params["embedding"][z] * maskf
+    edge_rbf = expnorm_rbf(params["rbf"], dist, cfg) * adj_f[..., None]
+
+    # neighbour embedding (self loops removed; utils.py:296-317)
+    ne = params["neighbor_embedding"]
+    C = cosine_cutoff(dist, cfg.cutoff) * adj_ns.to(dtype)
+    W = _linear(ne["distance_proj"], edge_rbf) * C[..., None]
+    x_nbr = torch.einsum("bjh,bijh->bih", ne["embedding"][z] * maskf, W)
+    x = _linear(ne["combine"], torch.cat([x, x_nbr], dim=-1)) * maskf
+
+    # edge embedding over all edges incl. self loops (utils.py:331-341)
+    edge_attr = ((x[:, :, None, :] + x[:, None, :, :])
+                 * _linear(params["edge_embedding"]["edge_proj"], edge_rbf)
+                 * adj_f[..., None])
+
+    vec = torch.zeros((B, A, cfg.n_sphere, cfg.hidden_channels), dtype=dtype,
+                      device=pos.device)
+    for li, lp in enumerate(params["layers"]):
+        dx, dvec, df = vis_mp_layer(lp, x, vec, adj_f, dist, edge_attr, d_sh, cfg,
+                                    last=li == cfg.num_layers - 1)
+        x = x + dx
+        vec = vec + dvec
+        if df is not None:
+            edge_attr = edge_attr + df
+
+    x = layer_norm(params["out_norm"], x)
+    vec = vec_layer_norm(params["vec_out_norm"], vec, cfg.vecnorm_type, cfg.lmax)
+    return x, vec
+
+
+def gated_equivariant_block(p: dict, x, v, scalar_activation: bool, cfg: ViSNetConfig):
+    """output_modules.py:9-62."""
+    act = _ACTS[cfg.activation]
+    vec1 = _safe_norm(_linear(p["vec1_proj"], v), dim=-2)
+    vec2 = _linear(p["vec2_proj"], v)
+    out = _linear(p["update1"], act(_linear(p["update0"], torch.cat([x, vec1], dim=-1))))
+    x, gate = out.chunk(2, dim=-1)
+    v = gate[:, :, None, :] * vec2
+    if scalar_activation:
+        x = act(x)
+    return x, v
+
+
+def atomwise_energy(params: dict, z, pos, mask, cfg: ViSNetConfig):
+    """Per-atom scalar contributions [B, A], masked."""
+    x, v = representation(params, z, pos, mask, cfg)
+    x, v = gated_equivariant_block(params["output"]["block0"], x, v, True, cfg)
+    x, v = gated_equivariant_block(params["output"]["block1"], x, v, False, cfg)
+    x = x + v.sum() * 0.0            # grad-keeper parity (output_modules.py:140)
+    x = x * params["std"]
+    x = x + params["atomref"][z]
+    return x[..., 0] * mask.to(x.dtype)
+
+
+def energy(params: dict, z, pos, mask, cfg: ViSNetConfig):
+    """Per-fragment energies [B] (reference visnet.py:135-150)."""
+    return atomwise_energy(params, z, pos, mask, cfg).sum(-1) + params["mean"]
+
+
+def energy_and_forces(params: dict, z, pos, mask, cfg: ViSNetConfig):
+    """E [B] and F [B,A,3] = -dE/dpos (masked), by autograd."""
+    with torch.enable_grad():
+        p = pos.detach().requires_grad_(True)
+        e = energy(params, z, p, mask, cfg)
+        (g,) = torch.autograd.grad(e.sum(), p, create_graph=False)
+    return e.detach(), -g * mask[..., None].to(g.dtype)
+
+
+class ViSNet(nn.Module):
+    """The parameter tree as an ``nn.Module``, so ``.to(device, dtype)``
+    moves and casts it; the computation is the plain functions above.
+    Parameters do not require gradients: MD differentiates positions only."""
+
+    def __init__(self, cfg: ViSNetConfig, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self._paths = []
+        for path, leaf in PM.flatten(params):
+            name = "__".join(map(str, path))
+            self.register_parameter(
+                name, nn.Parameter(torch.as_tensor(leaf).clone(), requires_grad=False))
+            self._paths.append((name, path))
+
+    def params(self) -> dict:
+        """The parameter tree (current tensors) in the JAX layout."""
+        return PM.unflatten([(path, getattr(self, name)) for name, path in self._paths])
+
+    def forward(self, z, pos, mask):
+        return energy(self.params(), z, pos, mask, self.cfg)

@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Every wrapper adds one to ``LAUNCHES[name]`` where it launches its CUDA
+kernel, and nowhere else, so a run can show which kernels its main path
+went through.
+"""
+
+LAUNCHES = {"edge_fwd": 0, "edge_bwd_msg": 0, "edge_bwd_upd": 0, "cap_grad": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

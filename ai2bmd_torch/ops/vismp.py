@@ -1,0 +1,347 @@
+"""ViS-MP edge core: plain PyTorch versions, kernel wrappers, autograd.
+
+Port of ``ai2bmd_tpu/ops/pallas/vismp.py``.  Shapes follow the JAX package's
+public layout: q/k/v [B,A,H]; vec, wt, wsrc [B,A,S,H]; edge [B,A,A,H];
+d_sh [B,A,A,S]; dist, adj [B,A,A] (adj as a float mask, self loops
+included); linear weights [in, out] as in JAX.  Axis 1 is the centre atom i,
+axis 2 the source atom j.
+
+Three kernels (``csrc/``) and their plain versions:
+
+  edge_fwd      (K1)  x_agg, vec_agg [, df] [, zdkv, zs, zf]
+  edge_bwd_msg  (K2)  backward of x_agg, vec_agg from the stored zdkv, zs
+  edge_bwd_upd  (K3)  backward of df from the stored zf
+
+Each wrapper runs its plain version for CPU tensors and launches its kernel
+for CUDA tensors; there is no other route.  ``edge_core`` is what the model
+calls: the plain forward (differentiable in every input, weights included)
+on the CPU, ``FusedVisMP`` on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ai2bmd_torch.ops import LAUNCHES, _build
+
+_f32 = torch.float32
+
+
+def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
+    return 0.5 * (torch.cos(dist * (math.pi / cutoff)) + 1.0) * (dist < cutoff)
+
+
+def dsilu(z: torch.Tensor) -> torch.Tensor:
+    sg = torch.sigmoid(z)
+    return sg * (1.0 + z * (1.0 - sg))
+
+
+def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
+    """Sum each head's dh channels: [..., H] -> [..., nh]."""
+    return x.unflatten(-1, (nh, x.shape[-1] // nh)).sum(-1)
+
+
+def _per_channel(x: torch.Tensor, H: int) -> torch.Tensor:
+    """Broadcast a per-head value to its channels: [..., nh] -> [..., H]."""
+    return x.repeat_interleave(H // x.shape[-1], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    "silu": F.silu,
+    "swish": F.silu,
+    "ssp": lambda x: F.softplus(x) - math.log(2.0),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+                   cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
+                   act: str = "silu", attn_act: str = "silu"):
+    """Plain version of K1: (x_agg, vec_agg, df, zdkv, zs, zf), df and zf None
+    without the update.  The same math as the jnp branch of
+    ``ai2bmd_tpu/models/visnet.py:416-474`` and ``vismp.reference_edge_block``
+    / ``reference_edge_update`` (:334, :437); the kernel hardwires silu, the
+    plain version also takes the config's other activations."""
+    H = q.shape[-1]
+    act_fn, attn_fn = _ACTS[act], _ACTS[attn_act]
+    adj_e = adj[..., None]
+    zdkv = edge @ w_dkv + b_dkv
+    dk, dv = act_fn(zdkv).split(H, dim=-1)
+    a = _heads(q[:, :, None] * k[:, None] * dk, nh)
+    gate = (cosine_cutoff(dist, cutoff) * adj)[..., None]
+    v_ij = v[:, None] * dv * (_per_channel(attn_fn(a), H) * gate)
+    zs = v_ij @ w_s + b_s
+    s1, s2 = (act_fn(zs) * adj_e).split(H, dim=-1)
+    x_agg = v_ij.sum(2)
+    vec_agg = (torch.einsum("bjch,bijh->bich", vec, s1)
+               + torch.einsum("bijh,bijc->bich", s2, d_sh))
+    df = zf = None
+    if wt is not None:
+        zf = edge @ w_f + b_f
+        df = act_fn(zf) * torch.einsum("bich,bjch->bijh", wt, wsrc) * adj_e
+    return x_agg, vec_agg, df, zdkv, zs, zf
+
+
+def edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
+                       g_xagg, g_vecagg, cutoff: float, nh: int):
+    """Plain version of K2: the message-path VJP from the stored zdkv and zs,
+    the math of ``_bwd_msg_kernel_sa`` (vismp.py:757).  Returns
+    (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
+    H = q.shape[-1]
+    adj_e = adj[..., None]
+    zk, zv = zdkv.split(H, dim=-1)
+    dk, dv = F.silu(zk), F.silu(zv)
+    q_i, k_j, v_j = q[:, :, None], k[:, None], v[:, None]
+    a = _heads(q_i * k_j * dk, nh)
+    att = _per_channel(F.silu(a), H)
+    gate = (cosine_cutoff(dist, cutoff) * adj)[..., None]
+    g3 = att * gate
+    z1, z2 = zs.split(H, dim=-1)
+    s1, s2 = F.silu(z1) * adj_e, F.silu(z2) * adj_e
+
+    g_s1 = torch.einsum("bich,bjch->bijh", g_vecagg, vec)
+    g_s2 = torch.einsum("bich,bijc->bijh", g_vecagg, d_sh)
+    g_vec = torch.einsum("bijh,bich->bjch", s1, g_vecagg)
+    g_dsh = torch.einsum("bich,bijh->bijc", g_vecagg, s2)
+    g_s = torch.cat([g_s1 * adj_e, g_s2 * adj_e], dim=-1) * dsilu(zs)
+    g_vij = g_s @ w_s.T + g_xagg[:, :, None]
+
+    g_v = (g_vij * dv * g3).sum(1)
+    g_dv = g_vij * v_j * g3
+    g_g3 = g_vij * v_j * dv
+    inside = (dist < cutoff).to(q.dtype)
+    dcut = -0.5 * (math.pi / cutoff) * torch.sin(dist * (math.pi / cutoff)) * inside
+    g_dist = (g_g3 * att).sum(-1) * adj * dcut
+    g_p = _per_channel(_heads(g_g3 * gate, nh) * dsilu(a), H)
+    g_q = (g_p * k_j * dk).sum(2)
+    g_k = (g_p * q_i * dk).sum(1)
+    g_dk = g_p * q_i * k_j
+    g_edge = (torch.cat([g_dk, g_dv], dim=-1) * dsilu(zdkv)) @ w_dkv.T
+    return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
+
+
+def edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df):
+    """Plain version of K3: the edge-update VJP from the stored zf, the math
+    of ``_bwd_upd_kernel_sa`` (vismp.py:852).  Returns (g_edge, g_wt, g_wsrc)."""
+    g = g_df * adj[..., None]
+    g_s = g * F.silu(zf)
+    s_ij = torch.einsum("bich,bjch->bijh", wt, wsrc)
+    g_wt = torch.einsum("bijh,bjch->bich", g_s, wsrc)
+    g_wsrc = torch.einsum("bijh,bich->bjch", g_s, wt)
+    g_edge = (g * s_ij * dsilu(zf)) @ w_f.T
+    return g_edge, g_wt, g_wsrc
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = _build.P, _build.I, _build.F
+_FWD_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I]
+_MSG_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F]
+_UPD_ARGS = [_P] * 9 + [_I, _I, _I, _I]
+
+
+def _route(t: torch.Tensor) -> bool:
+    """True for the kernel (CUDA tensor), False for the plain version (CPU)."""
+    if t.device.type == "cpu":
+        return False
+    if t.is_cuda:
+        return True
+    raise ValueError(f"no edge-core implementation for device {t.device}")
+
+
+def _check_shapes(A, H, S, nh):
+    if H // nh != 32 or H % nh or H > 256 or A > 48 or A % 8 or S > 8:
+        raise ValueError(
+            f"edge kernels take heads of 32 channels, H <= 256, A a multiple of 8 "
+            f"up to 48 (the fragment indexer's slot rounding), S <= 8; "
+            f"got H={H}, nh={nh}, A={A}, S={S}"
+        )
+
+
+def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+             cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
+             store: bool = False):
+    """K1.  Returns (x_agg, vec_agg, df, zdkv, zs, zf); df/zf are None without
+    the update (wt is None), zdkv/zs/zf None unless ``store``."""
+    update = wt is not None
+    if not _route(q):
+        x_agg, vec_agg, df, zdkv, zs, zf = edge_fwd_plain(
+            q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+            cutoff, nh, wt, wsrc, w_f, b_f)
+        if not store:
+            zdkv = zs = zf = None
+        return x_agg, vec_agg, df, zdkv, zs, zf
+    B, A, H = q.shape
+    S = vec.shape[2]
+    _check_shapes(A, H, S, nh)
+    dev = q.device
+    c = _build.check
+    for name, t, shape in (
+        ("q", q, (B, A, H)), ("k", k, (B, A, H)), ("v", v, (B, A, H)),
+        ("vec", vec, (B, A, S, H)), ("edge", edge, (B, A, A, H)),
+        ("d_sh", d_sh, (B, A, A, S)), ("dist", dist, (B, A, A)),
+        ("adj", adj, (B, A, A)), ("w_dkv", w_dkv, (H, 2 * H)),
+        ("b_dkv", b_dkv, (2 * H,)), ("w_s", w_s, (H, 2 * H)), ("b_s", b_s, (2 * H,)),
+    ):
+        c(name, t, shape, device=dev)
+    if update:
+        for name, t, shape in (("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)),
+                               ("w_f", w_f, (H, H)), ("b_f", b_f, (H,))):
+            c(name, t, shape, device=dev)
+    new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
+    x_agg, vec_agg = new(B, A, H), new(B, A, S, H)
+    df = new(B, A, A, H) if update else None
+    zdkv = new(B, A, A, 2 * H) if store else None
+    zs = new(B, A, A, 2 * H) if store else None
+    zf = new(B, A, A, H) if store and update else None
+    p = _build.ptr
+    _build.call(
+        "edge_fwd_launch", _FWD_ARGS,
+        p(q), p(k), p(v), p(vec), p(wt), p(wsrc), p(edge), p(d_sh), p(dist), p(adj),
+        p(w_dkv), p(b_dkv), p(w_s), p(b_s), p(w_f), p(b_f),
+        p(x_agg), p(vec_agg), p(df), p(zdkv), p(zs), p(zf),
+        B, A, H, S, float(cutoff), int(update), int(store),
+    )
+    LAUNCHES["edge_fwd"] += 1
+    return x_agg, vec_agg, df, zdkv, zs, zf
+
+
+def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
+                 g_xagg, g_vecagg, cutoff: float, nh: int):
+    """K2.  Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
+    if not _route(q):
+        return edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv,
+                                  w_s, g_xagg, g_vecagg, cutoff, nh)
+    B, A, H = q.shape
+    S = vec.shape[2]
+    _check_shapes(A, H, S, nh)
+    dev = q.device
+    wdkvT, wsT = w_dkv.t().contiguous(), w_s.t().contiguous()
+    c = _build.check
+    for name, t, shape in (
+        ("q", q, (B, A, H)), ("k", k, (B, A, H)), ("v", v, (B, A, H)),
+        ("vec", vec, (B, A, S, H)), ("zdkv", zdkv, (B, A, A, 2 * H)),
+        ("zs", zs, (B, A, A, 2 * H)), ("d_sh", d_sh, (B, A, A, S)),
+        ("dist", dist, (B, A, A)), ("adj", adj, (B, A, A)),
+        ("w_dkv^T", wdkvT, (2 * H, H)), ("w_s^T", wsT, (2 * H, H)),
+        ("g_xagg", g_xagg, (B, A, H)), ("g_vecagg", g_vecagg, (B, A, S, H)),
+    ):
+        c(name, t, shape, device=dev)
+    new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
+    g_q, g_k, g_v = new(B, A, H), new(B, A, H), new(B, A, H)
+    g_vec, g_edge = new(B, A, S, H), new(B, A, A, H)
+    g_dsh, g_dist = new(B, A, A, S), new(B, A, A)
+    gk_e, gv_e = new(B, A, A, H), new(B, A, A, H)   # per-edge terms (scratch)
+    p = _build.ptr
+    _build.call(
+        "edge_bwd_msg_launch", _MSG_ARGS,
+        p(q), p(k), p(v), p(vec), p(zdkv), p(zs), p(d_sh), p(dist), p(adj),
+        p(wdkvT), p(wsT), p(g_xagg), p(g_vecagg),
+        p(g_q), p(g_k), p(g_v), p(g_vec), p(g_edge), p(g_dsh), p(g_dist),
+        p(gk_e), p(gv_e), B, A, H, S, float(cutoff),
+    )
+    LAUNCHES["edge_bwd_msg"] += 1
+    return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
+
+
+def edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df):
+    """K3.  Returns (g_edge, g_wt, g_wsrc)."""
+    if not _route(zf):
+        return edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df)
+    B, A, _, H = zf.shape
+    S = wt.shape[2]
+    _check_shapes(A, H, S, H // 32)
+    dev = zf.device
+    wfT = w_f.t().contiguous()
+    c = _build.check
+    for name, t, shape in (
+        ("adj", adj, (B, A, A)), ("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)),
+        ("w_f^T", wfT, (H, H)), ("zf", zf, (B, A, A, H)), ("g_df", g_df, (B, A, A, H)),
+    ):
+        c(name, t, shape, device=dev)
+    new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
+    g_edge, g_wt, g_wsrc = new(B, A, A, H), new(B, A, S, H), new(B, A, S, H)
+    p = _build.ptr
+    _build.call(
+        "edge_bwd_upd_launch", _UPD_ARGS,
+        p(adj), p(wt), p(wsrc), p(wfT), p(zf), p(g_df),
+        p(g_edge), p(g_wt), p(g_wsrc), B, A, H, S,
+    )
+    LAUNCHES["edge_bwd_upd"] += 1
+    return g_edge, g_wt, g_wsrc
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class FusedVisMP(torch.autograd.Function):
+    """The edge core through K1 forward and K2/K3 backward.
+
+    Mirrors ``vismp.fused_vis_mp`` (vismp.py:1111-1220): the forward stores
+    zdkv, zs (and zf with the update) only when some input needs a gradient,
+    and the backward reads them instead of recomputing the edge products.
+    The gradient flows to q, k, v, vec, wt, wsrc, edge, d_sh and dist.  The
+    weights and biases get NO gradient (the reference returns zeros,
+    vismp.py:1123): forces differentiate positions only, so training must
+    use the plain path (CPU tensors, or ``edge_fwd_plain`` directly).
+    On CPU tensors the wrappers run their plain versions, so this Function
+    is also testable without a card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, vec, wt, wsrc, edge, d_sh, dist, adj,
+                w_dkv, b_dkv, w_s, b_s, w_f, b_f, cutoff, nh):
+        store = any(ctx.needs_input_grad[:9])
+        x_agg, vec_agg, df, zdkv, zs, zf = edge_fwd(
+            q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+            cutoff, nh, wt, wsrc, w_f, b_f, store=store)
+        ctx.cutoff, ctx.nh, ctx.update = cutoff, nh, wt is not None
+        if store:
+            ctx.save_for_backward(q, k, v, vec, wt, wsrc, d_sh, dist, adj,
+                                  w_dkv, w_s, w_f, zdkv, zs, zf)
+        if ctx.update:
+            return x_agg, vec_agg, df
+        return x_agg, vec_agg
+
+    @staticmethod
+    def backward(ctx, g_xagg, g_vecagg, g_df=None):
+        (q, k, v, vec, wt, wsrc, d_sh, dist, adj,
+         w_dkv, w_s, w_f, zdkv, zs, zf) = ctx.saved_tensors
+        g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = edge_bwd_msg(
+            q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
+            g_xagg.contiguous(), g_vecagg.contiguous(), ctx.cutoff, ctx.nh)
+        g_wt = g_wsrc = None
+        if ctx.update:
+            g_edge2, g_wt, g_wsrc = edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df.contiguous())
+            g_edge = g_edge + g_edge2
+        return (g_q, g_k, g_v, g_vec, g_wt, g_wsrc, g_edge, g_dsh, g_dist,
+                None, None, None, None, None, None, None, None, None)
+
+
+def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+              cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
+              act: str = "silu", attn_act: str = "silu"):
+    """The one entry the model calls: (x_agg, vec_agg, df or None).
+
+    CPU tensors take the plain forward and autograd through it; CUDA tensors
+    take ``FusedVisMP`` (kernels K1-K3), which computes silu only."""
+    if not _route(q):
+        return edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
+                              w_s, b_s, cutoff, nh, wt, wsrc, w_f, b_f, act, attn_act)[:3]
+    if act not in ("silu", "swish") or attn_act not in ("silu", "swish"):
+        raise ValueError(f"the edge kernels compute silu, not {act!r}/{attn_act!r}")
+    cont = lambda t: None if t is None else t.contiguous()
+    outs = FusedVisMP.apply(
+        *map(cont, (q, k, v, vec, wt, wsrc, edge, d_sh, dist, adj,
+                    w_dkv, b_dkv, w_s, b_s, w_f, b_f)), cutoff, nh)
+    return outs if wt is not None else (*outs, None)

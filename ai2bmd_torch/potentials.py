@@ -1,0 +1,62 @@
+"""The fragment potential: ML bonded terms + classical long range.
+
+Port of ``ai2bmd_tpu/potentials.py`` (``FragmentPotential``).  The device and
+dtype are those of the ViSNet module the caller passes: a module on the card
+runs the kernels, a module on the CPU the plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ai2bmd_torch.frag import runtime as RT
+from ai2bmd_torch.host import FragmentIndex, Protein, build_fragment_index
+from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+from ai2bmd_torch.physics.nonbonded import NonbondedParams, nonbonded_energy_forces
+from ai2bmd_torch.utils.device import require_cuda
+
+
+@dataclasses.dataclass
+class FragmentPotential:
+    """Divide-and-conquer ML potential + the dense "mm" long-range term."""
+
+    module: ViSNet
+    cfg: ViSNetConfig
+    rt: RT.FragmentRuntime
+    nb: NonbondedParams
+    fi: FragmentIndex
+
+    @classmethod
+    def build(cls, prot: Protein, module: ViSNet, cfg: ViSNetConfig,
+              longrange: str = "mm", opt_iters: int = 10) -> "FragmentPotential":
+        if longrange == "pme":
+            raise NotImplementedError(
+                "longrange='pme' is not ported yet (ROADMAP.md, Queue 1 item 12)")
+        if longrange != "mm":
+            raise ValueError(f"unknown long-range mode {longrange!r}")
+        ref = next(module.parameters())
+        if ref.is_cuda:
+            require_cuda()
+        fi = build_fragment_index(prot.atoms)
+        rt = RT.FragmentRuntime.build(fi, opt_iters=opt_iters, device=ref.device,
+                                      dtype=ref.dtype)
+        nb = NonbondedParams.build(prot, fi.exclusion_mask(), ref.device, ref.dtype)
+        return cls(module=module, cfg=cfg, rt=rt, nb=nb, fi=fi)
+
+    def energy_forces(self, P: torch.Tensor):
+        e_b, f_b = RT.fragment_energy_forces(self.module.params(), self.rt, P, self.cfg)
+        e_nb, f_nb = nonbonded_energy_forces(self.nb, P)
+        return e_b + e_nb, f_b + f_nb
+
+    # -- warm-started stateful variant (aux = cap offsets) -------------------
+    def init_cap_delta(self, P: torch.Tensor) -> torch.Tensor:
+        return RT.initial_cap_delta(self.rt, P, n_iter=self.rt.opt_iters)
+
+    def stateful_energy_forces(self, P: torch.Tensor, aux: torch.Tensor,
+                               warm_iters: int = 1):
+        e_b, f_b, aux = RT.fragment_energy_forces_warm(
+            self.module.params(), self.rt, P, self.cfg, aux, warm_iters=warm_iters)
+        e_nb, f_nb = nonbonded_energy_forces(self.nb, P)
+        return e_b + e_nb, f_b + f_nb, aux

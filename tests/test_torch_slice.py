@@ -1,0 +1,182 @@
+"""Port parity of the whole slice on Chignolin (ai2bmd_torch vs ai2bmd_tpu):
+FragmentPotential with the "mm" long range, warm caps, and Langevin steps
+fed the noise that JAX draws.  Small ViSNet (3 layers x 32), float32, CPU.
+Also: the port never loads JAX, and it never falls back silently."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ai2bmd_tpu import potentials as JP
+from ai2bmd_tpu.md import langevin as JL
+from ai2bmd_tpu.models import visnet as JV
+from ai2bmd_torch import potentials as TP
+from ai2bmd_torch.md import langevin as TL
+from ai2bmd_torch.models import visnet as TV
+from ai2bmd_torch.models.params import params_from_jax
+from ai2bmd_torch.ops import caps as TC
+from ai2bmd_torch.ops import vismp as TK
+from ai2bmd_torch.utils import device as TD
+
+SMALL = dict(hidden_channels=32, num_heads=4, num_layers=3, num_rbf=8, max_z=20)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+T = lambda a: torch.as_tensor(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def pots(chig_protein):
+    jcfg = JV.ViSNetConfig(**SMALL)
+    jparams = JV.init_params(jax.random.PRNGKey(0), jcfg)
+    jpot = JP.FragmentPotential.build(chig_protein, jparams, jcfg, longrange="mm")
+    tcfg = TV.ViSNetConfig(**SMALL)
+    module = TV.ViSNet(tcfg, params_from_jax(jax.tree.map(np.asarray, jparams)))
+    tpot = TP.FragmentPotential.build(chig_protein, module, tcfg, longrange="mm")
+    warm = jax.jit(lambda P, aux: jpot.stateful_energy_forces(P, aux, warm_iters=1))
+    return jpot, tpot, warm, np.asarray(chig_protein.positions, np.float32)
+
+
+def test_stateful_energy_forces_match_jax(pots):
+    """Cold caps (10 iterations), then one warm step of E, F and the new cap
+    offsets from the same offsets.  Tolerances: E 1e-4 eV, F 1e-4 eV/A (float32
+    sums over 13 fragments and 175 atoms in another order), cap offsets 1e-5 A."""
+    jpot, tpot, warm, P = pots
+    aux_j = np.asarray(jax.jit(jpot.init_cap_delta)(jnp.asarray(P)))
+    aux_t = tpot.init_cap_delta(T(P))
+    np.testing.assert_allclose(aux_t.numpy(), aux_j, rtol=0, atol=1e-5)
+
+    e_j, f_j, new_j = warm(jnp.asarray(P), jnp.asarray(aux_j))
+    e_t, f_t, new_t = tpot.stateful_energy_forces(T(P), T(aux_j))
+    assert f_t.shape == (175, 3) and torch.isfinite(f_t).all()
+    assert float(e_t) == pytest.approx(float(e_j), abs=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(new_t.numpy(), np.asarray(new_j), rtol=0, atol=1e-5)
+
+
+def test_cold_energy_forces_match_jax(pots):
+    """The stateless path: caps cold-started with 10 iterations inside the
+    call.  Tolerances as above."""
+    jpot, tpot, _, P = pots
+    e_j, f_j = jax.jit(jpot.energy_forces)(jnp.asarray(P))
+    e_t, f_t = tpot.energy_forces(T(P))
+    assert float(e_t) == pytest.approx(float(e_j), abs=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
+
+
+def test_langevin_steps_match_jax_with_its_noise(pots, chig_protein):
+    """Three warm Langevin steps (1 fs, 300 K, 0.001/fs) from one state.  The
+    port takes the xi/eta that ai2bmd_tpu/md/langevin.py:108-111 draws,
+    reproduced here with the same key splits.  Tolerances: positions 1e-5 A,
+    velocities 1e-5 A/t, forces 2e-4 eV/A, E 2e-4 eV (float32 over steps)."""
+    jpot, tpot, warm, P = pots
+    masses = chig_protein.masses
+    key = jax.random.PRNGKey(0)
+    aux0 = jax.jit(jpot.init_cap_delta)(jnp.asarray(P))
+    e0, f0, aux0 = warm(jnp.asarray(P), aux0)
+    vel = JL.maxwell_boltzmann_velocities(key, masses, 300.0)
+    sj = JL.MDState(jnp.asarray(P), vel, f0, e0, key, jnp.asarray(0), aux=aux0)
+    st = TL.MDState(T(P), T(vel), T(f0), T(e0), aux=T(aux0))
+    cj = JL.LangevinCoeffs.build(masses, 1.0, 300.0, 0.001)
+    ct = TL.LangevinCoeffs.build(masses, 1.0, 300.0, 0.001)
+    m = torch.as_tensor(masses, dtype=torch.float32)
+    step = jax.jit(lambda s: JL.langevin_step(warm, cj, masses, s))
+    for _ in range(3):
+        _, k1, k2 = jax.random.split(sj.key, 3)
+        xi = jax.random.normal(k1, P.shape, jnp.float32)
+        eta = jax.random.normal(k2, P.shape, jnp.float32)
+        sj = step(sj)
+        st = TL.langevin_step(tpot.stateful_energy_forces, ct, m, st, xi=T(xi), eta=T(eta))
+    assert st.step == 3
+    np.testing.assert_allclose(st.positions.numpy(), np.asarray(sj.positions), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(st.velocities.numpy(), np.asarray(sj.velocities), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(st.forces.numpy(), np.asarray(sj.forces), rtol=0, atol=2e-4)
+    assert float(st.energy) == pytest.approx(float(sj.energy), abs=2e-4)
+
+
+def test_generator_noise_is_reproducible(pots, chig_protein):
+    """Without xi/eta the step draws from the generator it is given."""
+    _, tpot, _, P = pots
+    m = torch.as_tensor(chig_protein.masses, dtype=torch.float32)
+    ct = TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001)
+    pot = lambda x, aux: (x.new_zeros(()), torch.zeros_like(x), aux)   # free flight
+    runs = []
+    for _ in range(2):
+        g = torch.Generator().manual_seed(7)
+        v = TL.maxwell_boltzmann_velocities(g, chig_protein.masses, 300.0)
+        s = TL.MDState(T(P), v, torch.zeros_like(v), torch.zeros(()))
+        runs.append(TL.langevin_step(pot, ct, m, s, generator=g).positions)
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], T(P))
+    with pytest.raises(ValueError):
+        TL.langevin_step(pot, ct, m, TL.MDState(T(P), v, v, torch.zeros(())))
+
+
+def test_pme_is_not_ported(chig_protein, pots):
+    _, tpot, _, _ = pots
+    with pytest.raises(NotImplementedError):
+        TP.FragmentPotential.build(chig_protein, tpot.module, tpot.cfg, longrange="pme")
+
+
+def test_port_never_imports_jax():
+    """A tiny CPU slice in a fresh interpreter: JAX never loads, the only
+    ai2bmd_tpu modules loaded are the JAX-free host ones, and no kernel
+    launch is counted (CPU tensors take the plain versions)."""
+    code = textwrap.dedent("""
+        import sys, torch
+        from ai2bmd_torch.host import example_pdb, load_protein
+        from ai2bmd_torch.md import langevin as L
+        from ai2bmd_torch.models.params import init_params
+        from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+        from ai2bmd_torch.ops import LAUNCHES
+        from ai2bmd_torch.potentials import FragmentPotential
+        prot = load_protein(example_pdb("chig"))
+        cfg = ViSNetConfig(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8, max_z=20)
+        pot = FragmentPotential.build(prot, ViSNet(cfg, init_params(cfg, torch.Generator().manual_seed(0))), cfg)
+        P = torch.as_tensor(prot.positions, dtype=torch.float32)
+        aux = pot.init_cap_delta(P)
+        e, f, aux = pot.stateful_energy_forces(P, aux)
+        g = torch.Generator().manual_seed(0)
+        s = L.MDState(P, L.maxwell_boltzmann_velocities(g, prot.masses, 300.0), f, e, aux=aux)
+        s = L.langevin_step(pot.stateful_energy_forces, L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001),
+                            torch.as_tensor(prot.masses, dtype=torch.float32), s, generator=g)
+        assert torch.isfinite(s.positions).all() and torch.isfinite(s.forces).all()
+        assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules)
+        print(sorted(m for m in sys.modules if m.startswith("ai2bmd_tpu")))
+        print(dict(LAUNCHES))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    loaded, launches = out.stdout.strip().splitlines()[-2:]
+    allowed = {"ai2bmd_tpu", "ai2bmd_tpu.units", "ai2bmd_tpu.data", "ai2bmd_tpu.io",
+               "ai2bmd_tpu.io.pdb", "ai2bmd_tpu.io.reorder", "ai2bmd_tpu.system",
+               "ai2bmd_tpu.frag", "ai2bmd_tpu.frag.indexer", "ai2bmd_tpu.frag.topology",
+               "ai2bmd_tpu.data.prmtop"}
+    assert set(eval(loaded)) <= allowed, loaded
+    assert set(eval(launches).values()) == {0}
+
+
+def test_require_cuda_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.require_cuda()
+
+
+def test_wrappers_refuse_other_devices(pots):
+    """A tensor that is neither on the CPU nor on the card is refused, not
+    routed to a plain version."""
+    _, tpot, _, _ = pots
+    meta = torch.empty((2, 16, 256), device="meta")
+    with pytest.raises(ValueError, match="no edge-core implementation"):
+        TK.edge_core(meta, meta, meta, meta, meta, meta, meta, meta, meta, meta, meta, meta,
+                     5.0, 8)
+    with pytest.raises(ValueError, match="no cap-gradient implementation"):
+        TC.amber_grad_rows(tpot.rt.ht.caps, torch.empty((10, 40, 3), device="meta"))
