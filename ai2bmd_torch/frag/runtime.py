@@ -25,6 +25,7 @@ import torch
 from ai2bmd_torch.frag import hydrogen as HY
 from ai2bmd_torch.host import ACENME_LEN, ACENME_Z, FragmentIndex, build_type_topology
 from ai2bmd_torch.models import visnet as V
+from ai2bmd_torch.utils.device import resolve_device
 
 # Dipeptide size-bucket widths; the row slot count S is always appended.
 # The reference needed multiples of 8 for its TPU tiles; the kernels here do
@@ -66,8 +67,10 @@ class FragmentRuntime:
     dip_buckets: list[Bucket]
 
     @classmethod
-    def build(cls, fi: FragmentIndex, opt_iters: int = 10, device="cpu",
+    def build(cls, fi: FragmentIndex, opt_iters: int = 10, device=None,
               dtype=torch.float32) -> "FragmentRuntime":
+        """``device`` None means the card (raises without one)."""
+        device = resolve_device(device)
         R, S = fi.n_rows, fi.slots
         top = build_type_topology(sorted({t for t in fi.row_prmtop if t}))
         ht = HY.HydrogenTables.build(

@@ -1,21 +1,18 @@
-"""Host-side setup shared with ``ai2bmd_tpu``.
-
-The PDB reader, atom reordering, ``Protein``, the fragment indexer, the
-cap-topology tables, the data assets and the unit constants are plain numpy
-and import no JAX, so the port uses them as they are.  This module is the
-only place the port imports ``ai2bmd_tpu`` from; everything it names is
-JAX-free (``tests/test_torch_slice.py`` checks that JAX never loads).
+"""Host-side setup: the names the rest of the port takes from its own copies
+of the JAX package's numpy modules (``units``, ``data``, ``io``, ``system``,
+``frag.indexer``, ``frag.topology``), and ``load_protein``.  Nothing here
+imports ``ai2bmd_tpu`` or JAX.
 """
 
 from __future__ import annotations
 
-from ai2bmd_tpu import units
-from ai2bmd_tpu.data import example_pdb
-from ai2bmd_tpu.frag.indexer import ACENME_LEN, ACENME_Z, FragmentIndex, build_fragment_index
-from ai2bmd_tpu.frag.topology import TypeTopology, build_type_topology
-from ai2bmd_tpu.io.pdb import read_pdb
-from ai2bmd_tpu.io.reorder import normalize_atom_order
-from ai2bmd_tpu.system import Protein
+from ai2bmd_torch import units
+from ai2bmd_torch.data import example_pdb
+from ai2bmd_torch.frag.indexer import ACENME_LEN, ACENME_Z, FragmentIndex, build_fragment_index
+from ai2bmd_torch.frag.topology import TypeTopology, build_type_topology
+from ai2bmd_torch.io.pdb import read_pdb
+from ai2bmd_torch.io.reorder import normalize_atom_order
+from ai2bmd_torch.system import Protein
 
 __all__ = [
     "ACENME_LEN", "ACENME_Z", "FragmentIndex", "Protein", "TypeTopology",

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.host import units
+from ai2bmd_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -42,7 +43,9 @@ class LangevinCoeffs:
 
     @classmethod
     def build(cls, masses, timestep_fs: float, temp_K: float, friction_per_fs: float,
-              device="cpu", dtype=torch.float32) -> "LangevinCoeffs":
+              device=None, dtype=torch.float32) -> "LangevinCoeffs":
+        """``device`` None means the card (raises without one)."""
+        device = resolve_device(device)
         dt = timestep_fs * units.fs
         fr = friction_per_fs / units.fs
         T = temp_K * units.kB

@@ -8,28 +8,34 @@ intermediates, and forces from autograd of the summed energy.  The layer
 math is the jnp branch of ``vis_mp_layer`` (visnet.py:416-474); its edge
 core goes through ``ops.vismp.edge_core``, which is the plain version on CPU
 tensors and kernels K1-K3 on CUDA tensors (the kernel branch, :391-414).
+With ``fused_layer`` every layer runs whole through ``ops.vislayer``
+(kernels K5/K6 on CUDA tensors, their plain versions on CPU tensors), the
+branch of :506-536.
 
 Not ported (options of the JAX config that no production path sets):
-``exact_rejection``, ``remat``, ``edge_dtype`` and the Pallas switches.
+``exact_rejection``, ``remat``, ``edge_dtype``, and the switches ``fused``
+and the ``*_interpret`` flags, which the tensors' device replaces.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ai2bmd_torch.models import params as PM
+from ai2bmd_torch.ops import vislayer as FL
 from ai2bmd_torch.ops.vismp import _ACTS, cosine_cutoff, edge_core
 
 __all__ = [
     "ViSNet", "ViSNetConfig", "atomwise_energy", "cosine_cutoff", "dense_graph",
     "energy", "energy_and_forces", "expnorm_rbf", "gated_equivariant_block",
-    "layer_norm", "representation", "spherical_harmonics", "vec_layer_norm",
-    "vis_mp_layer",
+    "layer_norm", "representation", "resolve_config", "spherical_harmonics",
+    "vec_layer_norm", "vis_mp_layer",
 ]
 
 
@@ -45,10 +51,29 @@ class ViSNetConfig:
     vecnorm_type: str = "none"        # none | rms | max_min
     activation: str = "silu"
     attn_activation: str = "silu"
+    # fused_layer=True runs each complete ViS-MP layer as one kernel pair
+    # (ops/vislayer.py: K5 forward, recompute-mode K6 backward) instead of
+    # the edge-core kernels K1-K3 and the eager node side.  Needs silu
+    # activations, vecnorm "none" and A % 8 == 0 (raises otherwise).  Weight
+    # gradients are not computed on this path: training uses the default.
+    fused_layer: bool = False
 
     @property
     def n_sphere(self) -> int:
         return (self.lmax + 1) ** 2 - 1
+
+
+def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
+    """The config a model on ``device`` runs (``ai2bmd_tpu/models/visnet.py:
+    102-131``): on the card, ``AI2BMD_FUSED_LAYER=1`` selects the full-layer
+    kernels K5/K6; the default there is the edge-core kernels K1-K3.  A
+    config with ``fused_layer`` already set, or a model on the CPU, is
+    returned as it is."""
+    if cfg.fused_layer or torch.device(device).type != "cuda":
+        return cfg
+    if os.environ.get("AI2BMD_FUSED_LAYER") == "1":
+        return dataclasses.replace(cfg, fused_layer=True)
+    return cfg
 
 
 def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -209,6 +234,9 @@ def representation(params: dict, z, pos, mask, cfg: ViSNetConfig):
                  * _linear(params["edge_embedding"]["edge_proj"], edge_rbf)
                  * adj_f[..., None])
 
+    if cfg.fused_layer:
+        return _fused_layer_stack(params, x, edge_attr, dist, d_sh, adj_f, cfg)
+
     vec = torch.zeros((B, A, cfg.n_sphere, cfg.hidden_channels), dtype=dtype,
                       device=pos.device)
     for li, lp in enumerate(params["layers"]):
@@ -221,6 +249,31 @@ def representation(params: dict, z, pos, mask, cfg: ViSNetConfig):
 
     x = layer_norm(params["out_norm"], x)
     vec = vec_layer_norm(params["vec_out_norm"], vec, cfg.vecnorm_type, cfg.lmax)
+    return x, vec
+
+
+def _fused_layer_stack(params: dict, x, edge_attr, dist, d_sh, adj_f, cfg: ViSNetConfig):
+    """The MP stack through ``ops.vislayer.fused_layer`` (visnet.py:506-536):
+    the vector stream stays sphere-major [B,S,A,H] across the layers and is
+    transposed once at the stack's entry and exit."""
+    B, A, H = x.shape
+    silu = ("silu", "swish")
+    if (A % 8 or cfg.vecnorm_type != "none" or cfg.activation not in silu
+            or cfg.attn_activation not in silu):
+        raise ValueError(
+            f"fused_layer needs A % 8 == 0, vecnorm_type 'none' and silu activations; got "
+            f"A={A}, vecnorm_type={cfg.vecnorm_type!r}, activation={cfg.activation!r}, "
+            f"attn_activation={cfg.attn_activation!r}")
+    vec_sm = x.new_zeros((B, cfg.n_sphere, A, H))
+    dsh_sm = d_sh.permute(0, 3, 1, 2).contiguous()
+    for li, lp in enumerate(params["layers"]):
+        last = li == cfg.num_layers - 1
+        op = FL.fused_layer(cfg.cutoff, cfg.num_heads, last)
+        w = FL.layer_weights(lp, H, cfg.num_heads, last, x.dtype)
+        x, vec_sm, edge_attr = op(x, vec_sm, edge_attr, dsh_sm, dist, adj_f, *w)
+    x = layer_norm(params["out_norm"], x)
+    vec = vec_layer_norm(params["vec_out_norm"], vec_sm.transpose(1, 2), cfg.vecnorm_type,
+                         cfg.lmax)
     return x, vec
 
 

@@ -5,7 +5,8 @@ kernel, and nowhere else, so a run can show which kernels its main path
 went through.
 """
 
-LAUNCHES = {"edge_fwd": 0, "edge_bwd_msg": 0, "edge_bwd_upd": 0, "cap_grad": 0}
+LAUNCHES = {"edge_fwd": 0, "edge_bwd_msg": 0, "edge_bwd_upd": 0, "cap_grad": 0,
+            "vislayer_fwd": 0, "vislayer_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -1,10 +1,12 @@
 """Build ``ops/csrc/*.cu`` with nvcc at first use and bind it with ctypes.
 
 The kernels have a plain ``extern "C"`` interface (pointers, ints, floats and
-the CUDA stream), so they compile without PyTorch's headers in seconds.  The
-shared library goes to ``build/ai2bmd_torch/`` at the root of the checkout,
-named by a hash of the sources and flags; a library that already exists for
-the same hash is loaded as it is.  A failed build raises.
+the CUDA stream), so they compile without PyTorch's headers in seconds.  Each
+source compiles in its own nvcc process, all started together, and one more
+links the objects.  The shared library goes to ``build/ai2bmd_torch/`` at
+the root of the checkout, named by a hash of the sources and flags; a library
+that already exists for the same hash is loaded as it is.  A failed build
+raises.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ai2bmd_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 P = ctypes.c_void_p
@@ -59,22 +61,36 @@ def build() -> Path:
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (code {proc.returncode}):\n{stderr[-8000:]}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (code {proc.returncode}):\n{proc.stderr[-8000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "last_build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-8000:]}"
-        )
+    (BUILD_DIR / "last_build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=seconds, cached=False,
-                      ptxas=proc.stderr)
+    BUILD_INFO.update(path=str(out), seconds=seconds, cached=False, ptxas="\n".join(log))
     return out
 
 

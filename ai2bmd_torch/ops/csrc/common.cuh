@@ -40,21 +40,22 @@ __device__ __forceinline__ float cosine_cutoff(float d, float cutoff) {
 }
 
 // acc_j[r] = sum_k X[r][k] * W[k][col_j], j < NC, for the rows r < A of a
-// row block X ([A][K], row-major, in shared memory, K % 4 == 0, A % RCHUNK
-// == 0) and NC columns of a row-major W ([K][ldw], device memory).  Each
-// thread owns its columns, so a warp reads 32 neighbouring floats of a W
-// row, and every thread reads the same X element (a shared-memory
-// broadcast).  The next k-step's W values are loaded while this one's are
-// used, to hide the L2 latency.  Each sum runs over k in order with fused
-// multiply-adds: bitwise repeatable.
-template <int NC>
-__device__ __forceinline__ void rows_times_cols(const float* __restrict__ X, int A, int K,
-                                                const float* __restrict__ W, int ldw,
-                                                const int (&col)[NC], float (&acc)[NC][MAXA]) {
+// row block X ([A][ldx], row-major, in shared memory, K % 4 == 0, ldx % 4
+// == 0, A % RCHUNK == 0, A <= MAXR) and NC columns of a row-major W
+// ([K][ldw], device memory).  Each thread owns its columns, so a warp reads
+// 32 neighbouring floats of a W row, and every thread reads the same X
+// element (a shared-memory broadcast).  The next k-step's W values are
+// loaded while this one's are used, to hide the L2 latency.  Each sum runs
+// over k in order with fused multiply-adds: bitwise repeatable.
+template <int NC, int MAXR = MAXA>
+__device__ __forceinline__ void rows_times_cols_ld(const float* __restrict__ X, int ldx, int A,
+                                                   int K, const float* __restrict__ W, int ldw,
+                                                   const int (&col)[NC],
+                                                   float (&acc)[NC][MAXR]) {
 #pragma unroll
   for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int r = 0; r < MAXA; ++r) acc[j][r] = 0.0f;
+    for (int r = 0; r < MAXR; ++r) acc[j][r] = 0.0f;
   float nxt[NC][4];
 #pragma unroll
   for (int j = 0; j < NC; ++j)
@@ -73,12 +74,12 @@ __device__ __forceinline__ void rows_times_cols(const float* __restrict__ X, int
         for (int q = 0; q < 4; ++q) nxt[j][q] = __ldg(W + (size_t)(k + 4 + q) * ldw + col[j]);
     }
 #pragma unroll
-    for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
+    for (int c8 = 0; c8 < MAXR / RCHUNK; ++c8) {
       if (c8 * RCHUNK < A) {
 #pragma unroll
         for (int rr = 0; rr < RCHUNK; ++rr) {
           const int r = c8 * RCHUNK + rr;
-          const float4 x = *reinterpret_cast<const float4*>(X + r * K + k);
+          const float4 x = *reinterpret_cast<const float4*>(X + r * ldx + k);
 #pragma unroll
           for (int j = 0; j < NC; ++j) {
             float a = acc[j][r];
@@ -92,6 +93,14 @@ __device__ __forceinline__ void rows_times_cols(const float* __restrict__ X, int
       }
     }
   }
+}
+
+// rows_times_cols_ld for a dense row block (row stride K).
+template <int NC, int MAXR = MAXA>
+__device__ __forceinline__ void rows_times_cols(const float* __restrict__ X, int A, int K,
+                                                const float* __restrict__ W, int ldw,
+                                                const int (&col)[NC], float (&acc)[NC][MAXR]) {
+  rows_times_cols_ld<NC, MAXR>(X, K, A, K, W, ldw, col, acc);
 }
 
 }  // namespace ai2bmd

@@ -150,19 +150,20 @@ _MSG_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F]
 _UPD_ARGS = [_P] * 9 + [_I, _I, _I, _I]
 
 
-def _route(t: torch.Tensor) -> bool:
+def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
     """True for the kernel (CUDA tensor), False for the plain version (CPU)."""
     if t.device.type == "cpu":
         return False
     if t.is_cuda:
         return True
-    raise ValueError(f"no edge-core implementation for device {t.device}")
+    raise ValueError(f"no {kernels} implementation for device {t.device}")
 
 
-def _check_shapes(A, H, S, nh):
+def check_shapes(A, H, S, nh, kernels: str = "edge"):
+    """The shapes the ViS-MP kernels (K1-K3, K5, K6) take."""
     if H // nh != 32 or H % nh or H > 256 or A > 48 or A % 8 or S > 8:
         raise ValueError(
-            f"edge kernels take heads of 32 channels, H <= 256, A a multiple of 8 "
+            f"{kernels} kernels take heads of 32 channels, H <= 256, A a multiple of 8 "
             f"up to 48 (the fragment indexer's slot rounding), S <= 8; "
             f"got H={H}, nh={nh}, A={A}, S={S}"
         )
@@ -174,7 +175,7 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     """K1.  Returns (x_agg, vec_agg, df, zdkv, zs, zf); df/zf are None without
     the update (wt is None), zdkv/zs/zf None unless ``store``."""
     update = wt is not None
-    if not _route(q):
+    if not route(q):
         x_agg, vec_agg, df, zdkv, zs, zf = edge_fwd_plain(
             q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
             cutoff, nh, wt, wsrc, w_f, b_f)
@@ -183,7 +184,7 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
         return x_agg, vec_agg, df, zdkv, zs, zf
     B, A, H = q.shape
     S = vec.shape[2]
-    _check_shapes(A, H, S, nh)
+    check_shapes(A, H, S, nh)
     dev = q.device
     c = _build.check
     for name, t, shape in (
@@ -219,12 +220,12 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
 def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
                  g_xagg, g_vecagg, cutoff: float, nh: int):
     """K2.  Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
-    if not _route(q):
+    if not route(q):
         return edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv,
                                   w_s, g_xagg, g_vecagg, cutoff, nh)
     B, A, H = q.shape
     S = vec.shape[2]
-    _check_shapes(A, H, S, nh)
+    check_shapes(A, H, S, nh)
     dev = q.device
     wdkvT, wsT = w_dkv.t().contiguous(), w_s.t().contiguous()
     c = _build.check
@@ -256,11 +257,11 @@ def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
 
 def edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df):
     """K3.  Returns (g_edge, g_wt, g_wsrc)."""
-    if not _route(zf):
+    if not route(zf):
         return edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df)
     B, A, _, H = zf.shape
     S = wt.shape[2]
-    _check_shapes(A, H, S, H // 32)
+    check_shapes(A, H, S, H // 32)
     dev = zf.device
     wfT = w_f.t().contiguous()
     c = _build.check
@@ -335,7 +336,7 @@ def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
 
     CPU tensors take the plain forward and autograd through it; CUDA tensors
     take ``FusedVisMP`` (kernels K1-K3), which computes silu only."""
-    if not _route(q):
+    if not route(q):
         return edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
                               w_s, b_s, cutoff, nh, wt, wsrc, w_f, b_f, act, attn_act)[:3]
     if act not in ("silu", "swish") or attn_act not in ("silu", "swish"):

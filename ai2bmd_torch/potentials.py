@@ -1,8 +1,9 @@
 """The fragment potential: ML bonded terms + classical long range.
 
-Port of ``ai2bmd_tpu/potentials.py`` (``FragmentPotential``).  The device and
-dtype are those of the ViSNet module the caller passes: a module on the card
-runs the kernels, a module on the CPU the plain versions.
+Port of ``ai2bmd_tpu/potentials.py`` (``FragmentPotential``).  ``build`` puts
+the ViSNet module on the card unless the caller passes ``device="cpu"``: on
+the card the kernels run, on the CPU the plain versions.  The dtype is the
+module's.
 """
 
 from __future__ import annotations
@@ -13,9 +14,9 @@ import torch
 
 from ai2bmd_torch.frag import runtime as RT
 from ai2bmd_torch.host import FragmentIndex, Protein, build_fragment_index
-from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig, resolve_config
 from ai2bmd_torch.physics.nonbonded import NonbondedParams, nonbonded_energy_forces
-from ai2bmd_torch.utils.device import require_cuda
+from ai2bmd_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -30,19 +31,23 @@ class FragmentPotential:
 
     @classmethod
     def build(cls, prot: Protein, module: ViSNet, cfg: ViSNetConfig,
-              longrange: str = "mm", opt_iters: int = 10) -> "FragmentPotential":
+              longrange: str = "mm", opt_iters: int = 10,
+              device=None) -> "FragmentPotential":
+        """``device`` None means the card (raises without one); the module is
+        moved there.  ``cfg`` goes through
+        ``resolve_config`` for that device."""
         if longrange == "pme":
             raise NotImplementedError(
                 "longrange='pme' is not ported yet (ROADMAP.md, Queue 1 item 12)")
         if longrange != "mm":
             raise ValueError(f"unknown long-range mode {longrange!r}")
-        ref = next(module.parameters())
-        if ref.is_cuda:
-            require_cuda()
+        device = resolve_device(device)
+        module = module.to(device)
+        dtype = next(module.parameters()).dtype
+        cfg = resolve_config(cfg, device)
         fi = build_fragment_index(prot.atoms)
-        rt = RT.FragmentRuntime.build(fi, opt_iters=opt_iters, device=ref.device,
-                                      dtype=ref.dtype)
-        nb = NonbondedParams.build(prot, fi.exclusion_mask(), ref.device, ref.dtype)
+        rt = RT.FragmentRuntime.build(fi, opt_iters=opt_iters, device=device, dtype=dtype)
+        nb = NonbondedParams.build(prot, fi.exclusion_mask(), device, dtype)
         return cls(module=module, cfg=cfg, rt=rt, nb=nb, fi=fi)
 
     def energy_forces(self, P: torch.Tensor):

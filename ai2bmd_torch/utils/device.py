@@ -1,11 +1,12 @@
 """Explicit device selection.
 
 Replaces the ``on_tpu`` probes of ``ai2bmd_tpu/models/visnet.py:102-131`` and
-``ai2bmd_tpu/frag/hydrogen.py:58-76``.  Nothing in the port probes for a
-device on its own: a kernel wrapper looks at the tensors it is given (CPU:
-plain PyTorch version, CUDA: the hand-written kernel), and a caller that
-wants the card asks for it with ``require_cuda``, which raises when there is
-none instead of falling back to the CPU.
+``ai2bmd_tpu/frag/hydrogen.py:58-76``.  A kernel wrapper looks at the tensors
+it is given (CPU: plain PyTorch version, CUDA: the hand-written kernel).  The
+entry points that build state (``FragmentPotential.build``,
+``FragmentRuntime.build``, ``LangevinCoeffs.build``) take the card unless the
+caller passes ``device="cpu"``, through ``resolve_device``, which raises when
+there is no card instead of falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -32,3 +33,14 @@ def require_cuda() -> torch.device:
         )
     set_fp32_precision()
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card for None (raising without
+    one, through ``require_cuda``), else the device asked for."""
+    if device is None:
+        return require_cuda()
+    device = torch.device(device)
+    if device.type == "cuda":
+        require_cuda()
+    return device

@@ -10,26 +10,38 @@ is not printed):
 
   1. environment: torch / CUDA / nvcc / triton versions and the card;
      a machine without a CUDA device stops here
-  2. build the kernels from ai2bmd_torch/ops/csrc with nvcc
+  2. build the kernels from ai2bmd_torch/ops/csrc with nvcc, one process per
+     source, all started together
   3. each kernel (K1 edge_fwd in all four flag pairs, K2 edge_bwd_msg,
-     K3 edge_bwd_upd, K4 cap_grad) against its plain PyTorch version on the
-     card at the main path's shapes: max abs / relative error against a
-     stated tolerance, bitwise repeatability, times in turns (CUDA events
-     per call, and device time from a profiler trace)
-  4. the slice: Chignolin, production ViSNet (9 x 256, random weights from
-     seed 0), FragmentPotential("mm"), cold caps (10 L-BFGS iterations),
-     then warm Langevin steps at 1 fs / 300 K; launch counters reset just
-     before and read just after; step 0 held against the same port on the
-     CPU in float64 through the plain versions (limit 1e-3 eV/A); a
-     profiled window of 3 steps gives the device busy share
+     K3 edge_bwd_upd, K4 cap_grad, K5 vislayer_fwd and K6 vislayer_bwd for
+     both values of `last`) against its plain PyTorch version on the card at
+     the main path's shapes: max abs / relative error against a stated
+     tolerance, bitwise repeatability, times in turns (CUDA events per call,
+     and device time from a profiler trace), and the share of the float32
+     bound (the larger of bytes over 3.35 TB/s and FLOPs over 67 TFLOP/s)
+  4. the slice through the edge-core kernels K1-K3: Chignolin, production
+     ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
+     cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
+     300 K; launch counters reset just before and read just after; step 0
+     held against the same port on the CPU in float64 through the plain
+     versions (limit 1e-3 eV/A); a profiled window of 3 steps gives the
+     device busy share
+  4b. the same slice through the full-layer kernels K5/K6
+     (AI2BMD_FUSED_LAYER=1): every ViSNet layer of every batch launches K5
+     and K6 once per force evaluation and K1-K3 never; step 0 held against
+     phase 4's step 0 and against the CPU float64 run
   5. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
-Imports no JAX.  The ms/step it prints is a smoke figure, not a benchmark.
+`--stop-after 2|3` ends after that phase, without the final line (for a
+first check of a kernel change).  Imports no JAX.  The ms/step it prints is
+a smoke figure, not a benchmark.
 """
 
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +57,10 @@ EDGE_TOL = 1e-4
 CAP_TOL = 1e-4
 FORCE_LIMIT = 1e-3          # eV/A, BASELINE.md:55-58
 WARM_STEPS, TIMED_STEPS = 5, 20
+N_LAYERS = 9
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 outside the
+# tensor cores, and HBM3.  Every kernel here is plain float32 FMA.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def need(cond, msg):
@@ -73,9 +89,10 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps=10):
+def device_ms(torch, fn, reps=10, by_name=None):
     """Summed device time of the kernels fn() runs, per call, from a
-    torch.profiler (CUPTI) trace; None if the trace holds no device time."""
+    torch.profiler (CUPTI) trace; None if the trace holds no device time.
+    ``by_name``, a dict, receives the ms per call of each kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -85,8 +102,19 @@ def device_ms(torch, fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    us = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us += e.device_time_total
+            if by_name is not None:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
     return us / 1e3 / reps if us > 0 else None
+
+
+def short_name(kernel: str) -> str:
+    """'void (anonymous namespace)::stage<false>(ai2bmd::Layer)' -> 'stage<false>'."""
+    m = re.search(r"(\w+(?:<[^(]*>)?)\(", kernel)
+    return m.group(1) if m else kernel[:60]
 
 
 def in_turns(torch, kernel, plain, reps=20):
@@ -98,12 +126,17 @@ def in_turns(torch, kernel, plain, reps=20):
     k1 = cuda_ms(torch, kernel, reps)
     k2 = cuda_ms(torch, kernel, reps)
     p2 = cuda_ms(torch, plain, reps)
+    parts = {}
     out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           "device_ms": device_ms(torch, kernel), "plain_device_ms": device_ms(torch, plain)}
+           "device_ms": device_ms(torch, kernel, by_name=parts),
+           "plain_device_ms": device_ms(torch, plain)}
     fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     print(f"    time per call: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms "
           f"(events); device: kernel {fmt(out['device_ms'])}, plain "
           f"{fmt(out['plain_device_ms'])}")
+    if len(parts) > 1:
+        print("    kernel stages (device ms): " + ", ".join(
+            f"{short_name(n)} {ms:.4f}" for n, ms in parts.items()))
     return out
 
 
@@ -113,6 +146,39 @@ def add_times(res, t):
             res[key] = None
         else:
             res[key] = res.get(key, 0.0) + val
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(flop, nbyte):
+    """The least time the card could take: the larger of FLOPs over the
+    float32 peak and bytes (each input read once, each output written once)
+    over the memory rate."""
+    t_op, t_by = flop / PEAK_FLOPS * 1e3, nbyte / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_op, t_by), "bound_by": "operations" if t_op >= t_by else "bytes",
+            "gflop": flop / 1e9, "mbytes": nbyte / 1e6}
+
+
+def add_bound(res, b, times=None):
+    """Sum a call's bound, FLOPs and bytes into a kernel's result (bound_by:
+    the larger part), and print the share of the bound the call reached."""
+    for key in ("bound_ms", "gflop", "mbytes"):
+        res[key] = res.get(key, 0.0) + b[key]
+    res.setdefault("_by", {}).setdefault(b["bound_by"], 0.0)
+    res["_by"][b["bound_by"]] += b["bound_ms"]
+    if times is not None:
+        dev = times.get("device_ms") or times["ms"]
+        print(f"    bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {b['gflop']:.3f} GFLOP, "
+              f"{b['mbytes']:.3f} MB); {100 * b['bound_ms'] / dev:.1f}% of bound at {dev:.4f} ms")
+
+
+def finish(res):
+    by = res.pop("_by", {"operations": 0.0})
+    res["bound_by"] = max(by, key=by.get)
+    res.setdefault("library_ms", None)       # no single PyTorch call computes these
+    return res
 
 
 def compare(name, got, ref, tol):
@@ -189,8 +255,10 @@ def check_edge_kernels(torch, dev, results):
                 res = results["edge_fwd"]
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 if update and store:
-                    add_times(res, in_turns(torch, run,
-                                            lambda kw=kw: K.edge_fwd_plain(*core, **kw)))
+                    t = in_turns(torch, run, lambda kw=kw: K.edge_fwd_plain(*core, **kw))
+                    add_times(res, t)
+                    flop = 2 * B * A * A * 5 * H * H
+                    add_bound(res, bound(flop, nbytes(*core[:12], *upd.values(), *run())), t)
 
         _, _, _, zdkv, zs, zf = K.edge_fwd(*core, **upd, store=True)
         g_x = (torch.randn((B, A, H), generator=gen)).to(dev)
@@ -206,7 +274,9 @@ def check_edge_kernels(torch, dev, results):
         res["max_abs_err"] = max(res["max_abs_err"], compare(
             name, run(), dict(zip(keys, K.edge_bwd_msg_plain(*msg_args))), EDGE_TOL))
         bitwise(name, run)
-        add_times(res, in_turns(torch, run, lambda: K.edge_bwd_msg_plain(*msg_args)))
+        t = in_turns(torch, run, lambda: K.edge_bwd_msg_plain(*msg_args))
+        add_times(res, t)
+        add_bound(res, bound(2 * B * A * A * 4 * H * H, nbytes(*msg_args[:13], *run())), t)
 
         upd_args = (a["adj"], a["wt"], a["wsrc"], a["w_f"], zf, g_df)
         name = f"edge_bwd_upd B={B} A={A}"
@@ -217,7 +287,9 @@ def check_edge_kernels(torch, dev, results):
             name, run(), dict(zip(("g_edge", "g_wt", "g_wsrc"),
                                   K.edge_bwd_upd_plain(*upd_args))), EDGE_TOL))
         bitwise(name, run)
-        add_times(res, in_turns(torch, run, lambda: K.edge_bwd_upd_plain(*upd_args)))
+        t = in_turns(torch, run, lambda: K.edge_bwd_upd_plain(*upd_args))
+        add_times(res, t)
+        add_bound(res, bound(2 * B * A * A * H * H, nbytes(*upd_args, *run())), t)
 
 
 def check_cap_kernel(torch, dev, prot, results):
@@ -239,8 +311,87 @@ def check_cap_kernel(torch, dev, prot, results):
             name, run(), {"grad": C.amber_grad_rows_plain(rt.ht.caps, pos)}, CAP_TOL))
         bitwise(name, run)
         if sigma:
-            add_times(res, in_turns(torch, run,
-                                    lambda pos=pos: C.amber_grad_rows_plain(rt.ht.caps, pos)))
+            t = in_turns(torch, run, lambda pos=pos: C.amber_grad_rows_plain(rt.ht.caps, pos))
+            add_times(res, t)
+            # operations: ~30 FLOPs per bond and pair term, ~60 per angle,
+            # ~120 per dihedral, per row (an estimate; bytes bound it)
+            NB, NA, ND, NP = rt.ht.caps.sizes
+            flop = pos.shape[0] * (30 * NB + 60 * NA + 120 * ND + 30 * NP)
+            add_bound(res, bound(flop, nbytes(pos, *rt.ht.caps.kernel, *run())), t)
+
+
+def layer_inputs(torch, gen, B, A, dev):
+    """A fused layer's inputs at Chignolin's shape (B, A): a graph from random
+    positions (the last fragment's last 3 slots masked), random streams, and
+    cotangents.  Sphere-major vec and d_sh."""
+    from ai2bmd_torch.models.visnet import ViSNetConfig, dense_graph
+
+    pos = torch.randn((B, A, 3), generator=gen) * 2.5
+    mask = torch.ones((B, A), dtype=torch.bool)
+    mask[-1, A - 3:] = False
+    adj, _, dist, d_sh = dense_graph(pos, mask, ViSNetConfig())
+    adj = adj.float()
+    r = lambda *s, sc: torch.randn(s, generator=gen) * sc
+    t = dict(x=r(B, A, H, sc=0.5), vec=r(B, S, A, H, sc=0.3),
+             edge=r(B, A, A, H, sc=0.2) * adj[..., None], d_sh=d_sh.permute(0, 3, 1, 2),
+             dist=dist, adj=adj, gx2=r(B, A, H, sc=1.0), gvec2=r(B, S, A, H, sc=1.0),
+             gedge2=r(B, A, A, H, sc=1.0) * adj[..., None])
+    return {k: v.contiguous().to(dev) for k, v in t.items()}
+
+
+def layer_flop(B, A, last):
+    """FLOPs of K5 and K6 for one call: the products only (2 per multiply-add)."""
+    cells, atoms, vrows = B * A * A, B * A, B * S * A
+    fwd = cells * (4 if last else 5) + atoms * 6 + vrows * (3 if last else 5)
+    bwd = cells * (8 if last else 10) + atoms * 12 + vrows * (6 if last else 10)
+    return 2 * fwd * H * H, 2 * bwd * H * H
+
+
+def check_layer_kernels(torch, dev, results):
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import vislayer as FL
+
+    gen = torch.Generator().manual_seed(2)
+    params = init_params(ViSNetConfig(), gen)
+    for last in (False, True):
+        w = [t.clone() for t in FL.layer_weights(params["layers"][-1 if last else 0], H, NH, last)]
+        for n in range(3):                      # LayerNorm scale / bias, vector norm weight
+            w[n] = w[n] + 0.1 * torch.randn(w[n].shape, generator=gen)
+        w = [t.to(dev).contiguous() for t in w]
+        for B, A in SHAPES:
+            a = layer_inputs(torch, gen, B, A, dev)
+            args = (a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], w, CUTOFF, NH,
+                    last)
+            flop_f, flop_b = layer_flop(B, A, last)
+            name = f"vislayer_fwd B={B} A={A} last={int(last)}"
+            print(f"  {name}")
+            run = lambda args=args: FL.vislayer_fwd(*args)
+            ref = dict(zip(("x2", "vec2", "edge2", "x_agg"), FL.vislayer_fwd_plain(*args)))
+            res = results["vislayer_fwd"]
+            res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
+            bitwise(name, run)
+            t = in_turns(torch, run, lambda args=args: FL.vislayer_fwd_plain(*args))
+            b = bound(flop_f, nbytes(*args[:6], *w, *run()))
+            add_bound(res if not last else {}, b, t)
+            if not last:
+                add_times(res, t)
+
+            xagg = run()[3]
+            bargs = (*args[:7], xagg, a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, NH, last)
+            name = f"vislayer_bwd B={B} A={A} last={int(last)}"
+            print(f"  {name}")
+            run = lambda bargs=bargs: FL.vislayer_bwd(*bargs)
+            ref = dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"),
+                           FL.vislayer_bwd_plain(*bargs)))
+            res = results["vislayer_bwd"]
+            res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
+            bitwise(name, run)
+            t = in_turns(torch, run, lambda bargs=bargs: FL.vislayer_bwd_plain(*bargs))
+            b = bound(flop_b, nbytes(*bargs[:6], *w, *bargs[7:11], *run()))
+            add_bound(res if not last else {}, b, t)
+            if not last:
+                add_times(res, t)
 
 
 def profile_steps(torch, step, state, n=3):
@@ -267,17 +418,36 @@ def profile_steps(torch, step, state, n=3):
         print(f"    {us / n / 1e3:8.3f} ms/step  {name[:100]}")
 
 
-def run_slice(torch, dev, prot, card):
-    from ai2bmd_torch.frag import runtime as RT
-    from ai2bmd_torch.md import langevin as L
+def build_potential(torch, dev, prot, fused: bool):
+    """FragmentPotential for Chignolin at 9 x 256 (random weights, seed 0) on
+    the card; ``fused`` selects the full-layer kernels the way a user does,
+    with AI2BMD_FUSED_LAYER=1."""
     from ai2bmd_torch.models.params import init_params
     from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
-    from ai2bmd_torch.ops import LAUNCHES, reset_launches
     from ai2bmd_torch.potentials import FragmentPotential
 
     cfg = ViSNetConfig()                                   # 9 layers x 256, 8 heads, lmax 2
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    pot = FragmentPotential.build(prot, ViSNet(cfg, params).to(dev), cfg, longrange="mm")
+    old = os.environ.pop("AI2BMD_FUSED_LAYER", None)
+    if fused:
+        os.environ["AI2BMD_FUSED_LAYER"] = "1"
+    try:
+        pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange="mm", device=dev)
+    finally:
+        os.environ.pop("AI2BMD_FUSED_LAYER", None)
+        if old is not None:
+            os.environ["AI2BMD_FUSED_LAYER"] = old
+    need(pot.cfg.fused_layer == fused, f"fused_layer is {pot.cfg.fused_layer}, wanted {fused}")
+    return pot, cfg, params
+
+
+def drive(torch, dev, prot, pot, card):
+    """Cold caps, step 0, WARM_STEPS + TIMED_STEPS warm Langevin steps, with the
+    launch counters reset just before and read just after; then a profiled
+    window.  Returns (launches, ms_step, P, aux0, aux1, e0, f0)."""
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+
     print(f"  buckets (rows x slots): "
           f"{[(len(b.rows), b.width) for b in pot.rt.dip_buckets]} + ACE-NME "
           f"{tuple(pot.rt.ace_z16.shape)}")
@@ -313,18 +483,32 @@ def run_slice(torch, dev, prot, card):
     need(bool(state.positions.isfinite().all() and state.forces.isfinite().all()),
          "non-finite positions or forces in the run")
     need(state.step >= 20, "fewer than 20 warm steps")
-    for name, n in launches.items():
-        need(n > 0, f"kernel {name} was not launched on the main path")
     print(f"  steady state: {ms_step:.3f} ms/step over {TIMED_STEPS} steps "
           f"(smoke figure, not a benchmark; host clock, synchronised; {card})")
     profile_steps(torch, step, state)
+    return launches, ms_step, P, aux0, aux1, e0, f0
+
+
+def run_slice(torch, dev, prot, card):
+    """Phase 4: the slice through K1-K3; returns its launches, ms/step and the
+    step-0 references phase 4b is held against."""
+    from ai2bmd_torch.frag import runtime as RT
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    pot, cfg, params = build_potential(torch, dev, prot, fused=False)
+    launches, ms_step, P, aux0, aux1, e0, f0 = drive(torch, dev, prot, pot, card)
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
+        need(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        need(launches[name] == 0, f"{name} ran on the edge-core path")
 
     # step 0 against the same port on the CPU in float64 (plain versions)
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
     pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
-                                    longrange="mm")
+                                    longrange="mm", device="cpu")
     P64 = P.to(cpu, torch.float64)
     e_ref, f_ref, aux_ref = pot64.stateful_energy_forces(P64, aux0.to(cpu, torch.float64))
     dF = float((f0.to(cpu, torch.float64) - f_ref).abs().max())
@@ -341,10 +525,56 @@ def run_slice(torch, dev, prot, card):
           f"{time.perf_counter() - t0:.1f} s")
     need(dF <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF:.3e}")
     need(dF_fix <= FORCE_LIMIT, f"fixed-cap forces differ by {dF_fix:.3e}")
+    return launches, ms_step, dict(aux0=aux0, e0=e0, f0=f0, e_ref=e_ref, f_ref=f_ref)
+
+
+def run_fused_slice(torch, dev, prot, card, ref):
+    """Phase 4b: the slice through K5/K6, held against phase 4's step 0."""
+    pot, _, _ = build_potential(torch, dev, prot, fused=True)
+    launches, ms_step, _, aux0, _, e0, f0 = drive(torch, dev, prot, pot, card)
+    evals = 1 + WARM_STEPS + TIMED_STEPS
+    per_eval = N_LAYERS * (len(pot.rt.dip_buckets) + 1)
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        need(launches[name] == per_eval * evals,
+             f"{name}: {launches[name]} launches, expected {per_eval} x {evals} force evaluations")
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd"):
+        need(launches[name] == 0, f"{name} ran on the full-layer path")
+    need(launches["cap_grad"] > 0, "cap_grad was not launched on the full-layer path")
+    same_caps = bool(torch.equal(aux0, ref["aux0"]))
+    cpu = torch.device("cpu")
+    f64 = f0.to(cpu, torch.float64)
+    dF_card = float((f64 - ref["f0"].to(cpu, torch.float64)).abs().max())
+    dF_ref = float((f64 - ref["f_ref"]).abs().max())
+    print(f"  step 0 (cold-cap offsets bitwise equal to phase 4's: {same_caps}): "
+          f"vs K1-K3 on the card |dE| {abs(float(e0) - float(ref['e0'])):.3e} eV, "
+          f"max|dF| {dF_card:.3e} eV/A; vs CPU float64 plain |dE| "
+          f"{abs(float(e0) - float(ref['e_ref'])):.3e} eV, max|dF| {dF_ref:.3e} eV/A "
+          f"(limit {FORCE_LIMIT})")
+    need(same_caps, "the full-layer run started from other cap offsets than phase 4")
+    need(dF_card <= FORCE_LIMIT, f"step-0 forces differ from the K1-K3 path by {dF_card:.3e}")
+    need(dF_ref <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF_ref:.3e}")
     return launches, ms_step
 
 
-def main():
+KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
+    "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:543"),
+    "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
+                     "ai2bmd_tpu/ops/pallas/vismp.py:909"),
+    "edge_bwd_upd": ("ai2bmd_torch/ops/csrc/edge_bwd_upd.cu",
+                     "ai2bmd_tpu/ops/pallas/vismp.py:959"),
+    "cap_grad": ("ai2bmd_torch/ops/csrc/cap_grad.cu", "ai2bmd_tpu/ops/pallas/caps.py:326"),
+    "vislayer_fwd": ("ai2bmd_torch/ops/csrc/vislayer_fwd.cu",
+                     "ai2bmd_tpu/ops/pallas/vislayer.py:457"),
+    "vislayer_bwd": ("ai2bmd_torch/ops/csrc/vislayer_bwd.cu",
+                     "ai2bmd_tpu/ops/pallas/vislayer.py:518"),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stop-after", type=int, choices=(2, 3),
+                    help="end after this phase, without the final line")
+    args = ap.parse_args(argv)
     import torch
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -377,29 +607,31 @@ def main():
     for line in _build.BUILD_INFO.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    if args.stop_after == 2:
+        return
 
     print("== 3. kernels against their plain versions")
-    results = {n: {"max_abs_err": 0.0}
-               for n in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")}
+    results = {n: {"max_abs_err": 0.0} for n in KERNELS}
+    check_layer_kernels(torch, dev, results)
     check_edge_kernels(torch, dev, results)
     prot = load_protein(example_pdb("chig"))
     check_cap_kernel(torch, dev, prot, results)
+    if args.stop_after == 3:
+        return
 
-    print("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD")
-    launches, ms_step = run_slice(torch, dev, prot, card)
+    print("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD, edge-core kernels K1-K3")
+    launches, ms_step, ref = run_slice(torch, dev, prot, card)
+    print("== 4b. the same slice through the full-layer kernels K5/K6")
+    launches_fl, ms_step_fl = run_fused_slice(torch, dev, prot, card, ref)
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
+    need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
-    meta = {
-        "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:153"),
-        "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
-                         "ai2bmd_tpu/ops/pallas/vismp.py:757"),
-        "edge_bwd_upd": ("ai2bmd_torch/ops/csrc/edge_bwd_upd.cu",
-                         "ai2bmd_tpu/ops/pallas/vismp.py:852"),
-        "cap_grad": ("ai2bmd_torch/ops/csrc/cap_grad.cu", "ai2bmd_tpu/ops/pallas/caps.py:165"),
-    }
+    for n in ("vislayer_fwd", "vislayer_bwd"):
+        launches[n] = launches_fl[n]
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[n], **results[n]} for n, (src, rep) in meta.items()]
-    print(f"  ms/step {ms_step:.3f} (smoke)")
+                "launches": launches[n], **finish(results[n])}
+               for n, (src, rep) in KERNELS.items()]
+    print(f"  ms/step {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6) (smoke)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,7 +33,7 @@ def chig():
     atoms = normalize_atom_order(read_pdb(conftest.example_pdb("chig")))
     fi = build_fragment_index(atoms)
     P = np.asarray(atoms.positions, np.float32)
-    return JR.FragmentRuntime.build(fi), TR.FragmentRuntime.build(fi), P
+    return JR.FragmentRuntime.build(fi), TR.FragmentRuntime.build(fi, device="cpu"), P
 
 
 def _rows(chig, perturb):

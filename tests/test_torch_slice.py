@@ -1,9 +1,14 @@
 """Port parity of the whole slice on Chignolin (ai2bmd_torch vs ai2bmd_tpu):
 FragmentPotential with the "mm" long range, warm caps, and Langevin steps
 fed the noise that JAX draws.  Small ViSNet (3 layers x 32), float32, CPU.
-Also: the port never loads JAX, and it never falls back silently."""
+Also: the port loads neither JAX nor the JAX package, its own copies of the
+host modules agree with the JAX package's, its entry points take the card
+unless told otherwise, and it never falls back silently."""
 
+import dataclasses
+import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -14,14 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+import conftest
 from ai2bmd_tpu import potentials as JP
 from ai2bmd_tpu.md import langevin as JL
 from ai2bmd_tpu.models import visnet as JV
 from ai2bmd_torch import potentials as TP
+from ai2bmd_torch.frag import runtime as TRT
 from ai2bmd_torch.md import langevin as TL
 from ai2bmd_torch.models import visnet as TV
 from ai2bmd_torch.models.params import params_from_jax
 from ai2bmd_torch.ops import caps as TC
+from ai2bmd_torch.ops import vislayer as TFL
 from ai2bmd_torch.ops import vismp as TK
 from ai2bmd_torch.utils import device as TD
 
@@ -37,7 +45,7 @@ def pots(chig_protein):
     jpot = JP.FragmentPotential.build(chig_protein, jparams, jcfg, longrange="mm")
     tcfg = TV.ViSNetConfig(**SMALL)
     module = TV.ViSNet(tcfg, params_from_jax(jax.tree.map(np.asarray, jparams)))
-    tpot = TP.FragmentPotential.build(chig_protein, module, tcfg, longrange="mm")
+    tpot = TP.FragmentPotential.build(chig_protein, module, tcfg, longrange="mm", device="cpu")
     warm = jax.jit(lambda P, aux: jpot.stateful_energy_forces(P, aux, warm_iters=1))
     return jpot, tpot, warm, np.asarray(chig_protein.positions, np.float32)
 
@@ -83,7 +91,7 @@ def test_langevin_steps_match_jax_with_its_noise(pots, chig_protein):
     sj = JL.MDState(jnp.asarray(P), vel, f0, e0, key, jnp.asarray(0), aux=aux0)
     st = TL.MDState(T(P), T(vel), T(f0), T(e0), aux=T(aux0))
     cj = JL.LangevinCoeffs.build(masses, 1.0, 300.0, 0.001)
-    ct = TL.LangevinCoeffs.build(masses, 1.0, 300.0, 0.001)
+    ct = TL.LangevinCoeffs.build(masses, 1.0, 300.0, 0.001, device="cpu")
     m = torch.as_tensor(masses, dtype=torch.float32)
     step = jax.jit(lambda s: JL.langevin_step(warm, cj, masses, s))
     for _ in range(3):
@@ -104,7 +112,7 @@ def test_generator_noise_is_reproducible(pots, chig_protein):
     """Without xi/eta the step draws from the generator it is given."""
     _, tpot, _, P = pots
     m = torch.as_tensor(chig_protein.masses, dtype=torch.float32)
-    ct = TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001)
+    ct = TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001, device="cpu")
     pot = lambda x, aux: (x.new_zeros(()), torch.zeros_like(x), aux)   # free flight
     runs = []
     for _ in range(2):
@@ -124,11 +132,11 @@ def test_pme_is_not_ported(chig_protein, pots):
 
 
 def test_port_never_imports_jax():
-    """A tiny CPU slice in a fresh interpreter: JAX never loads, the only
-    ai2bmd_tpu modules loaded are the JAX-free host ones, and no kernel
-    launch is counted (CPU tensors take the plain versions)."""
+    """A tiny CPU slice in a fresh interpreter, through the full-layer path
+    and the edge-core path: neither JAX nor any ai2bmd_tpu module loads, and
+    no kernel launch is counted (CPU tensors take the plain versions)."""
     code = textwrap.dedent("""
-        import sys, torch
+        import dataclasses, sys, torch
         from ai2bmd_torch.host import example_pdb, load_protein
         from ai2bmd_torch.md import langevin as L
         from ai2bmd_torch.models.params import init_params
@@ -136,16 +144,19 @@ def test_port_never_imports_jax():
         from ai2bmd_torch.ops import LAUNCHES
         from ai2bmd_torch.potentials import FragmentPotential
         prot = load_protein(example_pdb("chig"))
-        cfg = ViSNetConfig(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8, max_z=20)
-        pot = FragmentPotential.build(prot, ViSNet(cfg, init_params(cfg, torch.Generator().manual_seed(0))), cfg)
+        cfg = ViSNetConfig(hidden_channels=32, num_heads=1, num_layers=2, num_rbf=8, max_z=20)
+        params = init_params(cfg, torch.Generator().manual_seed(0))
         P = torch.as_tensor(prot.positions, dtype=torch.float32)
-        aux = pot.init_cap_delta(P)
-        e, f, aux = pot.stateful_energy_forces(P, aux)
-        g = torch.Generator().manual_seed(0)
-        s = L.MDState(P, L.maxwell_boltzmann_velocities(g, prot.masses, 300.0), f, e, aux=aux)
-        s = L.langevin_step(pot.stateful_energy_forces, L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001),
-                            torch.as_tensor(prot.masses, dtype=torch.float32), s, generator=g)
-        assert torch.isfinite(s.positions).all() and torch.isfinite(s.forces).all()
+        for c in (cfg, dataclasses.replace(cfg, fused_layer=True)):
+            pot = FragmentPotential.build(prot, ViSNet(c, params), c, device="cpu")
+            aux = pot.init_cap_delta(P)
+            e, f, aux = pot.stateful_energy_forces(P, aux)
+            g = torch.Generator().manual_seed(0)
+            s = L.MDState(P, L.maxwell_boltzmann_velocities(g, prot.masses, 300.0), f, e, aux=aux)
+            s = L.langevin_step(pot.stateful_energy_forces,
+                                L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device="cpu"),
+                                torch.as_tensor(prot.masses, dtype=torch.float32), s, generator=g)
+            assert torch.isfinite(s.positions).all() and torch.isfinite(s.forces).all()
         assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules)
         print(sorted(m for m in sys.modules if m.startswith("ai2bmd_tpu")))
         print(dict(LAUNCHES))
@@ -156,18 +167,106 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     loaded, launches = out.stdout.strip().splitlines()[-2:]
-    allowed = {"ai2bmd_tpu", "ai2bmd_tpu.units", "ai2bmd_tpu.data", "ai2bmd_tpu.io",
-               "ai2bmd_tpu.io.pdb", "ai2bmd_tpu.io.reorder", "ai2bmd_tpu.system",
-               "ai2bmd_tpu.frag", "ai2bmd_tpu.frag.indexer", "ai2bmd_tpu.frag.topology",
-               "ai2bmd_tpu.data.prmtop"}
-    assert set(eval(loaded)) <= allowed, loaded
+    assert eval(loaded) == [], loaded
     assert set(eval(launches).values()) == {0}
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No file of the port, nor chip_smoke.py, imports ai2bmd_tpu or JAX."""
+    pattern = re.compile(r"^\s*(from|import)\s+(ai2bmd_tpu|jax|jaxlib)\b", re.M)
+    files = sorted(glob.glob(os.path.join(REPO, "ai2bmd_torch", "**", "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    offenders = [f for f in files if pattern.search(open(f).read())]
+    assert offenders == []
 
 
 def test_require_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TD.require_cuda()
+
+
+def test_entry_points_default_to_the_card(monkeypatch, pots, chig_protein):
+    """Given no device, the entry points take the card, and without one they
+    raise the require_cuda error; device="cpu" runs on the CPU."""
+    _, tpot, _, P = pots
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = TV.ViSNet(tpot.cfg, tpot.module.params())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.FragmentPotential.build(chig_protein, module, tpot.cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TRT.FragmentRuntime.build(tpot.fi)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001)
+    pot = TP.FragmentPotential.build(chig_protein, module, tpot.cfg, device="cpu")
+    e, f, _ = pot.stateful_energy_forces(T(P), pot.init_cap_delta(T(P)))
+    assert f.device.type == "cpu" and torch.isfinite(f).all() and torch.isfinite(e)
+
+
+def test_resolve_config_selects_the_full_layer_path_on_the_card_only(monkeypatch):
+    """AI2BMD_FUSED_LAYER=1 switches a model on the card to the full-layer
+    kernels; a model on the CPU, or a config that already chose, is left as
+    it is."""
+    cfg = TV.ViSNetConfig(**SMALL)
+    monkeypatch.setenv("AI2BMD_FUSED_LAYER", "1")
+    assert TV.resolve_config(cfg, "cuda").fused_layer
+    assert not TV.resolve_config(cfg, "cpu").fused_layer
+    monkeypatch.delenv("AI2BMD_FUSED_LAYER")
+    assert not TV.resolve_config(cfg, "cuda").fused_layer
+    on = dataclasses.replace(cfg, fused_layer=True)
+    assert TV.resolve_config(on, "cpu") is on
+
+
+HOST_PDBS = ["chig", "trpcage", "ww", "abd"]
+
+
+def _same(a, b, path="") -> None:
+    """a == b, recursing through dataclasses, dicts and sequences; arrays equal
+    in shape, dtype and every element."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, path
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert isinstance(b, np.ndarray) and a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
+    else:
+        assert a == b, path
+
+
+@pytest.mark.parametrize("name", HOST_PDBS)
+def test_host_copies_match_the_jax_package(name):
+    """The port's own copies of the host modules (io, system, frag.indexer,
+    frag.topology, data, units) give what the JAX package's give: Protein,
+    FragmentIndex and TypeTopology on each bundled example."""
+    from ai2bmd_tpu import units as JU
+    from ai2bmd_tpu.frag import indexer as JI
+    from ai2bmd_tpu.frag import topology as JT
+    from ai2bmd_tpu.io.pdb import read_pdb as j_read
+    from ai2bmd_tpu.io.reorder import normalize_atom_order as j_norm
+    from ai2bmd_tpu.system import Protein as JProtein
+    from ai2bmd_torch import host as H
+
+    conftest.require_examples()
+    path = conftest.example_pdb(name)
+    j_atoms, t_atoms = j_norm(j_read(path)), H.normalize_atom_order(H.read_pdb(path))
+    _same(t_atoms, j_atoms, "atoms")
+    _same(H.Protein.from_atoms(t_atoms), JProtein.from_atoms(j_atoms), "protein")
+    j_fi, t_fi = JI.build_fragment_index(j_atoms), H.build_fragment_index(t_atoms)
+    _same(t_fi, j_fi, "fragment_index")
+    types = sorted({t for t in j_fi.row_prmtop if t})
+    _same(H.build_type_topology(types), JT.build_type_topology(types), "topology")
+    assert {k: v for k, v in vars(H.units).items() if isinstance(v, float)} == \
+        {k: v for k, v in vars(JU).items() if isinstance(v, float)}
 
 
 def test_wrappers_refuse_other_devices(pots):
@@ -180,3 +279,8 @@ def test_wrappers_refuse_other_devices(pots):
                      5.0, 8)
     with pytest.raises(ValueError, match="no cap-gradient implementation"):
         TC.amber_grad_rows(tpot.rt.ht.caps, torch.empty((10, 40, 3), device="meta"))
+    with pytest.raises(ValueError, match="no fused-layer implementation"):
+        TFL.vislayer_fwd(meta, meta, meta, meta, meta, meta, [meta] * 17, 5.0, 8, False)
+    with pytest.raises(ValueError, match="no fused-layer implementation"):
+        TFL.vislayer_bwd(meta, meta, meta, meta, meta, meta, [meta] * 17, meta, meta, meta,
+                         meta, 5.0, 8, False)
