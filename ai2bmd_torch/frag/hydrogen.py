@@ -53,8 +53,8 @@ def _safe_unit(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def _take(pos: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """pos [R,S,3], idx [R,X] -> [R,X,3]."""
-    return torch.gather(pos, 1, idx[..., None].expand(-1, -1, 3))
+    """pos [..., R,S,3], idx [R,X] -> [..., R,X,3]."""
+    return torch.gather(pos, -2, idx[..., None].expand(*pos.shape[:-2], idx.shape[-1], 3))
 
 
 def _atan2_guarded(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +64,8 @@ def _atan2_guarded(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def amber_row_energy(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
-    """AMBER energy of every dipeptide row, pos [R,S,3] -> [R] (kcal/mol).
+    """AMBER energy of every dipeptide row, pos [..., R,S,3] -> [..., R]
+    (kcal/mol).
 
     Terms as ``ai2bmd_tpu/frag/hydrogen.py:103-151``: 0.5 k (r-r0)^2 bonds,
     0.5 k (th-th0)^2 angles (atan2 form), 0.5 k (1 + cos(n phi - psi))
@@ -107,39 +108,50 @@ def optimize_caps(ht: HydrogenTables, pos: torch.Tensor, n_iter: int = 10,
                   lr: float = 0.1) -> torch.Tensor:
     """L-BFGS over the cap-H coordinates; fixed n_iter, history = n_iter.
 
-    Joint over all rows, like the reference's single torch LBFGS over the
-    batch: the two-loop inner products couple every row."""
+    pos [R,S,3]: one solve joint over all rows, like the reference's single
+    torch LBFGS over the batch (the two-loop inner products couple every
+    row).  pos [Rl,R,S,3]: one such solve per replica, with its own inner
+    products, step scale and curvature gates (``jax.vmap`` of the joint
+    solve, ``ai2bmd_tpu/frag/runtime.py:386-388``); the gradient of every
+    replica's rows comes from one cap-gradient call per iteration."""
     if n_iter == 0:
         return pos
     shape = pos.shape
-    free = ht.free.expand(shape).reshape(-1)
+    free = ht.free.expand(shape[-3:]).reshape(-1)
+    if pos.dim() == 4:                   # per replica: scalars [Rl, 1]
+        x = pos.reshape(shape[0], -1)
+        dot = lambda a, b: (a * b).sum(-1, keepdim=True)
+        l1 = lambda a: a.abs().sum(-1, keepdim=True)
+    else:
+        x = pos.reshape(-1)
+        dot = torch.dot
+        l1 = lambda a: a.abs().sum()
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
 
     def egrad(x):
-        return caps.amber_grad_rows(ht.caps, x.reshape(shape)).reshape(-1) * free
+        return caps.amber_grad_rows(ht.caps, x.reshape(shape)).reshape(x.shape) * free
 
     def two_loop(g, s_hist, y_hist, rho_hist, gamma):
         q = g
         alphas = []
         for s, y, rho in zip(reversed(s_hist), reversed(y_hist), reversed(rho_hist)):
-            al = rho * torch.dot(s, q)
+            al = rho * dot(s, q)
             q = q - al * y
             alphas.append(al)
         alphas = alphas[::-1]
         r = gamma * q
         for s, y, rho, al in zip(s_hist, y_hist, rho_hist, alphas):
-            be = rho * torch.dot(y, r)
+            be = rho * dot(y, r)
             r = r + s * (al - be)
         return -r
 
-    x = pos.reshape(-1)
     g = egrad(x)
     s_hist, y_hist, rho_hist = [], [], []
-    gamma = torch.ones((), dtype=pos.dtype, device=pos.device)
+    gamma = torch.ones_like(l1(g))
     for it in range(n_iter):
         if it == 0:
             d = -g
-            t = torch.clamp(1.0 / torch.clamp(g.abs().sum(), min=1e-10), max=1.0) * lr
+            t = torch.clamp(1.0 / torch.clamp(l1(g), min=1e-10), max=1.0) * lr
         else:
             d = two_loop(g, s_hist, y_hist, rho_hist, gamma)
             t = lr
@@ -150,12 +162,12 @@ def optimize_caps(ht: HydrogenTables, pos: torch.Tensor, n_iter: int = 10,
         g_new = egrad(x_new)
         y = g_new - g
         s = t * d
-        ys = torch.dot(y, s)
+        ys = dot(y, s)
         ok = ys > 1e-10
         okf = ok.to(pos.dtype)
         s_hist.append(s * okf)
         y_hist.append(y * okf)
         rho_hist.append(torch.where(ok, 1.0 / torch.where(ok, ys, torch.ones_like(ys)), zero))
-        gamma = torch.where(ok, ys / torch.clamp(torch.dot(y, y), min=1e-10), gamma)
+        gamma = torch.where(ok, ys / torch.clamp(dot(y, y), min=1e-10), gamma)
         x, g = x_new, g_new
     return x.reshape(shape)

@@ -13,6 +13,11 @@ Port of ``ai2bmd_tpu/frag/runtime.py:89-309``.  Per MD step:
 
 ``index_add_`` on CUDA sums in no fixed order; the stitch is the one place
 of the step where that is accepted.
+
+Replica ensembles (:312-405): with positions [Rl,N,3] the caps are
+optimized per replica, and each ViSNet call takes every replica's rows of
+its bucket as one batch; ``ensemble_fragment_energy_forces_warm`` runs the
+replicas in chunks so that one chunk's activations are alive at a time.
 """
 
 from __future__ import annotations
@@ -129,31 +134,52 @@ class FragmentRuntime:
 
 
 def build_row_positions(rt: FragmentRuntime, P: torch.Tensor) -> torch.Tensor:
-    """Protein positions [N,3] -> dipeptide rows [R,S,3] with placed caps."""
-    base = P[rt.gather_idx]
-    unit = HY._safe_unit(P[rt.cap_dir_idx] - base)
+    """Protein positions [..., N,3] -> dipeptide rows [..., R,S,3] with placed
+    caps."""
+    base = P[..., rt.gather_idx, :]
+    unit = HY._safe_unit(P[..., rt.cap_dir_idx, :] - base)
     pos = torch.where(rt.is_cap[..., None], base + unit * rt.cap_radius, base)
     return torch.where(rt.valid[..., None], pos, rt.pad_pos)
 
 
-def _fragment_terms(params: dict, rt: FragmentRuntime, pos: torch.Tensor,
-                    cfg: V.ViSNetConfig):
-    """ViSNet over both fragment families + stitching, given optimized rows."""
-    N = rt.n_atoms
-    energy = pos.new_zeros(())
-    forces = pos.new_zeros((N + 1, 3))
+def batched_fragment_terms(params: dict, rt: FragmentRuntime, pos: torch.Tensor,
+                           cfg: V.ViSNetConfig):
+    """ViSNet over both fragment families + stitching for Rl replicas'
+    optimized rows, pos [Rl,R,S,3] -> (E [Rl], F [Rl,N,3]).
+
+    ``frag/runtime.py:316-362``: the replica and row axes fold into one
+    ViSNet batch per bucket (one kernel launch per layer for all replicas),
+    and the forces stitch with ``index_add_`` on dim 1 of [Rl,N+1,3]."""
+    Rl, N = pos.shape[0], rt.n_atoms
+    energy = pos.new_zeros((Rl,))
+    forces = pos.new_zeros((Rl, N + 1, 3))
     for b in rt.dip_buckets:
-        e_b, f_b = V.energy_and_forces(params, b.z, pos[b.rows, : b.width], b.valid, cfg)
-        energy = energy + (e_b * b.has_atoms).sum()
-        forces.index_add_(0, b.dst.reshape(-1), f_b.reshape(-1, 3))
+        r = len(b.rows)
+        e_b, f_b = V.energy_and_forces(
+            params, b.z.repeat(Rl, 1), pos[:, b.rows, : b.width].reshape(Rl * r, b.width, 3),
+            b.valid.repeat(Rl, 1), cfg)
+        energy = energy + (e_b.reshape(Rl, r) * b.has_atoms).sum(1)
+        forces.index_add_(1, b.dst.reshape(-1), f_b.reshape(Rl, -1, 3))
 
     # ACE-NME views: the first/last 6 template slots of consecutive dipeptides
-    ace = torch.nn.functional.pad(pos[rt.ace_rows, rt.ace_slots], (0, 0, 0, S_ACE - ACENME_LEN))
+    ace = torch.nn.functional.pad(pos[:, rt.ace_rows, rt.ace_slots],
+                                  (0, 0, 0, S_ACE - ACENME_LEN))
     ace_pos = torch.where(rt.ace_mask16[..., None], ace, rt.ace_park)
-    e_a, f_a = V.energy_and_forces(params, rt.ace_z16, ace_pos, rt.ace_mask16, cfg)
-    energy = energy - (e_a * rt.ace_valid).sum()
-    forces.index_add_(0, rt.ace_dst16.reshape(-1), -f_a.reshape(-1, 3))
-    return energy, forces[:N]
+    C = rt.ace_z16.shape[0]
+    e_a, f_a = V.energy_and_forces(params, rt.ace_z16.repeat(Rl, 1),
+                                   ace_pos.reshape(Rl * C, S_ACE, 3),
+                                   rt.ace_mask16.repeat(Rl, 1), cfg)
+    energy = energy - (e_a.reshape(Rl, C) * rt.ace_valid).sum(1)
+    forces.index_add_(1, rt.ace_dst16.reshape(-1), -f_a.reshape(Rl, -1, 3))
+    return energy, forces[:, :N]
+
+
+def _fragment_terms(params: dict, rt: FragmentRuntime, pos: torch.Tensor,
+                    cfg: V.ViSNetConfig):
+    """ViSNet over both fragment families + stitching, given optimized rows
+    [R,S,3] of one protein."""
+    energy, forces = batched_fragment_terms(params, rt, pos[None], cfg)
+    return energy[0], forces[0]
 
 
 def fragment_energy_forces(params: dict, rt: FragmentRuntime, P: torch.Tensor,
@@ -182,7 +208,39 @@ def fragment_energy_forces_warm(params: dict, rt: FragmentRuntime, P: torch.Tens
 
 
 def initial_cap_delta(rt: FragmentRuntime, P: torch.Tensor, n_iter: int = 10):
-    """Cold-start offsets for the warm path (full optimization once)."""
+    """Cold-start offsets for the warm path (full optimization once); P
+    [N,3], or [Rl,N,3] for one optimization per replica."""
     pos_geo = build_row_positions(rt, P)
     pos = HY.optimize_caps(rt.ht, pos_geo, n_iter=n_iter)
     return torch.where(rt.is_cap[..., None], pos - pos_geo, torch.zeros_like(pos))
+
+
+def ensemble_fragment_energy_forces_warm(params: dict, rt: FragmentRuntime, Ps: torch.Tensor,
+                                         cfg: V.ViSNetConfig, cap_delta: torch.Tensor,
+                                         warm_iters: int = 1, replica_chunk: int = 8):
+    """Warm-started fragment potential over Rl replicas (``frag/runtime.py:
+    365-401``): Ps [Rl,N,3], cap_delta [Rl,R,S,3] -> (E [Rl], F [Rl,N,3],
+    new_delta).  The caps are optimized per replica (one L-BFGS per replica,
+    the same iterates as a lone replica's), then ViSNet runs on chunks of
+    ``replica_chunk`` replicas (all of them if it does not divide Rl) in a
+    Python loop.  Each ViSNet call's autograd graph is freed by its own
+    backward, so one chunk's activations are alive at a time."""
+    free = rt.is_cap[..., None]
+    pos_geo = build_row_positions(rt, Ps)
+    pos0 = pos_geo + torch.where(free, cap_delta, torch.zeros_like(cap_delta))
+    pos = HY.optimize_caps(rt.ht, pos0, n_iter=warm_iters).detach()
+    new_delta = torch.where(free, pos - pos_geo, torch.zeros_like(pos))
+    Rl = Ps.shape[0]
+    c = min(replica_chunk, Rl) if replica_chunk > 0 else Rl
+    if Rl % c:
+        c = Rl
+    parts = [batched_fragment_terms(params, rt, pos[s:s + c], cfg) for s in range(0, Rl, c)]
+    return (torch.cat([e for e, _ in parts]), torch.cat([f for _, f in parts]), new_delta)
+
+
+def initial_cap_delta_batched(rt: FragmentRuntime, Ps: torch.Tensor, n_iter: int = 10):
+    """Cold-start offsets of Rl replicas, Ps [Rl,N,3] -> [Rl,R,S,3]: one
+    optimization per replica (``frag/runtime.py:404-405``).  Kept only for
+    name parity with the JAX package: ``initial_cap_delta`` takes the
+    replica axis itself."""
+    return initial_cap_delta(rt, Ps, n_iter=n_iter)

@@ -1,10 +1,11 @@
 """Langevin dynamics with ASE-compatible semantics.
 
-Port of ``ai2bmd_tpu/md/langevin.py:25-138``: the Vanden-Eijnden / Ciccotti
-integrator exactly as ASE's ``Langevin``, and the Maxwell-Boltzmann velocity
-draw.  The noise of a step comes from an explicit ``torch.Generator`` unless
-the caller passes it in (``xi``, ``eta``), which is how the tests feed both
-packages the same numbers: torch's and JAX's generators differ.
+Port of ``ai2bmd_tpu/md/langevin.py:25-181``: the Vanden-Eijnden / Ciccotti
+integrator exactly as ASE's ``Langevin``, its replica-batched form, and the
+Maxwell-Boltzmann velocity draw.  The noise of a step comes from an explicit
+``torch.Generator`` (one per replica in the batched form) unless the caller
+passes it in (``xi``, ``eta``), which is how the tests feed both packages the
+same numbers: torch's and JAX's generators differ.
 
 Units: ASE internal (A, eV, amu, time = A*sqrt(amu/eV)).
 """
@@ -78,7 +79,9 @@ def langevin_step(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Ten
 
     ``potential`` has the stateful protocol (P, aux) -> (E, F, aux);
     ``masses`` is [N] on the positions' device.  Without ``xi``/``eta`` the
-    two standard normals are drawn from ``generator``, xi first."""
+    two standard normals are drawn from ``generator``, xi first.  The state
+    may carry leading replica axes ([..., N,3]); fixcm then takes each
+    replica's own centre of mass (``langevin_step_batched``)."""
     shape = state.positions.shape
     if xi is None or eta is None:
         if generator is None:
@@ -91,8 +94,32 @@ def langevin_step(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Ten
     v = v + (coeffs.c1 * state.forces / m - coeffs.c2 * v + coeffs.c3 * xi - coeffs.c4 * eta)
     x = state.positions + coeffs.dt * v + coeffs.c5 * eta
     if fixcm:
-        x = x - ((x - state.positions) * m).sum(0) / m.sum()
+        x = x - ((x - state.positions) * m).sum(-2, keepdim=True) / m.sum()
     energy, f_new, aux = potential(x, state.aux)
     v = v + (coeffs.c1 * f_new / m - coeffs.c2 * v + coeffs.c3 * xi - coeffs.c4 * eta)
     return MDState(positions=x, velocities=v, forces=f_new, energy=energy,
                    step=state.step + 1, aux=aux)
+
+
+def langevin_step_batched(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Tensor,
+                          state: MDState, fixcm: bool = True, xi: torch.Tensor | None = None,
+                          eta: torch.Tensor | None = None,
+                          generators: list[torch.Generator] | None = None) -> MDState:
+    """One Langevin step of Rl replicas (``langevin.py:141-181``): every state
+    tensor has a leading replica axis (energy [Rl]), and ``potential`` maps
+    (Ps [Rl,N,3], aux) -> (E [Rl], F [Rl,N,3], aux), so the force evaluation
+    batches across replicas.  Without ``xi``/``eta`` ([Rl,N,3]) replica r
+    draws xi, then eta, from ``generators[r]``, as ``langevin_step`` draws
+    from its generator: a replica follows the trajectory it would follow
+    alone with the same generator."""
+    shape = state.positions.shape
+    if xi is None or eta is None:
+        if generators is None or len(generators) != shape[0]:
+            raise ValueError(
+                f"langevin_step_batched needs xi and eta or {shape[0]} generators, one a replica")
+        draw = lambda g: torch.randn(shape[1:], generator=g, dtype=state.positions.dtype,
+                                     device=state.positions.device)
+        noise = [(draw(g), draw(g)) for g in generators]
+        xi = torch.stack([a for a, _ in noise])
+        eta = torch.stack([b for _, b in noise])
+    return langevin_step(potential, coeffs, masses, state, fixcm, xi, eta)

@@ -12,9 +12,19 @@ With ``fused_layer`` every layer runs whole through ``ops.vislayer``
 (kernels K5/K6 on CUDA tensors, their plain versions on CPU tensors), the
 branch of :506-536.
 
+``remat`` trades arithmetic for memory as the JAX config's does
+(:59-62, applied at :567-568), but not in the same way.  ``jax.checkpoint``
+replays each whole layer in the backward; here only the edge core is
+recomputed: its forward (K1) keeps no zdkv/zs/zf stash and its backward
+(K7/K8, or their plain versions on CPU tensors) rebuilds the O(B·A²·H) edge
+products, which dominate the memory, from the edge rows, while autograd
+keeps the node side's [B,A,H]-sized activations as usual.  The gradient is
+the same either way.  ``fused_layer`` ignores ``remat``, as the JAX
+full-layer branch returns before :567 (K6 always recomputes).
+
 Not ported (options of the JAX config that no production path sets):
-``exact_rejection``, ``remat``, ``edge_dtype``, and the switches ``fused``
-and the ``*_interpret`` flags, which the tensors' device replaces.
+``exact_rejection``, ``edge_dtype``, and the switches ``fused`` and the
+``*_interpret`` flags, which the tensors' device replaces.
 """
 
 from __future__ import annotations
@@ -57,6 +67,12 @@ class ViSNetConfig:
     # activations, vecnorm "none" and A % 8 == 0 (raises otherwise).  Weight
     # gradients are not computed on this path: training uses the default.
     fused_layer: bool = False
+    # remat=True runs the edge core's backward in recompute mode (kernels
+    # K7/K8, the plain versions on the CPU): less device memory for large
+    # fragment batches, more arithmetic.  Needs silu activations.  Like the
+    # card's edge kernels, it gives the edge-core weights no gradient, so a
+    # weight that needs one raises: training uses the default.
+    remat: bool = False
 
     @property
     def n_sphere(self) -> int:
@@ -203,7 +219,7 @@ def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConf
     x_agg, vec_agg, df = edge_core(
         q, k, v, vec, edge_attr, d_sh, dist, adj_f, w_dkv, b_dkv,
         lp["s_proj"]["w"], lp["s_proj"]["b"], cfg.cutoff, nh,
-        act=cfg.activation, attn_act=cfg.attn_activation, **upd,
+        act=cfg.activation, attn_act=cfg.attn_activation, recompute=cfg.remat, **upd,
     )
     o1, o2, o3 = _linear(lp["o_proj"], x_agg).split(H, dim=-1)
     dx = vec_dot * o2 + o3

@@ -6,7 +6,7 @@ went through.
 """
 
 LAUNCHES = {"edge_fwd": 0, "edge_bwd_msg": 0, "edge_bwd_upd": 0, "cap_grad": 0,
-            "vislayer_fwd": 0, "vislayer_bwd": 0}
+            "vislayer_fwd": 0, "vislayer_bwd": 0, "edge_bwd_msg_rc": 0, "edge_bwd_upd_rc": 0}
 
 
 def reset_launches() -> None:

@@ -73,7 +73,7 @@ class CapTables:
 
 
 def amber_grad_rows_plain(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
-    """Plain version of K4: autograd of the plain AMBER energy, [R,S,3]."""
+    """Plain version of K4: autograd of the plain AMBER energy, [..., R,S,3]."""
     from ai2bmd_torch.frag.hydrogen import amber_row_energy
 
     with torch.enable_grad():
@@ -82,27 +82,30 @@ def amber_grad_rows_plain(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
     return g
 
 
-_CAP_ARGS = [_build.P] * 17 + [_build.I] * 6
+_CAP_ARGS = [_build.P] * 17 + [_build.I] * 7
 
 
 def amber_grad_rows(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
-    """dE/dpos [R,S,3] of every row's cap energy (K4 on CUDA, autograd of
-    the plain energy on the CPU).  Forward only: callers stop the gradient."""
+    """dE/dpos [..., R,S,3] of every row's cap energy (K4 on CUDA, autograd
+    of the plain energy on the CPU); leading axes (replicas) take the same R
+    rows of tables, and K4 runs once over all of them.  Forward only:
+    callers stop the gradient."""
     if pos.device.type == "cpu":
         return amber_grad_rows_plain(ct, pos)
     if not pos.is_cuda:
         raise ValueError(f"no cap-gradient implementation for device {pos.device}")
-    R, S, _ = pos.shape
+    RT, S, _ = pos.shape[-3:]
+    R = pos.numel() // (S * 3)
     NB, NA, ND, NP = ct.sizes
-    _build.check("pos", pos, (R, S, 3), device=pos.device)
+    _build.check("pos", pos, (*pos.shape[:-3], RT, S, 3), device=pos.device)
     for tab in ct.kernel:
         if tab.device != pos.device or not tab.is_contiguous():
             raise ValueError("cap tables must be contiguous and on the device of pos")
-    if ct.kernel[0].shape[0] != R:
-        raise ValueError(f"cap tables hold {ct.kernel[0].shape[0]} rows, pos has {R}")
+    if ct.kernel[0].shape[0] != RT:
+        raise ValueError(f"cap tables hold {ct.kernel[0].shape[0]} rows, pos has {RT}")
     grad = torch.empty_like(pos)
     _build.call("cap_grad_launch", _CAP_ARGS, pos.data_ptr(),
                 *(t.data_ptr() for t in ct.kernel), grad.data_ptr(),
-                R, S, NB, NA, ND, NP)
+                R, RT, S, NB, NA, ND, NP)
     LAUNCHES["cap_grad"] += 1
     return grad

@@ -49,15 +49,18 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
                                 const float* __restrict__ dih_phase, const int* __restrict__ nb_ij,
                                 const float* __restrict__ nb_a, const float* __restrict__ nb_b,
                                 const float* __restrict__ nb_q, const float* __restrict__ nb_mask,
-                                float* __restrict__ grad, int S, int NB, int NA, int ND, int NP) {
+                                float* __restrict__ grad, int RT, int S, int NB, int NA, int ND,
+                                int NP) {
   extern __shared__ __align__(16) float smem[];
   const int NE = 2 * NB + 3 * NA + 4 * ND + 2 * NP;  // (term, endpoint) slots
   float* sPos = smem;                                  // [S][3]
   float* sF = sPos + 3 * S;                            // [NE][3]
   int* sAt = reinterpret_cast<int*>(sF + 3 * NE);      // [NE] atom of each slot
 
-  const int row = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
-  for (int x = t; x < 3 * S; x += nt) sPos[x] = pos[(size_t)row * S * 3 + x];
+  // pos row p takes the tables of row p % RT: one launch covers the rows of
+  // several replicas, stacked replica-major
+  const int prow = blockIdx.x, row = prow % RT, t = threadIdx.x, nt = blockDim.x;
+  for (int x = t; x < 3 * S; x += nt) sPos[x] = pos[(size_t)prow * S * 3 + x];
   __syncthreads();
 
   auto P = [&](int a) { return V3{sPos[3 * a], sPos[3 * a + 1], sPos[3 * a + 2]}; };
@@ -161,7 +164,7 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
     float s = 0.0f;
     for (int e = 0; e < NE; ++e)
       if (sAt[e] == atom) s += sF[3 * e + c];
-    grad[(size_t)row * S * 3 + x] = s;
+    grad[(size_t)prow * S * 3 + x] = s;
   }
 }
 
@@ -170,8 +173,9 @@ extern "C" int cap_grad_launch(const float* pos, const int* bond_ij, const float
                                const float* angle_t0, const int* dih_ijkl, const float* dih_k,
                                const float* dih_n, const float* dih_phase, const int* nb_ij,
                                const float* nb_a, const float* nb_b, const float* nb_q,
-                               const float* nb_mask, float* grad, int R, int S, int NB, int NA,
-                               int ND, int NP, cudaStream_t stream) {
+                               const float* nb_mask, float* grad, int R, int RT, int S, int NB,
+                               int NA, int ND, int NP, cudaStream_t stream) {
+  if (RT <= 0 || R % RT) return (int)cudaErrorInvalidValue;
   const int NE = 2 * NB + 3 * NA + 4 * ND + 2 * NP;
   const size_t smem = (size_t)(3 * S + 4 * NE) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(cap_grad_kernel,
@@ -179,6 +183,7 @@ extern "C" int cap_grad_launch(const float* pos, const int* bond_ij, const float
   if (err != cudaSuccess) return (int)err;
   cap_grad_kernel<<<R, 128, smem, stream>>>(pos, bond_ij, bond_k, bond_r0, angle_ijk, angle_k,
                                             angle_t0, dih_ijkl, dih_k, dih_n, dih_phase, nb_ij,
-                                            nb_a, nb_b, nb_q, nb_mask, grad, S, NB, NA, ND, NP);
+                                            nb_a, nb_b, nb_q, nb_mask, grad, RT, S, NB, NA, ND,
+                                            NP);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,8 @@
 //       node-update backward g_xagg = [g_o1|g_o2|g_o3] @ W_o^T;
 //   (b) centre pass, one block per (fragment, centre atom i), one thread per
 //       channel: the edge stage recomputed from the edge rows and then
-//       differentiated (the device functions below, written so that the
-//       recompute-mode edge-core backward can reuse them).  Centre-indexed
+//       differentiated (the device functions below; K7 in edge_bwd_msg.cu
+//       takes the same steps in the edge core's layouts).  Centre-indexed
 //       results (g_q, g_edge, g_d_sh, g_dist, g_wt) are final; the per-edge
 //       terms of the source-indexed sums go to scratch (g_k, g_v terms, s1,
 //       g_Sij);

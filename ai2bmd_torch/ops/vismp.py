@@ -6,16 +6,24 @@ d_sh [B,A,A,S]; dist, adj [B,A,A] (adj as a float mask, self loops
 included); linear weights [in, out] as in JAX.  Axis 1 is the centre atom i,
 axis 2 the source atom j.
 
-Three kernels (``csrc/``) and their plain versions:
+Five kernels (``csrc/``; K7 and K8 are the recompute instantiations of the
+templates in K2's and K3's sources) and their plain versions:
 
-  edge_fwd      (K1)  x_agg, vec_agg [, df] [, zdkv, zs, zf]
-  edge_bwd_msg  (K2)  backward of x_agg, vec_agg from the stored zdkv, zs
-  edge_bwd_upd  (K3)  backward of df from the stored zf
+  edge_fwd         (K1)  x_agg, vec_agg [, df] [, zdkv, zs, zf]
+  edge_bwd_msg     (K2)  backward of x_agg, vec_agg from the stored zdkv, zs
+  edge_bwd_upd     (K3)  backward of df from the stored zf
+  edge_bwd_msg_rc  (K7)  backward of x_agg, vec_agg, recomputing zdkv and zs
+                         from the edge rows
+  edge_bwd_upd_rc  (K8)  backward of df, recomputing zf from the edge rows
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors; there is no other route.  ``edge_core`` is what the model
 calls: the plain forward (differentiable in every input, weights included)
-on the CPU, ``FusedVisMP`` on the card.
+on the CPU, ``FusedVisMP`` on the card.  ``FusedVisMP`` has two routes for
+the backward: the stash route (K1 stores zdkv, zs, zf; K2/K3 read them) and,
+with ``recompute=True``, the memory-lean route (K1 stores nothing; K7/K8
+rebuild the pre-activations), which ``edge_core(recompute=True)`` takes on
+the CPU too, there through the plain versions.
 """
 
 from __future__ import annotations
@@ -140,6 +148,24 @@ def edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df):
     return g_edge, g_wt, g_wsrc
 
 
+def edge_bwd_msg_rc_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+                          g_xagg, g_vecagg, cutoff: float, nh: int):
+    """Plain version of K7, the math of ``_bwd_msg_kernel`` (vismp.py:615):
+    zdkv and zs recomputed from the layer inputs, then K2's plain version.
+    Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
+    zdkv, zs = edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+                              cutoff, nh)[3:5]
+    return edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
+                              g_xagg, g_vecagg, cutoff, nh)
+
+
+def edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df):
+    """Plain version of K8, the math of ``_bwd_upd_kernel`` (vismp.py:714):
+    zf = edge @ W_f + b_f recomputed, then K3's plain version.  Returns
+    (g_edge, g_wt, g_wsrc)."""
+    return edge_bwd_upd_plain(adj, wt, wsrc, w_f, edge @ w_f + b_f, g_df)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -148,6 +174,8 @@ _P, _I, _F = _build.P, _build.I, _build.F
 _FWD_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I]
 _MSG_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F]
 _UPD_ARGS = [_P] * 9 + [_I, _I, _I, _I]
+_MSG_RC_ARGS = [_P] * 26 + [_I, _I, _I, _I, _F]
+_UPD_RC_ARGS = [_P] * 12 + [_I, _I, _I, _I]
 
 
 def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
@@ -282,67 +310,165 @@ def edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df):
     return g_edge, g_wt, g_wsrc
 
 
+def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+                    g_xagg, g_vecagg, cutoff: float, nh: int):
+    """K7.  Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
+    if not route(q):
+        return edge_bwd_msg_rc_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
+                                     w_s, b_s, g_xagg, g_vecagg, cutoff, nh)
+    B, A, H = q.shape
+    S = vec.shape[2]
+    check_shapes(A, H, S, nh)
+    dev = q.device
+    wdkvT, wsT = w_dkv.t().contiguous(), w_s.t().contiguous()
+    c = _build.check
+    for name, t, shape in (
+        ("q", q, (B, A, H)), ("k", k, (B, A, H)), ("v", v, (B, A, H)),
+        ("vec", vec, (B, A, S, H)), ("edge", edge, (B, A, A, H)),
+        ("d_sh", d_sh, (B, A, A, S)), ("dist", dist, (B, A, A)), ("adj", adj, (B, A, A)),
+        ("w_dkv", w_dkv, (H, 2 * H)), ("b_dkv", b_dkv, (2 * H,)),
+        ("w_s", w_s, (H, 2 * H)), ("b_s", b_s, (2 * H,)),
+        ("g_xagg", g_xagg, (B, A, H)), ("g_vecagg", g_vecagg, (B, A, S, H)),
+    ):
+        c(name, t, shape, device=dev)
+    new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
+    g_q, g_k, g_v = new(B, A, H), new(B, A, H), new(B, A, H)
+    g_vec, g_edge = new(B, A, S, H), new(B, A, A, H)
+    g_dsh, g_dist = new(B, A, A, S), new(B, A, A)
+    gk_e, gv_e, s1_e = new(B, A, A, H), new(B, A, A, H), new(B, A, A, H)   # scratch
+    p = _build.ptr
+    _build.call(
+        "edge_bwd_msg_rc_launch", _MSG_RC_ARGS,
+        p(q), p(k), p(v), p(vec), p(edge), p(d_sh), p(dist), p(adj),
+        p(w_dkv), p(b_dkv), p(w_s), p(b_s), p(wdkvT), p(wsT), p(g_xagg), p(g_vecagg),
+        p(g_q), p(g_k), p(g_v), p(g_vec), p(g_edge), p(g_dsh), p(g_dist),
+        p(gk_e), p(gv_e), p(s1_e), B, A, H, S, float(cutoff),
+    )
+    LAUNCHES["edge_bwd_msg_rc"] += 1
+    return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
+
+
+def edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f, g_df):
+    """K8.  Returns (g_edge, g_wt, g_wsrc)."""
+    if not route(edge):
+        return edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df)
+    B, A, _, H = edge.shape
+    S = wt.shape[2]
+    check_shapes(A, H, S, H // 32)
+    dev = edge.device
+    wfT = w_f.t().contiguous()
+    c = _build.check
+    for name, t, shape in (
+        ("edge", edge, (B, A, A, H)), ("adj", adj, (B, A, A)), ("wt", wt, (B, A, S, H)),
+        ("wsrc", wsrc, (B, A, S, H)), ("w_f", w_f, (H, H)), ("b_f", b_f, (H,)),
+        ("g_df", g_df, (B, A, A, H)),
+    ):
+        c(name, t, shape, device=dev)
+    new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
+    g_edge, g_wt, g_wsrc = new(B, A, A, H), new(B, A, S, H), new(B, A, S, H)
+    gs_e = new(B, A, A, H)   # scratch
+    p = _build.ptr
+    _build.call(
+        "edge_bwd_upd_rc_launch", _UPD_RC_ARGS,
+        p(edge), p(adj), p(wt), p(wsrc), p(w_f), p(b_f), p(wfT), p(g_df),
+        p(g_edge), p(g_wt), p(g_wsrc), p(gs_e), B, A, H, S,
+    )
+    LAUNCHES["edge_bwd_upd_rc"] += 1
+    return g_edge, g_wt, g_wsrc
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
 class FusedVisMP(torch.autograd.Function):
-    """The edge core through K1 forward and K2/K3 backward.
+    """The edge core through K1 forward and K2/K3 or K7/K8 backward.
 
     Mirrors ``vismp.fused_vis_mp`` (vismp.py:1111-1220): the forward stores
     zdkv, zs (and zf with the update) only when some input needs a gradient,
     and the backward reads them instead of recomputing the edge products.
+    With ``recompute`` the forward stores none of them and saves the layer
+    inputs (with b_dkv, b_s and b_f) instead; the backward rebuilds the
+    pre-activations in K7/K8, the route of ``_bwd_msg_call`` /
+    ``_bwd_upd_call`` (vismp.py:987, :1060).  The gradient is the same
+    either way; the stash of 5 H floats per edge cell is not held between
+    the forward and the backward.
     The gradient flows to q, k, v, vec, wt, wsrc, edge, d_sh and dist.  The
     weights and biases get NO gradient (the reference returns zeros,
     vismp.py:1123): forces differentiate positions only, so training must
-    use the plain path (CPU tensors, or ``edge_fwd_plain`` directly).
+    use the plain path (``edge_core`` on CPU tensors without ``recompute``,
+    or ``edge_fwd_plain`` directly); ``edge_core`` raises rather than take
+    this Function for a weight that needs a gradient.
     On CPU tensors the wrappers run their plain versions, so this Function
     is also testable without a card."""
 
     @staticmethod
     def forward(ctx, q, k, v, vec, wt, wsrc, edge, d_sh, dist, adj,
-                w_dkv, b_dkv, w_s, b_s, w_f, b_f, cutoff, nh):
-        store = any(ctx.needs_input_grad[:9])
+                w_dkv, b_dkv, w_s, b_s, w_f, b_f, cutoff, nh, recompute=False):
+        grads = any(ctx.needs_input_grad[:9])
+        store = grads and not recompute
         x_agg, vec_agg, df, zdkv, zs, zf = edge_fwd(
             q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
             cutoff, nh, wt, wsrc, w_f, b_f, store=store)
         ctx.cutoff, ctx.nh, ctx.update = cutoff, nh, wt is not None
+        ctx.recompute = recompute
         if store:
             ctx.save_for_backward(q, k, v, vec, wt, wsrc, d_sh, dist, adj,
                                   w_dkv, w_s, w_f, zdkv, zs, zf)
+        elif grads:
+            ctx.save_for_backward(q, k, v, vec, wt, wsrc, d_sh, dist, adj,
+                                  w_dkv, w_s, w_f, edge, b_dkv, b_s, b_f)
         if ctx.update:
             return x_agg, vec_agg, df
         return x_agg, vec_agg
 
     @staticmethod
     def backward(ctx, g_xagg, g_vecagg, g_df=None):
-        (q, k, v, vec, wt, wsrc, d_sh, dist, adj,
-         w_dkv, w_s, w_f, zdkv, zs, zf) = ctx.saved_tensors
-        g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = edge_bwd_msg(
-            q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
-            g_xagg.contiguous(), g_vecagg.contiguous(), ctx.cutoff, ctx.nh)
+        q, k, v, vec, wt, wsrc, d_sh, dist, adj, w_dkv, w_s, w_f, *rest = ctx.saved_tensors
+        g_xagg, g_vecagg = g_xagg.contiguous(), g_vecagg.contiguous()
         g_wt = g_wsrc = None
-        if ctx.update:
-            g_edge2, g_wt, g_wsrc = edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df.contiguous())
-            g_edge = g_edge + g_edge2
+        if ctx.recompute:
+            edge, b_dkv, b_s, b_f = rest
+            g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = edge_bwd_msg_rc(
+                q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
+                g_xagg, g_vecagg, ctx.cutoff, ctx.nh)
+            if ctx.update:
+                g_edge2, g_wt, g_wsrc = edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f,
+                                                        g_df.contiguous())
+                g_edge = g_edge + g_edge2
+        else:
+            zdkv, zs, zf = rest
+            g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = edge_bwd_msg(
+                q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
+                g_xagg, g_vecagg, ctx.cutoff, ctx.nh)
+            if ctx.update:
+                g_edge2, g_wt, g_wsrc = edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df.contiguous())
+                g_edge = g_edge + g_edge2
         return (g_q, g_k, g_v, g_vec, g_wt, g_wsrc, g_edge, g_dsh, g_dist,
-                None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
 
 def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
               cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
-              act: str = "silu", attn_act: str = "silu"):
+              act: str = "silu", attn_act: str = "silu", recompute: bool = False):
     """The one entry the model calls: (x_agg, vec_agg, df or None).
 
     CPU tensors take the plain forward and autograd through it; CUDA tensors
-    take ``FusedVisMP`` (kernels K1-K3), which computes silu only."""
-    if not route(q):
+    take ``FusedVisMP`` (kernels K1-K3), which computes silu only.  With
+    ``recompute`` both take ``FusedVisMP`` on its recompute route (K1 and
+    K7/K8 on the card, their plain versions on the CPU).  ``FusedVisMP``
+    gives the weights no gradient, so it raises where one needs it."""
+    if not recompute and not route(q):
         return edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
                               w_s, b_s, cutoff, nh, wt, wsrc, w_f, b_f, act, attn_act)[:3]
     if act not in ("silu", "swish") or attn_act not in ("silu", "swish"):
         raise ValueError(f"the edge kernels compute silu, not {act!r}/{attn_act!r}")
+    if torch.is_grad_enabled() and any(
+            w is not None and w.requires_grad for w in (w_dkv, b_dkv, w_s, b_s, w_f, b_f)):
+        raise ValueError("the edge kernels give the edge-core weights no gradient; train "
+                         "on CPU tensors without recompute (ViSNetConfig(remat=False))")
     cont = lambda t: None if t is None else t.contiguous()
     outs = FusedVisMP.apply(
         *map(cont, (q, k, v, vec, wt, wsrc, edge, d_sh, dist, adj,
-                    w_dkv, b_dkv, w_s, b_s, w_f, b_f)), cutoff, nh)
+                    w_dkv, b_dkv, w_s, b_s, w_f, b_f)), cutoff, nh, recompute)
     return outs if wt is not None else (*outs, None)

@@ -40,20 +40,22 @@ class NonbondedParams:
 
 
 def nonbonded_energy(nb: NonbondedParams, P: torch.Tensor) -> torch.Tensor:
-    """0.5 * sum over ordered pairs of LJ + Coulomb (eV)."""
-    vec = P[None, :, :] - P[:, None, :]
+    """0.5 * sum over ordered pairs of LJ + Coulomb (eV); P [N,3] -> scalar,
+    or [Rl,N,3] -> [Rl] for a leading replica axis."""
+    vec = P[..., None, :, :] - P[..., :, None, :]
     d2 = torch.where(nb.mask, (vec * vec).sum(-1), torch.ones((), dtype=P.dtype, device=P.device))
     sig = 0.5 * (nb.sigma[:, None] + nb.sigma[None, :])
     eps = torch.sqrt(nb.eps[:, None] * nb.eps[None, :])
     c6 = (sig * sig / d2) ** 3
     e_lj = 4.0 * eps * (c6 * c6 - c6)
     e_coul = units.COULOMB * nb.charge[:, None] * nb.charge[None, :] * torch.rsqrt(d2)
-    return 0.5 * torch.where(nb.mask, e_lj + e_coul, torch.zeros_like(d2)).sum()
+    return 0.5 * torch.where(nb.mask, e_lj + e_coul, torch.zeros_like(d2)).sum((-2, -1))
 
 
 def nonbonded_energy_forces(nb: NonbondedParams, P: torch.Tensor):
+    """(E, F) for P [N,3] or [Rl,N,3] (E [Rl], F [Rl,N,3])."""
     with torch.enable_grad():
         p = P.detach().requires_grad_(True)
         e = nonbonded_energy(nb, p)
-        (g,) = torch.autograd.grad(e, p)
+        (g,) = torch.autograd.grad(e.sum(), p)
     return e.detach(), -g

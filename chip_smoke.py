@@ -14,11 +14,16 @@ is not printed):
      source, all started together
   3. each kernel (K1 edge_fwd in all four flag pairs, K2 edge_bwd_msg,
      K3 edge_bwd_upd, K4 cap_grad, K5 vislayer_fwd and K6 vislayer_bwd for
-     both values of `last`) against its plain PyTorch version on the card at
-     the main path's shapes: max abs / relative error against a stated
-     tolerance, bitwise repeatability, times in turns (CUDA events per call,
-     and device time from a profiler trace), and the share of the float32
-     bound (the larger of bytes over 3.35 TB/s and FLOPs over 67 TFLOP/s)
+     both values of `last`, K7 edge_bwd_msg_rc, K8 edge_bwd_upd_rc) against
+     its plain PyTorch version on the card at the main path's shapes: max
+     abs / relative error against a stated tolerance, bitwise repeatability,
+     times in turns (CUDA events per call, and device time from a profiler
+     trace), and the share of the float32 bound (the larger of bytes over
+     3.35 TB/s and FLOPs over 67 TFLOP/s); K7/K8 also against K2/K3 on K1's
+     stash of the same inputs, and again at one ensemble chunk's batch sizes
+     (8 x the single-protein B); K4 also over 64 replicas' rows, each replica
+     perturbed on its own, against its plain version and against launches
+     over each replica alone
   4. the slice through the edge-core kernels K1-K3: Chignolin, production
      ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
@@ -30,15 +35,25 @@ is not printed):
      (AI2BMD_FUSED_LAYER=1): every ViSNet layer of every batch launches K5
      and K6 once per force evaluation and K1-K3 never; step 0 held against
      phase 4's step 0 and against the CPU float64 run
-  5. one JSON line of kernel results, the card's name and power limit, and
+  5. the replica ensemble (BASELINE config 5): ReplicaEnsemble of 64
+     Chignolin replicas at 9 x 256 with ViSNetConfig(remat=True), chunks of
+     8 replicas; initial state (cold caps, first forces) and 1 + 3 batched
+     Langevin steps with the launch counters reset just before and read
+     just after: per force evaluation K1 and K7 launch 8 chunks x 4 batches
+     x 9 layers times and K8 x 8 layers, K2/K3 never; every replica's
+     initial forces held against phase 4's step 0; one chunk run with
+     remat=True and remat=False, forces compared and peak device memory
+     printed; ms per step and per replica-step (smoke figures)
+  6. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
-first check of a kernel change).  Imports no JAX.  The ms/step it prints is
-a smoke figure, not a benchmark.
+first check of a kernel change).  Imports no JAX.  The ms/step figures it
+prints are smoke figures, not a benchmark.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -58,6 +73,7 @@ CAP_TOL = 1e-4
 FORCE_LIMIT = 1e-3          # eV/A, BASELINE.md:55-58
 WARM_STEPS, TIMED_STEPS = 5, 20
 N_LAYERS = 9
+N_REPLICAS, REPLICA_CHUNK, ENSEMBLE_STEPS = 64, 8, 3   # BASELINE config 5
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 outside the
 # tensor cores, and HBM3.  Every kernel here is plain float32 FMA.
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -228,16 +244,65 @@ def edge_inputs(torch, gen, B, A, dev):
     )
 
 
+MSG_KEYS = ("g_q", "g_k", "g_v", "g_vec", "g_edge", "g_d_sh", "g_dist")
+UPD_KEYS = ("g_edge", "g_wt", "g_wsrc")
+
+
+def edge_case(torch, K, gen, B, A, dev):
+    """Inputs at (B, A), K1's stash of them, and random cotangents: the
+    arguments of K2, K3, K7 and K8."""
+    a = edge_inputs(torch, gen, B, A, dev)
+    core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
+            a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
+    upd = dict(wt=a["wt"], wsrc=a["wsrc"], w_f=a["w_f"], b_f=a["b_f"])
+    _, _, _, zdkv, zs, zf = K.edge_fwd(*core, **upd, store=True)
+    g_x = (torch.randn((B, A, H), generator=gen)).to(dev)
+    g_va = (torch.randn((B, A, S, H), generator=gen)).to(dev)
+    g_df = (torch.randn((B, A, A, H), generator=gen) * a["adj"].cpu()[..., None]).to(dev)
+    return dict(
+        a=a, core=core, upd=upd,
+        msg=(a["q"], a["k"], a["v"], a["vec"], zdkv, zs, a["d_sh"], a["dist"], a["adj"],
+             a["w_dkv"], a["w_s"], g_x, g_va, CUTOFF, NH),
+        upd_args=(a["adj"], a["wt"], a["wsrc"], a["w_f"], zf, g_df),
+        msg_rc=(*core[:12], g_x, g_va, CUTOFF, NH),
+        upd_rc=(a["edge"], a["adj"], a["wt"], a["wsrc"], a["w_f"], a["b_f"], g_df),
+    )
+
+
+def check_recompute_pair(torch, K, c, B, A, results, timed):
+    """K7 and K8 at (B, A) against their plain versions and against K2/K3 on
+    K1's stash of the same inputs, bitwise repeats, times and bound (summed
+    into the kernels' results when ``timed``)."""
+    for name, kernel, plain, args, stash, stash_args, keys, flop in (
+            ("edge_bwd_msg_rc", K.edge_bwd_msg_rc, K.edge_bwd_msg_rc_plain, c["msg_rc"],
+             K.edge_bwd_msg, c["msg"], MSG_KEYS, 2 * B * A * A * 8 * H * H),
+            ("edge_bwd_upd_rc", K.edge_bwd_upd_rc, K.edge_bwd_upd_rc_plain, c["upd_rc"],
+             K.edge_bwd_upd, c["upd_args"], UPD_KEYS, 2 * B * A * A * 2 * H * H)):
+        label = f"{name} B={B} A={A}"
+        print(f"  {label}")
+        run = lambda kernel=kernel, args=args: kernel(*args)
+        res = results[name]
+        res["max_abs_err"] = max(res["max_abs_err"], compare(
+            label, run(), dict(zip(keys, plain(*args))), EDGE_TOL))
+        print(f"    against {stash.__name__} on K1's stash:")
+        res["max_abs_err"] = max(res["max_abs_err"], compare(
+            label, run(), dict(zip(keys, stash(*stash_args))), EDGE_TOL))
+        bitwise(label, run)
+        t = in_turns(torch, run, lambda plain=plain, args=args: plain(*args))
+        n_in = 14 if name == "edge_bwd_msg_rc" else len(args)
+        add_bound(res if timed else {}, bound(flop, nbytes(*args[:n_in], *run())), t)
+        if timed:
+            add_times(res, t)
+
+
 def check_edge_kernels(torch, dev, results):
     from ai2bmd_torch.ops import vismp as K
 
     gen = torch.Generator().manual_seed(0)
     fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
     for B, A in SHAPES:
-        a = edge_inputs(torch, gen, B, A, dev)
-        core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
-                a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
-        upd = dict(wt=a["wt"], wsrc=a["wsrc"], w_f=a["w_f"], b_f=a["b_f"])
+        c = edge_case(torch, K, gen, B, A, dev)
+        core, upd = c["core"], c["upd"]
         plain = K.edge_fwd_plain(*core, **upd)
         for update in (True, False):
             for store in (True, False):
@@ -260,36 +325,40 @@ def check_edge_kernels(torch, dev, results):
                     flop = 2 * B * A * A * 5 * H * H
                     add_bound(res, bound(flop, nbytes(*core[:12], *upd.values(), *run())), t)
 
-        _, _, _, zdkv, zs, zf = K.edge_fwd(*core, **upd, store=True)
-        g_x = (torch.randn((B, A, H), generator=gen)).to(dev)
-        g_va = (torch.randn((B, A, S, H), generator=gen)).to(dev)
-        g_df = (torch.randn((B, A, A, H), generator=gen) * a["adj"].cpu()[..., None]).to(dev)
-        msg_args = (a["q"], a["k"], a["v"], a["vec"], zdkv, zs, a["d_sh"], a["dist"], a["adj"],
-                    a["w_dkv"], a["w_s"], g_x, g_va, CUTOFF, NH)
+        msg_args = c["msg"]
         name = f"edge_bwd_msg B={B} A={A}"
         print(f"  {name}")
-        keys = ("g_q", "g_k", "g_v", "g_vec", "g_edge", "g_d_sh", "g_dist")
         run = lambda: K.edge_bwd_msg(*msg_args)
         res = results["edge_bwd_msg"]
         res["max_abs_err"] = max(res["max_abs_err"], compare(
-            name, run(), dict(zip(keys, K.edge_bwd_msg_plain(*msg_args))), EDGE_TOL))
+            name, run(), dict(zip(MSG_KEYS, K.edge_bwd_msg_plain(*msg_args))), EDGE_TOL))
         bitwise(name, run)
         t = in_turns(torch, run, lambda: K.edge_bwd_msg_plain(*msg_args))
         add_times(res, t)
         add_bound(res, bound(2 * B * A * A * 4 * H * H, nbytes(*msg_args[:13], *run())), t)
 
-        upd_args = (a["adj"], a["wt"], a["wsrc"], a["w_f"], zf, g_df)
+        upd_args = c["upd_args"]
         name = f"edge_bwd_upd B={B} A={A}"
         print(f"  {name}")
         run = lambda: K.edge_bwd_upd(*upd_args)
         res = results["edge_bwd_upd"]
         res["max_abs_err"] = max(res["max_abs_err"], compare(
-            name, run(), dict(zip(("g_edge", "g_wt", "g_wsrc"),
-                                  K.edge_bwd_upd_plain(*upd_args))), EDGE_TOL))
+            name, run(), dict(zip(UPD_KEYS, K.edge_bwd_upd_plain(*upd_args))), EDGE_TOL))
         bitwise(name, run)
         t = in_turns(torch, run, lambda: K.edge_bwd_upd_plain(*upd_args))
         add_times(res, t)
         add_bound(res, bound(2 * B * A * A * H * H, nbytes(*upd_args, *run())), t)
+
+        check_recompute_pair(torch, K, c, B, A, results, timed=True)
+
+    # K7/K8 at the batch sizes the ensemble (phase 5) launches them at: one
+    # chunk of REPLICA_CHUNK replicas folds into each ViSNet batch
+    print(f"  K7/K8 at one ensemble chunk's shapes ({REPLICA_CHUNK} replicas per batch; "
+          f"times printed, not summed into the kernels line)")
+    for B, A in SHAPES:
+        c = edge_case(torch, K, gen, REPLICA_CHUNK * B, A, dev)
+        check_recompute_pair(torch, K, c, REPLICA_CHUNK * B, A, results, timed=False)
+        del c
 
 
 def check_cap_kernel(torch, dev, prot, results):
@@ -313,11 +382,34 @@ def check_cap_kernel(torch, dev, prot, results):
         if sigma:
             t = in_turns(torch, run, lambda pos=pos: C.amber_grad_rows_plain(rt.ht.caps, pos))
             add_times(res, t)
-            # operations: ~30 FLOPs per bond and pair term, ~60 per angle,
-            # ~120 per dihedral, per row (an estimate; bytes bound it)
-            NB, NA, ND, NP = rt.ht.caps.sizes
-            flop = pos.shape[0] * (30 * NB + 60 * NA + 120 * ND + 30 * NP)
-            add_bound(res, bound(flop, nbytes(pos, *rt.ht.caps.kernel, *run())), t)
+            add_bound(res, bound(cap_flop(rt, pos), nbytes(pos, *rt.ht.caps.kernel, *run())), t)
+
+    # the ensemble's form: every replica's rows, each replica perturbed on
+    # its own, in one launch that reads row p's tables at p % R
+    pos = (base + 0.05 * torch.randn((N_REPLICAS, *base.shape), generator=gen).to(dev))
+    pos = pos.contiguous()
+    name = f"cap_grad Rl={N_REPLICAS} R={pos.shape[1]} S={pos.shape[2]} per-replica perturbed"
+    print(f"  {name}")
+    run = lambda: (C.amber_grad_rows(rt.ht.caps, pos),)
+    res = results["cap_grad"]
+    got = run()[0]
+    res["max_abs_err"] = max(res["max_abs_err"], compare(
+        name, (got,), {"grad": C.amber_grad_rows_plain(rt.ht.caps, pos)}, CAP_TOL))
+    alone = all(bool(torch.equal(got[r], C.amber_grad_rows(rt.ht.caps, pos[r].contiguous())))
+                for r in range(N_REPLICAS))
+    print(f"    each replica's rows bitwise equal to a launch over that replica alone: {alone}")
+    need(alone, f"{name}: the replica launch differs from the lone launches")
+    bitwise(name, run)
+    t = in_turns(torch, run, lambda: C.amber_grad_rows_plain(rt.ht.caps, pos))
+    add_bound({}, bound(cap_flop(rt, pos), nbytes(pos, *rt.ht.caps.kernel, *run())), t)
+
+
+def cap_flop(rt, pos):
+    """Operations of K4 over pos [..., R,S,3]: ~30 FLOPs per bond and pair
+    term, ~60 per angle, ~120 per dihedral, per row (an estimate; bytes
+    bound it)."""
+    NB, NA, ND, NP = rt.ht.caps.sizes
+    return (pos.numel() // (pos.shape[-2] * 3)) * (30 * NB + 60 * NA + 120 * ND + 30 * NP)
 
 
 def layer_inputs(torch, gen, B, A, dev):
@@ -500,7 +592,7 @@ def run_slice(torch, dev, prot, card):
     launches, ms_step, P, aux0, aux1, e0, f0 = drive(torch, dev, prot, pot, card)
     for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
         need(launches[name] > 0, f"kernel {name} was not launched on the main path")
-    for name in ("vislayer_fwd", "vislayer_bwd"):
+    for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc"):
         need(launches[name] == 0, f"{name} ran on the edge-core path")
 
     # step 0 against the same port on the CPU in float64 (plain versions)
@@ -537,7 +629,7 @@ def run_fused_slice(torch, dev, prot, card, ref):
     for name in ("vislayer_fwd", "vislayer_bwd"):
         need(launches[name] == per_eval * evals,
              f"{name}: {launches[name]} launches, expected {per_eval} x {evals} force evaluations")
-    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd"):
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc", "edge_bwd_upd_rc"):
         need(launches[name] == 0, f"{name} ran on the full-layer path")
     need(launches["cap_grad"] > 0, "cap_grad was not launched on the full-layer path")
     same_caps = bool(torch.equal(aux0, ref["aux0"]))
@@ -556,6 +648,96 @@ def run_fused_slice(torch, dev, prot, card, ref):
     return launches, ms_step
 
 
+def run_ensemble(torch, dev, prot, card, ref):
+    """Phase 5: BASELINE config 5 through ReplicaEnsemble with remat=True
+    (K1 without a stash, K7/K8), held against phase 4's step 0; one chunk
+    with remat on and off.  Returns its launches."""
+    from ai2bmd_torch.frag import runtime as RT
+    from ai2bmd_torch.host import build_fragment_index
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.parallel import ReplicaEnsemble
+
+    cfg = ViSNetConfig(remat=True)                 # 9 layers x 256, 8 heads, lmax 2
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    ens = ReplicaEnsemble.build(prot, build_fragment_index(prot.atoms), params, cfg,
+                                n_replicas=N_REPLICAS, timestep_fs=1.0, temp_K=300.0,
+                                friction_per_fs=0.001, replica_chunk=REPLICA_CHUNK, device=dev)
+    need(ens.cfg.remat and not ens.cfg.fused_layer, f"ensemble config {ens.cfg}")
+    batches = len(ens.rt.dip_buckets) + 1
+    chunks = N_REPLICAS // REPLICA_CHUNK
+    print(f"  {N_REPLICAS} replicas in {chunks} chunks of {REPLICA_CHUNK}; ViSNet batches per "
+          f"chunk (fragments x slots): "
+          f"{[(REPLICA_CHUNK * len(b.rows), b.width) for b in ens.rt.dip_buckets]} + ACE-NME "
+          f"({REPLICA_CHUNK * ens.rt.ace_z16.shape[0]}, {ens.rt.ace_z16.shape[1]})")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = ens.initial_state(prot.positions, temp_K=300.0, seed=0)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    f_init = state.forces
+    state = ens.run(state, 1)                      # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ens.run(state, ENSEMBLE_STEPS)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / ENSEMBLE_STEPS
+    launches = dict(LAUNCHES)
+    peak_run = torch.cuda.max_memory_allocated()
+    evals = 2 + ENSEMBLE_STEPS
+    print(f"  initial state {t_init:.1f} s; {state.step} steps; {evals} force evaluations; "
+          f"launches {launches}; peak device memory {peak_run / 2**30:.2f} GiB")
+    want = {"edge_fwd": chunks * batches * N_LAYERS, "edge_bwd_msg_rc": chunks * batches * N_LAYERS,
+            "edge_bwd_upd_rc": chunks * batches * (N_LAYERS - 1),
+            "edge_bwd_msg": 0, "edge_bwd_upd": 0, "vislayer_fwd": 0, "vislayer_bwd": 0}
+    for name, per_eval in want.items():
+        need(launches[name] == per_eval * evals,
+             f"{name}: {launches[name]} launches, expected {per_eval} x {evals} force evaluations")
+    need(launches["cap_grad"] > 0, "cap_grad was not launched by the ensemble")
+    need(bool(state.positions.isfinite().all() and state.forces.isfinite().all()
+              and state.energy.isfinite().all()), "non-finite ensemble state")
+    need(state.positions.shape == (N_REPLICAS, len(prot), 3), "ensemble positions shape")
+    need(not bool(torch.equal(state.positions[0], state.positions[1])), "replicas did not diverge")
+    profile_steps(torch, lambda s: ens.run(s, 1), state, n=1)
+
+    cpu = torch.device("cpu")
+    dF = float((f_init.to(cpu, torch.float64) - ref["f0"].to(cpu, torch.float64)[None])
+               .abs().max())
+    print(f"  initial forces of all {N_REPLICAS} replicas vs phase 4's step 0: max|dF| "
+          f"{dF:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(dF <= FORCE_LIMIT, f"ensemble initial forces differ from phase 4 by {dF:.3e}")
+
+    # one chunk with remat on and off: the same forces, the memory they hold
+    Ps, deltas = state.positions[:REPLICA_CHUNK], state.aux[:REPLICA_CHUNK]
+    forces, peaks = {}, {}
+    for remat in (True, False):
+        c = dataclasses.replace(ens.cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, forces[remat], _ = RT.ensemble_fragment_energy_forces_warm(
+            ens.params, ens.rt, Ps, c, deltas, replica_chunk=REPLICA_CHUNK)
+        torch.cuda.synchronize()
+        peaks[remat] = (torch.cuda.max_memory_allocated(), base)
+        print(f"  one chunk (R = {REPLICA_CHUNK}), remat={remat}: max_memory_allocated "
+              f"{peaks[remat][0] / 2**20:.1f} MiB, {(peaks[remat][0] - base) / 2**20:.1f} MiB "
+              f"above the {base / 2**20:.1f} MiB held before the call")
+    dF = float((forces[True] - forces[False]).abs().max())
+    ratio = (peaks[True][0] - peaks[True][1]) / (peaks[False][0] - peaks[False][1])
+    print(f"  remat=True vs remat=False forces: max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT}); "
+          f"peak above the base, True / False: {ratio:.3f}")
+    need(dF <= FORCE_LIMIT, f"remat changed the forces by {dF:.3e}")
+    print(f"  ensemble: {ms_step:.3f} ms/step, {ms_step / N_REPLICAS:.4f} ms per replica-step, "
+          f"{N_REPLICAS * 86.4 / ms_step:.3f} ns/day aggregate over {ENSEMBLE_STEPS} steps "
+          f"(smoke figure, not a benchmark; host clock, synchronised)")
+    print(f"  {card}")
+    return launches
+
+
 KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
     "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:543"),
     "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
@@ -567,7 +749,14 @@ KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
                      "ai2bmd_tpu/ops/pallas/vislayer.py:457"),
     "vislayer_bwd": ("ai2bmd_torch/ops/csrc/vislayer_bwd.cu",
                      "ai2bmd_tpu/ops/pallas/vislayer.py:518"),
+    "edge_bwd_msg_rc": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
+                        "ai2bmd_tpu/ops/pallas/vismp.py:1018"),
+    "edge_bwd_upd_rc": ("ai2bmd_torch/ops/csrc/edge_bwd_upd.cu",
+                        "ai2bmd_tpu/ops/pallas/vismp.py:1086"),
 }
+
+
+T_START = time.perf_counter()
 
 
 def main(argv=None):
@@ -623,15 +812,21 @@ def main(argv=None):
     launches, ms_step, ref = run_slice(torch, dev, prot, card)
     print("== 4b. the same slice through the full-layer kernels K5/K6")
     launches_fl, ms_step_fl = run_fused_slice(torch, dev, prot, card, ref)
+    print("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
+    launches_ens = run_ensemble(torch, dev, prot, card, ref)
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
     for n in ("vislayer_fwd", "vislayer_bwd"):
         launches[n] = launches_fl[n]
+    for n in ("edge_bwd_msg_rc", "edge_bwd_upd_rc"):
+        launches[n] = launches_ens[n]
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], **finish(results[n])}
                for n, (src, rep) in KERNELS.items()]
-    print(f"  ms/step {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6) (smoke)")
+    print("== 6. results")
+    print(f"  ms/step {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6) (smoke); "
+          f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -31,6 +31,7 @@ from ai2bmd_torch.models.params import params_from_jax
 from ai2bmd_torch.ops import caps as TC
 from ai2bmd_torch.ops import vislayer as TFL
 from ai2bmd_torch.ops import vismp as TK
+from ai2bmd_torch.parallel import ReplicaEnsemble
 from ai2bmd_torch.utils import device as TD
 
 SMALL = dict(hidden_channels=32, num_heads=4, num_layers=3, num_rbf=8, max_z=20)
@@ -199,6 +200,11 @@ def test_entry_points_default_to_the_card(monkeypatch, pots, chig_protein):
         TRT.FragmentRuntime.build(tpot.fi)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReplicaEnsemble.build(chig_protein, tpot.fi, module.params(), tpot.cfg, n_replicas=2)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        ReplicaEnsemble.build(chig_protein, tpot.fi, module.params(), tpot.cfg, n_replicas=2,
+                              device="cpu", mesh=object())
     pot = TP.FragmentPotential.build(chig_protein, module, tpot.cfg, device="cpu")
     e, f, _ = pot.stateful_energy_forces(T(P), pot.init_cap_delta(T(P)))
     assert f.device.type == "cpu" and torch.isfinite(f).all() and torch.isfinite(e)
@@ -277,6 +283,13 @@ def test_wrappers_refuse_other_devices(pots):
     with pytest.raises(ValueError, match="no edge-core implementation"):
         TK.edge_core(meta, meta, meta, meta, meta, meta, meta, meta, meta, meta, meta, meta,
                      5.0, 8)
+    with pytest.raises(ValueError, match="no edge-core implementation"):
+        TK.edge_core(meta, meta, meta, meta, meta, meta, meta, meta, meta, meta, meta, meta,
+                     5.0, 8, recompute=True)
+    with pytest.raises(ValueError, match="no edge-core implementation"):
+        TK.edge_bwd_msg_rc(*[meta] * 14, 5.0, 8)
+    with pytest.raises(ValueError, match="no edge-core implementation"):
+        TK.edge_bwd_upd_rc(*[meta] * 7)
     with pytest.raises(ValueError, match="no cap-gradient implementation"):
         TC.amber_grad_rows(tpot.rt.ht.caps, torch.empty((10, 40, 3), device="meta"))
     with pytest.raises(ValueError, match="no fused-layer implementation"):

@@ -4,8 +4,11 @@ The same inputs, made with numpy from a seed, go through both packages on
 the CPU in float32.  The JAX side is the pure-jnp path (fused=False) and, for
 the edge core, the Pallas kernels in interpret mode as
 tests/test_pallas_vismp.py runs them.  The port side is its plain PyTorch
-path, and FusedVisMP (kernels' plain versions) for the backward.
+path, and FusedVisMP (kernels' plain versions) for the backward, on both
+of its routes: the stash (K2/K3) and recompute (K7/K8, ``remat``) routes.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -179,3 +182,112 @@ def test_fused_vjp_matches_plain_autograd(rng):
     g_p = torch.autograd.grad(outs_p, [t[n] for n in diff], grad_outputs=cts)
     for n, x, y in zip(diff, g_f, g_p):
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-10, err_msg=n)
+
+
+def _sphere_major(x):
+    """[B,A,S,H] -> [B,S,A,H] (and back: the same swap)."""
+    return np.ascontiguousarray(np.swapaxes(np.asarray(x), 1, 2))
+
+
+def test_recompute_message_backward_matches_pallas(rng):
+    """K7's plain version against the recompute-mode Pallas kernel
+    ``_bwd_msg_call`` (vismp.py:987) in interpret mode, on the sphere-major
+    layout it takes.  Tolerance PALLAS_TOL of the largest reference value."""
+    a = _edge_inputs(rng)
+    nh, cutoff = 4, 5.0
+    B, A, S, H = a["vec"].shape
+    g_x = rng.standard_normal((B, A, H)).astype(np.float32)
+    g_va = rng.standard_normal((B, A, S, H)).astype(np.float32)
+    ref = JK._bwd_msg_call(
+        *(jnp.asarray(x) for x in (a["q"], a["k"], a["v"], _sphere_major(a["vec"]), a["edge"],
+                                   np.transpose(a["d_sh"], (0, 3, 1, 2)), a["dist"], a["adj"],
+                                   a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], g_x,
+                                   _sphere_major(g_va))),
+        cutoff=cutoff, nh=nh, interpret=True)
+    g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = (np.asarray(r) for r in ref)
+    ref = [g_q, g_k, g_v, _sphere_major(g_vec), g_edge, np.transpose(g_dsh, (0, 2, 3, 1)), g_dist]
+    got = TK.edge_bwd_msg_rc_plain(
+        *(T(a[n]) for n in ("q", "k", "v", "vec", "edge", "d_sh", "dist", "adj",
+                            "w_dkv", "b_dkv", "w_s", "b_s")), T(g_x), T(g_va), cutoff, nh)
+    for mine, r in zip(got, ref):
+        _close(mine, r, PALLAS_TOL)
+
+
+def test_recompute_update_backward_matches_pallas(rng):
+    """K8's plain version against the recompute-mode Pallas kernel
+    ``_bwd_upd_call`` (vismp.py:1060) in interpret mode."""
+    a = _edge_inputs(rng)
+    g_df = (rng.standard_normal(a["edge"].shape) * a["adj"][..., None]).astype(np.float32)
+    ref = JK._bwd_upd_call(
+        *(jnp.asarray(x) for x in (a["edge"], a["adj"], _sphere_major(a["wt"]),
+                                   _sphere_major(a["wsrc"]), a["w_f"], a["b_f"], g_df)),
+        interpret=True)
+    g_edge, g_wt, g_wsrc = (np.asarray(r) for r in ref)
+    got = TK.edge_bwd_upd_rc_plain(*(T(a[n]) for n in ("edge", "adj", "wt", "wsrc", "w_f", "b_f")),
+                                   T(g_df))
+    for mine, r in zip(got, [g_edge, _sphere_major(g_wt), _sphere_major(g_wsrc)]):
+        _close(mine, r, PALLAS_TOL)
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["update", "last"])
+def test_recompute_route_matches_stash_route(rng, last):
+    """FusedVisMP with recompute=True (K1 without a stash, K7/K8's plain
+    versions) against recompute=False (K1's stash, K2/K3's plain versions),
+    float64: the same outputs and input gradients to 1e-10."""
+    a = _edge_inputs(rng, B=2, A=16)
+    nh, cutoff = 4, 5.0
+    diff = ["q", "k", "v", "vec", "edge", "d_sh", "dist"] + ([] if last else ["wt", "wsrc"])
+    t = {n: T(a[n]).double().requires_grad_(n in diff) for n in a}
+    if last:
+        for n in ("wt", "wsrc", "w_f", "b_f"):
+            t[n] = None
+    order = ["q", "k", "v", "vec", "wt", "wsrc", "edge", "d_sh", "dist", "adj",
+             "w_dkv", "b_dkv", "w_s", "b_s", "w_f", "b_f"]
+    outs = {rc: TK.FusedVisMP.apply(*[t[n] for n in order], cutoff, nh, rc) for rc in (False, True)}
+    gen = torch.Generator().manual_seed(1)
+    cts = [torch.randn(o.shape, dtype=torch.float64, generator=gen) for o in outs[False]]
+    grads = {rc: torch.autograd.grad(outs[rc], [t[n] for n in diff], grad_outputs=cts)
+             for rc in outs}
+    for x, y in zip(outs[True], outs[False]):
+        np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(), rtol=0, atol=1e-10)
+    for n, x, y in zip(diff, grads[True], grads[False]):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-10, err_msg=n)
+
+
+@pytest.mark.parametrize("weight", ["w_dkv", "b_dkv", "w_s", "b_s", "w_f", "b_f"])
+def test_recompute_route_refuses_weight_gradients(rng, weight):
+    """edge_core with recompute takes FusedVisMP, which gives the weights no
+    gradient: a weight that needs one raises instead of losing it silently,
+    while the plain route (recompute off, CPU) still differentiates it, and
+    the recompute route runs where no gradient is recorded."""
+    a = _edge_inputs(rng, B=2, A=16)
+    t = {n: T(a[n]) for n in a}
+    t[weight].requires_grad_(True)
+    names = ["q", "k", "v", "vec", "edge", "d_sh", "dist", "adj",
+             "w_dkv", "b_dkv", "w_s", "b_s"]
+    upd = dict(wt=t["wt"], wsrc=t["wsrc"], w_f=t["w_f"], b_f=t["b_f"])
+    call = lambda rc: TK.edge_core(*[t[n] for n in names], 5.0, 4, **upd, recompute=rc)
+    with pytest.raises(ValueError, match="no gradient"):
+        call(True)
+    x_agg, vec_agg, df = call(False)
+    (g,) = torch.autograd.grad(x_agg.sum() + vec_agg.sum() + df.sum(), [t[weight]])
+    assert float(g.abs().max()) > 0
+    with torch.no_grad():
+        got = call(True)
+    for x, y in zip(got, (x_agg, vec_agg, df)):
+        np.testing.assert_allclose(x.numpy(), y.detach().numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("batch", range(4), ids=["dip24", "dip32", "dip40", "ace16"])
+def test_remat_energy_and_forces_match_jax(models, chig_batches, batch):
+    """ViSNetConfig(remat=True) in both packages: the port's recompute route
+    (FusedVisMP with K7/K8's plain versions) against JAX's jax.checkpoint
+    of each layer.  Tolerance as test_energy_and_forces_match_jax."""
+    jcfg, jparams, tcfg, tparams = models
+    jcfg, tcfg = dataclasses.replace(jcfg, remat=True), dataclasses.replace(tcfg, remat=True)
+    z, pos, mask = chig_batches[batch]
+    e_j, f_j = jax.jit(lambda p, z, x, m: JV.energy_and_forces(p, z, x, m, jcfg))(
+        jparams, z, pos, mask)
+    e_t, f_t = TV.energy_and_forces(tparams, T(z).long(), T(pos), T(mask), tcfg)
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
