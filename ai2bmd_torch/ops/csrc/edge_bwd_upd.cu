@@ -9,24 +9,30 @@
 //     kernel.  Replaces _bwd_upd_kernel (:714), launched by _bwd_upd_call's
 //     pallas_call (:1086).
 //
-// What bounds it on the H100: float32 multiply-adds on the CUDA cores, per
-// edge cell H^2 for K3 (the transposed product g_zf @ W_f^T) and 2 H^2 for
-// K8 (the recomputed edge @ W_f as well).
+// What bounds it on the H100: the edge products, per edge cell H^2
+// multiply-adds for K3 (the transposed product g_zf @ W_f^T, float32 FMA on
+// the CUDA cores) and 2 H^2 for K8 (the recomputed zf = edge @ W_f as
+// well, on the tensor cores as 3xTF32, common.cuh).
 // Design: pass 1 runs one block per (fragment, centre atom i), one thread per
 // channel, and writes the centre-indexed g_edge and g_wt; K8 first holds the
-// centre's edge rows in shared memory ([A][H], 40 KB at A = 40), the buffer
-// that then holds g_zf.  g_wsrc is source-indexed: the TPU kernel
-// accumulated it across its sequential grid (:868-870, :887-889); here pass 2
-// runs one block per (fragment, source atom j) and sums
-// g_df * adj * silu(zf) * wt_i over i in a fixed order.  K3's pass 2 rebuilds
-// that per-edge factor from the stored zf; K8's pass 1 writes it to scratch,
-// as there is no zf to rebuild it from.  No float atomics: bitwise
-// repeatable.  Rows go in chunks of 8 so that a chunk's loads are in flight
-// together.
+// centre's edge rows in shared memory ([A][H + 4], 42 KB at A = 40), the
+// buffer that then holds zf and, in its place, g_zf.  K8's zf is
+// mma_rows_times_cols, the product K1 stores zf with, so K8's g_zf and
+// results equal K3's on K1's stash bitwise.  g_wsrc is source-indexed: the
+// TPU kernel accumulated it across its sequential grid (:868-870,
+// :887-889); here pass 2 runs one block per (fragment, source atom j) and
+// sums g_df * adj * silu(zf) * wt_i over i in a fixed order.  K3's pass 2
+// rebuilds that per-edge factor from the stored zf; K8's pass 1 writes it
+// to scratch, as there is no zf to rebuild it from.  No float atomics:
+// bitwise repeatable.  Rows go in chunks of 8 so that a chunk's loads are
+// in flight together.
 
 #include "common.cuh"
 
 using namespace ai2bmd;
+
+// dynamic shared memory of one centre-pass block: sG
+static size_t upd_smem(int A, int H) { return (size_t)A * mma_ld(H) * sizeof(float); }
 
 template <bool RC>
 __global__ void __launch_bounds__(256) edge_bwd_upd_centre(
@@ -37,20 +43,16 @@ __global__ void __launch_bounds__(256) edge_bwd_upd_centre(
     const float* __restrict__ gdf, float* __restrict__ gedge, float* __restrict__ gwt,
     float* __restrict__ gs_e, int A, int H, int S) {
   extern __shared__ __align__(16) float smem[];
-  float* sG = smem;  // [A][H] g_zf (K8: the edge rows of i first)
+  const int ld = mma_ld(H);
+  float* sG = smem;  // [A][ld] g_zf (K8: the edge rows of i, then zf, first)
   const int t = threadIdx.x, i = blockIdx.x, b = blockIdx.y;
   const size_t bi = (size_t)b * A + i;
   const size_t b0 = (size_t)b * A;
 
-  float acc[1][MAXA];
-  const int col[1] = {t};
   if constexpr (RC) {
-    // zf = edge @ W_f (+ b_f below)
-    const float4* E4 = reinterpret_cast<const float4*>(edge + bi * A * H);
-    for (int x = t; x < A * H / 4; x += blockDim.x) reinterpret_cast<float4*>(sG)[x] = E4[x];
-    __syncthreads();
-    rows_times_cols<1>(sG, A, H, wf, H, col, acc);
-    __syncthreads();  // every thread has read the edge rows
+    // zf = edge @ W_f (+ b_f below), over the edge rows
+    load_rows(sG, ld, edge + bi * A * H, A, H);
+    mma_rows_times_cols(sG, ld, A, H, wf, H, 0, sG, ld);
   }
 
   float wti[MAXS], gwti[MAXS];
@@ -74,26 +76,15 @@ __global__ void __launch_bounds__(256) edge_bwd_upd_centre(
     if constexpr (RC) gs_e[e * H + t] = g_s;
 #pragma unroll
     for (int c = 0; c < MAXS; ++c) gwti[c] = fmaf(g_s, wsr[c], gwti[c]);
-    sG[r * H + t] = g * sdot * dsilu(z);
+    sG[r * ld + t] = g * sdot * dsilu(z);
   };
-  if constexpr (RC) {
-    // acc is indexed by row, so the loop over chunks unrolls in full
-    const float bft = bf[t];
+  // a runtime loop over chunks, which the compiler pipelines
+  const float bft = RC ? bf[t] : 0.0f;
+  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
 #pragma unroll
-    for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-      if (c8 * RCHUNK < A) {
-#pragma unroll
-        for (int rr = 0; rr < RCHUNK; ++rr) {
-          const int r = c8 * RCHUNK + rr;
-          row(r, acc[0][r] + bft);
-        }
-      }
-    }
-  } else {
-    // a runtime loop over chunks, which the compiler pipelines
-    for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) row(r0 + rr, zf[(bi * A + r0 + rr) * H + t]);
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = r0 + rr;
+      row(r, RC ? sG[r * ld + t] + bft : zf[(bi * A + r) * H + t]);
     }
   }
 #pragma unroll
@@ -102,7 +93,9 @@ __global__ void __launch_bounds__(256) edge_bwd_upd_centre(
   __syncthreads();
 
   // g_edge = g_zf @ W_f^T
-  rows_times_cols<1>(sG, A, H, wfT, H, col, acc);
+  float acc[1][MAXA];
+  const int col[1] = {t};
+  rows_times_cols_ld<1>(sG, ld, A, H, wfT, H, col, acc);
 #pragma unroll
   for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
     if (c8 * RCHUNK < A) {
@@ -151,7 +144,7 @@ static int launch_upd(const float* zf, const float* edge, const float* wf, const
                       int B, int A, int H, int S, cudaStream_t stream) {
   if (A > MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)A * H * sizeof(float);
+  const size_t smem = upd_smem(A, H);
   cudaError_t err = cudaFuncSetAttribute(edge_bwd_upd_centre<RC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -178,4 +171,11 @@ extern "C" int edge_bwd_upd_rc_launch(const float* edge, const float* adj, const
                                       int S, cudaStream_t stream) {
   return launch_upd<true>(nullptr, edge, wf, bf, adj, wt, wsrc, wfT, gdf, gedge, gwt, gwsrc,
                           gs_e, B, A, H, S, stream);
+}
+
+// shared memory, blocks per SM, registers and spill bytes of the centre
+// pass, K3 (rc = 0) or K8 (rc = 1)
+extern "C" int edge_bwd_upd_occupancy(int A, int H, int rc, int* out) {
+  return rc ? occupancy(edge_bwd_upd_centre<true>, H, upd_smem(A, H), out)
+            : occupancy(edge_bwd_upd_centre<false>, H, upd_smem(A, H), out);
 }

@@ -17,27 +17,46 @@
 //
 // What bounds it on the H100: the three edge products, 5 H^2 multiply-adds
 // per edge cell (0.66 MFLOP at H = 256), against a few KB of traffic per
-// cell: it is bound by float32 arithmetic on the CUDA cores, not by memory.
-// Design: one block per (fragment, centre atom i) with one thread per
-// channel; the block keeps the centre's A edge rows and its v_ij rows in
-// shared memory, so no edge intermediate other than the stored
-// pre-activations goes to device memory (as the TPU kernel kept them in
-// VMEM).  The products are plain float32 FMAs on the CUDA cores (no TF32,
-// no tensor cores): each thread accumulates one output column for all A
-// rows in registers while the block streams the weight rows from L2, one
-// k-step ahead.  Rows go in chunks of 8 with one guard per chunk, so a
-// chunk's loads and warp reductions are in flight together.  The head pool
-// is a warp-shuffle sum, since one head (32 channels) is one warp.
-// All sums run in a fixed order: the kernel is bitwise repeatable.
-// The TPU's 8-row centre tile, the broadcast helpers and the 3-pass bf16
-// split were Mosaic workarounds and have no counterpart here.
+// cell: arithmetic, not memory.  Since they run on the tensor cores as
+// 3xTF32 (common.cuh), the bound is 165 TFLOP/s of float32 products; the
+// weights (1.25 MB at H = 256) stream from L2 once per block, about 20
+// FLOP per L2 byte at A = 40 and 8 at A = 16.  What holds it below the
+// bound is feeding mma.sync (common.cuh), then the elementwise chains.
+// Design: one block per (fragment, centre atom i), one thread per channel
+// for the elementwise chains, two [A][H + 4] buffers in shared memory (85
+// KB at A = 40, two blocks an SM): sE holds the centre's edge rows and then
+// v_ij, sP each product's output in turn.  No edge intermediate other than
+// the stored pre-activations goes to device memory (as the TPU kernel kept
+// them in VMEM).  Every product is mma_rows_times_cols (3xTF32 mma.sync,
+// each warp owns 32 output channels, all warps share the rows in shared
+// memory); the elementwise chains then read the product back one channel a
+// thread, in order:  zf (update) -> df;  zk -> dk in sP;  zv written over
+// the edge rows (the product syncs the block before it stores), then the
+// attention message v_ij in its place;  z2 -> the d_sh half of vec_agg;
+// z1 -> the vec half.  Rows go in runtime loops over chunks of 8 rows, the
+// rows of a chunk unrolled, so a chunk's loads and warp reductions are in
+// flight together while the code stays small (chains unrolled over all 48
+// rows ran slower).  __launch_bounds__(256, 2) holds the
+// kernel to 128 registers so two blocks share an SM.  The head pool is a
+// warp-shuffle sum, since one head (32 channels) is one warp.
+// All sums run in a fixed order: the kernel is bitwise repeatable, and K7
+// and K8, which rebuild zdkv, zs and zf with the same product on the same
+// rows, rebuild them bitwise.
+// The TPU's 8-row centre tile and broadcast helpers were Mosaic
+// workarounds and have no counterpart here; its 3-pass bf16 split becomes
+// the 3-pass TF32 split, which keeps 3 more bits per pass.
 
 #include "common.cuh"
 
 using namespace ai2bmd;
 
+// dynamic shared memory of one block: sE, sP, sDsh, sGate, sAdj
+static size_t fwd_smem(int A, int H, int S) {
+  return (size_t)(2 * A * mma_ld(H) + A * S + 2 * A) * sizeof(float);
+}
+
 template <bool UPDATE, bool STORE>
-__global__ void __launch_bounds__(256) edge_fwd_kernel(
+__global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ vec, const float* __restrict__ wt, const float* __restrict__ wsrc,
     const float* __restrict__ edge, const float* __restrict__ dsh,
@@ -49,9 +68,10 @@ __global__ void __launch_bounds__(256) edge_fwd_kernel(
     float* __restrict__ zdkv, float* __restrict__ zs, float* __restrict__ zf,
     int A, int H, int S, float cutoff) {
   extern __shared__ __align__(16) float smem[];
-  float* sE = smem;              // [A][H]  edge rows of centre i
-  float* sV = sE + A * H;        // [A][H]  v_ij
-  float* sDsh = sV + A * H;      // [A][S]
+  const int ld = mma_ld(H);
+  float* sE = smem;              // [A][ld]  edge rows of centre i, then zv, then v_ij
+  float* sP = sE + A * ld;       // [A][ld]  zf, zk then dk, z2, z1
+  float* sDsh = sP + A * ld;     // [A][S]
   float* sGate = sDsh + A * S;   // [A]     cutoff(r) * adj
   float* sAdj = sGate + A;       // [A]
 
@@ -62,139 +82,105 @@ __global__ void __launch_bounds__(256) edge_fwd_kernel(
   const size_t bi = (size_t)b * A + i;  // (fragment, centre) row
   const size_t b0 = (size_t)b * A;      // first atom of the fragment
 
-  const float4* E4 = reinterpret_cast<const float4*>(edge + bi * A * H);
-  for (int x = t; x < A * H / 4; x += blockDim.x) reinterpret_cast<float4*>(sE)[x] = E4[x];
+  load_rows(sE, ld, edge + bi * A * H, A, H);
   for (int x = t; x < A * S; x += blockDim.x) sDsh[x] = dsh[bi * A * S + x];
   for (int r = t; r < A; r += blockDim.x) {
     const float a = adj[bi * A + r];
     sAdj[r] = a;
     sGate[r] = cosine_cutoff(dist[bi * A + r], cutoff) * a;
   }
-  __syncthreads();
 
-  // One output column per product pass keeps a single row of accumulators
-  // in registers, so two blocks fit on an SM.
-  float acc[1][MAXA];
-  const int col_lo[1] = {t}, col_hi[1] = {H + t};
+  if (UPDATE) {
+    // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
+    mma_rows_times_cols(sE, ld, A, H, wf, H, 0, sP, ld);
+    float wti[MAXS];
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
+    const float bft = bf[t];
+    for (int r0 = 0; r0 < A; r0 += RCHUNK) {
+#pragma unroll
+      for (int rr = 0; rr < RCHUNK; ++rr) {
+        const int r = r0 + rr;
+        const float z = sP[r * ld + t] + bft;
+        if (STORE) zf[(bi * A + r) * H + t] = z;
+        float sdot = 0.0f;
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c)
+          if (c < S) sdot = fmaf(wti[c], wsrc[((b0 + r) * S + c) * H + t], sdot);
+        df[(bi * A + r) * H + t] = silu(z) * sdot * sAdj[r];
+      }
+    }
+  }
 
-  // zdkv = edge @ W_dkv + b_dkv.  dv = silu(zdkv[H + t]) waits in sV until
-  // the attention loop overwrites it with v_ij; dk = silu(zdkv[t]) stays in
-  // registers.
-  rows_times_cols<1>(sE, A, H, wdkv, H2, col_hi, acc);
+  // zdkv = edge @ W_dkv + b_dkv: dk = silu(zk) into sP, then zv over the
+  // edge rows, which the attention loop overwrites with v_ij
+  mma_rows_times_cols(sE, ld, A, H, wdkv, H2, 0, sP, ld);
   const float bk = bdkv[t], bv = bdkv[H + t];
+  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float zv = acc[0][r] + bv;
-        if (STORE) zdkv[(bi * A + r) * H2 + H + t] = zv;
-        sV[r * H + t] = silu(zv);
-      }
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = r0 + rr;
+      const float zk = sP[r * ld + t] + bk;
+      if (STORE) zdkv[(bi * A + r) * H2 + t] = zk;
+      sP[r * ld + t] = silu(zk);
     }
   }
-  rows_times_cols<1>(sE, A, H, wdkv, H2, col_lo, acc);
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float zk = acc[0][r] + bk;
-        if (STORE) zdkv[(bi * A + r) * H2 + t] = zk;
-        acc[0][r] = silu(zk);
-      }
-    }
-  }
+  mma_rows_times_cols(sE, ld, A, H, wdkv, H2, H, sE, ld);
 
   // attention message; the head of channel t is the warp of thread t
   const float qi = q[bi * H + t];
   float xsum = 0.0f;
+  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float kr = k[(b0 + r) * H + t];
-        const float vr = v[(b0 + r) * H + t];
-        const float a = warp_sum(qi * kr * acc[0][r]);
-        const float vij = vr * sV[r * H + t] * (silu(a) * sGate[r]);
-        sV[r * H + t] = vij;
-        xsum += vij;
-      }
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = r0 + rr;
+      const float zv = sE[r * ld + t] + bv;
+      if (STORE) zdkv[(bi * A + r) * H2 + H + t] = zv;
+      const float kr = k[(b0 + r) * H + t];
+      const float vr = v[(b0 + r) * H + t];
+      const float a = warp_sum(qi * kr * sP[r * ld + t]);
+      const float vij = vr * silu(zv) * (silu(a) * sGate[r]);
+      sE[r * ld + t] = vij;
+      xsum += vij;
     }
   }
   xagg[bi * H + t] = xsum;
-  __syncthreads();
 
   // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, one half at a time:
   // vec_agg[c] = sum_j s1 * vec_j[c] + sum_j s2 * d_sh_ij[c]
   float from_vec[MAXS], from_dsh[MAXS];
 #pragma unroll
   for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
-  rows_times_cols<1>(sV, A, H, ws, H2, col_hi, acc);
+  mma_rows_times_cols(sE, ld, A, H, ws, H2, H, sP, ld);
   const float b1 = bs[t], b2 = bs[H + t];
+  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = r0 + rr;
+      const float z2 = sP[r * ld + t] + b2;
+      if (STORE) zs[(bi * A + r) * H2 + H + t] = z2;
+      const float s2 = silu(z2) * sAdj[r];
 #pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float z2 = acc[0][r] + b2;
-        if (STORE) zs[(bi * A + r) * H2 + H + t] = z2;
-        const float s2 = silu(z2) * sAdj[r];
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c)
-          if (c < S) from_dsh[c] = fmaf(s2, sDsh[r * S + c], from_dsh[c]);
-      }
+      for (int c = 0; c < MAXS; ++c)
+        if (c < S) from_dsh[c] = fmaf(s2, sDsh[r * S + c], from_dsh[c]);
     }
   }
-  rows_times_cols<1>(sV, A, H, ws, H2, col_lo, acc);
+  mma_rows_times_cols(sE, ld, A, H, ws, H2, 0, sP, ld);
+  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = r0 + rr;
+      const float z1 = sP[r * ld + t] + b1;
+      if (STORE) zs[(bi * A + r) * H2 + t] = z1;
+      const float s1 = silu(z1) * sAdj[r];
 #pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float z1 = acc[0][r] + b1;
-        if (STORE) zs[(bi * A + r) * H2 + t] = z1;
-        const float s1 = silu(z1) * sAdj[r];
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c)
-          if (c < S) from_vec[c] = fmaf(s1, vec[((b0 + r) * S + c) * H + t], from_vec[c]);
-      }
+      for (int c = 0; c < MAXS; ++c)
+        if (c < S) from_vec[c] = fmaf(s1, vec[((b0 + r) * S + c) * H + t], from_vec[c]);
     }
   }
 #pragma unroll
   for (int c = 0; c < MAXS; ++c)
     if (c < S) vecagg[(bi * S + c) * H + t] = from_vec[c] + from_dsh[c];
-
-  if (UPDATE) {
-    // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
-    float wti[MAXS];
-#pragma unroll
-    for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
-    rows_times_cols<1>(sE, A, H, wf, H, col_lo, acc);
-    const float bft = bf[t];
-#pragma unroll
-    for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-      if (c8 * RCHUNK < A) {
-#pragma unroll
-        for (int rr = 0; rr < RCHUNK; ++rr) {
-          const int r = c8 * RCHUNK + rr;
-          const float z = acc[0][r] + bft;
-          if (STORE) zf[(bi * A + r) * H + t] = z;
-          float sdot = 0.0f;
-#pragma unroll
-          for (int c = 0; c < MAXS; ++c)
-            if (c < S) sdot = fmaf(wti[c], wsrc[((b0 + r) * S + c) * H + t], sdot);
-          df[(bi * A + r) * H + t] = silu(z) * sdot * sAdj[r];
-        }
-      }
-    }
-  }
 }
 
 template <bool UPDATE, bool STORE>
@@ -204,7 +190,7 @@ static int launch(const float* q, const float* k, const float* v, const float* v
                   const float* ws, const float* bs, const float* wf, const float* bf,
                   float* xagg, float* vecagg, float* df, float* zdkv, float* zs, float* zf,
                   int B, int A, int H, int S, float cutoff, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * A * H + A * S + 2 * A) * sizeof(float);
+  const size_t smem = fwd_smem(A, H, S);
   auto kern = edge_fwd_kernel<UPDATE, STORE>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -240,6 +226,16 @@ extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, c
                                stream);
   return launch<false, false>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
                               wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff, stream);
+}
+
+// shared memory, blocks per SM, registers and spill bytes of one flag pair
+extern "C" int edge_fwd_occupancy(int A, int H, int S, int update, int store, int* out) {
+  const size_t smem = fwd_smem(A, H, S);
+  if (update)
+    return store ? occupancy(edge_fwd_kernel<true, true>, H, smem, out)
+                 : occupancy(edge_fwd_kernel<true, false>, H, smem, out);
+  return store ? occupancy(edge_fwd_kernel<false, true>, H, smem, out)
+               : occupancy(edge_fwd_kernel<false, false>, H, smem, out);
 }
 
 extern "C" const char* ai2bmd_error_string(int err) {

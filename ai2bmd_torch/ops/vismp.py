@@ -72,37 +72,39 @@ _ACTS = {
 
 def edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
                    cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
-                   act: str = "silu", attn_act: str = "silu"):
+                   act: str = "silu", attn_act: str = "silu", mm=torch.matmul):
     """Plain version of K1: (x_agg, vec_agg, df, zdkv, zs, zf), df and zf None
     without the update.  The same math as the jnp branch of
     ``ai2bmd_tpu/models/visnet.py:416-474`` and ``vismp.reference_edge_block``
     / ``reference_edge_update`` (:334, :437); the kernel hardwires silu, the
-    plain version also takes the config's other activations."""
+    plain version also takes the config's other activations.  ``mm`` takes
+    the edge products (``tf32x3.mm_tf32x3_plain`` models the kernel's)."""
     H = q.shape[-1]
     act_fn, attn_fn = _ACTS[act], _ACTS[attn_act]
     adj_e = adj[..., None]
-    zdkv = edge @ w_dkv + b_dkv
+    zdkv = mm(edge, w_dkv) + b_dkv
     dk, dv = act_fn(zdkv).split(H, dim=-1)
     a = _heads(q[:, :, None] * k[:, None] * dk, nh)
     gate = (cosine_cutoff(dist, cutoff) * adj)[..., None]
     v_ij = v[:, None] * dv * (_per_channel(attn_fn(a), H) * gate)
-    zs = v_ij @ w_s + b_s
+    zs = mm(v_ij, w_s) + b_s
     s1, s2 = (act_fn(zs) * adj_e).split(H, dim=-1)
     x_agg = v_ij.sum(2)
     vec_agg = (torch.einsum("bjch,bijh->bich", vec, s1)
                + torch.einsum("bijh,bijc->bich", s2, d_sh))
     df = zf = None
     if wt is not None:
-        zf = edge @ w_f + b_f
+        zf = mm(edge, w_f) + b_f
         df = act_fn(zf) * torch.einsum("bich,bjch->bijh", wt, wsrc) * adj_e
     return x_agg, vec_agg, df, zdkv, zs, zf
 
 
 def edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
-                       g_xagg, g_vecagg, cutoff: float, nh: int):
+                       g_xagg, g_vecagg, cutoff: float, nh: int, mm=torch.matmul):
     """Plain version of K2: the message-path VJP from the stored zdkv and zs,
     the math of ``_bwd_msg_kernel_sa`` (vismp.py:757).  Returns
-    (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
+    (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist); ``mm`` takes the edge
+    products."""
     H = q.shape[-1]
     adj_e = adj[..., None]
     zk, zv = zdkv.split(H, dim=-1)
@@ -120,7 +122,7 @@ def edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
     g_vec = torch.einsum("bijh,bich->bjch", s1, g_vecagg)
     g_dsh = torch.einsum("bich,bijh->bijc", g_vecagg, s2)
     g_s = torch.cat([g_s1 * adj_e, g_s2 * adj_e], dim=-1) * dsilu(zs)
-    g_vij = g_s @ w_s.T + g_xagg[:, :, None]
+    g_vij = mm(g_s, w_s.T) + g_xagg[:, :, None]
 
     g_v = (g_vij * dv * g3).sum(1)
     g_dv = g_vij * v_j * g3
@@ -132,7 +134,7 @@ def edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
     g_q = (g_p * k_j * dk).sum(2)
     g_k = (g_p * q_i * dk).sum(1)
     g_dk = g_p * q_i * k_j
-    g_edge = (torch.cat([g_dk, g_dv], dim=-1) * dsilu(zdkv)) @ w_dkv.T
+    g_edge = mm(torch.cat([g_dk, g_dv], dim=-1) * dsilu(zdkv), w_dkv.T)
     return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
 
 

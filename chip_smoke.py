@@ -18,12 +18,19 @@ is not printed):
      its plain PyTorch version on the card at the main path's shapes: max
      abs / relative error against a stated tolerance, bitwise repeatability,
      times in turns (CUDA events per call, and device time from a profiler
-     trace), and the share of the float32 bound (the larger of bytes over
-     3.35 TB/s and FLOPs over 67 TFLOP/s); K7/K8 also against K2/K3 on K1's
+     trace), and the share of the bound (the larger of bytes over 3.35 TB/s
+     and FLOPs over the peak of the unit that does the products: 165 TFLOP/s
+     for the 3xTF32 tensor-core products of K1, K2, K7 and K8's zf, 67
+     TFLOP/s of float32 FMA for the rest); K7/K8 also against K2/K3 on K1's
      stash of the same inputs, and again at one ensemble chunk's batch sizes
      (8 x the single-protein B); K4 also over 64 replicas' rows, each replica
      perturbed on its own, against its plain version and against launches
-     over each replica alone
+     over each replica alone.  Before them: the tensor-core product helper
+     alone (tf32x3_mm) against its plain model and a float64 product, and
+     the rate of the mma.sync instruction it is built on; after
+     them: shared memory, blocks per SM, registers and spills of K1/K2/K3/
+     K7/K8 at each shape, and a yardstick that no kernel uses: cuBLAS
+     float32 running only the products of K1, K2 and K7
   4. the slice through the edge-core kernels K1-K3: Chignolin, production
      ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
@@ -75,8 +82,20 @@ WARM_STEPS, TIMED_STEPS = 5, 20
 N_LAYERS = 9
 N_REPLICAS, REPLICA_CHUNK, ENSEMBLE_STEPS = 64, 8, 3   # BASELINE config 5
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 outside the
-# tensor cores, and HBM3.  Every kernel here is plain float32 FMA.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# tensor cores; TF32 in the tensor cores over the three passes of the 3xTF32
+# split, in float32 products; HBM3.
+PEAK_F32, PEAK_TF32X3, PEAK_BYTES = 67e12, 495e12 / 3, 3.35e12
+# which unit does each kernel's products (bound(): tc = 3xTF32, f32 = FMA)
+BOUND_PEAK = {
+    "edge_fwd": "3xTF32 tensor cores, 165 TFLOP/s",
+    "edge_bwd_msg": "3xTF32 tensor cores, 165 TFLOP/s",
+    "edge_bwd_upd": "float32 FMA, 67 TFLOP/s",
+    "cap_grad": "float32 FMA, 67 TFLOP/s",
+    "vislayer_fwd": "float32 FMA, 67 TFLOP/s",
+    "vislayer_bwd": "float32 FMA, 67 TFLOP/s",
+    "edge_bwd_msg_rc": "3xTF32 tensor cores, 165 TFLOP/s",
+    "edge_bwd_upd_rc": "zf: 3xTF32 tensor cores, 165 TFLOP/s; g_edge: float32 FMA, 67 TFLOP/s",
+}
 
 
 def need(cond, msg):
@@ -105,26 +124,32 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps=10, by_name=None):
+def device_ms(torch, fn, reps=10, by_name=None, tries=3):
     """Summed device time of the kernels fn() runs, per call, from a
-    torch.profiler (CUPTI) trace; None if the trace holds no device time.
-    ``by_name``, a dict, receives the ms per call of each kernel name."""
+    torch.profiler (CUPTI) trace; a trace that holds no device time (the
+    trace sometimes drops a kernel's events) is taken again, up to ``tries``
+    traces, then None.  ``by_name``, a dict, receives the ms per call of each
+    kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us += e.device_time_total
-            if by_name is not None:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = sum(e.device_time_total for e in kernels)
+        if us > 0:
+            break
+    if us <= 0:
+        return None
+    if by_name is not None:
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+    return us / 1e3 / reps
 
 
 def short_name(kernel: str) -> str:
@@ -168,13 +193,15 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(flop, nbyte):
-    """The least time the card could take: the larger of FLOPs over the
-    float32 peak and bytes (each input read once, each output written once)
-    over the memory rate."""
-    t_op, t_by = flop / PEAK_FLOPS * 1e3, nbyte / PEAK_BYTES * 1e3
+def bound(nbyte, tc=0.0, f32=0.0):
+    """The least time the card could take: the largest of the tensor-core
+    FLOPs (3xTF32) over their peak, the float32 FMA FLOPs over theirs (the
+    two units can run at once) and bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_op = max(tc / PEAK_TF32X3, f32 / PEAK_F32) * 1e3
+    t_by = nbyte / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_op, t_by), "bound_by": "operations" if t_op >= t_by else "bytes",
-            "gflop": flop / 1e9, "mbytes": nbyte / 1e6}
+            "gflop": (tc + f32) / 1e9, "mbytes": nbyte / 1e6}
 
 
 def add_bound(res, b, times=None):
@@ -275,9 +302,10 @@ def check_recompute_pair(torch, K, c, B, A, results, timed):
     into the kernels' results when ``timed``)."""
     for name, kernel, plain, args, stash, stash_args, keys, flop in (
             ("edge_bwd_msg_rc", K.edge_bwd_msg_rc, K.edge_bwd_msg_rc_plain, c["msg_rc"],
-             K.edge_bwd_msg, c["msg"], MSG_KEYS, 2 * B * A * A * 8 * H * H),
+             K.edge_bwd_msg, c["msg"], MSG_KEYS, dict(tc=2 * B * A * A * 8 * H * H)),
             ("edge_bwd_upd_rc", K.edge_bwd_upd_rc, K.edge_bwd_upd_rc_plain, c["upd_rc"],
-             K.edge_bwd_upd, c["upd_args"], UPD_KEYS, 2 * B * A * A * 2 * H * H)):
+             K.edge_bwd_upd, c["upd_args"], UPD_KEYS,
+             dict(tc=2 * B * A * A * H * H, f32=2 * B * A * A * H * H))):
         label = f"{name} B={B} A={A}"
         print(f"  {label}")
         run = lambda kernel=kernel, args=args: kernel(*args)
@@ -290,7 +318,7 @@ def check_recompute_pair(torch, K, c, B, A, results, timed):
         bitwise(label, run)
         t = in_turns(torch, run, lambda plain=plain, args=args: plain(*args))
         n_in = 14 if name == "edge_bwd_msg_rc" else len(args)
-        add_bound(res if timed else {}, bound(flop, nbytes(*args[:n_in], *run())), t)
+        add_bound(res if timed else {}, bound(nbytes(*args[:n_in], *run()), **flop), t)
         if timed:
             add_times(res, t)
 
@@ -322,8 +350,8 @@ def check_edge_kernels(torch, dev, results):
                 if update and store:
                     t = in_turns(torch, run, lambda kw=kw: K.edge_fwd_plain(*core, **kw))
                     add_times(res, t)
-                    flop = 2 * B * A * A * 5 * H * H
-                    add_bound(res, bound(flop, nbytes(*core[:12], *upd.values(), *run())), t)
+                    add_bound(res, bound(nbytes(*core[:12], *upd.values(), *run()),
+                                         tc=2 * B * A * A * 5 * H * H), t)
 
         msg_args = c["msg"]
         name = f"edge_bwd_msg B={B} A={A}"
@@ -335,7 +363,7 @@ def check_edge_kernels(torch, dev, results):
         bitwise(name, run)
         t = in_turns(torch, run, lambda: K.edge_bwd_msg_plain(*msg_args))
         add_times(res, t)
-        add_bound(res, bound(2 * B * A * A * 4 * H * H, nbytes(*msg_args[:13], *run())), t)
+        add_bound(res, bound(nbytes(*msg_args[:13], *run()), tc=2 * B * A * A * 4 * H * H), t)
 
         upd_args = c["upd_args"]
         name = f"edge_bwd_upd B={B} A={A}"
@@ -347,7 +375,7 @@ def check_edge_kernels(torch, dev, results):
         bitwise(name, run)
         t = in_turns(torch, run, lambda: K.edge_bwd_upd_plain(*upd_args))
         add_times(res, t)
-        add_bound(res, bound(2 * B * A * A * H * H, nbytes(*upd_args, *run())), t)
+        add_bound(res, bound(nbytes(*upd_args, *run()), f32=2 * B * A * A * H * H), t)
 
         check_recompute_pair(torch, K, c, B, A, results, timed=True)
 
@@ -359,6 +387,122 @@ def check_edge_kernels(torch, dev, results):
         c = edge_case(torch, K, gen, REPLICA_CHUNK * B, A, dev)
         check_recompute_pair(torch, K, c, REPLICA_CHUNK * B, A, results, timed=False)
         del c
+
+
+def check_tf32x3(torch, dev):
+    """The tensor-core product helper alone (tf32x3_mm) at H = 256 and
+    K = 256, 512 over Chignolin's largest batch's edge rows: against its
+    plain model (the same split in cuBLAS float32 products) within EDGE_TOL,
+    and its error against a float64 product within 10x that of a float32
+    product (cuBLAS, allow_tf32 off); bitwise repeatable."""
+    from ai2bmd_torch.ops import tf32x3 as T
+
+    gen = torch.Generator().manual_seed(3)
+    rows = 4 * 40 * 40
+    for K in (H, 2 * H):
+        x = (torch.randn((rows, K), generator=gen) * 0.3).to(dev)
+        w = (torch.randn((K, H), generator=gen) * (2.0 / (K + H)) ** 0.5).to(dev)
+        name = f"tf32x3_mm M={rows} K={K} N={H}"
+        print(f"  {name}")
+        got = T.mm_tf32x3(x, w)
+        ref64 = x.double() @ w.double()
+        err = lambda y: float((y.double() - ref64).abs().max())
+        e_k, e_32, e_1 = err(got), err(x @ w), err(T.round_tf32(x) @ T.round_tf32(w))
+        print(f"    max|d| against float64: helper {e_k:.3e}, float32 product {e_32:.3e} "
+              f"(ratio {e_k / e_32:.2f}, limit 10), one TF32 pass {e_1:.3e}")
+        need(e_k <= 10 * e_32, f"{name}: the split is {e_k / e_32:.1f}x a float32 product's error")
+        compare(name, (got,), {"against plain model": T.mm_tf32x3_plain(x, w)}, EDGE_TOL)
+        bitwise(name, lambda: (T.mm_tf32x3(x, w),))
+        ms_k = device_ms(torch, lambda: T.mm_tf32x3(x, w))
+        ms_c = device_ms(torch, lambda: x @ w)
+        if ms_k and ms_c:
+            gf = 2 * rows * K * H / 1e9
+            print(f"    device: helper {ms_k:.4f} ms ({gf / ms_k:.1f} TFLOP/s), cuBLAS float32 "
+                  f"{ms_c:.4f} ms ({gf / ms_c:.1f} TFLOP/s)")
+    # the rate of mma.sync itself: 8 independent products a warp, no loads
+    from ai2bmd_torch.ops import _build
+
+    blocks, iters = 2 * torch.cuda.get_device_properties(0).multi_processor_count, 4096
+    out = torch.empty(blocks * 256, device=dev)
+    run = lambda: _build.call("tf32_mma_rate_launch", [_build.P, _build.I, _build.I],
+                              _build.ptr(out), blocks, iters)
+    ms = device_ms(torch, run) or cuda_ms(torch, run, 5)
+    tflops = blocks * 8 * iters * 8 * 2 * 16 * 8 * 8 / ms / 1e9
+    print(f"  mma.sync m16n8k8 TF32 alone ({blocks} blocks of 8 warps, 8 independent products "
+          f"a warp): {tflops:.1f} TFLOP/s TF32, {tflops / 3:.1f} in 3xTF32 float32 products")
+
+
+def report_occupancy(torch, results):
+    """Shared memory per block, blocks per SM, registers and spill bytes of
+    each edge centre pass at each of Chignolin's shapes (the launchers' own
+    sizes, through cudaOccupancyMaxActiveBlocksPerMultiprocessor); the
+    largest shape's go into the kernels line."""
+    import ctypes
+
+    from ai2bmd_torch.ops import _build
+
+    lib = _build.library()
+    I, P = ctypes.c_int, ctypes.c_void_p
+    for fn, n in (("edge_fwd_occupancy", 5), ("edge_bwd_msg_occupancy", 4),
+                  ("edge_bwd_upd_occupancy", 3)):
+        getattr(lib, fn).argtypes = [I] * n + [P]
+        getattr(lib, fn).restype = I
+
+    def occ(fn, *args):
+        out = (ctypes.c_int * 4)()
+        rc = getattr(lib, fn)(*args, ctypes.cast(out, P))
+        need(rc == 0, f"{fn}{args}: CUDA error {rc}")
+        return dict(smem_bytes=out[0], blocks_per_sm=out[1], registers=out[2], spill_bytes=out[3])
+
+    for B, A in sorted(SHAPES, key=lambda s: s[1]):
+        for label, name, fn, args in (
+                ("K1 update store", "edge_fwd", "edge_fwd_occupancy", (A, H, S, 1, 1)),
+                ("K1 update", None, "edge_fwd_occupancy", (A, H, S, 1, 0)),
+                ("K1 store", None, "edge_fwd_occupancy", (A, H, S, 0, 1)),
+                ("K1", None, "edge_fwd_occupancy", (A, H, S, 0, 0)),
+                ("K2", "edge_bwd_msg", "edge_bwd_msg_occupancy", (A, H, S, 0)),
+                ("K7", "edge_bwd_msg_rc", "edge_bwd_msg_occupancy", (A, H, S, 1)),
+                ("K3", "edge_bwd_upd", "edge_bwd_upd_occupancy", (A, H, 0)),
+                ("K8", "edge_bwd_upd_rc", "edge_bwd_upd_occupancy", (A, H, 1))):
+            o = occ(fn, *args)
+            print(f"  {label:16s} A={A}: {o['smem_bytes']} B shared memory per block, "
+                  f"{o['blocks_per_sm']} blocks per SM, {o['registers']} registers, "
+                  f"{o['spill_bytes']} B local (spill) per thread")
+            if name is not None:
+                results[name].update(o)
+
+
+def cublas_yardstick(torch, dev, results):
+    """cuBLAS float32 (allow_tf32 off) over the flattened [B*A*A, .] edge
+    rows, the products of K1 (5 H^2 per edge cell), K2 (4 H^2) and K7
+    (8 H^2) only, summed over Chignolin's four shapes: a yardstick printed
+    beside the kernels, not a library_ms (it is not the same function)."""
+    gen = torch.Generator().manual_seed(4)
+    r = lambda *s: (torch.randn(s, generator=gen) * 0.3).to(dev)
+    w_dkv, w_s, w_f, w_sT, w_dkvT = r(H, 2 * H), r(H, 2 * H), r(H, H), r(2 * H, H), r(2 * H, H)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tot = {"edge_fwd": 0.0, "edge_bwd_msg": 0.0, "edge_bwd_msg_rc": 0.0}
+        for B, A in SHAPES:
+            n = B * A * A
+            e, vij, g1, g2 = r(n, H), r(n, H), r(n, 2 * H), r(n, 2 * H)
+            fwd = lambda: (e @ w_dkv, vij @ w_s, e @ w_f)
+            bwd = lambda: (g1 @ w_sT, g2 @ w_dkvT)
+            rc = lambda: (e @ w_dkv, vij @ w_s, g1 @ w_sT, g2 @ w_dkvT)
+            for name, fn in (("edge_fwd", fwd), ("edge_bwd_msg", bwd), ("edge_bwd_msg_rc", rc)):
+                ms = device_ms(torch, fn) or cuda_ms(torch, fn, 20)
+                tot[name] += ms
+            del e, vij, g1, g2
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    for name, ms in tot.items():
+        res = results[name]
+        res["cublas_f32_products_ms"] = ms
+        kern = res.get("device_ms") or res.get("ms")
+        print(f"  {name}: cuBLAS float32, products only, {ms:.4f} ms over the four shapes, "
+              f"{res['gflop'] / ms:.1f} TFLOP/s; the kernel {kern:.4f} ms device, "
+              f"{res['gflop'] / kern:.1f} TFLOP/s in its products")
 
 
 def check_cap_kernel(torch, dev, prot, results):
@@ -382,7 +526,7 @@ def check_cap_kernel(torch, dev, prot, results):
         if sigma:
             t = in_turns(torch, run, lambda pos=pos: C.amber_grad_rows_plain(rt.ht.caps, pos))
             add_times(res, t)
-            add_bound(res, bound(cap_flop(rt, pos), nbytes(pos, *rt.ht.caps.kernel, *run())), t)
+            add_bound(res, bound(nbytes(pos, *rt.ht.caps.kernel, *run()), f32=cap_flop(rt, pos)), t)
 
     # the ensemble's form: every replica's rows, each replica perturbed on
     # its own, in one launch that reads row p's tables at p % R
@@ -401,7 +545,7 @@ def check_cap_kernel(torch, dev, prot, results):
     need(alone, f"{name}: the replica launch differs from the lone launches")
     bitwise(name, run)
     t = in_turns(torch, run, lambda: C.amber_grad_rows_plain(rt.ht.caps, pos))
-    add_bound({}, bound(cap_flop(rt, pos), nbytes(pos, *rt.ht.caps.kernel, *run())), t)
+    add_bound({}, bound(nbytes(pos, *rt.ht.caps.kernel, *run()), f32=cap_flop(rt, pos)), t)
 
 
 def cap_flop(rt, pos):
@@ -464,7 +608,7 @@ def check_layer_kernels(torch, dev, results):
             res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
             bitwise(name, run)
             t = in_turns(torch, run, lambda args=args: FL.vislayer_fwd_plain(*args))
-            b = bound(flop_f, nbytes(*args[:6], *w, *run()))
+            b = bound(nbytes(*args[:6], *w, *run()), f32=flop_f)
             add_bound(res if not last else {}, b, t)
             if not last:
                 add_times(res, t)
@@ -480,7 +624,7 @@ def check_layer_kernels(torch, dev, results):
             res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
             bitwise(name, run)
             t = in_turns(torch, run, lambda bargs=bargs: FL.vislayer_bwd_plain(*bargs))
-            b = bound(flop_b, nbytes(*bargs[:6], *w, *bargs[7:11], *run()))
+            b = bound(nbytes(*bargs[:6], *w, *bargs[7:11], *run()), f32=flop_b)
             add_bound(res if not last else {}, b, t)
             if not last:
                 add_times(res, t)
@@ -592,7 +736,8 @@ def run_slice(torch, dev, prot, card):
     launches, ms_step, P, aux0, aux1, e0, f0 = drive(torch, dev, prot, pot, card)
     for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
         need(launches[name] > 0, f"kernel {name} was not launched on the main path")
-    for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc"):
+    for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc",
+                 "tf32x3_mm"):
         need(launches[name] == 0, f"{name} ran on the edge-core path")
 
     # step 0 against the same port on the CPU in float64 (plain versions)
@@ -693,7 +838,8 @@ def run_ensemble(torch, dev, prot, card, ref):
           f"launches {launches}; peak device memory {peak_run / 2**30:.2f} GiB")
     want = {"edge_fwd": chunks * batches * N_LAYERS, "edge_bwd_msg_rc": chunks * batches * N_LAYERS,
             "edge_bwd_upd_rc": chunks * batches * (N_LAYERS - 1),
-            "edge_bwd_msg": 0, "edge_bwd_upd": 0, "vislayer_fwd": 0, "vislayer_bwd": 0}
+            "edge_bwd_msg": 0, "edge_bwd_upd": 0, "vislayer_fwd": 0, "vislayer_bwd": 0,
+            "tf32x3_mm": 0}
     for name, per_eval in want.items():
         need(launches[name] == per_eval * evals,
              f"{name}: {launches[name]} launches, expected {per_eval} x {evals} force evaluations")
@@ -801,8 +947,11 @@ def main(argv=None):
 
     print("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
+    check_tf32x3(torch, dev)
     check_layer_kernels(torch, dev, results)
     check_edge_kernels(torch, dev, results)
+    report_occupancy(torch, results)
+    cublas_yardstick(torch, dev, results)
     prot = load_protein(example_pdb("chig"))
     check_cap_kernel(torch, dev, prot, results)
     if args.stop_after == 3:
@@ -822,7 +971,7 @@ def main(argv=None):
     for n in ("edge_bwd_msg_rc", "edge_bwd_upd_rc"):
         launches[n] = launches_ens[n]
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[n], **finish(results[n])}
+                "launches": launches[n], "bound_peak": BOUND_PEAK[n], **finish(results[n])}
                for n, (src, rep) in KERNELS.items()]
     print("== 6. results")
     print(f"  ms/step {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6) (smoke); "
