@@ -33,8 +33,8 @@ from ai2bmd_torch.models import visnet as V
 from ai2bmd_torch.utils.device import resolve_device
 
 # Dipeptide size-bucket widths; the row slot count S is always appended.
-# The reference needed multiples of 8 for its TPU tiles; the kernels here do
-# not, and the widths stay the same for parity with it.
+# The edge kernels need multiples of 8 as well (``ops/vismp.check_shapes``:
+# their rows go in chunks of 8), as the reference's TPU tiles did.
 BUCKET_WIDTHS = (24, 32)
 S_ACE = 16
 

@@ -1,7 +1,7 @@
 // Shared device helpers for the ai2bmd_torch kernels (float32 throughout).
 //
-// Two row-block products.  `rows_times_cols` (K3, K5, K6, K8's g_edge) is
-// plain float32 FMA on the CUDA cores, one output column per thread.
+// Two row-block products.  `rows_times_cols` (K5, K6) is plain float32 FMA
+// on the CUDA cores, one output column per thread.
 // `mma_rows_times_cols` (K1, K2, K7, K8's zf) runs on the tensor cores with
 // a 3xTF32 split: each float32 operand x is cut into hi = tf32(x) and
 // lo = tf32(x - hi) (cvt.rna, 10 explicit mantissa bits each), and each
@@ -19,7 +19,10 @@
 // mma.sync's own rate (chip_smoke.py phase 3 prints both): at one centre's
 // rows a block, every warp loads and splits its W fragments and splits the
 // shared rows again, about two other instructions per product, with two or
-// four warps a scheduler to hide the latency.
+// four warps a scheduler to hide the latency.  K3/K8's g_edge product,
+// which has no coupling between centres, has its own row-tile kernel with
+// the same split in edge_bwd_upd.cu: 128 flattened edge rows a block share
+// each W slab, staged in shared memory and split once per block.
 // wgmma (64-row warpgroup tiles, swizzled shared-memory operands) does not
 // fit a block of one centre's A <= 48 edge rows; it needs blocks of several
 // centres, which would also share the W splits, and is left to a later

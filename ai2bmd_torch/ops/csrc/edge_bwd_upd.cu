@@ -1,6 +1,8 @@
 // K3 edge_bwd_upd and K8 edge_bwd_upd_rc: backward of the edge update
 //   df_ij = silu(zf_ij) * sum_c wt_i[c] * wsrc_j[c] * adj_ij,  zf = edge @ W_f + b_f.
-// Outputs g_edge, g_wt and g_wsrc.  One pair of kernels, a template on RC:
+// Outputs g_edge (added in place into the message path's g_edge, which K2 /
+// K7 wrote: the buffer is read and updated, not replaced), g_wt and g_wsrc.
+// One set of kernels, a template on RC:
 //
 //   RC = false, K3: from the pre-activation zf that K1 stores with `store`.
 //     Replaces _bwd_upd_kernel_sa (ai2bmd_tpu/ops/pallas/vismp.py:852),
@@ -9,43 +11,91 @@
 //     kernel.  Replaces _bwd_upd_kernel (:714), launched by _bwd_upd_call's
 //     pallas_call (:1086).
 //
-// What bounds it on the H100: the edge products, per edge cell H^2
-// multiply-adds for K3 (the transposed product g_zf @ W_f^T, float32 FMA on
-// the CUDA cores) and 2 H^2 for K8 (the recomputed zf = edge @ W_f as
-// well, on the tensor cores as 3xTF32, common.cuh).
-// Design: pass 1 runs one block per (fragment, centre atom i), one thread per
-// channel, and writes the centre-indexed g_edge and g_wt; K8 first holds the
-// centre's edge rows in shared memory ([A][H + 4], 42 KB at A = 40), the
-// buffer that then holds zf and, in its place, g_zf.  K8's zf is
+// What bounds it on the H100: per edge cell, H^2 multiply-adds for K3 (the
+// transposed product g_zf @ W_f^T) and 2 H^2 for K8 (the recomputed
+// zf = edge @ W_f as well), all on the tensor cores as 3xTF32 (common.cuh,
+// 165 TFLOP/s in float32 products), against ~7 H floats moved per edge cell
+// (zf or the edge row, g_df, and g_edge read and written).  At H = 256 the
+// products take about half the time of the bytes, so the bound is bytes.
+// What holds the kernels above it: the elementwise work of the centre and
+// source passes, which read every source atom's wsrc / wt rows again for
+// each edge cell (S H floats, from L2) and move the [B,A,A,H] tensors at
+// about a third of the memory rate; and K8's zf product, which the helper
+// takes at its own rate.
+//
+// Design.  Centre pass: it builds g_zf = g_df * adj * <wt_i, wsrc_j> *
+// silu'(zf) for each centre's A edge rows, writes it to scratch and sums
+// g_wt over the rows.  K3 runs 256 threads a block as 256 / width(H) centre
+// atoms x width(H) channels (Group), so that a block's warps share each
+// source atom's wsrc row in L1.  K8 runs one block per (fragment, centre
+// atom i), a thread per channel: it first holds the edge rows in shared
+// memory ([A][H + 4], 42 KB at A = 40) and takes zf there with
 // mma_rows_times_cols, the product K1 stores zf with, so K8's g_zf and
-// results equal K3's on K1's stash bitwise.  g_wsrc is source-indexed: the
-// TPU kernel accumulated it across its sequential grid (:868-870,
-// :887-889); here pass 2 runs one block per (fragment, source atom j) and
-// sums g_df * adj * silu(zf) * wt_i over i in a fixed order.  K3's pass 2
-// rebuilds that per-edge factor from the stored zf; K8's pass 1 writes it
-// to scratch, as there is no zf to rebuild it from.  No float atomics:
-// bitwise repeatable.  Rows go in chunks of 8 so that a chunk's loads are
-// in flight together.
+// every result equal K3's on K1's stash bitwise.  The g_edge product
+// g_zf @ W_f^T has no coupling between centres, so a row-tile kernel adds
+// it into g_edge over the flattened edge rows, 128 rows x 64 output
+// channels a block: W_f's k-slabs are copied to shared memory as stored
+// with cp.async (double-buffered, with the g_zf slabs), split into hi / lo
+// once per block, and read by all 8 warps with ldmatrix, so 128 rows share
+// each split; the column blocks (4 at H = 256) keep small batches' grids
+// from starving the card.  (Taking the product inside each centre block with
+// mma_rows_times_cols, each block fetching and splitting every W fragment
+// for its own <= 48 rows, was slower at every K3 shape on the H100.)
+// g_wsrc is source-indexed: the TPU kernel accumulated it across its
+// sequential grid (:868-870, :887-889); here the source pass runs one block
+// per (fragment, source atom j) and sums g_df * adj * silu(zf) * wt_i over i
+// in a fixed order.  K3's source pass rebuilds that per-edge factor from the
+// stored zf; K8's centre pass writes it to scratch, as there is no zf to
+// rebuild it from.  No float atomics: bitwise repeatable.
 
 #include "common.cuh"
 
 using namespace ai2bmd;
 
-// dynamic shared memory of one centre-pass block: sG
-static size_t upd_smem(int A, int H) { return (size_t)A * mma_ld(H) * sizeof(float); }
+// The row tile of the g_edge product: TM flattened edge rows x TN output
+// channels a block of 8 warps (4 x 2, each 32 x 32), k-slabs of TK,
+// shared-memory rows at stride TLD (16 bytes apart in the banks, so
+// ldmatrix's 8 row reads of one 8 x 4 matrix are conflict-free).
+constexpr int TM = 128, TN = 64, TK = 32, TLD = TK + 4;
+constexpr size_t TILE_SMEM = (size_t)(2 * TM + 4 * TN) * TLD * sizeof(float);
+
+// dynamic shared memory of one centre-pass block: K8's rows for zf
+static size_t upd_smem(int A, int H, bool rc) {
+  return rc ? (size_t)A * mma_ld(H) * sizeof(float) : 0;
+}
+
+// K3's centre pass, which has no block-wide product, runs 256 threads a
+// block as 256 / width(H) centre atoms x width(H) channels, so that a
+// block's warps can share each source atom's wsrc row in L1 (per edge cell
+// S H floats, several times the bytes of g_df and zf).  On the H100 it ran
+// 20-35% faster so than one centre a block; the source passes gained
+// nothing from it.
+__host__ __device__ constexpr int group_width(int H) { return H % 64 ? 32 : 64; }
+struct Group {
+  int atom, ch;  // this thread's atom of the fragment and channel
+  __device__ Group(int H) {
+    const int w = group_width(H), slices = H / w;
+    atom = (blockIdx.x / slices) * (256 / w) + threadIdx.x / w;
+    ch = (blockIdx.x % slices) * w + threadIdx.x % w;
+  }
+};
+static dim3 group_grid(int A, int B, int H) { return dim3(A * H / 256, B); }
 
 template <bool RC>
-__global__ void __launch_bounds__(256) edge_bwd_upd_centre(
+__global__ void __launch_bounds__(256, 2) edge_bwd_upd_centre(
     const float* __restrict__ zf, const float* __restrict__ edge,
     const float* __restrict__ wf, const float* __restrict__ bf,
     const float* __restrict__ adj, const float* __restrict__ wt,
-    const float* __restrict__ wsrc, const float* __restrict__ wfT,
-    const float* __restrict__ gdf, float* __restrict__ gedge, float* __restrict__ gwt,
-    float* __restrict__ gs_e, int A, int H, int S) {
+    const float* __restrict__ wsrc, const float* __restrict__ gdf, float* __restrict__ gwt,
+    float* __restrict__ gs_e, float* __restrict__ gz, int A, int H, int S) {
   extern __shared__ __align__(16) float smem[];
   const int ld = mma_ld(H);
-  float* sG = smem;  // [A][ld] g_zf (K8: the edge rows of i, then zf, first)
-  const int t = threadIdx.x, i = blockIdx.x, b = blockIdx.y;
+  float* sG = smem;  // [A][ld]: K8's edge rows of i, then zf
+  // K3: centre atoms grouped (Group); K8: one block per centre atom, a
+  // thread per channel
+  const Group grp(H);
+  const int t = RC ? threadIdx.x : grp.ch, i = RC ? blockIdx.x : grp.atom;
+  const int b = blockIdx.y;
   const size_t bi = (size_t)b * A + i;
   const size_t b0 = (size_t)b * A;
 
@@ -61,54 +111,197 @@ __global__ void __launch_bounds__(256) edge_bwd_upd_centre(
     wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
     gwti[c] = 0.0f;
   }
-  // one edge row r with its pre-activation z: g_zf into sG, the g_wt sums
+  // the centre's edge cells (b, i, r): channel t of row r at [r * H]
+  const size_t cell = bi * A * H + t;
+  const float* adj_i = adj + bi * A;
+  const float* ws = wsrc + b0 * S * H + t;  // wsrc_r[c] at [(r S + c) H]
+  // one edge row r with its pre-activation z: g_zf to scratch, the g_wt sums
   auto row = [&](int r, float z) {
-    const size_t e = bi * A + r;
     float wsr[MAXS];
     float sdot = 0.0f;
 #pragma unroll
     for (int c = 0; c < MAXS; ++c) {
-      wsr[c] = c < S ? wsrc[((b0 + r) * S + c) * H + t] : 0.0f;
+      wsr[c] = c < S ? ws[(r * S + c) * H] : 0.0f;
       sdot = fmaf(wti[c], wsr[c], sdot);
     }
-    const float g = gdf[e * H + t] * adj[e];
+    const float g = gdf[cell + r * H] * adj_i[r];
     const float g_s = g * silu(z);
-    if constexpr (RC) gs_e[e * H + t] = g_s;
+    if constexpr (RC) gs_e[cell + r * H] = g_s;
 #pragma unroll
     for (int c = 0; c < MAXS; ++c) gwti[c] = fmaf(g_s, wsr[c], gwti[c]);
-    sG[r * ld + t] = g * sdot * dsilu(z);
+    gz[cell + r * H] = g * sdot * dsilu(z);
   };
-  // a runtime loop over chunks, which the compiler pipelines
+  // a runtime loop over chunks of 4 rows (8 would spill under the
+  // two-blocks bound), which the compiler pipelines
+  constexpr int RU = RCHUNK / 2;
   const float bft = RC ? bf[t] : 0.0f;
-  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
+  for (int r0 = 0; r0 < A; r0 += RU) {
 #pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
+    for (int rr = 0; rr < RU; ++rr) {
       const int r = r0 + rr;
-      row(r, RC ? sG[r * ld + t] + bft : zf[(bi * A + r) * H + t]);
+      row(r, RC ? sG[r * ld + t] + bft : zf[cell + r * H]);
     }
   }
 #pragma unroll
   for (int c = 0; c < MAXS; ++c)
     if (c < S) gwt[(bi * S + c) * H + t] = gwti[c];
-  __syncthreads();
+}
 
-  // g_edge = g_zf @ W_f^T
-  float acc[1][MAXA];
-  const int col[1] = {t};
-  rows_times_cols_ld<1>(sG, ld, A, H, wfT, H, col, acc);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes device -> shared, asynchronously (L2 only)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Four 8 x 4 matrices of 32-bit values from shared memory (ldmatrix counts
+// them as 8 x 8 of 16 bits): lane l gives the address of row l % 8 of
+// matrix l / 8, and gets element (lane / 4, lane % 4) of each in r[0..3].
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// The g_edge product: gedge[E][H] += G[E][H] @ W_f^T, i.e. gedge[r][n] +=
+// sum_k G[r][k] * W_f[n][k], so W_f's rows, as stored, are the MMA's B
+// columns.  Block (x, y): rows TM x.., channels TN y..; warp w: rows
+// 32 (w % 4).., channels 32 (w / 4)..; two m16 x four n8 tiles.  Per
+// k-slab: wait for its copy, start the next one's, split the W slab into
+// hi / lo in shared memory, then four k8 steps of lo*hi, hi*lo, hi*hi (the
+// G fragments split in registers).  Rows past E read row E - 1 and store
+// nothing; where H % TN != 0 (H % 32 == 0 always), channels past H read
+// W_f's row H - 1 and a warp whose 32 channels lie past H stores nothing.
+// Each sum runs over k in order: bitwise repeatable.  g_edge is read and
+// written by the one thread that owns each element: it is updated in place.
+__global__ void __launch_bounds__(256, 2) edge_bwd_upd_product(const float* __restrict__ G,
+                                                               const float* __restrict__ wf,
+                                                               float* __restrict__ gedge,
+                                                               size_t E, int H) {
+  extern __shared__ __align__(16) float smem[];
+  float* sG = smem;                // [2][TM][TLD] G slabs
+  float* sW = sG + 2 * TM * TLD;   // [2][TN][TLD] W_f slabs, row n, k along it
+  float* sHi = sW + 2 * TN * TLD;  // [TN][TLD] this slab's hi
+  float* sLo = sHi + TN * TLD;     // [TN][TLD] and lo
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = 32 * (warp & 3), wn = 32 * (warp >> 2);
+  const size_t r0 = (size_t)blockIdx.x * TM;
+  const int n0 = blockIdx.y * TN;
+  constexpr int C4 = TK / 4;  // 16-byte chunks a slab row
+
+  auto load = [&](int buf, int k0) {
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
+    for (int it = 0; it < TM * C4 / 256; ++it) {
+      const int x = t + 256 * it, r = x / C4, c = 4 * (x % C4);
+      const size_t src = r0 + r < E ? r0 + r : E - 1;
+      cp_async16(sG + (buf * TM + r) * TLD + c, G + src * H + k0 + c);
+    }
 #pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        gedge[(bi * A + r) * H + t] = acc[0][r];
+    for (int it = 0; it < TN * C4 / 256; ++it) {
+      const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
+      const int nw = n0 + n < H ? n0 + n : H - 1;
+      cp_async16(sW + (buf * TN + n) * TLD + c, wf + (size_t)nw * H + k0 + c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
+
+  const int nslab = H / TK;
+  load(0, 0);
+  for (int s = 0; s < nslab; ++s) {
+    const int buf = s & 1;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // slab s is in; every warp is done with slab s - 1
+    if (s + 1 < nslab) load(buf ^ 1, (s + 1) * TK);
+#pragma unroll
+    for (int it = 0; it < TN * C4 / 256; ++it) {
+      const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
+      const float4 w = *reinterpret_cast<const float4*>(sW + (buf * TN + n) * TLD + c);
+      uint4 hi, lo;
+      split_tf32(w.x, hi.x, lo.x);
+      split_tf32(w.y, hi.y, lo.y);
+      split_tf32(w.z, hi.z, lo.z);
+      split_tf32(w.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(sHi + n * TLD + c) = hi;
+      *reinterpret_cast<uint4*>(sLo + n * TLD + c) = lo;
+    }
+    __syncthreads();  // the split slab is written
+    const float* gs = sG + buf * TM * TLD;
+#pragma unroll
+    for (int kk = 0; kk < TK; kk += 8) {
+      // A: G rows wm + 16 mt + (lane % 16), k kk + 4 (lane / 16)
+      unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        unsigned a[4];
+        ldsm_x4(a, gs + (wm + 16 * mt + (lane & 15)) * TLD + kk + 4 * (lane >> 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(a[j]), ahi[mt][j], alo[mt][j]);
+      }
+      // B: W_f rows wn + 16 np + (lane % 8) + 8 (lane / 16), k kk + 4 ((lane / 8) % 2)
+      unsigned bhi[4][2], blo[4][2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int off = (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * TLD + kk +
+                        4 * ((lane >> 3) & 1);
+        unsigned h[4], l[4];
+        ldsm_x4(h, sHi + off);
+        ldsm_x4(l, sLo + off);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          bhi[2 * np][j] = h[j];
+          bhi[2 * np + 1][j] = h[2 + j];
+          blo[2 * np][j] = l[j];
+          blo[2 * np + 1][j] = l[2 + j];
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+    }
+  }
+  if (n0 + wn >= H) return;
+  // accumulators: (row g, channels 2q, 2q + 1) and row g + 8 of each tile
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const size_t r = r0 + wm + 16 * mt + g + 8 * half;
+      if (r >= E) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float2* p = reinterpret_cast<float2*>(gedge + r * H + n0 + wn + 8 * nt + 2 * q);
+        float2 v = *p;
+        v.x += acc[mt][nt][2 * half];
+        v.y += acc[mt][nt][2 * half + 1];
+        *p = v;
       }
     }
   }
 }
 
-// Pass 2: g_wsrc_j[c] = sum_i g_df_ij * adj_ij * silu(zf_ij) * wt_i[c], fixed order.
+// Source pass: g_wsrc_j[c] = sum_i g_df_ij * adj_ij * silu(zf_ij) * wt_i[c], fixed order.
 template <bool RC>
 __global__ void __launch_bounds__(256) edge_bwd_upd_source(
     const float* __restrict__ adj, const float* __restrict__ wt, const float* __restrict__ zf,
@@ -137,45 +330,61 @@ __global__ void __launch_bounds__(256) edge_bwd_upd_source(
     if (c < S) gwsrc[((b0 + j) * S + c) * H + t] = sc[c];
 }
 
+// The product copies 16-byte chunks of W_f and of the g_zf scratch, and
+// adds float2 pairs into g_edge: W_f must be 16-byte aligned, g_edge 8.
 template <bool RC>
 static int launch_upd(const float* zf, const float* edge, const float* wf, const float* bf,
-                      const float* adj, const float* wt, const float* wsrc, const float* wfT,
-                      const float* gdf, float* gedge, float* gwt, float* gwsrc, float* gs_e,
-                      int B, int A, int H, int S, cudaStream_t stream) {
-  if (A > MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
+                      const float* adj, const float* wt, const float* wsrc, const float* gdf,
+                      float* gedge, float* gwt, float* gwsrc, float* gs_e, float* gz, int B,
+                      int A, int H, int S, cudaStream_t stream) {
+  if (A > MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256 || ((size_t)wf & 15) ||
+      ((size_t)gedge & 7))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = upd_smem(A, H);
+  const size_t smem = upd_smem(A, H, RC);
   cudaError_t err = cudaFuncSetAttribute(edge_bwd_upd_centre<RC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  edge_bwd_upd_centre<RC><<<dim3(A, B), H, smem, stream>>>(zf, edge, wf, bf, adj, wt, wsrc, wfT,
-                                                           gdf, gedge, gwt, gs_e, A, H, S);
+  edge_bwd_upd_centre<RC><<<RC ? dim3(A, B) : group_grid(A, B, H), RC ? H : 256, smem, stream>>>(
+      zf, edge, wf, bf, adj, wt, wsrc, gdf, gwt, gs_e, gz, A, H, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(edge_bwd_upd_product, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TILE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const size_t E = (size_t)B * A * A;
+  edge_bwd_upd_product<<<dim3((unsigned)((E + TM - 1) / TM), (H + TN - 1) / TN), 256, TILE_SMEM,
+                         stream>>>(gz, wf, gedge, E, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   edge_bwd_upd_source<RC><<<dim3(A, B), H, 0, stream>>>(adj, wt, zf, gdf, gs_e, gwsrc, A, H, S);
   return (int)cudaGetLastError();
 }
 
+// gedge: the message path's g_edge, which the product adds into in place;
+// gz: [B, A, A, H] scratch for g_zf
 extern "C" int edge_bwd_upd_launch(const float* adj, const float* wt, const float* wsrc,
-                                   const float* wfT, const float* zf, const float* gdf,
-                                   float* gedge, float* gwt, float* gwsrc, int B, int A, int H,
-                                   int S, cudaStream_t stream) {
-  return launch_upd<false>(zf, nullptr, nullptr, nullptr, adj, wt, wsrc, wfT, gdf, gedge, gwt,
-                           gwsrc, nullptr, B, A, H, S, stream);
+                                   const float* wf, const float* zf, const float* gdf,
+                                   float* gedge, float* gwt, float* gwsrc, float* gz, int B,
+                                   int A, int H, int S, cudaStream_t stream) {
+  return launch_upd<false>(zf, nullptr, wf, nullptr, adj, wt, wsrc, gdf, gedge, gwt, gwsrc,
+                           nullptr, gz, B, A, H, S, stream);
 }
 
+// as K3's, and gs_e: [B, A, A, H] scratch for the source pass's factor
 extern "C" int edge_bwd_upd_rc_launch(const float* edge, const float* adj, const float* wt,
                                       const float* wsrc, const float* wf, const float* bf,
-                                      const float* wfT, const float* gdf, float* gedge,
-                                      float* gwt, float* gwsrc, float* gs_e, int B, int A, int H,
-                                      int S, cudaStream_t stream) {
-  return launch_upd<true>(nullptr, edge, wf, bf, adj, wt, wsrc, wfT, gdf, gedge, gwt, gwsrc,
-                          gs_e, B, A, H, S, stream);
+                                      const float* gdf, float* gedge, float* gwt, float* gwsrc,
+                                      float* gs_e, float* gz, int B, int A, int H, int S,
+                                      cudaStream_t stream) {
+  return launch_upd<true>(nullptr, edge, wf, bf, adj, wt, wsrc, gdf, gedge, gwt, gwsrc, gs_e, gz,
+                          B, A, H, S, stream);
 }
 
-// shared memory, blocks per SM, registers and spill bytes of the centre
-// pass, K3 (rc = 0) or K8 (rc = 1)
-extern "C" int edge_bwd_upd_occupancy(int A, int H, int rc, int* out) {
-  return rc ? occupancy(edge_bwd_upd_centre<true>, H, upd_smem(A, H), out)
-            : occupancy(edge_bwd_upd_centre<false>, H, upd_smem(A, H), out);
+// shared memory, blocks per SM, registers and spill bytes of one stage, K3
+// (rc = 0) or K8 (rc = 1): the centre pass (stage 1) or the g_edge product
+// (stage 2, shared by both)
+extern "C" int edge_bwd_upd_occupancy(int A, int H, int rc, int stage, int* out) {
+  if (stage == 2) return occupancy(edge_bwd_upd_product, 256, TILE_SMEM, out);
+  return rc ? occupancy(edge_bwd_upd_centre<true>, H, upd_smem(A, H, true), out)
+            : occupancy(edge_bwd_upd_centre<false>, 256, 0, out);
 }

@@ -11,10 +11,12 @@ templates in K2's and K3's sources) and their plain versions:
 
   edge_fwd         (K1)  x_agg, vec_agg [, df] [, zdkv, zs, zf]
   edge_bwd_msg     (K2)  backward of x_agg, vec_agg from the stored zdkv, zs
-  edge_bwd_upd     (K3)  backward of df from the stored zf
+  edge_bwd_upd     (K3)  backward of df from the stored zf; sums its g_edge
+                         into the message path's g_edge in place
   edge_bwd_msg_rc  (K7)  backward of x_agg, vec_agg, recomputing zdkv and zs
                          from the edge rows
   edge_bwd_upd_rc  (K8)  backward of df, recomputing zf from the edge rows
+                         (g_edge as K3)
 
 Each wrapper runs its plain version for CPU tensors and launches its kernel
 for CUDA tensors; there is no other route.  ``edge_core`` is what the model
@@ -138,16 +140,19 @@ def edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
     return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
 
 
-def edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df):
+def edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df, g_edge=None, mm=torch.matmul):
     """Plain version of K3: the edge-update VJP from the stored zf, the math
-    of ``_bwd_upd_kernel_sa`` (vismp.py:852).  Returns (g_edge, g_wt, g_wsrc)."""
+    of ``_bwd_upd_kernel_sa`` (vismp.py:852).  Returns (g_edge, g_wt, g_wsrc).
+    Given ``g_edge`` (the message path's, [B,A,A,H]), the edge gradient is
+    added into it in place and that tensor is returned, as the kernel does;
+    ``mm`` takes the edge product."""
     g = g_df * adj[..., None]
     g_s = g * F.silu(zf)
     s_ij = torch.einsum("bich,bjch->bijh", wt, wsrc)
     g_wt = torch.einsum("bijh,bjch->bich", g_s, wsrc)
     g_wsrc = torch.einsum("bijh,bich->bjch", g_s, wt)
-    g_edge = (g * s_ij * dsilu(zf)) @ w_f.T
-    return g_edge, g_wt, g_wsrc
+    prod = mm(g * s_ij * dsilu(zf), w_f.T)
+    return (prod if g_edge is None else g_edge.add_(prod)), g_wt, g_wsrc
 
 
 def edge_bwd_msg_rc_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
@@ -161,11 +166,11 @@ def edge_bwd_msg_rc_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s
                               g_xagg, g_vecagg, cutoff, nh)
 
 
-def edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df):
+def edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge=None, mm=torch.matmul):
     """Plain version of K8, the math of ``_bwd_upd_kernel`` (vismp.py:714):
-    zf = edge @ W_f + b_f recomputed, then K3's plain version.  Returns
-    (g_edge, g_wt, g_wsrc)."""
-    return edge_bwd_upd_plain(adj, wt, wsrc, w_f, edge @ w_f + b_f, g_df)
+    zf = edge @ W_f + b_f recomputed, then K3's plain version (``g_edge``
+    and ``mm`` as there).  Returns (g_edge, g_wt, g_wsrc)."""
+    return edge_bwd_upd_plain(adj, wt, wsrc, w_f, mm(edge, w_f) + b_f, g_df, g_edge, mm)
 
 
 # ---------------------------------------------------------------------------
@@ -175,9 +180,9 @@ def edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df):
 _P, _I, _F = _build.P, _build.I, _build.F
 _FWD_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I]
 _MSG_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F]
-_UPD_ARGS = [_P] * 9 + [_I, _I, _I, _I]
+_UPD_ARGS = [_P] * 10 + [_I] * 4
 _MSG_RC_ARGS = [_P] * 26 + [_I, _I, _I, _I, _F]
-_UPD_RC_ARGS = [_P] * 12 + [_I, _I, _I, _I]
+_UPD_RC_ARGS = [_P] * 12 + [_I] * 4
 
 
 def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
@@ -190,7 +195,8 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
 
 
 def check_shapes(A, H, S, nh, kernels: str = "edge"):
-    """The shapes the ViS-MP kernels (K1-K3, K5, K6) take."""
+    """The shapes the ViS-MP kernels (K1-K3, K5, K6, K7, K8) take; anything
+    else raises (the card has no plain route)."""
     if H // nh != 32 or H % nh or H > 256 or A > 48 or A % 8 or S > 8:
         raise ValueError(
             f"{kernels} kernels take heads of 32 channels, H <= 256, A a multiple of 8 "
@@ -285,31 +291,52 @@ def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
     return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
 
 
-def edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df):
-    """K3.  Returns (g_edge, g_wt, g_wsrc)."""
-    if not route(zf):
-        return edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df)
-    B, A, _, H = zf.shape
+def _upd_launch(rc: bool, adj, wt, wsrc, w_f, b_f, zf_or_edge, g_df, g_edge):
+    """Launch K3 (``rc`` False, from zf) or K8 (True, from the edge rows) on
+    the card.  Returns (g_edge, g_wt, g_wsrc)."""
+    B, A, _, H = zf_or_edge.shape
     S = wt.shape[2]
     check_shapes(A, H, S, H // 32)
-    dev = zf.device
-    wfT = w_f.t().contiguous()
+    dev = zf_or_edge.device
     c = _build.check
     for name, t, shape in (
-        ("adj", adj, (B, A, A)), ("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)),
-        ("w_f^T", wfT, (H, H)), ("zf", zf, (B, A, A, H)), ("g_df", g_df, (B, A, A, H)),
-    ):
+        ("edge" if rc else "zf", zf_or_edge, (B, A, A, H)), ("adj", adj, (B, A, A)),
+        ("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)), ("w_f", w_f, (H, H)),
+        ("g_df", g_df, (B, A, A, H)),
+    ) + ((("b_f", b_f, (H,)),) if rc else ()):
         c(name, t, shape, device=dev)
     new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
-    g_edge, g_wt, g_wsrc = new(B, A, A, H), new(B, A, S, H), new(B, A, S, H)
+    if g_edge is None:
+        g_edge = torch.zeros((B, A, A, H), dtype=_f32, device=dev)
+    c("g_edge", g_edge, (B, A, A, H), device=dev)
+    g_wt, g_wsrc = new(B, A, S, H), new(B, A, S, H)
+    gz = new(B, A, A, H)   # scratch: g_zf for the row-tile product
     p = _build.ptr
-    _build.call(
-        "edge_bwd_upd_launch", _UPD_ARGS,
-        p(adj), p(wt), p(wsrc), p(wfT), p(zf), p(g_df),
-        p(g_edge), p(g_wt), p(g_wsrc), B, A, H, S,
-    )
-    LAUNCHES["edge_bwd_upd"] += 1
+    if rc:
+        gs_e = new(B, A, A, H)   # scratch: the source pass's per-edge factor
+        _build.call(
+            "edge_bwd_upd_rc_launch", _UPD_RC_ARGS,
+            p(zf_or_edge), p(adj), p(wt), p(wsrc), p(w_f), p(b_f), p(g_df),
+            p(g_edge), p(g_wt), p(g_wsrc), p(gs_e), p(gz), B, A, H, S,
+        )
+    else:
+        _build.call(
+            "edge_bwd_upd_launch", _UPD_ARGS,
+            p(adj), p(wt), p(wsrc), p(w_f), p(zf_or_edge), p(g_df),
+            p(g_edge), p(g_wt), p(g_wsrc), p(gz), B, A, H, S,
+        )
     return g_edge, g_wt, g_wsrc
+
+
+def edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df, g_edge=None):
+    """K3.  Returns (g_edge, g_wt, g_wsrc); given ``g_edge`` (the message
+    path's), the edge gradient is added into it in place and that tensor is
+    returned."""
+    if not route(zf):
+        return edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df, g_edge)
+    out = _upd_launch(False, adj, wt, wsrc, w_f, None, zf, g_df, g_edge)
+    LAUNCHES["edge_bwd_upd"] += 1
+    return out
 
 
 def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
@@ -350,33 +377,13 @@ def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
 
 
-def edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f, g_df):
-    """K8.  Returns (g_edge, g_wt, g_wsrc)."""
+def edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge=None):
+    """K8.  Returns (g_edge, g_wt, g_wsrc), ``g_edge`` as K3's."""
     if not route(edge):
-        return edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df)
-    B, A, _, H = edge.shape
-    S = wt.shape[2]
-    check_shapes(A, H, S, H // 32)
-    dev = edge.device
-    wfT = w_f.t().contiguous()
-    c = _build.check
-    for name, t, shape in (
-        ("edge", edge, (B, A, A, H)), ("adj", adj, (B, A, A)), ("wt", wt, (B, A, S, H)),
-        ("wsrc", wsrc, (B, A, S, H)), ("w_f", w_f, (H, H)), ("b_f", b_f, (H,)),
-        ("g_df", g_df, (B, A, A, H)),
-    ):
-        c(name, t, shape, device=dev)
-    new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
-    g_edge, g_wt, g_wsrc = new(B, A, A, H), new(B, A, S, H), new(B, A, S, H)
-    gs_e = new(B, A, A, H)   # scratch
-    p = _build.ptr
-    _build.call(
-        "edge_bwd_upd_rc_launch", _UPD_RC_ARGS,
-        p(edge), p(adj), p(wt), p(wsrc), p(w_f), p(b_f), p(wfT), p(g_df),
-        p(g_edge), p(g_wt), p(g_wsrc), p(gs_e), B, A, H, S,
-    )
+        return edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge)
+    out = _upd_launch(True, adj, wt, wsrc, w_f, b_f, edge, g_df, g_edge)
     LAUNCHES["edge_bwd_upd_rc"] += 1
-    return g_edge, g_wt, g_wsrc
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -434,18 +441,17 @@ class FusedVisMP(torch.autograd.Function):
             g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = edge_bwd_msg_rc(
                 q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
                 g_xagg, g_vecagg, ctx.cutoff, ctx.nh)
-            if ctx.update:
-                g_edge2, g_wt, g_wsrc = edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f,
-                                                        g_df.contiguous())
-                g_edge = g_edge + g_edge2
+            if ctx.update:   # K8 adds its g_edge into K7's in place
+                g_edge, g_wt, g_wsrc = edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f,
+                                                       g_df.contiguous(), g_edge)
         else:
             zdkv, zs, zf = rest
             g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist = edge_bwd_msg(
                 q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
                 g_xagg, g_vecagg, ctx.cutoff, ctx.nh)
-            if ctx.update:
-                g_edge2, g_wt, g_wsrc = edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df.contiguous())
-                g_edge = g_edge + g_edge2
+            if ctx.update:   # K3 adds its g_edge into K2's in place
+                g_edge, g_wt, g_wsrc = edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df.contiguous(),
+                                                    g_edge)
         return (g_q, g_k, g_v, g_vec, g_wt, g_wsrc, g_edge, g_dsh, g_dist,
                 None, None, None, None, None, None, None, None, None, None)
 
@@ -459,7 +465,12 @@ def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     take ``FusedVisMP`` (kernels K1-K3), which computes silu only.  With
     ``recompute`` both take ``FusedVisMP`` on its recompute route (K1 and
     K7/K8 on the card, their plain versions on the CPU).  ``FusedVisMP``
-    gives the weights no gradient, so it raises where one needs it."""
+    gives the weights no gradient, so it raises where one needs it.
+    On the card there is no other route: a batch the kernels cannot take
+    (``check_shapes``: A not a multiple of 8 or above 48, heads not of 32
+    channels, H > 256, S > 8) or another activation than silu raises, where
+    the JAX package's per-layer path falls back to jnp for such a batch
+    (``ai2bmd_tpu/models/visnet.py:386-390``)."""
     if not recompute and not route(q):
         return edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
                               w_s, b_s, cutoff, nh, wt, wsrc, w_f, b_f, act, attn_act)[:3]

@@ -57,7 +57,11 @@ class FragmentPotential:
 
     # -- warm-started stateful variant (aux = cap offsets) -------------------
     def init_cap_delta(self, P: torch.Tensor) -> torch.Tensor:
-        return RT.initial_cap_delta(self.rt, P, n_iter=self.rt.opt_iters)
+        """Cold-start cap offsets: ``initial_cap_delta``'s default of 10 L-BFGS
+        iterations whatever ``opt_iters`` is, as the reference's
+        ``FragmentPotential.init_cap_delta`` (``opt_iters`` sets the stateless
+        path's iterations)."""
+        return RT.initial_cap_delta(self.rt, P)
 
     def stateful_energy_forces(self, P: torch.Tensor, aux: torch.Tensor,
                                warm_iters: int = 1):

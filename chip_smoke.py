@@ -18,19 +18,23 @@ is not printed):
      its plain PyTorch version on the card at the main path's shapes: max
      abs / relative error against a stated tolerance, bitwise repeatability,
      times in turns (CUDA events per call, and device time from a profiler
-     trace), and the share of the bound (the larger of bytes over 3.35 TB/s
+     trace, kept only when every kernel name holds the events of the calls
+     traced), and the share of the bound (the larger of bytes over 3.35 TB/s
      and FLOPs over the peak of the unit that does the products: 165 TFLOP/s
-     for the 3xTF32 tensor-core products of K1, K2, K7 and K8's zf, 67
-     TFLOP/s of float32 FMA for the rest); K7/K8 also against K2/K3 on K1's
-     stash of the same inputs, and again at one ensemble chunk's batch sizes
-     (8 x the single-protein B); K4 also over 64 replicas' rows, each replica
-     perturbed on its own, against its plain version and against launches
-     over each replica alone.  Before them: the tensor-core product helper
-     alone (tf32x3_mm) against its plain model and a float64 product, and
-     the rate of the mma.sync instruction it is built on; after
-     them: shared memory, blocks per SM, registers and spills of K1/K2/K3/
-     K7/K8 at each shape, and a yardstick that no kernel uses: cuBLAS
-     float32 running only the products of K1, K2 and K7
+     for the 3xTF32 tensor-core products of K1, K2, K3, K7 and K8, 67
+     TFLOP/s of float32 FMA for the rest); K3/K8 sum their g_edge into a
+     copy of a message-path g_edge, with device ms by stage; K7/K8 also
+     against K2/K3 on K1's stash of the same inputs (bitwise equal), and K3,
+     K7 and K8 again at one ensemble chunk's batch sizes (8 x the
+     single-protein B); K4 also
+     over 64 replicas' rows, each replica perturbed on its own, against its
+     plain version and against launches over each replica alone.  Before
+     them: the tensor-core product helper alone (tf32x3_mm) against its
+     plain model and a float64 product, and the rate of the mma.sync
+     instruction it is built on; after them: shared memory, blocks per SM,
+     registers and spills of K1/K2/K7 and of each K3/K8 stage at each slot
+     count, and a yardstick that no kernel uses: cuBLAS float32 running only
+     the products of K1, K2, K3, K7 and K8
   4. the slice through the edge-core kernels K1-K3: Chignolin, production
      ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
@@ -89,12 +93,12 @@ PEAK_F32, PEAK_TF32X3, PEAK_BYTES = 67e12, 495e12 / 3, 3.35e12
 BOUND_PEAK = {
     "edge_fwd": "3xTF32 tensor cores, 165 TFLOP/s",
     "edge_bwd_msg": "3xTF32 tensor cores, 165 TFLOP/s",
-    "edge_bwd_upd": "float32 FMA, 67 TFLOP/s",
+    "edge_bwd_upd": "3xTF32 tensor cores, 165 TFLOP/s",
     "cap_grad": "float32 FMA, 67 TFLOP/s",
     "vislayer_fwd": "float32 FMA, 67 TFLOP/s",
     "vislayer_bwd": "float32 FMA, 67 TFLOP/s",
     "edge_bwd_msg_rc": "3xTF32 tensor cores, 165 TFLOP/s",
-    "edge_bwd_upd_rc": "zf: 3xTF32 tensor cores, 165 TFLOP/s; g_edge: float32 FMA, 67 TFLOP/s",
+    "edge_bwd_upd_rc": "3xTF32 tensor cores, 165 TFLOP/s",
 }
 
 
@@ -124,32 +128,46 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps=10, by_name=None, tries=3):
-    """Summed device time of the kernels fn() runs, per call, from a
-    torch.profiler (CUPTI) trace; a trace that holds no device time (the
-    trace sometimes drops a kernel's events) is taken again, up to ``tries``
-    traces, then None.  ``by_name``, a dict, receives the ms per call of each
-    kernel name."""
+def _trace(torch, fn, reps):
+    """{kernel name: [events, device us]} of reps calls of fn() in one
+    torch.profiler (CUPTI) trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n = out.setdefault(e.name, [0, 0.0])
+            n[0] += 1
+            n[1] += e.device_time_total
+    return out
+
+
+def device_ms(torch, fn, reps=10, by_name=None, tries=3):
+    """Summed device time of the kernels fn() runs, per call, from a
+    torch.profiler (CUPTI) trace of reps calls.  A trace can drop some of a
+    kernel's events or all of them, so a trace of one call is taken first,
+    and the trace of reps calls is kept only if it holds reps times as many
+    events of each kernel name as that one and no other name; else both are
+    taken again, up to ``tries`` times, then None.  ``by_name``, a dict,
+    receives the ms per call of each kernel name."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        us = sum(e.device_time_total for e in kernels)
-        if us > 0:
+        one, many = _trace(torch, fn, 1), _trace(torch, fn, reps)
+        if one and one.keys() == many.keys() and all(
+                many[n][0] == reps * c for n, (c, _) in one.items()):
             break
-    if us <= 0:
+    else:
         return None
     if by_name is not None:
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
-    return us / 1e3 / reps
+        for n, (_, us) in many.items():
+            by_name[n] = by_name.get(n, 0.0) + us / 1e3 / reps
+    return sum(us for _, us in many.values()) / 1e3 / reps
 
 
 def short_name(kernel: str) -> str:
@@ -158,27 +176,31 @@ def short_name(kernel: str) -> str:
     return m.group(1) if m else kernel[:60]
 
 
-def in_turns(torch, kernel, plain, reps=20):
+def in_turns(torch, kernel, plain, parts=None, reps=20):
     """Per-call times of the kernel and its plain version, in turns (plain,
     kernel, kernel, plain): CUDA events around a loop of calls, which
     include the host's issue time when it exceeds the device's, and the
-    device time alone from a profiler trace.  Returns a dict."""
+    device time alone from a profiler trace.  Returns a dict; ``parts``, a
+    dict, receives the kernel's device ms by kernel name."""
     p1 = cuda_ms(torch, plain, reps)
     k1 = cuda_ms(torch, kernel, reps)
     k2 = cuda_ms(torch, kernel, reps)
     p2 = cuda_ms(torch, plain, reps)
-    parts = {}
+    parts = {} if parts is None else parts
     out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
            "device_ms": device_ms(torch, kernel, by_name=parts),
            "plain_device_ms": device_ms(torch, plain)}
-    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     print(f"    time per call: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms "
-          f"(events); device: kernel {fmt(out['device_ms'])}, plain "
-          f"{fmt(out['plain_device_ms'])}")
+          f"(events); device: kernel {fmt_ms(out['device_ms'])}, plain "
+          f"{fmt_ms(out['plain_device_ms'])}")
     if len(parts) > 1:
         print("    kernel stages (device ms): " + ", ".join(
             f"{short_name(n)} {ms:.4f}" for n, ms in parts.items()))
     return out
+
+
+def fmt_ms(x):
+    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def add_times(res, t):
@@ -276,8 +298,9 @@ UPD_KEYS = ("g_edge", "g_wt", "g_wsrc")
 
 
 def edge_case(torch, K, gen, B, A, dev):
-    """Inputs at (B, A), K1's stash of them, and random cotangents: the
-    arguments of K2, K3, K7 and K8."""
+    """Inputs at (B, A), K1's stash of them, random cotangents, and a random
+    message-path g_edge for K3/K8 to sum into: the arguments of K2, K3, K7
+    and K8."""
     a = edge_inputs(torch, gen, B, A, dev)
     core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
             a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
@@ -286,8 +309,9 @@ def edge_case(torch, K, gen, B, A, dev):
     g_x = (torch.randn((B, A, H), generator=gen)).to(dev)
     g_va = (torch.randn((B, A, S, H), generator=gen)).to(dev)
     g_df = (torch.randn((B, A, A, H), generator=gen) * a["adj"].cpu()[..., None]).to(dev)
+    g_edge = (torch.randn((B, A, A, H), generator=gen) * a["adj"].cpu()[..., None]).to(dev)
     return dict(
-        a=a, core=core, upd=upd,
+        a=a, core=core, upd=upd, g_edge=g_edge,
         msg=(a["q"], a["k"], a["v"], a["vec"], zdkv, zs, a["d_sh"], a["dist"], a["adj"],
              a["w_dkv"], a["w_s"], g_x, g_va, CUTOFF, NH),
         upd_args=(a["adj"], a["wt"], a["wsrc"], a["w_f"], zf, g_df),
@@ -296,31 +320,58 @@ def edge_case(torch, K, gen, B, A, dev):
     )
 
 
-def check_recompute_pair(torch, K, c, B, A, results, timed):
-    """K7 and K8 at (B, A) against their plain versions and against K2/K3 on
-    K1's stash of the same inputs, bitwise repeats, times and bound (summed
-    into the kernels' results when ``timed``)."""
-    for name, kernel, plain, args, stash, stash_args, keys, flop in (
-            ("edge_bwd_msg_rc", K.edge_bwd_msg_rc, K.edge_bwd_msg_rc_plain, c["msg_rc"],
-             K.edge_bwd_msg, c["msg"], MSG_KEYS, dict(tc=2 * B * A * A * 8 * H * H)),
-            ("edge_bwd_upd_rc", K.edge_bwd_upd_rc, K.edge_bwd_upd_rc_plain, c["upd_rc"],
-             K.edge_bwd_upd, c["upd_args"], UPD_KEYS,
-             dict(tc=2 * B * A * A * H * H, f32=2 * B * A * A * H * H))):
-        label = f"{name} B={B} A={A}"
-        print(f"  {label}")
-        run = lambda kernel=kernel, args=args: kernel(*args)
-        res = results[name]
-        res["max_abs_err"] = max(res["max_abs_err"], compare(
-            label, run(), dict(zip(keys, plain(*args))), EDGE_TOL))
-        print(f"    against {stash.__name__} on K1's stash:")
-        res["max_abs_err"] = max(res["max_abs_err"], compare(
-            label, run(), dict(zip(keys, stash(*stash_args))), EDGE_TOL))
-        bitwise(label, run)
-        t = in_turns(torch, run, lambda plain=plain, args=args: plain(*args))
-        n_in = 14 if name == "edge_bwd_msg_rc" else len(args)
-        add_bound(res if timed else {}, bound(nbytes(*args[:n_in], *run()), **flop), t)
-        if timed:
-            add_times(res, t)
+def check_msg_rc(torch, K, c, B, A, results, timed):
+    """K7 at (B, A) against its plain version and against K2 on K1's stash
+    of the same inputs, bitwise repeats, times and bound (summed into the
+    kernel's results when ``timed``)."""
+    name, args = "edge_bwd_msg_rc", c["msg_rc"]
+    label = f"{name} B={B} A={A}"
+    print(f"  {label}")
+    run = lambda: K.edge_bwd_msg_rc(*args)
+    res = results[name]
+    res["max_abs_err"] = max(res["max_abs_err"], compare(
+        label, run(), dict(zip(MSG_KEYS, K.edge_bwd_msg_rc_plain(*args))), EDGE_TOL))
+    print("    against edge_bwd_msg on K1's stash (bitwise):")
+    compare(label, run(), dict(zip(MSG_KEYS, K.edge_bwd_msg(*c["msg"]))), 0.0)
+    bitwise(label, run)
+    t = in_turns(torch, run, lambda: K.edge_bwd_msg_rc_plain(*args))
+    add_bound(res if timed else {}, bound(nbytes(*args[:14], *run()),
+                                          tc=2 * B * A * A * 8 * H * H), t)
+    if timed:
+        add_times(res, t)
+
+
+def check_upd(torch, K, c, B, A, results, timed, rc):
+    """K3 (rc False) or K8 (rc True) at (B, A), summing into a copy of the
+    same message-path g_edge: against its plain version (K8 also against K3
+    on K1's stash), bitwise repeats, times, stages and bound (summed into
+    the kernel's results when ``timed``); device ms in all and by stage
+    (centre pass, g_edge product, source pass) summed over the lone or the
+    chunk shapes."""
+    name = "edge_bwd_upd_rc" if rc else "edge_bwd_upd"
+    kernel, plain = ((K.edge_bwd_upd_rc, K.edge_bwd_upd_rc_plain) if rc else
+                     (K.edge_bwd_upd, K.edge_bwd_upd_plain))
+    args, g0 = (c["upd_rc"] if rc else c["upd_args"]), c["g_edge"]
+    label = f"{name} B={B} A={A}"
+    print(f"  {label} (g_edge summed in place)")
+    run = lambda: kernel(*args, g_edge=g0.clone())
+    res = results[name]
+    ref = dict(zip(UPD_KEYS, plain(*args, g0.clone())))
+    res["max_abs_err"] = max(res["max_abs_err"], compare(label, run(), ref, EDGE_TOL))
+    if rc:
+        print("    against edge_bwd_upd on K1's stash (bitwise):")
+        compare(label, run(), dict(zip(UPD_KEYS, K.edge_bwd_upd(*c["upd_args"],
+                                                                g_edge=g0.clone()))), 0.0)
+    bitwise(label, run)
+    buf_k, buf_p = g0.clone(), g0.clone()     # timed calls keep summing into these
+    parts = {}
+    t = in_turns(torch, lambda: kernel(*args, g_edge=buf_k), lambda: plain(*args, buf_p), parts)
+    add_bound(res if timed else {}, bound(nbytes(*args, g0, *run()),
+                                          tc=(4 if rc else 2) * B * A * A * H * H), t)
+    if timed:
+        add_times(res, t)
+    sums = res.setdefault("stage_sums", {}).setdefault("lone" if timed else "chunk", {})
+    add_times(sums, {"all": t["device_ms"], **{short_name(n): ms for n, ms in parts.items()}})
 
 
 def check_edge_kernels(torch, dev, results):
@@ -365,28 +416,24 @@ def check_edge_kernels(torch, dev, results):
         add_times(res, t)
         add_bound(res, bound(nbytes(*msg_args[:13], *run()), tc=2 * B * A * A * 4 * H * H), t)
 
-        upd_args = c["upd_args"]
-        name = f"edge_bwd_upd B={B} A={A}"
-        print(f"  {name}")
-        run = lambda: K.edge_bwd_upd(*upd_args)
-        res = results["edge_bwd_upd"]
-        res["max_abs_err"] = max(res["max_abs_err"], compare(
-            name, run(), dict(zip(UPD_KEYS, K.edge_bwd_upd_plain(*upd_args))), EDGE_TOL))
-        bitwise(name, run)
-        t = in_turns(torch, run, lambda: K.edge_bwd_upd_plain(*upd_args))
-        add_times(res, t)
-        add_bound(res, bound(nbytes(*upd_args, *run()), f32=2 * B * A * A * H * H), t)
+        check_upd(torch, K, c, B, A, results, True, rc=False)
+        check_msg_rc(torch, K, c, B, A, results, timed=True)
+        check_upd(torch, K, c, B, A, results, True, rc=True)
 
-        check_recompute_pair(torch, K, c, B, A, results, timed=True)
-
-    # K7/K8 at the batch sizes the ensemble (phase 5) launches them at: one
-    # chunk of REPLICA_CHUNK replicas folds into each ViSNet batch
-    print(f"  K7/K8 at one ensemble chunk's shapes ({REPLICA_CHUNK} replicas per batch; "
+    # K3, K7 and K8 at the batch sizes the ensemble (phase 5) launches K7/K8
+    # at: one chunk of REPLICA_CHUNK replicas folds into each ViSNet batch
+    print(f"  K3, K7, K8 at one ensemble chunk's shapes ({REPLICA_CHUNK} replicas per batch; "
           f"times printed, not summed into the kernels line)")
     for B, A in SHAPES:
         c = edge_case(torch, K, gen, REPLICA_CHUNK * B, A, dev)
-        check_recompute_pair(torch, K, c, REPLICA_CHUNK * B, A, results, timed=False)
+        check_upd(torch, K, c, REPLICA_CHUNK * B, A, results, False, rc=False)
+        check_msg_rc(torch, K, c, REPLICA_CHUNK * B, A, results, timed=False)
+        check_upd(torch, K, c, REPLICA_CHUNK * B, A, results, False, rc=True)
         del c
+    for name in ("edge_bwd_upd", "edge_bwd_upd_rc"):
+        for where, sums in results[name].pop("stage_sums").items():
+            print(f"  {name}, device ms summed over the four {where} shapes: " + ", ".join(
+                f"{k} {fmt_ms(v)}" for k, v in sums.items()))
 
 
 def check_tf32x3(torch, dev):
@@ -434,9 +481,11 @@ def check_tf32x3(torch, dev):
 
 def report_occupancy(torch, results):
     """Shared memory per block, blocks per SM, registers and spill bytes of
-    each edge centre pass at each of Chignolin's shapes (the launchers' own
-    sizes, through cudaOccupancyMaxActiveBlocksPerMultiprocessor); the
-    largest shape's go into the kernels line."""
+    each edge centre pass, and of K3/K8's row-tile product, at each of
+    Chignolin's slot counts, which the ensemble's chunks share (the
+    launchers' own sizes, through cudaOccupancyMaxActiveBlocksPerMultiprocessor);
+    the largest shape's go into the kernels line, for K3/K8 their centre
+    pass's."""
     import ctypes
 
     from ai2bmd_torch.ops import _build
@@ -444,7 +493,7 @@ def report_occupancy(torch, results):
     lib = _build.library()
     I, P = ctypes.c_int, ctypes.c_void_p
     for fn, n in (("edge_fwd_occupancy", 5), ("edge_bwd_msg_occupancy", 4),
-                  ("edge_bwd_upd_occupancy", 3)):
+                  ("edge_bwd_upd_occupancy", 4)):
         getattr(lib, fn).argtypes = [I] * n + [P]
         getattr(lib, fn).restype = I
 
@@ -462,8 +511,9 @@ def report_occupancy(torch, results):
                 ("K1", None, "edge_fwd_occupancy", (A, H, S, 0, 0)),
                 ("K2", "edge_bwd_msg", "edge_bwd_msg_occupancy", (A, H, S, 0)),
                 ("K7", "edge_bwd_msg_rc", "edge_bwd_msg_occupancy", (A, H, S, 1)),
-                ("K3", "edge_bwd_upd", "edge_bwd_upd_occupancy", (A, H, 0)),
-                ("K8", "edge_bwd_upd_rc", "edge_bwd_upd_occupancy", (A, H, 1))):
+                ("K3 centre", "edge_bwd_upd", "edge_bwd_upd_occupancy", (A, H, 0, 1)),
+                ("K8 centre", "edge_bwd_upd_rc", "edge_bwd_upd_occupancy", (A, H, 1, 1)),
+                ("K3/K8 product", None, "edge_bwd_upd_occupancy", (A, H, 0, 2))):
             o = occ(fn, *args)
             print(f"  {label:16s} A={A}: {o['smem_bytes']} B shared memory per block, "
                   f"{o['blocks_per_sm']} blocks per SM, {o['registers']} registers, "
@@ -474,26 +524,31 @@ def report_occupancy(torch, results):
 
 def cublas_yardstick(torch, dev, results):
     """cuBLAS float32 (allow_tf32 off) over the flattened [B*A*A, .] edge
-    rows, the products of K1 (5 H^2 per edge cell), K2 (4 H^2) and K7
-    (8 H^2) only, summed over Chignolin's four shapes: a yardstick printed
-    beside the kernels, not a library_ms (it is not the same function)."""
+    rows, the products of K1 (5 H^2 per edge cell), K2 (4 H^2), K7 (8 H^2),
+    K3 (H^2) and K8 (2 H^2) only, summed over Chignolin's four shapes: a
+    yardstick printed beside the kernels, not a library_ms (it is not the
+    same function)."""
     gen = torch.Generator().manual_seed(4)
     r = lambda *s: (torch.randn(s, generator=gen) * 0.3).to(dev)
     w_dkv, w_s, w_f, w_sT, w_dkvT = r(H, 2 * H), r(H, 2 * H), r(H, H), r(2 * H, H), r(2 * H, H)
     old = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        tot = {"edge_fwd": 0.0, "edge_bwd_msg": 0.0, "edge_bwd_msg_rc": 0.0}
+        tot = {"edge_fwd": 0.0, "edge_bwd_msg": 0.0, "edge_bwd_msg_rc": 0.0,
+               "edge_bwd_upd": 0.0, "edge_bwd_upd_rc": 0.0}
         for B, A in SHAPES:
             n = B * A * A
-            e, vij, g1, g2 = r(n, H), r(n, H), r(n, 2 * H), r(n, 2 * H)
+            e, vij, g1, g2, gz = r(n, H), r(n, H), r(n, 2 * H), r(n, 2 * H), r(n, H)
             fwd = lambda: (e @ w_dkv, vij @ w_s, e @ w_f)
             bwd = lambda: (g1 @ w_sT, g2 @ w_dkvT)
             rc = lambda: (e @ w_dkv, vij @ w_s, g1 @ w_sT, g2 @ w_dkvT)
-            for name, fn in (("edge_fwd", fwd), ("edge_bwd_msg", bwd), ("edge_bwd_msg_rc", rc)):
+            upd = lambda: (gz @ w_f.T,)
+            upd_rc = lambda: (e @ w_f, gz @ w_f.T)
+            for name, fn in (("edge_fwd", fwd), ("edge_bwd_msg", bwd), ("edge_bwd_msg_rc", rc),
+                             ("edge_bwd_upd", upd), ("edge_bwd_upd_rc", upd_rc)):
                 ms = device_ms(torch, fn) or cuda_ms(torch, fn, 20)
                 tot[name] += ms
-            del e, vij, g1, g2
+            del e, vij, g1, g2, gz
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     for name, ms in tot.items():
@@ -650,7 +705,7 @@ def profile_steps(torch, step, state, n=3):
     print(f"  profiled {n} steps: {len(kernels) / n:.0f} device kernels per step, device busy "
           f"{busy_us / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms per step "
           f"({100 * busy_us / wall_us:.1f}% busy, profiler on)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / n / 1e3:8.3f} ms/step  {name[:100]}")
 
 

@@ -68,6 +68,27 @@ def test_stateful_energy_forces_match_jax(pots):
     np.testing.assert_allclose(new_t.numpy(), np.asarray(new_j), rtol=0, atol=1e-5)
 
 
+def test_cold_start_takes_ten_iterations_whatever_opt_iters(pots, chig_protein):
+    """At opt_iters=5 the reference's FragmentPotential still cold-starts the
+    caps with initial_cap_delta's 10 iterations; so does the port.  The
+    cold-start offsets and the first warm forces against JAX, tolerances as
+    test_stateful_energy_forces_match_jax."""
+    jpot, tpot, _, P = pots
+    jpot5 = JP.FragmentPotential.build(chig_protein, jpot.params, jpot.cfg, longrange="mm",
+                                       opt_iters=5)
+    tpot5 = TP.FragmentPotential.build(chig_protein, tpot.module, tpot.cfg, longrange="mm",
+                                       opt_iters=5, device="cpu")
+    assert tpot5.rt.opt_iters == 5
+    aux_j = np.asarray(jax.jit(jpot5.init_cap_delta)(jnp.asarray(P)))
+    aux_t = tpot5.init_cap_delta(T(P))
+    np.testing.assert_allclose(aux_t.numpy(), aux_j, rtol=0, atol=1e-5)
+    e_j, f_j, _ = jax.jit(lambda P, aux: jpot5.stateful_energy_forces(P, aux))(
+        jnp.asarray(P), jnp.asarray(aux_j))
+    e_t, f_t, _ = tpot5.stateful_energy_forces(T(P), aux_t)
+    assert float(e_t) == pytest.approx(float(e_j), abs=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
+
+
 def test_cold_energy_forces_match_jax(pots):
     """The stateless path: caps cold-started with 10 iterations inside the
     call.  Tolerances as above."""

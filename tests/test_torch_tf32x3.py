@@ -1,12 +1,14 @@
 """The 3xTF32 split of the edge kernels' tensor-core products (ai2bmd_torch).
 
-K1, K2, K7 and K8 take their edge products on the tensor cores, each
+K1, K2, K3, K7 and K8 take their edge products on the tensor cores, each
 float32 operand split into two TF32 halves (``csrc/common.cuh``
-``mma_rows_times_cols``).  ``ops/tf32x3.py`` models that arithmetic in plain
+``mma_rows_times_cols``, and K3/K8's row-tile product in
+``csrc/edge_bwd_upd.cu``).  ``ops/tf32x3.py`` models that arithmetic in plain
 PyTorch; these tests bound its error on the CPU against a float64 product,
 against a plain float32 product, against one TF32 pass and against the JAX
 package's own production split (3-pass bf16, ``vismp._split_b16``), and put
-the split into the plain versions of K1 and K2 at Chignolin's (4, 40) shape.
+the split into the plain versions of K1, K2, K3 and K8 at Chignolin's (4, 40)
+shape.
 Inputs are made with numpy from a seed.
 """
 
@@ -120,11 +122,11 @@ def _close(got, ref, label):
         assert err <= EDGE_TOL * max(1.0, float(r.abs().max())), (label, n, err)
 
 
-@pytest.mark.parametrize("which", ["edge_fwd", "edge_bwd_msg"])
+@pytest.mark.parametrize("which", ["edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_upd_rc"])
 def test_plain_versions_with_the_split_stay_within_edge_tol(which):
-    """K1's and K2's plain versions with their products taken through the
-    split, at Chignolin's (4, 40) shape and H = 256, against the same plain
-    versions in float32."""
+    """K1's, K2's, K3's and K8's plain versions with their products taken
+    through the split, at Chignolin's (4, 40) shape and H = 256, against the
+    same plain versions in float32 (K3/K8 summing into a given g_edge)."""
     a = _edge_inputs()
     core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
             a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
@@ -132,6 +134,19 @@ def test_plain_versions_with_the_split_stay_within_edge_tol(which):
     ref = TK.edge_fwd_plain(*core, **upd)
     if which == "edge_fwd":
         _close(TK.edge_fwd_plain(*core, **upd, mm=T.mm_tf32x3_plain), ref, which)
+        return
+    if which in ("edge_bwd_upd", "edge_bwd_upd_rc"):
+        g_df = torch.from_numpy(np.random.default_rng(5).standard_normal(ref[5].shape)
+                                .astype(np.float32)) * a["adj"][..., None]
+        g_edge = torch.randn(ref[5].shape, generator=torch.Generator().manual_seed(6))
+        if which == "edge_bwd_upd":
+            fn = lambda **kw: TK.edge_bwd_upd_plain(a["adj"], a["wt"], a["wsrc"], a["w_f"], ref[5],
+                                                    g_df, g_edge.clone(), **kw)
+        else:
+            fn = lambda **kw: TK.edge_bwd_upd_rc_plain(a["edge"], a["adj"], a["wt"], a["wsrc"],
+                                                       a["w_f"], a["b_f"], g_df, g_edge.clone(),
+                                                       **kw)
+        _close(fn(mm=T.mm_tf32x3_plain), fn(), which)
         return
     zdkv, zs = ref[3], ref[4]
     args = (a["q"], a["k"], a["v"], a["vec"], zdkv, zs, a["d_sh"], a["dist"], a["adj"],

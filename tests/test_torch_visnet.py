@@ -162,16 +162,20 @@ def test_edge_core_and_vjp_match_pallas(rng, last):
         _close(g, grads_j[n], PALLAS_TOL)
 
 
-def test_fused_vjp_matches_plain_autograd(rng):
-    """FusedVisMP's hand-written backward equals autograd through the plain
-    forward (float64, so the comparison sees the math, not rounding)."""
+@pytest.mark.parametrize("recompute", [False, True], ids=["stash", "recompute"])
+def test_fused_vjp_matches_plain_autograd(rng, recompute):
+    """FusedVisMP's hand-written backward, on the stash route (K2/K3's plain
+    versions) and the recompute route (K7/K8's), where K3/K8 add the update's
+    edge gradient into the message path's in place, equals autograd through
+    the plain forward (float64, so the comparison sees the math, not
+    rounding)."""
     a = _edge_inputs(rng, B=2, A=16)
     nh, cutoff = 4, 5.0
     diff = ["q", "k", "v", "vec", "wt", "wsrc", "edge", "d_sh", "dist"]
     t = {n: T(a[n]).double().requires_grad_(n in diff) for n in a}
     order = ["q", "k", "v", "vec", "wt", "wsrc", "edge", "d_sh", "dist", "adj",
              "w_dkv", "b_dkv", "w_s", "b_s", "w_f", "b_f"]
-    outs_f = TK.FusedVisMP.apply(*[t[n] for n in order], cutoff, nh)
+    outs_f = TK.FusedVisMP.apply(*[t[n] for n in order], cutoff, nh, recompute)
     outs_p = TK.edge_fwd_plain(
         t["q"], t["k"], t["v"], t["vec"], t["edge"], t["d_sh"], t["dist"], t["adj"],
         t["w_dkv"], t["b_dkv"], t["w_s"], t["b_s"], cutoff, nh,
@@ -229,11 +233,15 @@ def test_recompute_update_backward_matches_pallas(rng):
         _close(mine, r, PALLAS_TOL)
 
 
-@pytest.mark.parametrize("last", [False, True], ids=["update", "last"])
-def test_recompute_route_matches_stash_route(rng, last):
+@pytest.mark.parametrize("last, df_only", [
+    pytest.param(False, False, id="update"), pytest.param(True, False, id="last"),
+    pytest.param(False, True, id="update-df-only")])
+def test_recompute_route_matches_stash_route(rng, last, df_only):
     """FusedVisMP with recompute=True (K1 without a stash, K7/K8's plain
     versions) against recompute=False (K1's stash, K2/K3's plain versions),
-    float64: the same outputs and input gradients to 1e-10."""
+    float64: the same outputs and input gradients to 1e-10.  ``df_only``
+    gives x_agg and vec_agg a zero cotangent, so the edge gradient is the
+    update's alone, summed by K3/K8 into the message path's zeros."""
     a = _edge_inputs(rng, B=2, A=16)
     nh, cutoff = 4, 5.0
     diff = ["q", "k", "v", "vec", "edge", "d_sh", "dist"] + ([] if last else ["wt", "wsrc"])
@@ -246,12 +254,37 @@ def test_recompute_route_matches_stash_route(rng, last):
     outs = {rc: TK.FusedVisMP.apply(*[t[n] for n in order], cutoff, nh, rc) for rc in (False, True)}
     gen = torch.Generator().manual_seed(1)
     cts = [torch.randn(o.shape, dtype=torch.float64, generator=gen) for o in outs[False]]
+    if df_only:
+        cts[0], cts[1] = torch.zeros_like(cts[0]), torch.zeros_like(cts[1])
     grads = {rc: torch.autograd.grad(outs[rc], [t[n] for n in diff], grad_outputs=cts)
              for rc in outs}
     for x, y in zip(outs[True], outs[False]):
         np.testing.assert_allclose(x.detach().numpy(), y.detach().numpy(), rtol=0, atol=1e-10)
     for n, x, y in zip(diff, grads[True], grads[False]):
         np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-10, err_msg=n)
+
+
+@pytest.mark.parametrize("rc", [False, True], ids=["K3", "K8"])
+def test_update_backward_sums_into_the_given_g_edge(rng, rc):
+    """The plain K3/K8 with the optional g_edge: the edge gradient is added
+    into that tensor in place, and it equals the output without it plus the
+    separate add that FusedVisMP's backward used to make, bitwise."""
+    a = {n: T(v) for n, v in _edge_inputs(rng, B=2, A=16).items()}
+    g_df = torch.randn(a["edge"].shape, generator=torch.Generator().manual_seed(2))
+    g0 = torch.randn(a["edge"].shape, generator=torch.Generator().manual_seed(3))
+    if rc:
+        call = lambda **kw: TK.edge_bwd_upd_rc(a["edge"], a["adj"], a["wt"], a["wsrc"], a["w_f"],
+                                               a["b_f"], g_df, **kw)
+    else:
+        zf = a["edge"] @ a["w_f"] + a["b_f"]
+        call = lambda **kw: TK.edge_bwd_upd(a["adj"], a["wt"], a["wsrc"], a["w_f"], zf, g_df, **kw)
+    alone = call()
+    buf = g0.clone()
+    summed = call(g_edge=buf)
+    assert summed[0] is buf
+    assert torch.equal(summed[0], g0 + alone[0])
+    for x, y in zip(summed[1:], alone[1:]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("weight", ["w_dkv", "b_dkv", "w_s", "b_s", "w_f", "b_f"])
