@@ -1,9 +1,7 @@
 // Shared device helpers for the ai2bmd_torch kernels (float32 throughout).
 //
-// Two row-block products.  `rows_times_cols` (K5, K6) is plain float32 FMA
-// on the CUDA cores, one output column per thread.
-// `mma_rows_times_cols` (K1, K2, K7, K8's zf) runs on the tensor cores with
-// a 3xTF32 split: each float32 operand x is cut into hi = tf32(x) and
+// Every product of every kernel runs on the tensor cores with a 3xTF32
+// split: each float32 operand x is cut into hi = tf32(x) and
 // lo = tf32(x - hi) (cvt.rna, 10 explicit mantissa bits each), and each
 // product is lo*hi + hi*lo + hi*hi, three m16n8k8 mma.sync products in that
 // order into one float32 accumulator.  What it drops against a float32
@@ -13,20 +11,28 @@
 // roundings, where one TF32 pass alone would carry 2^-11
 // (tests/test_torch_tf32x3.py holds the split's error to <= 10x a float32
 // product's at K = 256 and 512).  The bound is the tensor cores' 495 TF32
-// TFLOP/s over the three passes, 165 TFLOP/s in float32 products, against
-// 67 TFLOP/s of FMA; the weights stream from L2 once per block either way.
-// mma.sync reaches only part of that peak, and the helper a fraction of
-// mma.sync's own rate (chip_smoke.py phase 3 prints both): at one centre's
-// rows a block, every warp loads and splits its W fragments and splits the
-// shared rows again, about two other instructions per product, with two or
-// four warps a scheduler to hide the latency.  K3/K8's g_edge product,
-// which has no coupling between centres, has its own row-tile kernel with
-// the same split in edge_bwd_upd.cu: 128 flattened edge rows a block share
-// each W slab, staged in shared memory and split once per block.
-// wgmma (64-row warpgroup tiles, swizzled shared-memory operands) does not
-// fit a block of one centre's A <= 48 edge rows; it needs blocks of several
-// centres, which would also share the W splits, and is left to a later
-// change.
+// TFLOP/s over the three passes, 165 TFLOP/s in float32 products.
+//
+// Two forms of the product:
+// - `mma_rows_times_cols` (K1, K2, K7, K8's zf): one centre's <= 48 edge
+//   rows in shared memory, inside a block that also does the centre's
+//   elementwise work.  Every warp loads and splits its own W fragments from
+//   L2 and splits the shared rows again, about two other instructions per
+//   product, with two or four warps a scheduler to hide the latency: it
+//   reaches ~20% of mma.sync's rate (chip_smoke.py phase 3 prints both).
+// - `row_tile` (K3/K8's g_edge, every product of K5 and K6): a kernel of
+//   its own over rows with no coupling between them, TM rows x 64 output
+//   columns a block of 8 warps.  X and W k-slabs are copied to shared
+//   memory with cp.async (double-buffered), the W slab is split into hi /
+//   lo once per block and read by all warps with ldmatrix, so TM rows share
+//   each split; the 64-column blocks give small row counts a grid that
+//   fills the card.  W is read as it is stored in both forms (X @ W and
+//   X @ W^T), from up to three weight tensors side by side, so no kernel
+//   copies or transposes a weight; a row-local epilogue (a functor) takes
+//   the accumulators, so bias, activations, gates and residual sums make no
+//   extra pass over the rows.
+// wgmma (64-row warpgroup tiles, swizzled shared-memory operands) is left
+// to a later change.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,70 +71,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __device__ __forceinline__ float cosine_cutoff(float d, float cutoff) {
   return d < cutoff ? 0.5f * (cosf(d * (3.14159265358979323846f / cutoff)) + 1.0f) : 0.0f;
-}
-
-// acc_j[r] = sum_k X[r][k] * W[k][col_j], j < NC, for the rows r < A of a
-// row block X ([A][ldx], row-major, in shared memory, K % 4 == 0, ldx % 4
-// == 0, A % RCHUNK == 0, A <= MAXR) and NC columns of a row-major W
-// ([K][ldw], device memory).  Each thread owns its columns, so a warp reads
-// 32 neighbouring floats of a W row, and every thread reads the same X
-// element (a shared-memory broadcast).  The next k-step's W values are
-// loaded while this one's are used, to hide the L2 latency.  Each sum runs
-// over k in order with fused multiply-adds: bitwise repeatable.
-template <int NC, int MAXR = MAXA>
-__device__ __forceinline__ void rows_times_cols_ld(const float* __restrict__ X, int ldx, int A,
-                                                   int K, const float* __restrict__ W, int ldw,
-                                                   const int (&col)[NC],
-                                                   float (&acc)[NC][MAXR]) {
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) acc[j][r] = 0.0f;
-  float nxt[NC][4];
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) nxt[j][q] = __ldg(W + (size_t)q * ldw + col[j]);
-  for (int k = 0; k < K; k += 4) {
-    float w[NC][4];
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) w[j][q] = nxt[j][q];
-    if (k + 4 < K) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) nxt[j][q] = __ldg(W + (size_t)(k + 4 + q) * ldw + col[j]);
-    }
-#pragma unroll
-    for (int c8 = 0; c8 < MAXR / RCHUNK; ++c8) {
-      if (c8 * RCHUNK < A) {
-#pragma unroll
-        for (int rr = 0; rr < RCHUNK; ++rr) {
-          const int r = c8 * RCHUNK + rr;
-          const float4 x = *reinterpret_cast<const float4*>(X + r * ldx + k);
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            float a = acc[j][r];
-            a = fmaf(x.x, w[j][0], a);
-            a = fmaf(x.y, w[j][1], a);
-            a = fmaf(x.z, w[j][2], a);
-            a = fmaf(x.w, w[j][3], a);
-            acc[j][r] = a;
-          }
-        }
-      }
-    }
-  }
-}
-
-// rows_times_cols_ld for a dense row block (row stride K).
-template <int NC, int MAXR = MAXA>
-__device__ __forceinline__ void rows_times_cols(const float* __restrict__ X, int A, int K,
-                                                const float* __restrict__ W, int ldw,
-                                                const int (&col)[NC], float (&acc)[NC][MAXR]) {
-  rows_times_cols_ld<NC, MAXR>(X, K, A, K, W, ldw, col, acc);
 }
 
 // Copy A rows of H floats (device memory, dense) into shared memory at row
@@ -279,8 +221,304 @@ __device__ __forceinline__ void mma_rows_times_cols(const float* X, int ldx, int
   __syncthreads();  // out is written
 }
 
+// ---------------------------------------------------------------------------
+// The row tile
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes device -> shared, asynchronously (L2 only)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Four (x4) or two (x2) 8 x 4 matrices of 32-bit values from shared memory
+// (ldmatrix counts them as 8 x 8 of 16 bits): lane l gives the address of
+// row l % 8 of matrix l / 8, and gets element (lane / 4, lane % 4) of each.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// TILE_N output columns a block, k-slabs of TILE_K, shared-memory rows at
+// stride TILE_LD (16 bytes apart in the banks, so ldmatrix's 8 row reads
+// of one 8 x 4 matrix are conflict-free); an X @ W slab of W, [TILE_K]
+// [TILE_N] as stored, at stride TILE_WLD.
+constexpr int TILE_N = 64, TILE_K = 32, TILE_LD = TILE_K + 4, TILE_WLD = TILE_N + 4;
+constexpr int TILE_WBUF = TILE_N * TILE_LD;
+static_assert(TILE_K * TILE_WLD <= TILE_WBUF, "a W slab buffer holds either form");
+
+// Warps of a TM-row tile: 4 x 2 warps of 32 x 32 at TM = 128, 4 x 2 of
+// 16 x 32 at TM = 64, 2 x 4 of 16 x 16 at TM = 32, 1 x 8 of 16 x 8 at TM = 16.
+template <int TM>
+struct TileShape {
+  static constexpr int WARPS_M = TM / 16 < 4 ? TM / 16 : 4;
+  static constexpr int WM = TM / WARPS_M, WN = TILE_N / (8 / WARPS_M);
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  static_assert(TM % 16 == 0 && TM <= 128 && NT >= 1, "tile rows");
+};
+
+template <int TM>
+__host__ __device__ constexpr size_t tile_smem() {
+  return (size_t)(2 * TM * TILE_LD + 2 * TILE_WBUF + 2 * TILE_N * TILE_LD) * sizeof(float);
+}
+
+// Up to three weight tensors side by side, each row-major with its own
+// leading dimension.  For X @ W (WT = false) segment s holds the output
+// columns [end[s-1], end[s]) as W_s[k][n - end[s-1]]; for X @ W^T (WT =
+// true) it holds the k range [end[s-1], end[s]) as W_s[n][k - end[s-1]],
+// so W's rows, as stored, are the MMA's B columns.  Segment bounds are
+// multiples of 4 (X @ W) or of TILE_K (X @ W^T).
+struct WSeg {
+  const float* w[3];
+  int ld[3];
+  int end[3];
+};
+constexpr int SEG_END = 1 << 30;
+inline WSeg wseg(const float* w0, int ld0) {
+  return {{w0, w0, w0}, {ld0, ld0, ld0}, {SEG_END, SEG_END, SEG_END}};
+}
+inline WSeg wseg(const float* w0, int ld0, int end0, const float* w1, int ld1,
+                 int end1 = SEG_END, const float* w2 = nullptr, int ld2 = 0) {
+  return {{w0, w1, w2 ? w2 : w1}, {ld0, ld1, w2 ? ld2 : ld1}, {end0, end1, SEG_END}};
+}
+// The segment that holds x: its weights, leading dimension and first x.
+// Constant indices only: a runtime index into the kernel argument would
+// copy it to local memory.
+__device__ __forceinline__ void seg_at(const WSeg& W, int x, const float*& w, int& ld,
+                                       int& base) {
+  if (x < W.end[0]) {
+    w = W.w[0], ld = W.ld[0], base = 0;
+  } else if (x < W.end[1]) {
+    w = W.w[1], ld = W.ld[1], base = W.end[0];
+  } else {
+    w = W.w[2], ld = W.ld[2], base = W.end[1];
+  }
+}
+
+// out[r][n] = sum_k X[r][k] * W[k][n]  (WT = false)  or  X[r][k] * W[n][k]
+// (WT = true), for r < M, n < N, handed to epi(r, n, out[r][n],
+// out[r][n + 1]) (n even) and stored nowhere else.  X: [M][ldx] row-major
+// (ldx % 4 == 0, 16-byte aligned), K % TILE_K == 0, N % 8 == 0; the
+// weights 16-byte aligned.  Block (x, y): rows TM x.., columns TILE_N y..;
+// per k-slab: wait for its copy, start the next one's, split the W slab
+// into hi / lo in shared memory ([TILE_N][TILE_LD], column n, k along it;
+// an X @ W slab is transposed on the way), then four k8 steps of lo*hi,
+// hi*lo, hi*hi with the X fragments read by ldmatrix and split in
+// registers.  Rows past M read row M - 1 and columns past N read column
+// N - 1 (or W's row N - 1); neither is handed to epi.  Each sum runs over
+// k in order: bitwise repeatable, and equal between any two kernels that
+// call it on equal X and W.  epi owns each (r, n) pair: an epilogue may
+// read and write its outputs in place.
+template <int TM, bool WT, class Epi>
+static __global__ void __launch_bounds__(256, 2)
+    row_tile(const float* __restrict__ X, int ldx, size_t M, int K, int N, const WSeg W,
+             const Epi epi) {
+  using S = TileShape<TM>;
+  extern __shared__ __align__(16) float smem[];
+  float* sX = smem;                     // [2][TM][TILE_LD] X slabs
+  float* sW = sX + 2 * TM * TILE_LD;    // [2][TILE_WBUF] W slabs as copied
+  float* sHi = sW + 2 * TILE_WBUF;      // [TILE_N][TILE_LD] this slab's hi
+  float* sLo = sHi + TILE_N * TILE_LD;  // and lo
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = S::WM * (warp % S::WARPS_M), wn = S::WN * (warp / S::WARPS_M);
+  const size_t r0 = (size_t)blockIdx.x * TM;
+  const int n0 = blockIdx.y * TILE_N;
+  constexpr int C4 = TILE_K / 4, N4 = TILE_N / 4;  // 16-byte chunks a slab row
+
+  auto load = [&](int buf, int k0) {
+#pragma unroll
+    for (int it = 0; it < (TM * C4 + 255) / 256; ++it) {
+      const int x = t + 256 * it, r = x / C4, c = 4 * (x % C4);
+      if (TM * C4 % 256 == 0 || x < TM * C4) {
+        const size_t src = r0 + r < M ? r0 + r : M - 1;
+        cp_async16(sX + (buf * TM + r) * TILE_LD + c, X + src * ldx + k0 + c);
+      }
+    }
+    float* w = sW + buf * TILE_WBUF;
+    if constexpr (WT) {
+      const float* ws;
+      int ld, base;
+      seg_at(W, k0, ws, ld, base);
+#pragma unroll
+      for (int it = 0; it < TILE_N * C4 / 256; ++it) {
+        const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
+        const int nw = n0 + n < N ? n0 + n : N - 1;
+        cp_async16(w + n * TILE_LD + c, ws + (size_t)nw * ld + k0 - base + c);
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < TILE_K * N4 / 256; ++it) {
+        const int x = t + 256 * it, k = x / N4, c = 4 * (x % N4);
+        const int n = n0 + c < N ? n0 + c : N - 4;
+        const float* ws;
+        int ld, base;
+        seg_at(W, n, ws, ld, base);
+        cp_async16(w + k * TILE_WLD + c, ws + (size_t)(k0 + k) * ld + n - base);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[S::MT][S::NT][4];
+#pragma unroll
+  for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
+
+  const int nslab = K / TILE_K;
+  load(0, 0);
+  for (int s = 0; s < nslab; ++s) {
+    const int buf = s & 1;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // slab s is in; every warp is done with slab s - 1
+    if (s + 1 < nslab) load(buf ^ 1, (s + 1) * TILE_K);
+    const float* w = sW + buf * TILE_WBUF;
+    if constexpr (WT) {
+#pragma unroll
+      for (int it = 0; it < TILE_N * C4 / 256; ++it) {
+        const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
+        const float4 v = *reinterpret_cast<const float4*>(w + n * TILE_LD + c);
+        uint4 hi, lo;
+        split_tf32(v.x, hi.x, lo.x);
+        split_tf32(v.y, hi.y, lo.y);
+        split_tf32(v.z, hi.z, lo.z);
+        split_tf32(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(sHi + n * TILE_LD + c) = hi;
+        *reinterpret_cast<uint4*>(sLo + n * TILE_LD + c) = lo;
+      }
+    } else {
+      // a warp reads one 16-byte column chunk of 32 k rows and writes 32
+      // consecutive k of each of its 4 columns: both conflict-free
+#pragma unroll
+      for (int it = 0; it < TILE_K * N4 / 256; ++it) {
+        const int x = t + 256 * it, k = x % TILE_K, c = 4 * (x / TILE_K);
+        const float4 v = *reinterpret_cast<const float4*>(w + k * TILE_WLD + c);
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          unsigned hi, lo;
+          split_tf32(e[j], hi, lo);
+          reinterpret_cast<unsigned*>(sHi)[(c + j) * TILE_LD + k] = hi;
+          reinterpret_cast<unsigned*>(sLo)[(c + j) * TILE_LD + k] = lo;
+        }
+      }
+    }
+    __syncthreads();  // the split slab is written
+    const float* xs = sX + buf * TM * TILE_LD;
+#pragma unroll
+    for (int kk = 0; kk < TILE_K; kk += 8) {
+      // A: X rows wm + 16 mt + (lane % 16), k kk + 4 (lane / 16)
+      unsigned ahi[S::MT][4], alo[S::MT][4];
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt) {
+        unsigned a[4];
+        ldsm_x4(a, xs + (wm + 16 * mt + (lane & 15)) * TILE_LD + kk + 4 * (lane >> 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(a[j]), ahi[mt][j], alo[mt][j]);
+      }
+      // B: columns wn + 16 np + (lane % 8) + 8 (lane / 16), k kk + 4 ((lane / 8) % 2)
+      unsigned bhi[S::NT][2], blo[S::NT][2];
+      if constexpr (S::NT == 1) {
+        const int off = (wn + (lane & 7)) * TILE_LD + kk + 4 * ((lane >> 3) & 1);
+        ldsm_x2(bhi[0], sHi + off);
+        ldsm_x2(blo[0], sLo + off);
+      } else {
+#pragma unroll
+        for (int np = 0; np < S::NT / 2; ++np) {
+          const int off = (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * TILE_LD + kk +
+                          4 * ((lane >> 3) & 1);
+          unsigned h[4], l[4];
+          ldsm_x4(h, sHi + off);
+          ldsm_x4(l, sLo + off);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            bhi[2 * np][j] = h[j];
+            bhi[2 * np + 1][j] = h[2 + j];
+            blo[2 * np][j] = l[j];
+            blo[2 * np + 1][j] = l[2 + j];
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+    }
+  }
+  // accumulators: (row g, columns 2q, 2q + 1) and row g + 8 of each tile.
+  // A warp whose columns all lie below N (all but a ragged last block) hands
+  // them over with no guard per column: with a guard around each epilogue
+  // call, K3's product took 0.0887 ms over its four lone shapes on the
+  // H100 instead of 0.0706 (chip_smoke.py).
+  if (n0 + wn + S::WN <= N) {
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const size_t r = r0 + wm + 16 * mt + g + 8 * half;
+        if (r >= M) continue;
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt)
+          epi(r, n0 + wn + 8 * nt + 2 * q, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+    }
+  } else if (n0 + wn < N) {
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const size_t r = r0 + wm + 16 * mt + g + 8 * half;
+        if (r >= M) continue;
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt) {
+          const int n = n0 + wn + 8 * nt + 2 * q;
+          if (n < N) epi(r, n, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Launch row_tile over M x N; the grid is (row tiles, 64-column blocks).
+template <int TM, bool WT, class Epi>
+static cudaError_t launch_row_tile(const float* X, int ldx, size_t M, int K, int N,
+                                   const WSeg& W, const Epi& epi, cudaStream_t stream) {
+  if (M == 0) return cudaSuccess;
+  constexpr size_t smem = tile_smem<TM>();
+  cudaError_t err = cudaFuncSetAttribute(row_tile<TM, WT, Epi>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  row_tile<TM, WT, Epi><<<dim3((unsigned)((M + TM - 1) / TM), (N + TILE_N - 1) / TILE_N), 256,
+                          smem, stream>>>(X, ldx, M, K, N, W, epi);
+  return cudaGetLastError();
+}
+
 // What a launch of `kern` with `threads` threads and `smem` bytes of dynamic
-// shared memory gets: out = {shared memory bytes, blocks per SM, registers
+// shared memory gets: out = {shared memory bytes (dynamic and static),
+// blocks per SM, registers
 // a thread, local (spill) bytes a thread}.  For reports, not for launches.
 template <class Kern>
 static int occupancy(Kern kern, int threads, size_t smem, int* out) {
@@ -293,7 +531,7 @@ static int occupancy(Kern kern, int threads, size_t smem, int* out) {
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads, smem);
   if (err != cudaSuccess) return (int)err;
-  out[0] = (int)smem;
+  out[0] = (int)(smem + fa.sharedSizeBytes);
   out[1] = blocks;
   out[2] = fa.numRegs;
   out[3] = (int)fa.localSizeBytes;

@@ -32,9 +32,10 @@
 // memory ([A][H + 4], 42 KB at A = 40) and takes zf there with
 // mma_rows_times_cols, the product K1 stores zf with, so K8's g_zf and
 // every result equal K3's on K1's stash bitwise.  The g_edge product
-// g_zf @ W_f^T has no coupling between centres, so a row-tile kernel adds
-// it into g_edge over the flattened edge rows, 128 rows x 64 output
-// channels a block: W_f's k-slabs are copied to shared memory as stored
+// g_zf @ W_f^T has no coupling between centres, so the row tile
+// (`row_tile` in common.cuh, which K5 and K6 share) adds it into g_edge
+// over the flattened edge rows, 128 rows x 64 output channels a block:
+// W_f's k-slabs are copied to shared memory as stored
 // with cp.async (double-buffered, with the g_zf slabs), split into hi / lo
 // once per block, and read by all 8 warps with ldmatrix, so 128 rows share
 // each split; the column blocks (4 at H = 256) keep small batches' grids
@@ -51,13 +52,6 @@
 #include "common.cuh"
 
 using namespace ai2bmd;
-
-// The row tile of the g_edge product: TM flattened edge rows x TN output
-// channels a block of 8 warps (4 x 2, each 32 x 32), k-slabs of TK,
-// shared-memory rows at stride TLD (16 bytes apart in the banks, so
-// ldmatrix's 8 row reads of one 8 x 4 matrix are conflict-free).
-constexpr int TM = 128, TN = 64, TK = 32, TLD = TK + 4;
-constexpr size_t TILE_SMEM = (size_t)(2 * TM + 4 * TN) * TLD * sizeof(float);
 
 // dynamic shared memory of one centre-pass block: K8's rows for zf
 static size_t upd_smem(int A, int H, bool rc) {
@@ -147,159 +141,19 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_upd_centre(
     if (c < S) gwt[(bi * S + c) * H + t] = gwti[c];
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes device -> shared, asynchronously (L2 only)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-// Four 8 x 4 matrices of 32-bit values from shared memory (ldmatrix counts
-// them as 8 x 8 of 16 bits): lane l gives the address of row l % 8 of
-// matrix l / 8, and gets element (lane / 4, lane % 4) of each in r[0..3].
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const float* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// The g_edge product: gedge[E][H] += G[E][H] @ W_f^T, i.e. gedge[r][n] +=
-// sum_k G[r][k] * W_f[n][k], so W_f's rows, as stored, are the MMA's B
-// columns.  Block (x, y): rows TM x.., channels TN y..; warp w: rows
-// 32 (w % 4).., channels 32 (w / 4)..; two m16 x four n8 tiles.  Per
-// k-slab: wait for its copy, start the next one's, split the W slab into
-// hi / lo in shared memory, then four k8 steps of lo*hi, hi*lo, hi*hi (the
-// G fragments split in registers).  Rows past E read row E - 1 and store
-// nothing; where H % TN != 0 (H % 32 == 0 always), channels past H read
-// W_f's row H - 1 and a warp whose 32 channels lie past H stores nothing.
-// Each sum runs over k in order: bitwise repeatable.  g_edge is read and
-// written by the one thread that owns each element: it is updated in place.
-__global__ void __launch_bounds__(256, 2) edge_bwd_upd_product(const float* __restrict__ G,
-                                                               const float* __restrict__ wf,
-                                                               float* __restrict__ gedge,
-                                                               size_t E, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* sG = smem;                // [2][TM][TLD] G slabs
-  float* sW = sG + 2 * TM * TLD;   // [2][TN][TLD] W_f slabs, row n, k along it
-  float* sHi = sW + 2 * TN * TLD;  // [TN][TLD] this slab's hi
-  float* sLo = sHi + TN * TLD;     // [TN][TLD] and lo
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = 32 * (warp & 3), wn = 32 * (warp >> 2);
-  const size_t r0 = (size_t)blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  constexpr int C4 = TK / 4;  // 16-byte chunks a slab row
-
-  auto load = [&](int buf, int k0) {
-#pragma unroll
-    for (int it = 0; it < TM * C4 / 256; ++it) {
-      const int x = t + 256 * it, r = x / C4, c = 4 * (x % C4);
-      const size_t src = r0 + r < E ? r0 + r : E - 1;
-      cp_async16(sG + (buf * TM + r) * TLD + c, G + src * H + k0 + c);
-    }
-#pragma unroll
-    for (int it = 0; it < TN * C4 / 256; ++it) {
-      const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
-      const int nw = n0 + n < H ? n0 + n : H - 1;
-      cp_async16(sW + (buf * TN + n) * TLD + c, wf + (size_t)nw * H + k0 + c);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
-
-  const int nslab = H / TK;
-  load(0, 0);
-  for (int s = 0; s < nslab; ++s) {
-    const int buf = s & 1;
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // slab s is in; every warp is done with slab s - 1
-    if (s + 1 < nslab) load(buf ^ 1, (s + 1) * TK);
-#pragma unroll
-    for (int it = 0; it < TN * C4 / 256; ++it) {
-      const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
-      const float4 w = *reinterpret_cast<const float4*>(sW + (buf * TN + n) * TLD + c);
-      uint4 hi, lo;
-      split_tf32(w.x, hi.x, lo.x);
-      split_tf32(w.y, hi.y, lo.y);
-      split_tf32(w.z, hi.z, lo.z);
-      split_tf32(w.w, hi.w, lo.w);
-      *reinterpret_cast<uint4*>(sHi + n * TLD + c) = hi;
-      *reinterpret_cast<uint4*>(sLo + n * TLD + c) = lo;
-    }
-    __syncthreads();  // the split slab is written
-    const float* gs = sG + buf * TM * TLD;
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 8) {
-      // A: G rows wm + 16 mt + (lane % 16), k kk + 4 (lane / 16)
-      unsigned ahi[2][4], alo[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        unsigned a[4];
-        ldsm_x4(a, gs + (wm + 16 * mt + (lane & 15)) * TLD + kk + 4 * (lane >> 4));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(a[j]), ahi[mt][j], alo[mt][j]);
-      }
-      // B: W_f rows wn + 16 np + (lane % 8) + 8 (lane / 16), k kk + 4 ((lane / 8) % 2)
-      unsigned bhi[4][2], blo[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int off = (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * TLD + kk +
-                        4 * ((lane >> 3) & 1);
-        unsigned h[4], l[4];
-        ldsm_x4(h, sHi + off);
-        ldsm_x4(l, sLo + off);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          bhi[2 * np][j] = h[j];
-          bhi[2 * np + 1][j] = h[2 + j];
-          blo[2 * np][j] = l[j];
-          blo[2 * np + 1][j] = l[2 + j];
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
-    }
+// The g_edge product's epilogue: gedge[r][n] += G[r][:] . W_f[n][:], read
+// and written by the one thread that owns each element (in place).
+struct AddInto {
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    float2* p = reinterpret_cast<float2*>(out + r * ld + n);
+    float2 v = *p;
+    v.x += v0;
+    v.y += v1;
+    *p = v;
   }
-  if (n0 + wn >= H) return;
-  // accumulators: (row g, channels 2q, 2q + 1) and row g + 8 of each tile
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const size_t r = r0 + wm + 16 * mt + g + 8 * half;
-      if (r >= E) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        float2* p = reinterpret_cast<float2*>(gedge + r * H + n0 + wn + 8 * nt + 2 * q);
-        float2 v = *p;
-        v.x += acc[mt][nt][2 * half];
-        v.y += acc[mt][nt][2 * half + 1];
-        *p = v;
-      }
-    }
-  }
-}
+};
 
 // Source pass: g_wsrc_j[c] = sum_i g_df_ij * adj_ij * silu(zf_ij) * wt_i[c], fixed order.
 template <bool RC>
@@ -348,13 +202,9 @@ static int launch_upd(const float* zf, const float* edge, const float* wf, const
       zf, edge, wf, bf, adj, wt, wsrc, gdf, gwt, gs_e, gz, A, H, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(edge_bwd_upd_product, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)TILE_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const size_t E = (size_t)B * A * A;
-  edge_bwd_upd_product<<<dim3((unsigned)((E + TM - 1) / TM), (H + TN - 1) / TN), 256, TILE_SMEM,
-                         stream>>>(gz, wf, gedge, E, H);
-  err = cudaGetLastError();
+  // gedge[E][H] += g_zf @ W_f^T: W_f's rows, as stored, are the MMA's B columns
+  err = launch_row_tile<128, true>(gz, H, (size_t)B * A * A, H, H, wseg(wf, H),
+                                   AddInto{gedge, H}, stream);
   if (err != cudaSuccess) return (int)err;
   edge_bwd_upd_source<RC><<<dim3(A, B), H, 0, stream>>>(adj, wt, zf, gdf, gs_e, gwsrc, A, H, S);
   return (int)cudaGetLastError();
@@ -384,7 +234,7 @@ extern "C" int edge_bwd_upd_rc_launch(const float* edge, const float* adj, const
 // (rc = 0) or K8 (rc = 1): the centre pass (stage 1) or the g_edge product
 // (stage 2, shared by both)
 extern "C" int edge_bwd_upd_occupancy(int A, int H, int rc, int stage, int* out) {
-  if (stage == 2) return occupancy(edge_bwd_upd_product, 256, TILE_SMEM, out);
+  if (stage == 2) return occupancy(row_tile<128, true, AddInto>, 256, tile_smem<128>(), out);
   return rc ? occupancy(edge_bwd_upd_centre<true>, H, upd_smem(A, H, true), out)
             : occupancy(edge_bwd_upd_centre<false>, 256, 0, out);
 }

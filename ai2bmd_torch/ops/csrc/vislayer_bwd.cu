@@ -7,37 +7,50 @@
 // gedge includes the residual passthrough gedge2 in both the updating and
 // the last layer.
 //
-// What bounds it on the H100: float32 arithmetic on the CUDA cores: 10 H^2
-// multiply-adds per edge cell (the forward's edge @ W_dkv, v_ij @ W_s and
-// edge @ W_f recomputed, 5 H^2, then g_s @ W_s^T, g_dkv @ W_dkv^T and
-// g_zf @ W_f^T, 5 H^2) and 92 H^2 per atom on the node side.  Recomputing
-// instead of reading a stash of zdkv/zs/zf (K2/K3's route) costs about 1.5x
-// the edge arithmetic and saves 5 H floats per edge cell of device memory
-// written and read.
-// Design: the TPU kernel ran a sequential grid over 8-row centre tiles,
-// with a node prologue at it == 0, an epilogue at it == nit-1 and sums over
-// centre tiles carried in VMEM (s_gk, s_gv, s_gvecn, s_gwsrc).  GPU blocks
-// run in no order, so the launcher issues the stages in order:
-//   (a) node recompute, one block per 16 node rows and column group: qkv,
-//       vec1|vec2|vec3|wt|wsrc (vislayer.cuh), o = x_agg @ W_o + b_o, and the
-//       node-update backward g_xagg = [g_o1|g_o2|g_o3] @ W_o^T;
-//   (b) centre pass, one block per (fragment, centre atom i), one thread per
-//       channel: the edge stage recomputed from the edge rows and then
-//       differentiated (the device functions below; K7 in edge_bwd_msg.cu
-//       takes the same steps in the edge core's layouts).  Centre-indexed
-//       results (g_q, g_edge, g_d_sh, g_dist, g_wt) are final; the per-edge
-//       terms of the source-indexed sums go to scratch (g_k, g_v terms, s1,
-//       g_Sij);
-//   (c) source pass, one block per (fragment, source atom j): the sums over
-//       i of g_k, g_v, g_vecn (s1 * gvec2_i) and g_wsrc (g_Sij * wt_i), in a
-//       fixed order, no float atomics;
-//   (d) the projections' and the LayerNorm's backward, one block per 16 node
-//       rows: gx = gx2 + LN'(g_qkv @ W_qkv^T) and
-//       gvec = gvec2 + (g_vecn + [g_v123|g_wt|g_wsrc] @ [W_vp|W_t|W_src]^T) * w_vln.
-// The centre pass keeps the edge rows, zv and a work buffer [A][2H] in
-// shared memory (4 A H floats, 196 KB at A = 48, H = 256, so one block per
-// SM) and zk in registers.  Every sum runs in a fixed order: the kernel is
-// bitwise repeatable.
+// What bounds it on the H100: the products, 10 H^2 multiply-adds per edge
+// cell (the forward's edge @ [W_dkv | W_f] and v_ij @ W_s recomputed, 5
+// H^2, then g_s @ W_s^T and [g_dkv | g_zf] @ [W_dkv ; W_f]^T, 5 H^2) and
+// 92 H^2 per atom on the node side, on the tensor cores as 3xTF32 (165
+// TFLOP/s in float32 products); the bytes (edge and gedge2 in, gedge out)
+// take about a third of the products' time at H = 256.  Recomputing
+// instead of reading a stash of zdkv/zs/zf (K2/K3's route) costs about
+// 1.5x the edge arithmetic and saves 5 H floats per edge cell of device
+// memory written and read.
+// Design: every product is a row_tile (common.cuh) with its row-local work
+// in the epilogue, over the flattened edge rows (128-row tiles), the
+// vector rows (64) or the node rows (16), each grid (row tiles x 64-column
+// blocks); what couples rows runs in passes between them.  Stages, in
+// stream order, with the [E, .] rows each moves (floats per edge row):
+//   (a) node prologue (vislayer.cuh): xn, vecn; qkv; proj; then
+//       o = x_agg @ W_o + b_o; a node pass builds the X rows of the two
+//       node-update products, xo = [sum_c gvec2 vec3 | gx2 vdot | gx2] and
+//       the first 3H columns of xv = [g_vdot vec2 | g_vdot vec1 | gvec2 o1
+//       | g_wt | g_wsrc]; g_xagg = xo @ W_o^T.
+//   (b) edge @ [W_dkv | W_f]: z[:, :2H] = zdkv; for a layer that is not
+//       the last, the edge update's backward in the epilogue:
+//       g_Sij = gedge2 adj silu(zf) -> gS_e, g_zf = gedge2 adj S_ij
+//       silu'(zf) -> z[:, 2H:] (reads H + gedge2 H, writes 4H);
+//   (c) edge-row pass, one block per edge row: a_ij, v_ij -> v_e; the
+//       sums over c of g_s, [sum_c gvec2_i vecn_j | sum_c gvec2_i
+//       d_sh_ij] -> g_e (reads 2H, writes 3H); and a centre pass
+//       g_wt_i = sum_j g_Sij ws_j -> xv (reads H);
+//   (d) v_e @ W_s: s = silu(zs) adj -> s_e, g_s = g_e adj silu'(zs) -> g_e
+//       in place (reads 3H, writes 4H);
+//   (e) g_e @ W_s^T: g_vij = . + g_xagg_i -> v_e (reads 2H, writes H);
+//   (f) centre pass: the attention backward: g_q_i, g_dist, g_d_sh
+//       (from s2); g_k, g_v terms -> g_e; g_dkv -> z[:, :2H] in place
+//       (reads 5H, writes 4H);
+//   (g) [g_dkv | g_zf] @ [W_dkv ; W_f]^T (K = 3H, 2H for the last layer):
+//       gedge = . + gedge2 (reads 3H + H, writes H);
+//   (h) source pass, one block per (fragment, source atom j): the sums
+//       over i of g_k, g_v, g_vecn (s1 gvec2_i) and g_wsrc (g_Sij wt_i ->
+//       xv), in a fixed order, no float atomics (reads 4H); the S sums of
+//       a source atom are split over four blocks;
+//   (i) g_xhat = (g_qkv @ W_qkv^T) * ln_s, then the LayerNorm's row pass:
+//       gx = gx2 + rstd (g_xhat - mean(g_xhat) - xhat mean(g_xhat xhat));
+//       gvec = gvec2 + (g_vecn + xv @ [W_vp | W_t | W_src]^T) * w_vln.
+// About 42 H floats move per edge cell, most from L2.  Every sum runs in a
+// fixed order: the kernel is bitwise repeatable.
 
 #include <cstddef>
 #include <cstring>
@@ -48,533 +61,394 @@ using namespace ai2bmd;
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// (a) node-side backward pieces
-// ---------------------------------------------------------------------------
-
-// g_xagg = [sum_c gvec2 * vec3 | gx2 * vdot | gx2] @ W_o^T   (vislayer.py:238-247)
-__global__ void __launch_bounds__(256) vislayer_bwd_gxagg(const Layer p) {
-  extern __shared__ __align__(16) float smem[];
-  const int t = threadIdx.x, H = p.H, A = p.A, S = p.S, ldp = p.NP * H, K = 3 * H;
-  float* sX = smem;  // [NODE_ROWS][3H]
-  const int M = p.B * A, r0 = blockIdx.x * NODE_ROWS, n = min(NODE_ROWS, M - r0);
-  for (int e = t; e < n * H; e += blockDim.x) {
-    const int r = e / H, k = e % H, row = r0 + r, b = row / A, a = row % A;
-    float g1 = 0.0f, vdot = 0.0f;
-    for (int c = 0; c < S; ++c) {
-      const size_t v = ((size_t)b * S + c) * A + a;
-      const float* pr = p.proj + v * ldp;
-      g1 = fmaf(p.gvec2[v * H + k], pr[2 * H + k], g1);
-      vdot = fmaf(pr[k], pr[H + k], vdot);
+// y[r][n] = acc (+ add[r][n]) (* scale[n]), in place where y is add.
+struct Store {
+  float* y;
+  int ldy;
+  const float* add;    // [.][ldy] or null
+  const float* scale;  // [N] or null
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    float* o = y + r * ldy + n;
+    if (add != nullptr) {
+      const float2 a = *reinterpret_cast<const float2*>(add + r * ldy + n);
+      v0 += a.x;
+      v1 += a.y;
     }
-    const float gxv = p.gx2[(size_t)row * H + k];
-    sX[r * K + k] = g1;
-    sX[r * K + H + k] = gxv * vdot;
-    sX[r * K + 2 * H + k] = gxv;
+    if (scale != nullptr) {
+      v0 *= scale[n];
+      v1 *= scale[n + 1];
+    }
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
   }
-  __syncthreads();
-  const int col[1] = {t};
-  float acc[1][NODE_ROWS];
-  rows_times_cols<1, NODE_ROWS>(sX, n, K, p.w_oT, H, col, acc);
-#pragma unroll
-  for (int r = 0; r < NODE_ROWS; ++r)
-    if (r < n) p.gxagg[(size_t)(r0 + r) * H + t] = acc[0][r];
-}
-
-// ---------------------------------------------------------------------------
-// (b) centre pass: the edge stage recomputed and differentiated
-// ---------------------------------------------------------------------------
-
-// Shared memory of one centre block (fragment b, centre atom i).
-struct Centre {
-  float* E;       // [A][H]  edge rows of i; v_ij once the edge products are done
-  float* Zv;      // [A][H]  zdkv[:, H:]
-  float* W;       // [A][2H] work rows: g_zf, then g_s, then g_dkv
-  float* Dsh;     // [S][A]  d_sh[c][i][:]
-  float* Adj;     // [A]
-  float* Gate;    // [A]     cutoff(r) * adj
-  float* Dcut;    // [A]     d cutoff / d r
-  float* Pre;     // [A][NW] head pre-activations a_ij
-  float* RedCut;  // [NW][A] per-warp sums for g_dist
-  float* RedDsh;  // [NW][S][A] per-warp sums for g_d_sh
-  int b, i, NW;
-  size_t bi;      // b * A + i
 };
 
-size_t centre_smem_bytes(int A, int H, int S) {
-  const int NW = H / 32;
-  return ((size_t)4 * A * H + S * A + 3 * A + 2 * A * NW + NW * S * A) * sizeof(float);
-}
-
-__device__ __forceinline__ Centre carve(float* smem, const Layer& p) {
-  const int A = p.A, H = p.H, S = p.S;
-  Centre s;
-  s.NW = H / 32;
-  s.b = blockIdx.y;
-  s.i = blockIdx.x;
-  s.bi = (size_t)s.b * A + s.i;
-  s.E = smem;
-  s.Zv = s.E + A * H;
-  s.W = s.Zv + A * H;
-  s.Dsh = s.W + 2 * A * H;
-  s.Adj = s.Dsh + S * A;
-  s.Gate = s.Adj + A;
-  s.Dcut = s.Gate + A;
-  s.Pre = s.Dcut + A;
-  s.RedCut = s.Pre + A * s.NW;
-  s.RedDsh = s.RedCut + s.NW * A;
-  return s;
-}
-
-// The centre's edge rows, d_sh row and pair scalars.
-__device__ __forceinline__ void centre_load(const Layer& p, const Centre& s) {
-  const int t = threadIdx.x, A = p.A, H = p.H, S = p.S;
-  const float kpi = 3.14159265358979323846f / p.cutoff;
-  const float4* E4 = reinterpret_cast<const float4*>(p.edge + s.bi * A * H);
-  for (int e = t; e < A * H / 4; e += blockDim.x) reinterpret_cast<float4*>(s.E)[e] = E4[e];
-  for (int e = t; e < S * A; e += blockDim.x) {
-    const int c = e / A, r = e % A;
-    s.Dsh[e] = p.dsh[(((size_t)s.b * S + c) * A + s.i) * A + r];
+// (a) the node-update products' X rows, one block per node row (b, a), a
+// thread per channel.
+__global__ void __launch_bounds__(256) vislayer_bwd_node_rows(const Layer p) {
+  const int t = threadIdx.x, H = p.H, A = p.A, S = p.S, ldp = p.NP * H;
+  const size_t row = blockIdx.x, b = row / A, a = row % A;
+  const float gxv = p.gx2[row * H + t];
+  const float o1 = p.o[row * 3 * H + t], gvd = gxv * p.o[row * 3 * H + H + t];
+  float g1 = 0.0f, vdot = 0.0f;
+  for (int c = 0; c < S; ++c) {
+    const size_t v = (b * S + c) * A + a;
+    const float* pr = p.proj + v * ldp;
+    const float gv2 = p.gvec2[v * H + t];
+    g1 = fmaf(gv2, pr[2 * H + t], g1);
+    vdot = fmaf(pr[t], pr[H + t], vdot);
+    float* xv = p.xv + v * ldp;
+    xv[t] = gvd * pr[H + t];
+    xv[H + t] = gvd * pr[t];
+    xv[2 * H + t] = gv2 * o1;
   }
-  for (int r = t; r < A; r += blockDim.x) {
-    const float a = p.adj[s.bi * A + r], d = p.dist[s.bi * A + r];
-    s.Adj[r] = a;
-    s.Gate[r] = cosine_cutoff(d, p.cutoff) * a;
-    s.Dcut[r] = d < p.cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
-  }
+  float* xo = p.xo + row * 3 * H;
+  xo[t] = g1;
+  xo[H + t] = gxv * vdot;
+  xo[2 * H + t] = gxv;
 }
 
-// zdkv = edge @ W_dkv + b_dkv: zv to shared memory, zk to registers.
-__device__ __forceinline__ void recompute_dkv(const Layer& p, const Centre& s,
-                                              float (&zk)[MAXA], float (&acc)[1][MAXA]) {
-  const int t = threadIdx.x, A = p.A, H = p.H;
-  const int col_lo[1] = {t}, col_hi[1] = {H + t};
-  rows_times_cols<1>(s.E, A, H, p.w_dkv, 2 * H, col_hi, acc);
-  const float bv = p.b_dkv[H + t], bk = p.b_dkv[t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        s.Zv[r * H + t] = acc[0][r] + bv;
-      }
+// (b): n < 2H: z[r][n] = acc + b_dkv[n];  n >= 2H: the edge update's
+// backward (vislayer.py:314-332), df = silu(zf) * S_ij * adj with
+// S_ij = <wt_i, ws_j>_c.
+struct EdgeEpi {
+  Layer p;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const int H = p.H, H3 = 3 * H;
+    if (n < 2 * H) {
+      *reinterpret_cast<float2*>(p.z + r * H3 + n) =
+          make_float2(v0 + p.b_dkv[n], v1 + p.b_dkv[n + 1]);
+      return;
     }
-  }
-  rows_times_cols<1>(s.E, A, H, p.w_dkv, 2 * H, col_lo, acc);
-#pragma unroll
-  for (int r = 0; r < MAXA; ++r) zk[r] = acc[0][r] + bk;
-}
-
-// Edge-update backward (vislayer.py:314-332), df = silu(zf) * S_ij * adj with
-// zf = edge @ W_f + b_f recomputed and S_ij = <wt_i, ws_j>_c:
-//   g_Sij = gedge2 * adj * silu(zf)                 -> scratch gs_e (for g_wsrc)
-//   g_wt_i[c] = sum_j g_Sij * ws_j[c]                -> gw[:, :H]
-//   gedge = (gedge2 * adj * S_ij * silu'(zf)) @ W_f^T + gedge2
-__device__ __forceinline__ void update_backward(const Layer& p, const Centre& s,
-                                                float (&acc)[1][MAXA]) {
-  const int t = threadIdx.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * H;
-  const size_t b = s.b;
-  float wti[MAXS], gwti[MAXS];
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c) {
-    wti[c] = c < S ? p.proj[((b * S + c) * A + s.i) * ldp + 3 * H + t] : 0.0f;
-    gwti[c] = 0.0f;
-  }
-  const int col[1] = {t};
-  rows_times_cols<1>(s.E, A, H, p.w_f, H, col, acc);
-  const float bft = p.b_f[t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const size_t e = (s.bi * A + r) * H + t;
-        const float z = acc[0][r] + bft;
-        float wsr[MAXS];
-        float sdot = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c) {
-          wsr[c] = c < S ? p.proj[((b * S + c) * A + r) * ldp + 4 * H + t] : 0.0f;
-          sdot = fmaf(wti[c], wsr[c], sdot);
-        }
-        const float gdfm = p.gedge2[e] * s.Adj[r];
-        const float gS = gdfm * silu(z);
-        p.gs_e[e] = gS;
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c) gwti[c] = fmaf(gS, wsr[c], gwti[c]);
-        s.W[r * 2 * H + t] = gdfm * sdot * dsilu(z);
-      }
+    const int ch = n - 2 * H, A = p.A, S = p.S, ldp = p.NP * H;
+    const EdgeRow e(r, A);
+    float2 sdot = make_float2(0.0f, 0.0f);
+    for (int c = 0; c < S; ++c) {
+      const size_t v = (size_t)e.b * S + c;
+      const float2 wt = *reinterpret_cast<const float2*>(p.proj + (v * A + e.i) * ldp + 3 * H + ch);
+      const float2 ws = *reinterpret_cast<const float2*>(p.proj + (v * A + e.j) * ldp + 4 * H + ch);
+      sdot.x = fmaf(wt.x, ws.x, sdot.x);
+      sdot.y = fmaf(wt.y, ws.y, sdot.y);
     }
+    const float a = p.adj[r];
+    const float2 ge = *reinterpret_cast<const float2*>(p.gedge2 + r * H + ch);
+    const float z0 = v0 + p.b_f[ch], z1 = v1 + p.b_f[ch + 1];
+    const float g0 = ge.x * a, g1 = ge.y * a;
+    *reinterpret_cast<float2*>(p.gS_e + r * H + ch) = make_float2(g0 * silu(z0), g1 * silu(z1));
+    *reinterpret_cast<float2*>(p.z + r * H3 + 2 * H + ch) =
+        make_float2(g0 * sdot.x * dsilu(z0), g1 * sdot.y * dsilu(z1));
   }
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c)
-    if (c < S) p.gw[((b * S + c) * A + s.i) * 2 * H + t] = gwti[c];
-  __syncthreads();
-  rows_times_cols_ld<1>(s.W, 2 * H, A, H, p.w_fT, H, col, acc);
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const size_t e = (s.bi * A + r) * H + t;
-        p.gedge[e] = acc[0][r] + p.gedge2[e];
-      }
-    }
-  }
-}
+};
 
-// v_ij = v_j * dv * silu(a) * gate with a = sum_head q_i k_j dk, into s.E
-// (the edge rows are no longer needed); a goes to s.Pre.
-__device__ __forceinline__ void recompute_vij(const Layer& p, const Centre& s,
-                                              const float (&zk)[MAXA]) {
-  const int t = threadIdx.x, w = t / 32, lane = t % 32, A = p.A, H = p.H, H3 = 3 * H;
-  const size_t b0 = (size_t)s.b * A;
-  const float qi = p.qkv[s.bi * H3 + t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float kr = p.qkv[(b0 + r) * H3 + H + t];
-        const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
-        const float a = warp_sum(qi * kr * silu(zk[r]));
-        if (lane == 0) s.Pre[r * s.NW + w] = a;
-        s.E[r * H + t] = vr * silu(s.Zv[r * H + t]) * (silu(a) * s.Gate[r]);
-      }
-    }
-  }
-}
-
-// zs = v_ij @ W_s + b_s recomputed, and the backward through
+// (d): zs = acc + b_s; s = silu(zs) * adj -> s_e; the backward through
 // vec_agg_i[c] = sum_j s1 * vecn_j[c] + s2 * d_sh_ij[c] (vislayer.py:281-292):
-//   g_s = [sum_c gvec2_i[c] vecn_j[c], sum_c gvec2_i[c] d_sh_ij[c]] * adj * silu'(zs) -> s.W
-//   s1 -> scratch s1_e (g_vecn_j = sum_i s1 * gvec2_i, in the source pass)
-//   g_d_sh_ij[c] = sum_h gvec2_i[c] * s2, per-warp partial sums -> s.RedDsh
-__device__ __forceinline__ void message_backward_s(const Layer& p, const Centre& s,
-                                                   float (&acc)[1][MAXA]) {
-  const int t = threadIdx.x, w = t / 32, lane = t % 32, A = p.A, H = p.H, S = p.S;
-  const size_t b = s.b;
-  float gva[MAXS];
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c) gva[c] = c < S ? p.gvec2[((b * S + c) * A + s.i) * H + t] : 0.0f;
-  const int col_lo[1] = {t}, col_hi[1] = {H + t};
-  rows_times_cols<1>(s.E, A, H, p.w_s, 2 * H, col_hi, acc);
-  const float b2 = p.b_s[H + t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float z2 = acc[0][r] + b2, a = s.Adj[r];
-        const float s2 = silu(z2) * a;
-        float g2 = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c) {
-          if (c < S) {
-            g2 = fmaf(gva[c], s.Dsh[c * A + r], g2);
-            const float red = warp_sum(gva[c] * s2);
-            if (lane == 0) s.RedDsh[(w * S + c) * A + r] = red;
-          }
-        }
-        s.W[r * 2 * H + H + t] = g2 * a * dsilu(z2);
-      }
-    }
+// g_s = g_e * adj * silu'(zs), in place over the sums over c that the
+// edge-row pass left in g_e.
+struct SEpi {
+  Layer p;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const float a = p.adj[r];
+    const float z0 = v0 + p.b_s[n], z1 = v1 + p.b_s[n + 1];
+    *reinterpret_cast<float2*>(p.s_e + r * 2 * p.H + n) = make_float2(silu(z0) * a, silu(z1) * a);
+    float2* g = reinterpret_cast<float2*>(p.g_e + r * 2 * p.H + n);
+    const float2 gs = *g;
+    *g = make_float2(gs.x * a * dsilu(z0), gs.y * a * dsilu(z1));
   }
-  rows_times_cols<1>(s.E, A, H, p.w_s, 2 * H, col_lo, acc);
-  const float b1 = p.b_s[t], wv = p.vln_w[t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float z1 = acc[0][r] + b1, a = s.Adj[r];
-        p.s1_e[(s.bi * A + r) * H + t] = silu(z1) * a;
-        float g1 = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c)
-          if (c < S) g1 = fmaf(gva[c], p.vec[((b * S + c) * A + r) * H + t] * wv, g1);
-        s.W[r * 2 * H + t] = g1 * a * dsilu(z1);
-      }
-    }
-  }
-}
+};
 
-// g_vij = g_s @ W_s^T + g_xagg_i, then the backward through
-// v_ij = v_j * dv * silu(a) * gate and a = sum_head q_i k_j dk
-// (vislayer.py:293-311):  g_v and g_k terms -> scratch gv_e, gk_e;  g_q_i;
-// g_dist per-warp partial sums -> s.RedCut;  g_dkv -> s.W.
-__device__ __forceinline__ void message_backward_attn(const Layer& p, const Centre& s,
-                                                      const float (&zk)[MAXA],
-                                                      float (&acc)[1][MAXA]) {
-  const int t = threadIdx.x, w = t / 32, lane = t % 32, A = p.A, H = p.H, H3 = 3 * H;
-  const size_t b0 = (size_t)s.b * A;
-  const int col[1] = {t};
-  rows_times_cols<1>(s.W, A, 2 * H, p.w_sT, H, col, acc);
-  __syncthreads();  // every thread has read s.W
-  const float gxi = p.gxagg[s.bi * H + t];
-  const float qi = p.qkv[s.bi * H3 + t];
-  float gqi = 0.0f;
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const size_t e = (s.bi * A + r) * H + t;
-        const float gvij = acc[0][r] + gxi;
-        const float zkr = zk[r], zv = s.Zv[r * H + t];
-        const float dk = silu(zkr), dv = silu(zv);
-        const float kr = p.qkv[(b0 + r) * H3 + H + t];
-        const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
-        const float a = s.Pre[r * s.NW + w], att = silu(a), gate = s.Gate[r];
-        const float g3 = att * gate;
-        p.gv_e[e] = gvij * dv * g3;
-        const float g_dv = gvij * vr * g3;
-        const float g_g3 = gvij * vr * dv;
-        const float red = warp_sum(g_g3 * att);
-        if (lane == 0) s.RedCut[w * A + r] = red;
-        const float g_a = warp_sum(g_g3 * gate) * dsilu(a);
-        gqi = fmaf(g_a * kr, dk, gqi);
-        p.gk_e[e] = g_a * qi * dk;
-        s.W[r * 2 * H + t] = g_a * qi * kr * dsilu(zkr);
-        s.W[r * 2 * H + H + t] = g_dv * dsilu(zv);
-      }
-    }
+// (e): g_vij = g_s @ W_s^T + g_xagg_i -> v_e.
+struct GvEpi {
+  Layer p;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const size_t bi = r / p.A;
+    const float2 gx = *reinterpret_cast<const float2*>(p.gxagg + bi * p.H + n);
+    *reinterpret_cast<float2*>(p.v_e + r * p.H + n) = make_float2(v0 + gx.x, v1 + gx.y);
   }
-  p.gqkv[s.bi * H3 + t] = gqi;
-}
+};
 
-// gedge = g_dkv @ W_dkv^T + (the update's part and passthrough, or gedge2
-// for the last layer); the cross-warp sums of g_dist and g_d_sh.
-template <bool LAST>
-__device__ __forceinline__ void edge_grad_out(const Layer& p, const Centre& s,
-                                              float (&acc)[1][MAXA]) {
-  const int t = threadIdx.x, A = p.A, H = p.H, S = p.S;
-  const int col[1] = {t};
-  rows_times_cols<1>(s.W, A, 2 * H, p.w_dkvT, H, col, acc);
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const size_t e = (s.bi * A + r) * H + t;
-        p.gedge[e] = acc[0][r] + (LAST ? p.gedge2[e] : p.gedge[e]);
-      }
-    }
-  }
-  for (int r = t; r < A; r += blockDim.x) {
-    float sum = 0.0f;
-    for (int w = 0; w < s.NW; ++w) sum += s.RedCut[w * A + r];
-    p.gdist[s.bi * A + r] = sum * s.Adj[r] * s.Dcut[r];
-  }
-  for (int e = t; e < S * A; e += blockDim.x) {
-    const int c = e / A, r = e % A;
-    float sum = 0.0f;
-    for (int w = 0; w < s.NW; ++w) sum += s.RedDsh[(w * S + c) * A + r];
-    p.gdsh[(((size_t)s.b * S + c) * A + s.i) * A + r] = sum;
-  }
-}
-
-template <bool LAST>
-__global__ void __launch_bounds__(256) vislayer_bwd_centre(const Layer p) {
-  extern __shared__ __align__(16) float smem[];
-  const Centre s = carve(smem, p);
-  float zk[MAXA];
-  float acc[1][MAXA];
-  centre_load(p, s);
-  __syncthreads();
-  recompute_dkv(p, s, zk, acc);
-  if (!LAST) update_backward(p, s, acc);
-  __syncthreads();  // every thread is done with the edge rows
-  recompute_vij(p, s, zk);
-  __syncthreads();
-  message_backward_s(p, s, acc);
-  __syncthreads();
-  message_backward_attn(p, s, zk, acc);
-  __syncthreads();
-  edge_grad_out<LAST>(p, s, acc);
-}
-
-// ---------------------------------------------------------------------------
-// (c) source pass: fixed-order sums over the centre atoms i
-// ---------------------------------------------------------------------------
-
-template <bool LAST>
-__global__ void __launch_bounds__(256) vislayer_bwd_source(const Layer p) {
-  const int t = threadIdx.x, j = blockIdx.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * H;
-  const size_t b = blockIdx.y, b0 = b * A;
-  float sk = 0.0f, sv = 0.0f, sc[MAXS], sw[MAXS];
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c) sc[c] = sw[c] = 0.0f;
-#pragma unroll 4
-  for (int i = 0; i < A; ++i) {
-    const size_t e = ((b0 + i) * A + j) * H + t;
-    sk += p.gk_e[e];
-    sv += p.gv_e[e];
-    const float s1 = p.s1_e[e];
-#pragma unroll
-    for (int c = 0; c < MAXS; ++c)
-      if (c < S) sc[c] = fmaf(s1, p.gvec2[((b * S + c) * A + i) * H + t], sc[c]);
-    if (!LAST) {
-      const float gS = p.gs_e[e];
-#pragma unroll
-      for (int c = 0; c < MAXS; ++c)
-        if (c < S) sw[c] = fmaf(gS, p.proj[((b * S + c) * A + i) * ldp + 3 * H + t], sw[c]);
-    }
-  }
-  p.gqkv[(b0 + j) * 3 * H + H + t] = sk;
-  p.gqkv[(b0 + j) * 3 * H + 2 * H + t] = sv;
+// (c) edge-row pass, one block per flattened edge row (b, i, j), a thread
+// per channel (all of it is row-local, so the grid is B A A blocks):
+// v_ij = v_j * dv * silu(a) * gate -> v_e, and the sums over c of g_s,
+// g_e = [sum_c gvec2_i[c] vecn_j[c] | sum_c gvec2_i[c] d_sh_ij[c]].
+__global__ void __launch_bounds__(256) vislayer_bwd_rows(const Layer p) {
+  const int t = threadIdx.x, A = p.A, H = p.H, H3 = 3 * H, S = p.S;
+  const size_t e = blockIdx.x;
+  const EdgeRow r(e, A);
+  const size_t bj = r.b0 + r.j;
+  const float gate = cosine_cutoff(p.dist[e], p.cutoff) * p.adj[e];
+  const float a = head_pre(p.qkv[r.bi * H3 + t], p.qkv[bj * H3 + H + t], silu(p.z[e * H3 + t]));
+  p.v_e[e * H + t] = p.qkv[bj * H3 + 2 * H + t] * silu(p.z[e * H3 + H + t]) * (silu(a) * gate);
+  float g1 = 0.0f, g2 = 0.0f;
 #pragma unroll
   for (int c = 0; c < MAXS; ++c) {
     if (c < S) {
-      const size_t v = (b * S + c) * A + j;
-      p.gvecn[v * H + t] = sc[c];
-      if (!LAST) p.gw[v * 2 * H + H + t] = sw[c];
+      const size_t v = ((size_t)r.b * S + c) * A;
+      const float gv = p.gvec2[(v + r.i) * H + t];
+      g1 = fmaf(gv, p.vecn[(v + r.j) * H + t], g1);
+      g2 = fmaf(gv, p.dsh[(v + r.i) * A + r.j], g2);
     }
   }
+  p.g_e[e * 2 * H + t] = g1;
+  p.g_e[e * 2 * H + H + t] = g2;
 }
 
-// ---------------------------------------------------------------------------
-// (d) projections' and LayerNorm's backward (vislayer.py:336-374)
-// ---------------------------------------------------------------------------
-
-// gx = gx2 + rstd * (g_xhat - mean(g_xhat) - xhat * mean(g_xhat * xhat)),
-// g_xhat = (g_qkv @ W_qkv^T) * ln_s
-__global__ void __launch_bounds__(256) vislayer_bwd_ln(const Layer p) {
-  extern __shared__ __align__(16) float smem[];
-  const int t = threadIdx.x, w = t / 32, lane = t % 32, NW = blockDim.x / 32, H = p.H;
-  const int K = 3 * H, M = p.B * p.A, r0 = blockIdx.x * NODE_ROWS, n = min(NODE_ROWS, M - r0);
-  float* sG = smem;                   // [NODE_ROWS][3H] g_qkv rows
-  float* sXh = sG + NODE_ROWS * K;    // [NODE_ROWS][H]  x rows, then xhat
-  float* sRstd = sXh + NODE_ROWS * H; // [NODE_ROWS]
-  float* sRed = sRstd + NODE_ROWS;    // [2][NW][NODE_ROWS]
-  for (int e = t; e < n * K; e += blockDim.x) sG[e] = p.gqkv[(size_t)r0 * K + e];
-  for (int e = t; e < n * H; e += blockDim.x) sXh[e] = p.x[(size_t)r0 * H + e];
-  __syncthreads();
-  normalize_rows(sXh, n, H, sRstd);
-  __syncthreads();
-  const int col[1] = {t};
-  float acc[1][NODE_ROWS];
-  rows_times_cols<1, NODE_ROWS>(sG, n, K, p.w_qkvT, H, col, acc);
-  const float lns = p.ln_s[t];
+// (c) below the last layer: g_wt_i[c] = sum_j g_Sij * ws_j[c] -> xv[:, 3H:4H],
+// one block per (fragment, centre atom i), fixed order over j.
+__global__ void __launch_bounds__(256) vislayer_bwd_gwt(const Layer p) {
+  const int t = threadIdx.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * H;
+  const size_t b = blockIdx.y, i = blockIdx.x, bi = b * A + i;
+  float acc[MAXS];
 #pragma unroll
-  for (int r = 0; r < NODE_ROWS; ++r) {
-    if (r < n) {
-      const float gxh = acc[0][r] * lns;
-      acc[0][r] = gxh;
-      const float m1 = warp_sum(gxh), m2 = warp_sum(gxh * sXh[r * H + t]);
-      if (lane == 0) {
-        sRed[w * NODE_ROWS + r] = m1;
-        sRed[(NW + w) * NODE_ROWS + r] = m2;
+  for (int c = 0; c < MAXS; ++c) acc[c] = 0.0f;
+#pragma unroll 4
+  for (int r = 0; r < A; ++r) {
+    const float gS = p.gS_e[(bi * A + r) * H + t];
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c)
+      if (c < S) acc[c] = fmaf(gS, p.proj[((b * S + c) * A + r) * ldp + 4 * H + t], acc[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < MAXS; ++c)
+    if (c < S) p.xv[((b * S + c) * A + i) * ldp + 3 * H + t] = acc[c];
+}
+
+// (f): the backward through v_ij = v_j * dv * silu(a) * gate and
+// a = sum_head q_i k_j dk (vislayer.py:293-311), from g_vij (v_e):
+// g_k and g_v terms -> g_e; g_q_i -> gqkv; g_dist; g_dkv -> z[:, :2H];
+// and g_d_sh_ij[c] = sum_h gvec2_i[c] * s2 (vislayer.py:288).
+__global__ void __launch_bounds__(256) vislayer_bwd_centre(const Layer p) {
+  __shared__ float sAdj[MAXA], sGate[MAXA], sDcut[MAXA];
+  __shared__ float sRedCut[8 * MAXA], sRedDsh[8 * MAXS * MAXA];
+  const int t = threadIdx.x, w = t / 32, lane = t % 32, NW = blockDim.x / 32;
+  const int A = p.A, H = p.H, H3 = 3 * H, S = p.S;
+  const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b0 = bi - blockIdx.x, b = blockIdx.y, i = blockIdx.x;
+  const float kpi = 3.14159265358979323846f / p.cutoff;
+  for (int r = t; r < A; r += blockDim.x) {
+    const float a = p.adj[bi * A + r], d = p.dist[bi * A + r];
+    sAdj[r] = a;
+    sGate[r] = cosine_cutoff(d, p.cutoff) * a;
+    sDcut[r] = d < p.cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+  }
+  __syncthreads();
+  float gva[MAXS];
+#pragma unroll
+  for (int c = 0; c < MAXS; ++c) gva[c] = c < S ? p.gvec2[((b * S + c) * A + i) * H + t] : 0.0f;
+  const float qi = p.qkv[bi * H3 + t];
+  float gqi = 0.0f;
+  for (int c8 = 0; c8 < A; c8 += RCHUNK) {
+#pragma unroll
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = c8 + rr;
+      const size_t e = bi * A + r;
+      const float gvij = p.v_e[e * H + t];
+      const float zk = p.z[e * H3 + t], zv = p.z[e * H3 + H + t];
+      const float dk = silu(zk), dv = silu(zv);
+      const float kr = p.qkv[(b0 + r) * H3 + H + t];
+      const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
+      const float a = head_pre(qi, kr, dk), att = silu(a), gate = sGate[r];
+      const float g3 = att * gate;
+      const float g_dv = gvij * vr * g3;
+      const float g_g3 = gvij * vr * dv;
+      const float red = warp_sum(g_g3 * att);
+      if (lane == 0) sRedCut[w * A + r] = red;
+      const float g_a = warp_sum(g_g3 * gate) * dsilu(a);
+      gqi = fmaf(g_a * kr, dk, gqi);
+      p.g_e[e * 2 * H + t] = g_a * qi * dk;
+      p.g_e[e * 2 * H + H + t] = gvij * dv * g3;
+      p.z[e * H3 + t] = g_a * qi * kr * dsilu(zk);
+      p.z[e * H3 + H + t] = g_dv * dsilu(zv);
+      const float s2 = p.s_e[e * 2 * H + H + t];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          const float rd = warp_sum(gva[c] * s2);
+          if (lane == 0) sRedDsh[(w * S + c) * A + r] = rd;
+        }
       }
     }
   }
+  p.gqkv[bi * H3 + t] = gqi;
   __syncthreads();
+  for (int r = t; r < A; r += blockDim.x) {
+    float sum = 0.0f;
+    for (int ww = 0; ww < NW; ++ww) sum += sRedCut[ww * A + r];
+    p.gdist[bi * A + r] = sum * sAdj[r] * sDcut[r];
+  }
+  for (int e = t; e < S * A; e += blockDim.x) {
+    const int c = e / A, r = e % A;
+    float sum = 0.0f;
+    for (int ww = 0; ww < NW; ++ww) sum += sRedDsh[(ww * S + c) * A + r];
+    p.gdsh[((b * S + c) * A + i) * A + r] = sum;
+  }
+}
+
+// (h) source pass: fixed-order sums over the centre atoms i, four kinds of
+// block (blockIdx.z; 2 and 3 only below the last layer), each with half of
+// the S sums, so that each thread's chain stays short and the grid fills
+// the card:  0: g_k, g_v and g_vecn[c < S/2];  1: g_vecn[c >= S/2];
+// 2, 3: g_wsrc likewise (-> xv[:, 4H:]).  g_vecn_j[c] = sum_i s1 * gvec2_i[c],
+// g_wsrc_j[c] = sum_i g_Sij * wt_i[c].
+__global__ void __launch_bounds__(256) vislayer_bwd_source(const Layer p) {
+  constexpr int HS = MAXS / 2;
+  const int t = threadIdx.x, j = blockIdx.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * H;
+  const int part = blockIdx.z, half = (S + 1) / 2;
+  const int c0 = part & 1 ? half : 0, nc = part & 1 ? S - half : half;
+  const bool wsrc = part >= 2;
+  const size_t b = blockIdx.y, b0 = b * A;
+  float sk = 0.0f, sv = 0.0f, sc[HS];
 #pragma unroll
-  for (int r = 0; r < NODE_ROWS; ++r) {
-    if (r < n) {
-      float m1 = 0.0f, m2 = 0.0f;
-      for (int ww = 0; ww < NW; ++ww) {
-        m1 += sRed[ww * NODE_ROWS + r];
-        m2 += sRed[(NW + ww) * NODE_ROWS + r];
+  for (int c = 0; c < HS; ++c) sc[c] = 0.0f;
+#pragma unroll 4
+  for (int i = 0; i < A; ++i) {
+    const size_t e = (b0 + i) * A + j;
+    if (part == 0) {
+      sk += p.g_e[e * 2 * H + t];
+      sv += p.g_e[e * 2 * H + H + t];
+    }
+    const float f = wsrc ? p.gS_e[e * H + t] : p.s_e[e * 2 * H + t];
+#pragma unroll
+    for (int cc = 0; cc < HS; ++cc) {
+      if (cc < nc) {
+        const size_t v = (b * S + c0 + cc) * A + i;
+        sc[cc] = fmaf(f, wsrc ? p.proj[v * ldp + 3 * H + t] : p.gvec2[v * H + t], sc[cc]);
       }
-      m1 /= H;
-      m2 /= H;
-      const size_t x = (size_t)(r0 + r) * H + t;
-      p.gx[x] = p.gx2[x] + sRstd[r] * (acc[0][r] - m1 - sXh[r * H + t] * m2);
     }
   }
-}
-
-// gvec = gvec2 + (g_vecn + [g_vdot*vec2 | g_vdot*vec1 | gvec2*o1 | g_wt | g_wsrc]
-//                          @ [W_vp | W_t | W_src]^T) * w_vln,  g_vdot = gx2 * o2
-__global__ void __launch_bounds__(256) vislayer_bwd_gvec(const Layer p) {
-  extern __shared__ __align__(16) float smem[];
-  const int t = threadIdx.x, H = p.H, A = p.A, S = p.S, K = p.NP * H;
-  float* sX = smem;  // [NODE_ROWS][NP*H]
-  const int M = p.B * S * A, r0 = blockIdx.x * NODE_ROWS, n = min(NODE_ROWS, M - r0);
-  for (int e = t; e < n * H; e += blockDim.x) {
-    const int r = e / H, k = e % H, row = r0 + r;
-    const size_t ba = (size_t)(row / (S * A)) * A + row % A;
-    const float* pr = p.proj + (size_t)row * K;
-    const float gvd = p.gx2[ba * H + k] * p.o[ba * 3 * H + H + k];
-    float* x = sX + r * K;
-    x[k] = gvd * pr[H + k];
-    x[H + k] = gvd * pr[k];
-    x[2 * H + k] = p.gvec2[(size_t)row * H + k] * p.o[ba * 3 * H + k];
-    if (p.NP == 5) {
-      x[3 * H + k] = p.gw[(size_t)row * 2 * H + k];
-      x[4 * H + k] = p.gw[(size_t)row * 2 * H + H + k];
-    }
+  if (part == 0) {
+    p.gqkv[(b0 + j) * 3 * H + H + t] = sk;
+    p.gqkv[(b0 + j) * 3 * H + 2 * H + t] = sv;
   }
-  __syncthreads();
-  const int col[1] = {t};
-  float acc[1][NODE_ROWS];
-  rows_times_cols<1, NODE_ROWS>(sX, n, K, p.w_catT, H, col, acc);
-  const float wv = p.vln_w[t];
 #pragma unroll
-  for (int r = 0; r < NODE_ROWS; ++r) {
-    if (r < n) {
-      const size_t v = (size_t)(r0 + r) * H + t;
-      p.gvec[v] = p.gvec2[v] + (p.gvecn[v] + acc[0][r]) * wv;
+  for (int cc = 0; cc < HS; ++cc) {
+    if (cc < nc) {
+      const size_t v = (b * S + c0 + cc) * A + j;
+      if (wsrc)
+        p.xv[v * ldp + 4 * H + t] = sc[cc];
+      else
+        p.gvecn[v * H + t] = sc[cc];
     }
   }
 }
 
-template <bool LAST>
+// (i) the LayerNorm's backward (vislayer.py:336-350), one warp a node row:
+// gx = gx2 + rstd * (g_xhat - mean(g_xhat) - xhat * mean(g_xhat * xhat)).
+__global__ void __launch_bounds__(256) vislayer_bwd_ln_rows(const Layer p) {
+  const int H = p.H, lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= (size_t)p.B * p.A) return;
+  const float* x = p.x + row * H;
+  const float* gxh = p.gxh + row * H;
+  float mu, rs;
+  row_stats(x, H, mu, rs);
+  float m1 = 0.0f, m2 = 0.0f;
+  for (int k = lane; k < H; k += 32) {
+    m1 += gxh[k];
+    m2 = fmaf(gxh[k], (x[k] - mu) * rs, m2);
+  }
+  m1 = warp_sum(m1) / H;
+  m2 = warp_sum(m2) / H;
+  for (int k = lane; k < H; k += 32)
+    p.gx[row * H + k] = p.gx2[row * H + k] + rs * (gxh[k] - m1 - (x[k] - mu) * rs * m2);
+}
+
+// (i): gvec = gvec2 + (g_vecn + xv @ [W_vp | W_t | W_src]^T) * w_vln.
+struct GvecEpi {
+  Layer p;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const size_t o = r * p.H + n;
+    const float2 g2 = *reinterpret_cast<const float2*>(p.gvec2 + o);
+    const float2 gn = *reinterpret_cast<const float2*>(p.gvecn + o);
+    *reinterpret_cast<float2*>(p.gvec + o) =
+        make_float2(g2.x + (gn.x + v0) * p.vln_w[n], g2.y + (gn.y + v1) * p.vln_w[n + 1]);
+  }
+};
+
 cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
-  const int H = p.H, M = p.B * p.A, Mv = p.B * p.S * p.A, NW = H / 32;
-  const size_t node_smem = (size_t)NODE_ROWS * H * sizeof(float);
+  const int H = p.H, H3 = 3 * H;
+  const bool last = p.NP == 3;
+  const size_t M = (size_t)p.B * p.A, Mv = M * p.S, E = M * p.A;
+  const dim3 centres(p.A, p.B);
   cudaError_t err = launch_node_prologue(p, stream);
   if (err != cudaSuccess) return err;
-  node_proj<false><<<dim3(node_tiles(M), 3), H, node_smem, stream>>>(
-      p.xagg_in, nullptr, nullptr, p.w_o, p.b_o, p.o, M, H, 3 * H);
+  // (a) o1|o2 (o3 is not needed), the node rows, g_xagg
+  err = launch_row_tile<NODE_TM, false>(p.xagg_in, H, M, H, 2 * H, wseg(p.w_o, H3),
+                                        BiasStore{p.o, H3, p.b_o}, stream);
+  if (err != cudaSuccess) return err;
+  vislayer_bwd_node_rows<<<(unsigned)M, H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t gxagg_smem = (size_t)NODE_ROWS * 3 * H * sizeof(float);
-  if ((err = allow_smem(vislayer_bwd_gxagg, gxagg_smem)) != cudaSuccess) return err;
-  vislayer_bwd_gxagg<<<node_tiles(M), H, gxagg_smem, stream>>>(p);
+  err = launch_row_tile<NODE_TM, true>(p.xo, H3, M, H3, H, wseg(p.w_o, H3),
+                                       Store{p.gxagg, H, nullptr, nullptr}, stream);
+  if (err != cudaSuccess) return err;
+  // (b)-(g) the edge stage
+  err = launch_row_tile<EDGE_TM, false>(p.edge, H, E, H, last ? 2 * H : H3,
+                                        wseg(p.w_dkv, 2 * H, 2 * H, p.w_f, H), EdgeEpi{p},
+                                        stream);
+  if (err != cudaSuccess) return err;
+  vislayer_bwd_rows<<<(unsigned)E, H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t centre_smem = centre_smem_bytes(p.A, H, p.S);
-  if ((err = allow_smem(vislayer_bwd_centre<LAST>, centre_smem)) != cudaSuccess) return err;
-  vislayer_bwd_centre<LAST><<<dim3(p.A, p.B), H, centre_smem, stream>>>(p);
+  if (!last) {
+    vislayer_bwd_gwt<<<centres, H, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  err = launch_row_tile<EDGE_TM, false>(p.v_e, H, E, H, 2 * H, wseg(p.w_s, 2 * H), SEpi{p},
+                                        stream);
+  if (err != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, true>(p.g_e, 2 * H, E, 2 * H, H, wseg(p.w_s, 2 * H), GvEpi{p},
+                                       stream);
+  if (err != cudaSuccess) return err;
+  vislayer_bwd_centre<<<centres, H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  vislayer_bwd_source<LAST><<<dim3(p.A, p.B), H, 0, stream>>>(p);
+  err = launch_row_tile<EDGE_TM, true>(p.z, H3, E, last ? 2 * H : H3, H,
+                                       wseg(p.w_dkv, 2 * H, 2 * H, p.w_f, H),
+                                       Store{p.gedge, H, p.gedge2, nullptr}, stream);
+  if (err != cudaSuccess) return err;
+  // (h), (i)
+  vislayer_bwd_source<<<dim3(p.A, p.B, last ? 2 : 4), H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t ln_smem = ((size_t)NODE_ROWS * 4 * H + NODE_ROWS + 2 * NW * NODE_ROWS) * sizeof(float);
-  if ((err = allow_smem(vislayer_bwd_ln, ln_smem)) != cudaSuccess) return err;
-  vislayer_bwd_ln<<<node_tiles(M), H, ln_smem, stream>>>(p);
+  err = launch_row_tile<NODE_TM, true>(p.gqkv, H3, M, H3, H, wseg(p.w_qkv, H3),
+                                       Store{p.gxh, H, nullptr, p.ln_s}, stream);
+  if (err != cudaSuccess) return err;
+  vislayer_bwd_ln_rows<<<(unsigned)((M + 7) / 8), 256, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const size_t gvec_smem = (size_t)NODE_ROWS * p.NP * H * sizeof(float);
-  if ((err = allow_smem(vislayer_bwd_gvec, gvec_smem)) != cudaSuccess) return err;
-  vislayer_bwd_gvec<<<node_tiles(Mv), H, gvec_smem, stream>>>(p);
-  return cudaGetLastError();
+  return launch_row_tile<VEC_TM, true>(
+      p.xv, p.NP * H, Mv, p.NP * H, H, wseg(p.w_vp, H3, H3, p.w_t, H, 4 * H, p.w_src, H),
+      GvecEpi{p}, stream);
 }
 
 }  // namespace
 
 // ptrs: the LAYER_PTRS pointers of Layer in field order (ops/vislayer.py,
-// PTR_FIELDS).  The backward reads x..b_f, w_qkvT..w_fT, xagg_in and the
-// cotangents, uses every scratch pointer but vecagg (gs_e and gw only below
-// the last layer), and writes gx, gvec, gedge, gdsh and gdist.
+// PTR_FIELDS).  The backward reads x..b_f, xagg_in and the cotangents;
+// uses the scratch xn, vecn, qkv, proj, o, z ([E][3H]), v_e ([E][H]), s_e
+// and g_e ([E][2H]), gS_e ([E][H], below the last layer), xo, xv, gxagg,
+// gqkv, gvecn and gxh; and writes gx, gvec, gedge, gdsh and gdist.
 extern "C" int vislayer_bwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
                                    int S, float cutoff, int last, cudaStream_t stream) {
   static_assert(offsetof(Layer, B) == LAYER_PTRS * sizeof(void*), "Layer: pointers first");
   if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S)) return (int)cudaErrorInvalidValue;
-  if (centre_smem_bytes(A, H, S) > 232448) return (int)cudaErrorInvalidValue;
   Layer p;
   std::memcpy(&p, ptrs, LAYER_PTRS * sizeof(void*));
   p.B = B, p.A = A, p.H = H, p.S = S, p.NP = last ? 3 : 5, p.cutoff = cutoff;
-  return (int)(last ? launch_bwd<true>(p, stream) : launch_bwd<false>(p, stream));
+  return (int)launch_bwd(p, stream);
+}
+
+// shared memory, blocks per SM, registers and spill bytes of one stage:
+// 0 g_xagg and g_xhat (node rows, X @ W^T), 1 edge @ [W_dkv | W_f],
+// 2 edge-row pass, 3 v_e @ W_s, 4 g_e @ W_s^T, 5 centre pass,
+// 6 [g_dkv | g_zf] @ [W_dkv ; W_f]^T, 7 source pass, 8 gvec (vector rows),
+// 9 g_wt
+extern "C" int vislayer_bwd_occupancy(int A, int H, int S, int stage, int* out) {
+  (void)A, (void)S;
+  switch (stage) {
+    case 0: return occupancy(row_tile<NODE_TM, true, Store>, 256, tile_smem<NODE_TM>(), out);
+    case 1: return occupancy(row_tile<EDGE_TM, false, EdgeEpi>, 256, tile_smem<EDGE_TM>(), out);
+    case 2: return occupancy(vislayer_bwd_rows, H, 0, out);
+    case 3: return occupancy(row_tile<EDGE_TM, false, SEpi>, 256, tile_smem<EDGE_TM>(), out);
+    case 4: return occupancy(row_tile<EDGE_TM, true, GvEpi>, 256, tile_smem<EDGE_TM>(), out);
+    case 5: return occupancy(vislayer_bwd_centre, H, 0, out);
+    case 6: return occupancy(row_tile<EDGE_TM, true, Store>, 256, tile_smem<EDGE_TM>(), out);
+    case 7: return occupancy(vislayer_bwd_source, H, 0, out);
+    case 8: return occupancy(row_tile<VEC_TM, true, GvecEpi>, 256, tile_smem<VEC_TM>(), out);
+    case 9: return occupancy(vislayer_bwd_gwt, H, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

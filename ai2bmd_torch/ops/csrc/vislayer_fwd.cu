@@ -10,25 +10,33 @@
 //   x' = x + vdot * o2 + o3;  vec' = vec + vec3 * o1 + vec_agg;  edge' = edge + df
 // (edge' = edge for the last layer, whose zero W_t/W_f are not multiplied).
 //
-// What bounds it on the H100: float32 arithmetic on the CUDA cores.  The
-// edge stage does 5 H^2 multiply-adds per edge cell (edge @ W_dkv, v_ij @
-// W_s, edge @ W_f), the node stages 46 H^2 per atom; the traffic is a few KB
-// per cell.
-// Design: the TPU kernel ran a sequential grid over 8-row centre tiles and
-// kept the node prologue's results in VMEM scratch across it.  GPU blocks
-// run in no order, so the launcher issues the stages in order on the stream
-// and the node results go through small scratch tensors ([B*A][3H] and
-// [B*S*A][5H], a few MB, L2-resident):
-//   (a) node prologue, one block per 16 node rows and column group
-//       (vislayer.cuh): qkv, and vec1|vec2|vec3|wt|wsrc;
-//   (b) edge stage, one block per (fragment, centre atom i), one thread per
-//       channel: K1's edge core with nothing stored, plus edge' written from
-//       the edge rows already in shared memory;
-//   (c) node update, one block per 16 atoms, three output columns per thread
-//       (o1, o2, o3 of one channel), so the residual adds need no exchange.
-// All products are plain float32 FMAs summed in a fixed order: the kernel
-// is bitwise repeatable.  The TPU's b3 bf16 split, _rowbc, its VMEM budget
-// and its 8-row centre tile were Mosaic workarounds and are not carried over.
+// What bounds it on the H100: the products, 5 H^2 multiply-adds per edge
+// cell (edge @ W_dkv, v_ij @ W_s, edge @ W_f) and 46 H^2 per atom on the
+// node side, on the tensor cores as 3xTF32 (165 TFLOP/s in float32
+// products); the bytes (edge in, edge' out, ~2 H floats per cell) take
+// about half the products' time at H = 256.
+// Design: every product is a row_tile (common.cuh) over rows with no
+// coupling between them, with its row-local work in the epilogue; what
+// couples rows (head sums, sums over j) runs in per-centre passes between
+// the products, one block per (fragment, centre atom i), a thread per
+// channel.  Stages, in stream order, and the [E, .] rows each moves (E =
+// B A A edge rows, in floats per row):
+//   (a) node prologue (vislayer.cuh): xn, vecn; qkv; proj.
+//   (b) edge @ [W_dkv | W_f] (N = 3H, or 2H for the last layer): the
+//       epilogue writes z = silu(zdkv + b) and edge' = edge + silu(zf +
+//       b_f) * <wt_i, ws_j> * adj (reads H, writes 3H, reads edge again
+//       in the epilogue, H);
+//   (c) centre pass 1: a_ij, v_ij -> v_e, x_agg (reads 2H, writes H);
+//   (d) v_e @ W_s: the epilogue writes s = silu(zs + b_s) * adj (reads H,
+//       writes 2H);
+//   (e) o = x_agg @ W_o + b_o;
+//   (f) centre pass 2: vec_agg_i = sum_j s1 vecn_j + s2 d_sh_ij, then
+//       vec' and x' (reads 2H).
+// About 13 H floats move per edge cell, all in L2-sized pieces (z is
+// 13 MB at B = 4, A = 40).  For the last layer edge' = edge is a device
+// copy.  Every sum runs in a fixed order: the kernel is bitwise
+// repeatable.  The TPU's b3 bf16 split, _rowbc, its VMEM budget and its
+// 8-row centre tile were Mosaic workarounds and are not carried over.
 
 #include <cstddef>
 #include <cstring>
@@ -39,206 +47,145 @@ using namespace ai2bmd;
 
 namespace {
 
-template <bool LAST>
-__global__ void __launch_bounds__(256) vislayer_fwd_edge(const Layer p) {
-  extern __shared__ __align__(16) float smem[];
-  const int A = p.A, H = p.H, S = p.S;
-  float* sE = smem;              // [A][H]  edge rows of centre i
-  float* sV = sE + A * H;        // [A][H]  dv, then v_ij
-  float* sDsh = sV + A * H;      // [S][A]  d_sh[c][i][:]
-  float* sGate = sDsh + S * A;   // [A]     cutoff(r) * adj
-  float* sAdj = sGate + A;       // [A]
-
-  const int t = threadIdx.x, i = blockIdx.x, b = blockIdx.y;
-  const int H2 = 2 * H, H3 = 3 * H, ldp = p.NP * H;
-  const size_t bi = (size_t)b * A + i;
-  const size_t b0 = (size_t)b * A;
-
-  const float4* E4 = reinterpret_cast<const float4*>(p.edge + bi * A * H);
-  for (int e = t; e < A * H / 4; e += blockDim.x) reinterpret_cast<float4*>(sE)[e] = E4[e];
-  for (int e = t; e < S * A; e += blockDim.x) {
-    const int c = e / A, r = e % A;
-    sDsh[e] = p.dsh[(((size_t)b * S + c) * A + i) * A + r];
+// (b): n < 2H: z[r][n] = silu(acc + b_dkv[n]); n >= 2H: edge'.
+struct EdgeEpi {
+  Layer p;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const int H = p.H;
+    if (n < 2 * H) {
+      *reinterpret_cast<float2*>(p.z + r * 2 * H + n) =
+          make_float2(silu(v0 + p.b_dkv[n]), silu(v1 + p.b_dkv[n + 1]));
+      return;
+    }
+    const int ch = n - 2 * H, A = p.A, S = p.S, ldp = p.NP * H;
+    const EdgeRow e(r, A);
+    float2 sdot = make_float2(0.0f, 0.0f);
+    for (int c = 0; c < S; ++c) {
+      const size_t v = (size_t)e.b * S + c;
+      const float2 wt = *reinterpret_cast<const float2*>(p.proj + (v * A + e.i) * ldp + 3 * H + ch);
+      const float2 ws = *reinterpret_cast<const float2*>(p.proj + (v * A + e.j) * ldp + 4 * H + ch);
+      sdot.x = fmaf(wt.x, ws.x, sdot.x);
+      sdot.y = fmaf(wt.y, ws.y, sdot.y);
+    }
+    const float a = p.adj[r];
+    const float2 ed = *reinterpret_cast<const float2*>(p.edge + r * H + ch);
+    *reinterpret_cast<float2*>(p.edge2 + r * H + ch) =
+        make_float2(ed.x + silu(v0 + p.b_f[ch]) * sdot.x * a,
+                    ed.y + silu(v1 + p.b_f[ch + 1]) * sdot.y * a);
   }
-  for (int r = t; r < A; r += blockDim.x) {
-    const float a = p.adj[bi * A + r];
-    sAdj[r] = a;
-    sGate[r] = cosine_cutoff(p.dist[bi * A + r], p.cutoff) * a;
+};
+
+// (d): s[r][n] = silu(acc + b_s[n]) * adj[r].
+struct SEpi {
+  Layer p;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const float a = p.adj[r];
+    *reinterpret_cast<float2*>(p.s_e + r * 2 * p.H + n) =
+        make_float2(silu(v0 + p.b_s[n]) * a, silu(v1 + p.b_s[n + 1]) * a);
   }
+};
+
+// (c): v_ij = v_j * dv * silu(a) * gate -> v_e;  x_agg_i = sum_j v_ij.
+__global__ void __launch_bounds__(256) vislayer_fwd_centre1(const Layer p) {
+  __shared__ float sGate[MAXA];
+  const int t = threadIdx.x, A = p.A, H = p.H, H3 = 3 * H;
+  const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b0 = bi - blockIdx.x;
+  load_gate(p.dist, p.adj, p.A, p.cutoff, bi, sGate);
   __syncthreads();
-
-  float acc[1][MAXA];
-  const int col_lo[1] = {t}, col_hi[1] = {H + t};
-
-  // dv = silu(edge @ W_dkv[:, H:] + b) waits in sV; dk stays in acc
-  rows_times_cols<1>(sE, A, H, p.w_dkv, H2, col_hi, acc);
-  const float bk = p.b_dkv[t], bv = p.b_dkv[H + t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        sV[r * H + t] = silu(acc[0][r] + bv);
-      }
-    }
-  }
-  rows_times_cols<1>(sE, A, H, p.w_dkv, H2, col_lo, acc);
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        acc[0][r] = silu(acc[0][r] + bk);
-      }
-    }
-  }
-
-  // attention message; the head of channel t is the warp of thread t
   const float qi = p.qkv[bi * H3 + t];
   float xsum = 0.0f;
+  for (int c8 = 0; c8 < A; c8 += RCHUNK) {
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float kr = p.qkv[(b0 + r) * H3 + H + t];
-        const float vr = p.qkv[(b0 + r) * H3 + H2 + t];
-        const float a = warp_sum(qi * kr * acc[0][r]);
-        const float vij = vr * sV[r * H + t] * (silu(a) * sGate[r]);
-        sV[r * H + t] = vij;
-        xsum += vij;
-      }
+    for (int rr = 0; rr < RCHUNK; ++rr) {
+      const int r = c8 + rr;
+      const size_t e = bi * A + r;
+      const float kr = p.qkv[(b0 + r) * H3 + H + t];
+      const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
+      const float a = head_pre(qi, kr, p.z[e * 2 * H + t]);
+      const float vij = vr * p.z[e * 2 * H + H + t] * (silu(a) * sGate[r]);
+      p.v_e[e * H + t] = vij;
+      xsum += vij;
     }
   }
   p.xagg[bi * H + t] = xsum;
-  __syncthreads();
+}
 
-  // s1|s2 = silu(v_ij @ W_s + b_s) * adj, one half at a time:
-  // vec_agg[c] = sum_j s1 * vecn_j[c] + sum_j s2 * d_sh_ij[c]
+// (f): vec_agg_i[c] = sum_j s1 * vecn_j[c] + sum_j s2 * d_sh_ij[c], then
+// x' = x + vdot * o2 + o3 and vec' = vec + vec3 * o1 + vec_agg.
+__global__ void __launch_bounds__(256) vislayer_fwd_centre2(const Layer p) {
+  __shared__ float sDsh[MAXS * MAXA];
+  const int t = threadIdx.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * H;
+  const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b = blockIdx.y, i = blockIdx.x;
+  for (int e = t; e < S * A; e += blockDim.x) {
+    const int c = e / A, r = e % A;
+    sDsh[e] = p.dsh[((b * S + c) * A + i) * A + r];
+  }
+  __syncthreads();
   float from_vec[MAXS], from_dsh[MAXS];
 #pragma unroll
   for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
-  rows_times_cols<1>(sV, A, H, p.w_s, H2, col_hi, acc);
-  const float b1 = p.b_s[t], b2 = p.b_s[H + t];
+  // a runtime loop over the rows, unrolled by 4 (8 held 177 registers, one
+  // block an SM)
+#pragma unroll 4
+  for (int r = 0; r < A; ++r) {
+    const size_t e = bi * A + r;
+    const float s1 = p.s_e[e * 2 * H + t], s2 = p.s_e[e * 2 * H + H + t];
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float s2 = silu(acc[0][r] + b2) * sAdj[r];
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c)
-          if (c < S) from_dsh[c] = fmaf(s2, sDsh[c * A + r], from_dsh[c]);
+    for (int c = 0; c < MAXS; ++c) {
+      if (c < S) {
+        from_vec[c] = fmaf(s1, p.vecn[((b * S + c) * A + r) * H + t], from_vec[c]);
+        from_dsh[c] = fmaf(s2, sDsh[c * A + r], from_dsh[c]);
       }
     }
   }
-  rows_times_cols<1>(sV, A, H, p.w_s, H2, col_lo, acc);
-  const float wv = p.vln_w[t];
+  const float o1 = p.o[bi * 3 * H + t], o2 = p.o[bi * 3 * H + H + t],
+              o3 = p.o[bi * 3 * H + 2 * H + t];
+  float vdot = 0.0f;
 #pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const float s1 = silu(acc[0][r] + b1) * sAdj[r];
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c)
-          if (c < S)
-            from_vec[c] = fmaf(s1, p.vec[(((size_t)b * S + c) * A + r) * H + t] * wv, from_vec[c]);
-      }
+  for (int c = 0; c < MAXS; ++c) {
+    if (c < S) {
+      const size_t v = (b * S + c) * A + i;
+      const float* pr = p.proj + v * ldp;
+      vdot = fmaf(pr[t], pr[H + t], vdot);
+      p.vec2[v * H + t] = p.vec[v * H + t] + pr[2 * H + t] * o1 + (from_vec[c] + from_dsh[c]);
     }
   }
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c)
-    if (c < S) p.vecagg[(((size_t)b * S + c) * A + i) * H + t] = from_vec[c] + from_dsh[c];
-
-  float* out = p.edge2 + bi * A * H;
-  if (LAST) {
-    // edge' = edge
-    for (int e = t; e < A * H / 4; e += blockDim.x)
-      reinterpret_cast<float4*>(out)[e] = reinterpret_cast<const float4*>(sE)[e];
-    return;
-  }
-  // edge' = edge + silu(edge @ W_f + b_f) * <wt_i, ws_j>_c * adj
-  float wti[MAXS];
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c)
-    wti[c] = c < S ? p.proj[(((size_t)b * S + c) * A + i) * ldp + 3 * H + t] : 0.0f;
-  rows_times_cols<1>(sE, A, H, p.w_f, H, col_lo, acc);
-  const float bft = p.b_f[t];
-#pragma unroll
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        float sdot = 0.0f;
-#pragma unroll
-        for (int c = 0; c < MAXS; ++c)
-          if (c < S)
-            sdot = fmaf(wti[c], p.proj[(((size_t)b * S + c) * A + r) * ldp + 4 * H + t], sdot);
-        out[r * H + t] = sE[r * H + t] + silu(acc[0][r] + bft) * sdot * sAdj[r];
-      }
-    }
-  }
+  p.x2[bi * H + t] = p.x[bi * H + t] + vdot * o2 + o3;
 }
 
-// x' = x + vdot * o2 + o3;  vec' = vec + vec3 * o1 + vec_agg, with
-// o1|o2|o3 = x_agg @ W_o + b_o; thread t owns channel t of o1, o2 and o3.
-__global__ void __launch_bounds__(256) vislayer_fwd_update(const Layer p) {
-  extern __shared__ __align__(16) float smem[];
-  float* sX = smem;  // [NODE_ROWS][H] x_agg rows
-  const int t = threadIdx.x, H = p.H, A = p.A, S = p.S, ldp = p.NP * H;
-  const int M = p.B * A;
-  const int r0 = blockIdx.x * NODE_ROWS, n = min(NODE_ROWS, M - r0);
-  for (int e = t; e < n * H; e += blockDim.x) sX[e] = p.xagg[(size_t)r0 * H + e];
-  __syncthreads();
-  const int col[3] = {t, H + t, 2 * H + t};
-  float acc[3][NODE_ROWS];
-  rows_times_cols<3, NODE_ROWS>(sX, n, H, p.w_o, 3 * H, col, acc);
-  const float bo1 = p.b_o[t], bo2 = p.b_o[H + t], bo3 = p.b_o[2 * H + t];
-#pragma unroll
-  for (int r = 0; r < NODE_ROWS; ++r) {
-    if (r < n) {
-      const int row = r0 + r, b = row / A, a = row % A;
-      const float o1 = acc[0][r] + bo1, o2 = acc[1][r] + bo2, o3 = acc[2][r] + bo3;
-      float vdot = 0.0f;
-      for (int c = 0; c < S; ++c) {
-        const float* pr = p.proj + (((size_t)b * S + c) * A + a) * ldp;
-        vdot = fmaf(pr[t], pr[H + t], vdot);
-      }
-      p.x2[(size_t)row * H + t] = p.x[(size_t)row * H + t] + vdot * o2 + o3;
-      for (int c = 0; c < S; ++c) {
-        const size_t v = ((size_t)b * S + c) * A + a;
-        p.vec2[v * H + t] = p.vec[v * H + t] + p.proj[v * ldp + 2 * H + t] * o1 + p.vecagg[v * H + t];
-      }
-    }
-  }
-}
-
-template <bool LAST>
 cudaError_t launch_fwd(const Layer& p, cudaStream_t stream) {
+  const int H = p.H;
+  const bool last = p.NP == 3;
+  const size_t M = (size_t)p.B * p.A, E = M * p.A;
+  const dim3 centres(p.A, p.B);
   cudaError_t err = launch_node_prologue(p, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(2 * p.A * p.H + p.S * p.A + 2 * p.A) * sizeof(float);
-  err = allow_smem(vislayer_fwd_edge<LAST>, smem);
+  if (last) {
+    err = cudaMemcpyAsync(p.edge2, p.edge, E * H * sizeof(float), cudaMemcpyDeviceToDevice,
+                          stream);
+    if (err != cudaSuccess) return err;
+  }
+  err = launch_row_tile<EDGE_TM, false>(p.edge, H, E, H, last ? 2 * H : 3 * H,
+                                        wseg(p.w_dkv, 2 * H, 2 * H, p.w_f, H), EdgeEpi{p},
+                                        stream);
   if (err != cudaSuccess) return err;
-  vislayer_fwd_edge<LAST><<<dim3(p.A, p.B), p.H, smem, stream>>>(p);
-  err = cudaGetLastError();
+  vislayer_fwd_centre1<<<centres, H, 0, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, false>(p.v_e, H, E, H, 2 * H, wseg(p.w_s, 2 * H), SEpi{p},
+                                        stream);
   if (err != cudaSuccess) return err;
-  vislayer_fwd_update<<<node_tiles(p.B * p.A), p.H, (size_t)NODE_ROWS * p.H * sizeof(float),
-                        stream>>>(p);
+  err = launch_row_tile<NODE_TM, false>(p.xagg, H, M, H, 3 * H, wseg(p.w_o, 3 * H),
+                                        BiasStore{p.o, 3 * H, p.b_o}, stream);
+  if (err != cudaSuccess) return err;
+  vislayer_fwd_centre2<<<centres, H, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // ptrs: the LAYER_PTRS pointers of Layer in field order (ops/vislayer.py,
-// PTR_FIELDS); the forward reads x..b_f and writes qkv, proj, vecagg, x2,
+// PTR_FIELDS); the forward reads x..b_f, uses the scratch xn, vecn, qkv,
+// proj, o, z ([E][2H]), v_e ([E][H]) and s_e ([E][2H]), and writes x2,
 // vec2, edge2 and xagg.
 extern "C" int vislayer_fwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
                                    int S, float cutoff, int last, cudaStream_t stream) {
@@ -247,5 +194,21 @@ extern "C" int vislayer_fwd_launch(const void* const* ptrs, int n_ptrs, int B, i
   Layer p;
   std::memcpy(&p, ptrs, LAYER_PTRS * sizeof(void*));
   p.B = B, p.A = A, p.H = H, p.S = S, p.NP = last ? 3 : 5, p.cutoff = cutoff;
-  return (int)(last ? launch_fwd<true>(p, stream) : launch_fwd<false>(p, stream));
+  return (int)launch_fwd(p, stream);
+}
+
+// shared memory, blocks per SM, registers and spill bytes of one stage:
+// 0 qkv (node rows), 1 proj (vector rows), 2 edge @ [W_dkv | W_f],
+// 3 centre pass 1, 4 v_e @ W_s, 5 centre pass 2
+extern "C" int vislayer_fwd_occupancy(int A, int H, int S, int stage, int* out) {
+  (void)A, (void)S;
+  switch (stage) {
+    case 0: return occupancy(row_tile<NODE_TM, false, BiasStore>, 256, tile_smem<NODE_TM>(), out);
+    case 1: return occupancy(row_tile<VEC_TM, false, BiasStore>, 256, tile_smem<VEC_TM>(), out);
+    case 2: return occupancy(row_tile<EDGE_TM, false, EdgeEpi>, 256, tile_smem<EDGE_TM>(), out);
+    case 3: return occupancy(vislayer_fwd_centre1, H, 0, out);
+    case 4: return occupancy(row_tile<EDGE_TM, false, SEpi>, 256, tile_smem<EDGE_TM>(), out);
+    case 5: return occupancy(vislayer_fwd_centre2, H, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

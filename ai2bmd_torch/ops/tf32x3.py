@@ -1,7 +1,8 @@
 """The 3xTF32 split of the edge kernels' tensor-core products, in plain PyTorch.
 
-K1, K2, K7 and K8 compute their edge products with
-``mma_rows_times_cols`` (``csrc/common.cuh``): each float32 operand x is
+Every kernel product (``mma_rows_times_cols`` in K1, K2, K7 and K8,
+``row_tile`` in K3/K8's g_edge and in K5/K6, ``csrc/common.cuh``) takes
+the same split: each float32 operand x is
 cut into hi = tf32(x) and lo = tf32(x - hi), rounded as
 ``cvt.rna.tf32.f32`` does (to 10 explicit mantissa bits, ties away from
 zero), and x @ w becomes lo_x @ hi_w + hi_x @ lo_w + hi_x @ hi_w with

@@ -47,10 +47,10 @@ PTR_FIELDS = (
     "x", "vec", "edge", "dsh", "dist", "adj",
     "ln_s", "ln_b", "vln_w", "w_qkv", "b_qkv", "w_vp", "w_dkv", "b_dkv", "w_s", "b_s",
     "w_o", "b_o", "w_t", "w_src", "w_f", "b_f",
-    "w_qkvT", "w_oT", "w_catT", "w_dkvT", "w_sT", "w_fT",
     "xagg_in", "gx2", "gvec2", "gedge2",
-    "qkv", "proj", "vecagg", "o", "gxagg", "gqkv", "gw", "gvecn", "gk_e", "gv_e", "s1_e",
-    "gs_e",
+    "xn", "vecn", "qkv", "proj", "o",
+    "z", "v_e", "s_e", "g_e", "gS_e",
+    "xo", "xv", "gxagg", "gqkv", "gvecn", "gxh",
     "x2", "vec2", "edge2", "xagg",
     "gx", "gvec", "gedge", "gdsh", "gdist",
 )
@@ -108,22 +108,23 @@ def _layer_norm(x, scale, bias):
 
 
 def vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int,
-                       last: bool):
+                       last: bool, mm=torch.matmul):
     """Plain version of K5: (x', vec', edge', x_agg).  The layer of
     ``vis_mp_layer`` plus the residual adds, through K1's plain edge core
-    (silu activations, vecnorm "none")."""
+    (silu activations, vecnorm "none").  ``mm`` takes every product (the
+    kernel's split: ``ops.tf32x3.mm_tf32x3_plain``)."""
     (ln_s, ln_b, vln_w, w_qkv, b_qkv, w_vp, w_dkv, b_dkv, w_s, b_s, w_o, b_o,
      w_t, w_src, w_f, b_f, _pool) = weights
     H = x.shape[-1]
-    q, k, v = (_layer_norm(x, ln_s, ln_b) @ w_qkv + b_qkv).split(H, dim=-1)
+    q, k, v = (mm(_layer_norm(x, ln_s, ln_b), w_qkv) + b_qkv).split(H, dim=-1)
     vecn = vec * vln_w                                          # [B,S,A,H]
-    vec1, vec2, vec3 = (vecn @ w_vp).split(H, dim=-1)
-    upd = {} if last else dict(wt=(vecn @ w_t).transpose(1, 2),
-                               wsrc=(vecn @ w_src).transpose(1, 2), w_f=w_f, b_f=b_f)
+    vec1, vec2, vec3 = mm(vecn, w_vp).split(H, dim=-1)
+    upd = {} if last else dict(wt=mm(vecn, w_t).transpose(1, 2),
+                               wsrc=mm(vecn, w_src).transpose(1, 2), w_f=w_f, b_f=b_f)
     x_agg, vec_agg, df = edge_fwd_plain(
         q, k, v, vecn.transpose(1, 2), edge, d_sh.permute(0, 2, 3, 1), dist, adj,
-        w_dkv, b_dkv, w_s, b_s, cutoff, nh, **upd)[:3]
-    o1, o2, o3 = (x_agg @ w_o + b_o).split(H, dim=-1)
+        w_dkv, b_dkv, w_s, b_s, cutoff, nh, **upd, mm=mm)[:3]
+    o1, o2, o3 = (mm(x_agg, w_o) + b_o).split(H, dim=-1)
     x2 = x + (vec1 * vec2).sum(1) * o2 + o3
     vec_out = vec + vec3 * o1[:, None] + vec_agg.transpose(1, 2)
     edge2 = edge.clone() if last else edge + df
@@ -131,17 +132,38 @@ def vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh
 
 
 def vislayer_bwd_plain(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2, gedge2,
-                       cutoff: float, nh: int, last: bool):
+                       cutoff: float, nh: int, last: bool, mm=torch.matmul):
     """Plain version of K6: the VJP of ``vislayer_fwd_plain`` recomputed from
     the layer inputs, (gx, gvec, gedge, gd_sh, gdist).  No weight cotangents;
     gedge holds the residual passthrough gedge2 (for the last layer too,
-    ``vislayer.py:593-595``).  ``xagg`` is recomputed, not read."""
+    ``vislayer.py:593-595``).  ``xagg`` is recomputed, not read.  ``mm``
+    takes every product, the transposed ones of the backward included."""
     del xagg
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x, vec, edge, d_sh, dist)]
         outs = vislayer_fwd_plain(*ins, adj, [w.detach() for w in weights], cutoff, nh,
-                                  last)[:3]
+                                  last, mm=_with_vjp(mm))[:3]
         return torch.autograd.grad(outs, ins, (gx2, gvec2, gedge2))
+
+
+def _with_vjp(mm):
+    """``mm`` for x @ w with the cotangent of x taken by ``mm`` too:
+    g_x = mm(g, w^T).  The weights get no cotangent (the kernels give none)."""
+    if mm is torch.matmul:
+        return mm
+
+    class _Product(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w):
+            ctx.save_for_backward(w)
+            return mm(x, w)
+
+        @staticmethod
+        def backward(ctx, g):
+            (w,) = ctx.saved_tensors
+            return mm(g, w.T), None
+
+    return _Product.apply
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +171,9 @@ def vislayer_bwd_plain(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2,
 # ---------------------------------------------------------------------------
 
 _I, _F = _build.I, _build.F
+# the inputs the kernels' products and epilogues read in 16- or 8-byte chunks
+_ALIGNED = ("edge", "w_qkv", "w_vp", "w_dkv", "w_s", "w_o", "w_t", "w_src", "w_f", "xagg_in",
+            "gvec2", "gedge2")
 # (pointers, their count, B, A, H, S, cutoff, last)
 _ARGS = [ctypes.POINTER(ctypes.c_void_p), _I, _I, _I, _I, _I, _F, _I]
 
@@ -178,9 +203,20 @@ def _launch(name: str, ptrs: dict, B, A, H, S, cutoff, last):
     unknown = set(ptrs) - set(PTR_FIELDS)
     if unknown:
         raise KeyError(f"not a field of Layer: {sorted(unknown)}")
+    # the products copy 16-byte chunks of their X rows and weights
+    unaligned = [f for f, t in ptrs.items()
+                 if t is not None and f in _ALIGNED and t.data_ptr() % 16]
+    if unaligned:
+        raise ValueError(f"fused-layer kernels need 16-byte aligned tensors: {unaligned}")
     arr = (ctypes.c_void_p * len(PTR_FIELDS))(
         *[None if ptrs.get(f) is None else ptrs[f].data_ptr() for f in PTR_FIELDS])
     _build.call(name, _ARGS, arr, len(PTR_FIELDS), B, A, H, S, float(cutoff), int(last))
+
+
+def _node_scratch(new, B, A, H, S, last):
+    """The node rows both kernels hand between their stages (csrc/vislayer.cuh)."""
+    return dict(xn=new(B * A, H), vecn=new(B * S * A, H), qkv=new(B * A, 3 * H),
+                proj=new(B * S * A, (3 if last else 5) * H), o=new(B * A, 3 * H))
 
 
 def vislayer_fwd(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int, last: bool):
@@ -189,9 +225,10 @@ def vislayer_fwd(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int,
         return vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff, nh, last)
     (B, A, H, S), t = _inputs(x, vec, edge, d_sh, dist, adj, weights, nh)
     new = lambda *s: torch.empty(s, dtype=_f32, device=x.device)
-    NP = 3 if last else 5
-    t.update(qkv=new(B * A, 3 * H), proj=new(B * S * A, NP * H), vecagg=new(B, S, A, H),
-             x2=new(B, A, H), vec2=new(B, S, A, H), edge2=new(B, A, A, H), xagg=new(B, A, H))
+    E = B * A * A
+    t.update(_node_scratch(new, B, A, H, S, last), z=new(E, 2 * H), v_e=new(E, H),
+             s_e=new(E, 2 * H), x2=new(B, A, H), vec2=new(B, S, A, H), edge2=new(B, A, A, H),
+             xagg=new(B, A, H))
     _launch("vislayer_fwd_launch", t, B, A, H, S, cutoff, last)
     LAUNCHES["vislayer_fwd"] += 1
     return t["x2"], t["vec2"], t["edge2"], t["xagg"]
@@ -208,20 +245,14 @@ def vislayer_bwd(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2, gedge
                            ("gvec2", gvec2, (B, S, A, H)), ("gedge2", gedge2, (B, A, A, H))):
         _build.check(name, g, shape, device=x.device)
     new = lambda *s: torch.empty(s, dtype=_f32, device=x.device)
-    w_cat = t["w_vp"] if last else torch.cat([t["w_vp"], t["w_t"], t["w_src"]], dim=1)
-    NP = 3 if last else 5
+    E, NP = B * A * A, 3 if last else 5
     t.update(
-        w_qkvT=t["w_qkv"].t().contiguous(), w_oT=t["w_o"].t().contiguous(),
-        w_catT=w_cat.t().contiguous(), w_dkvT=t["w_dkv"].t().contiguous(),
-        w_sT=t["w_s"].t().contiguous(), w_fT=None if last else t["w_f"].t().contiguous(),
-        xagg_in=xagg, gx2=gx2, gvec2=gvec2, gedge2=gedge2,
-        qkv=new(B * A, 3 * H), proj=new(B * S * A, NP * H), o=new(B * A, 3 * H),
+        _node_scratch(new, B, A, H, S, last), xagg_in=xagg, gx2=gx2, gvec2=gvec2,
+        gedge2=gedge2, z=new(E, 3 * H), v_e=new(E, H), s_e=new(E, 2 * H), g_e=new(E, 2 * H),
+        gS_e=None if last else new(E, H), xo=new(B * A, 3 * H), xv=new(B * S * A, NP * H),
         gxagg=new(B * A, H), gqkv=new(B * A, 3 * H), gvecn=new(B * S * A, H),
-        gw=None if last else new(B * S * A, 2 * H),
-        gk_e=new(B, A, A, H), gv_e=new(B, A, A, H), s1_e=new(B, A, A, H),
-        gs_e=None if last else new(B, A, A, H),
-        gx=new(B, A, H), gvec=new(B, S, A, H), gedge=new(B, A, A, H), gdsh=new(B, S, A, A),
-        gdist=new(B, A, A))
+        gxh=new(B * A, H), gx=new(B, A, H), gvec=new(B, S, A, H), gedge=new(B, A, A, H),
+        gdsh=new(B, S, A, A), gdist=new(B, A, A))
     _launch("vislayer_bwd_launch", t, B, A, H, S, cutoff, last)
     LAUNCHES["vislayer_bwd"] += 1
     return t["gx"], t["gvec"], t["gedge"], t["gdsh"], t["gdist"]

@@ -21,9 +21,10 @@ is not printed):
      trace, kept only when every kernel name holds the events of the calls
      traced), and the share of the bound (the larger of bytes over 3.35 TB/s
      and FLOPs over the peak of the unit that does the products: 165 TFLOP/s
-     for the 3xTF32 tensor-core products of K1, K2, K3, K7 and K8, 67
-     TFLOP/s of float32 FMA for the rest); K3/K8 sum their g_edge into a
-     copy of a message-path g_edge, with device ms by stage; K7/K8 also
+     for the 3xTF32 tensor-core products of K1-K3 and K5-K8, 67 TFLOP/s of
+     float32 FMA for K4); K3/K8 sum their g_edge into a copy of a
+     message-path g_edge; K3, K5, K6 and K8 with device ms by stage
+     (kernel name) at every shape and summed over the shapes; K7/K8 also
      against K2/K3 on K1's stash of the same inputs (bitwise equal), and K3,
      K7 and K8 again at one ensemble chunk's batch sizes (8 x the
      single-protein B); K4 also
@@ -32,9 +33,9 @@ is not printed):
      them: the tensor-core product helper alone (tf32x3_mm) against its
      plain model and a float64 product, and the rate of the mma.sync
      instruction it is built on; after them: shared memory, blocks per SM,
-     registers and spills of K1/K2/K7 and of each K3/K8 stage at each slot
-     count, and a yardstick that no kernel uses: cuBLAS float32 running only
-     the products of K1, K2, K3, K7 and K8
+     registers and spills of K1/K2/K7 and of each K3/K8/K5/K6 stage at each
+     slot count, and a yardstick that no kernel uses: cuBLAS float32 running
+     only the products of K1, K2, K3, K5, K6, K7 and K8
   4. the slice through the edge-core kernels K1-K3: Chignolin, production
      ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
@@ -95,8 +96,8 @@ BOUND_PEAK = {
     "edge_bwd_msg": "3xTF32 tensor cores, 165 TFLOP/s",
     "edge_bwd_upd": "3xTF32 tensor cores, 165 TFLOP/s",
     "cap_grad": "float32 FMA, 67 TFLOP/s",
-    "vislayer_fwd": "float32 FMA, 67 TFLOP/s",
-    "vislayer_bwd": "float32 FMA, 67 TFLOP/s",
+    "vislayer_fwd": "3xTF32 tensor cores, 165 TFLOP/s",
+    "vislayer_bwd": "3xTF32 tensor cores, 165 TFLOP/s",
     "edge_bwd_msg_rc": "3xTF32 tensor cores, 165 TFLOP/s",
     "edge_bwd_upd_rc": "3xTF32 tensor cores, 165 TFLOP/s",
 }
@@ -172,6 +173,7 @@ def device_ms(torch, fn, reps=10, by_name=None, tries=3):
 
 def short_name(kernel: str) -> str:
     """'void (anonymous namespace)::stage<false>(ai2bmd::Layer)' -> 'stage<false>'."""
+    kernel = kernel.replace("(anonymous namespace)::", "").replace("ai2bmd::", "")
     m = re.search(r"(\w+(?:<[^(]*>)?)\(", kernel)
     return m.group(1) if m else kernel[:60]
 
@@ -493,7 +495,8 @@ def report_occupancy(torch, results):
     lib = _build.library()
     I, P = ctypes.c_int, ctypes.c_void_p
     for fn, n in (("edge_fwd_occupancy", 5), ("edge_bwd_msg_occupancy", 4),
-                  ("edge_bwd_upd_occupancy", 4)):
+                  ("edge_bwd_upd_occupancy", 4), ("vislayer_fwd_occupancy", 4),
+                  ("vislayer_bwd_occupancy", 4)):
         getattr(lib, fn).argtypes = [I] * n + [P]
         getattr(lib, fn).restype = I
 
@@ -513,7 +516,11 @@ def report_occupancy(torch, results):
                 ("K7", "edge_bwd_msg_rc", "edge_bwd_msg_occupancy", (A, H, S, 1)),
                 ("K3 centre", "edge_bwd_upd", "edge_bwd_upd_occupancy", (A, H, 0, 1)),
                 ("K8 centre", "edge_bwd_upd_rc", "edge_bwd_upd_occupancy", (A, H, 1, 1)),
-                ("K3/K8 product", None, "edge_bwd_upd_occupancy", (A, H, 0, 2))):
+                ("K3/K8 product", None, "edge_bwd_upd_occupancy", (A, H, 0, 2)),
+                *((f"K5 {st}", "vislayer_fwd" if k == 2 else None, "vislayer_fwd_occupancy",
+                   (A, H, S, k)) for k, st in enumerate(K5_STAGES)),
+                *((f"K6 {st}", "vislayer_bwd" if k == 1 else None, "vislayer_bwd_occupancy",
+                   (A, H, S, k)) for k, st in enumerate(K6_STAGES))):
             o = occ(fn, *args)
             print(f"  {label:16s} A={A}: {o['smem_bytes']} B shared memory per block, "
                   f"{o['blocks_per_sm']} blocks per SM, {o['registers']} registers, "
@@ -522,10 +529,17 @@ def report_occupancy(torch, results):
                 results[name].update(o)
 
 
+# the stages vislayer_{fwd,bwd}_occupancy report, in their order
+K5_STAGES = ("qkv/o tile", "proj tile", "edge tile", "centre 1", "W_s tile", "centre 2")
+K6_STAGES = ("node ^T tile", "edge tile", "edge rows", "W_s tile", "W_s^T tile", "centre",
+             "g_edge tile", "source", "gvec tile", "g_wt")
+
+
 def cublas_yardstick(torch, dev, results):
     """cuBLAS float32 (allow_tf32 off) over the flattened [B*A*A, .] edge
     rows, the products of K1 (5 H^2 per edge cell), K2 (4 H^2), K7 (8 H^2),
-    K3 (H^2) and K8 (2 H^2) only, summed over Chignolin's four shapes: a
+    K3 (H^2) and K8 (2 H^2) only, and of K5 and K6 (the updating layer's,
+    edge, node and vector rows), summed over Chignolin's four shapes: a
     yardstick printed beside the kernels, not a library_ms (it is not the
     same function)."""
     gen = torch.Generator().manual_seed(4)
@@ -549,6 +563,19 @@ def cublas_yardstick(torch, dev, results):
                 ms = device_ms(torch, fn) or cuda_ms(torch, fn, 20)
                 tot[name] += ms
             del e, vij, g1, g2, gz
+        # K5/K6's products (the updating layer), node and vector rows included
+        w_qkv, w_o, w_cat, w_ef = r(H, 3 * H), r(H, 3 * H), r(H, 5 * H), r(H, 3 * H)
+        tot["vislayer_fwd"] = tot["vislayer_bwd"] = 0.0
+        for B, A in SHAPES:
+            n, m, mv = B * A * A, B * A, B * S * A
+            e, vij, xn, vn, xa = r(n, H), r(n, H), r(m, H), r(mv, H), r(m, H)
+            g2, g3, x3, xv = r(n, 2 * H), r(n, 3 * H), r(m, 3 * H), r(mv, 5 * H)
+            fwd = lambda: (xn @ w_qkv, vn @ w_cat, e @ w_ef, vij @ w_s, xa @ w_o)
+            bwd = lambda: (xn @ w_qkv, vn @ w_cat, xa @ w_o[:, :2 * H], x3 @ w_o.T, e @ w_ef,
+                           vij @ w_s, g2 @ w_s.T, g3 @ w_ef.T, x3 @ w_qkv.T, xv @ w_cat.T)
+            for name, fn in (("vislayer_fwd", fwd), ("vislayer_bwd", bwd)):
+                tot[name] += device_ms(torch, fn) or cuda_ms(torch, fn, 20)
+            del e, vij, xn, vn, xa, g2, g3, x3, xv
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     for name, ms in tot.items():
@@ -631,10 +658,11 @@ def layer_inputs(torch, gen, B, A, dev):
 
 
 def layer_flop(B, A, last):
-    """FLOPs of K5 and K6 for one call: the products only (2 per multiply-add)."""
+    """FLOPs of K5 and K6 for one call: the products only (2 per multiply-add);
+    K6 recomputes o1|o2 = x_agg @ W_o[:, :2H] (o3 is not needed)."""
     cells, atoms, vrows = B * A * A, B * A, B * S * A
     fwd = cells * (4 if last else 5) + atoms * 6 + vrows * (3 if last else 5)
-    bwd = cells * (8 if last else 10) + atoms * 12 + vrows * (6 if last else 10)
+    bwd = cells * (8 if last else 10) + atoms * 11 + vrows * (6 if last else 10)
     return 2 * fwd * H * H, 2 * bwd * H * H
 
 
@@ -662,11 +690,13 @@ def check_layer_kernels(torch, dev, results):
             res = results["vislayer_fwd"]
             res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
             bitwise(name, run)
-            t = in_turns(torch, run, lambda args=args: FL.vislayer_fwd_plain(*args))
-            b = bound(nbytes(*args[:6], *w, *run()), f32=flop_f)
+            parts = {}
+            t = in_turns(torch, run, lambda args=args: FL.vislayer_fwd_plain(*args), parts)
+            b = bound(nbytes(*args[:6], *w, *run()), tc=flop_f)
             add_bound(res if not last else {}, b, t)
             if not last:
                 add_times(res, t)
+            add_stage_sums(res, last, t, parts)
 
             xagg = run()[3]
             bargs = (*args[:7], xagg, a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, NH, last)
@@ -678,11 +708,24 @@ def check_layer_kernels(torch, dev, results):
             res = results["vislayer_bwd"]
             res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
             bitwise(name, run)
-            t = in_turns(torch, run, lambda bargs=bargs: FL.vislayer_bwd_plain(*bargs))
-            b = bound(nbytes(*bargs[:6], *w, *bargs[7:11], *run()), f32=flop_b)
+            parts = {}
+            t = in_turns(torch, run, lambda bargs=bargs: FL.vislayer_bwd_plain(*bargs), parts)
+            b = bound(nbytes(*bargs[:6], *w, *bargs[7:11], *run()), tc=flop_b)
             add_bound(res if not last else {}, b, t)
             if not last:
                 add_times(res, t)
+            add_stage_sums(res, last, t, parts)
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        for where, sums in results[name].pop("stage_sums").items():
+            print(f"  {name}, device ms summed over the four shapes, {where}: " + ", ".join(
+                f"{k} {fmt_ms(v)}" for k, v in sums.items()))
+
+
+def add_stage_sums(res, last, t, parts):
+    """Sum a call's device ms, in all and by kernel name, into the kernel's
+    stage sums for its ``last`` variant."""
+    sums = res.setdefault("stage_sums", {}).setdefault(f"last={int(last)}", {})
+    add_times(sums, {"all": t["device_ms"], **{short_name(n): ms for n, ms in parts.items()}})
 
 
 def profile_steps(torch, step, state, n=3):

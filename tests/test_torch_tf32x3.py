@@ -8,7 +8,7 @@ PyTorch; these tests bound its error on the CPU against a float64 product,
 against a plain float32 product, against one TF32 pass and against the JAX
 package's own production split (3-pass bf16, ``vismp._split_b16``), and put
 the split into the plain versions of K1, K2, K3 and K8 at Chignolin's (4, 40)
-shape.
+shape and of K5 and K6 at (2, 24).
 Inputs are made with numpy from a seed.
 """
 
@@ -18,8 +18,10 @@ import pytest
 import torch
 
 from ai2bmd_tpu.ops.pallas import vismp as JK
-from ai2bmd_torch.models.visnet import spherical_harmonics
+from ai2bmd_torch.models.params import init_params
+from ai2bmd_torch.models.visnet import ViSNetConfig, dense_graph, spherical_harmonics
 from ai2bmd_torch.ops import tf32x3 as T
+from ai2bmd_torch.ops import vislayer as TL
 from ai2bmd_torch.ops import vismp as TK
 
 H, NH, S, CUTOFF = 256, 8, 8, 5.0
@@ -122,11 +124,43 @@ def _close(got, ref, label):
         assert err <= EDGE_TOL * max(1.0, float(r.abs().max())), (label, n, err)
 
 
-@pytest.mark.parametrize("which", ["edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_upd_rc"])
+def _layer_case(B=2, A=24, seed=7):
+    """K5/K6's plain-version arguments at (B, A) x 256: the first layer of a
+    production ViSNet (random weights from a seed), numpy inputs, a 5 A
+    graph with the last fragment's last 3 slots masked, and cotangents."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s, sc: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32))
+    cfg = ViSNetConfig()
+    w = TL.layer_weights(init_params(cfg, torch.Generator().manual_seed(0))["layers"][0], H, NH,
+                         False)
+    mask = torch.ones((B, A), dtype=torch.bool)
+    mask[-1, A - 3:] = False
+    adj, _, dist, d_sh = dense_graph(r(B, A, 3, sc=2.5), mask, cfg)
+    adj = adj.float()
+    fwd = (r(B, A, H, sc=0.5), r(B, S, A, H, sc=0.3), r(B, A, A, H, sc=0.2) * adj[..., None],
+           d_sh.permute(0, 3, 1, 2).contiguous(), dist, adj, w, CUTOFF, NH, False)
+    cot = (r(B, A, H, sc=1.0), r(B, S, A, H, sc=1.0), r(B, A, A, H, sc=1.0) * adj[..., None])
+    return fwd, cot
+
+
+@pytest.mark.parametrize("which", ["edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_upd_rc",
+                                   "vislayer_fwd", "vislayer_bwd"])
 def test_plain_versions_with_the_split_stay_within_edge_tol(which):
     """K1's, K2's, K3's and K8's plain versions with their products taken
     through the split, at Chignolin's (4, 40) shape and H = 256, against the
-    same plain versions in float32 (K3/K8 summing into a given g_edge)."""
+    same plain versions in float32 (K3/K8 summing into a given g_edge); and
+    K5's and K6's (every product of the layer, the backward's transposed
+    ones included) at (2, 24) x 256."""
+    if which.startswith("vislayer"):
+        fwd, cot = _layer_case()
+        if which == "vislayer_fwd":
+            _close(TL.vislayer_fwd_plain(*fwd, mm=T.mm_tf32x3_plain),
+                   TL.vislayer_fwd_plain(*fwd), which)
+        else:
+            bwd = (*fwd[:7], None, *cot, *fwd[7:])
+            _close(TL.vislayer_bwd_plain(*bwd, mm=T.mm_tf32x3_plain),
+                   TL.vislayer_bwd_plain(*bwd), which)
+        return
     a = _edge_inputs()
     core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
             a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
