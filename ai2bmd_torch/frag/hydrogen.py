@@ -31,7 +31,7 @@ class HydrogenTables:
     def build(cls, top: TypeTopology, row_prmtop: list[str], is_cap: np.ndarray,
               device, dtype) -> "HydrogenTables":
         return cls(
-            caps=CapTables.build(top, top.type_ids(row_prmtop), device, dtype),
+            caps=CapTables.build(top, top.type_ids(row_prmtop), is_cap.shape[1], device, dtype),
             free=torch.as_tensor(is_cap[..., None], dtype=dtype, device=device),
         )
 

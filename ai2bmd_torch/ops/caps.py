@@ -27,7 +27,8 @@ class CapTables:
     """Per-row AMBER term tables: index arrays [R, X, m] (int64), coefficient
     arrays [R, X] in the working dtype, ``nb_mask`` [R, NP] bool, and the
     1-4 scalings.  ``kernel`` holds the same tables as K4 takes them:
-    int32 indices, float32 coefficients with 1/scnb and 1/scee folded in."""
+    int32 indices, float32 coefficients with 1/scnb and 1/scee folded in,
+    then the per-atom slot lists of ``slot_lists``."""
 
     bond_ij: torch.Tensor
     bond_k: torch.Tensor
@@ -49,7 +50,9 @@ class CapTables:
     kernel: tuple
 
     @classmethod
-    def build(cls, top: TypeTopology, type_id: np.ndarray, device, dtype) -> "CapTables":
+    def build(cls, top: TypeTopology, type_id: np.ndarray, n_slots: int, device,
+              dtype) -> "CapTables":
+        """Tables for the rows of ``type_id``, each of ``n_slots`` atom slots."""
         tid = np.asarray(type_id)
         rows = {k: getattr(top, k)[tid] for k in _INDEX + _COEF + ("nb_mask",)}
         t = {k: torch.as_tensor(rows[k], dtype=torch.int64, device=device) for k in _INDEX}
@@ -63,6 +66,8 @@ class CapTables:
             i32("dih_ijkl"), f32(rows["dih_k"]), f32(rows["dih_n"]), f32(rows["dih_phase"]),
             i32("nb_ij"), f32(rows["nb_acoef"] / top.scnb), f32(rows["nb_bcoef"] / top.scnb),
             f32(rows["nb_qq"] / top.scee), f32(rows["nb_mask"]),
+            *(torch.as_tensor(a, device=device)
+              for a in slot_lists([rows[k] for k in _INDEX], rows["nb_mask"], n_slots)),
         )
         return cls(**t, scee=top.scee, scnb=top.scnb, kernel=kernel)
 
@@ -70,6 +75,32 @@ class CapTables:
     def sizes(self) -> tuple[int, int, int, int]:
         return (self.bond_k.shape[1], self.angle_k.shape[1], self.dih_k.shape[1],
                 self.nb_qq.shape[1])
+
+
+def slot_lists(index_tables: list, nb_mask: np.ndarray, n_slots: int):
+    """K4's per-atom slot lists: for each row, the (term, endpoint) slots
+    that name each atom, in ascending slot order, as CSR arrays
+    ``slot_ptr`` [R, S+1] and ``slot_idx`` [R, NE] (int32; the tail past
+    ``slot_ptr[r, S]`` is unused).  Slots are numbered as K4 writes them:
+    bond endpoints, then angle, dihedral and pair endpoints, term-major.
+
+    Left out are the slots whose force is always +-0.0: those of masked-out
+    pairs, and those of terms whose endpoints are all one atom (the tables'
+    padding, which K4's geometry guards give zero force).  Adding +-0.0 to
+    a float32 sum that starts at +0.0 changes nothing, so the lists give
+    the same sums, bit for bit, as a scan over every slot."""
+    R = nb_mask.shape[0]
+    atom = np.concatenate([t.reshape(R, -1) for t in index_tables], 1)
+    live = np.concatenate(
+        [np.repeat(~(t == t[..., :1]).all(-1), t.shape[-1], 1) for t in index_tables], 1)
+    live[:, -2 * nb_mask.shape[1]:] &= np.repeat(np.asarray(nb_mask, bool), 2, 1)
+    ptr = np.zeros((R, n_slots + 1), np.int32)
+    idx = np.zeros(atom.shape, np.int32)
+    for r in range(R):
+        slots = np.flatnonzero(live[r])
+        idx[r, :len(slots)] = slots[np.argsort(atom[r, slots], kind="stable")]
+        ptr[r, 1:] = np.cumsum(np.bincount(atom[r, slots], minlength=n_slots))
+    return ptr, idx
 
 
 def amber_grad_rows_plain(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
@@ -82,7 +113,7 @@ def amber_grad_rows_plain(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
     return g
 
 
-_CAP_ARGS = [_build.P] * 17 + [_build.I] * 7
+_CAP_ARGS = [_build.P] * 19 + [_build.I] * 7
 
 
 def amber_grad_rows(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
@@ -103,6 +134,8 @@ def amber_grad_rows(ct: CapTables, pos: torch.Tensor) -> torch.Tensor:
             raise ValueError("cap tables must be contiguous and on the device of pos")
     if ct.kernel[0].shape[0] != RT:
         raise ValueError(f"cap tables hold {ct.kernel[0].shape[0]} rows, pos has {RT}")
+    if ct.kernel[-2].shape[1] != S + 1:
+        raise ValueError(f"cap slot lists are for {ct.kernel[-2].shape[1] - 1} slots, pos has {S}")
     grad = torch.empty_like(pos)
     _build.call("cap_grad_launch", _CAP_ARGS, pos.data_ptr(),
                 *(t.data_ptr() for t in ct.kernel), grad.data_ptr(),

@@ -10,17 +10,30 @@
 // caller stops the gradient at the optimized cap positions.
 //
 // What bounds it on the H100: a few thousand scalar terms per MD step, so
-// the launch itself; the kernel does microseconds of work.
-// Design: one block per row.  The TPU kernel expressed the endpoint gathers
-// and the force scatter as one-hot matmuls and evaluated atan2 and n*phi by
-// polynomial and Chebyshev recurrence, because Mosaic has no dynamic
-// indexing and no inverse trigonometry; here the endpoints are index gathers
-// from the topology tables and the angles use atan2f / sinf.  Each term's
-// endpoint forces go to shared memory, one slot per (term, endpoint); then
-// one thread per atom coordinate sums the slots that name its atom, in slot
-// order, so the result is bitwise repeatable without atomics.  A term whose
-// geometry is degenerate (a zero-length bond, cross product or axis) gives
-// zero force, as the safe-norm guards of hydrogen.py give zero gradient.
+// the launch itself and the latency of its three short stages; its bytes
+// (~0.15 MB a call) would take 0.04 us at 3.35 TB/s, far below one launch.
+// Design: one block per row, three stages.  (1) The row's positions and its
+// per-atom slot lists go to shared memory.  (2) One thread per term writes
+// each (term, endpoint) slot's force to shared memory.  The TPU kernel
+// expressed the endpoint gathers and the force scatter as one-hot matmuls
+// and evaluated atan2 and n*phi by polynomial and Chebyshev recurrence,
+// because Mosaic has no dynamic indexing and no inverse trigonometry; here
+// the endpoints are index gathers from the topology tables and the angles
+// use atan2f / sinf.  (3) One thread per atom coordinate sums the slots of
+// its own atom's list (slot_ptr / slot_idx, built once on the host by
+// ops/caps.py: a CSR list per row of the slots that name each atom, in
+// ascending slot order), so the result is bitwise repeatable without
+// atomics, and is the same sequence of float32 additions as a scan over
+// every slot that tests the slot's atom.  The lists skip the slots that
+// always carry +-0.0, whose addition to a sum that starts at +0.0 changes
+// nothing: those of masked-out pairs, and those of terms whose endpoints
+// are all one atom (the tables' padding; their geometry guards below give
+// zero force).  Without them no Chignolin atom has more than 43 slots
+// (20 on average), where the scan walked all 1,304 slots of the row per
+// thread; the padding atom 0 alone would otherwise hold up to 957.  A term
+// whose geometry is degenerate (a zero-length bond, cross product or axis)
+// gives zero force, as the safe-norm guards of hydrogen.py give zero
+// gradient.
 
 #include "common.cuh"
 
@@ -49,23 +62,29 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
                                 const float* __restrict__ dih_phase, const int* __restrict__ nb_ij,
                                 const float* __restrict__ nb_a, const float* __restrict__ nb_b,
                                 const float* __restrict__ nb_q, const float* __restrict__ nb_mask,
+                                const int* __restrict__ slot_ptr, const int* __restrict__ slot_idx,
                                 float* __restrict__ grad, int RT, int S, int NB, int NA, int ND,
                                 int NP) {
   extern __shared__ __align__(16) float smem[];
   const int NE = 2 * NB + 3 * NA + 4 * ND + 2 * NP;  // (term, endpoint) slots
   float* sPos = smem;                                  // [S][3]
   float* sF = sPos + 3 * S;                            // [NE][3]
-  int* sAt = reinterpret_cast<int*>(sF + 3 * NE);      // [NE] atom of each slot
+  int* sPtr = reinterpret_cast<int*>(sF + 3 * NE);     // [S+1] list bounds of each atom
+  int* sIdx = sPtr + S + 1;                            // [<= NE] slots, atom by atom
 
   // pos row p takes the tables of row p % RT: one launch covers the rows of
   // several replicas, stacked replica-major
   const int prow = blockIdx.x, row = prow % RT, t = threadIdx.x, nt = blockDim.x;
+  const int* ptr = slot_ptr + (size_t)row * (S + 1);
+  const int* idx = slot_idx + (size_t)row * NE;
+  const int n_live = ptr[S];
   for (int x = t; x < 3 * S; x += nt) sPos[x] = pos[(size_t)prow * S * 3 + x];
+  for (int x = t; x <= S; x += nt) sPtr[x] = ptr[x];
+  for (int x = t; x < n_live; x += nt) sIdx[x] = idx[x];
   __syncthreads();
 
   auto P = [&](int a) { return V3{sPos[3 * a], sPos[3 * a + 1], sPos[3 * a + 2]}; };
-  auto put = [&](int slot, int atom, V3 f) {
-    sAt[slot] = atom;
+  auto put = [&](int slot, V3 f) {
     sF[3 * slot] = f.x;
     sF[3 * slot + 1] = f.y;
     sF[3 * slot + 2] = f.z;
@@ -82,8 +101,8 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
       const float r = sqrtf(r2);
       f = scale(d, bond_k[row * NB + m] * (r - bond_r0[row * NB + m]) / r);
     }
-    put(2 * m, ij[0], f);
-    put(2 * m + 1, ij[1], scale(f, -1.0f));
+    put(2 * m, f);
+    put(2 * m + 1, scale(f, -1.0f));
   }
 
   // angles: dtheta/du = (dt (v x w^) - c v) / (c^2 + dt^2), likewise for v
@@ -103,9 +122,9 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
       fi = scale(sub(scale(cross(v, wh), dt), scale(v, c)), g);
       fk = scale(sub(scale(cross(wh, u), dt), scale(u, c)), g);
     }
-    put(a0 + 3 * m, ijk[0], fi);
-    put(a0 + 3 * m + 1, ijk[1], scale(add(fi, fk), -1.0f));
-    put(a0 + 3 * m + 2, ijk[2], fk);
+    put(a0 + 3 * m, fi);
+    put(a0 + 3 * m + 1, scale(add(fi, fk), -1.0f));
+    put(a0 + 3 * m + 2, fk);
   }
 
   // proper dihedrals.  With b1 = p1-p0, b2 = p2-p1, b3 = p3-p2, m = b1 x b2,
@@ -134,10 +153,10 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
       f1 = scale(add(scale(A0, -1.0f - s1), scale(A3, s2)), dE);
       f2 = scale(add(scale(A0, s1), scale(A3, -1.0f - s2)), dE);
     }
-    put(d0 + 4 * m, ijkl[0], f0);
-    put(d0 + 4 * m + 1, ijkl[1], f1);
-    put(d0 + 4 * m + 2, ijkl[2], f2);
-    put(d0 + 4 * m + 3, ijkl[3], f3);
+    put(d0 + 4 * m, f0);
+    put(d0 + 4 * m + 1, f1);
+    put(d0 + 4 * m + 2, f2);
+    put(d0 + 4 * m + 3, f3);
   }
 
   // nonbonded over the exclusion complement: dE/dr / r = -12A/r^14 + 6B/r^8 - Q/r^3
@@ -153,17 +172,17 @@ __global__ void cap_grad_kernel(const float* __restrict__ pos, const int* __rest
                       nb_q[row * NP + m] * inv2 / sqrtf(r2);
       f = scale(d, s);
     }
-    put(n0 + 2 * m, ij[0], f);
-    put(n0 + 2 * m + 1, ij[1], scale(f, -1.0f));
+    put(n0 + 2 * m, f);
+    put(n0 + 2 * m + 1, scale(f, -1.0f));
   }
   __syncthreads();
 
-  // deterministic scatter: one thread per (atom, coordinate), slots in order
+  // deterministic scatter: one thread per (atom, coordinate), its atom's
+  // slots in ascending order
   for (int x = t; x < 3 * S; x += nt) {
     const int atom = x / 3, c = x % 3;
     float s = 0.0f;
-    for (int e = 0; e < NE; ++e)
-      if (sAt[e] == atom) s += sF[3 * e + c];
+    for (int e = sPtr[atom]; e < sPtr[atom + 1]; ++e) s += sF[3 * sIdx[e] + c];
     grad[(size_t)prow * S * 3 + x] = s;
   }
 }
@@ -173,17 +192,19 @@ extern "C" int cap_grad_launch(const float* pos, const int* bond_ij, const float
                                const float* angle_t0, const int* dih_ijkl, const float* dih_k,
                                const float* dih_n, const float* dih_phase, const int* nb_ij,
                                const float* nb_a, const float* nb_b, const float* nb_q,
-                               const float* nb_mask, float* grad, int R, int RT, int S, int NB,
-                               int NA, int ND, int NP, cudaStream_t stream) {
+                               const float* nb_mask, const int* slot_ptr, const int* slot_idx,
+                               float* grad, int R, int RT, int S, int NB, int NA, int ND, int NP,
+                               cudaStream_t stream) {
   if (RT <= 0 || R % RT) return (int)cudaErrorInvalidValue;
   const int NE = 2 * NB + 3 * NA + 4 * ND + 2 * NP;
-  const size_t smem = (size_t)(3 * S + 4 * NE) * sizeof(float);
+  const size_t smem =
+      (size_t)(3 * S + 3 * NE) * sizeof(float) + (size_t)(S + 1 + NE) * sizeof(int);
   cudaError_t err = cudaFuncSetAttribute(cap_grad_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cap_grad_kernel<<<R, 128, smem, stream>>>(pos, bond_ij, bond_k, bond_r0, angle_ijk, angle_k,
                                             angle_t0, dih_ijkl, dih_k, dih_n, dih_phase, nb_ij,
-                                            nb_a, nb_b, nb_q, nb_mask, grad, RT, S, NB, NA, ND,
-                                            NP);
+                                            nb_a, nb_b, nb_q, nb_mask, slot_ptr, slot_idx, grad,
+                                            RT, S, NB, NA, ND, NP);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,11 @@ is not printed):
      K7 and K8 again at one ensemble chunk's batch sizes (8 x the
      single-protein B); K4 also
      over 64 replicas' rows, each replica perturbed on its own, against its
-     plain version and against launches over each replica alone.  Before
+     plain version and against launches over each replica alone, with its
+     design (slots per atom in its per-atom lists), its device time at the
+     lone shape and over the 64 replicas, and a sha256 of its output bytes
+     on these fixed inputs (`--cap-hash` prints only those, so that the
+     script can be run against another commit's package).  Before
      them: the tensor-core product helper alone (tf32x3_mm) against its
      plain model and a float64 product, and the rate of the mma.sync
      instruction it is built on; after them: shared memory, blocks per SM,
@@ -42,11 +46,19 @@ is not printed):
      300 K; launch counters reset just before and read just after; step 0
      held against the same port on the CPU in float64 through the plain
      versions (limit 1e-3 eV/A); a profiled window of 3 steps gives the
-     device busy share
+     device busy share.  Then the warm step captured as one CUDA graph
+     (ai2bmd_torch.md.GraphedLangevin) from the eager run's state: the
+     capture's peak memory; its first 5 replays held against eager steps
+     from the same state on the same noise (max|dx|, max|dF| within 1e-3);
+     TIMED_STEPS replays timed; a profiled window of 3 replays (kernels per
+     step, busy share) whose trace must name cap_grad_kernel and K1-K3's
+     kernels; energies and positions finite
   4b. the same slice through the full-layer kernels K5/K6
      (AI2BMD_FUSED_LAYER=1): every ViSNet layer of every batch launches K5
      and K6 once per force evaluation and K1-K3 never; step 0 held against
-     phase 4's step 0 and against the CPU float64 run
+     phase 4's step 0 and against the CPU float64 run; then the graphed step
+     as in phase 4, its replay trace naming cap_grad_kernel and K5/K6's
+     kernels
   5. the replica ensemble (BASELINE config 5): ReplicaEnsemble of 64
      Chignolin replicas at 9 x 256 with ViSNetConfig(remat=True), chunks of
      8 replicas; initial state (cold caps, first forces) and 1 + 3 batched
@@ -60,7 +72,7 @@ is not printed):
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
-first check of a kernel change).  Imports no JAX.  The ms/step figures it
+first check of a kernel change).  Phase 5 runs eagerly (no graph).  Imports no JAX.  The ms/step figures it
 prints are smoke figures, not a benchmark.
 """
 
@@ -84,6 +96,10 @@ EDGE_TOL = 1e-4
 CAP_TOL = 1e-4
 FORCE_LIMIT = 1e-3          # eV/A, BASELINE.md:55-58
 WARM_STEPS, TIMED_STEPS = 5, 20
+GRAPH_CHECK_STEPS = 5       # replayed steps held against eager steps on the same noise
+# kernels the replay trace of each path must name (besides K4's cap_grad_kernel)
+EDGE_KERNELS = ("edge_fwd_kernel", "edge_bwd_msg_centre", "edge_bwd_upd_centre")
+LAYER_KERNELS = ("vislayer_fwd_centre2", "vislayer_bwd_centre", "vislayer_bwd_source")
 N_LAYERS = 9
 N_REPLICAS, REPLICA_CHUNK, ENSEMBLE_STEPS = 64, 8, 3   # BASELINE config 5
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 outside the
@@ -587,17 +603,61 @@ def cublas_yardstick(torch, dev, results):
               f"{res['gflop'] / kern:.1f} TFLOP/s in its products")
 
 
-def check_cap_kernel(torch, dev, prot, results):
+def cap_inputs(torch, dev, prot):
+    """Phase 3's fixed inputs of K4: Chignolin's runtime, its dipeptide rows
+    as placed (template) and perturbed by 0.05 A, and 64 replicas' rows,
+    each replica perturbed on its own (a CPU generator, seed 1)."""
     from ai2bmd_torch.frag import runtime as RT
     from ai2bmd_torch.host import build_fragment_index
-    from ai2bmd_torch.ops import caps as C
 
     rt = RT.FragmentRuntime.build(build_fragment_index(prot.atoms), device=dev)
     P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
     gen = torch.Generator().manual_seed(1)
     base = RT.build_row_positions(rt, P)
-    for label, sigma in (("template", 0.0), ("perturbed", 0.05)):
-        pos = (base + sigma * torch.randn(base.shape, generator=gen).to(dev)).contiguous()
+    lone = {label: (base + sigma * torch.randn(base.shape, generator=gen).to(dev)).contiguous()
+            for label, sigma in (("template", 0.0), ("perturbed", 0.05))}
+    reps = (base + 0.05 * torch.randn((N_REPLICAS, *base.shape), generator=gen).to(dev))
+    return rt, lone, reps.contiguous()
+
+
+def cap_hashes(torch, dev, prot, timed=False):
+    """sha256 of K4's output bytes on phase 3's fixed inputs (perturbed lone
+    rows, and the 64 replicas' rows), and with ``timed`` K4's device ms per
+    call on each.  Uses only what every tree of the port has
+    (FragmentRuntime, amber_grad_rows), so that ``--cap-hash`` can run this
+    script against another commit's package to compare K4 bit for bit and
+    in time."""
+    import hashlib
+
+    from ai2bmd_torch.ops import caps as C
+
+    rt, lone, reps = cap_inputs(torch, dev, prot)
+    out, ms = {}, {}
+    for label, pos in (("lone", lone["perturbed"]), (f"{N_REPLICAS} replicas", reps)):
+        g = C.amber_grad_rows(rt.ht.caps, pos)
+        torch.cuda.synchronize()
+        out[label] = hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
+        if timed:
+            ms[label] = device_ms(torch, lambda pos=pos: C.amber_grad_rows(rt.ht.caps, pos), 50)
+    print("  cap_grad output sha256: " + ", ".join(f"{k} {v}" for k, v in out.items()))
+    if timed:
+        print("  K4 device time per call: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in ms.items()))
+    return out
+
+
+def check_cap_kernel(torch, dev, prot, results):
+    from ai2bmd_torch.ops import caps as C
+
+    rt, lone, reps = cap_inputs(torch, dev, prot)
+    ptr = rt.ht.caps.kernel[-2].cpu()
+    per_atom = (ptr[:, 1:] - ptr[:, :-1]).float()
+    NB, NA, ND, NP = rt.ht.caps.sizes
+    NE = 2 * NB + 3 * NA + 4 * ND + 2 * NP
+    print(f"  K4 design: one block of 128 threads per row; {NE} (term, endpoint) slots a row, "
+          f"{int(ptr[:, -1].sum())} of {ptr.shape[0] * NE} in the rows' per-atom lists; slots "
+          f"per atom: mean {float(per_atom.mean()):.1f}, max {int(per_atom.max())}")
+    times = {}
+    for label, pos in lone.items():
         name = f"cap_grad R={pos.shape[0]} S={pos.shape[1]} {label}"
         print(f"  {name}")
         run = lambda pos=pos: (C.amber_grad_rows(rt.ht.caps, pos),)
@@ -605,15 +665,16 @@ def check_cap_kernel(torch, dev, prot, results):
         res["max_abs_err"] = max(res["max_abs_err"], compare(
             name, run(), {"grad": C.amber_grad_rows_plain(rt.ht.caps, pos)}, CAP_TOL))
         bitwise(name, run)
-        if sigma:
+        if label == "perturbed":
             t = in_turns(torch, run, lambda pos=pos: C.amber_grad_rows_plain(rt.ht.caps, pos))
             add_times(res, t)
-            add_bound(res, bound(nbytes(pos, *rt.ht.caps.kernel, *run()), f32=cap_flop(rt, pos)), t)
+            add_bound(res, bound(nbytes(pos, *rt.ht.caps.kernel[:-2], *run()),
+                                 f32=cap_flop(rt, pos)), t)
+            times["lone"] = t["device_ms"]
 
     # the ensemble's form: every replica's rows, each replica perturbed on
     # its own, in one launch that reads row p's tables at p % R
-    pos = (base + 0.05 * torch.randn((N_REPLICAS, *base.shape), generator=gen).to(dev))
-    pos = pos.contiguous()
+    pos = reps
     name = f"cap_grad Rl={N_REPLICAS} R={pos.shape[1]} S={pos.shape[2]} per-replica perturbed"
     print(f"  {name}")
     run = lambda: (C.amber_grad_rows(rt.ht.caps, pos),)
@@ -627,7 +688,10 @@ def check_cap_kernel(torch, dev, prot, results):
     need(alone, f"{name}: the replica launch differs from the lone launches")
     bitwise(name, run)
     t = in_turns(torch, run, lambda: C.amber_grad_rows_plain(rt.ht.caps, pos))
-    add_bound({}, bound(nbytes(pos, *rt.ht.caps.kernel, *run()), f32=cap_flop(rt, pos)), t)
+    add_bound({}, bound(nbytes(pos, *rt.ht.caps.kernel[:-2], *run()), f32=cap_flop(rt, pos)), t)
+    times[f"{N_REPLICAS} replicas"] = t["device_ms"]
+    print("  K4 device time per call: " + ", ".join(f"{k} {fmt_ms(v)}" for k, v in times.items()))
+    cap_hashes(torch, dev, prot)
 
 
 def cap_flop(rt, pos):
@@ -728,8 +792,10 @@ def add_stage_sums(res, last, t, parts):
     add_times(sums, {"all": t["device_ms"], **{short_name(n): ms for n, ms in parts.items()}})
 
 
-def profile_steps(torch, step, state, n=3):
-    """Device busy share of n MD steps and the kernels that take the time."""
+def profile_steps(torch, step, state, n=3, label="steps"):
+    """Device busy share of n MD steps and the kernels that take the time.
+    Returns kernels per step, busy ms per step, the busy share and the set
+    of device kernel names in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -745,11 +811,18 @@ def profile_steps(torch, step, state, n=3):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    print(f"  profiled {n} steps: {len(kernels) / n:.0f} device kernels per step, device busy "
+    print(f"  profiled {n} {label}: {len(kernels) / n:.0f} device kernels per step, device busy "
           f"{busy_us / n / 1e3:.3f} ms of {wall_us / n / 1e3:.3f} ms per step "
           f"({100 * busy_us / wall_us:.1f}% busy, profiler on)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / n / 1e3:8.3f} ms/step  {name[:100]}")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    gaps = sorted((b[0] - a[1] for a, b in zip(spans, spans[1:])), reverse=True)
+    print(f"    device idle between its first and last kernel: "
+          f"{sum(g for g in gaps if g > 0) / n / 1e3:.3f} ms/step; largest gaps (us): "
+          + ", ".join(f"{g:.1f}" for g in gaps[:5]))
+    return dict(kernels_per_step=len(kernels) / n, busy_ms=busy_us / n / 1e3,
+                busy_share=busy_us / wall_us, names=set(by_name))
 
 
 def build_potential(torch, dev, prot, fused: bool):
@@ -775,10 +848,12 @@ def build_potential(torch, dev, prot, fused: bool):
     return pot, cfg, params
 
 
-def drive(torch, dev, prot, pot, card):
+def drive(torch, dev, prot, pot, card, path_kernels):
     """Cold caps, step 0, WARM_STEPS + TIMED_STEPS warm Langevin steps, with the
     launch counters reset just before and read just after; then a profiled
-    window.  Returns (launches, ms_step, P, aux0, aux1, e0, f0)."""
+    window; then the same steps as replays of one CUDA graph
+    (``drive_graphed``), whose trace must name ``path_kernels``.  Returns
+    (launches, ms_step, P, aux0, aux1, e0, f0, graphed figures)."""
     from ai2bmd_torch.md import langevin as L
     from ai2bmd_torch.ops import LAUNCHES, reset_launches
 
@@ -819,8 +894,64 @@ def drive(torch, dev, prot, pot, card):
     need(state.step >= 20, "fewer than 20 warm steps")
     print(f"  steady state: {ms_step:.3f} ms/step over {TIMED_STEPS} steps "
           f"(smoke figure, not a benchmark; host clock, synchronised; {card})")
-    profile_steps(torch, step, state)
-    return launches, ms_step, P, aux0, aux1, e0, f0
+    eager = profile_steps(torch, step, state)
+    graphed = drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels)
+    print(f"  eager / graphed: {ms_step:.3f} / {graphed['ms_step']:.3f} ms/step, "
+          f"{eager['kernels_per_step']:.0f} / {graphed['kernels_per_step']:.0f} kernels per "
+          f"step, {100 * eager['busy_share']:.1f}% / {100 * graphed['busy_share']:.1f}% busy")
+    return launches, ms_step, P, aux0, aux1, e0, f0, graphed
+
+
+def drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels):
+    """The warm step captured as one CUDA graph (GraphedLangevin) from the
+    eager run's state: peak memory of the capture; the first GRAPH_CHECK_STEPS
+    replays held against eager langevin_step calls from the same state on
+    the same noise (max|dx|, max|dF|, limit FORCE_LIMIT: the force stitch
+    sums with atomics, so not bitwise); TIMED_STEPS replays timed; a
+    profiled window of replays that must name cap_grad_kernel and
+    ``path_kernels``.  Returns ms/step, kernels per step and busy share."""
+    from ai2bmd_torch.md import GraphedLangevin
+    from ai2bmd_torch.md import langevin as L
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    graphed = GraphedLangevin(pot.stateful_energy_forces, coeffs, masses, state, gen)
+    torch.cuda.synchronize()
+    print(f"  graph: {time.perf_counter() - t0:.1f} s (warm-up "
+          f"{graphed.setup_seconds['warmup']:.1f} s, capture {graphed.setup_seconds['capture']:.1f}"
+          f" s); peak device memory above the {base / 2**20:.1f} MiB held before: "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
+    ref, dx, dF = state, 0.0, 0.0
+    for _ in range(GRAPH_CHECK_STEPS):
+        got = graphed.run(1)
+        ref = L.langevin_step(pot.stateful_energy_forces, coeffs, masses, ref,
+                              xi=graphed.buffers.xi, eta=graphed.buffers.eta)
+        dx = max(dx, float((got.positions - ref.positions).abs().max()))
+        dF = max(dF, float((got.forces - ref.forces).abs().max()))
+    print(f"  first {GRAPH_CHECK_STEPS} replayed steps vs eager steps on the same noise: "
+          f"max|dx| {dx:.3e} A, max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(dx <= FORCE_LIMIT and dF <= FORCE_LIMIT,
+         f"replayed steps differ from eager steps: dx {dx:.3e}, dF {dF:.3e}")
+    energies = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        energies.append(graphed.run(1).energy.clone())
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    s = graphed.state
+    need(bool(torch.stack(energies).isfinite().all()), "non-finite energy in the graphed run")
+    need(bool(s.positions.isfinite().all() and s.forces.isfinite().all()),
+         "non-finite positions or forces in the graphed run")
+    print(f"  graphed: {ms_step:.3f} ms/step over {TIMED_STEPS} replays after step "
+          f"{s.step - TIMED_STEPS} (smoke figure; host clock, synchronised; {card})")
+    prof = profile_steps(torch, lambda _: graphed.run(1), None, label="replayed steps")
+    for name in ("cap_grad_kernel", *path_kernels):
+        need(any(name in n for n in prof["names"]), f"the replay trace names no {name}")
+    print(f"  the replay trace names cap_grad_kernel and {', '.join(path_kernels)}")
+    return dict(ms_step=ms_step, **prof)
 
 
 def run_slice(torch, dev, prot, card):
@@ -831,7 +962,8 @@ def run_slice(torch, dev, prot, card):
     from ai2bmd_torch.potentials import FragmentPotential
 
     pot, cfg, params = build_potential(torch, dev, prot, fused=False)
-    launches, ms_step, P, aux0, aux1, e0, f0 = drive(torch, dev, prot, pot, card)
+    launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
+                                                              EDGE_KERNELS)
     for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
         need(launches[name] > 0, f"kernel {name} was not launched on the main path")
     for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc",
@@ -860,13 +992,14 @@ def run_slice(torch, dev, prot, card):
           f"{time.perf_counter() - t0:.1f} s")
     need(dF <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF:.3e}")
     need(dF_fix <= FORCE_LIMIT, f"fixed-cap forces differ by {dF_fix:.3e}")
-    return launches, ms_step, dict(aux0=aux0, e0=e0, f0=f0, e_ref=e_ref, f_ref=f_ref)
+    return launches, ms_step, graphed, dict(aux0=aux0, e0=e0, f0=f0, e_ref=e_ref, f_ref=f_ref)
 
 
 def run_fused_slice(torch, dev, prot, card, ref):
     """Phase 4b: the slice through K5/K6, held against phase 4's step 0."""
     pot, _, _ = build_potential(torch, dev, prot, fused=True)
-    launches, ms_step, _, aux0, _, e0, f0 = drive(torch, dev, prot, pot, card)
+    launches, ms_step, _, aux0, _, e0, f0, graphed = drive(torch, dev, prot, pot, card,
+                                                           LAYER_KERNELS)
     evals = 1 + WARM_STEPS + TIMED_STEPS
     per_eval = N_LAYERS * (len(pot.rt.dip_buckets) + 1)
     for name in ("vislayer_fwd", "vislayer_bwd"):
@@ -888,7 +1021,7 @@ def run_fused_slice(torch, dev, prot, card, ref):
     need(same_caps, "the full-layer run started from other cap offsets than phase 4")
     need(dF_card <= FORCE_LIMIT, f"step-0 forces differ from the K1-K3 path by {dF_card:.3e}")
     need(dF_ref <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF_ref:.3e}")
-    return launches, ms_step
+    return launches, ms_step, graphed
 
 
 def run_ensemble(torch, dev, prot, card, ref):
@@ -1007,6 +1140,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stop-after", type=int, choices=(2, 3),
                     help="end after this phase, without the final line")
+    ap.add_argument("--cap-hash", action="store_true",
+                    help="print only K4's output hashes and device times on phase 3's "
+                         "inputs, without the final line (to compare K4 across commits)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1042,6 +1178,9 @@ def main(argv=None):
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
     if args.stop_after == 2:
         return
+    if args.cap_hash:
+        cap_hashes(torch, dev, load_protein(example_pdb("chig")), timed=True)
+        return
 
     print("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
@@ -1056,9 +1195,9 @@ def main(argv=None):
         return
 
     print("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD, edge-core kernels K1-K3")
-    launches, ms_step, ref = run_slice(torch, dev, prot, card)
+    launches, ms_step, graphed, ref = run_slice(torch, dev, prot, card)
     print("== 4b. the same slice through the full-layer kernels K5/K6")
-    launches_fl, ms_step_fl = run_fused_slice(torch, dev, prot, card, ref)
+    launches_fl, ms_step_fl, graphed_fl = run_fused_slice(torch, dev, prot, card, ref)
     print("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
     launches_ens = run_ensemble(torch, dev, prot, card, ref)
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
@@ -1072,7 +1211,8 @@ def main(argv=None):
                 "launches": launches[n], "bound_peak": BOUND_PEAK[n], **finish(results[n])}
                for n, (src, rep) in KERNELS.items()]
     print("== 6. results")
-    print(f"  ms/step {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6) (smoke); "
+    print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
+          f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6) (smoke); "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

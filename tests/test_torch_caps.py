@@ -20,6 +20,7 @@ from ai2bmd_tpu.io.pdb import read_pdb
 from ai2bmd_tpu.io.reorder import normalize_atom_order
 from ai2bmd_tpu.ops.pallas.caps import CapKernelTables
 from ai2bmd_tpu.ops.pallas.caps import amber_grad_rows as pallas_cap_grad
+from ai2bmd_torch import host as THost
 from ai2bmd_torch.frag import hydrogen as TH
 from ai2bmd_torch.frag import runtime as TR
 from ai2bmd_torch.ops import caps as TC
@@ -103,3 +104,69 @@ def test_cap_kernel_tables_fold_scalings(chig):
     np.testing.assert_allclose(nb_q.numpy(), (ct.nb_qq / ct.scee).numpy(), rtol=1e-6)
     assert torch.equal(nb_mask.bool(), ct.nb_mask)
     assert all(t.dtype in (torch.int32, torch.float32) for t in ct.kernel)
+
+
+def _walk_slots(ct, r):
+    """[(atom, carries force)] of every (term, endpoint) slot of row r in K4's
+    numbering (bonds, angles, dihedrals, pairs; term-major), by a walk over
+    the terms: a slot carries force unless its pair is masked out or all its
+    term's endpoints are one atom."""
+    out = []
+    for tab, mask in ((ct.bond_ij, None), (ct.angle_ijk, None), (ct.dih_ijkl, None),
+                      (ct.nb_ij, ct.nb_mask)):
+        for m, ends in enumerate(tab[r].tolist()):
+            live = len(set(ends)) > 1 and (mask is None or bool(mask[r, m]))
+            out += [(a, live) for a in ends]
+    return out
+
+
+@pytest.mark.parametrize("name", ["chig", "trpcage", "ww", "abd"])
+def test_cap_slot_lists(name):
+    """K4's per-atom slot lists (ops/caps.slot_lists) on each bundled
+    protein: every slot that can carry force appears exactly once, under the
+    atom its index table names, in ascending slot order; the slots left out
+    are those of masked-out pairs and of one-atom (padding) terms.  And the
+    lists' per-atom float32 sums, in list order, equal bitwise a scan over
+    every slot in slot order that adds the slots of each atom (the sum K4
+    took before the lists), when the left-out slots carry +-0.0 as K4 writes
+    them; a scan in the reverse order does not, so the order is tested."""
+    conftest.require_examples()
+    prot = THost.load_protein(THost.example_pdb(name))
+    rt = TR.FragmentRuntime.build(THost.build_fragment_index(prot.atoms), device="cpu")
+    ct = rt.ht.caps
+    ptr, idx = ct.kernel[-2].numpy(), ct.kernel[-1].numpy()
+    R, S = rt.gather_idx.shape
+    NB, NA, ND, NP = ct.sizes
+    NE = 2 * NB + 3 * NA + 4 * ND + 2 * NP
+    assert ptr.shape == (R, S + 1) and idx.shape == (R, NE)
+    assert ptr.dtype == idx.dtype == np.int32
+    rng = np.random.default_rng(0)
+    reordered = 0
+    for r in range(R):
+        slots = _walk_slots(ct, r)
+        assert len(slots) == NE
+        assert ptr[r, 0] == 0 and (np.diff(ptr[r]) >= 0).all()
+        assert sorted(idx[r, :ptr[r, S]].tolist()) == [e for e, (_, live) in enumerate(slots)
+                                                       if live]
+        # slot forces of many magnitudes (so the order of a sum shows), +-0.0
+        # where a slot carries none
+        f = (rng.normal(size=(NE, 3)) * 10.0 ** rng.uniform(-3, 3, (NE, 1))).astype(np.float32)
+        for e, (_, live) in enumerate(slots):
+            if not live:
+                f[e] = np.float32(-0.0) if e % 2 else np.float32(0.0)
+        scan = np.zeros((S, 3), np.float32)
+        back = np.zeros((S, 3), np.float32)
+        for e, (a, _) in enumerate(slots):
+            scan[a] += f[e]
+        for e, (a, _) in reversed(list(enumerate(slots))):
+            back[a] += f[e]
+        lists = np.zeros((S, 3), np.float32)
+        for a in range(S):
+            mine = idx[r, ptr[r, a]:ptr[r, a + 1]]
+            assert all(slots[e][0] == a for e in mine) and (np.diff(mine) > 0).all()
+            for e in mine:
+                lists[a] += f[e]
+        assert np.array_equal(lists, scan) and np.array_equal(np.signbit(lists),
+                                                              np.signbit(scan))
+        reordered += int((back != scan).sum())
+    assert reordered > 0

@@ -194,10 +194,12 @@ def test_port_never_imports_jax():
 
 
 def test_port_sources_never_import_the_jax_package():
-    """No file of the port, nor chip_smoke.py, imports ai2bmd_tpu or JAX."""
+    """No file of the port, nor chip_smoke.py or bench_torch.py, imports
+    ai2bmd_tpu or JAX."""
     pattern = re.compile(r"^\s*(from|import)\s+(ai2bmd_tpu|jax|jaxlib)\b", re.M)
     files = sorted(glob.glob(os.path.join(REPO, "ai2bmd_torch", "**", "*.py"), recursive=True))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
+    assert os.path.join(REPO, "ai2bmd_torch", "md", "graphed.py") in files
     assert len(files) > 20
     offenders = [f for f in files if pattern.search(open(f).read())]
     assert offenders == []
