@@ -15,7 +15,10 @@ What the graph holds and what it does not:
   with the shapes and order ``langevin_step`` draws them, so a graphed run
   takes the same noise as an eager run with the same generator;
 - outside it: the step counter (``MDState.step``, a host int) and the cold
-  start (``initial_cap_delta``), which runs eagerly before the capture.
+  start (``initial_cap_delta``), which runs eagerly before the capture;
+- between runs, ``load`` copies another state into the static buffers
+  (a restart, or the start of a pre-equilibration stage), so one capture
+  serves a whole simulation; ``replays`` counts the replays.
 
 The graph needs the card: on CPU tensors ``GraphedLangevin`` raises, and a
 failed capture raises too; neither falls back to eager steps.  The force
@@ -63,6 +66,15 @@ class StepBuffers:
         return MDState(self.positions, self.velocities, self.forces, self.energy, step=step,
                        aux=self.aux)
 
+    def copy_from(self, state: MDState) -> None:
+        """Copy ``state``'s tensors into these buffers, in place."""
+        self.positions.copy_(state.positions)
+        self.velocities.copy_(state.velocities)
+        self.forces.copy_(state.forces)
+        self.energy.copy_(state.energy)
+        if self.aux is not None:
+            self.aux.copy_(state.aux)
+
 
 def draw_step_noise(generator: torch.Generator, buf: StepBuffers) -> None:
     """Draw one step's standard normals into ``buf.xi``, then ``buf.eta``,
@@ -75,13 +87,8 @@ def step_into(buf: StepBuffers, potential: Callable, coeffs: LangevinCoeffs,
               masses: torch.Tensor) -> None:
     """The captured body: one ``langevin_step`` on the buffers' state and
     noise, its results copied back into the buffers."""
-    new = langevin_step(potential, coeffs, masses, buf.state(), xi=buf.xi, eta=buf.eta)
-    buf.positions.copy_(new.positions)
-    buf.velocities.copy_(new.velocities)
-    buf.forces.copy_(new.forces)
-    buf.energy.copy_(new.energy)
-    if buf.aux is not None:
-        buf.aux.copy_(new.aux)
+    buf.copy_from(langevin_step(potential, coeffs, masses, buf.state(), xi=buf.xi,
+                                eta=buf.eta))
 
 
 class GraphedLangevin:
@@ -92,8 +99,9 @@ class GraphedLangevin:
     construction: the warm-up steps run on a copy of the state, with noise
     from a generator of their own.  ``run(n)`` then draws each step's noise
     from ``generator`` and replays the graph; ``state`` aliases the buffers
-    the graph overwrites.  ``setup_seconds`` holds the wall time of the
-    warm-up and of the capture (instantiation included)."""
+    the graph overwrites; ``load`` puts another state there.  ``replays``
+    counts the graph's replays.  ``setup_seconds`` holds the wall time of
+    the warm-up and of the capture (instantiation included)."""
 
     def __init__(self, potential: Callable, coeffs: LangevinCoeffs, masses: torch.Tensor,
                  state: MDState, generator: torch.Generator):
@@ -102,6 +110,7 @@ class GraphedLangevin:
                                f"{state.positions.device}")
         self.generator = generator
         self.step_count = state.step
+        self.replays = 0
         self.buffers = StepBuffers.from_state(state)
         body = lambda buf: step_into(buf, potential, coeffs, masses)
 
@@ -132,10 +141,17 @@ class GraphedLangevin:
     def state(self) -> MDState:
         return self.buffers.state(self.step_count)
 
+    def load(self, state: MDState) -> None:
+        """Continue from ``state``: its tensors are copied into the buffers the
+        graph reads, and its step becomes the step counter."""
+        self.buffers.copy_from(state)
+        self.step_count = state.step
+
     def run(self, n_steps: int) -> MDState:
         """``n_steps`` steps: per step, the noise draw, then one replay."""
         for _ in range(n_steps):
             draw_step_noise(self.generator, self.buffers)
             self.graph.replay()
             self.step_count += 1
+            self.replays += 1
         return self.state

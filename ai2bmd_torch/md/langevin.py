@@ -1,8 +1,9 @@
 """Langevin dynamics with ASE-compatible semantics.
 
-Port of ``ai2bmd_tpu/md/langevin.py:25-181``: the Vanden-Eijnden / Ciccotti
-integrator exactly as ASE's ``Langevin``, its replica-batched form, and the
-Maxwell-Boltzmann velocity draw.  The noise of a step comes from an explicit
+Port of ``ai2bmd_tpu/md/langevin.py``: the Vanden-Eijnden / Ciccotti
+integrator exactly as ASE's ``Langevin``, its replica-batched form, the
+Maxwell-Boltzmann velocity draw, the kinetic energy and the temperature.
+The noise of a step comes from an explicit
 ``torch.Generator`` (one per replica in the batched form) unless the caller
 passes it in (``xi``, ``eta``), which is how the tests feed both packages the
 same numbers: torch's and JAX's generators differ.
@@ -31,6 +32,17 @@ class MDState:
     energy: torch.Tensor       # scalar eV
     step: int = 0
     aux: Any = None            # potential-side carry (cap offsets)
+
+
+def lift_potential(potential: Callable) -> Callable:
+    """A stateless P -> (E, F) potential in the stateful (P, aux) -> (E, F,
+    aux) protocol the integrators use."""
+
+    def wrapped(P, aux):
+        e, f = potential(P)
+        return e, f, aux
+
+    return wrapped
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +81,22 @@ def maxwell_boltzmann_velocities(generator: torch.Generator, masses, temp_K: flo
     std = torch.sqrt(temp_K * units.kB / m)
     return std * torch.randn((len(masses), 3), generator=generator, dtype=dtype,
                              device=generator.device)
+
+
+def _mass_column(masses, like: torch.Tensor) -> torch.Tensor:
+    """masses [N] (array or tensor) as a [N,1] tensor of ``like``'s dtype and
+    device."""
+    return torch.as_tensor(masses, dtype=like.dtype, device=like.device)[:, None]
+
+
+def kinetic_energy(masses, velocities: torch.Tensor) -> torch.Tensor:
+    """0.5 * sum m v^2 (eV) over every atom, as a 0-d tensor."""
+    return 0.5 * (_mass_column(masses, velocities) * velocities * velocities).sum()
+
+
+def temperature(masses, velocities: torch.Tensor) -> torch.Tensor:
+    """Instantaneous temperature (K) of velocities [N,3]: 2 Ekin / (3 N kB)."""
+    return 2.0 * kinetic_energy(masses, velocities) / (3.0 * velocities.shape[0] * units.kB)
 
 
 def langevin_step(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Tensor,
@@ -123,3 +151,4 @@ def langevin_step_batched(potential: Callable, coeffs: LangevinCoeffs, masses: t
         xi = torch.stack([a for a, _ in noise])
         eta = torch.stack([b for _, b in noise])
     return langevin_step(potential, coeffs, masses, state, fixcm, xi, eta)
+

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.host import Protein, units
+from ai2bmd_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -25,8 +26,10 @@ class NonbondedParams:
     mask: torch.Tensor     # [N,N] bool: i != j and not same-dipeptide
 
     @classmethod
-    def build(cls, prot: Protein, exclusion_mask: np.ndarray, device="cpu",
+    def build(cls, prot: Protein, exclusion_mask: np.ndarray, device=None,
               dtype=torch.float32) -> "NonbondedParams":
+        """``device`` None means the card (raises without one)."""
+        device = resolve_device(device)
         n = len(prot)
         pair = ~np.eye(n, dtype=bool) & ~exclusion_mask
         # rounded through float32 like the reference's tables

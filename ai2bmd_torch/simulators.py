@@ -1,0 +1,116 @@
+"""High-level simulation assembly: the reference simulator API.
+
+Port of ``ai2bmd_tpu/simulators.py:31-259`` for the vacuum path, the
+reference's NoSolventSimulator (src/AIMD/simulator.py:295-313): fragment-mode
+MD of the capped protein with the "mm" long range, warm-started caps and an
+optional H-bond restraint, on the card unless the caller passes
+``device="cpu"``.
+
+Refused, each naming the ROADMAP item that ports it: whole-molecule mode
+(``mode="visnet"``) and checkpoints (item 11), ``longrange="pme"`` (item 12,
+raised by ``FragmentPotential.build``), explicit solvent and solvated inputs
+(item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ai2bmd_torch.host import Protein, load_protein
+from ai2bmd_torch.md.constraints import BondRestraint
+from ai2bmd_torch.md.simulation import SimulationConfig, Simulator
+from ai2bmd_torch.models.params import init_params
+from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+from ai2bmd_torch.potentials import FragmentPotential
+from ai2bmd_torch.utils.device import resolve_device
+
+WARM_ITERS = 1   # L-BFGS iterations a step from the previous step's caps (simulators.py:209-220)
+
+
+def load_model(ckpt_path: str | None, cfg: ViSNetConfig | None = None, seed: int = 0):
+    """Random weights (``init_params`` from ``seed``) and their config.
+
+    Loading a checkpoint is ROADMAP item 11: a path that exists, or a
+    converted ``.npz``, raises; a path that does not exist gives the random
+    initialization, as in the JAX package (no reference weights ship)."""
+    if ckpt_path and (ckpt_path.endswith(".npz") or os.path.exists(ckpt_path)):
+        raise NotImplementedError(
+            f"loading the checkpoint {ckpt_path} is not ported yet (ROADMAP.md, Queue 1 item 11)")
+    cfg = cfg or ViSNetConfig()
+    return init_params(cfg, torch.Generator().manual_seed(seed)), cfg
+
+
+@dataclasses.dataclass
+class ProteinSimulation:
+    """One assembled simulation: protein + potential + driver."""
+
+    prot: Protein
+    sim: Simulator
+    potential: FragmentPotential
+    log_dir: str
+    prot_name: str
+
+    @classmethod
+    def from_pdb(cls, prot_file: str, log_dir: str | None = None, mode: str = "fragment",
+                 longrange: str = "mm", solvent: bool | None = None,
+                 ckpt_path: str | None = None, model_cfg: ViSNetConfig | None = None,
+                 sim_cfg: SimulationConfig | None = None, opt_iters: int = 10,
+                 device=None) -> "ProteinSimulation":
+        """``device`` None means the card (raises without one)."""
+        device = resolve_device(device)
+        prot_name = os.path.basename(prot_file).rsplit(".", 1)[0]
+        log_dir = log_dir or os.path.join(os.getcwd(), f"Logs-{prot_name}")
+        if mode == "visnet":
+            raise NotImplementedError(
+                "mode='visnet' (whole-molecule ViSNet) is not ported yet (ROADMAP.md, Queue 1 "
+                "item 11)")
+        if mode != "fragment":
+            raise ValueError(f"unknown mode {mode!r}")
+        prot = load_protein(prot_file)
+        sim_cfg = sim_cfg or SimulationConfig()
+        has_solvent = len(prot.protein_indices()) < len(prot)
+        if solvent and not has_solvent:
+            raise ValueError("solvent=True but the input has no water/ions")
+        if solvent or has_solvent:
+            raise NotImplementedError(
+                f"{prot_file} holds water or ions: explicit-solvent QM/MM is not ported yet "
+                f"(ROADMAP.md, Queue 1 item 13)")
+
+        params, cfg = load_model(ckpt_path, model_cfg)
+        pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange=longrange,
+                                      opt_iters=opt_iters, device=device)
+        hbond = None
+        if sim_cfg.hydrogen_constraints:
+            hbond = BondRestraint.find_hydrogen_bonds(prot.atoms, device=device)
+        # warm-started caps: the cap offsets ride in the integrator's carry,
+        # cold-started once here (the JAX package's choice, simulators.py:
+        # 154-163: warm-1 sits within the reference's own cold protocol)
+        P0 = torch.as_tensor(np.asarray(prot.positions), dtype=torch.float32, device=device)
+        sim = Simulator(
+            potential=lambda P, aux: pot.stateful_energy_forces(P, aux, warm_iters=WARM_ITERS),
+            masses=prot.masses, numbers=prot.numbers, cfg=sim_cfg, log_dir=log_dir,
+            prot_name=prot_name, hbond_restraint=hbond, stateful=True,
+            init_aux=pot.init_cap_delta(P0), device=device)
+        return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
+
+    def simulate(self, simulation_steps: int, restart: bool = False, log=print):
+        restart_path = None
+        if restart:
+            restart_path = os.path.join(self.log_dir, f"{self.prot_name}-restart.npz")
+            if not os.path.exists(restart_path):
+                raise FileNotFoundError(f"no restart checkpoint at {restart_path}")
+        state = self.sim.initial_state(self.prot.positions, restart=restart_path, log=log)
+        if not restart:
+            state = self.sim.pre_equilibrate(state, log=log)
+        log(("Re-start" if restart else "Start") + f" simulation for {simulation_steps} steps")
+        state = self.sim.run(
+            state, simulation_steps, log=log,
+            # a restarted run writes {prot}-traj-restart.* instead of
+            # truncating the original trajectory (reference simulator.py:119)
+            traj_suffix="-restart" if restart else "")
+        log("Simulation finished!")
+        return state

@@ -68,7 +68,25 @@ is not printed):
      initial forces held against phase 4's step 0; one chunk run with
      remat=True and remat=False, forces compared and peak device memory
      printed; ms per step and per replica-step (smoke figures)
-  6. one JSON line of kernel results, the card's name and power limit, and
+  6. the user-facing path, at 9 x 256 with phase 4's weights: (a)
+     ProteinSimulation.from_pdb("examples/chig.pdb") and simulate(40) after a
+     ladder of 5 x 4 steps, recorded every 10, with the H-bond restraint:
+     launch counters (K1-K4, from the cold start, warm-up and capture),
+     replays (5 x 4 + 40), the first forces against phase 4's step 0, the
+     first record interval after the ladder against eager steps from the
+     same state and generator state, and again with every H-bond spring
+     pulling (thresholds shortened in place), a profiled record interval
+     naming cap_grad_kernel and K1-K3's kernels, the XYZ / DCD / metrics /
+     restart files; (b) `python -m ai2bmd_torch` as subprocesses: a
+     300-step timing run (its steady ms/step from its metrics CSV, beside
+     phase 4's graphed figure; DCD against XYZ frames), 20 steps then
+     --restart 10 against 30 straight with --constraints (positions and
+     velocities within 1e-6, forces within 1e-3, the same generator
+     state); (c)
+     --replicas 8 (8 DCDs, the final npz).  These runs step at 0.05 fs (the
+     timing run 0.01 fs): random weights heat vacuum Chignolin past the
+     runaway guard within ~10-20 fs
+  7. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
@@ -79,8 +97,10 @@ prints are smoke figures, not a benchmark.
 import argparse
 import dataclasses
 import json
+import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -792,10 +812,11 @@ def add_stage_sums(res, last, t, parts):
     add_times(sums, {"all": t["device_ms"], **{short_name(n): ms for n, ms in parts.items()}})
 
 
-def profile_steps(torch, step, state, n=3, label="steps"):
-    """Device busy share of n MD steps and the kernels that take the time.
-    Returns kernels per step, busy ms per step, the busy share and the set
-    of device kernel names in the trace."""
+def profile_steps(torch, step, state, n=3, label="steps", steps_per_call=1):
+    """Device busy share of n calls of ``step`` (``steps_per_call`` MD steps
+    each) and the kernels that take the time.  Returns kernels per MD step,
+    busy ms per MD step, the busy share and the set of device kernel names
+    in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -806,6 +827,7 @@ def profile_steps(torch, step, state, n=3, label="steps"):
             state = step(state)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    n *= steps_per_call
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
     by_name = {}
@@ -1115,6 +1137,235 @@ def run_ensemble(torch, dev, prot, card, ref):
     return launches
 
 
+# Phase 6 runs vacuum Chignolin with random weights, which heats past the
+# Simulator's runaway guard (1.5 x 300 K) within ~10-20 fs (PERF.md, section
+# 6).  The guard stays; the runs step at a shorter timestep so that they stay
+# under it.  A step's work does not depend on the timestep.
+USER_DT_FS = 0.05             # the library run (60 steps) and the continuity runs (30 steps)
+TIMING_DT_FS = 0.01           # the CLI timing run (300 steps)
+PREEQ_STEPS, RECORD, PROD_STEPS = 4, 10, 40
+CLI_STEPS, CLI_RECORD = 300, 100
+ENSEMBLE_CLI = ["--replicas", "8", "--sim-steps", "4", "--record-per-steps", "2"]
+# the H-bond restraint's thresholds are shortened by this much (A) for one
+# replayed interval, so that the H-X springs pull inside the captured step
+HBOND_PULL = 0.3
+# a restarted run against an uninterrupted one, 30 steps at USER_DT_FS: only
+# the stitch's atomic sums may part them (on the H100 sound runs read
+# max|dx| 0 and max|dv| below 1e-8)
+RESTART_LIMIT = 1e-6          # A and A/t
+
+
+def _cli_cmd(log_dir, *args):
+    return [sys.executable, "-m", "ai2bmd_torch", "--prot-file", "examples/chig.pdb",
+            "--log-dir", log_dir, "--no-solvent", *args]
+
+
+def _cli_wait(name, proc, timeout=600):
+    """Wait for a CLI subprocess (killed at ``timeout``); fail on a nonzero
+    exit with the end of its output."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise RuntimeError(f"CLI run {name} did not finish in {timeout} s")
+    need(proc.returncode == 0, f"CLI run {name} exited {proc.returncode}:\n{out[-3000:]}\n"
+                               f"{err[-3000:]}")
+    return out
+
+
+def _cli_start(cmd):
+    return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _metrics(path):
+    rows = open(path).read().splitlines()
+    need(rows and rows[0].startswith("step,"), f"{path} has no header")
+    return [dict(zip(rows[0].split(","), map(float, r.split(",")))) for r in rows[1:]]
+
+
+def run_user_library(torch, dev, root, ref):
+    """Phase 6a: ProteinSimulation.from_pdb at 9 x 256 on the card,
+    PREEQ_STEPS a ladder stage, then simulate(PROD_STEPS): launch counters,
+    replay count, the first forces against phase 4's step 0, the first record
+    interval after the ladder against eager steps from the same state and
+    generator state, the same with every H-bond spring pulling, a profiled
+    record interval, the files.  The run has the H-bond restraint on."""
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.md.constraints import restraint_energy_forces
+    from ai2bmd_torch.md.simulation import SimulationConfig
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.simulators import ProteinSimulation
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    log_dir = os.path.join(root, "library")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ps = ProteinSimulation.from_pdb(
+        "examples/chig.pdb", log_dir=log_dir, model_cfg=ViSNetConfig(),
+        sim_cfg=SimulationConfig(timestep_fs=USER_DT_FS, preeq_steps=PREEQ_STEPS,
+                                 record_per_steps=RECORD, hydrogen_constraints=True),
+        device=dev)
+    sim = ps.sim
+    need(sim.hbond is not None and len(sim.hbond.pairs) == 78, "no H-bond restraint")
+    calls = []                          # (state in, generator state before, state out)
+    advance = sim.advance
+
+    def recorded(state, n):
+        before = sim.generator.get_state()
+        out = advance(state, n)
+        calls.append((state, before, out))
+        return out
+
+    sim.advance = recorded
+    lines = []
+    final = ps.simulate(PROD_STEPS, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    stages = len(sim.cfg.preeq_restraints_kcal)
+    print(f"  from_pdb + simulate({PROD_STEPS}) after {stages} x {PREEQ_STEPS} ladder steps at "
+          f"{USER_DT_FS} fs: {wall:.1f} s; {lines[-2]}")
+    print(f"  launches {launches}; graph replays {sim.graph.replays}")
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
+        need(launches[name] > 0, f"{name} was not launched on the user path")
+    need(sim.graph.replays == stages * PREEQ_STEPS + PROD_STEPS,
+         f"{sim.graph.replays} replays, expected {stages * PREEQ_STEPS + PROD_STEPS}")
+    need(final.step == stages * PREEQ_STEPS + PROD_STEPS, f"final step {final.step}")
+
+    cpu = torch.device("cpu")
+    dF0 = float((calls[0][0].forces.to(cpu, torch.float64)
+                 - ref["f0"].to(cpu, torch.float64)).abs().max())
+
+    def against_eager(s_in, gen_state, got, what):
+        g = torch.Generator(device=dev)
+        g.set_state(gen_state)
+        s = s_in
+        for _ in range(RECORD):
+            s = L.langevin_step(sim.full_potential, sim.coeffs, sim.masses, s, generator=g)
+        dx = float((got.positions - s.positions).abs().max())
+        dF = float((got.forces - s.forces).abs().max())
+        print(f"  {what}, replays vs eager steps from the same state and generator state: "
+              f"max|dx| {dx:.3e} A, max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT})")
+        need(dx <= FORCE_LIMIT and dF <= FORCE_LIMIT,
+             f"{what}: replays differ from eager steps: dx {dx:.3e}, dF {dF:.3e}")
+
+    print(f"  initial forces vs phase 4's step 0: max|dF| {dF0:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(dF0 <= FORCE_LIMIT, f"user-path initial forces differ from phase 4 by {dF0:.3e}")
+    against_eager(*calls[stages], "first record interval after the ladder")
+    need(bool(final.positions.isfinite().all() and final.forces.isfinite().all()
+              and final.energy.isfinite()), "non-finite final state on the user path")
+    # the graph reads the thresholds where they lie: shortened in place,
+    # every spring pulls in the replays that follow
+    rt = sim.hbond.rt.clone()
+    sim.hbond.rt.sub_(HBOND_PULL)
+    e_r, f_r = restraint_energy_forces(sim.hbond, final.positions)
+    pairs = sim.hbond.pairs
+    bond = (final.positions[pairs[:, 0]] - final.positions[pairs[:, 1]]).norm(dim=-1)
+    n_pull = int((bond > sim.hbond.rt).sum())
+    print(f"  H-bond thresholds shortened by {HBOND_PULL} A: {n_pull} of {len(pairs)} springs "
+          f"pull, restraint {float(e_r):.3f} eV, max|F| {float(f_r.abs().max()):.3f} eV/A")
+    need(float(e_r) > 1.0 and 2 * n_pull >= len(pairs), "the restraint does not pull")
+    gen_state = sim.generator.get_state()
+    against_eager(final, gen_state, sim.advance(final, RECORD),
+                  "a record interval with every H-bond spring pulling")
+    sim.hbond.rt.copy_(rt)
+
+    prof = profile_steps(torch, lambda st: sim.advance(st, RECORD), final, n=1,
+                         label="replayed steps of one record interval", steps_per_call=RECORD)
+    for name in ("cap_grad_kernel", *EDGE_KERNELS):
+        need(any(name in n for n in prof["names"]), f"the user path's trace names no {name}")
+    rows = _metrics(os.path.join(log_dir, "chig-metrics.csv"))
+    frames = read_dcd(os.path.join(log_dir, "chig-traj.dcd"))
+    xyz = open(os.path.join(log_dir, "chig-traj.xyz")).read().count("step=")
+    n_rec = PROD_STEPS // RECORD
+    need(len(rows) == n_rec and frames.shape == (n_rec, 175, 3) and xyz == n_rec,
+         f"files: {len(rows)} metrics rows, DCD {frames.shape}, {xyz} XYZ frames; want {n_rec}")
+    need(os.path.exists(os.path.join(log_dir, "chig-restart.npz")), "no restart file")
+    need(all(map(math.isfinite, (r["epot_eV"] for r in rows))) and bool(
+        torch.isfinite(torch.as_tensor(frames)).all()), "non-finite energies or frames")
+    print(f"  files: {n_rec} XYZ / DCD frames and metrics rows, a restart file; the trace names "
+          f"cap_grad_kernel and {', '.join(EDGE_KERNELS)}")
+
+
+def run_user_cli(torch, root, graphed_ms, card):
+    """Phase 6b/6c: the CLI as subprocesses.  A timing run of CLI_STEPS steps
+    alone; then, side by side, an interrupted run (20 steps), an
+    uninterrupted one (30 steps) and the 8-replica ensemble; then the restart
+    of the interrupted run (10 steps), held to the uninterrupted run's
+    restart file (RESTART_LIMIT, FORCE_LIMIT, the generator state bitwise).
+    Returns the CLI's steady ms/step."""
+    import numpy as np
+
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    d = lambda name: os.path.join(root, name)
+    t0 = time.perf_counter()
+    out = _cli_wait("timing", _cli_start(_cli_cmd(
+        d("timing"), "--preeq-steps", "0", "--sim-steps", str(CLI_STEPS), "--record-per-steps",
+        str(CLI_RECORD), "--timestep", str(TIMING_DT_FS))))
+    wall = time.perf_counter() - t0
+    need("Simulation finished!" in out, "the timing run did not finish")
+    rows = _metrics(d("timing/chig-metrics.csv"))
+    need(len(rows) == CLI_STEPS // CLI_RECORD, f"{len(rows)} metrics rows")
+    steady = [r["ms_per_step"] for r in rows[1:]]
+    cli_ms = sum(steady) / len(steady)
+    dcd = read_dcd(d("timing/chig-traj.dcd"))
+    xyz_lines = open(d("timing/chig-traj.xyz")).read().splitlines()
+    xyz = np.array([[float(v) for v in ln.split()[1:4]] for ln in xyz_lines
+                    if len(ln.split()) == 4]).reshape(dcd.shape)
+    dxyz = float(np.abs(dcd - xyz).max())
+    need(dxyz <= 1e-5, f"DCD and XYZ frames differ by {dxyz:.3e} A")
+    print(f"  CLI timing run, {CLI_STEPS} steps at {TIMING_DT_FS} fs, record every "
+          f"{CLI_RECORD}: exit 0 in {wall:.1f} s (process start, kernels loaded, cold caps, "
+          f"capture); metrics ms/step {[r['ms_per_step'] for r in rows]}; DCD vs XYZ frames "
+          f"max {dxyz:.1e} A")
+    print(f"  CLI steady {cli_ms:.3f} ms/step ({86.4 * TIMING_DT_FS / cli_ms:.4f} ns/day at "
+          f"{TIMING_DT_FS} fs, {86.4 / cli_ms:.4f} at 1 fs) against phase 4's graphed "
+          f"{graphed_ms:.3f} ms/step ({card})")
+
+    cont = ["--preeq-steps", "0", "--record-per-steps", "10", "--timestep", str(USER_DT_FS),
+            "--constraints"]
+    t0 = time.perf_counter()
+    procs = {"interrupted": _cli_start(_cli_cmd(d("restart"), *cont, "--sim-steps", "20")),
+             "uninterrupted": _cli_start(_cli_cmd(d("straight"), *cont, "--sim-steps", "30")),
+             "ensemble": _cli_start(_cli_cmd(d("ensemble"), *ENSEMBLE_CLI))}
+    outs = {name: _cli_wait(name, p) for name, p in procs.items()}
+    _cli_wait("restart", _cli_start(_cli_cmd(d("restart"), *cont, "--sim-steps", "10",
+                                             "--restart")))
+    wall = time.perf_counter() - t0
+    frames = read_dcd(d("restart/chig-traj-restart.dcd"))
+    last = _metrics(d("restart/chig-metrics.csv"))[-1]["step"]
+    need(frames.shape == (1, 175, 3), f"chig-traj-restart.dcd holds {frames.shape}")
+    need(last == 30, f"the restarted run's last metrics row is at step {last}")
+    with np.load(d("restart/chig-restart.npz")) as a, np.load(d("straight/chig-restart.npz")) as b:
+        need(int(a["step"]) == int(b["step"]) == 30, "restart files not at step 30")
+        dx = float(np.abs(a["positions"] - b["positions"]).max())
+        dv = float(np.abs(a["velocities"] - b["velocities"]).max())
+        dF = float(np.abs(a["forces"] - b["forces"]).max())
+        same_rng = np.array_equal(a["rng_state"], b["rng_state"])
+    print(f"  CLI continuity at {USER_DT_FS} fs with --constraints: 20 steps, then --restart 10, "
+          f"against 30 straight: max|dx| {dx:.3e} A, max|dv| {dv:.3e} A/t (limit "
+          f"{RESTART_LIMIT}), max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT}), generator states "
+          f"{'equal' if same_rng else 'DIFFERENT'}; chig-traj-restart.dcd 1 frame, last metrics "
+          f"row at step 30")
+    need(same_rng, "the restarted run's generator state differs from the uninterrupted run's")
+    need(dx <= RESTART_LIMIT and dv <= RESTART_LIMIT and dF <= FORCE_LIMIT,
+         f"the restarted run left the uninterrupted one: dx {dx:.3e}, dv {dv:.3e}, dF {dF:.3e}")
+
+    ens = d("ensemble")
+    dcds = sorted(f for f in os.listdir(ens) if f.endswith(".dcd"))
+    need(len(dcds) == 8 and all(read_dcd(os.path.join(ens, f)).shape == (2, 175, 3)
+                                for f in dcds), f"ensemble DCDs {dcds}")
+    need(os.path.exists(os.path.join(ens, "8x-ensemble-final.npz")), "no ensemble final npz")
+    print(f"  CLI {' '.join(ENSEMBLE_CLI)}: exit 0, 8 DCDs of 2 frames, 8x-ensemble-final.npz; "
+          f"{outs['ensemble'].strip().splitlines()[-2]}; the four runs took {wall:.1f} s")
+    return cli_ms
+
+
 KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
     "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:543"),
     "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
@@ -1200,6 +1451,11 @@ def main(argv=None):
     launches_fl, ms_step_fl, graphed_fl = run_fused_slice(torch, dev, prot, card, ref)
     print("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
     launches_ens = run_ensemble(torch, dev, prot, card, ref)
+    print("== 6. the user-facing path: ProteinSimulation and the CLI (python -m ai2bmd_torch)")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_user")
+    shutil.rmtree(root, ignore_errors=True)
+    run_user_library(torch, dev, root, ref)
+    cli_ms = run_user_cli(torch, root, graphed["ms_step"], card)
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -1210,10 +1466,10 @@ def main(argv=None):
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "bound_peak": BOUND_PEAK[n], **finish(results[n])}
                for n, (src, rep) in KERNELS.items()]
-    print("== 6. results")
+    print("== 7. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
-          f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6) (smoke); "
-          f"{time.perf_counter() - T_START:.0f} s since start")
+          f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
+          f"{cli_ms:.3f} (K1-K3) (smoke); {time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -116,7 +116,7 @@ def test_langevin_step_batched_matches_jax_with_its_noise(ens, chig_protein):
     splits.  Tolerances: positions and velocities 1e-5, forces and E 2e-4."""
     masses = chig_protein.masses
     jnb = JN.NonbondedParams.build(chig_protein, ens["fi"].exclusion_mask())
-    tnb = TN.NonbondedParams.build(chig_protein, ens["fi"].exclusion_mask())
+    tnb = TN.NonbondedParams.build(chig_protein, ens["fi"].exclusion_mask(), device="cpu")
 
     def jpot(Ps, aux):
         e, g = jax.vmap(jax.value_and_grad(lambda p: JN.nonbonded_energy(jnb, p)))(Ps)

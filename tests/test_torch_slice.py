@@ -31,7 +31,12 @@ from ai2bmd_torch.models.params import params_from_jax
 from ai2bmd_torch.ops import caps as TC
 from ai2bmd_torch.ops import vislayer as TFL
 from ai2bmd_torch.ops import vismp as TK
+from ai2bmd_torch import cli as TCLI
+from ai2bmd_torch import simulators as TSIM
+from ai2bmd_torch.md import constraints as TMC
+from ai2bmd_torch.md import simulation as TSIMU
 from ai2bmd_torch.parallel import ReplicaEnsemble
+from ai2bmd_torch.physics import nonbonded as TN
 from ai2bmd_torch.utils import device as TD
 
 SMALL = dict(hidden_channels=32, num_heads=4, num_layers=3, num_rbf=8, max_z=20)
@@ -155,8 +160,10 @@ def test_pme_is_not_ported(chig_protein, pots):
 
 def test_port_never_imports_jax():
     """A tiny CPU slice in a fresh interpreter, through the full-layer path
-    and the edge-core path: neither JAX nor any ai2bmd_tpu module loads, and
-    no kernel launch is counted (CPU tensors take the plain versions)."""
+    and the edge-core path, with the CLI, the Simulator, ProteinSimulation
+    and the trajectory IO imported: neither JAX nor any ai2bmd_tpu module
+    loads, and no kernel launch is counted (CPU tensors take the plain
+    versions)."""
     code = textwrap.dedent("""
         import dataclasses, sys, torch
         from ai2bmd_torch.host import example_pdb, load_protein
@@ -165,6 +172,8 @@ def test_port_never_imports_jax():
         from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
         from ai2bmd_torch.ops import LAUNCHES
         from ai2bmd_torch.potentials import FragmentPotential
+        import ai2bmd_torch.cli, ai2bmd_torch.md.simulation, ai2bmd_torch.simulators
+        import ai2bmd_torch.io.trajectory, ai2bmd_torch.tools.traj2dcd
         prot = load_protein(example_pdb("chig"))
         cfg = ViSNetConfig(hidden_channels=32, num_heads=1, num_layers=2, num_rbf=8, max_z=20)
         params = init_params(cfg, torch.Generator().manual_seed(0))
@@ -211,7 +220,7 @@ def test_require_cuda_raises_without_a_card(monkeypatch):
         TD.require_cuda()
 
 
-def test_entry_points_default_to_the_card(monkeypatch, pots, chig_protein):
+def test_entry_points_default_to_the_card(monkeypatch, pots, chig_protein, tmp_path):
     """Given no device, the entry points take the card, and without one they
     raise the require_cuda error; device="cpu" runs on the CPU."""
     _, tpot, _, P = pots
@@ -228,6 +237,20 @@ def test_entry_points_default_to_the_card(monkeypatch, pots, chig_protein):
     with pytest.raises(NotImplementedError, match="item 17"):
         ReplicaEnsemble.build(chig_protein, tpot.fi, module.params(), tpot.cfg, n_replicas=2,
                               device="cpu", mesh=object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TN.NonbondedParams.build(chig_protein, tpot.fi.exclusion_mask())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TMC.BondRestraint.find_hydrogen_bonds(chig_protein.atoms)
+    lone = lambda p: (p.sum() * 0, torch.zeros_like(p))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSIMU.Simulator(lone, chig_protein.masses, chig_protein.numbers,
+                        TSIMU.SimulationConfig(), str(tmp_path), "chig")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSIM.ProteinSimulation.from_pdb(conftest.example_pdb("chig"), log_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TCLI.main(["--prot-file", conftest.example_pdb("chig"), "--log-dir", str(tmp_path)])
+    assert TN.NonbondedParams.build(chig_protein, tpot.fi.exclusion_mask(),
+                                    device="cpu").mask.device.type == "cpu"
     pot = TP.FragmentPotential.build(chig_protein, module, tpot.cfg, device="cpu")
     e, f, _ = pot.stateful_energy_forces(T(P), pot.init_cap_delta(T(P)))
     assert f.device.type == "cpu" and torch.isfinite(f).all() and torch.isfinite(e)
