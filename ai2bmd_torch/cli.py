@@ -8,17 +8,22 @@ a card and without ``--device cpu`` it raises; it never falls back to the
 CPU, and on the card the MD loop is replays of one captured step.
 
 Routes:
-  * the vacuum fragment path (``ProteinSimulation``); an exception during
-    the simulation exits 255, as the reference's runaway / solver errors do
+  * the vacuum paths (``ProteinSimulation``): fragment mode, and whole-molecule
+    mode with ``--mode visnet``; an exception during the simulation exits
+    255, as the reference's runaway / solver errors do
   * ``--replicas > 1`` (or ``--mesh-mp > 1``): ``ReplicaEnsemble`` on one
     card, each replica with its own DCD, the whole batched state (and every
     replica's generator state) checkpointed each record interval
+  * weights: ``--ckpt-path`` (a Lightning .ckpt, or a converted .npz; with
+    ``--ckpt-type <id>`` the file ``<ckpt-path>/visnet-uni-<id>.ckpt``) on
+    every route, else random weights; a file that is not a checkpoint exits
+    nonzero naming it
 
-Refused, naming the ROADMAP item that ports them: ``--mode visnet`` and
-checkpoints (item 11), ``--fragment-longrange-calc pme`` (item 12), solvated
-inputs and ``--solvent`` (item 13), ``--preprocess`` (item 14), a mesh of
-more than one card (item 17), and ``--matmul-precision`` other than float32
-(the port's products are float32 or 3xTF32 by design).  The reference's
+Refused, naming the ROADMAP item that ports them: ``--fragment-longrange-calc
+pme`` in fragment mode (item 12), solvated inputs and ``--solvent`` (item
+13), ``--preprocess`` (item 14), a mesh of more than one card (item 17), and
+``--matmul-precision`` other than float32 (the port's products are float32
+or 3xTF32 by design).  The reference's
 ``--device-strategy``, ``--work-strategy`` and ``--chunk-size`` are accepted
 as no-ops, as in the JAX package; ``--mm-method``, ``--polarizable-mm``,
 ``--rigid-water`` and ``--write-solvent`` act only on solvated runs.
@@ -41,8 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-dir", type=str, default=None,
                    help="directory for results (default: <base>/Logs-<prot>)")
     p.add_argument("--ckpt-path", type=str, default=None,
-                   help="ViSNet checkpoint (loading one is ROADMAP item 11); random init "
-                        "when absent")
+                   help="ViSNet checkpoint: a Lightning .ckpt or a converted .npz; random "
+                        "init when absent")
     p.add_argument("--ckpt-type", type=str, default=None,
                    help="checkpoint md5 id (reference compatibility; joined "
                         "with --ckpt-path as visnet-uni-<id>.ckpt)")

@@ -61,11 +61,19 @@ class ViSNetConfig:
     vecnorm_type: str = "none"        # none | rms | max_min
     activation: str = "silu"
     attn_activation: str = "silu"
+    # the reference's hyperparameters, which config_from_hparams fills
+    # (models/checkpoint.py); as in the JAX model, neither is read: the
+    # aggregation always sums and the RBF is never trained (MD
+    # differentiates positions only).  The JAX config's dtype is the
+    # module's dtype here.
+    reduce_op: str = "add"
+    trainable_rbf: bool = False
     # fused_layer=True runs each complete ViS-MP layer as one kernel pair
     # (ops/vislayer.py: K5 forward, recompute-mode K6 backward) instead of
     # the edge-core kernels K1-K3 and the eager node side.  Needs silu
-    # activations, vecnorm "none" and A % 8 == 0 (raises otherwise).  Weight
-    # gradients are not computed on this path: training uses the default.
+    # activations, vecnorm "none" and A % 8 == 0, and on the card A <= 48
+    # (a fragment; raises otherwise).  Weight gradients are not computed on
+    # this path: training uses the default.
     fused_layer: bool = False
     # remat=True runs the edge core's backward in recompute mode (kernels
     # K7/K8, the plain versions on the CPU): less device memory for large

@@ -14,8 +14,8 @@
 // TFLOP/s over the three passes, 165 TFLOP/s in float32 products.
 //
 // Two forms of the product:
-// - `mma_rows_times_cols` (K1, K2, K7, K8's zf): one centre's <= 48 edge
-//   rows in shared memory, inside a block that also does the centre's
+// - `mma_rows_times_cols` (K1, K2, K7, K8's zf): one chunk of a centre's
+//   edge rows (<= 48) in shared memory, inside a block that also does the centre's
 //   elementwise work.  Every warp loads and splits its own W fragments from
 //   L2 and splits the shared rows again, about two other instructions per
 //   product, with two or four warps a scheduler to hide the latency: it
@@ -40,10 +40,20 @@
 
 namespace ai2bmd {
 
-// Largest slot count a block takes: the dipeptide rows of every bundled
-// protein are at most 40 slots wide, ACE-NME units 16.  Per-row values are
-// kept in registers indexed by fully unrolled loops over this bound.
+// Largest slot count of a fragment: the dipeptide rows of every bundled
+// protein are at most 40 slots wide, ACE-NME units 16.  The full-layer
+// kernels K5/K6 keep a fragment's per-row values in shared memory and
+// registers sized by this bound, so they take A <= MAXA.
 constexpr int MAXA = 48;
+// The edge kernels (K1-K3, K7, K8) walk a centre's sources in chunks of at
+// most ECHUNK rows: shared memory and per-row registers are sized by the
+// chunk, not by A, so they take any A % 8 == 0 up to EDGE_MAXA.  Every
+// fragment shape (A <= 48) is one chunk.
+constexpr int ECHUNK = 48;
+// Largest slot count the edge kernels take: a whole molecule (abd, the
+// largest bundled protein, is 752 slots).  Every index that can pass 2^31
+// at B A^2 2H elements is a size_t.
+constexpr int EDGE_MAXA = 1024;
 // Rows go in chunks of RCHUNK, and a slot count is a multiple of it (the
 // fragment indexer rounds slots to 8): a guard per chunk instead of per row
 // lets the compiler batch a chunk's loads and warp reductions.

@@ -34,20 +34,27 @@
 // Every product of pass 1 is mma_rows_times_cols (3xTF32 mma.sync; each
 // warp owns 32 output channels, the rows come from shared memory) and
 // lands in shared memory, where the chains read it one channel a thread:
-//   K7: edge rows in sE -> zv into sZv, zk through sW into registers (48 at
-//       most: zk lives from the recompute to the attention chain, while sE
-//       holds v_ij and sW g_s); v_ij over the edge rows; z2 and z1 into sW,
-//       where g_s2 and g_s1 replace them in place.
+//   K7: edge rows in sE -> zv into sZv, zk through sW into registers (a
+//       chunk's, 48 at most: zk lives from the recompute to the attention
+//       chain, while sE holds v_ij and sW g_s); v_ij over the edge rows; z2
+//       and z1 into sW, where g_s2 and g_s1 replace them in place.
 //   both: g_vij = g_s @ W_s^T over g_s's first half (the product syncs the
 //       block before it stores), then the attention chain writes g_dkv into
 //       sW in place, and g_edge = g_dkv @ W_dkv^T goes straight to device
 //       memory.
 // Since K1 and K7 take the same product on the same rows, K7's zdkv and
 // zs, and so its results, equal K2's on K1's stash bitwise.
-// Shared memory: sW [A][2H + 4], and for K7 sE and sZv [A][H + 4], beside
-// the reduction buffers: 96 KB at A = 40 for K2, which __launch_bounds__
-// holds to 128 registers so that two blocks share an SM; 180 KB for K7, one
-// block an SM.  Rows go in chunks of 8 so that a chunk's loads and warp
+// Pass 1 walks the centre's sources in chunks of at most ECHUNK = 48 rows
+// (common.cuh): a fragment (A <= 48) is one chunk, a whole molecule (A up
+// to EDGE_MAXA) several.  Every output of pass 1 but g_q is per edge row;
+// g_q's sum over j is taken per chunk and added, chunk after chunk, to what
+// the same thread wrote for the chunks before (a fixed order, no atomics;
+// at A <= 48 the single-chunk kernel's arithmetic, bit for bit).  K2 and K7
+// share the chunking, so K7 still equals K2 bitwise on K1's stash.
+// Shared memory, for one chunk: sW [chunk][2H + 4], and for K7 sE and sZv
+// [chunk][H + 4], beside the reduction buffers: 96 KB at A = 40 for K2 (115
+// KB for a chunk of 48), which __launch_bounds__ holds to 128 registers so
+// that two blocks share an SM; 180 KB for K7 (216 KB), one block an SM.  Rows go in chunks of 8 so that a chunk's loads and warp
 // reductions are in flight together; the chunk loops are runtime loops
 // (small code), except K7's v_ij and attention chains, which index zk.
 // The cross-channel sums (g_d_sh, g_dist) reduce each warp with shuffles and
@@ -58,11 +65,12 @@
 
 using namespace ai2bmd;
 
-// dynamic shared memory of one centre-pass block (NW = H / 32 warps)
+// dynamic shared memory of one centre-pass block (NW = H / 32 warps) for
+// one chunk of min(A, ECHUNK) rows
 static size_t msg_smem(int A, int H, int S, bool rc) {
-  const int NW = H / 32;
-  return (size_t)(A * mma_ld(2 * H) + (rc ? 2 * A * mma_ld(H) + A * NW : 0) + A * S + 3 * A +
-                  NW * A + NW * A * S) * sizeof(float);
+  const int NW = H / 32, n = A < ECHUNK ? A : ECHUNK;
+  return (size_t)(n * mma_ld(2 * H) + (rc ? 2 * n * mma_ld(H) + n * NW : 0) + n * S + 3 * n +
+                  NW * n + NW * n * S) * sizeof(float);
 }
 
 template <bool RC>
@@ -81,184 +89,193 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
   extern __shared__ __align__(16) float smem[];
   const int NW = blockDim.x / 32;
   const int ld = mma_ld(H), ldw = mma_ld(2 * H);
-  const int Ald = RC ? A * ld : 0;
-  float* sE = smem;                     // RC: [A][ld] edge rows of i, then v_ij
-  float* sZv = sE + Ald;                // RC: [A][ld] zdkv[:, H:]
-  float* sW = sZv + Ald;                // [A][ldw] (zk,) z2|z1 -> g_s, then g_vij|., then g_dkv
-  float* sDsh = sW + A * ldw;           // [A][S]
-  float* sAdj = sDsh + A * S;           // [A]
-  float* sGate = sAdj + A;              // [A]  cutoff(r) * adj
-  float* sDcut = sGate + A;             // [A]  d cutoff / d r
-  float* sRedCut = sDcut + A;           // [NW][A]
-  float* sRedDsh = sRedCut + NW * A;    // [NW][A][S]
-  float* sPre = sRedDsh + NW * A * S;   // RC: [A][NW] head pre-activations a_ij
+  const int CH = A < ECHUNK ? A : ECHUNK;  // rows of a chunk
+  const int Ald = RC ? CH * ld : 0;
+  float* sE = smem;                     // RC: [CH][ld] edge rows of the chunk, then v_ij
+  float* sZv = sE + Ald;                // RC: [CH][ld] zdkv[:, H:]
+  float* sW = sZv + Ald;                // [CH][ldw] (zk,) z2|z1 -> g_s, then g_vij|., then g_dkv
+  float* sDsh = sW + CH * ldw;          // [CH][S]
+  float* sAdj = sDsh + CH * S;          // [CH]
+  float* sGate = sAdj + CH;             // [CH]  cutoff(r) * adj
+  float* sDcut = sGate + CH;            // [CH]  d cutoff / d r
+  float* sRedCut = sDcut + CH;          // [NW][CH]
+  float* sRedDsh = sRedCut + NW * CH;   // [NW][CH][S]
+  float* sPre = sRedDsh + NW * CH * S;  // RC: [CH][NW] head pre-activations a_ij
 
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
   const int i = blockIdx.x, b = blockIdx.y;
   const int H2 = 2 * H;
   const size_t bi = (size_t)b * A + i;
-  const size_t b0 = (size_t)b * A;
   const float kpi = 3.14159265358979323846f / cutoff;
 
-  if constexpr (RC) load_rows(sE, ld, edge + bi * A * H, A, H);
-  for (int x = t; x < A * S; x += blockDim.x) sDsh[x] = dsh[bi * A * S + x];
-  for (int r = t; r < A; r += blockDim.x) {
-    const float a = adj[bi * A + r], d = dist[bi * A + r];
-    sAdj[r] = a;
-    sGate[r] = cosine_cutoff(d, cutoff) * a;
-    sDcut[r] = d < cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
-  }
-  float gvai[MAXS];
+  // the sources in chunks of at most ECHUNK rows (one chunk at A <= 48);
+  // each chunk's g_q sum over j is added to what this thread wrote for the
+  // chunks before
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+    const size_t e0 = bi * A + c0;         // the chunk's first edge row (b, i, c0)
+    const size_t s0 = (size_t)b * A + c0;  // and its first source atom
+    if (c0) __syncthreads();  // every thread is done with the last chunk's rows
+    if constexpr (RC) load_rows(sE, ld, edge + e0 * H, n, H);
+    for (int x = t; x < n * S; x += blockDim.x) sDsh[x] = dsh[e0 * S + x];
+    for (int r = t; r < n; r += blockDim.x) {
+      const float a = adj[e0 + r], d = dist[e0 + r];
+      sAdj[r] = a;
+      sGate[r] = cosine_cutoff(d, cutoff) * a;
+      sDcut[r] = d < cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+    }
+    float gvai[MAXS];
 #pragma unroll
-  for (int c = 0; c < MAXS; ++c) gvai[c] = c < S ? gva[(bi * S + c) * H + t] : 0.0f;
-  __syncthreads();
+    for (int c = 0; c < MAXS; ++c) gvai[c] = c < S ? gva[(bi * S + c) * H + t] : 0.0f;
+    __syncthreads();
 
-  const float qi = q[bi * H + t];
-  float zk[RC ? MAXA : 1];
-  if constexpr (RC) {
-    // zdkv = edge @ W_dkv + b_dkv: zv to sZv, zk (through sW) to registers
-    mma_rows_times_cols(sE, ld, A, H, wdkv, H2, H, sZv, ld);
-    mma_rows_times_cols(sE, ld, A, H, wdkv, H2, 0, sW, ldw);
-    const float bv = bdkv[H + t], bk = bdkv[t];
+    const float qi = q[bi * H + t];
+    float zk[RC ? ECHUNK : 1];
+    if constexpr (RC) {
+      // zdkv = edge @ W_dkv + b_dkv: zv to sZv, zk (through sW) to registers
+      mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, H, sZv, ld);
+      mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, 0, sW, ldw);
+      const float bv = bdkv[H + t], bk = bdkv[t];
 #pragma unroll
-    for (int r = 0; r < MAXA; ++r) zk[r] = r < A ? sW[r * ldw + t] + bk : 0.0f;
+      for (int r = 0; r < ECHUNK; ++r) zk[r] = r < n ? sW[r * ldw + t] + bk : 0.0f;
 
-    // v_ij = v_j * dv * silu(a) * gate with a = sum_head q_i k_j dk, over
-    // the edge rows (every warp has read them: the product synced)
+      // v_ij = v_j * dv * silu(a) * gate with a = sum_head q_i k_j dk, over
+      // the edge rows (every warp has read them: the product synced)
 #pragma unroll
-    for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-      if (c8 * RCHUNK < A) {
+      for (int c8 = 0; c8 < ECHUNK / RCHUNK; ++c8) {
+        if (c8 * RCHUNK < n) {
+#pragma unroll
+          for (int rr = 0; rr < RCHUNK; ++rr) {
+            const int r = c8 * RCHUNK + rr;
+            const float zv = sZv[r * ld + t] + bv;
+            sZv[r * ld + t] = zv;
+            const float kr = k[(s0 + r) * H + t], vr = v[(s0 + r) * H + t];
+            const float a = warp_sum(qi * kr * silu(zk[r]));
+            if (lane == 0) sPre[r * NW + w] = a;
+            sE[r * ld + t] = vr * silu(zv) * (silu(a) * sGate[r]);
+          }
+        }
+      }
+    }
+
+    // g_s = [sum_c g_vec_agg_i[c] vec_j[c], sum_c g_vec_agg_i[c] d_sh_ij[c]] * adj * silu'(zs);
+    // g_d_sh_ij[c] = sum_h g_vec_agg_i[c] * s2.  One half of g_s at a time:
+    auto g_s2 = [&](int r, float z2) {
+      const float a = sAdj[r];
+      const float s2 = silu(z2) * a;
+      float g2 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          g2 = fmaf(gvai[c], sDsh[r * S + c], g2);
+          const float red = warp_sum(gvai[c] * s2);
+          if (lane == 0) sRedDsh[(w * CH + r) * S + c] = red;
+        }
+      }
+      sW[r * ldw + H + t] = g2 * a * dsilu(z2);
+    };
+    auto g_s1 = [&](int r, float z1) {
+      float g1 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c)
+        if (c < S) g1 = fmaf(gvai[c], vec[((s0 + r) * S + c) * H + t], g1);
+      sW[r * ldw + t] = g1 * sAdj[r] * dsilu(z1);
+    };
+    if constexpr (RC) {
+      // zs = v_ij @ W_s + b_s, one half at a time into sW, where g_s takes
+      // its place; s1 -> scratch for g_vec
+      mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, H, sW + H, ldw);
+      const float b2 = bs[H + t];
+      for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+        for (int rr = 0; rr < RCHUNK; ++rr) {
+          const int r = r0 + rr;
+          g_s2(r, sW[r * ldw + H + t] + b2);
+        }
+      }
+      mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, 0, sW, ldw);
+      const float b1 = bs[t];
+      for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+        for (int rr = 0; rr < RCHUNK; ++rr) {
+          const int r = r0 + rr;
+          const float z1 = sW[r * ldw + t] + b1;
+          s1_e[(e0 + r) * H + t] = silu(z1) * sAdj[r];
+          g_s1(r, z1);
+        }
+      }
+    } else {
+      for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+        for (int rr = 0; rr < RCHUNK; ++rr) {
+          const int r = r0 + rr;
+          const size_t e = e0 + r;
+          g_s2(r, zs[e * H2 + H + t]);
+          g_s1(r, zs[e * H2 + t]);
+        }
+      }
+    }
+
+    // g_vij = g_s @ W_s^T + g_x_agg_i: the product over g_s's first half
+    mma_rows_times_cols<ECHUNK>(sW, ldw, n, H2, wsT, H, 0, sW, ldw);
+    const float gxi = gx[bi * H + t];
+
+    // the attention chain
+    float gqi = 0.0f;
+#pragma unroll (RC ? ECHUNK / RCHUNK : 1)
+    for (int c8 = 0; c8 < ECHUNK / RCHUNK; ++c8) {
+      if (c8 * RCHUNK < n) {
 #pragma unroll
         for (int rr = 0; rr < RCHUNK; ++rr) {
           const int r = c8 * RCHUNK + rr;
-          const float zv = sZv[r * ld + t] + bv;
-          sZv[r * ld + t] = zv;
-          const float kr = k[(b0 + r) * H + t], vr = v[(b0 + r) * H + t];
-          const float a = warp_sum(qi * kr * silu(zk[r]));
-          if (lane == 0) sPre[r * NW + w] = a;
-          sE[r * ld + t] = vr * silu(zv) * (silu(a) * sGate[r]);
+          const size_t e = (e0 + r) * H + t;
+          const float gvij = sW[r * ldw + t] + gxi;
+          float zkr, zv;
+          if constexpr (RC) {
+            zkr = zk[r];
+            zv = sZv[r * ld + t];
+          } else {
+            zkr = zdkv[(e0 + r) * H2 + t];
+            zv = zdkv[(e0 + r) * H2 + H + t];
+          }
+          const float dk = silu(zkr), dv = silu(zv);
+          const float kr = k[(s0 + r) * H + t], vr = v[(s0 + r) * H + t];
+          float a;
+          if constexpr (RC) {
+            a = sPre[r * NW + w];
+          } else {
+            a = warp_sum(qi * kr * dk);
+          }
+          const float att = silu(a), gate = sGate[r];
+          const float g3 = att * gate;
+          gv_e[e] = gvij * dv * g3;
+          const float g_dv = gvij * vr * g3;
+          const float g_g3 = gvij * vr * dv;
+          const float red = warp_sum(g_g3 * att);
+          if (lane == 0) sRedCut[w * CH + r] = red;
+          const float g_a = warp_sum(g_g3 * gate) * dsilu(a);
+          gqi = fmaf(g_a * kr, dk, gqi);
+          gk_e[e] = g_a * qi * dk;
+          sW[r * ldw + t] = g_a * qi * kr * dsilu(zkr);
+          sW[r * ldw + H + t] = g_dv * dsilu(zv);
         }
       }
     }
-  }
+    gq[bi * H + t] = c0 ? gq[bi * H + t] + gqi : gqi;
 
-  // g_s = [sum_c g_vec_agg_i[c] vec_j[c], sum_c g_vec_agg_i[c] d_sh_ij[c]] * adj * silu'(zs);
-  // g_d_sh_ij[c] = sum_h g_vec_agg_i[c] * s2.  One half of g_s at a time:
-  auto g_s2 = [&](int r, float z2) {
-    const float a = sAdj[r];
-    const float s2 = silu(z2) * a;
-    float g2 = 0.0f;
-#pragma unroll
-    for (int c = 0; c < MAXS; ++c) {
-      if (c < S) {
-        g2 = fmaf(gvai[c], sDsh[r * S + c], g2);
-        const float red = warp_sum(gvai[c] * s2);
-        if (lane == 0) sRedDsh[(w * A + r) * S + c] = red;
-      }
+    // g_edge = g_dkv @ W_dkv^T, straight to device memory; then the
+    // cross-warp sums of g_dist and g_d_sh (the product synced the block)
+    mma_rows_times_cols<ECHUNK>(sW, ldw, n, H2, wdkvT, H, 0, gedge + e0 * H, H);
+    for (int r = t; r < n; r += blockDim.x) {
+      float s = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) s += sRedCut[ww * CH + r];
+      gdist[e0 + r] = s * sAdj[r] * sDcut[r];
     }
-    sW[r * ldw + H + t] = g2 * a * dsilu(z2);
-  };
-  auto g_s1 = [&](int r, float z1) {
-    float g1 = 0.0f;
-#pragma unroll
-    for (int c = 0; c < MAXS; ++c)
-      if (c < S) g1 = fmaf(gvai[c], vec[((b0 + r) * S + c) * H + t], g1);
-    sW[r * ldw + t] = g1 * sAdj[r] * dsilu(z1);
-  };
-  if constexpr (RC) {
-    // zs = v_ij @ W_s + b_s, one half at a time into sW, where g_s takes
-    // its place; s1 -> scratch for g_vec
-    mma_rows_times_cols(sE, ld, A, H, ws, H2, H, sW + H, ldw);
-    const float b2 = bs[H + t];
-    for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = r0 + rr;
-        g_s2(r, sW[r * ldw + H + t] + b2);
-      }
+    for (int x = t; x < n * S; x += blockDim.x) {
+      float s = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) s += sRedDsh[ww * CH * S + x];
+      gdsh[e0 * S + x] = s;
     }
-    mma_rows_times_cols(sE, ld, A, H, ws, H2, 0, sW, ldw);
-    const float b1 = bs[t];
-    for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = r0 + rr;
-        const float z1 = sW[r * ldw + t] + b1;
-        s1_e[(bi * A + r) * H + t] = silu(z1) * sAdj[r];
-        g_s1(r, z1);
-      }
-    }
-  } else {
-    for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = r0 + rr;
-        const size_t e = bi * A + r;
-        g_s2(r, zs[e * H2 + H + t]);
-        g_s1(r, zs[e * H2 + t]);
-      }
-    }
-  }
-
-  // g_vij = g_s @ W_s^T + g_x_agg_i: the product over g_s's first half
-  mma_rows_times_cols(sW, ldw, A, H2, wsT, H, 0, sW, ldw);
-  const float gxi = gx[bi * H + t];
-
-  // the attention chain
-  float gqi = 0.0f;
-#pragma unroll (RC ? MAXA / RCHUNK : 1)
-  for (int c8 = 0; c8 < MAXA / RCHUNK; ++c8) {
-    if (c8 * RCHUNK < A) {
-#pragma unroll
-      for (int rr = 0; rr < RCHUNK; ++rr) {
-        const int r = c8 * RCHUNK + rr;
-        const size_t e = (bi * A + r) * H + t;
-        const float gvij = sW[r * ldw + t] + gxi;
-        float zkr, zv;
-        if constexpr (RC) {
-          zkr = zk[r];
-          zv = sZv[r * ld + t];
-        } else {
-          zkr = zdkv[(bi * A + r) * H2 + t];
-          zv = zdkv[(bi * A + r) * H2 + H + t];
-        }
-        const float dk = silu(zkr), dv = silu(zv);
-        const float kr = k[(b0 + r) * H + t], vr = v[(b0 + r) * H + t];
-        float a;
-        if constexpr (RC) {
-          a = sPre[r * NW + w];
-        } else {
-          a = warp_sum(qi * kr * dk);
-        }
-        const float att = silu(a), gate = sGate[r];
-        const float g3 = att * gate;
-        gv_e[e] = gvij * dv * g3;
-        const float g_dv = gvij * vr * g3;
-        const float g_g3 = gvij * vr * dv;
-        const float red = warp_sum(g_g3 * att);
-        if (lane == 0) sRedCut[w * A + r] = red;
-        const float g_a = warp_sum(g_g3 * gate) * dsilu(a);
-        gqi = fmaf(g_a * kr, dk, gqi);
-        gk_e[e] = g_a * qi * dk;
-        sW[r * ldw + t] = g_a * qi * kr * dsilu(zkr);
-        sW[r * ldw + H + t] = g_dv * dsilu(zv);
-      }
-    }
-  }
-  gq[bi * H + t] = gqi;
-
-  // g_edge = g_dkv @ W_dkv^T, straight to device memory; then the
-  // cross-warp sums of g_dist and g_d_sh (the product synced the block)
-  mma_rows_times_cols(sW, ldw, A, H2, wdkvT, H, 0, gedge + bi * A * H, H);
-  for (int r = t; r < A; r += blockDim.x) {
-    float s = 0.0f;
-    for (int ww = 0; ww < NW; ++ww) s += sRedCut[ww * A + r];
-    gdist[bi * A + r] = s * sAdj[r] * sDcut[r];
-  }
-  for (int x = t; x < A * S; x += blockDim.x) {
-    float s = 0.0f;
-    for (int ww = 0; ww < NW; ++ww) s += sRedDsh[ww * A * S + x];
-    gdsh[bi * A * S + x] = s;
   }
 }
 
@@ -306,7 +323,7 @@ static int launch_msg(const float* q, const float* k, const float* v, const floa
                   float* gvec, float* gedge, float* gdsh, float* gdist, float* gk_e,
                   float* gv_e, float* s1_e, int B, int A, int H, int S, float cutoff,
                   cudaStream_t stream) {
-  if (A > MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
+  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
     return (int)cudaErrorInvalidValue;
   const size_t smem = msg_smem(A, H, S, RC);
   if (smem > 232448) return (int)cudaErrorInvalidValue;

@@ -28,10 +28,13 @@
 // g_wt over the rows.  K3 runs 256 threads a block as 256 / width(H) centre
 // atoms x width(H) channels (Group), so that a block's warps share each
 // source atom's wsrc row in L1.  K8 runs one block per (fragment, centre
-// atom i), a thread per channel: it first holds the edge rows in shared
-// memory ([A][H + 4], 42 KB at A = 40) and takes zf there with
-// mma_rows_times_cols, the product K1 stores zf with, so K8's g_zf and
-// every result equal K3's on K1's stash bitwise.  The g_edge product
+// atom i), a thread per channel: it holds the edge rows in shared memory
+// ([chunk][H + 4], 42 KB at A = 40) and takes zf there with
+// mma_rows_times_cols, the product K1 stores zf with.  Both walk the
+// sources in chunks of at most ECHUNK = 48 rows (common.cuh; a fragment is
+// one chunk, a whole molecule several) and add each chunk's g_wt sums to
+// what the same thread wrote for the chunks before, so K8's g_zf and every
+// result equal K3's on K1's stash bitwise, at any A.  The g_edge product
 // g_zf @ W_f^T has no coupling between centres, so the row tile
 // (`row_tile` in common.cuh, which K5 and K6 share) adds it into g_edge
 // over the flattened edge rows, 128 rows x 64 output channels a block:
@@ -53,9 +56,11 @@
 
 using namespace ai2bmd;
 
-// dynamic shared memory of one centre-pass block: K8's rows for zf
+// dynamic shared memory of one centre-pass block: K8's rows for zf, one
+// chunk of min(A, ECHUNK)
 static size_t upd_smem(int A, int H, bool rc) {
-  return rc ? (size_t)A * mma_ld(H) * sizeof(float) : 0;
+  const int n = A < ECHUNK ? A : ECHUNK;
+  return rc ? (size_t)n * mma_ld(H) * sizeof(float) : 0;
 }
 
 // K3's centre pass, which has no block-wide product, runs 256 threads a
@@ -84,7 +89,7 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_upd_centre(
     float* __restrict__ gs_e, float* __restrict__ gz, int A, int H, int S) {
   extern __shared__ __align__(16) float smem[];
   const int ld = mma_ld(H);
-  float* sG = smem;  // [A][ld]: K8's edge rows of i, then zf
+  float* sG = smem;  // [chunk][ld]: K8's edge rows of the chunk, then zf
   // K3: centre atoms grouped (Group); K8: one block per centre atom, a
   // thread per channel
   const Group grp(H);
@@ -92,53 +97,64 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_upd_centre(
   const int b = blockIdx.y;
   const size_t bi = (size_t)b * A + i;
   const size_t b0 = (size_t)b * A;
-
-  if constexpr (RC) {
-    // zf = edge @ W_f (+ b_f below), over the edge rows
-    load_rows(sG, ld, edge + bi * A * H, A, H);
-    mma_rows_times_cols(sG, ld, A, H, wf, H, 0, sG, ld);
-  }
-
-  float wti[MAXS], gwti[MAXS];
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c) {
-    wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
-    gwti[c] = 0.0f;
-  }
   // the centre's edge cells (b, i, r): channel t of row r at [r * H]
   const size_t cell = bi * A * H + t;
   const float* adj_i = adj + bi * A;
   const float* ws = wsrc + b0 * S * H + t;  // wsrc_r[c] at [(r S + c) H]
-  // one edge row r with its pre-activation z: g_zf to scratch, the g_wt sums
-  auto row = [&](int r, float z) {
-    float wsr[MAXS];
-    float sdot = 0.0f;
+
+  // the sources in chunks of at most ECHUNK rows (one chunk at A <= 48),
+  // in both kernels, so that K8's g_wt sums equal K3's: each chunk's sums
+  // over j are added to what this thread wrote for the chunks before
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+    if constexpr (RC) {
+      // zf = edge @ W_f (+ b_f below), over the chunk's edge rows
+      if (c0) __syncthreads();  // every thread is done with the last chunk's zf
+      load_rows(sG, ld, edge + (bi * A + c0) * H, n, H);
+      mma_rows_times_cols<ECHUNK>(sG, ld, n, H, wf, H, 0, sG, ld);
+    }
+
+    float wti[MAXS], gwti[MAXS];
 #pragma unroll
     for (int c = 0; c < MAXS; ++c) {
-      wsr[c] = c < S ? ws[(r * S + c) * H] : 0.0f;
-      sdot = fmaf(wti[c], wsr[c], sdot);
+      wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
+      gwti[c] = 0.0f;
     }
-    const float g = gdf[cell + r * H] * adj_i[r];
-    const float g_s = g * silu(z);
-    if constexpr (RC) gs_e[cell + r * H] = g_s;
+    // one edge row r with its pre-activation z: g_zf to scratch, the g_wt sums
+    auto row = [&](int r, float z) {
+      float wsr[MAXS];
+      float sdot = 0.0f;
 #pragma unroll
-    for (int c = 0; c < MAXS; ++c) gwti[c] = fmaf(g_s, wsr[c], gwti[c]);
-    gz[cell + r * H] = g * sdot * dsilu(z);
-  };
-  // a runtime loop over chunks of 4 rows (8 would spill under the
-  // two-blocks bound), which the compiler pipelines
-  constexpr int RU = RCHUNK / 2;
-  const float bft = RC ? bf[t] : 0.0f;
-  for (int r0 = 0; r0 < A; r0 += RU) {
+      for (int c = 0; c < MAXS; ++c) {
+        wsr[c] = c < S ? ws[(r * S + c) * H] : 0.0f;
+        sdot = fmaf(wti[c], wsr[c], sdot);
+      }
+      const float g = gdf[cell + r * H] * adj_i[r];
+      const float g_s = g * silu(z);
+      if constexpr (RC) gs_e[cell + r * H] = g_s;
 #pragma unroll
-    for (int rr = 0; rr < RU; ++rr) {
-      const int r = r0 + rr;
-      row(r, RC ? sG[r * ld + t] + bft : zf[cell + r * H]);
+      for (int c = 0; c < MAXS; ++c) gwti[c] = fmaf(g_s, wsr[c], gwti[c]);
+      gz[cell + r * H] = g * sdot * dsilu(z);
+    };
+    // a runtime loop over chunks of 4 rows (8 would spill under the
+    // two-blocks bound), which the compiler pipelines
+    constexpr int RU = RCHUNK / 2;
+    const float bft = RC ? bf[t] : 0.0f;
+    for (int r0 = c0; r0 < c0 + n; r0 += RU) {
+#pragma unroll
+      for (int rr = 0; rr < RU; ++rr) {
+        const int r = r0 + rr;
+        row(r, RC ? sG[(r - c0) * ld + t] + bft : zf[cell + r * H]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) {
+      if (c < S) {
+        float* o = gwt + (bi * S + c) * H + t;
+        *o = c0 ? *o + gwti[c] : gwti[c];
+      }
     }
   }
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c)
-    if (c < S) gwt[(bi * S + c) * H + t] = gwti[c];
 }
 
 // The g_edge product's epilogue: gedge[r][n] += G[r][:] . W_f[n][:], read
@@ -191,7 +207,7 @@ static int launch_upd(const float* zf, const float* edge, const float* wf, const
                       const float* adj, const float* wt, const float* wsrc, const float* gdf,
                       float* gedge, float* gwt, float* gwsrc, float* gs_e, float* gz, int B,
                       int A, int H, int S, cudaStream_t stream) {
-  if (A > MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256 || ((size_t)wf & 15) ||
+  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256 || ((size_t)wf & 15) ||
       ((size_t)gedge & 7))
     return (int)cudaErrorInvalidValue;
   const size_t smem = upd_smem(A, H, RC);

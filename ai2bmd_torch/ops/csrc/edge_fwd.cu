@@ -23,9 +23,16 @@
 // FLOP per L2 byte at A = 40 and 8 at A = 16.  What holds it below the
 // bound is feeding mma.sync (common.cuh), then the elementwise chains.
 // Design: one block per (fragment, centre atom i), one thread per channel
-// for the elementwise chains, two [A][H + 4] buffers in shared memory (85
-// KB at A = 40, two blocks an SM): sE holds the centre's edge rows and then
-// v_ij, sP each product's output in turn.  No edge intermediate other than
+// for the elementwise chains.  The block walks the centre's sources in
+// chunks of at most ECHUNK = 48 rows (common.cuh), so a fragment (A <= 48)
+// is one chunk and a whole molecule (A up to EDGE_MAXA) several.  Two
+// [chunk][H + 4] buffers in shared memory (85 KB at A = 40, 102 KB for a
+// chunk of 48, two blocks an SM): sE holds the chunk's edge rows and then
+// v_ij, sP each product's output in turn.  The sums over sources (x_agg,
+// vec_agg) are taken per chunk and added, chunk after chunk, to what the
+// same thread wrote to the output for the chunks before: a fixed order, so
+// the kernel stays bitwise repeatable without atomics, and at A <= 48 its
+// arithmetic is the single-chunk kernel's, bit for bit.  No edge intermediate other than
 // the stored pre-activations goes to device memory (as the TPU kernel kept
 // them in VMEM).  Every product is mma_rows_times_cols (3xTF32 mma.sync,
 // each warp owns 32 output channels, all warps share the rows in shared
@@ -50,9 +57,11 @@
 
 using namespace ai2bmd;
 
-// dynamic shared memory of one block: sE, sP, sDsh, sGate, sAdj
+// dynamic shared memory of one block: sE, sP, sDsh, sGate, sAdj for one
+// chunk of min(A, ECHUNK) rows
 static size_t fwd_smem(int A, int H, int S) {
-  return (size_t)(2 * A * mma_ld(H) + A * S + 2 * A) * sizeof(float);
+  const int n = A < ECHUNK ? A : ECHUNK;
+  return (size_t)(2 * n * mma_ld(H) + n * S + 2 * n) * sizeof(float);
 }
 
 template <bool UPDATE, bool STORE>
@@ -69,118 +78,132 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
     int A, int H, int S, float cutoff) {
   extern __shared__ __align__(16) float smem[];
   const int ld = mma_ld(H);
-  float* sE = smem;              // [A][ld]  edge rows of centre i, then zv, then v_ij
-  float* sP = sE + A * ld;       // [A][ld]  zf, zk then dk, z2, z1
-  float* sDsh = sP + A * ld;     // [A][S]
-  float* sGate = sDsh + A * S;   // [A]     cutoff(r) * adj
-  float* sAdj = sGate + A;       // [A]
+  const int CH = A < ECHUNK ? A : ECHUNK;  // rows of a chunk
+  float* sE = smem;              // [CH][ld]  edge rows of the chunk, then zv, then v_ij
+  float* sP = sE + CH * ld;      // [CH][ld]  zf, zk then dk, z2, z1
+  float* sDsh = sP + CH * ld;    // [CH][S]
+  float* sGate = sDsh + CH * S;  // [CH]     cutoff(r) * adj
+  float* sAdj = sGate + CH;      // [CH]
 
   const int t = threadIdx.x;
   const int i = blockIdx.x;
   const int b = blockIdx.y;
   const int H2 = 2 * H;
   const size_t bi = (size_t)b * A + i;  // (fragment, centre) row
-  const size_t b0 = (size_t)b * A;      // first atom of the fragment
 
-  load_rows(sE, ld, edge + bi * A * H, A, H);
-  for (int x = t; x < A * S; x += blockDim.x) sDsh[x] = dsh[bi * A * S + x];
-  for (int r = t; r < A; r += blockDim.x) {
-    const float a = adj[bi * A + r];
-    sAdj[r] = a;
-    sGate[r] = cosine_cutoff(dist[bi * A + r], cutoff) * a;
-  }
+  // the sources in chunks of at most ECHUNK rows (one chunk at A <= 48);
+  // each chunk's sums over j are added to the outputs' sums of the chunks
+  // before it, which this thread wrote
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+    const size_t e0 = bi * A + c0;         // the chunk's first edge row (b, i, c0)
+    const size_t s0 = (size_t)b * A + c0;  // and its first source atom
+    if (c0) __syncthreads();  // every thread is done with the last chunk's rows
+    load_rows(sE, ld, edge + e0 * H, n, H);
+    for (int x = t; x < n * S; x += blockDim.x) sDsh[x] = dsh[e0 * S + x];
+    for (int r = t; r < n; r += blockDim.x) {
+      const float a = adj[e0 + r];
+      sAdj[r] = a;
+      sGate[r] = cosine_cutoff(dist[e0 + r], cutoff) * a;
+    }
 
-  if (UPDATE) {
-    // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
-    mma_rows_times_cols(sE, ld, A, H, wf, H, 0, sP, ld);
-    float wti[MAXS];
+    if (UPDATE) {
+      // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
+      mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wf, H, 0, sP, ld);
+      float wti[MAXS];
 #pragma unroll
-    for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
-    const float bft = bf[t];
-    for (int r0 = 0; r0 < A; r0 += RCHUNK) {
+      for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
+      const float bft = bf[t];
+      for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+        for (int rr = 0; rr < RCHUNK; ++rr) {
+          const int r = r0 + rr;
+          const float z = sP[r * ld + t] + bft;
+          if (STORE) zf[(e0 + r) * H + t] = z;
+          float sdot = 0.0f;
+#pragma unroll
+          for (int c = 0; c < MAXS; ++c)
+            if (c < S) sdot = fmaf(wti[c], wsrc[((s0 + r) * S + c) * H + t], sdot);
+          df[(e0 + r) * H + t] = silu(z) * sdot * sAdj[r];
+        }
+      }
+    }
+
+    // zdkv = edge @ W_dkv + b_dkv: dk = silu(zk) into sP, then zv over the
+    // edge rows, which the attention loop overwrites with v_ij
+    mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, 0, sP, ld);
+    const float bk = bdkv[t], bv = bdkv[H + t];
+    for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
       for (int rr = 0; rr < RCHUNK; ++rr) {
         const int r = r0 + rr;
-        const float z = sP[r * ld + t] + bft;
-        if (STORE) zf[(bi * A + r) * H + t] = z;
-        float sdot = 0.0f;
+        const float zk = sP[r * ld + t] + bk;
+        if (STORE) zdkv[(e0 + r) * H2 + t] = zk;
+        sP[r * ld + t] = silu(zk);
+      }
+    }
+    mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, H, sE, ld);
+
+    // attention message; the head of channel t is the warp of thread t
+    const float qi = q[bi * H + t];
+    float xsum = 0.0f;
+    for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+      for (int rr = 0; rr < RCHUNK; ++rr) {
+        const int r = r0 + rr;
+        const float zv = sE[r * ld + t] + bv;
+        if (STORE) zdkv[(e0 + r) * H2 + H + t] = zv;
+        const float kr = k[(s0 + r) * H + t];
+        const float vr = v[(s0 + r) * H + t];
+        const float a = warp_sum(qi * kr * sP[r * ld + t]);
+        const float vij = vr * silu(zv) * (silu(a) * sGate[r]);
+        sE[r * ld + t] = vij;
+        xsum += vij;
+      }
+    }
+    xagg[bi * H + t] = c0 ? xagg[bi * H + t] + xsum : xsum;
+
+    // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, one half at a time:
+    // vec_agg[c] = sum_j s1 * vec_j[c] + sum_j s2 * d_sh_ij[c]
+    float from_vec[MAXS], from_dsh[MAXS];
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
+    mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, H, sP, ld);
+    const float b1 = bs[t], b2 = bs[H + t];
+    for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+      for (int rr = 0; rr < RCHUNK; ++rr) {
+        const int r = r0 + rr;
+        const float z2 = sP[r * ld + t] + b2;
+        if (STORE) zs[(e0 + r) * H2 + H + t] = z2;
+        const float s2 = silu(z2) * sAdj[r];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c)
-          if (c < S) sdot = fmaf(wti[c], wsrc[((b0 + r) * S + c) * H + t], sdot);
-        df[(bi * A + r) * H + t] = silu(z) * sdot * sAdj[r];
+          if (c < S) from_dsh[c] = fmaf(s2, sDsh[r * S + c], from_dsh[c]);
+      }
+    }
+    mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, 0, sP, ld);
+    for (int r0 = 0; r0 < n; r0 += RCHUNK) {
+#pragma unroll
+      for (int rr = 0; rr < RCHUNK; ++rr) {
+        const int r = r0 + rr;
+        const float z1 = sP[r * ld + t] + b1;
+        if (STORE) zs[(e0 + r) * H2 + t] = z1;
+        const float s1 = silu(z1) * sAdj[r];
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c)
+          if (c < S) from_vec[c] = fmaf(s1, vec[((s0 + r) * S + c) * H + t], from_vec[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) {
+      if (c < S) {
+        float* o = vecagg + (bi * S + c) * H + t;
+        const float sum = from_vec[c] + from_dsh[c];
+        *o = c0 ? *o + sum : sum;
       }
     }
   }
-
-  // zdkv = edge @ W_dkv + b_dkv: dk = silu(zk) into sP, then zv over the
-  // edge rows, which the attention loop overwrites with v_ij
-  mma_rows_times_cols(sE, ld, A, H, wdkv, H2, 0, sP, ld);
-  const float bk = bdkv[t], bv = bdkv[H + t];
-  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
-      const int r = r0 + rr;
-      const float zk = sP[r * ld + t] + bk;
-      if (STORE) zdkv[(bi * A + r) * H2 + t] = zk;
-      sP[r * ld + t] = silu(zk);
-    }
-  }
-  mma_rows_times_cols(sE, ld, A, H, wdkv, H2, H, sE, ld);
-
-  // attention message; the head of channel t is the warp of thread t
-  const float qi = q[bi * H + t];
-  float xsum = 0.0f;
-  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
-      const int r = r0 + rr;
-      const float zv = sE[r * ld + t] + bv;
-      if (STORE) zdkv[(bi * A + r) * H2 + H + t] = zv;
-      const float kr = k[(b0 + r) * H + t];
-      const float vr = v[(b0 + r) * H + t];
-      const float a = warp_sum(qi * kr * sP[r * ld + t]);
-      const float vij = vr * silu(zv) * (silu(a) * sGate[r]);
-      sE[r * ld + t] = vij;
-      xsum += vij;
-    }
-  }
-  xagg[bi * H + t] = xsum;
-
-  // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, one half at a time:
-  // vec_agg[c] = sum_j s1 * vec_j[c] + sum_j s2 * d_sh_ij[c]
-  float from_vec[MAXS], from_dsh[MAXS];
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
-  mma_rows_times_cols(sE, ld, A, H, ws, H2, H, sP, ld);
-  const float b1 = bs[t], b2 = bs[H + t];
-  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
-      const int r = r0 + rr;
-      const float z2 = sP[r * ld + t] + b2;
-      if (STORE) zs[(bi * A + r) * H2 + H + t] = z2;
-      const float s2 = silu(z2) * sAdj[r];
-#pragma unroll
-      for (int c = 0; c < MAXS; ++c)
-        if (c < S) from_dsh[c] = fmaf(s2, sDsh[r * S + c], from_dsh[c]);
-    }
-  }
-  mma_rows_times_cols(sE, ld, A, H, ws, H2, 0, sP, ld);
-  for (int r0 = 0; r0 < A; r0 += RCHUNK) {
-#pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
-      const int r = r0 + rr;
-      const float z1 = sP[r * ld + t] + b1;
-      if (STORE) zs[(bi * A + r) * H2 + t] = z1;
-      const float s1 = silu(z1) * sAdj[r];
-#pragma unroll
-      for (int c = 0; c < MAXS; ++c)
-        if (c < S) from_vec[c] = fmaf(s1, vec[((b0 + r) * S + c) * H + t], from_vec[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < MAXS; ++c)
-    if (c < S) vecagg[(bi * S + c) * H + t] = from_vec[c] + from_dsh[c];
 }
 
 template <bool UPDATE, bool STORE>
@@ -209,7 +232,7 @@ extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, c
                                float* vecagg, float* df, float* zdkv, float* zs, float* zf,
                                int B, int A, int H, int S, float cutoff, int update, int store,
                                cudaStream_t stream) {
-  if (A > MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
+  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
     return (int)cudaErrorInvalidValue;
   if (update) {
     if (store)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.ops import LAUNCHES, _build
-from ai2bmd_torch.ops.vismp import check_shapes, edge_fwd_plain, route
+from ai2bmd_torch.ops.vismp import check_layer_shapes, edge_fwd_plain, route
 
 _f32 = torch.float32
 _LN_EPS = 1e-5
@@ -184,7 +184,7 @@ def _inputs(x, vec, edge, d_sh, dist, adj, weights, nh):
     out (the kernels sum each warp's 32 channels instead)."""
     B, A, H = x.shape
     S = vec.shape[1]
-    check_shapes(A, H, S, nh, "fused-layer")
+    check_layer_shapes(A, H, S, nh)
     shapes = dict(
         x=(B, A, H), vec=(B, S, A, H), edge=(B, A, A, H), dsh=(B, S, A, A), dist=(B, A, A),
         adj=(B, A, A), ln_s=(H,), ln_b=(H,), vln_w=(H,), w_qkv=(H, 3 * H), b_qkv=(3 * H,),

@@ -194,14 +194,36 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
     raise ValueError(f"no {kernels} implementation for device {t.device}")
 
 
+# The edge kernels (K1-K3, K7, K8) walk a centre's sources in chunks of 48
+# rows (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up to
+# EDGE_MAXA: a fragment or a whole molecule (abd, the largest bundled
+# protein, is 752 slots).  The full-layer kernels K5/K6 hold a fragment
+# whole and take A <= LAYER_MAXA (``MAXA``).  Both limits are also checked
+# by the launchers.
+EDGE_MAXA = 1024
+LAYER_MAXA = 48
+
+
 def check_shapes(A, H, S, nh, kernels: str = "edge"):
-    """The shapes the ViS-MP kernels (K1-K3, K5, K6, K7, K8) take; anything
-    else raises (the card has no plain route)."""
-    if H // nh != 32 or H % nh or H > 256 or A > 48 or A % 8 or S > 8:
+    """The shapes the edge kernels (K1-K3, K7, K8) take; anything else
+    raises (the card has no plain route)."""
+    if H // nh != 32 or H % nh or H > 256 or A > EDGE_MAXA or A % 8 or S > 8:
         raise ValueError(
             f"{kernels} kernels take heads of 32 channels, H <= 256, A a multiple of 8 "
-            f"up to 48 (the fragment indexer's slot rounding), S <= 8; "
-            f"got H={H}, nh={nh}, A={A}, S={S}"
+            f"up to {EDGE_MAXA}, S <= 8; got H={H}, nh={nh}, A={A}, S={S}"
+        )
+
+
+def check_layer_shapes(A, H, S, nh):
+    """The shapes the full-layer kernels K5/K6 take: the edge kernels' with
+    A <= LAYER_MAXA, a fragment's slots.  A whole molecule raises, naming
+    the ROADMAP entry that would extend them."""
+    check_shapes(A, H, S, nh, "fused-layer")
+    if A > LAYER_MAXA:
+        raise ValueError(
+            f"the full-layer kernels K5/K6 take A <= {LAYER_MAXA} (a fragment's slots), got "
+            f"A={A}; run a whole molecule on the per-layer edge kernels (fused_layer=False, "
+            f"AI2BMD_FUSED_LAYER unset). K5/K6 at A > {LAYER_MAXA} is ROADMAP.md, Queue 2"
         )
 
 
@@ -467,8 +489,8 @@ def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     K7/K8 on the card, their plain versions on the CPU).  ``FusedVisMP``
     gives the weights no gradient, so it raises where one needs it.
     On the card there is no other route: a batch the kernels cannot take
-    (``check_shapes``: A not a multiple of 8 or above 48, heads not of 32
-    channels, H > 256, S > 8) or another activation than silu raises, where
+    (``check_shapes``: A not a multiple of 8 or above EDGE_MAXA, heads not
+    of 32 channels, H > 256, S > 8) or another activation than silu raises, where
     the JAX package's per-layer path falls back to jnp for such a batch
     (``ai2bmd_tpu/models/visnet.py:386-390``)."""
     if not recompute and not route(q):

@@ -1,15 +1,16 @@
 """High-level simulation assembly: the reference simulator API.
 
-Port of ``ai2bmd_tpu/simulators.py:31-259`` for the vacuum path, the
-reference's NoSolventSimulator (src/AIMD/simulator.py:295-313): fragment-mode
+Port of ``ai2bmd_tpu/simulators.py:31-259`` for the vacuum paths: the
+reference's NoSolventSimulator (src/AIMD/simulator.py:295-313), fragment-mode
 MD of the capped protein with the "mm" long range, warm-started caps and an
-optional H-bond restraint, on the card unless the caller passes
-``device="cpu"``.
+optional H-bond restraint; and whole-molecule mode (``mode="visnet"``,
+simulator.py:74-79), the molecule straight through ViSNet with a stateless
+potential.  On the card unless the caller passes ``device="cpu"``; the
+weights come from a checkpoint (``load_model``) or a random initialization.
 
-Refused, each naming the ROADMAP item that ports it: whole-molecule mode
-(``mode="visnet"``) and checkpoints (item 11), ``longrange="pme"`` (item 12,
-raised by ``FragmentPotential.build``), explicit solvent and solvated inputs
-(item 13).
+Refused, each naming the ROADMAP item that ports it: ``longrange="pme"``
+(item 12, raised by ``FragmentPotential.build``), explicit solvent and
+solvated inputs (item 13).
 """
 
 from __future__ import annotations
@@ -23,23 +24,25 @@ import torch
 from ai2bmd_torch.host import Protein, load_protein
 from ai2bmd_torch.md.constraints import BondRestraint
 from ai2bmd_torch.md.simulation import SimulationConfig, Simulator
+from ai2bmd_torch.models.checkpoint import load_checkpoint, load_converted
 from ai2bmd_torch.models.params import init_params
 from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
-from ai2bmd_torch.potentials import FragmentPotential
+from ai2bmd_torch.potentials import FragmentPotential, ViSNetPotential
 from ai2bmd_torch.utils.device import resolve_device
 
 WARM_ITERS = 1   # L-BFGS iterations a step from the previous step's caps (simulators.py:209-220)
 
 
 def load_model(ckpt_path: str | None, cfg: ViSNetConfig | None = None, seed: int = 0):
-    """Random weights (``init_params`` from ``seed``) and their config.
-
-    Loading a checkpoint is ROADMAP item 11: a path that exists, or a
-    converted ``.npz``, raises; a path that does not exist gives the random
-    initialization, as in the JAX package (no reference weights ship)."""
-    if ckpt_path and (ckpt_path.endswith(".npz") or os.path.exists(ckpt_path)):
-        raise NotImplementedError(
-            f"loading the checkpoint {ckpt_path} is not ported yet (ROADMAP.md, Queue 1 item 11)")
+    """The parameter tree and its config (``simulators.py:31-40``): a
+    converted ``.npz`` through ``load_converted``, a path that exists through
+    ``load_checkpoint`` (a Lightning .ckpt; both take the config from the
+    file, not ``cfg``), else random weights (``init_params`` from ``seed``),
+    as no reference weights ship."""
+    if ckpt_path and ckpt_path.endswith(".npz"):
+        return load_converted(ckpt_path)
+    if ckpt_path and os.path.exists(ckpt_path):
+        return load_checkpoint(ckpt_path)
     cfg = cfg or ViSNetConfig()
     return init_params(cfg, torch.Generator().manual_seed(seed)), cfg
 
@@ -50,7 +53,7 @@ class ProteinSimulation:
 
     prot: Protein
     sim: Simulator
-    potential: FragmentPotential
+    potential: FragmentPotential | ViSNetPotential
     log_dir: str
     prot_name: str
 
@@ -60,15 +63,13 @@ class ProteinSimulation:
                  ckpt_path: str | None = None, model_cfg: ViSNetConfig | None = None,
                  sim_cfg: SimulationConfig | None = None, opt_iters: int = 10,
                  device=None) -> "ProteinSimulation":
-        """``device`` None means the card (raises without one)."""
+        """``mode`` "fragment" or "visnet" (whole molecule, which ignores
+        ``longrange`` as the JAX package does); ``device`` None means the card
+        (raises without one)."""
         device = resolve_device(device)
         prot_name = os.path.basename(prot_file).rsplit(".", 1)[0]
         log_dir = log_dir or os.path.join(os.getcwd(), f"Logs-{prot_name}")
-        if mode == "visnet":
-            raise NotImplementedError(
-                "mode='visnet' (whole-molecule ViSNet) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 11)")
-        if mode != "fragment":
+        if mode not in ("fragment", "visnet"):
             raise ValueError(f"unknown mode {mode!r}")
         prot = load_protein(prot_file)
         sim_cfg = sim_cfg or SimulationConfig()
@@ -81,20 +82,28 @@ class ProteinSimulation:
                 f"(ROADMAP.md, Queue 1 item 13)")
 
         params, cfg = load_model(ckpt_path, model_cfg)
-        pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange=longrange,
-                                      opt_iters=opt_iters, device=device)
+        module = ViSNet(cfg, params)
         hbond = None
         if sim_cfg.hydrogen_constraints:
             hbond = BondRestraint.find_hydrogen_bonds(prot.atoms, device=device)
+        common = dict(masses=prot.masses, numbers=prot.numbers, cfg=sim_cfg, log_dir=log_dir,
+                      prot_name=prot_name, hbond_restraint=hbond, device=device)
+        if mode == "visnet":
+            # no caps, so no carry: the Simulator lifts the stateless
+            # potential (the JAX package's use_warm is fragment mode only)
+            pot = ViSNetPotential.build(prot.numbers, module, cfg, device=device)
+            sim = Simulator(potential=pot.energy_forces, **common)
+            return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
+
+        pot = FragmentPotential.build(prot, module, cfg, longrange=longrange,
+                                      opt_iters=opt_iters, device=device)
         # warm-started caps: the cap offsets ride in the integrator's carry,
         # cold-started once here (the JAX package's choice, simulators.py:
         # 154-163: warm-1 sits within the reference's own cold protocol)
         P0 = torch.as_tensor(np.asarray(prot.positions), dtype=torch.float32, device=device)
         sim = Simulator(
             potential=lambda P, aux: pot.stateful_energy_forces(P, aux, warm_iters=WARM_ITERS),
-            masses=prot.masses, numbers=prot.numbers, cfg=sim_cfg, log_dir=log_dir,
-            prot_name=prot_name, hbond_restraint=hbond, stateful=True,
-            init_aux=pot.init_cap_delta(P0), device=device)
+            stateful=True, init_aux=pot.init_cap_delta(P0), **common)
         return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
 
     def simulate(self, simulation_steps: int, restart: bool = False, log=print):

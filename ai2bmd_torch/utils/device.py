@@ -4,7 +4,7 @@ Replaces the ``on_tpu`` probes of ``ai2bmd_tpu/models/visnet.py:102-131`` and
 ``ai2bmd_tpu/frag/hydrogen.py:58-76``.  A kernel wrapper looks at the tensors
 it is given (CPU: plain PyTorch version, CUDA: the hand-written kernel).  The
 entry points that build state (``FragmentPotential.build``,
-``FragmentRuntime.build``, ``NonbondedParams.build``, ``LangevinCoeffs.build``,
+``ViSNetPotential.build``, ``FragmentRuntime.build``, ``NonbondedParams.build``, ``LangevinCoeffs.build``,
 ``ReplicaEnsemble.build``, ``BondRestraint.find_hydrogen_bonds``,
 ``Simulator``, ``ProteinSimulation.from_pdb``, and ``cli.main`` by its
 ``--device``) take the card unless the caller passes ``device="cpu"``, through ``resolve_device``, which raises when

@@ -39,7 +39,16 @@ is not printed):
      instruction it is built on; after them: shared memory, blocks per SM,
      registers and spills of K1/K2/K7 and of each K3/K8/K5/K6 stage at each
      slot count, and a yardstick that no kernel uses: cuBLAS float32 running
-     only the products of K1, K2, K3, K5, K6, K7 and K8
+     only the products of K1, K2, K3, K5, K6, K7 and K8.  Then K1 (four flag
+     pairs), K2, K3, K7 and K8 at the whole-molecule shapes (B = 1, A = 176,
+     288 and 752: Chignolin, Trp-cage and abd as one molecule), where the centre
+     passes walk their sources in chunks of 48 rows: the same checks
+     (tolerance, bitwise repeats, K7/K8 against K2/K3 on K1's stash, device
+     ms, bound and share) and the chunked passes' occupancy and grid fill.
+     `--edge-hash` prints only the sha256 of K1, K2, K3, K7 and K8's outputs
+     on phase 3's fixed fragment-shape inputs, so that the script can be run
+     against another commit's package (the chunked kernels must give the
+     parent's bits at A <= 48)
   4. the slice through the edge-core kernels K1-K3: Chignolin, production
      ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
@@ -86,7 +95,21 @@ is not printed):
      --replicas 8 (8 DCDs, the final npz).  These runs step at 0.05 fs (the
      timing run 0.01 fs): random weights heat vacuum Chignolin past the
      runaway guard within ~10-20 fs
-  7. one JSON line of kernel results, the card's name and power limit, and
+  7. whole-molecule mode at 9 x 256: (a) phase 4's weights written by
+     save_converted to build/chip_smoke_user/ and read back by load_model,
+     every leaf bitwise equal; (b) Chignolin through ViSNetPotential (one
+     molecule, A = 176): launch counters of one force evaluation (K1 9, K2
+     9, K3 8, K4 0), step 0 against the port on the CPU in float64 (limit
+     1e-3 eV/A), the Langevin step captured by GraphedLangevin, its first 5
+     replays against eager steps on the same noise, TIMED_STEPS replays
+     timed, a profiled window whose trace names K1-K3's kernels; (c)
+     `python -m ai2bmd_torch --mode visnet --ckpt-path <that npz>` for 300
+     steps at 0.01 fs (its steady ms/step beside (b)'s; the forces of its
+     restart file against (b)'s potential at the same positions); (d) abd
+     (A = 752), one force evaluation with remat=True (K1 without a stash,
+     K7/K8) and one with remat=False (K1-K3), launch counters, peak device
+     memory and max|dF| between them (limit 1e-3)
+  8. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
@@ -106,6 +129,9 @@ import sys
 import time
 
 SHAPES = [(2, 24), (4, 32), (4, 40), (9, 16)]   # Chignolin's (B, A) ViSNet batches
+# Chignolin, Trp-cage and abd as one molecule, padded to 8 (abd's width, the
+# largest the bundled proteins give, checks the source passes' loops too)
+WHOLE_SHAPES = [(1, 176), (1, 288), (1, 752)]
 H, NH, S = 256, 8, 8
 CUTOFF = 5.0
 # float32 sums of up to 2H = 512 products, taken in another order than the
@@ -412,51 +438,58 @@ def check_upd(torch, K, c, B, A, results, timed, rc):
     add_times(sums, {"all": t["device_ms"], **{short_name(n): ms for n, ms in parts.items()}})
 
 
+def check_edge_shape(torch, K, c, B, A, results):
+    """K1 (four flag pairs), K2, K3, K7 and K8 at (B, A) on edge_case ``c``:
+    against their plain versions, bitwise repeats, times and bounds summed
+    into ``results``."""
+    fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
+    core, upd = c["core"], c["upd"]
+    plain = K.edge_fwd_plain(*core, **upd)
+    for update in (True, False):
+        for store in (True, False):
+            name = f"edge_fwd B={B} A={A} update={int(update)} store={int(store)}"
+            print(f"  {name}")
+            kw = upd if update else {}
+            run = lambda kw=kw, store=store: K.edge_fwd(*core, **kw, store=store)
+            ref = dict(zip(fwd_keys, plain if update else K.edge_fwd_plain(*core)))
+            if not update:
+                ref["df"] = ref["zf"] = None
+            if not store:
+                ref["zdkv"] = ref["zs"] = ref["zf"] = None
+            err = compare(name, run(), ref, EDGE_TOL)
+            bitwise(name, run)
+            res = results["edge_fwd"]
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if update and store:
+                t = in_turns(torch, run, lambda kw=kw: K.edge_fwd_plain(*core, **kw))
+                add_times(res, t)
+                add_bound(res, bound(nbytes(*core[:12], *upd.values(), *run()),
+                                     tc=2 * B * A * A * 5 * H * H), t)
+    del plain
+
+    msg_args = c["msg"]
+    name = f"edge_bwd_msg B={B} A={A}"
+    print(f"  {name}")
+    run = lambda: K.edge_bwd_msg(*msg_args)
+    res = results["edge_bwd_msg"]
+    res["max_abs_err"] = max(res["max_abs_err"], compare(
+        name, run(), dict(zip(MSG_KEYS, K.edge_bwd_msg_plain(*msg_args))), EDGE_TOL))
+    bitwise(name, run)
+    t = in_turns(torch, run, lambda: K.edge_bwd_msg_plain(*msg_args))
+    add_times(res, t)
+    add_bound(res, bound(nbytes(*msg_args[:13], *run()), tc=2 * B * A * A * 4 * H * H), t)
+
+    check_upd(torch, K, c, B, A, results, True, rc=False)
+    check_msg_rc(torch, K, c, B, A, results, timed=True)
+    check_upd(torch, K, c, B, A, results, True, rc=True)
+
+
 def check_edge_kernels(torch, dev, results):
     from ai2bmd_torch.ops import vismp as K
 
     gen = torch.Generator().manual_seed(0)
-    fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
     for B, A in SHAPES:
-        c = edge_case(torch, K, gen, B, A, dev)
-        core, upd = c["core"], c["upd"]
-        plain = K.edge_fwd_plain(*core, **upd)
-        for update in (True, False):
-            for store in (True, False):
-                name = f"edge_fwd B={B} A={A} update={int(update)} store={int(store)}"
-                print(f"  {name}")
-                kw = upd if update else {}
-                run = lambda kw=kw, store=store: K.edge_fwd(*core, **kw, store=store)
-                ref = dict(zip(fwd_keys, plain if update else K.edge_fwd_plain(*core)))
-                if not update:
-                    ref["df"] = ref["zf"] = None
-                if not store:
-                    ref["zdkv"] = ref["zs"] = ref["zf"] = None
-                err = compare(name, run(), ref, EDGE_TOL)
-                bitwise(name, run)
-                res = results["edge_fwd"]
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                if update and store:
-                    t = in_turns(torch, run, lambda kw=kw: K.edge_fwd_plain(*core, **kw))
-                    add_times(res, t)
-                    add_bound(res, bound(nbytes(*core[:12], *upd.values(), *run()),
-                                         tc=2 * B * A * A * 5 * H * H), t)
-
-        msg_args = c["msg"]
-        name = f"edge_bwd_msg B={B} A={A}"
-        print(f"  {name}")
-        run = lambda: K.edge_bwd_msg(*msg_args)
-        res = results["edge_bwd_msg"]
-        res["max_abs_err"] = max(res["max_abs_err"], compare(
-            name, run(), dict(zip(MSG_KEYS, K.edge_bwd_msg_plain(*msg_args))), EDGE_TOL))
-        bitwise(name, run)
-        t = in_turns(torch, run, lambda: K.edge_bwd_msg_plain(*msg_args))
-        add_times(res, t)
-        add_bound(res, bound(nbytes(*msg_args[:13], *run()), tc=2 * B * A * A * 4 * H * H), t)
-
-        check_upd(torch, K, c, B, A, results, True, rc=False)
-        check_msg_rc(torch, K, c, B, A, results, timed=True)
-        check_upd(torch, K, c, B, A, results, True, rc=True)
+        check_edge_shape(torch, K, edge_case(torch, K, gen, B, A, dev), B, A, results)
 
     # K3, K7 and K8 at the batch sizes the ensemble (phase 5) launches K7/K8
     # at: one chunk of REPLICA_CHUNK replicas folds into each ViSNet batch
@@ -472,6 +505,65 @@ def check_edge_kernels(torch, dev, results):
         for where, sums in results[name].pop("stage_sums").items():
             print(f"  {name}, device ms summed over the four {where} shapes: " + ", ".join(
                 f"{k} {fmt_ms(v)}" for k, v in sums.items()))
+
+
+EDGE_NAMES = ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc", "edge_bwd_upd_rc")
+
+
+def check_whole_molecule_kernels(torch, dev):
+    """K1 (four flag pairs), K2, K3, K7 and K8 at WHOLE_SHAPES, where every
+    centre pass walks its sources in chunks of 48 rows: the checks of the
+    fragment shapes (check_edge_shape).  Returns {A: {kernel: results}}."""
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(5)
+    out = {}
+    for B, A in WHOLE_SHAPES:
+        res = {n: {"max_abs_err": 0.0} for n in EDGE_NAMES}
+        check_edge_shape(torch, K, edge_case(torch, K, gen, B, A, dev), B, A, res)
+        for name in ("edge_bwd_upd", "edge_bwd_upd_rc"):
+            for sums in res[name].pop("stage_sums").values():
+                print(f"  {name} B={B} A={A}, device ms by stage: " + ", ".join(
+                    f"{k} {fmt_ms(v)}" for k, v in sums.items()))
+        out[A] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def edge_hashes(torch, dev):
+    """sha256 of the output bytes of K1 (four flag pairs), K2, K3, K7 and K8
+    (each summing into a copy of the same g_edge for K3/K8) on phase 3's
+    fixed fragment-shape inputs: seed 0, SHAPES in order.  Uses only the
+    wrappers every tree of the port has, so that ``--edge-hash`` can run
+    this script against another commit's package to compare the kernels
+    bit for bit."""
+    import hashlib
+
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(0)
+    h = {n: hashlib.sha256() for n in EDGE_NAMES}
+
+    def add(name, outs):
+        torch.cuda.synchronize()
+        for t in outs:
+            if t is not None:
+                h[name].update(t.cpu().numpy().tobytes())
+
+    for B, A in SHAPES:
+        c = edge_case(torch, K, gen, B, A, dev)
+        for update in (True, False):
+            for store in (True, False):
+                add("edge_fwd", K.edge_fwd(*c["core"], **(c["upd"] if update else {}),
+                                           store=store))
+        add("edge_bwd_msg", K.edge_bwd_msg(*c["msg"]))
+        add("edge_bwd_upd", K.edge_bwd_upd(*c["upd_args"], g_edge=c["g_edge"].clone()))
+        add("edge_bwd_msg_rc", K.edge_bwd_msg_rc(*c["msg_rc"]))
+        add("edge_bwd_upd_rc", K.edge_bwd_upd_rc(*c["upd_rc"], g_edge=c["g_edge"].clone()))
+    out = {n: x.hexdigest() for n, x in h.items()}
+    for n, d in out.items():
+        print(f"  {n} output sha256 over the fragment shapes {SHAPES}: {d}")
+    return out
 
 
 def check_tf32x3(torch, dev):
@@ -517,13 +609,15 @@ def check_tf32x3(torch, dev):
           f"a warp): {tflops:.1f} TFLOP/s TF32, {tflops / 3:.1f} in 3xTF32 float32 products")
 
 
-def report_occupancy(torch, results):
+def report_occupancy(torch, results, whole):
     """Shared memory per block, blocks per SM, registers and spill bytes of
     each edge centre pass, and of K3/K8's row-tile product, at each of
     Chignolin's slot counts, which the ensemble's chunks share (the
     launchers' own sizes, through cudaOccupancyMaxActiveBlocksPerMultiprocessor);
     the largest shape's go into the kernels line, for K3/K8 their centre
-    pass's."""
+    pass's.  Then the edge kernels' at WHOLE_SHAPES (chunked centre passes),
+    with their grids against one wave of blocks per SM x SMs, into
+    ``whole``."""
     import ctypes
 
     from ai2bmd_torch.ops import _build
@@ -563,6 +657,29 @@ def report_occupancy(torch, results):
                   f"{o['spill_bytes']} B local (spill) per thread")
             if name is not None:
                 results[name].update(o)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, A in WHOLE_SHAPES:
+        for label, name, fn, args, blocks in (
+                ("K1 update store", "edge_fwd", "edge_fwd_occupancy", (A, H, S, 1, 1), B * A),
+                ("K1 update", None, "edge_fwd_occupancy", (A, H, S, 1, 0), B * A),
+                ("K1 store", None, "edge_fwd_occupancy", (A, H, S, 0, 1), B * A),
+                ("K1", None, "edge_fwd_occupancy", (A, H, S, 0, 0), B * A),
+                ("K2", "edge_bwd_msg", "edge_bwd_msg_occupancy", (A, H, S, 0), B * A),
+                ("K7", "edge_bwd_msg_rc", "edge_bwd_msg_occupancy", (A, H, S, 1), B * A),
+                ("K3 centre", "edge_bwd_upd", "edge_bwd_upd_occupancy", (A, H, 0, 1),
+                 B * A * H // 256),
+                ("K8 centre", "edge_bwd_upd_rc", "edge_bwd_upd_occupancy", (A, H, 1, 1), B * A),
+                ("K3/K8 product", None, "edge_bwd_upd_occupancy", (A, H, 0, 2),
+                 -(-B * A * A // 128) * (H // 64))):
+            o = occ(fn, *args)
+            waves = blocks / (o["blocks_per_sm"] * sms)
+            print(f"  {label:16s} B={B} A={A} (chunks of 48): {o['smem_bytes']} B shared memory "
+                  f"per block, {o['blocks_per_sm']} blocks per SM, {o['registers']} registers, "
+                  f"{o['spill_bytes']} B local (spill) per thread; grid {blocks} blocks, "
+                  f"{waves:.2f} of a wave of {o['blocks_per_sm']} x {sms}")
+            if name is not None:
+                whole[A][name].update(o, grid_blocks=blocks, waves=waves)
 
 
 # the stages vislayer_{fwd,bwd}_occupancy report, in their order
@@ -917,21 +1034,24 @@ def drive(torch, dev, prot, pot, card, path_kernels):
     print(f"  steady state: {ms_step:.3f} ms/step over {TIMED_STEPS} steps "
           f"(smoke figure, not a benchmark; host clock, synchronised; {card})")
     eager = profile_steps(torch, step, state)
-    graphed = drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels)
+    graphed = drive_graphed(torch, pot.stateful_energy_forces, coeffs, masses, state, gen, card,
+                            ("cap_grad_kernel", *path_kernels))
     print(f"  eager / graphed: {ms_step:.3f} / {graphed['ms_step']:.3f} ms/step, "
           f"{eager['kernels_per_step']:.0f} / {graphed['kernels_per_step']:.0f} kernels per "
           f"step, {100 * eager['busy_share']:.1f}% / {100 * graphed['busy_share']:.1f}% busy")
     return launches, ms_step, P, aux0, aux1, e0, f0, graphed
 
 
-def drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels):
-    """The warm step captured as one CUDA graph (GraphedLangevin) from the
-    eager run's state: peak memory of the capture; the first GRAPH_CHECK_STEPS
-    replays held against eager langevin_step calls from the same state on
-    the same noise (max|dx|, max|dF|, limit FORCE_LIMIT: the force stitch
-    sums with atomics, so not bitwise); TIMED_STEPS replays timed; a
-    profiled window of replays that must name cap_grad_kernel and
-    ``path_kernels``.  Returns ms/step, kernels per step and busy share."""
+def drive_graphed(torch, potential, coeffs, masses, state, gen, card, trace_kernels):
+    """The step of ``potential`` (the stateful protocol) captured as one CUDA
+    graph (GraphedLangevin) from ``state``: peak memory of the capture; the
+    first GRAPH_CHECK_STEPS replays held against eager langevin_step calls
+    from the same state on the same noise (max|dx|, max|dF|, limit
+    FORCE_LIMIT: the force stitch sums with atomics, so not bitwise);
+    TIMED_STEPS replays timed by the host clock and by CUDA events; a
+    profiled window of replays whose trace must name every kernel of
+    ``trace_kernels``.  Returns ms/step (host, events), kernels per step and
+    busy share."""
     from ai2bmd_torch.md import GraphedLangevin
     from ai2bmd_torch.md import langevin as L
 
@@ -939,7 +1059,7 @@ def drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    graphed = GraphedLangevin(pot.stateful_energy_forces, coeffs, masses, state, gen)
+    graphed = GraphedLangevin(potential, coeffs, masses, state, gen)
     torch.cuda.synchronize()
     print(f"  graph: {time.perf_counter() - t0:.1f} s (warm-up "
           f"{graphed.setup_seconds['warmup']:.1f} s, capture {graphed.setup_seconds['capture']:.1f}"
@@ -948,7 +1068,7 @@ def drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels):
     ref, dx, dF = state, 0.0, 0.0
     for _ in range(GRAPH_CHECK_STEPS):
         got = graphed.run(1)
-        ref = L.langevin_step(pot.stateful_energy_forces, coeffs, masses, ref,
+        ref = L.langevin_step(potential, coeffs, masses, ref,
                               xi=graphed.buffers.xi, eta=graphed.buffers.eta)
         dx = max(dx, float((got.positions - ref.positions).abs().max()))
         dF = max(dF, float((got.forces - ref.forces).abs().max()))
@@ -957,23 +1077,28 @@ def drive_graphed(torch, pot, coeffs, masses, state, gen, card, path_kernels):
     need(dx <= FORCE_LIMIT and dF <= FORCE_LIMIT,
          f"replayed steps differ from eager steps: dx {dx:.3e}, dF {dF:.3e}")
     energies = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    start.record()
     for _ in range(TIMED_STEPS):
         energies.append(graphed.run(1).energy.clone())
+    end.record()
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms_events = start.elapsed_time(end) / TIMED_STEPS
     s = graphed.state
     need(bool(torch.stack(energies).isfinite().all()), "non-finite energy in the graphed run")
     need(bool(s.positions.isfinite().all() and s.forces.isfinite().all()),
          "non-finite positions or forces in the graphed run")
-    print(f"  graphed: {ms_step:.3f} ms/step over {TIMED_STEPS} replays after step "
-          f"{s.step - TIMED_STEPS} (smoke figure; host clock, synchronised; {card})")
+    print(f"  graphed: {ms_step:.3f} ms/step (host clock, synchronised), {ms_events:.3f} (CUDA "
+          f"events) over {TIMED_STEPS} replays after step {s.step - TIMED_STEPS} (smoke "
+          f"figure; {card})")
     prof = profile_steps(torch, lambda _: graphed.run(1), None, label="replayed steps")
-    for name in ("cap_grad_kernel", *path_kernels):
+    for name in trace_kernels:
         need(any(name in n for n in prof["names"]), f"the replay trace names no {name}")
-    print(f"  the replay trace names cap_grad_kernel and {', '.join(path_kernels)}")
-    return dict(ms_step=ms_step, **prof)
+    print(f"  the replay trace names {', '.join(trace_kernels)}")
+    return dict(ms_step=ms_step, ms_events=ms_events, **prof)
 
 
 def run_slice(torch, dev, prot, card):
@@ -1366,6 +1491,147 @@ def run_user_cli(torch, root, graphed_ms, card):
     return cli_ms
 
 
+# Phase 7: one force evaluation of whole-molecule mode launches K1 once a
+# layer, K2 once a layer and K3 on the 8 updating layers (K7/K8 in their
+# place with remat), and no cap kernel
+WHOLE_DT_FS = 0.05            # the library run's timestep, as USER_DT_FS
+WHOLE_A = {"chig": 176, "abd": 752}
+
+
+def whole_launches(remat: bool) -> dict:
+    msg, upd = ("edge_bwd_msg_rc", "edge_bwd_upd_rc") if remat else ("edge_bwd_msg",
+                                                                     "edge_bwd_upd")
+    want = dict.fromkeys(("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc",
+                          "edge_bwd_upd_rc", "cap_grad", "vislayer_fwd", "vislayer_bwd",
+                          "tf32x3_mm"), 0)
+    want.update(edge_fwd=N_LAYERS, **{msg: N_LAYERS, upd: N_LAYERS - 1})
+    return want
+
+
+def run_whole_molecule(torch, dev, prot, card, root):
+    """Phase 7: whole-molecule mode at 9 x 256.  (a) the checkpoint round
+    trip, (b) Chignolin through ViSNetPotential with the CPU float64
+    reference and the graphed step, (c) the CLI with --mode visnet
+    --ckpt-path, (d) abd with remat on and off.  Returns its figures."""
+    import numpy as np
+
+    from ai2bmd_torch.host import example_pdb, load_protein
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.models.checkpoint import save_converted
+    from ai2bmd_torch.models.params import flatten, init_params
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import ViSNetPotential
+    from ai2bmd_torch.simulators import load_model
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) phase 4's weights through save_converted and load_model
+    cfg = ViSNetConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    os.makedirs(root, exist_ok=True)
+    npz = os.path.join(root, "visnet-chig-9x256.npz")
+    save_converted(npz, params, cfg)
+    params2, cfg2 = load_model(npz)
+    a, b = flatten(params), flatten(params2)
+    same = len(a) == len(b) and all(pa == pb and torch.equal(x, y) for (pa, x), (pb, y) in zip(a, b))
+    print(f"  (a) save_converted -> {os.path.relpath(npz)} ({os.path.getsize(npz) / 2**20:.1f} "
+          f"MiB), load_model: {len(b)} leaves bitwise equal: {same}; config equal: {cfg2 == cfg}")
+    need(same and cfg2 == cfg, "the converted checkpoint does not read back bitwise")
+
+    # (b) Chignolin as one molecule
+    pot = ViSNetPotential.build(prot.numbers, ViSNet(cfg2, params2), cfg2, device=dev)
+    need(pot.pad_to == WHOLE_A["chig"], f"Chignolin padded to {pot.pad_to}")
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    pot.energy_forces(P)                     # kernels loaded, caches warm
+    torch.cuda.synchronize()
+    reset_launches()
+    e0, f0 = pot.energy_forces(P)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"  (b) Chignolin, {len(prot)} atoms as one molecule of {pot.pad_to} slots; one force "
+          f"evaluation launches {launches}")
+    for name, n in whole_launches(False).items():
+        need(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
+    out["launches"] = launches
+    t0 = time.perf_counter()
+    pot64 = ViSNetPotential.build(prot.numbers, ViSNet(cfg2, params2).to(torch.float64), cfg2,
+                                  device="cpu")
+    e_ref, f_ref = pot64.energy_forces(P.to("cpu", torch.float64))
+    dF = float((f0.to("cpu", torch.float64) - f_ref).abs().max())
+    print(f"  step 0 vs CPU float64 plain: |dE| {abs(float(e0) - float(e_ref)):.3e} eV, max|dF| "
+          f"{dF:.3e} eV/A (limit {FORCE_LIMIT}); max|F| {float(f_ref.abs().max()):.3f} eV/A; "
+          f"reference took {time.perf_counter() - t0:.1f} s")
+    need(dF <= FORCE_LIMIT, f"whole-molecule step-0 forces differ from float64 by {dF:.3e}")
+    masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
+    coeffs = L.LangevinCoeffs.build(prot.masses, WHOLE_DT_FS, 300.0, 0.001, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = L.MDState(P, L.maxwell_boltzmann_velocities(gen, prot.masses, 300.0), f0, e0)
+    out["graphed"] = drive_graphed(torch, L.lift_potential(pot.energy_forces), coeffs, masses,
+                                   state, gen, card, EDGE_KERNELS)
+    need(not any("cap_grad" in n for n in out["graphed"]["names"]),
+         "the whole-molecule trace names a cap kernel")
+
+    # (c) the CLI on that checkpoint
+    d = os.path.join(root, "whole")
+    t0 = time.perf_counter()
+    txt = _cli_wait("whole-molecule", _cli_start(_cli_cmd(
+        d, "--mode", "visnet", "--ckpt-path", npz, "--preeq-steps", "0", "--sim-steps",
+        str(CLI_STEPS), "--record-per-steps", str(CLI_RECORD), "--timestep", str(TIMING_DT_FS))))
+    wall = time.perf_counter() - t0
+    need("Simulation finished!" in txt, "the whole-molecule CLI run did not finish")
+    rows = _metrics(os.path.join(d, "chig-metrics.csv"))
+    need(len(rows) == CLI_STEPS // CLI_RECORD, f"{len(rows)} metrics rows")
+    out["cli_ms"] = sum(r["ms_per_step"] for r in rows[1:]) / (len(rows) - 1)
+    with np.load(os.path.join(d, "chig-restart.npz")) as r:
+        P_r, F_r, step_r = r["positions"], r["forces"], int(r["step"])
+    _, f_r = pot.energy_forces(torch.as_tensor(P_r, device=dev))
+    dF_cli = float(np.abs(f_r.cpu().numpy() - F_r).max())
+    print(f"  (c) python -m ai2bmd_torch --mode visnet --ckpt-path {os.path.relpath(npz)}, "
+          f"{CLI_STEPS} steps at {TIMING_DT_FS} fs: exit 0 in {wall:.1f} s; metrics ms/step "
+          f"{[r['ms_per_step'] for r in rows]}; steady {out['cli_ms']:.3f} against (b)'s graphed "
+          f"{out['graphed']['ms_step']:.3f}; its forces at step {step_r} (restart file) against "
+          f"(b)'s potential at the same positions: max|dF| {dF_cli:.3e} eV/A "
+          f"(limit {FORCE_LIMIT})")
+    need(step_r == CLI_STEPS and dF_cli <= FORCE_LIMIT,
+         f"the CLI's forces differ from the library's by {dF_cli:.3e} at step {step_r}")
+    del pot, pot64, state
+
+    # (d) abd as one molecule, remat on and off
+    abd = load_protein(example_pdb("abd"))
+    P_abd = torch.as_tensor(abd.positions, dtype=torch.float32, device=dev)
+    forces, out["abd_peak_gib"], out["abd_launches"] = {}, {}, {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg2, remat=remat)
+        pa = ViSNetPotential.build(abd.numbers, ViSNet(c, params2), c, device=dev)
+        need(pa.pad_to == WHOLE_A["abd"], f"abd padded to {pa.pad_to}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, forces[remat] = pa.energy_forces(P_abd)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = out["abd_launches"][remat] = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        out["abd_peak_gib"][remat] = peak / 2**30
+        print(f"  (d) abd, {len(abd)} atoms as one molecule of {pa.pad_to} slots, remat={remat}: "
+              f"one force evaluation {secs:.2f} s (first at this shape); launches {launches}; "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above "
+              f"the {base / 2**30:.2f} held before)")
+        for name, n in whole_launches(remat).items():
+            need(launches[name] == n, f"abd remat={remat}: {name} {launches[name]}, expected {n}")
+        need(bool(forces[remat].isfinite().all()), f"abd remat={remat}: non-finite forces")
+        del pa
+    dF = float((forces[True] - forces[False]).abs().max())
+    print(f"  abd remat=True vs remat=False: max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(dF <= FORCE_LIMIT, f"abd: remat changed the forces by {dF:.3e}")
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
     "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:543"),
     "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
@@ -1394,6 +1660,10 @@ def main(argv=None):
     ap.add_argument("--cap-hash", action="store_true",
                     help="print only K4's output hashes and device times on phase 3's "
                          "inputs, without the final line (to compare K4 across commits)")
+    ap.add_argument("--edge-hash", action="store_true",
+                    help="print only K1, K2, K3, K7 and K8's output hashes on phase 3's "
+                         "fragment-shape inputs, without the final line (to compare them "
+                         "across commits)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1432,13 +1702,17 @@ def main(argv=None):
     if args.cap_hash:
         cap_hashes(torch, dev, load_protein(example_pdb("chig")), timed=True)
         return
+    if args.edge_hash:
+        edge_hashes(torch, dev)
+        return
 
     print("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
     check_tf32x3(torch, dev)
     check_layer_kernels(torch, dev, results)
     check_edge_kernels(torch, dev, results)
-    report_occupancy(torch, results)
+    whole = check_whole_molecule_kernels(torch, dev)
+    report_occupancy(torch, results, whole)
     cublas_yardstick(torch, dev, results)
     prot = load_protein(example_pdb("chig"))
     check_cap_kernel(torch, dev, prot, results)
@@ -1456,6 +1730,9 @@ def main(argv=None):
     shutil.rmtree(root, ignore_errors=True)
     run_user_library(torch, dev, root, ref)
     cli_ms = run_user_cli(torch, root, graphed["ms_step"], card)
+    print("== 7. whole-molecule mode: converted checkpoint, Chignolin (A = 176) and abd "
+          "(A = 752) as one molecule, 9 x 256")
+    wm = run_whole_molecule(torch, dev, prot, card, root)
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -1466,10 +1743,19 @@ def main(argv=None):
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "bound_peak": BOUND_PEAK[n], **finish(results[n])}
                for n, (src, rep) in KERNELS.items()]
-    print("== 7. results")
+    for k in kernels:      # the whole-molecule path's launches and shapes (phases 7 and 3)
+        if k["name"] in EDGE_NAMES:
+            k["whole_molecule"] = {
+                "launches": (wm["abd_launches"][True] if k["name"].endswith("_rc")
+                             else wm["launches"])[k["name"]],
+                **{f"A={A}": finish(res[k["name"]]) for A, res in whole.items()}}
+    print("== 8. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
-          f"{cli_ms:.3f} (K1-K3) (smoke); {time.perf_counter() - T_START:.0f} s since start")
+          f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
+          f"{wm['graphed']['ms_step']:.3f} (events {wm['graphed']['ms_events']:.3f}), CLI steady "
+          f"{wm['cli_ms']:.3f}; abd peak GiB remat on / off {wm['abd_peak_gib']}; "
+          f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ Parser parity; ProteinSimulation's cold cap offsets and first forces against
 JAX's with JAX's weights bridged in (tiny model); `python -m ai2bmd_torch
 --device cpu --model-preset tiny` end to end with --build-frames, then
 --restart; the replica ensemble and its restart; the refused routes, each
-naming its ROADMAP item; and the missing card.
+naming its ROADMAP item; a malformed checkpoint; and the missing card.
+Whole-molecule mode and checkpoints: tests/test_torch_whole_molecule.py.
 
 The CLI runs step at 0.25 fs: with random weights (no checkpoint ships)
 vacuum Chignolin heats past the runaway guard (1.5 x 300 K) within a few fs
@@ -152,23 +153,41 @@ def test_cli_replica_ensemble_and_its_restart(tmp_path):
         assert not np.array_equal(fa["positions"][0], fa["positions"][1])
 
 
+# the ids the cases had beside the two whole-molecule / checkpoint cases,
+# which went when those routes were ported
 @pytest.mark.parametrize("argv, item", [
-    (["--mode", "visnet"], 11),
     (["--fragment-longrange-calc", "pme"], 12),
     (["--prot-file", "examples/chig_preprocessed/chig-preeq.pdb"], 13),
-    (["--ckpt-path", "{tmp}/visnet.ckpt"], 11),
     (["--preprocess"], 14),
-])
+], ids=["argv1-12", "argv2-13", "argv4-14"])
 def test_cli_refused_routes_name_their_item(tmp_path, argv, item):
     """Each route the port does not have yet exits nonzero naming its
-    ROADMAP item (an existing checkpoint file included)."""
+    ROADMAP item."""
     conftest.require_examples()
-    (tmp_path / "visnet.ckpt").write_bytes(b"not a checkpoint")
-    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     run = _cli("--prot-file", conftest.example_pdb("chig"), "--log-dir", str(tmp_path),
                "--sim-steps", "2", *CLI_TINY, *argv)
     assert run.returncode != 0
     assert f"Queue 1 item {item}" in run.stderr, run.stderr[-2000:]
+
+
+@pytest.mark.parametrize("argv, name", [
+    (["--ckpt-path", "{tmp}/visnet.ckpt"], "visnet.ckpt"),
+    (["--ckpt-path", "{tmp}/visnet.npz", "--mode", "visnet"], "visnet.npz"),
+    (["--ckpt-path", "{tmp}", "--ckpt-type", "abc"], "visnet-uni-abc.ckpt"),
+])
+def test_cli_a_malformed_checkpoint_exits_naming_the_file(tmp_path, argv, name):
+    """A checkpoint file that is not one (a Lightning .ckpt, a converted
+    .npz, the file --ckpt-path and --ckpt-type join) exits nonzero with a
+    message naming it, before any step."""
+    conftest.require_examples()
+    for f in ("visnet.ckpt", "visnet.npz", "visnet-uni-abc.ckpt"):
+        (tmp_path / f).write_bytes(b"not a checkpoint")
+    argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    run = _cli("--prot-file", conftest.example_pdb("chig"), "--log-dir", str(tmp_path),
+               "--sim-steps", "2", *CLI_TINY, *argv)
+    assert run.returncode != 0
+    assert f"{tmp_path / name} is not a" in run.stderr, run.stderr[-2000:]
+    assert not any(f.endswith(".dcd") for f in os.listdir(tmp_path))
 
 
 def test_an_ensemble_mesh_over_several_cards_is_refused(monkeypatch, tmp_path):

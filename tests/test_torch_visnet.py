@@ -124,12 +124,20 @@ def _close(a, b, tol):
     np.testing.assert_allclose(a, b, rtol=0, atol=tol * max(1.0, float(np.abs(b).max())))
 
 
-@pytest.mark.parametrize("last", [False, True], ids=["update", "last"])
-def test_edge_core_and_vjp_match_pallas(rng, last):
+# (B, A, H, heads): a fragment batch, and one molecule of 64 slots, past the
+# 48 of a fragment, where the card's edge kernels walk the sources in chunks
+FRAGMENT, PAST_48 = (2, 24, 32, 4), (1, 64, 64, 2)
+
+
+@pytest.mark.parametrize("last, shape", [(False, FRAGMENT), (True, FRAGMENT),
+                                         (False, PAST_48), (True, PAST_48)],
+                         ids=["update", "last", "update-A64", "last-A64"])
+def test_edge_core_and_vjp_match_pallas(rng, last, shape):
     """Plain edge core (K1's plain version) and FusedVisMP's backward (K2/K3's
     plain versions) against fused_vis_mp in interpret mode, values and VJP."""
-    a = _edge_inputs(rng)
-    nh, cutoff = 4, 5.0
+    B, A, H, nh = shape
+    a = _edge_inputs(rng, B=B, A=A, H=H)
+    cutoff = 5.0
     names = (["q", "k", "v", "vec", "edge", "d_sh", "dist", "adj", "w_dkv", "b_dkv", "w_s", "b_s"]
              if last else
              ["q", "k", "v", "vec", "wt", "wsrc", "edge", "d_sh", "dist", "adj",
@@ -197,9 +205,19 @@ def test_recompute_message_backward_matches_pallas(rng):
     """K7's plain version against the recompute-mode Pallas kernel
     ``_bwd_msg_call`` (vismp.py:987) in interpret mode, on the sphere-major
     layout it takes.  Tolerance PALLAS_TOL of the largest reference value."""
-    a = _edge_inputs(rng)
-    nh, cutoff = 4, 5.0
-    B, A, S, H = a["vec"].shape
+    _check_recompute_message_backward(rng, *FRAGMENT)
+
+
+def test_recompute_message_backward_matches_pallas_past_48_slots(rng):
+    """As test_recompute_message_backward_matches_pallas, at one molecule of
+    64 slots."""
+    _check_recompute_message_backward(rng, *PAST_48)
+
+
+def _check_recompute_message_backward(rng, B, A, H, nh):
+    a = _edge_inputs(rng, B=B, A=A, H=H)
+    cutoff = 5.0
+    S = a["vec"].shape[2]
     g_x = rng.standard_normal((B, A, H)).astype(np.float32)
     g_va = rng.standard_normal((B, A, S, H)).astype(np.float32)
     ref = JK._bwd_msg_call(
@@ -220,7 +238,17 @@ def test_recompute_message_backward_matches_pallas(rng):
 def test_recompute_update_backward_matches_pallas(rng):
     """K8's plain version against the recompute-mode Pallas kernel
     ``_bwd_upd_call`` (vismp.py:1060) in interpret mode."""
-    a = _edge_inputs(rng)
+    _check_recompute_update_backward(rng, *FRAGMENT)
+
+
+def test_recompute_update_backward_matches_pallas_past_48_slots(rng):
+    """As test_recompute_update_backward_matches_pallas, at one molecule of
+    64 slots."""
+    _check_recompute_update_backward(rng, *PAST_48)
+
+
+def _check_recompute_update_backward(rng, B, A, H, nh):
+    a = _edge_inputs(rng, B=B, A=A, H=H)
     g_df = (rng.standard_normal(a["edge"].shape) * a["adj"][..., None]).astype(np.float32)
     ref = JK._bwd_upd_call(
         *(jnp.asarray(x) for x in (a["edge"], a["adj"], _sphere_major(a["wt"]),
