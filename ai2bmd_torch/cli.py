@@ -9,7 +9,8 @@ CPU, and on the card the MD loop is replays of one captured step.
 
 Routes:
   * the vacuum paths (``ProteinSimulation``): fragment mode, and whole-molecule
-    mode with ``--mode visnet``; an exception during the simulation exits
+    mode with ``--mode visnet``; a solvated input with ``--no-solvent`` runs
+    its protein alone in vacuum; an exception during the simulation exits
     255, as the reference's runaway / solver errors do
   * ``--replicas > 1`` (or ``--mesh-mp > 1``): ``ReplicaEnsemble`` on one
     card, each replica with its own DCD, the whole batched state (and every
@@ -20,8 +21,10 @@ Routes:
     nonzero naming it
 
 Refused, naming the ROADMAP item that ports them: ``--fragment-longrange-calc
-pme`` in fragment mode (item 12), solvated inputs and ``--solvent`` (item
-13), ``--preprocess`` (item 14), a mesh of more than one card (item 17), and
+pme`` in fragment mode (item 12), explicit solvent (``--solvent``, or a
+solvated input without ``--no-solvent``) and ``--replicas`` on a solvated
+input, whatever ``--solvent`` says (item 13), ``--preprocess`` (item 14), a
+mesh of more than one card (item 17), and
 ``--matmul-precision`` other than float32 (the port's products are float32
 or 3xTF32 by design).  The reference's
 ``--device-strategy``, ``--work-strategy`` and ``--chunk-size`` are accepted
@@ -201,6 +204,7 @@ def _run(args, device, prot_name: str, log_dir: str, log) -> int:
         opt_iters=args.opt_iters,
         device=device,
     )
+    print(_model_line(sim.potential.cfg, device), flush=True)
     try:
         sim.simulate(args.sim_steps, restart=args.restart)
     except Exception as exc:  # the reference exits -1 on runaway / solver errors
@@ -210,6 +214,18 @@ def _run(args, device, prot_name: str, log_dir: str, log) -> int:
     if args.build_frames and not args.restart:
         _build_frames(log_dir, prot_name)
     return 0
+
+
+def _model_line(cfg, device) -> str:
+    """The model and the kernels its layers run on ``device``."""
+    if device.type != "cuda":
+        path = "plain versions on the CPU"
+    elif cfg.fused_layer:
+        path = "full-layer kernels K5/K6"
+    else:
+        path = "edge-core kernels K1, K7/K8 (remat)" if cfg.remat else "edge-core kernels K1-K3"
+    return (f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} heads: "
+            f"{path}")
 
 
 def _is_solvated(prot_file: str) -> bool:

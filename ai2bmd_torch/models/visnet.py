@@ -71,9 +71,9 @@ class ViSNetConfig:
     # fused_layer=True runs each complete ViS-MP layer as one kernel pair
     # (ops/vislayer.py: K5 forward, recompute-mode K6 backward) instead of
     # the edge-core kernels K1-K3 and the eager node side.  Needs silu
-    # activations, vecnorm "none" and A % 8 == 0, and on the card A <= 48
-    # (a fragment; raises otherwise).  Weight gradients are not computed on
-    # this path: training uses the default.
+    # activations, vecnorm "none" and A % 8 == 0, and on the card A <= 1024
+    # (a fragment or a whole molecule; raises otherwise).  Weight gradients
+    # are not computed on this path: training uses the default.
     fused_layer: bool = False
     # remat=True runs the edge core's backward in recompute mode (kernels
     # K7/K8, the plain versions on the CPU): less device memory for large

@@ -38,21 +38,23 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace ai2bmd {
 
 // Largest slot count of a fragment: the dipeptide rows of every bundled
-// protein are at most 40 slots wide, ACE-NME units 16.  The full-layer
-// kernels K5/K6 keep a fragment's per-row values in shared memory and
-// registers sized by this bound, so they take A <= MAXA.
+// protein are at most 40 slots wide, ACE-NME units 16.  Only the product
+// helper's default row bound (mma_rows_times_cols) and its lone test
+// launcher (tf32x3_mm.cu) still use it.
 constexpr int MAXA = 48;
-// The edge kernels (K1-K3, K7, K8) walk a centre's sources in chunks of at
-// most ECHUNK rows: shared memory and per-row registers are sized by the
-// chunk, not by A, so they take any A % 8 == 0 up to EDGE_MAXA.  Every
-// fragment shape (A <= 48) is one chunk.
+// Every centre pass (K1-K3, K7, K8, and K5/K6's centre passes) walks a
+// centre's sources in chunks of at most ECHUNK rows: shared memory and
+// per-row registers are sized by the chunk, not by A, so they take any
+// A % 8 == 0 up to EDGE_MAXA.  Every fragment shape (A <= 48) is one chunk.
 constexpr int ECHUNK = 48;
-// Largest slot count the edge kernels take: a whole molecule (abd, the
-// largest bundled protein, is 752 slots).  Every index that can pass 2^31
-// at B A^2 2H elements is a size_t.
+// Largest slot count the edge and full-layer kernels take: a whole molecule
+// (abd, the largest bundled protein, is 752 slots).  Every index that can
+// pass 2^31 at B A^2 3H elements is a size_t.
 constexpr int EDGE_MAXA = 1024;
 // Rows go in chunks of RCHUNK, and a slot count is a multiple of it (the
 // fragment indexer rounds slots to 8): a guard per chunk instead of per row
@@ -71,12 +73,34 @@ __device__ __forceinline__ float dsilu(float z) {
   return s * (1.0f + z * (1.0f - s));
 }
 
-// Sum over the 32 lanes of a warp; every lane gets the total.  The butterfly
-// order is fixed, so the result is bitwise repeatable.
-__device__ __forceinline__ float warp_sum(float x) {
+// Sum over the DH lanes of one attention head: a head is DH consecutive
+// channels, one a thread, so a warp holds 32 / DH heads side by side and
+// the butterfly over offsets DH/2 .. 1 stays inside each.  Every lane gets
+// its own head's sum.  The order is fixed, so the result is bitwise
+// repeatable; at DH = 32 it is warp_sum, offset for offset.
+template <int DH>
+__device__ __forceinline__ float head_sum(float x) {
+  static_assert(DH == 8 || DH == 16 || DH == 32, "heads of 8, 16 or 32 channels");
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = DH / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Sum over the 32 lanes of a warp; every lane gets the total.  The sums
+// over all channels (LayerNorm statistics, g_dist, g_d_sh) take one a warp
+// and then add the warps in a fixed order.
+__device__ __forceinline__ float warp_sum(float x) { return head_sum<32>(x); }
+
+// Call f(std::integral_constant<int, DH>{}) for the head width dh (H / nh)
+// that the kernels are instantiated for; any other dh is refused.
+template <class F>
+static int with_head_width(int dh, F&& f) {
+  switch (dh) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 __device__ __forceinline__ float cosine_cutoff(float d, float cutoff) {

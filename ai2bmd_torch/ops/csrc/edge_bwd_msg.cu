@@ -58,22 +58,25 @@
 // reductions are in flight together; the chunk loops are runtime loops
 // (small code), except K7's v_ij and attention chains, which index zk.
 // The cross-channel sums (g_d_sh, g_dist) reduce each warp with shuffles and
-// then the warps in a fixed order through shared memory.
+// then the warps in a fixed order through shared memory; the head sums (the
+// attention pre-activation a_ij and its cotangent) reduce a head's DH lanes
+// (head_sum<DH>, common.cuh; DH = H / nh, 8, 16 or 32, a template
+// parameter), and K7 keeps a_ij in sPre, one slot a head.
 // The transposed products take W^T ([2H][H], row-major) as their W.
 
 #include "common.cuh"
 
 using namespace ai2bmd;
 
-// dynamic shared memory of one centre-pass block (NW = H / 32 warps) for
-// one chunk of min(A, ECHUNK) rows
-static size_t msg_smem(int A, int H, int S, bool rc) {
+// dynamic shared memory of one centre-pass block (NW = H / 32 warps, H / dh
+// heads) for one chunk of min(A, ECHUNK) rows
+static size_t msg_smem(int A, int H, int S, bool rc, int dh) {
   const int NW = H / 32, n = A < ECHUNK ? A : ECHUNK;
-  return (size_t)(n * mma_ld(2 * H) + (rc ? 2 * n * mma_ld(H) + n * NW : 0) + n * S + 3 * n +
-                  NW * n + NW * n * S) * sizeof(float);
+  return (size_t)(n * mma_ld(2 * H) + (rc ? 2 * n * mma_ld(H) + n * (H / dh) : 0) + n * S +
+                  3 * n + NW * n + NW * n * S) * sizeof(float);
 }
 
-template <bool RC>
+template <bool RC, int DH>
 __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ vec, const float* __restrict__ zdkv,
@@ -100,9 +103,10 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
   float* sDcut = sGate + CH;            // [CH]  d cutoff / d r
   float* sRedCut = sDcut + CH;          // [NW][CH]
   float* sRedDsh = sRedCut + NW * CH;   // [NW][CH][S]
-  float* sPre = sRedDsh + NW * CH * S;  // RC: [CH][NW] head pre-activations a_ij
+  float* sPre = sRedDsh + NW * CH * S;  // RC: [CH][H / DH] head pre-activations a_ij
 
   const int t = threadIdx.x, w = t / 32, lane = t % 32;
+  const int NHD = blockDim.x / DH, hd = t / DH;  // heads, and the head of channel t
   const int i = blockIdx.x, b = blockIdx.y;
   const int H2 = 2 * H;
   const size_t bi = (size_t)b * A + i;
@@ -150,8 +154,8 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
             const float zv = sZv[r * ld + t] + bv;
             sZv[r * ld + t] = zv;
             const float kr = k[(s0 + r) * H + t], vr = v[(s0 + r) * H + t];
-            const float a = warp_sum(qi * kr * silu(zk[r]));
-            if (lane == 0) sPre[r * NW + w] = a;
+            const float a = head_sum<DH>(qi * kr * silu(zk[r]));
+            if (t % DH == 0) sPre[r * NHD + hd] = a;
             sE[r * ld + t] = vr * silu(zv) * (silu(a) * sGate[r]);
           }
         }
@@ -242,9 +246,9 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
           const float kr = k[(s0 + r) * H + t], vr = v[(s0 + r) * H + t];
           float a;
           if constexpr (RC) {
-            a = sPre[r * NW + w];
+            a = sPre[r * NHD + hd];
           } else {
-            a = warp_sum(qi * kr * dk);
+            a = head_sum<DH>(qi * kr * dk);
           }
           const float att = silu(a), gate = sGate[r];
           const float g3 = att * gate;
@@ -253,7 +257,7 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
           const float g_g3 = gvij * vr * dv;
           const float red = warp_sum(g_g3 * att);
           if (lane == 0) sRedCut[w * CH + r] = red;
-          const float g_a = warp_sum(g_g3 * gate) * dsilu(a);
+          const float g_a = head_sum<DH>(g_g3 * gate) * dsilu(a);
           gqi = fmaf(g_a * kr, dk, gqi);
           gk_e[e] = g_a * qi * dk;
           sW[r * ldw + t] = g_a * qi * kr * dsilu(zkr);
@@ -321,20 +325,24 @@ static int launch_msg(const float* q, const float* k, const float* v, const floa
                   const float* dist, const float* adj, const float* wdkvT, const float* wsT,
                   const float* gx, const float* gva, float* gq, float* gk, float* gv,
                   float* gvec, float* gedge, float* gdsh, float* gdist, float* gk_e,
-                  float* gv_e, float* s1_e, int B, int A, int H, int S, float cutoff,
+                  float* gv_e, float* s1_e, int B, int A, int H, int S, float cutoff, int dh,
                   cudaStream_t stream) {
   if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = msg_smem(A, H, S, RC);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(edge_bwd_msg_centre<RC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  edge_bwd_msg_centre<RC><<<dim3(A, B), H, smem, stream>>>(
-      q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh, dist, adj, wdkvT, wsT, gx, gva, gq,
-      gedge, gdsh, gdist, gk_e, gv_e, s1_e, A, H, S, cutoff);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int rc = with_head_width(dh, [&](auto d) {
+    constexpr int DH = decltype(d)::value;
+    const size_t smem = msg_smem(A, H, S, RC, DH);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    auto kern = edge_bwd_msg_centre<RC, DH>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<dim3(A, B), H, smem, stream>>>(q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh,
+                                          dist, adj, wdkvT, wsT, gx, gva, gq, gedge, gdsh, gdist,
+                                          gk_e, gv_e, s1_e, A, H, S, cutoff);
+    return (int)cudaGetLastError();
+  });
+  if (rc != 0) return rc;
   edge_bwd_msg_source<RC><<<dim3(A, B), H, 0, stream>>>(zs, adj, s1_e, gva, gk_e, gv_e, gk, gv,
                                                         gvec, A, H, S);
   return (int)cudaGetLastError();
@@ -347,10 +355,10 @@ extern "C" int edge_bwd_msg_launch(const float* q, const float* k, const float* 
                                    const float* gva, float* gq, float* gk, float* gv,
                                    float* gvec, float* gedge, float* gdsh, float* gdist,
                                    float* gk_e, float* gv_e, int B, int A, int H, int S,
-                                   float cutoff, cudaStream_t stream) {
+                                   float cutoff, int dh, cudaStream_t stream) {
   return launch_msg<false>(q, k, v, vec, zdkv, zs, nullptr, nullptr, nullptr, nullptr, nullptr, dsh,
                        dist, adj, wdkvT, wsT, gx, gva, gq, gk, gv, gvec, gedge, gdsh, gdist,
-                       gk_e, gv_e, nullptr, B, A, H, S, cutoff, stream);
+                       gk_e, gv_e, nullptr, B, A, H, S, cutoff, dh, stream);
 }
 
 extern "C" int edge_bwd_msg_rc_launch(
@@ -359,15 +367,15 @@ extern "C" int edge_bwd_msg_rc_launch(
     const float* ws, const float* bs, const float* wdkvT, const float* wsT, const float* gx,
     const float* gva, float* gq, float* gk, float* gv, float* gvec, float* gedge, float* gdsh,
     float* gdist, float* gk_e, float* gv_e, float* s1_e, int B, int A, int H, int S,
-    float cutoff, cudaStream_t stream) {
+    float cutoff, int dh, cudaStream_t stream) {
   return launch_msg<true>(q, k, v, vec, nullptr, nullptr, edge, wdkv, bdkv, ws, bs, dsh, dist, adj,
                       wdkvT, wsT, gx, gva, gq, gk, gv, gvec, gedge, gdsh, gdist, gk_e, gv_e, s1_e,
-                      B, A, H, S, cutoff, stream);
+                      B, A, H, S, cutoff, dh, stream);
 }
 
 // shared memory, blocks per SM, registers and spill bytes of the centre
 // pass, K2 (rc = 0) or K7 (rc = 1)
 extern "C" int edge_bwd_msg_occupancy(int A, int H, int S, int rc, int* out) {
-  return rc ? occupancy(edge_bwd_msg_centre<true>, H, msg_smem(A, H, S, true), out)
-            : occupancy(edge_bwd_msg_centre<false>, H, msg_smem(A, H, S, false), out);
+  return rc ? occupancy(edge_bwd_msg_centre<true, 32>, H, msg_smem(A, H, S, true, 32), out)
+            : occupancy(edge_bwd_msg_centre<false, 32>, H, msg_smem(A, H, S, false, 32), out);
 }

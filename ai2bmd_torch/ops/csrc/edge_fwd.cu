@@ -45,7 +45,9 @@
 // flight together while the code stays small (chains unrolled over all 48
 // rows ran slower).  __launch_bounds__(256, 2) holds the
 // kernel to 128 registers so two blocks share an SM.  The head pool is a
-// warp-shuffle sum, since one head (32 channels) is one warp.
+// shuffle sum over a head's lanes (head_sum<DH>, common.cuh), since a head
+// of DH = 8, 16 or 32 channels is a quarter, half or all of a warp; DH is a
+// template parameter, chosen at launch from H / nh.
 // All sums run in a fixed order: the kernel is bitwise repeatable, and K7
 // and K8, which rebuild zdkv, zs and zf with the same product on the same
 // rows, rebuild them bitwise.
@@ -64,7 +66,7 @@ static size_t fwd_smem(int A, int H, int S) {
   return (size_t)(2 * n * mma_ld(H) + n * S + 2 * n) * sizeof(float);
 }
 
-template <bool UPDATE, bool STORE>
+template <bool UPDATE, bool STORE, int DH>
 __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ vec, const float* __restrict__ wt, const float* __restrict__ wsrc,
@@ -144,7 +146,8 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
     }
     mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, H, sE, ld);
 
-    // attention message; the head of channel t is the warp of thread t
+    // attention message; the head of channel t is t / DH, on the lanes of
+    // thread t's warp that share it
     const float qi = q[bi * H + t];
     float xsum = 0.0f;
     for (int r0 = 0; r0 < n; r0 += RCHUNK) {
@@ -155,7 +158,7 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
         if (STORE) zdkv[(e0 + r) * H2 + H + t] = zv;
         const float kr = k[(s0 + r) * H + t];
         const float vr = v[(s0 + r) * H + t];
-        const float a = warp_sum(qi * kr * sP[r * ld + t]);
+        const float a = head_sum<DH>(qi * kr * sP[r * ld + t]);
         const float vij = vr * silu(zv) * (silu(a) * sGate[r]);
         sE[r * ld + t] = vij;
         xsum += vij;
@@ -212,16 +215,18 @@ static int launch(const float* q, const float* k, const float* v, const float* v
                   const float* dist, const float* adj, const float* wdkv, const float* bdkv,
                   const float* ws, const float* bs, const float* wf, const float* bf,
                   float* xagg, float* vecagg, float* df, float* zdkv, float* zs, float* zf,
-                  int B, int A, int H, int S, float cutoff, cudaStream_t stream) {
+                  int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
   const size_t smem = fwd_smem(A, H, S);
-  auto kern = edge_fwd_kernel<UPDATE, STORE>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(A, B), H, smem, stream>>>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv,
-                                        bdkv, ws, bs, wf, bf, xagg, vecagg, df, zdkv, zs, zf,
-                                        A, H, S, cutoff);
-  return (int)cudaGetLastError();
+  return with_head_width(dh, [&](auto d) {
+    auto kern = edge_fwd_kernel<UPDATE, STORE, decltype(d)::value>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<dim3(A, B), H, smem, stream>>>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv,
+                                          bdkv, ws, bs, wf, bf, xagg, vecagg, df, zdkv, zs, zf,
+                                          A, H, S, cutoff);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, const float* vec,
@@ -231,34 +236,35 @@ extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, c
                                const float* bs, const float* wf, const float* bf, float* xagg,
                                float* vecagg, float* df, float* zdkv, float* zs, float* zf,
                                int B, int A, int H, int S, float cutoff, int update, int store,
-                               cudaStream_t stream) {
+                               int dh, cudaStream_t stream) {
   if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
     return (int)cudaErrorInvalidValue;
   if (update) {
     if (store)
       return launch<true, true>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws,
                                 bs, wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff,
-                                stream);
+                                dh, stream);
     return launch<true, false>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
                                wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff,
-                               stream);
+                               dh, stream);
   }
   if (store)
     return launch<false, true>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
                                wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff,
-                               stream);
+                               dh, stream);
   return launch<false, false>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
-                              wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff, stream);
+                              wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff, dh,
+                              stream);
 }
 
 // shared memory, blocks per SM, registers and spill bytes of one flag pair
 extern "C" int edge_fwd_occupancy(int A, int H, int S, int update, int store, int* out) {
   const size_t smem = fwd_smem(A, H, S);
   if (update)
-    return store ? occupancy(edge_fwd_kernel<true, true>, H, smem, out)
-                 : occupancy(edge_fwd_kernel<true, false>, H, smem, out);
-  return store ? occupancy(edge_fwd_kernel<false, true>, H, smem, out)
-               : occupancy(edge_fwd_kernel<false, false>, H, smem, out);
+    return store ? occupancy(edge_fwd_kernel<true, true, 32>, H, smem, out)
+                 : occupancy(edge_fwd_kernel<true, false, 32>, H, smem, out);
+  return store ? occupancy(edge_fwd_kernel<false, true, 32>, H, smem, out)
+               : occupancy(edge_fwd_kernel<false, false, 32>, H, smem, out);
 }
 
 extern "C" const char* ai2bmd_error_string(int err) {

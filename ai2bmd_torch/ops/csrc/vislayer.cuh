@@ -126,22 +126,27 @@ static inline cudaError_t launch_node_prologue(const Layer& p, cudaStream_t stre
 }
 
 // Per-centre pieces: one block per (fragment b, centre atom i), one thread
-// per channel; the head of channel t is the warp of thread t.
-// sGate[r] = cutoff(dist_ir) * adj_ir for the centre's A rows (bi = b A + i).
-__device__ __forceinline__ void load_gate(const float* dist, const float* adj, int A,
-                                          float cutoff, size_t bi, float* sGate) {
-  for (int r = threadIdx.x; r < A; r += blockDim.x)
-    sGate[r] = cosine_cutoff(dist[bi * A + r], cutoff) * adj[bi * A + r];
+// per channel; the head of channel t is t / DH (DH = H / nh channels, 8, 16
+// or 32, a template parameter of the kernels that sum a head).  A centre
+// walks its sources in chunks of at most ECHUNK rows (common.cuh), so its
+// shared memory follows the chunk and not A.
+// sGate[r] = cutoff(dist_ir) * adj_ir for the n rows of the chunk that
+// starts at edge row e0 = (b A + i) A + c0.
+__device__ __forceinline__ void load_gate(const float* dist, const float* adj, int n,
+                                          float cutoff, size_t e0, float* sGate) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x)
+    sGate[r] = cosine_cutoff(dist[e0 + r], cutoff) * adj[e0 + r];
 }
 
 // The attention head sum a_ij = sum_head q_i k_j dk (dk = silu(zk)); K5 and
 // K6 evaluate it alike, so K6's recomputed a equals K5's bitwise.
+template <int DH>
 __device__ __forceinline__ float head_pre(float qi, float kr, float dk) {
-  return warp_sum(qi * kr * dk);
+  return head_sum<DH>(qi * kr * dk);
 }
 
 inline bool layer_shapes_ok(int A, int H, int S) {
-  return A <= MAXA && A % RCHUNK == 0 && S <= MAXS && H % 32 == 0 && H <= 256 && H >= 32;
+  return A <= EDGE_MAXA && A % RCHUNK == 0 && S <= MAXS && H % 32 == 0 && H <= 256 && H >= 32;
 }
 
 }  // namespace ai2bmd

@@ -49,8 +49,15 @@
 //   (i) g_xhat = (g_qkv @ W_qkv^T) * ln_s, then the LayerNorm's row pass:
 //       gx = gx2 + rstd (g_xhat - mean(g_xhat) - xhat mean(g_xhat xhat));
 //       gvec = gvec2 + (g_vecn + xv @ [W_vp | W_t | W_src]^T) * w_vln.
-// About 42 H floats move per edge cell, most from L2.  Every sum runs in a
-// fixed order: the kernel is bitwise repeatable.
+// About 42 H floats move per edge cell, most from L2 at fragment shapes.
+// The centre pass (f) walks the sources in chunks of ECHUNK = 48 rows
+// (common.cuh): it stages a chunk's adj, gates and cutoff derivatives, and
+// reduces the chunk's cross-warp partials of g_dist and g_d_sh (per edge,
+// so no sum crosses a chunk) before the next chunk; g_q is one register
+// chain over all rows.  So it takes any A % 8 == 0 up to EDGE_MAXA, and at
+// A <= 48 gives the single-chunk kernel's bits.  The head sums (a_ij and its
+// cotangent) take DH = H / nh lanes, a template parameter (head_sum<DH>).
+// Every sum runs in a fixed order: the kernel is bitwise repeatable.
 
 #include <cstddef>
 #include <cstring>
@@ -169,13 +176,15 @@ struct GvEpi {
 // per channel (all of it is row-local, so the grid is B A A blocks):
 // v_ij = v_j * dv * silu(a) * gate -> v_e, and the sums over c of g_s,
 // g_e = [sum_c gvec2_i[c] vecn_j[c] | sum_c gvec2_i[c] d_sh_ij[c]].
+template <int DH>
 __global__ void __launch_bounds__(256) vislayer_bwd_rows(const Layer p) {
   const int t = threadIdx.x, A = p.A, H = p.H, H3 = 3 * H, S = p.S;
   const size_t e = blockIdx.x;
   const EdgeRow r(e, A);
   const size_t bj = r.b0 + r.j;
   const float gate = cosine_cutoff(p.dist[e], p.cutoff) * p.adj[e];
-  const float a = head_pre(p.qkv[r.bi * H3 + t], p.qkv[bj * H3 + H + t], silu(p.z[e * H3 + t]));
+  const float a =
+      head_pre<DH>(p.qkv[r.bi * H3 + t], p.qkv[bj * H3 + H + t], silu(p.z[e * H3 + t]));
   p.v_e[e * H + t] = p.qkv[bj * H3 + 2 * H + t] * silu(p.z[e * H3 + H + t]) * (silu(a) * gate);
   float g1 = 0.0f, g2 = 0.0f;
 #pragma unroll
@@ -215,70 +224,77 @@ __global__ void __launch_bounds__(256) vislayer_bwd_gwt(const Layer p) {
 // a = sum_head q_i k_j dk (vislayer.py:293-311), from g_vij (v_e):
 // g_k and g_v terms -> g_e; g_q_i -> gqkv; g_dist; g_dkv -> z[:, :2H];
 // and g_d_sh_ij[c] = sum_h gvec2_i[c] * s2 (vislayer.py:288).
+template <int DH>
 __global__ void __launch_bounds__(256) vislayer_bwd_centre(const Layer p) {
-  __shared__ float sAdj[MAXA], sGate[MAXA], sDcut[MAXA];
-  __shared__ float sRedCut[8 * MAXA], sRedDsh[8 * MAXS * MAXA];
+  __shared__ float sAdj[ECHUNK], sGate[ECHUNK], sDcut[ECHUNK];
+  __shared__ float sRedCut[8 * ECHUNK], sRedDsh[8 * MAXS * ECHUNK];
   const int t = threadIdx.x, w = t / 32, lane = t % 32, NW = blockDim.x / 32;
   const int A = p.A, H = p.H, H3 = 3 * H, S = p.S;
   const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b0 = bi - blockIdx.x, b = blockIdx.y, i = blockIdx.x;
   const float kpi = 3.14159265358979323846f / p.cutoff;
-  for (int r = t; r < A; r += blockDim.x) {
-    const float a = p.adj[bi * A + r], d = p.dist[bi * A + r];
-    sAdj[r] = a;
-    sGate[r] = cosine_cutoff(d, p.cutoff) * a;
-    sDcut[r] = d < p.cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
-  }
-  __syncthreads();
   float gva[MAXS];
 #pragma unroll
   for (int c = 0; c < MAXS; ++c) gva[c] = c < S ? p.gvec2[((b * S + c) * A + i) * H + t] : 0.0f;
   const float qi = p.qkv[bi * H3 + t];
   float gqi = 0.0f;
-  for (int c8 = 0; c8 < A; c8 += RCHUNK) {
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+    const size_t e0 = bi * A + c0;  // the chunk's first edge row (b, i, c0)
+    // every thread is done with the last chunk's rows and partials
+    if (c0) __syncthreads();
+    for (int r = t; r < n; r += blockDim.x) {
+      const float a = p.adj[e0 + r], d = p.dist[e0 + r];
+      sAdj[r] = a;
+      sGate[r] = cosine_cutoff(d, p.cutoff) * a;
+      sDcut[r] = d < p.cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+    }
+    __syncthreads();
+    for (int c8 = 0; c8 < n; c8 += RCHUNK) {
 #pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
-      const int r = c8 + rr;
-      const size_t e = bi * A + r;
-      const float gvij = p.v_e[e * H + t];
-      const float zk = p.z[e * H3 + t], zv = p.z[e * H3 + H + t];
-      const float dk = silu(zk), dv = silu(zv);
-      const float kr = p.qkv[(b0 + r) * H3 + H + t];
-      const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
-      const float a = head_pre(qi, kr, dk), att = silu(a), gate = sGate[r];
-      const float g3 = att * gate;
-      const float g_dv = gvij * vr * g3;
-      const float g_g3 = gvij * vr * dv;
-      const float red = warp_sum(g_g3 * att);
-      if (lane == 0) sRedCut[w * A + r] = red;
-      const float g_a = warp_sum(g_g3 * gate) * dsilu(a);
-      gqi = fmaf(g_a * kr, dk, gqi);
-      p.g_e[e * 2 * H + t] = g_a * qi * dk;
-      p.g_e[e * 2 * H + H + t] = gvij * dv * g3;
-      p.z[e * H3 + t] = g_a * qi * kr * dsilu(zk);
-      p.z[e * H3 + H + t] = g_dv * dsilu(zv);
-      const float s2 = p.s_e[e * 2 * H + H + t];
+      for (int rr = 0; rr < RCHUNK; ++rr) {
+        const int r = c8 + rr;  // the row in the chunk; the source is c0 + r
+        const size_t e = e0 + r;
+        const float gvij = p.v_e[e * H + t];
+        const float zk = p.z[e * H3 + t], zv = p.z[e * H3 + H + t];
+        const float dk = silu(zk), dv = silu(zv);
+        const float kr = p.qkv[(b0 + c0 + r) * H3 + H + t];
+        const float vr = p.qkv[(b0 + c0 + r) * H3 + 2 * H + t];
+        const float a = head_pre<DH>(qi, kr, dk), att = silu(a), gate = sGate[r];
+        const float g3 = att * gate;
+        const float g_dv = gvij * vr * g3;
+        const float g_g3 = gvij * vr * dv;
+        const float red = warp_sum(g_g3 * att);
+        if (lane == 0) sRedCut[w * n + r] = red;
+        const float g_a = head_sum<DH>(g_g3 * gate) * dsilu(a);
+        gqi = fmaf(g_a * kr, dk, gqi);
+        p.g_e[e * 2 * H + t] = g_a * qi * dk;
+        p.g_e[e * 2 * H + H + t] = gvij * dv * g3;
+        p.z[e * H3 + t] = g_a * qi * kr * dsilu(zk);
+        p.z[e * H3 + H + t] = g_dv * dsilu(zv);
+        const float s2 = p.s_e[e * 2 * H + H + t];
 #pragma unroll
-      for (int c = 0; c < MAXS; ++c) {
-        if (c < S) {
-          const float rd = warp_sum(gva[c] * s2);
-          if (lane == 0) sRedDsh[(w * S + c) * A + r] = rd;
+        for (int c = 0; c < MAXS; ++c) {
+          if (c < S) {
+            const float rd = warp_sum(gva[c] * s2);
+            if (lane == 0) sRedDsh[(w * S + c) * n + r] = rd;
+          }
         }
       }
     }
+    __syncthreads();  // the chunk's partials are written
+    for (int r = t; r < n; r += blockDim.x) {
+      float sum = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) sum += sRedCut[ww * n + r];
+      p.gdist[e0 + r] = sum * sAdj[r] * sDcut[r];
+    }
+    for (int x = t; x < S * n; x += blockDim.x) {
+      const int c = x / n, r = x % n;
+      float sum = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) sum += sRedDsh[(ww * S + c) * n + r];
+      p.gdsh[((b * S + c) * A + i) * A + c0 + r] = sum;
+    }
   }
   p.gqkv[bi * H3 + t] = gqi;
-  __syncthreads();
-  for (int r = t; r < A; r += blockDim.x) {
-    float sum = 0.0f;
-    for (int ww = 0; ww < NW; ++ww) sum += sRedCut[ww * A + r];
-    p.gdist[bi * A + r] = sum * sAdj[r] * sDcut[r];
-  }
-  for (int e = t; e < S * A; e += blockDim.x) {
-    const int c = e / A, r = e % A;
-    float sum = 0.0f;
-    for (int ww = 0; ww < NW; ++ww) sum += sRedDsh[(ww * S + c) * A + r];
-    p.gdsh[((b * S + c) * A + i) * A + r] = sum;
-  }
 }
 
 // (h) source pass: fixed-order sums over the centre atoms i, four kinds of
@@ -362,6 +378,7 @@ struct GvecEpi {
   }
 };
 
+template <int DH>
 cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
   const int H = p.H, H3 = 3 * H;
   const bool last = p.NP == 3;
@@ -383,7 +400,7 @@ cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
                                         wseg(p.w_dkv, 2 * H, 2 * H, p.w_f, H), EdgeEpi{p},
                                         stream);
   if (err != cudaSuccess) return err;
-  vislayer_bwd_rows<<<(unsigned)E, H, 0, stream>>>(p);
+  vislayer_bwd_rows<DH><<<(unsigned)E, H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (!last) {
     vislayer_bwd_gwt<<<centres, H, 0, stream>>>(p);
@@ -395,7 +412,7 @@ cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
   err = launch_row_tile<EDGE_TM, true>(p.g_e, 2 * H, E, 2 * H, H, wseg(p.w_s, 2 * H), GvEpi{p},
                                        stream);
   if (err != cudaSuccess) return err;
-  vislayer_bwd_centre<<<centres, H, 0, stream>>>(p);
+  vislayer_bwd_centre<DH><<<centres, H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = launch_row_tile<EDGE_TM, true>(p.z, H3, E, last ? 2 * H : H3, H,
                                        wseg(p.w_dkv, 2 * H, 2 * H, p.w_f, H),
@@ -420,15 +437,18 @@ cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
 // PTR_FIELDS).  The backward reads x..b_f, xagg_in and the cotangents;
 // uses the scratch xn, vecn, qkv, proj, o, z ([E][3H]), v_e ([E][H]), s_e
 // and g_e ([E][2H]), gS_e ([E][H], below the last layer), xo, xv, gxagg,
-// gqkv, gvecn and gxh; and writes gx, gvec, gedge, gdsh and gdist.
+// gqkv, gvecn and gxh; and writes gx, gvec, gedge, gdsh and gdist.  dh =
+// H / nh, the channels of a head.
 extern "C" int vislayer_bwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
-                                   int S, float cutoff, int last, cudaStream_t stream) {
+                                   int S, float cutoff, int last, int dh, cudaStream_t stream) {
   static_assert(offsetof(Layer, B) == LAYER_PTRS * sizeof(void*), "Layer: pointers first");
   if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S)) return (int)cudaErrorInvalidValue;
   Layer p;
   std::memcpy(&p, ptrs, LAYER_PTRS * sizeof(void*));
   p.B = B, p.A = A, p.H = H, p.S = S, p.NP = last ? 3 : 5, p.cutoff = cutoff;
-  return (int)launch_bwd(p, stream);
+  return with_head_width(dh, [&](auto d) {
+    return (int)launch_bwd<decltype(d)::value>(p, stream);
+  });
 }
 
 // shared memory, blocks per SM, registers and spill bytes of one stage:
@@ -441,10 +461,10 @@ extern "C" int vislayer_bwd_occupancy(int A, int H, int S, int stage, int* out) 
   switch (stage) {
     case 0: return occupancy(row_tile<NODE_TM, true, Store>, 256, tile_smem<NODE_TM>(), out);
     case 1: return occupancy(row_tile<EDGE_TM, false, EdgeEpi>, 256, tile_smem<EDGE_TM>(), out);
-    case 2: return occupancy(vislayer_bwd_rows, H, 0, out);
+    case 2: return occupancy(vislayer_bwd_rows<32>, H, 0, out);
     case 3: return occupancy(row_tile<EDGE_TM, false, SEpi>, 256, tile_smem<EDGE_TM>(), out);
     case 4: return occupancy(row_tile<EDGE_TM, true, GvEpi>, 256, tile_smem<EDGE_TM>(), out);
-    case 5: return occupancy(vislayer_bwd_centre, H, 0, out);
+    case 5: return occupancy(vislayer_bwd_centre<32>, H, 0, out);
     case 6: return occupancy(row_tile<EDGE_TM, true, Store>, 256, tile_smem<EDGE_TM>(), out);
     case 7: return occupancy(vislayer_bwd_source, H, 0, out);
     case 8: return occupancy(row_tile<VEC_TM, true, GvecEpi>, 256, tile_smem<VEC_TM>(), out);

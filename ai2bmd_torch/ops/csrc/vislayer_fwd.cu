@@ -32,8 +32,14 @@
 //   (e) o = x_agg @ W_o + b_o;
 //   (f) centre pass 2: vec_agg_i = sum_j s1 vecn_j + s2 d_sh_ij, then
 //       vec' and x' (reads 2H).
-// About 13 H floats move per edge cell, all in L2-sized pieces (z is
-// 13 MB at B = 4, A = 40).  For the last layer edge' = edge is a device
+// About 13 H floats move per edge cell, all in L2-sized pieces at fragment
+// shapes (z is 13 MB at B = 4, A = 40; 1.2 GB for a whole molecule of 752
+// slots, where the scratch z, v_e, s_e is 5 H floats an edge row).  The
+// centre passes walk the sources in chunks of ECHUNK = 48 rows
+// (common.cuh), staging a chunk's gates or d_sh in shared memory; each of
+// their sums is one register chain over the rows in order, so they take any
+// A % 8 == 0 up to EDGE_MAXA, and at A <= 48 (one chunk) give the
+// single-chunk kernel's bits.  For the last layer edge' = edge is a device
 // copy.  Every sum runs in a fixed order: the kernel is bitwise
 // repeatable.  The TPU's b3 bf16 split, _rowbc, its VMEM budget and its
 // 8-row centre tile were Mosaic workarounds and are not carried over.
@@ -85,56 +91,73 @@ struct SEpi {
   }
 };
 
-// (c): v_ij = v_j * dv * silu(a) * gate -> v_e;  x_agg_i = sum_j v_ij.
+// (c): v_ij = v_j * dv * silu(a) * gate -> v_e;  x_agg_i = sum_j v_ij, one
+// register chain over the rows in order, whatever the chunks.
+template <int DH>
 __global__ void __launch_bounds__(256) vislayer_fwd_centre1(const Layer p) {
-  __shared__ float sGate[MAXA];
+  __shared__ float sGate[ECHUNK];
   const int t = threadIdx.x, A = p.A, H = p.H, H3 = 3 * H;
   const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b0 = bi - blockIdx.x;
-  load_gate(p.dist, p.adj, p.A, p.cutoff, bi, sGate);
-  __syncthreads();
   const float qi = p.qkv[bi * H3 + t];
   float xsum = 0.0f;
-  for (int c8 = 0; c8 < A; c8 += RCHUNK) {
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+    if (c0) __syncthreads();  // every thread is done with the last chunk's gates
+    load_gate(p.dist, p.adj, n, p.cutoff, bi * A + c0, sGate);
+    __syncthreads();
+    for (int c8 = 0; c8 < n; c8 += RCHUNK) {
 #pragma unroll
-    for (int rr = 0; rr < RCHUNK; ++rr) {
-      const int r = c8 + rr;
-      const size_t e = bi * A + r;
-      const float kr = p.qkv[(b0 + r) * H3 + H + t];
-      const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
-      const float a = head_pre(qi, kr, p.z[e * 2 * H + t]);
-      const float vij = vr * p.z[e * 2 * H + H + t] * (silu(a) * sGate[r]);
-      p.v_e[e * H + t] = vij;
-      xsum += vij;
+      for (int rr = 0; rr < RCHUNK; ++rr) {
+        const int r = c0 + c8 + rr;
+        const size_t e = bi * A + r;
+        const float kr = p.qkv[(b0 + r) * H3 + H + t];
+        const float vr = p.qkv[(b0 + r) * H3 + 2 * H + t];
+        const float a = head_pre<DH>(qi, kr, p.z[e * 2 * H + t]);
+        const float vij = vr * p.z[e * 2 * H + H + t] * (silu(a) * sGate[c8 + rr]);
+        p.v_e[e * H + t] = vij;
+        xsum += vij;
+      }
     }
   }
   p.xagg[bi * H + t] = xsum;
 }
 
 // (f): vec_agg_i[c] = sum_j s1 * vecn_j[c] + sum_j s2 * d_sh_ij[c], then
-// x' = x + vdot * o2 + o3 and vec' = vec + vec3 * o1 + vec_agg.
+// x' = x + vdot * o2 + o3 and vec' = vec + vec3 * o1 + vec_agg.  d_sh is
+// staged a chunk of sources at a time; each thread's sums run over the rows
+// in order across the chunks.
 __global__ void __launch_bounds__(256) vislayer_fwd_centre2(const Layer p) {
-  __shared__ float sDsh[MAXS * MAXA];
+  __shared__ float sDsh[MAXS * ECHUNK];
   const int t = threadIdx.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * H;
   const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b = blockIdx.y, i = blockIdx.x;
-  for (int e = t; e < S * A; e += blockDim.x) {
-    const int c = e / A, r = e % A;
-    sDsh[e] = p.dsh[((b * S + c) * A + i) * A + r];
-  }
-  __syncthreads();
   float from_vec[MAXS], from_dsh[MAXS];
 #pragma unroll
   for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
-  // a runtime loop over the rows, unrolled by 4 (8 held 177 registers, one
-  // block an SM)
-#pragma unroll 4
-  for (int r = 0; r < A; ++r) {
-    const size_t e = bi * A + r;
-    const float s1 = p.s_e[e * 2 * H + t], s2 = p.s_e[e * 2 * H + H + t];
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+    if (c0) __syncthreads();  // every thread is done with the last chunk's d_sh
+    for (int e = t; e < S * n; e += blockDim.x) {
+      const int c = e / n, r = e % n;
+      sDsh[e] = p.dsh[((b * S + c) * A + i) * A + c0 + r];
+    }
+    __syncthreads();
+    // a runtime loop over the rows, four at a time (n % 8 == 0), the four
+    // unrolled so that their loads are in flight together (eight held 177
+    // registers, one block an SM; a loop the compiler was left to unroll
+    // over a chunk's n rows ran 2.3x slower at the fragment shapes)
+    for (int r4 = 0; r4 < n; r4 += 4) {
 #pragma unroll
-    for (int c = 0; c < MAXS; ++c) {
-      if (c < S) {
-        from_vec[c] = fmaf(s1, p.vecn[((b * S + c) * A + r) * H + t], from_vec[c]);
-        from_dsh[c] = fmaf(s2, sDsh[c * A + r], from_dsh[c]);
+      for (int u = 0; u < 4; ++u) {
+        const int rr = r4 + u, r = c0 + rr;
+        const size_t e = bi * A + r;
+        const float s1 = p.s_e[e * 2 * H + t], s2 = p.s_e[e * 2 * H + H + t];
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c) {
+          if (c < S) {
+            from_vec[c] = fmaf(s1, p.vecn[((b * S + c) * A + r) * H + t], from_vec[c]);
+            from_dsh[c] = fmaf(s2, sDsh[c * n + rr], from_dsh[c]);
+          }
+        }
       }
     }
   }
@@ -153,6 +176,7 @@ __global__ void __launch_bounds__(256) vislayer_fwd_centre2(const Layer p) {
   p.x2[bi * H + t] = p.x[bi * H + t] + vdot * o2 + o3;
 }
 
+template <int DH>
 cudaError_t launch_fwd(const Layer& p, cudaStream_t stream) {
   const int H = p.H;
   const bool last = p.NP == 3;
@@ -169,7 +193,7 @@ cudaError_t launch_fwd(const Layer& p, cudaStream_t stream) {
                                         wseg(p.w_dkv, 2 * H, 2 * H, p.w_f, H), EdgeEpi{p},
                                         stream);
   if (err != cudaSuccess) return err;
-  vislayer_fwd_centre1<<<centres, H, 0, stream>>>(p);
+  vislayer_fwd_centre1<DH><<<centres, H, 0, stream>>>(p);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = launch_row_tile<EDGE_TM, false>(p.v_e, H, E, H, 2 * H, wseg(p.w_s, 2 * H), SEpi{p},
                                         stream);
@@ -186,15 +210,17 @@ cudaError_t launch_fwd(const Layer& p, cudaStream_t stream) {
 // ptrs: the LAYER_PTRS pointers of Layer in field order (ops/vislayer.py,
 // PTR_FIELDS); the forward reads x..b_f, uses the scratch xn, vecn, qkv,
 // proj, o, z ([E][2H]), v_e ([E][H]) and s_e ([E][2H]), and writes x2,
-// vec2, edge2 and xagg.
+// vec2, edge2 and xagg.  dh = H / nh, the channels of a head.
 extern "C" int vislayer_fwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
-                                   int S, float cutoff, int last, cudaStream_t stream) {
+                                   int S, float cutoff, int last, int dh, cudaStream_t stream) {
   static_assert(offsetof(Layer, B) == LAYER_PTRS * sizeof(void*), "Layer: pointers first");
   if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S)) return (int)cudaErrorInvalidValue;
   Layer p;
   std::memcpy(&p, ptrs, LAYER_PTRS * sizeof(void*));
   p.B = B, p.A = A, p.H = H, p.S = S, p.NP = last ? 3 : 5, p.cutoff = cutoff;
-  return (int)launch_fwd(p, stream);
+  return with_head_width(dh, [&](auto d) {
+    return (int)launch_fwd<decltype(d)::value>(p, stream);
+  });
 }
 
 // shared memory, blocks per SM, registers and spill bytes of one stage:
@@ -206,7 +232,7 @@ extern "C" int vislayer_fwd_occupancy(int A, int H, int S, int stage, int* out) 
     case 0: return occupancy(row_tile<NODE_TM, false, BiasStore>, 256, tile_smem<NODE_TM>(), out);
     case 1: return occupancy(row_tile<VEC_TM, false, BiasStore>, 256, tile_smem<VEC_TM>(), out);
     case 2: return occupancy(row_tile<EDGE_TM, false, EdgeEpi>, 256, tile_smem<EDGE_TM>(), out);
-    case 3: return occupancy(vislayer_fwd_centre1, H, 0, out);
+    case 3: return occupancy(vislayer_fwd_centre1<32>, H, 0, out);
     case 4: return occupancy(row_tile<EDGE_TM, false, SEpi>, 256, tile_smem<EDGE_TM>(), out);
     case 5: return occupancy(vislayer_fwd_centre2, H, 0, out);
     default: return (int)cudaErrorInvalidValue;

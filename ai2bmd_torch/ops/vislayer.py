@@ -174,14 +174,15 @@ _I, _F = _build.I, _build.F
 # the inputs the kernels' products and epilogues read in 16- or 8-byte chunks
 _ALIGNED = ("edge", "w_qkv", "w_vp", "w_dkv", "w_s", "w_o", "w_t", "w_src", "w_f", "xagg_in",
             "gvec2", "gedge2")
-# (pointers, their count, B, A, H, S, cutoff, last)
-_ARGS = [ctypes.POINTER(ctypes.c_void_p), _I, _I, _I, _I, _I, _F, _I]
+# (pointers, their count, B, A, H, S, cutoff, last, channels a head)
+_ARGS = [ctypes.POINTER(ctypes.c_void_p), _I, _I, _I, _I, _I, _F, _I, _I]
 
 
 def _inputs(x, vec, edge, d_sh, dist, adj, weights, nh):
     """Check the layer's inputs for the kernels.  Returns (B, A, H, S) and the
     inputs keyed by their ``Layer`` field; the head pool is checked and left
-    out (the kernels sum each warp's 32 channels instead)."""
+    out (the kernels sum each head's H / nh lanes of a warp instead, an
+    instantiation for 8, 16 or 32 channels a head)."""
     B, A, H = x.shape
     S = vec.shape[1]
     check_layer_shapes(A, H, S, nh)
@@ -199,7 +200,7 @@ def _inputs(x, vec, edge, d_sh, dist, adj, weights, nh):
     return (B, A, H, S), named
 
 
-def _launch(name: str, ptrs: dict, B, A, H, S, cutoff, last):
+def _launch(name: str, ptrs: dict, B, A, H, S, cutoff, last, nh):
     unknown = set(ptrs) - set(PTR_FIELDS)
     if unknown:
         raise KeyError(f"not a field of Layer: {sorted(unknown)}")
@@ -210,7 +211,8 @@ def _launch(name: str, ptrs: dict, B, A, H, S, cutoff, last):
         raise ValueError(f"fused-layer kernels need 16-byte aligned tensors: {unaligned}")
     arr = (ctypes.c_void_p * len(PTR_FIELDS))(
         *[None if ptrs.get(f) is None else ptrs[f].data_ptr() for f in PTR_FIELDS])
-    _build.call(name, _ARGS, arr, len(PTR_FIELDS), B, A, H, S, float(cutoff), int(last))
+    _build.call(name, _ARGS, arr, len(PTR_FIELDS), B, A, H, S, float(cutoff), int(last),
+                H // nh)
 
 
 def _node_scratch(new, B, A, H, S, last):
@@ -229,7 +231,7 @@ def vislayer_fwd(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int,
     t.update(_node_scratch(new, B, A, H, S, last), z=new(E, 2 * H), v_e=new(E, H),
              s_e=new(E, 2 * H), x2=new(B, A, H), vec2=new(B, S, A, H), edge2=new(B, A, A, H),
              xagg=new(B, A, H))
-    _launch("vislayer_fwd_launch", t, B, A, H, S, cutoff, last)
+    _launch("vislayer_fwd_launch", t, B, A, H, S, cutoff, last, nh)
     LAUNCHES["vislayer_fwd"] += 1
     return t["x2"], t["vec2"], t["edge2"], t["xagg"]
 
@@ -253,7 +255,7 @@ def vislayer_bwd(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2, gedge
         gxagg=new(B * A, H), gqkv=new(B * A, 3 * H), gvecn=new(B * S * A, H),
         gxh=new(B * A, H), gx=new(B, A, H), gvec=new(B, S, A, H), gedge=new(B, A, A, H),
         gdsh=new(B, S, A, A), gdist=new(B, A, A))
-    _launch("vislayer_bwd_launch", t, B, A, H, S, cutoff, last)
+    _launch("vislayer_bwd_launch", t, B, A, H, S, cutoff, last, nh)
     LAUNCHES["vislayer_bwd"] += 1
     return t["gx"], t["gvec"], t["gedge"], t["gdsh"], t["gdist"]
 

@@ -178,10 +178,10 @@ def edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge=None, mm=t
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = _build.P, _build.I, _build.F
-_FWD_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I]
-_MSG_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F]
+_FWD_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F, _I, _I, _I]
+_MSG_ARGS = [_P] * 22 + [_I, _I, _I, _I, _F, _I]
 _UPD_ARGS = [_P] * 10 + [_I] * 4
-_MSG_RC_ARGS = [_P] * 26 + [_I, _I, _I, _I, _F]
+_MSG_RC_ARGS = [_P] * 26 + [_I, _I, _I, _I, _F, _I]
 _UPD_RC_ARGS = [_P] * 12 + [_I] * 4
 
 
@@ -194,37 +194,36 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
     raise ValueError(f"no {kernels} implementation for device {t.device}")
 
 
-# The edge kernels (K1-K3, K7, K8) walk a centre's sources in chunks of 48
-# rows (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up to
+# Every centre pass of the edge kernels (K1-K3, K7, K8) and of the
+# full-layer kernels (K5/K6) walks a centre's sources in chunks of 48 rows
+# (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up to
 # EDGE_MAXA: a fragment or a whole molecule (abd, the largest bundled
-# protein, is 752 slots).  The full-layer kernels K5/K6 hold a fragment
-# whole and take A <= LAYER_MAXA (``MAXA``).  Both limits are also checked
-# by the launchers.
+# protein, is 752 slots).  A head's sum takes its DH = H / nh lanes of a
+# warp, with DH a template parameter of 8, 16 or 32 (``head_sum``).  The
+# launchers check the same limits.
 EDGE_MAXA = 1024
-LAYER_MAXA = 48
+HEAD_WIDTHS = (8, 16, 32)
+# what the kernels still refuse, where the JAX package's Pallas kernels or
+# its jnp fallback run
+UNSUPPORTED = "ROADMAP.md, Queue 3 entry 3"
 
 
 def check_shapes(A, H, S, nh, kernels: str = "edge"):
-    """The shapes the edge kernels (K1-K3, K7, K8) take; anything else
-    raises (the card has no plain route)."""
-    if H // nh != 32 or H % nh or H > 256 or A > EDGE_MAXA or A % 8 or S > 8:
+    """The shapes the edge kernels (K1-K3, K7, K8) and the full-layer kernels
+    take; anything else raises (the card has no plain route)."""
+    if (H % nh or H // nh not in HEAD_WIDTHS or H % 32 or H > 256 or A > EDGE_MAXA or A % 8
+            or S > 8):
         raise ValueError(
-            f"{kernels} kernels take heads of 32 channels, H <= 256, A a multiple of 8 "
-            f"up to {EDGE_MAXA}, S <= 8; got H={H}, nh={nh}, A={A}, S={S}"
+            f"{kernels} kernels take heads of 8, 16 or 32 channels, H a multiple of 32 up "
+            f"to 256, A a multiple of 8 up to {EDGE_MAXA}, S <= 8; got H={H}, nh={nh}, A={A}, "
+            f"S={S} (wider heads, H > 256 and S > 8 on the card: {UNSUPPORTED})"
         )
 
 
 def check_layer_shapes(A, H, S, nh):
-    """The shapes the full-layer kernels K5/K6 take: the edge kernels' with
-    A <= LAYER_MAXA, a fragment's slots.  A whole molecule raises, naming
-    the ROADMAP entry that would extend them."""
+    """The shapes the full-layer kernels K5/K6 take: the edge kernels', a
+    fragment or a whole molecule of up to EDGE_MAXA slots."""
     check_shapes(A, H, S, nh, "fused-layer")
-    if A > LAYER_MAXA:
-        raise ValueError(
-            f"the full-layer kernels K5/K6 take A <= {LAYER_MAXA} (a fragment's slots), got "
-            f"A={A}; run a whole molecule on the per-layer edge kernels (fused_layer=False, "
-            f"AI2BMD_FUSED_LAYER unset). K5/K6 at A > {LAYER_MAXA} is ROADMAP.md, Queue 2"
-        )
 
 
 def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
@@ -269,7 +268,7 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
         p(q), p(k), p(v), p(vec), p(wt), p(wsrc), p(edge), p(d_sh), p(dist), p(adj),
         p(w_dkv), p(b_dkv), p(w_s), p(b_s), p(w_f), p(b_f),
         p(x_agg), p(vec_agg), p(df), p(zdkv), p(zs), p(zf),
-        B, A, H, S, float(cutoff), int(update), int(store),
+        B, A, H, S, float(cutoff), int(update), int(store), H // nh,
     )
     LAUNCHES["edge_fwd"] += 1
     return x_agg, vec_agg, df, zdkv, zs, zf
@@ -307,7 +306,7 @@ def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
         p(q), p(k), p(v), p(vec), p(zdkv), p(zs), p(d_sh), p(dist), p(adj),
         p(wdkvT), p(wsT), p(g_xagg), p(g_vecagg),
         p(g_q), p(g_k), p(g_v), p(g_vec), p(g_edge), p(g_dsh), p(g_dist),
-        p(gk_e), p(gv_e), B, A, H, S, float(cutoff),
+        p(gk_e), p(gv_e), B, A, H, S, float(cutoff), H // nh,
     )
     LAUNCHES["edge_bwd_msg"] += 1
     return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
@@ -318,7 +317,7 @@ def _upd_launch(rc: bool, adj, wt, wsrc, w_f, b_f, zf_or_edge, g_df, g_edge):
     the card.  Returns (g_edge, g_wt, g_wsrc)."""
     B, A, _, H = zf_or_edge.shape
     S = wt.shape[2]
-    check_shapes(A, H, S, H // 32)
+    check_shapes(A, H, S, H // 32)   # K3/K8 sum no head
     dev = zf_or_edge.device
     c = _build.check
     for name, t, shape in (
@@ -393,7 +392,7 @@ def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
         p(q), p(k), p(v), p(vec), p(edge), p(d_sh), p(dist), p(adj),
         p(w_dkv), p(b_dkv), p(w_s), p(b_s), p(wdkvT), p(wsT), p(g_xagg), p(g_vecagg),
         p(g_q), p(g_k), p(g_v), p(g_vec), p(g_edge), p(g_dsh), p(g_dist),
-        p(gk_e), p(gv_e), p(s1_e), B, A, H, S, float(cutoff),
+        p(gk_e), p(gv_e), p(s1_e), B, A, H, S, float(cutoff), H // nh,
     )
     LAUNCHES["edge_bwd_msg_rc"] += 1
     return g_q, g_k, g_v, g_vec, g_edge, g_dsh, g_dist
@@ -490,14 +489,16 @@ def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     gives the weights no gradient, so it raises where one needs it.
     On the card there is no other route: a batch the kernels cannot take
     (``check_shapes``: A not a multiple of 8 or above EDGE_MAXA, heads not
-    of 32 channels, H > 256, S > 8) or another activation than silu raises, where
-    the JAX package's per-layer path falls back to jnp for such a batch
+    of 8, 16 or 32 channels, H > 256, S > 8) or another activation than silu
+    raises, naming ROADMAP.md Queue 3, where the JAX package's per-layer
+    path falls back to jnp for such a batch
     (``ai2bmd_tpu/models/visnet.py:386-390``)."""
     if not recompute and not route(q):
         return edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
                               w_s, b_s, cutoff, nh, wt, wsrc, w_f, b_f, act, attn_act)[:3]
     if act not in ("silu", "swish") or attn_act not in ("silu", "swish"):
-        raise ValueError(f"the edge kernels compute silu, not {act!r}/{attn_act!r}")
+        raise ValueError(f"the edge kernels compute silu, not {act!r}/{attn_act!r} "
+                         f"(other activations on the card: {UNSUPPORTED})")
     if torch.is_grad_enabled() and any(
             w is not None and w.requires_grad for w in (w_dkv, b_dkv, w_s, b_s, w_f, b_f)):
         raise ValueError("the edge kernels give the edge-core weights no gradient; train "

@@ -80,9 +80,9 @@ class ViSNetPotential:
     ``pad_multiple`` slots, the padded slots masked out and parked at 1e4 A.
     For a molecule with a user-trained checkpoint; no caps, no long-range
     term.  Stateless: ``energy_forces`` is P -> (E, F).  On the card every
-    layer's edge core runs through K1-K3 (K7/K8 with ``remat``), which take
-    any slot count up to ``ops.vismp.EDGE_MAXA``; the full-layer kernels
-    (``AI2BMD_FUSED_LAYER=1``) raise above 48 slots."""
+    layer's edge core runs through K1-K3 (K7/K8 with ``remat``), or with
+    ``fused_layer`` (``AI2BMD_FUSED_LAYER=1``) every layer through K5/K6;
+    both take any slot count up to ``ops.vismp.EDGE_MAXA``."""
 
     module: ViSNet
     cfg: ViSNetConfig

@@ -2,15 +2,18 @@
 
 Port of ``ai2bmd_tpu/simulators.py:31-259`` for the vacuum paths: the
 reference's NoSolventSimulator (src/AIMD/simulator.py:295-313), fragment-mode
-MD of the capped protein with the "mm" long range, warm-started caps and an
-optional H-bond restraint; and whole-molecule mode (``mode="visnet"``,
+MD of the capped protein with the "mm" long range, warm-started caps (or,
+with ``warm_caps=False``, a cold cap solve every step) and an optional
+H-bond restraint; and whole-molecule mode (``mode="visnet"``,
 simulator.py:74-79), the molecule straight through ViSNet with a stateless
-potential.  On the card unless the caller passes ``device="cpu"``; the
-weights come from a checkpoint (``load_model``) or a random initialization.
+potential.  A solvated input with ``solvent=False`` runs its protein alone
+in vacuum, as the JAX package does.  On the card unless the caller passes
+``device="cpu"``; the weights come from a checkpoint (``load_model``) or a
+random initialization.
 
 Refused, each naming the ROADMAP item that ports it: ``longrange="pme"``
-(item 12, raised by ``FragmentPotential.build``), explicit solvent and
-solvated inputs (item 13).
+(item 12, raised by ``FragmentPotential.build``), explicit solvent, which a
+solvated input gets unless ``solvent=False`` (item 13).
 """
 
 from __future__ import annotations
@@ -62,24 +65,35 @@ class ProteinSimulation:
                  longrange: str = "mm", solvent: bool | None = None,
                  ckpt_path: str | None = None, model_cfg: ViSNetConfig | None = None,
                  sim_cfg: SimulationConfig | None = None, opt_iters: int = 10,
-                 device=None) -> "ProteinSimulation":
+                 warm_caps: bool = True, device=None) -> "ProteinSimulation":
         """``mode`` "fragment" or "visnet" (whole molecule, which ignores
-        ``longrange`` as the JAX package does); ``device`` None means the card
-        (raises without one)."""
+        ``longrange`` as the JAX package does); ``solvent`` None means "the
+        input's waters and ions, if it has any", and False runs a solvated
+        input's protein alone in vacuum (``ai2bmd_tpu/simulators.py:
+        121-129``); ``warm_caps`` False steps the stateless fragment
+        potential, which places the caps and solves them cold with
+        ``opt_iters`` L-BFGS iterations every step (:209-234; fragment mode
+        only).  On the card that step is captured as one CUDA graph too, as
+        the warm step is.  ``device`` None means the card (raises without
+        one)."""
         device = resolve_device(device)
         prot_name = os.path.basename(prot_file).rsplit(".", 1)[0]
         log_dir = log_dir or os.path.join(os.getcwd(), f"Logs-{prot_name}")
         if mode not in ("fragment", "visnet"):
             raise ValueError(f"unknown mode {mode!r}")
-        prot = load_protein(prot_file)
+        full = load_protein(prot_file)
         sim_cfg = sim_cfg or SimulationConfig()
-        has_solvent = len(prot.protein_indices()) < len(prot)
+        qm_idx = full.protein_indices()
+        has_solvent = len(qm_idx) < len(full)
+        if solvent is None:
+            solvent = has_solvent
         if solvent and not has_solvent:
             raise ValueError("solvent=True but the input has no water/ions")
-        if solvent or has_solvent:
+        if solvent:
             raise NotImplementedError(
                 f"{prot_file} holds water or ions: explicit-solvent QM/MM is not ported yet "
-                f"(ROADMAP.md, Queue 1 item 13)")
+                f"(ROADMAP.md, Queue 1 item 13); solvent=False runs its protein in vacuum")
+        prot = full.select(qm_idx) if has_solvent else full
 
         params, cfg = load_model(ckpt_path, model_cfg)
         module = ViSNet(cfg, params)
@@ -97,6 +111,9 @@ class ProteinSimulation:
 
         pot = FragmentPotential.build(prot, module, cfg, longrange=longrange,
                                       opt_iters=opt_iters, device=device)
+        if not warm_caps:
+            sim = Simulator(potential=pot.energy_forces, **common)
+            return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
         # warm-started caps: the cap offsets ride in the integrator's carry,
         # cold-started once here (the JAX package's choice, simulators.py:
         # 154-163: warm-1 sits within the reference's own cold protocol)

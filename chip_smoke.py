@@ -44,11 +44,17 @@ is not printed):
      288 and 752: Chignolin, Trp-cage and abd as one molecule), where the centre
      passes walk their sources in chunks of 48 rows: the same checks
      (tolerance, bitwise repeats, K7/K8 against K2/K3 on K1's stash, device
-     ms, bound and share) and the chunked passes' occupancy and grid fill.
+     ms, bound and share) and the chunked passes' occupancy and grid fill;
+     K5 and K6 (both `last`) at the same shapes, before them (the profiler's
+     device times fail for the rest of a process from K7 at A = 752 on);
+     and K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 at heads of 8 and
+     16 channels (H = 32 and 64 with 4 heads, B x A = 4 x 40 and 1 x 176)
+     against their plain versions and for bitwise repeats.
      `--edge-hash` prints only the sha256 of K1, K2, K3, K7 and K8's outputs
-     on phase 3's fixed fragment-shape inputs, so that the script can be run
-     against another commit's package (the chunked kernels must give the
-     parent's bits at A <= 48)
+     on phase 3's fixed fragment-shape inputs, and `--layer-hash` those of
+     K5 and K6, so that the script can be run against another commit's
+     package (the chunked kernels and the head-width template must give the
+     parent's bits at A <= 48 and 32-channel heads)
   4. the slice through the edge-core kernels K1-K3: Chignolin, production
      ViSNet (9 x 256, random weights from seed 0), FragmentPotential("mm"),
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
@@ -108,8 +114,23 @@ is not printed):
      restart file against (b)'s potential at the same positions); (d) abd
      (A = 752), one force evaluation with remat=True (K1 without a stash,
      K7/K8) and one with remat=False (K1-K3), launch counters, peak device
-     memory and max|dF| between them (limit 1e-3)
-  8. one JSON line of kernel results, the card's name and power limit, and
+     memory and max|dF| between them (limit 1e-3); (e) the same weights
+     through the full-layer kernels K5/K6 (fused_layer): Chignolin's
+     launches of one evaluation (K5 9, K6 9, nothing else), step 0 against
+     (b)'s CPU float64 forces and (b)'s K1-K3 forces, the graphed step (5
+     replays against eager steps, timed replays beside (b)'s, a trace
+     naming K5/K6's stages), the CLI under AI2BMD_FUSED_LAYER=1 (its model
+     line names K5/K6), and abd through K5/K6 (peak memory, max|dF| against
+     (d)'s K1-K3 forces)
+  8. the repaired faults: (a) ProteinSimulation.from_pdb with the CLI's
+     tiny preset (heads of 8 channels) on the card, through K1-K3 and with
+     AI2BMD_FUSED_LAYER=1 through K5/K6: launch counters, step 0 against the
+     CPU float64 run, 3 graphed steps; (b) warm_caps=False at 9 x 256: the
+     stateless step (a cold cap solve) captured, replays against eager
+     steps, ms/step beside phase 4's; (c) `python -m ai2bmd_torch
+     --no-solvent` on the solvated Chignolin box, 20 steps, the protein's
+     175 atoms in its DCD
+  9. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
@@ -252,8 +273,8 @@ def in_turns(torch, kernel, plain, parts=None, reps=20):
     p2 = cuda_ms(torch, plain, reps)
     parts = {} if parts is None else parts
     out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           "device_ms": device_ms(torch, kernel, by_name=parts),
-           "plain_device_ms": device_ms(torch, plain)}
+           "device_ms": device_ms(torch, kernel, min(reps, 10), by_name=parts),
+           "plain_device_ms": device_ms(torch, plain, min(reps, 10))}
     print(f"    time per call: kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms "
           f"(events); device: kernel {fmt_ms(out['device_ms'])}, plain "
           f"{fmt_ms(out['plain_device_ms'])}")
@@ -336,7 +357,7 @@ def bitwise(name, fn):
     need(same, f"{name}: two runs differ")
 
 
-def edge_inputs(torch, gen, B, A, dev):
+def edge_inputs(torch, gen, B, A, dev, H=H):
     from ai2bmd_torch.models.visnet import spherical_harmonics
 
     r = lambda *s, sc=0.3: (torch.randn(s, generator=gen) * sc).to(dev)
@@ -361,11 +382,11 @@ MSG_KEYS = ("g_q", "g_k", "g_v", "g_vec", "g_edge", "g_d_sh", "g_dist")
 UPD_KEYS = ("g_edge", "g_wt", "g_wsrc")
 
 
-def edge_case(torch, K, gen, B, A, dev):
-    """Inputs at (B, A), K1's stash of them, random cotangents, and a random
-    message-path g_edge for K3/K8 to sum into: the arguments of K2, K3, K7
-    and K8."""
-    a = edge_inputs(torch, gen, B, A, dev)
+def edge_case(torch, K, gen, B, A, dev, H=H, NH=NH):
+    """Inputs at (B, A) and width H with NH heads, K1's stash of them, random
+    cotangents, and a random message-path g_edge for K3/K8 to sum into: the
+    arguments of K2, K3, K7 and K8."""
+    a = edge_inputs(torch, gen, B, A, dev, H)
     core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
             a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
     upd = dict(wt=a["wt"], wsrc=a["wsrc"], w_f=a["w_f"], b_f=a["b_f"])
@@ -510,14 +531,14 @@ def check_edge_kernels(torch, dev, results):
 EDGE_NAMES = ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc", "edge_bwd_upd_rc")
 
 
-def check_whole_molecule_kernels(torch, dev):
+def check_whole_molecule_kernels(torch, dev, out):
     """K1 (four flag pairs), K2, K3, K7 and K8 at WHOLE_SHAPES, where every
     centre pass walks its sources in chunks of 48 rows: the checks of the
-    fragment shapes (check_edge_shape).  Returns {A: {kernel: results}}."""
+    fragment shapes (check_edge_shape).  Adds {kernel: results} to
+    ``out[A]``."""
     from ai2bmd_torch.ops import vismp as K
 
     gen = torch.Generator().manual_seed(5)
-    out = {}
     for B, A in WHOLE_SHAPES:
         res = {n: {"max_abs_err": 0.0} for n in EDGE_NAMES}
         check_edge_shape(torch, K, edge_case(torch, K, gen, B, A, dev), B, A, res)
@@ -525,9 +546,8 @@ def check_whole_molecule_kernels(torch, dev):
             for sums in res[name].pop("stage_sums").values():
                 print(f"  {name} B={B} A={A}, device ms by stage: " + ", ".join(
                     f"{k} {fmt_ms(v)}" for k, v in sums.items()))
-        out[A] = res
+        out[A].update(res)
         torch.cuda.empty_cache()
-    return out
 
 
 def edge_hashes(torch, dev):
@@ -615,9 +635,9 @@ def report_occupancy(torch, results, whole):
     Chignolin's slot counts, which the ensemble's chunks share (the
     launchers' own sizes, through cudaOccupancyMaxActiveBlocksPerMultiprocessor);
     the largest shape's go into the kernels line, for K3/K8 their centre
-    pass's.  Then the edge kernels' at WHOLE_SHAPES (chunked centre passes),
-    with their grids against one wave of blocks per SM x SMs, into
-    ``whole``."""
+    pass's.  Then the edge kernels' and K5/K6's centre passes at
+    WHOLE_SHAPES (chunked centre passes), with their grids against one wave
+    of blocks per SM x SMs, into ``whole``."""
     import ctypes
 
     from ai2bmd_torch.ops import _build
@@ -671,7 +691,13 @@ def report_occupancy(torch, results, whole):
                  B * A * H // 256),
                 ("K8 centre", "edge_bwd_upd_rc", "edge_bwd_upd_occupancy", (A, H, 1, 1), B * A),
                 ("K3/K8 product", None, "edge_bwd_upd_occupancy", (A, H, 0, 2),
-                 -(-B * A * A // 128) * (H // 64))):
+                 -(-B * A * A // 128) * (H // 64)),
+                ("K5 centre 1", None, "vislayer_fwd_occupancy", (A, H, S, 3), B * A),
+                ("K5 centre 2", "vislayer_fwd", "vislayer_fwd_occupancy", (A, H, S, 5), B * A),
+                ("K5 edge tile", None, "vislayer_fwd_occupancy", (A, H, S, 2),
+                 -(-B * A * A // 128) * (3 * H // 64)),
+                ("K6 centre", "vislayer_bwd", "vislayer_bwd_occupancy", (A, H, S, 5), B * A),
+                ("K6 edge rows", None, "vislayer_bwd_occupancy", (A, H, S, 2), B * A * A)):
             o = occ(fn, *args)
             waves = blocks / (o["blocks_per_sm"] * sms)
             print(f"  {label:16s} B={B} A={A} (chunks of 48): {o['smem_bytes']} B shared memory "
@@ -839,10 +865,10 @@ def cap_flop(rt, pos):
     return (pos.numel() // (pos.shape[-2] * 3)) * (30 * NB + 60 * NA + 120 * ND + 30 * NP)
 
 
-def layer_inputs(torch, gen, B, A, dev):
-    """A fused layer's inputs at Chignolin's shape (B, A): a graph from random
-    positions (the last fragment's last 3 slots masked), random streams, and
-    cotangents.  Sphere-major vec and d_sh."""
+def layer_inputs(torch, gen, B, A, dev, H=H):
+    """A fused layer's inputs at shape (B, A) and width H: a graph from
+    random positions (the last fragment's last 3 slots masked), random
+    streams, and cotangents.  Sphere-major vec and d_sh."""
     from ai2bmd_torch.models.visnet import ViSNetConfig, dense_graph
 
     pos = torch.randn((B, A, 3), generator=gen) * 2.5
@@ -858,13 +884,71 @@ def layer_inputs(torch, gen, B, A, dev):
     return {k: v.contiguous().to(dev) for k, v in t.items()}
 
 
-def layer_flop(B, A, last):
+def layer_flop(B, A, last, H=H):
     """FLOPs of K5 and K6 for one call: the products only (2 per multiply-add);
     K6 recomputes o1|o2 = x_agg @ W_o[:, :2H] (o3 is not needed)."""
     cells, atoms, vrows = B * A * A, B * A, B * S * A
     fwd = cells * (4 if last else 5) + atoms * 6 + vrows * (3 if last else 5)
     bwd = cells * (8 if last else 10) + atoms * 11 + vrows * (6 if last else 10)
     return 2 * fwd * H * H, 2 * bwd * H * H
+
+
+def layer_weights_on(torch, FL, params, gen, last, dev, H=H, NH=NH):
+    """The first (or, ``last``, the last) layer's fused-layer weights of
+    ``params``, LayerNorm scale / bias and vector norm weight perturbed from
+    ``gen``, on ``dev``."""
+    w = [t.clone() for t in FL.layer_weights(params["layers"][-1 if last else 0], H, NH, last)]
+    for n in range(3):                      # LayerNorm scale / bias, vector norm weight
+        w[n] = w[n] + 0.1 * torch.randn(w[n].shape, generator=gen)
+    return [t.to(dev).contiguous() for t in w]
+
+
+def check_layer_shape(torch, FL, w, a, B, A, last, results, reps=20, H=H, NH=NH):
+    """K5, then K6 on K5's x_agg, at (B, A) on layer_inputs ``a``: against
+    their plain versions, bitwise repeats, times, stage times and bound;
+    the updating layer's (``last`` False) summed into ``results``."""
+    args = (a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], w, CUTOFF, NH, last)
+    flop_f, flop_b = layer_flop(B, A, last, H)
+    name = f"vislayer_fwd B={B} A={A} last={int(last)}"
+    print(f"  {name}")
+    run = lambda: FL.vislayer_fwd(*args)
+    ref = dict(zip(("x2", "vec2", "edge2", "x_agg"), FL.vislayer_fwd_plain(*args)))
+    res = results["vislayer_fwd"]
+    res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
+    del ref
+    bitwise(name, run)
+    parts = {}
+    t = in_turns(torch, run, lambda: FL.vislayer_fwd_plain(*args), parts, reps)
+    b = bound(nbytes(*args[:6], *w, *run()), tc=flop_f)
+    add_bound(res if not last else {}, b, t)
+    if not last:
+        add_times(res, t)
+    add_stage_sums(res, last, t, parts)
+
+    xagg = run()[3]
+    bargs = (*args[:7], xagg, a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, NH, last)
+    name = f"vislayer_bwd B={B} A={A} last={int(last)}"
+    print(f"  {name}")
+    run = lambda: FL.vislayer_bwd(*bargs)
+    ref = dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"), FL.vislayer_bwd_plain(*bargs)))
+    res = results["vislayer_bwd"]
+    res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
+    del ref
+    bitwise(name, run)
+    parts = {}
+    t = in_turns(torch, run, lambda: FL.vislayer_bwd_plain(*bargs), parts, reps)
+    b = bound(nbytes(*bargs[:6], *w, *bargs[7:11], *run()), tc=flop_b)
+    add_bound(res if not last else {}, b, t)
+    if not last:
+        add_times(res, t)
+    add_stage_sums(res, last, t, parts)
+
+
+def print_stage_sums(results, where):
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        for last, sums in results[name].pop("stage_sums").items():
+            print(f"  {name}, device ms {where}, {last}: " + ", ".join(
+                f"{k} {fmt_ms(v)}" for k, v in sums.items()))
 
 
 def check_layer_kernels(torch, dev, results):
@@ -875,51 +959,157 @@ def check_layer_kernels(torch, dev, results):
     gen = torch.Generator().manual_seed(2)
     params = init_params(ViSNetConfig(), gen)
     for last in (False, True):
-        w = [t.clone() for t in FL.layer_weights(params["layers"][-1 if last else 0], H, NH, last)]
-        for n in range(3):                      # LayerNorm scale / bias, vector norm weight
-            w[n] = w[n] + 0.1 * torch.randn(w[n].shape, generator=gen)
-        w = [t.to(dev).contiguous() for t in w]
+        w = layer_weights_on(torch, FL, params, gen, last, dev)
+        for B, A in SHAPES:
+            check_layer_shape(torch, FL, w, layer_inputs(torch, gen, B, A, dev), B, A, last,
+                              results)
+    print_stage_sums(results, "summed over the four shapes")
+
+
+def check_whole_layer_kernels(torch, dev, whole):
+    """K5 and K6, both ``last`` variants, at WHOLE_SHAPES (Chignolin,
+    Trp-cage and abd as one molecule), where their centre passes walk the
+    sources in chunks of 48 rows: the checks of the fragment shapes, with
+    fewer timed calls.  Adds {kernel: results} to ``whole[A]``."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import vislayer as FL
+
+    gen = torch.Generator().manual_seed(6)
+    params = init_params(ViSNetConfig(), gen)
+    ws = {last: layer_weights_on(torch, FL, params, gen, last, dev) for last in (False, True)}
+    for B, A in WHOLE_SHAPES:
+        res = {n: {"max_abs_err": 0.0} for n in ("vislayer_fwd", "vislayer_bwd")}
+        a = layer_inputs(torch, gen, B, A, dev)
+        for last in (False, True):
+            check_layer_shape(torch, FL, ws[last], a, B, A, last, res, reps=5)
+        print_stage_sums(res, f"at B={B} A={A}")
+        whole[A].update(res)
+        del a
+        torch.cuda.empty_cache()
+
+
+# the head widths other than 32 channels that the kernels are instantiated
+# for, at the widths that reach them: the CLI's tiny preset (H = 32, 4
+# heads) and H = 64 with 4 heads; at a fragment shape and a whole molecule
+HEAD_CASES = ((32, 4), (64, 4))
+HEAD_SHAPES = ((4, 40), (1, 176))
+
+
+def check_head_widths(torch, dev, results):
+    """K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 (both ``last``) at
+    heads of 8 and 16 channels (HEAD_CASES, HEAD_SHAPES): against their
+    plain versions within EDGE_TOL and bitwise repeatable.  Each kernel's
+    largest error goes to results[kernel]["head_widths"]["DH=.."]."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import vislayer as FL
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(7)
+    fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
+
+    def check(name, run, ref, dh, label):
+        err = compare(label, run(), ref, EDGE_TOL)
+        bitwise(label, run)
+        hw = results[name].setdefault("head_widths", {})
+        hw[f"DH={dh}"] = max(hw.get(f"DH={dh}", 0.0), err)
+
+    for h, nh in HEAD_CASES:
+        dh = h // nh
+        params = init_params(ViSNetConfig(hidden_channels=h, num_heads=nh), gen)
+        ws = {last: layer_weights_on(torch, FL, params, gen, last, dev, h, nh)
+              for last in (False, True)}
+        for B, A in HEAD_SHAPES:
+            tag = f"H={h} nh={nh} (DH={dh}) B={B} A={A}"
+            c = edge_case(torch, K, gen, B, A, dev, h, nh)
+            core, upd = c["core"], c["upd"]
+            for update in (True, False):
+                for store in (True, False):
+                    label = f"edge_fwd {tag} update={int(update)} store={int(store)}"
+                    print(f"  {label}")
+                    kw = upd if update else {}
+                    ref = dict(zip(fwd_keys, K.edge_fwd_plain(*core, **kw)))
+                    if not store:
+                        ref["zdkv"] = ref["zs"] = ref["zf"] = None
+                    check("edge_fwd", lambda kw=kw, store=store: K.edge_fwd(*core, **kw, store=store),
+                          ref, dh, label)
+            for name, args in (("edge_bwd_msg", c["msg"]), ("edge_bwd_msg_rc", c["msg_rc"])):
+                print(f"  {name} {tag}")
+                check(name, lambda name=name, args=args: getattr(K, name)(*args),
+                      dict(zip(MSG_KEYS, getattr(K, name + "_plain")(*args))), dh, f"{name} {tag}")
+            for name, args in (("edge_bwd_upd", c["upd_args"]), ("edge_bwd_upd_rc", c["upd_rc"])):
+                print(f"  {name} {tag}")
+                g0 = c["g_edge"]
+                check(name, lambda name=name, args=args: getattr(K, name)(*args, g_edge=g0.clone()),
+                      dict(zip(UPD_KEYS, getattr(K, name + "_plain")(*args, g0.clone()))), dh,
+                      f"{name} {tag}")
+            del c
+            a = layer_inputs(torch, gen, B, A, dev, h)
+            for last in (False, True):
+                args = (a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], ws[last],
+                        CUTOFF, nh, last)
+                label = f"vislayer_fwd {tag} last={int(last)}"
+                print(f"  {label}")
+                check("vislayer_fwd", lambda args=args: FL.vislayer_fwd(*args),
+                      dict(zip(("x2", "vec2", "edge2", "x_agg"), FL.vislayer_fwd_plain(*args))),
+                      dh, label)
+                bargs = (*args[:7], FL.vislayer_fwd(*args)[3], a["gx2"], a["gvec2"], a["gedge2"],
+                         CUTOFF, nh, last)
+                label = f"vislayer_bwd {tag} last={int(last)}"
+                print(f"  {label}")
+                check("vislayer_bwd", lambda bargs=bargs: FL.vislayer_bwd(*bargs),
+                      dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"),
+                               FL.vislayer_bwd_plain(*bargs))), dh, label)
+
+
+def layer_hashes(torch, dev, timed=False):
+    """sha256 of K5's and K6's output bytes, both ``last`` variants, on
+    fixed fragment-shape inputs (seed 2, SHAPES in order, K6 on K5's
+    x_agg), and with ``timed`` their device ms a call summed over the
+    shapes, in all and by stage.  Uses only what every tree of the port
+    has, so that ``--layer-hash`` can run this script against another
+    commit's package to compare K5/K6 bit for bit and in time."""
+    import hashlib
+
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import vislayer as FL
+
+    gen = torch.Generator().manual_seed(2)
+    params = init_params(ViSNetConfig(), gen)
+    h = {n: hashlib.sha256() for n in ("vislayer_fwd", "vislayer_bwd")}
+
+    def add(name, outs):
+        torch.cuda.synchronize()
+        for t in outs:
+            h[name].update(t.cpu().numpy().tobytes())
+
+    sums = {}
+    for last in (False, True):
+        w = layer_weights_on(torch, FL, params, gen, last, dev)
         for B, A in SHAPES:
             a = layer_inputs(torch, gen, B, A, dev)
             args = (a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], w, CUTOFF, NH,
                     last)
-            flop_f, flop_b = layer_flop(B, A, last)
-            name = f"vislayer_fwd B={B} A={A} last={int(last)}"
-            print(f"  {name}")
-            run = lambda args=args: FL.vislayer_fwd(*args)
-            ref = dict(zip(("x2", "vec2", "edge2", "x_agg"), FL.vislayer_fwd_plain(*args)))
-            res = results["vislayer_fwd"]
-            res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
-            bitwise(name, run)
-            parts = {}
-            t = in_turns(torch, run, lambda args=args: FL.vislayer_fwd_plain(*args), parts)
-            b = bound(nbytes(*args[:6], *w, *run()), tc=flop_f)
-            add_bound(res if not last else {}, b, t)
-            if not last:
-                add_times(res, t)
-            add_stage_sums(res, last, t, parts)
-
-            xagg = run()[3]
-            bargs = (*args[:7], xagg, a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, NH, last)
-            name = f"vislayer_bwd B={B} A={A} last={int(last)}"
-            print(f"  {name}")
-            run = lambda bargs=bargs: FL.vislayer_bwd(*bargs)
-            ref = dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"),
-                           FL.vislayer_bwd_plain(*bargs)))
-            res = results["vislayer_bwd"]
-            res["max_abs_err"] = max(res["max_abs_err"], compare(name, run(), ref, EDGE_TOL))
-            bitwise(name, run)
-            parts = {}
-            t = in_turns(torch, run, lambda bargs=bargs: FL.vislayer_bwd_plain(*bargs), parts)
-            b = bound(nbytes(*bargs[:6], *w, *bargs[7:11], *run()), tc=flop_b)
-            add_bound(res if not last else {}, b, t)
-            if not last:
-                add_times(res, t)
-            add_stage_sums(res, last, t, parts)
-    for name in ("vislayer_fwd", "vislayer_bwd"):
-        for where, sums in results[name].pop("stage_sums").items():
-            print(f"  {name}, device ms summed over the four shapes, {where}: " + ", ".join(
-                f"{k} {fmt_ms(v)}" for k, v in sums.items()))
+            fwd = FL.vislayer_fwd(*args)
+            add("vislayer_fwd", fwd)
+            bargs = (*args[:7], fwd[3], a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, NH, last)
+            add("vislayer_bwd", FL.vislayer_bwd(*bargs))
+            if timed:
+                for name, fn in (("vislayer_fwd", lambda: FL.vislayer_fwd(*args)),
+                                 ("vislayer_bwd", lambda: FL.vislayer_bwd(*bargs))):
+                    parts = {}
+                    ms = device_ms(torch, fn, 20, by_name=parts)
+                    add_times(sums.setdefault(f"{name} last={int(last)}", {}),
+                              {"all": ms, **{short_name(n): t for n, t in parts.items()}})
+    out = {n: x.hexdigest() for n, x in h.items()}
+    for n, d in out.items():
+        print(f"  {n} output sha256 over the fragment shapes {SHAPES}, both last: {d}")
+    for label, t in sums.items():
+        print(f"  {label} device ms a call summed over the fragment shapes: " + ", ".join(
+            f"{k} {fmt_ms(v)}" for k, v in t.items()))
+    return out
 
 
 def add_stage_sums(res, last, t, parts):
@@ -1280,8 +1470,8 @@ HBOND_PULL = 0.3
 RESTART_LIMIT = 1e-6          # A and A/t
 
 
-def _cli_cmd(log_dir, *args):
-    return [sys.executable, "-m", "ai2bmd_torch", "--prot-file", "examples/chig.pdb",
+def _cli_cmd(log_dir, *args, prot_file="examples/chig.pdb"):
+    return [sys.executable, "-m", "ai2bmd_torch", "--prot-file", prot_file,
             "--log-dir", log_dir, "--no-solvent", *args]
 
 
@@ -1299,9 +1489,14 @@ def _cli_wait(name, proc, timeout=600):
     return out
 
 
-def _cli_start(cmd):
+def _cli_start(cmd, fused_layer=False):
+    """Start a CLI subprocess; ``fused_layer`` sets AI2BMD_FUSED_LAYER=1 in its
+    environment, as a user selects the full-layer kernels."""
+    env = {k: v for k, v in os.environ.items() if k != "AI2BMD_FUSED_LAYER"}
+    if fused_layer:
+        env["AI2BMD_FUSED_LAYER"] = "1"
     return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
 
 
 def _metrics(path):
@@ -1493,26 +1688,40 @@ def run_user_cli(torch, root, graphed_ms, card):
 
 # Phase 7: one force evaluation of whole-molecule mode launches K1 once a
 # layer, K2 once a layer and K3 on the 8 updating layers (K7/K8 in their
-# place with remat), and no cap kernel
+# place with remat), or with fused_layer K5 and K6 once a layer, and no cap
+# kernel
 WHOLE_DT_FS = 0.05            # the library run's timestep, as USER_DT_FS
 WHOLE_A = {"chig": 176, "abd": 752}
 
 
-def whole_launches(remat: bool) -> dict:
-    msg, upd = ("edge_bwd_msg_rc", "edge_bwd_upd_rc") if remat else ("edge_bwd_msg",
-                                                                     "edge_bwd_upd")
+def whole_launches(remat: bool = False, fused: bool = False) -> dict:
     want = dict.fromkeys(("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc",
                           "edge_bwd_upd_rc", "cap_grad", "vislayer_fwd", "vislayer_bwd",
                           "tf32x3_mm"), 0)
+    if fused:
+        want.update(vislayer_fwd=N_LAYERS, vislayer_bwd=N_LAYERS)
+        return want
+    msg, upd = ("edge_bwd_msg_rc", "edge_bwd_upd_rc") if remat else ("edge_bwd_msg",
+                                                                     "edge_bwd_upd")
     want.update(edge_fwd=N_LAYERS, **{msg: N_LAYERS, upd: N_LAYERS - 1})
     return want
+
+
+def cli_model_line(txt, want):
+    """The CLI's line naming the kernels its model runs; fails unless it
+    names ``want``."""
+    line = next((ln for ln in txt.splitlines() if ln.startswith("ViSNet ")), "")
+    need(want in line, f"the CLI ran {line!r}, not {want}")
+    return line
 
 
 def run_whole_molecule(torch, dev, prot, card, root):
     """Phase 7: whole-molecule mode at 9 x 256.  (a) the checkpoint round
     trip, (b) Chignolin through ViSNetPotential with the CPU float64
     reference and the graphed step, (c) the CLI with --mode visnet
-    --ckpt-path, (d) abd with remat on and off.  Returns its figures."""
+    --ckpt-path, (d) abd with remat on and off, (e) Chignolin and abd
+    through the full-layer kernels K5/K6 (fused_layer), held against (b)
+    and (d).  Returns its figures."""
     import numpy as np
 
     from ai2bmd_torch.host import example_pdb, load_protein
@@ -1595,6 +1804,7 @@ def run_whole_molecule(torch, dev, prot, card, root):
           f"(limit {FORCE_LIMIT})")
     need(step_r == CLI_STEPS and dF_cli <= FORCE_LIMIT,
          f"the CLI's forces differ from the library's by {dF_cli:.3e} at step {step_r}")
+    print(f"  the CLI's model: {cli_model_line(txt, 'edge-core kernels K1-K3')}")
     del pot, pot64, state
 
     # (d) abd as one molecule, remat on and off
@@ -1628,8 +1838,241 @@ def run_whole_molecule(torch, dev, prot, card, root):
     dF = float((forces[True] - forces[False]).abs().max())
     print(f"  abd remat=True vs remat=False: max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT})")
     need(dF <= FORCE_LIMIT, f"abd: remat changed the forces by {dF:.3e}")
+    run_whole_fused(torch, dev, prot, card, root, cfg2, params2, npz, P, f0, f_ref, abd,
+                    forces[False], out)
     print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s ({card})")
     return out
+
+
+def run_whole_fused(torch, dev, prot, card, root, cfg, params, npz, P, f0, f_ref, abd,
+                    f_abd, out):
+    """Phase 7(e): whole-molecule mode through K5/K6 (fused_layer=True).
+    Chignolin: launches of one evaluation (K5 9, K6 9, nothing else), step 0
+    against (b)'s CPU float64 forces and (b)'s K1-K3 forces, the graphed
+    step (5 replays against eager steps, timed replays, a trace naming
+    K5/K6's stages) beside (b)'s in this call, and the CLI under
+    AI2BMD_FUSED_LAYER=1; then abd, one evaluation, its peak memory and its
+    forces against (d)'s K1-K3 run."""
+    import numpy as np
+
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import ViSNetPotential
+
+    cfg_f = dataclasses.replace(cfg, fused_layer=True)
+    pot = ViSNetPotential.build(prot.numbers, ViSNet(cfg_f, params), cfg_f, device=dev)
+    need(pot.cfg.fused_layer and pot.pad_to == WHOLE_A["chig"], f"fused potential {pot.cfg}")
+    pot.energy_forces(P)
+    torch.cuda.synchronize()
+    reset_launches()
+    e1, f1 = pot.energy_forces(P)
+    torch.cuda.synchronize()
+    launches = out["fused_launches"] = dict(LAUNCHES)
+    print(f"  (e) Chignolin as one molecule through K5/K6: one force evaluation launches "
+          f"{launches}")
+    for name, n in whole_launches(fused=True).items():
+        need(launches[name] == n, f"fused: {name}: {launches[name]} launches, expected {n}")
+    cpu = torch.device("cpu")
+    f64 = f1.to(cpu, torch.float64)
+    dF_ref = float((f64 - f_ref).abs().max())
+    dF_edge = float((f64 - f0.to(cpu, torch.float64)).abs().max())
+    print(f"  step 0 vs CPU float64 plain: max|dF| {dF_ref:.3e} eV/A; vs K1-K3 on the card "
+          f"(b): max|dF| {dF_edge:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(dF_ref <= FORCE_LIMIT, f"K5/K6 whole-molecule forces differ from float64 by {dF_ref:.3e}")
+    need(dF_edge <= FORCE_LIMIT, f"K5/K6 whole-molecule forces differ from K1-K3 by {dF_edge:.3e}")
+    masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
+    coeffs = L.LangevinCoeffs.build(prot.masses, WHOLE_DT_FS, 300.0, 0.001, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = L.MDState(P, L.maxwell_boltzmann_velocities(gen, prot.masses, 300.0), f1, e1)
+    out["fused_graphed"] = drive_graphed(torch, L.lift_potential(pot.energy_forces), coeffs,
+                                         masses, state, gen, card, LAYER_KERNELS)
+    names = out["fused_graphed"]["names"]
+    need(not any("cap_grad" in n or "edge_fwd_kernel" in n for n in names),
+         "the K5/K6 whole-molecule trace names a cap or K1 kernel")
+    print(f"  graphed ms/step in this call: K5/K6 {out['fused_graphed']['ms_step']:.3f} "
+          f"(events {out['fused_graphed']['ms_events']:.3f}), K1-K3 (b) "
+          f"{out['graphed']['ms_step']:.3f} (events {out['graphed']['ms_events']:.3f}); {card}")
+
+    d = os.path.join(root, "whole_fused")
+    t0 = time.perf_counter()
+    txt = _cli_wait("whole-molecule K5/K6", _cli_start(_cli_cmd(
+        d, "--mode", "visnet", "--ckpt-path", npz, "--preeq-steps", "0", "--sim-steps",
+        str(CLI_STEPS), "--record-per-steps", str(CLI_RECORD), "--timestep", str(TIMING_DT_FS)),
+        fused_layer=True))
+    wall = time.perf_counter() - t0
+    need("Simulation finished!" in txt, "the K5/K6 whole-molecule CLI run did not finish")
+    line = cli_model_line(txt, "full-layer kernels K5/K6")
+    rows = _metrics(os.path.join(d, "chig-metrics.csv"))
+    need(len(rows) == CLI_STEPS // CLI_RECORD, f"{len(rows)} metrics rows")
+    out["fused_cli_ms"] = sum(r["ms_per_step"] for r in rows[1:]) / (len(rows) - 1)
+    with np.load(os.path.join(d, "chig-restart.npz")) as r:
+        P_r, F_r, step_r = r["positions"], r["forces"], int(r["step"])
+    _, f_r = pot.energy_forces(torch.as_tensor(P_r, device=dev))
+    dF_cli = float(np.abs(f_r.cpu().numpy() - F_r).max())
+    print(f"  AI2BMD_FUSED_LAYER=1 python -m ai2bmd_torch --mode visnet --ckpt-path "
+          f"{os.path.relpath(npz)}: {line!r}; exit 0 in {wall:.1f} s; metrics ms/step "
+          f"{[r['ms_per_step'] for r in rows]}; steady {out['fused_cli_ms']:.3f} against (c)'s "
+          f"{out['cli_ms']:.3f}; its forces at step {step_r} against (e)'s potential: max|dF| "
+          f"{dF_cli:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(step_r == CLI_STEPS and dF_cli <= FORCE_LIMIT,
+         f"the K5/K6 CLI's forces differ from the library's by {dF_cli:.3e} at step {step_r}")
+    del pot, state
+
+    P_abd = torch.as_tensor(abd.positions, dtype=torch.float32, device=dev)
+    pa = ViSNetPotential.build(abd.numbers, ViSNet(cfg_f, params), cfg_f, device=dev)
+    need(pa.pad_to == WHOLE_A["abd"], f"abd padded to {pa.pad_to}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, f_fused = pa.energy_forces(P_abd)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    out["abd_peak_gib"]["fused"] = peak / 2**30
+    dF = float((f_fused - f_abd).abs().max())
+    print(f"  (e) abd, {len(abd)} atoms as one molecule of {pa.pad_to} slots, through K5/K6: "
+          f"one force evaluation {secs:.2f} s (first at this shape); launches {launches}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} above the "
+          f"{base / 2**30:.2f} held before); against (d)'s K1-K3 forces max|dF| {dF:.3e} eV/A "
+          f"(limit {FORCE_LIMIT})")
+    for name, n in whole_launches(fused=True).items():
+        need(launches[name] == n, f"abd K5/K6: {name} {launches[name]}, expected {n}")
+    need(bool(f_fused.isfinite().all()), "abd K5/K6: non-finite forces")
+    need(dF <= FORCE_LIMIT, f"abd: K5/K6 forces differ from K1-K3 by {dF:.3e}")
+    del pa
+
+
+# Phase 8: the repaired faults on the card.  The CLI's tiny preset: 2 x 32,
+# 4 heads of 8 channels (cli.py)
+TINY = dict(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8)
+SOLVATED = "examples/chig_preprocessed/chig-preeq.pdb"
+COLD_STEPS = 5                # warm_caps=False: replays held against eager steps
+EDGE_PATH = ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd")
+LAYER_PATH = ("vislayer_fwd", "vislayer_bwd")
+
+
+def run_faults(torch, dev, card, root, warm_ms):
+    """Phase 8: (a) ProteinSimulation.from_pdb with the tiny preset (heads of
+    8 channels) and no device, through K1-K3 and, with AI2BMD_FUSED_LAYER=1,
+    K5/K6: the launches of the cold start and step 0, step 0 against the
+    port on the CPU in float64 from the same cold caps, 3 graphed steps;
+    (b) warm_caps=False at 9 x 256: the stateless step (a cold 10-iteration
+    cap solve) captured, COLD_STEPS replays against eager steps from the
+    same state and generator state, TIMED_STEPS replays timed beside phase
+    4's warm step; (c) `python -m ai2bmd_torch --no-solvent` on the
+    solvated Chignolin box runs its protein in vacuum."""
+    from ai2bmd_torch.host import load_protein
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.md.simulation import SimulationConfig
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import FragmentPotential
+    from ai2bmd_torch.simulators import WARM_ITERS, ProteinSimulation, load_model
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    cpu = torch.device("cpu")
+    sim_cfg = SimulationConfig(timestep_fs=USER_DT_FS, preeq_steps=0, record_per_steps=RECORD)
+    tiny = ViSNetConfig(**TINY)
+    for fused in (False, True):
+        old = os.environ.pop("AI2BMD_FUSED_LAYER", None)
+        if fused:
+            os.environ["AI2BMD_FUSED_LAYER"] = "1"
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            ps = ProteinSimulation.from_pdb("examples/chig.pdb", log_dir=os.path.join(
+                root, f"tiny{'_fused' if fused else ''}"), model_cfg=tiny, sim_cfg=sim_cfg)
+            state = ps.sim.initial_state(ps.prot.positions)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+        finally:
+            os.environ.pop("AI2BMD_FUSED_LAYER", None)
+            if old is not None:
+                os.environ["AI2BMD_FUSED_LAYER"] = old
+        path, other = (LAYER_PATH, EDGE_PATH) if fused else (EDGE_PATH, LAYER_PATH)
+        need(state.forces.is_cuda and ps.potential.cfg.fused_layer == fused,
+             f"tiny preset on {state.forces.device}, fused_layer {ps.potential.cfg.fused_layer}")
+        for name in (*path, "cap_grad"):
+            need(launches[name] > 0, f"tiny preset: {name} was not launched")
+        for name in (*other, "edge_bwd_msg_rc", "edge_bwd_upd_rc"):
+            need(launches[name] == 0, f"tiny preset: {name} ran")
+        params, _ = load_model(None, tiny)
+        pot64 = FragmentPotential.build(ps.prot, ViSNet(tiny, params).to(torch.float64), tiny,
+                                        device="cpu")
+        P64 = torch.as_tensor(ps.prot.positions, dtype=torch.float64)
+        _, f_ref, _ = pot64.stateful_energy_forces(
+            P64, ps.sim._init_aux.to(cpu, torch.float64), warm_iters=WARM_ITERS)
+        dF = float((state.forces.to(cpu, torch.float64) - f_ref).abs().max())
+        s3 = ps.sim.advance(state, 3)
+        need(ps.sim.graph.replays == 3 and bool(s3.positions.isfinite().all()
+                                                 and s3.forces.isfinite().all()),
+             "tiny preset: the graphed steps failed")
+        ran = {n: launches[n] for n in (*path, "cap_grad")}
+        print(f"  (a) tiny preset (2 x 32, 4 heads of 8 channels), "
+              f"{'AI2BMD_FUSED_LAYER=1' if fused else 'default'}: cold start + step 0 launch "
+              f"{ran} and no "
+              f"{', '.join(other)}; step 0 vs CPU float64 plain max|dF| {dF:.3e} eV/A "
+              f"(limit {FORCE_LIMIT}), max|F| {float(f_ref.abs().max()):.3f}; 3 graphed steps")
+        need(dF <= FORCE_LIMIT, f"tiny preset: step-0 forces differ from float64 by {dF:.3e}")
+        del ps, pot64
+
+    ps = ProteinSimulation.from_pdb("examples/chig.pdb", log_dir=os.path.join(root, "cold"),
+                                    model_cfg=ViSNetConfig(), sim_cfg=sim_cfg, warm_caps=False)
+    sim = ps.sim
+    need(sim._init_aux is None, "warm_caps=False carries cap offsets")
+    state = sim.initial_state(ps.prot.positions)
+    gen_state = sim.generator.get_state()
+    t0 = time.perf_counter()
+    got = sim.advance(state, COLD_STEPS)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    need(sim.graph is not None and sim.graph.replays == COLD_STEPS, "no graph captured")
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    ref = state
+    for _ in range(COLD_STEPS):
+        ref = L.langevin_step(sim.full_potential, sim.coeffs, sim.masses, ref, generator=g)
+    dx = float((got.positions - ref.positions).abs().max())
+    dF = float((got.forces - ref.forces).abs().max())
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    final = sim.graph.run(TIMED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    cold_ms = start.elapsed_time(end) / TIMED_STEPS
+    need(bool(final.positions.isfinite().all() and final.forces.isfinite().all()),
+         "warm_caps=False: non-finite state")
+    print(f"  (b) warm_caps=False, 9 x 256: the stateless step (cap solve of "
+          f"{ps.potential.rt.opt_iters} L-BFGS iterations a step) captured as one CUDA graph "
+          f"({t_first:.1f} s with warm-up and capture); {COLD_STEPS} replays vs eager steps from "
+          f"the same state and generator state: max|dx| {dx:.3e} A, max|dF| {dF:.3e} eV/A "
+          f"(limit {FORCE_LIMIT}); {cold_ms:.3f} ms/step (CUDA events, {TIMED_STEPS} replays) "
+          f"against phase 4's warm {warm_ms:.3f} ({card})")
+    need(dx <= FORCE_LIMIT and dF <= FORCE_LIMIT,
+         f"warm_caps=False: replays differ from eager steps: dx {dx:.3e}, dF {dF:.3e}")
+    del ps, sim, state, got, ref, final
+
+    n_prot = len(load_protein(SOLVATED).protein_indices())
+    d = os.path.join(root, "no_solvent")
+    t0 = time.perf_counter()
+    txt = _cli_wait("--no-solvent", _cli_start(_cli_cmd(
+        d, "--preeq-steps", "0", "--sim-steps", "20", "--record-per-steps", "10", "--timestep",
+        str(USER_DT_FS), prot_file=SOLVATED)))
+    wall = time.perf_counter() - t0
+    need("Simulation finished!" in txt, "the --no-solvent run did not finish")
+    frames = read_dcd(os.path.join(d, "chig-preeq-traj.dcd"))
+    need(frames.shape == (2, n_prot, 3) and bool(torch.as_tensor(frames).isfinite().all()),
+         f"--no-solvent DCD {frames.shape}, expected (2, {n_prot}, 3)")
+    print(f"  (c) python -m ai2bmd_torch --prot-file {SOLVATED} --no-solvent, 20 steps: exit 0 "
+          f"in {wall:.1f} s; {cli_model_line(txt, 'edge-core kernels K1-K3')!r}; the DCD holds "
+          f"the {n_prot} protein atoms of the box")
+    return cold_ms
 
 
 KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
@@ -1662,6 +2105,10 @@ def main(argv=None):
                          "inputs, without the final line (to compare K4 across commits)")
     ap.add_argument("--edge-hash", action="store_true",
                     help="print only K1, K2, K3, K7 and K8's output hashes on phase 3's "
+                         "fragment-shape inputs, without the final line (to compare them "
+                         "across commits)")
+    ap.add_argument("--layer-hash", action="store_true",
+                    help="print only K5 and K6's output hashes and device times on phase 3's "
                          "fragment-shape inputs, without the final line (to compare them "
                          "across commits)")
     args = ap.parse_args(argv)
@@ -1705,17 +2152,26 @@ def main(argv=None):
     if args.edge_hash:
         edge_hashes(torch, dev)
         return
+    if args.layer_hash:
+        layer_hashes(torch, dev, timed=True)
+        return
 
     print("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
     check_tf32x3(torch, dev)
     check_layer_kernels(torch, dev, results)
     check_edge_kernels(torch, dev, results)
-    whole = check_whole_molecule_kernels(torch, dev)
-    report_occupancy(torch, results, whole)
-    cublas_yardstick(torch, dev, results)
     prot = load_protein(example_pdb("chig"))
     check_cap_kernel(torch, dev, prot, results)
+    # on the H100 the profiler's device times fail for the rest of the
+    # process from K7 at A = 752 on: K4 and K5/K6 at the whole-molecule
+    # shapes are timed before it
+    whole = {A: {} for _, A in WHOLE_SHAPES}
+    check_whole_layer_kernels(torch, dev, whole)
+    check_whole_molecule_kernels(torch, dev, whole)
+    check_head_widths(torch, dev, results)
+    report_occupancy(torch, results, whole)
+    cublas_yardstick(torch, dev, results)
     if args.stop_after == 3:
         return
 
@@ -1733,6 +2189,9 @@ def main(argv=None):
     print("== 7. whole-molecule mode: converted checkpoint, Chignolin (A = 176) and abd "
           "(A = 752) as one molecule, 9 x 256")
     wm = run_whole_molecule(torch, dev, prot, card, root)
+    print("== 8. the repaired faults: the tiny preset on the card, warm_caps=False, "
+          "--no-solvent on a solvated input")
+    cold_ms = run_faults(torch, dev, card, root, graphed["ms_step"])
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -1744,17 +2203,20 @@ def main(argv=None):
                 "launches": launches[n], "bound_peak": BOUND_PEAK[n], **finish(results[n])}
                for n, (src, rep) in KERNELS.items()]
     for k in kernels:      # the whole-molecule path's launches and shapes (phases 7 and 3)
-        if k["name"] in EDGE_NAMES:
+        if k["name"] in EDGE_NAMES or k["name"] in LAYER_PATH:
+            launched = (wm["fused_launches"] if k["name"] in LAYER_PATH else
+                        wm["abd_launches"][True] if k["name"].endswith("_rc") else wm["launches"])
             k["whole_molecule"] = {
-                "launches": (wm["abd_launches"][True] if k["name"].endswith("_rc")
-                             else wm["launches"])[k["name"]],
+                "launches": launched[k["name"]],
                 **{f"A={A}": finish(res[k["name"]]) for A, res in whole.items()}}
-    print("== 8. results")
+    print("== 9. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
-          f"{wm['graphed']['ms_step']:.3f} (events {wm['graphed']['ms_events']:.3f}), CLI steady "
-          f"{wm['cli_ms']:.3f}; abd peak GiB remat on / off {wm['abd_peak_gib']}; "
+          f"{wm['graphed']['ms_step']:.3f} (events {wm['graphed']['ms_events']:.3f}) K1-K3, "
+          f"{wm['fused_graphed']['ms_step']:.3f} (events {wm['fused_graphed']['ms_events']:.3f}) "
+          f"K5/K6; CLI steady {wm['cli_ms']:.3f} K1-K3, {wm['fused_cli_ms']:.3f} K5/K6; abd peak "
+          f"GiB {wm['abd_peak_gib']}; warm_caps=False graphed {cold_ms:.3f}; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,7 @@ a synthetic Lightning checkpoint (tests/test_torch_checkpoint.py's write_ckpt)
 loaded by each package: energy and forces, independence of the padding, a
 few Langevin steps of ProteinSimulation fed JAX's noise; the CLI with a
 converted checkpoint, then --restart; the --replicas route loading the
-checkpoint; and the full-layer kernels' refusal of a whole molecule."""
+checkpoint; and the limits of the edge and full-layer kernels' shapes."""
 
 import os
 import subprocess
@@ -215,16 +215,19 @@ def test_cli_replica_ensemble_loads_the_checkpoint(monkeypatch, tmp_path, tiny_n
 
 
 def test_full_layer_kernels_refuse_a_whole_molecule():
-    """The edge kernels take any A % 8 == 0 up to EDGE_MAXA (abd is 752
-    slots); the full-layer kernels K5/K6 keep A <= 48, and their wrappers'
-    check raises past it naming the ROADMAP entry."""
-    assert TK.EDGE_MAXA >= 752 and TK.LAYER_MAXA == 48
+    """The edge kernels and the full-layer kernels K5/K6 both take any
+    A % 8 == 0 up to EDGE_MAXA (abd is 752 slots), and their wrappers'
+    check raises past it; heads wider than 32 channels (nh = 4 at H = 256)
+    raise naming the ROADMAP entry that keeps them open."""
+    assert TK.EDGE_MAXA >= 752
     TK.check_shapes(752, 256, 8, 8)
-    TK.check_layer_shapes(48, 256, 8, 8)
+    TK.check_layer_shapes(752, 256, 8, 8)
     with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
         TK.check_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
-    with pytest.raises(ValueError, match="K5/K6 at A > 48 is ROADMAP.md, Queue 2"):
-        TK.check_layer_shapes(176, 256, 8, 8)
+    with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
+        TK.check_layer_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
+    with pytest.raises(ValueError, match="ROADMAP.md, Queue 3"):
+        TK.check_layer_shapes(176, 256, 8, 4)
 
 
 def test_whole_molecule_entry_points_default_to_the_card(monkeypatch, chig, tiny_npz, tmp_path):
