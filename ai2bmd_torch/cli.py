@@ -8,10 +8,15 @@ a card and without ``--device cpu`` it raises; it never falls back to the
 CPU, and on the card the MD loop is replays of one captured step.
 
 Routes:
-  * the vacuum paths (``ProteinSimulation``): fragment mode, and whole-molecule
-    mode with ``--mode visnet``; a solvated input with ``--no-solvent`` runs
-    its protein alone in vacuum; an exception during the simulation exits
-    255, as the reference's runaway / solver errors do
+  * ``ProteinSimulation``: fragment mode (``--fragment-longrange-calc mm`` or
+    ``pme``), and whole-molecule mode with ``--mode visnet``; a solvated
+    input (or ``--solvent``) runs subtractive QM/MM over the whole periodic
+    box with the ff19SB engine (``--mm-method mm-engine``, and ``tinker`` /
+    ``tinker-GPU``, which name the reference's co-process, as in the JAX
+    package), ``--rigid-water`` (SETTLE) and ``--no-write-solvent`` (a
+    trajectory of the protein only); with ``--no-solvent`` it runs its
+    protein alone in vacuum; an exception during the simulation exits 255,
+    as the reference's runaway / solver errors do
   * ``--replicas > 1`` (or ``--mesh-mp > 1``): ``ReplicaEnsemble`` on one
     card, each replica with its own DCD, the whole batched state (and every
     replica's generator state) checkpointed each record interval
@@ -20,11 +25,10 @@ Routes:
     every route, else random weights; a file that is not a checkpoint exits
     nonzero naming it
 
-Refused, naming the ROADMAP item that ports them: ``--fragment-longrange-calc
-pme`` in fragment mode (item 12), explicit solvent (``--solvent``, or a
-solvated input without ``--no-solvent``) and ``--replicas`` on a solvated
-input, whatever ``--solvent`` says (item 13), ``--preprocess`` (item 14), a
-mesh of more than one card (item 17), and
+Refused, naming the ROADMAP item that ports them, on a solvated run:
+``--mm-method amoeba`` (item 15), ``--polarizable-mm`` and ``--replicas``
+(whatever ``--solvent`` says; the item 13 remainder, item 13b); and
+``--preprocess`` (item 14), a mesh of more than one card (item 17), and
 ``--matmul-precision`` other than float32 (the port's products are float32
 or 3xTF32 by design).  The reference's
 ``--device-strategy``, ``--work-strategy`` and ``--chunk-size`` are accepted
@@ -64,7 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--constraints", action=argparse.BooleanOptionalAction,
                    default=False, help="constrain hydrogen bonds")
     p.add_argument("--solvent", action=argparse.BooleanOptionalAction, default=None,
-                   help="explicit-solvent QM/MM (default: auto-detect; ROADMAP item 13)")
+                   help="explicit-solvent QM/MM (default: when the input has water or ions)")
     p.add_argument("--write-solvent", action=argparse.BooleanOptionalAction,
                    default=True)
     p.add_argument("--preprocess-method", type=str, default="FF19SB",
@@ -198,13 +202,21 @@ def _run(args, device, prot_name: str, log_dir: str, log) -> int:
         mode=args.mode,
         longrange=args.fragment_longrange_calc,
         solvent=args.solvent,
+        write_solvent=args.write_solvent,
         ckpt_path=ckpt,
         model_cfg=model_cfg,
         sim_cfg=sim_cfg,
         opt_iters=args.opt_iters,
+        polarizable_mm=args.polarizable_mm,
+        rigid_water=args.rigid_water,
+        mm_backend="amoeba" if args.mm_method == "amoeba" else "ff19sb",
         device=device,
     )
     print(_model_line(sim.potential.cfg, device), flush=True)
+    if sim.qmmm is not None:
+        print(f"QM/MM: {sim.qmmm.n_atoms} atoms in the box, {len(sim.qmmm.sel)} in the QM "
+              f"region; {sim.qmmm.backend} pairs, PME mesh {sim.qmmm.mm_full.grid}"
+              f"{', rigid water (SETTLE)' if sim.sim.constraint is not None else ''}", flush=True)
     try:
         sim.simulate(args.sim_steps, restart=args.restart)
     except Exception as exc:  # the reference exits -1 on runaway / solver errors
@@ -220,6 +232,8 @@ def _model_line(cfg, device) -> str:
     """The model and the kernels its layers run on ``device``."""
     if device.type != "cuda":
         path = "plain versions on the CPU"
+    elif cfg.plain_edge_core:
+        path = f"the plain edge core on the card ({cfg.activation!r}/{cfg.attn_activation!r})"
     elif cfg.fused_layer:
         path = "full-layer kernels K5/K6"
     else:
@@ -295,8 +309,8 @@ def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log) -> int:
     full = load_protein(args.prot_file)
     if len(full.protein_indices()) < len(full):
         raise NotImplementedError(
-            f"{args.prot_file} holds water or ions: solvated replica ensembles are not ported "
-            f"yet (ROADMAP.md, Queue 1 item 13)")
+            f"{args.prot_file} holds water or ions: solvated replica ensembles "
+            f"(SolvatedReplicaEnsemble) are not ported yet (ROADMAP.md, Queue 1 item 13b)")
     params, cfg = load_model(ckpt, model_cfg, seed=args.seed)
     log.info("replica ensemble on %s: %d replicas", device, args.replicas)
     ens = ReplicaEnsemble.build(

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.io.pdb import SYMBOLS
+from ai2bmd_torch.utils.tree import tree_leaves
 
 
 class XYZTrajectory:
@@ -145,7 +146,8 @@ def save_restart(path: str, positions, velocities, step: int,
                  rng_state: torch.Tensor | None = None, forces=None, energy=None, aux=None):
     """Checkpoint for a continuous restart: positions, velocities, step, the
     generator's state (``rng_state``, ``Generator.get_state()``), and the
-    state's forces, energy and potential carry ``aux`` (the cap offsets).
+    state's forces, energy and potential carry ``aux`` (the cap offsets, or
+    a tuple of tensors, stored leaf by leaf as ``aux_0``, ``aux_1``, ...).
     Restoring them all resumes the trajectory exactly where it stopped.
     Written to a temporary name and renamed, so a crash mid-write leaves the
     previous checkpoint."""
@@ -156,29 +158,33 @@ def save_restart(path: str, positions, velocities, step: int,
         extra["forces"] = _np(forces)
     if energy is not None:
         extra["energy"] = _np(energy)
-    if aux is not None:
-        extra["aux_0"] = _np(aux)
+    for k, leaf in enumerate(tree_leaves(aux)):
+        extra[f"aux_{k}"] = _np(leaf)
     tmp = path + ".tmp.npz"
     np.savez(tmp, positions=_np(positions), velocities=_np(velocities), step=np.asarray(step),
              **extra)
     os.replace(tmp, path)
 
 
-def load_restart(path: str):
+def load_restart(path: str, aux_leaves: int = 1):
     """Load a restart checkpoint -> (positions, velocities, step, rng_state,
     extras).  ``rng_state`` is a uint8 tensor for ``Generator.set_state``,
     or None for a file the JAX package wrote (its threefry key has no torch
-    counterpart).  ``extras`` may hold "forces", "energy" and "aux" (the
-    file's one aux leaf ``aux_0``); a file with several aux leaves is a
+    counterpart).  ``extras`` may hold "forces", "energy" and "aux": the
+    file's one aux leaf ``aux_0`` when the caller's carry has
+    ``aux_leaves`` = 1 (the cap offsets), else the list of its
+    ``aux_leaves`` leaves.  A file with another number of aux leaves is a
     checkpoint of another engine and raises."""
     with np.load(path) as raw:
         extras = {k: raw[k] for k in ("forces", "energy") if k in raw}
         n_aux = sum(1 for k in raw.files if k.startswith("aux_"))
-        if n_aux > 1:
-            raise ValueError(f"{path} holds {n_aux} aux leaves; this engine carries one "
-                             f"(the cap offsets)")
+        if n_aux and n_aux != aux_leaves:
+            raise ValueError(f"{path} holds {n_aux} aux leaves; this engine carries "
+                             f"{aux_leaves}")
         if n_aux == 1:
             extras["aux"] = raw["aux_0"]
+        elif n_aux:
+            extras["aux"] = [raw[f"aux_{k}"] for k in range(n_aux)]
         rng_state = torch.from_numpy(raw["rng_state"].copy()) if "rng_state" in raw else None
         return raw["positions"], raw["velocities"], int(raw["step"]), rng_state, extras
 

@@ -8,8 +8,11 @@ the force evaluation.
 
 What the graph holds and what it does not:
 - captured: one ``langevin_step`` (both half-kicks, the warm cap L-BFGS, the
-  ViSNet calls with their autograd backward, the stitch and the long range),
-  reading and writing static buffers (``StepBuffers``);
+  ViSNet calls with their autograd backward, the stitch and the long range;
+  on a solvated run also the cell assignment, the MM and PME terms and the
+  SETTLE projection), reading and writing static buffers (``StepBuffers``).
+  The eager warm-up steps create what a capture cannot, such as cuFFT's
+  plans for the PME mesh;
 - outside it: the noise.  Before every replay xi, then eta, are drawn from
   the caller's generator into the static noise buffers (``draw_step_noise``),
   with the shapes and order ``langevin_step`` draws them, so a graphed run
@@ -22,8 +25,9 @@ What the graph holds and what it does not:
 
 The graph needs the card: on CPU tensors ``GraphedLangevin`` raises, and a
 failed capture raises too; neither falls back to eager steps.  The force
-stitch sums with atomics (``frag/runtime.py``), so a replayed step equals an
-eager step within float32 rounding, not bitwise.
+stitch and the PME charge spreading sum with atomics (``frag/runtime.py``,
+``physics/pme.py``), so a replayed step equals an eager step within float32
+rounding, not bitwise.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import Any, Callable
 import torch
 
 from ai2bmd_torch.md.langevin import LangevinCoeffs, MDState, langevin_step
+from ai2bmd_torch.utils.tree import tree_clone, tree_copy_
 
 WARMUP_STEPS = 3
 
@@ -42,8 +47,9 @@ WARMUP_STEPS = 3
 @dataclasses.dataclass
 class StepBuffers:
     """The static tensors one captured step reads and overwrites: the MD
-    state (positions, velocities, forces, energy, cap offsets ``aux``) and
-    the step's noise ``xi`` and ``eta``."""
+    state (positions, velocities, forces, energy, the carry ``aux``: cap
+    offsets, or a tuple of tensors) and the step's noise ``xi`` and
+    ``eta``."""
 
     positions: torch.Tensor
     velocities: torch.Tensor
@@ -57,9 +63,9 @@ class StepBuffers:
     def from_state(cls, state: MDState) -> "StepBuffers":
         """Copies of ``state``'s tensors, and noise buffers of its shape."""
         P = state.positions
-        aux = None if state.aux is None else state.aux.clone()
         return cls(P.clone(), state.velocities.clone(), state.forces.clone(),
-                   state.energy.clone(), aux, torch.empty_like(P), torch.empty_like(P))
+                   state.energy.clone(), tree_clone(state.aux), torch.empty_like(P),
+                   torch.empty_like(P))
 
     def state(self, step: int = 0) -> MDState:
         """An ``MDState`` whose tensors are these buffers (not copies)."""
@@ -72,8 +78,7 @@ class StepBuffers:
         self.velocities.copy_(state.velocities)
         self.forces.copy_(state.forces)
         self.energy.copy_(state.energy)
-        if self.aux is not None:
-            self.aux.copy_(state.aux)
+        tree_copy_(self.aux, state.aux)
 
 
 def draw_step_noise(generator: torch.Generator, buf: StepBuffers) -> None:
@@ -84,11 +89,12 @@ def draw_step_noise(generator: torch.Generator, buf: StepBuffers) -> None:
 
 
 def step_into(buf: StepBuffers, potential: Callable, coeffs: LangevinCoeffs,
-              masses: torch.Tensor) -> None:
-    """The captured body: one ``langevin_step`` on the buffers' state and
-    noise, its results copied back into the buffers."""
+              masses: torch.Tensor, constraint=None) -> None:
+    """The captured body: one ``langevin_step`` (with ``constraint``, e.g.
+    SETTLE) on the buffers' state and noise, its results copied back into
+    the buffers."""
     buf.copy_from(langevin_step(potential, coeffs, masses, buf.state(), xi=buf.xi,
-                                eta=buf.eta))
+                                eta=buf.eta, constraint=constraint))
 
 
 class GraphedLangevin:
@@ -104,7 +110,7 @@ class GraphedLangevin:
     the warm-up and of the capture (instantiation included)."""
 
     def __init__(self, potential: Callable, coeffs: LangevinCoeffs, masses: torch.Tensor,
-                 state: MDState, generator: torch.Generator):
+                 state: MDState, generator: torch.Generator, constraint=None):
         if not state.positions.is_cuda:
             raise RuntimeError(f"CUDA graphs need the card: the state is on "
                                f"{state.positions.device}")
@@ -112,7 +118,7 @@ class GraphedLangevin:
         self.step_count = state.step
         self.replays = 0
         self.buffers = StepBuffers.from_state(state)
-        body = lambda buf: step_into(buf, potential, coeffs, masses)
+        body = lambda buf: step_into(buf, potential, coeffs, masses, constraint)
 
         # eager warm-up on a side stream, as torch.cuda.graphs recommends: it
         # builds the kernels' library, binds their entry points and fills the

@@ -31,7 +31,8 @@ class MDState:
     forces: torch.Tensor       # [N,3] eV/A at `positions`
     energy: torch.Tensor       # scalar eV
     step: int = 0
-    aux: Any = None            # potential-side carry (cap offsets)
+    aux: Any = None            # potential-side carry: cap offsets, or a tuple
+    #                            (cell buckets, cap offsets) on solvated runs
 
 
 def lift_potential(potential: Callable) -> Callable:
@@ -102,14 +103,19 @@ def temperature(masses, velocities: torch.Tensor) -> torch.Tensor:
 def langevin_step(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Tensor,
                   state: MDState, fixcm: bool = True, xi: torch.Tensor | None = None,
                   eta: torch.Tensor | None = None,
-                  generator: torch.Generator | None = None) -> MDState:
+                  generator: torch.Generator | None = None, constraint=None) -> MDState:
     """One Langevin step (two half-kicks around the position update).
 
     ``potential`` has the stateful protocol (P, aux) -> (E, F, aux);
     ``masses`` is [N] on the positions' device.  Without ``xi``/``eta`` the
     two standard normals are drawn from ``generator``, xi first.  The state
     may carry leading replica axes ([..., N,3]); fixcm then takes each
-    replica's own centre of mass (``langevin_step_batched``)."""
+    replica's own centre of mass (``langevin_step_batched``).
+    ``constraint`` (e.g. ``md.settle.SettleConstraint``, one trajectory
+    only) has ``positions(x_old, x_new)`` and ``velocities(x, v)``: the
+    positions are projected after the drift, with the matching velocity
+    correction (RATTLE), and the velocities after the last kick
+    (``langevin.py:117-149``)."""
     shape = state.positions.shape
     if xi is None or eta is None:
         if generator is None:
@@ -121,10 +127,16 @@ def langevin_step(potential: Callable, coeffs: LangevinCoeffs, masses: torch.Ten
     v = state.velocities
     v = v + (coeffs.c1 * state.forces / m - coeffs.c2 * v + coeffs.c3 * xi - coeffs.c4 * eta)
     x = state.positions + coeffs.dt * v + coeffs.c5 * eta
+    if constraint is not None:
+        x_c = constraint.positions(state.positions, x)
+        v = v + (x_c - x) / coeffs.dt
+        x = x_c
     if fixcm:
         x = x - ((x - state.positions) * m).sum(-2, keepdim=True) / m.sum()
     energy, f_new, aux = potential(x, state.aux)
     v = v + (coeffs.c1 * f_new / m - coeffs.c2 * v + coeffs.c3 * xi - coeffs.c4 * eta)
+    if constraint is not None:
+        v = constraint.velocities(x, v)
     return MDState(positions=x, velocities=v, forces=f_new, energy=energy,
                    step=state.step + 1, aux=aux)
 

@@ -24,13 +24,18 @@ Feature parity:
     by autograd inside the captured step
   * non-finite and temperature-runaway guards (runaway_factor x T) at every
     record interval (utils.py:154-155)
-  * XYZ / DCD trajectories, a metrics CSV and a restart file per record
-    interval; restart from it with the generator's state
-    (simulator.py:86-96, 118-133)
-
-Not ported: the neighbor-list overflow guard (``_check_overflow``), which
-only PME and solvated runs need (ROADMAP items 12 and 13), and the SETTLE
-constraint and record subset of solvated runs (item 13).
+  * XYZ / DCD trajectories (the DCD with the periodic ``cell`` when there
+    is one; ``record_subset`` writes only those atoms, e.g. the protein of a
+    solvated box), a metrics CSV and a restart file per record interval;
+    restart from it with the generator's state (simulator.py:86-96, 118-133)
+  * an optional ``constraint`` (SETTLE rigid water, ``md/settle.py``):
+    waters snapped onto the rigid geometry and velocities projected at the
+    start, the constraint applied inside every step
+  * the overflow guard at every record interval (``_check_overflow``): a
+    neighbour list or a cell-bucket assignment in the carry that overflowed
+    raises, since it drops interactions (the QM/MM potential keeps the flag
+    sticky between records).  JAX's guard reads neighbour lists only
+    (ai2bmd_tpu/md/simulation.py:310-322)
 """
 
 from __future__ import annotations
@@ -48,8 +53,11 @@ from ai2bmd_torch.io import trajectory as traj_io
 from ai2bmd_torch.md import langevin as L
 from ai2bmd_torch.md.constraints import BondRestraint, restraint_energy_forces
 from ai2bmd_torch.md.graphed import GraphedLangevin
+from ai2bmd_torch.ops.neighbors import NeighborList
+from ai2bmd_torch.physics.cellpair import CellState
 from ai2bmd_torch.utils.device import resolve_device
 from ai2bmd_torch.utils.logging_utils import MetricsLog
+from ai2bmd_torch.utils.tree import tree_clone, tree_leaves, tree_map, tree_unflatten
 
 
 class TemperatureRunawayError(RuntimeError):
@@ -72,9 +80,20 @@ class SimulationConfig:
 
 
 def _clone(state: L.MDState) -> L.MDState:
-    aux = None if state.aux is None else state.aux.clone()
     return L.MDState(state.positions.clone(), state.velocities.clone(), state.forces.clone(),
-                     state.energy.clone(), step=state.step, aux=aux)
+                     state.energy.clone(), step=state.step, aux=tree_clone(state.aux))
+
+
+def _overflow_flags(aux):
+    """(kind, 0-d bool tensor) of every neighbour list and cell assignment
+    in a carry."""
+    if isinstance(aux, NeighborList):
+        return [("neighbor list", aux.overflow)]
+    if isinstance(aux, CellState):
+        return [("cell-bucket assignment", aux.overflow)]
+    if isinstance(aux, (tuple, list)):
+        return [flag for part in aux for flag in _overflow_flags(part)]
+    return []
 
 
 class Simulator:
@@ -82,14 +101,19 @@ class Simulator:
 
     ``potential`` is P -> (E, F), or (P, aux) -> (E, F, aux) with
     ``stateful`` (``init_aux`` is then the carry the first forces start
-    from, e.g. cold cap offsets).  ``device`` None means the card (raises
-    without one); the potential must run on the same device."""
+    from, e.g. cold cap offsets, or a tuple of tensors).  ``cell`` (box
+    lengths) goes into the DCD; ``constraint`` (SETTLE) acts inside every
+    step.  ``device`` None means the card (raises without one); the
+    potential must run on the same device."""
 
     def __init__(self, potential: Callable, masses: np.ndarray, numbers: np.ndarray,
                  cfg: SimulationConfig, log_dir: str, prot_name: str,
                  hbond_restraint: BondRestraint | None = None, stateful: bool = False,
-                 init_aux: torch.Tensor | None = None, device=None):
+                 init_aux=None, device=None, cell: np.ndarray | None = None,
+                 constraint=None):
         self.device = resolve_device(device)
+        self.cell = None if cell is None or not np.any(cell) else np.asarray(cell)
+        self.constraint = constraint
         self.cfg = cfg
         self.masses_np = np.asarray(masses, np.float64)
         self.masses = torch.as_tensor(self.masses_np, dtype=torch.float32, device=self.device)
@@ -129,7 +153,8 @@ class Simulator:
         """The state at step 0 (velocities from ``cfg.seed``, then the first
         forces), or the state of a restart file with its generator state."""
         if restart:
-            pos, vel, step, rng_state, extras = traj_io.load_restart(restart)
+            n_leaves = max(1, len(tree_leaves(self._init_aux)))
+            pos, vel, step, rng_state, extras = traj_io.load_restart(restart, n_leaves)
             P = self._tensor(pos)
             if rng_state is not None:
                 self.generator.set_state(rng_state)
@@ -141,7 +166,7 @@ class Simulator:
             if "forces" in extras and has_aux:
                 # a continuous restart: the checkpointed forces, energy and
                 # carry resume the trajectory where it stopped
-                aux = self._tensor(extras["aux"]) if "aux" in extras else None
+                aux = self._carry(extras["aux"]) if "aux" in extras else None
                 forces = self._tensor(extras["forces"])
                 energy = self._tensor(extras.get("energy", 0.0))
             else:
@@ -151,26 +176,41 @@ class Simulator:
         self.generator.manual_seed(self.cfg.seed)
         vel = L.maxwell_boltzmann_velocities(self.generator, self.masses_np, self.cfg.temp_K)
         P = self._tensor(positions)
+        if self.constraint is not None:
+            # waters onto the rigid geometry, and the thermal velocities
+            # projected so that d/dt(constraints) = 0 from the first step
+            P = self.constraint.snap(P)
+            vel = self.constraint.velocities(P, vel)
         energy, forces, aux = self._base_potential(P, self._init_aux)
         return L.MDState(P, vel, forces, energy, step=0, aux=aux)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=self.device)
 
+    def _carry(self, saved):
+        """A restart file's aux leaves in the structure and dtypes of
+        ``init_aux``."""
+        if self._init_aux is None or isinstance(self._init_aux, torch.Tensor):
+            return self._tensor(saved)
+        leaves = saved if isinstance(saved, list) else [saved]
+        return tree_map(lambda tmpl, a: torch.as_tensor(np.asarray(a), dtype=tmpl.dtype,
+                                                        device=self.device),
+                        self._init_aux, tree_unflatten(self._init_aux, leaves))
+
     # ------------------------------------------------------------------
     def advance(self, state: L.MDState, n_steps: int) -> L.MDState:
         """``n_steps`` Langevin steps of ``full_potential`` at the current
         tether.  On the card: replays of the captured step (captured at the
-        first call); on the CPU: eager steps.  Returns a copy that later
-        steps do not change."""
+        first call); on the CPU: eager steps.
+        Returns a copy that later steps do not change."""
         if self.device.type != "cuda":
             for _ in range(n_steps):
                 state = L.langevin_step(self.full_potential, self.coeffs, self.masses, state,
-                                        generator=self.generator)
+                                        generator=self.generator, constraint=self.constraint)
             return state
         if self.graph is None:
             self.graph = GraphedLangevin(self.full_potential, self.coeffs, self.masses, state,
-                                         self.generator)
+                                         self.generator, self.constraint)
         else:
             self.graph.load(state)
         return _clone(self.graph.run(n_steps))
@@ -194,17 +234,19 @@ class Simulator:
         return state
 
     # ------------------------------------------------------------------
-    def _open_writers(self, traj_suffix: str) -> list:
+    def _open_writers(self, traj_suffix: str, numbers: np.ndarray) -> list:
         stem = os.path.join(self.log_dir, f"{self.prot_name}-traj{traj_suffix}")
-        return [traj_io.XYZTrajectory(f"{stem}.xyz", self.numbers),
-                traj_io.DCDTrajectory(f"{stem}.dcd", len(self.numbers), self.cfg.timestep_fs,
-                                      self.cfg.record_per_steps)]
+        return [traj_io.XYZTrajectory(f"{stem}.xyz", numbers),
+                traj_io.DCDTrajectory(f"{stem}.dcd", len(numbers), self.cfg.timestep_fs,
+                                      self.cfg.record_per_steps, cell=self.cell)]
 
-    def run(self, state: L.MDState, n_steps: int, log=print,
+    def run(self, state: L.MDState, n_steps: int, log=print, record_subset=None,
             traj_suffix: str = "") -> L.MDState:
-        """Production run, recording every ``record_per_steps`` steps."""
+        """Production run, recording every ``record_per_steps`` steps (only
+        the atoms of ``record_subset`` when given)."""
         cfg = self.cfg
-        writers = self._open_writers(traj_suffix)
+        numbers = self.numbers if record_subset is None else self.numbers[record_subset]
+        writers = self._open_writers(traj_suffix, numbers)
         metrics = MetricsLog(os.path.join(self.log_dir, f"{self.prot_name}-metrics.csv"))
         restart_path = os.path.join(self.log_dir, f"{self.prot_name}-restart.npz")
         self._set_tether(state.positions, 0.0)
@@ -223,6 +265,7 @@ class Simulator:
                     raise FloatingPointError(
                         f"non-finite energy at step {state.step} (Epot={epot}, Ekin={ekin}); "
                         f"restart from the last checkpoint with a smaller timestep")
+                self._check_overflow(state)
                 temp = self._check_runaway(state)
                 now = time.perf_counter()
                 ms_per_step = 1e3 * (now - t_last) / n
@@ -231,6 +274,8 @@ class Simulator:
                     f"Etot = {epot + ekin:.3f}eV T = {temp:.1f}K")
                 metrics.write(state.step, epot, ekin, temp, ms_per_step)
                 pos = state.positions.cpu().numpy()
+                if record_subset is not None:
+                    pos = pos[record_subset]
                 for w in writers:
                     w.write(pos, energy=epot, step=state.step)
                 traj_io.save_restart(restart_path, state.positions, state.velocities,
@@ -245,6 +290,16 @@ class Simulator:
             log(f"{n_steps} steps in {dt_wall:.2f}s: {1e3 * dt_wall / n_steps:.2f} ms/step, "
                 f"{86.4 * cfg.timestep_fs * n_steps / max(dt_wall, 1e-9) / 1e3:.3f} ns/day")
         return state
+
+    def _check_overflow(self, state: L.MDState) -> None:
+        """Raise on an overflowed neighbour list or cell assignment in the
+        carry: it silently drops interactions."""
+        for kind, flag in _overflow_flags(state.aux):
+            if bool(flag):
+                raise RuntimeError(
+                    f"{kind} overflow at step {state.step}: some atoms are missing from the "
+                    f"pair sum (a neighbour list needs a larger k_neighbors; a cell bucket "
+                    f"a liquid-like density)")
 
     def _check_runaway(self, state: L.MDState) -> float:
         temp = float(L.temperature(self.masses, state.velocities))

@@ -22,6 +22,13 @@ keeps the node side's [B,A,H]-sized activations as usual.  The gradient is
 the same either way.  ``fused_layer`` ignores ``remat``, as the JAX
 full-layer branch returns before :567 (K6 always recomputes).
 
+A model on the card with another activation than silu runs every edge core
+through its plain version, on the card, as the JAX package sends such a
+model to jnp: ``resolve_config`` sets ``plain_edge_core`` once when the
+model is configured and logs the reason; each such call on CUDA tensors adds
+one to ``LAUNCHES["plain_edge_core"]``.  A silu model of shapes the kernels
+do not take (H > 256, S > 8) is refused on the card when it is configured.
+
 Not ported (options of the JAX config that no production path sets):
 ``exact_rejection``, ``edge_dtype``, and the switches ``fused`` and the
 ``*_interpret`` flags, which the tensors' device replaces.
@@ -30,6 +37,7 @@ Not ported (options of the JAX config that no production path sets):
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import os
 
@@ -39,7 +47,8 @@ from torch import nn
 
 from ai2bmd_torch.models import params as PM
 from ai2bmd_torch.ops import vislayer as FL
-from ai2bmd_torch.ops.vismp import _ACTS, cosine_cutoff, edge_core
+from ai2bmd_torch.ops.vismp import (_ACTS, cosine_cutoff, edge_core, plain_activations,
+                                    unsupported_shapes)
 
 __all__ = [
     "ViSNet", "ViSNetConfig", "atomwise_energy", "cosine_cutoff", "dense_graph",
@@ -81,6 +90,13 @@ class ViSNetConfig:
     # card's edge kernels, it gives the edge-core weights no gradient, so a
     # weight that needs one raises: training uses the default.
     remat: bool = False
+    # plain_edge_core=True runs every layer's edge core through its plain
+    # PyTorch version, on the card too (counted in
+    # LAUNCHES["plain_edge_core"]): the explicit route that resolve_config
+    # sets for a model on the card with other activations than silu, as the
+    # JAX package sends them to jnp.  It takes the place of fused_layer and
+    # remat.
+    plain_edge_core: bool = False
 
     @property
     def n_sphere(self) -> int:
@@ -91,9 +107,30 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     """The config a model on ``device`` runs (``ai2bmd_tpu/models/visnet.py:
     102-131``): on the card, ``AI2BMD_FUSED_LAYER=1`` selects the full-layer
     kernels K5/K6; the default there is the edge-core kernels K1-K3.  A
-    config with ``fused_layer`` already set, or a model on the CPU, is
-    returned as it is."""
-    if cfg.fused_layer or torch.device(device).type != "cuda":
+    model on the card with other activations than silu (``ops.vismp.
+    plain_activations``) gets the explicit plain route instead
+    (``plain_edge_core``), with one logged line naming the reason; a silu
+    model of shapes the kernels do not take raises here, once, naming
+    ROADMAP.md Queue 2.  A config with ``fused_layer`` already set, or a
+    model on the CPU, is returned as it is; H not a multiple of the head
+    count raises."""
+    if cfg.hidden_channels % cfg.num_heads:
+        raise ValueError(f"hidden_channels={cfg.hidden_channels} is not a multiple of "
+                         f"num_heads={cfg.num_heads}")
+    if torch.device(device).type != "cuda":
+        return cfg
+    why = plain_activations(cfg.activation, cfg.attn_activation)
+    if why is not None:
+        logging.getLogger(__name__).warning(
+            "ViSNet %d x %d, %d heads: %s; every edge core runs its plain PyTorch version on "
+            "the card (LAUNCHES['plain_edge_core']), as the JAX package runs jnp there",
+            cfg.num_layers, cfg.hidden_channels, cfg.num_heads, why)
+        return dataclasses.replace(cfg, plain_edge_core=True, fused_layer=False, remat=False)
+    shapes = unsupported_shapes(cfg.hidden_channels, cfg.num_heads, cfg.n_sphere)
+    if shapes is not None:
+        raise ValueError(f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} "
+                         f"heads on the card: {shapes}")
+    if cfg.fused_layer:
         return cfg
     if os.environ.get("AI2BMD_FUSED_LAYER") == "1":
         return dataclasses.replace(cfg, fused_layer=True)
@@ -227,7 +264,8 @@ def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConf
     x_agg, vec_agg, df = edge_core(
         q, k, v, vec, edge_attr, d_sh, dist, adj_f, w_dkv, b_dkv,
         lp["s_proj"]["w"], lp["s_proj"]["b"], cfg.cutoff, nh,
-        act=cfg.activation, attn_act=cfg.attn_activation, recompute=cfg.remat, **upd,
+        act=cfg.activation, attn_act=cfg.attn_activation, recompute=cfg.remat,
+        plain=cfg.plain_edge_core, **upd,
     )
     o1, o2, o3 = _linear(lp["o_proj"], x_agg).split(H, dim=-1)
     dx = vec_dot * o2 + o3

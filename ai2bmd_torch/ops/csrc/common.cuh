@@ -74,15 +74,29 @@ __device__ __forceinline__ float dsilu(float z) {
 }
 
 // Sum over the DH lanes of one attention head: a head is DH consecutive
-// channels, one a thread, so a warp holds 32 / DH heads side by side and
-// the butterfly over offsets DH/2 .. 1 stays inside each.  Every lane gets
-// its own head's sum.  The order is fixed, so the result is bitwise
-// repeatable; at DH = 32 it is warp_sum, offset for offset.
+// channels, one a thread.  Up to DH = 32 a warp holds 32 / DH heads side by
+// side and the butterfly over offsets DH/2 .. 1 stays inside each.  A head
+// of 64 channels spans the warp pair (2h, 2h + 1): each warp's butterfly
+// sum goes through shared memory and the pair adds them in warp order,
+// between two block barriers, so every thread of the block must call it
+// together (every caller's row loops are uniform over the block).  Every
+// lane gets its own head's sum.  The order is fixed, so the result is
+// bitwise repeatable; at DH = 32 it is warp_sum, offset for offset.
 template <int DH>
 __device__ __forceinline__ float head_sum(float x) {
-  static_assert(DH == 8 || DH == 16 || DH == 32, "heads of 8, 16 or 32 channels");
+  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64,
+                "heads of 8, 16, 32 or 64 channels");
+  constexpr int LANES = DH < 32 ? DH : 32;
 #pragma unroll
-  for (int o = DH / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  for (int o = LANES / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  if constexpr (DH == 64) {
+    __shared__ float part[32];  // one a warp (blockDim.x <= 1024)
+    const int w = threadIdx.x / 32;
+    __syncthreads();  // every warp has read the last call's partials
+    if (threadIdx.x % 32 == 0) part[w] = x;
+    __syncthreads();
+    x = part[w & ~1] + part[w | 1];
+  }
   return x;
 }
 
@@ -99,6 +113,7 @@ static int with_head_width(int dh, F&& f) {
     case 8: return f(std::integral_constant<int, 8>{});
     case 16: return f(std::integral_constant<int, 16>{});
     case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }

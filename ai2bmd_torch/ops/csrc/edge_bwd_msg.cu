@@ -60,7 +60,7 @@
 // The cross-channel sums (g_d_sh, g_dist) reduce each warp with shuffles and
 // then the warps in a fixed order through shared memory; the head sums (the
 // attention pre-activation a_ij and its cotangent) reduce a head's DH lanes
-// (head_sum<DH>, common.cuh; DH = H / nh, 8, 16 or 32, a template
+// (head_sum<DH>, common.cuh; DH = H / nh, 8, 16, 32 or 64, a template
 // parameter), and K7 keeps a_ij in sPre, one slot a head.
 // The transposed products take W^T ([2H][H], row-major) as their W.
 

@@ -46,8 +46,9 @@
 // rows ran slower).  __launch_bounds__(256, 2) holds the
 // kernel to 128 registers so two blocks share an SM.  The head pool is a
 // shuffle sum over a head's lanes (head_sum<DH>, common.cuh), since a head
-// of DH = 8, 16 or 32 channels is a quarter, half or all of a warp; DH is a
-// template parameter, chosen at launch from H / nh.
+// of DH = 8, 16 or 32 channels is a quarter, half or all of a warp; a head
+// of 64 channels adds its two warps' sums through shared memory between
+// block barriers.  DH is a template parameter, chosen at launch from H / nh.
 // All sums run in a fixed order: the kernel is bitwise repeatable, and K7
 // and K8, which rebuild zdkv, zs and zf with the same product on the same
 // rows, rebuild them bitwise.

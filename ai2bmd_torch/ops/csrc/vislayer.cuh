@@ -126,8 +126,8 @@ static inline cudaError_t launch_node_prologue(const Layer& p, cudaStream_t stre
 }
 
 // Per-centre pieces: one block per (fragment b, centre atom i), one thread
-// per channel; the head of channel t is t / DH (DH = H / nh channels, 8, 16
-// or 32, a template parameter of the kernels that sum a head).  A centre
+// per channel; the head of channel t is t / DH (DH = H / nh channels, 8, 16,
+// 32 or 64, a template parameter of the kernels that sum a head).  A centre
 // walks its sources in chunks of at most ECHUNK rows (common.cuh), so its
 // shared memory follows the chunk and not A.
 // sGate[r] = cutoff(dist_ir) * adj_ir for the n rows of the chunk that

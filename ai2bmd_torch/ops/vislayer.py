@@ -181,8 +181,8 @@ _ARGS = [ctypes.POINTER(ctypes.c_void_p), _I, _I, _I, _I, _I, _F, _I, _I]
 def _inputs(x, vec, edge, d_sh, dist, adj, weights, nh):
     """Check the layer's inputs for the kernels.  Returns (B, A, H, S) and the
     inputs keyed by their ``Layer`` field; the head pool is checked and left
-    out (the kernels sum each head's H / nh lanes of a warp instead, an
-    instantiation for 8, 16 or 32 channels a head)."""
+    out (the kernels sum each head's H / nh lanes instead, an instantiation
+    for 8, 16, 32 or 64 channels a head)."""
     B, A, H = x.shape
     S = vec.shape[1]
     check_layer_shapes(A, H, S, nh)

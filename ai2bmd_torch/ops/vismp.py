@@ -198,25 +198,45 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
 # full-layer kernels (K5/K6) walks a centre's sources in chunks of 48 rows
 # (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up to
 # EDGE_MAXA: a fragment or a whole molecule (abd, the largest bundled
-# protein, is 752 slots).  A head's sum takes its DH = H / nh lanes of a
-# warp, with DH a template parameter of 8, 16 or 32 (``head_sum``).  The
-# launchers check the same limits.
+# protein, is 752 slots).  A head's sum takes its DH = H / nh lanes, with
+# DH a template parameter of 8, 16, 32 or 64 (``head_sum``; a head of 64
+# channels spans two warps).  The launchers check the same limits.
 EDGE_MAXA = 1024
-HEAD_WIDTHS = (8, 16, 32)
-# what the kernels still refuse, where the JAX package's Pallas kernels or
-# its jnp fallback run
-UNSUPPORTED = "ROADMAP.md, Queue 3 entry 3"
+HEAD_WIDTHS = (8, 16, 32, 64)
+# the shapes the kernels do not take yet, where the JAX package's Pallas
+# kernels run: refused on the card
+UNSUPPORTED = "ROADMAP.md, Queue 2: domain still to extend"
+SILU = ("silu", "swish")
+
+
+def plain_activations(act: str, attn_act: str):
+    """Why a model with these activations runs its edge core through the
+    plain version, or None when the kernels compute them: the JAX dispatch's
+    ``use_fused`` sends every activation but silu to jnp
+    (``ai2bmd_tpu/models/visnet.py:384-390``), so the plain edge core is the
+    faithful port there, on the card too (``models.visnet.resolve_config``)."""
+    if act not in SILU or attn_act not in SILU:
+        return f"activations {act!r}/{attn_act!r}: the kernels compute silu"
+    return None
+
+
+def unsupported_shapes(H: int, nh: int, S: int):
+    """Why the kernels cannot take a model of H channels, nh heads and S
+    spherical components, or None when they can."""
+    if H % nh or H // nh not in HEAD_WIDTHS or H % 32 or H > 256 or S > 8:
+        return (f"H={H}, nh={nh}, S={S}: the kernels take heads of 8, 16, 32 or 64 channels, "
+                f"H a multiple of 32 up to 256 and S <= 8 ({UNSUPPORTED})")
+    return None
 
 
 def check_shapes(A, H, S, nh, kernels: str = "edge"):
     """The shapes the edge kernels (K1-K3, K7, K8) and the full-layer kernels
-    take; anything else raises (the card has no plain route)."""
-    if (H % nh or H // nh not in HEAD_WIDTHS or H % 32 or H > 256 or A > EDGE_MAXA or A % 8
-            or S > 8):
+    take; anything else raises (the card has no plain route for them)."""
+    if unsupported_shapes(H, nh, S) or A > EDGE_MAXA or A % 8:
         raise ValueError(
-            f"{kernels} kernels take heads of 8, 16 or 32 channels, H a multiple of 32 up "
+            f"{kernels} kernels take heads of 8, 16, 32 or 64 channels, H a multiple of 32 up "
             f"to 256, A a multiple of 8 up to {EDGE_MAXA}, S <= 8; got H={H}, nh={nh}, A={A}, "
-            f"S={S} (wider heads, H > 256 and S > 8 on the card: {UNSUPPORTED})"
+            f"S={S} (H > 256 and S > 8 on the card: {UNSUPPORTED})"
         )
 
 
@@ -479,7 +499,8 @@ class FusedVisMP(torch.autograd.Function):
 
 def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
               cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
-              act: str = "silu", attn_act: str = "silu", recompute: bool = False):
+              act: str = "silu", attn_act: str = "silu", recompute: bool = False,
+              plain: bool = False):
     """The one entry the model calls: (x_agg, vec_agg, df or None).
 
     CPU tensors take the plain forward and autograd through it; CUDA tensors
@@ -487,18 +508,22 @@ def edge_core(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     ``recompute`` both take ``FusedVisMP`` on its recompute route (K1 and
     K7/K8 on the card, their plain versions on the CPU).  ``FusedVisMP``
     gives the weights no gradient, so it raises where one needs it.
-    On the card there is no other route: a batch the kernels cannot take
-    (``check_shapes``: A not a multiple of 8 or above EDGE_MAXA, heads not
-    of 8, 16 or 32 channels, H > 256, S > 8) or another activation than silu
-    raises, naming ROADMAP.md Queue 3, where the JAX package's per-layer
-    path falls back to jnp for such a batch
-    (``ai2bmd_tpu/models/visnet.py:386-390``)."""
-    if not recompute and not route(q):
+    ``plain`` is the explicit route of a model with other activations than
+    silu (``ViSNetConfig.plain_edge_core``, set by ``resolve_config``, as
+    the JAX package sends them to jnp): the plain forward and autograd on
+    any device, each call on CUDA tensors counted in
+    ``LAUNCHES["plain_edge_core"]`` (``recompute`` has no effect there).
+    Otherwise a batch the kernels cannot take (``check_shapes``) or another
+    activation than silu raises on the card."""
+    if plain or (not recompute and not route(q)):
+        if plain and q.is_cuda:
+            LAUNCHES["plain_edge_core"] += 1
         return edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
                               w_s, b_s, cutoff, nh, wt, wsrc, w_f, b_f, act, attn_act)[:3]
-    if act not in ("silu", "swish") or attn_act not in ("silu", "swish"):
-        raise ValueError(f"the edge kernels compute silu, not {act!r}/{attn_act!r} "
-                         f"(other activations on the card: {UNSUPPORTED})")
+    if act not in SILU or attn_act not in SILU:
+        raise ValueError(f"the edge kernels compute silu, not {act!r}/{attn_act!r}; a model "
+                         f"with other activations takes plain=True on the card "
+                         f"(ViSNetConfig.plain_edge_core, set by models.visnet.resolve_config)")
     if torch.is_grad_enabled() and any(
             w is not None and w.requires_grad for w in (w_dkv, b_dkv, w_s, b_s, w_f, b_f)):
         raise ValueError("the edge kernels give the edge-core weights no gradient; train "

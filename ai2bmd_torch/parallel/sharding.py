@@ -10,7 +10,7 @@ generator of its own, so it follows the trajectory it would follow alone.
 
 Not ported yet: the ``mesh`` (replicas over several cards, ROADMAP Queue 1
 item 17), ``EnsembleSimulation`` (item 17) and ``SolvatedReplicaEnsemble``
-(item 13).
+(the item 13 remainder, item 13b).
 """
 
 from __future__ import annotations

@@ -18,18 +18,23 @@ from ai2bmd_torch.frag import runtime as RT
 from ai2bmd_torch.host import FragmentIndex, Protein, build_fragment_index
 from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig, energy_and_forces, resolve_config
 from ai2bmd_torch.physics.nonbonded import NonbondedParams, nonbonded_energy_forces
+from ai2bmd_torch.physics.pme import PMEParams, pme_energy_forces
 from ai2bmd_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class FragmentPotential:
-    """Divide-and-conquer ML potential + the dense "mm" long-range term."""
+    """Divide-and-conquer ML potential + a classical long-range term: "mm"
+    (LJ + bare Coulomb over the exclusion complement, ``nb``) or "pme"
+    (smooth PME over the periodic cell of the input's CRYST1 record,
+    ``pme``; dense [N,N] pair masks, no neighbour list)."""
 
     module: ViSNet
     cfg: ViSNetConfig
     rt: RT.FragmentRuntime
-    nb: NonbondedParams
+    nb: NonbondedParams | None
     fi: FragmentIndex
+    pme: PMEParams | None = None
 
     @classmethod
     def build(cls, prot: Protein, module: ViSNet, cfg: ViSNetConfig,
@@ -38,10 +43,7 @@ class FragmentPotential:
         """``device`` None means the card (raises without one); the module is
         moved there.  ``cfg`` goes through
         ``resolve_config`` for that device."""
-        if longrange == "pme":
-            raise NotImplementedError(
-                "longrange='pme' is not ported yet (ROADMAP.md, Queue 1 item 12)")
-        if longrange != "mm":
+        if longrange not in ("mm", "pme"):
             raise ValueError(f"unknown long-range mode {longrange!r}")
         device = resolve_device(device)
         module = module.to(device)
@@ -49,12 +51,21 @@ class FragmentPotential:
         cfg = resolve_config(cfg, device)
         fi = build_fragment_index(prot.atoms)
         rt = RT.FragmentRuntime.build(fi, opt_iters=opt_iters, device=device, dtype=dtype)
-        nb = NonbondedParams.build(prot, fi.exclusion_mask(), device, dtype)
-        return cls(module=module, cfg=cfg, rt=rt, nb=nb, fi=fi)
+        nb = pme = None
+        if longrange == "mm":
+            nb = NonbondedParams.build(prot, fi.exclusion_mask(), device, dtype)
+        else:
+            pme = PMEParams.build(prot, fi.exclusion_pairs, device=device, dtype=dtype)
+        return cls(module=module, cfg=cfg, rt=rt, nb=nb, fi=fi, pme=pme)
+
+    def _longrange(self, P: torch.Tensor):
+        if self.nb is not None:
+            return nonbonded_energy_forces(self.nb, P)
+        return pme_energy_forces(self.pme, P)
 
     def energy_forces(self, P: torch.Tensor):
         e_b, f_b = RT.fragment_energy_forces(self.module.params(), self.rt, P, self.cfg)
-        e_nb, f_nb = nonbonded_energy_forces(self.nb, P)
+        e_nb, f_nb = self._longrange(P)
         return e_b + e_nb, f_b + f_nb
 
     # -- warm-started stateful variant (aux = cap offsets) -------------------
@@ -69,7 +80,7 @@ class FragmentPotential:
                                warm_iters: int = 1):
         e_b, f_b, aux = RT.fragment_energy_forces_warm(
             self.module.params(), self.rt, P, self.cfg, aux, warm_iters=warm_iters)
-        e_nb, f_nb = nonbonded_energy_forces(self.nb, P)
+        e_nb, f_nb = self._longrange(P)
         return e_b + e_nb, f_b + f_nb, aux
 
 

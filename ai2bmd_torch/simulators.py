@@ -1,19 +1,26 @@
 """High-level simulation assembly: the reference simulator API.
 
-Port of ``ai2bmd_tpu/simulators.py:31-259`` for the vacuum paths: the
-reference's NoSolventSimulator (src/AIMD/simulator.py:295-313), fragment-mode
-MD of the capped protein with the "mm" long range, warm-started caps (or,
+Port of ``ai2bmd_tpu/simulators.py:86-259``: the reference's
+NoSolventSimulator (src/AIMD/simulator.py:295-313), fragment-mode MD of the
+capped protein with the "mm" or "pme" long range, warm-started caps (or,
 with ``warm_caps=False``, a cold cap solve every step) and an optional
-H-bond restraint; and whole-molecule mode (``mode="visnet"``,
+H-bond restraint; whole-molecule mode (``mode="visnet"``,
 simulator.py:74-79), the molecule straight through ViSNet with a stateless
-potential.  A solvated input with ``solvent=False`` runs its protein alone
-in vacuum, as the JAX package does.  On the card unless the caller passes
-``device="cpu"``; the weights come from a checkpoint (``load_model``) or a
-random initialization.
+potential; and the SolventSimulator (simulator.py:226-292): a solvated input
+(waters or ions; ``solvent=None`` detects them) runs subtractive QM/MM over
+the whole periodic box (``physics/qmmm.py``, the ff19SB engine), the QM
+side being the same protein potential, with optional rigid TIP3P water
+(``rigid_water``, SETTLE) and a trajectory of the protein only
+(``write_solvent=False``).  ``solvent=False`` runs a solvated input's
+protein alone in vacuum, as the JAX package does.  On the card unless the
+caller passes ``device="cpu"``; the weights come from a checkpoint
+(``load_model``) or a random initialization.
 
-Refused, each naming the ROADMAP item that ports it: ``longrange="pme"``
-(item 12, raised by ``FragmentPotential.build``), explicit solvent, which a
-solvated input gets unless ``solvent=False`` (item 13).
+Refused, naming the ROADMAP item that ports them: ``mm_backend="amoeba"``
+(Queue 1 item 15) and ``polarizable_mm`` (the item 13 remainder, item 13b).
+Not ported: the benchmark stabilizers of ``ai2bmd_tpu/simulators.py:41-83``
+(``AI2BMD_RANDOM_HEAD_SCALE``, ``AI2BMD_BENCH_PROT_MM``); ``bench_torch.py
+--solvated`` applies them in the script.
 """
 
 from __future__ import annotations
@@ -26,10 +33,12 @@ import torch
 
 from ai2bmd_torch.host import Protein, load_protein
 from ai2bmd_torch.md.constraints import BondRestraint
+from ai2bmd_torch.md.settle import SettleConstraint
 from ai2bmd_torch.md.simulation import SimulationConfig, Simulator
 from ai2bmd_torch.models.checkpoint import load_checkpoint, load_converted
 from ai2bmd_torch.models.params import init_params
 from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+from ai2bmd_torch.physics.qmmm import QMMMPotential
 from ai2bmd_torch.potentials import FragmentPotential, ViSNetPotential
 from ai2bmd_torch.utils.device import resolve_device
 
@@ -52,20 +61,27 @@ def load_model(ckpt_path: str | None, cfg: ViSNetConfig | None = None, seed: int
 
 @dataclasses.dataclass
 class ProteinSimulation:
-    """One assembled simulation: protein + potential + driver."""
+    """One assembled simulation: protein + potential + driver.  ``prot`` is
+    the simulated system (the whole box on a solvated run), ``potential``
+    the protein's ML potential, and ``qmmm`` the QM/MM potential the
+    Simulator steps on a solvated run (None in vacuum)."""
 
     prot: Protein
     sim: Simulator
     potential: FragmentPotential | ViSNetPotential
     log_dir: str
     prot_name: str
+    qmmm: QMMMPotential | None = None
+    record_subset: np.ndarray | None = None
 
     @classmethod
     def from_pdb(cls, prot_file: str, log_dir: str | None = None, mode: str = "fragment",
                  longrange: str = "mm", solvent: bool | None = None,
-                 ckpt_path: str | None = None, model_cfg: ViSNetConfig | None = None,
-                 sim_cfg: SimulationConfig | None = None, opt_iters: int = 10,
-                 warm_caps: bool = True, device=None) -> "ProteinSimulation":
+                 write_solvent: bool = True, ckpt_path: str | None = None,
+                 model_cfg: ViSNetConfig | None = None, sim_cfg: SimulationConfig | None = None,
+                 opt_iters: int = 10, warm_caps: bool = True, polarizable_mm: bool = False,
+                 rigid_water: bool = False, mm_backend: str = "ff19sb",
+                 device=None) -> "ProteinSimulation":
         """``mode`` "fragment" or "visnet" (whole molecule, which ignores
         ``longrange`` as the JAX package does); ``solvent`` None means "the
         input's waters and ions, if it has any", and False runs a solvated
@@ -73,9 +89,10 @@ class ProteinSimulation:
         121-129``); ``warm_caps`` False steps the stateless fragment
         potential, which places the caps and solves them cold with
         ``opt_iters`` L-BFGS iterations every step (:209-234; fragment mode
-        only).  On the card that step is captured as one CUDA graph too, as
-        the warm step is.  ``device`` None means the card (raises without
-        one)."""
+        only).  A solvated run takes ``write_solvent``, ``rigid_water`` and
+        ``mm_backend`` ("ff19sb"); its pairs take ``QMMMPotential.build``'s
+        "auto" route.  On the card every step is one replay of a captured
+        CUDA graph.  ``device`` None means the card (raises without one)."""
         device = resolve_device(device)
         prot_name = os.path.basename(prot_file).rsplit(".", 1)[0]
         log_dir = log_dir or os.path.join(os.getcwd(), f"Logs-{prot_name}")
@@ -89,10 +106,14 @@ class ProteinSimulation:
             solvent = has_solvent
         if solvent and not has_solvent:
             raise ValueError("solvent=True but the input has no water/ions")
-        if solvent:
+        if solvent and mm_backend == "amoeba":
             raise NotImplementedError(
-                f"{prot_file} holds water or ions: explicit-solvent QM/MM is not ported yet "
-                f"(ROADMAP.md, Queue 1 item 13); solvent=False runs its protein in vacuum")
+                "mm_backend='amoeba' (the polarizable AMOEBA solvent) is not ported yet "
+                "(ROADMAP.md, Queue 1 item 15)")
+        if solvent and polarizable_mm:
+            raise NotImplementedError(
+                "polarizable_mm (the induced-dipole hybrid of physics/polarization.py) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 13b)")
         prot = full.select(qm_idx) if has_solvent else full
 
         params, cfg = load_model(ckpt_path, model_cfg)
@@ -100,27 +121,45 @@ class ProteinSimulation:
         hbond = None
         if sim_cfg.hydrogen_constraints:
             hbond = BondRestraint.find_hydrogen_bonds(prot.atoms, device=device)
-        common = dict(masses=prot.masses, numbers=prot.numbers, cfg=sim_cfg, log_dir=log_dir,
-                      prot_name=prot_name, hbond_restraint=hbond, device=device)
         if mode == "visnet":
-            # no caps, so no carry: the Simulator lifts the stateless
-            # potential (the JAX package's use_warm is fragment mode only)
             pot = ViSNetPotential.build(prot.numbers, module, cfg, device=device)
-            sim = Simulator(potential=pot.energy_forces, **common)
-            return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
-
-        pot = FragmentPotential.build(prot, module, cfg, longrange=longrange,
-                                      opt_iters=opt_iters, device=device)
-        if not warm_caps:
-            sim = Simulator(potential=pot.energy_forces, **common)
-            return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
+        else:
+            pot = FragmentPotential.build(prot, module, cfg, longrange=longrange,
+                                          opt_iters=opt_iters, device=device)
         # warm-started caps: the cap offsets ride in the integrator's carry,
         # cold-started once here (the JAX package's choice, simulators.py:
         # 154-163: warm-1 sits within the reference's own cold protocol)
-        P0 = torch.as_tensor(np.asarray(prot.positions), dtype=torch.float32, device=device)
-        sim = Simulator(
-            potential=lambda P, aux: pot.stateful_energy_forces(P, aux, warm_iters=WARM_ITERS),
-            stateful=True, init_aux=pot.init_cap_delta(P0), **common)
+        use_warm = warm_caps and mode == "fragment"
+        qm, qm_aux0 = pot.energy_forces, None
+        if use_warm:
+            P0 = torch.as_tensor(np.asarray(prot.positions), dtype=torch.float32, device=device)
+            qm_aux0 = pot.init_cap_delta(P0)
+            qm = lambda P, aux: pot.stateful_energy_forces(P, aux, warm_iters=WARM_ITERS)
+        common = dict(cfg=sim_cfg, log_dir=log_dir, prot_name=prot_name, hbond_restraint=hbond,
+                      device=device)
+
+        if solvent:
+            # the SolventSimulator: subtractive QM/MM over the whole box
+            qmmm = QMMMPotential.build(
+                full.atoms, qm_energy_forces=None if use_warm else qm,
+                qm_stateful=qm if use_warm else None, qm_init_aux=qm_aux0,
+                mm_backend=mm_backend, device=device)
+            P_full = torch.as_tensor(full.positions, dtype=torch.float32, device=device)
+            # rigid TIP3P (SETTLE) removes the O-H stretches, so the solvent
+            # steps stably at 2 fs
+            constraint = SettleConstraint.from_topology(qmmm.top, device) if rigid_water else None
+            sim = Simulator(potential=qmmm, masses=full.masses, numbers=full.numbers,
+                            stateful=True, init_aux=qmmm.init_aux(P_full), cell=full.cell,
+                            constraint=constraint, **common)
+            return cls(prot=full, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name,
+                       qmmm=qmmm, record_subset=None if write_solvent else qm_idx)
+
+        common.update(masses=prot.masses, numbers=prot.numbers)
+        if use_warm:
+            sim = Simulator(potential=qm, stateful=True, init_aux=qm_aux0, **common)
+        else:
+            # no carry: the Simulator lifts the stateless potential
+            sim = Simulator(potential=qm, **common)
         return cls(prot=prot, sim=sim, potential=pot, log_dir=log_dir, prot_name=prot_name)
 
     def simulate(self, simulation_steps: int, restart: bool = False, log=print):
@@ -134,7 +173,7 @@ class ProteinSimulation:
             state = self.sim.pre_equilibrate(state, log=log)
         log(("Re-start" if restart else "Start") + f" simulation for {simulation_steps} steps")
         state = self.sim.run(
-            state, simulation_steps, log=log,
+            state, simulation_steps, log=log, record_subset=self.record_subset,
             # a restarted run writes {prot}-traj-restart.* instead of
             # truncating the original trajectory (reference simulator.py:119)
             traj_suffix="-restart" if restart else "")

@@ -47,9 +47,9 @@ is not printed):
      ms, bound and share) and the chunked passes' occupancy and grid fill;
      K5 and K6 (both `last`) at the same shapes, before them (the profiler's
      device times fail for the rest of a process from K7 at A = 752 on);
-     and K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 at heads of 8 and
-     16 channels (H = 32 and 64 with 4 heads, B x A = 4 x 40 and 1 x 176)
-     against their plain versions and for bitwise repeats.
+     and K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 at heads of 8, 16
+     and 64 channels (H = 32, 64 and 256 with 4 heads, B x A = 4 x 40 and
+     1 x 176) against their plain versions and for bitwise repeats.
      `--edge-hash` prints only the sha256 of K1, K2, K3, K7 and K8's outputs
      on phase 3's fixed fragment-shape inputs, and `--layer-hash` those of
      K5 and K6, so that the script can be run against another commit's
@@ -130,11 +130,31 @@ is not printed):
      steps, ms/step beside phase 4's; (c) `python -m ai2bmd_torch
      --no-solvent` on the solvated Chignolin box, 20 steps, the protein's
      175 atoms in its DCD
-  9. one JSON line of kernel results, the card's name and power limit, and
+  9. the solvated slice at 9 x 256: (a) FragmentPotential(longrange="pme")
+     on Chignolin's CRYST1 cell: launches of one evaluation, step 0 against
+     the CPU float64 run, the graphed step against eager steps, ms/step
+     beside phase 4's "mm"; (b) ProteinSimulation.from_pdb on the solvated
+     Chignolin box (17,882 atoms, subtractive QM/MM, cell-bucket pairs,
+     PME): build seconds, step 0 against the port on the CPU in float64
+     (solvent atoms within 1e-3 eV/A, protein atoms within the float32
+     spread of the subtractive combiner, 2e-2), launches of one evaluation,
+     each part's device ms alone (QM, cell assignment, pairs, PME with the
+     bonded terms, the protein MM), 5 graphed replays against eager steps,
+     20 replays timed, a profiled window, peak memory; again with
+     rigid_water=True (SETTLE's constraint violation after the steps); (c)
+     the CLI on the box with and without --no-write-solvent (frames of
+     17,882 and 175 atoms, steady ms/step); (d) a model of 4 heads of 64
+     channels (2 x 256) through the kernels K1-K3, beside 8 heads of 32,
+     and one with another activation than silu (tanh) through the explicit
+     plain route: its log line, LAUNCHES["plain_edge_core"] > 0 there (and
+     0 after every other phase); each with step 0 against the CPU float64
+     run, 3 graphed steps and the ms of 20 replays
+  10. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
-first check of a kernel change).  Phase 5 runs eagerly (no graph).  Imports no JAX.  The ms/step figures it
+first check of a kernel change); `--solvated-only` runs phase 9 alone after
+the build, without it.  Phase 5 runs eagerly (no graph).  Imports no JAX.  The ms/step figures it
 prints are smoke figures, not a benchmark.
 """
 
@@ -991,14 +1011,15 @@ def check_whole_layer_kernels(torch, dev, whole):
 
 # the head widths other than 32 channels that the kernels are instantiated
 # for, at the widths that reach them: the CLI's tiny preset (H = 32, 4
-# heads) and H = 64 with 4 heads; at a fragment shape and a whole molecule
-HEAD_CASES = ((32, 4), (64, 4))
+# heads), H = 64 with 4 heads and H = 256 with 4 heads of 64 channels (two
+# warps a head); at a fragment shape and a whole molecule
+HEAD_CASES = ((32, 4), (64, 4), (256, 4))
 HEAD_SHAPES = ((4, 40), (1, 176))
 
 
 def check_head_widths(torch, dev, results):
     """K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 (both ``last``) at
-    heads of 8 and 16 channels (HEAD_CASES, HEAD_SHAPES): against their
+    heads of 8, 16 and 64 channels (HEAD_CASES, HEAD_SHAPES): against their
     plain versions within EDGE_TOL and bitwise repeatable.  Each kernel's
     largest error goes to results[kernel]["head_widths"]["DH=.."]."""
     from ai2bmd_torch.models.params import init_params
@@ -2075,6 +2096,379 @@ def run_faults(torch, dev, card, root, warm_ms):
     return cold_ms
 
 
+# Phase 9: the solvated slice.  The float32 subtractive combiner cancels two
+# large MM sums on the protein atoms only to ~1e-2 eV/A in both packages (the
+# JAX package's own float32 spread on this box, ROADMAP.md Queue 3): protein
+# atoms are held to that spread, solvent atoms to FORCE_LIMIT.
+PROTEIN_SPREAD = 2e-2         # eV/A
+JAX_PROTEIN_F32 = 1.27e-2     # eV/A: the JAX package's float32 against float64 on this box
+SOLV_DT_FS = 0.05             # random weights: short in simulated time, as phase 6
+SOLV_STEPS = 5                # replays held against eager steps
+SETTLE_LIMIT = 1e-4           # A: rigid-water constraint violation after the steps
+SOLV_CLI_STEPS, SOLV_CLI_RECORD = 30, 10
+WIDE_HEADS = dict(num_layers=2, hidden_channels=256, num_heads=4)   # 4 heads of 64 channels
+OTHER_ACT = dict(num_layers=2, hidden_channels=256, activation="tanh")   # the plain route
+EIGHT_HEADS = dict(num_layers=2, hidden_channels=256)   # 8 heads of 32: 9(d)'s yardstick
+ROUTE_TIMED = 20
+QM_NAMES = ("edge_", "cap_grad", "vislayer")
+
+
+def solvated_reference(torch, ps, P, cfg, params):
+    """The port on the CPU in float64 at the card's state: QMMMPotential of
+    the whole box (plain versions), the QM side from the card's cold cap
+    offsets with one warm iteration.  Returns (E, F, seconds)."""
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.physics.qmmm import QMMMPotential
+    from ai2bmd_torch.potentials import FragmentPotential
+    from ai2bmd_torch.simulators import WARM_ITERS
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    prot = ps.prot.select(ps.prot.protein_indices())
+    pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
+                                    device="cpu")
+    qmmm64 = QMMMPotential.build(
+        ps.prot.atoms, qm_stateful=lambda Pq, a: pot64.stateful_energy_forces(
+            Pq, a, warm_iters=WARM_ITERS),
+        qm_init_aux=ps.sim._init_aux[1].to(cpu, torch.float64), device="cpu",
+        dtype=torch.float64)
+    P64 = P.to(cpu, torch.float64)
+    e, f, _ = qmmm64(P64, qmmm64.init_aux(P64))
+    return e, f, time.perf_counter() - t0
+
+
+def graph_ms(torch, fn, reps=10):
+    """ms of fn() captured alone as a CUDA graph (after two eager calls on a
+    side stream), by CUDA events over reps replays: the part's device time
+    without the host's issue time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(torch, graph.replay, reps)
+    del graph
+    return ms
+
+
+def run_pme_fragment(torch, dev, prot, card, mm_graphed_ms):
+    """Phase 9a: FragmentPotential(longrange="pme") on Chignolin's CRYST1
+    cell at 9 x 256: launches of one evaluation, step 0 against the CPU
+    float64 run from the same cold caps, the graphed step (replays against
+    eager steps), ms/step beside phase 4's "mm" long range."""
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    cfg = ViSNetConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange="pme", device=dev)
+    need(pot.pme is not None and pot.nb is None, "longrange='pme' built no PME")
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    aux0 = pot.init_cap_delta(P)
+    torch.cuda.synchronize()
+    reset_launches()
+    e0, f0, aux1 = pot.stateful_energy_forces(P, aux0)
+    torch.cuda.synchronize()
+    launches = {n: LAUNCHES[n] for n in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")}
+    need(all(v > 0 for v in launches.values()), f"PME evaluation launches {launches}")
+    cpu = torch.device("cpu")
+    pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
+                                    longrange="pme", device="cpu")
+    e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
+                                                   aux0.to(cpu, torch.float64))
+    dF = float((f0.to(cpu, torch.float64) - f_ref).abs().max())
+    print(f"  (a) FragmentPotential(longrange='pme'), cell {prot.cell.tolist()}, mesh "
+          f"{pot.pme.grid}: one evaluation launches {launches}; step 0 vs CPU float64 |dE| "
+          f"{abs(float(e0) - float(e_ref)):.3e} eV, max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT})")
+    need(dF <= FORCE_LIMIT, f"PME step-0 forces differ from float64 by {dF:.3e}")
+    masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
+    coeffs = L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = L.MDState(P, L.maxwell_boltzmann_velocities(gen, prot.masses, 300.0), f0, e0,
+                      aux=aux1)
+    g = drive_graphed(torch, pot.stateful_energy_forces, coeffs, masses, state, gen, card,
+                      ("cap_grad_kernel", *EDGE_KERNELS))
+    print(f"  (a) graphed 'pme' {g['ms_step']:.3f} ms/step (events {g['ms_events']:.3f}) beside "
+          f"phase 4's 'mm' {mm_graphed_ms:.3f} ({card})")
+    return launches, g
+
+
+def run_solvated_sim(torch, dev, card, root, rigid: bool):
+    """Phase 9b: ProteinSimulation.from_pdb on the solvated Chignolin box at
+    9 x 256 (rigid_water as given): build seconds, step 0 against the port on
+    the CPU in float64 (solvent and protein atoms apart), SOLV_STEPS graphed
+    replays against eager steps, TIMED_STEPS replays timed, a profiled
+    window, the QM and MM parts' device ms alone, peak memory."""
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.md.simulation import SimulationConfig
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.physics import cellpair as CP
+    from ai2bmd_torch.physics import mm as MM
+    from ai2bmd_torch.simulators import ProteinSimulation, load_model
+
+    tag = "rigid water" if rigid else "flexible water"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim_cfg = SimulationConfig(timestep_fs=SOLV_DT_FS, preeq_steps=0, record_per_steps=RECORD)
+    ps = ProteinSimulation.from_pdb(SOLVATED, log_dir=os.path.join(root, "solvated"),
+                                    model_cfg=ViSNetConfig(), sim_cfg=sim_cfg, rigid_water=rigid)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    sim, qmmm = ps.sim, ps.qmmm
+    need(qmmm is not None and qmmm.backend == "cellpair",
+         f"solvated build: backend {getattr(qmmm, 'backend', None)}")
+    need((sim.constraint is not None) == rigid, "rigid_water did not set SETTLE")
+    state = sim.initial_state(ps.prot.positions)
+    torch.cuda.synchronize()
+    prot_idx = qmmm.sel.cpu()
+    solvent = torch.ones(qmmm.n_atoms, dtype=torch.bool)
+    solvent[prot_idx] = False
+    out = dict(build_s=t_build)
+    print(f"  (b) {tag}: from_pdb {t_build:.1f} s: {qmmm.n_atoms} atoms, {len(prot_idx)} in the "
+          f"QM region, cells {qmmm.cp.nc3} x occ {qmmm.cp.occ} ({qmmm.cp.n_cells} cells, "
+          f"{CP.default_chunk(qmmm.cp, dev)} a chunk), PME mesh {qmmm.mm_full.grid}")
+    if not rigid:
+        cfg, params = ps.potential.cfg, load_model(None, ViSNetConfig())[0]
+        e_ref, f_ref, secs = solvated_reference(torch, ps, state.positions, cfg, params)
+        dF = (state.forces.cpu().double() - f_ref).abs().max(-1).values
+        dF_solv, dF_prot = float(dF[solvent].max()), float(dF[~solvent].max())
+        dE = abs(float(state.energy) - float(e_ref))
+        print(f"  (b) step 0 vs the port on the CPU in float64 ({secs:.1f} s): solvent atoms "
+              f"max|dF| {dF_solv:.3e} eV/A (limit {FORCE_LIMIT}); protein atoms max|dF| "
+              f"{dF_prot:.3e} eV/A (limit {PROTEIN_SPREAD}, the float32 spread of the "
+              f"subtractive combiner; the JAX package's own float32 figure on this box "
+              f"{JAX_PROTEIN_F32}); |dE| {dE:.3e} eV of |E| {abs(float(e_ref)):.1f}; max|F| "
+              f"{float(f_ref.abs().max()):.2f} eV/A")
+        need(dF_solv <= FORCE_LIMIT, f"solvent forces differ from float64 by {dF_solv:.3e}")
+        need(dF_prot <= PROTEIN_SPREAD, f"protein forces differ from float64 by {dF_prot:.3e}")
+        out.update(dF_solvent=dF_solv, dF_protein=dF_prot, dE=dE)
+        P, (cs, qa) = state.positions, state.aux
+        reset_launches()
+        qmmm(P, state.aux)
+        torch.cuda.synchronize()
+        out["launches"] = {n: LAUNCHES[n] for n in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd",
+                                                    "cap_grad")}
+        need(all(v > 0 for v in out["launches"].values()),
+             f"solvated evaluation launches {out['launches']}")
+        P_prot = P[qmmm.sel]
+        parts = {name: graph_ms(torch, fn) for name, fn in {
+            "QM (ViSNet fragments, caps)": lambda: qmmm.qm_energy_forces(P_prot, qa),
+            "MM cell assign": lambda: CP.assign(qmmm.cp, P),
+            "MM pairs": lambda: CP.pair_energy_forces(qmmm.cp, cs, P, qmmm.mm_full.charge,
+                                                      qmmm.mm_full.sigma, qmmm.mm_full.eps,
+                                                      qmmm.mm_full.beta),
+            "MM PME + bonded + exclusions": lambda: MM.smooth_energy_forces(qmmm.mm_full, P),
+            "MM protein alone": lambda: qmmm.mm_prot_energy_forces(P_prot),
+        }.items()}
+        out["parts_ms"] = parts
+        print(f"  (b) one evaluation launches {out['launches']}; each part captured alone as a "
+              f"CUDA graph, ms a replay (events): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in parts.items())
+              + f"; QM {parts['QM (ViSNet fragments, caps)']:.3f}, MM "
+              f"{sum(v for k, v in parts.items() if k.startswith('MM')):.3f}")
+    gen_state = sim.generator.get_state()
+    t0 = time.perf_counter()
+    got = sim.advance(state, SOLV_STEPS)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    need(sim.graph is not None and sim.graph.replays == SOLV_STEPS, "no solvated graph")
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    ref = state
+    for _ in range(SOLV_STEPS):
+        ref = L.langevin_step(sim.full_potential, sim.coeffs, sim.masses, ref, generator=g,
+                              constraint=sim.constraint)
+    dx = float((got.positions - ref.positions).abs().max())
+    dF = float((got.forces - ref.forces).abs().max())
+    print(f"  (b) captured in {t_capture:.1f} s with warm-up; {SOLV_STEPS} replays vs eager steps "
+          f"from the same state and generator state: max|dx| {dx:.3e} A, max|dF| {dF:.3e} eV/A "
+          f"(limit {FORCE_LIMIT}; the PME spreading and the stitch sum with atomics)")
+    need(dx <= FORCE_LIMIT and dF <= FORCE_LIMIT,
+         f"solvated replays differ from eager steps: dx {dx:.3e}, dF {dF:.3e}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    final = sim.graph.run(TIMED_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    out["ms_step"] = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    out["ms_events"] = start.elapsed_time(end) / TIMED_STEPS
+    need(bool(final.positions.isfinite().all() and final.forces.isfinite().all()),
+         "solvated run: non-finite state")
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"  (b) graphed {out['ms_step']:.3f} ms/step (host clock), {out['ms_events']:.3f} (CUDA "
+          f"events) over {TIMED_STEPS} replays; peak device memory {out['peak_gib']:.2f} GiB "
+          f"above the {base / 2 ** 30:.2f} held before (build, first forces, capture) ({card})")
+    prof = profile_steps(torch, lambda _: sim.graph.run(1), None, label="replayed solvated steps")
+    out.update(kernels_per_step=prof["kernels_per_step"], busy_share=prof["busy_share"])
+    for name in ("cap_grad_kernel", *EDGE_KERNELS):
+        need(any(name in n for n in prof["names"]), f"the solvated replay trace names no {name}")
+    if rigid:
+        viol = float(sim.constraint.max_violation(final.positions))
+        out["settle_violation"] = viol
+        print(f"  (b) SETTLE after {SOLV_STEPS + TIMED_STEPS + 1} steps: max constraint violation "
+              f"{viol:.3e} A (limit {SETTLE_LIMIT})")
+        need(viol <= SETTLE_LIMIT, f"SETTLE violation {viol:.3e}")
+    return out
+
+
+def run_solvated_cli(torch, root):
+    """Phase 9c: `python -m ai2bmd_torch` on the solvated box, with and
+    without --no-write-solvent, one after the other (side by side they
+    would share the card): exit 0, the DCD's atoms, the steady ms/step of
+    the metrics CSV."""
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    runs = {"solvent": [], "no-write-solvent": ["--no-write-solvent"]}
+    t0 = time.perf_counter()
+    outs = {name: _cli_wait(name, _cli_start([
+        sys.executable, "-m", "ai2bmd_torch", "--prot-file", SOLVATED, "--log-dir",
+        os.path.join(root, f"cli_{name}"), "--preeq-steps", "0", "--sim-steps",
+        str(SOLV_CLI_STEPS), "--record-per-steps", str(SOLV_CLI_RECORD), "--timestep",
+        str(SOLV_DT_FS), *extra])) for name, extra in runs.items()}
+    wall = time.perf_counter() - t0
+    steady = {}
+    for name, want in (("solvent", 17882), ("no-write-solvent", 175)):
+        d = os.path.join(root, f"cli_{name}")
+        frames = read_dcd(os.path.join(d, "chig-preeq-traj.dcd"))
+        need(frames.shape == (SOLV_CLI_STEPS // SOLV_CLI_RECORD, want, 3)
+             and bool(torch.as_tensor(frames).isfinite().all()),
+             f"CLI {name}: DCD {frames.shape}, expected {want} atoms")
+        rows = _metrics(os.path.join(d, "chig-preeq-metrics.csv"))
+        steady[name] = rows[-1]["ms_per_step"]
+        qm_line = [ln for ln in outs[name].splitlines() if ln.startswith("QM/MM:")]
+        need(qm_line, f"CLI {name} printed no QM/MM line")
+        print(f"  (c) --prot-file {SOLVATED} {' '.join(runs[name])}: exit 0, "
+              f"{frames.shape[0]} frames of {want} atoms; {qm_line[0]!r}; metrics ms/step "
+              f"{[r['ms_per_step'] for r in rows]}")
+    print(f"  (c) the two runs took {wall:.1f} s")
+    return steady
+
+
+def run_route(torch, card, root, name, kw, plain: bool):
+    """Phase 9d: ProteinSimulation.from_pdb on Chignolin with ViSNetConfig(**kw)
+    on the card: with ``plain``, the explicit plain route (its one log line,
+    LAUNCHES["plain_edge_core"] > 0 and no edge or layer kernel), else the
+    kernels K1-K3 (no log line, the counter 0); step 0 against the CPU
+    float64 run, 3 graphed steps, then ROUTE_TIMED replays timed by CUDA
+    events.  Returns (the launches of the cold start and step 0, ms a
+    replay)."""
+    import logging
+
+    from ai2bmd_torch.md.simulation import SimulationConfig
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches, reset_plain_edge_core
+    from ai2bmd_torch.potentials import FragmentPotential
+    from ai2bmd_torch.simulators import WARM_ITERS, ProteinSimulation, load_model
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    logger = logging.getLogger("ai2bmd_torch.models.visnet")
+    logger.addHandler(handler)
+    cfg = ViSNetConfig(**kw)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        reset_plain_edge_core()
+        ps = ProteinSimulation.from_pdb("examples/chig.pdb", log_dir=os.path.join(root, name),
+                                        model_cfg=cfg, sim_cfg=SimulationConfig(
+                                            timestep_fs=USER_DT_FS, preeq_steps=0,
+                                            record_per_steps=RECORD))
+        state = ps.sim.initial_state(ps.prot.positions)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+    finally:
+        logger.removeHandler(handler)
+    edge = ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd")
+    other = ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc")
+    if plain:
+        need(len(lines) == 1 and "plain PyTorch version" in lines[0], f"the route logged {lines}")
+        need(ps.potential.cfg.plain_edge_core and not ps.potential.cfg.fused_layer,
+             f"resolved config {ps.potential.cfg}")
+        need(launches["plain_edge_core"] > 0, f"{name}: launches {launches}")
+        for n in edge + other:
+            need(launches[n] == 0, f"{name}: {n} ran")
+    else:
+        need(not lines and not ps.potential.cfg.plain_edge_core, f"{name}: logged {lines}")
+        need(launches["plain_edge_core"] == 0 and all(launches[n] > 0 for n in edge),
+             f"{name}: launches {launches}")
+        for n in other:
+            need(launches[n] == 0, f"{name}: {n} ran")
+    need(launches["cap_grad"] > 0, f"{name}: launches {launches}")
+    params, _ = load_model(None, cfg)
+    pot64 = FragmentPotential.build(ps.prot, ViSNet(cfg, params).to(torch.float64), cfg,
+                                    device="cpu")
+    cpu = torch.device("cpu")
+    _, f_ref, _ = pot64.stateful_energy_forces(
+        torch.as_tensor(ps.prot.positions, dtype=torch.float64),
+        ps.sim._init_aux.to(cpu, torch.float64), warm_iters=WARM_ITERS)
+    dF = float((state.forces.to(cpu, torch.float64) - f_ref).abs().max())
+    s3 = ps.sim.advance(state, 3)
+    need(ps.sim.graph.replays == 3 and bool(s3.positions.isfinite().all()),
+         f"{name}: the graphed steps failed")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ps.sim.advance(s3, ROUTE_TIMED)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / ROUTE_TIMED
+    if lines:
+        print(f"  (d) {kw}: logged {lines[0]!r}")
+    print(f"  (d) {kw}: cold start + step 0 launches "
+          f"{ {n: v for n, v in launches.items() if v} }; step 0 vs CPU float64 max|dF| "
+          f"{dF:.3e} eV/A (limit {FORCE_LIMIT}); 3 graphed steps, then {ms:.3f} ms a replay "
+          f"over {ROUTE_TIMED} ({card})")
+    need(dF <= FORCE_LIMIT, f"{name}: step-0 forces differ from float64 by {dF:.3e}")
+    if plain:
+        reset_plain_edge_core()
+    return launches, ms
+
+
+def run_solvated(torch, dev, prot, card, root, mm_graphed_ms):
+    """Phase 9: (a) PME in fragment mode, (b) the solvated box through
+    ProteinSimulation (flexible, then rigid water), (c) the CLI on it, (d)
+    the 64-channel-head model through the kernels and a tanh model through
+    the plain route."""
+    t_phase = time.perf_counter()
+    pme_launches, pme = run_pme_fragment(torch, dev, prot, card, mm_graphed_ms)
+    no_plain("9a")
+    flex = run_solvated_sim(torch, dev, card, root, rigid=False)
+    rigid = run_solvated_sim(torch, dev, card, root, rigid=True)
+    no_plain("9b")
+    cli = run_solvated_cli(torch, root)
+    _, ms8 = run_route(torch, card, root, "heads8", EIGHT_HEADS, plain=False)
+    _, ms64 = run_route(torch, card, root, "wide", WIDE_HEADS, plain=False)
+    no_plain("9d, 64-channel heads")
+    launches, ms_tanh = run_route(torch, card, root, "tanh", OTHER_ACT, plain=True)
+    plain = launches["plain_edge_core"]
+    print(f"  (d) 2 x 256 graphed: 8 heads of 32 channels {ms8:.3f} ms a replay, 4 heads of 64 "
+          f"{ms64:.3f} (K1-K3 at DH = 64), tanh through the plain route {ms_tanh:.3f} ({card})")
+    qm = flex["parts_ms"]["QM (ViSNet fragments, caps)"]
+    mm = sum(v for k, v in flex["parts_ms"].items() if k.startswith("MM"))
+    print(f"  solvated step (17,882 atoms, 9 x 256): graphed {flex['ms_step']:.3f} ms/step "
+          f"(events {flex['ms_events']:.3f}; parts alone QM {qm:.3f} + MM {mm:.3f}), rigid "
+          f"water {rigid['ms_step']:.3f}; step 0 vs CPU float64 max|dF| solvent "
+          f"{flex['dF_solvent']:.3e}, protein {flex['dF_protein']:.3e} eV/A; CLI steady "
+          f"{cli['solvent']:.3f} / {cli['no-write-solvent']:.3f} (--no-write-solvent); "
+          f"{flex['kernels_per_step']:.0f} kernels a step, {100 * flex['busy_share']:.1f}% busy; "
+          f"peak {flex['peak_gib']:.2f} GiB; phase 9 took {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return dict(pme_launches=pme_launches, pme_ms=pme["ms_step"], flex=flex, rigid=rigid,
+                cli=cli, plain_edge_core=plain)
+
+
 KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
     "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:543"),
     "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
@@ -2096,6 +2490,16 @@ KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
 T_START = time.perf_counter()
 
 
+def no_plain(phase):
+    """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
+    at 0; reset_launches() leaves it alone, so it counts the whole phase."""
+    from ai2bmd_torch.ops import LAUNCHES
+
+    n = LAUNCHES["plain_edge_core"]
+    print(f"  phase {phase}: plain_edge_core {n}")
+    need(n == 0, f"phase {phase}: {n} edge cores took the plain route")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stop-after", type=int, choices=(2, 3),
@@ -2111,6 +2515,9 @@ def main(argv=None):
                     help="print only K5 and K6's output hashes and device times on phase 3's "
                          "fragment-shape inputs, without the final line (to compare them "
                          "across commits)")
+    ap.add_argument("--solvated-only", action="store_true",
+                    help="after the build, run only phase 9 (the solvated slice), without the "
+                         "final line")
     args = ap.parse_args(argv)
     import torch
 
@@ -2155,6 +2562,12 @@ def main(argv=None):
     if args.layer_hash:
         layer_hashes(torch, dev, timed=True)
         return
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_user")
+    if args.solvated_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 9. the solvated slice (alone)")
+        run_solvated(torch, dev, load_protein(example_pdb("chig")), card, root, float("nan"))
+        return
 
     print("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
@@ -2177,21 +2590,29 @@ def main(argv=None):
 
     print("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD, edge-core kernels K1-K3")
     launches, ms_step, graphed, ref = run_slice(torch, dev, prot, card)
+    no_plain("4")
     print("== 4b. the same slice through the full-layer kernels K5/K6")
     launches_fl, ms_step_fl, graphed_fl = run_fused_slice(torch, dev, prot, card, ref)
+    no_plain("4b")
     print("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
     launches_ens = run_ensemble(torch, dev, prot, card, ref)
+    no_plain("5")
     print("== 6. the user-facing path: ProteinSimulation and the CLI (python -m ai2bmd_torch)")
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_user")
     shutil.rmtree(root, ignore_errors=True)
     run_user_library(torch, dev, root, ref)
     cli_ms = run_user_cli(torch, root, graphed["ms_step"], card)
+    no_plain("6")
     print("== 7. whole-molecule mode: converted checkpoint, Chignolin (A = 176) and abd "
           "(A = 752) as one molecule, 9 x 256")
     wm = run_whole_molecule(torch, dev, prot, card, root)
+    no_plain("7")
     print("== 8. the repaired faults: the tiny preset on the card, warm_caps=False, "
           "--no-solvent on a solvated input")
     cold_ms = run_faults(torch, dev, card, root, graphed["ms_step"])
+    no_plain("8")
+    print("== 9. the solvated slice: PME in fragment mode, QM/MM of the solvated Chignolin box "
+          "(17,882 atoms) at 9 x 256, the CLI on it, 64-channel heads and the plain route")
+    solv = run_solvated(torch, dev, prot, card, root, graphed["ms_step"])
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -2209,14 +2630,20 @@ def main(argv=None):
             k["whole_molecule"] = {
                 "launches": launched[k["name"]],
                 **{f"A={A}": finish(res[k["name"]]) for A, res in whole.items()}}
-    print("== 9. results")
+    for k in kernels:      # the solvated path's launches (phase 9b, one evaluation)
+        if k["name"] in solv["flex"]["launches"]:
+            k["solvated_launches"] = solv["flex"]["launches"][k["name"]]
+            k["pme_fragment_launches"] = solv["pme_launches"][k["name"]]
+    print("== 10. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
           f"{wm['graphed']['ms_step']:.3f} (events {wm['graphed']['ms_events']:.3f}) K1-K3, "
           f"{wm['fused_graphed']['ms_step']:.3f} (events {wm['fused_graphed']['ms_events']:.3f}) "
           f"K5/K6; CLI steady {wm['cli_ms']:.3f} K1-K3, {wm['fused_cli_ms']:.3f} K5/K6; abd peak "
-          f"GiB {wm['abd_peak_gib']}; warm_caps=False graphed {cold_ms:.3f}; "
+          f"GiB {wm['abd_peak_gib']}; warm_caps=False graphed {cold_ms:.3f}; 'pme' graphed "
+          f"{solv['pme_ms']:.3f}; solvated graphed {solv['flex']['ms_step']:.3f} (events "
+          f"{solv['flex']['ms_events']:.3f}), rigid water {solv['rigid']['ms_step']:.3f}; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

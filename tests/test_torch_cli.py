@@ -153,16 +153,22 @@ def test_cli_replica_ensemble_and_its_restart(tmp_path):
         assert not np.array_equal(fa["positions"][0], fa["positions"][1])
 
 
+SOLVATED = ["--prot-file", "examples/chig_preprocessed/chig-preeq.pdb"]
+
+
 # the ids the cases had beside the two whole-molecule / checkpoint cases,
-# which went when those routes were ported
+# which went when those routes were ported, and the pme (12) and solvated
+# (13) cases, which became tests of the routes:
+# test_torch_pme.py::test_cli_runs_pme_in_fragment_mode and
+# test_torch_qmmm.py::test_cli_runs_the_solvated_box_with_explicit_solvent
 @pytest.mark.parametrize("argv, item", [
-    (["--fragment-longrange-calc", "pme"], 12),
-    (["--prot-file", "examples/chig_preprocessed/chig-preeq.pdb"], 13),
     (["--preprocess"], 14),
-], ids=["argv1-12", "argv2-13", "argv4-14"])
+    ([*SOLVATED, "--mm-method", "amoeba"], 15),
+    ([*SOLVATED, "--polarizable-mm"], "13b"),
+], ids=["argv4-14", "amoeba-15", "polarizable-13b"])
 def test_cli_refused_routes_name_their_item(tmp_path, argv, item):
     """Each route the port does not have yet exits nonzero naming its
-    ROADMAP item."""
+    ROADMAP item (on a solvated input, before any model is built)."""
     conftest.require_examples()
     run = _cli("--prot-file", conftest.example_pdb("chig"), "--log-dir", str(tmp_path),
                "--sim-steps", "2", *CLI_TINY, *argv)

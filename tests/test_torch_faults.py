@@ -6,10 +6,14 @@
    ``--replicas`` route still refuses the input.
 2. ``warm_caps=False``: the stateless fragment potential, a cold cap solve
    every step, stepped on JAX's noise against JAX's Simulator.
-3. Heads of 8 and 16 channels: the shapes the kernels take, and the head
-   width each wrapper hands its launcher (the kernels' instantiation is
-   chosen from H / nh).
+3. Heads of 8, 16, 32 and 64 channels: the shapes the kernels take, and the
+   head width each wrapper hands its launcher (the kernels' instantiation
+   is chosen from H / nh); what the kernels do not take is refused on the
+   card naming ROADMAP Queue 2, and other activations than silu resolve to
+   the explicit plain route (Queue 3 entry 3, repaired).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -131,11 +135,11 @@ def test_cli_no_solvent_runs_a_solvated_input_in_vacuum(tmp_path):
                    "--sim-steps", "2", "--record-per-steps", "2"])
 
 
-@pytest.mark.parametrize("H, nh", [(32, 4), (64, 4), (256, 8), (64, 2)],
-                         ids=["dh8", "dh16", "dh32", "dh32-two-heads"])
+@pytest.mark.parametrize("H, nh", [(32, 4), (64, 4), (256, 8), (64, 2), (256, 4)],
+                         ids=["dh8", "dh16", "dh32", "dh32-two-heads", "dh64"])
 def test_kernels_take_heads_of_8_16_and_32_channels(H, nh):
-    """check_shapes, which every kernel wrapper runs, takes heads of 8, 16
-    and 32 channels, at a fragment and at abd's 752 slots."""
+    """check_shapes, which every kernel wrapper runs, takes heads of 8, 16,
+    32 and 64 channels, at a fragment and at abd's 752 slots."""
     for A in (40, 752):
         TK.check_shapes(A, H, 8, nh)
         TK.check_layer_shapes(A, H, 8, nh)
@@ -145,14 +149,81 @@ def test_kernels_take_heads_of_8_16_and_32_channels(H, nh):
                                       (256, 8, 15)],
                          ids=["dh64", "dh32-H32-one-head", "uneven", "H512", "lmax3"])
 def test_what_the_kernels_refuse_names_queue_3(H, nh, S):
-    """Heads wider than 32 channels (or not dividing H), H > 256 and S > 8
-    raise naming the ROADMAP entry that keeps them open; H = 32 with one
-    head of 32 channels is taken."""
-    if H // nh in TK.HEAD_WIDTHS and H % nh == 0 and H <= 256 and S <= 8:
-        TK.check_shapes(176, H, S, nh)
+    """Heads of 64 channels are in the kernels' domain (head_sum<64>, two
+    warps a head): check_shapes takes them, a silu model at them keeps the
+    kernels on the card, and the forward that the CPU runs (the kernels'
+    plain versions; 3 layers at H = 256, two fragments of 16 slots) matches
+    the JAX package's within 1e-4.  The shapes the kernels still do not
+    take (H > 256, S > 8), where the JAX package runs its Pallas kernels,
+    raise in check_shapes and, for a silu model on the card, in
+    resolve_config, naming ROADMAP.md Queue 2.  Only another activation
+    than silu resolves to the explicit plain route (ViSNetConfig.
+    plain_edge_core, without fused_layer), at any shape, as the JAX package
+    sends it to jnp.  H = 32 with one head of 32 channels is taken; H not a
+    multiple of the head count is refused as a configuration.  S = 15
+    (lmax 3) is a shape no model of either package builds (their spherical
+    harmonics stop at lmax 2)."""
+    lmax = {8: 2, 15: 3}[S]
+    kw = dict(hidden_channels=H, num_heads=nh, num_layers=3, num_rbf=8, max_z=20, lmax=lmax)
+    queue_2 = "ROADMAP.md, Queue 2: domain still to extend"
+    if H % nh:
+        with pytest.raises(ValueError, match=queue_2):
+            TK.check_layer_shapes(176, H, S, nh)
+        with pytest.raises(ValueError, match="not a multiple of num_heads"):
+            TV.resolve_config(TV.ViSNetConfig(**kw), "cuda")
         return
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 3 entry 3"):
+    other = dataclasses.replace(TV.ViSNetConfig(**kw), activation="tanh", fused_layer=True)
+    plain = TV.resolve_config(other, "cuda")
+    assert plain.plain_edge_core and not plain.fused_layer
+    assert TV.resolve_config(other, "cpu") is other
+    if H <= 256 and S <= 8:
+        TK.check_shapes(176, H, S, nh)
         TK.check_layer_shapes(176, H, S, nh)
+        assert not TV.resolve_config(TV.ViSNetConfig(**kw), "cuda").plain_edge_core
+    else:
+        with pytest.raises(ValueError, match=queue_2):
+            TK.check_layer_shapes(176, H, S, nh)
+        with pytest.raises(ValueError, match=queue_2):
+            TV.resolve_config(TV.ViSNetConfig(**kw), "cuda")
+    if H // nh != 64:
+        return
+    cfg = TV.ViSNetConfig(**kw)
+    jcfg = JV.ViSNetConfig(**kw)
+    jparams = JV.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(0)
+    z = rng.integers(1, 9, size=(2, 16))
+    pos = (rng.normal(size=(2, 16, 3)) * 1.5).astype(np.float32)
+    mask = np.ones((2, 16), bool)
+    mask[1, 12:] = False
+    e_j, f_j = jax.jit(lambda p, *a: JV.energy_and_forces(p, *a, jcfg))(
+        jparams, jnp.asarray(z), jnp.asarray(pos), jnp.asarray(mask))
+    e_t, f_t = TV.energy_and_forces(params_from_jax(jax.tree.map(np.asarray, jparams)), T(z),
+                                    T(pos), T(mask), cfg)
+    np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
+
+
+def test_the_plain_route_counts_its_calls_on_the_card_only(monkeypatch, rng):
+    """edge_core(plain=True) runs the plain forward on any device; a call on
+    CUDA tensors adds one to LAUNCHES["plain_edge_core"] (the counter
+    chip_smoke.py holds at 0 on every kernel path), one on CPU tensors does
+    not."""
+    B, A, H, S, nh = 1, 8, 64, 8, 1
+    f = lambda *s: T(rng.standard_normal(s).astype(np.float32))
+    args = (f(B, A, H), f(B, A, H), f(B, A, H), f(B, A, S, H), f(B, A, A, H), f(B, A, A, S),
+            f(B, A, A).abs(), torch.ones(B, A, A), f(H, 2 * H), f(2 * H), f(H, 2 * H), f(2 * H))
+    saved = dict(LAUNCHES)
+    try:
+        want = TK.edge_fwd_plain(*args, 5.0, nh)[:3]
+        got = TK.edge_core(*args, 5.0, nh, plain=True)
+        assert LAUNCHES["plain_edge_core"] == saved["plain_edge_core"]
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+        got_card = TK.edge_core(*args, 5.0, nh, plain=True)
+        assert LAUNCHES["plain_edge_core"] == saved["plain_edge_core"] + 1
+    finally:
+        LAUNCHES.update(saved)
+    for a, b, c in zip(got, want, got_card):
+        assert (a is None and b is None) or (torch.equal(a, b) and torch.equal(c, b))
 
 
 @pytest.fixture
@@ -171,7 +242,8 @@ def launches(monkeypatch):
     LAUNCHES.update(saved)
 
 
-@pytest.mark.parametrize("H, nh", [(32, 4), (64, 4), (64, 2)], ids=["dh8", "dh16", "dh32"])
+@pytest.mark.parametrize("H, nh", [(32, 4), (64, 4), (64, 2), (128, 2)],
+                         ids=["dh8", "dh16", "dh32", "dh64"])
 def test_wrappers_hand_their_launcher_the_head_width(launches, rng, H, nh):
     """K1, K2, K7, K5 and K6's wrappers pass H / nh as the launcher's last
     argument, and as many arguments as its C signature takes (the stream

@@ -152,10 +152,34 @@ def test_generator_noise_is_reproducible(pots, chig_protein):
         TL.langevin_step(pot, ct, m, TL.MDState(T(P), v, v, torch.zeros(())))
 
 
-def test_pme_is_not_ported(chig_protein, pots):
-    _, tpot, _, _ = pots
-    with pytest.raises(NotImplementedError):
-        TP.FragmentPotential.build(chig_protein, tpot.module, tpot.cfg, longrange="pme")
+def test_pme_long_range_matches_jax(chig_protein, pots):
+    """FragmentPotential(longrange="pme") (refused until ROADMAP item 12 was
+    ported) on Chignolin's CRYST1 cell at 3 x 32: the PME term alone, and one
+    warm step of the whole potential from the port's cold caps, E and F
+    against the JAX package's within 1e-4.  JAX's warm "pme" step is its
+    warm "mm" step (the module's compiled `warm`) with the long range
+    swapped: JAX's FragmentPotential adds its long-range term to the same
+    fragment sum (ai2bmd_tpu/potentials.py:80-87)."""
+    jpot, tpot, warm, P = pots
+    from ai2bmd_tpu.physics import nonbonded as JN
+    from ai2bmd_tpu.physics import pme as JPME
+    from ai2bmd_torch.physics import pme as TPME
+
+    jp = JP.FragmentPotential.build(chig_protein, jpot.params, jpot.cfg, longrange="pme")
+    tp = TP.FragmentPotential.build(chig_protein, tpot.module, tpot.cfg, longrange="pme",
+                                    device="cpu")
+    assert tp.nb is None and tp.pme.grid == jp.pme.grid
+    e_j, f_j = jax.jit(lambda p: JPME.pme_energy_forces(jp.pme, p))(jnp.asarray(P))
+    e_t, f_t = TPME.pme_energy_forces(tp.pme, T(P))
+    assert float(e_t) == pytest.approx(float(e_j), abs=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
+    aux = tp.init_cap_delta(T(P))
+    e_mm, f_mm, _ = warm(jnp.asarray(P), jnp.asarray(aux.numpy()))
+    e_nb, f_nb = jax.jit(lambda p: JN.nonbonded_energy_forces(jpot.nb, p))(jnp.asarray(P))
+    e_j, f_j = e_mm - e_nb + e_j, f_mm - f_nb + f_j
+    e_t, f_t, _ = tp.stateful_energy_forces(T(P), aux)
+    assert float(e_t) == pytest.approx(float(e_j), abs=1e-4)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=0, atol=1e-4)
 
 
 def test_port_never_imports_jax():
@@ -270,7 +294,7 @@ def test_resolve_config_selects_the_full_layer_path_on_the_card_only(monkeypatch
     assert TV.resolve_config(on, "cpu") is on
 
 
-HOST_PDBS = ["chig", "trpcage", "ww", "abd"]
+HOST_PDBS = ["chig", "trpcage", "ww", "abd", "chig-preeq"]
 
 
 def _same(a, b, path="") -> None:
@@ -298,21 +322,30 @@ def _same(a, b, path="") -> None:
 @pytest.mark.parametrize("name", HOST_PDBS)
 def test_host_copies_match_the_jax_package(name):
     """The port's own copies of the host modules (io, system, frag.indexer,
-    frag.topology, data, units) give what the JAX package's give: Protein,
-    FragmentIndex and TypeTopology on each bundled example."""
+    frag.topology, data, data.protein_topology, units) give what the JAX
+    package's give: Protein, FragmentIndex, TypeTopology and the MM
+    SystemTopology on each bundled example, the solvated Chignolin box
+    (fragments of its protein) among them."""
     from ai2bmd_tpu import units as JU
+    from ai2bmd_tpu.data import protein_topology as JPT
     from ai2bmd_tpu.frag import indexer as JI
     from ai2bmd_tpu.frag import topology as JT
     from ai2bmd_tpu.io.pdb import read_pdb as j_read
     from ai2bmd_tpu.io.reorder import normalize_atom_order as j_norm
     from ai2bmd_tpu.system import Protein as JProtein
     from ai2bmd_torch import host as H
+    from ai2bmd_torch.data import protein_topology as TPT
 
     conftest.require_examples()
     path = conftest.example_pdb(name)
     j_atoms, t_atoms = j_norm(j_read(path)), H.normalize_atom_order(H.read_pdb(path))
     _same(t_atoms, j_atoms, "atoms")
-    _same(H.Protein.from_atoms(t_atoms), JProtein.from_atoms(j_atoms), "protein")
+    j_prot, t_prot = JProtein.from_atoms(j_atoms), H.Protein.from_atoms(t_atoms)
+    _same(t_prot, j_prot, "protein")
+    _same(TPT.build_topology(t_atoms), JPT.build_topology(j_atoms), "system_topology")
+    sel = j_prot.protein_indices()
+    if len(sel) < len(j_prot):        # a solvated box: the protein's fragments
+        j_atoms, t_atoms = j_prot.select(sel).atoms, t_prot.select(sel).atoms
     j_fi, t_fi = JI.build_fragment_index(j_atoms), H.build_fragment_index(t_atoms)
     _same(t_fi, j_fi, "fragment_index")
     types = sorted({t for t in j_fi.row_prmtop if t})

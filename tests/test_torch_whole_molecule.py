@@ -217,8 +217,9 @@ def test_cli_replica_ensemble_loads_the_checkpoint(monkeypatch, tmp_path, tiny_n
 def test_full_layer_kernels_refuse_a_whole_molecule():
     """The edge kernels and the full-layer kernels K5/K6 both take any
     A % 8 == 0 up to EDGE_MAXA (abd is 752 slots), and their wrappers'
-    check raises past it; heads wider than 32 channels (nh = 4 at H = 256)
-    raise naming the ROADMAP entry that keeps them open."""
+    check raises past it; heads of 64 channels (nh = 4 at H = 256) are
+    taken, and H > 256 raises naming the ROADMAP entry that keeps it
+    open."""
     assert TK.EDGE_MAXA >= 752
     TK.check_shapes(752, 256, 8, 8)
     TK.check_layer_shapes(752, 256, 8, 8)
@@ -226,8 +227,9 @@ def test_full_layer_kernels_refuse_a_whole_molecule():
         TK.check_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
     with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
         TK.check_layer_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 3"):
-        TK.check_layer_shapes(176, 256, 8, 4)
+    TK.check_layer_shapes(176, 256, 8, 4)
+    with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
+        TK.check_layer_shapes(176, 512, 8, 8)
 
 
 def test_whole_molecule_entry_points_default_to_the_card(monkeypatch, chig, tiny_npz, tmp_path):
