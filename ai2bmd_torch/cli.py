@@ -8,6 +8,11 @@ a card and without ``--device cpu`` it raises; it never falls back to the
 CPU, and on the card the MD loop is replays of one captured step.
 
 Routes:
+  * ``--preprocess``, or ``--solvent`` on an input without water (as the
+    JAX CLI detects it): ``preprocess.Preprocessor`` (``--max-cyc``,
+    ``--seed``, ``--preprocess-method``) solvates and equilibrates the
+    protein into ``<log-dir>/<prot>-preeq.pdb``, or finds it there, and the
+    run goes on with that box
   * ``ProteinSimulation``: fragment mode (``--fragment-longrange-calc mm`` or
     ``pme``), and whole-molecule mode with ``--mode visnet``; a solvated
     input (or ``--solvent``) runs subtractive QM/MM over the whole periodic
@@ -18,22 +23,27 @@ Routes:
     protein alone in vacuum; an exception during the simulation exits 255,
     as the reference's runaway / solver errors do
   * ``--replicas > 1`` (or ``--mesh-mp > 1``): ``ReplicaEnsemble`` on one
-    card, each replica with its own DCD, the whole batched state (and every
-    replica's generator state) checkpointed each record interval
+    card for a vacuum input (or, with ``--no-solvent``, a solvated input's
+    protein, as the lone route runs it; JAX's ensemble route ignores
+    ``--no-solvent``), ``SolvatedReplicaEnsemble`` for a solvated one
+    (ff19SB; ``--mm-method amoeba`` there runs ff19SB with a warning, as in
+    the JAX package); each replica with its own DCD, the whole batched
+    state (and every replica's generator state) checkpointed each record
+    interval
   * weights: ``--ckpt-path`` (a Lightning .ckpt, or a converted .npz; with
     ``--ckpt-type <id>`` the file ``<ckpt-path>/visnet-uni-<id>.ckpt``) on
     every route, else random weights; a file that is not a checkpoint exits
     nonzero naming it
 
-Refused, naming the ROADMAP item that ports them, on a solvated run:
-``--mm-method amoeba`` (item 15), ``--polarizable-mm`` and ``--replicas``
-(whatever ``--solvent`` says; the item 13 remainder, item 13b); and
-``--preprocess`` (item 14), a mesh of more than one card (item 17), and
-``--matmul-precision`` other than float32 (the port's products are float32
-or 3xTF32 by design).  The reference's
-``--device-strategy``, ``--work-strategy`` and ``--chunk-size`` are accepted
-as no-ops, as in the JAX package; ``--mm-method``, ``--polarizable-mm``,
-``--rigid-water`` and ``--write-solvent`` act only on solvated runs.
+Refused, naming the ROADMAP item that ports them: ``--mm-method amoeba`` on
+a lone solvated run and ``--preprocess-method AMOEBA`` (item 15);
+``--polarizable-mm`` on a solvated run (the item 13 remainder, item 13b); a
+mesh of more than one card (item 17); and ``--matmul-precision`` other than
+float32 (the port's products are float32 or 3xTF32 by design).  The
+reference's ``--device-strategy``, ``--work-strategy`` and ``--chunk-size``
+are accepted as no-ops, as in the JAX package; ``--mm-method``,
+``--polarizable-mm``, ``--rigid-water`` and ``--write-solvent`` act only on
+solvated runs.
 """
 
 from __future__ import annotations
@@ -73,11 +83,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--preprocess-method", type=str, default="FF19SB",
                    choices=["FF19SB", "AMOEBA"],
-                   help="preprocessing pipeline (ROADMAP item 14)")
+                   help="preprocessing pipeline (AMOEBA: ROADMAP item 15)")
     p.add_argument("--preprocess", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="solvate+equilibrate raw inputs (default: when the "
-                        "input has no water and --solvent is requested; ROADMAP item 14)")
+                        "input has no water and --solvent is requested)")
     p.add_argument("--mm-method", type=str, default="mm-engine",
                    choices=["mm-engine", "amoeba", "tinker", "tinker-GPU"],
                    help="solvent MM engine (solvated runs only)")
@@ -171,9 +181,11 @@ def _run(args, device, prot_name: str, log_dir: str, log) -> int:
     if needs_preprocess is None:
         needs_preprocess = bool(args.solvent) and not _is_solvated(args.prot_file)
     if needs_preprocess:
-        raise NotImplementedError(
-            "--preprocess (solvate, minimize, heat, equilibrate) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 14)")
+        from ai2bmd_torch.preprocess import Preprocessor
+
+        pre = Preprocessor(log_dir=log_dir, max_cyc=args.max_cyc, seed=args.seed,
+                           method=args.preprocess_method, device=device)
+        args.prot_file = pre.run(args.prot_file)     # the run goes on with the box
 
     from ai2bmd_torch.md.simulation import SimulationConfig
     from ai2bmd_torch.simulators import ProteinSimulation
@@ -287,54 +299,67 @@ def _mesh_devices(args, device) -> int:
 
 
 def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log) -> int:
-    """Replica-ensemble MD on one card (the JAX CLI's ``n_mp == 1`` branch,
-    cli.py:303-317): independent Langevin trajectories of fragment mode with
-    the "mm" long range (``--mode`` and ``--fragment-longrange-calc`` do not
-    apply, as in the JAX package) and a replica-batched force evaluation.  Every replica records its own DCD,
-    and the whole ensemble state is checkpointed each record interval
-    (``--restart`` resumes it, writing ``-restart`` trajectories)."""
+    """Replica-ensemble MD on one card (the JAX CLI's single-card branches,
+    cli.py:284-317): independent Langevin trajectories, of fragment mode with
+    the "mm" long range and a replica-batched force evaluation for a vacuum
+    input (``--mode`` and ``--fragment-longrange-calc`` do not apply, as in
+    the JAX package), of solvated QM/MM (``SolvatedReplicaEnsemble``) for a
+    solvated one.  Every replica records its own DCD, and the whole ensemble
+    state is checkpointed each record interval (``--restart`` resumes it,
+    writing ``-restart`` trajectories)."""
     import numpy as np
 
     from ai2bmd_torch.host import build_fragment_index, load_protein
     from ai2bmd_torch.io.trajectory import DCDTrajectory
-    from ai2bmd_torch.parallel import ReplicaEnsemble
+    from ai2bmd_torch.parallel import ReplicaEnsemble, SolvatedReplicaEnsemble
     from ai2bmd_torch.simulators import load_model
 
     n_cards = _mesh_devices(args, device)
     if n_cards > 1:
         raise NotImplementedError(
             f"an ensemble mesh over {n_cards} cards is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 17); the port's ReplicaEnsemble runs on one card")
+            f"item 17); the port's ensembles run on one card")
     prot_name = os.path.basename(args.prot_file).rsplit(".", 1)[0]
     full = load_protein(args.prot_file)
-    if len(full.protein_indices()) < len(full):
-        raise NotImplementedError(
-            f"{args.prot_file} holds water or ions: solvated replica ensembles "
-            f"(SolvatedReplicaEnsemble) are not ported yet (ROADMAP.md, Queue 1 item 13b)")
+    solvated = len(full.protein_indices()) < len(full)
+    if solvated and args.solvent is False:
+        # --no-solvent: the protein alone, in vacuum, as the lone route runs it
+        full, solvated = full.select(full.protein_indices()), False
     params, cfg = load_model(ckpt, model_cfg, seed=args.seed)
     log.info("replica ensemble on %s: %d replicas", device, args.replicas)
-    ens = ReplicaEnsemble.build(
-        full, build_fragment_index(full.atoms), params, cfg,
-        n_replicas=args.replicas,
-        timestep_fs=args.timestep,
-        temp_K=float(args.temp_k),
-        steps_per_call=args.record_per_steps,
-        warm_iters=1,
-        device=device,
-    )
+    common = dict(n_replicas=args.replicas, timestep_fs=args.timestep,
+                  temp_K=float(args.temp_k), steps_per_call=args.record_per_steps,
+                  warm_iters=1, device=device)
+    if solvated:
+        if args.polarizable_mm:
+            raise NotImplementedError(
+                "--polarizable-mm (the induced-dipole hybrid of physics/polarization.py) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 13b)")
+        if args.mm_method == "amoeba":
+            log.warning("solvated ensembles run the ff19sb engine (as the JAX package's do); "
+                        "use --replicas 1 for --mm-method amoeba")
+        ens = SolvatedReplicaEnsemble.build(full.atoms, params, cfg, **common)
+        q = ens.qmmm
+        print(f"QM/MM: {q.n_atoms} atoms in the box, {len(q.sel)} in the QM region; "
+              f"{q.backend} pairs, PME mesh {q.mm_full.grid}; {args.replicas} replicas",
+              flush=True)
+    else:
+        ens = ReplicaEnsemble.build(full, build_fragment_index(full.atoms), params, cfg,
+                                    **common)
 
     ckpt_path = f"{log_dir}/{prot_name}-{args.replicas}x-ensemble-restart.npz"
     state = ens.initial_state(full.positions, temp_K=float(args.temp_k), seed=args.seed)
     suffix = ""
     if args.restart and os.path.exists(ckpt_path):
-        state = _load_ensemble_restart(ckpt_path, state, ens, log)
+        state = _load_ensemble_restart(ckpt_path, state, ens)
         # continuation trajectories get a -restart suffix (as a lone
         # trajectory's restart does)
         suffix = "-restart"
 
     trajs = [
         DCDTrajectory(f"{log_dir}/{prot_name}-r{i:03d}-traj{suffix}.dcd", len(full),
-                      timestep_fs=args.timestep, save_interval=args.record_per_steps)
+                      timestep_fs=args.timestep, save_interval=args.record_per_steps,
+                      cell=full.cell if solvated else None)
         for i in range(args.replicas)
     ]
     n_calls = max(1, (args.sim_steps - state.step) // args.record_per_steps)
@@ -358,7 +383,17 @@ def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log) -> int:
     return 0
 
 
-_ENSEMBLE_FIELDS = ("positions", "velocities", "forces", "energy", "aux")
+_ENSEMBLE_FIELDS = ("positions", "velocities", "forces", "energy")
+
+
+def _ensemble_arrays(state) -> dict:
+    """The batched MDState's tensors by name; the carry leaf by leaf
+    (``aux_0``, ``aux_1``, ...: the cap offsets, or a solvated replica's cell
+    buckets and cap offsets)."""
+    from ai2bmd_torch.utils.tree import tree_leaves
+
+    return {**{k: getattr(state, k) for k in _ENSEMBLE_FIELDS},
+            **{f"aux_{i}": leaf for i, leaf in enumerate(tree_leaves(state.aux))}}
 
 
 def _save_ensemble_restart(path: str, state, generators):
@@ -371,33 +406,39 @@ def _save_ensemble_restart(path: str, state, generators):
         path + ".tmp.npz",
         step=np.asarray(state.step),
         rng_states=np.stack([g.get_state().numpy() for g in generators]),
-        **{k: getattr(state, k).cpu().numpy() for k in _ENSEMBLE_FIELDS},
+        **{k: t.cpu().numpy() for k, t in _ensemble_arrays(state).items()},
     )
     os.replace(path + ".tmp.npz", path)
 
 
-def _load_ensemble_restart(path: str, template, ens, log):
+def _load_ensemble_restart(path: str, template, ens):
     import numpy as np
     import torch
 
     from ai2bmd_torch.md.langevin import MDState
+    from ai2bmd_torch.utils.tree import tree_unflatten
 
+    want = _ensemble_arrays(template)
     with np.load(path) as z:
-        arrays = {k: z[k] for k in (*_ENSEMBLE_FIELDS, "rng_states", "step")}
-    for k in _ENSEMBLE_FIELDS:
-        want = tuple(getattr(template, k).shape)
-        if arrays[k].shape != want:
+        saved = sorted(k for k in z.files if k not in ("rng_states", "step"))
+        if saved != sorted(want):
+            raise ValueError(f"ensemble restart {path} holds {saved}, expected {sorted(want)} "
+                             f"(a checkpoint of another route?)")
+        arrays = {k: z[k] for k in z.files}
+    for k, t in want.items():
+        if arrays[k].shape != tuple(t.shape):
             raise ValueError(f"ensemble restart {path}: {k} has shape {arrays[k].shape}, "
-                             f"expected {want} (different replica count or protein?)")
+                             f"expected {tuple(t.shape)} (different replica count or protein?)")
     if len(arrays["rng_states"]) != len(ens.generators):
         raise ValueError(f"ensemble restart {path} holds {len(arrays['rng_states'])} generator "
                          f"states for {len(ens.generators)} replicas")
     for g, s in zip(ens.generators, arrays["rng_states"]):
         g.set_state(torch.from_numpy(s.copy()))
-    t = {k: torch.as_tensor(arrays[k], dtype=getattr(template, k).dtype,
-                            device=getattr(template, k).device) for k in _ENSEMBLE_FIELDS}
-    state = MDState(step=int(arrays["step"]), **t)
-    log.info("resumed ensemble from %s at step %d", path, state.step)
+    t = {k: torch.as_tensor(arrays[k], dtype=tmpl.dtype, device=tmpl.device)
+         for k, tmpl in want.items()}
+    aux = tree_unflatten(template.aux, [v for k, v in t.items() if k.startswith("aux_")])
+    state = MDState(step=int(arrays["step"]), aux=aux, **{k: t[k] for k in _ENSEMBLE_FIELDS})
+    print(f"resumed ensemble from {path} at step {state.step}", flush=True)
     return state
 
 

@@ -1,4 +1,4 @@
-"""Langevin steps replayed as one CUDA graph.
+"""Steps replayed as one CUDA graph.
 
 Port of ``Simulator._chunk`` (``ai2bmd_tpu/md/simulation.py:110-123``), the
 JAX package's MD loop compiled into one device program.  Here one
@@ -23,8 +23,12 @@ What the graph holds and what it does not:
   (a restart, or the start of a pre-equilibration stage), so one capture
   serves a whole simulation; ``replays`` counts the replays.
 
-The graph needs the card: on CPU tensors ``GraphedLangevin`` raises, and a
-failed capture raises too; neither falls back to eager steps.  The force
+``GraphedStep`` is the same mechanism for any step that reads and rewrites a
+tree of static tensors (the preprocessing stages, ``preprocess.py``).
+
+The graph needs the card: on CPU tensors ``GraphedLangevin`` and
+``GraphedStep`` raise, and a failed capture raises too; neither falls back
+to eager steps.  The force
 stitch and the PME charge spreading sum with atomics (``frag/runtime.py``,
 ``physics/pme.py``), so a replayed step equals an eager step within float32
 rounding, not bitwise.
@@ -39,7 +43,7 @@ from typing import Any, Callable
 import torch
 
 from ai2bmd_torch.md.langevin import LangevinCoeffs, MDState, langevin_step
-from ai2bmd_torch.utils.tree import tree_clone, tree_copy_
+from ai2bmd_torch.utils.tree import tree_clone, tree_copy_, tree_leaves
 
 WARMUP_STEPS = 3
 
@@ -147,11 +151,14 @@ class GraphedLangevin:
     def state(self) -> MDState:
         return self.buffers.state(self.step_count)
 
-    def load(self, state: MDState) -> None:
+    def load(self, state: MDState, generator: torch.Generator | None = None) -> None:
         """Continue from ``state``: its tensors are copied into the buffers the
-        graph reads, and its step becomes the step counter."""
+        graph reads, and its step becomes the step counter; ``generator``,
+        when given, draws the noise from then on (a replica's own)."""
         self.buffers.copy_from(state)
         self.step_count = state.step
+        if generator is not None:
+            self.generator = generator
 
     def run(self, n_steps: int) -> MDState:
         """``n_steps`` steps: per step, the noise draw, then one replay."""
@@ -161,3 +168,34 @@ class GraphedLangevin:
             self.step_count += 1
             self.replays += 1
         return self.state
+
+
+class GraphedStep:
+    """``fn(buffers)`` captured once as a CUDA graph: ``fn`` reads the tensors
+    of ``buffers`` (a tuple or list of tensors, nested or not) and writes its
+    results back into them in place; ``replay()`` runs it again on whatever
+    they hold then.  The warm-up calls run on a copy of the buffers, so the
+    construction leaves ``buffers`` as it found them."""
+
+    def __init__(self, fn: Callable, buffers, warmup: int = WARMUP_STEPS):
+        leaf = tree_leaves(buffers)[0]
+        if not leaf.is_cuda:
+            raise RuntimeError(f"CUDA graphs need the card: the buffers are on {leaf.device}")
+        scratch = tree_clone(buffers)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                fn(scratch)
+        torch.cuda.current_stream().wait_stream(side)
+        del scratch
+        torch.cuda.synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            fn(buffers)
+        torch.cuda.synchronize()
+        self.replays = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1

@@ -2,7 +2,9 @@
 
 Port of ``ai2bmd_tpu/md/langevin.py``: the Vanden-Eijnden / Ciccotti
 integrator exactly as ASE's ``Langevin``, its replica-batched form, the
-Maxwell-Boltzmann velocity draw, the kinetic energy and the temperature.
+Maxwell-Boltzmann velocity draw, the kinetic energy and the temperature;
+and the two steps preprocessing takes besides, NVE velocity Verlet (RATTLE
+under a constraint) and the Berendsen thermostat.
 The noise of a step comes from an explicit
 ``torch.Generator`` (one per replica in the batched form) unless the caller
 passes it in (``xi``, ``eta``), which is how the tests feed both packages the
@@ -164,3 +166,41 @@ def langevin_step_batched(potential: Callable, coeffs: LangevinCoeffs, masses: t
         eta = torch.stack([b for _, b in noise])
     return langevin_step(potential, coeffs, masses, state, fixcm, xi, eta)
 
+
+def velocity_verlet_step(potential: Callable, dt_fs: float, masses: torch.Tensor,
+                         state: MDState, constraint=None) -> MDState:
+    """NVE velocity Verlet (``langevin.py:184-203``); with ``constraint``
+    (e.g. SETTLE) its RATTLE variant: the positions projected after the
+    drift, with the matching velocity correction, and the velocities after
+    the last half-kick."""
+    dt = dt_fs * units.fs
+    m = masses[:, None]
+    v_half = state.velocities + 0.5 * dt * state.forces / m
+    x = state.positions + dt * v_half
+    if constraint is not None:
+        x_c = constraint.positions(state.positions, x)
+        v_half = v_half + (x_c - x) / dt
+        x = x_c
+    energy, f_new, aux = potential(x, state.aux)
+    v = v_half + 0.5 * dt * f_new / m
+    if constraint is not None:
+        v = constraint.velocities(x, v)
+    return MDState(positions=x, velocities=v, forces=f_new, energy=energy,
+                   step=state.step + 1, aux=aux)
+
+
+def berendsen_step(potential: Callable, dt_fs: float, temp_K: float, taut_fs: float,
+                   masses: torch.Tensor, state: MDState) -> MDState:
+    """One velocity-Verlet step after the Berendsen rescaling of the
+    velocities towards ``temp_K`` with time constant ``taut_fs``
+    (``langevin.py:206-224``)."""
+    dt = dt_fs * units.fs
+    m = masses[:, None]
+    t_inst = temperature(masses, state.velocities)
+    lam = torch.sqrt(1.0 + (dt_fs / taut_fs) * (temp_K / torch.clamp(t_inst, min=1e-6) - 1.0))
+    v_half = state.velocities * lam + 0.5 * dt * state.forces / m
+    x = state.positions + dt * v_half
+    energy, f_new, aux = potential(x, state.aux)
+    v = v_half + 0.5 * dt * f_new / m
+    return MDState(positions=x, velocities=v, forces=f_new, energy=energy,
+                   step=state.step + 1, aux=aux)

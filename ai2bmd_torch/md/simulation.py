@@ -84,7 +84,7 @@ def _clone(state: L.MDState) -> L.MDState:
                      state.energy.clone(), step=state.step, aux=tree_clone(state.aux))
 
 
-def _overflow_flags(aux):
+def overflow_flags(aux):
     """(kind, 0-d bool tensor) of every neighbour list and cell assignment
     in a carry."""
     if isinstance(aux, NeighborList):
@@ -92,7 +92,7 @@ def _overflow_flags(aux):
     if isinstance(aux, CellState):
         return [("cell-bucket assignment", aux.overflow)]
     if isinstance(aux, (tuple, list)):
-        return [flag for part in aux for flag in _overflow_flags(part)]
+        return [flag for part in aux for flag in overflow_flags(part)]
     return []
 
 
@@ -294,7 +294,7 @@ class Simulator:
     def _check_overflow(self, state: L.MDState) -> None:
         """Raise on an overflowed neighbour list or cell assignment in the
         carry: it silently drops interactions."""
-        for kind, flag in _overflow_flags(state.aux):
+        for kind, flag in overflow_flags(state.aux):
             if bool(flag):
                 raise RuntimeError(
                     f"{kind} overflow at step {state.step}: some atoms are missing from the "

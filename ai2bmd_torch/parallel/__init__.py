@@ -1,5 +1,7 @@
-"""Replica ensembles (``ai2bmd_tpu/parallel``); one card so far."""
+"""Replica ensembles (``ai2bmd_tpu/parallel``) on one card: vacuum fragment
+mode and solvated QM/MM."""
 
-from ai2bmd_torch.parallel.sharding import ReplicaEnsemble, replica_generators
+from ai2bmd_torch.parallel.sharding import (ReplicaEnsemble, SolvatedReplicaEnsemble,
+                                            replica_generators)
 
-__all__ = ["ReplicaEnsemble", "replica_generators"]
+__all__ = ["ReplicaEnsemble", "SolvatedReplicaEnsemble", "replica_generators"]

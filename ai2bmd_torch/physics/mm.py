@@ -16,9 +16,15 @@ Two routes for the direct-space pairs, as in JAX:
   * ``mm_energy`` / ``mm_energy_forces``: an [N, K] neighbour list
     (``ops/neighbors.py``), the whole energy through autograd.
 
-Left out: the NPT pressure functions and the dynamic-cell influence
-(``mm_pressure*``, ``dynamic_influence``; ROADMAP item 14) and the legacy
-``polarization`` hybrid (the item 13 remainder, item 13b).
+Every energy takes an optional ``cell`` (a [3] tensor): the box of a
+dynamic-cell NPT step, whose PME mesh keeps its size while the influence
+function and the volume terms follow the cell (``dynamic_influence``);
+``cell=None`` is the static box of ``MMSystem.build``, on the code path the
+NVT runs take.  ``mm_pressure_dense`` and ``mm_pressure`` give the
+instantaneous isotropic pressure by the strain derivative.
+
+Left out: the legacy ``polarization`` hybrid (the item 13 remainder, item
+13b).
 
 Units: positions A, energy eV, forces eV/A.
 """
@@ -34,7 +40,8 @@ import torch
 from ai2bmd_torch.data.protein_topology import SystemTopology
 from ai2bmd_torch.host import units
 from ai2bmd_torch.ops.neighbors import NeighborList, _pbc_diff
-from ai2bmd_torch.physics.pme import influence_function, mesh_energy, mesh_grid, spread
+from ai2bmd_torch.physics.pme import (euler_spline_mod2, influence_function, mesh_energy,
+                                      mesh_grid, spread)
 from ai2bmd_torch.utils.device import resolve_device
 
 KCAL = units.kcal_per_mol
@@ -75,6 +82,9 @@ class MMSystem:
     cmap_coeffs: torch.Tensor | None = None   # [T,R,R,4,4] bicubic coefficients, eV
     # analytic LJ dispersion tail beyond the cutoff: U_tail = lj_tail_a / V
     lj_tail_a: float = 0.0    # eV * A^3
+    # |b(m)|^2 of the mesh's B-splines, [Kx,Ky,Kz]: the cell-free factor of
+    # the influence function, kept on the device for dynamic_influence
+    spline_mod2: torch.Tensor | None = None
 
     @classmethod
     def build(cls, top: SystemTopology, cell: np.ndarray, cutoff: float = 9.0,
@@ -107,6 +117,9 @@ class MMSystem:
             e_neutral=-np.pi / (2.0 * beta ** 2 * volume) * float(np.sum(q)) ** 2 * units.COULOMB,
             lj_tail_a=_lj_tail_coefficient(np.asarray(top.sigmas, np.float64),
                                            np.asarray(top.epsilons, np.float64) * KCAL, cutoff),
+            spline_mod2=f(euler_spline_mod2(grid[0])[:, None, None]
+                          * euler_spline_mod2(grid[1])[None, :, None]
+                          * euler_spline_mod2(grid[2])[None, None, :]),
             **cmap,
         )
 
@@ -193,13 +206,14 @@ def _dihedral_angle(p0, p1, p2, p3, cell):
                        torch.where(ok, x, torch.ones_like(x)))
 
 
-def cmap_energy(mm: MMSystem, P: torch.Tensor) -> torch.Tensor:
+def cmap_energy(mm: MMSystem, P: torch.Tensor, cell=None) -> torch.Tensor:
     """ff19SB CMAP: bicubic-interpolated E(phi, psi) per term (``mm.py:
     266-293``); the spline is C1, so forces are continuous across cells."""
+    cell = mm.cell if cell is None else cell
     a = mm.cmap_atoms
     R = mm.cmap_coeffs.shape[1]
-    phi = _dihedral_angle(P[a[:, 0]], P[a[:, 1]], P[a[:, 2]], P[a[:, 3]], mm.cell)
-    psi = _dihedral_angle(P[a[:, 1]], P[a[:, 2]], P[a[:, 3]], P[a[:, 4]], mm.cell)
+    phi = _dihedral_angle(P[a[:, 0]], P[a[:, 1]], P[a[:, 2]], P[a[:, 3]], cell)
+    psi = _dihedral_angle(P[a[:, 1]], P[a[:, 2]], P[a[:, 3]], P[a[:, 4]], cell)
 
     def locate(angle):
         x = (angle + math.pi) * (R / (2.0 * math.pi))
@@ -214,10 +228,10 @@ def cmap_energy(mm: MMSystem, P: torch.Tensor) -> torch.Tensor:
     return torch.einsum("mij,mi,mj->", C, tp, up)
 
 
-def bonded_energy(mm: MMSystem, P: torch.Tensor) -> torch.Tensor:
+def bonded_energy(mm: MMSystem, P: torch.Tensor, cell=None) -> torch.Tensor:
     """Bonds, angles, dihedrals (proper and improper) and CMAP (``mm.py:
     309-338``)."""
-    cell = mm.cell
+    cell = mm.cell if cell is None else cell
     e = torch.zeros((), dtype=P.dtype, device=P.device)
     if mm.bonds.shape[0]:
         d = _safe_norm(_pbc_diff(P[mm.bonds[:, 0]] - P[mm.bonds[:, 1]], cell))
@@ -232,14 +246,15 @@ def bonded_energy(mm: MMSystem, P: torch.Tensor) -> torch.Tensor:
         phi = _dihedral_angle(P[d[:, 0]], P[d[:, 1]], P[d[:, 2]], P[d[:, 3]], cell)
         e = e + (mm.dih_k * (1.0 + torch.cos(mm.dih_n * phi - mm.dih_phase))).sum()
     if mm.cmap_atoms is not None and mm.cmap_atoms.shape[0]:
-        e = e + cmap_energy(mm, P)
+        e = e + cmap_energy(mm, P, cell)
     return e
 
 
-def _pair_terms(mm: MMSystem, P: torch.Tensor, pairs: torch.Tensor):
+def _pair_terms(mm: MMSystem, P: torch.Tensor, pairs: torch.Tensor, cell=None):
     """(qq/r Coulomb, LJ) of an explicit pair list, minimum image."""
+    cell = mm.cell if cell is None else cell
     i, j = pairs[:, 0], pairs[:, 1]
-    d = torch.clamp(_safe_norm(_pbc_diff(P[i] - P[j], mm.cell)), min=1e-3)
+    d = torch.clamp(_safe_norm(_pbc_diff(P[i] - P[j], cell)), min=1e-3)
     coul = units.COULOMB * mm.charge[i] * mm.charge[j] / d
     sig = 0.5 * (mm.sigma[i] + mm.sigma[j])
     eps = torch.sqrt(mm.eps[i] * mm.eps[j])
@@ -247,28 +262,61 @@ def _pair_terms(mm: MMSystem, P: torch.Tensor, pairs: torch.Tensor):
     return coul, 4.0 * eps * (c6 * c6 - c6)
 
 
-def _recip_excl_energy(mm: MMSystem, P: torch.Tensor) -> torch.Tensor:
+def dynamic_influence(mm: MMSystem, cell: torch.Tensor):
+    """(influence [Kx,Ky,Kz], neutralizing energy) of the fixed mesh in a
+    dynamic cell (NPT; ``mm.py:338-357``), on the device: the mesh sizes are
+    Python ints and the splines' moduli ``mm.spline_mod2``, so nothing is
+    copied from the host."""
+    ms = [torch.fft.fftfreq(K, dtype=cell.dtype, device=cell.device) * K / cell[d]
+          for d, K in enumerate(mm.grid)]
+    MX, MY, MZ = torch.meshgrid(*ms, indexing="ij")
+    m2 = MX ** 2 + MY ** 2 + MZ ** 2
+    volume = cell[0] * cell[1] * cell[2]
+    m2_safe = torch.where(m2 > 0, m2, torch.ones_like(m2))
+    infl = torch.where(m2 > 0, torch.exp(-math.pi ** 2 * m2_safe / mm.beta ** 2) / m2_safe
+                       * mm.spline_mod2, torch.zeros_like(m2)) / (2.0 * math.pi * volume)
+    e_neutral = (-math.pi / (2.0 * mm.beta ** 2 * volume) * mm.charge.sum() ** 2
+                 * units.COULOMB)
+    return infl, e_neutral
+
+
+def _recip_excl_energy(mm: MMSystem, P: torch.Tensor, cell=None) -> torch.Tensor:
     """PME reciprocal + self / neutral + LJ tail + exclusion and 1-4
-    corrections (``mm.py:569-591``, static cell)."""
-    cell = mm.cell
-    e = (mesh_energy(mm.influence, spread(mm.charge, P, cell, mm.grid)) * units.COULOMB
-         + mm.e_self + mm.e_neutral + mm.lj_tail_a / (cell[0] * cell[1] * cell[2]))
+    corrections (``mm.py:569-591``); ``cell`` None is the static box."""
+    if cell is None:
+        cell, influence, e_neutral = mm.cell, mm.influence, mm.e_neutral
+    else:
+        influence, e_neutral = dynamic_influence(mm, cell)
+    e = (mesh_energy(influence, spread(mm.charge, P, cell, mm.grid)) * units.COULOMB
+         + mm.e_self + e_neutral + mm.lj_tail_a / (cell[0] * cell[1] * cell[2]))
     if mm.excl_pairs.shape[0]:
-        coul, lj = _pair_terms(mm, P, mm.excl_pairs)
+        coul, lj = _pair_terms(mm, P, mm.excl_pairs, cell)
         e = e - coul.sum() - lj.sum()
     if mm.pairs14.shape[0]:
-        coul, lj = _pair_terms(mm, P, mm.pairs14)
+        coul, lj = _pair_terms(mm, P, mm.pairs14, cell)
         e = e - coul.sum() * (1.0 - 1.0 / mm.scee) - lj.sum() * (1.0 - 1.0 / mm.scnb)
     return e
 
 
-def smooth_energy_forces(mm: MMSystem, P: torch.Tensor):
+def smooth_energy_forces(mm: MMSystem, P: torch.Tensor, cell=None):
     """(E, F) of the bonded, reciprocal and exclusion terms by autograd."""
     with torch.enable_grad():
         p = P.detach().requires_grad_(True)
-        e = bonded_energy(mm, p) + _recip_excl_energy(mm, p)
+        e = bonded_energy(mm, p, cell) + _recip_excl_energy(mm, p, cell)
         (g,) = torch.autograd.grad(e, p)
     return e.detach(), -g
+
+
+def smooth_strain_derivative(mm: MMSystem, P: torch.Tensor, cell: torch.Tensor):
+    """dU/ds at s = 1 of the bonded, reciprocal and exclusion terms with the
+    positions and the cell scaled by s (the strain derivative of
+    ``mm_pressure_dense``, by autograd in s)."""
+    with torch.enable_grad():
+        s = torch.ones((), dtype=P.dtype, device=P.device, requires_grad=True)
+        Ps, cs = P.detach() * s, cell * s
+        e = bonded_energy(mm, Ps, cs) + _recip_excl_energy(mm, Ps, cs)
+        (g,) = torch.autograd.grad(e, s)
+    return g
 
 
 def pair_block(d: list, m: torch.Tensor, qi, qj, si, sj, ei, ej, beta: float, cutoff: float):
@@ -302,19 +350,21 @@ def pair_block(d: list, m: torch.Tensor, qi, qj, si, sj, ei, ej, beta: float, cu
     return e, f, (C * d2s).sum()
 
 
-def dense_pair_energy_forces(mm: MMSystem, P: torch.Tensor, tile: int = 512):
+def dense_pair_energy_forces(mm: MMSystem, P: torch.Tensor, cell=None, tile: int = 512):
     """erfc-Coulomb + LJ over ALL pairs in [tile, N] blocks (``mm.py:
     473-531``): no neighbour list; each atom sums its own row of the full
     symmetric pair matrix, so no scatter.  Returns (E, F, W) with E and W
-    half-sums over the full pair matrix.  ``tile`` bounds the intermediates
-    (a dozen [tile, N] tensors live at once); JAX takes 2048."""
+    half-sums over the full pair matrix (W = sum of phi'(r) r, the pair
+    virial).  ``tile`` bounds the intermediates (a dozen [tile, N] tensors
+    live at once); JAX takes 2048."""
+    cell = mm.cell if cell is None else cell
     n = P.shape[0]
     cols = torch.arange(n, device=P.device)
     es, fs, ws = [], [], []
     with torch.no_grad():
         for start in range(0, n, tile):
             stop = min(start + tile, n)
-            d = [_pbc_diff(P[None, :, a] - P[start:stop, a, None], mm.cell[a]) for a in range(3)]
+            d = [_pbc_diff(P[None, :, a] - P[start:stop, a, None], cell[a]) for a in range(3)]
             rows = torch.arange(start, stop, device=P.device)
             e, f, w = pair_block(d, cols[None, :] != rows[:, None],
                                  mm.charge[start:stop, None], mm.charge[None, :],
@@ -326,20 +376,46 @@ def dense_pair_energy_forces(mm: MMSystem, P: torch.Tensor, tile: int = 512):
     return 0.5 * torch.stack(es).sum(), torch.cat(fs), 0.5 * torch.stack(ws).sum()
 
 
-def mm_energy_forces_dense(mm: MMSystem, P: torch.Tensor, tile: int = 512):
+def mm_energy_forces_dense(mm: MMSystem, P: torch.Tensor, cell=None, tile: int = 512):
     """(E, F) with the dense direct-space path (``mm.py:534-558``): bonded,
     PME reciprocal and exclusion corrections by autograd, the pairs
     analytic."""
-    e_s, f_s = smooth_energy_forces(mm, P)
-    e_p, f_p, _ = dense_pair_energy_forces(mm, P, tile)
-    return e_s + e_p, f_p + f_s
+    e, f, _ = mm_energy_forces_virial_dense(mm, P, cell, tile)
+    return e, f
 
 
-def nonbonded_nl_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList) -> torch.Tensor:
+def mm_energy_forces_virial_dense(mm: MMSystem, P: torch.Tensor, cell=None, tile: int = 512):
+    """(E, F, W): ``mm_energy_forces_dense`` and the pair virial W of its
+    pair pass, which ``pressure`` takes, so that an NPT step needs no second
+    pair pass (``mm_pressure_dense`` re-evaluates the pairs at the same
+    positions and cell: the same W)."""
+    e_s, f_s = smooth_energy_forces(mm, P, cell)
+    e_p, f_p, w = dense_pair_energy_forces(mm, P, cell, tile)
+    return e_s + e_p, f_p + f_s, w
+
+
+def pressure(mm: MMSystem, P: torch.Tensor, cell: torch.Tensor, kinetic_energy, w_pair):
+    """Instantaneous isotropic pressure (eV/A^3), (2 K - dU_smooth/ds - W) /
+    (3 V), from the dense pair pass's virial ``w_pair`` at (P, cell)."""
+    du_smooth = smooth_strain_derivative(mm, P, cell)
+    return (2.0 * kinetic_energy - du_smooth - w_pair) / (3.0 * cell[0] * cell[1] * cell[2])
+
+
+def mm_pressure_dense(mm: MMSystem, P: torch.Tensor, cell: torch.Tensor, kinetic_energy,
+                      tile: int = 512):
+    """Instantaneous pressure on the dense path (``mm.py:561-574``): the pair
+    virial sum(phi'(r) r) from the tiled pairs, the bonded and reciprocal
+    terms through the strain derivative."""
+    _, _, w_pair = dense_pair_energy_forces(mm, P, cell, tile)
+    return pressure(mm, P, cell, kinetic_energy, w_pair)
+
+
+def nonbonded_nl_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList,
+                        cell=None) -> torch.Tensor:
     """Neighbour-list LJ + erfc-Coulomb (each pair twice, halved) + PME
     reciprocal and exclusion terms (``mm.py:351-393``)."""
     pad = lambda a: torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
-    vec = _pbc_diff(pad(P)[nl.idx] - P[:, None, :], mm.cell)
+    vec = _pbc_diff(pad(P)[nl.idx] - P[:, None, :], mm.cell if cell is None else cell)
     d2 = (vec * vec).sum(-1)
     valid = nl.valid & (d2 < mm.cutoff ** 2)
     zero = torch.zeros((), dtype=P.dtype, device=P.device)
@@ -352,17 +428,28 @@ def nonbonded_nl_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList) -> torc
     eps = torch.sqrt(mm.eps[:, None] * pad(mm.eps)[nl.idx])
     c6 = (sig * sig / d2) ** 3
     e_lj = 0.5 * torch.where(valid, 4.0 * eps * (c6 * c6 - c6), zero).sum()
-    return e_coul + e_lj + _recip_excl_energy(mm, P)
+    return e_coul + e_lj + _recip_excl_energy(mm, P, cell)
 
 
-def mm_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList) -> torch.Tensor:
-    return bonded_energy(mm, P) + nonbonded_nl_energy(mm, P, nl)
+def mm_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell=None) -> torch.Tensor:
+    return bonded_energy(mm, P, cell) + nonbonded_nl_energy(mm, P, nl, cell)
 
 
-def mm_energy_forces(mm: MMSystem, P: torch.Tensor, nl: NeighborList):
+def mm_energy_forces(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell=None):
     """(E, F) of ``mm_energy`` by autograd (the ``nl`` route)."""
     with torch.enable_grad():
         p = P.detach().requires_grad_(True)
-        e = mm_energy(mm, p, nl)
+        e = mm_energy(mm, p, nl, cell)
         (g,) = torch.autograd.grad(e, p)
     return e.detach(), -g
+
+
+def mm_pressure(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell: torch.Tensor,
+                kinetic_energy):
+    """Instantaneous isotropic pressure on the ``nl`` route (``mm.py:
+    616-625``; the CPU only, like the rest of it): P = (2 K - dU/d(ln s)) /
+    (3 V), s the uniform scale of positions and cell, by autograd in s."""
+    with torch.enable_grad():
+        s = torch.ones((), dtype=P.dtype, device=P.device, requires_grad=True)
+        (du,) = torch.autograd.grad(mm_energy(mm, P.detach() * s, nl, cell * s), s)
+    return (2.0 * kinetic_energy - du) / (3.0 * cell[0] * cell[1] * cell[2])

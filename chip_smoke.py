@@ -149,13 +149,42 @@ is not printed):
      plain route: its log line, LAUNCHES["plain_edge_core"] > 0 there (and
      0 after every other phase); each with step 0 against the CPU float64
      run, 3 graphed steps and the ms of 20 replays
-  10. one JSON line of kernel results, the card's name and power limit, and
+  10. preprocessing and solvated replicas, at 9 x 256 with phase 4's
+     weights: (a) Preprocessor on examples/chig.pdb at the default padding
+     with short stages (PRE_SHORT: 20 minimization cycles, 3 heat stages of
+     20 steps, one NVT chunk of 500 steps, 20 NPT steps): the box's atoms,
+     the energy before and after the minimization (it must fall), T after
+     each heat stage, the NPT cell and <P>, ms per step of each stage (CUDA
+     events), one dense MM evaluation at the minimized positions against
+     the port on the CPU in float64 (solvent atoms within 1e-3 eV/A,
+     protein atoms within PRE_PROTEIN_SPREAD, the float32 spread), the final
+     state's pressure against the CPU float64 value (PRESSURE_REL of the
+     virial's scale), NPT steps replayed from the captured step against
+     eager steps on the same noise (1e-4 A after one step; after 5 the
+     float32 residue of the excluded pairs' LJ has grown as between two
+     eager runs, reported) (the stages are replays of captured steps); (b)
+     `python -m
+     ai2bmd_torch --prot-file examples/chig.pdb --solvent` with (a)'s outputs
+     in --log-dir: the skip line and 4 solvated steps; (c)
+     SolvatedReplicaEnsemble of 4 replicas of chig-preeq.pdb (cellpair):
+     step-0 forces of every replica against phase 9b's lone step (1e-4
+     eV/A), the capture's launches per evaluation equal to phase 9b's,
+     replica r's first 5 steps against a lone GraphedLangevin on its
+     generator (1e-4 A, 1e-3 eV/A), the replicas diverge, K1-K4's device
+     kernels per replica-step in a trace equal to the lone replay's, ms per
+     replica-step, aggregate ns/day, peak memory; (d) the CLI's --replicas 2
+     on the box, 4 steps, then --restart to 8 (per-replica DCDs, the resume
+     line)
+  11. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
-first check of a kernel change); `--solvated-only` runs phase 9 alone after
-the build, without it.  Phase 5 runs eagerly (no graph).  Imports no JAX.  The ms/step figures it
-prints are smoke figures, not a benchmark.
+first check of a kernel change); `--solvated-only` runs phases 9 and 10
+alone after the build, without it; `--preprocess-full` runs only
+Preprocessor() with its default stages on examples/chig.pdb (each stage's
+wall seconds and ms per step), without it.  Phase 5 runs eagerly (no
+graph).  Imports no JAX.  The ms/step figures it prints are smoke figures,
+not a benchmark.
 """
 
 import argparse
@@ -2251,7 +2280,7 @@ def run_solvated_sim(torch, dev, card, root, rigid: bool):
               f"{float(f_ref.abs().max()):.2f} eV/A")
         need(dF_solv <= FORCE_LIMIT, f"solvent forces differ from float64 by {dF_solv:.3e}")
         need(dF_prot <= PROTEIN_SPREAD, f"protein forces differ from float64 by {dF_prot:.3e}")
-        out.update(dF_solvent=dF_solv, dF_protein=dF_prot, dE=dE)
+        out.update(dF_solvent=dF_solv, dF_protein=dF_prot, dE=dE, forces0=state.forces.cpu())
         P, (cs, qa) = state.positions, state.aux
         reset_launches()
         qmmm(P, state.aux)
@@ -2469,6 +2498,339 @@ def run_solvated(torch, dev, prot, card, root, mm_graphed_ms):
                 cli=cli, plain_edge_core=plain)
 
 
+# Phase 10: preprocessing and solvated replicas.
+PRE_SHORT = dict(max_cyc=20, heat_stages=(50.0, 150.0, 300.0), heat_steps=20, nvt_steps=1,
+                 npt_steps=20)        # nvt_steps=1 runs one whole chunk of 500, as JAX does
+# The dense pair sum takes in the excluded (bonded) protein pairs' LJ, which
+# the exclusion correction takes out again: in float32 the protein atoms'
+# forces cancel only to a few 1e-2 eV/A (the JAX package's own float32
+# figure at the short protocol's minimized positions, on the CPU: 3.28e-2;
+# the port's 3.14e-2 there, 3.36e-2 and 4.36e-2 on the card at its own
+# minimized positions; solvent atoms ~2e-5), and the pressure's two large
+# virial terms, each ~1e6 times the pressure, to ~1e-7 of their size.  The
+# residue changes at random with the last bits of the positions, so a step
+# that starts from positions one ulp apart (the NPT scaling moves every atom
+# by the pressure's rounding) ends ~1e-2 eV/A apart on protein atoms.
+PRE_PROTEIN_SPREAD = 1e-1     # eV/A
+PRESSURE_REL = 1e-6           # of the virial's scale (2K + |dU_smooth/ds| + |W|) / 3V
+# one NPT step replayed against an eager one: the charge spreading's atomics
+# move the pressure by its float32 rounding (1.6 bar, ~3e-8 of the virial's
+# scale), and the Berendsen scaling moves every atom by ~1e-7 of the cell
+# per bar of it: ~1e-5 A (7.6e-6 measured on an H100)
+NPT_REPLAY_LIMIT = 1e-4       # A
+CPU_TILE = 2048               # the CPU float64 reference's pair tile (rows a block)
+N_SOLV_REPLICAS = 4
+ENS_CHECK_STEPS = 5           # replica-steps held against a lone graphed run
+ENS_POS_LIMIT = 1e-4          # A
+ENS_TIMED_CALLS = 3
+K1_K4 = ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")
+ENS_CLI_STEPS, ENS_CLI_RESTART_STEPS = 4, 8
+
+
+def run_preprocess(torch, dev, card, root):
+    """Phase 10a: Preprocessor on examples/chig.pdb at the default padding
+    with short stages (PRE_SHORT), on the card: the box, the energy before
+    and after the minimization, T after each heat stage, the NPT cell and
+    <P>, each stage's ms per step (CUDA events, the stages being replays of
+    captured steps); one dense MM evaluation at the minimized positions and
+    the pressure of the final state against the port on the CPU in float64;
+    replayed NPT steps against eager ones.  Returns its log directory and
+    figures."""
+    from ai2bmd_torch.data.protein_topology import build_topology
+    from ai2bmd_torch.host import load_protein
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.md.graphed import GraphedStep
+    from ai2bmd_torch.physics import mm as MM
+    from ai2bmd_torch.preprocess import BAR_IN_EV_A3, Preprocessor, npt_body, solvate
+
+    pre_dir = os.path.join(root, "preprocess")
+    os.makedirs(pre_dir, exist_ok=True)
+    pre = Preprocessor(log_dir=pre_dir, **PRE_SHORT)
+    t0 = time.perf_counter()
+    out = pre.run("examples/chig.pdb", log=lambda m: print(f"    {m}", flush=True))
+    wall = time.perf_counter() - t0
+    mm = pre.mm
+    n = mm.n_atoms
+    need(os.path.exists(out) and os.path.exists(out.replace("-preeq.pdb", "-preeq-nowat.pdb")),
+         "preprocessing wrote no outputs")
+    e0, e1 = pre.energies["minimize"]
+    need(e1 < e0, f"minimization did not lower the energy: {e0} -> {e1}")
+    need(all(math.isfinite(t) for t in pre.temperatures), f"heat temperatures {pre.temperatures}")
+    need(bool(pre.state.positions.isfinite().all()), "non-finite preprocessed positions")
+    need(math.isfinite(pre.last_npt_pressure_bar), "no NPT pressure")
+    stage_ms = {k: v["ms"] / v["steps"] for k, v in pre.stages.items()}
+    print(f"  (a) {n} atoms, cell {[round(c, 3) for c in mm.cell.tolist()]} -> NPT cell "
+          f"{[round(c, 3) for c in pre.cell.tolist()]}, <P> per chunk {pre.npt_pressures_bar} bar; "
+          f"E {e0:.2f} -> {e1:.2f} eV over {pre.max_cyc} cycles; T after the heat stages "
+          f"{[round(t, 1) for t in pre.temperatures]} K; {wall:.1f} s in all")
+    print(f"  (a) ms per step (evaluation for the minimization), CUDA events: " + ", ".join(
+        f"{k} {v:.3f} ({pre.stages[k]['steps']})" for k, v in stage_ms.items()) + f" ({card})")
+
+    # the port on the CPU in float64: the same box, built again from the seed
+    box = solvate(load_protein("examples/chig.pdb").atoms, padding=pre.padding, seed=pre.seed)
+    need(len(box) == n, f"the box rebuilt on the host has {len(box)} atoms, not {n}")
+    top = build_topology(box)
+    mm64 = MM.MMSystem.build(top, box.cell, cutoff=pre.cutoff, device="cpu", dtype=torch.float64)
+    solvent = torch.ones(n, dtype=torch.bool)
+    solvent[torch.as_tensor(top.protein_atoms)] = False
+    dense_ms = cuda_ms(torch, lambda: MM.mm_energy_forces_dense(mm, pre.minimized), 3)
+    e_c, f_c = MM.mm_energy_forces_dense(mm, pre.minimized)
+    t0 = time.perf_counter()
+    e_r, f_r = MM.mm_energy_forces_dense(mm64, pre.minimized.cpu().double(), tile=CPU_TILE)
+    secs = time.perf_counter() - t0
+    dF = (f_c.cpu().double() - f_r).abs().max(-1).values
+    dF_solv, dF_prot = float(dF[solvent].max()), float(dF[~solvent].max())
+    print(f"  (a) one dense MM evaluation at the minimized positions: {dense_ms:.3f} ms on the "
+          f"card; against the CPU float64 ({secs:.1f} s): solvent atoms max|dF| {dF_solv:.3e} eV/A "
+          f"(limit {FORCE_LIMIT}), protein atoms {dF_prot:.3e} (limit {PRE_PROTEIN_SPREAD}, the "
+          f"float32 spread), |dE| {abs(float(e_c) - float(e_r)):.3e} eV of {float(e_r):.1f}")
+    need(dF_solv <= FORCE_LIMIT, f"preprocessing MM: solvent forces differ by {dF_solv:.3e}")
+    need(dF_prot <= PRE_PROTEIN_SPREAD, f"preprocessing MM: protein forces differ by {dF_prot:.3e}")
+
+    P, cell = pre.state.positions, pre.cell
+    ekin = L.kinetic_energy(top.masses, pre.state.velocities)
+    p_c = float(MM.mm_pressure_dense(mm, P, cell, ekin)) / BAR_IN_EV_A3
+    P64, cell64, ekin64 = P.cpu().double(), cell.cpu().double(), ekin.cpu().double()
+    p_r = float(MM.mm_pressure_dense(mm64, P64, cell64, ekin64, tile=CPU_TILE)) / BAR_IN_EV_A3
+    _, _, w = MM.dense_pair_energy_forces(mm64, P64, cell64, tile=CPU_TILE)
+    du = MM.smooth_strain_derivative(mm64, P64, cell64)
+    scale = float((2 * ekin64 + du.abs() + w.abs()) / (3 * cell64.prod())) / BAR_IN_EV_A3
+    print(f"  (a) pressure of the final state: card {p_c:.3f} bar, CPU float64 {p_r:.3f} bar "
+          f"(|dP| {abs(p_c - p_r):.3e} bar, limit {PRESSURE_REL} x the virial's scale "
+          f"{scale:.1f} bar)")
+    need(abs(p_c - p_r) <= PRESSURE_REL * scale, f"pressure differs by {abs(p_c - p_r):.3e} bar")
+
+    # the stages are replays of captured steps: the NPT step's against eager
+    # steps on the same noise, from the final state; after one step only the
+    # charge spreading's atomics part them (NPT_REPLAY_LIMIT), after
+    # GRAPH_CHECK_STEPS the float32 residue of the excluded pairs (above) has
+    # grown as it does between two eager runs, which are reported beside them
+    coeffs = L.LangevinCoeffs.build(top.masses, 1.0, pre.target_temp, 0.002, device=dev)
+    body = npt_body(mm, coeffs, torch.as_tensor(top.masses, dtype=torch.float32, device=dev),
+                    pre.taup_fs)
+    st = pre.state
+    bufs = tuple(t.clone() for t in (st.positions, st.velocities, st.forces, st.energy, P, P,
+                                     cell, st.energy))
+    graph = GraphedStep(body, bufs)
+    ref, ref2 = (tuple(t.clone() for t in bufs) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    apart = []
+    for _ in range(GRAPH_CHECK_STEPS):
+        for out in bufs[4:6]:
+            torch.randn(out.shape, generator=gen, out=out)
+        for r in (ref, ref2):
+            r[4].copy_(bufs[4])
+            r[5].copy_(bufs[5])
+            body(r)
+        graph.replay()
+        apart.append((float((bufs[0] - ref[0]).abs().max()), abs(float(bufs[7] - ref[7])),
+                      float((ref2[0] - ref[0]).abs().max())))
+    (dx1, dP1, _), (dx, dP, dx_eager) = apart[0], apart[-1]
+    print(f"  (a) NPT steps replayed from the captured step against eager steps on the same "
+          f"noise: after 1 step max|dx| {dx1:.3e} A, |dP| {dP1:.3e} bar (limits "
+          f"{NPT_REPLAY_LIMIT} A, {PRESSURE_REL} x the scale); after {GRAPH_CHECK_STEPS} "
+          f"max|dx| {dx:.3e} A, |dP| {dP:.3e} bar, two eager runs {dx_eager:.3e} A apart")
+    need(dx1 <= NPT_REPLAY_LIMIT and dP1 <= PRESSURE_REL * scale,
+         f"an NPT replay differs from an eager step: {dx1}, {dP1}")
+    return pre_dir, dict(atoms=n, stage_ms=stage_ms, dense_ms=dense_ms, dF_solvent=dF_solv,
+                         dF_protein=dF_prot, pressure_bar=p_c, wall_s=wall)
+
+
+def run_preprocess_cli(root, pre_dir):
+    """Phase 10b: `python -m ai2bmd_torch --prot-file examples/chig.pdb
+    --solvent` with (a)'s outputs in --log-dir: the skip line, then 4
+    solvated steps."""
+    t0 = time.perf_counter()
+    out = _cli_wait("solvent-preprocessed", _cli_start([
+        sys.executable, "-m", "ai2bmd_torch", "--prot-file", "examples/chig.pdb", "--solvent",
+        "--log-dir", pre_dir, "--preeq-steps", "0", "--sim-steps", "4", "--record-per-steps",
+        "2", "--timestep", str(SOLV_DT_FS)]))
+    skip = [ln for ln in out.splitlines() if ln.startswith("preprocessing outputs exist")]
+    qm = [ln for ln in out.splitlines() if ln.startswith("QM/MM:")]
+    need(skip and qm, f"the --solvent run printed no skip or QM/MM line:\n{out[-2000:]}")
+    need("Simulation finished!" in out, "the --solvent run did not finish")
+    print(f"  (b) --prot-file examples/chig.pdb --solvent: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; {skip[0]!r}; {qm[0]!r}")
+
+
+def kernel_counts(torch, fn):
+    """Launches of K1-K4's device kernels by name in a profiled call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(k in e.name for k in QM_NAMES):
+            counts[short_name(e.name)] = counts.get(short_name(e.name), 0) + 1
+    return counts
+
+
+def run_solvated_replicas(torch, dev, card, lone):
+    """Phase 10c: SolvatedReplicaEnsemble of N_SOLV_REPLICAS replicas of the
+    solvated Chignolin box at 9 x 256 with phase 4's weights: the route;
+    every replica's step-0 forces against the lone solvated step's (phase
+    9b); launches of the first call (the capture) per evaluation against
+    phase 9b's one evaluation; replica r's first ENS_CHECK_STEPS steps
+    against a lone GraphedLangevin run on replica r's generator; the
+    replicas diverge; kernel launches per replica-step (trace) equal the
+    lone replay's; ms per replica-step, aggregate ns/day, peak memory."""
+    from ai2bmd_torch.host import normalize_atom_order, read_pdb
+    from ai2bmd_torch.md import GraphedLangevin
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.md.graphed import WARMUP_STEPS
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.parallel import SolvatedReplicaEnsemble, replica_generators
+
+    R = N_SOLV_REPLICAS
+    atoms = normalize_atom_order(read_pdb(SOLVATED))
+    cfg = ViSNetConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ens = SolvatedReplicaEnsemble.build(atoms, params, cfg, n_replicas=R, timestep_fs=SOLV_DT_FS)
+    state0 = ens.initial_state(atoms.positions, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    need(ens.qmmm.backend == "cellpair", f"the ensemble's pair route is {ens.qmmm.backend}")
+    dF0 = float((state0.forces.cpu() - lone["forces0"]).abs().max())
+    print(f"  (c) {R} replicas of {len(atoms)} atoms, {ens.qmmm.backend} pairs: build and first "
+          f"forces {t_build:.1f} s; step-0 forces of every replica vs the lone solvated step "
+          f"(phase 9b): max|dF| {dF0:.3e} eV/A (limit 1e-4)")
+    need(dF0 <= 1e-4, f"replica step-0 forces differ from the lone step by {dF0:.3e}")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = ens.run(state0, ENS_CHECK_STEPS)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in KERNELS}
+    per_eval = {k: v / (WARMUP_STEPS + 1) for k, v in launches.items()}
+    print(f"  (c) first run ({ENS_CHECK_STEPS} steps a replica, the capture with its "
+          f"{WARMUP_STEPS} warm-up steps) {t_first:.1f} s; launches {launches}, per evaluation "
+          f"{per_eval} against phase 9b's {lone['launches']}")
+    need(all(per_eval[k] == (lone["launches"][k] if k in K1_K4 else 0) for k in KERNELS)
+         and all(per_eval[k] > 0 for k in K1_K4),
+         f"replica launches per evaluation {per_eval}, lone {lone['launches']}")
+    need(ens.graph is not None and ens.graph.replays == R * ENS_CHECK_STEPS,
+         "the ensemble did not replay its captured step")
+
+    gens = replica_generators(0, R, dev)
+    masses = ens.masses.cpu().numpy()
+    for g in gens:
+        L.maxwell_boltzmann_velocities(g, masses, 300.0)
+    graph = GraphedLangevin(ens.qmmm, ens.coeffs, ens.masses, ens.replica(state0, 0), gens[0])
+    dx = dF = 0.0
+    for r in range(R):
+        graph.load(ens.replica(state0, r), gens[r])
+        s = graph.run(ENS_CHECK_STEPS)
+        dx = max(dx, float((got.positions[r] - s.positions).abs().max()))
+        dF = max(dF, float((got.forces[r] - s.forces).abs().max()))
+    spread = float((got.positions[0] - got.positions[1]).abs().max())
+    print(f"  (c) replica r's first {ENS_CHECK_STEPS} steps vs a lone GraphedLangevin on its "
+          f"generator: max|dx| {dx:.3e} A (limit {ENS_POS_LIMIT}), max|dF| {dF:.3e} eV/A (limit "
+          f"{FORCE_LIMIT}); replicas 0 and 1 apart by {spread:.3e} A")
+    need(dx <= ENS_POS_LIMIT and dF <= FORCE_LIMIT, f"replicas differ from lone runs: {dx}, {dF}")
+    need(spread > 1e-6, "the replicas did not diverge")
+
+    ens_counts = kernel_counts(torch, lambda: ens.run(got, 1))
+    lone_counts = kernel_counts(torch, lambda: graph.run(1))
+    per_step = {k: v / R for k, v in ens_counts.items()}
+    print(f"  (c) device kernels of K1-K4 per replica-step (trace) {per_step}; the lone replay's "
+          f"{lone_counts}")
+    need(per_step == lone_counts and lone_counts, "replica-steps launch other kernels than the "
+                                                  "lone step")
+    del graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    final = ens.run(got, ENS_TIMED_CALLS)
+    end.record()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (R * ENS_TIMED_CALLS)
+    ms_ev = start.elapsed_time(end) / (R * ENS_TIMED_CALLS)
+    need(bool(final.positions.isfinite().all() and final.forces.isfinite().all()),
+         "non-finite replica state")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"  (c) {ms:.3f} ms per replica-step (host clock), {ms_ev:.3f} (CUDA events) over "
+          f"{R} x {ENS_TIMED_CALLS}; aggregate {86.4 / ms:.4f} ns/day at 1 fs; peak device memory "
+          f"{peak:.2f} GiB above the {base / 2 ** 30:.2f} held before ({card})")
+    return dict(launches_per_eval=per_eval, ms=ms, ms_events=ms_ev, peak_gib=peak, dF0=dF0,
+                dx=dx)
+
+
+def run_replicas_cli(root):
+    """Phase 10d: `python -m ai2bmd_torch --replicas 2` on the solvated box:
+    ENS_CLI_STEPS steps, then --restart to ENS_CLI_RESTART_STEPS: exit 0,
+    the per-replica DCDs, the resume line."""
+    import numpy as np
+
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    d = os.path.join(root, "cli_replicas")
+    cmd = [sys.executable, "-m", "ai2bmd_torch", "--prot-file", SOLVATED, "--log-dir", d,
+           "--replicas", "2", "--record-per-steps", "2", "--timestep", str(SOLV_DT_FS)]
+    t0 = time.perf_counter()
+    out = _cli_wait("replicas", _cli_start([*cmd, "--sim-steps", str(ENS_CLI_STEPS)]))
+    again = _cli_wait("replicas-restart", _cli_start(
+        [*cmd, "--sim-steps", str(ENS_CLI_RESTART_STEPS), "--restart"]))
+    wall = time.perf_counter() - t0
+    need(any(ln.startswith("QM/MM:") for ln in out.splitlines()), "no QM/MM line")
+    need("resumed ensemble" in again, f"the restart printed no resume line:\n{again[-2000:]}")
+    for r in range(2):
+        for suffix, frames in (("", ENS_CLI_STEPS // 2),
+                               ("-restart", (ENS_CLI_RESTART_STEPS - ENS_CLI_STEPS) // 2)):
+            f = read_dcd(os.path.join(d, f"chig-preeq-r{r:03d}-traj{suffix}.dcd"))
+            need(f.shape == (frames, 17882, 3) and bool(np.isfinite(f).all()),
+                 f"replica {r} DCD{suffix}: {f.shape}")
+    print(f"  (d) --replicas 2 on {SOLVATED}: {ENS_CLI_STEPS} steps, then --restart to "
+          f"{ENS_CLI_RESTART_STEPS}: exit 0 twice, 2 DCDs each, "
+          f"{[ln for ln in again.splitlines() if 'resumed ensemble' in ln][0]!r} ({wall:.1f} s)")
+
+
+def run_preprocessing_and_replicas(torch, dev, card, root, lone):
+    """Phase 10: (a) preprocessing on the card, (b) the CLI's --solvent route
+    on (a)'s outputs, (c) SolvatedReplicaEnsemble, (d) the CLI's --replicas
+    route on the box and its restart."""
+    t_phase = time.perf_counter()
+    pre_dir, pre = run_preprocess(torch, dev, card, root)
+    run_preprocess_cli(root, pre_dir)
+    no_plain("10a-b")
+    ens = run_solvated_replicas(torch, dev, card, lone)
+    run_replicas_cli(root)
+    no_plain("10c-d")
+    print(f"  phase 10 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(pre=pre, ens=ens)
+
+
+def run_preprocess_full(torch, card, root):
+    """`--preprocess-full`: Preprocessor() with the JAX package's default
+    stages on examples/chig.pdb, each stage's wall seconds and ms per step."""
+    from ai2bmd_torch.preprocess import Preprocessor
+
+    d = os.path.join(root, "preprocess_full")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    pre = Preprocessor(log_dir=d)
+    t0 = time.perf_counter()
+    pre.run("examples/chig.pdb", log=lambda m: print(f"    {m}", flush=True))
+    wall = time.perf_counter() - t0
+    print(f"  Preprocessor() on examples/chig.pdb ({pre.mm.n_atoms} atoms): {wall:.1f} s in all; "
+          + ", ".join(f"{k} {v['ms'] / 1e3:.1f} s ({v['steps']} steps, "
+                      f"{v['ms'] / v['steps']:.3f} ms each)" for k, v in pre.stages.items())
+          + f"; final-half <P> {pre.last_npt_pressure_bar:.1f} bar ({card})")
+
+
+
 KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
     "edge_fwd": ("ai2bmd_torch/ops/csrc/edge_fwd.cu", "ai2bmd_tpu/ops/pallas/vismp.py:543"),
     "edge_bwd_msg": ("ai2bmd_torch/ops/csrc/edge_bwd_msg.cu",
@@ -2516,7 +2878,11 @@ def main(argv=None):
                          "fragment-shape inputs, without the final line (to compare them "
                          "across commits)")
     ap.add_argument("--solvated-only", action="store_true",
-                    help="after the build, run only phase 9 (the solvated slice), without the "
+                    help="after the build, run only phases 9 and 10 (the solvated slices: QM/MM, "
+                         "preprocessing, solvated replicas), without the final line")
+    ap.add_argument("--preprocess-full", action="store_true",
+                    help="after the build, run only Preprocessor() with its default stages on "
+                         "examples/chig.pdb and print each stage's wall seconds, without the "
                          "final line")
     args = ap.parse_args(argv)
     import torch
@@ -2563,10 +2929,17 @@ def main(argv=None):
         layer_hashes(torch, dev, timed=True)
         return
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_user")
+    if args.preprocess_full:
+        print("== preprocessing with the default stages")
+        run_preprocess_full(torch, card, root)
+        return
     if args.solvated_only:
         shutil.rmtree(root, ignore_errors=True)
         print("== 9. the solvated slice (alone)")
-        run_solvated(torch, dev, load_protein(example_pdb("chig")), card, root, float("nan"))
+        solv = run_solvated(torch, dev, load_protein(example_pdb("chig")), card, root,
+                            float("nan"))
+        print("== 10. preprocessing and solvated replicas")
+        run_preprocessing_and_replicas(torch, dev, card, root, solv["flex"])
         return
 
     print("== 3. kernels against their plain versions")
@@ -2613,6 +2986,10 @@ def main(argv=None):
     print("== 9. the solvated slice: PME in fragment mode, QM/MM of the solvated Chignolin box "
           "(17,882 atoms) at 9 x 256, the CLI on it, 64-channel heads and the plain route")
     solv = run_solvated(torch, dev, prot, card, root, graphed["ms_step"])
+    print("== 10. preprocessing (solvate, minimize, heat, NVT, NPT) of Chignolin on the card, the "
+          "CLI's --solvent route, SolvatedReplicaEnsemble (4 replicas of the box, 9 x 256), the "
+          "CLI's --replicas route on the box")
+    p10 = run_preprocessing_and_replicas(torch, dev, card, root, solv["flex"])
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -2634,7 +3011,9 @@ def main(argv=None):
         if k["name"] in solv["flex"]["launches"]:
             k["solvated_launches"] = solv["flex"]["launches"][k["name"]]
             k["pme_fragment_launches"] = solv["pme_launches"][k["name"]]
-    print("== 10. results")
+    for k in kernels:      # phase 10c: per replica-step of the solvated ensemble
+        k["solvated_replica_launches"] = p10["ens"]["launches_per_eval"][k["name"]]
+    print("== 11. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -2644,6 +3023,8 @@ def main(argv=None):
           f"GiB {wm['abd_peak_gib']}; warm_caps=False graphed {cold_ms:.3f}; 'pme' graphed "
           f"{solv['pme_ms']:.3f}; solvated graphed {solv['flex']['ms_step']:.3f} (events "
           f"{solv['flex']['ms_events']:.3f}), rigid water {solv['rigid']['ms_step']:.3f}; "
+          f"preprocessing ms per step {p10['pre']['stage_ms']}; solvated replica-step "
+          f"{p10['ens']['ms']:.3f} ({N_SOLV_REPLICAS} replicas); "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

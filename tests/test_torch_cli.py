@@ -4,15 +4,17 @@ the JAX package's (ai2bmd_tpu.cli, .simulators), on the CPU.
 Parser parity; ProteinSimulation's cold cap offsets and first forces against
 JAX's with JAX's weights bridged in (tiny model); `python -m ai2bmd_torch
 --device cpu --model-preset tiny` end to end with --build-frames, then
---restart; the replica ensemble and its restart; the refused routes, each
-naming its ROADMAP item; a malformed checkpoint; and the missing card.
-Whole-molecule mode and checkpoints: tests/test_torch_whole_molecule.py.
+--restart; the refused routes, each naming its ROADMAP item; a malformed
+checkpoint; and the missing card.  The replica ensemble's route:
+tests/test_torch_cli_ensemble.py (a file of its own, so that pytest-xdist's
+--dist loadfile runs it beside this one); whole-molecule mode and
+checkpoints: tests/test_torch_whole_molecule.py; preprocessing and solvated
+ensembles: tests/test_torch_solvated_ensemble.py.
 
 The CLI runs step at 0.25 fs: with random weights (no checkpoint ships)
 vacuum Chignolin heats past the runaway guard (1.5 x 300 K) within a few fs
 at 1 fs a step, in both packages."""
 
-import logging
 import os
 import subprocess
 import sys
@@ -38,6 +40,16 @@ from ai2bmd_torch.models.params import params_from_jax
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8)   # --model-preset tiny
 CLI_TINY = ["--device", "cpu", "--model-preset", "tiny", "--timestep", "0.25"]
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread for every test here (see test_torch_qmmm.py's): under
+    pytest-xdist the workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _options(parser):
@@ -93,7 +105,7 @@ def test_protein_simulation_matches_jax(monkeypatch, tmp_path):
 
 def _cli(*args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")   # one thread, as one_thread above
     return subprocess.run([sys.executable, "-m", "ai2bmd_torch", *args], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
 
@@ -128,44 +140,19 @@ def _main(argv):
     return TCLI.main(["--prot-file", conftest.example_pdb("chig"), *CLI_TINY, *argv])
 
 
-def test_cli_replica_ensemble_and_its_restart(tmp_path):
-    """--replicas 2 in process: a DCD a replica, the final npz, the
-    checkpoint with both generators; 4 steps then --restart to 6 equal 6
-    straight steps bitwise on the CPU, and the tee is undone."""
-    conftest.require_examples()
-    out, err = sys.stdout, sys.stderr
-    common = ["--replicas", "2", "--record-per-steps", "2"]
-    assert _main([*common, "--sim-steps", "6", "--log-dir", str(tmp_path / "a")]) == 0
-    assert _main([*common, "--sim-steps", "4", "--log-dir", str(tmp_path / "b")]) == 0
-    assert sys.stdout is out and sys.stderr is err
-    b = tmp_path / "b"
-    for r in range(2):
-        assert TT.read_dcd(str(b / f"chig-r{r:03d}-traj.dcd")).shape == (2, 175, 3)
-    with np.load(b / "chig-2x-ensemble-restart.npz") as z:
-        assert int(z["step"]) == 4 and z["rng_states"].shape[0] == 2
-        assert z["aux"].shape[0] == 2 and z["positions"].shape == (2, 175, 3)
-    assert _main([*common, "--sim-steps", "6", "--log-dir", str(b), "--restart"]) == 0
-    assert TT.read_dcd(str(b / "chig-r001-traj-restart.dcd")).shape == (1, 175, 3)
-    with np.load(tmp_path / "a" / "2x-ensemble-final.npz") as fa, \
-            np.load(b / "2x-ensemble-final.npz") as fb:
-        np.testing.assert_array_equal(fa["positions"], fb["positions"])
-        np.testing.assert_array_equal(fa["velocities"], fb["velocities"])
-        assert not np.array_equal(fa["positions"][0], fa["positions"][1])
-
-
 SOLVATED = ["--prot-file", "examples/chig_preprocessed/chig-preeq.pdb"]
 
 
 # the ids the cases had beside the two whole-molecule / checkpoint cases,
-# which went when those routes were ported, and the pme (12) and solvated
-# (13) cases, which became tests of the routes:
-# test_torch_pme.py::test_cli_runs_pme_in_fragment_mode and
-# test_torch_qmmm.py::test_cli_runs_the_solvated_box_with_explicit_solvent
+# which went when those routes were ported, and the pme (12), solvated (13)
+# and preprocessing (14) cases, which became tests of the routes:
+# test_torch_pme.py::test_cli_runs_pme_in_fragment_mode,
+# test_torch_qmmm.py::test_cli_runs_the_solvated_box_with_explicit_solvent and
+# test_torch_solvated_ensemble.py::test_cli_solvent_on_a_bare_pdb_finds_the_preprocessed_box
 @pytest.mark.parametrize("argv, item", [
-    (["--preprocess"], 14),
     ([*SOLVATED, "--mm-method", "amoeba"], 15),
     ([*SOLVATED, "--polarizable-mm"], "13b"),
-], ids=["argv4-14", "amoeba-15", "polarizable-13b"])
+], ids=["amoeba-15", "polarizable-13b"])
 def test_cli_refused_routes_name_their_item(tmp_path, argv, item):
     """Each route the port does not have yet exits nonzero naming its
     ROADMAP item (on a solvated input, before any model is built)."""
@@ -194,21 +181,6 @@ def test_cli_a_malformed_checkpoint_exits_naming_the_file(tmp_path, argv, name):
     assert run.returncode != 0
     assert f"{tmp_path / name} is not a" in run.stderr, run.stderr[-2000:]
     assert not any(f.endswith(".dcd") for f in os.listdir(tmp_path))
-
-
-def test_an_ensemble_mesh_over_several_cards_is_refused(monkeypatch, tmp_path):
-    """JAX's mesh arithmetic (cli.py:280-282) with 4 cards gives a 1 x 4
-    mesh even at --mesh-dp 1 --mesh-mp 1: refused for item 17 before any
-    work; on one card it is 1 x 1."""
-    args = TCLI.build_parser().parse_args(["--prot-file", "x.pdb", "--replicas", "8"])
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert TCLI._mesh_devices(args, torch.device("cuda")) == 4
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TCLI._run_ensemble(args, torch.device("cuda"), None, str(tmp_path), None,
-                           logging.getLogger("test"))
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert TCLI._mesh_devices(args, torch.device("cuda")) == 1
-    assert TCLI._mesh_devices(args, torch.device("cpu")) == 1
 
 
 def test_cli_without_a_card_raises_the_require_cuda_message(tmp_path):

@@ -1,0 +1,72 @@
+"""The CLI's replica-ensemble route of the port (``python -m ai2bmd_torch
+--replicas``) on the CPU: the vacuum ensemble and its restart, and the
+refused mesh.  Split from tests/test_torch_cli.py so that pytest-xdist's
+--dist loadfile runs the two files side by side."""
+
+import logging
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import conftest
+from ai2bmd_torch import cli as TCLI
+from ai2bmd_torch.io import trajectory as TT
+
+# test_torch_cli.py's
+CLI_TINY = ["--device", "cpu", "--model-preset", "tiny", "--timestep", "0.25"]
+
+
+def _main(argv):
+    return TCLI.main(["--prot-file", conftest.example_pdb("chig"), *CLI_TINY, *argv])
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread for every test here (see test_torch_qmmm.py's): under
+    pytest-xdist the workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_cli_replica_ensemble_and_its_restart(tmp_path):
+    """--replicas 2 in process: a DCD a replica, the final npz, the
+    checkpoint with both generators; 4 steps then --restart to 6 equal 6
+    straight steps bitwise on the CPU, and the tee is undone."""
+    conftest.require_examples()
+    out, err = sys.stdout, sys.stderr
+    common = ["--replicas", "2", "--record-per-steps", "2"]
+    assert _main([*common, "--sim-steps", "6", "--log-dir", str(tmp_path / "a")]) == 0
+    assert _main([*common, "--sim-steps", "4", "--log-dir", str(tmp_path / "b")]) == 0
+    assert sys.stdout is out and sys.stderr is err
+    b = tmp_path / "b"
+    for r in range(2):
+        assert TT.read_dcd(str(b / f"chig-r{r:03d}-traj.dcd")).shape == (2, 175, 3)
+    with np.load(b / "chig-2x-ensemble-restart.npz") as z:
+        assert int(z["step"]) == 4 and z["rng_states"].shape[0] == 2
+        assert z["aux_0"].shape[0] == 2 and z["positions"].shape == (2, 175, 3)
+    assert _main([*common, "--sim-steps", "6", "--log-dir", str(b), "--restart"]) == 0
+    assert TT.read_dcd(str(b / "chig-r001-traj-restart.dcd")).shape == (1, 175, 3)
+    with np.load(tmp_path / "a" / "2x-ensemble-final.npz") as fa, \
+            np.load(b / "2x-ensemble-final.npz") as fb:
+        np.testing.assert_array_equal(fa["positions"], fb["positions"])
+        np.testing.assert_array_equal(fa["velocities"], fb["velocities"])
+        assert not np.array_equal(fa["positions"][0], fa["positions"][1])
+
+
+def test_an_ensemble_mesh_over_several_cards_is_refused(monkeypatch, tmp_path):
+    """JAX's mesh arithmetic (cli.py:280-282) with 4 cards gives a 1 x 4
+    mesh even at --mesh-dp 1 --mesh-mp 1: refused for item 17 before any
+    work; on one card it is 1 x 1."""
+    args = TCLI.build_parser().parse_args(["--prot-file", "x.pdb", "--replicas", "8"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert TCLI._mesh_devices(args, torch.device("cuda")) == 4
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TCLI._run_ensemble(args, torch.device("cuda"), None, str(tmp_path), None,
+                           logging.getLogger("test"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert TCLI._mesh_devices(args, torch.device("cuda")) == 1
+    assert TCLI._mesh_devices(args, torch.device("cpu")) == 1

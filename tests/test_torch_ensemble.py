@@ -3,8 +3,10 @@ Chignolin, small ViSNet (3 layers x 32, 4 heads), float32, CPU.
 
 The replica-batched warm potential, its per-replica cap L-BFGS and the
 batched Langevin step are held against the JAX package's functions on the
-same numpy inputs (JAX on its jnp path, as its own tests run it); the
-ensemble against lone replicas of the port with the same generators.
+same numpy inputs (JAX on its jnp path, as its own tests run it).  The
+ensemble against lone replicas of the port with the same generators, and
+its refusals: tests/test_torch_ensemble_lone.py (a file of its own, so that
+pytest-xdist's --dist loadfile runs it beside this one).
 """
 
 import dataclasses
@@ -15,24 +17,31 @@ import numpy as np
 import pytest
 import torch
 
-import conftest
 from ai2bmd_tpu.frag import hydrogen as JH
 from ai2bmd_tpu.frag import runtime as JR
 from ai2bmd_tpu.md import langevin as JL
 from ai2bmd_tpu.models import visnet as JV
 from ai2bmd_tpu.physics import nonbonded as JN
-from ai2bmd_torch import potentials as TP
 from ai2bmd_torch.frag import hydrogen as TH
 from ai2bmd_torch.frag import runtime as TR
 from ai2bmd_torch.md import langevin as TL
 from ai2bmd_torch.models import visnet as TV
 from ai2bmd_torch.models.params import params_from_jax
-from ai2bmd_torch.parallel import ReplicaEnsemble, replica_generators
 from ai2bmd_torch.physics import nonbonded as TN
 
 SMALL = dict(hidden_channels=32, num_heads=4, num_layers=3, num_rbf=8, max_z=20)
 RL = 3
 T = lambda a: torch.as_tensor(np.array(a))
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread for every test here (see test_torch_qmmm.py's): under
+    pytest-xdist the workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -148,48 +157,3 @@ def test_langevin_step_batched_matches_jax_with_its_noise(ens, chig_protein):
     np.testing.assert_allclose(st.energy.numpy(), np.asarray(sj.energy), rtol=0, atol=2e-4)
     with pytest.raises(ValueError, match="generators"):
         TL.langevin_step_batched(lambda x, aux: None, ct, m, st, generators=[None])
-
-
-@pytest.mark.parametrize("remat", [False, True], ids=["stash", "remat"])
-def test_replica_ensemble_matches_lone_replicas(ens, chig_protein, remat):
-    """ReplicaEnsemble of 2 replicas on the CPU against two lone
-    langevin_step runs of FragmentPotential, each with the replica's own
-    generator: the same cold-then-warm start and 3 steps.  Tolerance 1e-5 A
-    (only the cap L-BFGS inner products are summed in another order)."""
-    cfg = dataclasses.replace(ens["tcfg"], remat=remat)
-    e = ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], cfg, n_replicas=2,
-                              steps_per_call=3, replica_chunk=1, device="cpu")
-    s = e.run(e.initial_state(chig_protein.positions, seed=11), 1)
-    assert s.step == 3 and s.positions.shape == (2, len(chig_protein), 3)
-    assert not torch.equal(s.positions[0], s.positions[1])
-
-    pot = TP.FragmentPotential.build(chig_protein, TV.ViSNet(cfg, ens["tparams"]), cfg,
-                                     device="cpu")
-    P = torch.as_tensor(chig_protein.positions, dtype=torch.float32)
-    m = torch.as_tensor(chig_protein.masses, dtype=torch.float32)
-    coeffs = TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001, device="cpu")
-    for r, g in enumerate(replica_generators(11, 2, "cpu")):
-        v = TL.maxwell_boltzmann_velocities(g, chig_protein.masses, 300.0)
-        e0, f0, aux = pot.stateful_energy_forces(P, pot.init_cap_delta(P))
-        lone = TL.MDState(P, v, f0, e0, aux=aux)
-        for _ in range(3):
-            lone = TL.langevin_step(pot.stateful_energy_forces, coeffs, m, lone, generator=g)
-        np.testing.assert_allclose(s.positions[r].numpy(), lone.positions.numpy(), rtol=0,
-                                   atol=1e-5)
-        np.testing.assert_allclose(s.forces[r].numpy(), lone.forces.numpy(), rtol=0, atol=1e-4)
-
-
-def test_replica_ensemble_refuses_a_mesh_and_a_missing_card(ens, chig_protein, monkeypatch):
-    """One card only: a mesh is refused (multi-GPU is ROADMAP item 17), and
-    without device= the ensemble takes the card, raising without one."""
-    conftest.require_examples()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], ens["tcfg"], n_replicas=2,
-                              device="cpu", mesh=object())
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], ens["tcfg"], n_replicas=2)
-    e = ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], ens["tcfg"], n_replicas=2,
-                              device="cpu")
-    with pytest.raises(ValueError, match="initial_state"):
-        e.run(None, 1)

@@ -42,6 +42,16 @@ TINY = dict(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8)   # --mode
 T = lambda a: torch.as_tensor(np.array(a))
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread for every test here (see test_torch_qmmm.py's): under
+    pytest-xdist the workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _both(monkeypatch, tmp_path, pdb, model, **kw):
     """ProteinSimulation.from_pdb in both packages with JAX's weights
     bridged into the port's."""
@@ -120,8 +130,10 @@ def test_cold_caps_every_step_match_jax(monkeypatch, tmp_path):
 
 def test_cli_no_solvent_runs_a_solvated_input_in_vacuum(tmp_path):
     """python -m ai2bmd_torch --no-solvent on the solvated box exits 0 with a
-    trajectory of the protein's 175 atoms; --replicas 2 on the same input is
-    still refused, naming ROADMAP item 13, whatever --solvent says."""
+    trajectory of the protein's 175 atoms, and so does --replicas 2 on the
+    same input: the replica ensemble of its protein in vacuum, a DCD of 175
+    atoms a replica (the solvated ensemble runs without --no-solvent:
+    tests/test_torch_solvated_ensemble.py)."""
     conftest.require_examples()
     pdb = conftest.example_pdb("chig-preeq")
     args = ["--prot-file", pdb, "--no-solvent", "--device", "cpu", "--model-preset", "tiny",
@@ -130,9 +142,11 @@ def test_cli_no_solvent_runs_a_solvated_input_in_vacuum(tmp_path):
                       "--sim-steps", "4", "--record-per-steps", "2"]) == 0
     frames = TT.read_dcd(str(tmp_path / "a" / "chig-preeq-traj.dcd"))
     assert frames.shape == (2, 175, 3) and np.isfinite(frames).all()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TCLI.main([*args, "--log-dir", str(tmp_path / "b"), "--replicas", "2",
-                   "--sim-steps", "2", "--record-per-steps", "2"])
+    assert TCLI.main([*args, "--log-dir", str(tmp_path / "b"), "--replicas", "2",
+                      "--sim-steps", "2", "--record-per-steps", "2"]) == 0
+    for r in range(2):
+        frames = TT.read_dcd(str(tmp_path / "b" / f"chig-preeq-r{r:03d}-traj.dcd"))
+        assert frames.shape == (1, 175, 3) and np.isfinite(frames).all()
 
 
 @pytest.mark.parametrize("H, nh", [(32, 4), (64, 4), (256, 8), (64, 2), (256, 4)],

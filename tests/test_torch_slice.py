@@ -44,6 +44,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = lambda a: torch.as_tensor(np.array(a))
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One torch thread for every test here (see test_torch_qmmm.py's): under
+    pytest-xdist the workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pots(chig_protein):
     jcfg = JV.ViSNetConfig(**SMALL)
@@ -184,8 +194,9 @@ def test_pme_long_range_matches_jax(chig_protein, pots):
 
 def test_port_never_imports_jax():
     """A tiny CPU slice in a fresh interpreter, through the full-layer path
-    and the edge-core path, with the CLI, the Simulator, ProteinSimulation
-    and the trajectory IO imported: neither JAX nor any ai2bmd_tpu module
+    and the edge-core path, with the CLI, the Simulator, ProteinSimulation,
+    the trajectory IO, preprocessing, the peptide builder and the ensembles
+    imported: neither JAX nor any ai2bmd_tpu module
     loads, and no kernel launch is counted (CPU tensors take the plain
     versions)."""
     code = textwrap.dedent("""
@@ -198,6 +209,7 @@ def test_port_never_imports_jax():
         from ai2bmd_torch.potentials import FragmentPotential
         import ai2bmd_torch.cli, ai2bmd_torch.md.simulation, ai2bmd_torch.simulators
         import ai2bmd_torch.io.trajectory, ai2bmd_torch.tools.traj2dcd
+        import ai2bmd_torch.preprocess, ai2bmd_torch.io.build, ai2bmd_torch.parallel
         prot = load_protein(example_pdb("chig"))
         cfg = ViSNetConfig(hidden_channels=32, num_heads=1, num_layers=2, num_rbf=8, max_z=20)
         params = init_params(cfg, torch.Generator().manual_seed(0))
@@ -217,7 +229,7 @@ def test_port_never_imports_jax():
         print(dict(LAUNCHES))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")   # one thread, as one_thread above
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
