@@ -18,7 +18,8 @@ Routes:
     input (or ``--solvent``) runs subtractive QM/MM over the whole periodic
     box with the ff19SB engine (``--mm-method mm-engine``, and ``tinker`` /
     ``tinker-GPU``, which name the reference's co-process, as in the JAX
-    package), ``--rigid-water`` (SETTLE) and ``--no-write-solvent`` (a
+    package; ``--polarizable-mm`` adds the induced-dipole hybrid) or the
+    polarizable AMOEBA engine (``--mm-method amoeba``), ``--rigid-water`` (SETTLE) and ``--no-write-solvent`` (a
     trajectory of the protein only); with ``--no-solvent`` it runs its
     protein alone in vacuum; an exception during the simulation exits 255,
     as the reference's runaway / solver errors do
@@ -26,8 +27,8 @@ Routes:
     card for a vacuum input (or, with ``--no-solvent``, a solvated input's
     protein, as the lone route runs it; JAX's ensemble route ignores
     ``--no-solvent``), ``SolvatedReplicaEnsemble`` for a solvated one
-    (ff19SB; ``--mm-method amoeba`` there runs ff19SB with a warning, as in
-    the JAX package); each replica with its own DCD, the whole batched
+    (ff19SB; ``--mm-method amoeba`` and ``--polarizable-mm`` there run
+    ff19SB with a warning, as in the JAX package); each replica with its own DCD, the whole batched
     state (and every replica's generator state) checkpointed each record
     interval
   * weights: ``--ckpt-path`` (a Lightning .ckpt, or a converted .npz; with
@@ -35,9 +36,8 @@ Routes:
     every route, else random weights; a file that is not a checkpoint exits
     nonzero naming it
 
-Refused, naming the ROADMAP item that ports them: ``--mm-method amoeba`` on
-a lone solvated run and ``--preprocess-method AMOEBA`` (item 15);
-``--polarizable-mm`` on a solvated run (the item 13 remainder, item 13b); a
+Refused, naming the ROADMAP item that ports them: ``--preprocess-method
+AMOEBA`` (item 15, its preprocessing half); a
 mesh of more than one card (item 17); and ``--matmul-precision`` other than
 float32 (the port's products are float32 or 3xTF32 by design).  The
 reference's ``--device-strategy``, ``--work-strategy`` and ``--chunk-size``
@@ -227,7 +227,7 @@ def _run(args, device, prot_name: str, log_dir: str, log) -> int:
     print(_model_line(sim.potential.cfg, device), flush=True)
     if sim.qmmm is not None:
         print(f"QM/MM: {sim.qmmm.n_atoms} atoms in the box, {len(sim.qmmm.sel)} in the QM "
-              f"region; {sim.qmmm.backend} pairs, PME mesh {sim.qmmm.mm_full.grid}"
+              f"region; {sim.qmmm.backend} pairs, {sim.qmmm.engine} MM, PME mesh {sim.qmmm.mesh}"
               f"{', rigid water (SETTLE)' if sim.sim.constraint is not None else ''}", flush=True)
     try:
         sim.simulate(args.sim_steps, restart=args.restart)
@@ -332,16 +332,16 @@ def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log) -> int:
                   warm_iters=1, device=device)
     if solvated:
         if args.polarizable_mm:
-            raise NotImplementedError(
-                "--polarizable-mm (the induced-dipole hybrid of physics/polarization.py) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 13b)")
+            # JAX's ensemble route never passes the flag on (ai2bmd_tpu/cli.py:295-302)
+            log.warning("solvated ensembles run the fixed-charge ff19sb engine (as the JAX "
+                        "package's do); use --replicas 1 for --polarizable-mm")
         if args.mm_method == "amoeba":
             log.warning("solvated ensembles run the ff19sb engine (as the JAX package's do); "
                         "use --replicas 1 for --mm-method amoeba")
         ens = SolvatedReplicaEnsemble.build(full.atoms, params, cfg, **common)
         q = ens.qmmm
         print(f"QM/MM: {q.n_atoms} atoms in the box, {len(q.sel)} in the QM region; "
-              f"{q.backend} pairs, PME mesh {q.mm_full.grid}; {args.replicas} replicas",
+              f"{q.backend} pairs, PME mesh {q.mesh}; {args.replicas} replicas",
               flush=True)
     else:
         ens = ReplicaEnsemble.build(full, build_fragment_index(full.atoms), params, cfg,

@@ -8,10 +8,14 @@ utils.py:252-276, src/Calculators/pme.py:164):
     time, keeping the K nearest neighbours within the cutoff by top-k; an
     atom with more than K reports ``overflow``;
   * ``build_neighbor_list_cells``: the same list from a periodic cell
-    decomposition (one [M, 27M] block a cell), O(N) for large boxes;
+    decomposition (one [M, 27M] block a cell, ``CELL_CHUNK`` cells a
+    pass), O(N) for large boxes;
   * the list is full (each pair in both rows), so a force sums its own row;
   * ``needs_rebuild``: the Verlet-skin criterion on the displacement since
-    the build.
+    the build; ``rebuild``: a fresh list with the overflow flag kept, which
+    the QM/MM step calls every step (no host decision, so it is captured).
+
+Neither build reads anything back to the host.
 
 Ties between equal distances may order a row's slots differently from JAX's
 top-k; the pair set is the same.
@@ -24,12 +28,46 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+# cells a pass of build_neighbor_list_cells: bounds the [chunk, M, 27M]
+# blocks and the captured graph's node count (cellpair.py chunks its blocks
+# by 18 cells alike)
+CELL_CHUNK = 18
+
 
 class NeighborList(NamedTuple):
     idx: torch.Tensor       # [N, K] int64 neighbour indices (N = padding)
     valid: torch.Tensor     # [N, K] bool
     ref_pos: torch.Tensor   # positions at build time (for displacement checks)
     overflow: torch.Tensor  # 0-d bool: some atom had > K neighbours (list incomplete)
+
+
+class _GatherRows(torch.autograd.Function):
+    """x[idx] whose backward sums the gradient rows back with one
+    ``index_add`` accumulated in float64 (for float32 inputs): the atomic
+    adds of CUDA then round to the same float32 sum whatever their order,
+    where advanced indexing's backward sorts the indices first (93% of a
+    step's device time at [N, K] = 17,882 x 640 on an H100).  The backward
+    is plain tensor algebra, so it differentiates again (create_graph)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = x.shape[0]
+        return x.index_select(0, idx.reshape(-1)).reshape(*idx.shape, *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = torch.float64 if g.dtype == torch.float32 else g.dtype
+        flat = g.reshape(-1, *g.shape[idx.dim():]).to(acc)
+        out = flat.new_zeros((ctx.n_rows, *flat.shape[1:])).index_add(0, idx.reshape(-1), flat)
+        return out.to(g.dtype), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] ([*idx.shape, *x.shape[1:]]), its backward one index_add
+    accumulated in float64 (``_GatherRows``)."""
+    return _GatherRows.apply(x, idx)
 
 
 def _pbc_diff(vec: torch.Tensor, cell) -> torch.Tensor:
@@ -74,6 +112,15 @@ def needs_rebuild(nl: NeighborList, P: torch.Tensor, skin: float, cell=None) -> 
     return (disp * disp).sum(-1).max() > (0.5 * skin) ** 2
 
 
+def rebuild(nl: NeighborList, P: torch.Tensor, build) -> NeighborList:
+    """A fresh list at P from ``build(P)``, with ``nl``'s overflow flag kept
+    (sticky), so that an overflow at any step stays visible in the carry.
+    Rebuilding every step gives the skin-triggered list's pair set within
+    the cutoff, and a captured step needs no branch on device data."""
+    new = build(P)
+    return new._replace(overflow=new.overflow | nl.overflow)
+
+
 # ---------------------------------------------------------------------------
 # cell-list build: an O(N) rebuild for large periodic boxes
 # ---------------------------------------------------------------------------
@@ -93,6 +140,15 @@ def cell_grid(cell_np, cutoff: float, n_atoms: int, max_occ: int | None = None):
     return tuple(int(x) for x in nc), int(max_occ)
 
 
+def max_cell_occupancy(positions, cell_np, nc: tuple) -> int:
+    """The fullest cell's atom count at these positions (host numpy), binned
+    as ``build_neighbor_list_cells`` bins them."""
+    frac = np.asarray(positions, np.float64) / np.asarray(cell_np, np.float64)
+    cid3 = np.minimum(((frac - np.floor(frac)) * np.asarray(nc)).astype(int), np.asarray(nc) - 1)
+    cid = (cid3[:, 0] * nc[1] + cid3[:, 1]) * nc[2] + cid3[:, 2]
+    return int(np.bincount(cid).max())
+
+
 def neighbor_cells(nc: tuple) -> np.ndarray:
     """[C, 27] ids of each cell's 3x3x3 periodic neighbourhood (dx, dy, dz
     each in -1, 0, 1, x slowest)."""
@@ -108,22 +164,29 @@ def neighbor_cells(nc: tuple) -> np.ndarray:
 
 
 def build_neighbor_list_cells(P: torch.Tensor, cutoff: float, k_max: int, cell: torch.Tensor,
-                              nc: tuple, max_occ: int) -> NeighborList:
+                              nc: tuple, max_occ: int,
+                              nbr_cells: torch.Tensor | None = None) -> NeighborList:
     """Exact [N, K] within-cutoff list via a periodic cell decomposition
     (``neighbors.py:124-226``): atoms binned into cells of side >= cutoff,
-    one dense [M, 27M] distance block a cell.  Same contract as
-    ``build_neighbor_list``; overflow flags an over-full cell or K row."""
+    one dense [M, 27M] distance block a cell, ``CELL_CHUNK`` cells a pass (JAX
+    maps over the cells one at a time).  Same contract as
+    ``build_neighbor_list``: the pair set, idx == N on dead slots; overflow
+    flags an over-full cell or K row.  Nothing is read back to the host and
+    every shape is fixed, so the build runs inside a captured step, given
+    ``nbr_cells`` (``neighbor_cells(nc)`` on the device: made here when
+    None, a copy from the host that a capture cannot hold)."""
     n = P.shape[0]
     dev = P.device
     k_max = min(k_max, n)
     ncx, ncy, ncz = nc
     C, M = ncx * ncy * ncz, max_occ
-    nc_i = torch.as_tensor(nc, device=dev)
+    if nbr_cells is None:
+        nbr_cells = torch.as_tensor(neighbor_cells(nc), device=dev)        # [C, 27]
 
     frac = P / cell
     frac = frac - torch.floor(frac)
-    cid3 = torch.minimum((frac * nc_i.to(P.dtype)).long(), nc_i - 1)     # [N,3]
-    cid = (cid3[:, 0] * ncy + cid3[:, 1]) * ncz + cid3[:, 2]
+    cid3 = [torch.clamp((frac[:, a] * nc[a]).long(), max=nc[a] - 1) for a in range(3)]
+    cid = (cid3[0] * ncy + cid3[1]) * ncz + cid3[2]
 
     # occupancy table: rank within the cell from the sorted order
     order = torch.argsort(cid, stable=True)
@@ -137,27 +200,29 @@ def build_neighbor_list_cells(P: torch.Tensor, cutoff: float, k_max: int, cell: 
     occ_idx = occ_idx.reshape(C, M)
     Ppad = torch.cat([P, torch.full((1, 3), 1e6, dtype=P.dtype, device=dev)])
     occ_P = Ppad[occ_idx]                                              # [C, M, 3]
-    nbr_cells = torch.as_tensor(neighbor_cells(nc), device=dev)        # [C, 27]
 
     idx_c, valid_c, count_c = [], [], []
-    for c in range(C):
-        cj = occ_idx[nbr_cells[c]].reshape(-1)                         # [27M]
-        Pj = occ_P[nbr_cells[c]].reshape(-1, 3)
-        ci = occ_idx[c]
-        vec = _pbc_diff(Pj[None, :, :] - occ_P[c][:, None, :], cell)
-        d2 = (vec * vec).sum(-1)                                       # [M, 27M]
-        within = (d2 < cutoff * cutoff) & (cj[None, :] != ci[:, None]) & (cj[None, :] < n)
-        kidx, valid, count = _top_within(d2, within, k_max)
-        idx_c.append(torch.where(valid, cj[kidx], n))
+    for c0 in range(0, C, CELL_CHUNK):
+        nb = nbr_cells[c0:c0 + CELL_CHUNK]                             # [c, 27]
+        cj = occ_idx[nb].reshape(nb.shape[0], 1, 27 * M)               # [c, 1, 27M]
+        Pj = occ_P[nb].reshape(nb.shape[0], 1, 27 * M, 3)
+        ci = occ_idx[c0:c0 + CELL_CHUNK, :, None]                      # [c, M, 1]
+        Pi = occ_P[c0:c0 + CELL_CHUNK, :, None, :]
+        d2 = sum(_pbc_diff(Pj[..., a] - Pi[..., a], cell[a]) ** 2 for a in range(3))
+        within = (d2 < cutoff * cutoff) & (cj != ci) & (cj < n)        # [c, M, 27M]
+        score = torch.where(within, -d2, torch.full_like(d2, -torch.inf))
+        kidx = torch.topk(score, k_max, dim=-1).indices
+        valid = torch.gather(within, -1, kidx)
+        idx_c.append(torch.where(valid, torch.gather(cj.expand(-1, M, -1), -1, kidx), n))
         valid_c.append(valid)
-        count_c.append(count)
+        count_c.append(within.sum(-1))
 
     # back to atom order: atom i lives at (cid[i], rank[i])
     rank = torch.zeros(n, dtype=torch.long, device=dev)
     rank[order] = slot_sorted
     row = cid * M + rank
-    idx = torch.stack(idx_c).reshape(C * M, k_max)[row]
-    valid = torch.stack(valid_c).reshape(C * M, k_max)[row]
-    counts = torch.stack(count_c).reshape(C * M)[row]
+    idx = torch.cat(idx_c).reshape(C * M, k_max)[row]
+    valid = torch.cat(valid_c).reshape(C * M, k_max)[row]
+    counts = torch.cat(count_c).reshape(C * M)[row]
     return NeighborList(idx=idx, valid=valid, ref_pos=P,
                         overflow=occ_overflow | (counts > k_max).any())

@@ -14,7 +14,9 @@ Two routes for the direct-space pairs, as in JAX:
     cell-bucket route (``physics/cellpair.py``) evaluates the same pairs
     block by block;
   * ``mm_energy`` / ``mm_energy_forces``: an [N, K] neighbour list
-    (``ops/neighbors.py``), the whole energy through autograd.
+    (``ops/neighbors.py``): the pairs with analytic forces over the list's
+    planes (``nl_pair_energy_forces``), the rest through autograd; the
+    energy alone (``mm_energy``, for ``mm_pressure``) through autograd.
 
 Every energy takes an optional ``cell`` (a [3] tensor): the box of a
 dynamic-cell NPT step, whose PME mesh keeps its size while the influence
@@ -23,8 +25,9 @@ function and the volume terms follow the cell (``dynamic_influence``);
 NVT runs take.  ``mm_pressure_dense`` and ``mm_pressure`` give the
 instantaneous isotropic pressure by the strain derivative.
 
-Left out: the legacy ``polarization`` hybrid (the item 13 remainder, item
-13b).
+``MMSystem.polarization`` (a ``physics/polarization.PolarizationParams``)
+adds the induced-dipole hybrid on the ``nl`` route (``mm_energy``); the
+dense route refuses it, as JAX's does.
 
 Units: positions A, energy eV, forces eV/A.
 """
@@ -39,7 +42,9 @@ import torch
 
 from ai2bmd_torch.data.protein_topology import SystemTopology
 from ai2bmd_torch.host import units
-from ai2bmd_torch.ops.neighbors import NeighborList, _pbc_diff
+from ai2bmd_torch.ops.neighbors import NeighborList, _pbc_diff, gather_rows
+from ai2bmd_torch.physics.polarization import (PolarizationParams, polarization_energy,
+                                                polarization_energy_forces)
 from ai2bmd_torch.physics.pme import (euler_spline_mod2, influence_function, mesh_energy,
                                       mesh_grid, spread)
 from ai2bmd_torch.utils.device import resolve_device
@@ -85,11 +90,14 @@ class MMSystem:
     # |b(m)|^2 of the mesh's B-splines, [Kx,Ky,Kz]: the cell-free factor of
     # the influence function, kept on the device for dynamic_influence
     spline_mod2: torch.Tensor | None = None
+    # the induced-dipole hybrid (physics/polarization.py), nl route only
+    polarization: PolarizationParams | None = None
 
     @classmethod
     def build(cls, top: SystemTopology, cell: np.ndarray, cutoff: float = 9.0,
               beta: float = 0.35, grid_spacing: float = 1.0, scee: float = 1.2,
-              scnb: float = 2.0, device=None, dtype=torch.float32) -> "MMSystem":
+              scnb: float = 2.0, polarization: PolarizationParams | None = None, device=None,
+              dtype=torch.float32) -> "MMSystem":
         """``mm.py:73-165``: host tables in float64, rounded through float32
         like the JAX package's, then cast to ``dtype``.  ``device`` None
         means the card (raises without one)."""
@@ -120,7 +128,7 @@ class MMSystem:
             spline_mod2=f(euler_spline_mod2(grid[0])[:, None, None]
                           * euler_spline_mod2(grid[1])[None, :, None]
                           * euler_spline_mod2(grid[2])[None, None, :]),
-            **cmap,
+            polarization=polarization, **cmap,
         )
 
 
@@ -389,6 +397,9 @@ def mm_energy_forces_virial_dense(mm: MMSystem, P: torch.Tensor, cell=None, tile
     pair pass, which ``pressure`` takes, so that an NPT step needs no second
     pair pass (``mm_pressure_dense`` re-evaluates the pairs at the same
     positions and cell: the same W)."""
+    if mm.polarization is not None:
+        raise ValueError("dense path does not support the legacy polarization hybrid; use "
+                         "mm_backend='amoeba' for polarizable MM")
     e_s, f_s = smooth_energy_forces(mm, P, cell)
     e_p, f_p, w = dense_pair_energy_forces(mm, P, cell, tile)
     return e_s + e_p, f_p + f_s, w
@@ -415,7 +426,7 @@ def nonbonded_nl_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList,
     """Neighbour-list LJ + erfc-Coulomb (each pair twice, halved) + PME
     reciprocal and exclusion terms (``mm.py:351-393``)."""
     pad = lambda a: torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
-    vec = _pbc_diff(pad(P)[nl.idx] - P[:, None, :], mm.cell if cell is None else cell)
+    vec = _pbc_diff(gather_rows(pad(P), nl.idx) - P[:, None, :], mm.cell if cell is None else cell)
     d2 = (vec * vec).sum(-1)
     valid = nl.valid & (d2 < mm.cutoff ** 2)
     zero = torch.zeros((), dtype=P.dtype, device=P.device)
@@ -432,22 +443,49 @@ def nonbonded_nl_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList,
 
 
 def mm_energy(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell=None) -> torch.Tensor:
-    return bonded_energy(mm, P, cell) + nonbonded_nl_energy(mm, P, nl, cell)
+    """Bonded + nonbonded over the list, + the polarization hybrid when
+    ``mm.polarization`` is set (``mm.py:600-608``)."""
+    e = bonded_energy(mm, P, cell) + nonbonded_nl_energy(mm, P, nl, cell)
+    if mm.polarization is not None:
+        e = e + polarization_energy(mm.polarization, P, nl, mm.cell if cell is None else cell)
+    return e
+
+
+def nl_pair_energy_forces(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell=None):
+    """erfc-Coulomb + LJ over the list with analytic pair forces
+    (``pair_block`` on [N, K] planes): the list is full, so every atom sums
+    its own row, in a fixed order, and E is half the sum.  Returns (E, F)."""
+    cell = mm.cell if cell is None else cell
+    pad = lambda a: torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
+    with torch.no_grad():
+        Pj = gather_rows(pad(P), nl.idx)
+        d = [_pbc_diff(Pj[..., a] - P[:, a, None], cell[a]) for a in range(3)]
+        j = lambda a: gather_rows(pad(a), nl.idx)
+        e, f, _ = pair_block(d, nl.valid, mm.charge[:, None], j(mm.charge), mm.sigma[:, None],
+                             j(mm.sigma), mm.eps[:, None], j(mm.eps), mm.beta, mm.cutoff)
+    return 0.5 * e, f
 
 
 def mm_energy_forces(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell=None):
-    """(E, F) of ``mm_energy`` by autograd (the ``nl`` route)."""
-    with torch.enable_grad():
-        p = P.detach().requires_grad_(True)
-        e = mm_energy(mm, p, nl, cell)
-        (g,) = torch.autograd.grad(e, p)
-    return e.detach(), -g
+    """(E, F) of ``mm_energy`` (the ``nl`` route): the pairs analytic
+    (``nl_pair_energy_forces``), the bonded, reciprocal and exclusion terms
+    and the polarization hybrid by autograd.  JAX differentiates the whole
+    energy (``mm.py:611-613``); the gradient is the same, and a gather's
+    backward would scatter over the list in no fixed order on CUDA."""
+    e_s, f_s = smooth_energy_forces(mm, P, cell)
+    e_p, f_p = nl_pair_energy_forces(mm, P, nl, cell)
+    e, f = e_s + e_p, f_s + f_p
+    if mm.polarization is not None:
+        e_pol, f_pol = polarization_energy_forces(mm.polarization, P, nl,
+                                                  mm.cell if cell is None else cell)
+        e, f = e + e_pol, f + f_pol
+    return e, f
 
 
 def mm_pressure(mm: MMSystem, P: torch.Tensor, nl: NeighborList, cell: torch.Tensor,
                 kinetic_energy):
     """Instantaneous isotropic pressure on the ``nl`` route (``mm.py:
-    616-625``; the CPU only, like the rest of it): P = (2 K - dU/d(ln s)) /
+    616-625``): P = (2 K - dU/d(ln s)) /
     (3 V), s the uniform scale of positions and cell, by autograd in s."""
     with torch.enable_grad():
         s = torch.ones((), dtype=P.dtype, device=P.device, requires_grad=True)

@@ -30,7 +30,8 @@ generator; on the CPU the same step runs eagerly.  An NPT step takes its
 pair virial from the step's own pair pass instead of a second one.  On the
 card unless ``device="cpu"``.
 
-Refused: ``method="AMOEBA"`` (the AMOEBA engine, ROADMAP.md Queue 1 item 15).
+Refused: ``method="AMOEBA"`` (the AMOEBA engine's valence terms and MD,
+ROADMAP.md Queue 1 item 15: its preprocessing half).
 """
 
 from __future__ import annotations
@@ -223,8 +224,9 @@ class Preprocessor:
             return preeq
         if self.method.upper() == "AMOEBA":
             raise NotImplementedError(
-                "preprocessing with method='AMOEBA' (the AMOEBA engine's minimization) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 15)")
+                "preprocessing with method='AMOEBA' (the AMOEBA engine's minimization and MD, "
+                "amoeba_valence.py and amoeba_md.py) is not ported yet: of ROADMAP.md, Queue 1 "
+                "item 15, only the preprocessing half is left (AMOEBA QM/MM runs)")
         device = resolve_device(self.device)
 
         atoms = normalize_atom_order(read_pdb(prot_file))

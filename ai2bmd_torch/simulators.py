@@ -81,7 +81,7 @@ class ProteinSimulation:
                  model_cfg: ViSNetConfig | None = None, sim_cfg: SimulationConfig | None = None,
                  opt_iters: int = 10, warm_caps: bool = True, polarizable_mm: bool = False,
                  rigid_water: bool = False, mm_backend: str = "ff19sb",
-                 device=None) -> "ProteinSimulation":
+                 pair_backend: str = "auto", device=None) -> "ProteinSimulation":
         """``mode`` "fragment" or "visnet" (whole molecule, which ignores
         ``longrange`` as the JAX package does); ``solvent`` None means "the
         input's waters and ions, if it has any", and False runs a solvated
@@ -89,9 +89,12 @@ class ProteinSimulation:
         121-129``); ``warm_caps`` False steps the stateless fragment
         potential, which places the caps and solves them cold with
         ``opt_iters`` L-BFGS iterations every step (:209-234; fragment mode
-        only).  A solvated run takes ``write_solvent``, ``rigid_water`` and
-        ``mm_backend`` ("ff19sb"); its pairs take ``QMMMPotential.build``'s
-        "auto" route.  On the card every step is one replay of a captured
+        only).  A solvated run takes ``write_solvent``, ``rigid_water``,
+        ``mm_backend`` ("ff19sb", or "amoeba": the polarizable AMOEBA solvent)
+        and ``polarizable_mm`` (the induced-dipole hybrid on ff19SB); its
+        pairs take ``QMMMPotential.build``'s ``pair_backend`` ("auto": the
+        neighbour list for either polarizable backend; JAX's from_pdb always
+        takes "auto").  On the card every step is one replay of a captured
         CUDA graph.  ``device`` None means the card (raises without one)."""
         device = resolve_device(device)
         prot_name = os.path.basename(prot_file).rsplit(".", 1)[0]
@@ -106,14 +109,6 @@ class ProteinSimulation:
             solvent = has_solvent
         if solvent and not has_solvent:
             raise ValueError("solvent=True but the input has no water/ions")
-        if solvent and mm_backend == "amoeba":
-            raise NotImplementedError(
-                "mm_backend='amoeba' (the polarizable AMOEBA solvent) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 15)")
-        if solvent and polarizable_mm:
-            raise NotImplementedError(
-                "polarizable_mm (the induced-dipole hybrid of physics/polarization.py) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 13b)")
         prot = full.select(qm_idx) if has_solvent else full
 
         params, cfg = load_model(ckpt_path, model_cfg)
@@ -143,7 +138,8 @@ class ProteinSimulation:
             qmmm = QMMMPotential.build(
                 full.atoms, qm_energy_forces=None if use_warm else qm,
                 qm_stateful=qm if use_warm else None, qm_init_aux=qm_aux0,
-                mm_backend=mm_backend, device=device)
+                polarizable=polarizable_mm, mm_backend=mm_backend, pair_backend=pair_backend,
+                device=device)
             P_full = torch.as_tensor(full.positions, dtype=torch.float32, device=device)
             # rigid TIP3P (SETTLE) removes the O-H stretches, so the solvent
             # steps stably at 2 fs

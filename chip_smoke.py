@@ -175,12 +175,29 @@ is not printed):
      replica-step, aggregate ns/day, peak memory; (d) the CLI's --replicas 2
      on the box, 4 steps, then --restart to 8 (per-replica DCDs, the resume
      line)
-  11. one JSON line of kernel results, the card's name and power limit, and
+  11. the polarizable routes on the solvated Chignolin box at 9 x 256, each
+     one captured step through ProteinSimulation.from_pdb: (a)
+     pair_backend="nl", its [N, K] list rebuilt inside the captured step by
+     the cell build (the list build's device ms alone), step 0 against phase
+     9b's cellpair forces and against the port on the CPU in float64 (9b's
+     limits); (b) polarizable_mm=True (the induced-dipole hybrid), step 0
+     against float64; (c) mm_backend="amoeba": the AMOEBA MM with the QM
+     term at zero in float32 against float64 on the card, on the synthetic
+     box of tests/test_qmmm_amoeba.py (within twice the JAX package's own
+     float32 spread there, tools/amoeba_f32_spread.py) and on the solvated
+     box (9b's limits), then the step; each route with the launches of one
+     evaluation (K1-K4 on the QM side), each part captured alone (QM, the
+     list build, the full box's MM, the protein's MM), 5 replays against
+     eager steps, 10 replays timed, no overflow, peak memory, a trace of the
+     full box's MM (kernels, the top 8 by device time); (d) the CLI
+     on the box with --mm-method amoeba, then --polarizable-mm, 3 steps each
+  12. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
-alone after the build, without it; `--preprocess-full` runs only
+alone after the build, without it; `--polarizable-only` phase 11 alone;
+`--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), without it.  Phase 5 runs eagerly (no
 graph).  Imports no JAX.  The ms/step figures it prints are smoke figures,
@@ -2142,10 +2159,11 @@ ROUTE_TIMED = 20
 QM_NAMES = ("edge_", "cap_grad", "vislayer")
 
 
-def solvated_reference(torch, ps, P, cfg, params):
+def solvated_reference(torch, ps, P, cfg, params, **qmmm_kw):
     """The port on the CPU in float64 at the card's state: QMMMPotential of
-    the whole box (plain versions), the QM side from the card's cold cap
-    offsets with one warm iteration.  Returns (E, F, seconds)."""
+    the whole box (plain versions; ``qmmm_kw`` for its build), the QM side
+    from the card's cold cap offsets with one warm iteration.  Returns (E, F,
+    seconds)."""
     from ai2bmd_torch.models.visnet import ViSNet
     from ai2bmd_torch.physics.qmmm import QMMMPotential
     from ai2bmd_torch.potentials import FragmentPotential
@@ -2160,7 +2178,7 @@ def solvated_reference(torch, ps, P, cfg, params):
         ps.prot.atoms, qm_stateful=lambda Pq, a: pot64.stateful_energy_forces(
             Pq, a, warm_iters=WARM_ITERS),
         qm_init_aux=ps.sim._init_aux[1].to(cpu, torch.float64), device="cpu",
-        dtype=torch.float64)
+        dtype=torch.float64, **qmmm_kw)
     P64 = P.to(cpu, torch.float64)
     e, f, _ = qmmm64(P64, qmmm64.init_aux(P64))
     return e, f, time.perf_counter() - t0
@@ -2852,6 +2870,275 @@ KERNELS = {   # name: (source, the TPU kernel's pallas_call it replaces)
 T_START = time.perf_counter()
 
 
+# Phase 11: the polarizable routes.
+# The JAX package's own float32 against float64 of its AMOEBA QM/MM step on
+# tests/test_qmmm_amoeba.py's synthetic solvated Chignolin (247 atoms), QM
+# term at zero: tools/amoeba_f32_spread.py on the CPU (the builder's run)
+AMOEBA_JAX_SPREAD = dict(solvent=7.15e-5, protein=2.59e-5)     # eV/A
+POL_STEPS = 5                 # replays held against eager steps, then without overflow
+POL_TIMED = 10                # replays timed
+POL_TOP = 8                   # kernels named in the MM part's trace
+POL_CLI_STEPS = 3
+
+
+def synthetic_amoeba_box():
+    """tests/test_qmmm_amoeba.py's synthetic box with the port's modules:
+    Chignolin centred in a periodic cell 6 A wider on each side, a 3 x 3 x 3
+    lattice of AMOEBA waters, those closer than 2.4 A to the protein left
+    out.  Returns (PDBAtoms, protein atom count)."""
+    import numpy as np
+
+    from ai2bmd_torch.host import example_pdb, normalize_atom_order, read_pdb
+    from ai2bmd_torch.io.pdb import PDBAtoms
+    from ai2bmd_torch.physics.amoeba import ideal_water
+
+    prot = normalize_atom_order(read_pdb(example_pdb("chig")))
+    P = prot.positions - prot.positions.mean(axis=0)
+    cell = P.max(axis=0) - P.min(axis=0) + 12.0
+    P = P + cell / 2
+    wats = [w for w in (ideal_water(origin=(np.array(ijk) + 0.5) * cell / 3)
+                        for ijk in np.ndindex(3, 3, 3))
+            if np.min(np.linalg.norm(P[:, None, :] - w[None, :, :], axis=-1)) > 2.4]
+    W = len(wats)
+    return PDBAtoms(
+        positions=np.concatenate([P, *wats]),
+        numbers=np.concatenate([prot.numbers, np.tile([8, 1, 1], W)]).astype(np.int32),
+        atom_names=np.concatenate([prot.atom_names, np.array(["O", "H1", "H2"] * W)]),
+        residue_names=np.concatenate([prot.residue_names, np.array(["WAT"] * (3 * W))]),
+        residue_numbers=np.concatenate([prot.residue_numbers, np.repeat(np.arange(W), 3)
+                                        + prot.residue_numbers.max() + 1]).astype(np.int32),
+        cell=cell), len(P)
+
+
+def amoeba_mm_spread(torch, dev, atoms, label, limits):
+    """QMMMPotential(mm_backend="amoeba") with the QM term at zero, float32
+    against float64, both on the card (no kernel lies on the MM side): max|dF|
+    on solvent and protein atoms within ``limits``, |dE|; the float32 call's
+    peak device memory."""
+    import numpy as np
+
+    from ai2bmd_torch.physics.qmmm import QMMMPotential
+
+    zero = lambda P: (P.sum() * 0, torch.zeros_like(P))
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        q = QMMMPotential.build(atoms, zero, mm_backend="amoeba", device=dev, dtype=dt)
+        P = torch.as_tensor(atoms.positions, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        e, f, _ = q(P, q.init_aux(P))
+        torch.cuda.synchronize()
+        out[dt] = (float(e), f.double().cpu(), (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        del q, P, f
+        torch.cuda.empty_cache()
+    prot = np.isin(np.asarray(atoms.residue_names), ("WAT", "HOH", "Na+", "Cl-", "NA", "CL"),
+                   invert=True)
+    dF = (out[torch.float32][1] - out[torch.float64][1]).abs().max(-1).values
+    d_solv, d_prot = float(dF[~torch.as_tensor(prot)].max()), float(dF[prot].max())
+    dE = abs(out[torch.float32][0] - out[torch.float64][0])
+    print(f"  (c) AMOEBA MM of {label} ({len(atoms.positions)} atoms), QM at zero, float32 vs "
+          f"float64 on the card: solvent max|dF| {d_solv:.3e} (limit {limits['solvent']:.2e}), "
+          f"protein {d_prot:.3e} (limit {limits['protein']:.2e}) eV/A; |dE| {dE:.3e} eV of "
+          f"|E| {abs(out[torch.float64][0]):.3f}; peak {out[torch.float32][2]:.2f} GiB (float32), "
+          f"{out[torch.float64][2]:.2f} GiB (float64)")
+    need(d_solv <= limits["solvent"], f"{label}: AMOEBA solvent forces part by {d_solv:.3e}")
+    need(d_prot <= limits["protein"], f"{label}: AMOEBA protein forces part by {d_prot:.3e}")
+    return dict(dF_solvent=d_solv, dF_protein=d_prot, dE=dE, peak_gib_f32=out[torch.float32][2],
+                peak_gib_f64=out[torch.float64][2])
+
+
+def run_polarizable_route(torch, dev, card, root, name, kw, flex):
+    """Phase 11 (a)-(c), one route of the solvated box through
+    ProteinSimulation.from_pdb(**kw) at 9 x 256: build, step 0 (against
+    phase 9b's cellpair forces for ``nl``, against the port on the CPU in
+    float64 but for AMOEBA), the launches of one evaluation, each part
+    captured alone (QM, the list build, the full box's MM, the protein's MM),
+    POL_STEPS graphed replays against eager steps, POL_TIMED replays timed,
+    no overflow, peak memory."""
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.md.simulation import SimulationConfig
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.simulators import ProteinSimulation, load_model
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sim_cfg = SimulationConfig(timestep_fs=SOLV_DT_FS, preeq_steps=0, record_per_steps=RECORD)
+    ps = ProteinSimulation.from_pdb(SOLVATED, log_dir=os.path.join(root, f"pol_{name}"),
+                                    model_cfg=ViSNetConfig(), sim_cfg=sim_cfg, **kw)
+    sim, qmmm = ps.sim, ps.qmmm
+    state = sim.initial_state(ps.prot.positions)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    need(qmmm.backend == "nl" and qmmm.nl_grid is not None,
+         f"{name}: pair route {qmmm.backend}, list grid {qmmm.nl_grid}")
+    need((qmmm.amoeba is not None) == (kw.get("mm_backend") == "amoeba"), f"{name}: MM engine")
+    prot_idx = qmmm.sel.cpu()
+    solvent = torch.ones(qmmm.n_atoms, dtype=torch.bool)
+    solvent[prot_idx] = False
+    out = dict(build_s=t_build)
+    print(f"  ({name}) from_pdb({kw}) + step 0 {t_build:.1f} s: {qmmm.engine} MM, nl pairs "
+          f"(K = {qmmm.k_neighbors}, list cells {qmmm.nl_grid}), mesh {qmmm.mesh}")
+    f0 = state.forces.cpu().double()
+    if "forces0" in flex and kw.get("pair_backend") == "nl":
+        dF = (f0 - flex["forces0"].double()).abs().max(-1).values
+        d_solv, d_prot = float(dF[solvent].max()), float(dF[~solvent].max())
+        print(f"  ({name}) step 0 vs phase 9b's cellpair route: solvent max|dF| {d_solv:.3e} "
+              f"(limit {FORCE_LIMIT}), protein {d_prot:.3e} (limit {PROTEIN_SPREAD}) eV/A")
+        need(d_solv <= FORCE_LIMIT and d_prot <= PROTEIN_SPREAD,
+             f"{name}: step 0 parts from the cellpair route: {d_solv:.3e} / {d_prot:.3e}")
+        out.update(dF_cellpair_solvent=d_solv, dF_cellpair_protein=d_prot)
+    if qmmm.amoeba is None:
+        cfg, params = ps.potential.cfg, load_model(None, ViSNetConfig())[0]
+        ref_kw = {k: v for k, v in kw.items() if k == "pair_backend"}
+        if kw.get("polarizable_mm"):
+            ref_kw["polarizable"] = True
+        e_ref, f_ref, secs = solvated_reference(torch, ps, state.positions, cfg, params,
+                                                **ref_kw)
+        dF = (f0 - f_ref).abs().max(-1).values
+        d_solv, d_prot = float(dF[solvent].max()), float(dF[~solvent].max())
+        print(f"  ({name}) step 0 vs the port on the CPU in float64 ({secs:.1f} s): solvent "
+              f"max|dF| {d_solv:.3e} (limit {FORCE_LIMIT}), protein {d_prot:.3e} (limit "
+              f"{PROTEIN_SPREAD}) eV/A; |dE| {abs(float(state.energy) - float(e_ref)):.3e} eV")
+        need(d_solv <= FORCE_LIMIT, f"{name}: solvent forces part from float64 by {d_solv:.3e}")
+        need(d_prot <= PROTEIN_SPREAD, f"{name}: protein forces part from float64 by {d_prot:.3e}")
+        out.update(dF_solvent=d_solv, dF_protein=d_prot)
+    P, aux = state.positions, state.aux
+    reset_launches()
+    qmmm(P, aux)
+    torch.cuda.synchronize()
+    out["launches"] = {n: LAUNCHES[n] for n in K1_K4}
+    need(all(v > 0 for v in out["launches"].values()), f"{name}: launches {out['launches']}")
+    nl, qa = aux[0], aux[1]
+    carry = aux[2] if len(aux) > 2 else (None, None)
+    P_prot = P[qmmm.sel]
+    parts = {"QM (ViSNet fragments, caps)": lambda: qmmm.qm_energy_forces(P_prot, qa),
+             "list build": lambda: qmmm._build_nl(P),
+             "MM full box": lambda: qmmm.mm_full_energy_forces(P, nl, carry[0]),
+             "MM protein alone": lambda: qmmm.mm_prot_energy_forces(P_prot, carry[1])}
+    out["parts_ms"] = {k: graph_ms(torch, fn) for k, fn in parts.items()}
+    print(f"  ({name}) one evaluation launches {out['launches']}; each part captured alone, ms a "
+          f"replay (events): " + ", ".join(f"{k} {v:.3f}" for k, v in out["parts_ms"].items()))
+    trace = _trace(torch, parts["MM full box"], 1)
+    top = sorted(trace.items(), key=lambda kv: -kv[1][1])[:POL_TOP]
+    out["mm_kernels"] = sum(c for c, _ in trace.values())
+    out["mm_top"] = [(short_name(n), c, us / 1e3) for n, (c, us) in top]
+    print(f"  ({name}) the full box's MM, one eager call traced: {out['mm_kernels']} kernels, "
+          f"{sum(us for _, us in trace.values()) / 1e3:.1f} device ms; the top {POL_TOP} (name "
+          f"x launches: ms): " + "; ".join(f"{n} x{c}: {ms:.1f}" for n, c, ms in out["mm_top"]))
+    gen_state = sim.generator.get_state()
+    t0 = time.perf_counter()
+    got = sim.advance(state, POL_STEPS)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    need(sim.graph is not None and sim.graph.replays == POL_STEPS, f"{name}: no graph")
+    g = torch.Generator(device=dev)
+    g.set_state(gen_state)
+    ref = state
+    for _ in range(POL_STEPS):
+        ref = L.langevin_step(sim.full_potential, sim.coeffs, sim.masses, ref, generator=g)
+    dx = float((got.positions - ref.positions).abs().max())
+    dF = (got.forces - ref.forces).abs().max(-1).values.cpu()
+    d_solv, d_prot = float(dF[solvent].max()), float(dF[~solvent].max())
+    print(f"  ({name}) captured in {t_capture:.1f} s with warm-up; {POL_STEPS} replays vs eager "
+          f"steps from the same state and generator state: max|dx| {dx:.3e} A (limit "
+          f"{FORCE_LIMIT}), max|dF| solvent {d_solv:.3e} (limit {FORCE_LIMIT}), protein "
+          f"{d_prot:.3e} eV/A (limit {PROTEIN_SPREAD}: the gathers' backward and the mesh sum "
+          f"with atomics, and protein atoms carry the combiner's float32 cancellation)")
+    need(dx <= FORCE_LIMIT and d_solv <= FORCE_LIMIT and d_prot <= PROTEIN_SPREAD,
+         f"{name}: replays differ from eager steps: dx {dx:.3e}, dF {d_solv:.3e} / {d_prot:.3e}")
+    out.update(replay_dF_solvent=d_solv, replay_dF_protein=d_prot)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    final = sim.graph.run(POL_TIMED)
+    end.record()
+    torch.cuda.synchronize()
+    out["ms_step"] = (time.perf_counter() - t0) * 1e3 / POL_TIMED
+    out["ms_events"] = start.elapsed_time(end) / POL_TIMED
+    need(bool(final.positions.isfinite().all() and final.forces.isfinite().all()),
+         f"{name}: non-finite state")
+    need(not bool(final.aux[0].overflow), f"{name}: the neighbour list overflowed")
+    out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"  ({name}) graphed {out['ms_step']:.3f} ms/step (host clock), {out['ms_events']:.3f} "
+          f"(CUDA events) over {POL_TIMED} replays, no overflow, finite; peak device memory "
+          f"{out['peak_gib']:.2f} GiB above the {base / 2 ** 30:.2f} held before ({card})")
+    del ps, sim, qmmm, state, got, ref, final, parts
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_polarizable_cli(torch, root):
+    """Phase 11(d): `python -m ai2bmd_torch` on the solvated box with
+    --mm-method amoeba, then with --polarizable-mm, POL_CLI_STEPS steps
+    each: exit 0, the QM/MM line naming the route and the engine, the DCD."""
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    runs = {"amoeba": (["--mm-method", "amoeba"], "AMOEBA"),
+            "polarizable": (["--polarizable-mm"], "ff19SB + induced dipoles")}
+    out = {}
+    for name, (extra, engine) in runs.items():
+        t0 = time.perf_counter()
+        d = os.path.join(root, f"cli_pol_{name}")
+        txt = _cli_wait(name, _cli_start([
+            sys.executable, "-m", "ai2bmd_torch", "--prot-file", SOLVATED, "--log-dir", d,
+            "--preeq-steps", "0", "--sim-steps", str(POL_CLI_STEPS), "--record-per-steps", "1",
+            "--timestep", str(SOLV_DT_FS), *extra]))
+        frames = read_dcd(os.path.join(d, "chig-preeq-traj.dcd"))
+        need(frames.shape == (POL_CLI_STEPS, 17882, 3)
+             and bool(torch.as_tensor(frames).isfinite().all()), f"CLI {name}: DCD {frames.shape}")
+        line = [ln for ln in txt.splitlines() if ln.startswith("QM/MM:")]
+        need(line and f"nl pairs, {engine} MM" in line[0], f"CLI {name}: QM/MM line {line}")
+        rows = _metrics(os.path.join(d, "chig-preeq-metrics.csv"))
+        out[name] = [r["ms_per_step"] for r in rows]
+        print(f"  (d) {' '.join(extra)}: exit 0 in {time.perf_counter() - t0:.1f} s, "
+              f"{frames.shape[0]} frames of 17882 atoms; {line[0]!r}; metrics ms/step "
+              f"{out[name]}")
+    return out
+
+
+def run_polarizable(torch, dev, card, root, flex):
+    """Phase 11: the nl pair route, the induced-dipole hybrid and AMOEBA QM/MM
+    on the solvated box at 9 x 256, each one captured step; AMOEBA's MM
+    float32 against float64; the CLI's two flags."""
+    t_phase = time.perf_counter()
+    out = {}
+    out["nl"] = run_polarizable_route(torch, dev, card, root, "a", dict(pair_backend="nl"), flex)
+    nl_ms = out["nl"]["parts_ms"]["list build"]
+    from ai2bmd_torch.ops.neighbors import CELL_CHUNK
+
+    print(f"  (a) the list build alone (the cell build, {CELL_CHUNK} cells a pass): {nl_ms:.3f} "
+          f"ms ({card})")
+    no_plain("11a")
+    out["pol"] = run_polarizable_route(torch, dev, card, root, "b", dict(polarizable_mm=True),
+                                       flex)
+    no_plain("11b")
+    syn, _ = synthetic_amoeba_box()
+    out["spread_syn"] = amoeba_mm_spread(torch, dev, syn, "the synthetic box",
+                                         {k: 2 * v for k, v in AMOEBA_JAX_SPREAD.items()})
+    from ai2bmd_torch.host import load_protein
+
+    out["spread_box"] = amoeba_mm_spread(torch, dev, load_protein(SOLVATED).atoms,
+                                         "the solvated box",
+                                         dict(solvent=FORCE_LIMIT, protein=PROTEIN_SPREAD))
+    out["amoeba"] = run_polarizable_route(torch, dev, card, root, "c", dict(mm_backend="amoeba"),
+                                          flex)
+    no_plain("11c")
+    out["cli"] = run_polarizable_cli(torch, root)
+    no_plain("11d")
+    print(f"  polarizable routes (17,882 atoms, 9 x 256), graphed ms/step (events): nl "
+          f"{out['nl']['ms_events']:.3f}, hybrid {out['pol']['ms_events']:.3f}, AMOEBA "
+          f"{out['amoeba']['ms_events']:.3f}; peak GiB nl {out['nl']['peak_gib']:.2f}, hybrid "
+          f"{out['pol']['peak_gib']:.2f}, AMOEBA {out['amoeba']['peak_gib']:.2f}; phase 11 took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -2880,6 +3167,9 @@ def main(argv=None):
     ap.add_argument("--solvated-only", action="store_true",
                     help="after the build, run only phases 9 and 10 (the solvated slices: QM/MM, "
                          "preprocessing, solvated replicas), without the final line")
+    ap.add_argument("--polarizable-only", action="store_true",
+                    help="after the build, run only phase 11 (the nl route, the induced-dipole "
+                         "hybrid and AMOEBA QM/MM on the solvated box), without the final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and print each stage's wall seconds, without the "
@@ -2932,6 +3222,11 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.polarizable_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 11. the polarizable routes (alone)")
+        run_polarizable(torch, dev, card, root, {})
         return
     if args.solvated_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -2990,6 +3285,10 @@ def main(argv=None):
           "CLI's --solvent route, SolvatedReplicaEnsemble (4 replicas of the box, 9 x 256), the "
           "CLI's --replicas route on the box")
     p10 = run_preprocessing_and_replicas(torch, dev, card, root, solv["flex"])
+    print("== 11. the polarizable routes on the solvated box at 9 x 256: the nl pair route with "
+          "its list built inside the captured step, the induced-dipole hybrid, AMOEBA QM/MM; the "
+          "CLI's --mm-method amoeba and --polarizable-mm")
+    p11 = run_polarizable(torch, dev, card, root, solv["flex"])
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -3013,7 +3312,11 @@ def main(argv=None):
             k["pme_fragment_launches"] = solv["pme_launches"][k["name"]]
     for k in kernels:      # phase 10c: per replica-step of the solvated ensemble
         k["solvated_replica_launches"] = p10["ens"]["launches_per_eval"][k["name"]]
-    print("== 11. results")
+    for k in kernels:      # phase 11: one evaluation on each polarizable route
+        k["polarizable_launches"] = {route: p11[key]["launches"].get(k["name"], 0)
+                                     for route, key in (("nl", "nl"), ("hybrid", "pol"),
+                                                        ("amoeba", "amoeba"))}
+    print("== 12. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -3024,7 +3327,9 @@ def main(argv=None):
           f"{solv['pme_ms']:.3f}; solvated graphed {solv['flex']['ms_step']:.3f} (events "
           f"{solv['flex']['ms_events']:.3f}), rigid water {solv['rigid']['ms_step']:.3f}; "
           f"preprocessing ms per step {p10['pre']['stage_ms']}; solvated replica-step "
-          f"{p10['ens']['ms']:.3f} ({N_SOLV_REPLICAS} replicas); "
+          f"{p10['ens']['ms']:.3f} ({N_SOLV_REPLICAS} replicas); polarizable routes graphed "
+          f"(events) nl {p11['nl']['ms_events']:.3f}, hybrid {p11['pol']['ms_events']:.3f}, "
+          f"AMOEBA {p11['amoeba']['ms_events']:.3f}; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -144,23 +144,54 @@ SOLVATED = ["--prot-file", "examples/chig_preprocessed/chig-preeq.pdb"]
 
 
 # the ids the cases had beside the two whole-molecule / checkpoint cases,
-# which went when those routes were ported, and the pme (12), solvated (13)
-# and preprocessing (14) cases, which became tests of the routes:
-# test_torch_pme.py::test_cli_runs_pme_in_fragment_mode,
-# test_torch_qmmm.py::test_cli_runs_the_solvated_box_with_explicit_solvent and
+# which went when those routes were ported, and the pme (12), solvated (13),
+# preprocessing (14) and polarizable (13b) cases, which became tests of the
+# routes: test_torch_pme.py::test_cli_runs_pme_in_fragment_mode,
+# test_torch_qmmm.py::test_cli_runs_the_solvated_box_with_explicit_solvent,
 # test_torch_solvated_ensemble.py::test_cli_solvent_on_a_bare_pdb_finds_the_preprocessed_box
+# and test_cli_runs_the_polarizable_solvent_routes below.  --mm-method amoeba
+# runs too; of item 15 only the AMOEBA preprocessing is left
 @pytest.mark.parametrize("argv, item", [
-    ([*SOLVATED, "--mm-method", "amoeba"], 15),
-    ([*SOLVATED, "--polarizable-mm"], "13b"),
-], ids=["amoeba-15", "polarizable-13b"])
+    (["--preprocess", "--preprocess-method", "AMOEBA"], 15),
+], ids=["amoeba-15"])
 def test_cli_refused_routes_name_their_item(tmp_path, argv, item):
     """Each route the port does not have yet exits nonzero naming its
-    ROADMAP item (on a solvated input, before any model is built)."""
+    ROADMAP item (before any model is built)."""
     conftest.require_examples()
     run = _cli("--prot-file", conftest.example_pdb("chig"), "--log-dir", str(tmp_path),
                "--sim-steps", "2", *CLI_TINY, *argv)
     assert run.returncode != 0
     assert f"Queue 1 item {item}" in run.stderr, run.stderr[-2000:]
+
+
+@pytest.fixture(scope="module")
+def small_box(tmp_path_factory):
+    """A small solvated PDB: solvate(build_polyalanine(2), padding=4.0,
+    seed=0), 251 atoms (tests/test_torch_solvated_ensemble.py's box)."""
+    from ai2bmd_torch import preprocess as TP
+    from ai2bmd_torch.io import build as TB
+    from ai2bmd_torch.io.pdb import write_pdb
+
+    path = str(tmp_path_factory.mktemp("box") / "ala2-preeq.pdb")
+    write_pdb(path, TP.solvate(TB.build_polyalanine(2), padding=4.0, seed=0))
+    return path
+
+
+@pytest.mark.parametrize("argv, route", [
+    (["--mm-method", "amoeba"], "AMOEBA"),
+    (["--polarizable-mm"], "ff19SB + induced dipoles"),
+], ids=["amoeba", "polarizable"])
+def test_cli_runs_the_polarizable_solvent_routes(tmp_path, small_box, argv, route):
+    """--mm-method amoeba (the AMOEBA solvent, item 15's QM/MM half) and
+    --polarizable-mm (the hybrid, item 13b) on a lone solvated run: exit 0
+    through the neighbour-list pair route, the QM/MM line naming the MM
+    engine, a trajectory of the whole box."""
+    run = _cli("--prot-file", small_box, "--log-dir", str(tmp_path), "--preeq-steps", "0",
+               "--sim-steps", "2", "--record-per-steps", "1", *CLI_TINY, *argv)
+    assert run.returncode == 0, run.stderr[-4000:]
+    assert f"nl pairs, {route} MM" in run.stdout, run.stdout[-2000:]
+    frames = TT.read_dcd(str(tmp_path / "ala2-preeq-traj.dcd"))
+    assert frames.shape == (2, 251, 3) and np.isfinite(frames).all()
 
 
 @pytest.mark.parametrize("argv, name", [
@@ -200,3 +231,19 @@ def test_cli_without_a_card_raises_the_require_cuda_message(tmp_path):
     assert run.returncode != 0
     assert "no CUDA device is available" in run.stderr
     assert not any(f.endswith(".dcd") for f in os.listdir(tmp_path))
+
+
+def test_cli_solvated_ensemble_drops_the_polarizable_flags_with_a_warning(tmp_path, small_box):
+    """--replicas 2 on a solvated input runs the fixed-charge ff19SB
+    ensemble, as JAX's ensemble route does (ai2bmd_tpu/cli.py:288-302): it
+    logs one line each for --mm-method amoeba and --polarizable-mm instead
+    of raising, and exits 0."""
+    run = _cli("--prot-file", small_box, "--log-dir", str(tmp_path), "--replicas", "2",
+               "--sim-steps", "2", "--record-per-steps", "2", "--mm-method", "amoeba",
+               "--polarizable-mm", *CLI_TINY)
+    assert run.returncode == 0, run.stderr[-4000:]
+    text = run.stdout + run.stderr + "".join(
+        (tmp_path / f).read_text() for f in os.listdir(tmp_path) if f.endswith(".log"))
+    assert "use --replicas 1 for --polarizable-mm" in text
+    assert "use --replicas 1 for --mm-method amoeba" in text
+    assert "dense pairs" in run.stdout

@@ -185,10 +185,13 @@ def test_constrained_langevin_step_matches_jax(waters):
 
 def test_pair_backend_ladder_and_refusals(box, monkeypatch):
     """auto takes the cell buckets on the box and the dense path when the
-    input overflows a cell (JAX's probe); dense and nl on request (nl on the
-    CPU only: on the card it is refused, naming ROADMAP Queue 2); cellpair
-    on a box under 3 cells an axis, an unknown backend, the AMOEBA solvent
-    (item 15) and the polarizable hybrid (item 13b) are refused."""
+    input overflows a cell (JAX's probe); dense and nl on request, nl with
+    the cell build of its list (the box holds 3 cells an axis at cutoff +
+    skin; the list is rebuilt inside the captured step, so the card takes
+    it too); the AMOEBA solvent (item 15) and the polarizable hybrid (item
+    13b) take nl, as JAX's ladder sends them; cellpair on a box under 3
+    cells an axis, an unknown backend or MM backend, and the hybrid on an
+    explicit dense route are refused."""
     _, atoms = box
     build = lambda a=atoms, **kw: TQ.QMMMPotential.build(
         a, lambda P: (P.sum() * 0, torch.zeros_like(P)), device="cpu", **kw)
@@ -205,13 +208,16 @@ def test_pair_backend_ladder_and_refusals(box, monkeypatch):
         build(small, pair_backend="cellpair")
     with pytest.raises(ValueError, match="unknown pair_backend"):
         build(pair_backend="tiles")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        build(mm_backend="amoeba")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13b"):
-        build(polarizable=True)
-    monkeypatch.setattr(TQ, "resolve_device", lambda device: torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="Queue 2: the nl route on the card"):
-        build(pair_backend="nl")
+    assert nl.nl_grid == ((5, 5, 5), 288) and nl.nbr_cells.shape == (125, 27)
+    with pytest.raises(ValueError, match="unknown mm_backend"):
+        build(mm_backend="tinker")
+    amoeba = build(mm_backend="amoeba")
+    assert amoeba.backend == "nl" and amoeba.amoeba is not None and amoeba.mm_full is None
+    assert amoeba.mesh == amoeba.amoeba.full.pme.grid
+    pol = build(polarizable=True)
+    assert pol.backend == "nl" and pol.mm_full.polarization is not None
+    with pytest.raises(ValueError, match="dense path does not support the legacy polarization"):
+        build(polarizable=True, pair_backend="dense")
 
 
 def _simulator(tmp_path, n, potential=None, init_aux=None, record=1, **kw):
