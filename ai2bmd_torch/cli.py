@@ -36,9 +36,12 @@ Routes:
     every route, else random weights; a file that is not a checkpoint exits
     nonzero naming it
 
-Refused, naming the ROADMAP item that ports them: ``--preprocess-method
-AMOEBA`` (item 15, its preprocessing half); a
-mesh of more than one card (item 17); and ``--matmul-precision`` other than
+``--preprocess --preprocess-method AMOEBA`` minimizes the solvated box with
+the whole AMOEBA force field (``Preprocessor._run_amoeba``), and the run goes
+on with the box as after the FF19SB protocol.
+
+Refused, naming the ROADMAP item that ports it: a mesh of more than one card
+(item 17); and ``--matmul-precision`` other than
 float32 (the port's products are float32 or 3xTF32 by design).  The
 reference's ``--device-strategy``, ``--work-strategy`` and ``--chunk-size``
 are accepted as no-ops, as in the JAX package; ``--mm-method``,
@@ -83,7 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--preprocess-method", type=str, default="FF19SB",
                    choices=["FF19SB", "AMOEBA"],
-                   help="preprocessing pipeline (AMOEBA: ROADMAP item 15)")
+                   help="preprocessing pipeline (AMOEBA: minimization of the box with the "
+                        "whole AMOEBA force field)")
     p.add_argument("--preprocess", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="solvate+equilibrate raw inputs (default: when the "

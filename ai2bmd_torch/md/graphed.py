@@ -24,7 +24,9 @@ What the graph holds and what it does not:
   serves a whole simulation; ``replays`` counts the replays.
 
 ``GraphedStep`` is the same mechanism for any step that reads and rewrites a
-tree of static tensors (the preprocessing stages, ``preprocess.py``).
+tree of static tensors (the preprocessing stages, ``preprocess.py``; the
+AMOEBA descent cycle, ``physics/amoeba_md.py``); ``stepper`` picks it on the
+card and the eager call on the CPU.
 
 The graph needs the card: on CPU tensors ``GraphedLangevin`` and
 ``GraphedStep`` raise, and a failed capture raises too; neither falls back
@@ -199,3 +201,11 @@ class GraphedStep:
     def replay(self) -> None:
         self.graph.replay()
         self.replays += 1
+
+
+def stepper(fn: Callable, buffers) -> Callable[[], None]:
+    """A call of ``fn(buffers)``: on the card a replay of its captured graph
+    (``GraphedStep``), on the CPU ``fn`` itself, eagerly."""
+    if tree_leaves(buffers)[0].is_cuda:
+        return GraphedStep(fn, buffers).replay
+    return lambda: fn(buffers)

@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from ai2bmd_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class SettleConstraint:
@@ -37,7 +39,9 @@ class SettleConstraint:
 
     @classmethod
     def build(cls, o_idx, h1_idx, h2_idx, m_o: float = 15.9994, m_h: float = 1.008,
-              r_oh: float = 0.9572, theta_deg: float = 104.52, device="cpu") -> "SettleConstraint":
+              r_oh: float = 0.9572, theta_deg: float = 104.52, device=None) -> "SettleConstraint":
+        """``device`` None means the card (raises without one)."""
+        device = resolve_device(device)
         th = math.radians(theta_deg)
         rc = r_oh * math.sin(th / 2.0)           # half the H-H distance
         t = r_oh * math.cos(th / 2.0)            # O to the H-H line
@@ -47,9 +51,11 @@ class SettleConstraint:
                    ra=ra, rb=t - ra, rc=rc, d_oh=r_oh, d_hh=2.0 * rc)
 
     @classmethod
-    def from_topology(cls, top, device="cpu") -> "SettleConstraint | None":
+    def from_topology(cls, top, device=None) -> "SettleConstraint | None":
         """The waters of a SystemTopology (each O with its two bonded H), or
-        None when it has none."""
+        None when it has none; ``device`` None means the card (raises
+        without one)."""
+        device = resolve_device(device)
         if len(top.water_oxygens) == 0:
             return None
         oset = set(int(o) for o in top.water_oxygens)

@@ -149,6 +149,29 @@ def max_cell_occupancy(positions, cell_np, nc: tuple) -> int:
     return int(np.bincount(cid).max())
 
 
+def cell_plan(cell_np, positions, cutoff: float, device):
+    """(grid, nbr_cells) for ``build_list``: the cell build's (nc, max_occ)
+    and its [C, 27] neighbourhoods on ``device`` where the box holds 3 cells
+    an axis at ``cutoff`` and the input's cells fit max_occ, else (None,
+    None): an input far from liquid-like density (a crowded cell) takes the
+    tiled dense build, the same pair set with no cell to overflow."""
+    grid = cell_grid(cell_np, cutoff, len(positions))
+    if grid is None or max_cell_occupancy(positions, cell_np, grid[0]) > grid[1]:
+        return None, None
+    return grid, torch.as_tensor(neighbor_cells(grid[0]), device=device)
+
+
+def build_list(P: torch.Tensor, cutoff: float, k_max: int, cell: torch.Tensor, grid,
+               nbr_cells) -> NeighborList:
+    """The [N, K] list within ``cutoff`` by the cell build on ``cell_plan``'s
+    grid, or by the tiled dense build where it gave none."""
+    if grid is not None:
+        nc, max_occ = grid
+        return build_neighbor_list_cells(P, cutoff, k_max, cell, nc, max_occ,
+                                         nbr_cells=nbr_cells)
+    return build_neighbor_list(P, cutoff, k_max, cell)
+
+
 def neighbor_cells(nc: tuple) -> np.ndarray:
     """[C, 27] ids of each cell's 3x3x3 periodic neighbourhood (dx, dy, dz
     each in -1, 0, 1, x slowest)."""

@@ -19,10 +19,11 @@ the converted asset (``amoeba_params.npz``):
       = 0 (bond-path BFS), and the group-based direct-11 = 0 mask from the
       prm's `polarize` group lists (connected components of in-group bonds)
 
-Only the nonbonded AMOEBA terms are assigned: in the subtractive QM/MM
-combiner the protein's valence terms cancel between the two MM
-evaluations.  Not ported yet (ROADMAP.md, Queue 1 item 15): the dense vacuum
-evaluator ``AmoebaVacuumSystem``.
+Only the nonbonded AMOEBA terms are assigned here: in the subtractive QM/MM
+combiner the protein's valence terms cancel between the two MM evaluations
+(``physics/amoeba_valence.py`` assigns them for pure-AMOEBA MD).
+``AmoebaVacuumSystem`` is the dense [N, N] evaluator of one molecule in
+vacuum (``amoeba_protein.py:357-473``), sized for validation.
 """
 
 from __future__ import annotations
@@ -31,9 +32,13 @@ import collections
 import dataclasses
 
 import numpy as np
+import torch
 
 from ai2bmd_torch import units
-from ai2bmd_torch.physics.amoeba import BOHR, AmoebaParams
+from ai2bmd_torch.physics.amoeba import (BOHR, AmoebaParams, _damping, _field_sum, _halgren,
+                                         _parked, _sor, _value_and_forces,
+                                         pair_permanent_energy, rotate_multipoles)
+from ai2bmd_torch.utils.device import resolve_device
 
 # PDB residue code -> prm biotype residue description
 RESIDUE_DESC = {
@@ -334,4 +339,85 @@ def assign_amoeba(atom_names, residue_names, positions, bonds) -> AmoebaAssignme
         bonds=np.asarray(bonds, np.int32).reshape(-1, 2),
     )
 
+
+@dataclasses.dataclass
+class AmoebaVacuumSystem:
+    """The nonbonded AMOEBA energy of one molecule in vacuum, dense masks
+    (``amoeba_protein.py:357-473``): permanent multipoles scaled by the
+    1-2 ... 1-5 mpole scales, SOR induction on the group-masked field with
+    the energy on the p-scaled one, and vdW scaled by the vdW scales.
+    ``device`` None means the card (raises without one)."""
+
+    asg: AmoebaAssignment
+    sor_iters: int = 40
+    sor_omega: float = 0.7
+    device: torch.device | str | None = None
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    def _t(self, name):
+        a = np.asarray(getattr(self.asg, name))
+        if a.dtype.kind in "iu":
+            return torch.as_tensor(a.astype(np.int64), device=self.device)
+        return torch.as_tensor(a.astype(np.float64), dtype=self.dtype, device=self.device)
+
+    def lab_multipoles(self, P):
+        mu, theta = rotate_multipoles(P, *(self._t(k) for k in (
+            "frame_z", "frame_x", "frame_kind", "dip_loc", "quad_loc")))
+        return self._t("q"), mu, theta          # monatomic sites rotate to zero
+
+    def permanent_energy(self, P):
+        q, mu, theta = self.lab_multipoles(P)
+        ii, jj = np.triu_indices(self.asg.n_atoms, 1)
+        mscale = self.asg.mscale[ii, jj]
+        live = mscale > 0
+        ii, jj = (torch.as_tensor(a[live], device=self.device) for a in (ii, jj))
+        e = torch.func.vmap(pair_permanent_energy)(P[jj] - P[ii], q[ii], mu[ii], theta[ii],
+                                                   q[jj], mu[jj], theta[jj])
+        scale = torch.as_tensor(mscale[live], dtype=P.dtype, device=self.device)
+        return units.COULOMB * (scale * e).sum()
+
+    def _fields(self, P):
+        """(E_d, E_p, r_i - r_j parked on the diagonal, the lambdas, off-diagonal
+        mask): the damped permanent field masked by the polarization groups
+        and scaled by the p-scales."""
+        q, mu, theta = self.lab_multipoles(P)
+        n = self.asg.n_atoms
+        not_self = ~torch.eye(n, dtype=torch.bool, device=self.device)
+        x = _parked(P[:, None, :] - P[None, :, :], not_self)
+        alpha = self._t("alpha")
+        lam = _damping(alpha ** (1.0 / 6.0), self._t("thole"), torch.sqrt((x * x).sum(-1)))
+        t = lambda a: torch.as_tensor(a, dtype=P.dtype, device=self.device)
+        E_d = _field_sum(x, q, mu, theta, lam, not_self, t(self.asg.dmask))
+        E_p = _field_sum(x, q, mu, theta, lam, not_self, t(self.asg.pscale))
+        return E_d, E_p, x, lam, not_self, alpha
+
+    def induced_dipoles(self, P):
+        """SCF on the group-masked field; (mu_ind, E_p)."""
+        E_d, E_p, x, lam, not_self, alpha = self._fields(P)
+        return _sor(E_d, x, lam, not_self, alpha, self.sor_iters, self.sor_omega), E_p
+
+    def polarization_energy(self, P):
+        mu_ind, E_p = self.induced_dipoles(P)
+        return -0.5 * units.COULOMB * (mu_ind * E_p).sum()
+
+    def vdw_energy(self, P):
+        hv = self._t("heavy_of")
+        sites = P[hv] + self._t("vdw_red")[:, None] * (P - P[hv])
+        n = self.asg.n_atoms
+        vs = torch.as_tensor(self.asg.vscale, dtype=P.dtype, device=self.device)
+        live = torch.ones((n, n), dtype=torch.bool, device=self.device).triu(1) & (vs > 0)
+        d = torch.where(live[..., None], sites[:, None, :] - sites[None, :, :],
+                        torch.ones_like(sites[:, None, :] - sites[None, :, :]))
+        e, _, _ = _halgren(torch.sqrt((d * d).sum(-1)), self._t("vdw_rmin"),
+                           self._t("vdw_eps"))
+        return torch.where(live, vs * e, torch.zeros_like(e)).sum()
+
+    def energy(self, P):
+        return self.permanent_energy(P) + self.polarization_energy(P) + self.vdw_energy(P)
+
+    def energy_forces(self, P):
+        return _value_and_forces(self.energy, P)
 

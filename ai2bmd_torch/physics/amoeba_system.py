@@ -25,8 +25,12 @@ Terms (``amoeba_system.py:23-42``):
              energy is the fixed-dipole functional Phi, whose position
              gradient is the converged polarization force, recomputed in
              the backward pass (``torch.utils.checkpoint``, as
-             ``jax.checkpoint``).  Or SOR over real-space Thole fields
-             (``energy``, ``induction="sor"``)
+             ``jax.checkpoint``).  Or the unrolled solve of pure-AMOEBA MD
+             (``energy_ewald_induction``, ``physics/amoeba_md.py``): a
+             fixed number of PCG iterations on the d-masked functional with
+             the gradient through every iteration, F(m) + pcorr(m) its
+             energy.  Or SOR over real-space Thole fields (``energy``,
+             ``induction="sor"``)
   vdW        buffered 14-7 over the list, shifted to zero at the cutoff, with
              scaled-pair corrections
 
@@ -388,9 +392,12 @@ class AmoebaPeriodicSystem:
         """Fixed-iteration Jacobi-PCG minimization of the induction
         functional with gradients through the iterations; (mu_ind [N,3],
         E_pol in e^2/A with the p-vs-d correction) (``amoeba_system.py:
-        580-636``)."""
+        580-636``).  The right-hand side -E_d = -grad F(0) keeps its graph
+        in P, so the position gradient is JAX's at any iteration count, not
+        only at convergence.  The iterations are stored, not recomputed
+        (JAX rematerializes them, ``jax.checkpoint``)."""
         F, alpha, pcorr = self._induction_functional(P, nl)
-        g0 = _grad_at_zero(F, P)
+        g0 = _grad_at_zero(F, P, create_graph=P.requires_grad)
         A = self._mutual_operator(P, nl)
         hvp = lambda v: A(v[..., None])[..., 0]
         m = torch.zeros_like(P) if m0 is None else m0.detach().to(P.dtype)
@@ -449,6 +456,28 @@ class AmoebaPeriodicSystem:
         m_d, m_p, phi = self.induction_variational(P, nl, cg_iters, m0_d=m0_d, m0_p=m0_p)
         e = self.permanent_energy(P, nl) + units.COULOMB * phi + self.vdw_energy(P, nl)
         return e, (m_d.detach(), m_p.detach())
+
+    def polarization_energy_ewald(self, P, nl: NeighborList, cg_iters: int = 12, m0=None):
+        """The full-Ewald polarization energy in eV, F(m) + pcorr(m) after
+        ``cg_iters`` PCG iterations from ``m0``, its gradient through the
+        iterations (``amoeba_system.py:754-764``): AMOEBA's -1/2 m.E_p at
+        convergence, the p-vs-d correction zero for water."""
+        return units.COULOMB * self.induced_dipoles_ewald(P, nl, cg_iters, m0=m0)[1]
+
+    def energy_ewald_induction(self, P, nl: NeighborList, cg_iters: int = 12, m0=None):
+        """Permanent + unrolled-solve polarization + vdW, eV
+        (``amoeba_system.py:766-772``): the pure-AMOEBA MD energy."""
+        return (self.permanent_energy(P, nl)
+                + self.polarization_energy_ewald(P, nl, cg_iters, m0=m0)
+                + self.vdw_energy(P, nl))
+
+    def energy_ewald_induction_warm(self, P, nl: NeighborList, m0, cg_iters: int = 12):
+        """(E in eV, the detached dipoles): ``energy_ewald_induction(...,
+        m0=m0)`` and the dipoles to warm-start the next call with
+        (``amoeba_system.py:774-786``)."""
+        m, fmin = self.induced_dipoles_ewald(P, nl, cg_iters, m0=m0)
+        e = self.permanent_energy(P, nl) + units.COULOMB * fmin + self.vdw_energy(P, nl)
+        return e, m.detach()
 
     # ------------------------------------------------------------------
     def _vdw_pair(self, r, rm_i, rm_j, ep_i, ep_j):

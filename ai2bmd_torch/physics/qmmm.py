@@ -262,14 +262,7 @@ class QMMMPotential:
             mm_full, mm_prot = mm(top, pol_full), mm(top_prot, pol_prot)
         nl_grid = nbr_cells = None
         if backend == "nl":
-            nl_grid = NL.cell_grid(atoms.cell, cutoff + skin, top.n_atoms)
-            if nl_grid is not None and NL.max_cell_occupancy(
-                    atoms.positions, atoms.cell, nl_grid[0]) > nl_grid[1]:
-                # an input far from liquid-like density (a crowded cell) takes
-                # the tiled dense build: the same pair set, no cell to overflow
-                nl_grid = None
-            if nl_grid is not None:
-                nbr_cells = torch.as_tensor(NL.neighbor_cells(nl_grid[0]), device=device)
+            nl_grid, nbr_cells = NL.cell_plan(atoms.cell, atoms.positions, cutoff + skin, device)
         return cls(
             mm_full=mm_full, mm_prot=mm_prot,
             qm_energy_forces=qm_stateful or lift_potential(qm_energy_forces),
@@ -295,11 +288,8 @@ class QMMMPotential:
     def _build_nl(self, P: torch.Tensor) -> NL.NeighborList:
         """The full box's list within cutoff + skin: the cell build wherever
         the box holds 3 cells an axis, else the tiled dense build."""
-        if self.nl_grid is not None:
-            nc, max_occ = self.nl_grid
-            return NL.build_neighbor_list_cells(P, self.cutoff + self.skin, self.k_neighbors,
-                                                self.cell, nc, max_occ, nbr_cells=self.nbr_cells)
-        return NL.build_neighbor_list(P, self.cutoff + self.skin, self.k_neighbors, self.cell)
+        return NL.build_list(P, self.cutoff + self.skin, self.k_neighbors, self.cell,
+                             self.nl_grid, self.nbr_cells)
 
     def init_aux(self, P: torch.Tensor):
         """(pair state, QM carry[, MM carry]) at P; raises on a cell or list

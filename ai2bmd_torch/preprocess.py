@@ -21,17 +21,19 @@ engine:
 Outputs ``{prot}-preeq.pdb`` (the box) and ``{prot}-preeq-nowat.pdb``; when
 both exist, ``run`` returns at once, like the reference's check_exist.
 
-Every evaluation is the dense pair route (``physics/mm.py``), as in JAX
-(preprocess.py:172-177: no neighbour list to rebuild or overflow).  Each
+``method="AMOEBA"`` (``preprocess.py:318-352``) replaces stages 2-5 by a
+minimization of the box with the whole AMOEBA force field
+(``physics/amoeba_md.py``), the reference's pdbxyz8 + Tinker minimize9 with
+amoebabio18.prm (src/AIMD/preprocess.py:184-244).
+
+Every FF19SB evaluation is the dense pair route (``physics/mm.py``), as in
+JAX (preprocess.py:172-177: no neighbour list to rebuild or overflow).  Each
 stage's step reads and rewrites a tuple of static tensors; on the card it is
 captured once as a CUDA graph (``md.graphed.GraphedStep``) and replayed a
 step, the Langevin noise drawn outside it, xi then eta, from the stage's
 generator; on the CPU the same step runs eagerly.  An NPT step takes its
 pair virial from the step's own pair pass instead of a second one.  On the
 card unless ``device="cpu"``.
-
-Refused: ``method="AMOEBA"`` (the AMOEBA engine's valence terms and MD,
-ROADMAP.md Queue 1 item 15: its preprocessing half).
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from ai2bmd_torch.data.protein_topology import build_topology
 from ai2bmd_torch.io.pdb import PDBAtoms, read_pdb, write_pdb
 from ai2bmd_torch.io.reorder import normalize_atom_order
 from ai2bmd_torch.md import langevin as L
-from ai2bmd_torch.md.graphed import GraphedStep
+from ai2bmd_torch.md.graphed import stepper
 from ai2bmd_torch.physics import mm as MM
 from ai2bmd_torch.system import assign_nonbonded_params
 from ai2bmd_torch.utils.device import resolve_device
@@ -58,6 +60,7 @@ WATER_DENSITY = 0.0334  # molecules / A^3 at 997 kg/m^3
 TIP3P_R_OH = 0.9572
 TIP3P_ANGLE = np.deg2rad(104.52)
 CHUNK = 500                                   # steps a logged chunk (preprocess.py:235)
+AMOEBA_CHUNK = 50                             # descent cycles a logged chunk (preprocess.py:333)
 COMPRESSIBILITY = 4.6e-5 / 1.01325            # water, 1/bar
 BAR_IN_EV_A3 = 1e5 * 1e-30 / 1.602176634e-19  # eV/A^3 per bar
 
@@ -180,14 +183,6 @@ def npt_body(mm: MM.MMSystem, coeffs: L.LangevinCoeffs, masses: torch.Tensor,
     return body
 
 
-def _stepper(fn, buffers):
-    """A call of ``fn(buffers)``: on the card a replay of its captured graph
-    (``md.graphed.GraphedStep``), on the CPU ``fn`` itself."""
-    if buffers[0].is_cuda:
-        return GraphedStep(fn, buffers).replay
-    return lambda: fn(buffers)
-
-
 @dataclasses.dataclass
 class Preprocessor:
     """The FF19SB protocol of ``preprocess.py:130-368``.  After ``run``:
@@ -212,7 +207,7 @@ class Preprocessor:
     target_temp: float = 300.0
     cutoff: float = 9.0
     restraint_kcal: float = 10.0
-    method: str = "FF19SB"       # FF19SB (min/heat/NVT[/NPT]) | AMOEBA (refused)
+    method: str = "FF19SB"       # FF19SB (min/heat/NVT[/NPT]) | AMOEBA (minimize only)
     device: str | torch.device | None = None   # None: the card (raises without one)
 
     def run(self, prot_file: str, log=print) -> str:
@@ -222,11 +217,6 @@ class Preprocessor:
         if os.path.exists(preeq) and os.path.exists(nowat):
             log(f"preprocessing outputs exist, skipping ({preeq})")
             return preeq
-        if self.method.upper() == "AMOEBA":
-            raise NotImplementedError(
-                "preprocessing with method='AMOEBA' (the AMOEBA engine's minimization and MD, "
-                "amoeba_valence.py and amoeba_md.py) is not ported yet: of ROADMAP.md, Queue 1 "
-                "item 15, only the preprocessing half is left (AMOEBA QM/MM runs)")
         device = resolve_device(self.device)
 
         atoms = normalize_atom_order(read_pdb(prot_file))
@@ -234,10 +224,13 @@ class Preprocessor:
         box = solvate(atoms, padding=self.padding, seed=self.seed)
         n_prot = len(atoms)
         log(f"solvated: {len(box)} atoms, cell {np.round(box.cell, 2)}")
+        self.stages, self.energies = {}, {}
+        if self.method.upper() == "AMOEBA":
+            return self._run_amoeba(box, n_prot, preeq, nowat, log, device)
 
         top = build_topology(box)
         self.mm = mm = MM.MMSystem.build(top, box.cell, cutoff=self.cutoff, device=device)
-        self.stages, self.energies, self.temperatures = {}, {}, []
+        self.temperatures = []
         P = torch.as_tensor(box.positions, dtype=torch.float32, device=device)
         masses = torch.as_tensor(top.masses, dtype=torch.float32, device=device)
         prot_mask = torch.zeros((top.n_atoms, 1), dtype=torch.float32, device=device)
@@ -274,7 +267,7 @@ class Preprocessor:
         log(f"minimizing (max {self.max_cyc} cycles)")
         if self.max_cyc:
             b = (md[0], torch.tensor(1e-3, device=device), z0(), md[3])
-            step = _stepper(min_cycle, b)
+            step = stepper(min_cycle, b)
             with self._stage("minimize", 2 * self.max_cyc, device):
                 for i in range(self.max_cyc):
                     step()
@@ -296,7 +289,7 @@ class Preprocessor:
             store(b, L.berendsen_step(potential, 1.0, b[4], 100.0, masses, L.MDState(*b[:4])))
 
         temp = z0()
-        heat = _stepper(heat_step, (*md, temp)) if self.heat_steps else None
+        heat = stepper(heat_step, (*md, temp)) if self.heat_steps else None
         for t in self.heat_stages:
             log(f"heating to {t} K ({self.heat_steps} steps)")
             temp.fill_(t)
@@ -320,7 +313,7 @@ class Preprocessor:
                                      eta=b[5]))
 
         log(f"NVT equilibration ({self.nvt_steps} steps)")
-        nvt = _stepper(nvt_step, (*md, *noise)) if self.nvt_steps > 0 else None
+        nvt = stepper(nvt_step, (*md, *noise)) if self.nvt_steps > 0 else None
         done = 0
         while done < self.nvt_steps:
             with self._stage("NVT", CHUNK, device):
@@ -337,7 +330,7 @@ class Preprocessor:
         if self.npt_steps > 0:
             log(f"NPT equilibration ({self.npt_steps} steps)")
             pres_bar = z0()
-            step = _stepper(npt_body(mm, coeffs, masses, self.taup_fs),
+            step = stepper(npt_body(mm, coeffs, masses, self.taup_fs),
                             (*md, *noise, cell, pres_bar))
             done = 0
             self.npt_pressures_bar = []
@@ -364,6 +357,48 @@ class Preprocessor:
 
         # --- outputs ---
         return self._write_outputs(box, md[0].cpu().numpy(), n_prot, preeq, nowat, log)
+
+    def _run_amoeba(self, box, n_prot, preeq, nowat, log, device) -> str:
+        """AMOEBA preprocessing (``preprocess.py:318-352``): the solvated box
+        minimized with the whole AMOEBA force field (mutual polarization,
+        Ewald induction) in chunks of 50 descent cycles, each followed by one
+        fresh evaluation and its log line, until the RMS force is under the
+        reference's 0.1 kcal/mol/A (Tinker minimize9,
+        src/AIMD/preprocess.py:184-244); no heat, NVT or NPT stage.  Keeps
+        ``md`` (the ``AmoebaMD``), ``chunks`` (cycles done, E in eV, RMS |F|
+        in kcal/mol/A after each chunk), ``minimized``, ``energies`` and
+        ``stages["AMOEBA minimize"]`` (evaluations, device ms; the first
+        chunk's includes the descent cycle's capture)."""
+        from ai2bmd_torch.physics.amoeba_md import AmoebaMD
+
+        cutoff = min(self.cutoff, 0.5 * float(np.min(box.cell)) - 1.1)
+        log(f"AMOEBA minimization (mutual polarization, Ewald induction, "
+            f"cutoff {cutoff:.1f} A, max {self.max_cyc} cycles)")
+        self.md = md = AmoebaMD.build(box, cutoff=cutoff, induction="ewald", device=device)
+        P = box.positions.astype(np.float32)
+        rms_target = 0.1 * units.kcal_per_mol      # minimize9's 0.1 kcal/mol/A
+        self.chunks = []
+        done, e_first = 0, None
+        while done < self.max_cyc:
+            n = min(AMOEBA_CHUNK, self.max_cyc - done)
+            with self._stage("AMOEBA minimize", 2 * n, device):
+                P, energies = md.minimize(P, steps=n, chunk=n)
+            if e_first is None:
+                e_first = energies[0]
+            done += n
+            Pt = torch.as_tensor(P, device=device)
+            e, f, _ = md(Pt, md.init_aux(Pt))
+            rms = float(torch.sqrt((f * f).sum(-1).mean()))
+            self.chunks.append((done, float(e), rms / units.kcal_per_mol))
+            log(f"  [{done}/{self.max_cyc}] E = {float(e):.2f} eV, "
+                f"RMS |F| = {rms / units.kcal_per_mol:.3f} kcal/mol/A")
+            if rms < rms_target:
+                log("  converged to the reference RMS-gradient criterion")
+                break
+        if self.chunks:
+            self.energies["minimize"] = (e_first, self.chunks[-1][1])
+        self.minimized = torch.as_tensor(P, device=device)
+        return self._write_outputs(box, np.asarray(P, np.float64), n_prot, preeq, nowat, log)
 
     @contextlib.contextmanager
     def _stage(self, name: str, steps: int, device: torch.device):

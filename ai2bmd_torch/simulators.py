@@ -16,8 +16,6 @@ protein alone in vacuum, as the JAX package does.  On the card unless the
 caller passes ``device="cpu"``; the weights come from a checkpoint
 (``load_model``) or a random initialization.
 
-Refused, naming the ROADMAP item that ports them: ``mm_backend="amoeba"``
-(Queue 1 item 15) and ``polarizable_mm`` (the item 13 remainder, item 13b).
 Not ported: the benchmark stabilizers of ``ai2bmd_tpu/simulators.py:41-83``
 (``AI2BMD_RANDOM_HEAD_SCALE``, ``AI2BMD_BENCH_PROT_MM``); ``bench_torch.py
 --solvated`` applies them in the script.

@@ -191,15 +191,32 @@ is not printed):
      eager steps, 10 replays timed, no overflow, peak memory, a trace of the
      full box's MM (kernels, the top 8 by device time); (d) the CLI
      on the box with --mm-method amoeba, then --polarizable-mm, 3 steps each
-  12. one JSON line of kernel results, the card's name and power limit, and
+  12. AMOEBA preprocessing and pure-AMOEBA MD: (a) Preprocessor(method=
+     "AMOEBA", max_cyc=AMOEBA_MAX_CYC) on examples/chig.pdb at the 10 A
+     padding (3,615 atoms, cutoff 9 A, K = 576, 12 PCG iterations, each
+     descent cycle a replay of one captured step): the box, the list and the
+     mesh, each chunk's E and RMS |F| (E must fall), the stage's wall
+     seconds, the ms of one captured cycle, peak memory, no overflow, both
+     PDBs; (b) AmoebaMD's energy and forces in float32 against float64 on
+     the card, on the ala2 box of tools/amoeba_md_f32_spread.py (within
+     twice the JAX package's own float32 spread there) and on (a)'s box
+     (FORCE_LIMIT); (c) AMOEBA_CHECK_CYCLES captured descent cycles against
+     eager ones from the same state (the same decisions, positions within
+     FORCE_LIMIT); (d) AMOEBA_MD_STEPS GraphedLangevin steps at 1 fs and
+     300 K from the box (ms/step, finite, no overflow); (e) the CLI with
+     --preprocess --preprocess-method AMOEBA --max-cyc AMOEBA_CLI_CYC on
+     examples/chig.pdb (exit 0, the pair written, 2 solvated steps).  No
+     kernel launches in this phase (no ViSNet on its path)
+  13. one JSON line of kernel results, the card's name and power limit, and
      the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
-`--preprocess-full` runs only
+`--amoeba-only` phase 12 alone; `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
-wall seconds and ms per step), without it.  Phase 5 runs eagerly (no
+wall seconds and ms per step), then the AMOEBA protocol at its default 100
+cycles (wall seconds, ms per cycle), without it.  Phase 5 runs eagerly (no
 graph).  Imports no JAX.  The ms/step figures it prints are smoke figures,
 not a benchmark.
 """
@@ -2846,6 +2863,12 @@ def run_preprocess_full(torch, card, root):
           + ", ".join(f"{k} {v['ms'] / 1e3:.1f} s ({v['steps']} steps, "
                       f"{v['ms'] / v['steps']:.3f} ms each)" for k, v in pre.stages.items())
           + f"; final-half <P> {pre.last_npt_pressure_bar:.1f} bar ({card})")
+    print("  the AMOEBA protocol (Preprocessor(method=\"AMOEBA\"), JAX's default 100 cycles):")
+    res, _ = run_amoeba_preprocess(torch, card, root, 100)
+    print(f"  Preprocessor(method=\"AMOEBA\") on examples/chig.pdb ({res['atoms']} atoms): "
+          f"{res['wall_s']:.1f} s in all, {res['stage_ms'] / 100:.3f} ms a cycle in the stage "
+          f"(the capture included), {res['cycle_ms']:.3f} ms a captured cycle replayed; peak "
+          f"{res['peak_gib']:.2f} GiB ({card})")
 
 
 
@@ -3139,6 +3162,211 @@ def run_polarizable(torch, dev, card, root, flex):
     return out
 
 
+# Phase 12: AMOEBA preprocessing and pure-AMOEBA MD on examples/chig.pdb.
+# The JAX package's own float32 against float64 of AmoebaMD's energy and
+# forces on its solvate(build_polyalanine(2), padding=4) box (251 atoms,
+# cutoff 5 A, positions moved by N(0, 0.02 A) from seed 0):
+# tools/amoeba_md_f32_spread.py on the CPU (the builder's run)
+AMOEBA_MD_JAX_SPREAD = dict(solvent=5.89e-5, protein=1.05e-4)     # eV/A
+AMOEBA_MAX_CYC = 20           # 12(a)'s descent cycles (JAX's default protocol: 100)
+AMOEBA_CHECK_CYCLES = 5       # captured cycles held against eager ones (12c)
+AMOEBA_MD_STEPS = 10          # GraphedLangevin steps at 1 fs, 300 K (12d)
+AMOEBA_CLI_CYC = 10           # the CLI's --max-cyc (12e)
+
+
+def run_amoeba_preprocess(torch, card, root, max_cyc):
+    """Phase 12(a), and --preprocess-full's AMOEBA protocol:
+    Preprocessor(method="AMOEBA", max_cyc) on examples/chig.pdb at the
+    default 10 A padding, on the card: the box, the list and the mesh, each
+    chunk's E and RMS |F| (E must not rise), the stage's wall seconds and
+    device ms, the ms of one captured descent cycle (CUDA events over 5
+    replays), peak device memory, no overflow, both PDBs."""
+    from ai2bmd_torch.io.pdb import read_pdb
+    from ai2bmd_torch.preprocess import Preprocessor
+
+    d = os.path.join(root, f"amoeba_pre_{max_cyc}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pre = Preprocessor(log_dir=d, max_cyc=max_cyc, method="AMOEBA")
+    t0 = time.perf_counter()
+    out = pre.run("examples/chig.pdb", log=lambda m: print(f"    {m}", flush=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    md = pre.md
+    nowat = out.replace("-preeq.pdb", "-preeq-nowat.pdb")
+    need(os.path.exists(out) and os.path.exists(nowat), "AMOEBA preprocessing wrote no outputs")
+    box, prot = read_pdb(out), read_pdb(nowat)
+    need(len(box) == md.sys.n_atoms and 0 < len(prot) < len(box)
+         and bool(torch.as_tensor(box.positions).isfinite().all()),
+         f"AMOEBA preprocessing outputs: {len(box)} / {len(prot)} atoms")
+    e0, e1 = pre.energies["minimize"]
+    chunk_e = [e for _, e, _ in pre.chunks]
+    need(e1 < e0 and all(b <= a for a, b in zip(chunk_e, chunk_e[1:])),
+         f"the AMOEBA minimization's energy rose: {e0} -> {chunk_e}")
+    b, cycle = md._descent
+    need(not bool(b[3].overflow), "the AMOEBA list overflowed")
+    stage = pre.stages["AMOEBA minimize"]
+    cycle_ms = cuda_ms(torch, cycle, 5)
+    trace = _trace(torch, cycle, 1)
+    n_kernels = sum(c for c, _ in trace.values())
+    busy_ms = sum(us for _, us in trace.values()) / 1e3
+    top = sorted(trace.items(), key=lambda kv: -kv[1][1])[:POL_TOP]
+    res = dict(atoms=len(box), cell=[round(c, 3) for c in box.cell.tolist()],
+               mesh=md.sys.pme.grid, k=md.k_max, list_cells=md.nl_grid, cutoff=md.cutoff,
+               chunks=pre.chunks, e_start=e0, wall_s=wall, stage_ms=stage["ms"],
+               cycle_ms=cycle_ms, cycle_kernels=n_kernels, cycle_busy_ms=busy_ms,
+               peak_gib=peak, out=out)
+    print(f"  {len(box)} atoms ({len(prot)} protein), cell {res['cell']}, cutoff "
+          f"{md.cutoff:.2f} A + skin {md.skin}, K = {md.k_max}, list cells {md.nl_grid}, mesh "
+          f"{md.sys.pme.grid}, {md.cg_iters} PCG iterations; E {e0:.3f} eV at the first cycle, "
+          f"then (cycles, E eV, RMS |F| kcal/mol/A) {pre.chunks}; {max_cyc} cycles in "
+          f"{wall:.2f} s wall ({stage['ms'] / 1e3:.2f} s of device time in the stage, the "
+          f"capture included); one captured descent cycle {cycle_ms:.3f} ms (events, 5 "
+          f"replays); peak device memory {peak:.2f} GiB; no overflow; wrote both PDBs ({card})")
+    print(f"  one replayed cycle traced: {n_kernels} kernels, {busy_ms:.1f} device ms "
+          f"({100 * busy_ms / cycle_ms:.0f}% of the cycle's {cycle_ms:.1f} ms); the top "
+          f"{POL_TOP} (name x launches: ms): " + "; ".join(
+              f"{short_name(n)} x{c}: {us / 1e3:.1f}" for n, (c, us) in top))
+    return res, pre
+
+
+def amoeba_md_spread(torch, dev, atoms, label, limits, n_prot, cutoff=9.0):
+    """AmoebaMD's energy and forces in float32 against float64 on the card,
+    the same float32 tables and one list (no kernel lies on this path):
+    max|dF| on solvent and protein atoms within ``limits``, |dE|."""
+    import numpy as np
+
+    from ai2bmd_torch.physics.amoeba_md import AmoebaMD
+
+    out, nl = {}, None
+    for dt in (torch.float64, torch.float32):
+        md = AmoebaMD.build(atoms, cutoff=cutoff, device=dev, dtype=dt, table_dtype=np.float32)
+        P = torch.as_tensor(atoms.positions, dtype=dt, device=dev)
+        nl = md.init_aux(P) if nl is None else nl
+        e, f = md.energy_forces(P, nl)
+        out[dt] = (float(e), f.double().cpu())
+        del md, P, f
+    dF = (out[torch.float32][1] - out[torch.float64][1]).abs().max(-1).values
+    d_solv, d_prot = float(dF[n_prot:].max()), float(dF[:n_prot].max())
+    dE = abs(out[torch.float32][0] - out[torch.float64][0])
+    print(f"  (b) AmoebaMD on {label} ({len(atoms.positions)} atoms), float32 vs float64 on the "
+          f"card: solvent max|dF| {d_solv:.3e} (limit {limits['solvent']:.2e}), protein "
+          f"{d_prot:.3e} (limit {limits['protein']:.2e}) eV/A; |dE| {dE:.3e} eV of |E| "
+          f"{abs(out[torch.float64][0]):.3f}; max|F| "
+          f"{float(out[torch.float64][1].abs().max()):.3f}")
+    need(d_solv <= limits["solvent"], f"{label}: AmoebaMD solvent forces part by {d_solv:.3e}")
+    need(d_prot <= limits["protein"], f"{label}: AmoebaMD protein forces part by {d_prot:.3e}")
+    return dict(dF_solvent=d_solv, dF_protein=d_prot, dE=dE)
+
+
+def run_amoeba(torch, dev, card, root):
+    """Phase 12: AMOEBA preprocessing of Chignolin and pure-AMOEBA MD on the
+    box, on the card: (a) the Preprocessor, (b) float32 against float64, (c)
+    captured descent cycles against eager ones, (d) GraphedLangevin steps,
+    (e) the CLI's --preprocess-method AMOEBA."""
+    import numpy as np
+
+    from ai2bmd_torch.io import build as B
+    from ai2bmd_torch.io.pdb import read_pdb
+    from ai2bmd_torch.preprocess import solvate
+    from ai2bmd_torch.utils.tree import tree_clone, tree_copy_
+
+    t_phase = time.perf_counter()
+    res, pre = run_amoeba_preprocess(torch, card, root, AMOEBA_MAX_CYC)
+    md = pre.md
+    box = read_pdb(res["out"])
+    n_prot = len(read_pdb(res["out"].replace("-preeq.pdb", "-preeq-nowat.pdb")))
+    small = solvate(B.build_polyalanine(2), padding=4.0, seed=0)      # the tool's box
+    small.positions = small.positions + np.random.default_rng(0).normal(
+        0.0, 0.02, small.positions.shape)
+    res["spread_small"] = amoeba_md_spread(torch, dev, small, "the ala2 box", {
+        k: 2 * v for k, v in AMOEBA_MD_JAX_SPREAD.items()}, 32, cutoff=5.0)
+    res["spread_box"] = amoeba_md_spread(torch, dev, box, "the minimized Chignolin box", dict(
+        solvent=FORCE_LIMIT, protein=FORCE_LIMIT), n_prot)
+
+    # (c) captured descent cycles against eager cycles from the same state
+    b, cycle = md._descent
+    P0 = torch.as_tensor(box.positions, dtype=torch.float32, device=dev)
+    nl0 = md.init_aux(P0)
+    lr = 1e-3
+    b[0].copy_(P0)
+    b[1].fill_(lr)
+    tree_copy_(b[3], nl0)
+    eager = tree_clone(b)
+    steps_g, steps_e, e_g, e_e = [], [], [], []
+    for _ in range(AMOEBA_CHECK_CYCLES):
+        cycle()
+        md.descent_cycle(eager)
+        steps_g.append(float(b[1]))
+        steps_e.append(float(eager[1]))
+        e_g.append(float(b[2]))
+        e_e.append(float(eager[2]))
+    dx = float((b[0] - eager[0]).abs().max())
+    de = max(abs(x - y) for x, y in zip(e_g, e_e))
+    print(f"  (c) {AMOEBA_CHECK_CYCLES} captured descent cycles vs eager ones from the minimized "
+          f"box: step sizes {steps_g} / {steps_e}, max|dx| {dx:.3e} A (limit {FORCE_LIMIT}), "
+          f"max|dE| {de:.3e} eV of {abs(e_e[-1]):.3f}")
+    need(steps_g == steps_e, "captured and eager cycles took other decisions")
+    need(dx <= FORCE_LIMIT, f"captured descent cycles part from eager ones by {dx:.3e} A")
+    res.update(replay_dx=dx, replay_de=de)
+
+    # (d) Langevin steps at 1 fs and 300 K, replays of one captured step
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    state = md.initial_state(box.positions, gen, temp_K=300.0)
+    graph = md.make_step_fn(state, gen, timestep_fs=1.0, temp_K=300.0)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    energies = []
+    start.record()
+    for _ in range(AMOEBA_MD_STEPS):
+        final = graph.run(1)
+        energies.append(final.energy.clone())
+    end.record()
+    torch.cuda.synchronize()
+    res["md_ms"] = start.elapsed_time(end) / AMOEBA_MD_STEPS
+    energies = torch.stack(energies).cpu()
+    need(bool(final.positions.isfinite().all() and energies.isfinite().all()),
+         "AMOEBA MD: non-finite positions or energies")
+    need(not bool(final.aux.overflow), "AMOEBA MD: the list overflowed")
+    print(f"  (d) AmoebaMD: initial state + capture (3 warm-up steps) {t_capture:.1f} s; "
+          f"{AMOEBA_MD_STEPS} GraphedLangevin steps at 1 fs, 300 K: {res['md_ms']:.3f} ms/step "
+          f"(events); E {float(energies[0]):.3f} -> {float(energies[-1]):.3f} eV, finite, no "
+          f"overflow ({card})")
+    del graph, state, final, eager
+    torch.cuda.empty_cache()
+
+    # (e) the CLI
+    t0 = time.perf_counter()
+    d = os.path.join(root, "amoeba_cli")
+    shutil.rmtree(d, ignore_errors=True)
+    txt = _cli_wait("amoeba-preprocess", _cli_start([
+        sys.executable, "-m", "ai2bmd_torch", "--prot-file", "examples/chig.pdb", "--log-dir", d,
+        "--preprocess", "--preprocess-method", "AMOEBA", "--max-cyc", str(AMOEBA_CLI_CYC),
+        "--preeq-steps", "0", "--sim-steps", "2", "--record-per-steps", "1", "--timestep",
+        str(SOLV_DT_FS)]))
+    lines = [ln for ln in txt.splitlines() if "AMOEBA minimization" in ln or "RMS |F|" in ln]
+    need(len(lines) == 2 and f"[{AMOEBA_CLI_CYC}/{AMOEBA_CLI_CYC}]" in lines[1],
+         f"the CLI's AMOEBA lines: {lines}")
+    need(all(os.path.exists(os.path.join(d, f"chig-preeq{s}.pdb")) for s in ("", "-nowat")),
+         "the CLI wrote no -preeq pair")
+    need("Simulation finished!" in txt, "the CLI run did not finish")
+    print(f"  (e) --preprocess --preprocess-method AMOEBA --max-cyc {AMOEBA_CLI_CYC}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s, the pair written; {lines[1].strip()!r}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  AMOEBA preprocessing ({res['atoms']} atoms, {AMOEBA_MAX_CYC} cycles): "
+          f"{res['wall_s']:.2f} s wall, {res['cycle_ms']:.3f} ms a captured cycle, peak "
+          f"{res['peak_gib']:.2f} GiB; AmoebaMD {res['md_ms']:.3f} ms/step; phase 12 took "
+          f"{res['phase_s']:.1f} s ({card})")
+    return res
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -3170,10 +3398,13 @@ def main(argv=None):
     ap.add_argument("--polarizable-only", action="store_true",
                     help="after the build, run only phase 11 (the nl route, the induced-dipole "
                          "hybrid and AMOEBA QM/MM on the solvated box), without the final line")
+    ap.add_argument("--amoeba-only", action="store_true",
+                    help="after the build, run only phase 12 (AMOEBA preprocessing and "
+                         "pure-AMOEBA MD of Chignolin's box), without the final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
-                         "examples/chig.pdb and print each stage's wall seconds, without the "
-                         "final line")
+                         "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
+                         "each one's wall seconds, without the final line")
     args = ap.parse_args(argv)
     import torch
 
@@ -3222,6 +3453,11 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.amoeba_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 12. AMOEBA preprocessing and pure-AMOEBA MD (alone)")
+        run_amoeba(torch, dev, card, root)
         return
     if args.polarizable_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -3289,6 +3525,15 @@ def main(argv=None):
           "its list built inside the captured step, the induced-dipole hybrid, AMOEBA QM/MM; the "
           "CLI's --mm-method amoeba and --polarizable-mm")
     p11 = run_polarizable(torch, dev, card, root, solv["flex"])
+    print("== 12. AMOEBA preprocessing of Chignolin (Preprocessor(method=\"AMOEBA\"), 3,615 "
+          "atoms) and pure-AMOEBA MD on the box: float32 vs float64, captured descent cycles vs "
+          "eager, GraphedLangevin steps, the CLI's --preprocess-method AMOEBA")
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+
+    reset_launches()
+    p12 = run_amoeba(torch, dev, card, root)
+    amoeba_launches = dict(LAUNCHES)
+    no_plain("12")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -3316,7 +3561,10 @@ def main(argv=None):
         k["polarizable_launches"] = {route: p11[key]["launches"].get(k["name"], 0)
                                      for route, key in (("nl", "nl"), ("hybrid", "pol"),
                                                         ("amoeba", "amoeba"))}
-    print("== 12. results")
+    for k in kernels:      # phase 12: AMOEBA preprocessing and MD evaluate no ViSNet
+        k["amoeba_md_launches"] = amoeba_launches.get(k["name"], 0)
+        need(k["amoeba_md_launches"] == 0, f"phase 12 launched {k['name']}")
+    print("== 13. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -3329,7 +3577,9 @@ def main(argv=None):
           f"preprocessing ms per step {p10['pre']['stage_ms']}; solvated replica-step "
           f"{p10['ens']['ms']:.3f} ({N_SOLV_REPLICAS} replicas); polarizable routes graphed "
           f"(events) nl {p11['nl']['ms_events']:.3f}, hybrid {p11['pol']['ms_events']:.3f}, "
-          f"AMOEBA {p11['amoeba']['ms_events']:.3f}; "
+          f"AMOEBA {p11['amoeba']['ms_events']:.3f}; AMOEBA preprocessing "
+          f"{p12['wall_s']:.2f} s ({AMOEBA_MAX_CYC} cycles, {p12['cycle_ms']:.3f} ms a captured "
+          f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -143,25 +143,34 @@ def _main(argv):
 SOLVATED = ["--prot-file", "examples/chig_preprocessed/chig-preeq.pdb"]
 
 
-# the ids the cases had beside the two whole-molecule / checkpoint cases,
-# which went when those routes were ported, and the pme (12), solvated (13),
-# preprocessing (14) and polarizable (13b) cases, which became tests of the
-# routes: test_torch_pme.py::test_cli_runs_pme_in_fragment_mode,
-# test_torch_qmmm.py::test_cli_runs_the_solvated_box_with_explicit_solvent,
-# test_torch_solvated_ensemble.py::test_cli_solvent_on_a_bare_pdb_finds_the_preprocessed_box
-# and test_cli_runs_the_polarizable_solvent_routes below.  --mm-method amoeba
-# runs too; of item 15 only the AMOEBA preprocessing is left
-@pytest.mark.parametrize("argv, item", [
-    (["--preprocess", "--preprocess-method", "AMOEBA"], 15),
-], ids=["amoeba-15"])
-def test_cli_refused_routes_name_their_item(tmp_path, argv, item):
-    """Each route the port does not have yet exits nonzero naming its
-    ROADMAP item (before any model is built)."""
-    conftest.require_examples()
-    run = _cli("--prot-file", conftest.example_pdb("chig"), "--log-dir", str(tmp_path),
-               "--sim-steps", "2", *CLI_TINY, *argv)
-    assert run.returncode != 0
-    assert f"Queue 1 item {item}" in run.stderr, run.stderr[-2000:]
+# the refused routes' test (its last case, --preprocess-method AMOEBA, item
+# 15) became a test of the route below: every route of items 11-15 runs
+def test_cli_preprocess_method_amoeba_minimizes_then_runs(tmp_path, monkeypatch):
+    """--preprocess --preprocess-method AMOEBA on a bare ACE-ALA-ALA-NME, in
+    process: exit 0, the AMOEBA minimization's lines (2 cycles), the
+    -preeq pair written, then --no-solvent runs the box's protein in vacuum.
+    The box is cut to a 4 A padding (251 atoms) by wrapping solvate; the CLI
+    itself pads 10 A."""
+    from ai2bmd_torch import preprocess as TP
+    from ai2bmd_torch.io import build as TB
+    from ai2bmd_torch.io.pdb import read_pdb, write_pdb
+
+    solvate = TP.solvate
+    monkeypatch.setattr(TP, "solvate", lambda atoms, padding, seed: solvate(
+        atoms, padding=4.0, seed=seed))
+    pdb = str(tmp_path / "ala2.pdb")
+    write_pdb(pdb, TB.build_polyalanine(2))
+    assert TCLI.main(["--prot-file", pdb, *CLI_TINY, "--log-dir", str(tmp_path),
+                      "--preprocess", "--preprocess-method", "AMOEBA", "--max-cyc", "2",
+                      "--no-solvent", "--preeq-steps", "0", "--sim-steps", "2",
+                      "--record-per-steps", "1"]) == 0
+    text = "".join((tmp_path / f).read_text() for f in os.listdir(tmp_path)
+                   if f.endswith(".log"))
+    assert "AMOEBA minimization (mutual polarization, Ewald induction" in text
+    assert "[2/2] E = " in text
+    assert len(read_pdb(str(tmp_path / "ala2-preeq.pdb"))) == 251
+    assert len(read_pdb(str(tmp_path / "ala2-preeq-nowat.pdb"))) == 32
+    assert TT.read_dcd(str(tmp_path / "ala2-preeq-traj.dcd")).shape == (2, 32, 3)
 
 
 @pytest.fixture(scope="module")

@@ -362,8 +362,40 @@ def test_preprocessor_end_to_end_against_jax(box, tmp_path, monkeypatch):
     assert again == [f"preprocessing outputs exist, skipping ({out})"]
 
 
-def test_the_amoeba_method_is_refused_naming_item_15(tmp_path):
+def test_the_amoeba_method_minimizes_the_box(tmp_path):
+    """Preprocessor(method="AMOEBA") on ACE-ALA-ALA-NME (padding 4 A, cutoff
+    5 A, max_cyc 20, as tests/test_preprocess.py runs JAX's): JAX's log
+    lines, the energy falling, the minimized box written with its
+    protein-only companion."""
     pdb = str(tmp_path / "ala2.pdb")
     write_pdb(pdb, TB.build_polyalanine(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        TP.Preprocessor(log_dir=str(tmp_path), method="AMOEBA", device="cpu").run(pdb)
+    logs = []
+    pre = TP.Preprocessor(log_dir=str(tmp_path), max_cyc=20, padding=4.0, cutoff=5.0,
+                          method="AMOEBA", device="cpu")
+    out = pre.run(pdb, log=logs.append)
+    assert out == str(tmp_path / "ala2-preeq.pdb")
+    assert logs[2] == ("AMOEBA minimization (mutual polarization, Ewald induction, cutoff "
+                       "5.0 A, max 20 cycles)")
+    assert re.fullmatch(r"  \[20/20\] E = -?\d+\.\d\d eV, RMS \|F\| = \d+\.\d{3} kcal/mol/A",
+                        logs[3]), logs[3]
+    assert pre.stages["AMOEBA minimize"]["steps"] == 40 and len(pre.chunks) == 1
+    e0, e1 = pre.energies["minimize"]
+    assert e1 < e0
+    box = read_pdb(out)
+    assert len(box) == 251 and np.isfinite(box.positions).all()
+    assert np.abs(box.positions - TP.solvate(TB.build_polyalanine(2), padding=4.0).positions
+                  ).max() > 1e-2
+    assert len(read_pdb(str(tmp_path / "ala2-preeq-nowat.pdb"))) == 32
+
+
+def test_settle_from_topology_defaults_to_the_card(box, monkeypatch):
+    """SettleConstraint.from_topology (and build) take the card unless given
+    a device: without one they raise; with device="cpu" the box's waters
+    (each O with its two H) are on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSET.SettleConstraint.from_topology(box["ttop"])
+    c = TSET.SettleConstraint.from_topology(box["ttop"], device="cpu")
+    assert c.o_idx.device.type == "cpu"
+    np.testing.assert_array_equal(c.o_idx.numpy(), np.sort(box["ttop"].water_oxygens))
+    np.testing.assert_array_equal(c.h1_idx.numpy(), c.o_idx.numpy() + 1)

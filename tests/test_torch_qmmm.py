@@ -116,7 +116,7 @@ def waters(box):
     that satisfy the rigid geometry (JAX's snap)."""
     j_atoms, t_atoms = box
     jc = JSET.SettleConstraint.from_topology(JPT.build_topology(j_atoms))
-    tc = TSET.SettleConstraint.from_topology(TPT.build_topology(t_atoms))
+    tc = TSET.SettleConstraint.from_topology(TPT.build_topology(t_atoms), "cpu")
     X0 = np.asarray(jax.jit(jc.snap)(jnp.asarray(j_atoms.positions, jnp.float32)))
     return jc, tc, X0, t_atoms.masses
 

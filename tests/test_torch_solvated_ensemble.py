@@ -186,12 +186,26 @@ def test_cli_solvent_on_a_bare_pdb_finds_the_preprocessed_box(box, tmp_path):
     assert TT.read_dcd(str(log_dir / "ala2-preeq-traj.dcd")).shape == (2, 251, 3)
 
 
-def test_cli_preprocess_method_amoeba_is_refused_naming_item_15(tmp_path):
-    """--preprocess with --preprocess-method AMOEBA exits through the
-    refusal naming ROADMAP item 15."""
+def test_cli_solvent_with_amoeba_preprocessing_runs_the_box(tmp_path, monkeypatch):
+    """--solvent --preprocess-method AMOEBA on a bare ACE-ALA-ALA-NME: the
+    CLI preprocesses (the solvent was asked for and the input has none)
+    with the AMOEBA minimization (1 cycle), writes the pair, and goes on
+    into solvated production on that box (its QM/MM line, a DCD of the whole
+    box).  The box is cut to a 4 A padding (251 atoms) by wrapping solvate;
+    the CLI itself pads 10 A."""
     conftest.require_examples()
+    solvate = TP.solvate
+    monkeypatch.setattr(TP, "solvate", lambda atoms, padding, seed: solvate(
+        atoms, padding=4.0, seed=seed))
     pdb = str(tmp_path / "ala2.pdb")
     write_pdb(pdb, TB.build_polyalanine(2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        _main("--prot-file", pdb, "--preprocess", "--preprocess-method", "AMOEBA", "--log-dir",
-              str(tmp_path), "--sim-steps", "2")
+    log_dir = tmp_path / "run"
+    log_dir.mkdir()
+    assert _main("--prot-file", pdb, "--solvent", "--preprocess-method", "AMOEBA",
+                 "--max-cyc", "1", "--log-dir", str(log_dir), "--preeq-steps", "0",
+                 "--sim-steps", "2", "--record-per-steps", "1") == 0
+    text = "".join((log_dir / f).read_text() for f in os.listdir(log_dir) if f.endswith(".log"))
+    assert "AMOEBA minimization" in text and "[1/1] E = " in text
+    assert "QM/MM: 251 atoms in the box, 32 in the QM region" in text
+    assert read_pdb(str(log_dir / "ala2-preeq-nowat.pdb")).positions.shape == (32, 3)
+    assert TT.read_dcd(str(log_dir / "ala2-preeq-traj.dcd")).shape == (2, 251, 3)
