@@ -23,14 +23,22 @@ Routes:
     trajectory of the protein only); with ``--no-solvent`` it runs its
     protein alone in vacuum; an exception during the simulation exits 255,
     as the reference's runaway / solver errors do
-  * ``--replicas > 1`` (or ``--mesh-mp > 1``): ``ReplicaEnsemble`` on one
-    card for a vacuum input (or, with ``--no-solvent``, a solvated input's
-    protein, as the lone route runs it; JAX's ensemble route ignores
-    ``--no-solvent``), ``SolvatedReplicaEnsemble`` for a solvated one
-    (ff19SB; ``--mm-method amoeba`` and ``--polarizable-mm`` there run
-    ff19SB with a warning, as in the JAX package); each replica with its own DCD, the whole batched
-    state (and every replica's generator state) checkpointed each record
-    interval
+  * ``--replicas > 1`` (or ``--mesh-mp > 1``): an ensemble over a dp x mp
+    mesh, sized by the JAX CLI's arithmetic over the machine's cards (or
+    ``torchrun``'s world; with ``--device cpu``, ``--mesh-dp`` x
+    ``--mesh-mp`` gloo ranks): ``SolvatedReplicaEnsemble`` over dp for a
+    solvated input (ff19SB; ``--mm-method amoeba`` and ``--polarizable-mm``
+    there run ff19SB with a warning, as in the JAX package),
+    ``ReplicaEnsemble`` over dp for a vacuum one when mp is 1 (or, with
+    ``--no-solvent``, a solvated input's protein, as the lone route runs it;
+    JAX's ensemble route ignores ``--no-solvent``), else
+    ``EnsembleSimulation`` (each replica's fragments split over mp).  A mesh
+    of one rank runs in this process, a larger one in a world of ranks that
+    the CLI spawns (``parallel.launch``: NCCL on the card, one rank a card;
+    gloo on the CPU), or joins under ``torchrun``.  Rank 0 writes each
+    replica's DCD, the ``Step ...`` lines, and the whole state of every
+    replica (with every replica's generator state) each record interval;
+    ``--restart`` resumes it on the same mesh
   * weights: ``--ckpt-path`` (a Lightning .ckpt, or a converted .npz; with
     ``--ckpt-type <id>`` the file ``<ckpt-path>/visnet-uni-<id>.ckpt``) on
     every route, else random weights; a file that is not a checkpoint exits
@@ -40,9 +48,8 @@ Routes:
 the whole AMOEBA force field (``Preprocessor._run_amoeba``), and the run goes
 on with the box as after the FF19SB protocol.
 
-Refused, naming the ROADMAP item that ports it: a mesh of more than one card
-(item 17); and ``--matmul-precision`` other than
-float32 (the port's products are float32 or 3xTF32 by design).  The
+Refused: ``--matmul-precision`` other than float32 (the port's products are
+float32 or 3xTF32 by design; ROADMAP item 19).  The
 reference's ``--device-strategy``, ``--work-strategy`` and ``--chunk-size``
 are accepted as no-ops, as in the JAX package; ``--mm-method``,
 ``--polarizable-mm``, ``--rigid-water`` and ``--write-solvent`` act only on
@@ -52,6 +59,7 @@ solvated runs.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import sys
@@ -115,10 +123,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-size", type=int, default=None,
                    help="(reference compatibility; no-op)")
     p.add_argument("--mesh-dp", type=int, default=1,
-                   help="replica-ensemble mesh axis size (more than one card: ROADMAP item 17)")
+                   help="replica-ensemble mesh axis size (one rank a card; with --device cpu, "
+                        "gloo ranks)")
     p.add_argument("--mesh-mp", type=int, default=1,
-                   help="fragment-sharding mesh axis size (more than one card: ROADMAP "
-                        "item 17)")
+                   help="fragment-sharding mesh axis size (one rank a card; with --device cpu, "
+                        "gloo ranks)")
     p.add_argument("--replicas", type=int, default=1,
                    help="number of ensemble replicas (>1 runs the replica-batched ensemble)")
     p.add_argument("--matmul-precision", type=str, default="float32",
@@ -167,16 +176,21 @@ def main(argv=None) -> int:
     from ai2bmd_torch.utils.logging_utils import tee_output, untee_output
     from ai2bmd_torch.utils.signals import register_print_stack_on_sigusr2
 
-    tee_output(log_dir, prot_name)
+    from ai2bmd_torch.parallel.launch import under_torchrun
+
+    # under torchrun, rank 0 alone keeps the log (the other ranks print nothing)
+    log_path = None
+    if not under_torchrun() or os.environ["RANK"] == "0":
+        log_path = tee_output(log_dir, prot_name)
     try:
         # opt-in hang debugging: kill -USR2 <pid> dumps all thread stacks
         register_print_stack_on_sigusr2(out_dir=log_dir)
-        return _run(args, device, prot_name, log_dir, log)
+        return _run(args, device, prot_name, log_dir, log, log_path)
     finally:
         untee_output()
 
 
-def _run(args, device, prot_name: str, log_dir: str, log) -> int:
+def _run(args, device, prot_name: str, log_dir: str, log, log_path: str | None = None) -> int:
     ckpt = args.ckpt_path
     if ckpt and args.ckpt_type:
         ckpt = os.path.join(ckpt, f"visnet-uni-{args.ckpt_type}.ckpt")
@@ -210,7 +224,7 @@ def _run(args, device, prot_name: str, log_dir: str, log) -> int:
         model_cfg = ViSNetConfig(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8)
 
     if args.replicas > 1 or args.mesh_mp > 1:
-        return _run_ensemble(args, device, ckpt, log_dir, model_cfg, log)
+        return _run_ensemble(args, device, ckpt, log_dir, model_cfg, log, log_path)
 
     sim = ProteinSimulation.from_pdb(
         args.prot_file,
@@ -292,64 +306,144 @@ def _build_frames(log_dir: str, prot_name: str):
     shutil.copy(traj, results_dir)
 
 
-def _mesh_devices(args, device) -> int:
-    """Cards the JAX CLI's mesh arithmetic (cli.py:280-282) would use."""
+@dataclasses.dataclass(frozen=True)
+class EnsemblePlan:
+    """The mesh of an ensemble run and the ensemble that runs on it:
+    "solvated" (``SolvatedReplicaEnsemble`` over dp), "replica"
+    (``ReplicaEnsemble`` over dp, when mp is 1) or "sharded"
+    (``EnsembleSimulation`` over dp x mp), as the JAX CLI picks them
+    (cli.py:284-330)."""
+
+    n_dp: int
+    n_mp: int
+    route: str
+
+    @property
+    def world(self) -> int:
+        return self.n_dp * self.n_mp
+
+
+def _mesh_shape(args, device) -> tuple[int, int]:
+    """(n_dp, n_mp) by the JAX CLI's arithmetic (cli.py:280-282) over the
+    cards this run can use: ``torchrun``'s world when it started this
+    process, else every card of the machine.  With ``--device cpu`` there is
+    no count to read: ``--mesh-dp`` x ``--mesh-mp`` gloo ranks."""
     import torch
 
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    from ai2bmd_torch.parallel.launch import under_torchrun
+
+    if under_torchrun():
+        n_dev = int(os.environ["WORLD_SIZE"])
+    elif device.type == "cuda":
+        n_dev = torch.cuda.device_count()
+    else:
+        return args.mesh_dp, args.mesh_mp
     n_dp = min(args.mesh_dp, n_dev)
     n_mp = args.mesh_mp if args.mesh_dp * args.mesh_mp == n_dev else n_dev // n_dp
-    return n_dp * n_mp
+    return n_dp, n_mp
 
 
-def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log) -> int:
-    """Replica-ensemble MD on one card (the JAX CLI's single-card branches,
-    cli.py:284-317): independent Langevin trajectories, of fragment mode with
-    the "mm" long range and a replica-batched force evaluation for a vacuum
-    input (``--mode`` and ``--fragment-longrange-calc`` do not apply, as in
-    the JAX package), of solvated QM/MM (``SolvatedReplicaEnsemble``) for a
-    solvated one.  Every replica records its own DCD, and the whole ensemble
-    state is checkpointed each record interval (``--restart`` resumes it,
-    writing ``-restart`` trajectories)."""
+def _ensemble_plan(args, device, solvated: bool) -> EnsemblePlan:
+    n_dp, n_mp = _mesh_shape(args, device)
+    if solvated:
+        # one solvated step fills a card: replicas over dp only, mp's cards
+        # left idle, as the JAX CLI does (cli.py:292)
+        return EnsemblePlan(n_dp, 1, "solvated")
+    return EnsemblePlan(n_dp, n_mp, "replica" if n_mp == 1 else "sharded")
+
+
+def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log, log_path=None) -> int:
+    """Replica-ensemble MD (the JAX CLI's ensemble branches, cli.py:280-330):
+    independent Langevin trajectories over a dp x mp mesh (``_ensemble_plan``),
+    of fragment mode with the "mm" long range for a vacuum input (``--mode``
+    and ``--fragment-longrange-calc`` do not apply, as in the JAX package),
+    replica-batched over dp, or each replica with its fragments split over
+    mp; of solvated QM/MM (``SolvatedReplicaEnsemble``, over dp) for a
+    solvated one.  A mesh of one rank runs in this process; a larger one in a
+    world of ranks (``parallel.launch``: spawned, NCCL on the card, gloo on
+    the CPU), or in ``torchrun``'s.  Rank 0 records every replica's DCD and
+    checkpoints the whole ensemble state each record interval
+    (``--restart`` resumes it on the same mesh, writing ``-restart``
+    trajectories)."""
+    from ai2bmd_torch.host import load_protein
+    from ai2bmd_torch.parallel import launch as LA
+
+    full = load_protein(args.prot_file)
+    solvated = len(full.protein_indices()) < len(full) and args.solvent is not False
+    plan = _ensemble_plan(args, device, solvated)
+    log.info("ensemble mesh: dp=%d mp=%d, %d replicas (%s)", plan.n_dp, plan.n_mp,
+             args.replicas, plan.route)
+    body = (args, plan, ckpt, log_dir, model_cfg, log_path)
+    if plan.world == 1 and not LA.under_torchrun():
+        return _ensemble_body(None, *body)
+    # gloo ranks share the host's cores: one torch thread each
+    return LA.launch(_ensemble_body, plan.world, device.type, args=body,
+                     threads=1 if device.type == "cpu" else None)[0]
+
+
+def _ensemble_body(rank, args, plan: EnsemblePlan, ckpt, log_dir, model_cfg, log_path) -> int:
+    """One rank's ensemble run (``rank`` None: the only one, in the CLI's
+    process)."""
     import numpy as np
 
     from ai2bmd_torch.host import build_fragment_index, load_protein
     from ai2bmd_torch.io.trajectory import DCDTrajectory
-    from ai2bmd_torch.parallel import ReplicaEnsemble, SolvatedReplicaEnsemble
+    from ai2bmd_torch.parallel import (EnsembleSimulation, ReplicaEnsemble,
+                                       SolvatedReplicaEnsemble, make_mesh)
+    from ai2bmd_torch.parallel.launch import is_rank0, under_torchrun
     from ai2bmd_torch.simulators import load_model
+    from ai2bmd_torch.utils.device import resolve_device
 
-    n_cards = _mesh_devices(args, device)
-    if n_cards > 1:
-        raise NotImplementedError(
-            f"an ensemble mesh over {n_cards} cards is not ported yet (ROADMAP.md, Queue 1 "
-            f"item 17); the port's ensembles run on one card")
+    rank0 = is_rank0()
+    if rank is not None and not under_torchrun():
+        # a spawned rank: rank 0 prints into the CLI's terminal and its log
+        logging.basicConfig(
+            level=[logging.WARNING, logging.INFO, logging.DEBUG][min(args.verbose, 2)]
+            if rank0 else logging.WARNING,
+            format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+        if rank0 and log_path:
+            from ai2bmd_torch.utils.logging_utils import tee_output
+
+            tee_output(log_dir, path=log_path)
+    device = rank.device if rank is not None else resolve_device(args.device)
+    mesh = make_mesh(plan.n_dp, plan.n_mp) if rank is not None else None
     prot_name = os.path.basename(args.prot_file).rsplit(".", 1)[0]
     full = load_protein(args.prot_file)
-    solvated = len(full.protein_indices()) < len(full)
-    if solvated and args.solvent is False:
+    if plan.route != "solvated" and len(full.protein_indices()) < len(full):
         # --no-solvent: the protein alone, in vacuum, as the lone route runs it
-        full, solvated = full.select(full.protein_indices()), False
+        full = full.select(full.protein_indices())
     params, cfg = load_model(ckpt, model_cfg, seed=args.seed)
-    log.info("replica ensemble on %s: %d replicas", device, args.replicas)
     common = dict(n_replicas=args.replicas, timestep_fs=args.timestep,
                   temp_K=float(args.temp_k), steps_per_call=args.record_per_steps,
                   warm_iters=1, device=device)
-    if solvated:
-        if args.polarizable_mm:
+    if plan.route == "solvated":
+        if rank0 and args.polarizable_mm:
             # JAX's ensemble route never passes the flag on (ai2bmd_tpu/cli.py:295-302)
-            log.warning("solvated ensembles run the fixed-charge ff19sb engine (as the JAX "
-                        "package's do); use --replicas 1 for --polarizable-mm")
-        if args.mm_method == "amoeba":
-            log.warning("solvated ensembles run the ff19sb engine (as the JAX package's do); "
-                        "use --replicas 1 for --mm-method amoeba")
-        ens = SolvatedReplicaEnsemble.build(full.atoms, params, cfg, **common)
+            logging.getLogger("ai2bmd-torch").warning(
+                "solvated ensembles run the fixed-charge ff19sb engine (as the JAX package's "
+                "do); use --replicas 1 for --polarizable-mm")
+        if rank0 and args.mm_method == "amoeba":
+            logging.getLogger("ai2bmd-torch").warning(
+                "solvated ensembles run the ff19sb engine (as the JAX package's do); use "
+                "--replicas 1 for --mm-method amoeba")
+        ens = SolvatedReplicaEnsemble.build(full.atoms, params, cfg, mesh=mesh, **common)
         q = ens.qmmm
-        print(f"QM/MM: {q.n_atoms} atoms in the box, {len(q.sel)} in the QM region; "
-              f"{q.backend} pairs, PME mesh {q.mesh}; {args.replicas} replicas",
-              flush=True)
-    else:
+        if rank0:
+            print(f"QM/MM: {q.n_atoms} atoms in the box, {len(q.sel)} in the QM region; "
+                  f"{q.backend} pairs, PME mesh {q.mesh}; {args.replicas} replicas",
+                  flush=True)
+    elif plan.route == "replica":
         ens = ReplicaEnsemble.build(full, build_fragment_index(full.atoms), params, cfg,
-                                    **common)
+                                    mesh=mesh, **common)
+    else:
+        ens = EnsembleSimulation.build(full, build_fragment_index(full.atoms), params, cfg,
+                                       mesh, opt_iters=args.opt_iters, **common)
+    if rank0 and rank is not None:
+        import torch.distributed as dist
+
+        print(f"ensemble mesh dp={plan.n_dp} x mp={plan.n_mp} over {rank.world_size} ranks "
+              f"({dist.get_backend()}): {type(ens).__name__}, {ens.block.size} replicas a dp "
+              f"index", flush=True)
 
     ckpt_path = f"{log_dir}/{prot_name}-{args.replicas}x-ensemble-restart.npz"
     state = ens.initial_state(full.positions, temp_K=float(args.temp_k), seed=args.seed)
@@ -363,27 +457,31 @@ def _run_ensemble(args, device, ckpt, log_dir, model_cfg, log) -> int:
     trajs = [
         DCDTrajectory(f"{log_dir}/{prot_name}-r{i:03d}-traj{suffix}.dcd", len(full),
                       timestep_fs=args.timestep, save_interval=args.record_per_steps,
-                      cell=full.cell if solvated else None)
+                      cell=full.cell if plan.route == "solvated" else None)
         for i in range(args.replicas)
-    ]
+    ] if rank0 else []
     n_calls = max(1, (args.sim_steps - state.step) // args.record_per_steps)
     try:
         for _ in range(n_calls):
             state = ens.run(state, 1)
-            pos = state.positions.cpu().numpy()
-            e = state.energy.cpu().numpy()
+            every, rng = ens.gather(state), ens.rng_states()
+            if not rank0:
+                continue
+            pos = every.positions.cpu().numpy()
+            e = every.energy.cpu().numpy()
             for traj, p in zip(trajs, pos):
                 traj.write(p)
-            _save_ensemble_restart(ckpt_path, state, ens.generators)
+            _save_ensemble_restart(ckpt_path, every, rng)
             print(f"Step {state.step}: Epot mean = {e.mean():.3f}eV "
                   f"(min {e.min():.3f}, max {e.max():.3f})", flush=True)
     finally:
         for traj in trajs:
             traj.close()
-    out = f"{log_dir}/{args.replicas}x-ensemble-final.npz"
-    np.savez(out, positions=state.positions.cpu().numpy(),
-             velocities=state.velocities.cpu().numpy())
-    print(f"wrote {out} + {len(trajs)} per-replica DCDs")
+    if rank0:
+        out = f"{log_dir}/{args.replicas}x-ensemble-final.npz"
+        np.savez(out, positions=every.positions.cpu().numpy(),
+                 velocities=every.velocities.cpu().numpy())
+        print(f"wrote {out} + {len(trajs)} per-replica DCDs", flush=True)
     return 0
 
 
@@ -400,29 +498,34 @@ def _ensemble_arrays(state) -> dict:
             **{f"aux_{i}": leaf for i, leaf in enumerate(tree_leaves(state.aux))}}
 
 
-def _save_ensemble_restart(path: str, state, generators):
-    """Checkpoint every tensor of the batched MDState, its step, and each
-    replica's generator state, so an interrupted ensemble resumes where it
-    stopped."""
+def _save_ensemble_restart(path: str, state, rng_states):
+    """Checkpoint every tensor of the batched MDState of every replica, its
+    step, and each replica's generator state, so an interrupted ensemble
+    resumes where it stopped."""
     import numpy as np
 
     np.savez(
         path + ".tmp.npz",
         step=np.asarray(state.step),
-        rng_states=np.stack([g.get_state().numpy() for g in generators]),
+        rng_states=np.stack([np.asarray(s) for s in rng_states]),
         **{k: t.cpu().numpy() for k, t in _ensemble_arrays(state).items()},
     )
     os.replace(path + ".tmp.npz", path)
 
 
 def _load_ensemble_restart(path: str, template, ens):
+    """The state of this rank's replicas from a checkpoint of every replica's
+    (a collective call over the mesh: every rank reads the file and keeps
+    its part); the generators are loaded too."""
     import numpy as np
     import torch
 
     from ai2bmd_torch.md.langevin import MDState
+    from ai2bmd_torch.parallel.launch import is_rank0
     from ai2bmd_torch.utils.tree import tree_unflatten
 
-    want = _ensemble_arrays(template)
+    every = ens.gather(template)
+    want = _ensemble_arrays(every)
     with np.load(path) as z:
         saved = sorted(k for k in z.files if k not in ("rng_states", "step"))
         if saved != sorted(want):
@@ -432,17 +535,19 @@ def _load_ensemble_restart(path: str, template, ens):
     for k, t in want.items():
         if arrays[k].shape != tuple(t.shape):
             raise ValueError(f"ensemble restart {path}: {k} has shape {arrays[k].shape}, "
-                             f"expected {tuple(t.shape)} (different replica count or protein?)")
-    if len(arrays["rng_states"]) != len(ens.generators):
+                             f"expected {tuple(t.shape)} (different replica count, protein or "
+                             f"mesh?)")
+    if len(arrays["rng_states"]) != ens.block.n_replicas:
         raise ValueError(f"ensemble restart {path} holds {len(arrays['rng_states'])} generator "
-                         f"states for {len(ens.generators)} replicas")
-    for g, s in zip(ens.generators, arrays["rng_states"]):
-        g.set_state(torch.from_numpy(s.copy()))
+                         f"states for {ens.block.n_replicas} replicas")
+    ens.set_rng_states([torch.from_numpy(s.copy()) for s in arrays["rng_states"]])
     t = {k: torch.as_tensor(arrays[k], dtype=tmpl.dtype, device=tmpl.device)
          for k, tmpl in want.items()}
-    aux = tree_unflatten(template.aux, [v for k, v in t.items() if k.startswith("aux_")])
-    state = MDState(step=int(arrays["step"]), aux=aux, **{k: t[k] for k in _ENSEMBLE_FIELDS})
-    print(f"resumed ensemble from {path} at step {state.step}", flush=True)
+    aux = tree_unflatten(every.aux, [v for k, v in t.items() if k.startswith("aux_")])
+    state = ens.scatter(MDState(step=int(arrays["step"]), aux=aux,
+                                **{k: t[k] for k in _ENSEMBLE_FIELDS}))
+    if is_rank0():
+        print(f"resumed ensemble from {path} at step {state.step}", flush=True)
     return state
 
 

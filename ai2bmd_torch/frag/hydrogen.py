@@ -20,6 +20,7 @@ import torch
 from ai2bmd_torch.host import TypeTopology
 from ai2bmd_torch.ops import caps
 from ai2bmd_torch.ops.caps import CapTables
+from ai2bmd_torch.utils.collectives import all_reduce_sum
 
 
 @dataclasses.dataclass
@@ -34,6 +35,10 @@ class HydrogenTables:
             caps=CapTables.build(top, top.type_ids(row_prmtop), is_cap.shape[1], device, dtype),
             free=torch.as_tensor(is_cap[..., None], dtype=dtype, device=device),
         )
+
+    def rows(self, sl: slice) -> "HydrogenTables":
+        """The tables of the rows ``sl`` alone (a rank's block of rows)."""
+        return HydrogenTables(caps=self.caps.rows(sl), free=self.free[sl])
 
 
 def _safe_norm(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -105,27 +110,37 @@ def amber_energy(ht: HydrogenTables, pos: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def optimize_caps(ht: HydrogenTables, pos: torch.Tensor, n_iter: int = 10,
-                  lr: float = 0.1) -> torch.Tensor:
+                  lr: float = 0.1, group=None) -> torch.Tensor:
     """L-BFGS over the cap-H coordinates; fixed n_iter, history = n_iter.
 
     pos [R,S,3]: one solve joint over all rows, like the reference's single
     torch LBFGS over the batch (the two-loop inner products couple every
-    row).  pos [Rl,R,S,3]: one such solve per replica, with its own inner
-    products, step scale and curvature gates (``jax.vmap`` of the joint
-    solve, ``ai2bmd_tpu/frag/runtime.py:386-388``); the gradient of every
-    replica's rows comes from one cap-gradient call per iteration."""
+    row).  With ``group`` (a process group whose ranks each hold a block of
+    the rows, ``ht`` that block's tables) every scalar of the solve, the
+    first step's L1 norm and each inner product, is summed over the group,
+    so that each rank walks the joint solve's iterates on its own rows
+    (``axis_name``, ``ai2bmd_tpu/frag/hydrogen.py:165-189``).  pos
+    [Rl,R,S,3]: one such solve per replica, with its own inner products,
+    step scale and curvature gates (``jax.vmap`` of the joint solve,
+    ``ai2bmd_tpu/frag/runtime.py:386-388``), on one rank; the gradient of
+    every replica's rows comes from one cap-gradient call per iteration."""
     if n_iter == 0:
         return pos
     shape = pos.shape
     free = ht.free.expand(shape[-3:]).reshape(-1)
     if pos.dim() == 4:                   # per replica: scalars [Rl, 1]
+        if group is not None:
+            raise ValueError("the per-replica solve takes no process group")
         x = pos.reshape(shape[0], -1)
+        scalar = (shape[0], 1)
         dot = lambda a, b: (a * b).sum(-1, keepdim=True)
         l1 = lambda a: a.abs().sum(-1, keepdim=True)
     else:
         x = pos.reshape(-1)
-        dot = torch.dot
-        l1 = lambda a: a.abs().sum()
+        scalar = ()
+        gsum = (lambda t: t) if group is None else (lambda t: all_reduce_sum(t, group))
+        dot = lambda a, b: gsum(torch.dot(a, b))
+        l1 = lambda a: gsum(a.abs().sum())
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
 
     def egrad(x):
@@ -147,7 +162,7 @@ def optimize_caps(ht: HydrogenTables, pos: torch.Tensor, n_iter: int = 10,
 
     g = egrad(x)
     s_hist, y_hist, rho_hist = [], [], []
-    gamma = torch.ones_like(l1(g))
+    gamma = torch.ones(scalar, dtype=pos.dtype, device=pos.device)
     for it in range(n_iter):
         if it == 0:
             d = -g

@@ -14,6 +14,10 @@ Port of ``ai2bmd_tpu/frag/runtime.py:89-309``.  Per MD step:
 ``index_add_`` on CUDA sums in no fixed order; the stitch is the one place
 of the step where that is accepted.
 
+``FragmentRuntime.build(row_multiple=)`` pads the row axes with empty rows
+and dummy ACE-NME units (``_pad_rows``) for the fragment-sharded potential
+(``parallel.sharding.ShardedPotential``).
+
 Replica ensembles (:312-405): with positions [Rl,N,3] the caps are
 optimized per replica, and each ViSNet call takes every replica's rows of
 its bucket as one batch; ``ensemble_fragment_energy_forces_warm`` runs the
@@ -37,6 +41,9 @@ from ai2bmd_torch.utils.device import resolve_device
 # their rows go in chunks of 8), as the reference's TPU tiles did.
 BUCKET_WIDTHS = (24, 32)
 S_ACE = 16
+# the FragmentIndex arrays with one entry per dipeptide row
+ROW_ARRAYS = ("row_natom", "row_z", "valid", "is_cap", "gather_idx", "cap_dir_idx",
+              "cap_radius")
 
 
 @dataclasses.dataclass
@@ -73,9 +80,13 @@ class FragmentRuntime:
 
     @classmethod
     def build(cls, fi: FragmentIndex, opt_iters: int = 10, device=None,
-              dtype=torch.float32) -> "FragmentRuntime":
-        """``device`` None means the card (raises without one)."""
+              dtype=torch.float32, row_multiple: int = 1) -> "FragmentRuntime":
+        """``device`` None means the card (raises without one).
+        ``row_multiple`` pads the dipeptide-row and ACE-NME axes to a multiple
+        of it (``_pad_rows``), so that they split evenly over a mesh's "mp"
+        axis (``parallel.sharding``)."""
         device = resolve_device(device)
+        fi = _pad_rows(fi, row_multiple)
         R, S = fi.n_rows, fi.slots
         top = build_type_topology(sorted({t for t in fi.row_prmtop if t}))
         ht = HY.HydrogenTables.build(
@@ -131,6 +142,29 @@ class FragmentRuntime:
             ace_valid=flt(ace_valid), ace_z16=long(ace_z16), ace_mask16=boolean(ace_mask16),
             ace_dst16=long(ace_dst16), ace_park=flt(ace_park), ht=ht, dip_buckets=buckets,
         )
+
+
+def _pad_rows(fi: FragmentIndex, multiple: int) -> FragmentIndex:
+    """Pad the row and ACE-NME axes to a multiple of ``multiple`` with empty
+    rows (natom 0, every slot invalid) and dummy units (``frag/runtime.py:
+    182-216``).  ``n_dipeptides`` and ``n_acenmes`` keep their true values:
+    the padded units point at row 0 and are masked by ``ace_valid`` (index <
+    ``n_acenmes``); the empty rows fall in no size bucket."""
+    if multiple <= 1:
+        return fi
+    R, C = fi.n_rows, len(fi.ace_rows)
+    Rp, Cp = -(-R // multiple) * multiple, -(-C // multiple) * multiple
+    if Rp == R and Cp == C:
+        return fi
+
+    def pad(a, n):
+        return np.pad(a, [(0, n - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
+
+    return dataclasses.replace(
+        fi, n_rows=Rp,
+        row_type=fi.row_type + [""] * (Rp - R), row_prmtop=fi.row_prmtop + [""] * (Rp - R),
+        **{k: pad(getattr(fi, k), Rp) for k in ROW_ARRAYS},
+        ace_rows=pad(fi.ace_rows, Cp), ace_slots=pad(fi.ace_slots, Cp))
 
 
 def build_row_positions(rt: FragmentRuntime, P: torch.Tensor) -> torch.Tensor:

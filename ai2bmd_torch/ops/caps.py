@@ -71,6 +71,12 @@ class CapTables:
         )
         return cls(**t, scee=top.scee, scnb=top.scnb, kernel=kernel)
 
+    def rows(self, sl: slice) -> "CapTables":
+        """The tables of the rows ``sl`` alone (a rank's block of rows)."""
+        return dataclasses.replace(
+            self, **{k: getattr(self, k)[sl] for k in _INDEX + _COEF + ("nb_mask",)},
+            kernel=tuple(t[sl].contiguous() for t in self.kernel))
+
     @property
     def sizes(self) -> tuple[int, int, int, int]:
         return (self.bond_k.shape[1], self.angle_k.shape[1], self.dih_k.shape[1],

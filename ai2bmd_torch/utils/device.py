@@ -5,7 +5,8 @@ Replaces the ``on_tpu`` probes of ``ai2bmd_tpu/models/visnet.py:102-131`` and
 it is given (CPU: plain PyTorch version, CUDA: the hand-written kernel).  The
 entry points that build state (``FragmentPotential.build``,
 ``ViSNetPotential.build``, ``FragmentRuntime.build``, ``NonbondedParams.build``, ``LangevinCoeffs.build``,
-``ReplicaEnsemble.build``, ``BondRestraint.find_hydrogen_bonds``,
+``ReplicaEnsemble.build``, ``ShardedPotential.build``, ``EnsembleSimulation.build``,
+``BondRestraint.find_hydrogen_bonds``,
 ``Simulator``, ``ProteinSimulation.from_pdb``, and ``cli.main`` by its
 ``--device``) take the card unless the caller passes ``device="cpu"``, through ``resolve_device``, which raises when
 there is no card instead of falling back to the CPU.

@@ -39,10 +39,12 @@ class TeeWriter:
         return getattr(self.stream, "isatty", lambda: False)()
 
 
-def tee_output(log_dir: str, name: str | None = None) -> str:
-    """Mirror stdout+stderr into a timestamped logfile; returns its path."""
-    stamp = time.strftime("%Y%m%d-%H%M%S")
-    path = os.path.join(log_dir, f"{name or 'run'}-{stamp}.log")
+def tee_output(log_dir: str, name: str | None = None, path: str | None = None) -> str:
+    """Mirror stdout+stderr into a timestamped logfile (or, given ``path``,
+    append to that one); returns its path."""
+    if path is None:
+        stamp = time.strftime("%Y%m%d-%H%M%S")
+        path = os.path.join(log_dir, f"{name or 'run'}-{stamp}.log")
     sys.stdout = TeeWriter(sys.stdout, path)
     sys.stderr = TeeWriter(sys.stderr, path)
     return path

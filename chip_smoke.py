@@ -207,13 +207,31 @@ is not printed):
      --preprocess --preprocess-method AMOEBA --max-cyc AMOEBA_CLI_CYC on
      examples/chig.pdb (exit 0, the pair written, 2 solvated steps).  No
      kernel launches in this phase (no ViSNet on its path)
-  13. one JSON line of kernel results, the card's name and power limit, and
-     the final JSON line.
+  13. the mesh (ai2bmd_torch.parallel), Chignolin at 9 x 256 with phase 4's
+     weights, in worlds of ranks spawned by parallel.launch (each imports
+     this script as a module and runs mesh_rank): (a) an NCCL world of one
+     rank, mesh 1 x 1; (b) a gloo world of two ranks sharing the card,
+     meshes 1 x 2 and 2 x 1 (its times are two processes sharing one card,
+     not a multi-card time); (c) with two or more cards, NCCL over
+     min(count, 4) of them at 1 x n and n x 1 and the CLI's --replicas 2n
+     (with one card it prints that (c) did not run).  On each mesh:
+     ShardedPotential's cold (E, F) against the lone FragmentPotential's
+     (MESH_TOL), the launches of K1-K4 in a cold and a warm evaluation on
+     every rank equal to the lone path's, the ms of a warm evaluation;
+     EnsembleSimulation of MESH_REPLICAS replicas, MESH_STEPS steps: its
+     initial forces, each replica against its lone replay on its own
+     generator (MESH_DX), the launches of the steps, ms per replica-step,
+     the ranks of each mp row bitwise equal; ReplicaEnsemble over the
+     mesh's dp against the one-card ensemble; every rank reports that it
+     imported neither jax nor ai2bmd_tpu and ran no plain edge core
+  14. one JSON line of kernel results (with `mesh_launches`: rank 0's
+     launches a warm evaluation in (b), by mesh), the card's name and power
+     limit, and the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
-`--amoeba-only` phase 12 alone; `--preprocess-full` runs only
+`--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
 cycles (wall seconds, ms per cycle), without it.  Phase 5 runs eagerly (no
@@ -1573,12 +1591,19 @@ def _cli_wait(name, proc, timeout=600):
     return out
 
 
-def _cli_start(cmd, fused_layer=False):
+def _cli_start(cmd, fused_layer=False, cards=None):
     """Start a CLI subprocess; ``fused_layer`` sets AI2BMD_FUSED_LAYER=1 in its
-    environment, as a user selects the full-layer kernels."""
+    environment, as a user selects the full-layer kernels; ``cards`` n shows
+    it only the first n of this process's cards (CUDA_VISIBLE_DEVICES)."""
     env = {k: v for k, v in os.environ.items() if k != "AI2BMD_FUSED_LAYER"}
     if fused_layer:
         env["AI2BMD_FUSED_LAYER"] = "1"
+    if cards is not None:
+        import torch
+
+        visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ids = visible.split(",") if visible else [str(i) for i in range(torch.cuda.device_count())]
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(ids[:cards])
     return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env)
 
@@ -3367,6 +3392,247 @@ def run_amoeba(torch, dev, card, root):
     return res
 
 
+# Phase 13: the mesh.  The ranks are spawned (ai2bmd_torch.parallel.launch),
+# each importing this script as a module and running mesh_rank.  NCCL does
+# not put two ranks on one device, so on one card the two-rank world runs
+# gloo: its collectives carry CUDA tensors through the host, and its times
+# are two processes sharing one card, not a multi-card time.
+MESH_REPLICAS, MESH_STEPS, MESH_SEED = 4, 3, 5
+# the sharded (E, F) against the lone path: JAX's own bar, 1e-4 (+ 1e-7 |E|
+# for the energy's float32 sums taken in another order), tests/test_parallel.py:58-81
+MESH_TOL = 1e-4
+# a replica after MESH_STEPS steps against its lone replay: only the order
+# of the sums (the stitch's atomics, the all-reduce) parts them
+MESH_DX = 1e-5              # A
+MESH_KERNELS = ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")
+# the most a world of phase 13 may take before it is failed (s)
+MESH_WORLD_S = 300
+
+
+def mesh_rank(rank, meshes):
+    """Phase 13 on one rank of a world: for each (n_dp, n_mp) mesh,
+    ShardedPotential at Chignolin 9 x 256 (phase 4's weights) cold and warm
+    with the launches of each evaluation and the ms of a warm one;
+    EnsembleSimulation of MESH_REPLICAS replicas for MESH_STEPS steps (the
+    launches, ms per replica-step, every replica gathered and this rank's
+    own); ReplicaEnsemble over the mesh's dp.  Then whether this process
+    imported JAX or the JAX package, and the plain edge-core count."""
+    import torch
+    import torch.distributed as dist
+
+    from ai2bmd_torch.host import build_fragment_index, example_pdb, load_protein
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.parallel import (EnsembleSimulation, ReplicaEnsemble, ShardedPotential,
+                                       make_mesh)
+
+    dev = rank.device
+    prot = load_protein(example_pdb("chig"))
+    fi = build_fragment_index(prot.atoms)
+    cfg = ViSNetConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    for n_dp, n_mp in meshes:
+        mesh = make_mesh(n_dp, n_mp)
+        sp = ShardedPotential.build(prot, fi, params, cfg, mesh, device=dev)
+        delta = sp.initial_cap_delta(P)
+        torch.cuda.synchronize()
+        reset_launches()
+        e, f = sp.energy_forces(P)
+        torch.cuda.synchronize()
+        cold = dict(LAUNCHES)
+        reset_launches()
+        sp.local_energy_forces(P, delta, 1)
+        torch.cuda.synchronize()
+        warm = dict(LAUNCHES)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sp.local_energy_forces(P, delta, 1)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3 / 5
+
+        ens = EnsembleSimulation.build(prot, fi, params, cfg, mesh, MESH_REPLICAS, device=dev)
+        state = ens.initial_state(prot.positions, seed=MESH_SEED)
+        first = ens.gather(state)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = ens.run(state, MESH_STEPS)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / (MESH_STEPS * ens.block.size)
+        es = dict(LAUNCHES)
+        every = ens.gather(state)
+
+        rens = ReplicaEnsemble.build(prot, fi, params, cfg, MESH_REPLICAS,
+                                     steps_per_call=MESH_STEPS, replica_chunk=2, device=dev,
+                                     mesh=mesh)
+        rstate = rens.run(rens.initial_state(prot.positions, seed=MESH_SEED), 1)
+        rev = rens.gather(rstate)
+        out[f"{n_dp}x{n_mp}"] = dict(
+            sp_e=float(e), sp_f=f, cold=cold, warm=warm, eval_ms=eval_ms, step_ms=step_ms,
+            es_launches=es, n_local=ens.block.size, layout=sp.layout, dp=mesh.get_local_rank("dp"),
+            initial_f=first.forces, positions=every.positions, local_positions=state.positions,
+            step=state.step, replica_positions=rev.positions)
+    out["plain_edge_core"] = LAUNCHES["plain_edge_core"]
+    out["imports_jax"] = any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+    out["imports_ai2bmd_tpu"] = any(m.startswith("ai2bmd_tpu") for m in sys.modules)
+    return out
+
+
+def mesh_references(torch, dev, prot):
+    """The lone path the mesh is held against, on the card with phase 4's
+    weights: the cold (E, F), the launches of a cold and of a warm
+    evaluation, each replica's lone replay from that cold start on its own
+    generator, and the one-card ReplicaEnsemble (chunks of 2)."""
+    import numpy as np
+
+    from ai2bmd_torch.frag import runtime as RT
+    from ai2bmd_torch.host import build_fragment_index
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.parallel import ReplicaEnsemble, replica_generators
+
+    pot, cfg, params = build_potential(torch, dev, prot, fused=False)
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    d0 = RT.initial_cap_delta(pot.rt, P)
+    torch.cuda.synchronize()
+    reset_launches()
+    e0, f0 = pot.energy_forces(P)
+    torch.cuda.synchronize()
+    cold = dict(LAUNCHES)
+    reset_launches()
+    pot.stateful_energy_forces(P, d0)
+    torch.cuda.synchronize()
+    warm = dict(LAUNCHES)
+    masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
+    coeffs = L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device=dev)
+    lone = []
+    for g in replica_generators(MESH_SEED, MESH_REPLICAS, dev):
+        state = L.MDState(P, L.maxwell_boltzmann_velocities(g, prot.masses, 300.0), f0, e0,
+                          aux=d0)
+        for _ in range(MESH_STEPS):
+            state = L.langevin_step(pot.stateful_energy_forces, coeffs, masses, state,
+                                    generator=g)
+        lone.append(state.positions.cpu().numpy())
+    ens = ReplicaEnsemble.build(prot, build_fragment_index(prot.atoms), params, cfg,
+                                MESH_REPLICAS, steps_per_call=MESH_STEPS, replica_chunk=2,
+                                device=dev)
+    one = ens.run(ens.initial_state(prot.positions, seed=MESH_SEED), 1)
+    return dict(e=float(e0), f=f0.cpu().numpy(), cold=cold, warm=warm, lone=np.stack(lone),
+                one_card=one.positions.cpu().numpy())
+
+
+def check_mesh_world(label, outs, ref, card):
+    """Phase 13's checks of one world's results (``outs``, one per rank)."""
+    import numpy as np
+
+    for r, out in enumerate(outs):
+        need(not out["imports_jax"] and not out["imports_ai2bmd_tpu"],
+             f"{label}: rank {r} imported JAX or the JAX package")
+        need(out["plain_edge_core"] == 0, f"{label}: rank {r} ran the plain edge core")
+    meshes = [k for k in outs[0] if re.fullmatch(r"\d+x\d+", k)]
+    for key in meshes:
+        n_dp, n_mp = map(int, key.split("x"))
+        res = [out[key] for out in outs]
+        mine = res[0]
+        dE = abs(mine["sp_e"] - ref["e"])
+        dF = float(np.abs(mine["sp_f"] - ref["f"]).max())
+        dF0 = float(np.abs(mine["initial_f"] - ref["f"][None]).max())
+        dx = float(np.abs(mine["positions"] - ref["lone"]).max())
+        dx_ens = float(np.abs(mine["replica_positions"] - ref["one_card"]).max())
+        print(f"  {label}, mesh {key} (layout {mine['layout']}): ShardedPotential vs the lone "
+              f"path |dE| {dE:.3e} eV, max|dF| {dF:.3e} eV/A (limit {MESH_TOL}); "
+              f"EnsembleSimulation's initial forces max|dF| {dF0:.3e}; {MESH_REPLICAS} replicas "
+              f"after {MESH_STEPS} steps vs their lone replays max|dx| {dx:.3e} A (limit "
+              f"{MESH_DX}); ReplicaEnsemble over dp={n_dp} vs one card max|dx| {dx_ens:.3e} A")
+        need(dE <= MESH_TOL + 1e-7 * abs(ref["e"]), f"{label} {key}: |dE| {dE:.3e}")
+        need(dF <= MESH_TOL and dF0 <= MESH_TOL, f"{label} {key}: max|dF| {dF:.3e} / {dF0:.3e}")
+        need(dx <= MESH_DX, f"{label} {key}: replicas {dx:.3e} A from their lone replays")
+        need(dx_ens <= MESH_DX, f"{label} {key}: ReplicaEnsemble {dx_ens:.3e} A from one card")
+        need(mine["step"] == MESH_STEPS, f"{label} {key}: step {mine['step']}")
+        for r, res_r in enumerate(res):
+            for name in MESH_KERNELS:
+                per_eval = {"cold": (res_r["cold"][name], ref["cold"][name]),
+                            "warm": (res_r["warm"][name], ref["warm"][name]),
+                            "step": (res_r["es_launches"][name],
+                                     ref["warm"][name] * MESH_STEPS * res_r["n_local"])}
+                for kind, (got, want) in per_eval.items():
+                    need(got == want and got > 0,
+                         f"{label} {key} rank {r}: {name} {got} launches ({kind}), expected {want}")
+        for a in range(len(res)):
+            for b in range(a + 1, len(res)):
+                if res[a]["dp"] == res[b]["dp"]:
+                    need(np.array_equal(res[a]["local_positions"], res[b]["local_positions"]),
+                         f"{label} {key}: ranks {a} and {b} of one mp row hold other positions")
+        if n_mp > 1:
+            print(f"    the {n_mp} ranks of each mp row hold bitwise equal positions after "
+                  f"{MESH_STEPS} steps")
+        print(f"    launches an evaluation on each rank (K1 / K2 / K3 / K4): cold "
+              f"{[mine['cold'][k] for k in MESH_KERNELS]}, warm "
+              f"{[mine['warm'][k] for k in MESH_KERNELS]} (the lone path's: "
+              f"{[ref['cold'][k] for k in MESH_KERNELS]}, {[ref['warm'][k] for k in MESH_KERNELS]});"
+              f" rank 0: {mine['eval_ms']:.3f} ms a warm evaluation, {mine['step_ms']:.3f} ms a "
+              f"replica-step ({label}; {card})")
+    print(f"  {label}: backend {outs[0]['backend']}, ranks on {[o['device'] for o in outs]}; "
+          f"no rank imported jax or ai2bmd_tpu; plain_edge_core 0 on every rank")
+    return {key: outs[0][key]["warm"] for key in meshes}
+
+
+def run_mesh(torch, dev, prot, card, root):
+    """Phase 13: (a) an NCCL world of one rank, mesh 1 x 1; (b) a gloo world
+    of two ranks sharing the card, meshes 1 x 2 and 2 x 1; (c) with two or
+    more cards, NCCL over min(count, 4) of them at 1 x n and n x 1 and the
+    CLI's --replicas 2n.  Returns rank 0's launches a warm evaluation in
+    (b), by mesh."""
+    import numpy as np
+
+    from ai2bmd_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    ref = mesh_references(torch, dev, prot)
+    print(f"  lone references: cold E {ref['e']:.6f} eV; launches (K1 / K2 / K3 / K4) cold "
+          f"{[ref['cold'][k] for k in MESH_KERNELS]}, warm {[ref['warm'][k] for k in MESH_KERNELS]}"
+          f" ({time.perf_counter() - t_phase:.1f} s)")
+    t0 = time.perf_counter()
+    check_mesh_world("(a) NCCL, 1 rank",
+                     launch(mesh_rank, 1, "cuda", args=([(1, 1)],), timeout_s=MESH_WORLD_S),
+                     ref, card)
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_launches = check_mesh_world(
+        "(b) gloo, two processes sharing one card",
+        launch(mesh_rank, 2, "cuda", args=([(1, 2), (2, 1)],), backend="gloo",
+               timeout_s=MESH_WORLD_S), ref, card)
+    print(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"  (c) did not run: {n_cards} card on this machine (NCCL over several cards "
+              f"needs two or more)")
+    else:
+        n = min(n_cards, 4)
+        t0 = time.perf_counter()
+        check_mesh_world(f"(c) NCCL, {n} cards",
+                         launch(mesh_rank, n, "cuda", args=([(1, n), (n, 1)],),
+                                timeout_s=MESH_WORLD_S), ref, card)
+        d = os.path.join(root, "cli_mesh")
+        # the CLI's mesh spans every card it sees: show it the first n
+        out = _cli_wait("mesh", _cli_start(_cli_cmd(
+            d, "--replicas", str(2 * n), "--sim-steps", "2", "--record-per-steps", "1",
+            "--preeq-steps", "0", "--timestep", str(USER_DT_FS)), cards=n))
+        with np.load(os.path.join(d, f"{2 * n}x-ensemble-final.npz")) as z:
+            need(z["positions"].shape == (2 * n, len(prot), 3)
+                 and bool(np.isfinite(z["positions"]).all()), "the CLI's mesh run")
+        mesh = re.search(r"ensemble mesh dp=(\d+) x mp=(\d+) over (\d+) ranks", out)
+        need(mesh is not None and tuple(map(int, mesh.groups())) == (1, n, n),
+             f"the CLI did not run a 1 x {n} mesh over {n} ranks:\n{out[-2000:]}")
+        print(f"  (c) --replicas {2 * n} over {n} cards (1 x {n}, EnsembleSimulation): exit 0, "
+              f"{2 * n} replicas in the final npz ({time.perf_counter() - t0:.1f} s)")
+    print(f"  phase 13 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return mesh_launches
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -3401,6 +3667,10 @@ def main(argv=None):
     ap.add_argument("--amoeba-only", action="store_true",
                     help="after the build, run only phase 12 (AMOEBA preprocessing and "
                          "pure-AMOEBA MD of Chignolin's box), without the final line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="after the build, run only phase 13 (the dp x mp mesh: ShardedPotential, "
+                         "EnsembleSimulation and ReplicaEnsemble in a world of one NCCL rank and "
+                         "of two gloo ranks sharing the card), without the final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
@@ -3453,6 +3723,11 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.mesh_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 13. the mesh (alone)")
+        run_mesh(torch, dev, load_protein(example_pdb("chig")), card, root)
         return
     if args.amoeba_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -3534,6 +3809,11 @@ def main(argv=None):
     p12 = run_amoeba(torch, dev, card, root)
     amoeba_launches = dict(LAUNCHES)
     no_plain("12")
+    print("== 13. the mesh: ShardedPotential, EnsembleSimulation and ReplicaEnsemble over dp x "
+          "mp meshes of ranks (Chignolin, 9 x 256): an NCCL world of one rank, a gloo world of "
+          "two ranks sharing the card")
+    mesh_launches = run_mesh(torch, dev, prot, card, root)
+    no_plain("13")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -3564,7 +3844,9 @@ def main(argv=None):
     for k in kernels:      # phase 12: AMOEBA preprocessing and MD evaluate no ViSNet
         k["amoeba_md_launches"] = amoeba_launches.get(k["name"], 0)
         need(k["amoeba_md_launches"] == 0, f"phase 12 launched {k['name']}")
-    print("== 13. results")
+    for k in kernels:      # phase 13(b): rank 0's launches a warm evaluation, by mesh
+        k["mesh_launches"] = {mesh: warm.get(k["name"], 0) for mesh, warm in mesh_launches.items()}
+    print("== 14. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "

@@ -58,15 +58,43 @@ def test_cli_replica_ensemble_and_its_restart(tmp_path):
 
 
 def test_an_ensemble_mesh_over_several_cards_is_refused(monkeypatch, tmp_path):
-    """JAX's mesh arithmetic (cli.py:280-282) with 4 cards gives a 1 x 4
-    mesh even at --mesh-dp 1 --mesh-mp 1: refused for item 17 before any
-    work; on one card it is 1 x 1."""
-    args = TCLI.build_parser().parse_args(["--prot-file", "x.pdb", "--replicas", "8"])
+    """No longer refused: JAX's mesh arithmetic (cli.py:280-282) with 4 cards
+    gives a 1 x 4 mesh even at --mesh-dp 1 --mesh-mp 1, and the plan is an
+    EnsembleSimulation over a world of 4 ranks, started through the launcher
+    (recorded here, not run) with no wall-clock deadline; a solvated input
+    runs over dp alone, as JAX's CLI runs it (one card at --mesh-dp 1); on
+    one card the mesh is 1 x 1, and with --device cpu it is --mesh-dp x
+    --mesh-mp."""
+    import importlib
+
+    conftest.require_examples()
+    LA = importlib.import_module("ai2bmd_torch.parallel.launch")
+    args = TCLI.build_parser().parse_args(
+        ["--prot-file", conftest.example_pdb("chig"), "--replicas", "8"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert TCLI._mesh_devices(args, torch.device("cuda")) == 4
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TCLI._run_ensemble(args, torch.device("cuda"), None, str(tmp_path), None,
-                           logging.getLogger("test"))
+    assert TCLI._mesh_shape(args, torch.device("cuda")) == (1, 4)
+    launched = []
+    monkeypatch.setattr(LA, "launch", lambda fn, n, device_type, args=(), **kw:
+                        launched.append((fn, n, device_type, args, kw)) or [0])
+    assert TCLI._run_ensemble(args, torch.device("cuda"), None, str(tmp_path), None,
+                              logging.getLogger("test")) == 0
+    [(fn, n, device_type, body, kw)] = launched
+    assert fn is TCLI._ensemble_body and n == 4 and device_type == "cuda"
+    assert body[1] == TCLI.EnsemblePlan(1, 4, "sharded")
+    assert kw.get("timeout_s") is None
+    cuda = torch.device("cuda")
+    assert TCLI._ensemble_plan(args, cuda, True) == TCLI.EnsemblePlan(1, 1, "solvated")
+    args.mesh_dp = 2
+    assert TCLI._ensemble_plan(args, cuda, True) == TCLI.EnsemblePlan(2, 1, "solvated")
+    assert TCLI._ensemble_plan(args, cuda, False) == TCLI.EnsemblePlan(2, 2, "sharded")
+    args.mesh_dp, args.mesh_mp = 4, 1
+    assert TCLI._ensemble_plan(args, cuda, True) == TCLI.EnsemblePlan(4, 1, "solvated")
+    assert TCLI._ensemble_plan(args, cuda, False) == TCLI.EnsemblePlan(4, 1, "replica")
+    args.mesh_dp = 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert TCLI._mesh_devices(args, torch.device("cuda")) == 1
-    assert TCLI._mesh_devices(args, torch.device("cpu")) == 1
+    assert TCLI._mesh_shape(args, torch.device("cuda")) == (1, 1)
+    assert TCLI._mesh_shape(args, torch.device("cpu")) == (1, 1)
+    args.mesh_dp = 2
+    assert TCLI._mesh_shape(args, torch.device("cpu")) == (2, 1)
+    assert TCLI._ensemble_plan(args, torch.device("cpu"), True) == TCLI.EnsemblePlan(
+        2, 1, "solvated")

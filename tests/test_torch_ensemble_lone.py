@@ -5,6 +5,7 @@ whose ``ens`` fixture it takes, so that pytest-xdist's --dist loadfile runs
 the two files side by side."""
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -58,12 +59,14 @@ def test_replica_ensemble_matches_lone_replicas(ens, chig_protein, remat):
 
 
 def test_replica_ensemble_refuses_a_mesh_and_a_missing_card(ens, chig_protein, monkeypatch):
-    """One card only: a mesh is refused (multi-GPU is ROADMAP item 17), and
-    without device= the ensemble takes the card, raising without one."""
+    """A mesh whose dp axis does not divide the replicas is refused with
+    JAX's message (sharding.py:408-411; a mesh that does is taken,
+    tests/test_torch_parallel.py), and without device= the ensemble takes
+    the card, raising without one."""
     conftest.require_examples()
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], ens["tcfg"], n_replicas=2,
-                              device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="3 replicas do not shard over dp=2"):
+        ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], ens["tcfg"], n_replicas=3,
+                              device="cpu", mesh=SimpleNamespace(size=lambda dim: (2, 1)[dim]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ReplicaEnsemble.build(chig_protein, ens["fi"], ens["tparams"], ens["tcfg"], n_replicas=2)

@@ -12,6 +12,7 @@ import re
 import subprocess
 import sys
 import textwrap
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -270,9 +271,9 @@ def test_entry_points_default_to_the_card(monkeypatch, pots, chig_protein, tmp_p
         TL.LangevinCoeffs.build(chig_protein.masses, 1.0, 300.0, 0.001)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ReplicaEnsemble.build(chig_protein, tpot.fi, module.params(), tpot.cfg, n_replicas=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ReplicaEnsemble.build(chig_protein, tpot.fi, module.params(), tpot.cfg, n_replicas=2,
-                              device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="3 replicas do not shard over dp=2"):
+        ReplicaEnsemble.build(chig_protein, tpot.fi, module.params(), tpot.cfg, n_replicas=3,
+                              device="cpu", mesh=SimpleNamespace(size=lambda dim: (2, 1)[dim]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TN.NonbondedParams.build(chig_protein, tpot.fi.exclusion_mask())
     with pytest.raises(RuntimeError, match="no CUDA device"):

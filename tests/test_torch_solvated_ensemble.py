@@ -10,6 +10,7 @@ for 3 cells an axis), as JAX's ensemble does by its hard-coded "dense": the
 parity test compares dense with dense."""
 
 import os
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -130,8 +131,9 @@ def test_refuses_a_box_without_solvent_and_a_mesh(box):
     with pytest.raises(ValueError, match="no solvent"):
         SolvatedReplicaEnsemble.build(TB.build_polyalanine(2), tparams, cfg, n_replicas=2,
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        SolvatedReplicaEnsemble.build(box[1], tparams, cfg, n_replicas=2, mesh=object(),
+    with pytest.raises(ValueError, match="3 replicas do not shard over dp=2"):
+        SolvatedReplicaEnsemble.build(box[1], tparams, cfg, n_replicas=3,
+                                      mesh=SimpleNamespace(size=lambda dim: (2, 1)[dim]),
                                       device="cpu")
 
 
