@@ -48,8 +48,13 @@ Routes:
 the whole AMOEBA force field (``Preprocessor._run_amoeba``), and the run goes
 on with the box as after the FF19SB protocol.
 
-Refused: ``--matmul-precision`` other than float32 (the port's products are
-float32 or 3xTF32 by design; ROADMAP item 19).  The
+``--matmul-precision`` (``float32``, ``tensorfloat32``, ``bfloat16``) sets
+torch's float32 matmul precision (``highest``, ``high``, ``medium``) for the
+eager products outside the kernels, on this process and on every rank it
+spawns, as the JAX CLI sets ``jax_default_matmul_precision``; the run prints
+it.  On the card cuBLAS takes ``medium`` as TF32, like ``high``.  The
+kernels' products keep their own mode, ``AI2BMD_KERNEL_MM_PRECISION``
+(``ops/vismp.py``), as the JAX package's Pallas kernels do.  The
 reference's ``--device-strategy``, ``--work-strategy`` and ``--chunk-size``
 are accepted as no-ops, as in the JAX package; ``--mm-method``,
 ``--polarizable-mm``, ``--rigid-water`` and ``--write-solvent`` act only on
@@ -132,7 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="number of ensemble replicas (>1 runs the replica-batched ensemble)")
     p.add_argument("--matmul-precision", type=str, default="float32",
                    choices=["float32", "bfloat16", "tensorfloat32"],
-                   help="only float32: the port's products are float32 or 3xTF32")
+                   help="eager float32 products outside the kernels: full float32, TF32, or "
+                        "torch's 'medium' (TF32 in cuBLAS; bfloat16 in torch's CPU matmul where "
+                        "the CPU has it); the kernels follow AI2BMD_KERNEL_MM_PRECISION")
     p.add_argument("--opt-iters", type=int, default=10,
                    help="cap-hydrogen L-BFGS iterations per step (stateless path)")
     p.add_argument("--model-preset", type=str, default="production",
@@ -149,9 +156,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.matmul_precision != "float32":
-        parser.error("--matmul-precision: the port runs float32 only (its products are "
-                     "float32 or 3xTF32 by design)")
 
     logging.basicConfig(
         level=[logging.WARNING, logging.INFO, logging.DEBUG][min(args.verbose, 2)],
@@ -159,8 +163,9 @@ def main(argv=None) -> int:
     )
     log = logging.getLogger("ai2bmd-torch")
 
-    from ai2bmd_torch.utils.device import resolve_device
+    from ai2bmd_torch.utils.device import resolve_device, set_matmul_precision
 
+    torch_precision = set_matmul_precision(args.matmul_precision)
     device = resolve_device(args.device)
 
     for flag in ("device_strategy", "work_strategy", "chunk_size"):
@@ -185,6 +190,12 @@ def main(argv=None) -> int:
     try:
         # opt-in hang debugging: kill -USR2 <pid> dumps all thread stacks
         register_print_stack_on_sigusr2(out_dir=log_dir)
+        from ai2bmd_torch.ops import _build, vismp
+
+        if log_path is not None:
+            print(f"matmul precision: --matmul-precision {args.matmul_precision} -> torch "
+                  f"float32 matmul precision {torch_precision!r}; kernel products "
+                  f"{_build.MM_MODE} ({vismp.MM_ENV})", flush=True)
         return _run(args, device, prot_name, log_dir, log, log_path)
     finally:
         untee_output()

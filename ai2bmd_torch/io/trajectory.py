@@ -188,3 +188,9 @@ def load_restart(path: str, aux_leaves: int = 1):
         rng_state = torch.from_numpy(raw["rng_state"].copy()) if "rng_state" in raw else None
         return raw["positions"], raw["velocities"], int(raw["step"]), rng_state, extras
 
+
+def latest_restart(log_dir: str, prot_name: str) -> str | None:
+    """The run's restart file (``<log_dir>/<prot_name>-restart.npz``) if it
+    exists, else None."""
+    path = os.path.join(log_dir, f"{prot_name}-restart.npz")
+    return path if os.path.exists(path) else None

@@ -1,11 +1,18 @@
-"""Hydrogen-bond restraints (the reference's ASE Hookean constraints) as a
-torch function.
+"""Restraint force terms (the reference's ASE Hookean constraints) as torch
+functions.
 
-Port of ``ai2bmd_tpu/md/constraints.py:27-76``: pairwise springs engaging
-beyond a threshold length (k = 15 eV/A^2, rt = covalent length + 0.2 A,
-reference utils.py:201-221, simulator.py:168-180), an additive term of the
-potential whose forces come from autograd.  The pre-equilibration tether is
-the ``Simulator``'s own (buffers that one captured step reads).
+Port of ``ai2bmd_tpu/md/constraints.py``.  The reference uses ASE Hookean
+constraints two ways (simulator.py:139-180):
+  * pre-equilibration ladder: per-atom tethers to reference positions with
+    spring constants [10, 5, 1, 0.5, 0.1] kcal/mol/A^2 (rt = 0):
+    ``TetherRestraint`` (the ``Simulator`` keeps its own tether, buffers that
+    one captured step reads, and does not call it);
+  * hydrogen-bond restraints: pairwise springs engaging beyond a threshold
+    length (k = 15 eV/A^2, rt = covalent length + 0.2 A, reference
+    utils.py:201-221): ``BondRestraint``, an additive term of the stepped
+    potential.
+Forces come from autograd (``restraint_energy_forces``); ``with_restraints``
+adds any of them to a potential.
 """
 
 from __future__ import annotations
@@ -15,6 +22,19 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class TetherRestraint:
+    """E = 0.5 k sum_i |x_i - x0_i|^2 over selected atoms."""
+
+    reference: torch.Tensor   # [N,3]
+    k: torch.Tensor | float   # scalar eV/A^2
+    weight: torch.Tensor      # [N,1] selection mask
+
+    def energy(self, P: torch.Tensor) -> torch.Tensor:
+        d = (P - self.reference) * self.weight
+        return 0.5 * self.k * (d * d).sum()
 
 
 @dataclasses.dataclass
@@ -71,3 +91,19 @@ def restraint_energy_forces(restraint, P: torch.Tensor):
         (g,) = torch.autograd.grad(e, p)
     return e.detach(), -g
 
+
+def with_restraints(potential, restraints):
+    """Wrap a potential ``P -> (E, F)`` with additive restraint terms, each
+    restraint's forces by autograd."""
+    if not restraints:
+        return potential
+
+    def wrapped(P):
+        e, f = potential(P)
+        for r in restraints:
+            er, fr = restraint_energy_forces(r, P)
+            e = e + er
+            f = f + fr
+        return e, f
+
+    return wrapped

@@ -2,7 +2,8 @@
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its CUDA
 kernel, and nowhere else, so a run can show which kernels its main path
-went through.  ``tf32x3_mm`` is a check of the edge kernels' shared
+went through; ``_build.LIBRARY_LAUNCHES`` shows from which product mode's
+library they came.  ``tf32x3_mm`` is a check of the edge kernels' shared
 tensor-core product and is on no path of the model.  ``plain_edge_core``
 counts no kernel: it counts the edge-core calls on CUDA tensors of a model
 with other activations than silu, which take the plain version
@@ -17,9 +18,12 @@ LAUNCHES = {"edge_fwd": 0, "edge_bwd_msg": 0, "edge_bwd_upd": 0, "cap_grad": 0,
 
 
 def reset_launches() -> None:
+    from ai2bmd_torch.ops._build import LIBRARY_LAUNCHES
+
     for name in LAUNCHES:
         if name != "plain_edge_core":
             LAUNCHES[name] = 0
+    LIBRARY_LAUNCHES.clear()
 
 
 def reset_plain_edge_core() -> None:

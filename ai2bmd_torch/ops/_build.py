@@ -3,10 +3,19 @@
 The kernels have a plain ``extern "C"`` interface (pointers, ints, floats and
 the CUDA stream), so they compile without PyTorch's headers in seconds.  Each
 source compiles in its own nvcc process, all started together, and one more
-links the objects.  The shared library goes to ``build/ai2bmd_torch/`` at
-the root of the checkout, named by a hash of the sources and flags; a library
-that already exists for the same hash is loaded as it is.  A failed build
-raises.
+links the objects.  One library a product mode (``MODES``: ``b3``, the
+production mode, ``highest`` and ``default``; ``-DAI2BMD_MM_MODE``,
+``csrc/common.cuh``), each built when its mode is first used, so the
+production build keeps its time.  A library goes to ``build/ai2bmd_torch/``
+at the root of the checkout, named by its mode and a hash of the sources and
+flags; one that already exists for the same hash is loaded as it is.  A
+failed build or launch raises, naming the mode; no mode runs another's
+library.
+
+``MM_MODE`` is the mode the wrappers launch from (``ops.vismp`` sets it from
+``AI2BMD_KERNEL_MM_PRECISION``), and ``LIBRARY_LAUNCHES[mode]`` counts the
+launches ``call`` made from each mode's library (``ops.reset_launches``
+empties it), so a run can show which library its kernels came from.
 """
 
 from __future__ import annotations
@@ -32,7 +41,13 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
-_lib: ctypes.CDLL | None = None
+# the products' mode -> AI2BMD_MM_MODE (csrc/common.cuh)
+MODES = {"b3": 0, "highest": 1, "default": 2}
+MM_MODE = "b3"
+LIBRARY_LAUNCHES: dict[str, int] = {}
+
+_libs: dict[str, ctypes.CDLL] = {}
+# the last build's mode, path, seconds, whether it was cached, and ptxas's report
 BUILD_INFO: dict = {}
 
 
@@ -50,24 +65,32 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for the same sources exists."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(mode: str) -> list[str]:
+    if mode not in MODES:
+        raise ValueError(f"no kernel library for product mode {mode!r}; modes: {sorted(MODES)}")
+    return [*NVCC_FLAGS, f"-DAI2BMD_MM_MODE={MODES[mode]}"]
+
+
+def build(mode: str = "b3") -> Path:
+    """Compile this mode's kernels unless a library for the same sources and
+    flags exists."""
+    flags = _flags(mode)
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = BUILD_DIR / f"libai2bmd_kernels_{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"libai2bmd_kernels_{mode}_{h.hexdigest()[:16]}.so"
     if out.exists():
-        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
+        BUILD_INFO.update(mode=mode, path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{mode}.{h.hexdigest()[:16]}.{os.getpid()}"
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     log, failed = [], []
@@ -86,30 +109,35 @@ def build() -> Path:
     for _, obj, _ in jobs:
         obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "last_build.log").write_text("\n".join(log))
+    (BUILD_DIR / f"last_build_{mode}.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise RuntimeError(f"nvcc failed to build the {mode!r} kernel library:\n"
+                           + "\n".join(failed))
     os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=seconds, cached=False, ptxas="\n".join(log))
+    BUILD_INFO.update(mode=mode, path=str(out), seconds=seconds, cached=False,
+                      ptxas="\n".join(log))
     return out
 
 
-def library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+def library(mode: str = "b3") -> ctypes.CDLL:
+    """This mode's library, built at its first use."""
+    lib = _libs.get(mode)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(mode)))
         lib.ai2bmd_error_string.argtypes = [I]
         lib.ai2bmd_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[mode] = lib
+    return lib
 
 
 def call(name: str, argtypes: list, *args) -> None:
-    """Launch ``name`` from the library on PyTorch's current stream.
+    """Launch ``name`` from ``MM_MODE``'s library on PyTorch's current stream
+    and count it in ``LIBRARY_LAUNCHES``.
 
     ``args`` exclude the trailing stream argument; a nonzero return code
-    (the ``cudaGetLastError`` after the launch) raises."""
-    lib = library()
+    (the ``cudaGetLastError`` after the launch) raises, naming the mode."""
+    mode = MM_MODE
+    lib = library(mode)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = [*argtypes, P]
@@ -117,7 +145,8 @@ def call(name: str, argtypes: list, *args) -> None:
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         msg = lib.ai2bmd_error_string(rc).decode()
-        raise RuntimeError(f"{name} failed to launch: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name} ({mode} library) failed to launch: CUDA error {rc} ({msg})")
+    LIBRARY_LAUNCHES[mode] = LIBRARY_LAUNCHES.get(mode, 0) + 1
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -1,7 +1,26 @@
 // Shared device helpers for the ai2bmd_torch kernels (float32 throughout).
 //
-// Every product of every kernel runs on the tensor cores with a 3xTF32
-// split: each float32 operand x is cut into hi = tf32(x) and
+// The products take one of three modes, a compile-time constant of the
+// library (AI2BMD_MM_MODE; ops/_build.py builds one library per mode, and
+// ops/vismp.py picks it from AI2BMD_KERNEL_MM_PRECISION, the variable of the
+// JAX package's kernels, ai2bmd_tpu/ops/pallas/vismp.py:43-70):
+// - MM_B3 (the production mode, the default): the 3xTF32 split below;
+// - MM_HIGHEST: full float32, each output a chain of float32 FMAs over k in
+//   order (the order of a plain float32 dot product), on the CUDA cores: the
+//   operands keep mma.sync's fragment layout and reach the lanes that own
+//   each accumulator through warp shuffles (`gather_rows` / `gather_cols`,
+//   `fma_tile`).  Chosen over a six-pass three-way TF32 split (the
+//   counterpart of the TPU's six-pass HIGHEST) because the tensor cores'
+//   own float32 accumulation, which a split cannot remove, is not IEEE
+//   rounding: the FMA chain's error is a float32 product's by construction.
+//   Bound: 67 TFLOP/s of float32 FMA;
+// - MM_DEFAULT: one pass on operands rounded to bfloat16 (cvt.rn.bf16.f32,
+//   round to nearest even, widened back), the TPU's single bf16 pass.  A
+//   bfloat16 value is exact in TF32, so the m16n8k8 TF32 mma.sync carries
+//   it: one pass in place of three, and no lo halves.  Bound: 495 TF32
+//   TFLOP/s.
+// In MM_B3, every product of every kernel runs on the tensor cores with a
+// 3xTF32 split: each float32 operand x is cut into hi = tf32(x) and
 // lo = tf32(x - hi) (cvt.rna, 10 explicit mantissa bits each), and each
 // product is lo*hi + hi*lo + hi*hi, three m16n8k8 mma.sync products in that
 // order into one float32 accumulator.  What it drops against a float32
@@ -41,6 +60,14 @@
 #include <type_traits>
 
 namespace ai2bmd {
+
+#ifndef AI2BMD_MM_MODE
+#define AI2BMD_MM_MODE 0
+#endif
+constexpr int MM_B3 = 0, MM_HIGHEST = 1, MM_DEFAULT = 2;
+constexpr int MM_MODE = AI2BMD_MM_MODE;
+static_assert(MM_MODE == MM_B3 || MM_MODE == MM_HIGHEST || MM_MODE == MM_DEFAULT,
+              "AI2BMD_MM_MODE is 0 (b3), 1 (highest) or 2 (default)");
 
 // Largest slot count of a fragment: the dipeptide rows of every bundled
 // protein are at most 40 slots wide, ACE-NME units 16.  Only the product
@@ -153,6 +180,62 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// cvt.rn.bf16.f32 widened back: the nearest bfloat16 value, ties to even,
+// as a float32 bit pattern whose low 16 bits are 0 (exact in TF32).
+__device__ __forceinline__ unsigned to_bf16(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(x));
+  return (unsigned)h << 16;
+}
+
+// An operand as the one-pass modes take it: rounded to bfloat16 (MM_DEFAULT)
+// or as it is (MM_HIGHEST).
+__device__ __forceinline__ unsigned mm_operand(float x) {
+  if constexpr (MM_MODE == MM_DEFAULT) {
+    return to_bf16(x);
+  } else {
+    return __float_as_uint(x);
+  }
+}
+
+// MM_HIGHEST: the float32 values of an m16n8k8 A fragment (lane 4 g + q
+// holds A[g][q], A[g + 8][q], A[g][q + 4], A[g + 8][q + 4]) gathered so that
+// each lane holds the whole rows of its accumulators: r[0][k] = A[g][k],
+// r[1][k] = A[g + 8][k].
+__device__ __forceinline__ void gather_rows(float (&r)[2][8], const unsigned (&a)[4]) {
+  const int base = threadIdx.x & 28;  // 4 g
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    r[0][k] = __uint_as_float(__shfl_sync(0xffffffffu, a[k < 4 ? 0 : 2], base + (k & 3)));
+    r[1][k] = __uint_as_float(__shfl_sync(0xffffffffu, a[k < 4 ? 1 : 3], base + (k & 3)));
+  }
+}
+
+// MM_HIGHEST: a B fragment (lane 4 g + q holds B[q][g], B[q + 4][g])
+// gathered to the columns of each lane's accumulators: c[j][k] = B[k][2 q + j].
+__device__ __forceinline__ void gather_cols(float (&c)[2][8], const unsigned (&b)[2]) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    c[0][k] = __uint_as_float(__shfl_sync(0xffffffffu, b[k >> 2], 8 * q + (k & 3)));
+    c[1][k] = __uint_as_float(__shfl_sync(0xffffffffu, b[k >> 2], 8 * q + 4 + (k & 3)));
+  }
+}
+
+// MM_HIGHEST: d += A B for one 16 x 8 x 8 tile in mma.sync's accumulator
+// layout (d: rows g, g + 8 x columns 2 q, 2 q + 1), a float32 FMA a term in
+// k order.
+__device__ __forceinline__ void fma_tile(float (&d)[4], const float (&r)[2][8],
+                                         const float (&c)[2][8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    d[0] = fmaf(r[0][k], c[0][k], d[0]);
+    d[1] = fmaf(r[0][k], c[1][k], d[1]);
+    d[2] = fmaf(r[1][k], c[0][k], d[2]);
+    d[3] = fmaf(r[1][k], c[1][k], d[3]);
+  }
+}
+
 // d += a b for one 16 x 8 x 8 tile: TF32 operands, float32 accumulation.
 // Not volatile: the compiler may interleave independent tiles' products,
 // while each accumulator's own products keep their order.
@@ -182,31 +265,63 @@ __device__ __forceinline__ void load_w_frags(float (&f)[2][4], const float* __re
 // fragment and run the three passes over the warp's two m16 tiles (the
 // compiler overlaps one tile's loads and splits with the last one's
 // products; a split B fragment is held for one tile only, which keeps the
-// helper near 90 registers).
+// helper near 90 registers).  MM_DEFAULT rounds each fragment to bfloat16
+// and runs one pass; MM_HIGHEST gathers the W fragments' rows once a step
+// and each row tile's columns, then runs the FMA chain.
 template <int MAXR>
 __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], float (&f)[2][4],
                                            const float* X, int ldx, int A, int k0, int K,
                                            const float* __restrict__ Wq, int ldw, int g, int q) {
   constexpr int NT = MAXR / RCHUNK;
-  unsigned ahi[2][4], alo[2][4];
+  if constexpr (MM_MODE != MM_B3) {
+    unsigned a[2][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) split_tf32(f[mt][j], ahi[mt][j], alo[mt][j]);
-  if (k0 + 16 < K) load_w_frags(f, Wq + (size_t)(k0 + 16) * ldw, ldw);
+      for (int j = 0; j < 4; ++j) a[mt][j] = mm_operand(f[mt][j]);
+    if (k0 + 16 < K) load_w_frags(f, Wq + (size_t)(k0 + 16) * ldw, ldw);
+    float r[2][2][8];
+    if constexpr (MM_MODE == MM_HIGHEST) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    if (nt * RCHUNK < A) {
-      const float* x = X + (nt * RCHUNK + g) * ldx + k0 + q;
-      unsigned bhi[2], blo[2];
-      split_tf32(x[0], bhi[0], blo[0]);
-      split_tf32(x[4], bhi[1], blo[1]);
+      for (int mt = 0; mt < 2; ++mt) gather_rows(r[mt], a[mt]);
+    }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], alo[mt], bhi);
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * RCHUNK < A) {
+        const float* x = X + (nt * RCHUNK + g) * ldx + k0 + q;
+        const unsigned b[2] = {mm_operand(x[0]), mm_operand(x[4])};
+        if constexpr (MM_MODE == MM_DEFAULT) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], ahi[mt], blo);
+          for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], a[mt], b);
+        } else {
+          float c[2][8];
+          gather_cols(c, b);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], ahi[mt], bhi);
+          for (int mt = 0; mt < 2; ++mt) fma_tile(acc[mt][nt], r[mt], c);
+        }
+      }
+    }
+  } else {
+    unsigned ahi[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(f[mt][j], ahi[mt][j], alo[mt][j]);
+    if (k0 + 16 < K) load_w_frags(f, Wq + (size_t)(k0 + 16) * ldw, ldw);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * RCHUNK < A) {
+        const float* x = X + (nt * RCHUNK + g) * ldx + k0 + q;
+        unsigned bhi[2], blo[2];
+        split_tf32(x[0], bhi[0], blo[0]);
+        split_tf32(x[4], bhi[1], blo[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], alo[mt], bhi);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], ahi[mt], blo);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], ahi[mt], bhi);
+      }
     }
   }
 }
@@ -318,9 +433,11 @@ struct TileShape {
   static_assert(TM % 16 == 0 && TM <= 128 && NT >= 1, "tile rows");
 };
 
+// The one-pass modes keep no lo half of the W slab.
 template <int TM>
 __host__ __device__ constexpr size_t tile_smem() {
-  return (size_t)(2 * TM * TILE_LD + 2 * TILE_WBUF + 2 * TILE_N * TILE_LD) * sizeof(float);
+  return (size_t)(2 * TM * TILE_LD + 2 * TILE_WBUF + (MM_MODE == MM_B3 ? 2 : 1) * TILE_N * TILE_LD) *
+         sizeof(float);
 }
 
 // Up to three weight tensors side by side, each row-major with its own
@@ -365,8 +482,11 @@ __device__ __forceinline__ void seg_at(const WSeg& W, int x, const float*& w, in
 // into hi / lo in shared memory ([TILE_N][TILE_LD], column n, k along it;
 // an X @ W slab is transposed on the way), then four k8 steps of lo*hi,
 // hi*lo, hi*hi with the X fragments read by ldmatrix and split in
-// registers.  Rows past M read row M - 1 and columns past N read column
-// N - 1 (or W's row N - 1); neither is handed to epi.  Each sum runs over
+// registers.  MM_DEFAULT stores the W slab rounded to bfloat16 as hi, rounds
+// the X fragments likewise and runs one pass; MM_HIGHEST stores the slab as
+// it is and runs fma_tile's chains on gathered fragments.  Rows past M read
+// row M - 1 and columns past N read column N - 1 (or W's row N - 1);
+// neither is handed to epi.  Each sum runs over
 // k in order: bitwise repeatable, and equal between any two kernels that
 // call it on equal X and W.  epi owns each (r, n) pair: an epilogue may
 // read and write its outputs in place.
@@ -379,7 +499,7 @@ static __global__ void __launch_bounds__(256, 2)
   float* sX = smem;                     // [2][TM][TILE_LD] X slabs
   float* sW = sX + 2 * TM * TILE_LD;    // [2][TILE_WBUF] W slabs as copied
   float* sHi = sW + 2 * TILE_WBUF;      // [TILE_N][TILE_LD] this slab's hi
-  float* sLo = sHi + TILE_N * TILE_LD;  // and lo
+  float* sLo = sHi + TILE_N * TILE_LD;  // and lo (MM_B3 only)
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, q = lane & 3;
   const int wm = S::WM * (warp % S::WARPS_M), wn = S::WN * (warp / S::WARPS_M);
@@ -442,13 +562,19 @@ static __global__ void __launch_bounds__(256, 2)
       for (int it = 0; it < TILE_N * C4 / 256; ++it) {
         const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
         const float4 v = *reinterpret_cast<const float4*>(w + n * TILE_LD + c);
-        uint4 hi, lo;
-        split_tf32(v.x, hi.x, lo.x);
-        split_tf32(v.y, hi.y, lo.y);
-        split_tf32(v.z, hi.z, lo.z);
-        split_tf32(v.w, hi.w, lo.w);
-        *reinterpret_cast<uint4*>(sHi + n * TILE_LD + c) = hi;
-        *reinterpret_cast<uint4*>(sLo + n * TILE_LD + c) = lo;
+        if constexpr (MM_MODE == MM_B3) {
+          uint4 hi, lo;
+          split_tf32(v.x, hi.x, lo.x);
+          split_tf32(v.y, hi.y, lo.y);
+          split_tf32(v.z, hi.z, lo.z);
+          split_tf32(v.w, hi.w, lo.w);
+          *reinterpret_cast<uint4*>(sHi + n * TILE_LD + c) = hi;
+          *reinterpret_cast<uint4*>(sLo + n * TILE_LD + c) = lo;
+        } else {
+          *reinterpret_cast<uint4*>(sHi + n * TILE_LD + c) =
+              make_uint4(mm_operand(v.x), mm_operand(v.y),
+                         mm_operand(v.z), mm_operand(v.w));
+        }
       }
     } else {
       // a warp reads one 16-byte column chunk of 32 k rows and writes 32
@@ -460,61 +586,113 @@ static __global__ void __launch_bounds__(256, 2)
         const float e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          unsigned hi, lo;
-          split_tf32(e[j], hi, lo);
-          reinterpret_cast<unsigned*>(sHi)[(c + j) * TILE_LD + k] = hi;
-          reinterpret_cast<unsigned*>(sLo)[(c + j) * TILE_LD + k] = lo;
+          if constexpr (MM_MODE == MM_B3) {
+            unsigned hi, lo;
+            split_tf32(e[j], hi, lo);
+            reinterpret_cast<unsigned*>(sHi)[(c + j) * TILE_LD + k] = hi;
+            reinterpret_cast<unsigned*>(sLo)[(c + j) * TILE_LD + k] = lo;
+          } else {
+            reinterpret_cast<unsigned*>(sHi)[(c + j) * TILE_LD + k] = mm_operand(e[j]);
+          }
         }
       }
     }
     __syncthreads();  // the split slab is written
     const float* xs = sX + buf * TM * TILE_LD;
+    if constexpr (MM_MODE != MM_B3) {
 #pragma unroll
-    for (int kk = 0; kk < TILE_K; kk += 8) {
-      // A: X rows wm + 16 mt + (lane % 16), k kk + 4 (lane / 16)
-      unsigned ahi[S::MT][4], alo[S::MT][4];
+      for (int kk = 0; kk < TILE_K; kk += 8) {
+        // as MM_B3's fragments below, without the split: the X fragments
+        // rounded (MM_DEFAULT) or as they are, W's from the one stored half
+        unsigned a[S::MT][4];
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt) {
-        unsigned a[4];
-        ldsm_x4(a, xs + (wm + 16 * mt + (lane & 15)) * TILE_LD + kk + 4 * (lane >> 4));
+        for (int mt = 0; mt < S::MT; ++mt) {
+          ldsm_x4(a[mt], xs + (wm + 16 * mt + (lane & 15)) * TILE_LD + kk + 4 * (lane >> 4));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(a[j]), ahi[mt][j], alo[mt][j]);
-      }
-      // B: columns wn + 16 np + (lane % 8) + 8 (lane / 16), k kk + 4 ((lane / 8) % 2)
-      unsigned bhi[S::NT][2], blo[S::NT][2];
-      if constexpr (S::NT == 1) {
-        const int off = (wn + (lane & 7)) * TILE_LD + kk + 4 * ((lane >> 3) & 1);
-        ldsm_x2(bhi[0], sHi + off);
-        ldsm_x2(blo[0], sLo + off);
-      } else {
+          for (int j = 0; j < 4; ++j) a[mt][j] = mm_operand(__uint_as_float(a[mt][j]));
+        }
+        unsigned b[S::NT][2];
+        if constexpr (S::NT == 1) {
+          ldsm_x2(b[0], sHi + (wn + (lane & 7)) * TILE_LD + kk + 4 * ((lane >> 3) & 1));
+        } else {
 #pragma unroll
-        for (int np = 0; np < S::NT / 2; ++np) {
-          const int off = (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * TILE_LD + kk +
-                          4 * ((lane >> 3) & 1);
-          unsigned h[4], l[4];
-          ldsm_x4(h, sHi + off);
-          ldsm_x4(l, sLo + off);
+          for (int np = 0; np < S::NT / 2; ++np) {
+            unsigned h[4];
+            ldsm_x4(h, sHi + (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * TILE_LD + kk +
+                           4 * ((lane >> 3) & 1));
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            bhi[2 * np][j] = h[j];
-            bhi[2 * np + 1][j] = h[2 + j];
-            blo[2 * np][j] = l[j];
-            blo[2 * np + 1][j] = l[2 + j];
+            for (int j = 0; j < 2; ++j) {
+              b[2 * np][j] = h[j];
+              b[2 * np + 1][j] = h[2 + j];
+            }
+          }
+        }
+        if constexpr (MM_MODE == MM_DEFAULT) {
+#pragma unroll
+          for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], a[mt], b[nt]);
+        } else {
+          float r[S::MT][2][8];
+#pragma unroll
+          for (int mt = 0; mt < S::MT; ++mt) gather_rows(r[mt], a[mt]);
+#pragma unroll
+          for (int nt = 0; nt < S::NT; ++nt) {
+            float c[2][8];
+            gather_cols(c, b[nt]);
+#pragma unroll
+            for (int mt = 0; mt < S::MT; ++mt) fma_tile(acc[mt][nt], r[mt], c);
           }
         }
       }
+    } else {
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
+      for (int kk = 0; kk < TILE_K; kk += 8) {
+        // A: X rows wm + 16 mt + (lane % 16), k kk + 4 (lane / 16)
+        unsigned ahi[S::MT][4], alo[S::MT][4];
 #pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+        for (int mt = 0; mt < S::MT; ++mt) {
+          unsigned a[4];
+          ldsm_x4(a, xs + (wm + 16 * mt + (lane & 15)) * TILE_LD + kk + 4 * (lane >> 4));
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
+          for (int j = 0; j < 4; ++j) split_tf32(__uint_as_float(a[j]), ahi[mt][j], alo[mt][j]);
+        }
+        // B: columns wn + 16 np + (lane % 8) + 8 (lane / 16), k kk + 4 ((lane / 8) % 2)
+        unsigned bhi[S::NT][2], blo[S::NT][2];
+        if constexpr (S::NT == 1) {
+          const int off = (wn + (lane & 7)) * TILE_LD + kk + 4 * ((lane >> 3) & 1);
+          ldsm_x2(bhi[0], sHi + off);
+          ldsm_x2(blo[0], sLo + off);
+        } else {
 #pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+          for (int np = 0; np < S::NT / 2; ++np) {
+            const int off = (wn + 16 * np + (lane & 7) + 8 * (lane >> 4)) * TILE_LD + kk +
+                            4 * ((lane >> 3) & 1);
+            unsigned h[4], l[4];
+            ldsm_x4(h, sHi + off);
+            ldsm_x4(l, sLo + off);
 #pragma unroll
-      for (int mt = 0; mt < S::MT; ++mt)
+            for (int j = 0; j < 2; ++j) {
+              bhi[2 * np][j] = h[j];
+              bhi[2 * np + 1][j] = h[2 + j];
+              blo[2 * np][j] = l[j];
+              blo[2 * np + 1][j] = l[2 + j];
+            }
+          }
+        }
 #pragma unroll
-        for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+        for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+#pragma unroll
+        for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+#pragma unroll
+        for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+      }
     }
   }
   // accumulators: (row g, columns 2q, 2q + 1) and row g + 8 of each tile.

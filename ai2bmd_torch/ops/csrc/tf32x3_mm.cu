@@ -1,10 +1,11 @@
 // tf32x3_mm: out = X @ W through mma_rows_times_cols (common.cuh) alone, a
-// check of the 3xTF32 tensor-core product that K1, K2, K7 and K8 share;
-// and tf32_mma_rate, the rate of the mma.sync instruction the helper is
-// built on, with nothing else in the loop.  No TPU kernel: chip_smoke.py
-// holds the product against its plain model (ops/tf32x3.py
-// mm_tf32x3_plain) and a float64 product, and prints both rates.  Nothing
-// on the model's path launches them.
+// check of the tensor-core product that K1, K2, K7 and K8 share, in the
+// library's mode (3xTF32 in the b3 library, the FMA chain in the highest
+// one, one bf16 pass in the default one); and tf32_mma_rate, the rate of
+// the mma.sync instruction the helper is built on, with nothing else in
+// the loop.  No TPU kernel: chip_smoke.py holds the product against its
+// mode's plain model (ops/tf32x3.py plain_mm) and a float64 product, and
+// prints both rates.  Nothing on the model's path launches them.
 // Design: one block per (A rows, 32 x warps columns), the rows copied to
 // shared memory at the helper's padded stride, the product stored
 // straight to device memory.

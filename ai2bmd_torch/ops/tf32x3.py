@@ -1,4 +1,4 @@
-"""The 3xTF32 split of the edge kernels' tensor-core products, in plain PyTorch.
+"""The edge kernels' products in each mode, in plain PyTorch.
 
 Every kernel product (``mma_rows_times_cols`` in K1, K2, K7 and K8,
 ``row_tile`` in K3/K8's g_edge and in K5/K6, ``csrc/common.cuh``) takes
@@ -7,9 +7,19 @@ cut into hi = tf32(x) and lo = tf32(x - hi), rounded as
 ``cvt.rna.tf32.f32`` does (to 10 explicit mantissa bits, ties away from
 zero), and x @ w becomes lo_x @ hi_w + hi_x @ lo_w + hi_x @ hi_w with
 float32 sums.  ``mm_tf32x3_plain`` is that arithmetic on the CPU (or the
-card), so tests can bound the split's error; ``mm_tf32x3`` runs the helper
-alone on the card (``csrc/tf32x3_mm.cu``) and this model on the CPU.  The
-model's path calls neither.
+card), so tests can bound the split's error.  The kernels' other modes
+(``_build.MM_MODE``) have theirs: ``mm_highest_plain`` (the product in
+float64, rounded once to float32: the kernels' float32 FMA chains are
+within a float32 product's error of it) and ``mm_bf16_plain`` (both
+operands rounded to bfloat16, round to nearest even as ``x.astype(bf16)``
+does, then a float32 product: the product of two bfloat16 values is exact
+in float32, so this is the TPU's single pass).  ``plain_mm(mode)`` gives the
+mode's product; chip_smoke.py holds each mode's kernels to it, and the
+wrappers' plain route takes it in ``highest`` and ``default``.  Both pass
+float64 operands (the reference runs) to the exact product.
+``mm_tf32x3`` runs the helper alone on the card (``csrc/tf32x3_mm.cu``)
+from the current mode's library, and the mode's model on the CPU.  The
+model's path calls none of them.
 """
 
 from __future__ import annotations
@@ -48,13 +58,44 @@ def mm_tf32x3_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return xl @ wh + xh @ wl + xh @ wh
 
 
+def mm_highest_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as the ``highest`` kernels take it: full float32, modelled by the
+    float64 product rounded once (whatever torch's float32 matmul precision
+    is set to)."""
+    if x.dtype == torch.float64:
+        return x @ w
+    return (x.double() @ w.double()).to(x.dtype)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rn.bf16.f32`` widened back: the nearest bfloat16 value, ties to
+    even, as float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def mm_bf16_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w as the ``default`` kernels take it: one pass on operands rounded
+    to bfloat16, float32 sums."""
+    if x.dtype == torch.float64:
+        return x @ w
+    return round_bf16(x) @ round_bf16(w)
+
+
+PLAIN_MM = {"b3": mm_tf32x3_plain, "highest": mm_highest_plain, "default": mm_bf16_plain}
+
+
+def plain_mm(mode: str | None = None):
+    """The plain product of a mode (None: the current one, ``_build.MM_MODE``)."""
+    return PLAIN_MM[mode or _build.MM_MODE]
+
+
 def mm_tf32x3(x: torch.Tensor, w: torch.Tensor, rows: int = 40) -> torch.Tensor:
-    """x [M, K] @ w [K, N] through the tensor-core helper alone, ``rows``
-    rows a block (M % rows == 0, rows a multiple of 8 up to 48, K % 32 == 0,
-    N a multiple of 256 or N <= 256 and N % 32 == 0); the plain model for
-    CPU tensors."""
+    """x [M, K] @ w [K, N] through the tensor-core helper alone, from the
+    current mode's library, ``rows`` rows a block (M % rows == 0, rows a
+    multiple of 8 up to 48, K % 32 == 0, N a multiple of 256 or N <= 256 and
+    N % 32 == 0); the mode's plain model for CPU tensors."""
     if x.device.type == "cpu":
-        return mm_tf32x3_plain(x, w)
+        return plain_mm()(x, w)
     M, K = x.shape
     N = w.shape[1]
     _build.check("x", x, (M, K), device=x.device)

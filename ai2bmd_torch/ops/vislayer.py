@@ -20,9 +20,10 @@ Two kernels (``csrc/``) and their plain versions:
   vislayer_bwd  (K6)  (gx, gvec, gedge, gd_sh, gdist), recomputed from the
                       layer inputs and x_agg (no stored activations)
 
-Each wrapper runs its plain version for CPU tensors and launches its kernel
-for CUDA tensors; there is no other route.  ``fused_layer`` is what the
-model calls.
+Each wrapper runs its plain version for CPU tensors (its products those of
+the current mode's plain route, ``vismp.route_mm``) and launches its kernel
+from the current mode's library for CUDA tensors; there is no other route.
+``fused_layer`` is what the model calls.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.ops import LAUNCHES, _build
-from ai2bmd_torch.ops.vismp import check_layer_shapes, edge_fwd_plain, route
+from ai2bmd_torch.ops.vismp import check_layer_shapes, edge_fwd_plain, route, route_mm
 
 _f32 = torch.float32
 _LN_EPS = 1e-5
@@ -224,7 +225,8 @@ def _node_scratch(new, B, A, H, S, last):
 def vislayer_fwd(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int, last: bool):
     """K5.  Returns (x', vec', edge', x_agg)."""
     if not route(x, "fused-layer"):
-        return vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff, nh, last)
+        return vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff, nh, last,
+                                  mm=route_mm())
     (B, A, H, S), t = _inputs(x, vec, edge, d_sh, dist, adj, weights, nh)
     new = lambda *s: torch.empty(s, dtype=_f32, device=x.device)
     E = B * A * A
@@ -241,7 +243,7 @@ def vislayer_bwd(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2, gedge
     """K6.  Returns (gx, gvec, gedge, gd_sh, gdist); gedge includes gedge2."""
     if not route(x, "fused-layer"):
         return vislayer_bwd_plain(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2,
-                                  gedge2, cutoff, nh, last)
+                                  gedge2, cutoff, nh, last, mm=route_mm())
     (B, A, H, S), t = _inputs(x, vec, edge, d_sh, dist, adj, weights, nh)
     for name, g, shape in (("xagg", xagg, (B, A, H)), ("gx2", gx2, (B, A, H)),
                            ("gvec2", gvec2, (B, S, A, H)), ("gedge2", gedge2, (B, A, A, H))):

@@ -26,11 +26,25 @@ the backward: the stash route (K1 stores zdkv, zs, zf; K2/K3 read them) and,
 with ``recompute=True``, the memory-lean route (K1 stores nothing; K7/K8
 rebuild the pre-activations), which ``edge_core(recompute=True)`` takes on
 the CPU too, there through the plain versions.
+
+The products' mode is the JAX package's in-kernel precision, read from
+``AI2BMD_KERNEL_MM_PRECISION`` with its values and its message for an
+unknown one (``ai2bmd_tpu/ops/pallas/vismp.py:43-70``): ``b3`` (unset: the
+production 3xTF32 split), ``highest`` (full float32) or ``default`` (one
+pass on bfloat16-rounded operands).  It is read once, at import, as JAX
+reads it, into ``_build.MM_MODE``; ``configure_mm_mode()`` reads it again
+(tests, and chip_smoke.py, which runs every mode in one process).  Every
+wrapper (here, in ``ops/vislayer.py``, ``ops/tf32x3.py`` and
+``ops/caps.py``) launches from that mode's kernel library (``_build``).  On
+CPU tensors the wrappers of ``highest`` and ``default`` take their mode's
+plain product (``ops.tf32x3.plain_mm``); ``b3``'s stay the exact product,
+as before.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +52,52 @@ import torch.nn.functional as F
 from ai2bmd_torch.ops import LAUNCHES, _build
 
 _f32 = torch.float32
+
+MM_ENV = "AI2BMD_KERNEL_MM_PRECISION"
+# The JAX package's values -> the port's product mode (a kernel library of
+# its own, _build.MODES).  JAX's comment calls "high" an alias of b3
+# (vismp.py:60), but its code splits only when the mode is "b3" (:93,
+# :607): "high" and "" run one dot at precision None, full float32 on
+# Mosaic (:45).  The port follows the code (ROADMAP.md, Queue 3).
+MM_MODES = {"b3": "b3", "highest": "highest", "high": "highest", "": "highest",
+            "default": "default"}
+
+
+def parse_mm_mode(value: str | None) -> str:
+    """The product mode of an ``AI2BMD_KERNEL_MM_PRECISION`` value (None:
+    unset, ``b3``); an unknown value raises the JAX package's ValueError."""
+    value = "b3" if value is None else value
+    if value not in MM_MODES:
+        raise ValueError(
+            f"AI2BMD_KERNEL_MM_PRECISION={value!r} is not a known mode; "
+            f"valid values: b3 (production, default), highest (full f32), "
+            f"default (single-pass bf16 throughput), high (alias of b3)"
+        )
+    return MM_MODES[value]
+
+
+def configure_mm_mode() -> str:
+    """Read ``AI2BMD_KERNEL_MM_PRECISION`` again into ``_build.MM_MODE`` and
+    return it.  Launches that follow take that mode's library; a captured
+    CUDA graph keeps the mode it was captured in."""
+    _build.MM_MODE = parse_mm_mode(os.environ.get(MM_ENV))
+    return _build.MM_MODE
+
+
+configure_mm_mode()
+
+
+def route_mm():
+    """The product of the wrappers' plain route (CPU tensors) in the current
+    mode: ``highest`` and ``default`` take their plain model
+    (``tf32x3.plain_mm``); ``b3`` the exact product, which its split matches
+    within float32 rounding (tests/test_torch_tf32x3.py) and which the
+    model's own CPU path and its float64 references run."""
+    if _build.MM_MODE == "b3":
+        return torch.matmul
+    from ai2bmd_torch.ops.tf32x3 import plain_mm
+
+    return plain_mm(_build.MM_MODE)
 
 
 def cosine_cutoff(dist: torch.Tensor, cutoff: float) -> torch.Tensor:
@@ -156,14 +216,15 @@ def edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df, g_edge=None, mm=torch.matmu
 
 
 def edge_bwd_msg_rc_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
-                          g_xagg, g_vecagg, cutoff: float, nh: int):
+                          g_xagg, g_vecagg, cutoff: float, nh: int, mm=torch.matmul):
     """Plain version of K7, the math of ``_bwd_msg_kernel`` (vismp.py:615):
-    zdkv and zs recomputed from the layer inputs, then K2's plain version.
-    Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
+    zdkv and zs recomputed from the layer inputs, then K2's plain version
+    (``mm`` takes every product).  Returns (g_q, g_k, g_v, g_vec, g_edge,
+    g_d_sh, g_dist)."""
     zdkv, zs = edge_fwd_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
-                              cutoff, nh)[3:5]
+                              cutoff, nh, mm=mm)[3:5]
     return edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
-                              g_xagg, g_vecagg, cutoff, nh)
+                              g_xagg, g_vecagg, cutoff, nh, mm=mm)
 
 
 def edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge=None, mm=torch.matmul):
@@ -255,7 +316,7 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     if not route(q):
         x_agg, vec_agg, df, zdkv, zs, zf = edge_fwd_plain(
             q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
-            cutoff, nh, wt, wsrc, w_f, b_f)
+            cutoff, nh, wt, wsrc, w_f, b_f, mm=route_mm())
         if not store:
             zdkv = zs = zf = None
         return x_agg, vec_agg, df, zdkv, zs, zf
@@ -299,7 +360,7 @@ def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
     """K2.  Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
     if not route(q):
         return edge_bwd_msg_plain(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv,
-                                  w_s, g_xagg, g_vecagg, cutoff, nh)
+                                  w_s, g_xagg, g_vecagg, cutoff, nh, mm=route_mm())
     B, A, H = q.shape
     S = vec.shape[2]
     check_shapes(A, H, S, nh)
@@ -374,7 +435,7 @@ def edge_bwd_upd(adj, wt, wsrc, w_f, zf, g_df, g_edge=None):
     path's), the edge gradient is added into it in place and that tensor is
     returned."""
     if not route(zf):
-        return edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df, g_edge)
+        return edge_bwd_upd_plain(adj, wt, wsrc, w_f, zf, g_df, g_edge, mm=route_mm())
     out = _upd_launch(False, adj, wt, wsrc, w_f, None, zf, g_df, g_edge)
     LAUNCHES["edge_bwd_upd"] += 1
     return out
@@ -385,7 +446,7 @@ def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     """K7.  Returns (g_q, g_k, g_v, g_vec, g_edge, g_d_sh, g_dist)."""
     if not route(q):
         return edge_bwd_msg_rc_plain(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv,
-                                     w_s, b_s, g_xagg, g_vecagg, cutoff, nh)
+                                     w_s, b_s, g_xagg, g_vecagg, cutoff, nh, mm=route_mm())
     B, A, H = q.shape
     S = vec.shape[2]
     check_shapes(A, H, S, nh)
@@ -421,7 +482,8 @@ def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
 def edge_bwd_upd_rc(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge=None):
     """K8.  Returns (g_edge, g_wt, g_wsrc), ``g_edge`` as K3's."""
     if not route(edge):
-        return edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge)
+        return edge_bwd_upd_rc_plain(edge, adj, wt, wsrc, w_f, b_f, g_df, g_edge,
+                                     mm=route_mm())
     out = _upd_launch(True, adj, wt, wsrc, w_f, b_f, edge, g_df, g_edge)
     LAUNCHES["edge_bwd_upd_rc"] += 1
     return out

@@ -20,7 +20,11 @@ world of n processes and returns their results in rank order:
     process group's own timeout (``torch.distributed``'s default, or
     ``timeout_s``);
   * under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) it joins that world
-    instead, runs ``fn`` in this process and returns its result alone.
+    instead, runs ``fn`` in this process and returns its result alone;
+  * a matmul precision chosen in this process
+    (``utils.device.set_matmul_precision``, the CLI's ``--matmul-precision``)
+    is set on every spawned rank before ``fn`` runs; the kernels' mode
+    reaches them through the environment (``AI2BMD_KERNEL_MM_PRECISION``).
 
 A spawned rank imports the module of ``fn`` afresh, so ``fn`` lives in a
 module that imports what the rank needs and no more.  Results cross
@@ -40,6 +44,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
+
+from ai2bmd_torch.utils import device as D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,9 +77,11 @@ def _to_host(obj):
 
 def _run_rank(fn, args, rank: int, n: int, local_rank: int, device_type: str,
               backend: str | None, store_path: str | None, timeout_s: float | None,
-              threads: int | None):
+              threads: int | None, precision: str | None = None):
     if threads:
         torch.set_num_threads(threads)
+    if precision is not None:
+        D.set_matmul_precision(precision)
     if device_type == "cuda":
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
         device = torch.device("cuda", torch.cuda.current_device())
@@ -92,10 +100,11 @@ def _run_rank(fn, args, rank: int, n: int, local_rank: int, device_type: str,
         dist.destroy_process_group()
 
 
-def _child(fn, args, rank, n, device_type, backend, store_path, timeout_s, threads, results):
+def _child(fn, args, rank, n, device_type, backend, store_path, timeout_s, threads, precision,
+           results):
     try:
         out = _run_rank(fn, args, rank, n, rank, device_type, backend, store_path, timeout_s,
-                        threads)
+                        threads, precision)
         results.put((rank, True, _to_host(out)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
@@ -126,9 +135,10 @@ def launch(fn, n: int, device_type: str = "cuda", args: tuple = (), backend: str
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ai2bmd_world_")
     results = ctx.Queue()
+    precision = D.chosen_matmul_precision()
     procs = [ctx.Process(target=_child, args=(fn, args, r, n, device_type, backend,
                                               os.path.join(tmp, "store"), timeout_s, threads,
-                                              results))
+                                              precision, results))
              for r in range(n)]
     got: dict[int, object] = {}
     failure = None

@@ -6,11 +6,14 @@ place of the reference's dup2-into-tee redirection (src/utils/system.py:
 etot, temperature, wall ms/step) whose columns and formats are the JAX
 package's byte for byte.  ``untee_output`` undoes ``tee_output`` (an
 in-process CLI run must leave ``sys.stdout``/``sys.stderr`` as it found
-them).
+them).  ``StepTimer`` times named stages on the host clock, and
+``profile_trace`` writes a ``torch.profiler`` Chrome trace (JAX's writes a
+``jax.profiler`` trace) under ``log_dir/trace``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -80,3 +83,50 @@ class MetricsLog:
     def close(self):
         self.f.close()
 
+
+class StepTimer:
+    """Wall-clock per-stage timing (the reference's @record_time,
+    utils.py:17-25, generalized to named stages)."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def time(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        lines = []
+        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            lines.append(f"{name}: {total:.3f}s total, {1e3 * total / n:.2f} ms/call x{n}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Context manager: a ``torch.profiler`` trace of the block (host, and
+    the card's kernels where there is a card), written on exit as a Chrome
+    trace (chrome://tracing, Perfetto) into ``log_dir/trace``.  Yields the
+    profiler; its ``trace_path`` is set on exit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    out = os.path.join(log_dir, "trace")
+    os.makedirs(out, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.trace_path = os.path.join(out, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-"
+                                        f"{os.getpid()}.json")
+    prof.export_chrome_trace(prof.trace_path)

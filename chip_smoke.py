@@ -224,14 +224,38 @@ is not printed):
      the ranks of each mp row bitwise equal; ReplicaEnsemble over the
      mesh's dp against the one-card ensemble; every rank reports that it
      imported neither jax nor ai2bmd_tpu and ran no plain edge core
-  14. one JSON line of kernel results (with `mesh_launches`: rank 0's
-     launches a warm evaluation in (b), by mesh), the card's name and power
-     limit, and the final JSON line.
+  14. the products' modes (AI2BMD_KERNEL_MM_PRECISION: b3, the production
+     3xTF32 split; highest, float32 FMA chains; default, one pass on
+     bfloat16-rounded operands; one kernel library each, the other two
+     built when phase 14 starts): (a) the lone helper (tf32x3_mm) in each mode
+     against its mode's plain model (ops/tf32x3.py plain_mm) and its error
+     against float64 beside cuBLAS float32's (highest within 2x), then K1
+     (four flag pairs), K2, K3, K7, K8, K5 and K6 (both `last`) in each mode
+     at the four lone batches, the three whole molecules and heads of 8, 16
+     and 64 channels: against the mode's plain model (EDGE_TOL; in default
+     the outputs of a chain of products within 2^-8 of the scale and
+     BF16_SHARE of the bfloat16 rounding's own difference, and the highest
+     library, as a control, must miss that for every kernel), bitwise
+     repeats, ms a call by CUDA events beside the mode's bound (FMA at 67
+     TFLOP/s, one TF32 pass at 495); (b) the lone graphed step at 9 x
+     256 in each mode: step 0 and the fixed-cap rows against the CPU float64
+     run (b3 and highest within FORCE_LIMIT, default printed beside it),
+     ms/step over TIMED_STEPS replays, kernels per step; (c) `python -m
+     ai2bmd_torch --matmul-precision` float32, tensorfloat32, bfloat16: the
+     precision line each prints, forces against float32's; cuBLAS under
+     torch's "highest", "high", "medium" against float64; (d) in (a) and (b)
+     every launch came from the asked mode's library
+     (ops/_build.py LIBRARY_LAUNCHES)
+  15. one JSON line of kernel results (with `mesh_launches`: rank 0's
+     launches a warm evaluation in (b), by mesh; `precision_modes`: phase
+     14's figures by mode), the card's name and power limit, and the final
+     JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
-`--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--preprocess-full` runs only
+`--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--precision-only` phase 14
+alone; `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
 cycles (wall seconds, ms per cycle), without it.  Phase 5 runs eagerly (no
@@ -1395,11 +1419,7 @@ def drive_graphed(torch, potential, coeffs, masses, state, gen, card, trace_kern
 
 def run_slice(torch, dev, prot, card):
     """Phase 4: the slice through K1-K3; returns its launches, ms/step and the
-    step-0 references phase 4b is held against."""
-    from ai2bmd_torch.frag import runtime as RT
-    from ai2bmd_torch.models.visnet import ViSNet
-    from ai2bmd_torch.potentials import FragmentPotential
-
+    step-0 references phase 4b and phase 14 are held against."""
     pot, cfg, params = build_potential(torch, dev, prot, fused=False)
     launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
                                                               EDGE_KERNELS)
@@ -1409,29 +1429,51 @@ def run_slice(torch, dev, prot, card):
                  "tf32x3_mm"):
         need(launches[name] == 0, f"{name} ran on the edge-core path")
 
-    # step 0 against the same port on the CPU in float64 (plain versions)
+    ref = slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1)
+    dF, dF_fix = step0_errors(torch, pot, cfg, P, e0, f0, ref)
+    need(dF <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF:.3e}")
+    need(dF_fix <= FORCE_LIMIT, f"fixed-cap forces differ by {dF_fix:.3e}")
+    return launches, ms_step, graphed, dict(aux0=aux0, e0=e0, f0=f0, **ref)
+
+
+def slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1):
+    """Step 0 of the slice on the CPU in float64 through the plain versions,
+    from the card's cold-cap offsets ``aux0``, and the ViSNet forces at the
+    rows the card's step 0 used (warm caps ``aux1``: fixed caps, the measure
+    of the JAX package's benchmarks/kernel_precision.py)."""
+    from ai2bmd_torch.frag import runtime as RT
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.potentials import FragmentPotential
+
     torch.set_num_threads(os.cpu_count() or 1)
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
     pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
                                     longrange="mm", device="cpu")
-    P64 = P.to(cpu, torch.float64)
-    e_ref, f_ref, aux_ref = pot64.stateful_energy_forces(P64, aux0.to(cpu, torch.float64))
-    dF = float((f0.to(cpu, torch.float64) - f_ref).abs().max())
-    dE = abs(float(e0) - float(e_ref))
-    # and at fixed cap positions: the rows the card's step 0 used
+    e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
+                                                   aux0.to(cpu, torch.float64))
     pos_card = RT.build_row_positions(pot.rt, P) + aux1
-    _, f_fix = RT._fragment_terms(pot.module.params(), pot.rt, pos_card, cfg)
     _, f_fix_ref = RT._fragment_terms(pot64.module.params(), pot64.rt,
                                       pos_card.to(cpu, torch.float64), cfg)
-    dF_fix = float((f_fix.to(cpu, torch.float64) - f_fix_ref).abs().max())
+    print(f"  CPU float64 reference of step 0 and of the fixed-cap rows: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(e_ref=e_ref, f_ref=f_ref, aux1=aux1, pos_card=pos_card, f_fix_ref=f_fix_ref)
+
+
+def step0_errors(torch, pot, cfg, P, e0, f0, ref):
+    """Step 0's max|dF| against the CPU float64 run, and the ViSNet forces'
+    at the fixed-cap rows of ``ref``, through ``pot``'s kernels."""
+    from ai2bmd_torch.frag import runtime as RT
+
+    cpu = torch.device("cpu")
+    dF = float((f0.to(cpu, torch.float64) - ref["f_ref"]).abs().max())
+    dE = abs(float(e0) - float(ref["e_ref"]))
+    _, f_fix = RT._fragment_terms(pot.module.params(), pot.rt, ref["pos_card"], cfg)
+    dF_fix = float((f_fix.to(cpu, torch.float64) - ref["f_fix_ref"]).abs().max())
     print(f"  step 0 vs CPU float64 plain: |dE| {dE:.3e} eV, max|dF| {dF:.3e} eV/A "
           f"(limit {FORCE_LIMIT}); fixed caps max|dF| {dF_fix:.3e} eV/A; "
-          f"max|F| {float(f_ref.abs().max()):.3f} eV/A; reference took "
-          f"{time.perf_counter() - t0:.1f} s")
-    need(dF <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF:.3e}")
-    need(dF_fix <= FORCE_LIMIT, f"fixed-cap forces differ by {dF_fix:.3e}")
-    return launches, ms_step, graphed, dict(aux0=aux0, e0=e0, f0=f0, e_ref=e_ref, f_ref=f_ref)
+          f"max|F| {float(ref['f_ref'].abs().max()):.3f} eV/A")
+    return dF, dF_fix
 
 
 def run_fused_slice(torch, dev, prot, card, ref):
@@ -3633,6 +3675,557 @@ def run_mesh(torch, dev, prot, card, root):
     return mesh_launches
 
 
+# Phase 14: the products' modes.  Every kernel with products (K1-K3, K5-K8
+# and the lone helper) is built once a mode (ops/_build.py: b3, the
+# production 3xTF32 split; highest, float32 FMA chains; default, one pass on
+# bfloat16-rounded operands) and held to its mode's plain model
+# (ops/tf32x3.py plain_mm).  K4 has no product.
+MODES = ("b3", "highest", "default")
+# the peak each mode's products run at on the H100 SXM (NVIDIA data sheet):
+# three TF32 passes, float32 FMA, one TF32 pass
+MODE_PEAK = {"b3": PEAK_TF32X3, "highest": PEAK_F32, "default": 495e12}
+MODE_UNIT = {"b3": "3xTF32 tensor cores, 165 TFLOP/s", "highest": "float32 FMA, 67 TFLOP/s",
+             "default": "one TF32 pass on bf16 values, 495 TFLOP/s"}
+# b3 and highest: every output within EDGE_TOL x max(1, max|ref|) of the
+# mode's plain model.  default: the helper's product and K1's outputs of one
+# product of the inputs (DEFAULT_ONE_PRODUCT) within EDGE_TOL too.  Every
+# other default output passes a chain of products, each of which rounds its
+# operands to bfloat16: an intermediate that the kernel and the plain model
+# compute a float32 rounding apart can round to neighbouring bfloat16
+# values, a step of 2^-8 of that operand that the later products carry on
+# (a one-ulp change of K6's inputs moves default's plain model by up to
+# ~0.2 x 2^-8 of its scale, the float32 model by ~1e-6; bf16_sensitivity
+# prints it).  Such an output passes within EDGE_TOL, or within 2^-8 x
+# max(1, max|ref|) where its difference from the plain model, in the
+# 2-norm, is at most BF16_SHARE of the difference the rounding makes there
+# (default's plain model against highest's).  On the H100 the kernels read
+# up to ~0.1 there, about what a one-ulp change of K6's inputs gives the
+# plain model itself; a library that skipped the rounding reads 1.  The
+# control (at the `controls` shapes of check_precision_kernels) holds the
+# highest library to default's plain model and fails unless every kernel
+# misses.
+DEFAULT_ONE_PRODUCT = ("out", "zdkv", "zf", "df")
+BF16_SHARE = 0.3
+# the lone step's bar; JAX's own default mode moves forces by ~2.5e-3 eV/A
+# (ai2bmd_tpu/ops/pallas/vismp.py:54), above it by design: printed, not held
+PRECISION_STEP_LIMIT = {"b3": FORCE_LIMIT, "highest": FORCE_LIMIT, "default": None}
+# the highest helper's error against float64, at most this many times
+# cuBLAS float32's (allow_tf32 off) on the same operands
+HIGHEST_VS_CUBLAS = 2.0
+PRECISION_REPS = 10
+# the variant of each kernel whose ms go into the kernels line
+MAIN_VARIANT = {"edge_fwd": "edge_fwd update=1 store=1", "vislayer_fwd": "vislayer_fwd last=0",
+                "vislayer_bwd": "vislayer_bwd last=0"}
+
+
+def set_mm_mode(mode):
+    """Select the kernels' products as a user does, through the JAX package's
+    variable, and read it again (ops/vismp.py reads it once, at import)."""
+    from ai2bmd_torch.ops import vismp as K
+
+    os.environ[K.MM_ENV] = mode
+    got = K.configure_mm_mode()
+    need(got == mode, f"AI2BMD_KERNEL_MM_PRECISION={mode} gave {got}")
+
+
+def only_mode(mode, what):
+    """The launches since the last reset, which must all have come from
+    ``mode``'s library (ops/_build.py LIBRARY_LAUNCHES, one a launch of a
+    wrapper in ops.LAUNCHES): {"kernel@mode": launches}."""
+    from ai2bmd_torch.ops import LAUNCHES, _build
+
+    libs = {m: n for m, n in _build.LIBRARY_LAUNCHES.items() if n}
+    kernels = {k: v for k, v in LAUNCHES.items() if v and k != "plain_edge_core"}
+    need(kernels and list(libs) == [mode] and libs[mode] == sum(kernels.values()),
+         f"{what} at {mode}: launches by library {libs}, by kernel {kernels}")
+    return {f"{k}@{mode}": v for k, v in kernels.items()}
+
+
+def quiet_compare(name, got, ref, tol):
+    """compare() without a line per output: the largest abs error and the
+    largest share of its bound, tol * max(1, max|ref|)."""
+    worst, share = 0.0, 0.0
+    for label, g, r in zip(ref.keys(), got, ref.values()):
+        if r is None:
+            need(g is None, f"{name}: {label} should be absent")
+            continue
+        need(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)} != {tuple(r.shape)}")
+        need(bool(g.isfinite().all()), f"{name}: {label} has non-finite values")
+        err = float((g - r).abs().max())
+        lim = tol * max(1.0, float(r.abs().max()))
+        need(err <= lim, f"{name}: {label} differs from its mode's plain model by {err:.3e} "
+                         f"(bound {lim:.3e})")
+        worst, share = max(worst, err), max(share, err / lim)
+    return worst, share
+
+
+def default_misses(name, got, ref, exact):
+    """A default-mode call's outputs ``got`` against default's plain model
+    ``ref`` ({output: tensor}), with highest's plain model ``exact`` as the
+    yardstick of the bfloat16 rounding: the outputs that miss their bounds
+    (DEFAULT_ONE_PRODUCT, BF16_SHARE), the largest abs error and the largest
+    share of the rounding's difference among outputs beyond EDGE_TOL."""
+    misses, worst, share = [], 0.0, 0.0
+    for (label, r), g, e in zip(ref.items(), got, exact.values()):
+        if r is None:
+            need(g is None, f"{name}: {label} should be absent")
+            continue
+        need(g.shape == r.shape, f"{name}: {label} shape {tuple(g.shape)} != {tuple(r.shape)}")
+        need(bool(g.isfinite().all()), f"{name}: {label} has non-finite values")
+        d = g - r
+        err, scale = float(d.abs().max()), max(1.0, float(r.abs().max()))
+        worst = max(worst, err)
+        if err <= EDGE_TOL * scale:
+            continue
+        if label in DEFAULT_ONE_PRODUCT:
+            misses.append(f"{label} {err:.3e} > {EDGE_TOL * scale:.3e} (one product, EDGE_TOL)")
+            continue
+        effect = float((e - r).norm())
+        s = float(d.norm()) / effect if effect > 0 else math.inf
+        share = max(share, s)
+        if err > 2.0 ** -8 * scale or s > BF16_SHARE:
+            misses.append(f"{label} {err:.3e} (2^-8 bound {2.0 ** -8 * scale:.3e}), "
+                          f"{s:.3f} of the rounding's difference (bound {BF16_SHARE})")
+    return misses, worst, share
+
+
+def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh):
+    """Phase 14(a)'s calls on edge case ``c`` and layer inputs ``la`` (weights
+    ``ws[last]``) in the current mode: (kernel, label, kernel call, its plain
+    version taking ``mm`` as {output: tensor}, FLOPs, bytes)."""
+    core, upd, g0 = c["core"], c["upd"], c["g_edge"]
+    E = B * A * A
+    fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
+    specs = []
+    for update in (True, False):
+        for store in (True, False):
+            kw = upd if update else {}
+
+            def plain(mm, kw=kw, store=store):
+                out = dict(zip(fwd_keys, K.edge_fwd_plain(*core, **kw, mm=mm)))
+                if not store:
+                    out["zdkv"] = out["zs"] = out["zf"] = None
+                return out
+
+            run = lambda kw=kw, store=store: K.edge_fwd(*core, **kw, store=store)
+            specs.append(("edge_fwd", f"edge_fwd update={int(update)} store={int(store)}", run,
+                          plain, 2 * E * (5 if update else 4) * H * H,
+                          nbytes(*core[:12], *kw.values(), *run())))
+    for name, args, flop in (("edge_bwd_msg", c["msg"], 8), ("edge_bwd_msg_rc", c["msg_rc"], 16)):
+        run = lambda name=name, args=args: getattr(K, name)(*args)
+        plain = lambda mm, name=name, args=args: dict(zip(
+            MSG_KEYS, getattr(K, name + "_plain")(*args, mm=mm)))
+        specs.append((name, name, run, plain, E * flop * H * H,
+                      nbytes(*(a for a in args if hasattr(a, "numel")), *run())))
+    for name, args, flop in (("edge_bwd_upd", c["upd_args"], 2),
+                             ("edge_bwd_upd_rc", c["upd_rc"], 4)):
+        run = lambda name=name, args=args: getattr(K, name)(*args, g_edge=g0.clone())
+        plain = lambda mm, name=name, args=args: dict(zip(
+            UPD_KEYS, getattr(K, name + "_plain")(*args, g0.clone(), mm=mm)))
+        specs.append((name, name, run, plain, E * flop * H * H, nbytes(*args, g0, *run())))
+    for last in (False, True):
+        args = (la["x"], la["vec"], la["edge"], la["d_sh"], la["dist"], la["adj"], ws[last],
+                CUTOFF, nh, last)
+        flop_f, flop_b = layer_flop(B, A, last, H)
+        run = lambda args=args: FL.vislayer_fwd(*args)
+        plain = lambda mm, args=args: dict(zip(("x2", "vec2", "edge2", "x_agg"),
+                                               FL.vislayer_fwd_plain(*args, mm=mm)))
+        specs.append(("vislayer_fwd", f"vislayer_fwd last={int(last)}", run, plain, flop_f,
+                      nbytes(*args[:6], *ws[last], *run())))
+        # K6 on this mode's K5 x_agg, as the layer runs them
+        bargs = (*args[:7], run()[3], la["gx2"], la["gvec2"], la["gedge2"], CUTOFF, nh, last)
+        run = lambda bargs=bargs: FL.vislayer_bwd(*bargs)
+        plain = lambda mm, bargs=bargs: dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"),
+                                                 FL.vislayer_bwd_plain(*bargs, mm=mm)))
+        specs.append(("vislayer_bwd", f"vislayer_bwd last={int(last)}", run, plain, flop_b,
+                      nbytes(*bargs[:6], *ws[last], *bargs[7:11], *run())))
+    return specs
+
+
+def check_precision_helper(torch, dev, out):
+    """The lone helper (tf32x3_mm) in each mode on phase 3's operands (H =
+    256, K = 256 and 512 over Chignolin's largest batch's edge rows):
+    against its mode's plain model within EDGE_TOL, bitwise repeats, its
+    error against a float64 product beside cuBLAS float32's (allow_tf32 off;
+    ``highest`` within HIGHEST_VS_CUBLAS times it), ms a call by CUDA
+    events."""
+    from ai2bmd_torch.ops import reset_launches
+    from ai2bmd_torch.ops import tf32x3 as T
+
+    gen = torch.Generator().manual_seed(3)
+    rows = 4 * 40 * 40
+    for kd in (H, 2 * H):
+        x = (torch.randn((rows, kd), generator=gen) * 0.3).to(dev)
+        w = (torch.randn((kd, H), generator=gen) * (2.0 / (kd + H)) ** 0.5).to(dev)
+        ref64 = x.double() @ w.double()
+        err = lambda y: float((y.double() - ref64).abs().max())
+        e_32 = err(x @ w)
+        for mode in MODES:
+            set_mm_mode(mode)
+            reset_launches()
+            name = f"tf32x3_mm M={rows} K={kd} N={H} @{mode}"
+            got = T.mm_tf32x3(x, w)
+            e_mode, _ = quiet_compare(name, (got,), {"out": T.plain_mm(mode)(x, w)}, EDGE_TOL)
+            need(torch.equal(got, T.mm_tf32x3(x, w)), f"{name}: two runs differ")
+            e_k = err(got)
+            ms = cuda_ms(torch, lambda: T.mm_tf32x3(x, w), PRECISION_REPS)
+            only_mode(mode, name)
+            print(f"  {name}: vs its plain model {e_mode:.2e}; vs float64 {e_k:.3e} (cuBLAS "
+                  f"float32 {e_32:.3e}, ratio {e_k / e_32:.2f}); bitwise repeatable; "
+                  f"{ms:.4f} ms ({2 * rows * kd * H / ms / 1e9:.1f} TFLOP/s)")
+            if mode == "highest":
+                need(e_k <= HIGHEST_VS_CUBLAS * e_32,
+                     f"{name}: {e_k / e_32:.2f} times cuBLAS float32's error against float64")
+            out[mode].setdefault("tf32x3_mm", {})[f"K={kd}"] = dict(
+                max_abs_err=e_mode, err_vs_f64=e_k, cublas_f32_err_vs_f64=e_32, ms=ms)
+
+
+def bf16_sensitivity(torch, FL, la, ws, nh):
+    """How far a one-ulp change of K6's inputs (x, vec, edge and the
+    cotangents, each element times 1 + s 2^-23, s in {-1, 0, 1} from a seed)
+    moves the plain model in default and in highest: the largest share of
+    the 2^-8 bound and of the rounding's difference (as default_misses takes
+    them), per ``last``.  Printed beside the kernel's readings."""
+    from ai2bmd_torch.ops import tf32x3 as T
+
+    gen = torch.Generator(device=la["x"].device).manual_seed(5)
+    nudge = lambda t: t * (1 + (torch.randint(-1, 2, t.shape, generator=gen,
+                                              device=t.device).float() * 2.0 ** -23))
+    lb = {k: nudge(v) if k in ("x", "vec", "edge", "gx2", "gvec2", "gedge2") else v
+          for k, v in la.items()}
+    out = {}
+    for last in (False, True):
+        run = lambda a, mm: FL.vislayer_bwd_plain(
+            a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], ws[last], None,
+            a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, nh, last, mm=mm)
+        dd, d2, ee, e2 = (run(la, T.mm_bf16_plain), run(lb, T.mm_bf16_plain),
+                          run(la, T.mm_highest_plain), run(lb, T.mm_highest_plain))
+        bound_share = max(float((b - a).abs().max()) / max(1.0, float(a.abs().max())) / 2.0 ** -8
+                          for a, b in zip(dd, d2))
+        rounding_share = max(float((b - a).norm()) / max(float((e - a).norm()), 1e-30)
+                             for a, b, e in zip(dd, d2, ee))
+        exact = max(float((b - a).abs().max()) for a, b in zip(ee, e2))
+        out[f"last={int(last)}"] = dict(bound_share=bound_share, rounding_share=rounding_share,
+                                         highest_max_abs=exact)
+    return out
+
+
+def check_precision_kernels(torch, dev):
+    """Phase 14(a): each kernel with products in each mode at phase 3's
+    shapes (the four lone batches and the three whole molecules at H = 256
+    with 8 heads; heads of 8, 16 and 64 channels at 4 x 40 and 1 x 176):
+    held to its mode's plain model (b3 and highest within EDGE_TOL, default
+    as default_misses says), bitwise repeats, and at 8 heads of 32 channels
+    the ms of a call (CUDA events, which include the host's issue time)
+    beside the mode's bound, at the lone batches also the device ms from a
+    profiler trace while the profiler holds (it fails for the rest of a
+    process once phase 3 has run K7 at A = 752); every launch of a mode
+    from its own library.  At 4 x 40 (32-channel heads) and 1 x 176
+    (64-channel heads) the control: the highest library's outputs against
+    default's plain model must miss for every kernel; at 1 x 176 with
+    64-channel heads also bf16_sensitivity.  Returns {mode: {kernel:
+    figures}}."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import reset_launches
+    from ai2bmd_torch.ops import tf32x3 as T
+    from ai2bmd_torch.ops import vislayer as FL
+    from ai2bmd_torch.ops import vismp as K
+
+    out = {m: {} for m in MODES}
+    out["control"], out["sensitivity"] = {}, {}
+    check_precision_helper(torch, dev, out)
+    gen = torch.Generator().manual_seed(11)
+    cases = ([(B, A, H, NH, "lone") for B, A in SHAPES]
+             + [(B, A, H, NH, f"A={A}") for B, A in WHOLE_SHAPES]
+             + [(B, A, h, nh, None) for h, nh in HEAD_CASES for B, A in HEAD_SHAPES])
+    controls = ((4, 40, H, NH), (1, 176, 256, 4))
+    weights = {}
+    profiled = True
+    for B, A, h, nh, where in cases:
+        if (h, nh) not in weights:
+            p = init_params(ViSNetConfig(hidden_channels=h, num_heads=nh), gen)
+            weights[h, nh] = {last: layer_weights_on(torch, FL, p, gen, last, dev, h, nh)
+                              for last in (False, True)}
+        tag = f"B={B} A={A} H={h} nh={nh}"
+        control = (B, A, h, nh) in controls
+        set_mm_mode("b3")
+        c = edge_case(torch, K, gen, B, A, dev, h, nh)
+        la = layer_inputs(torch, gen, B, A, dev, h)
+        highest_out = {}
+        for mode in MODES:
+            set_mm_mode(mode)
+            reset_launches()
+            mm, line = T.plain_mm(mode), []
+            for name, label, run, plain, flop, nbyte in precision_specs(
+                    torch, K, FL, c, la, weights[h, nh], B, A, h, nh):
+                cell_name = f"{label} {tag} @{mode}"
+                if mode == "default":
+                    ref, exact = plain(mm), plain(T.mm_highest_plain)
+                    misses, err, share = default_misses(cell_name, run(), ref, exact)
+                    need(not misses, f"{cell_name}: " + "; ".join(misses))
+                    if control:
+                        ctl, _, ctl_share = default_misses(cell_name + " (control)",
+                                                           highest_out.pop(label), ref, exact)
+                        need(ctl, f"{cell_name}: the highest library's outputs pass as "
+                                  f"default's (control)")
+                        out["control"].setdefault(name, []).append(
+                            dict(case=tag, label=label, misses=len(ctl), share=ctl_share))
+                    del ref, exact
+                else:
+                    err, share = quiet_compare(cell_name, run(), plain(mm), EDGE_TOL)
+                    if mode == "highest" and control:
+                        highest_out[label] = run()
+                a, b = run(), run()
+                need(all((x is None and y is None) or bool(torch.equal(x, y))
+                         for x, y in zip(a, b)), f"{cell_name}: two runs differ")
+                del a, b
+                res = out[mode].setdefault(name, {"max_abs_err": 0.0})
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                if mode == "default":
+                    res["bf16_share"] = max(res.get("bf16_share", 0.0), share)
+                if where is None:
+                    hw = res.setdefault("head_widths", {})
+                    hw[f"DH={h // nh}"] = max(hw.get(f"DH={h // nh}", 0.0), err)
+                    line.append(f"{label} {err:.1e} ({share:.3f})")
+                    continue
+                ms = cuda_ms(torch, run, PRECISION_REPS)
+                dev_ms = None
+                if where == "lone" and profiled:
+                    dev_ms = device_ms(torch, run, PRECISION_REPS)
+                    profiled = dev_ms is not None
+                t_op, t_by = flop / MODE_PEAK[mode] * 1e3, nbyte / PEAK_BYTES * 1e3
+                cell = res.setdefault(where, {}).setdefault(label, dict(
+                    ms=0.0, device_ms=0.0, bound_ms=0.0, gflop=0.0, mbytes=0.0, ops_ms=0.0,
+                    bytes_ms=0.0))
+                cell["ms"] += ms
+                cell["device_ms"] = (None if dev_ms is None or cell["device_ms"] is None
+                                     else cell["device_ms"] + dev_ms)
+                cell["bound_ms"] += max(t_op, t_by)
+                cell["gflop"] += flop / 1e9
+                cell["mbytes"] += nbyte / 1e6
+                cell["ops_ms" if t_op >= t_by else "bytes_ms"] += max(t_op, t_by)
+                line.append(f"{label} {err:.1e} ({share:.3f}) {ms:.4f} ms")
+            out[mode].setdefault("launches", {})[tag] = only_mode(mode, tag)
+            what = ("max|d| against its plain model (share of the EDGE_TOL bound)"
+                    if mode != "default" else
+                    "max|d| against its plain model (largest share of the rounding's "
+                    "difference beyond EDGE_TOL)")
+            print(f"  {tag} @{mode} ({what}{'' if where is None else ', ms a call'}): "
+                  + "; ".join(line))
+        if control:
+            print(f"  {tag} control, the highest library against default's plain model (outputs "
+                  f"that miss; largest share of the rounding's difference): " + "; ".join(
+                      f"{r['label']} {r['misses']} ({r['share']:.3f})"
+                      for name, rows in out["control"].items() for r in rows if r["case"] == tag))
+        if h // nh == 64 and A == 176:
+            sens = out["sensitivity"][tag] = bf16_sensitivity(torch, FL, la, weights[h, nh], nh)
+            print(f"  {tag}: a one-ulp change of K6's inputs moves default's plain model by "
+                  + ", ".join(f"{k} {v['bound_share']:.3f} of the 2^-8 bound and "
+                              f"{v['rounding_share']:.4f} of the rounding's difference"
+                              for k, v in sens.items())
+                  + "; highest's by " + ", ".join(f"{k} {v['highest_max_abs']:.2e}"
+                                                 for k, v in sens.items()))
+        del c, la, highest_out
+        torch.cuda.empty_cache()
+    set_mm_mode("b3")
+    for mode in MODES:
+        for res in out[mode].values():
+            for where in [w for w in res if w == "lone" or w.startswith("A=")]:
+                for cell in res[where].values():
+                    cell["bound_by"] = ("operations" if cell.pop("ops_ms") >= cell.pop("bytes_ms")
+                                        else "bytes")
+    print(f"  ms a call summed over the four lone batches (H = 256, 8 heads), device (profiler) "
+          f"/ events, each beside its mode's bound ("
+          + "; ".join(f"{m}: {MODE_UNIT[m]}" for m in MODES) + ") and, for highest and "
+          f"default, the design's estimate: the mode's bound at b3's share of its own:")
+    for name in KERNELS:
+        if name == "cap_grad":
+            continue
+        for label in sorted(out["b3"][name]["lone"]):
+            cells = {m: out[m][name]["lone"][label] for m in MODES}
+            b3 = cells["b3"]
+            b3_ms = b3["device_ms"] if b3["device_ms"] is not None else b3["ms"]
+            for m in ("highest", "default"):
+                cells[m]["design_ms"] = cells[m]["bound_ms"] * b3_ms / b3["bound_ms"]
+            print(f"    {label:28s} " + ", ".join(
+                f"{m} {fmt_ms(cells[m]['device_ms'])} / {cells[m]['ms']:.4f} (bound "
+                f"{cells[m]['bound_ms']:.4f}, {cells[m]['bound_by']}"
+                + (f"; estimate {cells[m]['design_ms']:.4f}" if m != "b3" else "") + ")"
+                for m in MODES))
+    return out
+
+
+def run_precision_step(torch, dev, prot, card, ref):
+    """Phase 14(b): the lone Chignolin step at 9 x 256 (phase 4's weights)
+    in each mode: cold caps and step 0 with the launch counters reset just
+    before (every launch from the mode's library), step 0 against the CPU
+    float64 run (``ref``, phase 4's; made here when None), the step captured
+    by GraphedLangevin, TIMED_STEPS replays timed by CUDA events, a profiled
+    window (kernels per step).  ``b3`` and ``highest`` fail above
+    FORCE_LIMIT; ``default`` is printed beside it."""
+    from ai2bmd_torch.md import GraphedLangevin
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.ops import reset_launches
+
+    out = {}
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
+    coeffs = L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device=dev)
+    for mode in MODES:
+        set_mm_mode(mode)
+        print(f"  the lone step @{mode}")
+        pot, cfg, params = build_potential(torch, dev, prot, fused=False)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        reset_launches()
+        aux0 = pot.init_cap_delta(P)
+        e0, f0, aux1 = pot.stateful_energy_forces(P, aux0)
+        if ref is None:
+            ref = slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1)
+        need(torch.equal(aux1, ref["aux1"]), f"{mode}: warm caps differ from the reference's "
+                                             f"(K4 has no product and no mode)")
+        dF, dF_fix = step0_errors(torch, pot, cfg, P, e0, f0, ref)
+        state = L.MDState(P, L.maxwell_boltzmann_velocities(gen, prot.masses, 300.0), f0, e0,
+                          aux=aux1)
+        graphed = GraphedLangevin(pot.stateful_energy_forces, coeffs, masses, state, gen)
+        launches = only_mode(mode, "the lone step (cold caps, step 0, warm-up and capture)")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            graphed.run(1)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / TIMED_STEPS
+        s = graphed.state
+        need(bool(s.positions.isfinite().all() and s.forces.isfinite().all()),
+             f"{mode}: non-finite positions or forces in the graphed run")
+        prof = profile_steps(torch, lambda _: graphed.run(1), None,
+                             label=f"replayed steps @{mode}")
+        limit = PRECISION_STEP_LIMIT[mode]
+        print(f"  @{mode}: graphed {ms:.3f} ms/step (CUDA events, {TIMED_STEPS} replays), "
+              f"{prof['kernels_per_step']:.0f} kernels per step; step 0 max|dF| {dF:.3e}, fixed "
+              f"caps {dF_fix:.3e} eV/A against CPU float64 "
+              f"({'limit' if limit else 'printed beside'} {FORCE_LIMIT}); launches {launches} "
+              f"({card})")
+        if limit is not None:
+            need(dF <= limit and dF_fix <= limit,
+                 f"{mode}: step-0 forces differ from float64 by {dF:.3e} / {dF_fix:.3e}")
+        out[mode] = dict(ms_step=ms, kernels_per_step=prof["kernels_per_step"],
+                         busy_share=prof["busy_share"], dF=dF, dF_fix=dF_fix, launches=launches)
+        del pot, graphed, state, s
+        torch.cuda.empty_cache()
+    set_mm_mode("b3")
+    return out
+
+
+def run_precision_cli(torch, root):
+    """Phase 14(c): ``python -m ai2bmd_torch --matmul-precision`` float32,
+    tensorfloat32 and bfloat16 side by side on Chignolin (9 x 256, random
+    weights from the seed), one step at TIMING_DT_FS recorded: each prints
+    the precision it set, and the forces of its restart file (after one
+    step from the same state; the positions part by ~dt^2 |dF| / m) against
+    float32's, printed beside FORCE_LIMIT."""
+    import numpy as np
+
+    from ai2bmd_torch.utils.device import MATMUL_PRECISIONS as CLI_PRECISIONS
+
+    d = lambda p: os.path.join(root, f"precision_{p}")
+    t0 = time.perf_counter()
+    procs = {p: _cli_start(_cli_cmd(d(p), "--preeq-steps", "0", "--sim-steps", "1",
+                                    "--record-per-steps", "1", "--timestep", str(TIMING_DT_FS),
+                                    "--matmul-precision", p))
+             for p in CLI_PRECISIONS}
+    outs = {p: _cli_wait(f"--matmul-precision {p}", proc) for p, proc in procs.items()}
+    forces = {}
+    for p, txt in outs.items():
+        want = f"--matmul-precision {p} -> torch float32 matmul precision '{CLI_PRECISIONS[p]}'"
+        need(want in txt, f"the CLI did not print {want!r}")
+        with np.load(os.path.join(d(p), "chig-restart.npz")) as z:
+            forces[p] = z["forces"].astype(np.float64)
+    out = {}
+    for p in CLI_PRECISIONS:
+        if p != "float32":
+            out[p] = float(np.abs(forces[p] - forces["float32"]).max())
+            print(f"  CLI --matmul-precision {p}: prints torch's {CLI_PRECISIONS[p]!r}; forces "
+                  f"after one step against float32's max|dF| {out[p]:.3e} eV/A (printed beside "
+                  f"{FORCE_LIMIT})")
+    print(f"  the three CLI runs took {time.perf_counter() - t0:.1f} s side by side")
+    return out
+
+
+def cublas_medium_vs_high(torch, dev):
+    """torch's float32 matmul precision on the card: cuBLAS float32 products
+    of edge-row operands under "highest", "high" and "medium", each against
+    float64, and whether "medium" gives "high"'s bits (it did not run a
+    bfloat16 pass for float32 operands: --matmul-precision bfloat16 is TF32
+    on the card)."""
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randn((6400, H), generator=gen) * 0.3).to(dev)
+    w = (torch.randn((H, 2 * H), generator=gen) * 0.06).to(dev)
+    ref = x.double() @ w.double()
+    y = {}
+    try:
+        for prec in ("highest", "high", "medium"):
+            torch.set_float32_matmul_precision(prec)
+            y[prec] = x @ w
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    err = {p: float((v.double() - ref).abs().max()) for p, v in y.items()}
+    same = bool(torch.equal(y["medium"], y["high"]))
+    one_bf16 = float(((x.to(torch.bfloat16).double() @ w.to(torch.bfloat16).double())
+                      - ref).abs().max())
+    print(f"  cuBLAS float32 [6400, {H}] @ [{H}, {2 * H}] against float64: highest "
+          f"{err['highest']:.3e}, high {err['high']:.3e}, medium {err['medium']:.3e} (one bf16 pass would be "
+          f"{one_bf16:.3e}); medium bitwise equal to high: {same}")
+    return dict(err=err, medium_equals_high=same, one_bf16_pass_err=one_bf16)
+
+
+def run_precision(torch, dev, prot, card, root, ref=None):
+    """Phase 14: (a) the kernels in each mode, (b) the lone graphed step in
+    each mode, (c) the CLI's --matmul-precision and cuBLAS under torch's
+    precisions; (d), the per-mode launch counters, in (a) and (b)."""
+    from ai2bmd_torch.ops import _build
+
+    t0 = time.perf_counter()
+    for mode in MODES:
+        _build.library(mode)
+        print(f"  the {mode} library: {_build.BUILD_INFO['path']} (nvcc "
+              f"{_build.BUILD_INFO['seconds']:.1f} s, cached {_build.BUILD_INFO['cached']})")
+    print("  (a) K1-K3, K5-K8 and the lone helper in each mode against its plain model")
+    kernels = check_precision_kernels(torch, dev)
+    print("  (b) the lone graphed step (Chignolin, 9 x 256) in each mode")
+    step = run_precision_step(torch, dev, prot, card, ref)
+    print("  (c) the CLI's --matmul-precision; cuBLAS under torch's float32 matmul precisions")
+    cli = run_precision_cli(torch, root)
+    cublas = cublas_medium_vs_high(torch, dev)
+    print(f"  phase 14 took {time.perf_counter() - t0:.1f} s ({card})")
+    return dict(kernels=kernels, step=step, cli=cli, cublas=cublas)
+
+
+def precision_entry(p14, name):
+    """A kernel's figures of phase 14 for the kernels line, by mode: the main
+    variant's ms over the four lone batches and at A = 176 with their
+    bounds, the largest error against the mode's plain model, the head
+    widths', and in default the largest share of the rounding's difference
+    (default_misses)."""
+    out = {}
+    for mode in MODES:
+        res = p14["kernels"][mode][name]
+        label = MAIN_VARIANT.get(name, name)
+        lone, whole = res["lone"][label], res["A=176"][label]
+        out[mode] = dict(ms=lone["ms"], device_ms=lone["device_ms"], bound_ms=lone["bound_ms"],
+                         bound_by=lone["bound_by"],
+                         gflop=lone["gflop"], mbytes=lone["mbytes"], max_abs_err=res["max_abs_err"],
+                         head_widths=res["head_widths"], whole_molecule_A176_ms=whole["ms"],
+                         whole_molecule_A176_bound_ms=whole["bound_ms"], bound_peak=MODE_UNIT[mode],
+                         step_ms=p14["step"][mode]["ms_step"], design_ms=lone.get("design_ms"))
+        if mode == "default":
+            out[mode]["bf16_share"] = res["bf16_share"]
+    return out
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -3671,6 +4264,10 @@ def main(argv=None):
                     help="after the build, run only phase 13 (the dp x mp mesh: ShardedPotential, "
                          "EnsembleSimulation and ReplicaEnsemble in a world of one NCCL rank and "
                          "of two gloo ranks sharing the card), without the final line")
+    ap.add_argument("--precision-only", action="store_true",
+                    help="after the build, run only phase 14 (the kernels, the lone step and the "
+                         "CLI under each products' mode and --matmul-precision), without the "
+                         "final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
@@ -3723,6 +4320,11 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.precision_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 14. the products' modes and --matmul-precision (alone)")
+        run_precision(torch, dev, load_protein(example_pdb("chig")), card, root)
         return
     if args.mesh_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -3814,6 +4416,11 @@ def main(argv=None):
           "two ranks sharing the card")
     mesh_launches = run_mesh(torch, dev, prot, card, root)
     no_plain("13")
+    print("== 14. the products' modes (AI2BMD_KERNEL_MM_PRECISION b3, highest, default): each "
+          "kernel against its mode's plain model, the lone graphed step in each mode; the CLI's "
+          "--matmul-precision")
+    p14 = run_precision(torch, dev, prot, card, root, ref)
+    no_plain("14")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -3846,7 +4453,10 @@ def main(argv=None):
         need(k["amoeba_md_launches"] == 0, f"phase 12 launched {k['name']}")
     for k in kernels:      # phase 13(b): rank 0's launches a warm evaluation, by mesh
         k["mesh_launches"] = {mesh: warm.get(k["name"], 0) for mesh, warm in mesh_launches.items()}
-    print("== 14. results")
+    for k in kernels:      # phase 14: by products' mode
+        if k["name"] != "cap_grad":
+            k["precision_modes"] = precision_entry(p14, k["name"])
+    print("== 15. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -3861,7 +4471,9 @@ def main(argv=None):
           f"(events) nl {p11['nl']['ms_events']:.3f}, hybrid {p11['pol']['ms_events']:.3f}, "
           f"AMOEBA {p11['amoeba']['ms_events']:.3f}; AMOEBA preprocessing "
           f"{p12['wall_s']:.2f} s ({AMOEBA_MAX_CYC} cycles, {p12['cycle_ms']:.3f} ms a captured "
-          f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; "
+          f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; the lone step graphed (events) by "
+          f"products' mode " + ", ".join(f"{m} {p14['step'][m]['ms_step']:.3f}" for m in MODES)
+          + "; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -43,6 +43,25 @@ CLI_TINY = ["--device", "cpu", "--model-preset", "tiny", "--timestep", "0.25"]
 
 
 @pytest.fixture(autouse=True)
+def restore_precision():
+    """Put back the process-wide matmul precision, the chosen
+    --matmul-precision and the kernels' mode after each test (every CLI run
+    sets the first two; torch's CPU matmul takes "medium" as bfloat16 where
+    the CPU has bfloat16 instructions, and an xdist worker runs many
+    files)."""
+    from ai2bmd_torch.ops import _build
+    from ai2bmd_torch.utils import device
+
+    saved = (torch.get_float32_matmul_precision(), device.chosen_matmul_precision(),
+             torch.backends.cudnn.allow_tf32, _build.MM_MODE)
+    yield
+    torch.set_float32_matmul_precision(saved[0])
+    device._chosen = saved[1]
+    torch.backends.cudnn.allow_tf32 = saved[2]
+    _build.MM_MODE = saved[3]
+
+
+@pytest.fixture(autouse=True)
 def one_thread():
     """One torch thread for every test here (see test_torch_qmmm.py's): under
     pytest-xdist the workers share the cores."""
@@ -71,10 +90,25 @@ def test_parser_has_every_jax_option_with_its_default_and_choices():
     assert dev.default == "cuda" and dev.choices == ["cuda", "cpu"]
 
 
-def test_matmul_precision_other_than_float32_is_a_parser_error(capsys):
-    with pytest.raises(SystemExit) as exc:
-        TCLI.main(["--prot-file", "x.pdb", "--device", "cpu", "--matmul-precision", "bfloat16"])
-    assert exc.value.code == 2 and "float32 only" in capsys.readouterr().err
+def test_matmul_precision_other_than_float32_is_a_parser_error(monkeypatch, tmp_path, capsys):
+    """The refusal this test held became a route (its name is the old
+    one's): each --matmul-precision value reaches
+    torch.get_float32_matmul_precision() before the run starts, and the
+    line the CLI prints into its log names both."""
+    seen = []
+    monkeypatch.setattr(TCLI, "_run", lambda *a, **k: seen.append(
+        torch.get_float32_matmul_precision()) or 0)
+    for value, name in (("float32", "highest"), ("tensorfloat32", "high"),
+                        ("bfloat16", "medium")):
+        log_dir = tmp_path / value
+        assert TCLI.main(["--prot-file", "x.pdb", "--device", "cpu", "--log-dir", str(log_dir),
+                          "--matmul-precision", value]) == 0
+        assert seen[-1] == name
+        line = (f"matmul precision: --matmul-precision {value} -> torch float32 matmul "
+                f"precision {name!r}; kernel products b3 (AI2BMD_KERNEL_MM_PRECISION)")
+        assert line in capsys.readouterr().out
+        logs = [f for f in os.listdir(log_dir) if f.endswith(".log")]
+        assert len(logs) == 1 and line in (log_dir / logs[0]).read_text()
 
 
 def test_protein_simulation_matches_jax(monkeypatch, tmp_path):

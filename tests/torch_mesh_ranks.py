@@ -1,4 +1,5 @@
-"""Rank programs of tests/test_torch_parallel.py and tests/test_torch_mesh.py.
+"""Rank programs of tests/test_torch_parallel.py, tests/test_torch_mesh.py and
+tests/test_torch_precision.py.
 
 A spawned rank imports the module of its function afresh, and
 tests/conftest.py imports JAX, so the functions the ranks run live here, in
@@ -118,3 +119,16 @@ def world_of_four(rank, jparams) -> dict:
     out["local_positions"] = state.positions
     out["dp"] = mesh.get_local_rank("dp")
     return out
+
+
+def precision_of_a_rank(rank) -> dict:
+    """What a spawned rank runs its products at: torch's float32 matmul
+    precision, the --matmul-precision value it was given, the kernels' mode,
+    and the mode's plain product of two fixed operands."""
+    from ai2bmd_torch.ops import _build, tf32x3, vismp  # noqa: F401  (vismp reads the mode)
+    from ai2bmd_torch.utils.device import chosen_matmul_precision
+
+    x = torch.linspace(-1.0, 1.0, 64).reshape(8, 8) / 3.0
+    return dict(rank=rank.rank, torch=torch.get_float32_matmul_precision(),
+                chosen=chosen_matmul_precision(), mode=_build.MM_MODE,
+                product=tf32x3.plain_mm()(x, x.T))
