@@ -271,6 +271,8 @@ def _run(args, device, prot_name: str, log_dir: str, log, log_path: str | None =
 
 def _model_line(cfg, device) -> str:
     """The model and the kernels its layers run on ``device``."""
+    from ai2bmd_torch.ops.vismp import narrow_shapes, narrow_update
+
     if device.type != "cuda":
         path = "plain versions on the CPU"
     elif cfg.plain_edge_core:
@@ -279,6 +281,11 @@ def _model_line(cfg, device) -> str:
         path = "full-layer kernels K5/K6"
     else:
         path = "edge-core kernels K1, K7/K8 (remat)" if cfg.remat else "edge-core kernels K1-K3"
+        heads, update = (["K1", "K7"], ["K8"]) if cfg.remat else (["K1", "K2"], ["K3"])
+        wide = ([] if narrow_shapes(cfg.hidden_channels, cfg.num_heads) else heads) \
+            + ([] if narrow_update(cfg.hidden_channels) else update)
+        if wide:
+            path += f" (wide instantiations: {', '.join(wide)})"
     return (f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} heads: "
             f"{path}")
 

@@ -26,8 +26,10 @@ A model on the card with another activation than silu runs every edge core
 through its plain version, on the card, as the JAX package sends such a
 model to jnp: ``resolve_config`` sets ``plain_edge_core`` once when the
 model is configured and logs the reason; each such call on CUDA tensors adds
-one to ``LAUNCHES["plain_edge_core"]``.  A silu model of shapes the kernels
-do not take (H > 256, S > 8) is refused on the card when it is configured.
+one to ``LAUNCHES["plain_edge_core"]``.  A silu model of shapes the edge
+kernels do not take (H > 1024, S > 8) is refused on the card when it is
+configured, and so is one that asks for the full-layer kernels outside
+their narrower domain (``ops.vismp.unsupported_layer_shapes``).
 
 Not ported (options of the JAX config that no production path sets):
 ``exact_rejection``, ``edge_dtype``, and the switches ``fused`` and the
@@ -40,15 +42,18 @@ import dataclasses
 import logging
 import math
 import os
+import weakref
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ai2bmd_torch.models import params as PM
 from ai2bmd_torch.ops import vislayer as FL
-from ai2bmd_torch.ops.vismp import (_ACTS, cosine_cutoff, edge_core, plain_activations,
-                                    unsupported_shapes)
+from ai2bmd_torch.ops.vismp import (_ACTS, cosine_cutoff, edge_core, padded_weight,
+                                    plain_activations, unsupported_layer_shapes,
+                                    unsupported_shapes, wide_width)
 
 __all__ = [
     "ViSNet", "ViSNetConfig", "atomwise_energy", "cosine_cutoff", "dense_graph",
@@ -111,9 +116,12 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     plain_activations``) gets the explicit plain route instead
     (``plain_edge_core``), with one logged line naming the reason; a silu
     model of shapes the kernels do not take raises here, once, naming
-    ROADMAP.md Queue 2.  A config with ``fused_layer`` already set, or a
-    model on the CPU, is returned as it is; H not a multiple of the head
-    count raises."""
+    ROADMAP.md Queue 2, and so does a model that asks for K5/K6
+    (``fused_layer`` or ``AI2BMD_FUSED_LAYER=1``) at shapes they do not take
+    (heads of other than 8, 16, 32 or 64 channels, H past 256): it never
+    falls back to K1-K3 or the plain edge core.  A config with
+    ``fused_layer`` already set, or a model on the CPU, is returned as it
+    is; H not a multiple of the head count raises."""
     if cfg.hidden_channels % cfg.num_heads:
         raise ValueError(f"hidden_channels={cfg.hidden_channels} is not a multiple of "
                          f"num_heads={cfg.num_heads}")
@@ -130,11 +138,14 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     if shapes is not None:
         raise ValueError(f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} "
                          f"heads on the card: {shapes}")
-    if cfg.fused_layer:
+    if not cfg.fused_layer and os.environ.get("AI2BMD_FUSED_LAYER") != "1":
         return cfg
-    if os.environ.get("AI2BMD_FUSED_LAYER") == "1":
-        return dataclasses.replace(cfg, fused_layer=True)
-    return cfg
+    layer = unsupported_layer_shapes(cfg.hidden_channels, cfg.num_heads, cfg.n_sphere)
+    if layer is not None:
+        raise ValueError(f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} "
+                         f"heads on the card with the full-layer kernels (fused_layer or "
+                         f"AI2BMD_FUSED_LAYER=1): {layer}")
+    return cfg if cfg.fused_layer else dataclasses.replace(cfg, fused_layer=True)
 
 
 def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -235,6 +246,27 @@ def dense_graph(pos: torch.Tensor, mask: torch.Tensor, cfg: ViSNetConfig):
     return adj, adj_ns, dist, spherical_harmonics(vec * inv, cfg.lmax)
 
 
+# A layer's edge-core weights zero-padded for the wide kernels (H % 32 != 0),
+# keyed on its s_proj weight: made at the first evaluation on the card and
+# kept while the layer's weights are the same tensors at the same versions,
+# so a graphed step replays no padding.
+_PADDED = WeakIdKeyDictionary()
+
+
+def _padded_edge_weights(lp: dict, H: int, last: bool):
+    """(W_dkv, W_s, W_f or None) of one layer as the wide kernels read them
+    (``ops.vismp.padded_weight``), padded once per model."""
+    src = tuple(lp[k]["w"] for k in ("dk_proj", "dv_proj", "s_proj")
+                + (() if last else ("f_proj",)))
+    hit = _PADDED.get(src[2])
+    if hit is None or len(hit[0]) != len(src) or any(
+            r() is not t or u != t._version for (r, u), t in zip(hit[0], src)):
+        w = (padded_weight(torch.cat(src[:2], dim=1), H, 2), padded_weight(src[2], H, 2),
+             None if last else padded_weight(src[3], H))
+        hit = _PADDED[src[2]] = ([(weakref.ref(t), t._version) for t in src], w)
+    return hit[1]
+
+
 def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConfig,
                  last: bool):
     """One ViS_MP update (reference visnet_block.py:237-312).
@@ -249,8 +281,12 @@ def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConf
     w_qkv = torch.cat([lp["q_proj"]["w"], lp["k_proj"]["w"], lp["v_proj"]["w"]], dim=1)
     b_qkv = torch.cat([lp["q_proj"]["b"], lp["k_proj"]["b"], lp["v_proj"]["b"]])
     q, k, v = (x @ w_qkv + b_qkv).split(H, dim=-1)
-    w_dkv = torch.cat([lp["dk_proj"]["w"], lp["dv_proj"]["w"]], dim=1)
     b_dkv = torch.cat([lp["dk_proj"]["b"], lp["dv_proj"]["b"]])
+    if x.is_cuda and not cfg.plain_edge_core and wide_width(H) != H:
+        w_dkv, w_s, w_f = _padded_edge_weights(lp, H, last)
+    else:
+        w_dkv = torch.cat([lp["dk_proj"]["w"], lp["dv_proj"]["w"]], dim=1)
+        w_s, w_f = lp["s_proj"]["w"], None if last else lp["f_proj"]["w"]
 
     vec1, vec2, vec3 = _linear(lp["vec_proj"], vec).split(H, dim=-1)
     vec_dot = (vec1 * vec2).sum(-2)                        # [B,A,H]
@@ -260,10 +296,10 @@ def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConf
         # edge update: silu(f_proj(edge)) * <W_trg vec_i, W_src vec_j>_c * adj
         # (the vector rejections' |d_sh|^2 - 2 correction vanishes)
         upd = dict(wt=_linear(lp["w_trg_proj"], vec), wsrc=_linear(lp["w_src_proj"], vec),
-                   w_f=lp["f_proj"]["w"], b_f=lp["f_proj"]["b"])
+                   w_f=w_f, b_f=lp["f_proj"]["b"])
     x_agg, vec_agg, df = edge_core(
         q, k, v, vec, edge_attr, d_sh, dist, adj_f, w_dkv, b_dkv,
-        lp["s_proj"]["w"], lp["s_proj"]["b"], cfg.cutoff, nh,
+        w_s, lp["s_proj"]["b"], cfg.cutoff, nh,
         act=cfg.activation, attn_act=cfg.attn_activation, recompute=cfg.remat,
         plain=cfg.plain_edge_core, **upd,
     )

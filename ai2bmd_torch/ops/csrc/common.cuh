@@ -386,6 +386,152 @@ __device__ __forceinline__ void mma_rows_times_cols(const float* X, int ldx, int
 }
 
 // ---------------------------------------------------------------------------
+// The wide instantiations of the edge kernels
+// ---------------------------------------------------------------------------
+//
+// K1-K3, K7 and K8 have two instantiations each.  The narrow one (above:
+// one thread a channel, head_sum<DH> on a warp's lanes, sources in chunks
+// of ECHUNK) takes heads of 8, 16, 32 or 64 channels with H a multiple of
+// 32 up to 256.  The wide one takes every other H up to WIDE_MAXH and every
+// head count that divides it:
+// - channels are padded to Hp, the next multiple of 32: the shared rows
+//   load zeros past H, the wrappers (ops/vismp.py) hand the kernels their
+//   weights zero-padded to Hp (per half), so a padded channel adds nothing
+//   to a product and no kernel writes one out;
+// - at most 256 threads a block, each owning the channels t, t + 256, ...
+//   (a loop over channels inside each pass, so per-channel registers live
+//   for one channel at a time);
+// - the products are `mma_tiles`: mma_rows_times_cols's k-steps, each warp
+//   looping over its 32-column tiles, into a buffer other than its rows;
+// - a head sums its DH channels in order, one (row, head) a thread, from
+//   shared memory (`block_head_sums`), between block barriers;
+// - a source chunk holds as many rows as fit in half an SM's shared memory
+//   (`wide_chunk`), a multiple of 8 up to ECHUNK.
+// Every sum runs in a fixed order: bitwise repeatable, and K7/K8's
+// recomputed pre-activations equal K1's stash, as in the narrow kernels.
+constexpr int WIDE_MAXH = 1024;
+// two blocks an SM: half of the 227 KB, less the 1 KB each block reserves
+constexpr size_t WIDE_SMEM_BUDGET = 232448 / 2 - 1024;
+constexpr size_t SMEM_MAX = 232448;
+
+// Which instantiation a launcher takes, one predicate a kernel family
+// (``narrow_shapes`` / ``narrow_update`` in ops/vismp.py): K1, K2 and K7
+// sum heads, so their narrow instantiations take nh heads of 8, 16, 32 or
+// 64 channels with H a multiple of 32 up to 256; K3 and K8 sum no head, so
+// theirs take every H a multiple of 32 up to 256.
+inline bool narrow_update(int H) { return H % 32 == 0 && H <= 256; }
+
+inline bool narrow_shapes(int H, int nh) {
+  if (nh <= 0 || H % nh) return false;
+  const int dh = H / nh;
+  return narrow_update(H) && (dh == 8 || dh == 16 || dh == 32 || dh == 64);
+}
+
+// H rounded up to a multiple of 32: the wide kernels' padded width.
+__host__ __device__ __forceinline__ int wide_width(int H) { return (H + 31) / 32 * 32; }
+
+// The threads of a wide block: one a channel of Hp, at most 256.
+inline int wide_threads(int H) { return wide_width(H) < 256 ? wide_width(H) : 256; }
+
+// Rows of a wide kernel's source chunk for row_bytes of shared memory a row
+// and fixed bytes besides: as many as fit in WIDE_SMEM_BUDGET, a multiple
+// of RCHUNK, from RCHUNK up to ECHUNK.
+inline int wide_chunk(size_t row_bytes, size_t fixed = 0) {
+  const size_t fit = WIDE_SMEM_BUDGET > fixed ? (WIDE_SMEM_BUDGET - fixed) / row_bytes : 0;
+  const int n = (int)(fit < (size_t)ECHUNK ? fit : (size_t)ECHUNK) / RCHUNK * RCHUNK;
+  return n < RCHUNK ? RCHUNK : n;
+}
+
+// Copy A rows of H floats (device memory, dense) into shared memory at row
+// stride ld, zero-padded to Hp columns, a float a thread.
+__device__ __forceinline__ void load_rows_padded(float* __restrict__ dst, int ld,
+                                                 const float* __restrict__ src, int A, int H,
+                                                 int Hp) {
+  for (int x = threadIdx.x; x < A * Hp; x += blockDim.x) {
+    const int r = x / Hp, c = x - r * Hp;
+    dst[r * ld + c] = c < H ? src[(size_t)r * H + c] : 0.0f;
+  }
+}
+
+// out[r][n] = sum_k X[r][k] * W[k][col0 + n] for r < A and n < N (N % 32 ==
+// 0), stored for n < nout only.  As mma_rows_times_cols (the same k-steps,
+// so equal X and W give equal bits), but warp w takes the 32-column tiles
+// w, w + warps, ... in turn, so N may exceed 32 warps; out must not alias
+// X.  Every thread of the block calls it: it synchronises the block when it
+// starts (X is written) and when it ends (out is written).
+template <int MAXR = MAXA>
+__device__ __forceinline__ void mma_tiles(const float* X, int ldx, int A, int K,
+                                          const float* __restrict__ W, int ldw, int col0, int N,
+                                          float* out, int ldo, int nout) {
+  constexpr int NT = MAXR / RCHUNK;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  __syncthreads();  // X is written
+  for (int n0 = 32 * (threadIdx.x >> 5); n0 < N; n0 += 32 * (blockDim.x >> 5)) {
+    const float* Wq = W + (size_t)q * ldw + col0 + n0 + g;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
+    float fa[2][4], fb[2][4];
+    load_w_frags(fa, Wq, ldw);
+    load_w_frags(fb, Wq + 8 * (size_t)ldw, ldw);
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      mma_k_step<MAXR>(acc, fa, X, ldx, A, k0, K, Wq, ldw, g, q);
+      mma_k_step<MAXR>(acc, fb, X, ldx, A, k0 + 8, K, Wq, ldw, g, q);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * RCHUNK < A) {
+        float* o = out + (size_t)(nt * RCHUNK + 2 * q) * ldo;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int c = n0 + g + 16 * mt + 8 * half;
+            if (c < nout) {
+              o[c] = acc[mt][nt][2 * half];
+              o[ldo + c] = acc[mt][nt][2 * half + 1];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // out is written
+}
+
+// out[r][h] = sum_j p[r][h dh + j] over j = 0 .. dh - 1 in order, for r < n
+// and h < nh: the attention head sums of the wide kernels, one (row, head)
+// a thread.  Every thread of the block calls it: it synchronises the block
+// when it starts (p is written) and when it ends (out is written).
+__device__ __forceinline__ void block_head_sums(const float* p, int ldp, int n, int nh, int dh,
+                                                float* out) {
+  __syncthreads();
+  for (int x = threadIdx.x; x < n * nh; x += blockDim.x) {
+    const int r = x / nh, h = x - r * nh;
+    const float* pr = p + r * ldp + h * dh;
+    float s = 0.0f;
+    for (int j = 0; j < dh; ++j) s += pr[j];
+    out[x] = s;
+  }
+  __syncthreads();
+}
+
+// The terms of the attention pre-activation a_ij = sum_head q_i k_j dk,
+// dk = silu(zk), and the message v_ij = v_j dv silu(a) gate, dv = silu(zv):
+// one expression each for K1 and K2/K7's wide instantiations, so that K2
+// and K7 rebuild K1's values bitwise.
+__device__ __forceinline__ float head_term(float qi, float kr, float zk) {
+  return qi * kr * silu(zk);
+}
+__device__ __forceinline__ float edge_message(float vr, float zv, float a, float gate) {
+  return vr * silu(zv) * (silu(a) * gate);
+}
+
+// ---------------------------------------------------------------------------
 // The row tile
 // ---------------------------------------------------------------------------
 

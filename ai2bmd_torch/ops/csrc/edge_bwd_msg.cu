@@ -283,14 +283,226 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
   }
 }
 
-// Pass 2: one block per (fragment, source atom j); fixed-order sums over i.
+// The wide instantiation (common.cuh: every H up to WIDE_MAXH and every
+// head count), one block per (fragment, centre atom i) of wide_threads(H)
+// threads, each looping over its channels in every pass; the head sums go
+// through shared memory (block_head_sums) and each product (mma_tiles)
+// into a buffer other than its rows.  Shared memory, for one chunk of CH
+// rows (wide_chunk): sE [CH][Hp + 4], sW [CH][2 Hp + 4], the reduction
+// buffers, sA and sG [CH][nh].  K7 passes zk and zv from its recompute to
+// the attention chain through the g_k and g_v scratch, which the chain
+// then overwrites element by element (the same thread reads and writes
+// each).  Per chunk:
+//   head terms q_i k_j dk -> sW's first half (K7: from zdkv = edge @ W_dkv
+//     + b_dkv, computed into sW), summed by head into sA;
+//   K7: v_ij over the edge rows in sE, zs = v_ij @ W_s + b_s into sW;
+//   g_s in sW in place (from sW, or K2's stash), g_d_sh's per-warp sums;
+//   g_vij = g_s @ W_s^T into sE;
+//   the attention chain in two passes around the head sums of g_g3 * gate
+//     (sW's first half -> sG): g_v's terms, g_dist's sums and g_dv, then
+//     g_a, g_q, g_k's terms and g_dk, g_dkv in sW;
+//   g_edge = g_dkv @ W_dkv^T to device memory.
+// The padded columns of sW stay 0 (zeroed when the kernel starts, or a
+// product of zero-padded weights), since g_vij and g_edge read them.
+static size_t msg_wide_row_bytes(int H, int S, int nh) {
+  const int Hp = wide_width(H), NW = wide_threads(H) / 32;
+  return (size_t)(mma_ld(Hp) + mma_ld(2 * Hp) + S + 3 + NW + NW * S + 2 * nh) * sizeof(float);
+}
+
 template <bool RC>
+__global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ vec, const float* __restrict__ zdkv,
+    const float* __restrict__ zs, const float* __restrict__ edge,
+    const float* __restrict__ wdkv, const float* __restrict__ bdkv,
+    const float* __restrict__ ws, const float* __restrict__ bs,
+    const float* __restrict__ dsh, const float* __restrict__ dist,
+    const float* __restrict__ adj, const float* __restrict__ wdkvT,
+    const float* __restrict__ wsT, const float* __restrict__ gx,
+    const float* __restrict__ gva, float* __restrict__ gq, float* __restrict__ gedge,
+    float* __restrict__ gdsh, float* __restrict__ gdist, float* __restrict__ gk_e,
+    float* __restrict__ gv_e, float* __restrict__ s1_e, int A, int H, int S, int nh, int CH,
+    float cutoff) {
+  extern __shared__ __align__(16) float smem[];
+  const int NW = blockDim.x / 32, Hp = wide_width(H), DH = H / nh;
+  const int ld = mma_ld(Hp), ldw = mma_ld(2 * Hp);
+  float* sE = smem;                     // [CH][ld]  K7: edge rows, then v_ij; then g_vij
+  float* sW = sE + CH * ld;             // [CH][ldw] head terms, (zs ->) g_s, g_dkv
+  float* sDsh = sW + CH * ldw;          // [CH][S]
+  float* sAdj = sDsh + CH * S;          // [CH]
+  float* sGate = sAdj + CH;             // [CH]  cutoff(r) * adj
+  float* sDcut = sGate + CH;            // [CH]  d cutoff / d r
+  float* sRedCut = sDcut + CH;          // [NW][CH]
+  float* sRedDsh = sRedCut + NW * CH;   // [NW][CH][S]
+  float* sA = sRedDsh + NW * CH * S;    // [CH][nh] a_ij
+  float* sG = sA + CH * nh;             // [CH][nh] sum_head g_g3 * gate
+
+  const int t = threadIdx.x, T = blockDim.x, w = t / 32, lane = t % 32;
+  const int i = blockIdx.x, b = blockIdx.y;
+  const int H2 = 2 * H;
+  const size_t bi = (size_t)b * A + i;
+  const float kpi = 3.14159265358979323846f / cutoff;
+
+  for (int x = t; x < CH * 2 * Hp; x += T) {
+    const int r = x / (2 * Hp), c = x - r * 2 * Hp;
+    if (c % Hp >= H) sW[r * ldw + c] = 0.0f;
+  }
+
+  for (int c0 = 0; c0 < A; c0 += CH) {
+    const int n = A - c0 < CH ? A - c0 : CH;
+    const size_t e0 = bi * A + c0;         // the chunk's first edge row (b, i, c0)
+    const size_t s0 = (size_t)b * A + c0;  // and its first source atom
+    __syncthreads();  // sW is zeroed / every thread is done with the last chunk's rows
+    if constexpr (RC) load_rows_padded(sE, ld, edge + e0 * H, n, H, Hp);
+    for (int x = t; x < n * S; x += T) sDsh[x] = dsh[e0 * S + x];
+    for (int r = t; r < n; r += T) {
+      const float a = adj[e0 + r], d = dist[e0 + r];
+      sAdj[r] = a;
+      sGate[r] = cosine_cutoff(d, cutoff) * a;
+      sDcut[r] = d < cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+    }
+
+    // the head terms into sW's first half; K7 keeps zv in its second half
+    if constexpr (RC) {
+      mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, 0, 2 * Hp, sW, ldw, 2 * Hp);
+      for (int ch = t; ch < H; ch += T) {
+        const float qi = q[bi * H + ch], bk = bdkv[ch], bv = bdkv[H + ch];
+        for (int r = 0; r < n; ++r) {
+          const size_t e = (e0 + r) * H + ch;
+          const float zk = sW[r * ldw + ch] + bk, zv = sW[r * ldw + Hp + ch] + bv;
+          gk_e[e] = zk;
+          gv_e[e] = zv;
+          sW[r * ldw + ch] = head_term(qi, k[(s0 + r) * H + ch], zk);
+          sW[r * ldw + Hp + ch] = zv;
+        }
+      }
+    } else {
+      for (int ch = t; ch < H; ch += T) {
+        const float qi = q[bi * H + ch];
+        for (int r = 0; r < n; ++r)
+          sW[r * ldw + ch] = head_term(qi, k[(s0 + r) * H + ch], zdkv[(e0 + r) * H2 + ch]);
+      }
+    }
+    block_head_sums(sW, ldw, n, nh, DH, sA);
+    if constexpr (RC) {
+      for (int ch = t; ch < H; ch += T)
+        for (int r = 0; r < n; ++r)
+          sE[r * ld + ch] = edge_message(v[(s0 + r) * H + ch], sW[r * ldw + Hp + ch],
+                                         sA[r * nh + ch / DH], sGate[r]);
+      // zs = v_ij @ W_s (+ b_s below) over both halves
+      mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, 0, 2 * Hp, sW, ldw, 2 * Hp);
+    }
+
+    // g_s = [sum_c g_vec_agg_i[c] vec_j[c], sum_c g_vec_agg_i[c] d_sh_ij[c]] * adj *
+    // silu'(zs) in sW; g_d_sh_ij[c] = sum_h g_vec_agg_i[c] * s2 per warp; K7's s1 to scratch
+    for (int r = 0; r < n; ++r) {
+      const size_t e = e0 + r;
+      const float a = sAdj[r];
+      float red[MAXS];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) red[c] = 0.0f;
+      for (int ch = t; ch < H; ch += T) {
+        float z1, z2;
+        if constexpr (RC) {
+          z1 = sW[r * ldw + ch] + bs[ch];
+          z2 = sW[r * ldw + Hp + ch] + bs[H + ch];
+          s1_e[e * H + ch] = silu(z1) * a;
+        } else {
+          z1 = zs[e * H2 + ch];
+          z2 = zs[e * H2 + H + ch];
+        }
+        const float s2 = silu(z2) * a;
+        float g1 = 0.0f, g2 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c) {
+          if (c < S) {
+            const float gv = gva[(bi * S + c) * H + ch];
+            g1 = fmaf(gv, vec[((s0 + r) * S + c) * H + ch], g1);
+            g2 = fmaf(gv, sDsh[r * S + c], g2);
+            red[c] = fmaf(gv, s2, red[c]);
+          }
+        }
+        sW[r * ldw + ch] = g1 * a * dsilu(z1);
+        sW[r * ldw + Hp + ch] = g2 * a * dsilu(z2);
+      }
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          const float s = warp_sum(red[c]);
+          if (lane == 0) sRedDsh[(w * CH + r) * S + c] = s;
+        }
+      }
+    }
+
+    // g_vij = g_s @ W_s^T (+ g_x_agg_i below) into sE
+    mma_tiles<ECHUNK>(sW, ldw, n, 2 * Hp, wsT, Hp, 0, Hp, sE, ld, Hp);
+
+    // the attention chain, first pass: g_v's terms, g_dist's sums, g_dv;
+    // g_g3 * gate into sW's first half for the head sums
+    for (int r = 0; r < n; ++r) {
+      float red = 0.0f;
+      for (int ch = t; ch < H; ch += T) {
+        const size_t e = (e0 + r) * H + ch;
+        const float gvij = sE[r * ld + ch] + gx[bi * H + ch];
+        const float zv = RC ? gv_e[e] : zdkv[(e0 + r) * H2 + H + ch];
+        const float dv = silu(zv), vr = v[(s0 + r) * H + ch];
+        const float att = silu(sA[r * nh + ch / DH]), gate = sGate[r];
+        const float g3 = att * gate;
+        gv_e[e] = gvij * dv * g3;
+        const float g_g3 = gvij * vr * dv;
+        red = fmaf(g_g3, att, red);
+        sW[r * ldw + ch] = g_g3 * gate;
+        sW[r * ldw + Hp + ch] = gvij * vr * g3 * dsilu(zv);
+      }
+      red = warp_sum(red);
+      if (lane == 0) sRedCut[w * CH + r] = red;
+    }
+    block_head_sums(sW, ldw, n, nh, DH, sG);
+    // second pass: g_a = sum_head(g_g3 * gate) silu'(a), g_q, g_k's terms, g_dk
+    for (int ch = t; ch < H; ch += T) {
+      const float qi = q[bi * H + ch];
+      float gqi = 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const size_t e = (e0 + r) * H + ch;
+        const float zk = RC ? gk_e[e] : zdkv[(e0 + r) * H2 + ch];
+        const float dk = silu(zk), kr = k[(s0 + r) * H + ch];
+        const int x = r * nh + ch / DH;
+        const float g_a = sG[x] * dsilu(sA[x]);
+        gqi = fmaf(g_a * kr, dk, gqi);
+        gk_e[e] = g_a * qi * dk;
+        sW[r * ldw + ch] = g_a * qi * kr * dsilu(zk);
+      }
+      gq[bi * H + ch] = c0 ? gq[bi * H + ch] + gqi : gqi;
+    }
+
+    // g_edge = g_dkv @ W_dkv^T, straight to device memory; then the
+    // cross-warp sums of g_dist and g_d_sh (the product synced the block)
+    mma_tiles<ECHUNK>(sW, ldw, n, 2 * Hp, wdkvT, Hp, 0, Hp, gedge + e0 * H, H, H);
+    for (int r = t; r < n; r += T) {
+      float s = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) s += sRedCut[ww * CH + r];
+      gdist[e0 + r] = s * sAdj[r] * sDcut[r];
+    }
+    for (int x = t; x < n * S; x += T) {
+      float s = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) s += sRedDsh[ww * CH * S + x];
+      gdsh[e0 * S + x] = s;
+    }
+  }
+}
+
+// Pass 2: one block per (fragment, source atom j); fixed-order sums over i.
+// The wide kernels' pass (WIDE) runs channel blocks of blockDim.x along the
+// grid's z.
+template <bool RC, bool WIDE = false>
 __global__ void __launch_bounds__(256) edge_bwd_msg_source(
     const float* __restrict__ zs, const float* __restrict__ adj,
     const float* __restrict__ s1_e, const float* __restrict__ gva,
     const float* __restrict__ gk_e, const float* __restrict__ gv_e, float* __restrict__ gk,
     float* __restrict__ gv, float* __restrict__ gvec, int A, int H, int S) {
-  const int t = threadIdx.x, j = blockIdx.x, b = blockIdx.y;
+  const int t = WIDE ? blockIdx.z * blockDim.x + threadIdx.x : threadIdx.x;
+  const int j = blockIdx.x, b = blockIdx.y;
+  if (WIDE && t >= H) return;
   const size_t b0 = (size_t)b * A;
   float sk = 0.0f, sv = 0.0f;
   float sc[MAXS];
@@ -327,8 +539,25 @@ static int launch_msg(const float* q, const float* k, const float* v, const floa
                   float* gvec, float* gedge, float* gdsh, float* gdist, float* gk_e,
                   float* gv_e, float* s1_e, int B, int A, int H, int S, float cutoff, int dh,
                   cudaStream_t stream) {
-  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
+  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
+  if (!narrow_shapes(H, H / dh)) {
+    const int nh = H / dh, T = wide_threads(H), CH = wide_chunk(msg_wide_row_bytes(H, S, nh));
+    const size_t smem = CH * msg_wide_row_bytes(H, S, nh);
+    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    auto kern = edge_bwd_msg_wide<RC>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<dim3(A, B), T, smem, stream>>>(q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh,
+                                          dist, adj, wdkvT, wsT, gx, gva, gq, gedge, gdsh, gdist,
+                                          gk_e, gv_e, s1_e, A, H, S, nh, CH, cutoff);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    edge_bwd_msg_source<RC, true><<<dim3(A, B, (H + T - 1) / T), T, 0, stream>>>(
+        zs, adj, s1_e, gva, gk_e, gv_e, gk, gv, gvec, A, H, S);
+    return (int)cudaGetLastError();
+  }
   int rc = with_head_width(dh, [&](auto d) {
     constexpr int DH = decltype(d)::value;
     const size_t smem = msg_smem(A, H, S, RC, DH);
@@ -348,6 +577,10 @@ static int launch_msg(const float* q, const float* k, const float* v, const floa
   return (int)cudaGetLastError();
 }
 
+// The narrow kernels take heads of 8, 16, 32 or 64 channels with H a
+// multiple of 32 up to 256; the wide kernel every other H up to WIDE_MAXH
+// whose head count divides it, with W_dkv^T and W_s^T (and K7's W_dkv,
+// W_s) zero-padded to wide_width(H) a half: [2 Hp][Hp] ([Hp][2 Hp]).
 extern "C" int edge_bwd_msg_launch(const float* q, const float* k, const float* v,
                                    const float* vec, const float* zdkv, const float* zs,
                                    const float* dsh, const float* dist, const float* adj,
@@ -378,4 +611,14 @@ extern "C" int edge_bwd_msg_rc_launch(
 extern "C" int edge_bwd_msg_occupancy(int A, int H, int S, int rc, int* out) {
   return rc ? occupancy(edge_bwd_msg_centre<true, 32>, H, msg_smem(A, H, S, true, 32), out)
             : occupancy(edge_bwd_msg_centre<false, 32>, H, msg_smem(A, H, S, false, 32), out);
+}
+
+// the same for the wide instantiation at H channels and nh heads; out[4]
+// receives the rows of its source chunk
+extern "C" int edge_bwd_msg_wide_occupancy(int H, int S, int nh, int rc, int* out) {
+  const int CH = wide_chunk(msg_wide_row_bytes(H, S, nh));
+  const size_t smem = CH * msg_wide_row_bytes(H, S, nh);
+  out[4] = CH;
+  return rc ? occupancy(edge_bwd_msg_wide<true>, wide_threads(H), smem, out)
+            : occupancy(edge_bwd_msg_wide<false>, wide_threads(H), smem, out);
 }

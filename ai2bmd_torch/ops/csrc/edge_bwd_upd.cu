@@ -157,6 +157,93 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_upd_centre(
   }
 }
 
+// The wide centre pass (common.cuh: every H up to WIDE_MAXH), K3 and K8
+// alike: one block per (fragment, centre atom i) of wide_threads(H)
+// threads, each looping over its channels; the sources in chunks of CH
+// rows (wide_chunk), K8's edge rows in shared memory ([CH][Hp + 4]).  g_zf
+// goes to a scratch of Hp columns (zeros past H), which the row tile reads
+// with W_f zero-padded to [Hp][Hp].  K8 takes zf = edge @ W_f with
+// mma_tiles, the product K1's wide instantiation stores zf with, straight
+// into that scratch, where each thread then reads its zf and writes its
+// g_zf in its place.
+static size_t upd_wide_row_bytes(int H) { return (size_t)mma_ld(wide_width(H)) * sizeof(float); }
+
+template <bool RC>
+__global__ void __launch_bounds__(256, 2) edge_bwd_upd_wide(
+    const float* __restrict__ zf, const float* __restrict__ edge,
+    const float* __restrict__ wf, const float* __restrict__ bf,
+    const float* __restrict__ adj, const float* __restrict__ wt,
+    const float* __restrict__ wsrc, const float* __restrict__ gdf, float* __restrict__ gwt,
+    float* __restrict__ gs_e, float* __restrict__ gz, int A, int H, int S, int CH) {
+  extern __shared__ __align__(16) float smem[];
+  const int Hp = wide_width(H), ld = mma_ld(Hp);
+  float* sG = smem;  // K8: [CH][ld] edge rows of the chunk
+  const int t = threadIdx.x, T = blockDim.x;
+  const int i = blockIdx.x, b = blockIdx.y;
+  const size_t bi = (size_t)b * A + i;
+  const size_t b0 = (size_t)b * A;
+  const float* adj_i = adj + bi * A;
+
+  for (int c0 = 0; c0 < A; c0 += CH) {
+    const int n = A - c0 < CH ? A - c0 : CH;
+    const size_t e0 = bi * A + c0;  // the chunk's first edge row (b, i, c0)
+    if constexpr (RC) {
+      if (c0) __syncthreads();  // every thread is done with the last chunk's rows
+      load_rows_padded(sG, ld, edge + e0 * H, n, H, Hp);
+      mma_tiles<ECHUNK>(sG, ld, n, Hp, wf, Hp, 0, Hp, gz + e0 * Hp, Hp, Hp);
+    }
+    for (int ch = t; ch < Hp; ch += T) {
+      if (ch >= H) {
+        for (int r = 0; r < n; ++r) gz[(e0 + r) * Hp + ch] = 0.0f;
+        continue;
+      }
+      float wti[MAXS], gwti[MAXS];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        wti[c] = c < S ? wt[(bi * S + c) * H + ch] : 0.0f;
+        gwti[c] = 0.0f;
+      }
+      const float bft = RC ? bf[ch] : 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const size_t e = e0 + r;
+        const float z = RC ? gz[e * Hp + ch] + bft : zf[e * H + ch];
+        float wsr[MAXS];
+        float sdot = 0.0f;
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c) {
+          wsr[c] = c < S ? wsrc[((b0 + c0 + r) * S + c) * H + ch] : 0.0f;
+          sdot = fmaf(wti[c], wsr[c], sdot);
+        }
+        const float g = gdf[e * H + ch] * adj_i[c0 + r];
+        const float g_s = g * silu(z);
+        if constexpr (RC) gs_e[e * H + ch] = g_s;
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c) gwti[c] = fmaf(g_s, wsr[c], gwti[c]);
+        gz[e * Hp + ch] = g * sdot * dsilu(z);
+      }
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          float* o = gwt + (bi * S + c) * H + ch;
+          *o = c0 ? *o + gwti[c] : gwti[c];
+        }
+      }
+    }
+  }
+}
+
+// The wide g_edge product's epilogue: gedge[r][n] += G[r][:] . W_f[n][:]
+// for n < N (H), one element at a time.
+struct AddIntoCols {
+  float* out;
+  int ld, N;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    float* p = out + r * ld + n;
+    p[0] += v0;
+    if (n + 1 < N) p[1] += v1;
+  }
+};
+
 // The g_edge product's epilogue: gedge[r][n] += G[r][:] . W_f[n][:], read
 // and written by the one thread that owns each element (in place).
 struct AddInto {
@@ -172,12 +259,16 @@ struct AddInto {
 };
 
 // Source pass: g_wsrc_j[c] = sum_i g_df_ij * adj_ij * silu(zf_ij) * wt_i[c], fixed order.
-template <bool RC>
+// The wide kernels' pass (WIDE) runs channel blocks of blockDim.x along the
+// grid's z.
+template <bool RC, bool WIDE = false>
 __global__ void __launch_bounds__(256) edge_bwd_upd_source(
     const float* __restrict__ adj, const float* __restrict__ wt, const float* __restrict__ zf,
     const float* __restrict__ gdf, const float* __restrict__ gs_e, float* __restrict__ gwsrc,
     int A, int H, int S) {
-  const int t = threadIdx.x, j = blockIdx.x, b = blockIdx.y;
+  const int t = WIDE ? blockIdx.z * blockDim.x + threadIdx.x : threadIdx.x;
+  const int j = blockIdx.x, b = blockIdx.y;
+  if (WIDE && t >= H) return;
   const size_t b0 = (size_t)b * A;
   float sc[MAXS];
 #pragma unroll
@@ -207,9 +298,26 @@ static int launch_upd(const float* zf, const float* edge, const float* wf, const
                       const float* adj, const float* wt, const float* wsrc, const float* gdf,
                       float* gedge, float* gwt, float* gwsrc, float* gs_e, float* gz, int B,
                       int A, int H, int S, cudaStream_t stream) {
-  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256 || ((size_t)wf & 15) ||
+  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H > WIDE_MAXH || ((size_t)wf & 15) ||
       ((size_t)gedge & 7))
     return (int)cudaErrorInvalidValue;
+  if (!narrow_update(H)) {
+    const int Hp = wide_width(H), T = wide_threads(H), CH = wide_chunk(upd_wide_row_bytes(H));
+    const size_t smem = RC ? CH * upd_wide_row_bytes(H) : 0;
+    cudaError_t err = cudaFuncSetAttribute(edge_bwd_upd_wide<RC>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    edge_bwd_upd_wide<RC><<<dim3(A, B), T, smem, stream>>>(zf, edge, wf, bf, adj, wt, wsrc, gdf,
+                                                          gwt, gs_e, gz, A, H, S, CH);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = launch_row_tile<128, true>(gz, Hp, (size_t)B * A * A, Hp, H, wseg(wf, Hp),
+                                     AddIntoCols{gedge, H, H}, stream);
+    if (err != cudaSuccess) return (int)err;
+    edge_bwd_upd_source<RC, true><<<dim3(A, B, (H + T - 1) / T), T, 0, stream>>>(
+        adj, wt, zf, gdf, gs_e, gwsrc, A, H, S);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = upd_smem(A, H, RC);
   cudaError_t err = cudaFuncSetAttribute(edge_bwd_upd_centre<RC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -227,7 +335,9 @@ static int launch_upd(const float* zf, const float* edge, const float* wf, const
 }
 
 // gedge: the message path's g_edge, which the product adds into in place;
-// gz: [B, A, A, H] scratch for g_zf
+// gz: [B, A, A, H] scratch for g_zf.  The narrow kernels take H a multiple
+// of 32 up to 256; the wide kernels every other H up to WIDE_MAXH, with W_f
+// zero-padded to [Hp][Hp] and gz of [B, A, A, Hp] (Hp = wide_width(H)).
 extern "C" int edge_bwd_upd_launch(const float* adj, const float* wt, const float* wsrc,
                                    const float* wf, const float* zf, const float* gdf,
                                    float* gedge, float* gwt, float* gwsrc, float* gz, int B,
@@ -253,4 +363,14 @@ extern "C" int edge_bwd_upd_occupancy(int A, int H, int rc, int stage, int* out)
   if (stage == 2) return occupancy(row_tile<128, true, AddInto>, 256, tile_smem<128>(), out);
   return rc ? occupancy(edge_bwd_upd_centre<true>, H, upd_smem(A, H, true), out)
             : occupancy(edge_bwd_upd_centre<false>, 256, 0, out);
+}
+
+// the same for the wide centre pass (stage 1) or its g_edge product (stage
+// 2) at H channels; out[4] receives the rows of the centre pass's chunk
+extern "C" int edge_bwd_upd_wide_occupancy(int H, int rc, int stage, int* out) {
+  const int CH = wide_chunk(upd_wide_row_bytes(H));
+  out[4] = CH;
+  if (stage == 2) return occupancy(row_tile<128, true, AddIntoCols>, 256, tile_smem<128>(), out);
+  return rc ? occupancy(edge_bwd_upd_wide<true>, wide_threads(H), CH * upd_wide_row_bytes(H), out)
+            : occupancy(edge_bwd_upd_wide<false>, wide_threads(H), 0, out);
 }

@@ -210,6 +210,151 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
   }
 }
 
+// The wide instantiation (common.cuh: every H up to WIDE_MAXH and every
+// head count): the same chains, a thread looping over its channels in each
+// pass, the head sums through shared memory (block_head_sums), and each
+// product (mma_tiles) into a buffer other than its rows.  Shared memory, for
+// one chunk of CH rows (wide_chunk): sE and sP [CH][Hp + 4], sDsh [CH][S],
+// sGate, sAdj [CH], sA [CH][nh].  The sums over the sources go to the
+// outputs chunk after chunk as in the narrow kernel; vec_agg takes the d_sh
+// half and then the vec half.
+static size_t fwd_wide_row_bytes(int H, int S, int nh) {
+  return (size_t)(2 * mma_ld(wide_width(H)) + S + 2 + nh) * sizeof(float);
+}
+
+template <bool UPDATE, bool STORE>
+__global__ void __launch_bounds__(256, 2) edge_fwd_wide(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ vec, const float* __restrict__ wt, const float* __restrict__ wsrc,
+    const float* __restrict__ edge, const float* __restrict__ dsh,
+    const float* __restrict__ dist, const float* __restrict__ adj,
+    const float* __restrict__ wdkv, const float* __restrict__ bdkv,
+    const float* __restrict__ ws, const float* __restrict__ bs,
+    const float* __restrict__ wf, const float* __restrict__ bf,
+    float* __restrict__ xagg, float* __restrict__ vecagg, float* __restrict__ df,
+    float* __restrict__ zdkv, float* __restrict__ zs, float* __restrict__ zf,
+    int A, int H, int S, int nh, int CH, float cutoff) {
+  extern __shared__ __align__(16) float smem[];
+  const int Hp = wide_width(H), ld = mma_ld(Hp), DH = H / nh;
+  float* sE = smem;              // [CH][ld]  edge rows of the chunk, then v_ij
+  float* sP = sE + CH * ld;      // [CH][ld]  zf; zk, then the head terms; zv; z2; z1
+  float* sDsh = sP + CH * ld;    // [CH][S]
+  float* sGate = sDsh + CH * S;  // [CH]     cutoff(r) * adj
+  float* sAdj = sGate + CH;      // [CH]
+  float* sA = sAdj + CH;         // [CH][nh] a_ij
+
+  const int t = threadIdx.x, T = blockDim.x;
+  const int i = blockIdx.x, b = blockIdx.y;
+  const int H2 = 2 * H;
+  const size_t bi = (size_t)b * A + i;
+
+  for (int c0 = 0; c0 < A; c0 += CH) {
+    const int n = A - c0 < CH ? A - c0 : CH;
+    const size_t e0 = bi * A + c0;
+    const size_t s0 = (size_t)b * A + c0;
+    if (c0) __syncthreads();  // every thread is done with the last chunk's rows
+    load_rows_padded(sE, ld, edge + e0 * H, n, H, Hp);
+    for (int x = t; x < n * S; x += T) sDsh[x] = dsh[e0 * S + x];
+    for (int r = t; r < n; r += T) {
+      const float a = adj[e0 + r];
+      sAdj[r] = a;
+      sGate[r] = cosine_cutoff(dist[e0 + r], cutoff) * a;
+    }
+
+    if (UPDATE) {
+      // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
+      mma_tiles<ECHUNK>(sE, ld, n, Hp, wf, Hp, 0, Hp, sP, ld, Hp);
+      for (int ch = t; ch < H; ch += T) {
+        float wti[MAXS];
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + ch] : 0.0f;
+        const float bft = bf[ch];
+        for (int r = 0; r < n; ++r) {
+          const float z = sP[r * ld + ch] + bft;
+          if (STORE) zf[(e0 + r) * H + ch] = z;
+          float sdot = 0.0f;
+#pragma unroll
+          for (int c = 0; c < MAXS; ++c)
+            if (c < S) sdot = fmaf(wti[c], wsrc[((s0 + r) * S + c) * H + ch], sdot);
+          df[(e0 + r) * H + ch] = silu(z) * sdot * sAdj[r];
+        }
+      }
+    }
+
+    // zk = edge @ W_dkv[:, :H] + b_k into sP, replaced by the head terms
+    // q_i k_j dk, summed by head into sA
+    mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, 0, Hp, sP, ld, Hp);
+    for (int ch = t; ch < H; ch += T) {
+      const float qi = q[bi * H + ch], bk = bdkv[ch];
+      for (int r = 0; r < n; ++r) {
+        const float zk = sP[r * ld + ch] + bk;
+        if (STORE) zdkv[(e0 + r) * H2 + ch] = zk;
+        sP[r * ld + ch] = head_term(qi, k[(s0 + r) * H + ch], zk);
+      }
+    }
+    block_head_sums(sP, ld, n, nh, DH, sA);
+
+    // zv = edge @ W_dkv[:, H:] + b_v into sP; the message v_ij over the
+    // edge rows (the product has read them), x_agg its sum
+    mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, Hp, Hp, sP, ld, Hp);
+    for (int ch = t; ch < H; ch += T) {
+      const float bv = bdkv[H + ch];
+      float xsum = 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const float zv = sP[r * ld + ch] + bv;
+        if (STORE) zdkv[(e0 + r) * H2 + H + ch] = zv;
+        const float vij = edge_message(v[(s0 + r) * H + ch], zv, sA[r * nh + ch / DH], sGate[r]);
+        sE[r * ld + ch] = vij;
+        xsum += vij;
+      }
+      xagg[bi * H + ch] = c0 ? xagg[bi * H + ch] + xsum : xsum;
+    }
+
+    // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, the d_sh half first:
+    // vec_agg[c] += sum_j s2 * d_sh_ij[c], then += sum_j s1 * vec_j[c]
+    mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, Hp, Hp, sP, ld, Hp);
+    for (int ch = t; ch < H; ch += T) {
+      const float b2 = bs[H + ch];
+      float sum[MAXS];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) sum[c] = 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const float z2 = sP[r * ld + ch] + b2;
+        if (STORE) zs[(e0 + r) * H2 + H + ch] = z2;
+        const float s2 = silu(z2) * sAdj[r];
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c)
+          if (c < S) sum[c] = fmaf(s2, sDsh[r * S + c], sum[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          float* o = vecagg + (bi * S + c) * H + ch;
+          *o = c0 ? *o + sum[c] : sum[c];
+        }
+      }
+    }
+    mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, 0, Hp, sP, ld, Hp);
+    for (int ch = t; ch < H; ch += T) {
+      const float b1 = bs[ch];
+      float sum[MAXS];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) sum[c] = 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const float z1 = sP[r * ld + ch] + b1;
+        if (STORE) zs[(e0 + r) * H2 + ch] = z1;
+        const float s1 = silu(z1) * sAdj[r];
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c)
+          if (c < S) sum[c] = fmaf(s1, vec[((s0 + r) * S + c) * H + ch], sum[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c)
+        if (c < S) vecagg[(bi * S + c) * H + ch] += sum[c];
+    }
+  }
+}
+
 template <bool UPDATE, bool STORE>
 static int launch(const float* q, const float* k, const float* v, const float* vec,
                   const float* wt, const float* wsrc, const float* edge, const float* dsh,
@@ -217,6 +362,19 @@ static int launch(const float* q, const float* k, const float* v, const float* v
                   const float* ws, const float* bs, const float* wf, const float* bf,
                   float* xagg, float* vecagg, float* df, float* zdkv, float* zs, float* zf,
                   int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
+  if (!narrow_shapes(H, H / dh)) {
+    const int nh = H / dh, CH = wide_chunk(fwd_wide_row_bytes(H, S, nh));
+    const size_t smem = CH * fwd_wide_row_bytes(H, S, nh);
+    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    auto kern = edge_fwd_wide<UPDATE, STORE>;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<dim3(A, B), wide_threads(H), smem, stream>>>(
+        q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs, wf, bf, xagg, vecagg,
+        df, zdkv, zs, zf, A, H, S, nh, CH, cutoff);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = fwd_smem(A, H, S);
   return with_head_width(dh, [&](auto d) {
     auto kern = edge_fwd_kernel<UPDATE, STORE, decltype(d)::value>;
@@ -230,6 +388,11 @@ static int launch(const float* q, const float* k, const float* v, const float* v
   });
 }
 
+// The narrow kernels take heads of 8, 16, 32 or 64 channels with H a
+// multiple of 32 up to 256; the wide kernel every other H up to WIDE_MAXH
+// whose head count divides it, with its weights zero-padded to
+// wide_width(H) a half (W_dkv [Hp][2 Hp], W_s [Hp][2 Hp], W_f [Hp][Hp];
+// the biases and every other tensor as they are).
 extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, const float* vec,
                                const float* wt, const float* wsrc, const float* edge,
                                const float* dsh, const float* dist, const float* adj,
@@ -238,7 +401,7 @@ extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, c
                                float* vecagg, float* df, float* zdkv, float* zs, float* zf,
                                int B, int A, int H, int S, float cutoff, int update, int store,
                                int dh, cudaStream_t stream) {
-  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H % 32 != 0 || H > 256)
+  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
   if (update) {
     if (store)
@@ -266,6 +429,20 @@ extern "C" int edge_fwd_occupancy(int A, int H, int S, int update, int store, in
                  : occupancy(edge_fwd_kernel<true, false, 32>, H, smem, out);
   return store ? occupancy(edge_fwd_kernel<false, true, 32>, H, smem, out)
                : occupancy(edge_fwd_kernel<false, false, 32>, H, smem, out);
+}
+
+// the same for the wide instantiation at H channels and nh heads; out[4]
+// receives the rows of its source chunk
+extern "C" int edge_fwd_wide_occupancy(int H, int S, int nh, int update, int store, int* out) {
+  const int CH = wide_chunk(fwd_wide_row_bytes(H, S, nh));
+  const size_t smem = CH * fwd_wide_row_bytes(H, S, nh);
+  out[4] = CH;
+  const int T = wide_threads(H);
+  if (update)
+    return store ? occupancy(edge_fwd_wide<true, true>, T, smem, out)
+                 : occupancy(edge_fwd_wide<true, false>, T, smem, out);
+  return store ? occupancy(edge_fwd_wide<false, true>, T, smem, out)
+               : occupancy(edge_fwd_wide<false, false>, T, smem, out);
 }
 
 extern "C" const char* ai2bmd_error_string(int err) {

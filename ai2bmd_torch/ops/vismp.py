@@ -256,17 +256,26 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
 
 
 # Every centre pass of the edge kernels (K1-K3, K7, K8) and of the
-# full-layer kernels (K5/K6) walks a centre's sources in chunks of 48 rows
-# (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up to
-# EDGE_MAXA: a fragment or a whole molecule (abd, the largest bundled
-# protein, is 752 slots).  A head's sum takes its DH = H / nh lanes, with
-# DH a template parameter of 8, 16, 32 or 64 (``head_sum``; a head of 64
-# channels spans two warps).  The launchers check the same limits.
+# full-layer kernels (K5/K6) walks a centre's sources in chunks of at most
+# 48 rows (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up
+# to EDGE_MAXA: a fragment or a whole molecule (abd, the largest bundled
+# protein, is 752 slots).  The edge kernels take every H up to EDGE_MAXH
+# whose head count divides it: their narrow instantiations heads of 8, 16,
+# 32 or 64 channels with H a multiple of 32 up to 256 (``narrow_shapes``
+# for K1, K2 and K7, ``narrow_update`` for K3 and K8, which sum no head;
+# one thread a channel, ``head_sum<DH>`` on a warp's lanes), their wide
+# ones every other shape (channels padded to a multiple of 32, each thread
+# looping over several, the head sums through shared memory).  K5/K6 have
+# a domain of their own (``layer_shapes``, ``check_layer_shapes``).  The
+# launchers check the same limits.
 EDGE_MAXA = 1024
+EDGE_MAXH = 1024
 HEAD_WIDTHS = (8, 16, 32, 64)
 # the shapes the kernels do not take yet, where the JAX package's Pallas
 # kernels run: refused on the card
 UNSUPPORTED = "ROADMAP.md, Queue 2: domain still to extend"
+NO_MODEL_S = ("no model of either package builds S > 8: their spherical harmonics stop at "
+              "lmax 2")
 SILU = ("silu", "swish")
 
 
@@ -281,30 +290,93 @@ def plain_activations(act: str, attn_act: str):
     return None
 
 
+def narrow_update(H: int) -> bool:
+    """True where K3 and K8, which sum no head, run their narrow
+    instantiation (``narrow_update`` in csrc/common.cuh)."""
+    return H % 32 == 0 and H <= 256
+
+
+def narrow_shapes(H: int, nh: int) -> bool:
+    """True where K1, K2 and K7 run their narrow instantiations
+    (``narrow_shapes`` in csrc/common.cuh); every other shape of the edge
+    kernels' domain runs their wide ones."""
+    return nh > 0 and H % nh == 0 and H // nh in HEAD_WIDTHS and narrow_update(H)
+
+
+def layer_shapes(H: int, nh: int, S: int) -> bool:
+    """True for the shapes the full-layer kernels K5/K6 take
+    (csrc/vislayer.cuh): heads of 8, 16, 32 or 64 channels, H a multiple of
+    32 up to 256, S <= 8."""
+    return nh > 0 and H % nh == 0 and H // nh in HEAD_WIDTHS and H % 32 == 0 and H <= 256 \
+        and S <= 8
+
+
+def wide_width(H: int) -> int:
+    """H rounded up to a multiple of 32: the width the wide instantiations
+    pad their channels to (``wide_width`` in csrc/common.cuh)."""
+    return -(-H // 32) * 32
+
+
 def unsupported_shapes(H: int, nh: int, S: int):
-    """Why the kernels cannot take a model of H channels, nh heads and S
-    spherical components, or None when they can."""
-    if H % nh or H // nh not in HEAD_WIDTHS or H % 32 or H > 256 or S > 8:
-        return (f"H={H}, nh={nh}, S={S}: the kernels take heads of 8, 16, 32 or 64 channels, "
-                f"H a multiple of 32 up to 256 and S <= 8 ({UNSUPPORTED})")
+    """Why the edge kernels (K1-K3, K7, K8) cannot take a model of H
+    channels, nh heads and S spherical components, or None when they can."""
+    if nh <= 0 or H % nh or H > EDGE_MAXH or S > 8:
+        return (f"H={H}, nh={nh}, S={S}: the edge kernels take every H up to {EDGE_MAXH} that "
+                f"the head count divides, and S <= 8 ({UNSUPPORTED}; {NO_MODEL_S})")
     return None
 
 
-def check_shapes(A, H, S, nh, kernels: str = "edge"):
-    """The shapes the edge kernels (K1-K3, K7, K8) and the full-layer kernels
-    take; anything else raises (the card has no plain route for them)."""
-    if unsupported_shapes(H, nh, S) or A > EDGE_MAXA or A % 8:
-        raise ValueError(
-            f"{kernels} kernels take heads of 8, 16, 32 or 64 channels, H a multiple of 32 up "
-            f"to 256, A a multiple of 8 up to {EDGE_MAXA}, S <= 8; got H={H}, nh={nh}, A={A}, "
-            f"S={S} (H > 256 and S > 8 on the card: {UNSUPPORTED})"
-        )
+def unsupported_layer_shapes(H: int, nh: int, S: int):
+    """Why the full-layer kernels (K5/K6) cannot take such a model, or None
+    when they can."""
+    if not layer_shapes(H, nh, S):
+        return (f"H={H}, nh={nh}, S={S}: the full-layer kernels take heads of 8, 16, 32 or 64 "
+                f"channels, H a multiple of 32 up to 256 and S <= 8 ({UNSUPPORTED}: the "
+                f"full-layer kernels at every width come next; the edge kernels take every "
+                f"H up to {EDGE_MAXH}; {NO_MODEL_S})")
+    return None
+
+
+def check_shapes(A, H, S, nh):
+    """The shapes the edge kernels (K1-K3, K7, K8) take; anything else
+    raises (the card has no plain route for them)."""
+    why = unsupported_shapes(H, nh, S)
+    if why or A > EDGE_MAXA or A % 8:
+        raise ValueError(f"edge kernels take A a multiple of 8 up to {EDGE_MAXA}; got A={A}; "
+                         f"{why or 'H, nh and S are in their domain'}")
 
 
 def check_layer_shapes(A, H, S, nh):
-    """The shapes the full-layer kernels K5/K6 take: the edge kernels', a
-    fragment or a whole molecule of up to EDGE_MAXA slots."""
-    check_shapes(A, H, S, nh, "fused-layer")
+    """The shapes the full-layer kernels K5/K6 take: a fragment or a whole
+    molecule of up to EDGE_MAXA slots at the narrow shapes."""
+    why = unsupported_layer_shapes(H, nh, S)
+    if why or A > EDGE_MAXA or A % 8:
+        raise ValueError(f"fused-layer kernels take A a multiple of 8 up to {EDGE_MAXA}; got "
+                         f"A={A}; {why or 'H, nh and S are in their domain'}")
+
+
+def padded_weight(w: torch.Tensor, H: int, halves: int = 1) -> torch.Tensor:
+    """A weight [H, halves H] as the wide instantiations read it: each half
+    zero-padded to [wide_width(H), wide_width(H)] (csrc/common.cuh); the
+    weight itself when H is a multiple of 32.  A model pads its weights once
+    (``models.visnet``); the wrappers take them padded or not."""
+    Hp = wide_width(H)
+    if Hp == H:
+        return w
+    out = w.new_zeros(Hp, halves, Hp)
+    out[:H, :, :H] = w.reshape(H, halves, H)
+    return out.view(Hp, halves * Hp)
+
+
+def _weight(name: str, w: torch.Tensor, H: int, halves: int, device) -> torch.Tensor:
+    """Check a weight given [H, halves H] or already padded (``padded_weight``)
+    and return it padded."""
+    Hp = wide_width(H)
+    if Hp != H and tuple(w.shape) == (Hp, halves * Hp):
+        _build.check(name, w, (Hp, halves * Hp), device=device)
+        return w
+    _build.check(name, w, (H, halves * H), device=device)
+    return padded_weight(w, H, halves)
 
 
 def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
@@ -329,14 +401,15 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
         ("q", q, (B, A, H)), ("k", k, (B, A, H)), ("v", v, (B, A, H)),
         ("vec", vec, (B, A, S, H)), ("edge", edge, (B, A, A, H)),
         ("d_sh", d_sh, (B, A, A, S)), ("dist", dist, (B, A, A)),
-        ("adj", adj, (B, A, A)), ("w_dkv", w_dkv, (H, 2 * H)),
-        ("b_dkv", b_dkv, (2 * H,)), ("w_s", w_s, (H, 2 * H)), ("b_s", b_s, (2 * H,)),
+        ("adj", adj, (B, A, A)), ("b_dkv", b_dkv, (2 * H,)), ("b_s", b_s, (2 * H,)),
     ):
         c(name, t, shape, device=dev)
+    w_dkv, w_s = _weight("w_dkv", w_dkv, H, 2, dev), _weight("w_s", w_s, H, 2, dev)
     if update:
         for name, t, shape in (("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)),
-                               ("w_f", w_f, (H, H)), ("b_f", b_f, (H,))):
+                               ("b_f", b_f, (H,))):
             c(name, t, shape, device=dev)
+        w_f = _weight("w_f", w_f, H, 1, dev)
     new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
     x_agg, vec_agg = new(B, A, H), new(B, A, S, H)
     df = new(B, A, A, H) if update else None
@@ -365,14 +438,14 @@ def edge_bwd_msg(q, k, v, vec, zdkv, zs, d_sh, dist, adj, w_dkv, w_s,
     S = vec.shape[2]
     check_shapes(A, H, S, nh)
     dev = q.device
-    wdkvT, wsT = w_dkv.t().contiguous(), w_s.t().contiguous()
+    wdkvT = _weight("w_dkv", w_dkv, H, 2, dev).t().contiguous()
+    wsT = _weight("w_s", w_s, H, 2, dev).t().contiguous()
     c = _build.check
     for name, t, shape in (
         ("q", q, (B, A, H)), ("k", k, (B, A, H)), ("v", v, (B, A, H)),
         ("vec", vec, (B, A, S, H)), ("zdkv", zdkv, (B, A, A, 2 * H)),
         ("zs", zs, (B, A, A, 2 * H)), ("d_sh", d_sh, (B, A, A, S)),
         ("dist", dist, (B, A, A)), ("adj", adj, (B, A, A)),
-        ("w_dkv^T", wdkvT, (2 * H, H)), ("w_s^T", wsT, (2 * H, H)),
         ("g_xagg", g_xagg, (B, A, H)), ("g_vecagg", g_vecagg, (B, A, S, H)),
     ):
         c(name, t, shape, device=dev)
@@ -398,21 +471,21 @@ def _upd_launch(rc: bool, adj, wt, wsrc, w_f, b_f, zf_or_edge, g_df, g_edge):
     the card.  Returns (g_edge, g_wt, g_wsrc)."""
     B, A, _, H = zf_or_edge.shape
     S = wt.shape[2]
-    check_shapes(A, H, S, H // 32)   # K3/K8 sum no head
+    check_shapes(A, H, S, 1)   # K3/K8 sum no head
     dev = zf_or_edge.device
     c = _build.check
     for name, t, shape in (
         ("edge" if rc else "zf", zf_or_edge, (B, A, A, H)), ("adj", adj, (B, A, A)),
-        ("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)), ("w_f", w_f, (H, H)),
-        ("g_df", g_df, (B, A, A, H)),
+        ("wt", wt, (B, A, S, H)), ("wsrc", wsrc, (B, A, S, H)), ("g_df", g_df, (B, A, A, H)),
     ) + ((("b_f", b_f, (H,)),) if rc else ()):
         c(name, t, shape, device=dev)
+    w_f = _weight("w_f", w_f, H, 1, dev)
     new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
     if g_edge is None:
         g_edge = torch.zeros((B, A, A, H), dtype=_f32, device=dev)
     c("g_edge", g_edge, (B, A, A, H), device=dev)
     g_wt, g_wsrc = new(B, A, S, H), new(B, A, S, H)
-    gz = new(B, A, A, H)   # scratch: g_zf for the row-tile product
+    gz = new(B, A, A, wide_width(H))   # scratch: g_zf for the row-tile product
     p = _build.ptr
     if rc:
         gs_e = new(B, A, A, H)   # scratch: the source pass's per-edge factor
@@ -451,17 +524,17 @@ def edge_bwd_msg_rc(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     S = vec.shape[2]
     check_shapes(A, H, S, nh)
     dev = q.device
-    wdkvT, wsT = w_dkv.t().contiguous(), w_s.t().contiguous()
     c = _build.check
     for name, t, shape in (
         ("q", q, (B, A, H)), ("k", k, (B, A, H)), ("v", v, (B, A, H)),
         ("vec", vec, (B, A, S, H)), ("edge", edge, (B, A, A, H)),
         ("d_sh", d_sh, (B, A, A, S)), ("dist", dist, (B, A, A)), ("adj", adj, (B, A, A)),
-        ("w_dkv", w_dkv, (H, 2 * H)), ("b_dkv", b_dkv, (2 * H,)),
-        ("w_s", w_s, (H, 2 * H)), ("b_s", b_s, (2 * H,)),
+        ("b_dkv", b_dkv, (2 * H,)), ("b_s", b_s, (2 * H,)),
         ("g_xagg", g_xagg, (B, A, H)), ("g_vecagg", g_vecagg, (B, A, S, H)),
     ):
         c(name, t, shape, device=dev)
+    w_dkv, w_s = _weight("w_dkv", w_dkv, H, 2, dev), _weight("w_s", w_s, H, 2, dev)
+    wdkvT, wsT = w_dkv.t().contiguous(), w_s.t().contiguous()
     new = lambda *s: torch.empty(s, dtype=_f32, device=dev)
     g_q, g_k, g_v = new(B, A, H), new(B, A, H), new(B, A, H)
     g_vec, g_edge = new(B, A, S, H), new(B, A, A, H)

@@ -245,17 +245,38 @@ is not printed):
      precision line each prints, forces against float32's; cuBLAS under
      torch's "highest", "high", "medium" against float64; (d) in (a) and (b)
      every launch came from the asked mode's library
-     (ops/_build.py LIBRARY_LAUNCHES)
-  15. one JSON line of kernel results (with `mesh_launches`: rank 0's
+     (ops/_build.py LIBRARY_LAUNCHES); (a) also takes the wide case (H =
+     512, 4 heads, 4 x 40: K1 with the update and the stash, K2, K3, K7,
+     K8 in highest and default)
+  15. every head and hidden width through the edge kernels: (a) K1 (four
+     flag pairs), K2, K3, K7 and K8's wide instantiations at (H, heads) =
+     (256, 2), (256, 1), (384, 8), (512, 4), (512, 16), (48, 2), (40, 5)
+     at B x A = 4 x 40 and 1 x 176 and (1024, 8) at 4 x 40, against their
+     plain versions (EDGE_TOL), bitwise repeats, K7/K8 against K2/K3 on
+     K1's stash (bitwise); at 4 x 40 the ms of each kernel beside its plain
+     version, bound and share at H = 512 with 4 heads and, timed in the
+     same way, the narrow instantiations at H = 256 with 8 heads; the wide
+     instantiations' shared memory, blocks per SM, registers, spills and
+     source-chunk rows; (b) Chignolin at 9 x 512 with 4 heads of 128
+     channels (random weights, seed 0) through the wide K1-K3 as phase 4:
+     its launches equal to phase 4's (and one warm evaluation's: K1 36, K2
+     36, K3 32, K4 1), step 0 against the CPU float64 run (1e-3 eV/A), the
+     graphed step (replays against eager steps, ms/step, kernels per step,
+     a trace naming the wide kernels); (c) the same weights with remat=True,
+     one evaluation through K1 without its stash and K7/K8 against (b)'s
+     step 0; (d) save_converted of those weights and `python -m ai2bmd_torch
+     --ckpt-path` on them (exit 0, its model line naming K1-K3); (e)
+     AI2BMD_FUSED_LAYER=1 refuses the model naming ROADMAP Queue 2
+  16. one JSON line of kernel results (with `mesh_launches`: rank 0's
      launches a warm evaluation in (b), by mesh; `precision_modes`: phase
-     14's figures by mode), the card's name and power limit, and the final
-     JSON line.
+     14's figures by mode; `wide`: phase 15's), the card's name and power
+     limit, and the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
 `--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--precision-only` phase 14
-alone; `--preprocess-full` runs only
+alone; `--wide-only` phase 15 alone; `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
 cycles (wall seconds, ms per cycle), without it.  Phase 5 runs eagerly (no
@@ -3789,10 +3810,11 @@ def default_misses(name, got, ref, exact):
     return misses, worst, share
 
 
-def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh):
+def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh, layers=True):
     """Phase 14(a)'s calls on edge case ``c`` and layer inputs ``la`` (weights
     ``ws[last]``) in the current mode: (kernel, label, kernel call, its plain
-    version taking ``mm`` as {output: tensor}, FLOPs, bytes)."""
+    version taking ``mm`` as {output: tensor}, FLOPs, bytes); K5/K6's only
+    with ``layers``."""
     core, upd, g0 = c["core"], c["upd"], c["g_edge"]
     E = B * A * A
     fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
@@ -3823,7 +3845,7 @@ def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh):
         plain = lambda mm, name=name, args=args: dict(zip(
             UPD_KEYS, getattr(K, name + "_plain")(*args, g0.clone(), mm=mm)))
         specs.append((name, name, run, plain, E * flop * H * H, nbytes(*args, g0, *run())))
-    for last in (False, True):
+    for last in ((False, True) if layers else ()):
         args = (la["x"], la["vec"], la["edge"], la["d_sh"], la["dist"], la["adj"], ws[last],
                 CUTOFF, nh, last)
         flop_f, flop_b = layer_flop(B, A, last, H)
@@ -3938,12 +3960,17 @@ def check_precision_kernels(torch, dev):
     gen = torch.Generator().manual_seed(11)
     cases = ([(B, A, H, NH, "lone") for B, A in SHAPES]
              + [(B, A, H, NH, f"A={A}") for B, A in WHOLE_SHAPES]
-             + [(B, A, h, nh, None) for h, nh in HEAD_CASES for B, A in HEAD_SHAPES])
+             + [(B, A, h, nh, None) for h, nh in HEAD_CASES for B, A in HEAD_SHAPES]
+             + [(*WIDE_TIMED, WIDE_H, WIDE_NH, "wide")])
     controls = ((4, 40, H, NH), (1, 176, 256, 4))
     weights = {}
     profiled = True
     for B, A, h, nh, where in cases:
-        if (h, nh) not in weights:
+        # the wide case: the edge kernels' wide instantiations (K1 with the
+        # update and the stash, K2, K3, K7, K8) in highest and default; b3
+        # is phase 15's
+        wide = where == "wide"
+        if not wide and (h, nh) not in weights:
             p = init_params(ViSNetConfig(hidden_channels=h, num_heads=nh), gen)
             weights[h, nh] = {last: layer_weights_on(torch, FL, p, gen, last, dev, h, nh)
                               for last in (False, True)}
@@ -3951,14 +3978,16 @@ def check_precision_kernels(torch, dev):
         control = (B, A, h, nh) in controls
         set_mm_mode("b3")
         c = edge_case(torch, K, gen, B, A, dev, h, nh)
-        la = layer_inputs(torch, gen, B, A, dev, h)
+        la = None if wide else layer_inputs(torch, gen, B, A, dev, h)
         highest_out = {}
-        for mode in MODES:
+        for mode in (("highest", "default") if wide else MODES):
             set_mm_mode(mode)
             reset_launches()
             mm, line = T.plain_mm(mode), []
             for name, label, run, plain, flop, nbyte in precision_specs(
-                    torch, K, FL, c, la, weights[h, nh], B, A, h, nh):
+                    torch, K, FL, c, la, weights.get((h, nh)), B, A, h, nh, layers=not wide):
+                if wide and label.startswith("edge_fwd") and label != MAIN_VARIANT["edge_fwd"]:
+                    continue
                 cell_name = f"{label} {tag} @{mode}"
                 if mode == "default":
                     ref, exact = plain(mm), plain(T.mm_highest_plain)
@@ -3984,6 +4013,10 @@ def check_precision_kernels(torch, dev):
                 res["max_abs_err"] = max(res["max_abs_err"], err)
                 if mode == "default":
                     res["bf16_share"] = max(res.get("bf16_share", 0.0), share)
+                if wide:
+                    res["wide"] = max(res.get("wide", 0.0), err)
+                    line.append(f"{label} {err:.1e} ({share:.3f})")
+                    continue
                 if where is None:
                     hw = res.setdefault("head_widths", {})
                     hw[f"DH={h // nh}"] = max(hw.get(f"DH={h // nh}", 0.0), err)
@@ -4011,7 +4044,7 @@ def check_precision_kernels(torch, dev):
                     if mode != "default" else
                     "max|d| against its plain model (largest share of the rounding's "
                     "difference beyond EDGE_TOL)")
-            print(f"  {tag} @{mode} ({what}{'' if where is None else ', ms a call'}): "
+            print(f"  {tag} @{mode} ({what}{'' if where in (None, 'wide') else ', ms a call'}): "
                   + "; ".join(line))
         if control:
             print(f"  {tag} control, the highest library against default's plain model (outputs "
@@ -4188,11 +4221,22 @@ def run_precision(torch, dev, prot, card, root, ref=None):
     precisions; (d), the per-mode launch counters, in (a) and (b)."""
     from ai2bmd_torch.ops import _build
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
+
+    def build(mode):           # each build starts one nvcc a source itself
+        t = time.perf_counter()
+        path = _build.build(mode)
+        return path, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(MODES)) as pool:   # the modes' builds side by side
+        built = dict(zip(MODES, pool.map(build, MODES)))
     for mode in MODES:
         _build.library(mode)
-        print(f"  the {mode} library: {_build.BUILD_INFO['path']} (nvcc "
-              f"{_build.BUILD_INFO['seconds']:.1f} s, cached {_build.BUILD_INFO['cached']})")
+        print(f"  the {mode} library: {built[mode][0]} ({built[mode][1]:.1f} s, the builds side "
+              f"by side)")
+    print(f"  the libraries ready in {time.perf_counter() - t0:.1f} s")
     print("  (a) K1-K3, K5-K8 and the lone helper in each mode against its plain model")
     kernels = check_precision_kernels(torch, dev)
     print("  (b) the lone graphed step (Chignolin, 9 x 256) in each mode")
@@ -4202,6 +4246,364 @@ def run_precision(torch, dev, prot, card, root, ref=None):
     cublas = cublas_medium_vs_high(torch, dev)
     print(f"  phase 14 took {time.perf_counter() - t0:.1f} s ({card})")
     return dict(kernels=kernels, step=step, cli=cli, cublas=cublas)
+
+
+# Phase 15: every head and hidden width through the edge kernels.  The
+# (H, heads) cases of (a): heads of 128 and 256 channels at H = 256, heads
+# of 48, 128 and 32 channels past 256, and H not a multiple of 32 (two
+# heads of 24, five of 8), each at a fragment batch and a whole molecule;
+# H = 1024 (8 heads of 128) at the fragment batch alone.
+WIDE_CASES = ((256, 2), (256, 1), (384, 8), (512, 4), (512, 16), (48, 2), (40, 5))
+WIDE_SHAPES = ((4, 40), (1, 176))
+WIDE_TOP = (1024, 8)
+# the case whose device ms, bound and share (a) reports, and the model of (b)-(e)
+WIDE_H, WIDE_NH = 512, 4
+WIDE_TIMED = (4, 40)
+# kernels the wide slice's replay trace must name (besides cap_grad_kernel)
+WIDE_KERNELS = ("edge_fwd_wide", "edge_bwd_msg_wide", "edge_bwd_upd_wide")
+WIDE_CLI_STEPS, WIDE_CLI_RECORD = 20, 10
+# (f): a model at H % 32 != 0, whose edge weights the model pads once
+PAD_LAYERS, PAD_H, PAD_NH = 2, 48, 2
+
+
+def check_wide_case(torch, K, c, B, A, h, nh, out, timed):
+    """K1 (four flag pairs), K2, K3, K7 and K8 on edge case ``c`` at width h
+    with nh heads: against their plain versions within EDGE_TOL, bitwise
+    repeats, K7/K8 against K2/K3 on K1's stash (bitwise).  Each kernel's
+    largest error goes to out[kernel]["max_abs_err"]; when ``timed``, its
+    ms in turns with its plain version, bound and share go to
+    out[kernel]["timed"]."""
+    tag = f"H={h} nh={nh} (DH={h // nh}) B={B} A={A}"
+    core, upd, g0 = c["core"], c["upd"], c["g_edge"]
+    fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
+    E = B * A * A
+
+    def check(name, label, run, ref, plain=None, flop=0.0, nbyte=0):
+        err = compare(label, run(), ref, EDGE_TOL)
+        bitwise(label, run)
+        res = out.setdefault(name, {"max_abs_err": 0.0})
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if timed and plain is not None:
+            t = in_turns(torch, run, plain)
+            b = bound(nbyte, tc=flop)
+            add_bound({}, b, t)
+            dev = t["device_ms"] or t["ms"]
+            res["timed"] = dict(case=tag, ms=t["ms"], device_ms=t["device_ms"],
+                                plain_ms=t["plain_ms"], plain_device_ms=t["plain_device_ms"],
+                                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                                gflop=b["gflop"], mbytes=b["mbytes"],
+                                share=b["bound_ms"] / dev)
+
+    for update in (True, False):
+        for store in (True, False):
+            label = f"edge_fwd {tag} update={int(update)} store={int(store)}"
+            print(f"  {label}")
+            kw = upd if update else {}
+            ref = dict(zip(fwd_keys, K.edge_fwd_plain(*core, **kw)))
+            if not store:
+                ref["zdkv"] = ref["zs"] = ref["zf"] = None
+            run = lambda kw=kw, store=store: K.edge_fwd(*core, **kw, store=store)
+            main = update and store
+            check("edge_fwd", label, run, ref,
+                  (lambda kw=kw: K.edge_fwd_plain(*core, **kw)) if main else None,
+                  2 * E * 5 * h * h, nbytes(*core[:12], *upd.values(), *run()) if main else 0)
+    for name, args, flop in (("edge_bwd_msg", c["msg"], 8), ("edge_bwd_msg_rc", c["msg_rc"], 16)):
+        label = f"{name} {tag}"
+        print(f"  {label}")
+        run = lambda name=name, args=args: getattr(K, name)(*args)
+        plain = lambda name=name, args=args: getattr(K, name + "_plain")(*args)
+        check(name, label, run, dict(zip(MSG_KEYS, plain())), plain, E * flop * h * h,
+              nbytes(*(a for a in args if hasattr(a, "numel")), *run()))
+    for name, args, flop in (("edge_bwd_upd", c["upd_args"], 2),
+                             ("edge_bwd_upd_rc", c["upd_rc"], 4)):
+        label = f"{name} {tag}"
+        print(f"  {label} (g_edge summed in place)")
+        run = lambda name=name, args=args: getattr(K, name)(*args, g_edge=g0.clone())
+        plain = lambda name=name, args=args: getattr(K, name + "_plain")(*args, g0.clone())
+        check(name, label, run, dict(zip(UPD_KEYS, plain())), plain, E * flop * h * h,
+              nbytes(*args, g0, *run()))
+    print("    K7 against K2 and K8 against K3 on K1's stash (bitwise):")
+    compare(f"edge_bwd_msg_rc {tag}", K.edge_bwd_msg_rc(*c["msg_rc"]),
+            dict(zip(MSG_KEYS, K.edge_bwd_msg(*c["msg"]))), 0.0)
+    compare(f"edge_bwd_upd_rc {tag}", K.edge_bwd_upd_rc(*c["upd_rc"], g_edge=g0.clone()),
+            dict(zip(UPD_KEYS, K.edge_bwd_upd(*c["upd_args"], g_edge=g0.clone()))), 0.0)
+
+
+def wide_occupancy(torch, widths):
+    """Shared memory per block, blocks per SM, registers, spill bytes and the
+    source chunk's rows of the wide instantiations (K1's four flag pairs,
+    K2/K7's centre pass, K3/K8's centre pass and g_edge product) at each
+    (H, heads) of ``widths``, from the launchers' own sizes."""
+    import ctypes
+
+    from ai2bmd_torch.ops import _build
+
+    lib = _build.library()
+    I, P = ctypes.c_int, ctypes.c_void_p
+    for fn, n in (("edge_fwd_wide_occupancy", 5), ("edge_bwd_msg_wide_occupancy", 4),
+                  ("edge_bwd_upd_wide_occupancy", 3)):
+        getattr(lib, fn).argtypes = [I] * n + [P]
+        getattr(lib, fn).restype = I
+    out = {}
+    for h, nh in widths:
+        rows = {}
+        for label, fn, args in (
+                ("K1 update store", "edge_fwd_wide_occupancy", (h, S, nh, 1, 1)),
+                ("K1 update", "edge_fwd_wide_occupancy", (h, S, nh, 1, 0)),
+                ("K1 store", "edge_fwd_wide_occupancy", (h, S, nh, 0, 1)),
+                ("K1", "edge_fwd_wide_occupancy", (h, S, nh, 0, 0)),
+                ("K2", "edge_bwd_msg_wide_occupancy", (h, S, nh, 0)),
+                ("K7", "edge_bwd_msg_wide_occupancy", (h, S, nh, 1)),
+                ("K3 centre", "edge_bwd_upd_wide_occupancy", (h, 0, 1)),
+                ("K8 centre", "edge_bwd_upd_wide_occupancy", (h, 1, 1)),
+                ("K3/K8 product", "edge_bwd_upd_wide_occupancy", (h, 0, 2))):
+            o = (ctypes.c_int * 5)()
+            rc = getattr(lib, fn)(*args, ctypes.cast(o, P))
+            need(rc == 0, f"{fn}{args}: CUDA error {rc}")
+            rows[label] = dict(smem_bytes=o[0], blocks_per_sm=o[1], registers=o[2],
+                               spill_bytes=o[3], chunk_rows=o[4])
+            print(f"  {label:16s} H={h} nh={nh} (wide): {o[0]} B shared memory per block, "
+                  f"{o[1]} blocks per SM, {o[2]} registers, {o[3]} B local (spill) per thread, "
+                  f"source chunks of {o[4]} rows")
+        out[f"H={h} nh={nh}"] = rows
+    return out
+
+
+def check_wide_kernels(torch, dev):
+    """Phase 15(a): K1 (four flag pairs), K2, K3, K7 and K8 at WIDE_CASES x
+    WIDE_SHAPES, WIDE_TOP and (WIDE_H, WIDE_NH) at every batch of SHAPES,
+    each against its plain version, bitwise
+    repeats, K7/K8 against K2/K3 on K1's stash; at WIDE_TIMED and (WIDE_H,
+    WIDE_NH) the ms of each kernel beside its plain version, bound and
+    share; the wide instantiations' occupancy.  Returns {kernel: figures}."""
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    cases = [(h, nh, B, A) for h, nh in WIDE_CASES for B, A in WIDE_SHAPES]
+    cases.append((*WIDE_TOP, *WIDE_TIMED))
+    # the wide slice's own width at every fragment batch it runs in (b)/(c)
+    cases += [(WIDE_H, WIDE_NH, B, A) for B, A in SHAPES
+              if (WIDE_H, WIDE_NH, B, A) not in cases]
+    for h, nh, B, A in cases:
+        need(not K.narrow_shapes(h, nh), f"H={h}, nh={nh} is a narrow shape")
+        c = edge_case(torch, K, gen, B, A, dev, h, nh)
+        per = {}
+        check_wide_case(torch, K, c, B, A, h, nh, per,
+                        timed=(h, nh, B, A) == (WIDE_H, WIDE_NH, *WIDE_TIMED))
+        for name, res in per.items():
+            o = out.setdefault(name, {"max_abs_err": 0.0, "cases": {}})
+            o["max_abs_err"] = max(o["max_abs_err"], res["max_abs_err"])
+            o["cases"][f"H={h} nh={nh} B={B} A={A}"] = res["max_abs_err"]
+            if "timed" in res:
+                o["timed"] = res["timed"]
+        del c
+        torch.cuda.empty_cache()
+    # the narrow instantiations at phase 4's width on the same batch, timed
+    # beside the wide case in the same process
+    print(f"  the narrow instantiations at H={H}, nh={NH}, B x A = {WIDE_TIMED}, for the times")
+    c = edge_case(torch, K, gen, *WIDE_TIMED, dev, H, NH)
+    per = {}
+    check_wide_case(torch, K, c, *WIDE_TIMED, H, NH, per, timed=True)
+    for name, res in per.items():
+        out[name]["narrow_timed"] = res["timed"]
+    del c
+    occ = wide_occupancy(torch, [(h, nh) for h, nh in WIDE_CASES] + [WIDE_TOP])
+    for name, label in (("edge_fwd", "K1 update store"), ("edge_bwd_msg", "K2"),
+                        ("edge_bwd_upd", "K3 centre"), ("edge_bwd_msg_rc", "K7"),
+                        ("edge_bwd_upd_rc", "K8 centre")):
+        out[name]["occupancy"] = {w: rows[label] for w, rows in occ.items()}
+    out["occupancy"] = occ
+    return out
+
+
+def wide_potential(torch, dev, prot, remat=False, h=WIDE_H, nh=WIDE_NH, layers=N_LAYERS):
+    """FragmentPotential for Chignolin at 9 x 512 with 4 heads of 128
+    channels (or layers x h with nh heads; random weights, seed 0) on the
+    card, as a user builds it."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    cfg = ViSNetConfig(num_layers=layers, hidden_channels=h, num_heads=nh, remat=remat)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange="mm", device=dev)
+    return pot, cfg, params
+
+
+def run_widths(torch, dev, prot, card, root, lone=None):
+    """Phase 15: (a) the edge kernels at every width (check_wide_kernels);
+    (b) Chignolin at 9 x 512 with 4 heads through the wide instantiations
+    of K1-K3, as phase 4 (``lone``: phase 4's launches, when it ran); (c)
+    the same weights with remat (K1 without a stash, K7/K8), one
+    evaluation against (b)'s step 0; (d) the CLI on those weights written
+    by save_converted; (e) AI2BMD_FUSED_LAYER=1 refuses the model naming
+    ROADMAP Queue 2; (f) a model at H % 32 != 0 against the CPU in float64,
+    its edge weights padded at its first evaluation and not again, both
+    evaluations within FORCE_LIMIT.
+    Returns its figures."""
+    from ai2bmd_torch.models import visnet as V
+    from ai2bmd_torch.models.checkpoint import save_converted
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    t_phase = time.perf_counter()
+    res = {}
+    print("  (a) K1 (four flag pairs), K2, K3, K7 and K8 at every width against their plain "
+          "versions")
+    res["kernels"] = check_wide_kernels(torch, dev)
+    res["a_s"] = time.perf_counter() - t_phase
+
+    print(f"  (b) Chignolin, ViSNet 9 x {WIDE_H}, {WIDE_NH} heads of {WIDE_H // WIDE_NH} "
+          f"channels, through the wide K1-K3")
+    pot, cfg, params = wide_potential(torch, dev, prot)
+    need(not pot.cfg.fused_layer and not pot.cfg.plain_edge_core and not pot.cfg.remat,
+         f"the wide model resolved to {pot.cfg}")
+    launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
+                                                              WIDE_KERNELS)
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
+        need(launches[name] > 0, f"kernel {name} was not launched on the wide path")
+        if lone is not None:
+            need(launches[name] == lone[name],
+                 f"{name}: {launches[name]} launches on the wide slice, {lone[name]} in phase 4")
+    for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc",
+                 "tf32x3_mm"):
+        need(launches[name] == 0, f"{name} ran on the wide slice")
+    torch.cuda.synchronize()
+    reset_launches()
+    pot.stateful_energy_forces(P, aux1)
+    torch.cuda.synchronize()
+    batches = len(pot.rt.dip_buckets) + 1
+    one = {n: LAUNCHES[n] for n in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")}
+    want = {"edge_fwd": N_LAYERS * batches, "edge_bwd_msg": N_LAYERS * batches,
+            "edge_bwd_upd": (N_LAYERS - 1) * batches, "cap_grad": 1}
+    print(f"  one warm evaluation launches {one} (phase 4's per evaluation: {want})")
+    need(one == want, f"the wide slice launches {one} an evaluation, not {want}")
+    t0 = time.perf_counter()
+    pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
+                                    longrange="mm", device="cpu")
+    cpu = torch.device("cpu")
+    e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
+                                                   aux0.to(cpu, torch.float64))
+    dF = float((f0.to(cpu, torch.float64) - f_ref).abs().max())
+    print(f"  step 0 vs CPU float64 plain: |dE| {abs(float(e0) - float(e_ref)):.3e} eV, max|dF| "
+          f"{dF:.3e} eV/A (limit {FORCE_LIMIT}); max|F| {float(f_ref.abs().max()):.3f} eV/A; "
+          f"reference took {time.perf_counter() - t0:.1f} s")
+    need(dF <= FORCE_LIMIT, f"wide step-0 forces differ from the float64 reference by {dF:.3e}")
+    del pot64
+    res.update(launches=launches, per_eval=one, ms_step_eager=ms_step, graphed=graphed,
+               step0_max_dF=dF)
+
+    print("  (c) the same weights with remat=True: one evaluation through K1 without its stash "
+          "and K7/K8")
+    pot_rc, _, _ = wide_potential(torch, dev, prot, remat=True)
+    need(pot_rc.cfg.remat and not pot_rc.cfg.fused_layer, f"remat model resolved to {pot_rc.cfg}")
+    torch.cuda.synchronize()
+    reset_launches()
+    e_rc, f_rc, _ = pot_rc.stateful_energy_forces(P, aux0)
+    torch.cuda.synchronize()
+    rc_launches = {n: v for n, v in LAUNCHES.items() if v}
+    dF_rc = float((f_rc - f0).abs().max())
+    print(f"  launches {rc_launches}; forces vs (b)'s step 0: max|dF| {dF_rc:.3e} eV/A, |dE| "
+          f"{abs(float(e_rc) - float(e0)):.3e} eV (limit {FORCE_LIMIT})")
+    need(LAUNCHES["edge_bwd_msg_rc"] == N_LAYERS * batches
+         and LAUNCHES["edge_bwd_upd_rc"] == (N_LAYERS - 1) * batches
+         and LAUNCHES["edge_fwd"] == N_LAYERS * batches
+         and LAUNCHES["edge_bwd_msg"] == 0 and LAUNCHES["edge_bwd_upd"] == 0,
+         f"the remat evaluation launched {rc_launches}")
+    need(dF_rc <= FORCE_LIMIT, f"remat forces differ from (b)'s step 0 by {dF_rc:.3e}")
+    res.update(remat_launches=rc_launches, remat_max_dF=dF_rc)
+    del pot_rc
+
+    print("  (d) python -m ai2bmd_torch --ckpt-path on these weights")
+    os.makedirs(root, exist_ok=True)
+    npz = os.path.join(root, f"visnet-chig-9x{WIDE_H}-{WIDE_NH}h.npz")
+    save_converted(npz, params, cfg)
+    d = os.path.join(root, "wide")
+    t0 = time.perf_counter()
+    txt = _cli_wait("wide", _cli_start(_cli_cmd(
+        d, "--ckpt-path", npz, "--preeq-steps", "0", "--sim-steps", str(WIDE_CLI_STEPS),
+        "--record-per-steps", str(WIDE_CLI_RECORD), "--timestep", str(USER_DT_FS))))
+    need("Simulation finished!" in txt, "the wide CLI run did not finish")
+    rows = _metrics(os.path.join(d, "chig-metrics.csv"))
+    line = cli_model_line(txt, "edge-core kernels K1-K3")
+    print(f"  exit 0 in {time.perf_counter() - t0:.1f} s, {WIDE_CLI_STEPS} steps at {USER_DT_FS} "
+          f"fs; metrics ms/step {[r['ms_per_step'] for r in rows]}; {line!r}")
+    need(f"ViSNet {N_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
+    res["cli_line"] = line
+
+    print("  (e) AI2BMD_FUSED_LAYER=1 on the same model")
+    old = os.environ.get("AI2BMD_FUSED_LAYER")
+    os.environ["AI2BMD_FUSED_LAYER"] = "1"
+    try:
+        wide_potential(torch, dev, prot)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        if old is None:
+            os.environ.pop("AI2BMD_FUSED_LAYER", None)
+        else:
+            os.environ["AI2BMD_FUSED_LAYER"] = old
+    print(f"  refused: {refused!r}")
+    need(refused is not None and "ROADMAP.md, Queue 2" in refused,
+         "AI2BMD_FUSED_LAYER=1 did not refuse the wide model naming ROADMAP Queue 2")
+    res["fused_refused"] = refused
+
+    print(f"  (f) Chignolin, ViSNet {PAD_LAYERS} x {PAD_H}, {PAD_NH} heads (H % 32 != 0): the "
+          f"edge weights padded once")
+    pot_p, cfg_p, params_p = wide_potential(torch, dev, prot, h=PAD_H, nh=PAD_NH,
+                                            layers=PAD_LAYERS)
+    layers = pot_p.module.params()["layers"]
+
+    def padded():
+        return [V._padded_edge_weights(lp, PAD_H, li == PAD_LAYERS - 1)
+                for li, lp in enumerate(layers)]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    e_p, f_p, _ = pot_p.stateful_energy_forces(P, aux0)
+    first = padded()
+    e_p2, f_p2, _ = pot_p.stateful_energy_forces(P, aux0)
+    torch.cuda.synchronize()
+    pad_launches = {n: v for n, v in LAUNCHES.items() if v}
+    same = all(a is b for x, y in zip(first, padded()) for a, b in zip(x, y))
+    need(same, "the padded edge weights were made again at the second evaluation")
+    need(LAUNCHES["edge_fwd"] == 2 * PAD_LAYERS * batches
+         and LAUNCHES["edge_bwd_upd"] == 2 * (PAD_LAYERS - 1) * batches
+         and LAUNCHES["plain_edge_core"] == 0, f"the padded model launched {pad_launches}")
+    pot64 = FragmentPotential.build(prot, ViSNet(cfg_p, params_p).to(torch.float64), cfg_p,
+                                    longrange="mm", device="cpu")
+    e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
+                                                   aux0.to(cpu, torch.float64))
+    dF_p, dF_p2 = (float((f.to(cpu, torch.float64) - f_ref).abs().max()) for f in (f_p, f_p2))
+    print(f"  launches over two evaluations {pad_launches}; vs CPU float64: |dE| "
+          f"{abs(float(e_p) - float(e_ref)):.3e} eV, max|dF| {dF_p:.3e} and {dF_p2:.3e} eV/A "
+          f"(limit {FORCE_LIMIT}); the two evaluations differ by "
+          f"{float((f_p - f_p2).abs().max()):.3e} eV/A; the same padded weights at the second")
+    need(max(dF_p, dF_p2) <= FORCE_LIMIT,
+         f"the padded model's forces differ from float64 by {max(dF_p, dF_p2):.3e}")
+    res.update(padded_max_dF=max(dF_p, dF_p2), padded_launches=pad_launches)
+    del pot_p, pot64, layers, first
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  wide slice (9 x {WIDE_H}, {WIDE_NH} heads): graphed {graphed['ms_step']:.3f} ms/step "
+          f"(events {graphed['ms_events']:.3f}), {graphed['kernels_per_step']:.0f} kernels a "
+          f"step, {100 * graphed['busy_share']:.1f}% busy; eager {ms_step:.3f}; step 0 max|dF| "
+          f"{dF:.3e}, remat {dF_rc:.3e}; (a) took {res['a_s']:.1f} s, phase 15 "
+          f"{res['phase_s']:.1f} s ({card})")
+    return res
+
+
+def wide_entry(p15, name):
+    """A kernel's figures of phase 15 for the kernels line: its largest error
+    over the wide cases, the timed case's ms, bound and share, and the wide
+    instantiation's occupancy by width."""
+    res = p15["kernels"][name]
+    return dict(max_abs_err=res["max_abs_err"], timed=res.get("timed"),
+                narrow_timed=res.get("narrow_timed"), occupancy=res["occupancy"],
+                slice_launches_per_eval=p15["per_eval"].get(name, 0),
+                remat_launches_per_eval=p15["remat_launches"].get(name, 0))
 
 
 def precision_entry(p14, name):
@@ -4220,7 +4622,8 @@ def precision_entry(p14, name):
                          gflop=lone["gflop"], mbytes=lone["mbytes"], max_abs_err=res["max_abs_err"],
                          head_widths=res["head_widths"], whole_molecule_A176_ms=whole["ms"],
                          whole_molecule_A176_bound_ms=whole["bound_ms"], bound_peak=MODE_UNIT[mode],
-                         step_ms=p14["step"][mode]["ms_step"], design_ms=lone.get("design_ms"))
+                         step_ms=p14["step"][mode]["ms_step"], design_ms=lone.get("design_ms"),
+                         wide=res.get("wide"))
         if mode == "default":
             out[mode]["bf16_share"] = res["bf16_share"]
     return out
@@ -4268,6 +4671,10 @@ def main(argv=None):
                     help="after the build, run only phase 14 (the kernels, the lone step and the "
                          "CLI under each products' mode and --matmul-precision), without the "
                          "final line")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="after the build, run only phase 15 (the edge kernels at every head and "
+                         "hidden width, and Chignolin at 9 x 512 with 4 heads through them), "
+                         "without the final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
@@ -4320,6 +4727,11 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.wide_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 15. every head and hidden width through the edge kernels (alone)")
+        run_widths(torch, dev, load_protein(example_pdb("chig")), card, root)
         return
     if args.precision_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -4421,6 +4833,11 @@ def main(argv=None):
           "--matmul-precision")
     p14 = run_precision(torch, dev, prot, card, root, ref)
     no_plain("14")
+    print(f"== 15. every head and hidden width through the edge kernels: K1-K3, K7, K8 at heads "
+          f"of 24 to 1024 channels and H = 40 to 1024 against their plain versions; Chignolin at "
+          f"9 x {WIDE_H} with {WIDE_NH} heads (graphed, remat, the CLI, AI2BMD_FUSED_LAYER=1)")
+    p15 = run_widths(torch, dev, prot, card, root, lone=launches)
+    no_plain("15")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -4456,7 +4873,10 @@ def main(argv=None):
     for k in kernels:      # phase 14: by products' mode
         if k["name"] != "cap_grad":
             k["precision_modes"] = precision_entry(p14, k["name"])
-    print("== 15. results")
+    for k in kernels:      # phase 15: the wide instantiations
+        if k["name"] in EDGE_NAMES:
+            k["wide"] = wide_entry(p15, k["name"])
+    print("== 16. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -4473,7 +4893,8 @@ def main(argv=None):
           f"{p12['wall_s']:.2f} s ({AMOEBA_MAX_CYC} cycles, {p12['cycle_ms']:.3f} ms a captured "
           f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; the lone step graphed (events) by "
           f"products' mode " + ", ".join(f"{m} {p14['step'][m]['ms_step']:.3f}" for m in MODES)
-          + "; "
+          + f"; the wide slice (9 x {WIDE_H}, {WIDE_NH} heads) graphed "
+          f"{p15['graphed']['ms_step']:.3f} (events {p15['graphed']['ms_events']:.3f}); "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

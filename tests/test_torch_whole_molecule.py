@@ -218,11 +218,13 @@ def test_full_layer_kernels_refuse_a_whole_molecule():
     """The edge kernels and the full-layer kernels K5/K6 both take any
     A % 8 == 0 up to EDGE_MAXA (abd is 752 slots), and their wrappers'
     check raises past it; heads of 64 channels (nh = 4 at H = 256) are
-    taken, and H > 256 raises naming the ROADMAP entry that keeps it
-    open."""
+    taken.  H > 256 is the edge kernels' (their wide instantiations, at
+    abd's width too) but not K5/K6's: check_layer_shapes raises naming the
+    ROADMAP entry that keeps it open."""
     assert TK.EDGE_MAXA >= 752
     TK.check_shapes(752, 256, 8, 8)
     TK.check_layer_shapes(752, 256, 8, 8)
+    TK.check_shapes(752, 512, 8, 8)
     with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
         TK.check_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
     with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
