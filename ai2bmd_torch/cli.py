@@ -279,6 +279,8 @@ def _model_line(cfg, device) -> str:
         path = f"the plain edge core on the card ({cfg.activation!r}/{cfg.attn_activation!r})"
     elif cfg.fused_layer:
         path = "full-layer kernels K5/K6"
+        if not narrow_shapes(cfg.hidden_channels, cfg.num_heads):
+            path += " (wide instantiations: K5, K6)"
     else:
         path = "edge-core kernels K1, K7/K8 (remat)" if cfg.remat else "edge-core kernels K1-K3"
         heads, update = (["K1", "K7"], ["K8"]) if cfg.remat else (["K1", "K2"], ["K3"])

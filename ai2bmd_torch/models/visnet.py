@@ -26,10 +26,10 @@ A model on the card with another activation than silu runs every edge core
 through its plain version, on the card, as the JAX package sends such a
 model to jnp: ``resolve_config`` sets ``plain_edge_core`` once when the
 model is configured and logs the reason; each such call on CUDA tensors adds
-one to ``LAUNCHES["plain_edge_core"]``.  A silu model of shapes the edge
-kernels do not take (H > 1024, S > 8) is refused on the card when it is
-configured, and so is one that asks for the full-layer kernels outside
-their narrower domain (``ops.vismp.unsupported_layer_shapes``).
+one to ``LAUNCHES["plain_edge_core"]``.  A silu model of shapes the kernels
+do not take (H > 1024, S > 8; ``ops.vismp.unsupported_shapes``, the edge
+and the full-layer kernels' one domain) is refused on the card when it is
+configured.
 
 Not ported (options of the JAX config that no production path sets):
 ``exact_rejection``, ``edge_dtype``, and the switches ``fused`` and the
@@ -52,8 +52,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from ai2bmd_torch.models import params as PM
 from ai2bmd_torch.ops import vislayer as FL
 from ai2bmd_torch.ops.vismp import (_ACTS, cosine_cutoff, edge_core, padded_weight,
-                                    plain_activations, unsupported_layer_shapes,
-                                    unsupported_shapes, wide_width)
+                                    plain_activations, unsupported_shapes, wide_width)
 
 __all__ = [
     "ViSNet", "ViSNetConfig", "atomwise_energy", "cosine_cutoff", "dense_graph",
@@ -85,9 +84,11 @@ class ViSNetConfig:
     # fused_layer=True runs each complete ViS-MP layer as one kernel pair
     # (ops/vislayer.py: K5 forward, recompute-mode K6 backward) instead of
     # the edge-core kernels K1-K3 and the eager node side.  Needs silu
-    # activations, vecnorm "none" and A % 8 == 0, and on the card A <= 1024
-    # (a fragment or a whole molecule; raises otherwise).  Weight gradients
-    # are not computed on this path: training uses the default.
+    # activations, vecnorm "none" and A % 8 == 0 (a fragment or a whole
+    # molecule of any size; raises otherwise), and takes every width the
+    # edge kernels take (on the card at H % 32 != 0 with each layer's
+    # weights padded once).  Weight gradients are not computed on this
+    # path: training uses the default.
     fused_layer: bool = False
     # remat=True runs the edge core's backward in recompute mode (kernels
     # K7/K8, the plain versions on the CPU): less device memory for large
@@ -115,13 +116,11 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     model on the card with other activations than silu (``ops.vismp.
     plain_activations``) gets the explicit plain route instead
     (``plain_edge_core``), with one logged line naming the reason; a silu
-    model of shapes the kernels do not take raises here, once, naming
-    ROADMAP.md Queue 2, and so does a model that asks for K5/K6
-    (``fused_layer`` or ``AI2BMD_FUSED_LAYER=1``) at shapes they do not take
-    (heads of other than 8, 16, 32 or 64 channels, H past 256): it never
-    falls back to K1-K3 or the plain edge core.  A config with
-    ``fused_layer`` already set, or a model on the CPU, is returned as it
-    is; H not a multiple of the head count raises."""
+    model of shapes the kernels do not take (K1-K3 and K5/K6 take the same
+    ones) raises here, once, naming ROADMAP.md Queue 2: it never falls back
+    to the plain edge core.  A config with ``fused_layer`` already set, or
+    a model on the CPU, is returned as it is; H not a multiple of the head
+    count raises."""
     if cfg.hidden_channels % cfg.num_heads:
         raise ValueError(f"hidden_channels={cfg.hidden_channels} is not a multiple of "
                          f"num_heads={cfg.num_heads}")
@@ -138,14 +137,9 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     if shapes is not None:
         raise ValueError(f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} "
                          f"heads on the card: {shapes}")
-    if not cfg.fused_layer and os.environ.get("AI2BMD_FUSED_LAYER") != "1":
+    if cfg.fused_layer or os.environ.get("AI2BMD_FUSED_LAYER") != "1":
         return cfg
-    layer = unsupported_layer_shapes(cfg.hidden_channels, cfg.num_heads, cfg.n_sphere)
-    if layer is not None:
-        raise ValueError(f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} "
-                         f"heads on the card with the full-layer kernels (fused_layer or "
-                         f"AI2BMD_FUSED_LAYER=1): {layer}")
-    return cfg if cfg.fused_layer else dataclasses.replace(cfg, fused_layer=True)
+    return dataclasses.replace(cfg, fused_layer=True)
 
 
 def _linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -246,11 +240,24 @@ def dense_graph(pos: torch.Tensor, mask: torch.Tensor, cfg: ViSNetConfig):
     return adj, adj_ns, dist, spherical_harmonics(vec * inv, cfg.lmax)
 
 
-# A layer's edge-core weights zero-padded for the wide kernels (H % 32 != 0),
-# keyed on its s_proj weight: made at the first evaluation on the card and
-# kept while the layer's weights are the same tensors at the same versions,
-# so a graphed step replays no padding.
+# A layer's weights zero-padded for the wide kernels (H % 32 != 0): the
+# edge-core weights of the per-layer path (_PADDED) and the full-layer
+# route's tuple (_PADDED_LAYER), each keyed on the layer's s_proj weight:
+# made at the first evaluation on the card and kept while the layer's
+# weights are the same tensors at the same versions, so a graphed step
+# replays no padding.
 _PADDED = WeakIdKeyDictionary()
+_PADDED_LAYER = WeakIdKeyDictionary()
+
+
+def _padded_once(cache, key, src, make):
+    """make() for the weights ``src``, kept in ``cache`` under ``key`` while
+    they are the same tensors at the same versions."""
+    hit = cache.get(key)
+    if hit is None or len(hit[0]) != len(src) or any(
+            r() is not t or u != t._version for (r, u), t in zip(hit[0], src)):
+        hit = cache[key] = ([(weakref.ref(t), t._version) for t in src], make())
+    return hit[1]
 
 
 def _padded_edge_weights(lp: dict, H: int, last: bool):
@@ -258,13 +265,17 @@ def _padded_edge_weights(lp: dict, H: int, last: bool):
     (``ops.vismp.padded_weight``), padded once per model."""
     src = tuple(lp[k]["w"] for k in ("dk_proj", "dv_proj", "s_proj")
                 + (() if last else ("f_proj",)))
-    hit = _PADDED.get(src[2])
-    if hit is None or len(hit[0]) != len(src) or any(
-            r() is not t or u != t._version for (r, u), t in zip(hit[0], src)):
-        w = (padded_weight(torch.cat(src[:2], dim=1), H, 2), padded_weight(src[2], H, 2),
-             None if last else padded_weight(src[3], H))
-        hit = _PADDED[src[2]] = ([(weakref.ref(t), t._version) for t in src], w)
-    return hit[1]
+    return _padded_once(_PADDED, src[2], src, lambda: (
+        padded_weight(torch.cat(src[:2], dim=1), H, 2), padded_weight(src[2], H, 2),
+        None if last else padded_weight(src[3], H)))
+
+
+def _padded_layer_weights(lp: dict, H: int, nh: int, last: bool, dtype):
+    """One layer's fused-layer weight tuple as K5/K6's wide instantiation
+    reads it (``ops.vislayer.padded_layer_weights``), padded once per model."""
+    src = tuple(t for k in sorted(lp) for t in lp[k].values())
+    return _padded_once(_PADDED_LAYER, lp["s_proj"]["w"], src, lambda: FL.padded_layer_weights(
+        FL.layer_weights(lp, H, nh, last, dtype), H))
 
 
 def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConfig,
@@ -353,7 +364,8 @@ def representation(params: dict, z, pos, mask, cfg: ViSNetConfig):
 def _fused_layer_stack(params: dict, x, edge_attr, dist, d_sh, adj_f, cfg: ViSNetConfig):
     """The MP stack through ``ops.vislayer.fused_layer`` (visnet.py:506-536):
     the vector stream stays sphere-major [B,S,A,H] across the layers and is
-    transposed once at the stack's entry and exit."""
+    transposed once at the stack's entry and exit.  On the card at H % 32
+    != 0 each layer's weights go padded (``_padded_layer_weights``)."""
     B, A, H = x.shape
     silu = ("silu", "swish")
     if (A % 8 or cfg.vecnorm_type != "none" or cfg.activation not in silu
@@ -367,7 +379,9 @@ def _fused_layer_stack(params: dict, x, edge_attr, dist, d_sh, adj_f, cfg: ViSNe
     for li, lp in enumerate(params["layers"]):
         last = li == cfg.num_layers - 1
         op = FL.fused_layer(cfg.cutoff, cfg.num_heads, last)
-        w = FL.layer_weights(lp, H, cfg.num_heads, last, x.dtype)
+        w = (_padded_layer_weights(lp, H, cfg.num_heads, last, x.dtype)
+             if x.is_cuda and wide_width(H) != H else
+             FL.layer_weights(lp, H, cfg.num_heads, last, x.dtype))
         x, vec_sm, edge_attr = op(x, vec_sm, edge_attr, dsh_sm, dist, adj_f, *w)
     x = layer_norm(params["out_norm"], x)
     vec = vec_layer_norm(params["vec_out_norm"], vec_sm.transpose(1, 2), cfg.vecnorm_type,

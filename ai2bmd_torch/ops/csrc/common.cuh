@@ -77,12 +77,13 @@ constexpr int MAXA = 48;
 // Every centre pass (K1-K3, K7, K8, and K5/K6's centre passes) walks a
 // centre's sources in chunks of at most ECHUNK rows: shared memory and
 // per-row registers are sized by the chunk, not by A, so they take any
-// A % 8 == 0 up to EDGE_MAXA.  Every fragment shape (A <= 48) is one chunk.
+// A % 8 == 0, as the TPU's dense kernels do (vislayer.py:440, :495): a
+// fragment (A <= 48, one chunk) or a whole molecule of any size.  No slot
+// count is capped.  Every index into an edge tensor ([B A A][up to 5 Hp],
+// past 2^31 elements at A = 1112 and H = 512) or a per-atom tensor is a
+// size_t, the block's row and chunk offsets included; only shared-memory
+// and per-chunk indices are int.  The card's memory bounds A.
 constexpr int ECHUNK = 48;
-// Largest slot count the edge and full-layer kernels take: a whole molecule
-// (abd, the largest bundled protein, is 752 slots).  Every index that can
-// pass 2^31 at B A^2 3H elements is a size_t.
-constexpr int EDGE_MAXA = 1024;
 // Rows go in chunks of RCHUNK, and a slot count is a multiple of it (the
 // fragment indexer rounds slots to 8): a guard per chunk instead of per row
 // lets the compiler batch a chunk's loads and warp reductions.

@@ -45,8 +45,8 @@
 // Since K1 and K7 take the same product on the same rows, K7's zdkv and
 // zs, and so its results, equal K2's on K1's stash bitwise.
 // Pass 1 walks the centre's sources in chunks of at most ECHUNK = 48 rows
-// (common.cuh): a fragment (A <= 48) is one chunk, a whole molecule (A up
-// to EDGE_MAXA) several.  Every output of pass 1 but g_q is per edge row;
+// (common.cuh): a fragment (A <= 48) is one chunk, a whole molecule (any
+// A % 8 == 0) several.  Every output of pass 1 but g_q is per edge row;
 // g_q's sum over j is taken per chunk and added, chunk after chunk, to what
 // the same thread wrote for the chunks before (a fixed order, no atomics;
 // at A <= 48 the single-chunk kernel's arithmetic, bit for bit).  K2 and K7
@@ -539,7 +539,7 @@ static int launch_msg(const float* q, const float* k, const float* v, const floa
                   float* gvec, float* gedge, float* gdsh, float* gdist, float* gk_e,
                   float* gv_e, float* s1_e, int B, int A, int H, int S, float cutoff, int dh,
                   cudaStream_t stream) {
-  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
+  if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
   if (!narrow_shapes(H, H / dh)) {
     const int nh = H / dh, T = wide_threads(H), CH = wide_chunk(msg_wide_row_bytes(H, S, nh));

@@ -298,7 +298,7 @@ static int launch_upd(const float* zf, const float* edge, const float* wf, const
                       const float* adj, const float* wt, const float* wsrc, const float* gdf,
                       float* gedge, float* gwt, float* gwsrc, float* gs_e, float* gz, int B,
                       int A, int H, int S, cudaStream_t stream) {
-  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H > WIDE_MAXH || ((size_t)wf & 15) ||
+  if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || ((size_t)wf & 15) ||
       ((size_t)gedge & 7))
     return (int)cudaErrorInvalidValue;
   if (!narrow_update(H)) {

@@ -25,7 +25,7 @@
 // Design: one block per (fragment, centre atom i), one thread per channel
 // for the elementwise chains.  The block walks the centre's sources in
 // chunks of at most ECHUNK = 48 rows (common.cuh), so a fragment (A <= 48)
-// is one chunk and a whole molecule (A up to EDGE_MAXA) several.  Two
+// is one chunk and a whole molecule (any A % 8 == 0) several.  Two
 // [chunk][H + 4] buffers in shared memory (85 KB at A = 40, 102 KB for a
 // chunk of 48, two blocks an SM): sE holds the chunk's edge rows and then
 // v_ij, sP each product's output in turn.  The sums over sources (x_agg,
@@ -401,7 +401,7 @@ extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, c
                                float* vecagg, float* df, float* zdkv, float* zs, float* zf,
                                int B, int A, int H, int S, float cutoff, int update, int store,
                                int dh, cudaStream_t stream) {
-  if (A > EDGE_MAXA || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
+  if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
   if (update) {
     if (store)

@@ -109,20 +109,26 @@ struct BiasStore {
 // SMs idle); the B*S*A vector rows 64-row tiles; edge rows 128-row tiles.
 constexpr int NODE_TM = 16, VEC_TM = 64, EDGE_TM = 128;
 
-// The node prologue both directions share: xn and vecn, then
-// qkv = xn @ W_qkv + b_qkv and proj = vecn @ [W_vp | W_t | W_src].
+// The node-side products of the prologue, on rows of W floats (H, or Hp
+// in the wide instantiation): qkv = xn @ W_qkv + b_qkv and
+// proj = vecn @ [W_vp | W_t | W_src].
+static inline cudaError_t launch_node_products(const Layer& p, int W, cudaStream_t stream) {
+  const size_t M = (size_t)p.B * p.A, Mv = (size_t)p.B * p.S * p.A;
+  cudaError_t err = launch_row_tile<NODE_TM, false>(p.xn, W, M, W, 3 * W, wseg(p.w_qkv, 3 * W),
+                                                    BiasStore{p.qkv, 3 * W, p.b_qkv}, stream);
+  if (err != cudaSuccess) return err;
+  return launch_row_tile<VEC_TM, false>(
+      p.vecn, W, Mv, W, p.NP * W, wseg(p.w_vp, 3 * W, 3 * W, p.w_t, W, 4 * W, p.w_src, W),
+      BiasStore{p.proj, p.NP * W, nullptr}, stream);
+}
+
+// The node prologue both directions share: xn and vecn, then the products.
 static inline cudaError_t launch_node_prologue(const Layer& p, cudaStream_t stream) {
-  const int H = p.H;
   const size_t M = (size_t)p.B * p.A, Mv = (size_t)p.B * p.S * p.A;
   node_prep<<<(unsigned)((M + Mv + 7) / 8), 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = launch_row_tile<NODE_TM, false>(p.xn, H, M, H, 3 * H, wseg(p.w_qkv, 3 * H),
-                                        BiasStore{p.qkv, 3 * H, p.b_qkv}, stream);
-  if (err != cudaSuccess) return err;
-  return launch_row_tile<VEC_TM, false>(
-      p.vecn, H, Mv, H, p.NP * H, wseg(p.w_vp, 3 * H, 3 * H, p.w_t, H, 4 * H, p.w_src, H),
-      BiasStore{p.proj, p.NP * H, nullptr}, stream);
+  return launch_node_products(p, p.H, stream);
 }
 
 // Per-centre pieces: one block per (fragment b, centre atom i), one thread
@@ -145,8 +151,119 @@ __device__ __forceinline__ float head_pre(float qi, float kr, float dk) {
   return head_sum<DH>(qi * kr * dk);
 }
 
-inline bool layer_shapes_ok(int A, int H, int S) {
-  return A <= EDGE_MAXA && A % RCHUNK == 0 && S <= MAXS && H % 32 == 0 && H <= 256 && H >= 32;
+// The shapes K5 and K6 take (``layer_shapes`` and ``check_layer_shapes`` in
+// ops/vismp.py): any A % 8 == 0, S <= 8, and every H up to WIDE_MAXH that
+// the head count H / dh divides.  The narrow instantiations take
+// narrow_shapes(H, H / dh) (common.cuh, as K1, K2 and K7 choose), the wide
+// ones the rest.
+inline bool layer_shapes_ok(int A, int H, int S, int dh) {
+  return A > 0 && A % RCHUNK == 0 && S <= MAXS && H > 0 && H <= WIDE_MAXH && dh > 0 &&
+         H % dh == 0;
+}
+
+// ---------------------------------------------------------------------------
+// The wide instantiation of K5 and K6
+// ---------------------------------------------------------------------------
+//
+// Every shape but the narrow ones: heads of any width, any H up to
+// WIDE_MAXH.  As the edge kernels' wide instantiations (common.cuh):
+// - every scratch row (xn, vecn, qkv, proj, o, x_agg, z, v_e, s_e, g_e,
+//   gS_e, xo, xv, g_xagg, g_qkv, g_vecn, g_xhat) is Hp = wide_width(H)
+//   floats a segment, and every weight and bias is zero-padded to Hp a
+//   segment (W_qkv [Hp][3 Hp], b_qkv [3 Hp], ..., ln_s [Hp]; the model pads
+//   them once, ops/vislayer.padded_layer_weights), so every product is a
+//   row_tile as in the narrow kernels, K a multiple of 32 and rows 16-byte
+//   aligned;
+// - the residual streams stay at H, as the model holds them: x, vec and
+//   edge in, x', vec' and edge' out, and the cotangents gx2, gvec2, gedge2
+//   in and gx, gvec, gedge out.  A stage reads a stream's channel c < H
+//   only and writes none past it.  At H % 32 != 0 the edge rows, which the
+//   edge products read as X, are first copied into a padded scratch
+//   (v_e, free until the message fills it: pad_rows); at H % 32 == 0 the
+//   products read the stream itself.  Working at Hp throughout instead
+//   would pad the [B, A, A, H] edge stream and slice its cotangent around
+//   every layer stack, and carry padded channels through the residuals;
+// - a padded channel of a scratch row is 0 after every stage that writes
+//   it (the products read it, and 0 times an unwritten NaN is NaN);
+// - at most 256 threads a block (wide_threads), each looping over the
+//   channels t, t + 256, ...; the LayerNorm statistics run over the H
+//   channels, not Hp;
+// - a head sums its dh channels in order from shared memory
+//   (block_head_sums, common.cuh), between block barriers, one (row, head)
+//   a thread; a centre pass stages a chunk of wide_chunk rows.  K5 and K6
+//   stage the same terms (layer_term) in the same order, so K6's
+//   recomputed a_ij equals K5's bitwise;
+// - the sums over all channels (g_dist, g_d_sh) take each thread's channels
+//   in order, then the warp (warp_sum), then the warps in order.
+// Every sum runs in a fixed order: the wide kernels are bitwise repeatable.
+
+// Channels a thread of a wide block takes, at most: WIDE_MAXH / 256.
+constexpr int WIDE_MAXC = WIDE_MAXH / 256;
+
+// One channel's term of the attention pre-activation a_ij = sum_head
+// q_i k_j dk, as both directions' wide instantiations stage it.
+__device__ __forceinline__ float layer_term(float qi, float kr, float dk) { return qi * kr * dk; }
+
+// xn = LayerNorm(x) (statistics over the H channels) and vecn = vec * w_vln
+// at Hp, 0 past H; one warp a row, as node_prep.
+static __global__ void __launch_bounds__(256) node_prep_wide(const Layer p, int Hp) {
+  const int H = p.H, lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * 8 + threadIdx.x / 32;
+  const size_t M = (size_t)p.B * p.A, Mv = (size_t)p.B * p.S * p.A;
+  if (row < M) {
+    const float* x = p.x + row * H;
+    float mu, rs;
+    row_stats(x, H, mu, rs);
+    for (int k = lane; k < Hp; k += 32)
+      p.xn[row * Hp + k] = k < H ? fmaf((x[k] - mu) * rs, p.ln_s[k], p.ln_b[k]) : 0.0f;
+  } else if (row < M + Mv) {
+    const size_t v = row - M;
+    for (int k = lane; k < Hp; k += 32)
+      p.vecn[v * Hp + k] = k < H ? p.vec[v * H + k] * p.vln_w[k] : 0.0f;
+  }
+}
+
+// dst [rows][Hp] = src [rows][H], 0 past H.
+static __global__ void __launch_bounds__(256) pad_rows(float* __restrict__ dst,
+                                                       const float* __restrict__ src,
+                                                       size_t rows, int H, int Hp) {
+  const size_t n = rows * Hp;
+  for (size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x; x < n;
+       x += (size_t)gridDim.x * blockDim.x) {
+    const size_t r = x / Hp;
+    const int c = (int)(x - r * Hp);
+    dst[x] = c < H ? src[r * H + c] : 0.0f;
+  }
+}
+
+// The X rows of the edge products: the edge stream itself at H == Hp, else
+// its copy at Hp in `scratch`.
+static inline cudaError_t padded_edge_rows(const Layer& p, int Hp, float* scratch,
+                                           const float** X, cudaStream_t stream) {
+  *X = p.edge;
+  if (Hp == p.H) return cudaSuccess;
+  const size_t E = (size_t)p.B * p.A * p.A, blocks = (E * Hp + 255) / 256;
+  pad_rows<<<(unsigned)(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, stream>>>(
+      scratch, p.edge, E, p.H, Hp);
+  *X = scratch;
+  return cudaGetLastError();
+}
+
+// The wide node prologue: xn and vecn at Hp, then the products at Hp.
+static inline cudaError_t launch_node_prologue_wide(const Layer& p, int Hp,
+                                                    cudaStream_t stream) {
+  const size_t M = (size_t)p.B * p.A, Mv = (size_t)p.B * p.S * p.A;
+  node_prep_wide<<<(unsigned)((M + Mv + 7) / 8), 256, 0, stream>>>(p, Hp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_node_products(p, Hp, stream);
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's attribute set first.
+template <class Kern>
+static cudaError_t allow_smem(Kern kern, size_t smem) {
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace ai2bmd

@@ -54,7 +54,7 @@
 // (common.cuh): it stages a chunk's adj, gates and cutoff derivatives, and
 // reduces the chunk's cross-warp partials of g_dist and g_d_sh (per edge,
 // so no sum crosses a chunk) before the next chunk; g_q is one register
-// chain over all rows.  So it takes any A % 8 == 0 up to EDGE_MAXA, and at
+// chain over all rows.  So it takes any A % 8 == 0 (no cap), and at
 // A <= 48 gives the single-chunk kernel's bits.  The head sums (a_ij and its
 // cotangent) take DH = H / nh lanes, a template parameter (head_sum<DH>).
 // Every sum runs in a fixed order: the kernel is bitwise repeatable.
@@ -431,6 +431,436 @@ cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
       GvecEpi{p}, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wide instantiation (vislayer.cuh): the same stages at Hp; the per-row,
+// per-centre and per-source passes loop a thread over its channels, heads
+// sum through shared memory, and the cotangents of the streams are written
+// at H.
+// ---------------------------------------------------------------------------
+
+// (a), wide: the node-update products' X rows at Hp (0 past H).
+__global__ void __launch_bounds__(256) vislayer_bwd_node_rows_wide(const Layer p, int Hp) {
+  const int t = threadIdx.x, T = blockDim.x, H = p.H, A = p.A, S = p.S, ldp = p.NP * Hp;
+  const size_t row = blockIdx.x, b = row / A, a = row % A;
+  for (int ch = t; ch < Hp; ch += T) {
+    const float gxv = ch < H ? p.gx2[row * H + ch] : 0.0f;
+    const float o1 = p.o[row * 3 * Hp + ch], gvd = gxv * p.o[row * 3 * Hp + Hp + ch];
+    float g1 = 0.0f, vdot = 0.0f;
+    for (int c = 0; c < S; ++c) {
+      const size_t v = (b * S + c) * A + a;
+      const float* pr = p.proj + v * ldp;
+      const float gv2 = ch < H ? p.gvec2[v * H + ch] : 0.0f;
+      g1 = fmaf(gv2, pr[2 * Hp + ch], g1);
+      vdot = fmaf(pr[ch], pr[Hp + ch], vdot);
+      float* xv = p.xv + v * ldp;
+      xv[ch] = gvd * pr[Hp + ch];
+      xv[Hp + ch] = gvd * pr[ch];
+      xv[2 * Hp + ch] = gv2 * o1;
+    }
+    float* xo = p.xo + row * 3 * Hp;
+    xo[ch] = g1;
+    xo[Hp + ch] = gxv * vdot;
+    xo[2 * Hp + ch] = gxv;
+  }
+}
+
+// (b), wide: as EdgeEpi at Hp; gedge2 is read at H (0 past it).
+struct EdgeEpiWide {
+  Layer p;
+  int Hp;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const int H3 = 3 * Hp;
+    if (n < 2 * Hp) {
+      *reinterpret_cast<float2*>(p.z + r * H3 + n) =
+          make_float2(v0 + p.b_dkv[n], v1 + p.b_dkv[n + 1]);
+      return;
+    }
+    const int ch = n - 2 * Hp, H = p.H, A = p.A, S = p.S, ldp = p.NP * Hp;
+    const EdgeRow e(r, A);
+    float2 sdot = make_float2(0.0f, 0.0f);
+    for (int c = 0; c < S; ++c) {
+      const size_t v = (size_t)e.b * S + c;
+      const float2 wt = *reinterpret_cast<const float2*>(p.proj + (v * A + e.i) * ldp + 3 * Hp + ch);
+      const float2 ws = *reinterpret_cast<const float2*>(p.proj + (v * A + e.j) * ldp + 4 * Hp + ch);
+      sdot.x = fmaf(wt.x, ws.x, sdot.x);
+      sdot.y = fmaf(wt.y, ws.y, sdot.y);
+    }
+    const float a = p.adj[r];
+    const float ge0 = ch < H ? p.gedge2[r * H + ch] : 0.0f;
+    const float ge1 = ch + 1 < H ? p.gedge2[r * H + ch + 1] : 0.0f;
+    const float z0 = v0 + p.b_f[ch], z1 = v1 + p.b_f[ch + 1];
+    const float g0 = ge0 * a, g1 = ge1 * a;
+    *reinterpret_cast<float2*>(p.gS_e + r * Hp + ch) = make_float2(g0 * silu(z0), g1 * silu(z1));
+    *reinterpret_cast<float2*>(p.z + r * H3 + 2 * Hp + ch) =
+        make_float2(g0 * sdot.x * dsilu(z0), g1 * sdot.y * dsilu(z1));
+  }
+};
+
+// (d), wide: as SEpi at Hp.
+struct SEpiWide {
+  Layer p;
+  int Hp;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const float a = p.adj[r];
+    const float z0 = v0 + p.b_s[n], z1 = v1 + p.b_s[n + 1];
+    *reinterpret_cast<float2*>(p.s_e + r * 2 * Hp + n) = make_float2(silu(z0) * a, silu(z1) * a);
+    float2* g = reinterpret_cast<float2*>(p.g_e + r * 2 * Hp + n);
+    const float2 gs = *g;
+    *g = make_float2(gs.x * a * dsilu(z0), gs.y * a * dsilu(z1));
+  }
+};
+
+// (e), wide: g_vij = g_s @ W_s^T + g_xagg_i -> v_e at Hp.
+struct GvEpiWide {
+  Layer p;
+  int Hp;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const size_t bi = r / p.A;
+    const float2 gx = *reinterpret_cast<const float2*>(p.gxagg + bi * Hp + n);
+    *reinterpret_cast<float2*>(p.v_e + r * Hp + n) = make_float2(v0 + gx.x, v1 + gx.y);
+  }
+};
+
+// (g) and (i), wide: y[r][n] = acc + add[r][n] (add may be null), or
+// gvec = gvec2 + (g_vecn + acc) * w_vln (gvecn set), for the H channels of
+// a stream (row stride H), one channel at a time.
+struct StreamStore {
+  Layer p;
+  int Hp;
+  float* y;
+  const float* add;
+  bool gvec;
+  __device__ __forceinline__ void put(size_t r, int n, float v) const {
+    const size_t o = r * p.H + n;
+    y[o] = gvec ? p.gvec2[o] + (p.gvecn[r * Hp + n] + v) * p.vln_w[n]
+                : (add != nullptr ? v + add[o] : v);
+  }
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    if (n < p.H) put(r, n, v0);
+    if (n + 1 < p.H) put(r, n + 1, v1);
+  }
+};
+
+// (c), wide: one block per edge row, as vislayer_bwd_rows; the row's head
+// terms into shared memory and their head sums (block_head_sums), then a
+// thread a channel at a time (0 past H).
+__global__ void __launch_bounds__(256) vislayer_bwd_rows_wide(const Layer p, int Hp, int nh) {
+  extern __shared__ __align__(16) float smem[];
+  float* sT = smem;        // [Hp] head terms
+  float* sA = sT + Hp;     // [nh] a_ij
+  const int t = threadIdx.x, T = blockDim.x, A = p.A, H = p.H, dh = H / nh, H3 = 3 * Hp,
+            S = p.S;
+  const size_t e = blockIdx.x;
+  const EdgeRow r(e, A);
+  const size_t bj = r.b0 + r.j;
+  for (int ch = t; ch < H; ch += T)
+    sT[ch] = layer_term(p.qkv[r.bi * H3 + ch], p.qkv[bj * H3 + Hp + ch], silu(p.z[e * H3 + ch]));
+  block_head_sums(sT, Hp, 1, nh, dh, sA);
+  const float gate = cosine_cutoff(p.dist[e], p.cutoff) * p.adj[e];
+  for (int ch = t; ch < Hp; ch += T) {
+    float vij = 0.0f, g1 = 0.0f, g2 = 0.0f;
+    if (ch < H) {
+      vij = p.qkv[bj * H3 + 2 * Hp + ch] * silu(p.z[e * H3 + Hp + ch]) *
+            (silu(sA[ch / dh]) * gate);
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          const size_t v = ((size_t)r.b * S + c) * A;
+          const float gv = p.gvec2[(v + r.i) * H + ch];
+          g1 = fmaf(gv, p.vecn[(v + r.j) * Hp + ch], g1);
+          g2 = fmaf(gv, p.dsh[(v + r.i) * A + r.j], g2);
+        }
+      }
+    }
+    p.v_e[e * Hp + ch] = vij;
+    p.g_e[e * 2 * Hp + ch] = g1;
+    p.g_e[e * 2 * Hp + Hp + ch] = g2;
+  }
+}
+
+// (c) below the last layer, wide: g_wt_i[c] = sum_j g_Sij ws_j[c] -> xv at
+// Hp, a thread a channel at a time, fixed order over j.
+__global__ void __launch_bounds__(256) vislayer_bwd_gwt_wide(const Layer p, int Hp) {
+  const int t = threadIdx.x, T = blockDim.x, A = p.A, S = p.S, ldp = p.NP * Hp;
+  const size_t b = blockIdx.y, i = blockIdx.x, bi = b * A + i;
+  for (int ch = t; ch < Hp; ch += T) {
+    float acc[MAXS];
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) acc[c] = 0.0f;
+#pragma unroll 4
+    for (int r = 0; r < A; ++r) {
+      const float gS = p.gS_e[(bi * A + r) * Hp + ch];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c)
+        if (c < S) acc[c] = fmaf(gS, p.proj[((b * S + c) * A + r) * ldp + 4 * Hp + ch], acc[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c)
+      if (c < S) p.xv[((b * S + c) * A + i) * ldp + 3 * Hp + ch] = acc[c];
+  }
+}
+
+// shared memory of the wide centre pass a source row: the head terms (then
+// g_g3 gate), a_ij and their cotangents' head sums, adj, gate, the cutoff's
+// derivative, the warps' partials of g_dist and g_d_sh
+static size_t centre_wide_row_bytes(int Hp, int nh, int S, int warps) {
+  return (size_t)(Hp + 2 * nh + 3 + warps + warps * S) * sizeof(float);
+}
+
+// rows of the wide centre pass's source chunk
+static int centre_wide_chunk(int H, int nh, int S) {
+  return wide_chunk(centre_wide_row_bytes(wide_width(H), nh, S, wide_threads(H) / 32));
+}
+
+// (f), wide: the attention backward of vislayer_bwd_centre, per chunk of CH
+// sources: the head terms and a_ij (block_head_sums, as K5 stages them);
+// then a row at a time, each thread over its channels, g_g3 gate into sT
+// and the terms of g_dist and g_d_sh summed over the thread's channels, the
+// warp (warp_sum) and, after the chunk, the warps in order; the head sums
+// of g_g3 gate; then a thread a channel at a time: g_q_i (one register
+// chain a channel over all rows), the g_k and g_v terms -> g_e, g_dkv ->
+// z[:, :2 Hp] (0 past H).
+__global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, int Hp, int nh,
+                                                                int CH) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = threadIdx.x, T = blockDim.x, w = t / 32, lane = t % 32, NW = T / 32;
+  const int A = p.A, H = p.H, dh = H / nh, H3 = 3 * Hp, S = p.S;
+  float* sT = smem;                     // [CH][Hp] head terms, then g_g3 gate
+  float* sA = sT + CH * Hp;             // [CH][nh] a_ij
+  float* sGa = sA + CH * nh;            // [CH][nh] head sums of g_g3 gate
+  float* sAdj = sGa + CH * nh;          // [CH]
+  float* sGate = sAdj + CH;             // [CH]
+  float* sDcut = sGate + CH;            // [CH]
+  float* sRedCut = sDcut + CH;          // [NW][CH]
+  float* sRedDsh = sRedCut + NW * CH;   // [NW][S][CH]
+  const size_t bi = (size_t)blockIdx.y * A + blockIdx.x, b0 = bi - blockIdx.x, b = blockIdx.y,
+               i = blockIdx.x;
+  const float kpi = 3.14159265358979323846f / p.cutoff;
+  float gqi[WIDE_MAXC];
+#pragma unroll
+  for (int j = 0; j < WIDE_MAXC; ++j) gqi[j] = 0.0f;
+  for (int c0 = 0; c0 < A; c0 += CH) {
+    const int n = A - c0 < CH ? A - c0 : CH;
+    const size_t e0 = bi * A + c0, s0 = b0 + c0;
+    if (c0) __syncthreads();  // every thread is done with the last chunk's rows and partials
+    for (int r = t; r < n; r += T) {
+      const float a = p.adj[e0 + r], d = p.dist[e0 + r];
+      sAdj[r] = a;
+      sGate[r] = cosine_cutoff(d, p.cutoff) * a;
+      sDcut[r] = d < p.cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+    }
+    for (int ch = t; ch < H; ch += T) {
+      const float qi = p.qkv[bi * H3 + ch];
+      for (int r = 0; r < n; ++r)
+        sT[r * Hp + ch] = layer_term(qi, p.qkv[(s0 + r) * H3 + Hp + ch],
+                                     silu(p.z[(e0 + r) * H3 + ch]));
+    }
+    block_head_sums(sT, Hp, n, nh, dh, sA);
+    for (int r = 0; r < n; ++r) {
+      const size_t e = e0 + r;
+      const float gate = sGate[r];
+      float cut = 0.0f, dsh[MAXS];
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) dsh[c] = 0.0f;
+      for (int ch = t; ch < H; ch += T) {
+        const float gvij = p.v_e[e * Hp + ch];
+        const float vr = p.qkv[(s0 + r) * H3 + 2 * Hp + ch];
+        const float g_g3 = gvij * vr * silu(p.z[e * H3 + Hp + ch]);
+        cut = fmaf(g_g3, silu(sA[r * nh + ch / dh]), cut);
+        sT[r * Hp + ch] = g_g3 * gate;
+        const float s2 = p.s_e[e * 2 * Hp + Hp + ch];
+#pragma unroll
+        for (int c = 0; c < MAXS; ++c)
+          if (c < S) dsh[c] = fmaf(p.gvec2[((b * S + c) * A + i) * H + ch], s2, dsh[c]);
+      }
+      cut = warp_sum(cut);
+      if (lane == 0) sRedCut[w * CH + r] = cut;
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          const float rd = warp_sum(dsh[c]);
+          if (lane == 0) sRedDsh[(w * S + c) * CH + r] = rd;
+        }
+      }
+    }
+    block_head_sums(sT, Hp, n, nh, dh, sGa);
+#pragma unroll
+    for (int j = 0; j < WIDE_MAXC; ++j) {
+      const int ch = t + j * T;
+      if (ch >= Hp) continue;
+      if (ch >= H) {
+        for (int r = 0; r < n; ++r) {
+          const size_t e = e0 + r;
+          p.g_e[e * 2 * Hp + ch] = p.g_e[e * 2 * Hp + Hp + ch] = 0.0f;
+          p.z[e * H3 + ch] = p.z[e * H3 + Hp + ch] = 0.0f;
+        }
+        continue;
+      }
+      const float qi = p.qkv[bi * H3 + ch];
+      const int h = ch / dh;
+      for (int r = 0; r < n; ++r) {
+        const size_t e = e0 + r;
+        const float gvij = p.v_e[e * Hp + ch];
+        const float zk = p.z[e * H3 + ch], zv = p.z[e * H3 + Hp + ch];
+        const float dk = silu(zk), dv = silu(zv);
+        const float kr = p.qkv[(s0 + r) * H3 + Hp + ch];
+        const float vr = p.qkv[(s0 + r) * H3 + 2 * Hp + ch];
+        const float a = sA[r * nh + h], g3 = silu(a) * sGate[r];
+        const float g_a = sGa[r * nh + h] * dsilu(a);
+        gqi[j] = fmaf(g_a * kr, dk, gqi[j]);
+        p.g_e[e * 2 * Hp + ch] = g_a * qi * dk;
+        p.g_e[e * 2 * Hp + Hp + ch] = gvij * dv * g3;
+        p.z[e * H3 + ch] = g_a * qi * kr * dsilu(zk);
+        p.z[e * H3 + Hp + ch] = gvij * vr * g3 * dsilu(zv);
+      }
+    }
+    // the chunk's partials are written (block_head_sums ends with a barrier)
+    for (int r = t; r < n; r += T) {
+      float sum = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) sum += sRedCut[ww * CH + r];
+      p.gdist[e0 + r] = sum * sAdj[r] * sDcut[r];
+    }
+    for (int x = t; x < S * n; x += T) {
+      const int c = x / n, r = x % n;
+      float sum = 0.0f;
+      for (int ww = 0; ww < NW; ++ww) sum += sRedDsh[(ww * S + c) * CH + r];
+      p.gdsh[((b * S + c) * A + i) * A + c0 + r] = sum;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < WIDE_MAXC; ++j)
+    if (t + j * T < Hp) p.gqkv[bi * H3 + t + j * T] = gqi[j];
+}
+
+// (h), wide: as vislayer_bwd_source, a thread a channel at a time at Hp;
+// gvec2 is read at H (0 past it).
+__global__ void __launch_bounds__(256) vislayer_bwd_source_wide(const Layer p, int Hp) {
+  constexpr int HS = MAXS / 2;
+  const int t = threadIdx.x, T = blockDim.x, j = blockIdx.x, A = p.A, H = p.H, S = p.S,
+            ldp = p.NP * Hp;
+  const int part = blockIdx.z, half = (S + 1) / 2;
+  const int c0 = part & 1 ? half : 0, nc = part & 1 ? S - half : half;
+  const bool wsrc = part >= 2;
+  const size_t b = blockIdx.y, b0 = b * A;
+  for (int ch = t; ch < Hp; ch += T) {
+    const bool real = ch < H;
+    float sk = 0.0f, sv = 0.0f, sc[HS];
+#pragma unroll
+    for (int c = 0; c < HS; ++c) sc[c] = 0.0f;
+#pragma unroll 4
+    for (int i = 0; i < A; ++i) {
+      const size_t e = (b0 + i) * A + j;
+      if (part == 0) {
+        sk += p.g_e[e * 2 * Hp + ch];
+        sv += p.g_e[e * 2 * Hp + Hp + ch];
+      }
+      const float f = wsrc ? p.gS_e[e * Hp + ch] : p.s_e[e * 2 * Hp + ch];
+#pragma unroll
+      for (int cc = 0; cc < HS; ++cc) {
+        if (cc < nc) {
+          const size_t v = (b * S + c0 + cc) * A + i;
+          const float g = wsrc ? p.proj[v * ldp + 3 * Hp + ch] : real ? p.gvec2[v * H + ch] : 0.0f;
+          sc[cc] = fmaf(f, g, sc[cc]);
+        }
+      }
+    }
+    if (part == 0) {
+      p.gqkv[(b0 + j) * 3 * Hp + Hp + ch] = sk;
+      p.gqkv[(b0 + j) * 3 * Hp + 2 * Hp + ch] = sv;
+    }
+#pragma unroll
+    for (int cc = 0; cc < HS; ++cc) {
+      if (cc < nc) {
+        const size_t v = (b * S + c0 + cc) * A + j;
+        if (wsrc)
+          p.xv[v * ldp + 4 * Hp + ch] = sc[cc];
+        else
+          p.gvecn[v * Hp + ch] = sc[cc];
+      }
+    }
+  }
+}
+
+// (i), wide: the LayerNorm's backward over the H channels, one warp a node
+// row; g_xhat at Hp, gx at H.
+__global__ void __launch_bounds__(256) vislayer_bwd_ln_rows_wide(const Layer p, int Hp) {
+  const int H = p.H, lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= (size_t)p.B * p.A) return;
+  const float* x = p.x + row * H;
+  const float* gxh = p.gxh + row * Hp;
+  float mu, rs;
+  row_stats(x, H, mu, rs);
+  float m1 = 0.0f, m2 = 0.0f;
+  for (int k = lane; k < H; k += 32) {
+    m1 += gxh[k];
+    m2 = fmaf(gxh[k], (x[k] - mu) * rs, m2);
+  }
+  m1 = warp_sum(m1) / H;
+  m2 = warp_sum(m2) / H;
+  for (int k = lane; k < H; k += 32)
+    p.gx[row * H + k] = p.gx2[row * H + k] + rs * (gxh[k] - m1 - (x[k] - mu) * rs * m2);
+}
+
+cudaError_t launch_bwd_wide(const Layer& p, int nh, cudaStream_t stream) {
+  const int H = p.H, Hp = wide_width(H), H3 = 3 * Hp, T = wide_threads(H);
+  const bool last = p.NP == 3;
+  const size_t M = (size_t)p.B * p.A, Mv = M * p.S, E = M * p.A;
+  const dim3 centres(p.A, p.B);
+  cudaError_t err = launch_node_prologue_wide(p, Hp, stream);
+  if (err != cudaSuccess) return err;
+  // (a) o1|o2, the node rows, g_xagg
+  err = launch_row_tile<NODE_TM, false>(p.xagg_in, Hp, M, Hp, 2 * Hp, wseg(p.w_o, H3),
+                                        BiasStore{p.o, H3, p.b_o}, stream);
+  if (err != cudaSuccess) return err;
+  vislayer_bwd_node_rows_wide<<<(unsigned)M, T, 0, stream>>>(p, Hp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_row_tile<NODE_TM, true>(p.xo, H3, M, H3, Hp, wseg(p.w_o, H3),
+                                       Store{p.gxagg, Hp, nullptr, nullptr}, stream);
+  if (err != cudaSuccess) return err;
+  // (b)-(g) the edge stage; v_e holds the padded edge rows until (c)
+  const float* X;
+  if ((err = padded_edge_rows(p, Hp, p.v_e, &X, stream)) != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, false>(X, Hp, E, Hp, last ? 2 * Hp : H3,
+                                        wseg(p.w_dkv, 2 * Hp, 2 * Hp, p.w_f, Hp),
+                                        EdgeEpiWide{p, Hp}, stream);
+  if (err != cudaSuccess) return err;
+  const size_t rows_smem = (size_t)(Hp + nh) * sizeof(float);
+  if ((err = allow_smem(vislayer_bwd_rows_wide, rows_smem)) != cudaSuccess) return err;
+  vislayer_bwd_rows_wide<<<(unsigned)E, T, rows_smem, stream>>>(p, Hp, nh);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (!last) {
+    vislayer_bwd_gwt_wide<<<centres, T, 0, stream>>>(p, Hp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  err = launch_row_tile<EDGE_TM, false>(p.v_e, Hp, E, Hp, 2 * Hp, wseg(p.w_s, 2 * Hp),
+                                        SEpiWide{p, Hp}, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, true>(p.g_e, 2 * Hp, E, 2 * Hp, Hp, wseg(p.w_s, 2 * Hp),
+                                       GvEpiWide{p, Hp}, stream);
+  if (err != cudaSuccess) return err;
+  const int CH = centre_wide_chunk(H, nh, p.S);
+  const size_t smem = CH * centre_wide_row_bytes(Hp, nh, p.S, T / 32);
+  if ((err = allow_smem(vislayer_bwd_centre_wide, smem)) != cudaSuccess) return err;
+  vislayer_bwd_centre_wide<<<centres, T, smem, stream>>>(p, Hp, nh, CH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, true>(p.z, H3, E, last ? 2 * Hp : H3, Hp,
+                                       wseg(p.w_dkv, 2 * Hp, 2 * Hp, p.w_f, Hp),
+                                       StreamStore{p, Hp, p.gedge, p.gedge2, false}, stream);
+  if (err != cudaSuccess) return err;
+  // (h), (i)
+  vislayer_bwd_source_wide<<<dim3(p.A, p.B, last ? 2 : 4), T, 0, stream>>>(p, Hp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_row_tile<NODE_TM, true>(p.gqkv, H3, M, H3, Hp, wseg(p.w_qkv, H3),
+                                       Store{p.gxh, Hp, nullptr, p.ln_s}, stream);
+  if (err != cudaSuccess) return err;
+  vislayer_bwd_ln_rows_wide<<<(unsigned)((M + 7) / 8), 256, 0, stream>>>(p, Hp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_row_tile<VEC_TM, true>(
+      p.xv, p.NP * Hp, Mv, p.NP * Hp, Hp, wseg(p.w_vp, H3, H3, p.w_t, Hp, 4 * Hp, p.w_src, Hp),
+      StreamStore{p, Hp, p.gvec, nullptr, true}, stream);
+}
+
 }  // namespace
 
 // ptrs: the LAYER_PTRS pointers of Layer in field order (ops/vislayer.py,
@@ -438,14 +868,17 @@ cudaError_t launch_bwd(const Layer& p, cudaStream_t stream) {
 // uses the scratch xn, vecn, qkv, proj, o, z ([E][3H]), v_e ([E][H]), s_e
 // and g_e ([E][2H]), gS_e ([E][H], below the last layer), xo, xv, gxagg,
 // gqkv, gvecn and gxh; and writes gx, gvec, gedge, gdsh and gdist.  dh =
-// H / nh, the channels of a head.
+// H / nh, the channels of a head.  The wide instantiation (every shape but
+// narrow_shapes(H, nh)) takes its scratch, xagg_in and every weight at Hp =
+// wide_width(H) a segment (vislayer.cuh).
 extern "C" int vislayer_bwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
                                    int S, float cutoff, int last, int dh, cudaStream_t stream) {
   static_assert(offsetof(Layer, B) == LAYER_PTRS * sizeof(void*), "Layer: pointers first");
-  if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S)) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S, dh)) return (int)cudaErrorInvalidValue;
   Layer p;
   std::memcpy(&p, ptrs, LAYER_PTRS * sizeof(void*));
   p.B = B, p.A = A, p.H = H, p.S = S, p.NP = last ? 3 : 5, p.cutoff = cutoff;
+  if (!narrow_shapes(H, H / dh)) return (int)launch_bwd_wide(p, H / dh, stream);
   return with_head_width(dh, [&](auto d) {
     return (int)launch_bwd<decltype(d)::value>(p, stream);
   });
@@ -469,6 +902,32 @@ extern "C" int vislayer_bwd_occupancy(int A, int H, int S, int stage, int* out) 
     case 7: return occupancy(vislayer_bwd_source, H, 0, out);
     case 8: return occupancy(row_tile<VEC_TM, true, GvecEpi>, 256, tile_smem<VEC_TM>(), out);
     case 9: return occupancy(vislayer_bwd_gwt, H, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the same for the wide instantiation at H channels, S spherical components
+// and nh heads: 0 node rows, 1 edge @ [W_dkv | W_f], 2 edge-row pass, 3
+// g_wt, 4 v_e @ W_s, 5 g_e @ W_s^T, 6 centre pass, 7 [g_dkv | g_zf] @
+// [W_dkv ; W_f]^T, 8 source pass, 9 the LayerNorm's rows, 10 gvec (vector
+// rows); out[4] receives the rows of the centre pass's source chunk
+extern "C" int vislayer_bwd_wide_occupancy(int H, int S, int nh, int stage, int* out) {
+  const int Hp = wide_width(H), T = wide_threads(H), CH = centre_wide_chunk(H, nh, S);
+  out[4] = CH;
+  switch (stage) {
+    case 0: return occupancy(vislayer_bwd_node_rows_wide, T, 0, out);
+    case 1: return occupancy(row_tile<EDGE_TM, false, EdgeEpiWide>, 256, tile_smem<EDGE_TM>(), out);
+    case 2: return occupancy(vislayer_bwd_rows_wide, T, (size_t)(Hp + nh) * sizeof(float), out);
+    case 3: return occupancy(vislayer_bwd_gwt_wide, T, 0, out);
+    case 4: return occupancy(row_tile<EDGE_TM, false, SEpiWide>, 256, tile_smem<EDGE_TM>(), out);
+    case 5: return occupancy(row_tile<EDGE_TM, true, GvEpiWide>, 256, tile_smem<EDGE_TM>(), out);
+    case 6:
+      return occupancy(vislayer_bwd_centre_wide, T, CH * centre_wide_row_bytes(Hp, nh, S, T / 32),
+                       out);
+    case 7: return occupancy(row_tile<EDGE_TM, true, StreamStore>, 256, tile_smem<EDGE_TM>(), out);
+    case 8: return occupancy(vislayer_bwd_source_wide, T, 0, out);
+    case 9: return occupancy(vislayer_bwd_ln_rows_wide, 256, 0, out);
+    case 10: return occupancy(row_tile<VEC_TM, true, StreamStore>, 256, tile_smem<VEC_TM>(), out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

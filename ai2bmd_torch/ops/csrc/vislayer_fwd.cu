@@ -38,7 +38,7 @@
 // centre passes walk the sources in chunks of ECHUNK = 48 rows
 // (common.cuh), staging a chunk's gates or d_sh in shared memory; each of
 // their sums is one register chain over the rows in order, so they take any
-// A % 8 == 0 up to EDGE_MAXA, and at A <= 48 (one chunk) give the
+// A % 8 == 0 (no cap), and at A <= 48 (one chunk) give the
 // single-chunk kernel's bits.  For the last layer edge' = edge is a device
 // copy.  Every sum runs in a fixed order: the kernel is bitwise
 // repeatable.  The TPU's b3 bf16 split, _rowbc, its VMEM budget and its
@@ -205,19 +205,212 @@ cudaError_t launch_fwd(const Layer& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The wide instantiation (vislayer.cuh): the same stages at Hp, with
+// centre passes that loop a thread over its channels and sum heads through
+// shared memory.
+// ---------------------------------------------------------------------------
+
+// (b), wide: n < 2 Hp: z[r][n] = silu(acc + b_dkv[n]) (0 on padded
+// channels); n >= 2 Hp: edge' at H, a channel at a time.
+struct EdgeEpiWide {
+  Layer p;
+  int Hp;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    if (n < 2 * Hp) {
+      *reinterpret_cast<float2*>(p.z + r * 2 * Hp + n) =
+          make_float2(silu(v0 + p.b_dkv[n]), silu(v1 + p.b_dkv[n + 1]));
+      return;
+    }
+    const int ch = n - 2 * Hp, H = p.H, A = p.A, S = p.S, ldp = p.NP * Hp;
+    if (ch >= H) return;
+    const EdgeRow e(r, A);
+    float2 sdot = make_float2(0.0f, 0.0f);
+    for (int c = 0; c < S; ++c) {
+      const size_t v = (size_t)e.b * S + c;
+      const float2 wt = *reinterpret_cast<const float2*>(p.proj + (v * A + e.i) * ldp + 3 * Hp + ch);
+      const float2 ws = *reinterpret_cast<const float2*>(p.proj + (v * A + e.j) * ldp + 4 * Hp + ch);
+      sdot.x = fmaf(wt.x, ws.x, sdot.x);
+      sdot.y = fmaf(wt.y, ws.y, sdot.y);
+    }
+    const float a = p.adj[r];
+    p.edge2[r * H + ch] = p.edge[r * H + ch] + silu(v0 + p.b_f[ch]) * sdot.x * a;
+    if (ch + 1 < H)
+      p.edge2[r * H + ch + 1] = p.edge[r * H + ch + 1] + silu(v1 + p.b_f[ch + 1]) * sdot.y * a;
+  }
+};
+
+// (d), wide: s[r][n] = silu(acc + b_s[n]) * adj[r] at 2 Hp.
+struct SEpiWide {
+  Layer p;
+  int Hp;
+  __device__ __forceinline__ void operator()(size_t r, int n, float v0, float v1) const {
+    const float a = p.adj[r];
+    *reinterpret_cast<float2*>(p.s_e + r * 2 * Hp + n) =
+        make_float2(silu(v0 + p.b_s[n]) * a, silu(v1 + p.b_s[n + 1]) * a);
+  }
+};
+
+// shared memory of centre pass 1 a source row: the head terms, a_ij, the gate
+static size_t centre1_wide_row_bytes(int Hp, int nh) {
+  return (size_t)(Hp + nh + 1) * sizeof(float);
+}
+
+// (c), wide: per chunk of CH sources, the head terms q_i k_j dk of the H
+// channels into sT, their head sums a_ij into sA (block_head_sums), then a
+// thread a channel at a time: v_ij -> v_e (0 past H), x_agg_i = sum_j v_ij
+// (at Hp), one register chain a channel over the rows in order.
+__global__ void __launch_bounds__(256) vislayer_fwd_centre1_wide(const Layer p, int Hp, int nh,
+                                                                 int CH) {
+  extern __shared__ __align__(16) float smem[];
+  float* sT = smem;             // [CH][Hp] head terms
+  float* sA = sT + CH * Hp;     // [CH][nh] a_ij
+  float* sGate = sA + CH * nh;  // [CH]
+  const int t = threadIdx.x, T = blockDim.x, A = p.A, H = p.H, dh = H / nh, ldq = 3 * Hp;
+  const size_t bi = (size_t)blockIdx.y * A + blockIdx.x, b0 = bi - blockIdx.x;
+  float xsum[WIDE_MAXC];
+#pragma unroll
+  for (int j = 0; j < WIDE_MAXC; ++j) xsum[j] = 0.0f;
+  for (int c0 = 0; c0 < A; c0 += CH) {
+    const int n = A - c0 < CH ? A - c0 : CH;
+    const size_t e0 = bi * A + c0, s0 = b0 + c0;
+    if (c0) __syncthreads();  // every thread is done with the last chunk's terms
+    load_gate(p.dist, p.adj, n, p.cutoff, e0, sGate);
+    for (int ch = t; ch < H; ch += T) {
+      const float qi = p.qkv[bi * ldq + ch];
+      for (int r = 0; r < n; ++r)
+        sT[r * Hp + ch] = layer_term(qi, p.qkv[(s0 + r) * ldq + Hp + ch],
+                                     p.z[(e0 + r) * 2 * Hp + ch]);
+    }
+    block_head_sums(sT, Hp, n, nh, dh, sA);
+#pragma unroll
+    for (int j = 0; j < WIDE_MAXC; ++j) {
+      const int ch = t + j * T;
+      if (ch < Hp) {
+        for (int r = 0; r < n; ++r) {
+          const size_t e = e0 + r;
+          const float vij = ch < H ? p.qkv[(s0 + r) * ldq + 2 * Hp + ch] *
+                                         p.z[e * 2 * Hp + Hp + ch] *
+                                         (silu(sA[r * nh + ch / dh]) * sGate[r])
+                                   : 0.0f;
+          p.v_e[e * Hp + ch] = vij;
+          xsum[j] += vij;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < WIDE_MAXC; ++j)
+    if (t + j * T < Hp) p.xagg[bi * Hp + t + j * T] = xsum[j];
+}
+
+// (f), wide: as vislayer_fwd_centre2, the channels in turns of T threads
+// (d_sh staged again for each turn), x' and vec' written at H.
+__global__ void __launch_bounds__(256) vislayer_fwd_centre2_wide(const Layer p, int Hp) {
+  __shared__ float sDsh[MAXS * ECHUNK];
+  const int t = threadIdx.x, T = blockDim.x, A = p.A, H = p.H, S = p.S, ldp = p.NP * Hp;
+  const size_t bi = (size_t)blockIdx.y * p.A + blockIdx.x, b = blockIdx.y, i = blockIdx.x;
+  for (int ch0 = 0; ch0 < Hp; ch0 += T) {
+    const int ch = ch0 + t;
+    float from_vec[MAXS], from_dsh[MAXS];
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
+    for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+      const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
+      if (c0 || ch0) __syncthreads();  // every thread is done with the last d_sh
+      for (int e = t; e < S * n; e += T) {
+        const int c = e / n, r = e % n;
+        sDsh[e] = p.dsh[((b * S + c) * A + i) * A + c0 + r];
+      }
+      __syncthreads();
+      if (ch < H) {
+        for (int rr = 0; rr < n; ++rr) {
+          const int r = c0 + rr;
+          const size_t e = bi * A + r;
+          const float s1 = p.s_e[e * 2 * Hp + ch], s2 = p.s_e[e * 2 * Hp + Hp + ch];
+#pragma unroll
+          for (int c = 0; c < MAXS; ++c) {
+            if (c < S) {
+              from_vec[c] = fmaf(s1, p.vecn[((b * S + c) * A + r) * Hp + ch], from_vec[c]);
+              from_dsh[c] = fmaf(s2, sDsh[c * n + rr], from_dsh[c]);
+            }
+          }
+        }
+      }
+    }
+    if (ch < H) {
+      const float o1 = p.o[bi * 3 * Hp + ch], o2 = p.o[bi * 3 * Hp + Hp + ch],
+                  o3 = p.o[bi * 3 * Hp + 2 * Hp + ch];
+      float vdot = 0.0f;
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        if (c < S) {
+          const size_t v = (b * S + c) * A + i;
+          const float* pr = p.proj + v * ldp;
+          vdot = fmaf(pr[ch], pr[Hp + ch], vdot);
+          p.vec2[v * H + ch] =
+              p.vec[v * H + ch] + pr[2 * Hp + ch] * o1 + (from_vec[c] + from_dsh[c]);
+        }
+      }
+      p.x2[bi * H + ch] = p.x[bi * H + ch] + vdot * o2 + o3;
+    }
+  }
+}
+
+// rows of centre pass 1's source chunk at width H with nh heads
+static int centre1_wide_chunk(int H, int nh) {
+  return wide_chunk(centre1_wide_row_bytes(wide_width(H), nh));
+}
+
+cudaError_t launch_fwd_wide(const Layer& p, int nh, cudaStream_t stream) {
+  const int H = p.H, Hp = wide_width(H), T = wide_threads(H);
+  const bool last = p.NP == 3;
+  const size_t M = (size_t)p.B * p.A, E = M * p.A;
+  const dim3 centres(p.A, p.B);
+  cudaError_t err = launch_node_prologue_wide(p, Hp, stream);
+  if (err != cudaSuccess) return err;
+  if (last) {
+    err = cudaMemcpyAsync(p.edge2, p.edge, E * H * sizeof(float), cudaMemcpyDeviceToDevice,
+                          stream);
+    if (err != cudaSuccess) return err;
+  }
+  const float* X;
+  if ((err = padded_edge_rows(p, Hp, p.v_e, &X, stream)) != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, false>(X, Hp, E, Hp, last ? 2 * Hp : 3 * Hp,
+                                        wseg(p.w_dkv, 2 * Hp, 2 * Hp, p.w_f, Hp),
+                                        EdgeEpiWide{p, Hp}, stream);
+  if (err != cudaSuccess) return err;
+  const int CH = centre1_wide_chunk(H, nh);
+  const size_t smem = CH * centre1_wide_row_bytes(Hp, nh);
+  if ((err = allow_smem(vislayer_fwd_centre1_wide, smem)) != cudaSuccess) return err;
+  vislayer_fwd_centre1_wide<<<centres, T, smem, stream>>>(p, Hp, nh, CH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_row_tile<EDGE_TM, false>(p.v_e, Hp, E, Hp, 2 * Hp, wseg(p.w_s, 2 * Hp),
+                                        SEpiWide{p, Hp}, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_row_tile<NODE_TM, false>(p.xagg, Hp, M, Hp, 3 * Hp, wseg(p.w_o, 3 * Hp),
+                                        BiasStore{p.o, 3 * Hp, p.b_o}, stream);
+  if (err != cudaSuccess) return err;
+  vislayer_fwd_centre2_wide<<<centres, T, 0, stream>>>(p, Hp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ptrs: the LAYER_PTRS pointers of Layer in field order (ops/vislayer.py,
 // PTR_FIELDS); the forward reads x..b_f, uses the scratch xn, vecn, qkv,
 // proj, o, z ([E][2H]), v_e ([E][H]) and s_e ([E][2H]), and writes x2,
-// vec2, edge2 and xagg.  dh = H / nh, the channels of a head.
+// vec2, edge2 and xagg.  dh = H / nh, the channels of a head.  The wide
+// instantiation (every shape but narrow_shapes(H, nh)) takes its scratch,
+// x_agg and every weight at Hp = wide_width(H) a segment (vislayer.cuh).
 extern "C" int vislayer_fwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
                                    int S, float cutoff, int last, int dh, cudaStream_t stream) {
   static_assert(offsetof(Layer, B) == LAYER_PTRS * sizeof(void*), "Layer: pointers first");
-  if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S)) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != LAYER_PTRS || !layer_shapes_ok(A, H, S, dh)) return (int)cudaErrorInvalidValue;
   Layer p;
   std::memcpy(&p, ptrs, LAYER_PTRS * sizeof(void*));
   p.B = B, p.A = A, p.H = H, p.S = S, p.NP = last ? 3 : 5, p.cutoff = cutoff;
+  if (!narrow_shapes(H, H / dh)) return (int)launch_fwd_wide(p, H / dh, stream);
   return with_head_width(dh, [&](auto d) {
     return (int)launch_fwd<decltype(d)::value>(p, stream);
   });
@@ -235,6 +428,26 @@ extern "C" int vislayer_fwd_occupancy(int A, int H, int S, int stage, int* out) 
     case 3: return occupancy(vislayer_fwd_centre1<32>, H, 0, out);
     case 4: return occupancy(row_tile<EDGE_TM, false, SEpi>, 256, tile_smem<EDGE_TM>(), out);
     case 5: return occupancy(vislayer_fwd_centre2, H, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the same for the wide instantiation at H channels and nh heads: 0 edge
+// @ [W_dkv | W_f], 1 centre pass 1, 2 v_e @ W_s, 3 centre pass 2, 4 the
+// node rows (xn, vecn), 5 the edge rows' padding; out[4] receives the rows
+// of centre pass 1's source chunk
+extern "C" int vislayer_fwd_wide_occupancy(int H, int S, int nh, int stage, int* out) {
+  (void)S;
+  const int Hp = wide_width(H), T = wide_threads(H), CH = centre1_wide_chunk(H, nh);
+  out[4] = CH;
+  switch (stage) {
+    case 0: return occupancy(row_tile<EDGE_TM, false, EdgeEpiWide>, 256, tile_smem<EDGE_TM>(), out);
+    case 1:
+      return occupancy(vislayer_fwd_centre1_wide, T, CH * centre1_wide_row_bytes(Hp, nh), out);
+    case 2: return occupancy(row_tile<EDGE_TM, false, SEpiWide>, 256, tile_smem<EDGE_TM>(), out);
+    case 3: return occupancy(vislayer_fwd_centre2_wide, T, 0, out);
+    case 4: return occupancy(node_prep_wide, 256, 0, out);
+    case 5: return occupancy(pad_rows, 256, 0, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -24,6 +24,14 @@ Each wrapper runs its plain version for CPU tensors (its products those of
 the current mode's plain route, ``vismp.route_mm``) and launches its kernel
 from the current mode's library for CUDA tensors; there is no other route.
 ``fused_layer`` is what the model calls.
+
+The kernels take every H up to ``vismp.EDGE_MAXH`` that the head count
+divides (``vismp.layer_shapes``): their narrow instantiations heads of 8,
+16, 32 or 64 channels with H a multiple of 32 up to 256, their wide ones
+every other shape, with every weight zero-padded to wide_width(H) a segment
+(``padded_layer_weights``; a model pads its layers once, the wrappers pad
+what comes unpadded).  The wrappers and the plain versions take the weights
+padded or not, with the same result.
 """
 
 from __future__ import annotations
@@ -35,13 +43,19 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.ops import LAUNCHES, _build
-from ai2bmd_torch.ops.vismp import check_layer_shapes, edge_fwd_plain, route, route_mm
+from ai2bmd_torch.ops.vismp import (check_layer_shapes, edge_fwd_plain, padded_weight, route,
+                                    route_mm, unpadded_weight, wide_width)
 
 _f32 = torch.float32
 _LN_EPS = 1e-5
 
 WEIGHT_NAMES = ("ln_s", "ln_b", "vln_w", "w_qkv", "b_qkv", "w_vp", "w_dkv", "b_dkv",
                 "w_s", "b_s", "w_o", "b_o", "w_t", "w_src", "w_f", "b_f", "pool")
+
+# The segments of H channels of each weight and bias, each padded to
+# wide_width(H) on its own (vismp.padded_weight)
+SEGMENTS = dict(ln_s=1, ln_b=1, vln_w=1, w_qkv=3, b_qkv=3, w_vp=3, w_dkv=2, b_dkv=2, w_s=2,
+                b_s=2, w_o=3, b_o=3, w_t=1, w_src=1, w_f=1, b_f=1)
 
 # The pointer fields of ``struct Layer`` (csrc/vislayer.cuh), in order.
 PTR_FIELDS = (
@@ -74,6 +88,26 @@ def _constants(H: int, nh: int, dtype: torch.dtype, device: torch.device):
     pool = torch.as_tensor(head_pool_matrix(H, nh), dtype=dtype, device=device)
     zH = torch.zeros((H, H), dtype=dtype, device=device)
     return pool, zH, torch.zeros((H,), dtype=dtype, device=device)
+
+
+def padded_layer_weights(weights, H: int) -> tuple:
+    """The weight tuple as K5/K6's wide instantiations read it
+    (csrc/vislayer.cuh): every weight and bias zero-padded to wide_width(H)
+    a segment (``SEGMENTS``), the head pool as it is; each weight may come
+    padded or not.  The tuple itself at H % 32 == 0."""
+    Hp = wide_width(H)
+    if Hp == H:
+        return tuple(weights)
+    return tuple(
+        w if name == "pool" or w.shape[0] == (Hp if w.dim() == 2 else SEGMENTS[name] * Hp)
+        else padded_weight(w, H, SEGMENTS[name]) for name, w in zip(WEIGHT_NAMES, weights))
+
+
+def unpadded_layer_weights(weights, H: int) -> tuple:
+    """``padded_layer_weights``' inverse: the weights at H, given padded or
+    not."""
+    return tuple(w if name == "pool" else unpadded_weight(w, H, SEGMENTS[name])
+                 for name, w in zip(WEIGHT_NAMES, weights))
 
 
 def layer_weights(lp: dict, H: int, nh: int, last: bool, dtype=_f32) -> tuple:
@@ -113,10 +147,11 @@ def vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh
     """Plain version of K5: (x', vec', edge', x_agg).  The layer of
     ``vis_mp_layer`` plus the residual adds, through K1's plain edge core
     (silu activations, vecnorm "none").  ``mm`` takes every product (the
-    kernel's split: ``ops.tf32x3.mm_tf32x3_plain``)."""
-    (ln_s, ln_b, vln_w, w_qkv, b_qkv, w_vp, w_dkv, b_dkv, w_s, b_s, w_o, b_o,
-     w_t, w_src, w_f, b_f, _pool) = weights
+    kernel's split: ``ops.tf32x3.mm_tf32x3_plain``).  The weights may come
+    padded (``padded_layer_weights``)."""
     H = x.shape[-1]
+    (ln_s, ln_b, vln_w, w_qkv, b_qkv, w_vp, w_dkv, b_dkv, w_s, b_s, w_o, b_o,
+     w_t, w_src, w_f, b_f, _pool) = unpadded_layer_weights(weights, H)
     q, k, v = (mm(_layer_norm(x, ln_s, ln_b), w_qkv) + b_qkv).split(H, dim=-1)
     vecn = vec * vln_w                                          # [B,S,A,H]
     vec1, vec2, vec3 = mm(vecn, w_vp).split(H, dim=-1)
@@ -181,18 +216,20 @@ _ARGS = [ctypes.POINTER(ctypes.c_void_p), _I, _I, _I, _I, _I, _F, _I, _I]
 
 def _inputs(x, vec, edge, d_sh, dist, adj, weights, nh):
     """Check the layer's inputs for the kernels.  Returns (B, A, H, S) and the
-    inputs keyed by their ``Layer`` field; the head pool is checked and left
-    out (the kernels sum each head's H / nh lanes instead, an instantiation
-    for 8, 16, 32 or 64 channels a head)."""
+    inputs keyed by their ``Layer`` field, the weights padded to
+    Hp = wide_width(H) a segment (``padded_layer_weights``; as given at H %
+    32 == 0); the head pool is checked and left out (the kernels sum each
+    head's H / nh channels instead)."""
     B, A, H = x.shape
     S = vec.shape[1]
     check_layer_shapes(A, H, S, nh)
+    weights = padded_layer_weights(weights, H)
+    Hp = wide_width(H)
     shapes = dict(
         x=(B, A, H), vec=(B, S, A, H), edge=(B, A, A, H), dsh=(B, S, A, A), dist=(B, A, A),
-        adj=(B, A, A), ln_s=(H,), ln_b=(H,), vln_w=(H,), w_qkv=(H, 3 * H), b_qkv=(3 * H,),
-        w_vp=(H, 3 * H), w_dkv=(H, 2 * H), b_dkv=(2 * H,), w_s=(H, 2 * H), b_s=(2 * H,),
-        w_o=(H, 3 * H), b_o=(3 * H,), w_t=(H, H), w_src=(H, H), w_f=(H, H), b_f=(H,),
-        pool=(H, nh))
+        adj=(B, A, A), pool=(H, nh),
+        **{name: ((Hp, SEGMENTS[name] * Hp) if name.startswith("w_") else (SEGMENTS[name] * Hp,))
+           for name in SEGMENTS})
     named = dict(zip(("x", "vec", "edge", "dsh", "dist", "adj"),
                      (x, vec, edge, d_sh, dist, adj)), **dict(zip(WEIGHT_NAMES, weights)))
     for name, t in named.items():
@@ -217,48 +254,63 @@ def _launch(name: str, ptrs: dict, B, A, H, S, cutoff, last, nh):
 
 
 def _node_scratch(new, B, A, H, S, last):
-    """The node rows both kernels hand between their stages (csrc/vislayer.cuh)."""
+    """The node rows both kernels hand between their stages (csrc/vislayer.cuh),
+    H channels a segment (Hp in the wide instantiation)."""
     return dict(xn=new(B * A, H), vecn=new(B * S * A, H), qkv=new(B * A, 3 * H),
                 proj=new(B * S * A, (3 if last else 5) * H), o=new(B * A, 3 * H))
 
 
-def vislayer_fwd(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int, last: bool):
-    """K5.  Returns (x', vec', edge', x_agg)."""
+def vislayer_fwd(x, vec, edge, d_sh, dist, adj, weights, cutoff: float, nh: int, last: bool,
+                 scratch: dict | None = None):
+    """K5.  Returns (x', vec', edge', x_agg).  ``scratch``, a dict, receives
+    the kernel's tensors by ``Layer`` field, its scratch included: s_e, the
+    s = silu(v_ij @ W_s + b_s) * adj of every edge row, is built from K5's
+    a_ij as K6's is from its own, so the two are bitwise equal
+    (chip_smoke.py checks it)."""
     if not route(x, "fused-layer"):
         return vislayer_fwd_plain(x, vec, edge, d_sh, dist, adj, weights, cutoff, nh, last,
                                   mm=route_mm())
     (B, A, H, S), t = _inputs(x, vec, edge, d_sh, dist, adj, weights, nh)
     new = lambda *s: torch.empty(s, dtype=_f32, device=x.device)
-    E = B * A * A
-    t.update(_node_scratch(new, B, A, H, S, last), z=new(E, 2 * H), v_e=new(E, H),
-             s_e=new(E, 2 * H), x2=new(B, A, H), vec2=new(B, S, A, H), edge2=new(B, A, A, H),
-             xagg=new(B, A, H))
+    E, Hp = B * A * A, wide_width(H)
+    t.update(_node_scratch(new, B, A, Hp, S, last), z=new(E, 2 * Hp), v_e=new(E, Hp),
+             s_e=new(E, 2 * Hp), x2=new(B, A, H), vec2=new(B, S, A, H), edge2=new(B, A, A, H),
+             xagg=new(B, A, Hp))
     _launch("vislayer_fwd_launch", t, B, A, H, S, cutoff, last, nh)
     LAUNCHES["vislayer_fwd"] += 1
-    return t["x2"], t["vec2"], t["edge2"], t["xagg"]
+    if scratch is not None:
+        scratch.update(t)
+    # the wide instantiation keeps x_agg at Hp for its product
+    return t["x2"], t["vec2"], t["edge2"], t["xagg"] if Hp == H else t["xagg"][..., :H]
 
 
 def vislayer_bwd(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2, gedge2,
-                 cutoff: float, nh: int, last: bool):
-    """K6.  Returns (gx, gvec, gedge, gd_sh, gdist); gedge includes gedge2."""
+                 cutoff: float, nh: int, last: bool, scratch: dict | None = None):
+    """K6.  Returns (gx, gvec, gedge, gd_sh, gdist); gedge includes gedge2.
+    ``scratch`` as ``vislayer_fwd``'s."""
     if not route(x, "fused-layer"):
         return vislayer_bwd_plain(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2,
                                   gedge2, cutoff, nh, last, mm=route_mm())
     (B, A, H, S), t = _inputs(x, vec, edge, d_sh, dist, adj, weights, nh)
-    for name, g, shape in (("xagg", xagg, (B, A, H)), ("gx2", gx2, (B, A, H)),
+    Hp = wide_width(H)
+    if Hp != H and xagg.shape[-1] == H:   # the wide instantiation reads x_agg at Hp
+        xagg = torch.nn.functional.pad(xagg, (0, Hp - H))
+    for name, g, shape in (("xagg", xagg, (B, A, Hp)), ("gx2", gx2, (B, A, H)),
                            ("gvec2", gvec2, (B, S, A, H)), ("gedge2", gedge2, (B, A, A, H))):
         _build.check(name, g, shape, device=x.device)
     new = lambda *s: torch.empty(s, dtype=_f32, device=x.device)
     E, NP = B * A * A, 3 if last else 5
     t.update(
-        _node_scratch(new, B, A, H, S, last), xagg_in=xagg, gx2=gx2, gvec2=gvec2,
-        gedge2=gedge2, z=new(E, 3 * H), v_e=new(E, H), s_e=new(E, 2 * H), g_e=new(E, 2 * H),
-        gS_e=None if last else new(E, H), xo=new(B * A, 3 * H), xv=new(B * S * A, NP * H),
-        gxagg=new(B * A, H), gqkv=new(B * A, 3 * H), gvecn=new(B * S * A, H),
-        gxh=new(B * A, H), gx=new(B, A, H), gvec=new(B, S, A, H), gedge=new(B, A, A, H),
-        gdsh=new(B, S, A, A), gdist=new(B, A, A))
+        _node_scratch(new, B, A, Hp, S, last), xagg_in=xagg, gx2=gx2, gvec2=gvec2,
+        gedge2=gedge2, z=new(E, 3 * Hp), v_e=new(E, Hp), s_e=new(E, 2 * Hp),
+        g_e=new(E, 2 * Hp), gS_e=None if last else new(E, Hp), xo=new(B * A, 3 * Hp),
+        xv=new(B * S * A, NP * Hp), gxagg=new(B * A, Hp), gqkv=new(B * A, 3 * Hp),
+        gvecn=new(B * S * A, Hp), gxh=new(B * A, Hp), gx=new(B, A, H), gvec=new(B, S, A, H),
+        gedge=new(B, A, A, H), gdsh=new(B, S, A, A), gdist=new(B, A, A))
     _launch("vislayer_bwd_launch", t, B, A, H, S, cutoff, last, nh)
     LAUNCHES["vislayer_bwd"] += 1
+    if scratch is not None:
+        scratch.update(t)
     return t["gx"], t["gvec"], t["gedge"], t["gdsh"], t["gdist"]
 
 

@@ -257,21 +257,22 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
 
 # Every centre pass of the edge kernels (K1-K3, K7, K8) and of the
 # full-layer kernels (K5/K6) walks a centre's sources in chunks of at most
-# 48 rows (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0 up
-# to EDGE_MAXA: a fragment or a whole molecule (abd, the largest bundled
-# protein, is 752 slots).  The edge kernels take every H up to EDGE_MAXH
-# whose head count divides it: their narrow instantiations heads of 8, 16,
-# 32 or 64 channels with H a multiple of 32 up to 256 (``narrow_shapes``
-# for K1, K2 and K7, ``narrow_update`` for K3 and K8, which sum no head;
-# one thread a channel, ``head_sum<DH>`` on a warp's lanes), their wide
-# ones every other shape (channels padded to a multiple of 32, each thread
-# looping over several, the head sums through shared memory).  K5/K6 have
-# a domain of their own (``layer_shapes``, ``check_layer_shapes``).  The
-# launchers check the same limits.
-EDGE_MAXA = 1024
+# 48 rows (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0, as
+# the JAX package's dense kernels do (their TI = 8): a fragment or a whole
+# molecule of any size, as far as the card's memory goes (a shape too large
+# fails on torch's own allocation).  Both families take every H up to
+# EDGE_MAXH whose head count divides it: their narrow instantiations heads
+# of 8, 16, 32 or 64 channels with H a multiple of 32 up to 256
+# (``narrow_shapes`` for K1, K2, K7, K5 and K6, ``narrow_update`` for K3 and
+# K8, which sum no head; one thread a channel, ``head_sum<DH>`` on a warp's
+# lanes), their wide ones every other shape (channels padded to a multiple
+# of 32, each thread looping over several, the head sums through shared
+# memory).  ``layer_shapes`` / ``unsupported_shapes`` say what both take,
+# ``check_shapes`` / ``check_layer_shapes`` check a batch for each family;
+# the launchers check the same limits.
 EDGE_MAXH = 1024
 HEAD_WIDTHS = (8, 16, 32, 64)
-# the shapes the kernels do not take yet, where the JAX package's Pallas
+# the shapes the kernels do not take, where the JAX package's Pallas
 # kernels run: refused on the card
 UNSUPPORTED = "ROADMAP.md, Queue 2: domain still to extend"
 NO_MODEL_S = ("no model of either package builds S > 8: their spherical harmonics stop at "
@@ -305,10 +306,11 @@ def narrow_shapes(H: int, nh: int) -> bool:
 
 def layer_shapes(H: int, nh: int, S: int) -> bool:
     """True for the shapes the full-layer kernels K5/K6 take
-    (csrc/vislayer.cuh): heads of 8, 16, 32 or 64 channels, H a multiple of
-    32 up to 256, S <= 8."""
-    return nh > 0 and H % nh == 0 and H // nh in HEAD_WIDTHS and H % 32 == 0 and H <= 256 \
-        and S <= 8
+    (``layer_shapes_ok`` in csrc/vislayer.cuh): every H up to EDGE_MAXH that
+    the head count divides, S <= 8, the edge kernels' domain.  Their narrow
+    instantiations run where ``narrow_shapes`` holds, their wide ones
+    elsewhere."""
+    return nh > 0 and H % nh == 0 and 0 < H <= EDGE_MAXH and S <= 8
 
 
 def wide_width(H: int) -> int:
@@ -318,54 +320,61 @@ def wide_width(H: int) -> int:
 
 
 def unsupported_shapes(H: int, nh: int, S: int):
-    """Why the edge kernels (K1-K3, K7, K8) cannot take a model of H
-    channels, nh heads and S spherical components, or None when they can."""
-    if nh <= 0 or H % nh or H > EDGE_MAXH or S > 8:
-        return (f"H={H}, nh={nh}, S={S}: the edge kernels take every H up to {EDGE_MAXH} that "
-                f"the head count divides, and S <= 8 ({UNSUPPORTED}; {NO_MODEL_S})")
-    return None
-
-
-def unsupported_layer_shapes(H: int, nh: int, S: int):
-    """Why the full-layer kernels (K5/K6) cannot take such a model, or None
-    when they can."""
+    """Why the kernels (the edge kernels K1-K3, K7, K8 and the full-layer
+    kernels K5/K6, one domain) cannot take a model of H channels, nh heads
+    and S spherical components, or None when they can."""
     if not layer_shapes(H, nh, S):
-        return (f"H={H}, nh={nh}, S={S}: the full-layer kernels take heads of 8, 16, 32 or 64 "
-                f"channels, H a multiple of 32 up to 256 and S <= 8 ({UNSUPPORTED}: the "
-                f"full-layer kernels at every width come next; the edge kernels take every "
-                f"H up to {EDGE_MAXH}; {NO_MODEL_S})")
+        return (f"H={H}, nh={nh}, S={S}: the edge and full-layer kernels take every H up to "
+                f"{EDGE_MAXH} that the head count divides, and S <= 8 ({UNSUPPORTED}; "
+                f"{NO_MODEL_S})")
     return None
+
+
+def _check_slots(kernels: str, A: int, why):
+    if why or A <= 0 or A % 8:
+        raise ValueError(f"{kernels} take A a multiple of 8; got A={A}; "
+                         f"{why or 'H, nh and S are in their domain'}")
 
 
 def check_shapes(A, H, S, nh):
     """The shapes the edge kernels (K1-K3, K7, K8) take; anything else
     raises (the card has no plain route for them)."""
-    why = unsupported_shapes(H, nh, S)
-    if why or A > EDGE_MAXA or A % 8:
-        raise ValueError(f"edge kernels take A a multiple of 8 up to {EDGE_MAXA}; got A={A}; "
-                         f"{why or 'H, nh and S are in their domain'}")
+    _check_slots("edge kernels", A, unsupported_shapes(H, nh, S))
 
 
 def check_layer_shapes(A, H, S, nh):
     """The shapes the full-layer kernels K5/K6 take: a fragment or a whole
-    molecule of up to EDGE_MAXA slots at the narrow shapes."""
-    why = unsupported_layer_shapes(H, nh, S)
-    if why or A > EDGE_MAXA or A % 8:
-        raise ValueError(f"fused-layer kernels take A a multiple of 8 up to {EDGE_MAXA}; got "
-                         f"A={A}; {why or 'H, nh and S are in their domain'}")
+    molecule of any A % 8 == 0, at every width of ``layer_shapes``."""
+    _check_slots("fused-layer kernels", A, unsupported_shapes(H, nh, S))
 
 
 def padded_weight(w: torch.Tensor, H: int, halves: int = 1) -> torch.Tensor:
-    """A weight [H, halves H] as the wide instantiations read it: each half
-    zero-padded to [wide_width(H), wide_width(H)] (csrc/common.cuh); the
-    weight itself when H is a multiple of 32.  A model pads its weights once
+    """A weight [H, halves H] (or a bias [halves H]) as the wide
+    instantiations read it: each half zero-padded to [wide_width(H),
+    wide_width(H)] ([wide_width(H)]; csrc/common.cuh); the weight itself
+    when H is a multiple of 32.  A model pads its weights once
     (``models.visnet``); the wrappers take them padded or not."""
     Hp = wide_width(H)
     if Hp == H:
         return w
+    if w.dim() == 1:
+        out = w.new_zeros(halves, Hp)
+        out[:, :H] = w.reshape(halves, H)
+        return out.view(halves * Hp)
     out = w.new_zeros(Hp, halves, Hp)
     out[:H, :, :H] = w.reshape(H, halves, H)
     return out.view(Hp, halves * Hp)
+
+
+def unpadded_weight(w: torch.Tensor, H: int, halves: int = 1) -> torch.Tensor:
+    """``padded_weight``'s inverse: a weight or bias given padded or not, as
+    [H, halves H] ([halves H])."""
+    Hp = wide_width(H)
+    if Hp == H or w.shape[0] == (H if w.dim() == 2 else halves * H):
+        return w
+    if w.dim() == 1:
+        return w.view(halves, Hp)[:, :H].reshape(halves * H)
+    return w.view(Hp, halves, Hp)[:H, :, :H].reshape(H, halves * H)
 
 
 def _weight(name: str, w: torch.Tensor, H: int, halves: int, device) -> torch.Tensor:

@@ -93,7 +93,9 @@ class ViSNetPotential:
     term.  Stateless: ``energy_forces`` is P -> (E, F).  On the card every
     layer's edge core runs through K1-K3 (K7/K8 with ``remat``), or with
     ``fused_layer`` (``AI2BMD_FUSED_LAYER=1``) every layer through K5/K6;
-    both take any slot count up to ``ops.vismp.EDGE_MAXA``."""
+    both take any slot count (a multiple of 8, as padded here) at every
+    width ``ops.vismp.layer_shapes`` takes, their wide instantiations where
+    ``ops.vismp.narrow_shapes`` does not hold."""
 
     module: ViSNet
     cfg: ViSNetConfig

@@ -40,13 +40,13 @@ is not printed):
      registers and spills of K1/K2/K7 and of each K3/K8/K5/K6 stage at each
      slot count, and a yardstick that no kernel uses: cuBLAS float32 running
      only the products of K1, K2, K3, K5, K6, K7 and K8.  Then K1 (four flag
-     pairs), K2, K3, K7 and K8 at the whole-molecule shapes (B = 1, A = 176,
-     288 and 752: Chignolin, Trp-cage and abd as one molecule), where the centre
-     passes walk their sources in chunks of 48 rows: the same checks
-     (tolerance, bitwise repeats, K7/K8 against K2/K3 on K1's stash, device
-     ms, bound and share) and the chunked passes' occupancy and grid fill;
-     K5 and K6 (both `last`) at the same shapes, before them (the profiler's
-     device times fail for the rest of a process from K7 at A = 752 on);
+     pairs), K2, K3, K7 and K8 at the whole-molecule shape (B = 1, A = 176:
+     Chignolin as one molecule), where the centre passes walk their sources
+     in chunks of 48 rows: the same checks (tolerance, bitwise repeats,
+     K7/K8 against K2/K3 on K1's stash, device ms, bound and share) and the
+     chunked passes' occupancy and grid fill; K5 and K6 (both `last`) at the
+     same shape (phase 16(e) takes every kernel to 1,112 slots, where A =
+     288 and 752 were checked here before it);
      and K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 at heads of 8, 16
      and 64 channels (H = 32, 64 and 256 with 4 heads, B x A = 4 x 40 and
      1 x 176) against their plain versions and for bitwise repeats.
@@ -247,7 +247,7 @@ is not printed):
      every launch came from the asked mode's library
      (ops/_build.py LIBRARY_LAUNCHES); (a) also takes the wide case (H =
      512, 4 heads, 4 x 40: K1 with the update and the stash, K2, K3, K7,
-     K8 in highest and default)
+     K8, K5 and K6 in highest and default)
   15. every head and hidden width through the edge kernels: (a) K1 (four
      flag pairs), K2, K3, K7 and K8's wide instantiations at (H, heads) =
      (256, 2), (256, 1), (384, 8), (512, 4), (512, 16), (48, 2), (40, 5)
@@ -265,18 +265,41 @@ is not printed):
      a trace naming the wide kernels); (c) the same weights with remat=True,
      one evaluation through K1 without its stash and K7/K8 against (b)'s
      step 0; (d) save_converted of those weights and `python -m ai2bmd_torch
-     --ckpt-path` on them (exit 0, its model line naming K1-K3); (e)
-     AI2BMD_FUSED_LAYER=1 refuses the model naming ROADMAP Queue 2
-  16. one JSON line of kernel results (with `mesh_launches`: rank 0's
+     --ckpt-path` on them (exit 0, its model line naming K1-K3); (f) 2 x 48
+     with 2 heads (H % 32 != 0), its edge weights padded once, against the
+     CPU float64 run
+  16. the full-layer kernels at every width, and one molecule past 1,024
+     slots: (a) K5 and K6 (both `last`) at phase 15(a)'s cases, on the
+     weights the model hands them (padded once at H % 32 != 0): against
+     their plain versions (EDGE_TOL), bitwise repeats, K6's recomputed a_ij
+     equal to K5's (their s_e scratch bitwise); at 4 x 40 the ms beside
+     the plain version, bound and share at H = 512 with 4 heads and at the
+     narrow H = 256 with 8 heads; every wide stage's shared memory, blocks
+     per SM, registers and spills; (b) phase 15(b)'s model with
+     AI2BMD_FUSED_LAYER=1 driven as phase 4b: one warm evaluation launches
+     K5 36 and K6 36 and none of K1-K3, step 0 against the CPU float64 run
+     (phase 15(b)'s) beside 15(b)'s, the graphed step; (c) the CLI on its
+     .npz with AI2BMD_FUSED_LAYER=1, its model line naming K5/K6's wide
+     instantiations; (d) 15(f)'s 2 x 48 with 2 heads through K5/K6 against
+     float64, its layer weights padded once; (e) ACE-(ALA)110-NME
+     (build_polyalanine, alpha helix), 1,112 slots as one molecule: K1 (four
+     flag pairs), K2, K3, K7, K8, K5 and K6 at 1 x 1,112 on its graph at H
+     = 256 (8 heads) and 512 (4 heads) against their plain versions where
+     those fit in memory, bitwise repeats; ViSNetPotential at 9 x 256 with
+     remat=True and through K5/K6, one evaluation each (launches, CUDA-event
+     ms, peak memory), the two within 1e-3 eV/A
+  17. one JSON line of kernel results (with `mesh_launches`: rank 0's
      launches a warm evaluation in (b), by mesh; `precision_modes`: phase
-     14's figures by mode; `wide`: phase 15's), the card's name and power
-     limit, and the final JSON line.
+     14's figures by mode; `wide`: phases 15's and 16's; `slots_1112`:
+     phase 16(e)'s), the card's name and power limit, and the final JSON
+     line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
 `--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--precision-only` phase 14
-alone; `--wide-only` phase 15 alone; `--preprocess-full` runs only
+alone; `--wide-only` phase 15 alone; `--layer-wide-only` phase 16 alone;
+`--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
 cycles (wall seconds, ms per cycle), without it.  Phase 5 runs eagerly (no
@@ -296,9 +319,9 @@ import sys
 import time
 
 SHAPES = [(2, 24), (4, 32), (4, 40), (9, 16)]   # Chignolin's (B, A) ViSNet batches
-# Chignolin, Trp-cage and abd as one molecule, padded to 8 (abd's width, the
-# largest the bundled proteins give, checks the source passes' loops too)
-WHOLE_SHAPES = [(1, 176), (1, 288), (1, 752)]
+# Chignolin as one molecule, padded to 8 (four source chunks); the longer
+# molecules' kernel checks are phase 16(e)'s, at 1,112 slots (24 chunks)
+WHOLE_SHAPES = [(1, 176)]
 H, NH, S = 256, 8, 8
 CUTOFF = 5.0
 # float32 sums of up to 2H = 512 products, taken in another order than the
@@ -503,11 +526,14 @@ def bitwise(name, fn):
     need(same, f"{name}: two runs differ")
 
 
-def edge_inputs(torch, gen, B, A, dev, H=H):
+def edge_inputs(torch, gen, B, A, dev, H=H, pos=None):
+    """Random edge-core inputs at (B, A) and width H, drawn on ``gen``'s
+    device; the graph from random positions, or from ``pos`` [B, A, 3] (on
+    the CPU)."""
     from ai2bmd_torch.models.visnet import spherical_harmonics
 
-    r = lambda *s, sc=0.3: (torch.randn(s, generator=gen) * sc).to(dev)
-    pos = torch.randn((B, A, 3), generator=gen) * 2.5
+    r = lambda *s, sc=0.3: (torch.randn(s, generator=gen, device=gen.device) * sc).to(dev)
+    pos = torch.randn((B, A, 3), generator=gen) * 2.5 if pos is None else pos
     vec = pos[:, None] - pos[:, :, None]
     dist = vec.norm(dim=-1)
     eye = torch.eye(A, dtype=torch.bool)
@@ -528,19 +554,21 @@ MSG_KEYS = ("g_q", "g_k", "g_v", "g_vec", "g_edge", "g_d_sh", "g_dist")
 UPD_KEYS = ("g_edge", "g_wt", "g_wsrc")
 
 
-def edge_case(torch, K, gen, B, A, dev, H=H, NH=NH):
+def edge_case(torch, K, gen, B, A, dev, H=H, NH=NH, pos=None):
     """Inputs at (B, A) and width H with NH heads, K1's stash of them, random
     cotangents, and a random message-path g_edge for K3/K8 to sum into: the
-    arguments of K2, K3, K7 and K8."""
-    a = edge_inputs(torch, gen, B, A, dev, H)
+    arguments of K2, K3, K7 and K8 (the graph from ``pos`` when given)."""
+    a = edge_inputs(torch, gen, B, A, dev, H, pos)
     core = (a["q"], a["k"], a["v"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"],
             a["w_dkv"], a["b_dkv"], a["w_s"], a["b_s"], CUTOFF, NH)
     upd = dict(wt=a["wt"], wsrc=a["wsrc"], w_f=a["w_f"], b_f=a["b_f"])
     _, _, _, zdkv, zs, zf = K.edge_fwd(*core, **upd, store=True)
-    g_x = (torch.randn((B, A, H), generator=gen)).to(dev)
-    g_va = (torch.randn((B, A, S, H), generator=gen)).to(dev)
-    g_df = (torch.randn((B, A, A, H), generator=gen) * a["adj"].cpu()[..., None]).to(dev)
-    g_edge = (torch.randn((B, A, A, H), generator=gen) * a["adj"].cpu()[..., None]).to(dev)
+    rand = lambda *s: torch.randn(s, generator=gen, device=gen.device)
+    adj = a["adj"].to(gen.device)[..., None]
+    g_x = rand(B, A, H).to(dev)
+    g_va = rand(B, A, S, H).to(dev)
+    g_df = (rand(B, A, A, H) * adj).to(dev)
+    g_edge = (rand(B, A, A, H) * adj).to(dev)
     return dict(
         a=a, core=core, upd=upd, g_edge=g_edge,
         msg=(a["q"], a["k"], a["v"], a["vec"], zdkv, zs, a["d_sh"], a["dist"], a["adj"],
@@ -1011,18 +1039,20 @@ def cap_flop(rt, pos):
     return (pos.numel() // (pos.shape[-2] * 3)) * (30 * NB + 60 * NA + 120 * ND + 30 * NP)
 
 
-def layer_inputs(torch, gen, B, A, dev, H=H):
+def layer_inputs(torch, gen, B, A, dev, H=H, pos=None):
     """A fused layer's inputs at shape (B, A) and width H: a graph from
-    random positions (the last fragment's last 3 slots masked), random
-    streams, and cotangents.  Sphere-major vec and d_sh."""
+    random positions (the last fragment's last 3 slots masked) or from
+    ``pos`` (every slot valid), random streams, and cotangents.
+    Sphere-major vec and d_sh."""
     from ai2bmd_torch.models.visnet import ViSNetConfig, dense_graph
 
-    pos = torch.randn((B, A, 3), generator=gen) * 2.5
     mask = torch.ones((B, A), dtype=torch.bool)
-    mask[-1, A - 3:] = False
+    if pos is None:
+        pos = torch.randn((B, A, 3), generator=gen) * 2.5
+        mask[-1, A - 3:] = False
     adj, _, dist, d_sh = dense_graph(pos, mask, ViSNetConfig())
-    adj = adj.float()
-    r = lambda *s, sc: torch.randn(s, generator=gen) * sc
+    adj = adj.float().to(gen.device)
+    r = lambda *s, sc: torch.randn(s, generator=gen, device=gen.device) * sc
     t = dict(x=r(B, A, H, sc=0.5), vec=r(B, S, A, H, sc=0.3),
              edge=r(B, A, A, H, sc=0.2) * adj[..., None], d_sh=d_sh.permute(0, 3, 1, 2),
              dist=dist, adj=adj, gx2=r(B, A, H, sc=1.0), gvec2=r(B, S, A, H, sc=1.0),
@@ -3063,7 +3093,9 @@ def run_polarizable_route(torch, dev, card, root, name, kw, flex):
     """Phase 11 (a)-(c), one route of the solvated box through
     ProteinSimulation.from_pdb(**kw) at 9 x 256: build, step 0 (against
     phase 9b's cellpair forces for ``nl``, against the port on the CPU in
-    float64 but for AMOEBA), the launches of one evaluation, each part
+    float64 but for AMOEBA, and only when phase 9b's forces are not at
+    hand: the whole script leaves the two CPU references out for phase
+    16's time), the launches of one evaluation, each part
     captured alone (QM, the list build, the full box's MM, the protein's MM),
     POL_STEPS graphed replays against eager steps, POL_TIMED replays timed,
     no overflow, peak memory."""
@@ -3103,7 +3135,10 @@ def run_polarizable_route(torch, dev, card, root, name, kw, flex):
         need(d_solv <= FORCE_LIMIT and d_prot <= PROTEIN_SPREAD,
              f"{name}: step 0 parts from the cellpair route: {d_solv:.3e} / {d_prot:.3e}")
         out.update(dF_cellpair_solvent=d_solv, dF_cellpair_protein=d_prot)
-    if qmmm.amoeba is None:
+    if qmmm.amoeba is None and "forces0" in flex:
+        print(f"  ({name}) the CPU float64 reference is left out in the whole script (run "
+              f"--polarizable-only for it)")
+    elif qmmm.amoeba is None:
         cfg, params = ps.potential.cfg, load_model(None, ViSNetConfig())[0]
         ref_kw = {k: v for k, v in kw.items() if k == "pair_backend"}
         if kw.get("polarizable_mm"):
@@ -3810,11 +3845,10 @@ def default_misses(name, got, ref, exact):
     return misses, worst, share
 
 
-def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh, layers=True):
+def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh):
     """Phase 14(a)'s calls on edge case ``c`` and layer inputs ``la`` (weights
     ``ws[last]``) in the current mode: (kernel, label, kernel call, its plain
-    version taking ``mm`` as {output: tensor}, FLOPs, bytes); K5/K6's only
-    with ``layers``."""
+    version taking ``mm`` as {output: tensor}, FLOPs, bytes)."""
     core, upd, g0 = c["core"], c["upd"], c["g_edge"]
     E = B * A * A
     fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
@@ -3845,7 +3879,7 @@ def precision_specs(torch, K, FL, c, la, ws, B, A, H, nh, layers=True):
         plain = lambda mm, name=name, args=args: dict(zip(
             UPD_KEYS, getattr(K, name + "_plain")(*args, g0.clone(), mm=mm)))
         specs.append((name, name, run, plain, E * flop * H * H, nbytes(*args, g0, *run())))
-    for last in ((False, True) if layers else ()):
+    for last in (False, True):
         args = (la["x"], la["vec"], la["edge"], la["d_sh"], la["dist"], la["adj"], ws[last],
                 CUTOFF, nh, last)
         flop_f, flop_b = layer_flop(B, A, last, H)
@@ -3934,14 +3968,14 @@ def bf16_sensitivity(torch, FL, la, ws, nh):
 
 def check_precision_kernels(torch, dev):
     """Phase 14(a): each kernel with products in each mode at phase 3's
-    shapes (the four lone batches and the three whole molecules at H = 256
-    with 8 heads; heads of 8, 16 and 64 channels at 4 x 40 and 1 x 176):
+    shapes (the four lone batches and the whole molecule at H = 256 with 8
+    heads; heads of 8, 16 and 64 channels at 4 x 40 and 1 x 176):
     held to its mode's plain model (b3 and highest within EDGE_TOL, default
     as default_misses says), bitwise repeats, and at 8 heads of 32 channels
     the ms of a call (CUDA events, which include the host's issue time)
     beside the mode's bound, at the lone batches also the device ms from a
     profiler trace while the profiler holds (it fails for the rest of a
-    process once phase 3 has run K7 at A = 752); every launch of a mode
+    process once K7 has run at A = 752, in phase 7); every launch of a mode
     from its own library.  At 4 x 40 (32-channel heads) and 1 x 176
     (64-channel heads) the control: the highest library's outputs against
     default's plain model must miss for every kernel; at 1 x 176 with
@@ -3966,11 +4000,11 @@ def check_precision_kernels(torch, dev):
     weights = {}
     profiled = True
     for B, A, h, nh, where in cases:
-        # the wide case: the edge kernels' wide instantiations (K1 with the
-        # update and the stash, K2, K3, K7, K8) in highest and default; b3
-        # is phase 15's
+        # the wide case: the wide instantiations of K1 (with the update and
+        # the stash), K2, K3, K7, K8, K5 and K6 (both last) in highest and
+        # default; b3 is phases 15's and 16's
         wide = where == "wide"
-        if not wide and (h, nh) not in weights:
+        if (h, nh) not in weights:
             p = init_params(ViSNetConfig(hidden_channels=h, num_heads=nh), gen)
             weights[h, nh] = {last: layer_weights_on(torch, FL, p, gen, last, dev, h, nh)
                               for last in (False, True)}
@@ -3978,14 +4012,14 @@ def check_precision_kernels(torch, dev):
         control = (B, A, h, nh) in controls
         set_mm_mode("b3")
         c = edge_case(torch, K, gen, B, A, dev, h, nh)
-        la = None if wide else layer_inputs(torch, gen, B, A, dev, h)
+        la = layer_inputs(torch, gen, B, A, dev, h)
         highest_out = {}
         for mode in (("highest", "default") if wide else MODES):
             set_mm_mode(mode)
             reset_launches()
             mm, line = T.plain_mm(mode), []
             for name, label, run, plain, flop, nbyte in precision_specs(
-                    torch, K, FL, c, la, weights.get((h, nh)), B, A, h, nh, layers=not wide):
+                    torch, K, FL, c, la, weights[h, nh], B, A, h, nh):
                 if wide and label.startswith("edge_fwd") and label != MAIN_VARIANT["edge_fwd"]:
                     continue
                 cell_name = f"{label} {tag} @{mode}"
@@ -4417,17 +4451,28 @@ def check_wide_kernels(torch, dev):
     return out
 
 
-def wide_potential(torch, dev, prot, remat=False, h=WIDE_H, nh=WIDE_NH, layers=N_LAYERS):
+def wide_potential(torch, dev, prot, remat=False, h=WIDE_H, nh=WIDE_NH, layers=N_LAYERS,
+                   fused=False):
     """FragmentPotential for Chignolin at 9 x 512 with 4 heads of 128
     channels (or layers x h with nh heads; random weights, seed 0) on the
-    card, as a user builds it."""
+    card, as a user builds it; ``fused`` with AI2BMD_FUSED_LAYER=1, as a
+    user selects the full-layer kernels."""
     from ai2bmd_torch.models.params import init_params
     from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
     from ai2bmd_torch.potentials import FragmentPotential
 
     cfg = ViSNetConfig(num_layers=layers, hidden_channels=h, num_heads=nh, remat=remat)
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange="mm", device=dev)
+    old = os.environ.pop("AI2BMD_FUSED_LAYER", None)
+    if fused:
+        os.environ["AI2BMD_FUSED_LAYER"] = "1"
+    try:
+        pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange="mm", device=dev)
+    finally:
+        os.environ.pop("AI2BMD_FUSED_LAYER", None)
+        if old is not None:
+            os.environ["AI2BMD_FUSED_LAYER"] = old
+    need(pot.cfg.fused_layer == fused, f"fused_layer is {pot.cfg.fused_layer}, wanted {fused}")
     return pot, cfg, params
 
 
@@ -4437,11 +4482,11 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     of K1-K3, as phase 4 (``lone``: phase 4's launches, when it ran); (c)
     the same weights with remat (K1 without a stash, K7/K8), one
     evaluation against (b)'s step 0; (d) the CLI on those weights written
-    by save_converted; (e) AI2BMD_FUSED_LAYER=1 refuses the model naming
-    ROADMAP Queue 2; (f) a model at H % 32 != 0 against the CPU in float64,
-    its edge weights padded at its first evaluation and not again, both
-    evaluations within FORCE_LIMIT.
-    Returns its figures."""
+    by save_converted; (f) a model at H % 32 != 0 against the CPU in
+    float64, its edge weights padded at its first evaluation and not again,
+    both evaluations within FORCE_LIMIT.  (e), AI2BMD_FUSED_LAYER=1 refused,
+    is gone: phase 16 runs that model through K5/K6.
+    Returns its figures, (b)'s step 0 and its float64 reference among them."""
     from ai2bmd_torch.models import visnet as V
     from ai2bmd_torch.models.checkpoint import save_converted
     from ai2bmd_torch.models.visnet import ViSNet
@@ -4493,7 +4538,7 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     need(dF <= FORCE_LIMIT, f"wide step-0 forces differ from the float64 reference by {dF:.3e}")
     del pot64
     res.update(launches=launches, per_eval=one, ms_step_eager=ms_step, graphed=graphed,
-               step0_max_dF=dF)
+               step0_max_dF=dF, ref=dict(aux0=aux0, e0=e0, f0=f0, e_ref=e_ref, f_ref=f_ref))
 
     print("  (c) the same weights with remat=True: one evaluation through K1 without its stash "
           "and K7/K8")
@@ -4532,24 +4577,6 @@ def run_widths(torch, dev, prot, card, root, lone=None):
           f"fs; metrics ms/step {[r['ms_per_step'] for r in rows]}; {line!r}")
     need(f"ViSNet {N_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
     res["cli_line"] = line
-
-    print("  (e) AI2BMD_FUSED_LAYER=1 on the same model")
-    old = os.environ.get("AI2BMD_FUSED_LAYER")
-    os.environ["AI2BMD_FUSED_LAYER"] = "1"
-    try:
-        wide_potential(torch, dev, prot)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    finally:
-        if old is None:
-            os.environ.pop("AI2BMD_FUSED_LAYER", None)
-        else:
-            os.environ["AI2BMD_FUSED_LAYER"] = old
-    print(f"  refused: {refused!r}")
-    need(refused is not None and "ROADMAP.md, Queue 2" in refused,
-         "AI2BMD_FUSED_LAYER=1 did not refuse the wide model naming ROADMAP Queue 2")
-    res["fused_refused"] = refused
 
     print(f"  (f) Chignolin, ViSNet {PAD_LAYERS} x {PAD_H}, {PAD_NH} heads (H % 32 != 0): the "
           f"edge weights padded once")
@@ -4593,6 +4620,504 @@ def run_widths(torch, dev, prot, card, root, lone=None):
           f"{dF:.3e}, remat {dF_rc:.3e}; (a) took {res['a_s']:.1f} s, phase 15 "
           f"{res['phase_s']:.1f} s ({card})")
     return res
+
+# Phase 16: the full-layer kernels at every width, and one molecule past
+# 1,024 slots.  (a) K5/K6 at phase 15(a)'s (H, heads, B x A) cases; the
+# wide stages whose names the slice's replay trace must show.
+LAYER_WIDE_KERNELS = ("vislayer_fwd_centre1_wide", "vislayer_bwd_centre_wide",
+                      "vislayer_bwd_source_wide")
+FWD_WIDE_STAGES = ("edge @ [W_dkv | W_f]", "centre pass 1", "v_e @ W_s", "centre pass 2",
+                   "node rows", "edge rows padded")
+BWD_WIDE_STAGES = ("node rows", "edge @ [W_dkv | W_f]", "edge-row pass", "g_wt", "v_e @ W_s",
+                   "g_e @ W_s^T", "centre pass", "[g_dkv | g_zf] @ W^T", "source pass",
+                   "LayerNorm rows", "gvec (vector rows)")
+# (e): ACE-(ALA)110-NME as an alpha helix, 1,112 atoms, one molecule of
+# 1,112 slots (23 source chunks of 48 rows and one of 8)
+POLY_RES, POLY_PHI, POLY_PSI = 110, -57.0, -47.0
+POLY_WIDTHS = ((H, NH), (WIDE_H, WIDE_NH))
+
+
+def check_layer_case(torch, FL, ws, a, B, A, h, nh, out, timed=False):
+    """K5 and K6 (on K5's x_agg), both ``last``, at width h with nh heads on
+    layer inputs ``a`` and (padded) weights ``ws[last]``: against their
+    plain versions within EDGE_TOL, bitwise repeats, and K6's recomputed
+    a_ij against K5's: their s_e scratch (s = silu(v_ij W_s + b_s) adj of
+    every edge row, which each builds from its own a_ij through the same
+    product) bitwise equal.  Largest errors go to out[kernel]; with
+    ``timed`` the updating layer's ms in turns with its plain version,
+    bound and share go to out[kernel]["timed"]."""
+    tag = f"H={h} nh={nh} (DH={h // nh}) B={B} A={A}"
+    for last in (False, True):
+        flop_f, flop_b = layer_flop(B, A, last, h)
+        args = (a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], ws[last], CUTOFF,
+                nh, last)
+        label = f"vislayer_fwd {tag} last={int(last)}"
+        print(f"  {label}")
+        run = lambda args=args: FL.vislayer_fwd(*args)
+        plain = lambda args=args: FL.vislayer_fwd_plain(*args)
+        err = compare(label, run(), dict(zip(("x2", "vec2", "edge2", "x_agg"), plain())),
+                      EDGE_TOL)
+        bitwise(label, run)
+        res = out.setdefault("vislayer_fwd", {"max_abs_err": 0.0})
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        fs, bs = {}, {}
+        xagg = FL.vislayer_fwd(*args, scratch=fs)[3]
+        bargs = (*args[:7], xagg, a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, nh, last)
+        blabel = f"vislayer_bwd {tag} last={int(last)}"
+        print(f"  {blabel}")
+        brun = lambda bargs=bargs: FL.vislayer_bwd(*bargs)
+        bplain = lambda bargs=bargs: FL.vislayer_bwd_plain(*bargs)
+        berr = compare(blabel, brun(), dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"),
+                                                bplain())), EDGE_TOL)
+        bitwise(blabel, brun)
+        FL.vislayer_bwd(*bargs, scratch=bs)
+        same = bool(torch.equal(fs["s_e"], bs["s_e"]))
+        print(f"    K6's recomputed a_ij equal to K5's (their s_e scratch bitwise): {same}")
+        need(same, f"{blabel}: K6's recomputed a_ij differ from K5's")
+        del fs, bs
+        res = out.setdefault("vislayer_bwd", {"max_abs_err": 0.0})
+        res["max_abs_err"] = max(res["max_abs_err"], berr)
+        if timed and not last:
+            for name, k, pl, nbyte, flop in (
+                    ("vislayer_fwd", run, plain, nbytes(*args[:6], *ws[last], *run()), flop_f),
+                    ("vislayer_bwd", brun, bplain,
+                     nbytes(*bargs[:6], *ws[last], *bargs[7:11], *brun()), flop_b)):
+                print(f"  {name} {tag} last=0, timed")
+                t = in_turns(torch, k, pl)
+                b = bound(nbyte, tc=flop)
+                add_bound({}, b, t)
+                dev_ms = t["device_ms"] or t["ms"]
+                out[name]["timed"] = dict(
+                    case=tag, ms=t["ms"], device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                    plain_device_ms=t["plain_device_ms"], bound_ms=b["bound_ms"],
+                    bound_by=b["bound_by"], gflop=b["gflop"], mbytes=b["mbytes"],
+                    share=b["bound_ms"] / dev_ms)
+
+
+def layer_wide_occupancy(torch, widths):
+    """Shared memory per block, blocks per SM, registers, spill bytes and
+    the centre passes' source-chunk rows of every stage of K5/K6's wide
+    instantiation at each (H, heads) of ``widths``."""
+    import ctypes
+
+    from ai2bmd_torch.ops import _build
+
+    lib = _build.library()
+    I, P = ctypes.c_int, ctypes.c_void_p
+    out = {}
+    for fn, stages in (("vislayer_fwd_wide_occupancy", FWD_WIDE_STAGES),
+                       ("vislayer_bwd_wide_occupancy", BWD_WIDE_STAGES)):
+        getattr(lib, fn).argtypes = [I] * 4 + [P]
+        getattr(lib, fn).restype = I
+        for h, nh in widths:
+            rows = out.setdefault(fn.split("_wide")[0], {}).setdefault(f"H={h} nh={nh}", {})
+            for st, label in enumerate(stages):
+                o = (ctypes.c_int * 5)()
+                rc = getattr(lib, fn)(h, S, nh, st, ctypes.cast(o, P))
+                need(rc == 0, f"{fn}({h}, {S}, {nh}, {st}): CUDA error {rc}")
+                rows[label] = dict(smem_bytes=o[0], blocks_per_sm=o[1], registers=o[2],
+                                   spill_bytes=o[3], chunk_rows=o[4])
+            print(f"  {fn.split('_wide')[0]} H={h} nh={nh} (wide; shared bytes, blocks an SM, "
+                  f"registers, spill bytes): " + "; ".join(
+                      f"{k} {v['smem_bytes']}/{v['blocks_per_sm']}/{v['registers']}/"
+                      f"{v['spill_bytes']}" for k, v in rows.items())
+                  + f"; centre chunks of {o[4]} rows")
+    return out
+
+
+def check_layer_widths(torch, dev):
+    """Phase 16(a): K5 and K6 (both ``last``) at WIDE_CASES x WIDE_SHAPES,
+    WIDE_TOP and (WIDE_H, WIDE_NH) at every batch of SHAPES, on the weights
+    the model hands them (padded once at H % 32 != 0), as check_layer_case
+    says; at WIDE_TIMED the wide (WIDE_H, WIDE_NH) and the narrow (H, NH)
+    timed side by side; the wide stages' occupancy.  Returns {kernel:
+    figures}."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import vislayer as FL
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(17)
+    cases = [(h, nh, B, A) for h, nh in WIDE_CASES for B, A in WIDE_SHAPES]
+    cases.append((*WIDE_TOP, *WIDE_TIMED))
+    cases += [(WIDE_H, WIDE_NH, B, A) for B, A in SHAPES if (WIDE_H, WIDE_NH, B, A) not in cases]
+    out, weights = {}, {}
+    for h, nh, B, A in cases + [(H, NH, *WIDE_TIMED)]:
+        narrow = (h, nh) == (H, NH)
+        need(K.narrow_shapes(h, nh) == narrow, f"H={h}, nh={nh}: narrow_shapes")
+        if (h, nh) not in weights:
+            p = init_params(ViSNetConfig(hidden_channels=h, num_heads=nh), gen)
+            weights[h, nh] = {last: FL.padded_layer_weights(
+                layer_weights_on(torch, FL, p, gen, last, dev, h, nh), h)
+                for last in (False, True)}
+        per = {}
+        check_layer_case(torch, FL, weights[h, nh], layer_inputs(torch, gen, B, A, dev, h), B, A,
+                         h, nh, per,
+                         timed=(B, A) == WIDE_TIMED and (h, nh) in ((WIDE_H, WIDE_NH), (H, NH)))
+        for name, res in per.items():
+            o = out.setdefault(name, {"max_abs_err": 0.0, "cases": {}})
+            if narrow:
+                o["narrow_timed"] = res["timed"]
+                continue
+            o["max_abs_err"] = max(o["max_abs_err"], res["max_abs_err"])
+            o["cases"][f"H={h} nh={nh} B={B} A={A}"] = res["max_abs_err"]
+            if "timed" in res:
+                o["timed"] = res["timed"]
+        torch.cuda.empty_cache()
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        w, n = out[name]["timed"], out[name]["narrow_timed"]
+        print(f"  {name} at B x A = {WIDE_TIMED}: H={WIDE_H} nh={WIDE_NH} (wide) "
+              f"{fmt_ms(w['device_ms'])} device (plain {fmt_ms(w['plain_device_ms'])}), "
+              f"{100 * w['share']:.1f}% of its bound {w['bound_ms']:.4f} ms ({w['bound_by']}); "
+              f"H={H} nh={NH} (narrow) {fmt_ms(n['device_ms'])} (plain "
+              f"{fmt_ms(n['plain_device_ms'])}), {100 * n['share']:.1f}% of {n['bound_ms']:.4f}")
+    occ = layer_wide_occupancy(torch, list(WIDE_CASES) + [WIDE_TOP])
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        out[name]["occupancy"] = occ[name]
+    return out
+
+
+def layer_launches(LAUNCHES):
+    return {n: LAUNCHES[n] for n in ("vislayer_fwd", "vislayer_bwd", *EDGE_NAMES, "cap_grad")}
+
+
+def run_layer_slice(torch, dev, prot, card, ref15):
+    """Phase 16(b): Chignolin at 9 x WIDE_H with WIDE_NH heads (phase 15(b)'s
+    model) with AI2BMD_FUSED_LAYER=1, driven as phase 4b; one warm
+    evaluation's launches (K5 and K6 a layer a batch, K1-K3 none); step 0
+    against the CPU float64 run (phase 15(b)'s when it ran, from the same
+    cold-cap offsets), beside 15(b)'s step 0 through K1-K3."""
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    pot, cfg, params = wide_potential(torch, dev, prot, fused=True)
+    launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
+                                                              LAYER_WIDE_KERNELS)
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc",
+                 "edge_bwd_upd_rc", "tf32x3_mm"):
+        need(launches[name] == 0, f"{name} ran on the wide full-layer slice")
+    torch.cuda.synchronize()
+    reset_launches()
+    pot.stateful_energy_forces(P, aux1)
+    torch.cuda.synchronize()
+    one = layer_launches(LAUNCHES)
+    batches = len(pot.rt.dip_buckets) + 1
+    want = dict({n: 0 for n in one}, vislayer_fwd=N_LAYERS * batches,
+                vislayer_bwd=N_LAYERS * batches, cap_grad=1)
+    print(f"  one warm evaluation launches {one}")
+    need(one == want, f"the wide full-layer slice launches {one} an evaluation, not {want}")
+    cpu = torch.device("cpu")
+    if ref15 is not None and torch.equal(aux0, ref15["aux0"]):
+        e_ref, f_ref, t_ref = ref15["e_ref"], ref15["f_ref"], "phase 15(b)'s"
+    else:
+        t0 = time.perf_counter()
+        pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
+                                        longrange="mm", device="cpu")
+        e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
+                                                       aux0.to(cpu, torch.float64))
+        t_ref = f"made here in {time.perf_counter() - t0:.1f} s"
+        del pot64
+    dF = float((f0.to(cpu, torch.float64) - f_ref).abs().max())
+    beside = "" if ref15 is None else (
+        f"; 15(b)'s K1-K3 step 0 {float((ref15['f0'].to(cpu, torch.float64) - f_ref).abs().max()):.3e}"
+        f", K5/K6 against it {float((f0 - ref15['f0']).abs().max()):.3e}")
+    print(f"  step 0 vs CPU float64 plain ({t_ref}): |dE| {abs(float(e0) - float(e_ref)):.3e} eV, "
+          f"max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT}){beside}")
+    need(dF <= FORCE_LIMIT, f"wide full-layer step-0 forces differ from float64 by {dF:.3e}")
+    return dict(launches=launches, per_eval=one, ms_step_eager=ms_step, graphed=graphed,
+                step0_max_dF=dF, params=params, cfg=cfg, P=P, aux0=aux0)
+
+
+def run_layer_cli(torch, root, cfg, params):
+    """Phase 16(c): the CLI on the wide model's .npz with
+    AI2BMD_FUSED_LAYER=1, WIDE_CLI_STEPS steps at USER_DT_FS: exit 0, the
+    model line naming K5/K6's wide instantiations."""
+    from ai2bmd_torch.models.checkpoint import save_converted
+
+    os.makedirs(root, exist_ok=True)
+    npz = os.path.join(root, f"visnet-chig-9x{WIDE_H}-{WIDE_NH}h-layer.npz")
+    save_converted(npz, params, cfg)
+    d = os.path.join(root, "wide_layer")
+    t0 = time.perf_counter()
+    txt = _cli_wait("wide fused layer", _cli_start(_cli_cmd(
+        d, "--ckpt-path", npz, "--preeq-steps", "0", "--sim-steps", str(WIDE_CLI_STEPS),
+        "--record-per-steps", str(WIDE_CLI_RECORD), "--timestep", str(USER_DT_FS)),
+        fused_layer=True))
+    need("Simulation finished!" in txt, "the wide full-layer CLI run did not finish")
+    rows = _metrics(os.path.join(d, "chig-metrics.csv"))
+    line = cli_model_line(txt, "full-layer kernels K5/K6 (wide instantiations: K5, K6)")
+    print(f"  exit 0 in {time.perf_counter() - t0:.1f} s, {WIDE_CLI_STEPS} steps at {USER_DT_FS} "
+          f"fs; metrics ms/step {[r['ms_per_step'] for r in rows]}; {line!r}")
+    need(f"ViSNet {N_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
+    return line
+
+
+def run_layer_padded(torch, dev, prot, P, aux0):
+    """Phase 16(d): phase 15(f)'s model (PAD_LAYERS x PAD_H, PAD_NH heads, H %
+    32 != 0) through K5/K6, two evaluations: each layer's weights padded at
+    the first and not again, both within FORCE_LIMIT of the CPU float64
+    run."""
+    from ai2bmd_torch.models import visnet as V
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    pot, cfg, params = wide_potential(torch, dev, prot, h=PAD_H, nh=PAD_NH, layers=PAD_LAYERS,
+                                      fused=True)
+    layers = pot.module.params()["layers"]
+    padded = lambda: [V._padded_layer_weights(lp, PAD_H, PAD_NH, li == PAD_LAYERS - 1,
+                                              torch.float32) for li, lp in enumerate(layers)]
+    torch.cuda.synchronize()
+    reset_launches()
+    e1, f1, _ = pot.stateful_energy_forces(P, aux0)
+    first = padded()
+    e2, f2, _ = pot.stateful_energy_forces(P, aux0)
+    torch.cuda.synchronize()
+    got = layer_launches(LAUNCHES)
+    same = all(a is b for x, y in zip(first, padded()) for a, b in zip(x, y))
+    need(same, "the padded layer weights were made again at the second evaluation")
+    batches = len(pot.rt.dip_buckets) + 1
+    need(got["vislayer_fwd"] == 2 * PAD_LAYERS * batches and got["edge_fwd"] == 0
+         and LAUNCHES["plain_edge_core"] == 0, f"the padded model launched {got}")
+    cpu = torch.device("cpu")
+    pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
+                                    longrange="mm", device="cpu")
+    e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
+                                                   aux0.to(cpu, torch.float64))
+    dF1, dF2 = (float((f.to(cpu, torch.float64) - f_ref).abs().max()) for f in (f1, f2))
+    print(f"  launches over two evaluations {got}; vs CPU float64: |dE| "
+          f"{abs(float(e1) - float(e_ref)):.3e} eV, max|dF| {dF1:.3e} and {dF2:.3e} eV/A (limit "
+          f"{FORCE_LIMIT}); the same padded weights at the second")
+    need(max(dF1, dF2) <= FORCE_LIMIT, f"the padded model's forces differ by {max(dF1, dF2):.3e}")
+    return dict(max_dF=max(dF1, dF2), launches=got)
+
+
+def check_long_kernels(torch, dev, pos, out):
+    """Phase 16(e), kernels: K1 (four flag pairs), K2, K3, K7, K8, K5 and K6
+    (both ``last``) at B x A = 1 x len(pos) on the molecule's own graph, at
+    POLY_WIDTHS: against their plain versions (where the plain version fits
+    in the card's memory; said so where it does not), bitwise repeats, K7/K8
+    against K2/K3 on K1's stash, K6's a_ij against K5's; CUDA-event ms a
+    call.  Adds {kernel: {width: {"max_abs_err", "ms": {variant: ms},
+    "not_compared": [variant]}}} to ``out``."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.ops import vislayer as FL
+    from ai2bmd_torch.ops import vismp as K
+
+    A = pos.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(19)   # [A, A, H] inputs drawn on the card
+    gen_w = torch.Generator().manual_seed(19)           # the weights, on the CPU
+    fwd_keys = ("x_agg", "vec_agg", "df", "zdkv", "zs", "zf")
+    for h, nh in POLY_WIDTHS:
+        tag = f"H={h} nh={nh} B=1 A={A}"
+
+        def check(name, variant, run, plain):
+            label = f"{name} {tag}{variant}"
+            print(f"  {label}")
+            try:
+                ref = plain()
+            except torch.cuda.OutOfMemoryError:
+                ref = None
+            torch.cuda.empty_cache()
+            res = out.setdefault(name, {}).setdefault(
+                f"H={h} nh={nh}", {"max_abs_err": 0.0, "ms": {}, "not_compared": []})
+            if ref is None:
+                print("    the plain version does not fit in the card's memory: not compared")
+                res["not_compared"].append(variant.strip() or name)
+            else:
+                res["max_abs_err"] = max(res["max_abs_err"],
+                                         compare(label, run(), ref, EDGE_TOL))
+                del ref
+            bitwise(label, run)
+            ms = res["ms"][variant.strip() or name] = cuda_ms(torch, run, 3)
+            print(f"    {ms:.3f} ms a call (CUDA events)")
+
+        c = edge_case(torch, K, gen, 1, A, dev, h, nh, pos=pos[None])
+        core, upd, g0 = c["core"], c["upd"], c["g_edge"]
+        for update in (True, False):
+            for store in (True, False):
+                kw = upd if update else {}
+
+                def plain(kw=kw, store=store):
+                    r = dict(zip(fwd_keys, K.edge_fwd_plain(*core, **kw)))
+                    if not store:
+                        r["zdkv"] = r["zs"] = r["zf"] = None
+                    return r
+
+                check("edge_fwd", f" update={int(update)} store={int(store)}",
+                      lambda kw=kw, store=store: K.edge_fwd(*core, **kw, store=store), plain)
+        for name, args in (("edge_bwd_msg", c["msg"]), ("edge_bwd_msg_rc", c["msg_rc"])):
+            check(name, "", lambda name=name, args=args: getattr(K, name)(*args),
+                  lambda name=name, args=args: dict(zip(MSG_KEYS,
+                                                        getattr(K, name + "_plain")(*args))))
+        for name, args in (("edge_bwd_upd", c["upd_args"]), ("edge_bwd_upd_rc", c["upd_rc"])):
+            check(name, "",
+                  lambda name=name, args=args: getattr(K, name)(*args, g_edge=g0.clone()),
+                  lambda name=name, args=args: dict(zip(
+                      UPD_KEYS, getattr(K, name + "_plain")(*args, g0.clone()))))
+        print("    K7 against K2 and K8 against K3 on K1's stash (bitwise):")
+        compare(f"edge_bwd_msg_rc {tag}", K.edge_bwd_msg_rc(*c["msg_rc"]),
+                dict(zip(MSG_KEYS, K.edge_bwd_msg(*c["msg"]))), 0.0)
+        compare(f"edge_bwd_upd_rc {tag}", K.edge_bwd_upd_rc(*c["upd_rc"], g_edge=g0.clone()),
+                dict(zip(UPD_KEYS, K.edge_bwd_upd(*c["upd_args"], g_edge=g0.clone()))), 0.0)
+        del c, core, upd, g0
+        torch.cuda.empty_cache()
+        p = init_params(ViSNetConfig(hidden_channels=h, num_heads=nh), gen_w)
+        ws = {last: FL.padded_layer_weights(layer_weights_on(torch, FL, p, gen_w, last, dev, h, nh),
+                                            h) for last in (False, True)}
+        a = layer_inputs(torch, gen, 1, A, dev, h, pos=pos[None])
+        for last in (False, True):
+            args = (a["x"], a["vec"], a["edge"], a["d_sh"], a["dist"], a["adj"], ws[last],
+                    CUTOFF, nh, last)
+            check("vislayer_fwd", f" last={int(last)}",
+                  lambda args=args: FL.vislayer_fwd(*args),
+                  lambda args=args: dict(zip(("x2", "vec2", "edge2", "x_agg"),
+                                             FL.vislayer_fwd_plain(*args))))
+            fs, bs = {}, {}
+            xagg = FL.vislayer_fwd(*args, scratch=fs)[3]
+            bargs = (*args[:7], xagg, a["gx2"], a["gvec2"], a["gedge2"], CUTOFF, nh, last)
+            check("vislayer_bwd", f" last={int(last)}",
+                  lambda bargs=bargs: FL.vislayer_bwd(*bargs),
+                  lambda bargs=bargs: dict(zip(("g_x", "g_vec", "g_edge", "g_d_sh", "g_dist"),
+                                               FL.vislayer_bwd_plain(*bargs))))
+            FL.vislayer_bwd(*bargs, scratch=bs)
+            same = bool(torch.equal(fs["s_e"], bs["s_e"]))
+            print(f"    K6's recomputed a_ij equal to K5's (s_e bitwise): {same}")
+            need(same, f"vislayer_bwd {tag} last={int(last)}: K6's a_ij differ from K5's")
+            del fs, bs, xagg, bargs
+            torch.cuda.empty_cache()
+        del a, ws
+        torch.cuda.empty_cache()
+
+
+def run_long_molecule(torch, dev, card):
+    """Phase 16(e): one molecule past 1,024 slots, build_polyalanine(POLY_RES,
+    POLY_PHI, POLY_PSI): its kernels at 1 x 1,112 (check_long_kernels), then
+    ViSNetPotential at 9 x 256 with 8 heads (random weights, seed 0): one
+    force evaluation with remat=True (K1 without a stash, K7/K8) and one
+    through K5/K6 (AI2BMD_FUSED_LAYER=1), each with its launches, CUDA-event
+    ms and peak memory; the two within FORCE_LIMIT."""
+    import numpy as np
+
+    from ai2bmd_torch.io.build import build_polyalanine
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import ViSNetPotential
+
+    atoms = build_polyalanine(POLY_RES, phi=POLY_PHI, psi=POLY_PSI)
+    pos = np.asarray(atoms.positions, np.float64)
+    d = np.sqrt(((pos[:, None] - pos[None]) ** 2).sum(-1))
+    np.fill_diagonal(d, np.inf)
+    A = len(pos)
+    print(f"  ACE-(ALA){POLY_RES}-NME, phi {POLY_PHI}, psi {POLY_PSI}: {A} atoms, "
+          f"{float((d < CUTOFF).sum(1).mean()):.1f} neighbours within {CUTOFF} A on average, "
+          f"minimum distance {float(d.min()):.2f} A; {A} slots = {A // 48} chunks of 48 + "
+          f"{A % 48}")
+    need(A > 1024 and A % 8 == 0, f"{A} slots")
+    out = {"A": A, "kernels": {}}
+    P = torch.as_tensor(atoms.positions, dtype=torch.float32)
+    check_long_kernels(torch, dev, P, out["kernels"])
+    P = P.to(dev)
+    cfg = ViSNetConfig()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    evals = {}
+    for route, kw in (("remat", dict(remat=True)), ("fused", dict(fused_layer=True))):
+        c = ViSNetConfig(**kw)
+        pot = ViSNetPotential.build(atoms.numbers, ViSNet(c, params), c, device=dev)
+        need(pot.pad_to == A and pot.cfg.remat == (route == "remat")
+             and pot.cfg.fused_layer == (route == "fused"), f"{route}: {pot.cfg}, {pot.pad_to}")
+        pot.energy_forces(P)                      # warm-up (weights, caches)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        e, f = pot.energy_forces(P)
+        end.record()
+        torch.cuda.synchronize()
+        launched = {n: v for n, v in LAUNCHES.items() if v}
+        evals[route] = dict(ms=start.elapsed_time(end), launches=launched, e=e, f=f,
+                            peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        need(bool(f.isfinite().all()) and f.shape == (A, 3), f"{route}: forces {tuple(f.shape)}")
+        want = ({"edge_fwd": N_LAYERS, "edge_bwd_msg_rc": N_LAYERS,
+                 "edge_bwd_upd_rc": N_LAYERS - 1} if route == "remat" else
+                {"vislayer_fwd": N_LAYERS, "vislayer_bwd": N_LAYERS})
+        need(launched == want, f"{route}: one evaluation launched {launched}, not {want}")
+        print(f"  ViSNetPotential 9 x {H}, {NH} heads, {route}: one evaluation {evals[route]['ms']:.3f} "
+              f"ms (CUDA events), launches {launched}, peak {evals[route]['peak_gib']:.2f} GiB "
+              f"above the {base / 2 ** 30:.2f} held before ({card})")
+        del pot
+        torch.cuda.empty_cache()
+    dF = float((evals["remat"]["f"] - evals["fused"]["f"]).abs().max())
+    dE = abs(float(evals["remat"]["e"]) - float(evals["fused"]["e"]))
+    print(f"  remat against K5/K6: max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT}), |dE| {dE:.3e} eV; "
+          f"max|F| {float(evals['fused']['f'].abs().max()):.3f} eV/A")
+    need(dF <= FORCE_LIMIT, f"the 1,112-slot molecule's two routes differ by {dF:.3e}")
+    for ev in evals.values():
+        del ev["e"], ev["f"]
+    out.update(evals=evals, routes_max_dF=dF)
+    return out
+
+
+def run_layer_widths(torch, dev, prot, card, root, ref15=None):
+    """Phase 16: (a) K5/K6 at every width (check_layer_widths); (b) the 9 x
+    512, 4-head slice through them (run_layer_slice); (c) the CLI on it
+    (run_layer_cli); (d) a 2 x 48, 2-head model (run_layer_padded); (e) one
+    molecule of 1,112 slots (run_long_molecule).  Returns its figures."""
+    t_phase = time.perf_counter()
+    res = {}
+    print("  (a) K5 and K6 at every width against their plain versions")
+    res["kernels"] = check_layer_widths(torch, dev)
+    res["a_s"] = time.perf_counter() - t_phase
+    print(f"  (b) Chignolin, ViSNet 9 x {WIDE_H}, {WIDE_NH} heads, AI2BMD_FUSED_LAYER=1: the "
+          f"wide K5/K6")
+    sl = run_layer_slice(torch, dev, prot, card, ref15)
+    res["slice"] = {k: v for k, v in sl.items() if k not in ("params", "cfg", "P", "aux0")}
+    print("  (c) python -m ai2bmd_torch --ckpt-path on these weights, AI2BMD_FUSED_LAYER=1")
+    res["cli_line"] = run_layer_cli(torch, root, sl["cfg"], sl["params"])
+    print(f"  (d) Chignolin, ViSNet {PAD_LAYERS} x {PAD_H}, {PAD_NH} heads (H % 32 != 0), through "
+          f"K5/K6")
+    res["padded"] = run_layer_padded(torch, dev, prot, sl["P"], sl["aux0"])
+    del sl
+    torch.cuda.empty_cache()
+    print(f"  (e) one molecule past 1,024 slots")
+    t0 = time.perf_counter()
+    res["long"] = run_long_molecule(torch, dev, card)
+    res["e_s"] = time.perf_counter() - t0
+    res["phase_s"] = time.perf_counter() - t_phase
+    g = res["slice"]["graphed"]
+    print(f"  wide full-layer slice (9 x {WIDE_H}, {WIDE_NH} heads): graphed {g['ms_step']:.3f} "
+          f"ms/step (events {g['ms_events']:.3f}), {g['kernels_per_step']:.0f} kernels a step, "
+          f"{100 * g['busy_share']:.1f}% busy; step 0 max|dF| {res['slice']['step0_max_dF']:.3e}; "
+          f"1,112 slots: remat {res['long']['evals']['remat']['ms']:.3f} ms, K5/K6 "
+          f"{res['long']['evals']['fused']['ms']:.3f} ms an evaluation; (a) took "
+          f"{res['a_s']:.1f} s, (e) {res['e_s']:.1f} s, phase 16 {res['phase_s']:.1f} s ({card})")
+    return res
+
+
+def layer_wide_entry(p16, name):
+    """A K5/K6 figures of phase 16 for the kernels line: its largest error
+    over the wide cases, the timed case beside the narrow one, the wide
+    stages' occupancy, the wide slice's launches an evaluation."""
+    res = p16["kernels"][name]
+    return dict(max_abs_err=res["max_abs_err"], timed=res.get("timed"),
+                narrow_timed=res.get("narrow_timed"), occupancy=res["occupancy"],
+                slice_launches_per_eval=p16["slice"]["per_eval"].get(name, 0))
+
+
+def long_entry(p16, name):
+    """A kernel's figures at 1,112 slots (phase 16(e)): by width, its largest
+    error against the plain version (None where that did not fit) and ms a
+    call; its launches in one evaluation on each route."""
+    lg = p16["long"]
+    return dict(A=lg["A"], by_width=lg["kernels"].get(name),
+                launches_per_eval={r: ev["launches"].get(name, 0)
+                                   for r, ev in lg["evals"].items()})
 
 
 def wide_entry(p15, name):
@@ -4675,6 +5200,10 @@ def main(argv=None):
                     help="after the build, run only phase 15 (the edge kernels at every head and "
                          "hidden width, and Chignolin at 9 x 512 with 4 heads through them), "
                          "without the final line")
+    ap.add_argument("--layer-wide-only", action="store_true",
+                    help="after the build, run only phase 16 (the full-layer kernels at every head "
+                         "and hidden width, Chignolin at 9 x 512 with 4 heads through them, and a "
+                         "molecule of 1,112 slots), without the final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
@@ -4728,6 +5257,11 @@ def main(argv=None):
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
         return
+    if args.layer_wide_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 16. the full-layer kernels at every width, one molecule past 1,024 slots (alone)")
+        run_layer_widths(torch, dev, load_protein(example_pdb("chig")), card, root)
+        return
     if args.wide_only:
         shutil.rmtree(root, ignore_errors=True)
         print("== 15. every head and hidden width through the edge kernels (alone)")
@@ -4769,9 +5303,6 @@ def main(argv=None):
     check_edge_kernels(torch, dev, results)
     prot = load_protein(example_pdb("chig"))
     check_cap_kernel(torch, dev, prot, results)
-    # on the H100 the profiler's device times fail for the rest of the
-    # process from K7 at A = 752 on: K4 and K5/K6 at the whole-molecule
-    # shapes are timed before it
     whole = {A: {} for _, A in WHOLE_SHAPES}
     check_whole_layer_kernels(torch, dev, whole)
     check_whole_molecule_kernels(torch, dev, whole)
@@ -4838,6 +5369,12 @@ def main(argv=None):
           f"9 x {WIDE_H} with {WIDE_NH} heads (graphed, remat, the CLI, AI2BMD_FUSED_LAYER=1)")
     p15 = run_widths(torch, dev, prot, card, root, lone=launches)
     no_plain("15")
+    print(f"== 16. the full-layer kernels at every width and one molecule past 1,024 slots: K5/K6 at "
+          f"heads of 8 to 256 channels and H = 40 to 1024 against their plain versions; Chignolin "
+          f"at 9 x {WIDE_H} with {WIDE_NH} heads through them (graphed, the CLI), 2 x {PAD_H}; "
+          f"ACE-(ALA){POLY_RES}-NME (1,112 slots) through every kernel and both routes")
+    p16 = run_layer_widths(torch, dev, prot, card, root, ref15=p15["ref"])
+    no_plain("16")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -4873,10 +5410,15 @@ def main(argv=None):
     for k in kernels:      # phase 14: by products' mode
         if k["name"] != "cap_grad":
             k["precision_modes"] = precision_entry(p14, k["name"])
-    for k in kernels:      # phase 15: the wide instantiations
+    for k in kernels:      # phases 15 and 16: the wide instantiations
         if k["name"] in EDGE_NAMES:
             k["wide"] = wide_entry(p15, k["name"])
-    print("== 16. results")
+        elif k["name"] in LAYER_PATH:
+            k["wide"] = layer_wide_entry(p16, k["name"])
+    for k in kernels:      # phase 16(e): one molecule of 1,112 slots
+        if k["name"] in EDGE_NAMES or k["name"] in LAYER_PATH:
+            k["slots_1112"] = long_entry(p16, k["name"])
+    print("== 17. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -4894,7 +5436,11 @@ def main(argv=None):
           f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; the lone step graphed (events) by "
           f"products' mode " + ", ".join(f"{m} {p14['step'][m]['ms_step']:.3f}" for m in MODES)
           + f"; the wide slice (9 x {WIDE_H}, {WIDE_NH} heads) graphed "
-          f"{p15['graphed']['ms_step']:.3f} (events {p15['graphed']['ms_events']:.3f}); "
+          f"{p15['graphed']['ms_step']:.3f} (events {p15['graphed']['ms_events']:.3f}) K1-K3, "
+          f"{p16['slice']['graphed']['ms_step']:.3f} (events "
+          f"{p16['slice']['graphed']['ms_events']:.3f}) K5/K6; 1,112 slots an evaluation "
+          f"{p16['long']['evals']['remat']['ms']:.3f} (remat), "
+          f"{p16['long']['evals']['fused']['ms']:.3f} (K5/K6) ms; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

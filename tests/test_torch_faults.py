@@ -154,21 +154,18 @@ def test_cli_no_solvent_runs_a_solvated_input_in_vacuum(tmp_path):
                          ids=["dh8", "dh16", "dh32", "dh32-two-heads", "dh64", "dh128", "dh256",
                               "H48-dh24"])
 def test_kernels_take_heads_of_8_16_and_32_channels(H, nh):
-    """check_shapes, which every edge-kernel wrapper runs, takes heads of 8,
-    16, 32 and 64 channels, at a fragment and at abd's 752 slots, and so
-    does check_layer_shapes (K5/K6).  Heads of 128 and 256 channels and H =
-    48 with two heads of 24 are the edge kernels' wide instantiations:
-    check_shapes takes them, check_layer_shapes refuses them naming
-    ROADMAP.md Queue 2 (the full-layer kernels' widths come next)."""
+    """check_shapes, which every edge-kernel wrapper runs, and
+    check_layer_shapes (K5/K6) take heads of 8, 16, 32 and 64 channels, at
+    a fragment, at abd's 752 slots and at 1,112 slots.  Heads of 128 and
+    256 channels and H = 48 with two heads of 24 are both families' wide
+    instantiations (narrow_shapes is False there): both checks take them
+    too."""
     wide = (H, nh) in ((256, 2), (512, 2), (48, 2))
-    assert TK.layer_shapes(H, nh, 8) is not wide
-    for A in (40, 752):
+    assert TK.narrow_shapes(H, nh) is not wide
+    assert TK.layer_shapes(H, nh, 8)
+    for A in (40, 752, 1112):
         TK.check_shapes(A, H, 8, nh)
-        if not wide:
-            TK.check_layer_shapes(A, H, 8, nh)
-        else:
-            with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
-                TK.check_layer_shapes(A, H, 8, nh)
+        TK.check_layer_shapes(A, H, 8, nh)
 
 
 @pytest.mark.parametrize("H, nh, S", [(256, 4, 8), (32, 1, 8), (64, 3, 8), (512, 16, 8),
@@ -179,11 +176,10 @@ def test_what_the_kernels_refuse_names_queue_3(H, nh, S):
     warps a head): check_shapes takes them, a silu model at them keeps the
     kernels on the card, and the forward that the CPU runs (the kernels'
     plain versions; 3 layers at H = 256, two fragments of 16 slots) matches
-    the JAX package's within 1e-4.  H = 512 with 16 heads is the edge
-    kernels' wide instantiation: check_shapes takes it and a silu model
-    there keeps K1-K3 on the card, but the full-layer kernels K5/K6 do not
-    take it, so check_layer_shapes and a model that asks for them
-    (fused_layer) raise naming ROADMAP.md Queue 2.  S > 8, where neither
+    the JAX package's within 1e-4.  H = 512 with 16 heads is both kernel
+    families' wide instantiation: check_shapes and check_layer_shapes take
+    it, a silu model there keeps K1-K3 on the card, and one that asks for
+    the full-layer kernels (fused_layer) keeps K5/K6.  S > 8, where neither
     package builds a model, raises in check_shapes, check_layer_shapes and
     resolve_config.  Only another activation than silu resolves to the
     explicit plain route (ViSNetConfig.plain_edge_core, without
@@ -211,12 +207,11 @@ def test_what_the_kernels_refuse_names_queue_3(H, nh, S):
         assert not TV.resolve_config(TV.ViSNetConfig(**kw), "cuda").plain_edge_core
     elif S <= 8:
         TK.check_shapes(176, H, S, nh)
-        with pytest.raises(ValueError, match=queue_2):
-            TK.check_layer_shapes(176, H, S, nh)
+        TK.check_layer_shapes(176, H, S, nh)
         kernels = TV.resolve_config(TV.ViSNetConfig(**kw), "cuda")
         assert not kernels.plain_edge_core and not kernels.fused_layer
-        with pytest.raises(ValueError, match=queue_2):
-            TV.resolve_config(TV.ViSNetConfig(**kw, fused_layer=True), "cuda")
+        fused = TV.resolve_config(TV.ViSNetConfig(**kw, fused_layer=True), "cuda")
+        assert fused.fused_layer and not fused.plain_edge_core
     else:
         for check in (TK.check_shapes, TK.check_layer_shapes):
             with pytest.raises(ValueError, match=queue_2):

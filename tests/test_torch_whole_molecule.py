@@ -216,22 +216,20 @@ def test_cli_replica_ensemble_loads_the_checkpoint(monkeypatch, tmp_path, tiny_n
 
 def test_full_layer_kernels_refuse_a_whole_molecule():
     """The edge kernels and the full-layer kernels K5/K6 both take any
-    A % 8 == 0 up to EDGE_MAXA (abd is 752 slots), and their wrappers'
-    check raises past it; heads of 64 channels (nh = 4 at H = 256) are
-    taken.  H > 256 is the edge kernels' (their wide instantiations, at
-    abd's width too) but not K5/K6's: check_layer_shapes raises naming the
-    ROADMAP entry that keeps it open."""
-    assert TK.EDGE_MAXA >= 752
-    TK.check_shapes(752, 256, 8, 8)
-    TK.check_layer_shapes(752, 256, 8, 8)
-    TK.check_shapes(752, 512, 8, 8)
-    with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
-        TK.check_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
-    with pytest.raises(ValueError, match=f"up to {TK.EDGE_MAXA}"):
-        TK.check_layer_shapes(TK.EDGE_MAXA + 8, 256, 8, 8)
+    A % 8 == 0, with no cap on the slots (abd is 752 slots, a 110-residue
+    polyalanine 1,112; the JAX package's dense kernels need only A % 8 ==
+    0), at every width of their domain (heads of 64 channels, H = 512);
+    their wrappers' checks refuse only a slot count that is not a multiple
+    of 8."""
+    assert not hasattr(TK, "EDGE_MAXA")
+    for A in (752, 1112, 4096):
+        for check in (TK.check_shapes, TK.check_layer_shapes):
+            check(A, 256, 8, 8)
+            check(A, 512, 8, 8)
     TK.check_layer_shapes(176, 256, 8, 4)
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
-        TK.check_layer_shapes(176, 512, 8, 8)
+    for check in (TK.check_shapes, TK.check_layer_shapes):
+        with pytest.raises(ValueError, match="A a multiple of 8; got A=1108"):
+            check(1108, 256, 8, 8)
 
 
 def test_whole_molecule_entry_points_default_to_the_card(monkeypatch, chig, tiny_npz, tmp_path):

@@ -9,7 +9,8 @@ versions, which are shape-generic; these tests hold them, at wide shapes
 Pallas kernels in interpret mode, and the whole model against its jnp path.
 The same inputs, made with numpy from a seed, go through both packages in
 float32.  They also hold the routing: on the card a wide silu model takes
-the edge kernels, and asking for the full-layer kernels K5/K6 there raises.
+the edge kernels, or the full-layer kernels K5/K6 when it asks for them
+(tests/test_torch_wide_layer.py holds their plain versions at wide shapes).
 """
 
 import dataclasses
@@ -185,37 +186,40 @@ def test_wide_silu_models_route_to_the_edge_kernels(monkeypatch, H, nh):
     """On the card a silu model at a wide shape resolves to the edge kernels
     K1-K3 (neither the plain edge core nor K5/K6), which check_shapes takes
     at a fragment and a whole molecule; asking for the full-layer kernels,
-    by fused_layer or AI2BMD_FUSED_LAYER=1, raises naming ROADMAP.md Queue
-    2 and never falls back."""
+    by fused_layer or AI2BMD_FUSED_LAYER=1, takes K5/K6's wide
+    instantiations, which check_layer_shapes takes there too."""
     monkeypatch.delenv("AI2BMD_FUSED_LAYER", raising=False)
     cfg = TV.ViSNetConfig(hidden_channels=H, num_heads=nh)
     got = TV.resolve_config(cfg, "cuda")
     assert got == cfg and not got.plain_edge_core and not got.fused_layer
-    for A in (40, 752):
+    for A in (40, 752, 1112):
         TK.check_shapes(A, H, cfg.n_sphere, nh)
-    with pytest.raises(ValueError, match=QUEUE_2):
-        TK.check_layer_shapes(40, H, cfg.n_sphere, nh)
-    with pytest.raises(ValueError, match=QUEUE_2):
-        TV.resolve_config(dataclasses.replace(cfg, fused_layer=True), "cuda")
+        TK.check_layer_shapes(A, H, cfg.n_sphere, nh)
+    fused = dataclasses.replace(cfg, fused_layer=True)
+    assert TV.resolve_config(fused, "cuda") is fused
     monkeypatch.setenv("AI2BMD_FUSED_LAYER", "1")
-    with pytest.raises(ValueError, match=QUEUE_2):
-        TV.resolve_config(cfg, "cuda")
+    assert TV.resolve_config(cfg, "cuda") == fused
     assert TV.resolve_config(cfg, "cpu") is cfg
 
 
 def test_what_the_edge_kernels_still_refuse(monkeypatch):
     """lmax 3 (S = 15), which no model of either package builds, H past
-    1024 and a head count that does not divide H raise; a narrow model
-    with AI2BMD_FUSED_LAYER=1 still takes K5/K6."""
+    1024 and a head count that does not divide H raise, in the edge and the
+    full-layer kernels' checks alike, with AI2BMD_FUSED_LAYER=1 too; a
+    narrow model with AI2BMD_FUSED_LAYER=1 still takes K5/K6."""
     monkeypatch.delenv("AI2BMD_FUSED_LAYER", raising=False)
     with pytest.raises(ValueError, match="no model of either package builds S > 8"):
         TV.resolve_config(TV.ViSNetConfig(lmax=3), "cuda")
-    with pytest.raises(ValueError, match=QUEUE_2):
-        TK.check_shapes(40, 256, 15, 8)
+    for check in (TK.check_shapes, TK.check_layer_shapes):
+        with pytest.raises(ValueError, match=QUEUE_2):
+            check(40, 256, 15, 8)
+        with pytest.raises(ValueError, match=QUEUE_2):
+            check(40, 1280, 8, 8)
     with pytest.raises(ValueError, match=QUEUE_2):
         TV.resolve_config(TV.ViSNetConfig(hidden_channels=1280, num_heads=8), "cuda")
     with pytest.raises(ValueError, match=QUEUE_2):
-        TK.check_shapes(40, 1280, 8, 8)
+        TV.resolve_config(TV.ViSNetConfig(hidden_channels=1280, num_heads=8, fused_layer=True),
+                          "cuda")
     with pytest.raises(ValueError, match="not a multiple of num_heads"):
         TV.resolve_config(TV.ViSNetConfig(hidden_channels=48, num_heads=5), "cuda")
     monkeypatch.setenv("AI2BMD_FUSED_LAYER", "1")
@@ -230,17 +234,22 @@ def test_what_the_edge_kernels_still_refuse(monkeypatch):
     (48, 2, False, False, True, " (wide instantiations: K1, K7, K8)"),
 ], ids=["H256-dh32", "dh128", "dh256-remat", "H512-dh128", "H48-dh24-remat"])
 def test_each_kernel_family_picks_its_instantiation(H, nh, msg, upd, remat, label):
-    """K1, K2 and K7 sum heads and pick by (H, heads) (``narrow_shapes``);
-    K3 and K8 sum none and pick by H (``narrow_update``), as the launchers
-    in csrc/common.cuh do; K5/K6's domain is its own (``layer_shapes``).
-    The CLI's model line names the kernels that run wide."""
+    """K1, K2, K7, K5 and K6 sum heads and pick by (H, heads)
+    (``narrow_shapes``); K3 and K8 sum none and pick by H
+    (``narrow_update``), as the launchers in csrc/common.cuh and
+    csrc/vislayer.cuh do; K5/K6 take the edge kernels' domain
+    (``layer_shapes``, S <= 8).  The CLI's model line names the kernels
+    that run wide."""
     from ai2bmd_torch.cli import _model_line
 
     assert TK.narrow_shapes(H, nh) is msg and TK.narrow_update(H) is upd
-    assert TK.layer_shapes(H, nh, 8) is msg and not TK.layer_shapes(H, nh, 15)
+    assert TK.layer_shapes(H, nh, 8) and not TK.layer_shapes(H, nh, 15)
     cfg = TV.ViSNetConfig(hidden_channels=H, num_heads=nh, remat=remat)
     path = "edge-core kernels K1, K7/K8 (remat)" if remat else "edge-core kernels K1-K3"
     assert _model_line(cfg, torch.device("cuda")) == f"ViSNet 9 x {H}, {nh} heads: {path}{label}"
+    fused = "" if msg else " (wide instantiations: K5, K6)"
+    assert _model_line(dataclasses.replace(cfg, fused_layer=True), torch.device("cuda")) == \
+        f"ViSNet 9 x {H}, {nh} heads: full-layer kernels K5/K6{fused}"
 
 
 def test_wide_weights_are_padded_once_per_model(rng):
