@@ -31,9 +31,21 @@ do not take (H > 1024, S > 8; ``ops.vismp.unsupported_shapes``, the edge
 and the full-layer kernels' one domain) is refused on the card when it is
 configured.
 
+``edge_dtype=torch.bfloat16`` is the JAX config's mixed-precision mode
+(:63-66, applied at :545-556): each ViS-MP layer runs on bfloat16 copies of
+its weights and of x, vec, dist, edge_attr, d_sh and adj, and its dx, dvec
+and df go back to float32 onto the float32 residual streams.  Its edge
+core runs the bfloat16 instantiations of K1-K3 (K1, K7, K8 with ``remat``)
+on the card and their plain versions on the CPU (the kernel model, what
+the JAX kernels compute on bfloat16); a model with other activations than
+silu runs the plain edge core in bfloat16, as JAX's jnp path.  The
+full-layer kernels take float32 only, as JAX's ``use_full_layer`` requires
+``edge_dtype`` None (:511): ``resolve_config`` gives such a model the
+per-layer path.
+
 Not ported (options of the JAX config that no production path sets):
-``exact_rejection``, ``edge_dtype``, and the switches ``fused`` and the
-``*_interpret`` flags, which the tensors' device replaces.
+``exact_rejection``, and the switches ``fused`` and the ``*_interpret``
+flags, which the tensors' device replaces.
 """
 
 from __future__ import annotations
@@ -103,6 +115,16 @@ class ViSNetConfig:
     # JAX package sends them to jnp.  It takes the place of fused_layer and
     # remat.
     plain_edge_core: bool = False
+    # edge_dtype=torch.bfloat16: the mixed-precision mode (module docstring);
+    # None keeps every layer in float32.  No other type: the JAX package's
+    # callers pass bfloat16 alone (bench.py:84, benchmarks/vis_micro.py:67).
+    edge_dtype: torch.dtype | None = None
+
+    def __post_init__(self):
+        if self.edge_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"edge_dtype={self.edge_dtype}: the edge kernels store float32 or "
+                             f"bfloat16 (ROADMAP.md, Queue 2: float16 and other types are "
+                             f"still to port)")
 
     @property
     def n_sphere(self) -> int:
@@ -118,17 +140,29 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     (``plain_edge_core``), with one logged line naming the reason; a silu
     model of shapes the kernels do not take (K1-K3 and K5/K6 take the same
     ones) raises here, once, naming ROADMAP.md Queue 2: it never falls back
-    to the plain edge core.  A config with ``fused_layer`` already set, or
-    a model on the CPU, is returned as it is; H not a multiple of the head
-    count raises."""
+    to the plain edge core.  A model with ``edge_dtype``
+    set runs the per-layer path on any device: ``fused_layer`` or
+    ``AI2BMD_FUSED_LAYER=1`` gives way to it with one logged line, as JAX's
+    ``use_full_layer`` does (visnet.py:506-514).  Otherwise a config with
+    ``fused_layer`` already set, or a model on the CPU, is returned as it
+    is; H not a multiple of the head count raises."""
     if cfg.hidden_channels % cfg.num_heads:
         raise ValueError(f"hidden_channels={cfg.hidden_channels} is not a multiple of "
                          f"num_heads={cfg.num_heads}")
-    if torch.device(device).type != "cuda":
+    log = logging.getLogger(__name__)
+    cuda = torch.device(device).type == "cuda"
+    if cfg.edge_dtype is not None and (
+            cfg.fused_layer or (cuda and os.environ.get("AI2BMD_FUSED_LAYER") == "1")):
+        log.warning("ViSNet %d x %d, %d heads, edge_dtype=%s: the full-layer kernels K5/K6 take "
+                    "float32 only (the JAX package's use_full_layer needs edge_dtype None); "
+                    "every layer runs the per-layer path", cfg.num_layers, cfg.hidden_channels,
+                    cfg.num_heads, str(cfg.edge_dtype).replace("torch.", ""))
+        cfg = dataclasses.replace(cfg, fused_layer=False)
+    if not cuda:
         return cfg
     why = plain_activations(cfg.activation, cfg.attn_activation)
     if why is not None:
-        logging.getLogger(__name__).warning(
+        log.warning(
             "ViSNet %d x %d, %d heads: %s; every edge core runs its plain PyTorch version on "
             "the card (LAUNCHES['plain_edge_core']), as the JAX package runs jnp there",
             cfg.num_layers, cfg.hidden_channels, cfg.num_heads, why)
@@ -137,7 +171,8 @@ def resolve_config(cfg: ViSNetConfig, device) -> ViSNetConfig:
     if shapes is not None:
         raise ValueError(f"ViSNet {cfg.num_layers} x {cfg.hidden_channels}, {cfg.num_heads} "
                          f"heads on the card: {shapes}")
-    if cfg.fused_layer or os.environ.get("AI2BMD_FUSED_LAYER") != "1":
+    if (cfg.fused_layer or cfg.edge_dtype is not None
+            or os.environ.get("AI2BMD_FUSED_LAYER") != "1"):
         return cfg
     return dataclasses.replace(cfg, fused_layer=True)
 
@@ -188,6 +223,15 @@ def spherical_harmonics(unit_vec: torch.Tensor, lmax: int) -> torch.Tensor:
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    if x.dtype == torch.bfloat16:
+        # as jnp computes it on bfloat16: the mean and the variance in
+        # float32, each rounded once, 1 / sqrt exactly rounded, every other
+        # step rounded to bfloat16
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True).to(x.dtype)
+        r = (1.0 / torch.sqrt((var + torch.tensor(eps, dtype=x.dtype)).float())).to(x.dtype)
+        return (x - mu.to(x.dtype)) * r * p["scale"] + p["bias"]
     mu = x.mean(-1, keepdim=True)
     var = x.var(-1, keepdim=True, unbiased=False)
     return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
@@ -248,6 +292,8 @@ def dense_graph(pos: torch.Tensor, mask: torch.Tensor, cfg: ViSNetConfig):
 # replays no padding.
 _PADDED = WeakIdKeyDictionary()
 _PADDED_LAYER = WeakIdKeyDictionary()
+# and a layer's bfloat16 copy in the mixed-precision mode (_cast_layer)
+_CAST = WeakIdKeyDictionary()
 
 
 def _padded_once(cache, key, src, make):
@@ -278,6 +324,38 @@ def _padded_layer_weights(lp: dict, H: int, nh: int, last: bool, dtype):
         FL.layer_weights(lp, H, nh, last, dtype), H))
 
 
+def _cast_layer(lp: dict, dtype) -> dict:
+    """A layer's parameter tree in the mixed-precision mode's type, cast once
+    per model (kept while the layer's weights are the same tensors at the
+    same versions, as the padded weights are)."""
+    src = tuple(t for k in sorted(lp) for t in lp[k].values())
+    cast = lambda: {k: {n: t.to(dtype) for n, t in sub.items()} for k, sub in lp.items()}
+    if torch.is_grad_enabled() and any(t.requires_grad for t in src):
+        return cast()   # a copy that carries the weights' gradient is made anew
+    return _padded_once(_CAST, lp["s_proj"]["w"], src, cast)
+
+
+# In the mixed-precision mode the layer runs on bfloat16 tensors, each
+# operation rounded to bfloat16 as in the JAX package, except where XLA
+# computes one in float32: an operation on bfloat16 operands whose result is
+# converted to float32 next is computed in float32 (XLA's excess
+# precision; measured on the JAX package's CPU runs).  In the layer's node
+# side that is the product summed by vec_dot (jnp.sum upcasts it) and the
+# last add of dx and dvec, which the residual streams take in float32.
+def _mixed_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b).sum(-2), in float32 for bfloat16 a, b (rounded once)."""
+    if a.dtype != torch.bfloat16:
+        return (a * b).sum(-2)
+    return (a.float() * b.float()).sum(-2).to(a.dtype)
+
+
+def _mixed_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b, in float32 (unrounded) for bfloat16 a, b."""
+    if a.dtype != torch.bfloat16:
+        return a + b
+    return a.float() + b.float()
+
+
 def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConfig,
                  last: bool):
     """One ViS_MP update (reference visnet_block.py:237-312).
@@ -300,7 +378,7 @@ def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConf
         w_s, w_f = lp["s_proj"]["w"], None if last else lp["f_proj"]["w"]
 
     vec1, vec2, vec3 = _linear(lp["vec_proj"], vec).split(H, dim=-1)
-    vec_dot = (vec1 * vec2).sum(-2)                        # [B,A,H]
+    vec_dot = _mixed_sum(vec1, vec2)                      # [B,A,H]
 
     upd = {}
     if not last:
@@ -315,8 +393,8 @@ def vis_mp_layer(lp: dict, x, vec, adj_f, dist, edge_attr, d_sh, cfg: ViSNetConf
         plain=cfg.plain_edge_core, **upd,
     )
     o1, o2, o3 = _linear(lp["o_proj"], x_agg).split(H, dim=-1)
-    dx = vec_dot * o2 + o3
-    dvec = vec3 * o1[:, :, None, :] + vec_agg
+    dx = _mixed_add(vec_dot * o2, o3)
+    dvec = _mixed_add(vec3 * o1[:, :, None, :], vec_agg)
     return dx, dvec, df
 
 
@@ -343,14 +421,23 @@ def representation(params: dict, z, pos, mask, cfg: ViSNetConfig):
                  * _linear(params["edge_embedding"]["edge_proj"], edge_rbf)
                  * adj_f[..., None])
 
-    if cfg.fused_layer:
+    if cfg.fused_layer and cfg.edge_dtype is None:
         return _fused_layer_stack(params, x, edge_attr, dist, d_sh, adj_f, cfg)
 
     vec = torch.zeros((B, A, cfg.n_sphere, cfg.hidden_channels), dtype=dtype,
                       device=pos.device)
+    ed = cfg.edge_dtype
+    if ed is not None:   # the mixed-precision mode (visnet.py:545-556)
+        adj_c, dist_c, d_sh_c = adj_f.to(ed), dist.to(ed), d_sh.to(ed)
     for li, lp in enumerate(params["layers"]):
-        dx, dvec, df = vis_mp_layer(lp, x, vec, adj_f, dist, edge_attr, d_sh, cfg,
-                                    last=li == cfg.num_layers - 1)
+        last = li == cfg.num_layers - 1
+        if ed is None:
+            dx, dvec, df = vis_mp_layer(lp, x, vec, adj_f, dist, edge_attr, d_sh, cfg, last)
+        else:
+            # dx and dvec come back in float32 (_mixed_add), df in bfloat16,
+            # which the float32 edge stream's add promotes
+            dx, dvec, df = vis_mp_layer(_cast_layer(lp, ed), x.to(ed), vec.to(ed), adj_c,
+                                        dist_c, edge_attr.to(ed), d_sh_c, cfg, last)
         x = x + dx
         vec = vec + dvec
         if df is not None:

@@ -3,7 +3,11 @@
 The kernels have a plain ``extern "C"`` interface (pointers, ints, floats and
 the CUDA stream), so they compile without PyTorch's headers in seconds.  Each
 source compiles in its own nvcc process, all started together, and one more
-links the objects.  One library a product mode (``MODES``: ``b3``, the
+links the objects.  The edge kernels' sources (``STORE_SOURCES``) compile
+twice, in parallel: for float storage and, with ``-DAI2BMD_STORE_BF16``,
+for bfloat16 (their ``*_bf16_launch`` entry points, ``csrc/common.cuh``),
+so every mode's library holds both instantiations and the float objects
+are what they were.  One library a product mode (``MODES``: ``b3``, the
 production mode, ``highest`` and ``default``; ``-DAI2BMD_MM_MODE``,
 ``csrc/common.cuh``), each built when its mode is first used, so the
 production build keeps its time.  A library goes to ``build/ai2bmd_torch/``
@@ -41,6 +45,8 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
+# the sources with a bfloat16-storage instantiation, compiled once more
+STORE_SOURCES = ("edge_fwd.cu", "edge_bwd_msg.cu", "edge_bwd_upd.cu")
 # the products' mode -> AI2BMD_MM_MODE (csrc/common.cuh)
 MODES = {"b3": 0, "highest": 1, "default": 2}
 MM_MODE = "b3"
@@ -75,7 +81,7 @@ def build(mode: str = "b3") -> Path:
     """Compile this mode's kernels unless a library for the same sources and
     flags exists."""
     flags = _flags(mode)
-    h = hashlib.sha256(" ".join(flags).encode())
+    h = hashlib.sha256(" ".join([*flags, *STORE_SOURCES]).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -88,17 +94,19 @@ def build(mode: str = "b3") -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+    units = [(src, "", []) for src in sorted(CSRC.glob("*.cu"))]
+    units += [(CSRC / name, ".bf16", ["-DAI2BMD_STORE_BF16"]) for name in STORE_SOURCES]
+    for src, kind, extra in units:
+        obj = BUILD_DIR / f"{src.stem}{kind}.{tag}.o"
+        cmd = [nvcc, *flags, *extra, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     log, failed = [], []
-    for cmd, _, proc in jobs:
+    for cmd, obj, proc in jobs:
         stdout, stderr = proc.communicate()
         log.append(" ".join(cmd) + "\n" + stdout + stderr)
         if proc.returncode != 0:
-            failed.append(f"{cmd[-1]} (code {proc.returncode}):\n{stderr[-8000:]}")
+            failed.append(f"{obj.name} (code {proc.returncode}):\n{stderr[-8000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if not failed:
         cmd = [nvcc, "-shared", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]

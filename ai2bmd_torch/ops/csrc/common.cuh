@@ -54,12 +54,62 @@
 // to a later change.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
 
 namespace ai2bmd {
+
+// ---------------------------------------------------------------------------
+// Storage types
+// ---------------------------------------------------------------------------
+//
+// The edge kernels (K1-K3, K7, K8) store their streams, weights and outputs
+// as float or as bfloat16 (`bf16`, the mixed-precision mode of
+// ops/vismp.py).  Each source compiles one storage type, `EdgeT`
+// (AI2BMD_STORE_BF16 selects bfloat16; ops/_build.py compiles the edge
+// sources once each way, in parallel).  A load widens to float (exact), a
+// store rounds to nearest even; everything between runs in float, and
+// `rnd<T>` rounds a float as T would store it where the JAX kernels round a
+// bfloat16 intermediate (ops/vismp.py lists where).  For T = float every
+// helper is the identity, so the float32 kernels compile as before.
+using bf16 = __nv_bfloat16;
+#ifdef AI2BMD_STORE_BF16
+using EdgeT = bf16;
+#define AI2BMD_ENTRY(name) name##_bf16_launch
+#else
+using EdgeT = float;
+#define AI2BMD_ENTRY(name) name##_launch
+#endif
+template <class T>
+constexpr bool IS_BF16 = std::is_same<T, bf16>::value;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+// __ldg of a float or a bfloat16, widened
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg(const bf16* p) { return __bfloat162float(__ldg(p)); }
+
+template <class T>
+__device__ __forceinline__ T st(float x) {
+  if constexpr (IS_BF16<T>) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
+
+// x as T stores it, back in float
+template <class T>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (IS_BF16<T>) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
 
 #ifndef AI2BMD_MM_MODE
 #define AI2BMD_MM_MODE 0
@@ -90,6 +140,11 @@ constexpr int ECHUNK = 48;
 constexpr int RCHUNK = 8;
 // Largest number of spherical-harmonic components, (lmax + 1)^2 - 1 at lmax 2.
 constexpr int MAXS = 8;
+// The source-indexed sums of the bfloat16 backward kernels (g_k, g_v,
+// g_vec, g_wsrc) go as the JAX kernels accumulate them across their grid:
+// each block of I_TILE centres summed in float and rounded, the blocks added
+// in order to a bfloat16 total (ops/vismp.py: _source_sum_bf16).
+constexpr int I_TILE = 8;
 
 __device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
 
@@ -99,6 +154,43 @@ __device__ __forceinline__ float silu(float z) { return z * sigmoid(z); }
 __device__ __forceinline__ float dsilu(float z) {
   const float s = sigmoid(z);
   return s * (1.0f + z * (1.0f - s));
+}
+
+// sigmoid, silu and silu' of a bfloat16 stash value as the JAX kernels
+// compute them on bfloat16 (ops/vismp.py: _sigmoid_bf16, _dsilu_bf16):
+// 1 / (1 + exp(-z)) with each step rounded, silu z sigmoid(z) rounded,
+// silu' sg (1 + z (1 - sg)) rounded at every step but the last.
+__device__ __forceinline__ float sigmoid_bf16(float z) {
+  return rnd<bf16>(1.0f / rnd<bf16>(1.0f + rnd<bf16>(expf(-z))));
+}
+__device__ __forceinline__ float silu_bf16(float z) { return rnd<bf16>(z * sigmoid_bf16(z)); }
+__device__ __forceinline__ float dsilu_bf16(float z) {
+  const float s = sigmoid_bf16(z);
+  return s * rnd<bf16>(1.0f + rnd<bf16>(z * rnd<bf16>(1.0f - s)));
+}
+
+// silu, silu' and the product of two values read from a stash: in
+// bfloat16 (B16: K2 and K3 from a bfloat16 stash) as the JAX kernels
+// compute them there, else in float.
+template <bool B16>
+__device__ __forceinline__ float silu_st(float z) {
+  if constexpr (B16) {
+    return silu_bf16(z);
+  } else {
+    return silu(z);
+  }
+}
+template <bool B16>
+__device__ __forceinline__ float dsilu_st(float z) {
+  if constexpr (B16) {
+    return dsilu_bf16(z);
+  } else {
+    return dsilu(z);
+  }
+}
+template <bool B16>
+__device__ __forceinline__ float rnd_st(float x) {
+  return B16 ? rnd<bf16>(x) : x;
 }
 
 // Sum over the DH lanes of one attention head: a head is DH consecutive
@@ -150,8 +242,34 @@ __device__ __forceinline__ float cosine_cutoff(float d, float cutoff) {
   return d < cutoff ? 0.5f * (cosf(d * (3.14159265358979323846f / cutoff)) + 1.0f) : 0.0f;
 }
 
+// The cutoff of a distance stored as T: for bfloat16, as the JAX kernels
+// compute it on a bfloat16 distance, pi / cutoff rounded first and every
+// step rounded (ops/vismp.py: cosine_cutoff on a bfloat16 distance).
+template <class T>
+__device__ __forceinline__ float cutoff_of(float d, float cutoff) {
+  if constexpr (IS_BF16<T>) {
+    const float kb = rnd<bf16>(3.14159265358979323846f / cutoff);
+    return d < cutoff ? 0.5f * rnd<bf16>(rnd<bf16>(cosf(rnd<bf16>(d * kb))) + 1.0f) : 0.0f;
+  } else {
+    return cosine_cutoff(d, cutoff);
+  }
+}
+
+// d cutoff / d r of a distance stored as T (for bfloat16 every step rounded
+// but the last product, ops/vismp.py: _dcut_bf16); kpi = pi / cutoff.
+template <class T>
+__device__ __forceinline__ float dcutoff_of(float d, float cutoff, float kpi) {
+  if constexpr (IS_BF16<T>) {
+    const float kb = rnd<bf16>(kpi), kd = rnd<bf16>(-0.5f * kpi);
+    return d < cutoff ? kd * rnd<bf16>(sinf(rnd<bf16>(d * kb))) : 0.0f;
+  } else {
+    return d < cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+  }
+}
+
 // Copy A rows of H floats (device memory, dense) into shared memory at row
-// stride ld (ld % 4 == 0), float4 a thread.
+// stride ld (ld % 4 == 0), float4 a thread; bfloat16 rows widen, four
+// values (8 bytes) a thread.
 __device__ __forceinline__ void load_rows(float* __restrict__ dst, int ld,
                                           const float* __restrict__ src, int A, int H) {
   const int H4 = H / 4;
@@ -159,6 +277,18 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst, int ld,
   for (int x = threadIdx.x; x < A * H4; x += blockDim.x) {
     const int r = x / H4;
     reinterpret_cast<float4*>(dst + r * ld)[x - r * H4] = s4[x];
+  }
+}
+__device__ __forceinline__ void load_rows(float* __restrict__ dst, int ld,
+                                          const bf16* __restrict__ src, int A, int H) {
+  const int H4 = H / 4;
+  const uint2* s4 = reinterpret_cast<const uint2*>(src);
+  for (int x = threadIdx.x; x < A * H4; x += blockDim.x) {
+    const int r = x / H4;
+    const uint2 u = s4[x];
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    reinterpret_cast<float4*>(dst + r * ld)[x - r * H4] = make_float4(a.x, a.y, b.x, b.y);
   }
 }
 
@@ -250,14 +380,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 
 // One k-step's W fragments of a warp's two m16 tiles, from p = &W[k0 + q][n + g]:
 // f[mt] = W[k0 + q (+4)][n + 16 mt + g (+8)].
-__device__ __forceinline__ void load_w_frags(float (&f)[2][4], const float* __restrict__ p,
+// W is float or bfloat16 (widened on load).
+template <class TW>
+__device__ __forceinline__ void load_w_frags(float (&f)[2][4], const TW* __restrict__ p,
                                              int ldw) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
-    f[mt][0] = __ldg(p + 16 * mt);
-    f[mt][1] = __ldg(p + 16 * mt + 8);
-    f[mt][2] = __ldg(p + 4 * (size_t)ldw + 16 * mt);
-    f[mt][3] = __ldg(p + 4 * (size_t)ldw + 16 * mt + 8);
+    f[mt][0] = ldg(p + 16 * mt);
+    f[mt][1] = ldg(p + 16 * mt + 8);
+    f[mt][2] = ldg(p + 4 * (size_t)ldw + 16 * mt);
+    f[mt][3] = ldg(p + 4 * (size_t)ldw + 16 * mt + 8);
   }
 }
 
@@ -269,10 +401,10 @@ __device__ __forceinline__ void load_w_frags(float (&f)[2][4], const float* __re
 // helper near 90 registers).  MM_DEFAULT rounds each fragment to bfloat16
 // and runs one pass; MM_HIGHEST gathers the W fragments' rows once a step
 // and each row tile's columns, then runs the FMA chain.
-template <int MAXR>
+template <int MAXR, class TW>
 __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], float (&f)[2][4],
                                            const float* X, int ldx, int A, int k0, int K,
-                                           const float* __restrict__ Wq, int ldw, int g, int q) {
+                                           const TW* __restrict__ Wq, int ldw, int g, int q) {
   constexpr int NT = MAXR / RCHUNK;
   if constexpr (MM_MODE != MM_B3) {
     unsigned a[2][4];
@@ -331,7 +463,8 @@ __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], fl
 // n < 32 * (blockDim.x / 32), on the tensor cores with the 3xTF32 split.
 // X: [A][ldx] in shared memory (ldx = mma_ld(.) for conflict-free reads,
 // A % RCHUNK == 0, A <= MAXR); W: [K][ldw] row-major in device memory
-// (K % 16 == 0); out: [A][ldo] in shared or device memory, and may alias X.
+// (K % 16 == 0), float or bfloat16; out: [A][ldo] in shared or device memory,
+// float or bfloat16 (rounded at the store), and may alias X.
 // Every thread of the block calls it: it synchronises the block when it
 // starts (X is written), before it stores (every warp has read X) and when
 // it ends (out is written).
@@ -346,14 +479,14 @@ __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], fl
 // accumulators out[r0 + 2q (+1)][n + g (+8)].  Every sum runs in a fixed
 // order: bitwise repeatable, and equal between any two kernels that call it
 // on equal X and W.
-template <int MAXR = MAXA>
+template <int MAXR = MAXA, class TW, class TO>
 __device__ __forceinline__ void mma_rows_times_cols(const float* X, int ldx, int A, int K,
-                                                    const float* __restrict__ W, int ldw,
-                                                    int col0, float* out, int ldo) {
+                                                    const TW* __restrict__ W, int ldw,
+                                                    int col0, TO* out, int ldo) {
   constexpr int NT = MAXR / RCHUNK;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int n0 = 32 * (threadIdx.x >> 5);
-  const float* Wq = W + (size_t)q * ldw + col0 + n0 + g;
+  const TW* Wq = W + (size_t)q * ldw + col0 + n0 + g;
   float acc[2][NT][4];
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -373,13 +506,13 @@ __device__ __forceinline__ void mma_rows_times_cols(const float* X, int ldx, int
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     if (nt * RCHUNK < A) {
-      float* o = out + (nt * RCHUNK + 2 * q) * ldo + n0 + g;
+      TO* o = out + (nt * RCHUNK + 2 * q) * ldo + n0 + g;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
-        o[16 * mt] = acc[mt][nt][0];
-        o[ldo + 16 * mt] = acc[mt][nt][1];
-        o[16 * mt + 8] = acc[mt][nt][2];
-        o[ldo + 16 * mt + 8] = acc[mt][nt][3];
+        o[16 * mt] = st<TO>(acc[mt][nt][0]);
+        o[ldo + 16 * mt] = st<TO>(acc[mt][nt][1]);
+        o[16 * mt + 8] = st<TO>(acc[mt][nt][2]);
+        o[ldo + 16 * mt + 8] = st<TO>(acc[mt][nt][3]);
       }
     }
   }
@@ -445,12 +578,13 @@ inline int wide_chunk(size_t row_bytes, size_t fixed = 0) {
 
 // Copy A rows of H floats (device memory, dense) into shared memory at row
 // stride ld, zero-padded to Hp columns, a float a thread.
+template <class T>
 __device__ __forceinline__ void load_rows_padded(float* __restrict__ dst, int ld,
-                                                 const float* __restrict__ src, int A, int H,
+                                                 const T* __restrict__ src, int A, int H,
                                                  int Hp) {
   for (int x = threadIdx.x; x < A * Hp; x += blockDim.x) {
     const int r = x / Hp, c = x - r * Hp;
-    dst[r * ld + c] = c < H ? src[(size_t)r * H + c] : 0.0f;
+    dst[r * ld + c] = c < H ? widen(src[(size_t)r * H + c]) : 0.0f;
   }
 }
 
@@ -460,15 +594,15 @@ __device__ __forceinline__ void load_rows_padded(float* __restrict__ dst, int ld
 // w, w + warps, ... in turn, so N may exceed 32 warps; out must not alias
 // X.  Every thread of the block calls it: it synchronises the block when it
 // starts (X is written) and when it ends (out is written).
-template <int MAXR = MAXA>
+template <int MAXR = MAXA, class TW, class TO>
 __device__ __forceinline__ void mma_tiles(const float* X, int ldx, int A, int K,
-                                          const float* __restrict__ W, int ldw, int col0, int N,
-                                          float* out, int ldo, int nout) {
+                                          const TW* __restrict__ W, int ldw, int col0, int N,
+                                          TO* out, int ldo, int nout) {
   constexpr int NT = MAXR / RCHUNK;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   __syncthreads();  // X is written
   for (int n0 = 32 * (threadIdx.x >> 5); n0 < N; n0 += 32 * (blockDim.x >> 5)) {
-    const float* Wq = W + (size_t)q * ldw + col0 + n0 + g;
+    const TW* Wq = W + (size_t)q * ldw + col0 + n0 + g;
     float acc[2][NT][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -486,15 +620,15 @@ __device__ __forceinline__ void mma_tiles(const float* X, int ldx, int A, int K,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (nt * RCHUNK < A) {
-        float* o = out + (size_t)(nt * RCHUNK + 2 * q) * ldo;
+        TO* o = out + (size_t)(nt * RCHUNK + 2 * q) * ldo;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int c = n0 + g + 16 * mt + 8 * half;
             if (c < nout) {
-              o[c] = acc[mt][nt][2 * half];
-              o[ldo + c] = acc[mt][nt][2 * half + 1];
+              o[c] = st<TO>(acc[mt][nt][2 * half]);
+              o[ldo + c] = st<TO>(acc[mt][nt][2 * half + 1]);
             }
           }
         }
@@ -593,13 +727,16 @@ __host__ __device__ constexpr size_t tile_smem() {
 // true) it holds the k range [end[s-1], end[s]) as W_s[n][k - end[s-1]],
 // so W's rows, as stored, are the MMA's B columns.  Segment bounds are
 // multiples of 4 (X @ W) or of TILE_K (X @ W^T).
-struct WSeg {
-  const float* w[3];
+template <class TW>
+struct WSegT {
+  const TW* w[3];
   int ld[3];
   int end[3];
 };
+using WSeg = WSegT<float>;
 constexpr int SEG_END = 1 << 30;
-inline WSeg wseg(const float* w0, int ld0) {
+template <class TW>
+inline WSegT<TW> wseg(const TW* w0, int ld0) {
   return {{w0, w0, w0}, {ld0, ld0, ld0}, {SEG_END, SEG_END, SEG_END}};
 }
 inline WSeg wseg(const float* w0, int ld0, int end0, const float* w1, int ld1,
@@ -609,7 +746,8 @@ inline WSeg wseg(const float* w0, int ld0, int end0, const float* w1, int ld1,
 // The segment that holds x: its weights, leading dimension and first x.
 // Constant indices only: a runtime index into the kernel argument would
 // copy it to local memory.
-__device__ __forceinline__ void seg_at(const WSeg& W, int x, const float*& w, int& ld,
+template <class TW>
+__device__ __forceinline__ void seg_at(const WSegT<TW>& W, int x, const TW*& w, int& ld,
                                        int& base) {
   if (x < W.end[0]) {
     w = W.w[0], ld = W.ld[0], base = 0;
@@ -620,11 +758,23 @@ __device__ __forceinline__ void seg_at(const WSeg& W, int x, const float*& w, in
   }
 }
 
+// Four values device -> shared: 16 bytes of float asynchronously, or four
+// bfloat16 widened by a plain load and store (visible after the block's
+// next barrier, as a finished copy is).
+__device__ __forceinline__ void copy4(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void copy4(float* dst, const bf16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+}
+
 // out[r][n] = sum_k X[r][k] * W[k][n]  (WT = false)  or  X[r][k] * W[n][k]
 // (WT = true), for r < M, n < N, handed to epi(r, n, out[r][n],
 // out[r][n + 1]) (n even) and stored nowhere else.  X: [M][ldx] row-major
 // (ldx % 4 == 0, 16-byte aligned), K % TILE_K == 0, N % 8 == 0; the
-// weights 16-byte aligned.  Block (x, y): rows TM x.., columns TILE_N y..;
+// weights 16-byte aligned (float) or 8-byte aligned (bfloat16, widened
+// into the slab as it is copied).  Block (x, y): rows TM x.., columns TILE_N y..;
 // per k-slab: wait for its copy, start the next one's, split the W slab
 // into hi / lo in shared memory ([TILE_N][TILE_LD], column n, k along it;
 // an X @ W slab is transposed on the way), then four k8 steps of lo*hi,
@@ -637,9 +787,9 @@ __device__ __forceinline__ void seg_at(const WSeg& W, int x, const float*& w, in
 // k in order: bitwise repeatable, and equal between any two kernels that
 // call it on equal X and W.  epi owns each (r, n) pair: an epilogue may
 // read and write its outputs in place.
-template <int TM, bool WT, class Epi>
+template <int TM, bool WT, class Epi, class TW = float>
 static __global__ void __launch_bounds__(256, 2)
-    row_tile(const float* __restrict__ X, int ldx, size_t M, int K, int N, const WSeg W,
+    row_tile(const float* __restrict__ X, int ldx, size_t M, int K, int N, const WSegT<TW> W,
              const Epi epi) {
   using S = TileShape<TM>;
   extern __shared__ __align__(16) float smem[];
@@ -665,24 +815,24 @@ static __global__ void __launch_bounds__(256, 2)
     }
     float* w = sW + buf * TILE_WBUF;
     if constexpr (WT) {
-      const float* ws;
+      const TW* ws;
       int ld, base;
       seg_at(W, k0, ws, ld, base);
 #pragma unroll
       for (int it = 0; it < TILE_N * C4 / 256; ++it) {
         const int x = t + 256 * it, n = x / C4, c = 4 * (x % C4);
         const int nw = n0 + n < N ? n0 + n : N - 1;
-        cp_async16(w + n * TILE_LD + c, ws + (size_t)nw * ld + k0 - base + c);
+        copy4(w + n * TILE_LD + c, ws + (size_t)nw * ld + k0 - base + c);
       }
     } else {
 #pragma unroll
       for (int it = 0; it < TILE_K * N4 / 256; ++it) {
         const int x = t + 256 * it, k = x / N4, c = 4 * (x % N4);
         const int n = n0 + c < N ? n0 + c : N - 4;
-        const float* ws;
+        const TW* ws;
         int ld, base;
         seg_at(W, n, ws, ld, base);
-        cp_async16(w + k * TILE_WLD + c, ws + (size_t)(k0 + k) * ld + n - base);
+        copy4(w + k * TILE_WLD + c, ws + (size_t)(k0 + k) * ld + n - base);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -877,16 +1027,16 @@ static __global__ void __launch_bounds__(256, 2)
 }
 
 // Launch row_tile over M x N; the grid is (row tiles, 64-column blocks).
-template <int TM, bool WT, class Epi>
+template <int TM, bool WT, class Epi, class TW>
 static cudaError_t launch_row_tile(const float* X, int ldx, size_t M, int K, int N,
-                                   const WSeg& W, const Epi& epi, cudaStream_t stream) {
+                                   const WSegT<TW>& W, const Epi& epi, cudaStream_t stream) {
   if (M == 0) return cudaSuccess;
   constexpr size_t smem = tile_smem<TM>();
-  cudaError_t err = cudaFuncSetAttribute(row_tile<TM, WT, Epi>,
+  cudaError_t err = cudaFuncSetAttribute(row_tile<TM, WT, Epi, TW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  row_tile<TM, WT, Epi><<<dim3((unsigned)((M + TM - 1) / TM), (N + TILE_N - 1) / TILE_N), 256,
-                          smem, stream>>>(X, ldx, M, K, N, W, epi);
+  row_tile<TM, WT, Epi, TW><<<dim3((unsigned)((M + TM - 1) / TM), (N + TILE_N - 1) / TILE_N),
+                              256, smem, stream>>>(X, ldx, M, K, N, W, epi);
   return cudaGetLastError();
 }
 

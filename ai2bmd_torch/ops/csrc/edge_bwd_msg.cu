@@ -63,6 +63,13 @@
 // (head_sum<DH>, common.cuh; DH = H / nh, 8, 16, 32 or 64, a template
 // parameter), and K7 keeps a_ij in sPre, one slot a head.
 // The transposed products take W^T ([2H][H], row-major) as their W.
+// Storage: float, or bfloat16 (this source compiled again with
+// AI2BMD_STORE_BF16, common.cuh; the *_bf16_launch entry points), the JAX
+// kernels on bfloat16 refs (ops/vismp.py, edge_bwd_msg_bf16_plain): K2
+// reads a bfloat16 stash and rounds as those kernels do (silu_st,
+// dsilu_st, rnd_st), K7 recomputes float pre-activations, so in bfloat16
+// K7 does not equal K2 on K1's stash; the source pass sums the centres in
+// blocks of I_TILE with a bfloat16 running total, as the TPU grid did.
 
 #include "common.cuh"
 
@@ -76,19 +83,26 @@ static size_t msg_smem(int A, int H, int S, bool rc, int dh) {
                   3 * n + NW * n + NW * n * S) * sizeof(float);
 }
 
-template <bool RC, int DH>
+// T is the storage type (common.cuh).  K2 in bfloat16 reads a bfloat16
+// stash: silu, silu' and the products of two bfloat16 values round as the
+// JAX kernel's do (silu_st, dsilu_st, rnd_st; ops/vismp.py,
+// edge_bwd_msg_bf16_plain); K7 recomputes float32 pre-activations.  gq_acc
+// holds g_q's float sums across the chunks (the output itself for float).
+template <bool RC, int DH, class T>
 __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ vec, const float* __restrict__ zdkv,
-    const float* __restrict__ zs, const float* __restrict__ edge,
-    const float* __restrict__ wdkv, const float* __restrict__ bdkv,
-    const float* __restrict__ ws, const float* __restrict__ bs,
-    const float* __restrict__ dsh, const float* __restrict__ dist,
-    const float* __restrict__ adj, const float* __restrict__ wdkvT,
-    const float* __restrict__ wsT, const float* __restrict__ gx,
-    const float* __restrict__ gva, float* __restrict__ gq, float* __restrict__ gedge,
-    float* __restrict__ gdsh, float* __restrict__ gdist, float* __restrict__ gk_e,
-    float* __restrict__ gv_e, float* __restrict__ s1_e, int A, int H, int S, float cutoff) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ vec, const T* __restrict__ zdkv,
+    const T* __restrict__ zs, const T* __restrict__ edge,
+    const T* __restrict__ wdkv, const T* __restrict__ bdkv,
+    const T* __restrict__ ws, const T* __restrict__ bs,
+    const T* __restrict__ dsh, const T* __restrict__ dist,
+    const T* __restrict__ adj, const T* __restrict__ wdkvT,
+    const T* __restrict__ wsT, const T* __restrict__ gx,
+    const T* __restrict__ gva, float* __restrict__ gq_acc, T* __restrict__ gq,
+    T* __restrict__ gedge, T* __restrict__ gdsh, T* __restrict__ gdist,
+    float* __restrict__ gk_e, float* __restrict__ gv_e, float* __restrict__ s1_e, int A, int H,
+    int S, float cutoff) {
+  constexpr bool B16 = IS_BF16<T> && !RC;
   extern __shared__ __align__(16) float smem[];
   const int NW = blockDim.x / 32;
   const int ld = mma_ld(H), ldw = mma_ld(2 * H);
@@ -121,25 +135,25 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
     const size_t s0 = (size_t)b * A + c0;  // and its first source atom
     if (c0) __syncthreads();  // every thread is done with the last chunk's rows
     if constexpr (RC) load_rows(sE, ld, edge + e0 * H, n, H);
-    for (int x = t; x < n * S; x += blockDim.x) sDsh[x] = dsh[e0 * S + x];
+    for (int x = t; x < n * S; x += blockDim.x) sDsh[x] = widen(dsh[e0 * S + x]);
     for (int r = t; r < n; r += blockDim.x) {
-      const float a = adj[e0 + r], d = dist[e0 + r];
+      const float a = widen(adj[e0 + r]), d = widen(dist[e0 + r]);
       sAdj[r] = a;
-      sGate[r] = cosine_cutoff(d, cutoff) * a;
-      sDcut[r] = d < cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+      sGate[r] = cutoff_of<T>(d, cutoff) * a;
+      sDcut[r] = dcutoff_of<T>(d, cutoff, kpi);
     }
     float gvai[MAXS];
 #pragma unroll
-    for (int c = 0; c < MAXS; ++c) gvai[c] = c < S ? gva[(bi * S + c) * H + t] : 0.0f;
+    for (int c = 0; c < MAXS; ++c) gvai[c] = c < S ? widen(gva[(bi * S + c) * H + t]) : 0.0f;
     __syncthreads();
 
-    const float qi = q[bi * H + t];
+    const float qi = widen(q[bi * H + t]);
     float zk[RC ? ECHUNK : 1];
     if constexpr (RC) {
       // zdkv = edge @ W_dkv + b_dkv: zv to sZv, zk (through sW) to registers
       mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, H, sZv, ld);
       mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, 0, sW, ldw);
-      const float bv = bdkv[H + t], bk = bdkv[t];
+      const float bv = widen(bdkv[H + t]), bk = widen(bdkv[t]);
 #pragma unroll
       for (int r = 0; r < ECHUNK; ++r) zk[r] = r < n ? sW[r * ldw + t] + bk : 0.0f;
 
@@ -153,7 +167,7 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
             const int r = c8 * RCHUNK + rr;
             const float zv = sZv[r * ld + t] + bv;
             sZv[r * ld + t] = zv;
-            const float kr = k[(s0 + r) * H + t], vr = v[(s0 + r) * H + t];
+            const float kr = widen(k[(s0 + r) * H + t]), vr = widen(v[(s0 + r) * H + t]);
             const float a = head_sum<DH>(qi * kr * silu(zk[r]));
             if (t % DH == 0) sPre[r * NHD + hd] = a;
             sE[r * ld + t] = vr * silu(zv) * (silu(a) * sGate[r]);
@@ -166,30 +180,30 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
     // g_d_sh_ij[c] = sum_h g_vec_agg_i[c] * s2.  One half of g_s at a time:
     auto g_s2 = [&](int r, float z2) {
       const float a = sAdj[r];
-      const float s2 = silu(z2) * a;
+      const float s2 = silu_st<B16>(z2) * a;
       float g2 = 0.0f;
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) {
         if (c < S) {
           g2 = fmaf(gvai[c], sDsh[r * S + c], g2);
-          const float red = warp_sum(gvai[c] * s2);
+          const float red = warp_sum(rnd_st<B16>(gvai[c] * s2));
           if (lane == 0) sRedDsh[(w * CH + r) * S + c] = red;
         }
       }
-      sW[r * ldw + H + t] = g2 * a * dsilu(z2);
+      sW[r * ldw + H + t] = g2 * a * dsilu_st<B16>(z2);
     };
     auto g_s1 = [&](int r, float z1) {
       float g1 = 0.0f;
 #pragma unroll
       for (int c = 0; c < MAXS; ++c)
-        if (c < S) g1 = fmaf(gvai[c], vec[((s0 + r) * S + c) * H + t], g1);
-      sW[r * ldw + t] = g1 * sAdj[r] * dsilu(z1);
+        if (c < S) g1 = fmaf(gvai[c], widen(vec[((s0 + r) * S + c) * H + t]), g1);
+      sW[r * ldw + t] = g1 * sAdj[r] * dsilu_st<B16>(z1);
     };
     if constexpr (RC) {
       // zs = v_ij @ W_s + b_s, one half at a time into sW, where g_s takes
       // its place; s1 -> scratch for g_vec
       mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, H, sW + H, ldw);
-      const float b2 = bs[H + t];
+      const float b2 = widen(bs[H + t]);
       for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
         for (int rr = 0; rr < RCHUNK; ++rr) {
@@ -198,7 +212,7 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
         }
       }
       mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, 0, sW, ldw);
-      const float b1 = bs[t];
+      const float b1 = widen(bs[t]);
       for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
         for (int rr = 0; rr < RCHUNK; ++rr) {
@@ -214,15 +228,15 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
         for (int rr = 0; rr < RCHUNK; ++rr) {
           const int r = r0 + rr;
           const size_t e = e0 + r;
-          g_s2(r, zs[e * H2 + H + t]);
-          g_s1(r, zs[e * H2 + t]);
+          g_s2(r, widen(zs[e * H2 + H + t]));
+          g_s1(r, widen(zs[e * H2 + t]));
         }
       }
     }
 
     // g_vij = g_s @ W_s^T + g_x_agg_i: the product over g_s's first half
     mma_rows_times_cols<ECHUNK>(sW, ldw, n, H2, wsT, H, 0, sW, ldw);
-    const float gxi = gx[bi * H + t];
+    const float gxi = widen(gx[bi * H + t]);
 
     // the attention chain
     float gqi = 0.0f;
@@ -239,16 +253,16 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
             zkr = zk[r];
             zv = sZv[r * ld + t];
           } else {
-            zkr = zdkv[(e0 + r) * H2 + t];
-            zv = zdkv[(e0 + r) * H2 + H + t];
+            zkr = widen(zdkv[(e0 + r) * H2 + t]);
+            zv = widen(zdkv[(e0 + r) * H2 + H + t]);
           }
-          const float dk = silu(zkr), dv = silu(zv);
-          const float kr = k[(s0 + r) * H + t], vr = v[(s0 + r) * H + t];
+          const float dk = silu_st<B16>(zkr), dv = silu_st<B16>(zv);
+          const float kr = widen(k[(s0 + r) * H + t]), vr = widen(v[(s0 + r) * H + t]);
           float a;
           if constexpr (RC) {
             a = sPre[r * NHD + hd];
           } else {
-            a = head_sum<DH>(qi * kr * dk);
+            a = head_sum<DH>(rnd_st<B16>(qi * kr) * dk);
           }
           const float att = silu(a), gate = sGate[r];
           const float g3 = att * gate;
@@ -260,12 +274,12 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
           const float g_a = head_sum<DH>(g_g3 * gate) * dsilu(a);
           gqi = fmaf(g_a * kr, dk, gqi);
           gk_e[e] = g_a * qi * dk;
-          sW[r * ldw + t] = g_a * qi * kr * dsilu(zkr);
-          sW[r * ldw + H + t] = g_dv * dsilu(zv);
+          sW[r * ldw + t] = g_a * qi * kr * dsilu_st<B16>(zkr);
+          sW[r * ldw + H + t] = g_dv * dsilu_st<B16>(zv);
         }
       }
     }
-    gq[bi * H + t] = c0 ? gq[bi * H + t] + gqi : gqi;
+    gq_acc[bi * H + t] = c0 ? gq_acc[bi * H + t] + gqi : gqi;
 
     // g_edge = g_dkv @ W_dkv^T, straight to device memory; then the
     // cross-warp sums of g_dist and g_d_sh (the product synced the block)
@@ -273,14 +287,15 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
     for (int r = t; r < n; r += blockDim.x) {
       float s = 0.0f;
       for (int ww = 0; ww < NW; ++ww) s += sRedCut[ww * CH + r];
-      gdist[e0 + r] = s * sAdj[r] * sDcut[r];
+      gdist[e0 + r] = st<T>(s * sAdj[r] * sDcut[r]);
     }
     for (int x = t; x < n * S; x += blockDim.x) {
       float s = 0.0f;
       for (int ww = 0; ww < NW; ++ww) s += sRedDsh[ww * CH * S + x];
-      gdsh[e0 * S + x] = s;
+      gdsh[e0 * S + x] = st<T>(s);
     }
   }
+  if constexpr (IS_BF16<T>) gq[bi * H + t] = st<T>(gq_acc[bi * H + t]);
 }
 
 // The wide instantiation (common.cuh: every H up to WIDE_MAXH and every
@@ -309,20 +324,21 @@ static size_t msg_wide_row_bytes(int H, int S, int nh) {
   return (size_t)(mma_ld(Hp) + mma_ld(2 * Hp) + S + 3 + NW + NW * S + 2 * nh) * sizeof(float);
 }
 
-template <bool RC>
+template <bool RC, class T>
 __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ vec, const float* __restrict__ zdkv,
-    const float* __restrict__ zs, const float* __restrict__ edge,
-    const float* __restrict__ wdkv, const float* __restrict__ bdkv,
-    const float* __restrict__ ws, const float* __restrict__ bs,
-    const float* __restrict__ dsh, const float* __restrict__ dist,
-    const float* __restrict__ adj, const float* __restrict__ wdkvT,
-    const float* __restrict__ wsT, const float* __restrict__ gx,
-    const float* __restrict__ gva, float* __restrict__ gq, float* __restrict__ gedge,
-    float* __restrict__ gdsh, float* __restrict__ gdist, float* __restrict__ gk_e,
-    float* __restrict__ gv_e, float* __restrict__ s1_e, int A, int H, int S, int nh, int CH,
-    float cutoff) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ vec, const T* __restrict__ zdkv,
+    const T* __restrict__ zs, const T* __restrict__ edge,
+    const T* __restrict__ wdkv, const T* __restrict__ bdkv,
+    const T* __restrict__ ws, const T* __restrict__ bs,
+    const T* __restrict__ dsh, const T* __restrict__ dist,
+    const T* __restrict__ adj, const T* __restrict__ wdkvT,
+    const T* __restrict__ wsT, const T* __restrict__ gx,
+    const T* __restrict__ gva, float* __restrict__ gq_acc, T* __restrict__ gq,
+    T* __restrict__ gedge, T* __restrict__ gdsh, T* __restrict__ gdist,
+    float* __restrict__ gk_e, float* __restrict__ gv_e, float* __restrict__ s1_e, int A, int H,
+    int S, int nh, int CH, float cutoff) {
+  constexpr bool B16 = IS_BF16<T> && !RC;
   extern __shared__ __align__(16) float smem[];
   const int NW = blockDim.x / 32, Hp = wide_width(H), DH = H / nh;
   const int ld = mma_ld(Hp), ldw = mma_ld(2 * Hp);
@@ -337,13 +353,13 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
   float* sA = sRedDsh + NW * CH * S;    // [CH][nh] a_ij
   float* sG = sA + CH * nh;             // [CH][nh] sum_head g_g3 * gate
 
-  const int t = threadIdx.x, T = blockDim.x, w = t / 32, lane = t % 32;
+  const int t = threadIdx.x, TB = blockDim.x, w = t / 32, lane = t % 32;
   const int i = blockIdx.x, b = blockIdx.y;
   const int H2 = 2 * H;
   const size_t bi = (size_t)b * A + i;
   const float kpi = 3.14159265358979323846f / cutoff;
 
-  for (int x = t; x < CH * 2 * Hp; x += T) {
+  for (int x = t; x < CH * 2 * Hp; x += TB) {
     const int r = x / (2 * Hp), c = x - r * 2 * Hp;
     if (c % Hp >= H) sW[r * ldw + c] = 0.0f;
   }
@@ -354,40 +370,42 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
     const size_t s0 = (size_t)b * A + c0;  // and its first source atom
     __syncthreads();  // sW is zeroed / every thread is done with the last chunk's rows
     if constexpr (RC) load_rows_padded(sE, ld, edge + e0 * H, n, H, Hp);
-    for (int x = t; x < n * S; x += T) sDsh[x] = dsh[e0 * S + x];
-    for (int r = t; r < n; r += T) {
-      const float a = adj[e0 + r], d = dist[e0 + r];
+    for (int x = t; x < n * S; x += TB) sDsh[x] = widen(dsh[e0 * S + x]);
+    for (int r = t; r < n; r += TB) {
+      const float a = widen(adj[e0 + r]), d = widen(dist[e0 + r]);
       sAdj[r] = a;
-      sGate[r] = cosine_cutoff(d, cutoff) * a;
-      sDcut[r] = d < cutoff ? -0.5f * kpi * sinf(d * kpi) : 0.0f;
+      sGate[r] = cutoff_of<T>(d, cutoff) * a;
+      sDcut[r] = dcutoff_of<T>(d, cutoff, kpi);
     }
 
     // the head terms into sW's first half; K7 keeps zv in its second half
     if constexpr (RC) {
       mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, 0, 2 * Hp, sW, ldw, 2 * Hp);
-      for (int ch = t; ch < H; ch += T) {
-        const float qi = q[bi * H + ch], bk = bdkv[ch], bv = bdkv[H + ch];
+      for (int ch = t; ch < H; ch += TB) {
+        const float qi = widen(q[bi * H + ch]), bk = widen(bdkv[ch]), bv = widen(bdkv[H + ch]);
         for (int r = 0; r < n; ++r) {
           const size_t e = (e0 + r) * H + ch;
           const float zk = sW[r * ldw + ch] + bk, zv = sW[r * ldw + Hp + ch] + bv;
           gk_e[e] = zk;
           gv_e[e] = zv;
-          sW[r * ldw + ch] = head_term(qi, k[(s0 + r) * H + ch], zk);
+          sW[r * ldw + ch] = head_term(qi, widen(k[(s0 + r) * H + ch]), zk);
           sW[r * ldw + Hp + ch] = zv;
         }
       }
     } else {
-      for (int ch = t; ch < H; ch += T) {
-        const float qi = q[bi * H + ch];
-        for (int r = 0; r < n; ++r)
-          sW[r * ldw + ch] = head_term(qi, k[(s0 + r) * H + ch], zdkv[(e0 + r) * H2 + ch]);
+      for (int ch = t; ch < H; ch += TB) {
+        const float qi = widen(q[bi * H + ch]);
+        for (int r = 0; r < n; ++r) {
+          const float kr = widen(k[(s0 + r) * H + ch]), zk = widen(zdkv[(e0 + r) * H2 + ch]);
+          sW[r * ldw + ch] = B16 ? rnd_st<B16>(qi * kr) * silu_st<B16>(zk) : head_term(qi, kr, zk);
+        }
       }
     }
     block_head_sums(sW, ldw, n, nh, DH, sA);
     if constexpr (RC) {
-      for (int ch = t; ch < H; ch += T)
+      for (int ch = t; ch < H; ch += TB)
         for (int r = 0; r < n; ++r)
-          sE[r * ld + ch] = edge_message(v[(s0 + r) * H + ch], sW[r * ldw + Hp + ch],
+          sE[r * ld + ch] = edge_message(widen(v[(s0 + r) * H + ch]), sW[r * ldw + Hp + ch],
                                          sA[r * nh + ch / DH], sGate[r]);
       // zs = v_ij @ W_s (+ b_s below) over both halves
       mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, 0, 2 * Hp, sW, ldw, 2 * Hp);
@@ -401,29 +419,29 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
       float red[MAXS];
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) red[c] = 0.0f;
-      for (int ch = t; ch < H; ch += T) {
+      for (int ch = t; ch < H; ch += TB) {
         float z1, z2;
         if constexpr (RC) {
-          z1 = sW[r * ldw + ch] + bs[ch];
-          z2 = sW[r * ldw + Hp + ch] + bs[H + ch];
+          z1 = sW[r * ldw + ch] + widen(bs[ch]);
+          z2 = sW[r * ldw + Hp + ch] + widen(bs[H + ch]);
           s1_e[e * H + ch] = silu(z1) * a;
         } else {
-          z1 = zs[e * H2 + ch];
-          z2 = zs[e * H2 + H + ch];
+          z1 = widen(zs[e * H2 + ch]);
+          z2 = widen(zs[e * H2 + H + ch]);
         }
-        const float s2 = silu(z2) * a;
+        const float s2 = silu_st<B16>(z2) * a;
         float g1 = 0.0f, g2 = 0.0f;
 #pragma unroll
         for (int c = 0; c < MAXS; ++c) {
           if (c < S) {
-            const float gv = gva[(bi * S + c) * H + ch];
-            g1 = fmaf(gv, vec[((s0 + r) * S + c) * H + ch], g1);
+            const float gv = widen(gva[(bi * S + c) * H + ch]);
+            g1 = fmaf(gv, widen(vec[((s0 + r) * S + c) * H + ch]), g1);
             g2 = fmaf(gv, sDsh[r * S + c], g2);
-            red[c] = fmaf(gv, s2, red[c]);
+            red[c] = B16 ? red[c] + rnd_st<B16>(gv * s2) : fmaf(gv, s2, red[c]);
           }
         }
-        sW[r * ldw + ch] = g1 * a * dsilu(z1);
-        sW[r * ldw + Hp + ch] = g2 * a * dsilu(z2);
+        sW[r * ldw + ch] = g1 * a * dsilu_st<B16>(z1);
+        sW[r * ldw + Hp + ch] = g2 * a * dsilu_st<B16>(z2);
       }
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) {
@@ -441,65 +459,71 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
     // g_g3 * gate into sW's first half for the head sums
     for (int r = 0; r < n; ++r) {
       float red = 0.0f;
-      for (int ch = t; ch < H; ch += T) {
+      for (int ch = t; ch < H; ch += TB) {
         const size_t e = (e0 + r) * H + ch;
-        const float gvij = sE[r * ld + ch] + gx[bi * H + ch];
-        const float zv = RC ? gv_e[e] : zdkv[(e0 + r) * H2 + H + ch];
-        const float dv = silu(zv), vr = v[(s0 + r) * H + ch];
+        const float gvij = sE[r * ld + ch] + widen(gx[bi * H + ch]);
+        const float zv = RC ? gv_e[e] : widen(zdkv[(e0 + r) * H2 + H + ch]);
+        const float dv = silu_st<B16>(zv), vr = widen(v[(s0 + r) * H + ch]);
         const float att = silu(sA[r * nh + ch / DH]), gate = sGate[r];
         const float g3 = att * gate;
         gv_e[e] = gvij * dv * g3;
         const float g_g3 = gvij * vr * dv;
         red = fmaf(g_g3, att, red);
         sW[r * ldw + ch] = g_g3 * gate;
-        sW[r * ldw + Hp + ch] = gvij * vr * g3 * dsilu(zv);
+        sW[r * ldw + Hp + ch] = gvij * vr * g3 * dsilu_st<B16>(zv);
       }
       red = warp_sum(red);
       if (lane == 0) sRedCut[w * CH + r] = red;
     }
     block_head_sums(sW, ldw, n, nh, DH, sG);
     // second pass: g_a = sum_head(g_g3 * gate) silu'(a), g_q, g_k's terms, g_dk
-    for (int ch = t; ch < H; ch += T) {
-      const float qi = q[bi * H + ch];
+    for (int ch = t; ch < H; ch += TB) {
+      const float qi = widen(q[bi * H + ch]);
       float gqi = 0.0f;
       for (int r = 0; r < n; ++r) {
         const size_t e = (e0 + r) * H + ch;
-        const float zk = RC ? gk_e[e] : zdkv[(e0 + r) * H2 + ch];
-        const float dk = silu(zk), kr = k[(s0 + r) * H + ch];
+        const float zk = RC ? gk_e[e] : widen(zdkv[(e0 + r) * H2 + ch]);
+        const float dk = silu_st<B16>(zk), kr = widen(k[(s0 + r) * H + ch]);
         const int x = r * nh + ch / DH;
         const float g_a = sG[x] * dsilu(sA[x]);
         gqi = fmaf(g_a * kr, dk, gqi);
         gk_e[e] = g_a * qi * dk;
-        sW[r * ldw + ch] = g_a * qi * kr * dsilu(zk);
+        sW[r * ldw + ch] = g_a * qi * kr * dsilu_st<B16>(zk);
       }
-      gq[bi * H + ch] = c0 ? gq[bi * H + ch] + gqi : gqi;
+      gq_acc[bi * H + ch] = c0 ? gq_acc[bi * H + ch] + gqi : gqi;
     }
 
     // g_edge = g_dkv @ W_dkv^T, straight to device memory; then the
     // cross-warp sums of g_dist and g_d_sh (the product synced the block)
     mma_tiles<ECHUNK>(sW, ldw, n, 2 * Hp, wdkvT, Hp, 0, Hp, gedge + e0 * H, H, H);
-    for (int r = t; r < n; r += T) {
+    for (int r = t; r < n; r += TB) {
       float s = 0.0f;
       for (int ww = 0; ww < NW; ++ww) s += sRedCut[ww * CH + r];
-      gdist[e0 + r] = s * sAdj[r] * sDcut[r];
+      gdist[e0 + r] = st<T>(s * sAdj[r] * sDcut[r]);
     }
-    for (int x = t; x < n * S; x += T) {
+    for (int x = t; x < n * S; x += TB) {
       float s = 0.0f;
       for (int ww = 0; ww < NW; ++ww) s += sRedDsh[ww * CH * S + x];
-      gdsh[e0 * S + x] = s;
+      gdsh[e0 * S + x] = st<T>(s);
     }
   }
+  if constexpr (IS_BF16<T>)
+    for (int ch = t; ch < H; ch += TB) gq[bi * H + ch] = st<T>(gq_acc[bi * H + ch]);
 }
 
 // Pass 2: one block per (fragment, source atom j); fixed-order sums over i.
 // The wide kernels' pass (WIDE) runs channel blocks of blockDim.x along the
-// grid's z.
-template <bool RC, bool WIDE = false>
+// grid's z.  In bfloat16 the sums go in blocks of I_TILE centres
+// (common.cuh); K2's s1 g_vec_agg products round (a product of two bfloat16
+// values).
+
+template <bool RC, bool WIDE, class T>
 __global__ void __launch_bounds__(256) edge_bwd_msg_source(
-    const float* __restrict__ zs, const float* __restrict__ adj,
-    const float* __restrict__ s1_e, const float* __restrict__ gva,
-    const float* __restrict__ gk_e, const float* __restrict__ gv_e, float* __restrict__ gk,
-    float* __restrict__ gv, float* __restrict__ gvec, int A, int H, int S) {
+    const T* __restrict__ zs, const T* __restrict__ adj,
+    const float* __restrict__ s1_e, const T* __restrict__ gva,
+    const float* __restrict__ gk_e, const float* __restrict__ gv_e, T* __restrict__ gk,
+    T* __restrict__ gv, T* __restrict__ gvec, int A, int H, int S) {
+  constexpr bool B16 = IS_BF16<T> && !RC;
   const int t = WIDE ? blockIdx.z * blockDim.x + threadIdx.x : threadIdx.x;
   const int j = blockIdx.x, b = blockIdx.y;
   if (WIDE && t >= H) return;
@@ -508,8 +532,7 @@ __global__ void __launch_bounds__(256) edge_bwd_msg_source(
   float sc[MAXS];
 #pragma unroll
   for (int c = 0; c < MAXS; ++c) sc[c] = 0.0f;
-#pragma unroll 8
-  for (int i = 0; i < A; ++i) {
+  auto term = [&](int i) {
     const size_t e = (b0 + i) * A + j;
     sk += gk_e[e * H + t];
     sv += gv_e[e * H + t];
@@ -517,44 +540,73 @@ __global__ void __launch_bounds__(256) edge_bwd_msg_source(
     if constexpr (RC) {
       s1 = s1_e[e * H + t];
     } else {
-      s1 = silu(zs[e * 2 * H + t]) * adj[e];
+      s1 = silu_st<B16>(widen(zs[e * 2 * H + t])) * widen(adj[e]);
     }
 #pragma unroll
-    for (int c = 0; c < MAXS; ++c)
-      if (c < S) sc[c] = fmaf(s1, gva[((b0 + i) * S + c) * H + t], sc[c]);
+    for (int c = 0; c < MAXS; ++c) {
+      if (c < S) {
+        const float g = widen(gva[((b0 + i) * S + c) * H + t]);
+        sc[c] = B16 ? sc[c] + rnd_st<B16>(s1 * g) : fmaf(s1, g, sc[c]);
+      }
+    }
+  };
+  if constexpr (IS_BF16<T>) {
+    float tk = 0.0f, tv = 0.0f, tc[MAXS];
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) tc[c] = 0.0f;
+    for (int i0 = 0; i0 < A; i0 += I_TILE) {
+#pragma unroll
+      for (int i = i0; i < i0 + I_TILE; ++i) term(i);
+      tk = rnd<T>(tk + rnd<T>(sk));
+      tv = rnd<T>(tv + rnd<T>(sv));
+      sk = sv = 0.0f;
+#pragma unroll
+      for (int c = 0; c < MAXS; ++c) {
+        tc[c] = rnd<T>(tc[c] + rnd<T>(sc[c]));
+        sc[c] = 0.0f;
+      }
+    }
+    sk = tk, sv = tv;
+#pragma unroll
+    for (int c = 0; c < MAXS; ++c) sc[c] = tc[c];
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < A; ++i) term(i);
   }
-  gk[(b0 + j) * H + t] = sk;
-  gv[(b0 + j) * H + t] = sv;
+  gk[(b0 + j) * H + t] = st<T>(sk);
+  gv[(b0 + j) * H + t] = st<T>(sv);
 #pragma unroll
   for (int c = 0; c < MAXS; ++c)
-    if (c < S) gvec[((b0 + j) * S + c) * H + t] = sc[c];
+    if (c < S) gvec[((b0 + j) * S + c) * H + t] = st<T>(sc[c]);
 }
 
+// gq_acc: g_q's float sums over the source chunks (the output itself for
+// float); the rest as the kernels'.
 template <bool RC>
-static int launch_msg(const float* q, const float* k, const float* v, const float* vec,
-                  const float* zdkv, const float* zs, const float* edge, const float* wdkv,
-                  const float* bdkv, const float* ws, const float* bs, const float* dsh,
-                  const float* dist, const float* adj, const float* wdkvT, const float* wsT,
-                  const float* gx, const float* gva, float* gq, float* gk, float* gv,
-                  float* gvec, float* gedge, float* gdsh, float* gdist, float* gk_e,
-                  float* gv_e, float* s1_e, int B, int A, int H, int S, float cutoff, int dh,
-                  cudaStream_t stream) {
+static int launch_msg(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec,
+                      const EdgeT* zdkv, const EdgeT* zs, const EdgeT* edge, const EdgeT* wdkv,
+                      const EdgeT* bdkv, const EdgeT* ws, const EdgeT* bs, const EdgeT* dsh,
+                      const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkvT, const EdgeT* wsT,
+                      const EdgeT* gx, const EdgeT* gva, float* gq_acc, EdgeT* gq, EdgeT* gk,
+                      EdgeT* gv, EdgeT* gvec, EdgeT* gedge, EdgeT* gdsh, EdgeT* gdist,
+                      float* gk_e, float* gv_e, float* s1_e, int B, int A, int H, int S,
+                      float cutoff, int dh, cudaStream_t stream) {
   if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
   if (!narrow_shapes(H, H / dh)) {
     const int nh = H / dh, T = wide_threads(H), CH = wide_chunk(msg_wide_row_bytes(H, S, nh));
     const size_t smem = CH * msg_wide_row_bytes(H, S, nh);
     if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-    auto kern = edge_bwd_msg_wide<RC>;
+    auto kern = edge_bwd_msg_wide<RC, EdgeT>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(A, B), T, smem, stream>>>(q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh,
-                                          dist, adj, wdkvT, wsT, gx, gva, gq, gedge, gdsh, gdist,
-                                          gk_e, gv_e, s1_e, A, H, S, nh, CH, cutoff);
+                                          dist, adj, wdkvT, wsT, gx, gva, gq_acc, gq, gedge, gdsh,
+                                          gdist, gk_e, gv_e, s1_e, A, H, S, nh, CH, cutoff);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    edge_bwd_msg_source<RC, true><<<dim3(A, B, (H + T - 1) / T), T, 0, stream>>>(
+    edge_bwd_msg_source<RC, true, EdgeT><<<dim3(A, B, (H + T - 1) / T), T, 0, stream>>>(
         zs, adj, s1_e, gva, gk_e, gv_e, gk, gv, gvec, A, H, S);
     return (int)cudaGetLastError();
   }
@@ -562,55 +614,71 @@ static int launch_msg(const float* q, const float* k, const float* v, const floa
     constexpr int DH = decltype(d)::value;
     const size_t smem = msg_smem(A, H, S, RC, DH);
     if (smem > 232448) return (int)cudaErrorInvalidValue;
-    auto kern = edge_bwd_msg_centre<RC, DH>;
+    auto kern = edge_bwd_msg_centre<RC, DH, EdgeT>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(A, B), H, smem, stream>>>(q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh,
-                                          dist, adj, wdkvT, wsT, gx, gva, gq, gedge, gdsh, gdist,
-                                          gk_e, gv_e, s1_e, A, H, S, cutoff);
+                                          dist, adj, wdkvT, wsT, gx, gva, gq_acc, gq, gedge, gdsh,
+                                          gdist, gk_e, gv_e, s1_e, A, H, S, cutoff);
     return (int)cudaGetLastError();
   });
   if (rc != 0) return rc;
-  edge_bwd_msg_source<RC><<<dim3(A, B), H, 0, stream>>>(zs, adj, s1_e, gva, gk_e, gv_e, gk, gv,
-                                                        gvec, A, H, S);
+  edge_bwd_msg_source<RC, false, EdgeT><<<dim3(A, B), H, 0, stream>>>(
+      zs, adj, s1_e, gva, gk_e, gv_e, gk, gv, gvec, A, H, S);
   return (int)cudaGetLastError();
 }
 
 // The narrow kernels take heads of 8, 16, 32 or 64 channels with H a
 // multiple of 32 up to 256; the wide kernel every other H up to WIDE_MAXH
 // whose head count divides it, with W_dkv^T and W_s^T (and K7's W_dkv,
-// W_s) zero-padded to wide_width(H) a half: [2 Hp][Hp] ([Hp][2 Hp]).
-extern "C" int edge_bwd_msg_launch(const float* q, const float* k, const float* v,
-                                   const float* vec, const float* zdkv, const float* zs,
-                                   const float* dsh, const float* dist, const float* adj,
-                                   const float* wdkvT, const float* wsT, const float* gx,
-                                   const float* gva, float* gq, float* gk, float* gv,
-                                   float* gvec, float* gedge, float* gdsh, float* gdist,
-                                   float* gk_e, float* gv_e, int B, int A, int H, int S,
-                                   float cutoff, int dh, cudaStream_t stream) {
-  return launch_msg<false>(q, k, v, vec, zdkv, zs, nullptr, nullptr, nullptr, nullptr, nullptr, dsh,
-                       dist, adj, wdkvT, wsT, gx, gva, gq, gk, gv, gvec, gedge, gdsh, gdist,
-                       gk_e, gv_e, nullptr, B, A, H, S, cutoff, dh, stream);
+// W_s) zero-padded to wide_width(H) a half: [2 Hp][Hp] ([Hp][2 Hp]).  The
+// _bf16 entry points take bfloat16 and, last, the float scratch gq_acc
+// [B][A][H] for g_q's sums over the source chunks.
+extern "C" int AI2BMD_ENTRY(edge_bwd_msg)(
+    const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec, const EdgeT* zdkv,
+    const EdgeT* zs, const EdgeT* dsh, const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkvT,
+    const EdgeT* wsT, const EdgeT* gx, const EdgeT* gva, EdgeT* gq, EdgeT* gk, EdgeT* gv,
+    EdgeT* gvec, EdgeT* gedge, EdgeT* gdsh, EdgeT* gdist, float* gk_e, float* gv_e,
+#ifdef AI2BMD_STORE_BF16
+    float* gq_acc,
+#endif
+    int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
+#ifndef AI2BMD_STORE_BF16
+  float* gq_acc = gq;
+  gq = nullptr;
+#endif
+  return launch_msg<false>(q, k, v, vec, zdkv, zs, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           dsh, dist, adj, wdkvT, wsT, gx, gva, gq_acc, gq, gk, gv, gvec, gedge,
+                           gdsh, gdist, gk_e, gv_e, nullptr, B, A, H, S, cutoff, dh, stream);
 }
 
-extern "C" int edge_bwd_msg_rc_launch(
-    const float* q, const float* k, const float* v, const float* vec, const float* edge,
-    const float* dsh, const float* dist, const float* adj, const float* wdkv, const float* bdkv,
-    const float* ws, const float* bs, const float* wdkvT, const float* wsT, const float* gx,
-    const float* gva, float* gq, float* gk, float* gv, float* gvec, float* gedge, float* gdsh,
-    float* gdist, float* gk_e, float* gv_e, float* s1_e, int B, int A, int H, int S,
-    float cutoff, int dh, cudaStream_t stream) {
-  return launch_msg<true>(q, k, v, vec, nullptr, nullptr, edge, wdkv, bdkv, ws, bs, dsh, dist, adj,
-                      wdkvT, wsT, gx, gva, gq, gk, gv, gvec, gedge, gdsh, gdist, gk_e, gv_e, s1_e,
-                      B, A, H, S, cutoff, dh, stream);
+extern "C" int AI2BMD_ENTRY(edge_bwd_msg_rc)(
+    const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec, const EdgeT* edge,
+    const EdgeT* dsh, const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkv, const EdgeT* bdkv,
+    const EdgeT* ws, const EdgeT* bs, const EdgeT* wdkvT, const EdgeT* wsT, const EdgeT* gx,
+    const EdgeT* gva, EdgeT* gq, EdgeT* gk, EdgeT* gv, EdgeT* gvec, EdgeT* gedge, EdgeT* gdsh,
+    EdgeT* gdist, float* gk_e, float* gv_e, float* s1_e,
+#ifdef AI2BMD_STORE_BF16
+    float* gq_acc,
+#endif
+    int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
+#ifndef AI2BMD_STORE_BF16
+  float* gq_acc = gq;
+  gq = nullptr;
+#endif
+  return launch_msg<true>(q, k, v, vec, nullptr, nullptr, edge, wdkv, bdkv, ws, bs, dsh, dist,
+                          adj, wdkvT, wsT, gx, gva, gq_acc, gq, gk, gv, gvec, gedge, gdsh, gdist,
+                          gk_e, gv_e, s1_e, B, A, H, S, cutoff, dh, stream);
 }
 
+#ifndef AI2BMD_STORE_BF16
 // shared memory, blocks per SM, registers and spill bytes of the centre
 // pass, K2 (rc = 0) or K7 (rc = 1)
 extern "C" int edge_bwd_msg_occupancy(int A, int H, int S, int rc, int* out) {
-  return rc ? occupancy(edge_bwd_msg_centre<true, 32>, H, msg_smem(A, H, S, true, 32), out)
-            : occupancy(edge_bwd_msg_centre<false, 32>, H, msg_smem(A, H, S, false, 32), out);
+  return rc ? occupancy(edge_bwd_msg_centre<true, 32, float>, H, msg_smem(A, H, S, true, 32), out)
+            : occupancy(edge_bwd_msg_centre<false, 32, float>, H, msg_smem(A, H, S, false, 32),
+                        out);
 }
 
 // the same for the wide instantiation at H channels and nh heads; out[4]
@@ -619,6 +687,7 @@ extern "C" int edge_bwd_msg_wide_occupancy(int H, int S, int nh, int rc, int* ou
   const int CH = wide_chunk(msg_wide_row_bytes(H, S, nh));
   const size_t smem = CH * msg_wide_row_bytes(H, S, nh);
   out[4] = CH;
-  return rc ? occupancy(edge_bwd_msg_wide<true>, wide_threads(H), smem, out)
-            : occupancy(edge_bwd_msg_wide<false>, wide_threads(H), smem, out);
+  return rc ? occupancy(edge_bwd_msg_wide<true, float>, wide_threads(H), smem, out)
+            : occupancy(edge_bwd_msg_wide<false, float>, wide_threads(H), smem, out);
 }
+#endif

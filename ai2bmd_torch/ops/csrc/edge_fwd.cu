@@ -55,6 +55,12 @@
 // The TPU's 8-row centre tile and broadcast helpers were Mosaic
 // workarounds and have no counterpart here; its 3-pass bf16 split becomes
 // the 3-pass TF32 split, which keeps 3 more bits per pass.
+// Storage: float, or bfloat16 (this source compiled again with
+// AI2BMD_STORE_BF16, common.cuh; edge_fwd_bf16_launch), the JAX kernels on
+// bfloat16 refs (ops/vismp.py, edge_fwd_bf16_plain): every load widened,
+// the arithmetic float but the cutoff chain, the outputs and the stash
+// rounded at the store, the sums over the sources' chunks carried in float
+// scratch.  The bytes halve; the products are the same passes.
 
 #include "common.cuh"
 
@@ -67,18 +73,22 @@ static size_t fwd_smem(int A, int H, int S) {
   return (size_t)(2 * n * mma_ld(H) + n * S + 2 * n) * sizeof(float);
 }
 
-template <bool UPDATE, bool STORE, int DH>
+// T is the storage type (common.cuh).  xacc, vacc hold the sums over the
+// sources (x_agg, vec_agg) in float across the chunks: the outputs
+// themselves for float, scratch for bfloat16, whose outputs xagg, vecagg
+// each thread rounds from its own sums when its last chunk is done.
+template <bool UPDATE, bool STORE, int DH, class T>
 __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ vec, const float* __restrict__ wt, const float* __restrict__ wsrc,
-    const float* __restrict__ edge, const float* __restrict__ dsh,
-    const float* __restrict__ dist, const float* __restrict__ adj,
-    const float* __restrict__ wdkv, const float* __restrict__ bdkv,
-    const float* __restrict__ ws, const float* __restrict__ bs,
-    const float* __restrict__ wf, const float* __restrict__ bf,
-    float* __restrict__ xagg, float* __restrict__ vecagg, float* __restrict__ df,
-    float* __restrict__ zdkv, float* __restrict__ zs, float* __restrict__ zf,
-    int A, int H, int S, float cutoff) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ vec, const T* __restrict__ wt, const T* __restrict__ wsrc,
+    const T* __restrict__ edge, const T* __restrict__ dsh,
+    const T* __restrict__ dist, const T* __restrict__ adj,
+    const T* __restrict__ wdkv, const T* __restrict__ bdkv,
+    const T* __restrict__ ws, const T* __restrict__ bs,
+    const T* __restrict__ wf, const T* __restrict__ bf,
+    float* __restrict__ xacc, float* __restrict__ vacc, T* __restrict__ xagg,
+    T* __restrict__ vecagg, T* __restrict__ df, T* __restrict__ zdkv, T* __restrict__ zs,
+    T* __restrict__ zf, int A, int H, int S, float cutoff) {
   extern __shared__ __align__(16) float smem[];
   const int ld = mma_ld(H);
   const int CH = A < ECHUNK ? A : ECHUNK;  // rows of a chunk
@@ -103,11 +113,11 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
     const size_t s0 = (size_t)b * A + c0;  // and its first source atom
     if (c0) __syncthreads();  // every thread is done with the last chunk's rows
     load_rows(sE, ld, edge + e0 * H, n, H);
-    for (int x = t; x < n * S; x += blockDim.x) sDsh[x] = dsh[e0 * S + x];
+    for (int x = t; x < n * S; x += blockDim.x) sDsh[x] = widen(dsh[e0 * S + x]);
     for (int r = t; r < n; r += blockDim.x) {
-      const float a = adj[e0 + r];
+      const float a = widen(adj[e0 + r]);
       sAdj[r] = a;
-      sGate[r] = cosine_cutoff(dist[e0 + r], cutoff) * a;
+      sGate[r] = cutoff_of<T>(widen(dist[e0 + r]), cutoff) * a;
     }
 
     if (UPDATE) {
@@ -115,19 +125,19 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
       mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wf, H, 0, sP, ld);
       float wti[MAXS];
 #pragma unroll
-      for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + t] : 0.0f;
-      const float bft = bf[t];
+      for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? widen(wt[(bi * S + c) * H + t]) : 0.0f;
+      const float bft = widen(bf[t]);
       for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
         for (int rr = 0; rr < RCHUNK; ++rr) {
           const int r = r0 + rr;
           const float z = sP[r * ld + t] + bft;
-          if (STORE) zf[(e0 + r) * H + t] = z;
+          if (STORE) zf[(e0 + r) * H + t] = st<T>(z);
           float sdot = 0.0f;
 #pragma unroll
           for (int c = 0; c < MAXS; ++c)
-            if (c < S) sdot = fmaf(wti[c], wsrc[((s0 + r) * S + c) * H + t], sdot);
-          df[(e0 + r) * H + t] = silu(z) * sdot * sAdj[r];
+            if (c < S) sdot = fmaf(wti[c], widen(wsrc[((s0 + r) * S + c) * H + t]), sdot);
+          df[(e0 + r) * H + t] = st<T>(silu(z) * sdot * sAdj[r]);
         }
       }
     }
@@ -135,13 +145,13 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
     // zdkv = edge @ W_dkv + b_dkv: dk = silu(zk) into sP, then zv over the
     // edge rows, which the attention loop overwrites with v_ij
     mma_rows_times_cols<ECHUNK>(sE, ld, n, H, wdkv, H2, 0, sP, ld);
-    const float bk = bdkv[t], bv = bdkv[H + t];
+    const float bk = widen(bdkv[t]), bv = widen(bdkv[H + t]);
     for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
       for (int rr = 0; rr < RCHUNK; ++rr) {
         const int r = r0 + rr;
         const float zk = sP[r * ld + t] + bk;
-        if (STORE) zdkv[(e0 + r) * H2 + t] = zk;
+        if (STORE) zdkv[(e0 + r) * H2 + t] = st<T>(zk);
         sP[r * ld + t] = silu(zk);
       }
     }
@@ -149,23 +159,23 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
 
     // attention message; the head of channel t is t / DH, on the lanes of
     // thread t's warp that share it
-    const float qi = q[bi * H + t];
+    const float qi = widen(q[bi * H + t]);
     float xsum = 0.0f;
     for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
       for (int rr = 0; rr < RCHUNK; ++rr) {
         const int r = r0 + rr;
         const float zv = sE[r * ld + t] + bv;
-        if (STORE) zdkv[(e0 + r) * H2 + H + t] = zv;
-        const float kr = k[(s0 + r) * H + t];
-        const float vr = v[(s0 + r) * H + t];
+        if (STORE) zdkv[(e0 + r) * H2 + H + t] = st<T>(zv);
+        const float kr = widen(k[(s0 + r) * H + t]);
+        const float vr = widen(v[(s0 + r) * H + t]);
         const float a = head_sum<DH>(qi * kr * sP[r * ld + t]);
         const float vij = vr * silu(zv) * (silu(a) * sGate[r]);
         sE[r * ld + t] = vij;
         xsum += vij;
       }
     }
-    xagg[bi * H + t] = c0 ? xagg[bi * H + t] + xsum : xsum;
+    xacc[bi * H + t] = c0 ? xacc[bi * H + t] + xsum : xsum;
 
     // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, one half at a time:
     // vec_agg[c] = sum_j s1 * vec_j[c] + sum_j s2 * d_sh_ij[c]
@@ -173,13 +183,13 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < MAXS; ++c) from_vec[c] = from_dsh[c] = 0.0f;
     mma_rows_times_cols<ECHUNK>(sE, ld, n, H, ws, H2, H, sP, ld);
-    const float b1 = bs[t], b2 = bs[H + t];
+    const float b1 = widen(bs[t]), b2 = widen(bs[H + t]);
     for (int r0 = 0; r0 < n; r0 += RCHUNK) {
 #pragma unroll
       for (int rr = 0; rr < RCHUNK; ++rr) {
         const int r = r0 + rr;
         const float z2 = sP[r * ld + t] + b2;
-        if (STORE) zs[(e0 + r) * H2 + H + t] = z2;
+        if (STORE) zs[(e0 + r) * H2 + H + t] = st<T>(z2);
         const float s2 = silu(z2) * sAdj[r];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c)
@@ -192,21 +202,26 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
       for (int rr = 0; rr < RCHUNK; ++rr) {
         const int r = r0 + rr;
         const float z1 = sP[r * ld + t] + b1;
-        if (STORE) zs[(e0 + r) * H2 + t] = z1;
+        if (STORE) zs[(e0 + r) * H2 + t] = st<T>(z1);
         const float s1 = silu(z1) * sAdj[r];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c)
-          if (c < S) from_vec[c] = fmaf(s1, vec[((s0 + r) * S + c) * H + t], from_vec[c]);
+          if (c < S)
+            from_vec[c] = fmaf(s1, widen(vec[((s0 + r) * S + c) * H + t]), from_vec[c]);
       }
     }
 #pragma unroll
     for (int c = 0; c < MAXS; ++c) {
       if (c < S) {
-        float* o = vecagg + (bi * S + c) * H + t;
+        float* o = vacc + (bi * S + c) * H + t;
         const float sum = from_vec[c] + from_dsh[c];
         *o = c0 ? *o + sum : sum;
       }
     }
+  }
+  if constexpr (IS_BF16<T>) {
+    xagg[bi * H + t] = st<T>(xacc[bi * H + t]);
+    for (int c = 0; c < S; ++c) vecagg[(bi * S + c) * H + t] = st<T>(vacc[(bi * S + c) * H + t]);
   }
 }
 
@@ -222,18 +237,18 @@ static size_t fwd_wide_row_bytes(int H, int S, int nh) {
   return (size_t)(2 * mma_ld(wide_width(H)) + S + 2 + nh) * sizeof(float);
 }
 
-template <bool UPDATE, bool STORE>
+template <bool UPDATE, bool STORE, class T>
 __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ vec, const float* __restrict__ wt, const float* __restrict__ wsrc,
-    const float* __restrict__ edge, const float* __restrict__ dsh,
-    const float* __restrict__ dist, const float* __restrict__ adj,
-    const float* __restrict__ wdkv, const float* __restrict__ bdkv,
-    const float* __restrict__ ws, const float* __restrict__ bs,
-    const float* __restrict__ wf, const float* __restrict__ bf,
-    float* __restrict__ xagg, float* __restrict__ vecagg, float* __restrict__ df,
-    float* __restrict__ zdkv, float* __restrict__ zs, float* __restrict__ zf,
-    int A, int H, int S, int nh, int CH, float cutoff) {
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ vec, const T* __restrict__ wt, const T* __restrict__ wsrc,
+    const T* __restrict__ edge, const T* __restrict__ dsh,
+    const T* __restrict__ dist, const T* __restrict__ adj,
+    const T* __restrict__ wdkv, const T* __restrict__ bdkv,
+    const T* __restrict__ ws, const T* __restrict__ bs,
+    const T* __restrict__ wf, const T* __restrict__ bf,
+    float* __restrict__ xacc, float* __restrict__ vacc, T* __restrict__ xagg,
+    T* __restrict__ vecagg, T* __restrict__ df, T* __restrict__ zdkv, T* __restrict__ zs,
+    T* __restrict__ zf, int A, int H, int S, int nh, int CH, float cutoff) {
   extern __shared__ __align__(16) float smem[];
   const int Hp = wide_width(H), ld = mma_ld(Hp), DH = H / nh;
   float* sE = smem;              // [CH][ld]  edge rows of the chunk, then v_ij
@@ -243,7 +258,7 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
   float* sAdj = sGate + CH;      // [CH]
   float* sA = sAdj + CH;         // [CH][nh] a_ij
 
-  const int t = threadIdx.x, T = blockDim.x;
+  const int t = threadIdx.x, TB = blockDim.x;
   const int i = blockIdx.x, b = blockIdx.y;
   const int H2 = 2 * H;
   const size_t bi = (size_t)b * A + i;
@@ -254,29 +269,29 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
     const size_t s0 = (size_t)b * A + c0;
     if (c0) __syncthreads();  // every thread is done with the last chunk's rows
     load_rows_padded(sE, ld, edge + e0 * H, n, H, Hp);
-    for (int x = t; x < n * S; x += T) sDsh[x] = dsh[e0 * S + x];
-    for (int r = t; r < n; r += T) {
-      const float a = adj[e0 + r];
+    for (int x = t; x < n * S; x += TB) sDsh[x] = widen(dsh[e0 * S + x]);
+    for (int r = t; r < n; r += TB) {
+      const float a = widen(adj[e0 + r]);
       sAdj[r] = a;
-      sGate[r] = cosine_cutoff(dist[e0 + r], cutoff) * a;
+      sGate[r] = cutoff_of<T>(widen(dist[e0 + r]), cutoff) * a;
     }
 
     if (UPDATE) {
       // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
       mma_tiles<ECHUNK>(sE, ld, n, Hp, wf, Hp, 0, Hp, sP, ld, Hp);
-      for (int ch = t; ch < H; ch += T) {
+      for (int ch = t; ch < H; ch += TB) {
         float wti[MAXS];
 #pragma unroll
-        for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? wt[(bi * S + c) * H + ch] : 0.0f;
-        const float bft = bf[ch];
+        for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? widen(wt[(bi * S + c) * H + ch]) : 0.0f;
+        const float bft = widen(bf[ch]);
         for (int r = 0; r < n; ++r) {
           const float z = sP[r * ld + ch] + bft;
-          if (STORE) zf[(e0 + r) * H + ch] = z;
+          if (STORE) zf[(e0 + r) * H + ch] = st<T>(z);
           float sdot = 0.0f;
 #pragma unroll
           for (int c = 0; c < MAXS; ++c)
-            if (c < S) sdot = fmaf(wti[c], wsrc[((s0 + r) * S + c) * H + ch], sdot);
-          df[(e0 + r) * H + ch] = silu(z) * sdot * sAdj[r];
+            if (c < S) sdot = fmaf(wti[c], widen(wsrc[((s0 + r) * S + c) * H + ch]), sdot);
+          df[(e0 + r) * H + ch] = st<T>(silu(z) * sdot * sAdj[r]);
         }
       }
     }
@@ -284,12 +299,12 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
     // zk = edge @ W_dkv[:, :H] + b_k into sP, replaced by the head terms
     // q_i k_j dk, summed by head into sA
     mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, 0, Hp, sP, ld, Hp);
-    for (int ch = t; ch < H; ch += T) {
-      const float qi = q[bi * H + ch], bk = bdkv[ch];
+    for (int ch = t; ch < H; ch += TB) {
+      const float qi = widen(q[bi * H + ch]), bk = widen(bdkv[ch]);
       for (int r = 0; r < n; ++r) {
         const float zk = sP[r * ld + ch] + bk;
-        if (STORE) zdkv[(e0 + r) * H2 + ch] = zk;
-        sP[r * ld + ch] = head_term(qi, k[(s0 + r) * H + ch], zk);
+        if (STORE) zdkv[(e0 + r) * H2 + ch] = st<T>(zk);
+        sP[r * ld + ch] = head_term(qi, widen(k[(s0 + r) * H + ch]), zk);
       }
     }
     block_head_sums(sP, ld, n, nh, DH, sA);
@@ -297,30 +312,31 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
     // zv = edge @ W_dkv[:, H:] + b_v into sP; the message v_ij over the
     // edge rows (the product has read them), x_agg its sum
     mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, Hp, Hp, sP, ld, Hp);
-    for (int ch = t; ch < H; ch += T) {
-      const float bv = bdkv[H + ch];
+    for (int ch = t; ch < H; ch += TB) {
+      const float bv = widen(bdkv[H + ch]);
       float xsum = 0.0f;
       for (int r = 0; r < n; ++r) {
         const float zv = sP[r * ld + ch] + bv;
-        if (STORE) zdkv[(e0 + r) * H2 + H + ch] = zv;
-        const float vij = edge_message(v[(s0 + r) * H + ch], zv, sA[r * nh + ch / DH], sGate[r]);
+        if (STORE) zdkv[(e0 + r) * H2 + H + ch] = st<T>(zv);
+        const float vij = edge_message(widen(v[(s0 + r) * H + ch]), zv, sA[r * nh + ch / DH],
+                                       sGate[r]);
         sE[r * ld + ch] = vij;
         xsum += vij;
       }
-      xagg[bi * H + ch] = c0 ? xagg[bi * H + ch] + xsum : xsum;
+      xacc[bi * H + ch] = c0 ? xacc[bi * H + ch] + xsum : xsum;
     }
 
     // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, the d_sh half first:
     // vec_agg[c] += sum_j s2 * d_sh_ij[c], then += sum_j s1 * vec_j[c]
     mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, Hp, Hp, sP, ld, Hp);
-    for (int ch = t; ch < H; ch += T) {
-      const float b2 = bs[H + ch];
+    for (int ch = t; ch < H; ch += TB) {
+      const float b2 = widen(bs[H + ch]);
       float sum[MAXS];
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) sum[c] = 0.0f;
       for (int r = 0; r < n; ++r) {
         const float z2 = sP[r * ld + ch] + b2;
-        if (STORE) zs[(e0 + r) * H2 + H + ch] = z2;
+        if (STORE) zs[(e0 + r) * H2 + H + ch] = st<T>(z2);
         const float s2 = silu(z2) * sAdj[r];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c)
@@ -329,61 +345,71 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) {
         if (c < S) {
-          float* o = vecagg + (bi * S + c) * H + ch;
+          float* o = vacc + (bi * S + c) * H + ch;
           *o = c0 ? *o + sum[c] : sum[c];
         }
       }
     }
     mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, 0, Hp, sP, ld, Hp);
-    for (int ch = t; ch < H; ch += T) {
-      const float b1 = bs[ch];
+    for (int ch = t; ch < H; ch += TB) {
+      const float b1 = widen(bs[ch]);
       float sum[MAXS];
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) sum[c] = 0.0f;
       for (int r = 0; r < n; ++r) {
         const float z1 = sP[r * ld + ch] + b1;
-        if (STORE) zs[(e0 + r) * H2 + ch] = z1;
+        if (STORE) zs[(e0 + r) * H2 + ch] = st<T>(z1);
         const float s1 = silu(z1) * sAdj[r];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c)
-          if (c < S) sum[c] = fmaf(s1, vec[((s0 + r) * S + c) * H + ch], sum[c]);
+          if (c < S) sum[c] = fmaf(s1, widen(vec[((s0 + r) * S + c) * H + ch]), sum[c]);
       }
 #pragma unroll
       for (int c = 0; c < MAXS; ++c)
-        if (c < S) vecagg[(bi * S + c) * H + ch] += sum[c];
+        if (c < S) vacc[(bi * S + c) * H + ch] += sum[c];
+    }
+  }
+  if constexpr (IS_BF16<T>) {
+    for (int ch = t; ch < H; ch += TB) {
+      xagg[bi * H + ch] = st<T>(xacc[bi * H + ch]);
+      for (int c = 0; c < S; ++c)
+        vecagg[(bi * S + c) * H + ch] = st<T>(vacc[(bi * S + c) * H + ch]);
     }
   }
 }
 
+// The launchers take the library's storage type, EdgeT (common.cuh); xacc,
+// vacc: the float sums over the sources (the outputs themselves for float).
 template <bool UPDATE, bool STORE>
-static int launch(const float* q, const float* k, const float* v, const float* vec,
-                  const float* wt, const float* wsrc, const float* edge, const float* dsh,
-                  const float* dist, const float* adj, const float* wdkv, const float* bdkv,
-                  const float* ws, const float* bs, const float* wf, const float* bf,
-                  float* xagg, float* vecagg, float* df, float* zdkv, float* zs, float* zf,
-                  int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
+static int launch(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec,
+                  const EdgeT* wt, const EdgeT* wsrc, const EdgeT* edge, const EdgeT* dsh,
+                  const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkv, const EdgeT* bdkv,
+                  const EdgeT* ws, const EdgeT* bs, const EdgeT* wf, const EdgeT* bf,
+                  float* xacc, float* vacc, EdgeT* xagg, EdgeT* vecagg, EdgeT* df, EdgeT* zdkv,
+                  EdgeT* zs, EdgeT* zf, int B, int A, int H, int S, float cutoff, int dh,
+                  cudaStream_t stream) {
   if (!narrow_shapes(H, H / dh)) {
     const int nh = H / dh, CH = wide_chunk(fwd_wide_row_bytes(H, S, nh));
     const size_t smem = CH * fwd_wide_row_bytes(H, S, nh);
     if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-    auto kern = edge_fwd_wide<UPDATE, STORE>;
+    auto kern = edge_fwd_wide<UPDATE, STORE, EdgeT>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(A, B), wide_threads(H), smem, stream>>>(
-        q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs, wf, bf, xagg, vecagg,
-        df, zdkv, zs, zf, A, H, S, nh, CH, cutoff);
+        q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs, wf, bf, xacc, vacc,
+        xagg, vecagg, df, zdkv, zs, zf, A, H, S, nh, CH, cutoff);
     return (int)cudaGetLastError();
   }
   const size_t smem = fwd_smem(A, H, S);
   return with_head_width(dh, [&](auto d) {
-    auto kern = edge_fwd_kernel<UPDATE, STORE, decltype(d)::value>;
+    auto kern = edge_fwd_kernel<UPDATE, STORE, decltype(d)::value, EdgeT>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     kern<<<dim3(A, B), H, smem, stream>>>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv,
-                                          bdkv, ws, bs, wf, bf, xagg, vecagg, df, zdkv, zs, zf,
-                                          A, H, S, cutoff);
+                                          bdkv, ws, bs, wf, bf, xacc, vacc, xagg, vecagg, df,
+                                          zdkv, zs, zf, A, H, S, cutoff);
     return (int)cudaGetLastError();
   });
 }
@@ -392,43 +418,47 @@ static int launch(const float* q, const float* k, const float* v, const float* v
 // multiple of 32 up to 256; the wide kernel every other H up to WIDE_MAXH
 // whose head count divides it, with its weights zero-padded to
 // wide_width(H) a half (W_dkv [Hp][2 Hp], W_s [Hp][2 Hp], W_f [Hp][Hp];
-// the biases and every other tensor as they are).
-extern "C" int edge_fwd_launch(const float* q, const float* k, const float* v, const float* vec,
-                               const float* wt, const float* wsrc, const float* edge,
-                               const float* dsh, const float* dist, const float* adj,
-                               const float* wdkv, const float* bdkv, const float* ws,
-                               const float* bs, const float* wf, const float* bf, float* xagg,
-                               float* vecagg, float* df, float* zdkv, float* zs, float* zf,
-                               int B, int A, int H, int S, float cutoff, int update, int store,
-                               int dh, cudaStream_t stream) {
+// the biases and every other tensor as they are).  edge_fwd_launch takes
+// float, edge_fwd_bf16_launch bfloat16 and, after the outputs, the float
+// scratch xacc [B][A][H] and vacc [B][A][S][H] for the sums over the
+// sources.
+extern "C" int AI2BMD_ENTRY(edge_fwd)(
+    const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec, const EdgeT* wt,
+    const EdgeT* wsrc, const EdgeT* edge, const EdgeT* dsh, const EdgeT* dist, const EdgeT* adj,
+    const EdgeT* wdkv, const EdgeT* bdkv, const EdgeT* ws, const EdgeT* bs, const EdgeT* wf,
+    const EdgeT* bf, EdgeT* xagg, EdgeT* vecagg, EdgeT* df, EdgeT* zdkv, EdgeT* zs, EdgeT* zf,
+#ifdef AI2BMD_STORE_BF16
+    float* xacc, float* vacc,
+#endif
+    int B, int A, int H, int S, float cutoff, int update, int store, int dh,
+    cudaStream_t stream) {
+#ifndef AI2BMD_STORE_BF16
+  float* xacc = xagg;  // float sums straight into the outputs
+  float* vacc = vecagg;
+  xagg = vecagg = nullptr;
+#endif
   if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
-  if (update) {
-    if (store)
-      return launch<true, true>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws,
-                                bs, wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff,
-                                dh, stream);
-    return launch<true, false>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
-                               wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff,
-                               dh, stream);
-  }
-  if (store)
-    return launch<false, true>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
-                               wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff,
-                               dh, stream);
-  return launch<false, false>(q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs,
-                              wf, bf, xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff, dh,
-                              stream);
+  auto run = [&](auto u, auto s) {
+    return launch<decltype(u)::value, decltype(s)::value>(
+        q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs, wf, bf, xacc, vacc,
+        xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff, dh, stream);
+  };
+  using Y = std::true_type;
+  using N = std::false_type;
+  if (update) return store ? run(Y{}, Y{}) : run(Y{}, N{});
+  return store ? run(N{}, Y{}) : run(N{}, N{});
 }
 
+#ifndef AI2BMD_STORE_BF16
 // shared memory, blocks per SM, registers and spill bytes of one flag pair
 extern "C" int edge_fwd_occupancy(int A, int H, int S, int update, int store, int* out) {
   const size_t smem = fwd_smem(A, H, S);
   if (update)
-    return store ? occupancy(edge_fwd_kernel<true, true, 32>, H, smem, out)
-                 : occupancy(edge_fwd_kernel<true, false, 32>, H, smem, out);
-  return store ? occupancy(edge_fwd_kernel<false, true, 32>, H, smem, out)
-               : occupancy(edge_fwd_kernel<false, false, 32>, H, smem, out);
+    return store ? occupancy(edge_fwd_kernel<true, true, 32, float>, H, smem, out)
+                 : occupancy(edge_fwd_kernel<true, false, 32, float>, H, smem, out);
+  return store ? occupancy(edge_fwd_kernel<false, true, 32, float>, H, smem, out)
+               : occupancy(edge_fwd_kernel<false, false, 32, float>, H, smem, out);
 }
 
 // the same for the wide instantiation at H channels and nh heads; out[4]
@@ -439,12 +469,13 @@ extern "C" int edge_fwd_wide_occupancy(int H, int S, int nh, int update, int sto
   out[4] = CH;
   const int T = wide_threads(H);
   if (update)
-    return store ? occupancy(edge_fwd_wide<true, true>, T, smem, out)
-                 : occupancy(edge_fwd_wide<true, false>, T, smem, out);
-  return store ? occupancy(edge_fwd_wide<false, true>, T, smem, out)
-               : occupancy(edge_fwd_wide<false, false>, T, smem, out);
+    return store ? occupancy(edge_fwd_wide<true, true, float>, T, smem, out)
+                 : occupancy(edge_fwd_wide<true, false, float>, T, smem, out);
+  return store ? occupancy(edge_fwd_wide<false, true, float>, T, smem, out)
+               : occupancy(edge_fwd_wide<false, false, float>, T, smem, out);
 }
 
 extern "C" const char* ai2bmd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#endif

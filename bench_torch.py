@@ -13,7 +13,12 @@ reference, 3.5 ns/day) and ``ms_per_step_f32``; and beside them:
 ``ms_per_step_fused_layer`` (the full-layer kernels K5/K6 through the graph)
 and its eager twin, ``device_busy_share_*`` and ``kernels_per_step_*`` of
 each graphed path (from a profiler window of replays), and the card's
-``device`` and ``power_limit`` as ``nvidia-smi`` reports them.
+``device`` and ``power_limit`` as ``nvidia-smi`` reports them.  With
+``AI2BMD_BENCH_MIXED`` set (bench.py's variable) it also times the same step
+in the mixed-precision mode, ``ViSNetConfig(edge_dtype=torch.bfloat16)``
+(the bfloat16 instantiations of K1-K3), and adds bench.py's
+``ms_per_step_mixed`` and ``ns_day_mixed`` with the path's eager, kernel and
+busy figures; without it the output is as it was.
 
 Workload, as ``bench.py``: Chignolin (``examples/chig.pdb``), the production
 ``ViSNetConfig()`` (9 layers x 256, 8 heads, lmax 2, 5 A cutoff) with the
@@ -179,8 +184,11 @@ def main():
     coeffs = L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device=dev)
 
     out = {}
-    for label, fused in (("f32", False), ("fused_layer", True)):
-        c = dataclasses.replace(cfg, fused_layer=fused)
+    paths = [("f32", {}), ("fused_layer", dict(fused_layer=True))]
+    if os.environ.get("AI2BMD_BENCH_MIXED"):
+        paths.append(("mixed", dict(edge_dtype=torch.bfloat16)))
+    for label, kw in paths:
+        c = dataclasses.replace(cfg, **kw)
         pot = FragmentPotential.build(prot, ViSNet(c, params), c, longrange="mm", device=dev)
         warm = lambda P, aux, pot=pot: pot.stateful_energy_forces(P, aux, warm_iters=1)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -219,6 +227,8 @@ def main():
         "vs_baseline": ns_day / BASELINE_NS_DAY,
         **out,
         "ns_day_fused_layer": 86.4 / out["ms_per_step_fused_layer"],
+        **({"ns_day_mixed": 86.4 / out["ms_per_step_mixed"]} if "ms_per_step_mixed" in out
+           else {}),
         "steps": STEPS,
         "repeats": REPEATS,
         "device": name,

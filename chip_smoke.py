@@ -288,17 +288,39 @@ is not printed):
      those fit in memory, bitwise repeats; ViSNetPotential at 9 x 256 with
      remat=True and through K5/K6, one evaluation each (launches, CUDA-event
      ms, peak memory), the two within 1e-3 eV/A
-  17. one JSON line of kernel results (with `mesh_launches`: rank 0's
+  17. the mixed-precision mode (ViSNetConfig(edge_dtype=torch.bfloat16)):
+     (a) the bfloat16 instantiations of K1 (four flag pairs), K2, K3, K7 and
+     K8 against their plain bfloat16 versions (2^-7 of the largest value),
+     narrow at the lone batches and 1 x 176 (H = 256, 8 heads), wide at 4 x
+     40 with H = 512 (4 heads) and H = 48 (2 heads), bitwise repeats, K7/K8
+     against K2/K3 on the bfloat16 stash (printed, not bitwise in this
+     mode), at the lone batches each kernel's ms beside the float32
+     kernel's and the plain version's, bytes, bound and share; (b) every
+     bfloat16 kernel at 4 x 40, narrow and wide, from the highest and
+     default libraries against its mode's plain model; (c) the lone
+     Chignolin step at 9 x 256 in the mode: one evaluation launches the
+     bfloat16 K1 36, K2 36, K3 32 and K4 1 and nothing else, step 0 against
+     the CPU float64 run of the float32 model (the mode's shift) and against
+     the mixed step on the CPU through the plain versions (within half the
+     shift), the graphed step (its trace's edge kernels all bfloat16)
+     beside phase 4's; (d)
+     Chignolin (176 slots) and ACE-(ALA)110-NME (1,112) as one molecule,
+     one evaluation each in float32 with remat and in the mode with and
+     without remat (launches, ms, peak memory), the mode's forces within
+     (c)'s shift of float32's; (e) the float32 edge and full-layer kernels'
+     output hashes equal adb0db2's
+  18. one JSON line of kernel results (with `mesh_launches`: rank 0's
      launches a warm evaluation in (b), by mesh; `precision_modes`: phase
      14's figures by mode; `wide`: phases 15's and 16's; `slots_1112`:
-     phase 16(e)'s), the card's name and power limit, and the final JSON
-     line.
+     phase 16(e)'s; the `_bf16` entries: phase 17's), the card's name and
+     power limit, and the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
 `--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--precision-only` phase 14
 alone; `--wide-only` phase 15 alone; `--layer-wide-only` phase 16 alone;
+`--mixed-only` phase 17 alone;
 `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
@@ -338,10 +360,11 @@ EDGE_KERNELS = ("edge_fwd_kernel", "edge_bwd_msg_centre", "edge_bwd_upd_centre")
 LAYER_KERNELS = ("vislayer_fwd_centre2", "vislayer_bwd_centre", "vislayer_bwd_source")
 N_LAYERS = 9
 N_REPLICAS, REPLICA_CHUNK, ENSEMBLE_STEPS = 64, 8, 3   # BASELINE config 5
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): float32 outside the
-# tensor cores; TF32 in the tensor cores over the three passes of the 3xTF32
-# split, in float32 products; HBM3.
-PEAK_F32, PEAK_TF32X3, PEAK_BYTES = 67e12, 495e12 / 3, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): float32
+# outside the tensor cores; TF32 in the tensor cores over the three passes of
+# the 3xTF32 split, in float32 products; bfloat16 x bfloat16 in the tensor
+# cores with float32 sums; HBM3.
+PEAK_F32, PEAK_TF32X3, PEAK_BF16, PEAK_BYTES = 67e12, 495e12 / 3, 989e12, 3.35e12
 # which unit does each kernel's products (bound(): tc = 3xTF32, f32 = FMA)
 BOUND_PEAK = {
     "edge_fwd": "3xTF32 tensor cores, 165 TFLOP/s",
@@ -469,15 +492,16 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(nbyte, tc=0.0, f32=0.0):
+def bound(nbyte, tc=0.0, f32=0.0, bf16=0.0):
     """The least time the card could take: the largest of the tensor-core
-    FLOPs (3xTF32) over their peak, the float32 FMA FLOPs over theirs (the
-    two units can run at once) and bytes (each input read once, each output
-    written once) over the memory rate."""
-    t_op = max(tc / PEAK_TF32X3, f32 / PEAK_F32) * 1e3
+    time (FLOPs with a float32 operand at the 3xTF32 peak, plus FLOPs of two
+    bfloat16 operands at the bfloat16 peak: one unit), the float32 FMA FLOPs
+    over theirs (the two units can run at once) and bytes (each input read
+    once, each output written once) over the memory rate."""
+    t_op = max(tc / PEAK_TF32X3 + bf16 / PEAK_BF16, f32 / PEAK_F32) * 1e3
     t_by = nbyte / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_op, t_by), "bound_by": "operations" if t_op >= t_by else "bytes",
-            "gflop": (tc + f32) / 1e9, "mbytes": nbyte / 1e6}
+            "gflop": (tc + f32 + bf16) / 1e9, "mbytes": nbyte / 1e6}
 
 
 def add_bound(res, b, times=None):
@@ -5154,6 +5178,446 @@ def precision_entry(p14, name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the mixed-precision mode (ViSNetConfig.edge_dtype=torch.bfloat16)
+# ---------------------------------------------------------------------------
+
+MIXED_KERNELS = tuple(f"{n}_bf16" for n in EDGE_NAMES)
+# the bfloat16 kernels' bound against their plain bfloat16 versions: about
+# one bfloat16 step of the largest value (the two round the same float32
+# values, so they part only where a float32 sum taken in another order
+# crosses a rounding boundary)
+MIXED_TOL = 2.0 ** -7
+# 17(a): narrow at the lone batches and one molecule of 176 slots; wide at
+# 4 x 40 with heads of 128 channels (H = 512) and of 24 (H = 48)
+MIXED_NARROW = [*SHAPES, (1, 176)]
+MIXED_WIDE = [(4, 40, 512, 4), (4, 40, 48, 2)]
+# float32 evaluations of one molecule, held against the mode's shift
+MIXED_MOLECULES = (("Chignolin", 176), ("ACE-(ALA)110-NME", 1112))
+
+
+def mixed_compare(name, got, ref, label=""):
+    """The largest error of each bfloat16 output against the plain version's
+    (bound MIXED_TOL * max(1, max|plain|)) and the share of elements that
+    differ at all; raises past the bound."""
+    worst, shares = 0.0, []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if r is None:
+            need(g is None, f"{name}: output {i} should be absent")
+            continue
+        need(g.dtype == r.dtype and g.shape == r.shape, f"{name}: output {i} {g.dtype} "
+             f"{tuple(g.shape)} against {r.dtype} {tuple(r.shape)}")
+        need(bool(g.isfinite().all()), f"{name}: output {i} has non-finite values")
+        gf, rf = g.float(), r.float()
+        err, scale = float((gf - rf).abs().max()), float(rf.abs().max())
+        need(err <= MIXED_TOL * max(1.0, scale),
+             f"{name}: output {i} differs from its plain version by {err:.3e} (scale {scale:.3e})")
+        worst = max(worst, err)
+        shares.append(float((gf != rf).float().mean()))
+    print(f"    {name}{label}: max|d| {worst:.3e}, share of elements that differ "
+          + " ".join(f"{x:.4f}" for x in shares))
+    return worst
+
+
+def mixed_case(torch, K, gen, B, A, dev, h, nh):
+    """Phase 3's edge_case at (B, A) and width h, cast to bfloat16: the
+    arguments of the bfloat16 K1, K2, K3, K7 and K8 (K2/K3 on the bfloat16
+    K1's stash), and the float32 case for the float32 kernels' times."""
+    c = edge_case(torch, K, gen, B, A, dev, h, nh)
+    bf = torch.bfloat16
+    a = {n: t.to(bf) for n, t in c["a"].items()}
+    core = tuple(a[n] for n in ("q", "k", "v", "vec", "edge", "d_sh", "dist", "adj", "w_dkv",
+                                "b_dkv", "w_s", "b_s")) + (CUTOFF, nh)
+    upd = dict(wt=a["wt"], wsrc=a["wsrc"], w_f=a["w_f"], b_f=a["b_f"])
+    _, _, _, zdkv, zs, zf = K.edge_fwd(*core, **upd, store=True)
+    g_x, g_va = c["msg"][11].to(bf), c["msg"][12].to(bf)
+    g_df = c["upd_args"][5].to(bf)
+    return dict(
+        f32=c, core=core, upd=upd, g_edge=c["g_edge"].to(bf),
+        msg=(*core[:4], zdkv, zs, *core[5:8], core[8], core[10], g_x, g_va, CUTOFF, nh),
+        upd_args=(a["adj"], a["wt"], a["wsrc"], a["w_f"], zf, g_df),
+        msg_rc=(*core[:12], g_x, g_va, CUTOFF, nh),
+        upd_rc=(a["edge"], a["adj"], a["wt"], a["wsrc"], a["w_f"], a["b_f"], g_df))
+
+
+def mixed_kernel_calls(K, c, mm=None):
+    """{bf16 kernel name: (kernel call, plain call, float32 kernel call)} on
+    case ``c``; K3/K8 sum into copies of the same message-path g_edge; the
+    plain calls take the products ``mm`` (the exact product unless given)."""
+    f = c["f32"]
+    g, g32 = c["g_edge"], f["g_edge"]
+    kw = {} if mm is None else {"mm": mm}
+
+    def fwd_plain():   # the stash as the kernel stores it
+        out = K.edge_fwd_bf16_plain(*c["core"], **c["upd"], **kw)
+        return (*out[:3], *(z.to(g.dtype) for z in out[3:]))
+
+    return {
+        "edge_fwd_bf16": (lambda: K.edge_fwd(*c["core"], **c["upd"], store=True), fwd_plain,
+                          lambda: K.edge_fwd(*f["core"], **f["upd"], store=True)),
+        "edge_bwd_msg_bf16": (lambda: K.edge_bwd_msg(*c["msg"]),
+                              lambda: K.edge_bwd_msg_bf16_plain(*c["msg"], **kw),
+                              lambda: K.edge_bwd_msg(*f["msg"])),
+        "edge_bwd_upd_bf16": (lambda: K.edge_bwd_upd(*c["upd_args"], g_edge=g.clone()),
+                              lambda: K.edge_bwd_upd_bf16_plain(*c["upd_args"], g.clone(), **kw),
+                              lambda: K.edge_bwd_upd(*f["upd_args"], g_edge=g32.clone())),
+        "edge_bwd_msg_rc_bf16": (lambda: K.edge_bwd_msg_rc(*c["msg_rc"]),
+                                 lambda: K.edge_bwd_msg_rc_plain(*c["msg_rc"], **kw),
+                                 lambda: K.edge_bwd_msg_rc(*f["msg_rc"])),
+        "edge_bwd_upd_rc_bf16": (lambda: K.edge_bwd_upd_rc(*c["upd_rc"], g_edge=g.clone()),
+                                 lambda: K.edge_bwd_upd_rc_plain(*c["upd_rc"], g.clone(), **kw),
+                                 lambda: K.edge_bwd_upd_rc(*f["upd_rc"], g_edge=g32.clone())),
+    }
+
+
+# multiply-adds of each kernel's products per edge cell, in units of H^2
+# (phase 3's count for the float32 kernels: the bfloat16 instantiations run
+# the same passes), split into (products of two bfloat16 operands, priced at
+# the bfloat16 peak: the edge rows times W_dkv and W_f; products with a
+# float32 operand computed in the kernel, priced at 3xTF32's: v_ij times
+# W_s and every cotangent times a weight)
+MIXED_PRODUCTS = {"edge_fwd_bf16": (3, 2), "edge_bwd_msg_bf16": (0, 4),
+                  "edge_bwd_upd_bf16": (0, 1), "edge_bwd_msg_rc_bf16": (2, 6),
+                  "edge_bwd_upd_rc_bf16": (1, 1)}
+
+
+def check_mixed_kernels(torch, dev, results):
+    """Phase 17(a): each bfloat16 kernel against its plain bfloat16 version
+    (K1 in its four flag pairs) at MIXED_NARROW and MIXED_WIDE, bitwise
+    repeats, K7/K8 against K2/K3 on the bfloat16 K1's stash (printed: not
+    bitwise in this mode), and at the lone batches the ms of a call (CUDA
+    events) beside the float32 kernel's at the same shape and the plain
+    version's, with the bytes, the bound and its share, summed into
+    ``results`` for the kernels line."""
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(17)
+    fwd_flags = ((True, True), (True, False), (False, True), (False, False))
+    for B, A, h, nh in [(B, A, H, NH) for B, A in MIXED_NARROW] + MIXED_WIDE:
+        lone = (B, A) in SHAPES and h == H
+        print(f"  B={B} A={A} H={h}, {nh} heads ({'narrow' if K.narrow_shapes(h, nh) else 'wide'})")
+        c = mixed_case(torch, K, gen, B, A, dev, h, nh)
+        plain = K.edge_fwd_bf16_plain(*c["core"], **c["upd"])
+        for update, store in fwd_flags:
+            kw = c["upd"] if update else {}
+            run = lambda kw=kw, store=store: K.edge_fwd(*c["core"], **kw, store=store)
+            ref = list(plain if update else K.edge_fwd_bf16_plain(*c["core"]))
+            ref[3:] = [z.to(torch.bfloat16) if store and z is not None else None
+                       for z in ref[3:]]
+            got = run()
+            res = results["edge_fwd_bf16"]
+            res["max_abs_err"] = max(res["max_abs_err"], mixed_compare(
+                "edge_fwd_bf16", got, ref, f" update={int(update)} store={int(store)}"))
+            need(all(x is None or torch.equal(x, y) for x, y in zip(got, run())),
+                 f"edge_fwd_bf16 update={int(update)} store={int(store)}: two runs differ")
+        del plain
+        calls = mixed_kernel_calls(K, c)
+        outs = {}
+        for name, (kern, ref, _) in calls.items():
+            if name == "edge_fwd_bf16":
+                continue
+            outs[name] = kern()
+            res = results[name]
+            res["max_abs_err"] = max(res["max_abs_err"], mixed_compare(name, outs[name], ref()))
+            need(all(torch.equal(x, y) for x, y in zip(outs[name], kern())),
+                 f"{name}: two runs differ")
+        for rc, stash in (("edge_bwd_msg_rc_bf16", "edge_bwd_msg_bf16"),
+                          ("edge_bwd_upd_rc_bf16", "edge_bwd_upd_bf16")):
+            d = max(float((x.float() - y.float()).abs().max())
+                    for x, y in zip(outs[rc], outs[stash]))
+            print(f"    {rc} against {stash} on K1's bfloat16 stash: max|d| {d:.3e} (the stash "
+                  f"is rounded to bfloat16, the recompute is not)")
+        print("    bitwise repeatable: every kernel")
+        if not lone:
+            continue
+        for name, (kern, ref, kern32) in calls.items():
+            ms, ms32, plain_ms = (cuda_ms(torch, fn, 20) for fn in (kern, kern32, ref))
+            dev_ms, dev32 = device_ms(torch, kern), device_ms(torch, kern32)
+            args = {"edge_fwd_bf16": (*c["core"][:12], *c["upd"].values()),
+                    "edge_bwd_msg_bf16": c["msg"][:13], "edge_bwd_upd_bf16": c["upd_args"],
+                    "edge_bwd_msg_rc_bf16": c["msg_rc"][:14],
+                    "edge_bwd_upd_rc_bf16": c["upd_rc"]}[name]
+            extra = (c["g_edge"],) if "upd" in name else ()
+            n_bf, n_tc = (2 * B * A * A * u * h * h for u in MIXED_PRODUCTS[name])
+            b = bound(nbytes(*[t for t in args if torch.is_tensor(t)], *extra,
+                             *[t for t in kern() if t is not None]), tc=n_tc, bf16=n_bf)
+            res = results[name]
+            add_times(res, {"ms": ms, "plain_ms": plain_ms, "float32_ms": ms32,
+                            "device_ms": dev_ms, "float32_device_ms": dev32})
+            add_bound(res, b)
+            print(f"    {name}: {ms:.4f} ms a call (events; device {fmt_ms(dev_ms)}) against the "
+                  f"float32 kernel's {ms32:.4f} (device {fmt_ms(dev32)}) and the plain "
+                  f"version's {plain_ms:.4f}; {b['mbytes']:.3f} MB, {n_bf / 1e9:.3f} GFLOP "
+                  f"bf16 x bf16 at {PEAK_BF16 / 1e12:.0f} TFLOP/s + {n_tc / 1e9:.3f} GFLOP "
+                  f"with a float32 operand at {PEAK_TF32X3 / 1e12:.0f}, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                  f"{100 * b['bound_ms'] / (dev_ms or ms):.1f}% of it")
+        del c, calls, outs
+        torch.cuda.empty_cache()
+
+
+def check_mixed_modes(torch, dev):
+    """Phase 17(b): every bfloat16 kernel (K1 with the update and the stash,
+    K2, K3, K7, K8) at 4 x 40, narrow (H = 256, 8 heads) and wide (H = 48,
+    2 heads), from the highest and default libraries, against its plain
+    version with that mode's product (``vismp.route_mm``), bitwise repeats,
+    every launch from the mode's library.  Returns {mode: {kernel: max abs
+    err}, with "launches"}."""
+    from ai2bmd_torch.ops import reset_launches
+    from ai2bmd_torch.ops import vismp as K
+
+    out = {}
+    gen = torch.Generator().manual_seed(18)
+    cases = [mixed_case(torch, K, gen, 4, 40, dev, h, nh) for h, nh in ((H, NH), (48, 2))]
+    try:
+        for mode in ("highest", "default"):
+            set_mm_mode(mode)
+            reset_launches()
+            res = out[mode] = {}
+            refs = []
+            for c in cases:
+                for name, (kern, ref, _) in mixed_kernel_calls(K, c, K.route_mm()).items():
+                    got = kern()
+                    need(all(torch.equal(x, y) for x, y in zip(got, kern())),
+                         f"{name} ({mode}): two runs differ")
+                    refs.append((name, got, ref))
+            res["launches"] = only_mode(mode, "phase 17(b)")
+            for name, got, ref in refs:
+                res[name] = max(res.get(name, 0.0),
+                                mixed_compare(name, got, ref(), f" ({mode})"))
+    finally:
+        set_mm_mode("b3")
+    return out
+
+
+def mixed_potential(torch, dev, prot, edge_dtype, device=None):
+    """FragmentPotential for Chignolin at 9 x 256 (phase 4's weights, seed 0)
+    with ``edge_dtype``, on ``device`` (the card unless given)."""
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    cfg = ViSNetConfig(edge_dtype=edge_dtype)
+    params = init_params(ViSNetConfig(), torch.Generator().manual_seed(0))
+    pot = FragmentPotential.build(prot, ViSNet(cfg, params), cfg, longrange="mm",
+                                  device=device or dev)
+    return pot, cfg, params
+
+
+def run_mixed_step(torch, dev, prot, card, ref=None):
+    """Phase 17(c): the lone Chignolin step at 9 x 256 with edge_dtype=
+    torch.bfloat16: one evaluation's launches (K1 36, K2 36, K3 32, K4 1,
+    all bfloat16; no float32 edge kernel, no plain edge core), step 0 against
+    the CPU float64 run of the float32 model (the mode's shift, printed) and
+    against the same mixed step on the CPU, the kernels' plain versions
+    (held to half that shift); the step captured as a CUDA graph and timed
+    beside the float32 step's graph from the same call (``ref``: phase 4's;
+    else run here)."""
+    from ai2bmd_torch.md import langevin as L
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches, reset_plain_edge_core
+
+    bf = torch.bfloat16
+    pot, cfg, params = mixed_potential(torch, dev, prot, bf)
+    need(pot.cfg.edge_dtype == bf and not pot.cfg.fused_layer and not pot.cfg.plain_edge_core,
+         f"mixed potential config {pot.cfg}")
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    aux0 = pot.init_cap_delta(P)
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_plain_edge_core()
+    e0, f0, aux1 = pot.stateful_energy_forces(P, aux0)
+    torch.cuda.synchronize()
+    launched = {n: v for n, v in LAUNCHES.items() if v}
+    batches = len(pot.rt.dip_buckets) + 1
+    want = {"edge_fwd_bf16": N_LAYERS * batches, "edge_bwd_msg_bf16": N_LAYERS * batches,
+            "edge_bwd_upd_bf16": (N_LAYERS - 1) * batches, "cap_grad": 1}
+    print(f"  one evaluation launched {launched}")
+    need(launched == want, f"one mixed evaluation launched {launched}, not {want}")
+    cpu = torch.device("cpu")
+    if ref is None:
+        f32pot, f32cfg, _ = mixed_potential(torch, dev, prot, None)
+        ref = slice_reference(torch, prot, f32cfg, params, f32pot, P, aux0, aux1)
+        ref["f32_pot"] = f32pot
+    shift = float((f0.to(cpu, torch.float64) - ref["f_ref"]).abs().max())
+    cpu_pot, _, _ = mixed_potential(torch, dev, prot, bf, device="cpu")
+    t0 = time.perf_counter()
+    e_cpu, f_cpu, _ = cpu_pot.stateful_energy_forces(P.cpu(), aux0.cpu())
+    d_cpu = float((f0.cpu() - f_cpu).abs().max())
+    print(f"  step 0: against the CPU float64 float32 model max|dF| {shift:.3e} eV/A, |dE| "
+          f"{abs(float(e0) - float(ref['e_ref'])):.3e} eV (the mode's shift); against the mixed "
+          f"step on the CPU (the kernels' plain versions, {time.perf_counter() - t0:.1f} s) "
+          f"max|dF| {d_cpu:.3e} eV/A, |dE| {abs(float(e0) - float(e_cpu)):.3e} eV "
+          f"({d_cpu / shift:.3f} of the shift; limit 0.5); max|F| {float(f0.abs().max()):.3f} "
+          f"eV/A")
+    need(0 < shift and d_cpu <= 0.5 * shift,
+         f"the mixed step 0 differs from its CPU plain versions by {d_cpu:.3e} (shift {shift:.3e})")
+    masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
+    coeffs = L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device=dev)
+    out = {}
+    for label, potential in (("mixed", pot), ("float32", ref.get("f32_pot"))):
+        if potential is None:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = L.MDState(P, L.maxwell_boltzmann_velocities(gen, prot.masses, 300.0), f0, e0,
+                          aux=aux1)
+        print(f"  the {label} step, graphed:")
+        out[label] = drive_graphed(torch, potential.stateful_energy_forces, coeffs, masses, state,
+                                   gen, card, ("cap_grad_kernel", *EDGE_KERNELS))
+        edge = [n for n in out[label]["names"] if any(k in n for k in EDGE_KERNELS)]
+        need(all(("bfloat16" in n) == (label == "mixed") for n in edge),
+             f"the {label} replay ran {[short_name(n) for n in edge]}")
+    print("  the mixed replay's edge kernels are all bfloat16 instantiations")
+    if ref is not None and "f32_pot" not in ref:
+        need(torch.equal(aux0, ref["aux0"]), "the mixed run started from other cap offsets")
+    reset_launches()
+    out.update(launches=launched, shift=shift, d_cpu=d_cpu, max_f=float(f0.abs().max()))
+    return out
+
+
+def run_mixed_molecules(torch, dev, card, shift, max_f, fused_peak=None):
+    """Phase 17(d): Chignolin as one molecule (176 slots) and ACE-(ALA)110-
+    NME (1,112 slots) through ViSNetPotential at 9 x 256 with edge_dtype=
+    bfloat16, one evaluation each on the stash route (K1-K3) and with remat
+    (K1, K7, K8), each with its launches, ms (CUDA events) and peak memory;
+    the two routes apart, and each against the float32 remat evaluation,
+    held within the mode's shift (17(c)'s max|dF|, scaled by the molecule's
+    largest force against the lone step's).  ``fused_peak``: phase 16(e)'s
+    peak memory through K5/K6 at 1,112 slots, printed beside."""
+    import numpy as np
+
+    from ai2bmd_torch.host import example_pdb, load_protein
+    from ai2bmd_torch.io.build import build_polyalanine
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNet, ViSNetConfig
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+    from ai2bmd_torch.potentials import ViSNetPotential
+
+    params = init_params(ViSNetConfig(), torch.Generator().manual_seed(0))
+    out = {}
+    for name, A in MIXED_MOLECULES:
+        if A == 176:
+            prot = load_protein(example_pdb("chig"))
+            numbers, pos = prot.numbers, prot.positions
+        else:
+            atoms = build_polyalanine(POLY_RES, phi=POLY_PHI, psi=POLY_PSI)
+            numbers, pos = atoms.numbers, atoms.positions
+        P = torch.as_tensor(np.asarray(pos), dtype=torch.float32, device=dev)
+        evals = {}
+        for route, kw in (("float32 remat", dict(remat=True)),
+                          ("mixed", dict(edge_dtype=torch.bfloat16)),
+                          ("mixed remat", dict(edge_dtype=torch.bfloat16, remat=True))):
+            c = ViSNetConfig(**kw)
+            pot = ViSNetPotential.build(numbers, ViSNet(c, params), c, device=dev)
+            need(pot.pad_to == A, f"{name}: {pot.pad_to} slots")
+            pot.energy_forces(P)                  # warm-up (weights, casts)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            e, f = pot.energy_forces(P)
+            end.record()
+            torch.cuda.synchronize()
+            launched = {n: v for n, v in LAUNCHES.items() if v}
+            tag = "_bf16" if "mixed" in route else ""
+            want = ({f"edge_fwd{tag}": N_LAYERS, f"edge_bwd_msg_rc{tag}": N_LAYERS,
+                     f"edge_bwd_upd_rc{tag}": N_LAYERS - 1} if "remat" in route else
+                    {f"edge_fwd{tag}": N_LAYERS, f"edge_bwd_msg{tag}": N_LAYERS,
+                     f"edge_bwd_upd{tag}": N_LAYERS - 1})
+            need(launched == want, f"{name}, {route}: one evaluation launched {launched}")
+            need(bool(f.isfinite().all()), f"{name}, {route}: non-finite forces")
+            evals[route] = dict(ms=start.elapsed_time(end), f=f, launches=launched,
+                                peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+            print(f"  {name} ({A} slots), {route}: one evaluation {evals[route]['ms']:.3f} ms "
+                  f"(CUDA events), peak {evals[route]['peak_gib']:.2f} GiB above the "
+                  f"{base / 2 ** 30:.2f} held before, launches {launched} ({card})")
+            del pot
+            torch.cuda.empty_cache()
+        f32 = evals["float32 remat"]["f"]
+        print(f"  {name}: peak GiB mixed {evals['mixed']['peak_gib']:.2f}, mixed remat "
+              f"{evals['mixed remat']['peak_gib']:.2f}, float32 remat "
+              f"{evals['float32 remat']['peak_gib']:.2f}"
+              + (f", float32 through K5/K6 {fused_peak:.2f} (phase 16(e))"
+                 if fused_peak is not None and A == 1112 else ""))
+        limit = shift * max(1.0, float(f32.abs().max()) / max_f)
+        apart = float((evals["mixed"]["f"] - evals["mixed remat"]["f"]).abs().max())
+        print(f"  {name}: the two mixed routes apart max|dF| {apart:.3e} eV/A; max|F| "
+              f"{float(f32.abs().max()):.3f} eV/A")
+        for route in ("mixed", "mixed remat"):
+            d = float((evals[route]["f"] - f32).abs().max())
+            evals[route]["max_dF_float32"] = d
+            print(f"  {name}, {route} against float32: max|dF| {d:.3e} eV/A (limit {limit:.3e}, "
+                  f"the mode's shift)")
+            need(d <= limit, f"{name}, {route}: forces differ from float32 by {d:.3e}")
+        for ev in evals.values():
+            del ev["f"]
+        out[name] = dict(A=A, routes_apart=apart, **evals)
+    return out
+
+
+def run_mixed(torch, dev, prot, card, ref=None, fused_peak=None):
+    """Phase 17: the mixed-precision mode, (a)-(d) above; (e) the float32
+    edge and full-layer kernels' output hashes against adb0db2's (the commit
+    before the bfloat16 instantiations), which they must equal.  Returns the
+    phase's figures and the kernels' results for the kernels line."""
+    t_phase = time.perf_counter()
+    results = {n: {"max_abs_err": 0.0} for n in MIXED_KERNELS}
+    print("  (a) the bfloat16 instantiations against their plain bfloat16 versions")
+    check_mixed_kernels(torch, dev, results)
+    print("  (b) every bfloat16 kernel in the highest and default libraries")
+    modes = check_mixed_modes(torch, dev)
+    print("  (c) the lone Chignolin step, 9 x 256, edge_dtype=torch.bfloat16")
+    step = run_mixed_step(torch, dev, prot, card, ref)
+    print("  (d) one molecule: 176 and 1,112 slots")
+    mol = run_mixed_molecules(torch, dev, card, step["shift"], step["max_f"], fused_peak)
+    print("  (e) the float32 kernels' outputs against adb0db2's")
+    for name, want in {**edge_hashes(torch, dev), **layer_hashes(torch, dev)}.items():
+        need(want == PARENT_HASHES[name], f"{name}: the float32 kernel's outputs changed")
+    print("  every float32 edge and full-layer kernel's output hash equals adb0db2's")
+    g, g32 = step["mixed"], step.get("float32")
+    print(f"  mixed lone step graphed {g['ms_step']:.3f} ms/step (events {g['ms_events']:.3f}), "
+          + (f"float32 {g32['ms_step']:.3f} (events {g32['ms_events']:.3f}); " if g32 else "")
+          + f"{g['kernels_per_step']:.0f} kernels a step, {100 * g['busy_share']:.1f}% busy; "
+          f"phase 17 {time.perf_counter() - t_phase:.1f} s ({card})")
+    return dict(results=results, modes=modes, step=step, molecules=mol)
+
+
+# adb0db2's float32 kernel output hashes (edge_hashes / layer_hashes on
+# phase 3's fragment-shape inputs, H100): phase 17(e) holds the float32
+# kernels to them, since the bfloat16 instantiations share their sources.
+PARENT_HASHES = {
+    "edge_fwd": "70dbdd0adf5465ac3fe2aefab30a16d69728ed15bafde4e228529096df3200ea",
+    "edge_bwd_msg": "f11d1a750cd27598e1798c1d3d7ae3522228acdf7882cfe11504d3a3b7a1ae50",
+    "edge_bwd_upd": "c7a487d1b812fb6040e311e84d3d7555d98705448707a5b912243d7f058fb0cd",
+    "edge_bwd_msg_rc": "f11d1a750cd27598e1798c1d3d7ae3522228acdf7882cfe11504d3a3b7a1ae50",
+    "edge_bwd_upd_rc": "c7a487d1b812fb6040e311e84d3d7555d98705448707a5b912243d7f058fb0cd",
+    "vislayer_fwd": "e1aa6e9cd815b4f95be3316bf8ae73e7024608520bb0c2d3f62b4db6a5e3cf45",
+    "vislayer_bwd": "ae197aa0ad072b77b90c83425f507e0819c343f4f82fd34390ef9d7bd3bbc8ee",
+}
+
+
+def mixed_entry(p17, name):
+    """A bfloat16 kernel's kernels-line entry: phase 17(a)'s figures summed
+    over the lone batches, its launches on the mixed main path (17(c); K7/K8
+    from 17(d)'s 1,112-slot remat evaluation) and 17(b)'s errors by mode."""
+    base = name[:-len("_bf16")]
+    src, rep = KERNELS[base]
+    launches = p17["step"]["launches"].get(name, 0)
+    if name.endswith("_rc_bf16"):
+        launches = p17["molecules"]["ACE-(ALA)110-NME"]["mixed remat"]["launches"].get(name, 0)
+    need(launches > 0, f"{name} was not launched on the mixed path")
+    res = dict(p17["results"][name])
+    return {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches,
+            "bound_peak": (f"bf16 x bf16 products at {PEAK_BF16 / 1e12:.0f} TFLOP/s, "
+                           f"float32-operand products at 3xTF32's "
+                           f"{PEAK_TF32X3 / 1e12:.0f} TFLOP/s (tensor cores)"),
+            "storage": "bfloat16",
+            "modes": {m: v.get(name) for m, v in p17["modes"].items() if name in v},
+            **finish(res)}
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -5204,6 +5668,12 @@ def main(argv=None):
                     help="after the build, run only phase 16 (the full-layer kernels at every head "
                          "and hidden width, Chignolin at 9 x 512 with 4 heads through them, and a "
                          "molecule of 1,112 slots), without the final line")
+    ap.add_argument("--mixed-only", action="store_true",
+                    help="after the build, run only phase 17 (the mixed-precision mode: the "
+                         "bfloat16 edge kernels against their plain versions, in each products' "
+                         "mode, the lone Chignolin step and two whole molecules with "
+                         "edge_dtype=bfloat16, the float32 kernels' hashes), without the final "
+                         "line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
@@ -5256,6 +5726,10 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.mixed_only:
+        print("== 17. the mixed-precision mode (alone)")
+        run_mixed(torch, dev, load_protein(example_pdb("chig")), card)
         return
     if args.layer_wide_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -5375,6 +5849,12 @@ def main(argv=None):
           f"ACE-(ALA){POLY_RES}-NME (1,112 slots) through every kernel and both routes")
     p16 = run_layer_widths(torch, dev, prot, card, root, ref15=p15["ref"])
     no_plain("16")
+    print("== 17. the mixed-precision mode (ViSNetConfig.edge_dtype=torch.bfloat16): the "
+          "bfloat16 instantiations of K1-K3, K7, K8 against their plain versions (narrow and "
+          "wide, in each products' mode); the lone Chignolin step and two whole molecules in the "
+          "mode; the float32 kernels' hashes")
+    p17 = run_mixed(torch, dev, prot, card, ref, p16["long"]["evals"]["fused"]["peak_gib"])
+    no_plain("17")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -5418,7 +5898,9 @@ def main(argv=None):
     for k in kernels:      # phase 16(e): one molecule of 1,112 slots
         if k["name"] in EDGE_NAMES or k["name"] in LAYER_PATH:
             k["slots_1112"] = long_entry(p16, k["name"])
-    print("== 17. results")
+    kernels += [mixed_entry(p17, n) for n in MIXED_KERNELS]   # phase 17: bfloat16 storage
+    g17 = p17["step"]["mixed"]
+    print("== 18. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -5440,7 +5922,9 @@ def main(argv=None):
           f"{p16['slice']['graphed']['ms_step']:.3f} (events "
           f"{p16['slice']['graphed']['ms_events']:.3f}) K5/K6; 1,112 slots an evaluation "
           f"{p16['long']['evals']['remat']['ms']:.3f} (remat), "
-          f"{p16['long']['evals']['fused']['ms']:.3f} (K5/K6) ms; "
+          f"{p16['long']['evals']['fused']['ms']:.3f} (K5/K6) ms; the mixed-precision lone "
+          f"step graphed {g17['ms_step']:.3f} (events {g17['ms_events']:.3f}) beside float32's "
+          f"{graphed['ms_step']:.3f} (events {graphed['ms_events']:.3f}); "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))
