@@ -1,9 +1,11 @@
 """Command-line entry point of the PyTorch port: ``python -m ai2bmd_torch``.
 
 Port of ``ai2bmd_tpu/cli.py:22-422``.  The parser has every option of the
-JAX package's, with the same defaults and choices, and one more:
+JAX package's, with the same defaults and choices, and three more:
 ``--device {cuda,cpu}`` (default ``cuda``; the counterpart of the JAX CLI's
-``JAX_PLATFORMS`` pin).  The run goes through ``resolve_device``, so without
+``JAX_PLATFORMS`` pin) and ``--[no-]write-xyz`` / ``--[no-]write-dcd``
+(default on; ``SimulationConfig.write_xyz`` / ``write_dcd``, which the JAX
+CLI leaves at their defaults).  The run goes through ``resolve_device``, so without
 a card and without ``--device cpu`` it raises; it never falls back to the
 CPU, and on the card the MD loop is replays of one captured step.
 
@@ -97,6 +99,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="explicit-solvent QM/MM (default: when the input has water or ions)")
     p.add_argument("--write-solvent", action=argparse.BooleanOptionalAction,
                    default=True)
+    p.add_argument("--write-xyz", action=argparse.BooleanOptionalAction, default=True,
+                   help="the XYZ trajectory (SimulationConfig.write_xyz); --no-write-xyz "
+                        "skips the text frames, a solvated box's 17,882 lines each")
+    p.add_argument("--write-dcd", action=argparse.BooleanOptionalAction, default=True,
+                   help="the DCD trajectory (SimulationConfig.write_dcd), an ensemble's "
+                        "per-replica DCDs too")
     p.add_argument("--preprocess-method", type=str, default="FF19SB",
                    choices=["FF19SB", "AMOEBA"],
                    help="preprocessing pipeline (AMOEBA: minimization of the box with the "
@@ -226,6 +234,8 @@ def _run(args, device, prot_name: str, log_dir: str, log, log_path: str | None =
         seed=args.seed,
         preeq_steps=args.preeq_steps,
         hydrogen_constraints=args.constraints,
+        write_xyz=args.write_xyz,
+        write_dcd=args.write_dcd,
     )
 
     model_cfg = None
@@ -479,7 +489,7 @@ def _ensemble_body(rank, args, plan: EnsemblePlan, ckpt, log_dir, model_cfg, log
                       timestep_fs=args.timestep, save_interval=args.record_per_steps,
                       cell=full.cell if plan.route == "solvated" else None)
         for i in range(args.replicas)
-    ] if rank0 else []
+    ] if rank0 and args.write_dcd else []
     n_calls = max(1, (args.sim_steps - state.step) // args.record_per_steps)
     try:
         for _ in range(n_calls):

@@ -24,10 +24,15 @@ Feature parity:
     by autograd inside the captured step
   * non-finite and temperature-runaway guards (runaway_factor x T) at every
     record interval (utils.py:154-155)
-  * XYZ / DCD trajectories (the DCD with the periodic ``cell`` when there
-    is one; ``record_subset`` writes only those atoms, e.g. the protein of a
-    solvated box), a metrics CSV and a restart file per record interval;
-    restart from it with the generator's state (simulator.py:86-96, 118-133)
+  * XYZ / DCD trajectories, each unless ``write_xyz`` / ``write_dcd`` is
+    False (the DCD with the periodic ``cell`` when there is one;
+    ``record_subset`` writes only those atoms, e.g. the protein of a
+    solvated box), through the native background writer (``runtime``) when
+    it builds and opens, else the Python writers of ``io/trajectory.py``, as
+    JAX chooses (ai2bmd_tpu/md/simulation.py:207-236); ``run`` logs which.
+    A metrics CSV and a restart file per record interval, whatever the
+    flags; restart from it with the generator's state (simulator.py:86-96,
+    118-133)
   * an optional ``constraint`` (SETTLE rigid water, ``md/settle.py``):
     waters snapped onto the rigid geometry and velocities projected at the
     start, the constraint applied inside every step
@@ -48,7 +53,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ai2bmd_torch import units
+from ai2bmd_torch import runtime, units
 from ai2bmd_torch.io import trajectory as traj_io
 from ai2bmd_torch.md import langevin as L
 from ai2bmd_torch.md.constraints import BondRestraint, restraint_energy_forces
@@ -76,6 +81,8 @@ class SimulationConfig:
     preeq_steps: int = 200
     preeq_restraints_kcal: tuple = (10.0, 5.0, 1.0, 0.5, 0.1)
     hydrogen_constraints: bool = False
+    write_xyz: bool = True
+    write_dcd: bool = True
     runaway_factor: float = 1.5
 
 
@@ -234,11 +241,32 @@ class Simulator:
         return state
 
     # ------------------------------------------------------------------
-    def _open_writers(self, traj_suffix: str, numbers: np.ndarray) -> list:
+    def _open_writers(self, traj_suffix: str, numbers: np.ndarray, log) -> list:
+        """The writers of the files ``write_xyz`` / ``write_dcd`` select: the
+        native writer, or the Python writers when it cannot be built or
+        opened.  Logs which."""
+        cfg = self.cfg
         stem = os.path.join(self.log_dir, f"{self.prot_name}-traj{traj_suffix}")
-        return [traj_io.XYZTrajectory(f"{stem}.xyz", numbers),
-                traj_io.DCDTrajectory(f"{stem}.dcd", len(numbers), self.cfg.timestep_fs,
-                                      self.cfg.record_per_steps, cell=self.cell)]
+        xyz = f"{stem}.xyz" if cfg.write_xyz else None
+        dcd = f"{stem}.dcd" if cfg.write_dcd else None
+        if xyz is None and dcd is None:
+            return []
+        kinds = ", ".join(k for k, p in (("XYZ", xyz), ("DCD", dcd)) if p)
+        try:
+            writer = runtime.AsyncTrajectoryWriter(dcd, xyz, numbers, cfg.timestep_fs,
+                                                   cfg.record_per_steps, cell=self.cell)
+        except (RuntimeError, OSError) as e:
+            log(f"trajectory: Python writers ({kinds}; {e})")
+        else:
+            log(f"trajectory: native writer ({kinds})")
+            return [writer]
+        writers = []
+        if xyz:
+            writers.append(traj_io.XYZTrajectory(xyz, numbers))
+        if dcd:
+            writers.append(traj_io.DCDTrajectory(dcd, len(numbers), cfg.timestep_fs,
+                                                 cfg.record_per_steps, cell=self.cell))
+        return writers
 
     def run(self, state: L.MDState, n_steps: int, log=print, record_subset=None,
             traj_suffix: str = "") -> L.MDState:
@@ -246,7 +274,7 @@ class Simulator:
         the atoms of ``record_subset`` when given)."""
         cfg = self.cfg
         numbers = self.numbers if record_subset is None else self.numbers[record_subset]
-        writers = self._open_writers(traj_suffix, numbers)
+        writers = self._open_writers(traj_suffix, numbers, log)
         metrics = MetricsLog(os.path.join(self.log_dir, f"{self.prot_name}-metrics.csv"))
         restart_path = os.path.join(self.log_dir, f"{self.prot_name}-restart.npz")
         self._set_tether(state.positions, 0.0)

@@ -141,9 +141,11 @@ is not printed):
      each part's device ms alone (QM, cell assignment, pairs, PME with the
      bonded terms, the protein MM), 5 graphed replays against eager steps,
      20 replays timed, a profiled window, peak memory; again with
-     rigid_water=True (SETTLE's constraint violation after the steps); (c)
+     rigid_water=True (SETTLE's constraint violation after the steps); the
+     flexible box's Simulator.run through each trajectory writer (phase
+     18(c), printed there); (c)
      the CLI on the box with and without --no-write-solvent (frames of
-     17,882 and 175 atoms, steady ms/step); (d) a model of 4 heads of 64
+     17,882 and 175 atoms, steady ms/step, the native writer's log line); (d) a model of 4 heads of 64
      channels (2 x 256) through the kernels K1-K3, beside 8 heads of 32,
      and one with another activation than silu (tanh) through the explicit
      plain route: its log line, LAUNCHES["plain_edge_core"] > 0 there (and
@@ -190,7 +192,11 @@ is not printed):
      list build, the full box's MM, the protein's MM), 5 replays against
      eager steps, 10 replays timed, no overflow, peak memory, a trace of the
      full box's MM (kernels, the top 8 by device time); (d) the CLI
-     on the box with --mm-method amoeba, then --polarizable-mm, 3 steps each
+     on the box with --polarizable-mm, 3 steps, and side by side with it
+     --mm-method amoeba --no-write-xyz on phase 12's ala2 box (251 atoms),
+     1 step: the CLI's AMOEBA dispatch and a DCD alone through the native
+     writer (--polarizable-only runs --mm-method amoeba on the box, 3
+     steps, before them)
   12. AMOEBA preprocessing and pure-AMOEBA MD: (a) Preprocessor(method=
      "AMOEBA", max_cyc=AMOEBA_MAX_CYC) on examples/chig.pdb at the 10 A
      padding (3,615 atoms, cutoff 9 A, K = 576, 12 PCG iterations, each
@@ -227,7 +233,9 @@ is not printed):
   14. the products' modes (AI2BMD_KERNEL_MM_PRECISION: b3, the production
      3xTF32 split; highest, float32 FMA chains; default, one pass on
      bfloat16-rounded operands; one kernel library each, the other two
-     built when phase 14 starts): (a) the lone helper (tf32x3_mm) in each mode
+     built in a background process at the lowest CPU priority from phase 3
+     on, which phase 14 waits for, naming the phases it ran beside;
+     `--precision-only` builds them when it starts): (a) the lone helper (tf32x3_mm) in each mode
      against its mode's plain model (ops/tf32x3.py plain_mm) and its error
      against float64 beside cuBLAS float32's (highest within 2x), then K1
      (four flag pairs), K2, K3, K7, K8, K5 and K6 (both `last`) in each mode
@@ -309,7 +317,19 @@ is not printed):
      without remat (launches, ms, peak memory), the mode's forces within
      (c)'s shift of float32's; (e) the float32 edge and full-layer kernels'
      output hashes equal adb0db2's
-  18. one JSON line of kernel results (with `mesh_launches`: rank 0's
+  18. the native trajectory writer (ai2bmd_torch.runtime): (a) its g++
+     build at this process's first use (path, seconds, cached);
+     (b) RUNTIME_FRAMES frames of the solvated box (17,882 atoms, each moved
+     from chig-preeq.pdb by a seeded jitter, its cell) through the native
+     writer and through the Python writers: ms a frame (native: the submit),
+     pending() after the submits, the native close's drain; the XYZ bytes
+     equal, the DCDs equal apart from the title record, read_dcd giving the
+     frames and cells back exactly; (c) phase 9c's CLI lines (the native
+     writer), and phase 9b's flexible-water Simulator run for WRITER_STEPS
+     steps recording every RECORD, through the native writer and through the
+     Python writers (this script makes the runtime unavailable for that
+     run): the metrics CSV's ms/step of each, from one call
+  19. one JSON line of kernel results (with `mesh_launches`: rank 0's
      launches a warm evaluation in (b), by mesh; `precision_modes`: phase
      14's figures by mode; `wide`: phases 15's and 16's; `slots_1112`:
      phase 16(e)'s; the `_bf16` entries: phase 17's), the card's name and
@@ -320,7 +340,8 @@ first check of a kernel change); `--solvated-only` runs phases 9 and 10
 alone after the build, without it; `--polarizable-only` phase 11 alone;
 `--amoeba-only` phase 12 alone; `--mesh-only` phase 13 alone; `--precision-only` phase 14
 alone; `--wide-only` phase 15 alone; `--layer-wide-only` phase 16 alone;
-`--mixed-only` phase 17 alone;
+`--mixed-only` phase 17 alone; `--runtime-only` phase 18 alone (its (c)
+builds the box again and leaves out phase 9c's CLI lines);
 `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
@@ -2526,6 +2547,9 @@ def run_solvated_sim(torch, dev, card, root, rigid: bool):
         print(f"  (b) SETTLE after {SOLV_STEPS + TIMED_STEPS + 1} steps: max constraint violation "
               f"{viol:.3e} A (limit {SETTLE_LIMIT})")
         need(viol <= SETTLE_LIMIT, f"SETTLE violation {viol:.3e}")
+    else:
+        # phase 18(c)'s library half, printed there
+        out["writers"] = writer_runs(torch, sim, sim.advance(final, 1), root)
     return out
 
 
@@ -2533,7 +2557,7 @@ def run_solvated_cli(torch, root):
     """Phase 9c: `python -m ai2bmd_torch` on the solvated box, with and
     without --no-write-solvent, one after the other (side by side they
     would share the card): exit 0, the DCD's atoms, the steady ms/step of
-    the metrics CSV."""
+    the metrics CSV, the native writer's log line (printed in phase 18)."""
     from ai2bmd_torch.io.trajectory import read_dcd
 
     runs = {"solvent": [], "no-write-solvent": ["--no-write-solvent"]}
@@ -2544,7 +2568,7 @@ def run_solvated_cli(torch, root):
         str(SOLV_CLI_STEPS), "--record-per-steps", str(SOLV_CLI_RECORD), "--timestep",
         str(SOLV_DT_FS), *extra])) for name, extra in runs.items()}
     wall = time.perf_counter() - t0
-    steady = {}
+    steady, writer = {}, {}
     for name, want in (("solvent", 17882), ("no-write-solvent", 175)):
         d = os.path.join(root, f"cli_{name}")
         frames = read_dcd(os.path.join(d, "chig-preeq-traj.dcd"))
@@ -2555,11 +2579,14 @@ def run_solvated_cli(torch, root):
         steady[name] = rows[-1]["ms_per_step"]
         qm_line = [ln for ln in outs[name].splitlines() if ln.startswith("QM/MM:")]
         need(qm_line, f"CLI {name} printed no QM/MM line")
+        traj = [ln for ln in outs[name].splitlines() if ln.startswith("trajectory:")]
+        need(traj == ["trajectory: native writer (XYZ, DCD)"], f"CLI {name}: writer lines {traj}")
+        writer[name] = traj[0]
         print(f"  (c) --prot-file {SOLVATED} {' '.join(runs[name])}: exit 0, "
               f"{frames.shape[0]} frames of {want} atoms; {qm_line[0]!r}; metrics ms/step "
               f"{[r['ms_per_step'] for r in rows]}")
     print(f"  (c) the two runs took {wall:.1f} s")
-    return steady
+    return steady, writer
 
 
 def run_route(torch, card, root, name, kw, plain: bool):
@@ -2653,7 +2680,7 @@ def run_solvated(torch, dev, prot, card, root, mm_graphed_ms):
     flex = run_solvated_sim(torch, dev, card, root, rigid=False)
     rigid = run_solvated_sim(torch, dev, card, root, rigid=True)
     no_plain("9b")
-    cli = run_solvated_cli(torch, root)
+    cli, cli_writer = run_solvated_cli(torch, root)
     _, ms8 = run_route(torch, card, root, "heads8", EIGHT_HEADS, plain=False)
     _, ms64 = run_route(torch, card, root, "wide", WIDE_HEADS, plain=False)
     no_plain("9d, 64-channel heads")
@@ -2672,7 +2699,7 @@ def run_solvated(torch, dev, prot, card, root, mm_graphed_ms):
           f"peak {flex['peak_gib']:.2f} GiB; phase 9 took {time.perf_counter() - t_phase:.1f} s "
           f"({card})")
     return dict(pme_launches=pme_launches, pme_ms=pme["ms_step"], flex=flex, rigid=rigid,
-                cli=cli, plain_edge_core=plain)
+                cli=cli, cli_writer=cli_writer, plain_edge_core=plain)
 
 
 # Phase 10: preprocessing and solvated replicas.
@@ -3243,39 +3270,72 @@ def run_polarizable_route(torch, dev, card, root, name, kw, flex):
     return out
 
 
-def run_polarizable_cli(torch, root):
-    """Phase 11(d): `python -m ai2bmd_torch` on the solvated box with
-    --mm-method amoeba, then with --polarizable-mm, POL_CLI_STEPS steps
-    each: exit 0, the QM/MM line naming the route and the engine, the DCD."""
+def run_polarizable_cli(torch, root, amoeba: bool):
+    """Phase 11(d): `python -m ai2bmd_torch` with --polarizable-mm on the
+    solvated box, POL_CLI_STEPS steps, and side by side with it --mm-method
+    amoeba --no-write-xyz on phase 12's ala2 box (251 atoms), one step: the
+    CLI's AMOEBA dispatch, and a DCD alone through the native writer; with
+    ``amoeba`` (--polarizable-only), --mm-method amoeba on the solvated box
+    first, POL_CLI_STEPS steps.  Each: exit 0, the QM/MM line naming the
+    route and the engine, the writer line, the trajectory files."""
+    from ai2bmd_torch.io import build as B
+    from ai2bmd_torch.io.pdb import write_pdb
     from ai2bmd_torch.io.trajectory import read_dcd
+    from ai2bmd_torch.preprocess import solvate
 
-    runs = {"amoeba": (["--mm-method", "amoeba"], "AMOEBA"),
-            "polarizable": (["--polarizable-mm"], "ff19SB + induced dipoles")}
+    small = os.path.join(root, "ala2-box.pdb")
+    small_atoms = solvate(B.build_polyalanine(2), padding=4.0, seed=0)
+    write_pdb(small, small_atoms)
+    # name: (input, atoms, steps, flags, MM engine, files written)
+    runs = {"amoeba": (SOLVATED, 17882, POL_CLI_STEPS, ["--mm-method", "amoeba"], "AMOEBA",
+                       "XYZ, DCD"),
+            "polarizable": (SOLVATED, 17882, POL_CLI_STEPS, ["--polarizable-mm"],
+                            "ff19SB + induced dipoles", "XYZ, DCD"),
+            "amoeba_small": (small, len(small_atoms), 1, ["--mm-method", "amoeba",
+                                                          "--no-write-xyz"], "AMOEBA", "DCD")}
+
+    def start(name):
+        pdb, _, steps, extra, _, _ = runs[name]
+        return _cli_start([
+            sys.executable, "-m", "ai2bmd_torch", "--prot-file", pdb, "--log-dir",
+            os.path.join(root, f"cli_pol_{name}"), "--preeq-steps", "0", "--sim-steps",
+            str(steps), "--record-per-steps", "1", "--timestep", str(SOLV_DT_FS), *extra])
+
+    waves = [["amoeba"]] if amoeba else []
+    waves.append(["polarizable", "amoeba_small"])      # side by side
     out = {}
-    for name, (extra, engine) in runs.items():
+    for wave in waves:
         t0 = time.perf_counter()
-        d = os.path.join(root, f"cli_pol_{name}")
-        txt = _cli_wait(name, _cli_start([
-            sys.executable, "-m", "ai2bmd_torch", "--prot-file", SOLVATED, "--log-dir", d,
-            "--preeq-steps", "0", "--sim-steps", str(POL_CLI_STEPS), "--record-per-steps", "1",
-            "--timestep", str(SOLV_DT_FS), *extra]))
-        frames = read_dcd(os.path.join(d, "chig-preeq-traj.dcd"))
-        need(frames.shape == (POL_CLI_STEPS, 17882, 3)
-             and bool(torch.as_tensor(frames).isfinite().all()), f"CLI {name}: DCD {frames.shape}")
-        line = [ln for ln in txt.splitlines() if ln.startswith("QM/MM:")]
-        need(line and f"nl pairs, {engine} MM" in line[0], f"CLI {name}: QM/MM line {line}")
-        rows = _metrics(os.path.join(d, "chig-preeq-metrics.csv"))
-        out[name] = [r["ms_per_step"] for r in rows]
-        print(f"  (d) {' '.join(extra)}: exit 0 in {time.perf_counter() - t0:.1f} s, "
-              f"{frames.shape[0]} frames of 17882 atoms; {line[0]!r}; metrics ms/step "
-              f"{out[name]}")
+        procs = {name: start(name) for name in wave}
+        txts = {name: _cli_wait(name, proc) for name, proc in procs.items()}
+        wall = time.perf_counter() - t0
+        for name, txt in txts.items():
+            pdb, n, steps, extra, engine, kinds = runs[name]
+            d = os.path.join(root, f"cli_pol_{name}")
+            stem = os.path.join(d, os.path.basename(pdb)[:-4] + "-traj")
+            frames = read_dcd(stem + ".dcd")
+            need(frames.shape == (steps, n, 3) and bool(torch.as_tensor(frames).isfinite().all()),
+                 f"CLI {name}: DCD {frames.shape}")
+            need(os.path.exists(stem + ".xyz") == ("XYZ" in kinds), f"CLI {name}: the XYZ file")
+            line = [ln for ln in txt.splitlines() if ln.startswith("QM/MM:")]
+            need(line and f"nl pairs, {engine} MM" in line[0], f"CLI {name}: QM/MM line {line}")
+            traj = [ln for ln in txt.splitlines() if ln.startswith("trajectory:")]
+            need(traj == [f"trajectory: native writer ({kinds})"],
+                 f"CLI {name}: writer lines {traj}")
+            rows = _metrics(os.path.join(d, os.path.basename(pdb)[:-4] + "-metrics.csv"))
+            out[name] = [r["ms_per_step"] for r in rows]
+            print(f"  (d) {os.path.basename(pdb)} {' '.join(extra)}: exit 0, {frames.shape[0]} "
+                  f"frames of {n} atoms, {traj[0]!r}; {line[0]!r}; metrics ms/step {out[name]}")
+        print(f"  (d) {' and '.join(wave)} took {wall:.1f} s"
+              + (" side by side" if len(wave) > 1 else ""))
     return out
 
 
-def run_polarizable(torch, dev, card, root, flex):
+def run_polarizable(torch, dev, card, root, flex, amoeba_cli=False):
     """Phase 11: the nl pair route, the induced-dipole hybrid and AMOEBA QM/MM
     on the solvated box at 9 x 256, each one captured step; AMOEBA's MM
-    float32 against float64; the CLI's two flags."""
+    float32 against float64; the CLI's --polarizable-mm (``amoeba_cli``:
+    and --mm-method amoeba)."""
     t_phase = time.perf_counter()
     out = {}
     out["nl"] = run_polarizable_route(torch, dev, card, root, "a", dict(pair_backend="nl"), flex)
@@ -3299,7 +3359,7 @@ def run_polarizable(torch, dev, card, root, flex):
     out["amoeba"] = run_polarizable_route(torch, dev, card, root, "c", dict(mm_backend="amoeba"),
                                           flex)
     no_plain("11c")
-    out["cli"] = run_polarizable_cli(torch, root)
+    out["cli"] = run_polarizable_cli(torch, root, amoeba_cli)
     no_plain("11d")
     print(f"  polarizable routes (17,882 atoms, 9 x 256), graphed ms/step (events): nl "
           f"{out['nl']['ms_events']:.3f}, hybrid {out['pol']['ms_events']:.3f}, AMOEBA "
@@ -4273,15 +4333,57 @@ def cublas_medium_vs_high(torch, dev):
     return dict(err=err, medium_equals_high=same, one_bf16_pass_err=one_bf16)
 
 
-def run_precision(torch, dev, prot, card, root, ref=None):
+PHASE_AT = []                  # (phase, time.time() at its header) of the default run
+
+
+def phase(title):
+    """Print a phase's header and note when it began (for prebuild_modes)."""
+    PHASE_AT.append((title[3:].split(".")[0], time.time()))
+    print(title)
+
+
+def prebuild_modes():
+    """Start the builds of the other products' modes' libraries (phase 14's)
+    in a process of the lowest CPU priority, so that they take the host's
+    idle cores while phases 3-13 run; run_precision waits for it.  The
+    process is killed at exit if it is still running."""
+    import atexit
+
+    others = tuple(m for m in MODES if m != "b3")
+    code = ("import os, time\n"
+            "os.nice(19)\n"
+            "from concurrent.futures import ThreadPoolExecutor\n"
+            "from ai2bmd_torch.ops import _build\n"
+            "t0 = time.perf_counter()\n"
+            f"with ThreadPoolExecutor({len(others)}) as pool:\n"
+            f"    list(pool.map(_build.build, {others!r}))\n"
+            "print(f'{time.perf_counter() - t0:.1f} {time.time()}')\n")
+    proc = subprocess.Popen([sys.executable, "-c", code],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    atexit.register(proc.kill)
+    print(f"  the {' and '.join(others)} libraries build in the background (nice 19) for phase 14")
+    return proc
+
+
+def run_precision(torch, dev, prot, card, root, ref=None, prebuild=None):
     """Phase 14: (a) the kernels in each mode, (b) the lone graphed step in
     each mode, (c) the CLI's --matmul-precision and cuBLAS under torch's
-    precisions; (d), the per-mode launch counters, in (a) and (b)."""
+    precisions; (d), the per-mode launch counters, in (a) and (b).
+    ``prebuild``: prebuild_modes()'s process, waited for first."""
     from ai2bmd_torch.ops import _build
 
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
+    if prebuild is not None:
+        out, err = prebuild.communicate()
+        secs, done = (out.split() + ["?", "nan"])[:2]
+        during = [p for p, at in PHASE_AT if at <= float(done)]
+        print(f"  the background builds: exit {prebuild.returncode}, {secs} s of nvcc from "
+              f"phase 3 on, beside phases 3-{during[-1] if during else '?'} (their host-clock "
+              f"figures were taken beside it); waited {time.perf_counter() - t0:.1f} s for them"
+              + (f"; the end of their errors:\n{err[-3000:]}" if prebuild.returncode else ""))
 
     def build(mode):           # each build starts one nvcc a source itself
         t = time.perf_counter()
@@ -5618,6 +5720,180 @@ def mixed_entry(p17, name):
             **finish(res)}
 
 
+# Phase 18: the native trajectory writer (ai2bmd_torch.runtime) on the box.
+RUNTIME_FRAMES = 10           # frames of the box through each writer (18b)
+RUNTIME_JITTER = 0.01         # A: each frame moved by N(0, this) from chig-preeq.pdb, seed 0
+WRITER_STEPS = 30             # 18(c): the solvated Simulator.run, recording every RECORD steps
+
+
+def runtime_build():
+    """Phase 18(a): the library, built by g++ under build/ai2bmd_torch/ at
+    this process's first use (phase 6's Simulator in the whole script)."""
+    from ai2bmd_torch import runtime
+
+    runtime.library()
+    info = dict(runtime.BUILD_INFO)
+    print(f"  (a) {info['path']}: built in {info['seconds']:.2f} s at this process's first use, "
+          f"cached {info['cached']}")
+    return info
+
+
+def runtime_frames(root, card):
+    """Phase 18(b): RUNTIME_FRAMES frames of the box (17,882 atoms, its cell)
+    through the native writer and through the Python writers: ms a frame
+    (native: the submit), the native close's drain, pending() after the
+    submits; the XYZ bytes equal, the DCDs equal apart from the title record,
+    read_dcd giving the frames back exactly."""
+    import numpy as np
+
+    from ai2bmd_torch import runtime
+    from ai2bmd_torch.host import load_protein
+    from ai2bmd_torch.io import trajectory as TT
+
+    box = load_protein(SOLVATED)
+    n = len(box.numbers)
+    need(n == 17882 and box.cell is not None, f"the box: {n} atoms, cell {box.cell}")
+    rng = np.random.default_rng(0)
+    frames = [(box.positions + rng.normal(scale=RUNTIME_JITTER, size=box.positions.shape))
+              .astype(np.float32) for _ in range(RUNTIME_FRAMES)]
+    d = os.path.join(root, "runtime")
+    os.makedirs(d, exist_ok=True)
+    path = lambda name: os.path.join(d, name)
+    kw = dict(timestep_fs=SOLV_DT_FS, save_interval=RECORD, cell=box.cell)
+    w = runtime.AsyncTrajectoryWriter(path("native.dcd"), path("native.xyz"), box.numbers, **kw)
+    submit = []
+    for k, f in enumerate(frames):
+        t0 = time.perf_counter()
+        w.write(f, energy=-1.5 * k, step=RECORD * k)
+        submit.append(1e3 * (time.perf_counter() - t0))
+    pending = w.pending()
+    t0 = time.perf_counter()
+    w.close()
+    drain = 1e3 * (time.perf_counter() - t0)
+    x = TT.XYZTrajectory(path("python.xyz"), box.numbers)
+    dc = TT.DCDTrajectory(path("python.dcd"), n, **kw)
+    py = []
+    for k, f in enumerate(frames):
+        t0 = time.perf_counter()
+        x.write(f, energy=-1.5 * k, step=RECORD * k)
+        dc.write(f)
+        py.append(1e3 * (time.perf_counter() - t0))
+    x.close()
+    dc.close()
+    raw = {k: open(path(k), "rb").read() for k in ("native.dcd", "python.dcd", "native.xyz",
+                                                   "python.xyz")}
+    title = slice(4 + 84 + 4, 4 + 84 + 4 + 4 + 84 + 4)     # the DCD's title record
+    nat, pyd = raw["native.dcd"], raw["python.dcd"]
+    xyz_equal = raw["native.xyz"] == raw["python.xyz"]
+    dcd_equal = (len(nat) == len(pyd) and nat[:title.start] == pyd[:title.start]
+                 and nat[title.stop:] == pyd[title.stop:])
+    back, cells = TT.read_dcd(path("native.dcd"), return_cells=True)
+    exact = back.shape == (RUNTIME_FRAMES, n, 3) and bool((back == np.stack(frames)).all())
+    out = dict(native_ms=sum(submit) / len(submit), python_ms=sum(py) / len(py), drain_ms=drain,
+               pending=pending, xyz_mb=len(raw["native.xyz"]) / 1e6,
+               dcd_mb=len(nat) / 1e6)
+    print(f"  (b) {RUNTIME_FRAMES} frames of {n} atoms with the cell: native {out['native_ms']:.3f} "
+          f"ms a frame (the submit; each {[round(t, 3) for t in submit]}), pending() after the "
+          f"submits {pending}, close() drained in {drain:.1f} ms; Python writers "
+          f"{out['python_ms']:.3f} ms a frame (each {[round(t, 3) for t in py]}); XYZ "
+          f"{out['xyz_mb']:.2f} MB, DCD {out['dcd_mb']:.2f} MB ({card})")
+    print(f"  (b) XYZ bytes equal: {xyz_equal}; DCD bytes equal apart from the title record: "
+          f"{dcd_equal} (titles {nat[title][8:46]!r} / {pyd[title][8:31]!r}); read_dcd gives the "
+          f"frames back exactly: {exact}, the cell on every frame: "
+          f"{cells is not None and bool((cells == box.cell).all())}")
+    need(xyz_equal, "the native XYZ differs from the Python writer's")
+    need(dcd_equal, "the native DCD differs from the Python writer's outside the title")
+    need(exact and cells is not None and bool((cells == box.cell).all()),
+         "read_dcd did not give the frames and cells back")
+    return out
+
+
+def writer_runs(torch, sim, state, root):
+    """Phase 18(c)'s library half, run where phase 9b's solvated Simulator
+    (flexible water, its step captured) is alive: WRITER_STEPS steps recording
+    every RECORD, once through the native writer and once through the Python
+    writers (this script makes the runtime unavailable for that call, as a
+    machine without g++ would), from the same state and generator state.
+    Returns each run's metrics rows (ms/step of each record interval; the
+    first holds no write), the steady mean (rows 2 on: the previous record's
+    writes and restart file included) and the run's wall ms/step with the
+    final close."""
+    from ai2bmd_torch import runtime
+    from ai2bmd_torch.io.trajectory import read_dcd
+
+    def unavailable():
+        raise RuntimeError("native runtime unavailable: made so by chip_smoke.py")
+
+    gen = sim.generator.get_state()
+    saved = runtime.library
+    metrics = os.path.join(sim.log_dir, f"{sim.prot_name}-metrics.csv")
+    out = {}
+    for name in ("native", "python"):
+        sim.generator.set_state(gen)
+        if os.path.exists(metrics):
+            os.remove(metrics)            # the CSV appends: each run reads its own rows
+        lines = []
+        if name == "python":
+            runtime.library = unavailable
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = sim.run(state, WRITER_STEPS, log=lines.append, traj_suffix=f"-{name}")
+            wall = 1e3 * (time.perf_counter() - t0) / WRITER_STEPS
+        finally:
+            runtime.library = saved
+        want = "native writer" if name == "native" else "Python writers"
+        line = [ln for ln in lines if ln.startswith("trajectory:")]
+        need(len(line) == 1 and line[0].startswith(f"trajectory: {want} (XYZ, DCD"),
+             f"the {name} run logged {line}")
+        frames = read_dcd(os.path.join(sim.log_dir, f"{sim.prot_name}-traj-{name}.dcd"))
+        need(frames.shape == (WRITER_STEPS // RECORD, 17882, 3)
+             and bool(torch.as_tensor(frames).isfinite().all())
+             and bool(final.positions.isfinite().all()), f"the {name} run: DCD {frames.shape}")
+        rows = [r["ms_per_step"] for r in _metrics(metrics)]
+        out[name] = dict(line=line[0], rows=rows, steady=sum(rows[1:]) / len(rows[1:]), wall=wall)
+    return out
+
+
+def writer_runs_alone(torch, root):
+    """Phase 18(c) under --runtime-only: phase 9b's flexible-water box built
+    again (from_pdb), its step captured, then writer_runs."""
+    from ai2bmd_torch.md.simulation import SimulationConfig
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+    from ai2bmd_torch.simulators import ProteinSimulation
+
+    sim_cfg = SimulationConfig(timestep_fs=SOLV_DT_FS, preeq_steps=0, record_per_steps=RECORD)
+    ps = ProteinSimulation.from_pdb(SOLVATED, log_dir=os.path.join(root, "solvated"),
+                                    model_cfg=ViSNetConfig(), sim_cfg=sim_cfg)
+    state = ps.sim.advance(ps.sim.initial_state(ps.prot.positions), 1)
+    return writer_runs(torch, ps.sim, state, root)
+
+
+def run_runtime(torch, card, root, solv=None):
+    """Phase 18: the native trajectory writer: (a) the build, (b) the box's
+    frames through both writers, (c) phase 9c's CLI lines (``solv``: phase
+    9's results; None alone) and the solvated Simulator's ms/step through
+    each writer (phase 9b's run, or built here alone)."""
+    t_phase = time.perf_counter()
+    out = dict(build=runtime_build(), frames=runtime_frames(root, card))
+    if solv is None:
+        print("  (c) phase 9c's CLI runs: not run alone (the whole script holds their lines)")
+        out["writers"] = writer_runs_alone(torch, root)
+    else:
+        for name, line in solv["cli_writer"].items():
+            print(f"  (c) phase 9c's CLI run {name}: {line!r}")
+        out["writers"] = solv["flex"]["writers"]
+    w = out["writers"]
+    for name, r in w.items():
+        print(f"  (c) the solvated Simulator.run ({WRITER_STEPS} steps of 17,882 atoms, a record "
+              f"every {RECORD}), {r['line']!r}: metrics ms/step {[round(x, 3) for x in r['rows']]}"
+              f", steady {r['steady']:.3f}, {r['wall']:.3f} ms/step over the run with its close")
+    print(f"  (c) steady ms/step native {w['native']['steady']:.3f} against Python writers "
+          f"{w['python']['steady']:.3f} in one call; phase 18 took "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -5674,6 +5950,10 @@ def main(argv=None):
                          "mode, the lone Chignolin step and two whole molecules with "
                          "edge_dtype=bfloat16, the float32 kernels' hashes), without the final "
                          "line")
+    ap.add_argument("--runtime-only", action="store_true",
+                    help="after the build, run only phase 18 (the native trajectory writer: its "
+                         "g++ build, the solvated box's frames through it and through the Python "
+                         "writers, the solvated Simulator through each), without the final line")
     ap.add_argument("--preprocess-full", action="store_true",
                     help="after the build, run only Preprocessor() with its default stages on "
                          "examples/chig.pdb and then the AMOEBA protocol (100 cycles), and print "
@@ -5727,6 +6007,11 @@ def main(argv=None):
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
         return
+    if args.runtime_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 18. the native trajectory writer (alone)")
+        run_runtime(torch, card, root)
+        return
     if args.mixed_only:
         print("== 17. the mixed-precision mode (alone)")
         run_mixed(torch, dev, load_protein(example_pdb("chig")), card)
@@ -5759,7 +6044,7 @@ def main(argv=None):
     if args.polarizable_only:
         shutil.rmtree(root, ignore_errors=True)
         print("== 11. the polarizable routes (alone)")
-        run_polarizable(torch, dev, card, root, {})
+        run_polarizable(torch, dev, card, root, {}, amoeba_cli=True)
         return
     if args.solvated_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -5770,7 +6055,8 @@ def main(argv=None):
         run_preprocessing_and_replicas(torch, dev, card, root, solv["flex"])
         return
 
-    print("== 3. kernels against their plain versions")
+    prebuild = prebuild_modes() if args.stop_after is None else None
+    phase("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
     check_tf32x3(torch, dev)
     check_layer_kernels(torch, dev, results)
@@ -5786,40 +6072,40 @@ def main(argv=None):
     if args.stop_after == 3:
         return
 
-    print("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD, edge-core kernels K1-K3")
+    phase("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD, edge-core kernels K1-K3")
     launches, ms_step, graphed, ref = run_slice(torch, dev, prot, card)
     no_plain("4")
-    print("== 4b. the same slice through the full-layer kernels K5/K6")
+    phase("== 4b. the same slice through the full-layer kernels K5/K6")
     launches_fl, ms_step_fl, graphed_fl = run_fused_slice(torch, dev, prot, card, ref)
     no_plain("4b")
-    print("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
+    phase("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
     launches_ens = run_ensemble(torch, dev, prot, card, ref)
     no_plain("5")
-    print("== 6. the user-facing path: ProteinSimulation and the CLI (python -m ai2bmd_torch)")
+    phase("== 6. the user-facing path: ProteinSimulation and the CLI (python -m ai2bmd_torch)")
     shutil.rmtree(root, ignore_errors=True)
     run_user_library(torch, dev, root, ref)
     cli_ms = run_user_cli(torch, root, graphed["ms_step"], card)
     no_plain("6")
-    print("== 7. whole-molecule mode: converted checkpoint, Chignolin (A = 176) and abd "
+    phase("== 7. whole-molecule mode: converted checkpoint, Chignolin (A = 176) and abd "
           "(A = 752) as one molecule, 9 x 256")
     wm = run_whole_molecule(torch, dev, prot, card, root)
     no_plain("7")
-    print("== 8. the repaired faults: the tiny preset on the card, warm_caps=False, "
+    phase("== 8. the repaired faults: the tiny preset on the card, warm_caps=False, "
           "--no-solvent on a solvated input")
     cold_ms = run_faults(torch, dev, card, root, graphed["ms_step"])
     no_plain("8")
-    print("== 9. the solvated slice: PME in fragment mode, QM/MM of the solvated Chignolin box "
+    phase("== 9. the solvated slice: PME in fragment mode, QM/MM of the solvated Chignolin box "
           "(17,882 atoms) at 9 x 256, the CLI on it, 64-channel heads and the plain route")
     solv = run_solvated(torch, dev, prot, card, root, graphed["ms_step"])
-    print("== 10. preprocessing (solvate, minimize, heat, NVT, NPT) of Chignolin on the card, the "
+    phase("== 10. preprocessing (solvate, minimize, heat, NVT, NPT) of Chignolin on the card, the "
           "CLI's --solvent route, SolvatedReplicaEnsemble (4 replicas of the box, 9 x 256), the "
           "CLI's --replicas route on the box")
     p10 = run_preprocessing_and_replicas(torch, dev, card, root, solv["flex"])
-    print("== 11. the polarizable routes on the solvated box at 9 x 256: the nl pair route with "
+    phase("== 11. the polarizable routes on the solvated box at 9 x 256: the nl pair route with "
           "its list built inside the captured step, the induced-dipole hybrid, AMOEBA QM/MM; the "
-          "CLI's --mm-method amoeba and --polarizable-mm")
+          "CLI's --polarizable-mm")
     p11 = run_polarizable(torch, dev, card, root, solv["flex"])
-    print("== 12. AMOEBA preprocessing of Chignolin (Preprocessor(method=\"AMOEBA\"), 3,615 "
+    phase("== 12. AMOEBA preprocessing of Chignolin (Preprocessor(method=\"AMOEBA\"), 3,615 "
           "atoms) and pure-AMOEBA MD on the box: float32 vs float64, captured descent cycles vs "
           "eager, GraphedLangevin steps, the CLI's --preprocess-method AMOEBA")
     from ai2bmd_torch.ops import LAUNCHES, reset_launches
@@ -5828,15 +6114,15 @@ def main(argv=None):
     p12 = run_amoeba(torch, dev, card, root)
     amoeba_launches = dict(LAUNCHES)
     no_plain("12")
-    print("== 13. the mesh: ShardedPotential, EnsembleSimulation and ReplicaEnsemble over dp x "
+    phase("== 13. the mesh: ShardedPotential, EnsembleSimulation and ReplicaEnsemble over dp x "
           "mp meshes of ranks (Chignolin, 9 x 256): an NCCL world of one rank, a gloo world of "
           "two ranks sharing the card")
     mesh_launches = run_mesh(torch, dev, prot, card, root)
     no_plain("13")
-    print("== 14. the products' modes (AI2BMD_KERNEL_MM_PRECISION b3, highest, default): each "
+    phase("== 14. the products' modes (AI2BMD_KERNEL_MM_PRECISION b3, highest, default): each "
           "kernel against its mode's plain model, the lone graphed step in each mode; the CLI's "
           "--matmul-precision")
-    p14 = run_precision(torch, dev, prot, card, root, ref)
+    p14 = run_precision(torch, dev, prot, card, root, ref, prebuild)
     no_plain("14")
     print(f"== 15. every head and hidden width through the edge kernels: K1-K3, K7, K8 at heads "
           f"of 24 to 1024 channels and H = 40 to 1024 against their plain versions; Chignolin at "
@@ -5855,6 +6141,11 @@ def main(argv=None):
           "mode; the float32 kernels' hashes")
     p17 = run_mixed(torch, dev, prot, card, ref, p16["long"]["evals"]["fused"]["peak_gib"])
     no_plain("17")
+    print("== 18. the native trajectory writer (ai2bmd_torch.runtime): its g++ build, 10 frames "
+          "of the solvated box through it and through the Python writers, phase 9c's CLI lines, "
+          "the solvated Simulator through each writer")
+    p18 = run_runtime(torch, card, root, solv)
+    no_plain("18")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -5900,7 +6191,7 @@ def main(argv=None):
             k["slots_1112"] = long_entry(p16, k["name"])
     kernels += [mixed_entry(p17, n) for n in MIXED_KERNELS]   # phase 17: bfloat16 storage
     g17 = p17["step"]["mixed"]
-    print("== 18. results")
+    print("== 19. results")
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -5924,7 +6215,11 @@ def main(argv=None):
           f"{p16['long']['evals']['remat']['ms']:.3f} (remat), "
           f"{p16['long']['evals']['fused']['ms']:.3f} (K5/K6) ms; the mixed-precision lone "
           f"step graphed {g17['ms_step']:.3f} (events {g17['ms_events']:.3f}) beside float32's "
-          f"{graphed['ms_step']:.3f} (events {graphed['ms_events']:.3f}); "
+          f"{graphed['ms_step']:.3f} (events {graphed['ms_events']:.3f}); the box's frame "
+          f"through the native writer {p18['frames']['native_ms']:.3f} ms (submit), the Python "
+          f"writers {p18['frames']['python_ms']:.3f}; the solvated run's steady ms/step native "
+          f"{p18['writers']['native']['steady']:.3f}, Python writers "
+          f"{p18['writers']['python']['steady']:.3f}; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

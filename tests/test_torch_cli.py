@@ -15,6 +15,7 @@ The CLI runs step at 0.25 fs: with random weights (no checkpoint ships)
 vacuum Chignolin heats past the runaway guard (1.5 x 300 K) within a few fs
 at 1 fs a step, in both packages."""
 
+import argparse
 import os
 import subprocess
 import sys
@@ -85,9 +86,36 @@ def test_parser_has_every_jax_option_with_its_default_and_choices():
         assert (b.default, b.choices, b.nargs, b.required) == \
                (a.default, a.choices, a.nargs, a.required), name
         assert type(b) is type(a), name
-    assert set(port_opts) - set(jax_opts) == {"--device"}
+    assert set(port_opts) - set(jax_opts) == {"--device", "--write-xyz", "--no-write-xyz",
+                                              "--write-dcd", "--no-write-dcd"}
     dev = port_opts["--device"]
     assert dev.default == "cuda" and dev.choices == ["cuda", "cpu"]
+    for name in ("--write-xyz", "--write-dcd"):
+        assert port_opts[name].default is True
+        assert type(port_opts[name]) is argparse.BooleanOptionalAction
+
+
+@pytest.mark.parametrize("argv, want", [([], (True, True)),
+                                        (["--no-write-xyz"], (False, True)),
+                                        (["--no-write-dcd"], (True, False)),
+                                        (["--no-write-xyz", "--no-write-dcd"], (False, False))])
+def test_write_flags_reach_simulation_config(monkeypatch, tmp_path, argv, want):
+    """--[no-]write-xyz / --[no-]write-dcd are SimulationConfig's write_xyz /
+    write_dcd: the config handed to ProteinSimulation.from_pdb carries them
+    (the Simulator's files follow them, tests/test_torch_faults.py)."""
+    class Seen(Exception):
+        pass
+
+    seen = []
+
+    def from_pdb(*a, sim_cfg=None, **k):
+        seen.append((sim_cfg.write_xyz, sim_cfg.write_dcd))
+        raise Seen
+
+    monkeypatch.setattr(TSIM.ProteinSimulation, "from_pdb", from_pdb)
+    with pytest.raises(Seen):
+        TCLI.main(["--prot-file", "x.pdb", "--device", "cpu", "--log-dir", str(tmp_path), *argv])
+    assert seen == [want]
 
 
 def test_matmul_precision_other_than_float32_is_a_parser_error(monkeypatch, tmp_path, capsys):

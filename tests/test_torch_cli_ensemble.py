@@ -4,6 +4,7 @@ refused mesh.  Split from tests/test_torch_cli.py so that pytest-xdist's
 --dist loadfile runs the two files side by side."""
 
 import logging
+import os
 import sys
 
 import numpy as np
@@ -55,6 +56,17 @@ def test_cli_replica_ensemble_and_its_restart(tmp_path):
         np.testing.assert_array_equal(fa["positions"], fb["positions"])
         np.testing.assert_array_equal(fa["velocities"], fb["velocities"])
         assert not np.array_equal(fa["positions"][0], fa["positions"][1])
+
+
+def test_cli_ensemble_no_write_dcd(tmp_path):
+    """--replicas 2 --no-write-dcd: no per-replica DCD, the checkpoint and
+    the final npz all the same."""
+    conftest.require_examples()
+    assert _main(["--replicas", "2", "--record-per-steps", "2", "--sim-steps", "2",
+                  "--no-write-dcd", "--log-dir", str(tmp_path)]) == 0
+    assert not [f for f in os.listdir(tmp_path) if f.endswith(".dcd")]
+    assert (tmp_path / "2x-ensemble-final.npz").exists()
+    assert (tmp_path / "chig-2x-ensemble-restart.npz").exists()
 
 
 def test_an_ensemble_mesh_over_several_cards_is_refused(monkeypatch, tmp_path):

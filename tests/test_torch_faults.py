@@ -11,9 +11,15 @@
    is chosen from H / nh); what the kernels do not take is refused on the
    card naming ROADMAP Queue 2, and other activations than silu resolve to
    the explicit plain route (Queue 3 entry 3, repaired).
+4. ``SimulationConfig.write_xyz`` / ``write_dcd`` (Queue 3 entry 7,
+   repaired): JAX's two fields, in its order; ``Simulator.run`` opens only
+   the trajectories they select, through the native writer
+   (``ai2bmd_torch.runtime``), or the Python writers when it is
+   unavailable, and logs which.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,7 @@ from ai2bmd_tpu.md import langevin as JL
 from ai2bmd_tpu.md import simulation as JS
 from ai2bmd_tpu.models import visnet as JV
 from ai2bmd_torch import cli as TCLI
+from ai2bmd_torch import runtime as TRT
 from ai2bmd_torch import simulators as TSIM
 from ai2bmd_torch.io import trajectory as TT
 from ai2bmd_torch.md import langevin as TL
@@ -36,6 +43,8 @@ from ai2bmd_torch.models.params import params_from_jax
 from ai2bmd_torch.ops import LAUNCHES, _build
 from ai2bmd_torch.ops import vislayer as TFL
 from ai2bmd_torch.ops import vismp as TK
+from test_torch_md import _make_sim
+from test_torch_trajectory import DCD_TITLE
 
 SMALL = dict(hidden_channels=32, num_heads=4, num_layers=3, num_rbf=8)
 TINY = dict(hidden_channels=32, num_heads=4, num_layers=2, num_rbf=8)   # --model-preset tiny
@@ -304,3 +313,81 @@ def test_wrappers_hand_their_launcher_the_head_width(launches, rng, H, nh):
     for name, argtypes, args in launches:
         assert len(args) == len(argtypes), name
         assert args[-1] == H // nh and argtypes[-1] is _build.I, name
+
+
+def test_simulation_config_has_jax_fields_in_jax_order():
+    assert ([f.name for f in dataclasses.fields(TS.SimulationConfig)]
+            == [f.name for f in dataclasses.fields(JS.SimulationConfig)])
+    cfg = TS.SimulationConfig(write_xyz=False, write_dcd=True)
+    assert (cfg.write_xyz, cfg.write_dcd) == (False, True)
+    assert TS.SimulationConfig().write_xyz and TS.SimulationConfig().write_dcd
+
+
+def _run_lj(log_dir, **flags):
+    """The LJ cluster of tests/test_torch_md.py (27 atoms), 30 steps recorded
+    every 10, with these write flags -> (state, log lines)."""
+    sim, P = _make_sim(log_dir)
+    sim.cfg = dataclasses.replace(sim.cfg, **flags)
+    logs = []
+    state = sim.run(sim.initial_state(P), 30, log=logs.append)
+    return state, logs
+
+
+@pytest.mark.parametrize("write_xyz, write_dcd",
+                         [(True, True), (True, False), (False, True), (False, False)])
+def test_write_flags_select_the_trajectory_files(tmp_path, write_xyz, write_dcd):
+    """Only the selected trajectories are written, the metrics CSV and the
+    restart file always; through the native writer when it is available
+    (its DCD title names it), and the run logs which writer."""
+    state, logs = _run_lj(tmp_path, write_xyz=write_xyz, write_dcd=write_dcd)
+    files = sorted(os.listdir(tmp_path))
+    want = ["lj-metrics.csv", "lj-restart.npz"]
+    want += ["lj-traj.dcd"] * write_dcd + ["lj-traj.xyz"] * write_xyz
+    assert files == sorted(want)
+    lines = [ln for ln in logs if ln.startswith("trajectory:")]
+    native = TRT.native_available()
+    if not (write_xyz or write_dcd):
+        assert lines == []
+        return
+    kinds = ", ".join(k for k, on in (("XYZ", write_xyz), ("DCD", write_dcd)) if on)
+    if native:
+        assert lines == [f"trajectory: native writer ({kinds})"]
+    else:
+        assert len(lines) == 1 and lines[0].startswith(f"trajectory: Python writers ({kinds};")
+    if write_xyz:
+        assert (tmp_path / "lj-traj.xyz").read_text().count("step=") == 3
+    if write_dcd:
+        raw = (tmp_path / "lj-traj.dcd").read_bytes()
+        assert (b"native runtime" in raw[DCD_TITLE]) == native
+        frames = TT.read_dcd(str(tmp_path / "lj-traj.dcd"))
+        assert frames.shape == (3, 27, 3)
+        np.testing.assert_array_equal(frames[-1], state.positions.numpy())
+
+
+def test_python_writers_when_the_native_runtime_is_unavailable(monkeypatch, tmp_path):
+    """With the native runtime made unavailable, the same files come from the
+    Python writers, the fallback is logged, and the frames equal the native
+    run's bitwise (the CPU run is deterministic for a fixed seed): XYZ bytes
+    equal, DCD bytes equal but for the title record."""
+    if not TRT.native_available():
+        pytest.skip("native runtime unavailable: there is no native run to compare")
+    _run_lj(tmp_path / "native")
+
+    def unavailable():
+        raise RuntimeError("native runtime unavailable: made so by the test")
+
+    monkeypatch.setattr(TRT, "library", unavailable)
+    _, logs = _run_lj(tmp_path / "python")
+    assert [ln for ln in logs if ln.startswith("trajectory:")] == [
+        "trajectory: Python writers (XYZ, DCD; native runtime unavailable: made so by the test)"]
+    for d in ("native", "python"):
+        assert sorted(os.listdir(tmp_path / d)) == ["lj-metrics.csv", "lj-restart.npz",
+                                                    "lj-traj.dcd", "lj-traj.xyz"]
+    nat, py = (tmp_path / "native" / "lj-traj.dcd").read_bytes(), \
+        (tmp_path / "python" / "lj-traj.dcd").read_bytes()
+    assert len(nat) == len(py)
+    assert nat[:DCD_TITLE.start] == py[:DCD_TITLE.start]
+    assert nat[DCD_TITLE.stop:] == py[DCD_TITLE.stop:]
+    assert b"native runtime" in nat[DCD_TITLE] and b"native runtime" not in py[DCD_TITLE]
+    assert ((tmp_path / "native" / "lj-traj.xyz").read_bytes()
+            == (tmp_path / "python" / "lj-traj.xyz").read_bytes())

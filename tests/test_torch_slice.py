@@ -197,7 +197,8 @@ def test_port_never_imports_jax():
     """A tiny CPU slice in a fresh interpreter, through the full-layer path
     and the edge-core path, with the CLI, the Simulator, ProteinSimulation,
     the trajectory IO, preprocessing, the peptide builder and the ensembles
-    imported: neither JAX nor any ai2bmd_tpu module
+    imported, and one frame written through the native runtime (when g++
+    builds it): neither JAX nor any ai2bmd_tpu module
     loads, and no kernel launch is counted (CPU tensors take the plain
     versions)."""
     code = textwrap.dedent("""
@@ -225,6 +226,15 @@ def test_port_never_imports_jax():
                                 L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device="cpu"),
                                 torch.as_tensor(prot.masses, dtype=torch.float32), s, generator=g)
             assert torch.isfinite(s.positions).all() and torch.isfinite(s.forces).all()
+        import os, tempfile
+        from ai2bmd_torch import runtime
+        if runtime.native_available():
+            with tempfile.TemporaryDirectory() as d:
+                w = runtime.AsyncTrajectoryWriter(os.path.join(d, "t.dcd"), None, prot.numbers)
+                w.write(s.positions.numpy(), energy=float(s.energy), step=1)
+                w.close()
+                got = ai2bmd_torch.io.trajectory.read_dcd(os.path.join(d, "t.dcd"))
+                assert (got[0] == s.positions.numpy()).all()
         assert not any(m == "jax" or m.startswith(("jax.", "jaxlib")) for m in sys.modules)
         print(sorted(m for m in sys.modules if m.startswith("ai2bmd_tpu")))
         print(dict(LAUNCHES))
