@@ -26,10 +26,11 @@ A model on the card with another activation than silu runs every edge core
 through its plain version, on the card, as the JAX package sends such a
 model to jnp: ``resolve_config`` sets ``plain_edge_core`` once when the
 model is configured and logs the reason; each such call on CUDA tensors adds
-one to ``LAUNCHES["plain_edge_core"]``.  A silu model of shapes the kernels
-do not take (H > 1024, S > 8; ``ops.vismp.unsupported_shapes``, the edge
-and the full-layer kernels' one domain) is refused on the card when it is
-configured.
+one to ``LAUNCHES["plain_edge_core"]``.  The kernels take every H that
+the head count divides, as JAX's do; a silu model of shapes they do not
+take (S > 8, which no model of either package builds;
+``ops.vismp.unsupported_shapes``, the edge and the full-layer kernels' one
+domain) is refused on the card when it is configured.
 
 ``edge_dtype=torch.bfloat16`` is the JAX config's mixed-precision mode
 (:63-66, applied at :545-556): each ViS-MP layer runs on bfloat16 copies of

@@ -30,6 +30,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -53,7 +54,8 @@ MM_MODE = "b3"
 LIBRARY_LAUNCHES: dict[str, int] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
-# the last build's mode, path, seconds, whether it was cached, and ptxas's report
+# the last build's mode, path, seconds, whether it was cached, ptxas's report
+# and the seconds each source's nvcc took to end (units)
 BUILD_INFO: dict = {}
 
 
@@ -101,10 +103,16 @@ def build(mode: str = "b3") -> Path:
         cmd = [nvcc, *flags, *extra, "-c", "-o", str(obj), str(src)]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
-    log, failed = [], []
-    for cmd, obj, proc in jobs:
-        stdout, stderr = proc.communicate()
+    def finish(job):        # each job's output, and its end after the start of the build
+        stdout, stderr = job[2].communicate()
+        return stdout, stderr, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(finish, jobs))
+    log, failed, units = [], [], {}
+    for (cmd, obj, proc), (stdout, stderr, end) in zip(jobs, done):
         log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        units[obj.name.split(f".{tag}")[0]] = end
         if proc.returncode != 0:
             failed.append(f"{obj.name} (code {proc.returncode}):\n{stderr[-8000:]}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -123,7 +131,7 @@ def build(mode: str = "b3") -> Path:
                            + "\n".join(failed))
     os.replace(tmp, out)
     BUILD_INFO.update(mode=mode, path=str(out), seconds=seconds, cached=False,
-                      ptxas="\n".join(log))
+                      ptxas="\n".join(log), units=units)
     return out
 
 

@@ -400,10 +400,11 @@ __device__ __forceinline__ void load_w_frags(float (&f)[2][4], const TW* __restr
 // products; a split B fragment is held for one tile only, which keeps the
 // helper near 90 registers).  MM_DEFAULT rounds each fragment to bfloat16
 // and runs one pass; MM_HIGHEST gathers the W fragments' rows once a step
-// and each row tile's columns, then runs the FMA chain.
+// and each row tile's columns, then runs the FMA chain.  Xk is X's column
+// k0 (row stride ldx), Wq W's row q (the k-step reads rows k0 + q (+4)).
 template <int MAXR, class TW>
 __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], float (&f)[2][4],
-                                           const float* X, int ldx, int A, int k0, int K,
+                                           const float* Xk, int ldx, int A, int k0, int K,
                                            const TW* __restrict__ Wq, int ldw, int g, int q) {
   constexpr int NT = MAXR / RCHUNK;
   if constexpr (MM_MODE != MM_B3) {
@@ -421,7 +422,7 @@ __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], fl
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (nt * RCHUNK < A) {
-        const float* x = X + (nt * RCHUNK + g) * ldx + k0 + q;
+        const float* x = Xk + (nt * RCHUNK + g) * ldx + q;
         const unsigned b[2] = {mm_operand(x[0]), mm_operand(x[4])};
         if constexpr (MM_MODE == MM_DEFAULT) {
 #pragma unroll
@@ -444,7 +445,7 @@ __device__ __forceinline__ void mma_k_step(float (&acc)[2][MAXR / RCHUNK][4], fl
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (nt * RCHUNK < A) {
-        const float* x = X + (nt * RCHUNK + g) * ldx + k0 + q;
+        const float* x = Xk + (nt * RCHUNK + g) * ldx + q;
         unsigned bhi[2], blo[2];
         split_tf32(x[0], bhi[0], blo[0]);
         split_tf32(x[4], bhi[1], blo[1]);
@@ -499,8 +500,8 @@ __device__ __forceinline__ void mma_rows_times_cols(const float* X, int ldx, int
   load_w_frags(fb, Wq + 8 * (size_t)ldw, ldw);
   __syncthreads();  // X is written
   for (int k0 = 0; k0 < K; k0 += 16) {
-    mma_k_step<MAXR>(acc, fa, X, ldx, A, k0, K, Wq, ldw, g, q);
-    mma_k_step<MAXR>(acc, fb, X, ldx, A, k0 + 8, K, Wq, ldw, g, q);
+    mma_k_step<MAXR>(acc, fa, X + k0, ldx, A, k0, K, Wq, ldw, g, q);
+    mma_k_step<MAXR>(acc, fb, X + k0 + 8, ldx, A, k0 + 8, K, Wq, ldw, g, q);
   }
   __syncthreads();  // every warp has read X
 #pragma unroll
@@ -526,27 +527,41 @@ __device__ __forceinline__ void mma_rows_times_cols(const float* X, int ldx, int
 // K1-K3, K7 and K8 have two instantiations each.  The narrow one (above:
 // one thread a channel, head_sum<DH> on a warp's lanes, sources in chunks
 // of ECHUNK) takes heads of 8, 16, 32 or 64 channels with H a multiple of
-// 32 up to 256.  The wide one takes every other H up to WIDE_MAXH and every
-// head count that divides it:
-// - channels are padded to Hp, the next multiple of 32: the shared rows
-//   load zeros past H, the wrappers (ops/vismp.py) hand the kernels their
-//   weights zero-padded to Hp (per half), so a padded channel adds nothing
-//   to a product and no kernel writes one out;
+// 32 up to 256.  The wide one takes every other H and every head count that
+// divides it; no constant bounds H, and no shared memory grows with it:
+// - channels are padded to Hp, the next multiple of 32: the wrappers
+//   (ops/vismp.py) hand the kernels their weights zero-padded to Hp (per
+//   half), a product's rows read zeros past H, so a padded channel adds
+//   nothing to a product and no kernel writes one out;
 // - at most 256 threads a block, each owning the channels t, t + 256, ...
 //   (a loop over channels inside each pass, so per-channel registers live
 //   for one channel at a time);
+// - a chunk's rows of Hp (or 2 Hp) channels live in device memory, in the
+//   block's own slot of a scratch the wrappers allocate (`wide_scratch`:
+//   the products' outputs, the messages, the cotangent rows, the head
+//   sums), where they stay in L2 while the chunk is worked on;
 // - the products are `mma_tiles`: mma_rows_times_cols's k-steps, each warp
-//   looping over its 32-column tiles, into a buffer other than its rows;
+//   looping over its 32-column tiles, over rows staged in shared memory a
+//   k-tile of XTILE columns at a time (sX, [ECHUNK][XTILE + 4]), each
+//   KSLAB-deep slab of k summed apart and added to the running sums in
+//   float32;
 // - a head sums its DH channels in order, one (row, head) a thread, from
-//   shared memory (`block_head_sums`), between block barriers;
-// - a source chunk holds as many rows as fit in half an SM's shared memory
-//   (`wide_chunk`), a multiple of 8 up to ECHUNK.
+//   the same k-tiles (`block_head_sums`): a head wider than a tile carries
+//   its partial sum from one tile to the next;
+// - the sources go in chunks of ECHUNK rows, as in the narrow kernels: the
+//   shared memory of a wide block is fixed (static, under 48 KB).
 // Every sum runs in a fixed order: bitwise repeatable, and K7/K8's
-// recomputed pre-activations equal K1's stash, as in the narrow kernels.
-constexpr int WIDE_MAXH = 1024;
-// two blocks an SM: half of the 227 KB, less the 1 KB each block reserves
-constexpr size_t WIDE_SMEM_BUDGET = 232448 / 2 - 1024;
+// recomputed pre-activations equal K1's stash, as in the narrow kernels
+// (K1, K7 and K8 take the same products over the same k-tiles).
+// the most shared memory one block may take (227 KB)
 constexpr size_t SMEM_MAX = 232448;
+// the columns of a k-tile of a wide kernel's rows in shared memory
+constexpr int XTILE = 128;
+constexpr int XTILE_LD = mma_ld(XTILE);
+// the k-terms mma_tiles sums apart before it adds them to its running sums
+// in float32: the widest narrow K (256), so that the narrow and wide
+// products agree bitwise wherever both run
+constexpr int KSLAB = 2 * XTILE;
 
 // Which instantiation a launcher takes, one predicate a kernel family
 // (``narrow_shapes`` / ``narrow_update`` in ops/vismp.py): K1, K2 and K7
@@ -567,68 +582,113 @@ __host__ __device__ __forceinline__ int wide_width(int H) { return (H + 31) / 32
 // The threads of a wide block: one a channel of Hp, at most 256.
 inline int wide_threads(int H) { return wide_width(H) < 256 ? wide_width(H) : 256; }
 
-// Rows of a wide kernel's source chunk for row_bytes of shared memory a row
-// and fixed bytes besides: as many as fit in WIDE_SMEM_BUDGET, a multiple
-// of RCHUNK, from RCHUNK up to ECHUNK.
-inline int wide_chunk(size_t row_bytes, size_t fixed = 0) {
-  const size_t fit = WIDE_SMEM_BUDGET > fixed ? (WIDE_SMEM_BUDGET - fixed) / row_bytes : 0;
-  const int n = (int)(fit < (size_t)ECHUNK ? fit : (size_t)ECHUNK) / RCHUNK * RCHUNK;
-  return n < RCHUNK ? RCHUNK : n;
+// Floats of device scratch one block of a wide kernel takes (its slot of the
+// wrappers' scratch, B A slots; ops/vismp.py): for a chunk of min(A,
+// ECHUNK) rows, K1 (kind 0) a product's output rows and the messages
+// ([CH][Hp] each) and a_ij ([CH][nh]); K2/K7 (kind 1) the [CH][2 Hp] rows
+// of the head terms, g_s and g_dkv, the [CH][Hp] rows of v_ij and g_vij,
+// a_ij and the head sums of g_g3 gate ([CH][nh] each).
+__host__ __device__ inline size_t wide_scratch(int kind, int A, int H, int nh) {
+  const size_t CH = A < ECHUNK ? A : ECHUNK, Hp = wide_width(H);
+  return kind == 0 ? CH * (2 * Hp + nh) : CH * (3 * Hp + 2 * (size_t)nh);
 }
 
-// Copy A rows of H floats (device memory, dense) into shared memory at row
-// stride ld, zero-padded to Hp columns, a float a thread.
-template <class T>
-__device__ __forceinline__ void load_rows_padded(float* __restrict__ dst, int ld,
-                                                 const T* __restrict__ src, int A, int H,
-                                                 int Hp) {
-  for (int x = threadIdx.x; x < A * Hp; x += blockDim.x) {
-    const int r = x / Hp, c = x - r * Hp;
-    dst[r * ld + c] = c < H ? widen(src[(size_t)r * H + c]) : 0.0f;
+// This block's slot of a wide kernel's scratch (grid (A, B): b A + i).
+__device__ __forceinline__ size_t block_slot() {
+  return (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+}
+
+// sX[r][c] = X[r][k0 + c] for r < n, c < kw, 0 where k0 + c >= kv: a
+// k-tile of n rows (device memory, row stride ldx, float or bfloat16,
+// widened) staged in shared memory at stride XTILE_LD.  X may be written
+// by this block (its scratch): it is read through the coherent path.
+template <class TX>
+__device__ __forceinline__ void stage_tile(float* __restrict__ sX, const TX* X, size_t ldx,
+                                           int kv, int n, int k0, int kw) {
+  for (int x = threadIdx.x; x < n * kw; x += blockDim.x) {
+    const int r = x / kw, c = x - r * kw;
+    sX[r * XTILE_LD + c] = k0 + c < kv ? widen(X[r * ldx + k0 + c]) : 0.0f;
   }
 }
 
 // out[r][n] = sum_k X[r][k] * W[k][col0 + n] for r < A and n < N (N % 32 ==
-// 0), stored for n < nout only.  As mma_rows_times_cols (the same k-steps,
-// so equal X and W give equal bits), but warp w takes the 32-column tiles
-// w, w + warps, ... in turn, so N may exceed 32 warps; out must not alias
-// X.  Every thread of the block calls it: it synchronises the block when it
-// starts (X is written) and when it ends (out is written).
-template <int MAXR = MAXA, class TW, class TO>
-__device__ __forceinline__ void mma_tiles(const float* X, int ldx, int A, int K,
-                                          const TW* __restrict__ W, int ldw, int col0, int N,
-                                          TO* out, int ldo, int nout) {
+// 0), stored for n < nout only.  X: A rows of K floats (K % 16 == 0) in
+// device memory at row stride ldx, read as 0 at k >= kv; they go through
+// sX ([ECHUNK][XTILE_LD], shared) a k-tile at a time.  The k-steps are
+// mma_rows_times_cols's, in the same order whatever the tiles, so equal X
+// and W give equal bits.  Each KSLAB-deep slab of k sums into
+// accumulators of its own, added to the running sums by float32 adds after
+// the slab (as row_tile's PROMOTE): the tensor cores' un-rounded float32
+// accumulation then errs as a sum of KSLAB terms at any K, not of K terms.
+// At K <= KSLAB the sum is mma_rows_times_cols's bit for bit, so a narrow
+// K8 (H <= 256) rebuilds a wide K1's z_f stash exactly.
+// Warp w takes the 32-column tiles w, w + warps,
+// ... in turn (the block's warps together, so that all meet at each tile's
+// barriers), each over all k-tiles; out must not alias X.  Every thread of
+// the block calls it: it synchronises the block before each k-tile (X is
+// written; every warp is done with the last tile) and when it ends (out is
+// written).
+template <int MAXR = ECHUNK, class TX, class TW, class TO>
+__device__ __forceinline__ void mma_tiles(float* __restrict__ sX, const TX* X, size_t ldx,
+                                          int kv, int A, int K, const TW* __restrict__ W,
+                                          int ldw, int col0, int N, TO* out, size_t ldo,
+                                          int nout) {
   constexpr int NT = MAXR / RCHUNK;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  __syncthreads();  // X is written
-  for (int n0 = 32 * (threadIdx.x >> 5); n0 < N; n0 += 32 * (blockDim.x >> 5)) {
-    const TW* Wq = W + (size_t)q * ldw + col0 + n0 + g;
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
+  const int step = 32 * (blockDim.x >> 5);
+  for (int nb = 0; nb < N; nb += step) {
+    const int n0 = nb + 32 * (threadIdx.x >> 5);
+    const bool on = n0 < N;  // this warp has a column tile in this turn
+    const TW* Wq = W + (size_t)q * ldw + col0 + (on ? n0 : 0) + g;
+    float acc[2][NT][4], part[2][NT][4];  // the running sums; this k-tile's
     float fa[2][4], fb[2][4];
-    load_w_frags(fa, Wq, ldw);
-    load_w_frags(fb, Wq + 8 * (size_t)ldw, ldw);
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      mma_k_step<MAXR>(acc, fa, X, ldx, A, k0, K, Wq, ldw, g, q);
-      mma_k_step<MAXR>(acc, fb, X, ldx, A, k0 + 8, K, Wq, ldw, g, q);
+    if (on) {
+      load_w_frags(fa, Wq, ldw);
+      load_w_frags(fb, Wq + 8 * (size_t)ldw, ldw);
     }
+    for (int kt = 0; kt < K; kt += XTILE) {
+      const int kw = K - kt < XTILE ? K - kt : XTILE;
+      __syncthreads();  // X is written; every warp is done with the last tile
+      stage_tile(sX, X, ldx, kv, A, kt, kw);
+      __syncthreads();
+      if (on) {
+        if (kt % KSLAB == 0) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      if (nt * RCHUNK < A) {
-        TO* o = out + (size_t)(nt * RCHUNK + 2 * q) * ldo;
+          for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
+            for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int c = n0 + g + 16 * mt + 8 * half;
-            if (c < nout) {
-              o[c] = st<TO>(acc[mt][nt][2 * half]);
-              o[ldo + c] = st<TO>(acc[mt][nt][2 * half + 1]);
+              for (int j = 0; j < 4; ++j) part[mt][nt][j] = 0.0f;
+        }
+        for (int k0 = kt; k0 < kt + kw; k0 += 16) {
+          mma_k_step<MAXR>(part, fa, sX + (k0 - kt), XTILE_LD, A, k0, K, Wq, ldw, g, q);
+          mma_k_step<MAXR>(part, fb, sX + (k0 + 8 - kt), XTILE_LD, A, k0 + 8, K, Wq, ldw, g, q);
+        }
+        if ((kt + kw) % KSLAB == 0 || kt + kw == K) {  // the slab's end
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                acc[mt][nt][j] = kt < KSLAB ? part[mt][nt][j] : acc[mt][nt][j] + part[mt][nt][j];
+        }
+      }
+    }
+    if (on) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt * RCHUNK < A) {
+          TO* o = out + (size_t)(nt * RCHUNK + 2 * q) * ldo;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int c = n0 + g + 16 * mt + 8 * half;
+              if (c < nout) {
+                o[c] = st<TO>(acc[mt][nt][2 * half]);
+                o[ldo + c] = st<TO>(acc[mt][nt][2 * half + 1]);
+              }
             }
           }
         }
@@ -640,17 +700,32 @@ __device__ __forceinline__ void mma_tiles(const float* X, int ldx, int A, int K,
 
 // out[r][h] = sum_j p[r][h dh + j] over j = 0 .. dh - 1 in order, for r < n
 // and h < nh: the attention head sums of the wide kernels, one (row, head)
-// a thread.  Every thread of the block calls it: it synchronises the block
-// when it starts (p is written) and when it ends (out is written).
-__device__ __forceinline__ void block_head_sums(const float* p, int ldp, int n, int nh, int dh,
+// a thread.  p: n rows of the H channels' terms in device memory at stride
+// ldp, staged in sX a k-tile of XTILE channels at a time; a head that
+// spans tiles carries its partial sum in out (device or shared memory)
+// from one tile to the next, so every sum runs over its channels in order
+// from 0, as one loop over whole rows would.  Every thread of the block
+// calls it: it synchronises the block before each tile (p is written;
+// every thread is done with the last tile and its partial sums) and when
+// it ends (out is written).
+__device__ __forceinline__ void block_head_sums(float* __restrict__ sX, const float* p,
+                                                size_t ldp, int n, int H, int nh, int dh,
                                                 float* out) {
-  __syncthreads();
-  for (int x = threadIdx.x; x < n * nh; x += blockDim.x) {
-    const int r = x / nh, h = x - r * nh;
-    const float* pr = p + r * ldp + h * dh;
-    float s = 0.0f;
-    for (int j = 0; j < dh; ++j) s += pr[j];
-    out[x] = s;
+  for (int kt = 0; kt < H; kt += XTILE) {
+    const int kw = H - kt < XTILE ? H - kt : XTILE;
+    __syncthreads();
+    stage_tile(sX, p, ldp, H, n, kt, kw);
+    __syncthreads();
+    const int h0 = kt / dh, heads = (kt + kw - 1) / dh - h0 + 1;  // the tile's heads
+    for (int x = threadIdx.x; x < n * heads; x += blockDim.x) {
+      const int r = x / heads, h = h0 + x - r * heads;
+      const int lo = h * dh > kt ? h * dh : kt;
+      const int hi = (h + 1) * dh < kt + kw ? (h + 1) * dh : kt + kw;
+      const float* pr = sX + r * XTILE_LD;
+      float s = lo == h * dh ? 0.0f : out[r * nh + h];
+      for (int j = lo; j < hi; ++j) s += pr[j - kt];
+      out[r * nh + h] = s;
+    }
   }
   __syncthreads();
 }
@@ -694,6 +769,16 @@ __device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const float* p) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p))
                : "memory");
+}
+
+// a if P, else b (a compile-time choice between two arrays of one type)
+template <bool P, class T>
+__device__ __forceinline__ T& pick(T& a, T& b) {
+  if constexpr (P) {
+    return a;
+  } else {
+    return b;
+  }
 }
 
 // TILE_N output columns a block, k-slabs of TILE_K, shared-memory rows at
@@ -787,7 +872,15 @@ __device__ __forceinline__ void copy4(float* dst, const bf16* src) {
 // k in order: bitwise repeatable, and equal between any two kernels that
 // call it on equal X and W.  epi owns each (r, n) pair: an epilogue may
 // read and write its outputs in place.
-template <int TM, bool WT, class Epi, class TW = float>
+// PROMOTE: each k-slab's products go into accumulators of their own, added
+// to the running sums by float32 adds after the slab.  The tensor cores
+// add into their float32 accumulators without IEEE rounding, and that
+// error, carried over every product into a sum of K terms, grows with K:
+// the wide K5/K6 (K up to 3 Hp) promote, so their error stays that of
+// 32-term slabs at any H (the wide edge kernels' mma_tiles promote per
+// KSLAB terms likewise); the narrow instantiations do not (their bits are
+// unchanged).
+template <int TM, bool WT, class Epi, class TW = float, bool PROMOTE = false>
 static __global__ void __launch_bounds__(256, 2)
     row_tile(const float* __restrict__ X, int ldx, size_t M, int K, int N, const WSegT<TW> W,
              const Epi epi) {
@@ -846,10 +939,22 @@ static __global__ void __launch_bounds__(256, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
 
+  // the slab's accumulators: acc itself, or (PROMOTE) a set of their own
+  float part[S::MT][S::NT][4];
+  float (&d)[S::MT][S::NT][4] = pick<PROMOTE>(part, acc);
+
   const int nslab = K / TILE_K;
   load(0, 0);
   for (int s = 0; s < nslab; ++s) {
     const int buf = s & 1;
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) part[mt][nt][j] = 0.0f;
+    }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // slab s is in; every warp is done with slab s - 1
     if (s + 1 < nslab) load(buf ^ 1, (s + 1) * TILE_K);
@@ -928,7 +1033,7 @@ static __global__ void __launch_bounds__(256, 2)
 #pragma unroll
           for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-            for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], a[mt], b[nt]);
+            for (int nt = 0; nt < S::NT; ++nt) mma_tf32(d[mt][nt], a[mt], b[nt]);
         } else {
           float r[S::MT][2][8];
 #pragma unroll
@@ -938,7 +1043,7 @@ static __global__ void __launch_bounds__(256, 2)
             float c[2][8];
             gather_cols(c, b[nt]);
 #pragma unroll
-            for (int mt = 0; mt < S::MT; ++mt) fma_tile(acc[mt][nt], r[mt], c);
+            for (int mt = 0; mt < S::MT; ++mt) fma_tile(d[mt][nt], r[mt], c);
           }
         }
       }
@@ -980,16 +1085,24 @@ static __global__ void __launch_bounds__(256, 2)
 #pragma unroll
         for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], alo[mt], bhi[nt]);
+          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(d[mt][nt], alo[mt], bhi[nt]);
 #pragma unroll
         for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], blo[nt]);
+          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(d[mt][nt], ahi[mt], blo[nt]);
 #pragma unroll
         for (int mt = 0; mt < S::MT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(acc[mt][nt], ahi[mt], bhi[nt]);
+          for (int nt = 0; nt < S::NT; ++nt) mma_tf32(d[mt][nt], ahi[mt], bhi[nt]);
       }
+    }
+    if constexpr (PROMOTE) {
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mt][nt][j] += part[mt][nt][j];
     }
   }
   // accumulators: (row g, columns 2q, 2q + 1) and row g + 8 of each tile.
@@ -1027,16 +1140,17 @@ static __global__ void __launch_bounds__(256, 2)
 }
 
 // Launch row_tile over M x N; the grid is (row tiles, 64-column blocks).
-template <int TM, bool WT, class Epi, class TW>
+template <int TM, bool WT, bool PROMOTE = false, class Epi, class TW>
 static cudaError_t launch_row_tile(const float* X, int ldx, size_t M, int K, int N,
                                    const WSegT<TW>& W, const Epi& epi, cudaStream_t stream) {
   if (M == 0) return cudaSuccess;
   constexpr size_t smem = tile_smem<TM>();
-  cudaError_t err = cudaFuncSetAttribute(row_tile<TM, WT, Epi, TW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = row_tile<TM, WT, Epi, TW, PROMOTE>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
-  row_tile<TM, WT, Epi, TW><<<dim3((unsigned)((M + TM - 1) / TM), (N + TILE_N - 1) / TILE_N),
-                              256, smem, stream>>>(X, ldx, M, K, N, W, epi);
+  kern<<<dim3((unsigned)((M + TM - 1) / TM), (N + TILE_N - 1) / TILE_N), 256, smem, stream>>>(
+      X, ldx, M, K, N, W, epi);
   return cudaGetLastError();
 }
 

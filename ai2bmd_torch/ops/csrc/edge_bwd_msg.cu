@@ -298,32 +298,26 @@ __global__ void __launch_bounds__(256, RC ? 1 : 2) edge_bwd_msg_centre(
   if constexpr (IS_BF16<T>) gq[bi * H + t] = st<T>(gq_acc[bi * H + t]);
 }
 
-// The wide instantiation (common.cuh: every H up to WIDE_MAXH and every
-// head count), one block per (fragment, centre atom i) of wide_threads(H)
-// threads, each looping over its channels in every pass; the head sums go
-// through shared memory (block_head_sums) and each product (mma_tiles)
-// into a buffer other than its rows.  Shared memory, for one chunk of CH
-// rows (wide_chunk): sE [CH][Hp + 4], sW [CH][2 Hp + 4], the reduction
-// buffers, sA and sG [CH][nh].  K7 passes zk and zv from its recompute to
-// the attention chain through the g_k and g_v scratch, which the chain
-// then overwrites element by element (the same thread reads and writes
-// each).  Per chunk:
-//   head terms q_i k_j dk -> sW's first half (K7: from zdkv = edge @ W_dkv
-//     + b_dkv, computed into sW), summed by head into sA;
-//   K7: v_ij over the edge rows in sE, zs = v_ij @ W_s + b_s into sW;
-//   g_s in sW in place (from sW, or K2's stash), g_d_sh's per-warp sums;
-//   g_vij = g_s @ W_s^T into sE;
+// The wide instantiation (common.cuh: every H and every head count that
+// divides it), one block per (fragment, centre atom i) of wide_threads(H)
+// threads, each looping over its channels in every pass; each product
+// (mma_tiles) over k-tiles of its rows staged in sX, the head sums from the
+// same tiles (block_head_sums).  A chunk's rows live in the block's slot of
+// the scratch `wrk` (wide_scratch kind 1): W [CH][2 Hp], E [CH][Hp], sA and
+// sG [CH][nh].  K7 passes zk and zv from its recompute to the attention
+// chain through the g_k and g_v scratch, which the chain then overwrites
+// element by element (the same thread reads and writes each).  Per chunk:
+//   head terms q_i k_j dk -> W's first half (K7: from zdkv = edge @ W_dkv
+//     + b_dkv, computed into W), summed by head into sA;
+//   K7: v_ij into E (read as 0 past H), zs = v_ij @ W_s + b_s into W;
+//   g_s in W in place (from W, or K2's stash), g_d_sh's per-warp sums;
+//   g_vij = g_s @ W_s^T into E;
 //   the attention chain in two passes around the head sums of g_g3 * gate
-//     (sW's first half -> sG): g_v's terms, g_dist's sums and g_dv, then
-//     g_a, g_q, g_k's terms and g_dk, g_dkv in sW;
+//     (W's first half -> sG): g_v's terms, g_dist's sums and g_dv, then
+//     g_a, g_q, g_k's terms and g_dk, g_dkv in W;
 //   g_edge = g_dkv @ W_dkv^T to device memory.
-// The padded columns of sW stay 0 (zeroed when the kernel starts, or a
+// The padded columns of W stay 0 (zeroed when the kernel starts, or a
 // product of zero-padded weights), since g_vij and g_edge read them.
-static size_t msg_wide_row_bytes(int H, int S, int nh) {
-  const int Hp = wide_width(H), NW = wide_threads(H) / 32;
-  return (size_t)(mma_ld(Hp) + mma_ld(2 * Hp) + S + 3 + NW + NW * S + 2 * nh) * sizeof(float);
-}
-
 template <bool RC, class T>
 __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -336,22 +330,18 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
     const T* __restrict__ wsT, const T* __restrict__ gx,
     const T* __restrict__ gva, float* __restrict__ gq_acc, T* __restrict__ gq,
     T* __restrict__ gedge, T* __restrict__ gdsh, T* __restrict__ gdist,
-    float* __restrict__ gk_e, float* __restrict__ gv_e, float* __restrict__ s1_e, int A, int H,
-    int S, int nh, int CH, float cutoff) {
+    float* __restrict__ gk_e, float* __restrict__ gv_e, float* __restrict__ s1_e, float* wrk,
+    int A, int H, int S, int nh, float cutoff) {
   constexpr bool B16 = IS_BF16<T> && !RC;
-  extern __shared__ __align__(16) float smem[];
-  const int NW = blockDim.x / 32, Hp = wide_width(H), DH = H / nh;
-  const int ld = mma_ld(Hp), ldw = mma_ld(2 * Hp);
-  float* sE = smem;                     // [CH][ld]  K7: edge rows, then v_ij; then g_vij
-  float* sW = sE + CH * ld;             // [CH][ldw] head terms, (zs ->) g_s, g_dkv
-  float* sDsh = sW + CH * ldw;          // [CH][S]
-  float* sAdj = sDsh + CH * S;          // [CH]
-  float* sGate = sAdj + CH;             // [CH]  cutoff(r) * adj
-  float* sDcut = sGate + CH;            // [CH]  d cutoff / d r
-  float* sRedCut = sDcut + CH;          // [NW][CH]
-  float* sRedDsh = sRedCut + NW * CH;   // [NW][CH][S]
-  float* sA = sRedDsh + NW * CH * S;    // [CH][nh] a_ij
-  float* sG = sA + CH * nh;             // [CH][nh] sum_head g_g3 * gate
+  __shared__ __align__(16) float sX[ECHUNK * XTILE_LD];  // a k-tile of a chunk's rows
+  __shared__ float sDsh[ECHUNK * MAXS], sAdj[ECHUNK], sGate[ECHUNK], sDcut[ECHUNK];
+  __shared__ float sRedCut[8 * ECHUNK], sRedDsh[8 * ECHUNK * MAXS];  // [NW][CH] (x S)
+  const int NW = blockDim.x / 32, Hp = wide_width(H), DH = H / nh, CH = A < ECHUNK ? A : ECHUNK;
+  const int ldw = 2 * Hp;
+  float* W = wrk + block_slot() * wide_scratch(1, A, H, nh);
+  float* E = W + (size_t)CH * ldw;
+  float* sA = E + (size_t)CH * Hp;
+  float* sG = sA + (size_t)CH * nh;
 
   const int t = threadIdx.x, TB = blockDim.x, w = t / 32, lane = t % 32;
   const int i = blockIdx.x, b = blockIdx.y;
@@ -361,15 +351,14 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
 
   for (int x = t; x < CH * 2 * Hp; x += TB) {
     const int r = x / (2 * Hp), c = x - r * 2 * Hp;
-    if (c % Hp >= H) sW[r * ldw + c] = 0.0f;
+    if (c % Hp >= H) W[r * ldw + c] = 0.0f;
   }
 
   for (int c0 = 0; c0 < A; c0 += CH) {
     const int n = A - c0 < CH ? A - c0 : CH;
     const size_t e0 = bi * A + c0;         // the chunk's first edge row (b, i, c0)
     const size_t s0 = (size_t)b * A + c0;  // and its first source atom
-    __syncthreads();  // sW is zeroed / every thread is done with the last chunk's rows
-    if constexpr (RC) load_rows_padded(sE, ld, edge + e0 * H, n, H, Hp);
+    __syncthreads();  // W is zeroed / every thread is done with the last chunk's rows
     for (int x = t; x < n * S; x += TB) sDsh[x] = widen(dsh[e0 * S + x]);
     for (int r = t; r < n; r += TB) {
       const float a = widen(adj[e0 + r]), d = widen(dist[e0 + r]);
@@ -378,18 +367,18 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
       sDcut[r] = dcutoff_of<T>(d, cutoff, kpi);
     }
 
-    // the head terms into sW's first half; K7 keeps zv in its second half
+    // the head terms into W's first half; K7 keeps zv in its second half
     if constexpr (RC) {
-      mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, 0, 2 * Hp, sW, ldw, 2 * Hp);
+      mma_tiles(sX, edge + e0 * H, H, H, n, Hp, wdkv, 2 * Hp, 0, 2 * Hp, W, ldw, 2 * Hp);
       for (int ch = t; ch < H; ch += TB) {
         const float qi = widen(q[bi * H + ch]), bk = widen(bdkv[ch]), bv = widen(bdkv[H + ch]);
         for (int r = 0; r < n; ++r) {
           const size_t e = (e0 + r) * H + ch;
-          const float zk = sW[r * ldw + ch] + bk, zv = sW[r * ldw + Hp + ch] + bv;
+          const float zk = W[r * ldw + ch] + bk, zv = W[r * ldw + Hp + ch] + bv;
           gk_e[e] = zk;
           gv_e[e] = zv;
-          sW[r * ldw + ch] = head_term(qi, widen(k[(s0 + r) * H + ch]), zk);
-          sW[r * ldw + Hp + ch] = zv;
+          W[r * ldw + ch] = head_term(qi, widen(k[(s0 + r) * H + ch]), zk);
+          W[r * ldw + Hp + ch] = zv;
         }
       }
     } else {
@@ -397,22 +386,22 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
         const float qi = widen(q[bi * H + ch]);
         for (int r = 0; r < n; ++r) {
           const float kr = widen(k[(s0 + r) * H + ch]), zk = widen(zdkv[(e0 + r) * H2 + ch]);
-          sW[r * ldw + ch] = B16 ? rnd_st<B16>(qi * kr) * silu_st<B16>(zk) : head_term(qi, kr, zk);
+          W[r * ldw + ch] = B16 ? rnd_st<B16>(qi * kr) * silu_st<B16>(zk) : head_term(qi, kr, zk);
         }
       }
     }
-    block_head_sums(sW, ldw, n, nh, DH, sA);
+    block_head_sums(sX, W, ldw, n, H, nh, DH, sA);
     if constexpr (RC) {
       for (int ch = t; ch < H; ch += TB)
         for (int r = 0; r < n; ++r)
-          sE[r * ld + ch] = edge_message(widen(v[(s0 + r) * H + ch]), sW[r * ldw + Hp + ch],
-                                         sA[r * nh + ch / DH], sGate[r]);
+          E[r * Hp + ch] = edge_message(widen(v[(s0 + r) * H + ch]), W[r * ldw + Hp + ch],
+                                        sA[r * nh + ch / DH], sGate[r]);
       // zs = v_ij @ W_s (+ b_s below) over both halves
-      mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, 0, 2 * Hp, sW, ldw, 2 * Hp);
+      mma_tiles(sX, E, Hp, H, n, Hp, ws, 2 * Hp, 0, 2 * Hp, W, ldw, 2 * Hp);
     }
 
     // g_s = [sum_c g_vec_agg_i[c] vec_j[c], sum_c g_vec_agg_i[c] d_sh_ij[c]] * adj *
-    // silu'(zs) in sW; g_d_sh_ij[c] = sum_h g_vec_agg_i[c] * s2 per warp; K7's s1 to scratch
+    // silu'(zs) in W; g_d_sh_ij[c] = sum_h g_vec_agg_i[c] * s2 per warp; K7's s1 to scratch
     for (int r = 0; r < n; ++r) {
       const size_t e = e0 + r;
       const float a = sAdj[r];
@@ -422,8 +411,8 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
       for (int ch = t; ch < H; ch += TB) {
         float z1, z2;
         if constexpr (RC) {
-          z1 = sW[r * ldw + ch] + widen(bs[ch]);
-          z2 = sW[r * ldw + Hp + ch] + widen(bs[H + ch]);
+          z1 = W[r * ldw + ch] + widen(bs[ch]);
+          z2 = W[r * ldw + Hp + ch] + widen(bs[H + ch]);
           s1_e[e * H + ch] = silu(z1) * a;
         } else {
           z1 = widen(zs[e * H2 + ch]);
@@ -440,8 +429,8 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
             red[c] = B16 ? red[c] + rnd_st<B16>(gv * s2) : fmaf(gv, s2, red[c]);
           }
         }
-        sW[r * ldw + ch] = g1 * a * dsilu_st<B16>(z1);
-        sW[r * ldw + Hp + ch] = g2 * a * dsilu_st<B16>(z2);
+        W[r * ldw + ch] = g1 * a * dsilu_st<B16>(z1);
+        W[r * ldw + Hp + ch] = g2 * a * dsilu_st<B16>(z2);
       }
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) {
@@ -452,16 +441,16 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
       }
     }
 
-    // g_vij = g_s @ W_s^T (+ g_x_agg_i below) into sE
-    mma_tiles<ECHUNK>(sW, ldw, n, 2 * Hp, wsT, Hp, 0, Hp, sE, ld, Hp);
+    // g_vij = g_s @ W_s^T (+ g_x_agg_i below) into E
+    mma_tiles(sX, W, ldw, 2 * Hp, n, 2 * Hp, wsT, Hp, 0, Hp, E, Hp, Hp);
 
     // the attention chain, first pass: g_v's terms, g_dist's sums, g_dv;
-    // g_g3 * gate into sW's first half for the head sums
+    // g_g3 * gate into W's first half for the head sums
     for (int r = 0; r < n; ++r) {
       float red = 0.0f;
       for (int ch = t; ch < H; ch += TB) {
         const size_t e = (e0 + r) * H + ch;
-        const float gvij = sE[r * ld + ch] + widen(gx[bi * H + ch]);
+        const float gvij = E[r * Hp + ch] + widen(gx[bi * H + ch]);
         const float zv = RC ? gv_e[e] : widen(zdkv[(e0 + r) * H2 + H + ch]);
         const float dv = silu_st<B16>(zv), vr = widen(v[(s0 + r) * H + ch]);
         const float att = silu(sA[r * nh + ch / DH]), gate = sGate[r];
@@ -469,13 +458,13 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
         gv_e[e] = gvij * dv * g3;
         const float g_g3 = gvij * vr * dv;
         red = fmaf(g_g3, att, red);
-        sW[r * ldw + ch] = g_g3 * gate;
-        sW[r * ldw + Hp + ch] = gvij * vr * g3 * dsilu_st<B16>(zv);
+        W[r * ldw + ch] = g_g3 * gate;
+        W[r * ldw + Hp + ch] = gvij * vr * g3 * dsilu_st<B16>(zv);
       }
       red = warp_sum(red);
       if (lane == 0) sRedCut[w * CH + r] = red;
     }
-    block_head_sums(sW, ldw, n, nh, DH, sG);
+    block_head_sums(sX, W, ldw, n, H, nh, DH, sG);
     // second pass: g_a = sum_head(g_g3 * gate) silu'(a), g_q, g_k's terms, g_dk
     for (int ch = t; ch < H; ch += TB) {
       const float qi = widen(q[bi * H + ch]);
@@ -488,14 +477,14 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_msg_wide(
         const float g_a = sG[x] * dsilu(sA[x]);
         gqi = fmaf(g_a * kr, dk, gqi);
         gk_e[e] = g_a * qi * dk;
-        sW[r * ldw + ch] = g_a * qi * kr * dsilu_st<B16>(zk);
+        W[r * ldw + ch] = g_a * qi * kr * dsilu_st<B16>(zk);
       }
       gq_acc[bi * H + ch] = c0 ? gq_acc[bi * H + ch] + gqi : gqi;
     }
 
     // g_edge = g_dkv @ W_dkv^T, straight to device memory; then the
     // cross-warp sums of g_dist and g_d_sh (the product synced the block)
-    mma_tiles<ECHUNK>(sW, ldw, n, 2 * Hp, wdkvT, Hp, 0, Hp, gedge + e0 * H, H, H);
+    mma_tiles(sX, W, ldw, 2 * Hp, n, 2 * Hp, wdkvT, Hp, 0, Hp, gedge + e0 * H, H, H);
     for (int r = t; r < n; r += TB) {
       float s = 0.0f;
       for (int ww = 0; ww < NW; ++ww) s += sRedCut[ww * CH + r];
@@ -583,28 +572,23 @@ __global__ void __launch_bounds__(256) edge_bwd_msg_source(
 // gq_acc: g_q's float sums over the source chunks (the output itself for
 // float); the rest as the kernels'.
 template <bool RC>
-static int launch_msg(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec,
-                      const EdgeT* zdkv, const EdgeT* zs, const EdgeT* edge, const EdgeT* wdkv,
-                      const EdgeT* bdkv, const EdgeT* ws, const EdgeT* bs, const EdgeT* dsh,
-                      const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkvT, const EdgeT* wsT,
-                      const EdgeT* gx, const EdgeT* gva, float* gq_acc, EdgeT* gq, EdgeT* gk,
-                      EdgeT* gv, EdgeT* gvec, EdgeT* gedge, EdgeT* gdsh, EdgeT* gdist,
-                      float* gk_e, float* gv_e, float* s1_e, int B, int A, int H, int S,
-                      float cutoff, int dh, cudaStream_t stream) {
-  if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
+int launch_msg(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec,
+               const EdgeT* zdkv, const EdgeT* zs, const EdgeT* edge, const EdgeT* wdkv,
+               const EdgeT* bdkv, const EdgeT* ws, const EdgeT* bs, const EdgeT* dsh,
+               const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkvT, const EdgeT* wsT,
+               const EdgeT* gx, const EdgeT* gva, float* gq_acc, EdgeT* gq, EdgeT* gk,
+               EdgeT* gv, EdgeT* gvec, EdgeT* gedge, EdgeT* gdsh, EdgeT* gdist,
+               float* gk_e, float* gv_e, float* s1_e, float* wrk, int B, int A, int H,
+               int S, float cutoff, int dh, cudaStream_t stream) {
+  if (A <= 0 || A % RCHUNK || S > MAXS || H <= 0 || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
   if (!narrow_shapes(H, H / dh)) {
-    const int nh = H / dh, T = wide_threads(H), CH = wide_chunk(msg_wide_row_bytes(H, S, nh));
-    const size_t smem = CH * msg_wide_row_bytes(H, S, nh);
-    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-    auto kern = edge_bwd_msg_wide<RC, EdgeT>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<dim3(A, B), T, smem, stream>>>(q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh,
-                                          dist, adj, wdkvT, wsT, gx, gva, gq_acc, gq, gedge, gdsh,
-                                          gdist, gk_e, gv_e, s1_e, A, H, S, nh, CH, cutoff);
-    err = cudaGetLastError();
+    if (wrk == nullptr) return (int)cudaErrorInvalidValue;
+    const int T = wide_threads(H);
+    edge_bwd_msg_wide<RC, EdgeT><<<dim3(A, B), T, 0, stream>>>(
+        q, k, v, vec, zdkv, zs, edge, wdkv, bdkv, ws, bs, dsh, dist, adj, wdkvT, wsT, gx, gva,
+        gq_acc, gq, gedge, gdsh, gdist, gk_e, gv_e, s1_e, wrk, A, H, S, H / dh, cutoff);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     edge_bwd_msg_source<RC, true, EdgeT><<<dim3(A, B, (H + T - 1) / T), T, 0, stream>>>(
         zs, adj, s1_e, gva, gk_e, gv_e, gk, gv, gvec, A, H, S);
@@ -613,7 +597,7 @@ static int launch_msg(const EdgeT* q, const EdgeT* k, const EdgeT* v, const Edge
   int rc = with_head_width(dh, [&](auto d) {
     constexpr int DH = decltype(d)::value;
     const size_t smem = msg_smem(A, H, S, RC, DH);
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
+    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
     auto kern = edge_bwd_msg_centre<RC, DH, EdgeT>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
@@ -629,12 +613,24 @@ static int launch_msg(const EdgeT* q, const EdgeT* k, const EdgeT* v, const Edge
   return (int)cudaGetLastError();
 }
 
+#ifndef AI2BMD_STORE_BF16
+// shared memory, blocks per SM, registers and spill bytes of the centre
+// pass of K2 (RC false) or K7 (RC true): the narrow one (heads of 32
+// channels, A slots) or the wide one (H channels; static shared memory)
+template <bool RC>
+int msg_occupancy(bool wide, int A, int H, int S, int* out) {
+  if (wide) return occupancy(edge_bwd_msg_wide<RC, float>, wide_threads(H), 0, out);
+  return occupancy(edge_bwd_msg_centre<RC, 32, float>, H, msg_smem(A, H, S, RC, 32), out);
+}
+#endif
+
 // The narrow kernels take heads of 8, 16, 32 or 64 channels with H a
-// multiple of 32 up to 256; the wide kernel every other H up to WIDE_MAXH
-// whose head count divides it, with W_dkv^T and W_s^T (and K7's W_dkv,
-// W_s) zero-padded to wide_width(H) a half: [2 Hp][Hp] ([Hp][2 Hp]).  The
-// _bf16 entry points take bfloat16 and, last, the float scratch gq_acc
-// [B][A][H] for g_q's sums over the source chunks.
+// multiple of 32 up to 256; the wide kernel every other H whose head count
+// divides it, with W_dkv^T and W_s^T (and K7's W_dkv, W_s) zero-padded to
+// wide_width(H) a half, [2 Hp][Hp] ([Hp][2 Hp]), and the float scratch wrk
+// of B A edge_wide_scratch(1, A, H, H / dh) floats (null for the narrow
+// kernels).  The _bf16 entry points take bfloat16 and, before wrk, the
+// float scratch gq_acc [B][A][H] for g_q's sums over the source chunks.
 extern "C" int AI2BMD_ENTRY(edge_bwd_msg)(
     const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec, const EdgeT* zdkv,
     const EdgeT* zs, const EdgeT* dsh, const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkvT,
@@ -643,14 +639,14 @@ extern "C" int AI2BMD_ENTRY(edge_bwd_msg)(
 #ifdef AI2BMD_STORE_BF16
     float* gq_acc,
 #endif
-    int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
+    float* wrk, int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
 #ifndef AI2BMD_STORE_BF16
   float* gq_acc = gq;
   gq = nullptr;
 #endif
   return launch_msg<false>(q, k, v, vec, zdkv, zs, nullptr, nullptr, nullptr, nullptr, nullptr,
                            dsh, dist, adj, wdkvT, wsT, gx, gva, gq_acc, gq, gk, gv, gvec, gedge,
-                           gdsh, gdist, gk_e, gv_e, nullptr, B, A, H, S, cutoff, dh, stream);
+                           gdsh, gdist, gk_e, gv_e, nullptr, wrk, B, A, H, S, cutoff, dh, stream);
 }
 
 extern "C" int AI2BMD_ENTRY(edge_bwd_msg_rc)(
@@ -662,32 +658,30 @@ extern "C" int AI2BMD_ENTRY(edge_bwd_msg_rc)(
 #ifdef AI2BMD_STORE_BF16
     float* gq_acc,
 #endif
-    int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
+    float* wrk, int B, int A, int H, int S, float cutoff, int dh, cudaStream_t stream) {
 #ifndef AI2BMD_STORE_BF16
   float* gq_acc = gq;
   gq = nullptr;
 #endif
   return launch_msg<true>(q, k, v, vec, nullptr, nullptr, edge, wdkv, bdkv, ws, bs, dsh, dist,
                           adj, wdkvT, wsT, gx, gva, gq_acc, gq, gk, gv, gvec, gedge, gdsh, gdist,
-                          gk_e, gv_e, s1_e, B, A, H, S, cutoff, dh, stream);
+                          gk_e, gv_e, s1_e, wrk, B, A, H, S, cutoff, dh, stream);
 }
 
 #ifndef AI2BMD_STORE_BF16
 // shared memory, blocks per SM, registers and spill bytes of the centre
 // pass, K2 (rc = 0) or K7 (rc = 1)
 extern "C" int edge_bwd_msg_occupancy(int A, int H, int S, int rc, int* out) {
-  return rc ? occupancy(edge_bwd_msg_centre<true, 32, float>, H, msg_smem(A, H, S, true, 32), out)
-            : occupancy(edge_bwd_msg_centre<false, 32, float>, H, msg_smem(A, H, S, false, 32),
-                        out);
+  return rc ? msg_occupancy<true>(false, A, H, S, out) : msg_occupancy<false>(false, A, H, S, out);
 }
 
-// the same for the wide instantiation at H channels and nh heads; out[4]
-// receives the rows of its source chunk
+// the same for the wide instantiation at H channels and nh heads (its shared
+// memory is static); out[4] receives the rows of its source chunk, out[5]
+// the columns of its k-tiles
 extern "C" int edge_bwd_msg_wide_occupancy(int H, int S, int nh, int rc, int* out) {
-  const int CH = wide_chunk(msg_wide_row_bytes(H, S, nh));
-  const size_t smem = CH * msg_wide_row_bytes(H, S, nh);
-  out[4] = CH;
-  return rc ? occupancy(edge_bwd_msg_wide<true, float>, wide_threads(H), smem, out)
-            : occupancy(edge_bwd_msg_wide<false, float>, wide_threads(H), smem, out);
+  (void)nh;
+  out[4] = ECHUNK;
+  out[5] = XTILE;
+  return rc ? msg_occupancy<true>(true, 0, H, S, out) : msg_occupancy<false>(true, 0, H, S, out);
 }
 #endif

@@ -173,29 +173,24 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_upd_centre(
     for (int c = 0; c < S; ++c) gwt[(bi * S + c) * H + t] = st<T>(gwt_acc[(bi * S + c) * H + t]);
 }
 
-// The wide centre pass (common.cuh: every H up to WIDE_MAXH), K3 and K8
-// alike: one block per (fragment, centre atom i) of wide_threads(H)
-// threads, each looping over its channels; the sources in chunks of CH
-// rows (wide_chunk), K8's edge rows in shared memory ([CH][Hp + 4]).  g_zf
-// goes to a scratch of Hp columns (zeros past H), which the row tile reads
-// with W_f zero-padded to [Hp][Hp].  K8 takes zf = edge @ W_f with
-// mma_tiles, the product K1's wide instantiation stores zf with, straight
-// into that scratch, where each thread then reads its zf and writes its
-// g_zf in its place.
-static size_t upd_wide_row_bytes(int H) { return (size_t)mma_ld(wide_width(H)) * sizeof(float); }
-
+// The wide centre pass (common.cuh: every H), K3 and K8 alike: one block
+// per (fragment, centre atom i) of wide_threads(H) threads, each looping
+// over its channels; the sources in chunks of ECHUNK rows.  g_zf goes to a
+// scratch of Hp columns (zeros past H), which the row tile reads with W_f
+// zero-padded to [Hp][Hp].  K8 takes zf = edge @ W_f with mma_tiles over
+// k-tiles of the chunk's edge rows, the product K1's wide instantiation
+// stores zf with, straight into that scratch, where each thread then reads
+// its zf and writes its g_zf in its place.
 template <bool RC, class T>
 __global__ void __launch_bounds__(256, 2) edge_bwd_upd_wide(
     const T* __restrict__ zf, const T* __restrict__ edge,
     const T* __restrict__ wf, const T* __restrict__ bf,
     const T* __restrict__ adj, const T* __restrict__ wt,
     const T* __restrict__ wsrc, const T* __restrict__ gdf, float* __restrict__ gwt_acc,
-    T* __restrict__ gwt, float* __restrict__ gs_e, float* __restrict__ gz, int A, int H, int S,
-    int CH) {
+    T* __restrict__ gwt, float* __restrict__ gs_e, float* __restrict__ gz, int A, int H,
+    int S) {
   constexpr bool B16 = IS_BF16<T> && !RC;
-  extern __shared__ __align__(16) float smem[];
-  const int Hp = wide_width(H), ld = mma_ld(Hp);
-  float* sG = smem;  // K8: [CH][ld] edge rows of the chunk
+  const int Hp = wide_width(H), CH = A < ECHUNK ? A : ECHUNK;
   const int t = threadIdx.x, TB = blockDim.x;
   const int i = blockIdx.x, b = blockIdx.y;
   const size_t bi = (size_t)b * A + i;
@@ -206,9 +201,8 @@ __global__ void __launch_bounds__(256, 2) edge_bwd_upd_wide(
     const int n = A - c0 < CH ? A - c0 : CH;
     const size_t e0 = bi * A + c0;  // the chunk's first edge row (b, i, c0)
     if constexpr (RC) {
-      if (c0) __syncthreads();  // every thread is done with the last chunk's rows
-      load_rows_padded(sG, ld, edge + e0 * H, n, H, Hp);
-      mma_tiles<ECHUNK>(sG, ld, n, Hp, wf, Hp, 0, Hp, gz + e0 * Hp, Hp, Hp);
+      __shared__ __align__(16) float sX[ECHUNK * XTILE_LD];  // a k-tile of the edge rows
+      mma_tiles(sX, edge + e0 * H, H, H, n, Hp, wf, Hp, 0, Hp, gz + e0 * Hp, Hp, Hp);
     }
     for (int ch = t; ch < Hp; ch += TB) {
       if (ch >= H) {
@@ -362,18 +356,13 @@ static int launch_upd(const EdgeT* zf, const EdgeT* edge, const EdgeT* wf, const
                       const EdgeT* adj, const EdgeT* wt, const EdgeT* wsrc, const EdgeT* gdf,
                       EdgeT* gedge, float* gwt_acc, EdgeT* gwt, EdgeT* gwsrc, float* gs_e,
                       float* gz, int B, int A, int H, int S, cudaStream_t stream) {
-  if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || ((size_t)wf & 15) ||
-      ((size_t)gedge & 7))
+  if (A <= 0 || A % RCHUNK || S > MAXS || H <= 0 || ((size_t)wf & 15) || ((size_t)gedge & 7))
     return (int)cudaErrorInvalidValue;
   if (!narrow_update(H)) {
-    const int Hp = wide_width(H), T = wide_threads(H), CH = wide_chunk(upd_wide_row_bytes(H));
-    const size_t smem = RC ? CH * upd_wide_row_bytes(H) : 0;
-    cudaError_t err = cudaFuncSetAttribute(edge_bwd_upd_wide<RC, EdgeT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    edge_bwd_upd_wide<RC, EdgeT><<<dim3(A, B), T, smem, stream>>>(
-        zf, edge, wf, bf, adj, wt, wsrc, gdf, gwt_acc, gwt, gs_e, gz, A, H, S, CH);
-    err = cudaGetLastError();
+    const int Hp = wide_width(H), T = wide_threads(H);
+    edge_bwd_upd_wide<RC, EdgeT><<<dim3(A, B), T, 0, stream>>>(
+        zf, edge, wf, bf, adj, wt, wsrc, gdf, gwt_acc, gwt, gs_e, gz, A, H, S);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     err = launch_row_tile<128, true>(gz, Hp, (size_t)B * A * A, Hp, H, wseg(wf, Hp),
                                      AddIntoCols<EdgeT>{gedge, H, H}, stream);
@@ -402,7 +391,7 @@ static int launch_upd(const EdgeT* zf, const EdgeT* edge, const EdgeT* wf, const
 
 // gedge: the message path's g_edge, which the product adds into in place;
 // gz: [B, A, A, H] scratch for g_zf.  The narrow kernels take H a multiple
-// of 32 up to 256; the wide kernels every other H up to WIDE_MAXH, with W_f
+// of 32 up to 256; the wide kernels every other H, with W_f
 // zero-padded to [Hp][Hp] and gz of [B, A, A, Hp] (Hp = wide_width(H)).
 // The _bf16 entry points take bfloat16 and, last, the float scratch
 // gwt_acc [B][A][S][H] for g_wt's sums over the source chunks.
@@ -450,14 +439,14 @@ extern "C" int edge_bwd_upd_occupancy(int A, int H, int rc, int stage, int* out)
 }
 
 // the same for the wide centre pass (stage 1) or its g_edge product (stage
-// 2) at H channels; out[4] receives the rows of the centre pass's chunk
+// 2) at H channels (the shared memory is static); out[4] receives the rows
+// of the centre pass's chunk, out[5] the columns of K8's k-tiles
 extern "C" int edge_bwd_upd_wide_occupancy(int H, int rc, int stage, int* out) {
-  const int CH = wide_chunk(upd_wide_row_bytes(H));
-  out[4] = CH;
+  out[4] = ECHUNK;
+  out[5] = XTILE;
   if (stage == 2)
     return occupancy(row_tile<128, true, AddIntoCols<float>>, 256, tile_smem<128>(), out);
-  return rc ? occupancy(edge_bwd_upd_wide<true, float>, wide_threads(H),
-                        CH * upd_wide_row_bytes(H), out)
+  return rc ? occupancy(edge_bwd_upd_wide<true, float>, wide_threads(H), 0, out)
             : occupancy(edge_bwd_upd_wide<false, float>, wide_threads(H), 0, out);
 }
 #endif

@@ -225,18 +225,15 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_kernel(
   }
 }
 
-// The wide instantiation (common.cuh: every H up to WIDE_MAXH and every
-// head count): the same chains, a thread looping over its channels in each
-// pass, the head sums through shared memory (block_head_sums), and each
-// product (mma_tiles) into a buffer other than its rows.  Shared memory, for
-// one chunk of CH rows (wide_chunk): sE and sP [CH][Hp + 4], sDsh [CH][S],
-// sGate, sAdj [CH], sA [CH][nh].  The sums over the sources go to the
-// outputs chunk after chunk as in the narrow kernel; vec_agg takes the d_sh
-// half and then the vec half.
-static size_t fwd_wide_row_bytes(int H, int S, int nh) {
-  return (size_t)(2 * mma_ld(wide_width(H)) + S + 2 + nh) * sizeof(float);
-}
-
+// The wide instantiation (common.cuh: every H and every head count that
+// divides it): the same chains, a thread looping over its channels in each
+// pass, each product (mma_tiles) over k-tiles of its rows staged in sX, the
+// head sums from the same tiles (block_head_sums).  A chunk's rows live in
+// the block's slot of the scratch `wrk` (wide_scratch kind 0): P [CH][Hp],
+// each product's output (zf; zk, then the head terms; zv; z2; z1), E
+// [CH][Hp], the messages v_ij (read as 0 past H), sA [CH][nh], a_ij.
+// The sums over the sources go to the outputs chunk after chunk as in the
+// narrow kernel; vec_agg takes the d_sh half and then the vec half.
 template <bool UPDATE, bool STORE, class T>
 __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -248,15 +245,13 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
     const T* __restrict__ wf, const T* __restrict__ bf,
     float* __restrict__ xacc, float* __restrict__ vacc, T* __restrict__ xagg,
     T* __restrict__ vecagg, T* __restrict__ df, T* __restrict__ zdkv, T* __restrict__ zs,
-    T* __restrict__ zf, int A, int H, int S, int nh, int CH, float cutoff) {
-  extern __shared__ __align__(16) float smem[];
-  const int Hp = wide_width(H), ld = mma_ld(Hp), DH = H / nh;
-  float* sE = smem;              // [CH][ld]  edge rows of the chunk, then v_ij
-  float* sP = sE + CH * ld;      // [CH][ld]  zf; zk, then the head terms; zv; z2; z1
-  float* sDsh = sP + CH * ld;    // [CH][S]
-  float* sGate = sDsh + CH * S;  // [CH]     cutoff(r) * adj
-  float* sAdj = sGate + CH;      // [CH]
-  float* sA = sAdj + CH;         // [CH][nh] a_ij
+    T* __restrict__ zf, float* wrk, int A, int H, int S, int nh, float cutoff) {
+  __shared__ __align__(16) float sX[ECHUNK * XTILE_LD];  // a k-tile of a chunk's rows
+  __shared__ float sDsh[ECHUNK * MAXS], sGate[ECHUNK], sAdj[ECHUNK];  // d_sh, cutoff(r) adj, adj
+  const int Hp = wide_width(H), DH = H / nh, CH = A < ECHUNK ? A : ECHUNK;
+  float* P = wrk + block_slot() * wide_scratch(0, A, H, nh);
+  float* E = P + (size_t)CH * Hp;
+  float* sA = E + (size_t)CH * Hp;
 
   const int t = threadIdx.x, TB = blockDim.x;
   const int i = blockIdx.x, b = blockIdx.y;
@@ -267,8 +262,8 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
     const int n = A - c0 < CH ? A - c0 : CH;
     const size_t e0 = bi * A + c0;
     const size_t s0 = (size_t)b * A + c0;
+    const T* rows = edge + e0 * H;  // the chunk's edge rows
     if (c0) __syncthreads();  // every thread is done with the last chunk's rows
-    load_rows_padded(sE, ld, edge + e0 * H, n, H, Hp);
     for (int x = t; x < n * S; x += TB) sDsh[x] = widen(dsh[e0 * S + x]);
     for (int r = t; r < n; r += TB) {
       const float a = widen(adj[e0 + r]);
@@ -278,14 +273,14 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
 
     if (UPDATE) {
       // df = silu(edge @ W_f + b_f) * <wt_i, wsrc_j>_c * adj
-      mma_tiles<ECHUNK>(sE, ld, n, Hp, wf, Hp, 0, Hp, sP, ld, Hp);
+      mma_tiles(sX, rows, H, H, n, Hp, wf, Hp, 0, Hp, P, Hp, Hp);
       for (int ch = t; ch < H; ch += TB) {
         float wti[MAXS];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c) wti[c] = c < S ? widen(wt[(bi * S + c) * H + ch]) : 0.0f;
         const float bft = widen(bf[ch]);
         for (int r = 0; r < n; ++r) {
-          const float z = sP[r * ld + ch] + bft;
+          const float z = P[r * Hp + ch] + bft;
           if (STORE) zf[(e0 + r) * H + ch] = st<T>(z);
           float sdot = 0.0f;
 #pragma unroll
@@ -296,31 +291,31 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
       }
     }
 
-    // zk = edge @ W_dkv[:, :H] + b_k into sP, replaced by the head terms
+    // zk = edge @ W_dkv[:, :H] + b_k into P, replaced by the head terms
     // q_i k_j dk, summed by head into sA
-    mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, 0, Hp, sP, ld, Hp);
+    mma_tiles(sX, rows, H, H, n, Hp, wdkv, 2 * Hp, 0, Hp, P, Hp, Hp);
     for (int ch = t; ch < H; ch += TB) {
       const float qi = widen(q[bi * H + ch]), bk = widen(bdkv[ch]);
       for (int r = 0; r < n; ++r) {
-        const float zk = sP[r * ld + ch] + bk;
+        const float zk = P[r * Hp + ch] + bk;
         if (STORE) zdkv[(e0 + r) * H2 + ch] = st<T>(zk);
-        sP[r * ld + ch] = head_term(qi, widen(k[(s0 + r) * H + ch]), zk);
+        P[r * Hp + ch] = head_term(qi, widen(k[(s0 + r) * H + ch]), zk);
       }
     }
-    block_head_sums(sP, ld, n, nh, DH, sA);
+    block_head_sums(sX, P, Hp, n, H, nh, DH, sA);
 
-    // zv = edge @ W_dkv[:, H:] + b_v into sP; the message v_ij over the
-    // edge rows (the product has read them), x_agg its sum
-    mma_tiles<ECHUNK>(sE, ld, n, Hp, wdkv, 2 * Hp, Hp, Hp, sP, ld, Hp);
+    // zv = edge @ W_dkv[:, H:] + b_v into P; the message v_ij into E, x_agg
+    // its sum
+    mma_tiles(sX, rows, H, H, n, Hp, wdkv, 2 * Hp, Hp, Hp, P, Hp, Hp);
     for (int ch = t; ch < H; ch += TB) {
       const float bv = widen(bdkv[H + ch]);
       float xsum = 0.0f;
       for (int r = 0; r < n; ++r) {
-        const float zv = sP[r * ld + ch] + bv;
+        const float zv = P[r * Hp + ch] + bv;
         if (STORE) zdkv[(e0 + r) * H2 + H + ch] = st<T>(zv);
         const float vij = edge_message(widen(v[(s0 + r) * H + ch]), zv, sA[r * nh + ch / DH],
                                        sGate[r]);
-        sE[r * ld + ch] = vij;
+        E[r * Hp + ch] = vij;
         xsum += vij;
       }
       xacc[bi * H + ch] = c0 ? xacc[bi * H + ch] + xsum : xsum;
@@ -328,14 +323,14 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
 
     // zs = v_ij @ W_s + b_s; s1|s2 = silu(zs) * adj, the d_sh half first:
     // vec_agg[c] += sum_j s2 * d_sh_ij[c], then += sum_j s1 * vec_j[c]
-    mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, Hp, Hp, sP, ld, Hp);
+    mma_tiles(sX, E, Hp, H, n, Hp, ws, 2 * Hp, Hp, Hp, P, Hp, Hp);
     for (int ch = t; ch < H; ch += TB) {
       const float b2 = widen(bs[H + ch]);
       float sum[MAXS];
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) sum[c] = 0.0f;
       for (int r = 0; r < n; ++r) {
-        const float z2 = sP[r * ld + ch] + b2;
+        const float z2 = P[r * Hp + ch] + b2;
         if (STORE) zs[(e0 + r) * H2 + H + ch] = st<T>(z2);
         const float s2 = silu(z2) * sAdj[r];
 #pragma unroll
@@ -350,14 +345,14 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
         }
       }
     }
-    mma_tiles<ECHUNK>(sE, ld, n, Hp, ws, 2 * Hp, 0, Hp, sP, ld, Hp);
+    mma_tiles(sX, E, Hp, H, n, Hp, ws, 2 * Hp, 0, Hp, P, Hp, Hp);
     for (int ch = t; ch < H; ch += TB) {
       const float b1 = widen(bs[ch]);
       float sum[MAXS];
 #pragma unroll
       for (int c = 0; c < MAXS; ++c) sum[c] = 0.0f;
       for (int r = 0; r < n; ++r) {
-        const float z1 = sP[r * ld + ch] + b1;
+        const float z1 = P[r * Hp + ch] + b1;
         if (STORE) zs[(e0 + r) * H2 + ch] = st<T>(z1);
         const float s1 = silu(z1) * sAdj[r];
 #pragma unroll
@@ -381,24 +376,18 @@ __global__ void __launch_bounds__(256, 2) edge_fwd_wide(
 // The launchers take the library's storage type, EdgeT (common.cuh); xacc,
 // vacc: the float sums over the sources (the outputs themselves for float).
 template <bool UPDATE, bool STORE>
-static int launch(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec,
-                  const EdgeT* wt, const EdgeT* wsrc, const EdgeT* edge, const EdgeT* dsh,
-                  const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkv, const EdgeT* bdkv,
-                  const EdgeT* ws, const EdgeT* bs, const EdgeT* wf, const EdgeT* bf,
-                  float* xacc, float* vacc, EdgeT* xagg, EdgeT* vecagg, EdgeT* df, EdgeT* zdkv,
-                  EdgeT* zs, EdgeT* zf, int B, int A, int H, int S, float cutoff, int dh,
-                  cudaStream_t stream) {
+int launch(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec,
+           const EdgeT* wt, const EdgeT* wsrc, const EdgeT* edge, const EdgeT* dsh,
+           const EdgeT* dist, const EdgeT* adj, const EdgeT* wdkv, const EdgeT* bdkv,
+           const EdgeT* ws, const EdgeT* bs, const EdgeT* wf, const EdgeT* bf,
+           float* xacc, float* vacc, EdgeT* xagg, EdgeT* vecagg, EdgeT* df, EdgeT* zdkv,
+           EdgeT* zs, EdgeT* zf, float* wrk, int B, int A, int H, int S, float cutoff,
+           int dh, cudaStream_t stream) {
   if (!narrow_shapes(H, H / dh)) {
-    const int nh = H / dh, CH = wide_chunk(fwd_wide_row_bytes(H, S, nh));
-    const size_t smem = CH * fwd_wide_row_bytes(H, S, nh);
-    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-    auto kern = edge_fwd_wide<UPDATE, STORE, EdgeT>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<dim3(A, B), wide_threads(H), smem, stream>>>(
+    if (wrk == nullptr) return (int)cudaErrorInvalidValue;
+    edge_fwd_wide<UPDATE, STORE, EdgeT><<<dim3(A, B), wide_threads(H), 0, stream>>>(
         q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs, wf, bf, xacc, vacc,
-        xagg, vecagg, df, zdkv, zs, zf, A, H, S, nh, CH, cutoff);
+        xagg, vecagg, df, zdkv, zs, zf, wrk, A, H, S, H / dh, cutoff);
     return (int)cudaGetLastError();
   }
   const size_t smem = fwd_smem(A, H, S);
@@ -414,13 +403,31 @@ static int launch(const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* v
   });
 }
 
+#ifndef AI2BMD_STORE_BF16
+// shared memory, blocks per SM, registers and spill bytes of one flag
+// pair's narrow kernel (heads of 32 channels, A slots) or wide one (H
+// channels; its shared memory is static)
+template <bool UPDATE>
+int fwd_occupancy(bool wide, bool store, int A, int H, int S, int* out) {
+  if (wide) {
+    const int T = wide_threads(H);
+    return store ? occupancy(edge_fwd_wide<UPDATE, true, float>, T, 0, out)
+                 : occupancy(edge_fwd_wide<UPDATE, false, float>, T, 0, out);
+  }
+  const size_t smem = fwd_smem(A, H, S);
+  return store ? occupancy(edge_fwd_kernel<UPDATE, true, 32, float>, H, smem, out)
+               : occupancy(edge_fwd_kernel<UPDATE, false, 32, float>, H, smem, out);
+}
+#endif
+
 // The narrow kernels take heads of 8, 16, 32 or 64 channels with H a
-// multiple of 32 up to 256; the wide kernel every other H up to WIDE_MAXH
-// whose head count divides it, with its weights zero-padded to
-// wide_width(H) a half (W_dkv [Hp][2 Hp], W_s [Hp][2 Hp], W_f [Hp][Hp];
-// the biases and every other tensor as they are).  edge_fwd_launch takes
-// float, edge_fwd_bf16_launch bfloat16 and, after the outputs, the float
-// scratch xacc [B][A][H] and vacc [B][A][S][H] for the sums over the
+// multiple of 32 up to 256; the wide kernel every other H whose head count
+// divides it, with its weights zero-padded to wide_width(H) a half (W_dkv
+// [Hp][2 Hp], W_s [Hp][2 Hp], W_f [Hp][Hp]; the biases and every other
+// tensor as they are) and the float scratch wrk of B A edge_wide_scratch(0,
+// A, H, H / dh) floats (null for the narrow kernels).  edge_fwd_launch
+// takes float, edge_fwd_bf16_launch bfloat16 and, after the outputs, the
+// float scratch xacc [B][A][H] and vacc [B][A][S][H] for the sums over the
 // sources.
 extern "C" int AI2BMD_ENTRY(edge_fwd)(
     const EdgeT* q, const EdgeT* k, const EdgeT* v, const EdgeT* vec, const EdgeT* wt,
@@ -430,19 +437,19 @@ extern "C" int AI2BMD_ENTRY(edge_fwd)(
 #ifdef AI2BMD_STORE_BF16
     float* xacc, float* vacc,
 #endif
-    int B, int A, int H, int S, float cutoff, int update, int store, int dh,
+    float* wrk, int B, int A, int H, int S, float cutoff, int update, int store, int dh,
     cudaStream_t stream) {
 #ifndef AI2BMD_STORE_BF16
   float* xacc = xagg;  // float sums straight into the outputs
   float* vacc = vecagg;
   xagg = vecagg = nullptr;
 #endif
-  if (A <= 0 || A % RCHUNK || S > MAXS || H > WIDE_MAXH || dh <= 0 || H % dh)
+  if (A <= 0 || A % RCHUNK || S > MAXS || H <= 0 || dh <= 0 || H % dh)
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto u, auto s) {
     return launch<decltype(u)::value, decltype(s)::value>(
         q, k, v, vec, wt, wsrc, edge, dsh, dist, adj, wdkv, bdkv, ws, bs, wf, bf, xacc, vacc,
-        xagg, vecagg, df, zdkv, zs, zf, B, A, H, S, cutoff, dh, stream);
+        xagg, vecagg, df, zdkv, zs, zf, wrk, B, A, H, S, cutoff, dh, stream);
   };
   using Y = std::true_type;
   using N = std::false_type;
@@ -453,26 +460,25 @@ extern "C" int AI2BMD_ENTRY(edge_fwd)(
 #ifndef AI2BMD_STORE_BF16
 // shared memory, blocks per SM, registers and spill bytes of one flag pair
 extern "C" int edge_fwd_occupancy(int A, int H, int S, int update, int store, int* out) {
-  const size_t smem = fwd_smem(A, H, S);
-  if (update)
-    return store ? occupancy(edge_fwd_kernel<true, true, 32, float>, H, smem, out)
-                 : occupancy(edge_fwd_kernel<true, false, 32, float>, H, smem, out);
-  return store ? occupancy(edge_fwd_kernel<false, true, 32, float>, H, smem, out)
-               : occupancy(edge_fwd_kernel<false, false, 32, float>, H, smem, out);
+  return update ? fwd_occupancy<true>(false, store, A, H, S, out)
+                : fwd_occupancy<false>(false, store, A, H, S, out);
 }
 
-// the same for the wide instantiation at H channels and nh heads; out[4]
-// receives the rows of its source chunk
+// the same for the wide instantiation at H channels and nh heads (its shared
+// memory is static: no H or nh changes it); out[4] receives the rows of its
+// source chunk, out[5] the columns of its k-tiles
 extern "C" int edge_fwd_wide_occupancy(int H, int S, int nh, int update, int store, int* out) {
-  const int CH = wide_chunk(fwd_wide_row_bytes(H, S, nh));
-  const size_t smem = CH * fwd_wide_row_bytes(H, S, nh);
-  out[4] = CH;
-  const int T = wide_threads(H);
-  if (update)
-    return store ? occupancy(edge_fwd_wide<true, true, float>, T, smem, out)
-                 : occupancy(edge_fwd_wide<true, false, float>, T, smem, out);
-  return store ? occupancy(edge_fwd_wide<false, true, float>, T, smem, out)
-               : occupancy(edge_fwd_wide<false, false, float>, T, smem, out);
+  (void)nh;
+  out[4] = ECHUNK;
+  out[5] = XTILE;
+  return update ? fwd_occupancy<true>(true, store, 0, H, S, out)
+                : fwd_occupancy<false>(true, store, 0, H, S, out);
+}
+
+// Floats of scratch one block of a wide kernel takes: kind 0 K1, kind 1
+// K2/K7 (wide_scratch, common.cuh); the wrappers allocate B A of them.
+extern "C" long long edge_wide_scratch(int kind, int A, int H, int nh) {
+  return (long long)wide_scratch(kind, A, H, nh);
 }
 
 extern "C" const char* ai2bmd_error_string(int err) {

@@ -33,7 +33,7 @@ struct Layer {
   // scratch: node rows, then per-edge rows (see the .cu files), then the
   // backward's node rows
   float *xn, *vecn, *qkv, *proj, *o;
-  float *z, *v_e, *s_e, *g_e, *gS_e;
+  float *z, *v_e, *s_e, *g_e, *gS_e, *a_e;
   float *xo, *xv, *gxagg, *gqkv, *gvecn, *gxh;
   // outputs
   float *x2, *vec2, *edge2, *xagg;          // forward
@@ -41,7 +41,7 @@ struct Layer {
   int B, A, H, S, NP;
   float cutoff;
 };
-constexpr int LAYER_PTRS = 51;
+constexpr int LAYER_PTRS = 52;
 
 __device__ __forceinline__ float ln_eps() { return 1e-5f; }
 
@@ -108,16 +108,22 @@ struct BiasStore {
 // rows, so 36-120 blocks at N = 3H = 768; larger tiles would leave most
 // SMs idle); the B*S*A vector rows 64-row tiles; edge rows 128-row tiles.
 constexpr int NODE_TM = 16, VEC_TM = 64, EDGE_TM = 128;
+// The wide instantiation's products promote each k-slab's sums (row_tile's
+// PROMOTE), which takes a second set of accumulators: its edge rows take
+// 64-row tiles, so that they stay within the 128 registers of two blocks
+// an SM.
+constexpr int EDGE_TM_WIDE = 64;
 
 // The node-side products of the prologue, on rows of W floats (H, or Hp
-// in the wide instantiation): qkv = xn @ W_qkv + b_qkv and
+// in the wide instantiation, PROMOTE): qkv = xn @ W_qkv + b_qkv and
 // proj = vecn @ [W_vp | W_t | W_src].
+template <bool PROMOTE = false>
 static inline cudaError_t launch_node_products(const Layer& p, int W, cudaStream_t stream) {
   const size_t M = (size_t)p.B * p.A, Mv = (size_t)p.B * p.S * p.A;
-  cudaError_t err = launch_row_tile<NODE_TM, false>(p.xn, W, M, W, 3 * W, wseg(p.w_qkv, 3 * W),
-                                                    BiasStore{p.qkv, 3 * W, p.b_qkv}, stream);
+  cudaError_t err = launch_row_tile<NODE_TM, false, PROMOTE>(
+      p.xn, W, M, W, 3 * W, wseg(p.w_qkv, 3 * W), BiasStore{p.qkv, 3 * W, p.b_qkv}, stream);
   if (err != cudaSuccess) return err;
-  return launch_row_tile<VEC_TM, false>(
+  return launch_row_tile<VEC_TM, false, PROMOTE>(
       p.vecn, W, Mv, W, p.NP * W, wseg(p.w_vp, 3 * W, 3 * W, p.w_t, W, 4 * W, p.w_src, W),
       BiasStore{p.proj, p.NP * W, nullptr}, stream);
 }
@@ -152,21 +158,19 @@ __device__ __forceinline__ float head_pre(float qi, float kr, float dk) {
 }
 
 // The shapes K5 and K6 take (``layer_shapes`` and ``check_layer_shapes`` in
-// ops/vismp.py): any A % 8 == 0, S <= 8, and every H up to WIDE_MAXH that
-// the head count H / dh divides.  The narrow instantiations take
-// narrow_shapes(H, H / dh) (common.cuh, as K1, K2 and K7 choose), the wide
-// ones the rest.
+// ops/vismp.py): any A % 8 == 0, S <= 8, and every H that the head count
+// H / dh divides.  The narrow instantiations take narrow_shapes(H, H / dh)
+// (common.cuh, as K1, K2 and K7 choose), the wide ones the rest.
 inline bool layer_shapes_ok(int A, int H, int S, int dh) {
-  return A > 0 && A % RCHUNK == 0 && S <= MAXS && H > 0 && H <= WIDE_MAXH && dh > 0 &&
-         H % dh == 0;
+  return A > 0 && A % RCHUNK == 0 && S <= MAXS && H > 0 && dh > 0 && H % dh == 0;
 }
 
 // ---------------------------------------------------------------------------
 // The wide instantiation of K5 and K6
 // ---------------------------------------------------------------------------
 //
-// Every shape but the narrow ones: heads of any width, any H up to
-// WIDE_MAXH.  As the edge kernels' wide instantiations (common.cuh):
+// Every shape but the narrow ones: heads of any width, any H.  As the edge
+// kernels' wide instantiations (common.cuh):
 // - every scratch row (xn, vecn, qkv, proj, o, x_agg, z, v_e, s_e, g_e,
 //   gS_e, xo, xv, g_xagg, g_qkv, g_vecn, g_xhat) is Hp = wide_width(H)
 //   floats a segment, and every weight and bias is zero-padded to Hp a
@@ -186,19 +190,24 @@ inline bool layer_shapes_ok(int A, int H, int S, int dh) {
 // - a padded channel of a scratch row is 0 after every stage that writes
 //   it (the products read it, and 0 times an unwritten NaN is NaN);
 // - at most 256 threads a block (wide_threads), each looping over the
-//   channels t, t + 256, ...; the LayerNorm statistics run over the H
+//   channels t, t + 256, ...; a sum a thread carries over a centre's
+//   sources (x_agg, g_q) goes to its output after each chunk and is read
+//   back for the next, one chain over the rows in order, so no thread holds
+//   an array of channels; the LayerNorm statistics run over the H
 //   channels, not Hp;
-// - a head sums its dh channels in order from shared memory
-//   (block_head_sums, common.cuh), between block barriers, one (row, head)
-//   a thread; a centre pass stages a chunk of wide_chunk rows.  K5 and K6
-//   stage the same terms (layer_term) in the same order, so K6's
-//   recomputed a_ij equals K5's bitwise;
+// - the head terms go to a scratch row in device memory (v_e, or g_e in
+//   K6's centre pass, free at that stage) and a head sums its dh channels
+//   in order from k-tiles of them staged in shared memory
+//   (block_head_sums, common.cuh), one (row, head) a thread; a_ij go to
+//   s_e's rows (free until the product that fills them), K6's centre pass
+//   takes a_ij and the cotangents' head sums in a_e.  K5 and K6 stage the
+//   same terms (layer_term) in the same order, so K6's recomputed a_ij
+//   equals K5's bitwise;
+// - the centre passes take chunks of ECHUNK sources, their shared memory
+//   static (a k-tile, gates, the warps' partials): none grows with H;
 // - the sums over all channels (g_dist, g_d_sh) take each thread's channels
 //   in order, then the warp (warp_sum), then the warps in order.
 // Every sum runs in a fixed order: the wide kernels are bitwise repeatable.
-
-// Channels a thread of a wide block takes, at most: WIDE_MAXH / 256.
-constexpr int WIDE_MAXC = WIDE_MAXH / 256;
 
 // One channel's term of the attention pre-activation a_ij = sum_head
 // q_i k_j dk, as both directions' wide instantiations stage it.
@@ -256,14 +265,7 @@ static inline cudaError_t launch_node_prologue_wide(const Layer& p, int Hp,
   node_prep_wide<<<(unsigned)((M + Mv + 7) / 8), 256, 0, stream>>>(p, Hp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return launch_node_products(p, Hp, stream);
-}
-
-// Dynamic shared memory above 48 KB needs the kernel's attribute set first.
-template <class Kern>
-static cudaError_t allow_smem(Kern kern, size_t smem) {
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return launch_node_products<true>(p, Hp, stream);
 }
 
 }  // namespace ai2bmd

@@ -542,20 +542,22 @@ struct StreamStore {
 };
 
 // (c), wide: one block per edge row, as vislayer_bwd_rows; the row's head
-// terms into shared memory and their head sums (block_head_sums), then a
-// thread a channel at a time (0 past H).
+// terms into its v_e row, their head sums into its s_e row (block_head_sums
+// over k-tiles staged in sX; s_e is free until (d) fills it), then a thread
+// a channel at a time: v_ij over the terms (0 past H), the sums over c.
 __global__ void __launch_bounds__(256) vislayer_bwd_rows_wide(const Layer p, int Hp, int nh) {
-  extern __shared__ __align__(16) float smem[];
-  float* sT = smem;        // [Hp] head terms
-  float* sA = sT + Hp;     // [nh] a_ij
+  __shared__ __align__(16) float sX[XTILE_LD];  // a k-tile of the row's terms
   const int t = threadIdx.x, T = blockDim.x, A = p.A, H = p.H, dh = H / nh, H3 = 3 * Hp,
             S = p.S;
   const size_t e = blockIdx.x;
   const EdgeRow r(e, A);
   const size_t bj = r.b0 + r.j;
+  float* terms = p.v_e + e * Hp;
+  float* sA = p.s_e + e * 2 * Hp;  // [nh] a_ij
   for (int ch = t; ch < H; ch += T)
-    sT[ch] = layer_term(p.qkv[r.bi * H3 + ch], p.qkv[bj * H3 + Hp + ch], silu(p.z[e * H3 + ch]));
-  block_head_sums(sT, Hp, 1, nh, dh, sA);
+    terms[ch] = layer_term(p.qkv[r.bi * H3 + ch], p.qkv[bj * H3 + Hp + ch],
+                           silu(p.z[e * H3 + ch]));
+  block_head_sums(sX, terms, Hp, 1, H, nh, dh, sA);
   const float gate = cosine_cutoff(p.dist[e], p.cutoff) * p.adj[e];
   for (int ch = t; ch < Hp; ch += T) {
     float vij = 0.0f, g1 = 0.0f, g2 = 0.0f;
@@ -600,48 +602,32 @@ __global__ void __launch_bounds__(256) vislayer_bwd_gwt_wide(const Layer p, int 
   }
 }
 
-// shared memory of the wide centre pass a source row: the head terms (then
-// g_g3 gate), a_ij and their cotangents' head sums, adj, gate, the cutoff's
-// derivative, the warps' partials of g_dist and g_d_sh
-static size_t centre_wide_row_bytes(int Hp, int nh, int S, int warps) {
-  return (size_t)(Hp + 2 * nh + 3 + warps + warps * S) * sizeof(float);
-}
-
-// rows of the wide centre pass's source chunk
-static int centre_wide_chunk(int H, int nh, int S) {
-  return wide_chunk(centre_wide_row_bytes(wide_width(H), nh, S, wide_threads(H) / 32));
-}
-
-// (f), wide: the attention backward of vislayer_bwd_centre, per chunk of CH
-// sources: the head terms and a_ij (block_head_sums, as K5 stages them);
-// then a row at a time, each thread over its channels, g_g3 gate into sT
-// and the terms of g_dist and g_d_sh summed over the thread's channels, the
-// warp (warp_sum) and, after the chunk, the warps in order; the head sums
-// of g_g3 gate; then a thread a channel at a time: g_q_i (one register
-// chain a channel over all rows), the g_k and g_v terms -> g_e, g_dkv ->
-// z[:, :2 Hp] (0 past H).
-__global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, int Hp, int nh,
-                                                                int CH) {
-  extern __shared__ __align__(16) float smem[];
+// (f), wide: the attention backward of vislayer_bwd_centre, per chunk of
+// ECHUNK sources: the head terms into the chunk's g_e rows (free until
+// this pass writes its outputs there) and a_ij into a_e (block_head_sums
+// over k-tiles staged in sX, as K5 stages them); then a row at a time, each
+// thread over its channels, g_g3 gate into the g_e rows and the terms of
+// g_dist and g_d_sh summed over the thread's channels, the warp (warp_sum)
+// and, after the chunk, the warps in order; the head sums of g_g3 gate
+// into a_e; then a thread a channel at a time: g_q_i (one chain a channel
+// over all rows, carried from chunk to chunk in g_qkv itself), the g_k and
+// g_v terms -> g_e, g_dkv -> z[:, :2 Hp] (0 past H).
+__global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, int Hp, int nh) {
+  __shared__ __align__(16) float sX[ECHUNK * XTILE_LD];  // a k-tile of the chunk's terms
+  __shared__ float sAdj[ECHUNK], sGate[ECHUNK], sDcut[ECHUNK];
+  __shared__ float sRedCut[8 * ECHUNK], sRedDsh[8 * MAXS * ECHUNK];  // [NW][CH], [NW][S][CH]
+  constexpr int CH = ECHUNK;
   const int t = threadIdx.x, T = blockDim.x, w = t / 32, lane = t % 32, NW = T / 32;
-  const int A = p.A, H = p.H, dh = H / nh, H3 = 3 * Hp, S = p.S;
-  float* sT = smem;                     // [CH][Hp] head terms, then g_g3 gate
-  float* sA = sT + CH * Hp;             // [CH][nh] a_ij
-  float* sGa = sA + CH * nh;            // [CH][nh] head sums of g_g3 gate
-  float* sAdj = sGa + CH * nh;          // [CH]
-  float* sGate = sAdj + CH;             // [CH]
-  float* sDcut = sGate + CH;            // [CH]
-  float* sRedCut = sDcut + CH;          // [NW][CH]
-  float* sRedDsh = sRedCut + NW * CH;   // [NW][S][CH]
+  const int A = p.A, H = p.H, dh = H / nh, H3 = 3 * Hp, S = p.S, ldt = 2 * Hp;
   const size_t bi = (size_t)blockIdx.y * A + blockIdx.x, b0 = bi - blockIdx.x, b = blockIdx.y,
                i = blockIdx.x;
   const float kpi = 3.14159265358979323846f / p.cutoff;
-  float gqi[WIDE_MAXC];
-#pragma unroll
-  for (int j = 0; j < WIDE_MAXC; ++j) gqi[j] = 0.0f;
   for (int c0 = 0; c0 < A; c0 += CH) {
     const int n = A - c0 < CH ? A - c0 : CH;
     const size_t e0 = bi * A + c0, s0 = b0 + c0;
+    float* terms = p.g_e + e0 * ldt;     // [n] rows at stride 2 Hp: head terms, then g_g3 gate
+    float* sA = p.a_e + e0 * 2 * nh;     // [n][nh] a_ij
+    float* sGa = sA + (size_t)n * nh;    // [n][nh] head sums of g_g3 gate
     if (c0) __syncthreads();  // every thread is done with the last chunk's rows and partials
     for (int r = t; r < n; r += T) {
       const float a = p.adj[e0 + r], d = p.dist[e0 + r];
@@ -652,10 +638,10 @@ __global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, i
     for (int ch = t; ch < H; ch += T) {
       const float qi = p.qkv[bi * H3 + ch];
       for (int r = 0; r < n; ++r)
-        sT[r * Hp + ch] = layer_term(qi, p.qkv[(s0 + r) * H3 + Hp + ch],
-                                     silu(p.z[(e0 + r) * H3 + ch]));
+        terms[r * ldt + ch] = layer_term(qi, p.qkv[(s0 + r) * H3 + Hp + ch],
+                                         silu(p.z[(e0 + r) * H3 + ch]));
     }
-    block_head_sums(sT, Hp, n, nh, dh, sA);
+    block_head_sums(sX, terms, ldt, n, H, nh, dh, sA);
     for (int r = 0; r < n; ++r) {
       const size_t e = e0 + r;
       const float gate = sGate[r];
@@ -667,7 +653,7 @@ __global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, i
         const float vr = p.qkv[(s0 + r) * H3 + 2 * Hp + ch];
         const float g_g3 = gvij * vr * silu(p.z[e * H3 + Hp + ch]);
         cut = fmaf(g_g3, silu(sA[r * nh + ch / dh]), cut);
-        sT[r * Hp + ch] = g_g3 * gate;
+        terms[r * ldt + ch] = g_g3 * gate;
         const float s2 = p.s_e[e * 2 * Hp + Hp + ch];
 #pragma unroll
         for (int c = 0; c < MAXS; ++c)
@@ -683,21 +669,20 @@ __global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, i
         }
       }
     }
-    block_head_sums(sT, Hp, n, nh, dh, sGa);
-#pragma unroll
-    for (int j = 0; j < WIDE_MAXC; ++j) {
-      const int ch = t + j * T;
-      if (ch >= Hp) continue;
+    block_head_sums(sX, terms, ldt, n, H, nh, dh, sGa);
+    for (int ch = t; ch < Hp; ch += T) {
       if (ch >= H) {
         for (int r = 0; r < n; ++r) {
           const size_t e = e0 + r;
           p.g_e[e * 2 * Hp + ch] = p.g_e[e * 2 * Hp + Hp + ch] = 0.0f;
           p.z[e * H3 + ch] = p.z[e * H3 + Hp + ch] = 0.0f;
         }
+        if (c0 == 0) p.gqkv[bi * H3 + ch] = 0.0f;
         continue;
       }
       const float qi = p.qkv[bi * H3 + ch];
       const int h = ch / dh;
+      float gqi = c0 ? p.gqkv[bi * H3 + ch] : 0.0f;
       for (int r = 0; r < n; ++r) {
         const size_t e = e0 + r;
         const float gvij = p.v_e[e * Hp + ch];
@@ -707,12 +692,13 @@ __global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, i
         const float vr = p.qkv[(s0 + r) * H3 + 2 * Hp + ch];
         const float a = sA[r * nh + h], g3 = silu(a) * sGate[r];
         const float g_a = sGa[r * nh + h] * dsilu(a);
-        gqi[j] = fmaf(g_a * kr, dk, gqi[j]);
+        gqi = fmaf(g_a * kr, dk, gqi);
         p.g_e[e * 2 * Hp + ch] = g_a * qi * dk;
         p.g_e[e * 2 * Hp + Hp + ch] = gvij * dv * g3;
         p.z[e * H3 + ch] = g_a * qi * kr * dsilu(zk);
         p.z[e * H3 + Hp + ch] = gvij * vr * g3 * dsilu(zv);
       }
+      p.gqkv[bi * H3 + ch] = gqi;
     }
     // the chunk's partials are written (block_head_sums ends with a barrier)
     for (int r = t; r < n; r += T) {
@@ -727,9 +713,6 @@ __global__ void __launch_bounds__(256) vislayer_bwd_centre_wide(const Layer p, i
       p.gdsh[((b * S + c) * A + i) * A + c0 + r] = sum;
     }
   }
-#pragma unroll
-  for (int j = 0; j < WIDE_MAXC; ++j)
-    if (t + j * T < Hp) p.gqkv[bi * H3 + t + j * T] = gqi[j];
 }
 
 // (h), wide: as vislayer_bwd_source, a thread a channel at a time at Hp;
@@ -810,53 +793,48 @@ cudaError_t launch_bwd_wide(const Layer& p, int nh, cudaStream_t stream) {
   cudaError_t err = launch_node_prologue_wide(p, Hp, stream);
   if (err != cudaSuccess) return err;
   // (a) o1|o2, the node rows, g_xagg
-  err = launch_row_tile<NODE_TM, false>(p.xagg_in, Hp, M, Hp, 2 * Hp, wseg(p.w_o, H3),
+  err = launch_row_tile<NODE_TM, false, true>(p.xagg_in, Hp, M, Hp, 2 * Hp, wseg(p.w_o, H3),
                                         BiasStore{p.o, H3, p.b_o}, stream);
   if (err != cudaSuccess) return err;
   vislayer_bwd_node_rows_wide<<<(unsigned)M, T, 0, stream>>>(p, Hp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_row_tile<NODE_TM, true>(p.xo, H3, M, H3, Hp, wseg(p.w_o, H3),
+  err = launch_row_tile<NODE_TM, true, true>(p.xo, H3, M, H3, Hp, wseg(p.w_o, H3),
                                        Store{p.gxagg, Hp, nullptr, nullptr}, stream);
   if (err != cudaSuccess) return err;
   // (b)-(g) the edge stage; v_e holds the padded edge rows until (c)
   const float* X;
   if ((err = padded_edge_rows(p, Hp, p.v_e, &X, stream)) != cudaSuccess) return err;
-  err = launch_row_tile<EDGE_TM, false>(X, Hp, E, Hp, last ? 2 * Hp : H3,
+  err = launch_row_tile<EDGE_TM_WIDE, false, true>(X, Hp, E, Hp, last ? 2 * Hp : H3,
                                         wseg(p.w_dkv, 2 * Hp, 2 * Hp, p.w_f, Hp),
                                         EdgeEpiWide{p, Hp}, stream);
   if (err != cudaSuccess) return err;
-  const size_t rows_smem = (size_t)(Hp + nh) * sizeof(float);
-  if ((err = allow_smem(vislayer_bwd_rows_wide, rows_smem)) != cudaSuccess) return err;
-  vislayer_bwd_rows_wide<<<(unsigned)E, T, rows_smem, stream>>>(p, Hp, nh);
+  vislayer_bwd_rows_wide<<<(unsigned)E, T, 0, stream>>>(p, Hp, nh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (!last) {
     vislayer_bwd_gwt_wide<<<centres, T, 0, stream>>>(p, Hp);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  err = launch_row_tile<EDGE_TM, false>(p.v_e, Hp, E, Hp, 2 * Hp, wseg(p.w_s, 2 * Hp),
+  err = launch_row_tile<EDGE_TM_WIDE, false, true>(p.v_e, Hp, E, Hp, 2 * Hp, wseg(p.w_s, 2 * Hp),
                                         SEpiWide{p, Hp}, stream);
   if (err != cudaSuccess) return err;
-  err = launch_row_tile<EDGE_TM, true>(p.g_e, 2 * Hp, E, 2 * Hp, Hp, wseg(p.w_s, 2 * Hp),
+  err = launch_row_tile<EDGE_TM_WIDE, true, true>(p.g_e, 2 * Hp, E, 2 * Hp, Hp, wseg(p.w_s, 2 * Hp),
                                        GvEpiWide{p, Hp}, stream);
   if (err != cudaSuccess) return err;
-  const int CH = centre_wide_chunk(H, nh, p.S);
-  const size_t smem = CH * centre_wide_row_bytes(Hp, nh, p.S, T / 32);
-  if ((err = allow_smem(vislayer_bwd_centre_wide, smem)) != cudaSuccess) return err;
-  vislayer_bwd_centre_wide<<<centres, T, smem, stream>>>(p, Hp, nh, CH);
+  vislayer_bwd_centre_wide<<<centres, T, 0, stream>>>(p, Hp, nh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_row_tile<EDGE_TM, true>(p.z, H3, E, last ? 2 * Hp : H3, Hp,
+  err = launch_row_tile<EDGE_TM_WIDE, true, true>(p.z, H3, E, last ? 2 * Hp : H3, Hp,
                                        wseg(p.w_dkv, 2 * Hp, 2 * Hp, p.w_f, Hp),
                                        StreamStore{p, Hp, p.gedge, p.gedge2, false}, stream);
   if (err != cudaSuccess) return err;
   // (h), (i)
   vislayer_bwd_source_wide<<<dim3(p.A, p.B, last ? 2 : 4), T, 0, stream>>>(p, Hp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_row_tile<NODE_TM, true>(p.gqkv, H3, M, H3, Hp, wseg(p.w_qkv, H3),
+  err = launch_row_tile<NODE_TM, true, true>(p.gqkv, H3, M, H3, Hp, wseg(p.w_qkv, H3),
                                        Store{p.gxh, Hp, nullptr, p.ln_s}, stream);
   if (err != cudaSuccess) return err;
   vislayer_bwd_ln_rows_wide<<<(unsigned)((M + 7) / 8), 256, 0, stream>>>(p, Hp);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return launch_row_tile<VEC_TM, true>(
+  return launch_row_tile<VEC_TM, true, true>(
       p.xv, p.NP * Hp, Mv, p.NP * Hp, Hp, wseg(p.w_vp, H3, H3, p.w_t, Hp, 4 * Hp, p.w_src, Hp),
       StreamStore{p, Hp, p.gvec, nullptr, true}, stream);
 }
@@ -870,7 +848,8 @@ cudaError_t launch_bwd_wide(const Layer& p, int nh, cudaStream_t stream) {
 // gqkv, gvecn and gxh; and writes gx, gvec, gedge, gdsh and gdist.  dh =
 // H / nh, the channels of a head.  The wide instantiation (every shape but
 // narrow_shapes(H, nh)) takes its scratch, xagg_in and every weight at Hp =
-// wide_width(H) a segment (vislayer.cuh).
+// wide_width(H) a segment, and a_e ([E][2 nh]; null for the narrow one)
+// (vislayer.cuh).
 extern "C" int vislayer_bwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
                                    int S, float cutoff, int last, int dh, cudaStream_t stream) {
   static_assert(offsetof(Layer, B) == LAYER_PTRS * sizeof(void*), "Layer: pointers first");
@@ -910,24 +889,31 @@ extern "C" int vislayer_bwd_occupancy(int A, int H, int S, int stage, int* out) 
 // and nh heads: 0 node rows, 1 edge @ [W_dkv | W_f], 2 edge-row pass, 3
 // g_wt, 4 v_e @ W_s, 5 g_e @ W_s^T, 6 centre pass, 7 [g_dkv | g_zf] @
 // [W_dkv ; W_f]^T, 8 source pass, 9 the LayerNorm's rows, 10 gvec (vector
-// rows); out[4] receives the rows of the centre pass's source chunk
+// rows); out[4] receives the rows of the centre pass's source chunk, out[5]
+// the columns of its k-tiles (its shared memory is static: no H or nh
+// changes it)
 extern "C" int vislayer_bwd_wide_occupancy(int H, int S, int nh, int stage, int* out) {
-  const int Hp = wide_width(H), T = wide_threads(H), CH = centre_wide_chunk(H, nh, S);
-  out[4] = CH;
+  (void)S, (void)nh;
+  const int T = wide_threads(H);
+  out[4] = ECHUNK;
+  out[5] = XTILE;
   switch (stage) {
     case 0: return occupancy(vislayer_bwd_node_rows_wide, T, 0, out);
-    case 1: return occupancy(row_tile<EDGE_TM, false, EdgeEpiWide>, 256, tile_smem<EDGE_TM>(), out);
-    case 2: return occupancy(vislayer_bwd_rows_wide, T, (size_t)(Hp + nh) * sizeof(float), out);
+    case 1: return occupancy(row_tile<EDGE_TM_WIDE, false, EdgeEpiWide, float, true>, 256,
+                                    tile_smem<EDGE_TM_WIDE>(), out);
+    case 2: return occupancy(vislayer_bwd_rows_wide, T, 0, out);
     case 3: return occupancy(vislayer_bwd_gwt_wide, T, 0, out);
-    case 4: return occupancy(row_tile<EDGE_TM, false, SEpiWide>, 256, tile_smem<EDGE_TM>(), out);
-    case 5: return occupancy(row_tile<EDGE_TM, true, GvEpiWide>, 256, tile_smem<EDGE_TM>(), out);
-    case 6:
-      return occupancy(vislayer_bwd_centre_wide, T, CH * centre_wide_row_bytes(Hp, nh, S, T / 32),
-                       out);
-    case 7: return occupancy(row_tile<EDGE_TM, true, StreamStore>, 256, tile_smem<EDGE_TM>(), out);
+    case 4: return occupancy(row_tile<EDGE_TM_WIDE, false, SEpiWide, float, true>, 256,
+                                    tile_smem<EDGE_TM_WIDE>(), out);
+    case 5: return occupancy(row_tile<EDGE_TM_WIDE, true, GvEpiWide, float, true>, 256,
+                                    tile_smem<EDGE_TM_WIDE>(), out);
+    case 6: return occupancy(vislayer_bwd_centre_wide, T, 0, out);
+    case 7: return occupancy(row_tile<EDGE_TM_WIDE, true, StreamStore, float, true>, 256,
+                                    tile_smem<EDGE_TM_WIDE>(), out);
     case 8: return occupancy(vislayer_bwd_source_wide, T, 0, out);
     case 9: return occupancy(vislayer_bwd_ln_rows_wide, 256, 0, out);
-    case 10: return occupancy(row_tile<VEC_TM, true, StreamStore>, 256, tile_smem<VEC_TM>(), out);
+    case 10: return occupancy(row_tile<VEC_TM, true, StreamStore, float, true>, 256,
+                                     tile_smem<VEC_TM>(), out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

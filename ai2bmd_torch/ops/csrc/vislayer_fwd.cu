@@ -251,57 +251,45 @@ struct SEpiWide {
   }
 };
 
-// shared memory of centre pass 1 a source row: the head terms, a_ij, the gate
-static size_t centre1_wide_row_bytes(int Hp, int nh) {
-  return (size_t)(Hp + nh + 1) * sizeof(float);
-}
-
-// (c), wide: per chunk of CH sources, the head terms q_i k_j dk of the H
-// channels into sT, their head sums a_ij into sA (block_head_sums), then a
-// thread a channel at a time: v_ij -> v_e (0 past H), x_agg_i = sum_j v_ij
-// (at Hp), one register chain a channel over the rows in order.
-__global__ void __launch_bounds__(256) vislayer_fwd_centre1_wide(const Layer p, int Hp, int nh,
-                                                                 int CH) {
-  extern __shared__ __align__(16) float smem[];
-  float* sT = smem;             // [CH][Hp] head terms
-  float* sA = sT + CH * Hp;     // [CH][nh] a_ij
-  float* sGate = sA + CH * nh;  // [CH]
+// (c), wide: per chunk of ECHUNK sources, the head terms q_i k_j dk of the
+// H channels into the chunk's v_e rows, their head sums a_ij into its s_e
+// rows (block_head_sums over k-tiles staged in sX; s_e is free until (d)
+// fills it), then a thread a channel at a time: v_ij -> v_e over the terms
+// (0 past H), x_agg_i = sum_j v_ij (at Hp), one chain a channel over the
+// rows in order, carried from chunk to chunk in x_agg itself.
+__global__ void __launch_bounds__(256) vislayer_fwd_centre1_wide(const Layer p, int Hp, int nh) {
+  __shared__ __align__(16) float sX[ECHUNK * XTILE_LD];
+  __shared__ float sGate[ECHUNK];
   const int t = threadIdx.x, T = blockDim.x, A = p.A, H = p.H, dh = H / nh, ldq = 3 * Hp;
   const size_t bi = (size_t)blockIdx.y * A + blockIdx.x, b0 = bi - blockIdx.x;
-  float xsum[WIDE_MAXC];
-#pragma unroll
-  for (int j = 0; j < WIDE_MAXC; ++j) xsum[j] = 0.0f;
-  for (int c0 = 0; c0 < A; c0 += CH) {
-    const int n = A - c0 < CH ? A - c0 : CH;
+  for (int c0 = 0; c0 < A; c0 += ECHUNK) {
+    const int n = A - c0 < ECHUNK ? A - c0 : ECHUNK;
     const size_t e0 = bi * A + c0, s0 = b0 + c0;
-    if (c0) __syncthreads();  // every thread is done with the last chunk's terms
+    float* terms = p.v_e + e0 * Hp;   // [n][Hp]
+    float* sA = p.s_e + e0 * 2 * Hp;  // [n][nh] a_ij
+    if (c0) __syncthreads();  // every thread is done with the last chunk's gates
     load_gate(p.dist, p.adj, n, p.cutoff, e0, sGate);
     for (int ch = t; ch < H; ch += T) {
       const float qi = p.qkv[bi * ldq + ch];
       for (int r = 0; r < n; ++r)
-        sT[r * Hp + ch] = layer_term(qi, p.qkv[(s0 + r) * ldq + Hp + ch],
-                                     p.z[(e0 + r) * 2 * Hp + ch]);
+        terms[r * Hp + ch] = layer_term(qi, p.qkv[(s0 + r) * ldq + Hp + ch],
+                                        p.z[(e0 + r) * 2 * Hp + ch]);
     }
-    block_head_sums(sT, Hp, n, nh, dh, sA);
-#pragma unroll
-    for (int j = 0; j < WIDE_MAXC; ++j) {
-      const int ch = t + j * T;
-      if (ch < Hp) {
-        for (int r = 0; r < n; ++r) {
-          const size_t e = e0 + r;
-          const float vij = ch < H ? p.qkv[(s0 + r) * ldq + 2 * Hp + ch] *
-                                         p.z[e * 2 * Hp + Hp + ch] *
-                                         (silu(sA[r * nh + ch / dh]) * sGate[r])
-                                   : 0.0f;
-          p.v_e[e * Hp + ch] = vij;
-          xsum[j] += vij;
-        }
+    block_head_sums(sX, terms, Hp, n, H, nh, dh, sA);
+    for (int ch = t; ch < Hp; ch += T) {
+      float xsum = c0 ? p.xagg[bi * Hp + ch] : 0.0f;
+      for (int r = 0; r < n; ++r) {
+        const size_t e = e0 + r;
+        const float vij = ch < H ? p.qkv[(s0 + r) * ldq + 2 * Hp + ch] *
+                                       p.z[e * 2 * Hp + Hp + ch] *
+                                       (silu(sA[r * nh + ch / dh]) * sGate[r])
+                                 : 0.0f;
+        p.v_e[e * Hp + ch] = vij;
+        xsum += vij;
       }
+      p.xagg[bi * Hp + ch] = xsum;
     }
   }
-#pragma unroll
-  for (int j = 0; j < WIDE_MAXC; ++j)
-    if (t + j * T < Hp) p.xagg[bi * Hp + t + j * T] = xsum[j];
 }
 
 // (f), wide: as vislayer_fwd_centre2, the channels in turns of T threads
@@ -357,11 +345,6 @@ __global__ void __launch_bounds__(256) vislayer_fwd_centre2_wide(const Layer p, 
   }
 }
 
-// rows of centre pass 1's source chunk at width H with nh heads
-static int centre1_wide_chunk(int H, int nh) {
-  return wide_chunk(centre1_wide_row_bytes(wide_width(H), nh));
-}
-
 cudaError_t launch_fwd_wide(const Layer& p, int nh, cudaStream_t stream) {
   const int H = p.H, Hp = wide_width(H), T = wide_threads(H);
   const bool last = p.NP == 3;
@@ -376,19 +359,16 @@ cudaError_t launch_fwd_wide(const Layer& p, int nh, cudaStream_t stream) {
   }
   const float* X;
   if ((err = padded_edge_rows(p, Hp, p.v_e, &X, stream)) != cudaSuccess) return err;
-  err = launch_row_tile<EDGE_TM, false>(X, Hp, E, Hp, last ? 2 * Hp : 3 * Hp,
+  err = launch_row_tile<EDGE_TM_WIDE, false, true>(X, Hp, E, Hp, last ? 2 * Hp : 3 * Hp,
                                         wseg(p.w_dkv, 2 * Hp, 2 * Hp, p.w_f, Hp),
                                         EdgeEpiWide{p, Hp}, stream);
   if (err != cudaSuccess) return err;
-  const int CH = centre1_wide_chunk(H, nh);
-  const size_t smem = CH * centre1_wide_row_bytes(Hp, nh);
-  if ((err = allow_smem(vislayer_fwd_centre1_wide, smem)) != cudaSuccess) return err;
-  vislayer_fwd_centre1_wide<<<centres, T, smem, stream>>>(p, Hp, nh, CH);
+  vislayer_fwd_centre1_wide<<<centres, T, 0, stream>>>(p, Hp, nh);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  err = launch_row_tile<EDGE_TM, false>(p.v_e, Hp, E, Hp, 2 * Hp, wseg(p.w_s, 2 * Hp),
+  err = launch_row_tile<EDGE_TM_WIDE, false, true>(p.v_e, Hp, E, Hp, 2 * Hp, wseg(p.w_s, 2 * Hp),
                                         SEpiWide{p, Hp}, stream);
   if (err != cudaSuccess) return err;
-  err = launch_row_tile<NODE_TM, false>(p.xagg, Hp, M, Hp, 3 * Hp, wseg(p.w_o, 3 * Hp),
+  err = launch_row_tile<NODE_TM, false, true>(p.xagg, Hp, M, Hp, 3 * Hp, wseg(p.w_o, 3 * Hp),
                                         BiasStore{p.o, 3 * Hp, p.b_o}, stream);
   if (err != cudaSuccess) return err;
   vislayer_fwd_centre2_wide<<<centres, T, 0, stream>>>(p, Hp);
@@ -400,7 +380,7 @@ cudaError_t launch_fwd_wide(const Layer& p, int nh, cudaStream_t stream) {
 // ptrs: the LAYER_PTRS pointers of Layer in field order (ops/vislayer.py,
 // PTR_FIELDS); the forward reads x..b_f, uses the scratch xn, vecn, qkv,
 // proj, o, z ([E][2H]), v_e ([E][H]) and s_e ([E][2H]), and writes x2,
-// vec2, edge2 and xagg.  dh = H / nh, the channels of a head.  The wide
+// vec2, edge2 and xagg (a_e unused).  dh = H / nh, the channels of a head.  The wide
 // instantiation (every shape but narrow_shapes(H, nh)) takes its scratch,
 // x_agg and every weight at Hp = wide_width(H) a segment (vislayer.cuh).
 extern "C" int vislayer_fwd_launch(const void* const* ptrs, int n_ptrs, int B, int A, int H,
@@ -435,16 +415,19 @@ extern "C" int vislayer_fwd_occupancy(int A, int H, int S, int stage, int* out) 
 // the same for the wide instantiation at H channels and nh heads: 0 edge
 // @ [W_dkv | W_f], 1 centre pass 1, 2 v_e @ W_s, 3 centre pass 2, 4 the
 // node rows (xn, vecn), 5 the edge rows' padding; out[4] receives the rows
-// of centre pass 1's source chunk
+// of centre pass 1's source chunk, out[5] the columns of its k-tiles (its
+// shared memory is static: no H or nh changes it)
 extern "C" int vislayer_fwd_wide_occupancy(int H, int S, int nh, int stage, int* out) {
-  (void)S;
-  const int Hp = wide_width(H), T = wide_threads(H), CH = centre1_wide_chunk(H, nh);
-  out[4] = CH;
+  (void)S, (void)nh;
+  const int T = wide_threads(H);
+  out[4] = ECHUNK;
+  out[5] = XTILE;
   switch (stage) {
-    case 0: return occupancy(row_tile<EDGE_TM, false, EdgeEpiWide>, 256, tile_smem<EDGE_TM>(), out);
-    case 1:
-      return occupancy(vislayer_fwd_centre1_wide, T, CH * centre1_wide_row_bytes(Hp, nh), out);
-    case 2: return occupancy(row_tile<EDGE_TM, false, SEpiWide>, 256, tile_smem<EDGE_TM>(), out);
+    case 0: return occupancy(row_tile<EDGE_TM_WIDE, false, EdgeEpiWide, float, true>, 256,
+                                    tile_smem<EDGE_TM_WIDE>(), out);
+    case 1: return occupancy(vislayer_fwd_centre1_wide, T, 0, out);
+    case 2: return occupancy(row_tile<EDGE_TM_WIDE, false, SEpiWide, float, true>, 256,
+                                    tile_smem<EDGE_TM_WIDE>(), out);
     case 3: return occupancy(vislayer_fwd_centre2_wide, T, 0, out);
     case 4: return occupancy(node_prep_wide, 256, 0, out);
     case 5: return occupancy(pad_rows, 256, 0, out);

@@ -25,12 +25,12 @@ the current mode's plain route, ``vismp.route_mm``) and launches its kernel
 from the current mode's library for CUDA tensors; there is no other route.
 ``fused_layer`` is what the model calls.
 
-The kernels take every H up to ``vismp.EDGE_MAXH`` that the head count
-divides (``vismp.layer_shapes``): their narrow instantiations heads of 8,
-16, 32 or 64 channels with H a multiple of 32 up to 256, their wide ones
-every other shape, with every weight zero-padded to wide_width(H) a segment
-(``padded_layer_weights``; a model pads its layers once, the wrappers pad
-what comes unpadded).  The wrappers and the plain versions take the weights
+The kernels take every H that the head count divides
+(``vismp.layer_shapes``; no constant bounds H): their narrow
+instantiations heads of 8, 16, 32 or 64 channels with H a multiple of 32
+up to 256, their wide ones every other shape, with every weight
+zero-padded to wide_width(H) a segment (``padded_layer_weights``; a model
+pads its layers once, the wrappers pad what comes unpadded).  The wrappers and the plain versions take the weights
 padded or not, with the same result.
 """
 
@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from ai2bmd_torch.ops import LAUNCHES, _build
-from ai2bmd_torch.ops.vismp import (check_layer_shapes, edge_fwd_plain, padded_weight, route,
-                                    route_mm, unpadded_weight, wide_width)
+from ai2bmd_torch.ops.vismp import (check_layer_shapes, edge_fwd_plain, narrow_shapes,
+                                    padded_weight, route, route_mm, unpadded_weight, wide_width)
 
 _f32 = torch.float32
 _LN_EPS = 1e-5
@@ -64,7 +64,7 @@ PTR_FIELDS = (
     "w_o", "b_o", "w_t", "w_src", "w_f", "b_f",
     "xagg_in", "gx2", "gvec2", "gedge2",
     "xn", "vecn", "qkv", "proj", "o",
-    "z", "v_e", "s_e", "g_e", "gS_e",
+    "z", "v_e", "s_e", "g_e", "gS_e", "a_e",
     "xo", "xv", "gxagg", "gqkv", "gvecn", "gxh",
     "x2", "vec2", "edge2", "xagg",
     "gx", "gvec", "gedge", "gdsh", "gdist",
@@ -303,7 +303,9 @@ def vislayer_bwd(x, vec, edge, d_sh, dist, adj, weights, xagg, gx2, gvec2, gedge
     t.update(
         _node_scratch(new, B, A, Hp, S, last), xagg_in=xagg, gx2=gx2, gvec2=gvec2,
         gedge2=gedge2, z=new(E, 3 * Hp), v_e=new(E, Hp), s_e=new(E, 2 * Hp),
-        g_e=new(E, 2 * Hp), gS_e=None if last else new(E, Hp), xo=new(B * A, 3 * Hp),
+        g_e=new(E, 2 * Hp), gS_e=None if last else new(E, Hp),
+        # the wide centre pass's head sums (a_ij and g_g3 gate's), 2 nh an edge row
+        a_e=None if narrow_shapes(H, nh) else new(E, 2 * nh), xo=new(B * A, 3 * Hp),
         xv=new(B * S * A, NP * Hp), gxagg=new(B * A, Hp), gqkv=new(B * A, 3 * Hp),
         gvecn=new(B * S * A, Hp), gxh=new(B * A, Hp), gx=new(B, A, H), gvec=new(B, S, A, H),
         gedge=new(B, A, A, H), gdsh=new(B, S, A, A), gdist=new(B, A, A))

@@ -47,6 +47,7 @@ as before.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 
@@ -470,17 +471,18 @@ def route(t: torch.Tensor, kernels: str = "edge-core") -> bool:
 # 48 rows (``ECHUNK`` in csrc/common.cuh), so they take any A % 8 == 0, as
 # the JAX package's dense kernels do (their TI = 8): a fragment or a whole
 # molecule of any size, as far as the card's memory goes (a shape too large
-# fails on torch's own allocation).  Both families take every H up to
-# EDGE_MAXH whose head count divides it: their narrow instantiations heads
+# fails on torch's own allocation).  Both families take every H whose head
+# count divides it, as JAX's kernels do: their narrow instantiations heads
 # of 8, 16, 32 or 64 channels with H a multiple of 32 up to 256
 # (``narrow_shapes`` for K1, K2, K7, K5 and K6, ``narrow_update`` for K3 and
 # K8, which sum no head; one thread a channel, ``head_sum<DH>`` on a warp's
 # lanes), their wide ones every other shape (channels padded to a multiple
-# of 32, each thread looping over several, the head sums through shared
-# memory).  ``layer_shapes`` / ``unsupported_shapes`` say what both take,
+# of 32, each thread looping over several, a chunk's rows in a device
+# scratch and staged in shared memory a k-tile of 128 columns at a time, so
+# no constant bounds H and no shared memory grows with it).
+# ``layer_shapes`` / ``unsupported_shapes`` say what both take,
 # ``check_shapes`` / ``check_layer_shapes`` check a batch for each family;
 # the launchers check the same limits.
-EDGE_MAXH = 1024
 HEAD_WIDTHS = (8, 16, 32, 64)
 # the shapes the kernels do not take, where the JAX package's Pallas
 # kernels run: refused on the card
@@ -516,11 +518,11 @@ def narrow_shapes(H: int, nh: int) -> bool:
 
 def layer_shapes(H: int, nh: int, S: int) -> bool:
     """True for the shapes the full-layer kernels K5/K6 take
-    (``layer_shapes_ok`` in csrc/vislayer.cuh): every H up to EDGE_MAXH that
-    the head count divides, S <= 8, the edge kernels' domain.  Their narrow
+    (``layer_shapes_ok`` in csrc/vislayer.cuh): every H that the head count
+    divides, S <= 8, the edge kernels' domain.  Their narrow
     instantiations run where ``narrow_shapes`` holds, their wide ones
     elsewhere."""
-    return nh > 0 and H % nh == 0 and 0 < H <= EDGE_MAXH and S <= 8
+    return nh > 0 and H > 0 and H % nh == 0 and S <= 8
 
 
 def wide_width(H: int) -> int:
@@ -534,9 +536,8 @@ def unsupported_shapes(H: int, nh: int, S: int):
     kernels K5/K6, one domain) cannot take a model of H channels, nh heads
     and S spherical components, or None when they can."""
     if not layer_shapes(H, nh, S):
-        return (f"H={H}, nh={nh}, S={S}: the edge and full-layer kernels take every H up to "
-                f"{EDGE_MAXH} that the head count divides, and S <= 8 ({UNSUPPORTED}; "
-                f"{NO_MODEL_S})")
+        return (f"H={H}, nh={nh}, S={S}: the edge and full-layer kernels take every H that "
+                f"the head count divides, and S <= 8 ({UNSUPPORTED}; {NO_MODEL_S})")
     return None
 
 
@@ -622,6 +623,19 @@ def _weight(name: str, w: torch.Tensor, H: int, halves: int, device,
     return padded_weight(w, H, halves)
 
 
+def _wide_scratch(kind: int, B: int, A: int, H: int, nh: int, dev):
+    """The device scratch of a wide K1 (``kind`` 0) or K2/K7 (1), or None
+    where the narrow instantiation runs: one slot a block (B A blocks) of
+    ``edge_wide_scratch`` floats (``wide_scratch`` in csrc/common.cuh), the
+    rows of a source chunk that the kernel stages in shared memory a k-tile
+    at a time."""
+    if narrow_shapes(H, nh):
+        return None
+    fn = _build.library(_build.MM_MODE).edge_wide_scratch
+    fn.argtypes, fn.restype = [_I] * 4, ctypes.c_longlong
+    return torch.empty(B * A * fn(kind, A, H, nh), dtype=_f32, device=dev)
+
+
 def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
              cutoff: float, nh: int, wt=None, wsrc=None, w_f=None, b_f=None,
              store: bool = False):
@@ -674,6 +688,8 @@ def edge_fwd(q, k, v, vec, edge, d_sh, dist, adj, w_dkv, b_dkv, w_s, b_s,
     if dt == _bf16:   # the sums over the sources' chunks, in float32
         acc = new(B, A, H, dtype=_f32), new(B, A, S, H, dtype=_f32)
         args += [p(t) for t in acc]
+    wrk = _wide_scratch(0, B, A, H, nh, dev)
+    args.append(p(wrk))
     _build.call(f"edge_fwd{_tag(dt)}_launch", [_P] * len(args) + _FWD_TAIL, *args,
                 B, A, H, S, float(cutoff), int(update), int(store), H // nh)
     LAUNCHES["edge_fwd" + _tag(dt)] += 1
@@ -723,6 +739,8 @@ def _msg_launch(rc: bool, q, k, v, vec, zdkv_or_edge, zs, d_sh, dist, adj, w_dkv
     if dt == _bf16:   # g_q's sum over the sources' chunks, in float32
         acc = new(B, A, H, dtype=_f32)
         args.append(p(acc))
+    wrk = _wide_scratch(1, B, A, H, nh, dev)
+    args.append(p(wrk))
     name = "edge_bwd_msg_rc" if rc else "edge_bwd_msg"
     _build.call(f"{name}{_tag(dt)}_launch", [_P] * len(args) + _MSG_TAIL, *args,
                 B, A, H, S, float(cutoff), H // nh)

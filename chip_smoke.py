@@ -60,7 +60,8 @@ is not printed):
      cold caps (10 L-BFGS iterations), then warm Langevin steps at 1 fs /
      300 K; launch counters reset just before and read just after; step 0
      held against the same port on the CPU in float64 through the plain
-     versions (limit 1e-3 eV/A); a profiled window of 3 steps gives the
+     versions (limit 1e-3 eV/A; that run in a thread beside phases 4b and
+     5, checked at the end of phase 5); a profiled window of 3 steps gives the
      device busy share.  Then the warm step captured as one CUDA graph
      (ai2bmd_torch.md.GraphedLangevin) from the eager run's state: the
      capture's peak memory; its first 5 replays held against eager steps
@@ -93,7 +94,7 @@ is not printed):
      pulling (thresholds shortened in place), a profiled record interval
      naming cap_grad_kernel and K1-K3's kernels, the XYZ / DCD / metrics /
      restart files; (b) `python -m ai2bmd_torch` as subprocesses: a
-     300-step timing run (its steady ms/step from its metrics CSV, beside
+     150-step timing run (its steady ms/step from its metrics CSV, beside
      phase 4's graphed figure; DCD against XYZ frames), 20 steps then
      --restart 10 against 30 straight with --constraints (positions and
      velocities within 1e-6, forces within 1e-3, the same generator
@@ -109,7 +110,7 @@ is not printed):
      1e-3 eV/A), the Langevin step captured by GraphedLangevin, its first 5
      replays against eager steps on the same noise, TIMED_STEPS replays
      timed, a profiled window whose trace names K1-K3's kernels; (c)
-     `python -m ai2bmd_torch --mode visnet --ckpt-path <that npz>` for 300
+     `python -m ai2bmd_torch --mode visnet --ckpt-path <that npz>` for 150
      steps at 0.01 fs (its steady ms/step beside (b)'s; the forces of its
      restart file against (b)'s potential at the same positions); (d) abd
      (A = 752), one force evaluation with remat=True (K1 without a stash,
@@ -136,7 +137,8 @@ is not printed):
      beside phase 4's "mm"; (b) ProteinSimulation.from_pdb on the solvated
      Chignolin box (17,882 atoms, subtractive QM/MM, cell-bucket pairs,
      PME): build seconds, step 0 against the port on the CPU in float64
-     (solvent atoms within 1e-3 eV/A, protein atoms within the float32
+     (in a thread beside (b)'s work on the card; solvent atoms within 1e-3
+     eV/A, protein atoms within the float32
      spread of the subtractive combiner, 2e-2), launches of one evaluation,
      each part's device ms alone (QM, cell assignment, pairs, PME with the
      bonded terms, the protein MM), 5 graphed replays against eager steps,
@@ -189,14 +191,16 @@ is not printed):
      float32 spread there, tools/amoeba_f32_spread.py) and on the solvated
      box (9b's limits), then the step; each route with the launches of one
      evaluation (K1-K4 on the QM side), each part captured alone (QM, the
-     list build, the full box's MM, the protein's MM), 5 replays against
-     eager steps, 10 replays timed, no overflow, peak memory, a trace of the
-     full box's MM (kernels, the top 8 by device time); (d) the CLI
-     on the box with --polarizable-mm, 3 steps, and side by side with it
-     --mm-method amoeba --no-write-xyz on phase 12's ala2 box (251 atoms),
-     1 step: the CLI's AMOEBA dispatch and a DCD alone through the native
-     writer (--polarizable-only runs --mm-method amoeba on the box, 3
-     steps, before them)
+     list build, the full box's MM, the protein's MM) and a trace of the
+     full box's MM (kernels, the top 8 by device time; for (c) under
+     --polarizable-only alone), 5 replays against eager steps, 10 replays
+     timed, no overflow, peak memory; (d) the CLI on the box with
+     --polarizable-mm, 3 steps, and side by side with it --mm-method amoeba
+     --no-write-xyz on phase 12's ala2 box (251 atoms), 1 step: the CLI's
+     AMOEBA dispatch and a DCD alone through the native writer; in the
+     whole script they start before (c)'s float32 / float64 checks, and
+     (c) waits for them before its timed replays (--polarizable-only runs
+     them after (c), --mm-method amoeba on the box, 3 steps, first)
   12. AMOEBA preprocessing and pure-AMOEBA MD: (a) Preprocessor(method=
      "AMOEBA", max_cyc=AMOEBA_MAX_CYC) on examples/chig.pdb at the 10 A
      padding (3,615 atoms, cutoff 9 A, K = 576, 12 PCG iterations, each
@@ -211,7 +215,8 @@ is not printed):
      FORCE_LIMIT); (d) AMOEBA_MD_STEPS GraphedLangevin steps at 1 fs and
      300 K from the box (ms/step, finite, no overflow); (e) the CLI with
      --preprocess --preprocess-method AMOEBA --max-cyc AMOEBA_CLI_CYC on
-     examples/chig.pdb (exit 0, the pair written, 2 solvated steps).  No
+     examples/chig.pdb (exit 0, the pair written, 2 solvated steps),
+     started after (a), beside (b) and (c), and waited for before (d).  No
      kernel launches in this phase (no ViSNet on its path)
   13. the mesh (ai2bmd_torch.parallel), Chignolin at 9 x 256 with phase 4's
      weights, in worlds of ranks spawned by parallel.launch (each imports
@@ -233,7 +238,7 @@ is not printed):
   14. the products' modes (AI2BMD_KERNEL_MM_PRECISION: b3, the production
      3xTF32 split; highest, float32 FMA chains; default, one pass on
      bfloat16-rounded operands; one kernel library each, the other two
-     built in a background process at the lowest CPU priority from phase 3
+     built in a background process at the lowest CPU priority from phase 4
      on, which phase 14 waits for, naming the phases it ran beside;
      `--precision-only` builds them when it starts): (a) the lone helper (tf32x3_mm) in each mode
      against its mode's plain model (ops/tf32x3.py plain_mm) and its error
@@ -245,7 +250,8 @@ is not printed):
      BF16_SHARE of the bfloat16 rounding's own difference, and the highest
      library, as a control, must miss that for every kernel), bitwise
      repeats, ms a call by CUDA events beside the mode's bound (FMA at 67
-     TFLOP/s, one TF32 pass at 495); (b) the lone graphed step at 9 x
+     TFLOP/s, one TF32 pass at 495); (b) (`--precision-only`; the default
+     run gives its time to phase 19) the lone graphed step at 9 x
      256 in each mode: step 0 and the fixed-cap rows against the CPU float64
      run (b3 and highest within FORCE_LIMIT, default printed beside it),
      ms/step over TIMED_STEPS replays, kernels per step; (c) `python -m
@@ -265,10 +271,11 @@ is not printed):
      version, bound and share at H = 512 with 4 heads and, timed in the
      same way, the narrow instantiations at H = 256 with 8 heads; the wide
      instantiations' shared memory, blocks per SM, registers, spills and
-     source-chunk rows; (b) Chignolin at 9 x 512 with 4 heads of 128
-     channels (random weights, seed 0) through the wide K1-K3 as phase 4:
-     its launches equal to phase 4's (and one warm evaluation's: K1 36, K2
-     36, K3 32, K4 1), step 0 against the CPU float64 run (1e-3 eV/A), the
+     source-chunk rows; (b) Chignolin at 3 x 512 with 4 heads of 128
+     channels (random weights, seed 0; phase 19 runs 9 x 1,280) through
+     the wide K1-K3 as phase 4: one warm
+     evaluation's launches K1 12, K2 12, K3 8, K4 1 (phase 4's per batch
+     and layer), step 0 against the CPU float64 run (1e-3 eV/A), the
      graphed step (replays against eager steps, ms/step, kernels per step,
      a trace naming the wide kernels); (c) the same weights with remat=True,
      one evaluation through K1 without its stash and K7/K8 against (b)'s
@@ -285,7 +292,7 @@ is not printed):
      narrow H = 256 with 8 heads; every wide stage's shared memory, blocks
      per SM, registers and spills; (b) phase 15(b)'s model with
      AI2BMD_FUSED_LAYER=1 driven as phase 4b: one warm evaluation launches
-     K5 36 and K6 36 and none of K1-K3, step 0 against the CPU float64 run
+     K5 12 and K6 12 and none of K1-K3, step 0 against the CPU float64 run
      (phase 15(b)'s) beside 15(b)'s, the graphed step; (c) the CLI on its
      .npz with AI2BMD_FUSED_LAYER=1, its model line naming K5/K6's wide
      instantiations; (d) 15(f)'s 2 x 48 with 2 heads through K5/K6 against
@@ -310,7 +317,8 @@ is not printed):
      bfloat16 K1 36, K2 36, K3 32 and K4 1 and nothing else, step 0 against
      the CPU float64 run of the float32 model (the mode's shift) and against
      the mixed step on the CPU through the plain versions (within half the
-     shift), the graphed step (its trace's edge kernels all bfloat16)
+     shift; that run in a thread beside the graphed step), the graphed step
+     (its trace's edge kernels all bfloat16)
      beside phase 4's; (d)
      Chignolin (176 slots) and ACE-(ALA)110-NME (1,112) as one molecule,
      one evaluation each in float32 with remat and in the mode with and
@@ -329,11 +337,31 @@ is not printed):
      steps recording every RECORD, through the native writer and through the
      Python writers (this script makes the runtime unavailable for that
      run): the metrics CSV's ms/step of each, from one call
-  19. one JSON line of kernel results (with `mesh_launches`: rank 0's
+  19. past 1,024 channels: (a) K1 (four flag pairs), K2, K3, K7, K8, K5
+     and K6 (both `last`) at (H, heads) = (1,064, 8) (heads of 133: the
+     padded route), (1,280, 8), (2,048, 16) and (4,096, 16), B x A = 2 x 24
+     and 1 x 176 (4,096 at 2 x 24 alone; --past-1024-only adds (8,192, 32)
+     at 2 x 24), against their plain versions
+     within EDGE_TOL, bitwise repeats, K7/K8 against K2/K3 on K1's stash,
+     K6's a_ij against K5's; the bfloat16 storage at (1,280, 8) and (2,048,
+     16) and the highest / default libraries at (1,280, 8), 2 x 24; (b)
+     each wide kernel's shared memory, blocks an SM, registers, spill,
+     chunk rows and k-tile width at H = 1,280, 2,048, 4,096 and 8,192 (the
+     launchers' own sizes; none past 227 KB); (c) at (1,280, 8), 4 x 40,
+     each kernel's device ms beside its plain version's, bound and share;
+     (d) Chignolin at 9 x 1,280 with 8 heads (random, seed 0) through K1-K3
+     and K4, then through K5/K6 (AI2BMD_FUSED_LAYER=1), each driven as
+     phase 4 (graphed ms/step, kernels a step, busy share, the capture's
+     peak memory; an evaluation's launches equal to phase 4's per batch),
+     one evaluation with remat against step 0, step 0 through each path
+     against the other, and a 3 x 1,280 model of the same seed through each
+     path against the CPU float64 run (FORCE_LIMIT); (e) the CLI on those
+     weights (save_converted), 10 steps recording every 5
+  20. one JSON line of kernel results (with `mesh_launches`: rank 0's
      launches a warm evaluation in (b), by mesh; `precision_modes`: phase
      14's figures by mode; `wide`: phases 15's and 16's; `slots_1112`:
-     phase 16(e)'s; the `_bf16` entries: phase 17's), the card's name and
-     power limit, and the final JSON line.
+     phase 16(e)'s; the `_bf16` entries: phase 17's; `past_1024`: phase
+     19's), the card's name and power limit, and the final JSON line.
 
 `--stop-after 2|3` ends after that phase, without the final line (for a
 first check of a kernel change); `--solvated-only` runs phases 9 and 10
@@ -342,6 +370,7 @@ alone after the build, without it; `--polarizable-only` phase 11 alone;
 alone; `--wide-only` phase 15 alone; `--layer-wide-only` phase 16 alone;
 `--mixed-only` phase 17 alone; `--runtime-only` phase 18 alone (its (c)
 builds the box again and leaves out phase 9c's CLI lines);
+`--past-1024-only` phase 19 alone;
 `--preprocess-full` runs only
 Preprocessor() with its default stages on examples/chig.pdb (each stage's
 wall seconds and ms per step), then the AMOEBA protocol at its default 100
@@ -402,6 +431,34 @@ BOUND_PEAK = {
 def need(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def in_thread(fn):
+    """Start fn() in a thread of its own, beside the card's work; fn makes no
+    CUDA call (a capture on the card would take it for one of its own).
+    Returns a function that waits for it and returns (fn's result, seconds
+    waited), or raises fn's error."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:   # raised again by the waiter
+            box["err"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+
+    def wait():
+        t0 = time.perf_counter()
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"], time.perf_counter() - t0
+
+    return wait
 
 
 def nvidia_smi():
@@ -1399,8 +1456,8 @@ def build_potential(torch, dev, prot, fused: bool):
     return pot, cfg, params
 
 
-def drive(torch, dev, prot, pot, card, path_kernels):
-    """Cold caps, step 0, WARM_STEPS + TIMED_STEPS warm Langevin steps, with the
+def drive(torch, dev, prot, pot, card, path_kernels, warm=WARM_STEPS, timed=TIMED_STEPS):
+    """Cold caps, step 0, ``warm`` + ``timed`` warm Langevin steps, with the
     launch counters reset just before and read just after; then a profiled
     window; then the same steps as replays of one CUDA graph
     (``drive_graphed``), whose trace must name ``path_kernels``.  Returns
@@ -1425,16 +1482,16 @@ def drive(torch, dev, prot, pot, card, path_kernels):
     state = L.MDState(P, L.maxwell_boltzmann_velocities(gen, prot.masses, 300.0), f0, e0,
                       aux=aux1)
     energies = [e0]
-    for _ in range(WARM_STEPS):
+    for _ in range(warm):
         state = step(state)
         energies.append(state.energy)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         state = step(state)
         energies.append(state.energy)
     torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    ms_step = (time.perf_counter() - t0) * 1e3 / timed
     launches = dict(LAUNCHES)
     energies = torch.stack(energies)
     print(f"  steps: {state.step} warm Langevin steps after step 0; launches {launches}")
@@ -1442,25 +1499,26 @@ def drive(torch, dev, prot, pot, card, path_kernels):
     need(bool(energies.isfinite().all()), "non-finite energy in the run")
     need(bool(state.positions.isfinite().all() and state.forces.isfinite().all()),
          "non-finite positions or forces in the run")
-    need(state.step >= 20, "fewer than 20 warm steps")
-    print(f"  steady state: {ms_step:.3f} ms/step over {TIMED_STEPS} steps "
+    need(state.step >= warm + timed, f"fewer than {warm + timed} warm steps")
+    print(f"  steady state: {ms_step:.3f} ms/step over {timed} steps "
           f"(smoke figure, not a benchmark; host clock, synchronised; {card})")
     eager = profile_steps(torch, step, state)
     graphed = drive_graphed(torch, pot.stateful_energy_forces, coeffs, masses, state, gen, card,
-                            ("cap_grad_kernel", *path_kernels))
+                            ("cap_grad_kernel", *path_kernels), timed)
     print(f"  eager / graphed: {ms_step:.3f} / {graphed['ms_step']:.3f} ms/step, "
           f"{eager['kernels_per_step']:.0f} / {graphed['kernels_per_step']:.0f} kernels per "
           f"step, {100 * eager['busy_share']:.1f}% / {100 * graphed['busy_share']:.1f}% busy")
     return launches, ms_step, P, aux0, aux1, e0, f0, graphed
 
 
-def drive_graphed(torch, potential, coeffs, masses, state, gen, card, trace_kernels):
+def drive_graphed(torch, potential, coeffs, masses, state, gen, card, trace_kernels,
+                  timed=TIMED_STEPS):
     """The step of ``potential`` (the stateful protocol) captured as one CUDA
     graph (GraphedLangevin) from ``state``: peak memory of the capture; the
     first GRAPH_CHECK_STEPS replays held against eager langevin_step calls
     from the same state on the same noise (max|dx|, max|dF|, limit
     FORCE_LIMIT: the force stitch sums with atomics, so not bitwise);
-    TIMED_STEPS replays timed by the host clock and by CUDA events; a
+    ``timed`` replays timed by the host clock and by CUDA events; a
     profiled window of replays whose trace must name every kernel of
     ``trace_kernels``.  Returns ms/step (host, events), kernels per step and
     busy share."""
@@ -1473,10 +1531,11 @@ def drive_graphed(torch, potential, coeffs, masses, state, gen, card, trace_kern
     t0 = time.perf_counter()
     graphed = GraphedLangevin(potential, coeffs, masses, state, gen)
     torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
     print(f"  graph: {time.perf_counter() - t0:.1f} s (warm-up "
           f"{graphed.setup_seconds['warmup']:.1f} s, capture {graphed.setup_seconds['capture']:.1f}"
           f" s); peak device memory above the {base / 2**20:.1f} MiB held before: "
-          f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB")
+          f"{peak_mib:.1f} MiB")
     ref, dx, dF = state, 0.0, 0.0
     for _ in range(GRAPH_CHECK_STEPS):
         got = graphed.run(1)
@@ -1493,29 +1552,30 @@ def drive_graphed(torch, potential, coeffs, masses, state, gen, card, trace_kern
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         energies.append(graphed.run(1).energy.clone())
     end.record()
     torch.cuda.synchronize()
-    ms_step = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    ms_events = start.elapsed_time(end) / TIMED_STEPS
+    ms_step = (time.perf_counter() - t0) * 1e3 / timed
+    ms_events = start.elapsed_time(end) / timed
     s = graphed.state
     need(bool(torch.stack(energies).isfinite().all()), "non-finite energy in the graphed run")
     need(bool(s.positions.isfinite().all() and s.forces.isfinite().all()),
          "non-finite positions or forces in the graphed run")
     print(f"  graphed: {ms_step:.3f} ms/step (host clock, synchronised), {ms_events:.3f} (CUDA "
-          f"events) over {TIMED_STEPS} replays after step {s.step - TIMED_STEPS} (smoke "
+          f"events) over {timed} replays after step {s.step - timed} (smoke "
           f"figure; {card})")
     prof = profile_steps(torch, lambda _: graphed.run(1), None, label="replayed steps")
     for name in trace_kernels:
         need(any(name in n for n in prof["names"]), f"the replay trace names no {name}")
     print(f"  the replay trace names {', '.join(trace_kernels)}")
-    return dict(ms_step=ms_step, ms_events=ms_events, **prof)
+    return dict(ms_step=ms_step, ms_events=ms_events, peak_mib=peak_mib, **prof)
 
 
 def run_slice(torch, dev, prot, card):
-    """Phase 4: the slice through K1-K3; returns its launches, ms/step and the
-    step-0 references phase 4b and phase 14 are held against."""
+    """Phase 4: the slice through K1-K3; returns its launches, ms/step, the
+    card's step 0 and its CPU float64 reference, started in a thread
+    (finish_slice holds phases 4 and 4b to it)."""
     pot, cfg, params = build_potential(torch, dev, prot, fused=False)
     launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
                                                               EDGE_KERNELS)
@@ -1524,19 +1584,37 @@ def run_slice(torch, dev, prot, card):
     for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc",
                  "tf32x3_mm"):
         need(launches[name] == 0, f"{name} ran on the edge-core path")
+    wait = start_slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1)
+    return (launches, ms_step, graphed, dict(aux0=aux0, e0=e0, f0=f0),
+            (wait, pot, cfg, P))
 
-    ref = slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1)
-    dF, dF_fix = step0_errors(torch, pot, cfg, P, e0, f0, ref)
+
+def finish_slice(torch, ref, pending, step0_fl):
+    """Phases 4 and 4b, step 0 against the CPU float64 run that ran beside
+    phases 4b and 5: phase 4's forces and its fixed-cap rows', and phase
+    4b's (``step0_fl``: its E, F); adds the reference to ``ref``."""
+    wait, pot, cfg, P = pending
+    ref.update(finish_slice_reference(wait, "beside phases 4b and 5"))
+    print("  phase 4's step 0:")
+    dF, dF_fix = step0_errors(torch, pot, cfg, P, ref["e0"], ref["f0"], ref)
     need(dF <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF:.3e}")
     need(dF_fix <= FORCE_LIMIT, f"fixed-cap forces differ by {dF_fix:.3e}")
-    return launches, ms_step, graphed, dict(aux0=aux0, e0=e0, f0=f0, **ref)
+    e0, f0 = step0_fl
+    dF_ref = float((f0.to(torch.device("cpu"), torch.float64) - ref["f_ref"]).abs().max())
+    print(f"  phase 4b's step 0 (K5/K6) vs CPU float64 plain |dE| "
+          f"{abs(float(e0) - float(ref['e_ref'])):.3e} eV, max|dF| {dF_ref:.3e} eV/A "
+          f"(limit {FORCE_LIMIT})")
+    need(dF_ref <= FORCE_LIMIT, f"4b: step-0 forces differ from the float64 reference by "
+         f"{dF_ref:.3e}")
 
 
-def slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1):
+def start_slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1):
     """Step 0 of the slice on the CPU in float64 through the plain versions,
     from the card's cold-cap offsets ``aux0``, and the ViSNet forces at the
     rows the card's step 0 used (warm caps ``aux1``: fixed caps, the measure
-    of the JAX package's benchmarks/kernel_precision.py)."""
+    of the JAX package's benchmarks/kernel_precision.py): built and copied
+    to the host here, evaluated in a thread (in_thread).  Returns its
+    waiter for finish_slice_reference."""
     from ai2bmd_torch.frag import runtime as RT
     from ai2bmd_torch.models.visnet import ViSNet
     from ai2bmd_torch.potentials import FragmentPotential
@@ -1546,14 +1624,30 @@ def slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1):
     cpu = torch.device("cpu")
     pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
                                     longrange="mm", device="cpu")
-    e_ref, f_ref, _ = pot64.stateful_energy_forces(P.to(cpu, torch.float64),
-                                                   aux0.to(cpu, torch.float64))
     pos_card = RT.build_row_positions(pot.rt, P) + aux1
-    _, f_fix_ref = RT._fragment_terms(pot64.module.params(), pot64.rt,
-                                      pos_card.to(cpu, torch.float64), cfg)
+    P64, aux64, pos64 = (t.to(cpu, torch.float64) for t in (P, aux0, pos_card))
+
+    def reference():
+        e_ref, f_ref, _ = pot64.stateful_energy_forces(P64, aux64)
+        _, f_fix_ref = RT._fragment_terms(pot64.module.params(), pot64.rt, pos64, cfg)
+        return dict(e_ref=e_ref, f_ref=f_ref, aux1=aux1, pos_card=pos_card,
+                    f_fix_ref=f_fix_ref, seconds=time.perf_counter() - t0)
+
+    return in_thread(reference)
+
+
+def finish_slice_reference(wait, beside):
+    """The reference of start_slice_reference, its seconds printed."""
+    ref, waited = wait()
     print(f"  CPU float64 reference of step 0 and of the fixed-cap rows: "
-          f"{time.perf_counter() - t0:.1f} s")
-    return dict(e_ref=e_ref, f_ref=f_ref, aux1=aux1, pos_card=pos_card, f_fix_ref=f_fix_ref)
+          f"{ref.pop('seconds'):.1f} s ({beside}; waited {waited:.1f} s for it)")
+    return ref
+
+
+def slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1):
+    """start_slice_reference, waited for at once."""
+    return finish_slice_reference(
+        start_slice_reference(torch, prot, cfg, params, pot, P, aux0, aux1), "alone")
 
 
 def step0_errors(torch, pot, cfg, P, e0, f0, ref):
@@ -1573,7 +1667,9 @@ def step0_errors(torch, pot, cfg, P, e0, f0, ref):
 
 
 def run_fused_slice(torch, dev, prot, card, ref):
-    """Phase 4b: the slice through K5/K6, held against phase 4's step 0."""
+    """Phase 4b: the slice through K5/K6, held against phase 4's step 0 on
+    the card (finish_slice holds it to the CPU float64 run); returns its
+    launches, ms/step, graphed figures and step 0 (E, F)."""
     pot, _, _ = build_potential(torch, dev, prot, fused=True)
     launches, ms_step, _, aux0, _, e0, f0, graphed = drive(torch, dev, prot, pot, card,
                                                            LAYER_KERNELS)
@@ -1587,18 +1683,14 @@ def run_fused_slice(torch, dev, prot, card, ref):
     need(launches["cap_grad"] > 0, "cap_grad was not launched on the full-layer path")
     same_caps = bool(torch.equal(aux0, ref["aux0"]))
     cpu = torch.device("cpu")
-    f64 = f0.to(cpu, torch.float64)
-    dF_card = float((f64 - ref["f0"].to(cpu, torch.float64)).abs().max())
-    dF_ref = float((f64 - ref["f_ref"]).abs().max())
+    dF_card = float((f0.to(cpu, torch.float64) - ref["f0"].to(cpu, torch.float64)).abs().max())
     print(f"  step 0 (cold-cap offsets bitwise equal to phase 4's: {same_caps}): "
           f"vs K1-K3 on the card |dE| {abs(float(e0) - float(ref['e0'])):.3e} eV, "
-          f"max|dF| {dF_card:.3e} eV/A; vs CPU float64 plain |dE| "
-          f"{abs(float(e0) - float(ref['e_ref'])):.3e} eV, max|dF| {dF_ref:.3e} eV/A "
-          f"(limit {FORCE_LIMIT})")
+          f"max|dF| {dF_card:.3e} eV/A (limit {FORCE_LIMIT}; against the CPU float64 run at "
+          f"the end of phase 5)")
     need(same_caps, "the full-layer run started from other cap offsets than phase 4")
     need(dF_card <= FORCE_LIMIT, f"step-0 forces differ from the K1-K3 path by {dF_card:.3e}")
-    need(dF_ref <= FORCE_LIMIT, f"step-0 forces differ from the float64 reference by {dF_ref:.3e}")
-    return launches, ms_step, graphed
+    return launches, ms_step, graphed, (e0, f0)
 
 
 def run_ensemble(torch, dev, prot, card, ref):
@@ -1697,9 +1789,9 @@ def run_ensemble(torch, dev, prot, card, ref):
 # 6).  The guard stays; the runs step at a shorter timestep so that they stay
 # under it.  A step's work does not depend on the timestep.
 USER_DT_FS = 0.05             # the library run (60 steps) and the continuity runs (30 steps)
-TIMING_DT_FS = 0.01           # the CLI timing run (300 steps)
+TIMING_DT_FS = 0.01           # the CLI timing run (CLI_STEPS steps)
 PREEQ_STEPS, RECORD, PROD_STEPS = 4, 10, 40
-CLI_STEPS, CLI_RECORD = 300, 100
+CLI_STEPS, CLI_RECORD = 150, 50
 ENSEMBLE_CLI = ["--replicas", "8", "--sim-steps", "4", "--record-per-steps", "2"]
 # the H-bond restraint's thresholds are shortened by this much (A) for one
 # replayed interval, so that the H-X springs pull inside the captured step
@@ -2010,15 +2102,17 @@ def run_whole_molecule(torch, dev, prot, card, root):
     for name, n in whole_launches(False).items():
         need(launches[name] == n, f"{name}: {launches[name]} launches, expected {n}")
     out["launches"] = launches
-    t0 = time.perf_counter()
-    pot64 = ViSNetPotential.build(prot.numbers, ViSNet(cfg2, params2).to(torch.float64), cfg2,
-                                  device="cpu")
-    e_ref, f_ref = pot64.energy_forces(P.to("cpu", torch.float64))
-    dF = float((f0.to("cpu", torch.float64) - f_ref).abs().max())
-    print(f"  step 0 vs CPU float64 plain: |dE| {abs(float(e0) - float(e_ref)):.3e} eV, max|dF| "
-          f"{dF:.3e} eV/A (limit {FORCE_LIMIT}); max|F| {float(f_ref.abs().max()):.3f} eV/A; "
-          f"reference took {time.perf_counter() - t0:.1f} s")
-    need(dF <= FORCE_LIMIT, f"whole-molecule step-0 forces differ from float64 by {dF:.3e}")
+    # the CPU float64 reference in a thread, beside (b)'s graph, (c) and (d)
+    # (the card does their work; their host-clock figures share the host)
+    P64 = P.to("cpu", torch.float64)
+
+    def float64_reference():
+        t0 = time.perf_counter()
+        pot64 = ViSNetPotential.build(prot.numbers, ViSNet(cfg2, params2).to(torch.float64),
+                                      cfg2, device="cpu")
+        return pot64.energy_forces(P64), time.perf_counter() - t0
+
+    wait_reference = in_thread(float64_reference)
     masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
     coeffs = L.LangevinCoeffs.build(prot.masses, WHOLE_DT_FS, 300.0, 0.001, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2052,7 +2146,7 @@ def run_whole_molecule(torch, dev, prot, card, root):
     need(step_r == CLI_STEPS and dF_cli <= FORCE_LIMIT,
          f"the CLI's forces differ from the library's by {dF_cli:.3e} at step {step_r}")
     print(f"  the CLI's model: {cli_model_line(txt, 'edge-core kernels K1-K3')}")
-    del pot, pot64, state
+    del pot, state
 
     # (d) abd as one molecule, remat on and off
     abd = load_protein(example_pdb("abd"))
@@ -2085,6 +2179,12 @@ def run_whole_molecule(torch, dev, prot, card, root):
     dF = float((forces[True] - forces[False]).abs().max())
     print(f"  abd remat=True vs remat=False: max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT})")
     need(dF <= FORCE_LIMIT, f"abd: remat changed the forces by {dF:.3e}")
+    ((e_ref, f_ref), secs), waited = wait_reference()
+    dF = float((f0.to("cpu", torch.float64) - f_ref).abs().max())
+    print(f"  (b) step 0 vs CPU float64 plain: |dE| {abs(float(e0) - float(e_ref)):.3e} eV, "
+          f"max|dF| {dF:.3e} eV/A (limit {FORCE_LIMIT}); max|F| {float(f_ref.abs().max()):.3f} "
+          f"eV/A; the reference took {secs:.1f} s beside (b)-(d), waited {waited:.1f} s for it")
+    need(dF <= FORCE_LIMIT, f"whole-molecule step-0 forces differ from float64 by {dF:.3e}")
     run_whole_fused(torch, dev, prot, card, root, cfg2, params2, npz, P, f0, f_ref, abd,
                     forces[False], out)
     print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -2339,11 +2439,12 @@ ROUTE_TIMED = 20
 QM_NAMES = ("edge_", "cap_grad", "vislayer")
 
 
-def solvated_reference(torch, ps, P, cfg, params, **qmmm_kw):
+def solvated_reference(torch, ps, P, cfg, params, threaded=False, **qmmm_kw):
     """The port on the CPU in float64 at the card's state: QMMMPotential of
     the whole box (plain versions; ``qmmm_kw`` for its build), the QM side
     from the card's cold cap offsets with one warm iteration.  Returns (E, F,
-    seconds)."""
+    seconds); with ``threaded``, built here and evaluated in a thread
+    (in_thread), whose waiter it returns."""
     from ai2bmd_torch.models.visnet import ViSNet
     from ai2bmd_torch.physics.qmmm import QMMMPotential
     from ai2bmd_torch.potentials import FragmentPotential
@@ -2360,8 +2461,12 @@ def solvated_reference(torch, ps, P, cfg, params, **qmmm_kw):
         qm_init_aux=ps.sim._init_aux[1].to(cpu, torch.float64), device="cpu",
         dtype=torch.float64, **qmmm_kw)
     P64 = P.to(cpu, torch.float64)
-    e, f, _ = qmmm64(P64, qmmm64.init_aux(P64))
-    return e, f, time.perf_counter() - t0
+
+    def run():
+        e, f, _ = qmmm64(P64, qmmm64.init_aux(P64))
+        return e, f, time.perf_counter() - t0
+
+    return in_thread(run) if threaded else run()
 
 
 def graph_ms(torch, fn, reps=10):
@@ -2466,19 +2571,9 @@ def run_solvated_sim(torch, dev, card, root, rigid: bool):
           f"{CP.default_chunk(qmmm.cp, dev)} a chunk), PME mesh {qmmm.mm_full.grid}")
     if not rigid:
         cfg, params = ps.potential.cfg, load_model(None, ViSNetConfig())[0]
-        e_ref, f_ref, secs = solvated_reference(torch, ps, state.positions, cfg, params)
-        dF = (state.forces.cpu().double() - f_ref).abs().max(-1).values
-        dF_solv, dF_prot = float(dF[solvent].max()), float(dF[~solvent].max())
-        dE = abs(float(state.energy) - float(e_ref))
-        print(f"  (b) step 0 vs the port on the CPU in float64 ({secs:.1f} s): solvent atoms "
-              f"max|dF| {dF_solv:.3e} eV/A (limit {FORCE_LIMIT}); protein atoms max|dF| "
-              f"{dF_prot:.3e} eV/A (limit {PROTEIN_SPREAD}, the float32 spread of the "
-              f"subtractive combiner; the JAX package's own float32 figure on this box "
-              f"{JAX_PROTEIN_F32}); |dE| {dE:.3e} eV of |E| {abs(float(e_ref)):.1f}; max|F| "
-              f"{float(f_ref.abs().max()):.2f} eV/A")
-        need(dF_solv <= FORCE_LIMIT, f"solvent forces differ from float64 by {dF_solv:.3e}")
-        need(dF_prot <= PROTEIN_SPREAD, f"protein forces differ from float64 by {dF_prot:.3e}")
-        out.update(dF_solvent=dF_solv, dF_protein=dF_prot, dE=dE, forces0=state.forces.cpu())
+        # the CPU float64 run of step 0, in a thread beside (b)'s work on the card
+        wait_ref = solvated_reference(torch, ps, state.positions, cfg, params, threaded=True)
+        out.update(forces0=state.forces.cpu())
         P, (cs, qa) = state.positions, state.aux
         reset_launches()
         qmmm(P, state.aux)
@@ -2548,6 +2643,19 @@ def run_solvated_sim(torch, dev, card, root, rigid: bool):
               f"{viol:.3e} A (limit {SETTLE_LIMIT})")
         need(viol <= SETTLE_LIMIT, f"SETTLE violation {viol:.3e}")
     else:
+        (e_ref, f_ref, secs), waited = wait_ref()
+        dF = (out["forces0"].double() - f_ref).abs().max(-1).values
+        dF_solv, dF_prot = float(dF[solvent].max()), float(dF[~solvent].max())
+        dE = abs(float(state.energy) - float(e_ref))
+        print(f"  (b) step 0 vs the port on the CPU in float64 ({secs:.1f} s beside (b)'s work "
+              f"on the card, waited {waited:.1f} s for it): solvent atoms max|dF| {dF_solv:.3e} "
+              f"eV/A (limit {FORCE_LIMIT}); protein atoms max|dF| {dF_prot:.3e} eV/A (limit "
+              f"{PROTEIN_SPREAD}, the float32 spread of the subtractive combiner; the JAX "
+              f"package's own float32 figure on this box {JAX_PROTEIN_F32}); |dE| {dE:.3e} eV "
+              f"of |E| {abs(float(e_ref)):.1f}; max|F| {float(f_ref.abs().max()):.2f} eV/A")
+        need(dF_solv <= FORCE_LIMIT, f"solvent forces differ from float64 by {dF_solv:.3e}")
+        need(dF_prot <= PROTEIN_SPREAD, f"protein forces differ from float64 by {dF_prot:.3e}")
+        out.update(dF_solvent=dF_solv, dF_protein=dF_prot, dE=dE)
         # phase 18(c)'s library half, printed there
         out["writers"] = writer_runs(torch, sim, sim.advance(final, 1), root)
     return out
@@ -3140,16 +3248,18 @@ def amoeba_mm_spread(torch, dev, atoms, label, limits):
                 peak_gib_f64=out[torch.float64][2])
 
 
-def run_polarizable_route(torch, dev, card, root, name, kw, flex):
+def run_polarizable_route(torch, dev, card, root, name, kw, flex, breakdown=True,
+                          before_timed=None):
     """Phase 11 (a)-(c), one route of the solvated box through
     ProteinSimulation.from_pdb(**kw) at 9 x 256: build, step 0 (against
     phase 9b's cellpair forces for ``nl``, against the port on the CPU in
     float64 but for AMOEBA, and only when phase 9b's forces are not at
     hand: the whole script leaves the two CPU references out for phase
-    16's time), the launches of one evaluation, each part
-    captured alone (QM, the list build, the full box's MM, the protein's MM),
-    POL_STEPS graphed replays against eager steps, POL_TIMED replays timed,
-    no overflow, peak memory."""
+    16's time), the launches of one evaluation, with ``breakdown`` each part
+    captured alone (QM, the list build, the full box's MM, the protein's MM)
+    and the full box's MM traced, POL_STEPS graphed replays against eager
+    steps, then (``before_timed()`` first, when given: the card to itself)
+    POL_TIMED replays timed, no overflow, peak memory."""
     from ai2bmd_torch.md import langevin as L
     from ai2bmd_torch.md.simulation import SimulationConfig
     from ai2bmd_torch.models.visnet import ViSNetConfig
@@ -3217,16 +3327,23 @@ def run_polarizable_route(torch, dev, card, root, name, kw, flex):
              "list build": lambda: qmmm._build_nl(P),
              "MM full box": lambda: qmmm.mm_full_energy_forces(P, nl, carry[0]),
              "MM protein alone": lambda: qmmm.mm_prot_energy_forces(P_prot, carry[1])}
-    out["parts_ms"] = {k: graph_ms(torch, fn) for k, fn in parts.items()}
-    print(f"  ({name}) one evaluation launches {out['launches']}; each part captured alone, ms a "
-          f"replay (events): " + ", ".join(f"{k} {v:.3f}" for k, v in out["parts_ms"].items()))
-    trace = _trace(torch, parts["MM full box"], 1)
-    top = sorted(trace.items(), key=lambda kv: -kv[1][1])[:POL_TOP]
-    out["mm_kernels"] = sum(c for c, _ in trace.values())
-    out["mm_top"] = [(short_name(n), c, us / 1e3) for n, (c, us) in top]
-    print(f"  ({name}) the full box's MM, one eager call traced: {out['mm_kernels']} kernels, "
-          f"{sum(us for _, us in trace.values()) / 1e3:.1f} device ms; the top {POL_TOP} (name "
-          f"x launches: ms): " + "; ".join(f"{n} x{c}: {ms:.1f}" for n, c, ms in out["mm_top"]))
+    if breakdown:
+        out["parts_ms"] = {k: graph_ms(torch, fn) for k, fn in parts.items()}
+        print(f"  ({name}) one evaluation launches {out['launches']}; each part captured alone, "
+              f"ms a replay (events): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in out["parts_ms"].items()))
+        trace = _trace(torch, parts["MM full box"], 1)
+        top = sorted(trace.items(), key=lambda kv: -kv[1][1])[:POL_TOP]
+        out["mm_kernels"] = sum(c for c, _ in trace.values())
+        out["mm_top"] = [(short_name(n), c, us / 1e3) for n, (c, us) in top]
+        print(f"  ({name}) the full box's MM, one eager call traced: {out['mm_kernels']} "
+              f"kernels, {sum(us for _, us in trace.values()) / 1e3:.1f} device ms; the top "
+              f"{POL_TOP} (name x launches: ms): "
+              + "; ".join(f"{n} x{c}: {ms:.1f}" for n, c, ms in out["mm_top"]))
+    else:
+        print(f"  ({name}) one evaluation launches {out['launches']}; its parts captured alone "
+              f"and its MM traced are left out in the whole script (run --polarizable-only "
+              f"for them)")
     gen_state = sim.generator.get_state()
     t0 = time.perf_counter()
     got = sim.advance(state, POL_STEPS)
@@ -3249,6 +3366,8 @@ def run_polarizable_route(torch, dev, card, root, name, kw, flex):
     need(dx <= FORCE_LIMIT and d_solv <= FORCE_LIMIT and d_prot <= PROTEIN_SPREAD,
          f"{name}: replays differ from eager steps: dx {dx:.3e}, dF {d_solv:.3e} / {d_prot:.3e}")
     out.update(replay_dF_solvent=d_solv, replay_dF_protein=d_prot)
+    if before_timed is not None:
+        before_timed()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3270,17 +3389,18 @@ def run_polarizable_route(torch, dev, card, root, name, kw, flex):
     return out
 
 
-def run_polarizable_cli(torch, root, amoeba: bool):
+def start_polarizable_cli(torch, root, amoeba: bool):
     """Phase 11(d): `python -m ai2bmd_torch` with --polarizable-mm on the
     solvated box, POL_CLI_STEPS steps, and side by side with it --mm-method
     amoeba --no-write-xyz on phase 12's ala2 box (251 atoms), one step: the
     CLI's AMOEBA dispatch, and a DCD alone through the native writer; with
     ``amoeba`` (--polarizable-only), --mm-method amoeba on the solvated box
     first, POL_CLI_STEPS steps.  Each: exit 0, the QM/MM line naming the
-    route and the engine, the writer line, the trajectory files."""
+    route and the engine, the writer line, the trajectory files.  Starts
+    the first runs and returns a function that waits for them, runs the
+    rest, checks each and returns {run: metrics ms/step}."""
     from ai2bmd_torch.io import build as B
     from ai2bmd_torch.io.pdb import write_pdb
-    from ai2bmd_torch.io.trajectory import read_dcd
     from ai2bmd_torch.preprocess import solvate
 
     small = os.path.join(root, "ala2-box.pdb")
@@ -3303,10 +3423,21 @@ def run_polarizable_cli(torch, root, amoeba: bool):
 
     waves = [["amoeba"]] if amoeba else []
     waves.append(["polarizable", "amoeba_small"])      # side by side
+    t_first = time.perf_counter()
+    first = {name: start(name) for name in waves[0]}
+    return lambda: finish_polarizable_cli(torch, root, runs, waves, start, first, t_first)
+
+
+def finish_polarizable_cli(torch, root, runs, waves, start, first, t_first):
+    """Phase 11(d), started by start_polarizable_cli: waits for each wave of
+    runs (``first`` the first wave's, started at ``t_first``) and checks
+    each.  Returns {run: metrics ms/step}."""
+    from ai2bmd_torch.io.trajectory import read_dcd
+
     out = {}
-    for wave in waves:
-        t0 = time.perf_counter()
-        procs = {name: start(name) for name in wave}
+    for i, wave in enumerate(waves):
+        t0 = t_first if i == 0 else time.perf_counter()
+        procs = first if i == 0 else {name: start(name) for name in wave}
         txts = {name: _cli_wait(name, proc) for name, proc in procs.items()}
         wall = time.perf_counter() - t0
         for name, txt in txts.items():
@@ -3348,6 +3479,14 @@ def run_polarizable(torch, dev, card, root, flex, amoeba_cli=False):
     out["pol"] = run_polarizable_route(torch, dev, card, root, "b", dict(polarizable_mm=True),
                                        flex)
     no_plain("11b")
+    whole = "forces0" in flex     # the whole script: (d) beside (c)'s checks, no breakdown
+    if whole:
+        print("  (d) the CLI's --polarizable-mm and --mm-method amoeba runs start now, beside the "
+              "float32 / float64 checks and (c)'s build, capture and eager steps; (c) waits for "
+              "them before its timed replays")
+        wait_cli = start_polarizable_cli(torch, root, amoeba_cli)
+        cli = {}
+        before = lambda: cli.update(out=wait_cli())
     syn, _ = synthetic_amoeba_box()
     out["spread_syn"] = amoeba_mm_spread(torch, dev, syn, "the synthetic box",
                                          {k: 2 * v for k, v in AMOEBA_JAX_SPREAD.items()})
@@ -3357,9 +3496,10 @@ def run_polarizable(torch, dev, card, root, flex, amoeba_cli=False):
                                          "the solvated box",
                                          dict(solvent=FORCE_LIMIT, protein=PROTEIN_SPREAD))
     out["amoeba"] = run_polarizable_route(torch, dev, card, root, "c", dict(mm_backend="amoeba"),
-                                          flex)
+                                          flex, breakdown=not whole,
+                                          before_timed=before if whole else None)
     no_plain("11c")
-    out["cli"] = run_polarizable_cli(torch, root, amoeba_cli)
+    out["cli"] = cli["out"] if whole else start_polarizable_cli(torch, root, amoeba_cli)()
     no_plain("11d")
     print(f"  polarizable routes (17,882 atoms, 9 x 256), graphed ms/step (events): nl "
           f"{out['nl']['ms_events']:.3f}, hybrid {out['pol']['ms_events']:.3f}, AMOEBA "
@@ -3486,6 +3626,15 @@ def run_amoeba(torch, dev, card, root):
     t_phase = time.perf_counter()
     res, pre = run_amoeba_preprocess(torch, card, root, AMOEBA_MAX_CYC)
     md = pre.md
+    # (e) the CLI starts now, beside (b) and (c); (d) waits for it before its capture
+    t_cli = time.perf_counter()
+    d_cli = os.path.join(root, "amoeba_cli")
+    shutil.rmtree(d_cli, ignore_errors=True)
+    cli = _cli_start([
+        sys.executable, "-m", "ai2bmd_torch", "--prot-file", "examples/chig.pdb", "--log-dir",
+        d_cli, "--preprocess", "--preprocess-method", "AMOEBA", "--max-cyc", str(AMOEBA_CLI_CYC),
+        "--preeq-steps", "0", "--sim-steps", "2", "--record-per-steps", "1", "--timestep",
+        str(SOLV_DT_FS)])
     box = read_pdb(res["out"])
     n_prot = len(read_pdb(res["out"].replace("-preeq.pdb", "-preeq-nowat.pdb")))
     small = solvate(B.build_polyalanine(2), padding=4.0, seed=0)      # the tool's box
@@ -3522,6 +3671,9 @@ def run_amoeba(torch, dev, card, root):
     need(dx <= FORCE_LIMIT, f"captured descent cycles part from eager ones by {dx:.3e} A")
     res.update(replay_dx=dx, replay_de=de)
 
+    txt = _cli_wait("amoeba-preprocess", cli)
+    cli_s = time.perf_counter() - t_cli
+
     # (d) Langevin steps at 1 fs and 300 K, replays of one captured step
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -3549,23 +3701,15 @@ def run_amoeba(torch, dev, card, root):
     del graph, state, final, eager
     torch.cuda.empty_cache()
 
-    # (e) the CLI
-    t0 = time.perf_counter()
-    d = os.path.join(root, "amoeba_cli")
-    shutil.rmtree(d, ignore_errors=True)
-    txt = _cli_wait("amoeba-preprocess", _cli_start([
-        sys.executable, "-m", "ai2bmd_torch", "--prot-file", "examples/chig.pdb", "--log-dir", d,
-        "--preprocess", "--preprocess-method", "AMOEBA", "--max-cyc", str(AMOEBA_CLI_CYC),
-        "--preeq-steps", "0", "--sim-steps", "2", "--record-per-steps", "1", "--timestep",
-        str(SOLV_DT_FS)]))
+    # (e) the CLI, started after (a)
     lines = [ln for ln in txt.splitlines() if "AMOEBA minimization" in ln or "RMS |F|" in ln]
     need(len(lines) == 2 and f"[{AMOEBA_CLI_CYC}/{AMOEBA_CLI_CYC}]" in lines[1],
          f"the CLI's AMOEBA lines: {lines}")
-    need(all(os.path.exists(os.path.join(d, f"chig-preeq{s}.pdb")) for s in ("", "-nowat")),
+    need(all(os.path.exists(os.path.join(d_cli, f"chig-preeq{s}.pdb")) for s in ("", "-nowat")),
          "the CLI wrote no -preeq pair")
     need("Simulation finished!" in txt, "the CLI run did not finish")
     print(f"  (e) --preprocess --preprocess-method AMOEBA --max-cyc {AMOEBA_CLI_CYC}: exit 0 in "
-          f"{time.perf_counter() - t0:.1f} s, the pair written; {lines[1].strip()!r}")
+          f"{cli_s:.1f} s (beside (b) and (c)), the pair written; {lines[1].strip()!r}")
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"  AMOEBA preprocessing ({res['atoms']} atoms, {AMOEBA_MAX_CYC} cycles): "
           f"{res['wall_s']:.2f} s wall, {res['cycle_ms']:.3f} ms a captured cycle, peak "
@@ -4334,6 +4478,7 @@ def cublas_medium_vs_high(torch, dev):
 
 
 PHASE_AT = []                  # (phase, time.time() at its header) of the default run
+T_WALL = time.time()
 
 
 def phase(title):
@@ -4345,18 +4490,20 @@ def phase(title):
 def prebuild_modes():
     """Start the builds of the other products' modes' libraries (phase 14's)
     in a process of the lowest CPU priority, so that they take the host's
-    idle cores while phases 3-13 run; run_precision waits for it.  The
-    process is killed at exit if it is still running."""
+    idle cores while phases 4-13 run (after phase 3, whose kernel timings
+    the host's load would slow: 170 s instead of ~76 beside them on one
+    host), one mode after the other (each starts one nvcc a source);
+    run_precision waits for it.  The process is killed at exit if it is
+    still running."""
     import atexit
 
     others = tuple(m for m in MODES if m != "b3")
     code = ("import os, time\n"
             "os.nice(19)\n"
-            "from concurrent.futures import ThreadPoolExecutor\n"
             "from ai2bmd_torch.ops import _build\n"
             "t0 = time.perf_counter()\n"
-            f"with ThreadPoolExecutor({len(others)}) as pool:\n"
-            f"    list(pool.map(_build.build, {others!r}))\n"
+            f"for mode in {others!r}:\n"
+            "    _build.build(mode)\n"
             "print(f'{time.perf_counter() - t0:.1f} {time.time()}')\n")
     proc = subprocess.Popen([sys.executable, "-c", code],
                             cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
@@ -4366,11 +4513,13 @@ def prebuild_modes():
     return proc
 
 
-def run_precision(torch, dev, prot, card, root, ref=None, prebuild=None):
+def run_precision(torch, dev, prot, card, root, ref=None, prebuild=None, lone_step=True):
     """Phase 14: (a) the kernels in each mode, (b) the lone graphed step in
-    each mode, (c) the CLI's --matmul-precision and cuBLAS under torch's
-    precisions; (d), the per-mode launch counters, in (a) and (b).
-    ``prebuild``: prebuild_modes()'s process, waited for first."""
+    each mode (``lone_step``: the default run leaves it to
+    --precision-only, its time going to phase 19), (c) the CLI's
+    --matmul-precision and cuBLAS under torch's precisions; (d), the
+    per-mode launch counters, in (a) and (b).  ``prebuild``:
+    prebuild_modes()'s process, waited for first."""
     from ai2bmd_torch.ops import _build
 
     from concurrent.futures import ThreadPoolExecutor
@@ -4381,7 +4530,7 @@ def run_precision(torch, dev, prot, card, root, ref=None, prebuild=None):
         secs, done = (out.split() + ["?", "nan"])[:2]
         during = [p for p, at in PHASE_AT if at <= float(done)]
         print(f"  the background builds: exit {prebuild.returncode}, {secs} s of nvcc from "
-              f"phase 3 on, beside phases 3-{during[-1] if during else '?'} (their host-clock "
+              f"phase 4 on, beside phases 4-{during[-1] if during else '?'} (their host-clock "
               f"figures were taken beside it); waited {time.perf_counter() - t0:.1f} s for them"
               + (f"; the end of their errors:\n{err[-3000:]}" if prebuild.returncode else ""))
 
@@ -4399,8 +4548,12 @@ def run_precision(torch, dev, prot, card, root, ref=None, prebuild=None):
     print(f"  the libraries ready in {time.perf_counter() - t0:.1f} s")
     print("  (a) K1-K3, K5-K8 and the lone helper in each mode against its plain model")
     kernels = check_precision_kernels(torch, dev)
-    print("  (b) the lone graphed step (Chignolin, 9 x 256) in each mode")
-    step = run_precision_step(torch, dev, prot, card, ref)
+    step = {}
+    if lone_step:
+        print("  (b) the lone graphed step (Chignolin, 9 x 256) in each mode")
+        step = run_precision_step(torch, dev, prot, card, ref)
+    else:
+        print("  (b) the lone graphed step in each mode: left to --precision-only")
     print("  (c) the CLI's --matmul-precision; cuBLAS under torch's float32 matmul precisions")
     cli = run_precision_cli(torch, root)
     cublas = cublas_medium_vs_high(torch, dev)
@@ -4418,6 +4571,9 @@ WIDE_SHAPES = ((4, 40), (1, 176))
 WIDE_TOP = (1024, 8)
 # the case whose device ms, bound and share (a) reports, and the model of (b)-(e)
 WIDE_H, WIDE_NH = 512, 4
+# the depth of (b)-(d) and of phase 16's slice: 3 layers, while phase 19
+# drives the wide kernels at full depth (9 x 1,280)
+WIDE_LAYERS = 3
 WIDE_TIMED = (4, 40)
 # kernels the wide slice's replay trace must name (besides cap_grad_kernel)
 WIDE_KERNELS = ("edge_fwd_wide", "edge_bwd_msg_wide", "edge_bwd_upd_wide")
@@ -4517,14 +4673,14 @@ def wide_occupancy(torch, widths):
                 ("K3 centre", "edge_bwd_upd_wide_occupancy", (h, 0, 1)),
                 ("K8 centre", "edge_bwd_upd_wide_occupancy", (h, 1, 1)),
                 ("K3/K8 product", "edge_bwd_upd_wide_occupancy", (h, 0, 2))):
-            o = (ctypes.c_int * 5)()
+            o = (ctypes.c_int * 6)()
             rc = getattr(lib, fn)(*args, ctypes.cast(o, P))
             need(rc == 0, f"{fn}{args}: CUDA error {rc}")
             rows[label] = dict(smem_bytes=o[0], blocks_per_sm=o[1], registers=o[2],
-                               spill_bytes=o[3], chunk_rows=o[4])
+                               spill_bytes=o[3], chunk_rows=o[4], tile_cols=o[5])
             print(f"  {label:16s} H={h} nh={nh} (wide): {o[0]} B shared memory per block, "
                   f"{o[1]} blocks per SM, {o[2]} registers, {o[3]} B local (spill) per thread, "
-                  f"source chunks of {o[4]} rows")
+                  f"source chunks of {o[4]} rows in k-tiles of {o[5]} columns")
         out[f"H={h} nh={nh}"] = rows
     return out
 
@@ -4602,10 +4758,11 @@ def wide_potential(torch, dev, prot, remat=False, h=WIDE_H, nh=WIDE_NH, layers=N
     return pot, cfg, params
 
 
-def run_widths(torch, dev, prot, card, root, lone=None):
+def run_widths(torch, dev, prot, card, root):
     """Phase 15: (a) the edge kernels at every width (check_wide_kernels);
-    (b) Chignolin at 9 x 512 with 4 heads through the wide instantiations
-    of K1-K3, as phase 4 (``lone``: phase 4's launches, when it ran); (c)
+    (b) Chignolin at WIDE_LAYERS x 512 with 4 heads through the wide
+    instantiations of K1-K3, as phase 4 (one evaluation's launches those of
+    WIDE_LAYERS layers; phase 19 holds its 9-layer slice to phase 4's); (c)
     the same weights with remat (K1 without a stash, K7/K8), one
     evaluation against (b)'s step 0; (d) the CLI on those weights written
     by save_converted; (f) a model at H % 32 != 0 against the CPU in
@@ -4626,18 +4783,15 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     res["kernels"] = check_wide_kernels(torch, dev)
     res["a_s"] = time.perf_counter() - t_phase
 
-    print(f"  (b) Chignolin, ViSNet 9 x {WIDE_H}, {WIDE_NH} heads of {WIDE_H // WIDE_NH} "
-          f"channels, through the wide K1-K3")
-    pot, cfg, params = wide_potential(torch, dev, prot)
+    print(f"  (b) Chignolin, ViSNet {WIDE_LAYERS} x {WIDE_H}, {WIDE_NH} heads of "
+          f"{WIDE_H // WIDE_NH} channels, through the wide K1-K3")
+    pot, cfg, params = wide_potential(torch, dev, prot, layers=WIDE_LAYERS)
     need(not pot.cfg.fused_layer and not pot.cfg.plain_edge_core and not pot.cfg.remat,
          f"the wide model resolved to {pot.cfg}")
     launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
                                                               WIDE_KERNELS)
     for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
         need(launches[name] > 0, f"kernel {name} was not launched on the wide path")
-        if lone is not None:
-            need(launches[name] == lone[name],
-                 f"{name}: {launches[name]} launches on the wide slice, {lone[name]} in phase 4")
     for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc",
                  "tf32x3_mm"):
         need(launches[name] == 0, f"{name} ran on the wide slice")
@@ -4647,9 +4801,9 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     torch.cuda.synchronize()
     batches = len(pot.rt.dip_buckets) + 1
     one = {n: LAUNCHES[n] for n in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")}
-    want = {"edge_fwd": N_LAYERS * batches, "edge_bwd_msg": N_LAYERS * batches,
-            "edge_bwd_upd": (N_LAYERS - 1) * batches, "cap_grad": 1}
-    print(f"  one warm evaluation launches {one} (phase 4's per evaluation: {want})")
+    want = {"edge_fwd": WIDE_LAYERS * batches, "edge_bwd_msg": WIDE_LAYERS * batches,
+            "edge_bwd_upd": (WIDE_LAYERS - 1) * batches, "cap_grad": 1}
+    print(f"  one warm evaluation launches {one} (phase 4's per batch and layer: {want})")
     need(one == want, f"the wide slice launches {one} an evaluation, not {want}")
     t0 = time.perf_counter()
     pot64 = FragmentPotential.build(prot, ViSNet(cfg, params).to(torch.float64), cfg,
@@ -4668,7 +4822,7 @@ def run_widths(torch, dev, prot, card, root, lone=None):
 
     print("  (c) the same weights with remat=True: one evaluation through K1 without its stash "
           "and K7/K8")
-    pot_rc, _, _ = wide_potential(torch, dev, prot, remat=True)
+    pot_rc, _, _ = wide_potential(torch, dev, prot, remat=True, layers=WIDE_LAYERS)
     need(pot_rc.cfg.remat and not pot_rc.cfg.fused_layer, f"remat model resolved to {pot_rc.cfg}")
     torch.cuda.synchronize()
     reset_launches()
@@ -4678,9 +4832,9 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     dF_rc = float((f_rc - f0).abs().max())
     print(f"  launches {rc_launches}; forces vs (b)'s step 0: max|dF| {dF_rc:.3e} eV/A, |dE| "
           f"{abs(float(e_rc) - float(e0)):.3e} eV (limit {FORCE_LIMIT})")
-    need(LAUNCHES["edge_bwd_msg_rc"] == N_LAYERS * batches
-         and LAUNCHES["edge_bwd_upd_rc"] == (N_LAYERS - 1) * batches
-         and LAUNCHES["edge_fwd"] == N_LAYERS * batches
+    need(LAUNCHES["edge_bwd_msg_rc"] == WIDE_LAYERS * batches
+         and LAUNCHES["edge_bwd_upd_rc"] == (WIDE_LAYERS - 1) * batches
+         and LAUNCHES["edge_fwd"] == WIDE_LAYERS * batches
          and LAUNCHES["edge_bwd_msg"] == 0 and LAUNCHES["edge_bwd_upd"] == 0,
          f"the remat evaluation launched {rc_launches}")
     need(dF_rc <= FORCE_LIMIT, f"remat forces differ from (b)'s step 0 by {dF_rc:.3e}")
@@ -4689,7 +4843,7 @@ def run_widths(torch, dev, prot, card, root, lone=None):
 
     print("  (d) python -m ai2bmd_torch --ckpt-path on these weights")
     os.makedirs(root, exist_ok=True)
-    npz = os.path.join(root, f"visnet-chig-9x{WIDE_H}-{WIDE_NH}h.npz")
+    npz = os.path.join(root, f"visnet-chig-{WIDE_LAYERS}x{WIDE_H}-{WIDE_NH}h.npz")
     save_converted(npz, params, cfg)
     d = os.path.join(root, "wide")
     t0 = time.perf_counter()
@@ -4701,7 +4855,7 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     line = cli_model_line(txt, "edge-core kernels K1-K3")
     print(f"  exit 0 in {time.perf_counter() - t0:.1f} s, {WIDE_CLI_STEPS} steps at {USER_DT_FS} "
           f"fs; metrics ms/step {[r['ms_per_step'] for r in rows]}; {line!r}")
-    need(f"ViSNet {N_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
+    need(f"ViSNet {WIDE_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
     res["cli_line"] = line
 
     print(f"  (f) Chignolin, ViSNet {PAD_LAYERS} x {PAD_H}, {PAD_NH} heads (H % 32 != 0): the "
@@ -4740,7 +4894,8 @@ def run_widths(torch, dev, prot, card, root, lone=None):
     res.update(padded_max_dF=max(dF_p, dF_p2), padded_launches=pad_launches)
     del pot_p, pot64, layers, first
     res["phase_s"] = time.perf_counter() - t_phase
-    print(f"  wide slice (9 x {WIDE_H}, {WIDE_NH} heads): graphed {graphed['ms_step']:.3f} ms/step "
+    print(f"  wide slice ({WIDE_LAYERS} x {WIDE_H}, {WIDE_NH} heads): graphed "
+          f"{graphed['ms_step']:.3f} ms/step "
           f"(events {graphed['ms_events']:.3f}), {graphed['kernels_per_step']:.0f} kernels a "
           f"step, {100 * graphed['busy_share']:.1f}% busy; eager {ms_step:.3f}; step 0 max|dF| "
           f"{dF:.3e}, remat {dF_rc:.3e}; (a) took {res['a_s']:.1f} s, phase 15 "
@@ -4838,16 +4993,16 @@ def layer_wide_occupancy(torch, widths):
         for h, nh in widths:
             rows = out.setdefault(fn.split("_wide")[0], {}).setdefault(f"H={h} nh={nh}", {})
             for st, label in enumerate(stages):
-                o = (ctypes.c_int * 5)()
+                o = (ctypes.c_int * 6)()
                 rc = getattr(lib, fn)(h, S, nh, st, ctypes.cast(o, P))
                 need(rc == 0, f"{fn}({h}, {S}, {nh}, {st}): CUDA error {rc}")
                 rows[label] = dict(smem_bytes=o[0], blocks_per_sm=o[1], registers=o[2],
-                                   spill_bytes=o[3], chunk_rows=o[4])
+                                   spill_bytes=o[3], chunk_rows=o[4], tile_cols=o[5])
             print(f"  {fn.split('_wide')[0]} H={h} nh={nh} (wide; shared bytes, blocks an SM, "
                   f"registers, spill bytes): " + "; ".join(
                       f"{k} {v['smem_bytes']}/{v['blocks_per_sm']}/{v['registers']}/"
                       f"{v['spill_bytes']}" for k, v in rows.items())
-                  + f"; centre chunks of {o[4]} rows")
+                  + f"; centre chunks of {o[4]} rows in k-tiles of {o[5]} columns")
     return out
 
 
@@ -4908,8 +5063,8 @@ def layer_launches(LAUNCHES):
 
 
 def run_layer_slice(torch, dev, prot, card, ref15):
-    """Phase 16(b): Chignolin at 9 x WIDE_H with WIDE_NH heads (phase 15(b)'s
-    model) with AI2BMD_FUSED_LAYER=1, driven as phase 4b; one warm
+    """Phase 16(b): Chignolin at WIDE_LAYERS x WIDE_H with WIDE_NH heads
+    (phase 15(b)'s model) with AI2BMD_FUSED_LAYER=1, driven as phase 4b; one warm
     evaluation's launches (K5 and K6 a layer a batch, K1-K3 none); step 0
     against the CPU float64 run (phase 15(b)'s when it ran, from the same
     cold-cap offsets), beside 15(b)'s step 0 through K1-K3."""
@@ -4917,7 +5072,7 @@ def run_layer_slice(torch, dev, prot, card, ref15):
     from ai2bmd_torch.ops import LAUNCHES, reset_launches
     from ai2bmd_torch.potentials import FragmentPotential
 
-    pot, cfg, params = wide_potential(torch, dev, prot, fused=True)
+    pot, cfg, params = wide_potential(torch, dev, prot, layers=WIDE_LAYERS, fused=True)
     launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(torch, dev, prot, pot, card,
                                                               LAYER_WIDE_KERNELS)
     for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc",
@@ -4929,8 +5084,8 @@ def run_layer_slice(torch, dev, prot, card, ref15):
     torch.cuda.synchronize()
     one = layer_launches(LAUNCHES)
     batches = len(pot.rt.dip_buckets) + 1
-    want = dict({n: 0 for n in one}, vislayer_fwd=N_LAYERS * batches,
-                vislayer_bwd=N_LAYERS * batches, cap_grad=1)
+    want = dict({n: 0 for n in one}, vislayer_fwd=WIDE_LAYERS * batches,
+                vislayer_bwd=WIDE_LAYERS * batches, cap_grad=1)
     print(f"  one warm evaluation launches {one}")
     need(one == want, f"the wide full-layer slice launches {one} an evaluation, not {want}")
     cpu = torch.device("cpu")
@@ -4962,7 +5117,7 @@ def run_layer_cli(torch, root, cfg, params):
     from ai2bmd_torch.models.checkpoint import save_converted
 
     os.makedirs(root, exist_ok=True)
-    npz = os.path.join(root, f"visnet-chig-9x{WIDE_H}-{WIDE_NH}h-layer.npz")
+    npz = os.path.join(root, f"visnet-chig-{WIDE_LAYERS}x{WIDE_H}-{WIDE_NH}h-layer.npz")
     save_converted(npz, params, cfg)
     d = os.path.join(root, "wide_layer")
     t0 = time.perf_counter()
@@ -4975,7 +5130,7 @@ def run_layer_cli(torch, root, cfg, params):
     line = cli_model_line(txt, "full-layer kernels K5/K6 (wide instantiations: K5, K6)")
     print(f"  exit 0 in {time.perf_counter() - t0:.1f} s, {WIDE_CLI_STEPS} steps at {USER_DT_FS} "
           f"fs; metrics ms/step {[r['ms_per_step'] for r in rows]}; {line!r}")
-    need(f"ViSNet {N_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
+    need(f"ViSNet {WIDE_LAYERS} x {WIDE_H}, {WIDE_NH} heads:" in line, f"the CLI ran {line!r}")
     return line
 
 
@@ -5200,7 +5355,8 @@ def run_layer_widths(torch, dev, prot, card, root, ref15=None):
     print("  (a) K5 and K6 at every width against their plain versions")
     res["kernels"] = check_layer_widths(torch, dev)
     res["a_s"] = time.perf_counter() - t_phase
-    print(f"  (b) Chignolin, ViSNet 9 x {WIDE_H}, {WIDE_NH} heads, AI2BMD_FUSED_LAYER=1: the "
+    print(f"  (b) Chignolin, ViSNet {WIDE_LAYERS} x {WIDE_H}, {WIDE_NH} heads, "
+          f"AI2BMD_FUSED_LAYER=1: the "
           f"wide K5/K6")
     sl = run_layer_slice(torch, dev, prot, card, ref15)
     res["slice"] = {k: v for k, v in sl.items() if k not in ("params", "cfg", "P", "aux0")}
@@ -5217,7 +5373,8 @@ def run_layer_widths(torch, dev, prot, card, root, ref15=None):
     res["e_s"] = time.perf_counter() - t0
     res["phase_s"] = time.perf_counter() - t_phase
     g = res["slice"]["graphed"]
-    print(f"  wide full-layer slice (9 x {WIDE_H}, {WIDE_NH} heads): graphed {g['ms_step']:.3f} "
+    print(f"  wide full-layer slice ({WIDE_LAYERS} x {WIDE_H}, {WIDE_NH} heads): graphed "
+          f"{g['ms_step']:.3f} "
           f"ms/step (events {g['ms_events']:.3f}), {g['kernels_per_step']:.0f} kernels a step, "
           f"{100 * g['busy_share']:.1f}% busy; step 0 max|dF| {res['slice']['step0_max_dF']:.3e}; "
           f"1,112 slots: remat {res['long']['evals']['remat']['ms']:.3f} ms, K5/K6 "
@@ -5273,7 +5430,8 @@ def precision_entry(p14, name):
                          gflop=lone["gflop"], mbytes=lone["mbytes"], max_abs_err=res["max_abs_err"],
                          head_widths=res["head_widths"], whole_molecule_A176_ms=whole["ms"],
                          whole_molecule_A176_bound_ms=whole["bound_ms"], bound_peak=MODE_UNIT[mode],
-                         step_ms=p14["step"][mode]["ms_step"], design_ms=lone.get("design_ms"),
+                         step_ms=p14["step"].get(mode, {}).get("ms_step"),
+                         design_ms=lone.get("design_ms"),
                          wide=res.get("wide"))
         if mode == "default":
             out[mode]["bf16_share"] = res["bf16_share"]
@@ -5383,19 +5541,21 @@ MIXED_PRODUCTS = {"edge_fwd_bf16": (3, 2), "edge_bwd_msg_bf16": (0, 4),
                   "edge_bwd_upd_rc_bf16": (1, 1)}
 
 
-def check_mixed_kernels(torch, dev, results):
+def check_mixed_kernels(torch, dev, results, cases=None):
     """Phase 17(a): each bfloat16 kernel against its plain bfloat16 version
-    (K1 in its four flag pairs) at MIXED_NARROW and MIXED_WIDE, bitwise
-    repeats, K7/K8 against K2/K3 on the bfloat16 K1's stash (printed: not
-    bitwise in this mode), and at the lone batches the ms of a call (CUDA
-    events) beside the float32 kernel's at the same shape and the plain
-    version's, with the bytes, the bound and its share, summed into
-    ``results`` for the kernels line."""
+    (K1 in its four flag pairs) at MIXED_NARROW and MIXED_WIDE (or the (B,
+    A, H, heads) ``cases``), bitwise repeats, K7/K8 against K2/K3 on the
+    bfloat16 K1's stash (printed: not bitwise in this mode), and at the lone
+    batches the ms of a call (CUDA events) beside the float32 kernel's at
+    the same shape and the plain version's, with the bytes, the bound and
+    its share, summed into ``results`` for the kernels line."""
     from ai2bmd_torch.ops import vismp as K
 
     gen = torch.Generator().manual_seed(17)
     fwd_flags = ((True, True), (True, False), (False, True), (False, False))
-    for B, A, h, nh in [(B, A, H, NH) for B, A in MIXED_NARROW] + MIXED_WIDE:
+    if cases is None:
+        cases = [(B, A, H, NH) for B, A in MIXED_NARROW] + MIXED_WIDE
+    for B, A, h, nh in cases:
         lone = (B, A) in SHAPES and h == H
         print(f"  B={B} A={A} H={h}, {nh} heads ({'narrow' if K.narrow_shapes(h, nh) else 'wide'})")
         c = mixed_case(torch, K, gen, B, A, dev, h, nh)
@@ -5542,17 +5702,13 @@ def run_mixed_step(torch, dev, prot, card, ref=None):
         ref["f32_pot"] = f32pot
     shift = float((f0.to(cpu, torch.float64) - ref["f_ref"]).abs().max())
     cpu_pot, _, _ = mixed_potential(torch, dev, prot, bf, device="cpu")
-    t0 = time.perf_counter()
-    e_cpu, f_cpu, _ = cpu_pot.stateful_energy_forces(P.cpu(), aux0.cpu())
-    d_cpu = float((f0.cpu() - f_cpu).abs().max())
-    print(f"  step 0: against the CPU float64 float32 model max|dF| {shift:.3e} eV/A, |dE| "
-          f"{abs(float(e0) - float(ref['e_ref'])):.3e} eV (the mode's shift); against the mixed "
-          f"step on the CPU (the kernels' plain versions, {time.perf_counter() - t0:.1f} s) "
-          f"max|dF| {d_cpu:.3e} eV/A, |dE| {abs(float(e0) - float(e_cpu)):.3e} eV "
-          f"({d_cpu / shift:.3f} of the shift; limit 0.5); max|F| {float(f0.abs().max()):.3f} "
-          f"eV/A")
-    need(0 < shift and d_cpu <= 0.5 * shift,
-         f"the mixed step 0 differs from its CPU plain versions by {d_cpu:.3e} (shift {shift:.3e})")
+    P_cpu, aux0_cpu = P.cpu(), aux0.cpu()
+
+    def cpu_step():        # the mixed step on the CPU, in a thread beside the graphed drives
+        t0 = time.perf_counter()
+        return (*cpu_pot.stateful_energy_forces(P_cpu, aux0_cpu)[:2], time.perf_counter() - t0)
+
+    wait_cpu = in_thread(cpu_step)
     masses = torch.as_tensor(prot.masses, dtype=torch.float32, device=dev)
     coeffs = L.LangevinCoeffs.build(prot.masses, 1.0, 300.0, 0.001, device=dev)
     out = {}
@@ -5569,6 +5725,16 @@ def run_mixed_step(torch, dev, prot, card, ref=None):
         need(all(("bfloat16" in n) == (label == "mixed") for n in edge),
              f"the {label} replay ran {[short_name(n) for n in edge]}")
     print("  the mixed replay's edge kernels are all bfloat16 instantiations")
+    (e_cpu, f_cpu, secs), waited = wait_cpu()
+    d_cpu = float((f0.cpu() - f_cpu).abs().max())
+    print(f"  step 0: against the CPU float64 float32 model max|dF| {shift:.3e} eV/A, |dE| "
+          f"{abs(float(e0) - float(ref['e_ref'])):.3e} eV (the mode's shift); against the mixed "
+          f"step on the CPU (the kernels' plain versions, {secs:.1f} s beside the graphed "
+          f"drives, waited {waited:.1f} s for it) max|dF| {d_cpu:.3e} eV/A, |dE| "
+          f"{abs(float(e0) - float(e_cpu)):.3e} eV ({d_cpu / shift:.3f} of the shift; limit "
+          f"0.5); max|F| {float(f0.abs().max()):.3f} eV/A")
+    need(0 < shift and d_cpu <= 0.5 * shift,
+         f"the mixed step 0 differs from its CPU plain versions by {d_cpu:.3e} (shift {shift:.3e})")
     if ref is not None and "f32_pot" not in ref:
         need(torch.equal(aux0, ref["aux0"]), "the mixed run started from other cap offsets")
     reset_launches()
@@ -5894,6 +6060,442 @@ def run_runtime(torch, card, root, solv=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: past 1,024 channels (the edge and full-layer kernels at every H)
+# ---------------------------------------------------------------------------
+
+# (a): 8 heads of 133 channels (H % 32 != 0, the padded route), of 160, 16
+# of 128 and of 256, at 2 x 24 and 1 x 176 (from PAST_LONE on at 2 x 24
+# alone); --past-1024-only adds PAST_ALONE_CASES (32 heads of 256, ~13 s);
+# the bfloat16 storage and the highest / default libraries at PAST_BF16
+# and PAST_MODES, 2 x 24
+PAST_CASES = ((1064, 8), (1280, 8), (2048, 16), (4096, 16))
+PAST_ALONE_CASES = ((8192, 32),)
+PAST_SHAPES = ((2, 24), (1, 176))
+PAST_LONE = 4096
+PAST_BF16 = ((1280, 8), (2048, 16))
+PAST_MODES = ((1280, 8),)
+# (b): the wide kernels' resources at these widths (8,192: sizes only)
+PAST_OCC = ((1280, 8), (2048, 16), (4096, 16), (8192, 32))
+# (c) the timed case and (d)-(e) the slice's model: 9 x 1,280, 8 heads of 160
+PAST_H, PAST_NH = 1280, 8
+PAST_TIMED = (4, 40)
+# (d): the CPU float64 reference holds a 3 x 1,280 model of the same seed
+# (9 layers would take about a minute on the card's host: 9 x 512's took
+# ~10 s, and the products grow as H^2)
+PAST_REF_LAYERS = 3
+# (d): eager steps before and in the timed window, and timed replays, of
+# the K1-K3 drive (phase 4's 5 and 20: a step takes ~0.35 s here), and of
+# the K5/K6 drive, which runs the same weights again
+PAST_WARM, PAST_TIMED_STEPS = 2, 8
+PAST_FUSED_WARM, PAST_FUSED_TIMED = 1, 4
+PAST_CLI_STEPS, PAST_CLI_RECORD = 10, 5
+SMEM_MAX = 232448              # the most shared memory one block may take (csrc/common.cuh)
+
+
+def past_layer_weights(torch, FL, h, nh, dev, seed):
+    """The fused-layer weights {last: tuple} of one ViSNet layer of width h
+    with nh heads, drawn on the card (xavier-uniform weights as
+    init_params draws them, small random biases and norms; seed ``seed``):
+    init_params on the host takes ~10 s at 4,096 channels.  The last
+    layer's tuple has zero W_t, W_src, W_f and b_f (FL.layer_weights)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda n_in, n_out: ((torch.rand((n_in, n_out), generator=gen, device=dev) * 2 - 1)
+                             * math.sqrt(6.0 / (n_in + n_out)))
+    r = lambda *s, sc=0.1: torch.randn(s, generator=gen, device=dev) * sc
+    lin = lambda n_in, n_out: {"w": u(n_in, n_out), "b": r(n_out)}
+    lp = {"layernorm": {"scale": 1 + r(h), "bias": r(h)}, "vec_layernorm": {"weight": 1 + r(h)},
+          "vec_proj": {"w": u(h, 3 * h)}, "q_proj": lin(h, h), "k_proj": lin(h, h),
+          "v_proj": lin(h, h), "dk_proj": lin(h, h), "dv_proj": lin(h, h),
+          "s_proj": lin(h, 2 * h), "o_proj": lin(h, 3 * h), "w_trg_proj": {"w": u(h, h)},
+          "w_src_proj": {"w": u(h, h)}, "f_proj": lin(h, h)}
+    return {last: [t.contiguous() for t in FL.layer_weights(lp, h, nh, last)]
+            for last in (False, True)}
+
+
+def check_past_modes(torch, dev, out):
+    """Phase 19(a), modes: K1 (update, store), K2, K3, K7, K8 and K5/K6 (both
+    ``last``) at PAST_MODES, 2 x 24, from the highest and default libraries,
+    held as phase 14 holds its cases (highest within EDGE_TOL of its plain
+    model, default by default_misses), bitwise repeats, every launch from
+    the mode's library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ai2bmd_torch.ops import _build, reset_launches
+    from ai2bmd_torch.ops import tf32x3 as T
+    from ai2bmd_torch.ops import vislayer as FL
+    from ai2bmd_torch.ops import vismp as K
+
+    with ThreadPoolExecutor(2) as pool:   # built by phase 14 in the default run
+        list(pool.map(_build.build, ("highest", "default")))
+    gen = torch.Generator().manual_seed(23)
+    B, A = PAST_SHAPES[0]
+    for h, nh in PAST_MODES:
+        ws = past_layer_weights(torch, FL, h, nh, dev, 23)
+        tag = f"B={B} A={A} H={h} nh={nh}"
+        set_mm_mode("b3")
+        c = edge_case(torch, K, gen, B, A, dev, h, nh)
+        la = layer_inputs(torch, gen, B, A, dev, h)
+        for mode in ("highest", "default"):
+            set_mm_mode(mode)
+            reset_launches()
+            mm, line = T.plain_mm(mode), []
+            for name, label, run, plain, _, _ in precision_specs(torch, K, FL, c, la, ws, B, A,
+                                                                  h, nh):
+                if label.startswith("edge_fwd") and label != MAIN_VARIANT["edge_fwd"]:
+                    continue
+                cell = f"{label} {tag} @{mode}"
+                if mode == "default":
+                    misses, err, share = default_misses(cell, run(), plain(mm),
+                                                        plain(T.mm_highest_plain))
+                    need(not misses, f"{cell}: " + "; ".join(misses))
+                else:
+                    err, share = quiet_compare(cell, run(), plain(mm), EDGE_TOL)
+                a, b = run(), run()
+                need(all((x is None and y is None) or bool(torch.equal(x, y))
+                         for x, y in zip(a, b)), f"{cell}: two runs differ")
+                del a, b
+                res = out.setdefault(mode, {}).setdefault(name, {"max_abs_err": 0.0})
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                line.append(f"{label} {err:.1e} ({share:.3f})")
+            only_mode(mode, tag)
+            share_of = ("the rounding's difference beyond EDGE_TOL" if mode == "default"
+                        else "the EDGE_TOL bound")
+            print(f"  {tag} @{mode} (max|d| against its plain model; share of {share_of}): "
+                  + "; ".join(line))
+        del c, la, ws
+        torch.cuda.empty_cache()
+    set_mm_mode("b3")
+
+
+def check_past_kernels(torch, dev, before_timed=None, cases=PAST_CASES):
+    """Phase 19(a)-(c): K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 (both
+    ``last``) at ``cases`` x PAST_SHAPES (from PAST_LONE on at 2 x 24
+    alone) and at
+    PAST_TIMED for (PAST_H, PAST_NH), against their plain versions within
+    EDGE_TOL, bitwise repeats, K7/K8 against K2/K3 on K1's stash and K6's
+    a_ij against K5's (check_wide_case, check_layer_case); the bfloat16
+    storage at PAST_BF16 (check_mixed_kernels) and the highest / default
+    libraries at PAST_MODES (check_past_modes); the wide kernels' resources
+    at PAST_OCC from the launchers' own sizes, none past SMEM_MAX; then
+    (``before_timed()`` first, when given: the card to itself) the
+    PAST_TIMED case, each kernel's device ms beside its plain version's,
+    its bound and share.  Returns {kernel: figures}, "bf16", "modes" and
+    "occupancy"."""
+    from ai2bmd_torch.ops import vislayer as FL
+    from ai2bmd_torch.ops import vismp as K
+
+    gen = torch.Generator().manual_seed(19)
+    out = {}
+
+    def run_case(h, nh, B, A, ws, timed=False):
+        t0 = time.perf_counter()
+        per = {}
+        c = edge_case(torch, K, gen, B, A, dev, h, nh)
+        check_wide_case(torch, K, c, B, A, h, nh, per, timed)
+        del c
+        torch.cuda.empty_cache()
+        check_layer_case(torch, FL, ws, layer_inputs(torch, gen, B, A, dev, h), B, A, h, nh,
+                         per, timed)
+        for name, res in per.items():
+            o = out.setdefault(name, {"max_abs_err": 0.0, "cases": {}})
+            o["max_abs_err"] = max(o["max_abs_err"], res["max_abs_err"])
+            o["cases"][f"H={h} nh={nh} B={B} A={A}"] = res["max_abs_err"]
+            if "timed" in res:
+                o["timed"] = res["timed"]
+        torch.cuda.empty_cache()
+        print(f"  H={h} nh={nh} B={B} A={A}: {time.perf_counter() - t0:.1f} s")
+
+    weights = lambda h, nh: {last: FL.padded_layer_weights(w, h) for last, w in
+                             past_layer_weights(torch, FL, h, nh, dev, 19).items()}
+    for h, nh in cases:
+        need(not K.narrow_shapes(h, nh) and K.layer_shapes(h, nh, S) and h > 1024,
+             f"H={h}, nh={nh}: not a wide shape past 1,024")
+        ws = weights(h, nh)
+        for B, A in PAST_SHAPES if h < PAST_LONE else PAST_SHAPES[:1]:
+            run_case(h, nh, B, A, ws)
+        del ws
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"  (a) the bfloat16 storage at {PAST_BF16}, B x A = {PAST_SHAPES[0]}")
+    bf16 = {n: {"max_abs_err": 0.0} for n in MIXED_KERNELS}
+    check_mixed_kernels(torch, dev, bf16, [(*PAST_SHAPES[0], h, nh) for h, nh in PAST_BF16])
+    print(f"  {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"  (a) the highest and default libraries at {PAST_MODES}, B x A = {PAST_SHAPES[0]}")
+    modes = {}
+    check_past_modes(torch, dev, modes)
+    print(f"  {time.perf_counter() - t0:.1f} s")
+    print(f"  (b) the wide kernels' resources at {PAST_OCC} (launchers' sizes; nothing launched "
+          f"at 8,192)")
+    occ = {"edge": wide_occupancy(torch, PAST_OCC), **layer_wide_occupancy(torch, PAST_OCC)}
+    worst = max(r["smem_bytes"] for part in occ.values() for rows in part.values()
+                for r in rows.values())
+    print(f"  the largest block's shared memory at any of these widths: {worst} B (SMEM_MAX "
+          f"{SMEM_MAX})")
+    need(worst <= SMEM_MAX, f"a wide block takes {worst} B of shared memory, past {SMEM_MAX}")
+    if before_timed is not None:
+        before_timed()
+    run_case(PAST_H, PAST_NH, *PAST_TIMED, weights(PAST_H, PAST_NH), timed=True)
+    print(f"  (c) at H={PAST_H}, {PAST_NH} heads, B x A = {PAST_TIMED} (device ms, plain, "
+          f"bound, share):")
+    for name, o in out.items():
+        t = o["timed"]
+        print(f"    {name:16s} {fmt_ms(t['device_ms'])} (plain {fmt_ms(t['plain_device_ms'])}), "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['share']:.1f}%; max "
+              f"abs err over the cases {o['max_abs_err']:.2e}")
+    for name, label in (("edge_fwd", "K1 update store"), ("edge_bwd_msg", "K2"),
+                        ("edge_bwd_upd", "K3 centre"), ("edge_bwd_msg_rc", "K7"),
+                        ("edge_bwd_upd_rc", "K8 centre")):
+        out[name]["occupancy"] = {w: rows[label] for w, rows in occ["edge"].items()}
+    for name in ("vislayer_fwd", "vislayer_bwd"):
+        out[name]["occupancy"] = occ[name]
+    out.update(bf16=bf16, modes=modes, occupancy=occ, smem_max_seen=worst)
+    return out
+
+
+def run_past_slice(torch, dev, prot, card):
+    """Phase 19(d): Chignolin at 9 x PAST_H with PAST_NH heads (random,
+    seed 0) through K1-K3 and K4, then the same weights with
+    AI2BMD_FUSED_LAYER=1 through K5/K6, each driven as phase 4 (graphed,
+    ms/step, kernels a step, busy share, the capture's peak memory), one
+    warm evaluation's launches equal to phase 4's per batch; one evaluation
+    with remat (K1 without a stash, K7/K8) against the step 0; step 0
+    through K5/K6 against K1-K3's.  Returns the figures."""
+    from ai2bmd_torch.ops import LAUNCHES, reset_launches
+
+    res = {}
+    label = f"9 x {PAST_H}, {PAST_NH} heads of {PAST_H // PAST_NH}"
+    print(f"  (d) Chignolin, ViSNet {label}, through the wide K1-K3")
+    pot, _, _ = wide_potential(torch, dev, prot, h=PAST_H, nh=PAST_NH)
+    need(not pot.cfg.fused_layer and not pot.cfg.plain_edge_core and not pot.cfg.remat,
+         f"the model resolved to {pot.cfg}")
+    launches, ms_step, P, aux0, aux1, e0, f0, graphed = drive(
+        torch, dev, prot, pot, card, WIDE_KERNELS, PAST_WARM, PAST_TIMED_STEPS)
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad"):
+        need(launches[name] > 0, f"kernel {name} was not launched on the slice")
+    for name in ("vislayer_fwd", "vislayer_bwd", "edge_bwd_msg_rc", "edge_bwd_upd_rc",
+                 "tf32x3_mm"):
+        need(launches[name] == 0, f"{name} ran on the slice's K1-K3 path")
+    torch.cuda.synchronize()
+    reset_launches()
+    pot.stateful_energy_forces(P, aux1)
+    torch.cuda.synchronize()
+    batches = len(pot.rt.dip_buckets) + 1
+    one = {n: LAUNCHES[n] for n in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "cap_grad")}
+    want = {"edge_fwd": N_LAYERS * batches, "edge_bwd_msg": N_LAYERS * batches,
+            "edge_bwd_upd": (N_LAYERS - 1) * batches, "cap_grad": 1}
+    print(f"  one warm evaluation launches {one} (phase 4's per evaluation: {want})")
+    need(one == want, f"the slice launches {one} an evaluation, not {want}")
+    res["edge"] = dict(launches=launches, per_eval=one, ms_step_eager=ms_step, graphed=graphed)
+
+    print("  (d) the same weights with remat=True: one evaluation through K1 without its stash "
+          "and K7/K8")
+    pot_rc, _, _ = wide_potential(torch, dev, prot, remat=True, h=PAST_H, nh=PAST_NH)
+    torch.cuda.synchronize()
+    reset_launches()
+    e_rc, f_rc, _ = pot_rc.stateful_energy_forces(P, aux0)
+    torch.cuda.synchronize()
+    rc_launches = {n: v for n, v in LAUNCHES.items() if v}
+    dF_rc = float((f_rc - f0).abs().max())
+    print(f"  launches {rc_launches}; forces vs the slice's step 0: max|dF| {dF_rc:.3e} eV/A, "
+          f"|dE| {abs(float(e_rc) - float(e0)):.3e} eV (limit {FORCE_LIMIT})")
+    need(LAUNCHES["edge_bwd_msg_rc"] == N_LAYERS * batches
+         and LAUNCHES["edge_bwd_upd_rc"] == (N_LAYERS - 1) * batches
+         and LAUNCHES["edge_fwd"] == N_LAYERS * batches
+         and LAUNCHES["edge_bwd_msg"] == 0 and LAUNCHES["edge_bwd_upd"] == 0,
+         f"the remat evaluation launched {rc_launches}")
+    need(dF_rc <= FORCE_LIMIT, f"remat forces differ from the step 0 by {dF_rc:.3e}")
+    res.update(remat_launches=rc_launches, remat_max_dF=dF_rc)
+    del pot_rc, pot
+    torch.cuda.empty_cache()
+
+    print(f"  (d) the same weights with AI2BMD_FUSED_LAYER=1: the wide K5/K6")
+    pot_f, _, _ = wide_potential(torch, dev, prot, h=PAST_H, nh=PAST_NH, fused=True)
+    launches_f, ms_f, _, _, aux1_f, _, _, graphed_f = drive(
+        torch, dev, prot, pot_f, card, LAYER_WIDE_KERNELS, PAST_FUSED_WARM, PAST_FUSED_TIMED)
+    for name in ("edge_fwd", "edge_bwd_msg", "edge_bwd_upd", "edge_bwd_msg_rc",
+                 "edge_bwd_upd_rc", "tf32x3_mm"):
+        need(launches_f[name] == 0, f"{name} ran on the slice's full-layer path")
+    torch.cuda.synchronize()
+    reset_launches()
+    pot_f.stateful_energy_forces(P, aux1_f)
+    torch.cuda.synchronize()
+    one_f = layer_launches(LAUNCHES)
+    want_f = dict({n: 0 for n in one_f}, vislayer_fwd=N_LAYERS * batches,
+                  vislayer_bwd=N_LAYERS * batches, cap_grad=1)
+    print(f"  one warm evaluation launches {one_f}")
+    need(one_f == want_f, f"the full-layer slice launches {one_f} an evaluation, not {want_f}")
+    e0_f, f0_f, _ = pot_f.stateful_energy_forces(P, aux0)   # K1-K3's step 0, its caps
+    dF_paths = float((f0_f - f0).abs().max())
+    print(f"  step 0 through K5/K6 against K1-K3's (9 layers, the card): max|dF| {dF_paths:.3e} "
+          f"eV/A, |dE| {abs(float(e0_f) - float(e0)):.3e} eV (limit {FORCE_LIMIT})")
+    need(dF_paths <= FORCE_LIMIT, f"the two paths' step 0 differ by {dF_paths:.3e}")
+    res["fused"] = dict(launches=launches_f, per_eval=one_f, ms_step_eager=ms_f,
+                        graphed=graphed_f, max_dF_vs_edge=dF_paths)
+    del pot_f
+    torch.cuda.empty_cache()
+
+    return res
+
+
+def start_past_reference(torch, dev, prot):
+    """Phase 19(d), step 0: a PAST_REF_LAYERS x PAST_H model of the same seed
+    (PAST_NH heads) through K1-K3 and through K5/K6 on the card, from cold
+    caps of its own, and its float64 run on the CPU started in a thread,
+    which runs beside the slice's drives (the card does their work).
+    Returns what finish_past_reference needs."""
+    from ai2bmd_torch.models.visnet import ViSNet
+    from ai2bmd_torch.potentials import FragmentPotential
+
+    print(f"  (d) step 0 against the CPU in float64: {PAST_REF_LAYERS} x {PAST_H}, {PAST_NH} "
+          f"heads (seed 0), through each path; the float64 run in a thread beside the drives")
+    P = torch.as_tensor(prot.positions, dtype=torch.float32, device=dev)
+    card = {}
+    for route, fused in (("K1-K3", False), ("K5/K6", True)):
+        pot3, cfg3, params3 = wide_potential(torch, dev, prot, h=PAST_H, nh=PAST_NH,
+                                             layers=PAST_REF_LAYERS, fused=fused)
+        if not card:
+            aux0 = pot3.init_cap_delta(P)
+        card[route] = pot3.stateful_energy_forces(P, aux0)[:2]
+        del pot3
+    cpu = torch.device("cpu")
+    P64, aux64 = P.to(cpu, torch.float64), aux0.to(cpu, torch.float64)
+
+    def reference():
+        t0 = time.perf_counter()
+        pot64 = FragmentPotential.build(prot, ViSNet(cfg3, params3).to(torch.float64), cfg3,
+                                        longrange="mm", device="cpu")
+        return pot64.stateful_energy_forces(P64, aux64)[:2], time.perf_counter() - t0
+
+    return in_thread(reference), card
+
+
+def finish_past_reference(torch, started):
+    """Phase 19(d), step 0: each path's forces within FORCE_LIMIT of the
+    float64 run.  Returns ({path: max|dF|}, the reference's seconds)."""
+    wait, card = started
+    ((e_ref, f_ref), secs), waited = wait()
+    step0 = {}
+    for route, (e3, f3) in card.items():
+        dF = float((f3.cpu().double() - f_ref).abs().max())
+        step0[route] = dF
+        print(f"  {route}: |dE| {abs(float(e3) - float(e_ref)):.3e} eV, max|dF| {dF:.3e} eV/A "
+              f"(limit {FORCE_LIMIT}); max|F| {float(f_ref.abs().max()):.3f} eV/A")
+        need(dF <= FORCE_LIMIT, f"{route}: step-0 forces differ from float64 by {dF:.3e}")
+    print(f"  the float64 reference took {secs:.1f} s (waited {waited:.1f} s for it)")
+    return step0, secs
+
+
+def save_past_npz(torch, root):
+    """Phase 19(e)'s checkpoint: the slice's weights (ViSNet 9 x PAST_H,
+    PAST_NH heads, seed 0, as wide_potential makes them), made and written
+    by save_converted (~1.2 GB compressed on the host) in a thread of its
+    own; the whole script starts it before phase 16, so that the host does
+    it beside the card's work.  Returns (its waiter, path)."""
+    from ai2bmd_torch.models.checkpoint import save_converted
+    from ai2bmd_torch.models.params import init_params
+    from ai2bmd_torch.models.visnet import ViSNetConfig
+
+    os.makedirs(root, exist_ok=True)
+    npz = os.path.join(root, f"visnet-chig-9x{PAST_H}-{PAST_NH}h.npz")
+
+    def save():
+        cfg = ViSNetConfig(hidden_channels=PAST_H, num_heads=PAST_NH)
+        save_converted(npz, init_params(cfg, torch.Generator().manual_seed(0)), cfg)
+
+    return in_thread(save), npz
+
+
+def start_past_cli(root, saving):
+    """Phase 19(e): the CLI on the slice's .npz (save_converted, written by
+    ``saving``, save_past_npz's waiter and path), PAST_CLI_STEPS steps at
+    USER_DT_FS, a record every PAST_CLI_RECORD, started in the background
+    (it runs beside (a)'s untimed checks).  Returns (process, log dir, start
+    time)."""
+    wait, npz = saving
+    _, waited = wait()
+    print(f"  waited {waited:.1f} s for the .npz ({os.path.getsize(npz) / 2**20:.0f} MiB)")
+    d = os.path.join(root, "past_1024")
+    proc = _cli_start(_cli_cmd(
+        d, "--ckpt-path", npz, "--preeq-steps", "0", "--sim-steps", str(PAST_CLI_STEPS),
+        "--record-per-steps", str(PAST_CLI_RECORD), "--timestep", str(USER_DT_FS)))
+    return proc, d, time.perf_counter()
+
+
+def finish_past_cli(started):
+    """Phase 19(e), its end: exit 0, the model line naming the wide K1-K3."""
+    proc, d, t0 = started
+    txt = _cli_wait("past 1,024", proc)
+    need("Simulation finished!" in txt, "the CLI run past 1,024 did not finish")
+    rows = _metrics(os.path.join(d, "chig-metrics.csv"))
+    line = cli_model_line(txt, "edge-core kernels K1-K3 (wide instantiations: K1, K2, K3)")
+    need(f"ViSNet {N_LAYERS} x {PAST_H}, {PAST_NH} heads:" in line, f"the CLI ran {line!r}")
+    print(f"  (e) exit 0 in {time.perf_counter() - t0:.1f} s, {PAST_CLI_STEPS} steps at "
+          f"{USER_DT_FS} fs; metrics ms/step {[r['ms_per_step'] for r in rows]} (beside (a)'s "
+          f"checks); {line!r}")
+    return dict(line=line, ms_per_step=[r["ms_per_step"] for r in rows])
+
+
+def run_past_1024(torch, dev, prot, card, root, saving=None, cases=PAST_CASES):
+    """Phase 19: (e) the CLI on the slice's weights (``saving``:
+    save_past_npz's, started here when None), started first
+    (start_past_cli) and run beside (a)-(b) (check_past_kernels), its end
+    awaited (finish_past_cli) before (c), the timed case; (d) the 9 x 1,280
+    slice (run_past_slice) and the step 0 of a 3 x 1,280 model
+    (start_past_reference, its float64 run beside the drives,
+    finish_past_reference).  Returns its figures."""
+    t_phase = time.perf_counter()
+    res = {}
+    print(f"  (e) python -m ai2bmd_torch --ckpt-path on the slice's weights, in the background")
+    started = start_past_cli(root, saving or save_past_npz(torch, root))
+
+    def finish_cli():
+        t0 = time.perf_counter()
+        res["cli"] = finish_past_cli(started)
+        res["e_wait_s"] = time.perf_counter() - t0
+
+    print(f"  (a) K1 (four flag pairs), K2, K3, K7, K8, K5 and K6 at (H, heads) {cases} "
+          f"against their plain versions")
+    res["kernels"] = check_past_kernels(torch, dev, before_timed=finish_cli, cases=cases)
+    res["abc_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    reference = start_past_reference(torch, dev, prot)
+    sl = run_past_slice(torch, dev, prot, card)
+    sl["step0_max_dF"], sl["ref_s"] = finish_past_reference(torch, reference)
+    res["d_s"] = time.perf_counter() - t0
+    res["slice"] = sl
+    res["phase_s"] = time.perf_counter() - t_phase
+    g, gf = sl["edge"]["graphed"], sl["fused"]["graphed"]
+    print(f"  9 x {PAST_H}, {PAST_NH} heads: graphed {g['ms_step']:.3f} ms/step (events "
+          f"{g['ms_events']:.3f}, {g['kernels_per_step']:.0f} kernels a step, "
+          f"{100 * g['busy_share']:.1f}% busy, capture peak {g['peak_mib']:.1f} MiB) through "
+          f"K1-K3; {gf['ms_step']:.3f} (events {gf['ms_events']:.3f}, "
+          f"{gf['kernels_per_step']:.0f} kernels, {100 * gf['busy_share']:.1f}% busy, "
+          f"{gf['peak_mib']:.1f} MiB) through K5/K6; step 0 ({PAST_REF_LAYERS} layers) max|dF| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sl["step0_max_dF"].items())
+          + f"; (a)-(c) took {res['abc_s']:.1f} s (waiting {res['e_wait_s']:.1f} s of it for "
+          f"the CLI), (d) {res['d_s']:.1f} s, phase 19 {res['phase_s']:.1f} s ({card})")
+    return res
+
+
+def past_entry(p19, name):
+    """A kernel's figures of phase 19 for the kernels line: its largest error
+    over the cases past 1,024 channels, the timed case's ms, bound and
+    share, its resources by width, its launches on the slice."""
+    k = p19["kernels"]
+    if name in MIXED_KERNELS:
+        return dict(max_abs_err=k["bf16"][name]["max_abs_err"], cases=PAST_BF16)
+    res = k[name]
+    sl = p19["slice"]
+    return dict(max_abs_err=res["max_abs_err"], timed=res.get("timed"),
+                occupancy=res["occupancy"],
+                modes={m: v[name]["max_abs_err"] for m, v in k["modes"].items() if name in v},
+                slice_launches_per_eval=sl["fused" if name in LAYER_PATH else "edge"]
+                ["per_eval"].get(name, 0),
+                remat_launches_per_eval=sl["remat_launches"].get(name, 0))
+
+
 def no_plain(phase):
     """Every phase but 9d's plain route must keep LAUNCHES["plain_edge_core"]
     at 0; reset_launches() leaves it alone, so it counts the whole phase."""
@@ -5938,11 +6540,11 @@ def main(argv=None):
                          "final line")
     ap.add_argument("--wide-only", action="store_true",
                     help="after the build, run only phase 15 (the edge kernels at every head and "
-                         "hidden width, and Chignolin at 9 x 512 with 4 heads through them), "
+                         "hidden width, and Chignolin at 3 x 512 with 4 heads through them), "
                          "without the final line")
     ap.add_argument("--layer-wide-only", action="store_true",
                     help="after the build, run only phase 16 (the full-layer kernels at every head "
-                         "and hidden width, Chignolin at 9 x 512 with 4 heads through them, and a "
+                         "and hidden width, Chignolin at 3 x 512 with 4 heads through them, and a "
                          "molecule of 1,112 slots), without the final line")
     ap.add_argument("--mixed-only", action="store_true",
                     help="after the build, run only phase 17 (the mixed-precision mode: the "
@@ -5950,6 +6552,12 @@ def main(argv=None):
                          "mode, the lone Chignolin step and two whole molecules with "
                          "edge_dtype=bfloat16, the float32 kernels' hashes), without the final "
                          "line")
+    ap.add_argument("--past-1024-only", action="store_true",
+                    help="after the build, run only phase 19 (past 1,024 channels: the edge and "
+                         "full-layer kernels at H = 1,064-8,192 against their plain versions "
+                         "(8,192 only here), "
+                         "their resources to 8,192, Chignolin at 9 x 1,280 with 8 heads through "
+                         "K1-K3 and K5/K6, the CLI on it), without the final line")
     ap.add_argument("--runtime-only", action="store_true",
                     help="after the build, run only phase 18 (the native trajectory writer: its "
                          "g++ build, the solvated box's frames through it and through the Python "
@@ -5988,6 +6596,10 @@ def main(argv=None):
     _build.library()
     print(f"  built {_build.BUILD_INFO['path']} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.BUILD_INFO['seconds']:.1f} s, cached {_build.BUILD_INFO['cached']})")
+    if "units" in _build.BUILD_INFO:
+        print("  each source's nvcc ended after (s): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_INFO["units"].items(),
+                                               key=lambda kv: -kv[1])))
     for line in _build.BUILD_INFO.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
@@ -6006,6 +6618,13 @@ def main(argv=None):
     if args.preprocess_full:
         print("== preprocessing with the default stages")
         run_preprocess_full(torch, card, root)
+        return
+    if args.past_1024_only:
+        shutil.rmtree(root, ignore_errors=True)
+        print("== 19. past 1,024 channels (alone)")
+        run_past_1024(torch, dev, load_protein(example_pdb("chig")), card, root,
+                      cases=PAST_CASES + PAST_ALONE_CASES)
+        no_plain("19")
         return
     if args.runtime_only:
         shutil.rmtree(root, ignore_errors=True)
@@ -6055,7 +6674,6 @@ def main(argv=None):
         run_preprocessing_and_replicas(torch, dev, card, root, solv["flex"])
         return
 
-    prebuild = prebuild_modes() if args.stop_after is None else None
     phase("== 3. kernels against their plain versions")
     results = {n: {"max_abs_err": 0.0} for n in KERNELS}
     check_tf32x3(torch, dev)
@@ -6071,16 +6689,18 @@ def main(argv=None):
     cublas_yardstick(torch, dev, results)
     if args.stop_after == 3:
         return
+    prebuild = prebuild_modes()
 
     phase("== 4. the slice: Chignolin, ViSNet 9 x 256, fragment MD, edge-core kernels K1-K3")
-    launches, ms_step, graphed, ref = run_slice(torch, dev, prot, card)
+    launches, ms_step, graphed, ref, pending = run_slice(torch, dev, prot, card)
     no_plain("4")
     phase("== 4b. the same slice through the full-layer kernels K5/K6")
-    launches_fl, ms_step_fl, graphed_fl = run_fused_slice(torch, dev, prot, card, ref)
+    launches_fl, ms_step_fl, graphed_fl, step0_fl = run_fused_slice(torch, dev, prot, card, ref)
     no_plain("4b")
     phase("== 5. the replica ensemble: 64 Chignolin replicas, 9 x 256, remat=True (K1, K7, K8)")
     launches_ens = run_ensemble(torch, dev, prot, card, ref)
     no_plain("5")
+    finish_slice(torch, ref, pending, step0_fl)    # phase 4's CPU float64 run, beside 4b and 5
     phase("== 6. the user-facing path: ProteinSimulation and the CLI (python -m ai2bmd_torch)")
     shutil.rmtree(root, ignore_errors=True)
     run_user_library(torch, dev, root, ref)
@@ -6120,32 +6740,41 @@ def main(argv=None):
     mesh_launches = run_mesh(torch, dev, prot, card, root)
     no_plain("13")
     phase("== 14. the products' modes (AI2BMD_KERNEL_MM_PRECISION b3, highest, default): each "
-          "kernel against its mode's plain model, the lone graphed step in each mode; the CLI's "
-          "--matmul-precision")
-    p14 = run_precision(torch, dev, prot, card, root, ref, prebuild)
+          "kernel against its mode's plain model (the lone graphed step in each mode: "
+          "--precision-only); the CLI's --matmul-precision")
+    p14 = run_precision(torch, dev, prot, card, root, ref, prebuild, lone_step=False)
     no_plain("14")
-    print(f"== 15. every head and hidden width through the edge kernels: K1-K3, K7, K8 at heads "
+    phase(f"== 15. every head and hidden width through the edge kernels: K1-K3, K7, K8 at heads "
           f"of 24 to 1024 channels and H = 40 to 1024 against their plain versions; Chignolin at "
-          f"9 x {WIDE_H} with {WIDE_NH} heads (graphed, remat, the CLI, AI2BMD_FUSED_LAYER=1)")
-    p15 = run_widths(torch, dev, prot, card, root, lone=launches)
+          f"{WIDE_LAYERS} x {WIDE_H} with {WIDE_NH} heads (graphed, remat, the CLI, "
+          f"AI2BMD_FUSED_LAYER=1)")
+    p15 = run_widths(torch, dev, prot, card, root)
     no_plain("15")
-    print(f"== 16. the full-layer kernels at every width and one molecule past 1,024 slots: K5/K6 at "
+    phase(f"== 16. the full-layer kernels at every width and one molecule past 1,024 slots: K5/K6 at "
           f"heads of 8 to 256 channels and H = 40 to 1024 against their plain versions; Chignolin "
-          f"at 9 x {WIDE_H} with {WIDE_NH} heads through them (graphed, the CLI), 2 x {PAD_H}; "
+          f"at {WIDE_LAYERS} x {WIDE_H} with {WIDE_NH} heads through them (graphed, the CLI), "
+          f"2 x {PAD_H}; "
           f"ACE-(ALA){POLY_RES}-NME (1,112 slots) through every kernel and both routes")
+    p19_npz = save_past_npz(torch, root)   # phase 19's checkpoint, written beside 16-18
     p16 = run_layer_widths(torch, dev, prot, card, root, ref15=p15["ref"])
     no_plain("16")
-    print("== 17. the mixed-precision mode (ViSNetConfig.edge_dtype=torch.bfloat16): the "
+    phase("== 17. the mixed-precision mode (ViSNetConfig.edge_dtype=torch.bfloat16): the "
           "bfloat16 instantiations of K1-K3, K7, K8 against their plain versions (narrow and "
           "wide, in each products' mode); the lone Chignolin step and two whole molecules in the "
           "mode; the float32 kernels' hashes")
     p17 = run_mixed(torch, dev, prot, card, ref, p16["long"]["evals"]["fused"]["peak_gib"])
     no_plain("17")
-    print("== 18. the native trajectory writer (ai2bmd_torch.runtime): its g++ build, 10 frames "
+    phase("== 18. the native trajectory writer (ai2bmd_torch.runtime): its g++ build, 10 frames "
           "of the solvated box through it and through the Python writers, phase 9c's CLI lines, "
           "the solvated Simulator through each writer")
     p18 = run_runtime(torch, card, root, solv)
     no_plain("18")
+    phase(f"== 19. past 1,024 channels: K1-K3, K7, K8, K5 and K6 at H = 1,064 to 4,096 (heads of "
+          f"128 to 256 channels) against their plain versions, in bfloat16 storage and each "
+          f"products' mode; their resources to H = 8,192; Chignolin at 9 x {PAST_H} with "
+          f"{PAST_NH} heads through K1-K3 and K5/K6 (graphed, remat, the CLI)")
+    p19 = run_past_1024(torch, dev, prot, card, root, p19_npz)
+    no_plain("19")
     need(not any(m == "jax" or m.startswith("jax.") for m in sys.modules), "JAX was imported")
     need(not any(m.startswith("ai2bmd_tpu") for m in sys.modules), "ai2bmd_tpu was imported")
 
@@ -6190,8 +6819,15 @@ def main(argv=None):
         if k["name"] in EDGE_NAMES or k["name"] in LAYER_PATH:
             k["slots_1112"] = long_entry(p16, k["name"])
     kernels += [mixed_entry(p17, n) for n in MIXED_KERNELS]   # phase 17: bfloat16 storage
+    for k in kernels:      # phase 19: past 1,024 channels
+        if k["name"] in EDGE_NAMES or k["name"] in LAYER_PATH or k["name"] in MIXED_KERNELS:
+            k["past_1024"] = past_entry(p19, k["name"])
     g17 = p17["step"]["mixed"]
-    print("== 19. results")
+    g19, g19f = p19["slice"]["edge"]["graphed"], p19["slice"]["fused"]["graphed"]
+    phase("== 20. results")
+    print("  seconds by phase (from its header to the next one's; 1-2, the environment and "
+          f"the build, {PHASE_AT[0][1] - T_WALL:.1f}): " + ", ".join(
+              f"{name} {b - a:.1f}" for (name, a), (_, b) in zip(PHASE_AT, PHASE_AT[1:])))
     print(f"  ms/step eager {ms_step:.3f} (K1-K3), {ms_step_fl:.3f} (K5/K6); graphed "
           f"{graphed['ms_step']:.3f} (K1-K3), {graphed_fl['ms_step']:.3f} (K5/K6); CLI steady "
           f"{cli_ms:.3f} (K1-K3) (smoke); whole molecule (A = 176) graphed "
@@ -6206,9 +6842,8 @@ def main(argv=None):
           f"(events) nl {p11['nl']['ms_events']:.3f}, hybrid {p11['pol']['ms_events']:.3f}, "
           f"AMOEBA {p11['amoeba']['ms_events']:.3f}; AMOEBA preprocessing "
           f"{p12['wall_s']:.2f} s ({AMOEBA_MAX_CYC} cycles, {p12['cycle_ms']:.3f} ms a captured "
-          f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; the lone step graphed (events) by "
-          f"products' mode " + ", ".join(f"{m} {p14['step'][m]['ms_step']:.3f}" for m in MODES)
-          + f"; the wide slice (9 x {WIDE_H}, {WIDE_NH} heads) graphed "
+          f"cycle), AmoebaMD {p12['md_ms']:.3f} ms/step; the wide slice ({WIDE_LAYERS} x {WIDE_H}, "
+          f"{WIDE_NH} heads) graphed "
           f"{p15['graphed']['ms_step']:.3f} (events {p15['graphed']['ms_events']:.3f}) K1-K3, "
           f"{p16['slice']['graphed']['ms_step']:.3f} (events "
           f"{p16['slice']['graphed']['ms_events']:.3f}) K5/K6; 1,112 slots an evaluation "
@@ -6219,7 +6854,9 @@ def main(argv=None):
           f"through the native writer {p18['frames']['native_ms']:.3f} ms (submit), the Python "
           f"writers {p18['frames']['python_ms']:.3f}; the solvated run's steady ms/step native "
           f"{p18['writers']['native']['steady']:.3f}, Python writers "
-          f"{p18['writers']['python']['steady']:.3f}; "
+          f"{p18['writers']['python']['steady']:.3f}; 9 x {PAST_H}, {PAST_NH} heads graphed "
+          f"{g19['ms_step']:.3f} (events {g19['ms_events']:.3f}) K1-K3, {g19f['ms_step']:.3f} "
+          f"(events {g19f['ms_events']:.3f}) K5/K6; "
           f"{time.perf_counter() - T_START:.0f} s since start")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,13 @@
 """Port parity at the edge kernels' wide shapes (ai2bmd_torch vs ai2bmd_tpu).
 
-The edge kernels K1-K3, K7 and K8 take every H up to 1024 whose head count
-divides it: heads of 8, 16, 32 or 64 channels with H a multiple of 32 up to
-256 in their narrow instantiations, every other shape in their wide ones
-(``ops/vismp.narrow_shapes``).  On the CPU the wrappers run their plain
+The edge kernels K1-K3, K7 and K8 take every H whose head count divides it,
+as JAX's kernels do: heads of 8, 16, 32 or 64 channels with H a multiple of
+32 up to 256 in their narrow instantiations, every other shape in their
+wide ones (``ops/vismp.narrow_shapes``).  On the CPU the wrappers run their plain
 versions, which are shape-generic; these tests hold them, at wide shapes
 (heads of 24 and 160 channels, H = 48 and 320), against the JAX package's
-Pallas kernels in interpret mode, and the whole model against its jnp path.
+Pallas kernels in interpret mode, and the whole model against its jnp path
+(tests/test_torch_past_1024.py does so past 1,024 channels).
 The same inputs, made with numpy from a seed, go through both packages in
 float32.  They also hold the routing: on the card a wide silu model takes
 the edge kernels, or the full-layer kernels K5/K6 when it asks for them
@@ -73,6 +74,13 @@ def test_edge_core_and_vjp_match_pallas_at_wide_heads(rng, shape):
     """K1's plain version and FusedVisMP's backward (K2/K3's plain versions)
     against fused_vis_mp in interpret mode, values and VJP, with the edge
     update (layers 1-8)."""
+    check_edge_core(rng, shape)
+
+
+def check_edge_core(rng, shape):
+    """The body of test_edge_core_and_vjp_match_pallas_at_wide_heads at
+    ``shape`` = (B, A, H, heads); tests/test_torch_past_1024.py runs it past
+    1,024 channels."""
     B, A, H, nh = shape
     assert not TK.narrow_shapes(H, nh)
     a = _edge_inputs(rng, B, A, H)
@@ -104,7 +112,13 @@ def test_recompute_backward_matches_pallas_at_wide_heads(rng):
     """K7's and K8's plain versions against the recompute-mode Pallas
     kernels ``_bwd_msg_call`` and ``_bwd_upd_call`` in interpret mode, on
     the sphere-major layout they take, at H = 320 with two heads of 160."""
-    B, A, H, nh = H320
+    check_recompute(rng, H320)
+
+
+def check_recompute(rng, shape):
+    """The body of test_recompute_backward_matches_pallas_at_wide_heads at
+    ``shape`` = (B, A, H, heads)."""
+    B, A, H, nh = shape
     a = _edge_inputs(rng, B, A, H)
     cutoff, S = 5.0, a["vec"].shape[2]
     g_x = rng.standard_normal((B, A, H)).astype(np.float32)
@@ -179,9 +193,10 @@ def test_wide_model_energy_and_forces_match_jax(wide_models, chig_batches, batch
 
 
 @pytest.mark.parametrize("H, nh", [(256, 2), (256, 1), (384, 8), (512, 4), (48, 2), (40, 5),
-                                   (1024, 8)],
+                                   (1024, 8), (1280, 8), (2048, 16), (4096, 16), (8192, 32)],
                          ids=["dh128", "dh256", "H384", "H512-dh128", "H48-dh24", "H40-dh8",
-                              "H1024"])
+                              "H1024", "H1280-dh160", "H2048-dh128", "H4096-dh256",
+                              "H8192-dh256"])
 def test_wide_silu_models_route_to_the_edge_kernels(monkeypatch, H, nh):
     """On the card a silu model at a wide shape resolves to the edge kernels
     K1-K3 (neither the plain edge core nor K5/K6), which check_shapes takes
@@ -203,10 +218,11 @@ def test_wide_silu_models_route_to_the_edge_kernels(monkeypatch, H, nh):
 
 
 def test_what_the_edge_kernels_still_refuse(monkeypatch):
-    """lmax 3 (S = 15), which no model of either package builds, H past
-    1024 and a head count that does not divide H raise, in the edge and the
-    full-layer kernels' checks alike, with AI2BMD_FUSED_LAYER=1 too; a
-    narrow model with AI2BMD_FUSED_LAYER=1 still takes K5/K6."""
+    """lmax 3 (S = 15), which no model of either package builds, and a head
+    count that does not divide H raise, in the edge and the full-layer
+    kernels' checks alike, with AI2BMD_FUSED_LAYER=1 too; H past 1024
+    (1,280 with 8 heads) is taken on either path; a narrow model with
+    AI2BMD_FUSED_LAYER=1 still takes K5/K6."""
     monkeypatch.delenv("AI2BMD_FUSED_LAYER", raising=False)
     with pytest.raises(ValueError, match="no model of either package builds S > 8"):
         TV.resolve_config(TV.ViSNetConfig(lmax=3), "cuda")
@@ -214,16 +230,17 @@ def test_what_the_edge_kernels_still_refuse(monkeypatch):
         with pytest.raises(ValueError, match=QUEUE_2):
             check(40, 256, 15, 8)
         with pytest.raises(ValueError, match=QUEUE_2):
-            check(40, 1280, 8, 8)
-    with pytest.raises(ValueError, match=QUEUE_2):
-        TV.resolve_config(TV.ViSNetConfig(hidden_channels=1280, num_heads=8), "cuda")
-    with pytest.raises(ValueError, match=QUEUE_2):
-        TV.resolve_config(TV.ViSNetConfig(hidden_channels=1280, num_heads=8, fused_layer=True),
-                          "cuda")
+            check(40, 48, 8, 5)
+        check(40, 1280, 8, 8)
+    cfg = TV.ViSNetConfig(hidden_channels=1280, num_heads=8)
+    assert TV.resolve_config(cfg, "cuda") is cfg
+    fused = dataclasses.replace(cfg, fused_layer=True)
+    assert TV.resolve_config(fused, "cuda") is fused
     with pytest.raises(ValueError, match="not a multiple of num_heads"):
         TV.resolve_config(TV.ViSNetConfig(hidden_channels=48, num_heads=5), "cuda")
     monkeypatch.setenv("AI2BMD_FUSED_LAYER", "1")
     assert TV.resolve_config(TV.ViSNetConfig(), "cuda").fused_layer
+    assert TV.resolve_config(cfg, "cuda") == fused
 
 
 @pytest.mark.parametrize("H, nh, msg, upd, remat, label", [
@@ -232,7 +249,12 @@ def test_what_the_edge_kernels_still_refuse(monkeypatch):
     (256, 1, False, True, True, " (wide instantiations: K1, K7)"),
     (512, 4, False, False, False, " (wide instantiations: K1, K2, K3)"),
     (48, 2, False, False, True, " (wide instantiations: K1, K7, K8)"),
-], ids=["H256-dh32", "dh128", "dh256-remat", "H512-dh128", "H48-dh24-remat"])
+    (1280, 8, False, False, False, " (wide instantiations: K1, K2, K3)"),
+    (2048, 16, False, False, True, " (wide instantiations: K1, K7, K8)"),
+    (4096, 16, False, False, False, " (wide instantiations: K1, K2, K3)"),
+    (8192, 32, False, False, True, " (wide instantiations: K1, K7, K8)"),
+], ids=["H256-dh32", "dh128", "dh256-remat", "H512-dh128", "H48-dh24-remat", "H1280-dh160",
+        "H2048-dh128-remat", "H4096-dh256", "H8192-dh256-remat"])
 def test_each_kernel_family_picks_its_instantiation(H, nh, msg, upd, remat, label):
     """K1, K2, K7, K5 and K6 sum heads and pick by (H, heads)
     (``narrow_shapes``); K3 and K8 sum none and pick by H

@@ -1,7 +1,7 @@
 """Port parity of the full-layer kernels' wide shapes and of a molecule past
 1,024 slots (ai2bmd_torch vs ai2bmd_tpu), on the CPU.
 
-K5/K6 take every H up to 1024 whose head count divides it: their narrow
+K5/K6 take every H whose head count divides it: their narrow
 instantiations heads of 8, 16, 32 or 64 channels with H a multiple of 32 up
 to 256, their wide ones every other shape, with every weight zero-padded to
 a multiple of 32 channels a segment (``ops.vislayer.padded_layer_weights``).
@@ -95,6 +95,12 @@ def test_wide_layer_matches_pallas(rng, H, nh, last):
     forward and VJP in interpret mode, within 2e-5 and 5e-5 abs and rel;
     then again on the padded weights the model hands the kernels, which
     must give the unpadded result bit for bit."""
+    check_layer(rng, H, nh, last)
+
+
+def check_layer(rng, H, nh, last):
+    """The body of test_wide_layer_matches_pallas at width H with nh heads;
+    tests/test_torch_past_1024.py runs it past 1,024 channels."""
     assert not TK.narrow_shapes(H, nh) and TK.layer_shapes(H, nh, S)
     jw, tw, a = _layer(H, nh, last, rng)
     outs_j = JL._fwd_call(*[jnp.asarray(a[n]) for n in ORDER], jw, CUTOFF, nh, last,
@@ -127,7 +133,8 @@ def test_wide_layer_matches_pallas(rng, H, nh, last):
     assert all(torch.equal(p, u) for p, u in zip(results[1], results[0]))
 
 
-@pytest.mark.parametrize("H, nh", [(48, 2), (288, 3)], ids=["H48", "H288"])
+@pytest.mark.parametrize("H, nh", [(48, 2), (288, 3), (1064, 8)],
+                         ids=["H48", "H288", "H1064-dh133"])
 def test_padded_layer_weights(H, nh):
     """padded_layer_weights zero-pads every weight and bias to
     wide_width(H) a segment (the head pool as it is), takes a tuple padded
@@ -235,8 +242,10 @@ def test_molecule_past_1024_slots_matches_jax(polyalanine, fused):
     np.testing.assert_allclose(f_t.numpy(), f_j, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("H, nh", [(512, 4), (48, 2), (1024, 8)],
-                         ids=["H512-dh128", "H48-dh24", "H1024-dh128"])
+@pytest.mark.parametrize("H, nh", [(512, 4), (48, 2), (1024, 8), (1280, 8), (2048, 16),
+                                   (4096, 16), (8192, 32)],
+                         ids=["H512-dh128", "H48-dh24", "H1024-dh128", "H1280-dh160",
+                              "H2048-dh128", "H4096-dh256", "H8192-dh256"])
 def test_wide_models_keep_the_full_layer_kernels(monkeypatch, H, nh):
     """check_shapes and check_layer_shapes take 1,112 slots at these widths
     and still refuse a slot count that is not a multiple of 8; on the card
@@ -255,16 +264,17 @@ def test_wide_models_keep_the_full_layer_kernels(monkeypatch, H, nh):
 
 
 def test_what_the_full_layer_kernels_refuse(monkeypatch):
-    """H past 1024, a head count that does not divide H and S > 8 raise, in
+    """A head count that does not divide H and S > 8 raise, in
     check_layer_shapes and in resolve_config with fused_layer, naming
-    ROADMAP.md Queue 2 (S > 8: no model of either package builds it)."""
+    ROADMAP.md Queue 2 (S > 8: no model of either package builds it); H
+    past 1024 (1,056 with 8 heads) is taken there and resolves to K5/K6."""
     monkeypatch.setenv("AI2BMD_FUSED_LAYER", "1")
-    for H, nh, S_ in ((1056, 8, 8), (48, 5, 8), (256, 8, 15)):
+    for H, nh, S_ in ((48, 5, 8), (256, 8, 15)):
         with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
             TK.check_layer_shapes(40, H, S_, nh)
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 2"):
-        TV.resolve_config(TV.ViSNetConfig(hidden_channels=1056, num_heads=8, fused_layer=True),
-                          "cuda")
+    TK.check_layer_shapes(40, 1056, 8, 8)
+    cfg = TV.ViSNetConfig(hidden_channels=1056, num_heads=8, fused_layer=True)
+    assert TV.resolve_config(cfg, "cuda") is cfg
     with pytest.raises(ValueError, match="not a multiple of num_heads"):
         TV.resolve_config(TV.ViSNetConfig(hidden_channels=48, num_heads=5, fused_layer=True),
                           "cuda")
